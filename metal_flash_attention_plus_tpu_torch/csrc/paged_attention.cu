@@ -1,0 +1,532 @@
+// Paged attention kernels for Hopper (sm_90a): single-token decode and
+// chunked causal prefill over the merged float page pool.
+//
+// Replaces (TPU kernels of metal_flash_attention_plus_tpu):
+//   - serving/paged_attention.py::_decode_kernel_streamed and ::_decode_kernel
+//     (one function, two TPU schedules chosen by head_dim) -> paged_decode_kernel
+//   - serving/paged_attention.py::_prefill_kernel -> paged_prefill_kernel
+//
+// Pool layout (both kernels): kv [Hkv, NP+1, 2*PT, D] of T (one layer of
+// serving/kv_cache.py's pool); K of a page in token rows [0, PT), V in rows
+// [PT, 2PT).  Page ids come from int32 tables; an id is clamped into the
+// pool so a bad entry cannot read outside it.  T is float or bf16.
+//
+// Numerics, shared with the plain PyTorch versions in
+// serving/paged_attention.py so the two can be held to a tight tolerance:
+//   - q is pre-scaled and rounded back to T: (float(q) * scale) -> T;
+//   - scores and all softmax statistics are fp32, natural exp, online
+//     (running max m, running sum l, rescale alpha = exp(m_prev - m_next),
+//     alpha = 0 while m_prev is -inf, p = 0 where the score is -inf);
+//   - P is rounded to T (V's type) before P.V; l sums the unrounded p;
+//   - the P.V sum is fp32 and the output is acc / l in T.
+//
+// Paged decode: what bounds it on the H100, and the design.
+//   One query token per sequence against its whole cache: 2 flops per KV
+//   byte, far below the ~295 flop/byte ridge, so the bound is the live KV
+//   bytes over 3.35 TB/s.  One CTA per (sequence, KV head) holds the GQA
+//   group's Hq/Hkv query rows (q head h -> kv head h / group), so each KV
+//   byte is read once for the whole group.  The CTA walks the live tokens,
+//   ceil(length / 64) tiles of 64 tokens, reading its own page ids; each
+//   tile's K and V rows are staged in shared memory with coalesced 16-byte
+//   loads (padded rows, no bank conflicts in the score loop) and consumed
+//   by scalar fp32 FMAs.  Tiles of 64 tokens rather than whole pages keep
+//   shared memory under 72 KB for any page size, D = 128 and fp32 alike.
+//   Known limit: at batch 8 x 4 KV heads this is 32 CTAs on 132 SMs, and
+//   each CTA loads then computes with no overlap; the kernel is latency
+//   bound, well short of the byte bound.  Split-KV (flash-decoding) and
+//   cp.async/TMA double buffering are the planned fixes.
+//
+// Paged chunked prefill: what bounds it on the H100, and the design.
+//   A chunk of C queries of one sequence against its cached prefix plus its
+//   own causal triangle: 4*Hq*C*(offset+C)*D flops over ~(offset+C)*Hkv*2*D
+//   elements of KV, i.e. compute bound at the engine's C = 256 (989 TFLOP/s
+//   bf16 tensor cores).  This first version does the products with scalar
+//   fp32 FMAs (67 TFLOP/s peak), so it cannot reach that bound; it is the
+//   right-and-simple step before wgmma/TMA.  One CTA per (64-row tile of
+//   the group-major rows r = g*C + c, KV head); the rows of one KV head are
+//   contiguous in q [Hq, C, D], so the tile is one strided block.  The CTA
+//   walks 64-token KV tiles up to its own causal limit (global positions:
+//   column <= offset + (r mod C)), skipping the tiles no row of it can see.
+//   Q, K and P are staged transposed in shared memory so each thread's 4x4
+//   score block and 4 x D/16 output block read 16-byte vectors.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int VEC = 4;  // elements per 16-byte load
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
+  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int VEC = 8;
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16(v);
+  }
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+};
+
+__device__ __forceinline__ int clamp_page(int page, int num_pages_total) {
+  return min(max(page, 0), num_pages_total - 1);
+}
+
+// ---------------------------------------------------------------------------
+// Decode
+// ---------------------------------------------------------------------------
+
+constexpr int DEC_THREADS = 128;
+constexpr int DEC_TK = 64;        // KV tokens per tile
+constexpr int DEC_MAX_OUT = 16;   // output elements per thread: G*D <= 2048
+
+size_t decode_smem_bytes(int G, int D) {
+  return sizeof(float) *
+         (size_t)(G * D + 2 * DEC_TK * (D + 4) + G * DEC_TK + 3 * G);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DEC_THREADS)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                    const int32_t* __restrict__ table,
+                    const int32_t* __restrict__ lengths, T* __restrict__ out,
+                    int Hq, int Hkv, int num_pages_total, int PT,
+                    int max_pages, float scale) {
+  using E = Elem<T>;
+  constexpr int KS = D + 4;  // padded smem row (floats)
+  constexpr int VPR = D / E::VEC;  // 16-byte vectors per token row
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = Hq / Hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                // [G][D]
+  float* ks = qs + G * D;          // [TK][KS]
+  float* vs = ks + DEC_TK * KS;    // [TK][KS]
+  float* ps = vs + DEC_TK * KS;    // [G][TK]
+  float* m_s = ps + G * DEC_TK;    // [G]
+  float* l_s = m_s + G;            // [G]
+  float* a_s = l_s + G;            // [G]
+
+  const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
+  for (int i = tid; i < G * D; i += DEC_THREADS)
+    qs[i] = E::round(E::load(qb + i) * scale);
+  for (int g = tid; g < G; g += DEC_THREADS) {
+    m_s[g] = -INFINITY;
+    l_s[g] = 0.f;
+  }
+  float acc[DEC_MAX_OUT];
+#pragma unroll
+  for (int k = 0; k < DEC_MAX_OUT; ++k) acc[k] = 0.f;
+
+  const int n_out = G * D;
+  const int32_t* row = table + (size_t)b * max_pages;
+  const size_t head_base = (size_t)h * num_pages_total;
+  const int n_tok = min(lengths[b], max_pages * PT);
+
+  for (int t0 = 0; t0 < n_tok; t0 += DEC_TK) {
+    for (int i = tid; i < DEC_TK * VPR; i += DEC_THREADS) {
+      const int t = i / VPR;
+      const int c = i % VPR;
+      const int pos = t0 + t;
+      float kf[E::VEC], vf[E::VEC];
+      if (pos < n_tok) {
+        const int page = clamp_page(row[pos / PT], num_pages_total);
+        const T* base =
+            kv + ((head_base + page) * 2 * PT + pos % PT) * D + c * E::VEC;
+        E::unpack(*reinterpret_cast<const uint4*>(base), kf);
+        E::unpack(*reinterpret_cast<const uint4*>(base + (size_t)PT * D), vf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E::VEC; ++e) kf[e] = vf[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < E::VEC; ++e) {
+        ks[t * KS + c * E::VEC + e] = kf[e];
+        vs[t * KS + c * E::VEC + e] = vf[e];
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < G * DEC_TK; i += DEC_THREADS) {
+      const int g = i / DEC_TK;
+      const int t = i % DEC_TK;
+      const float4* qv = reinterpret_cast<const float4*>(qs + g * D);
+      const float4* kr = reinterpret_cast<const float4*>(ks + t * KS);
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 a = qv[c];
+        const float4 k4 = kr[c];
+        s = fmaf(a.x, k4.x, s);
+        s = fmaf(a.y, k4.y, s);
+        s = fmaf(a.z, k4.z, s);
+        s = fmaf(a.w, k4.w, s);
+      }
+      ps[i] = (t0 + t < n_tok) ? s : -INFINITY;
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += DEC_THREADS / 32) {
+      float* pr = ps + g * DEC_TK;
+      const float s0 = pr[lane];
+      const float s1 = pr[lane + 32];
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_prev = m_s[g];
+      const float m_next = fmaxf(m_prev, mx);
+      const float alpha = (m_prev == -INFINITY) ? 0.f : expf(m_prev - m_next);
+      const float p0 = (s0 == -INFINITY) ? 0.f : expf(s0 - m_next);
+      const float p1 = (s1 == -INFINITY) ? 0.f : expf(s1 - m_next);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      pr[lane] = E::round(p0);
+      pr[lane + 32] = E::round(p1);
+      __syncwarp();
+      if (lane == 0) {
+        m_s[g] = m_next;
+        l_s[g] = alpha * l_s[g] + sum;
+        a_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int k = 0; k < DEC_MAX_OUT; ++k) {
+      const int o = tid + k * DEC_THREADS;
+      if (o < n_out) {
+        const int g = o / D;
+        const int d = o % D;
+        const float* pr = ps + g * DEC_TK;
+        float pv = 0.f;
+#pragma unroll 8
+        for (int t = 0; t < DEC_TK; ++t) pv = fmaf(pr[t], vs[t * KS + d], pv);
+        acc[k] = acc[k] * a_s[g] + pv;
+      }
+    }
+    __syncthreads();
+  }
+
+  T* ob = out + ((size_t)b * Hq + (size_t)h * G) * D;
+#pragma unroll
+  for (int k = 0; k < DEC_MAX_OUT; ++k) {
+    const int o = tid + k * DEC_THREADS;
+    if (o < n_out) {
+      float l = l_s[o / D];
+      if (l == 0.f) l = 1.f;
+      E::store(ob + o, acc[k] / l);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Chunked prefill
+// ---------------------------------------------------------------------------
+
+constexpr int PF_BM = 64;  // query rows per CTA
+constexpr int PF_BN = 64;  // KV tokens per tile
+constexpr int PF_THREADS = 256;  // 16 x 16: 4 rows x 4 columns each
+constexpr int PF_PAD = 4;
+
+size_t prefill_smem_bytes(int D) {
+  const int ldm = PF_BM + PF_PAD, ldn = PF_BN + PF_PAD, ldv = D + PF_PAD;
+  return sizeof(float) *
+         (size_t)(D * ldm + D * ldn + PF_BN * ldv + PF_BN * ldm);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(PF_THREADS)
+paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                     const int32_t* __restrict__ page_row,
+                     T* __restrict__ out, int Hq, int Hkv, int C,
+                     int num_pages_total, int PT, int max_pages, int offset,
+                     float scale) {
+  using E = Elem<T>;
+  constexpr int DV = D / 16;  // output dims per thread
+  constexpr int LDM = PF_BM + PF_PAD;
+  constexpr int LDN = PF_BN + PF_PAD;
+  constexpr int LDV = D + PF_PAD;
+  constexpr int VPR = D / E::VEC;
+
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;                // [D][LDM]   Q transposed
+  float* kt = qt + D * LDM;        // [D][LDN]   K transposed
+  float* vs = kt + D * LDN;        // [BN][LDV]
+  float* pt = vs + PF_BN * LDV;    // [BN][LDM]  P transposed
+
+  const int h = blockIdx.y;
+  const int G = Hq / Hkv;
+  const int rows = G * C;
+  const int r0 = blockIdx.x * PF_BM;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const size_t head_row0 = (size_t)h * rows;
+  const T* qh = q + head_row0 * D;
+
+  for (int i = tid; i < PF_BM * VPR; i += PF_THREADS) {
+    const int r = i / VPR;
+    const int c = i % VPR;
+    float f[E::VEC];
+    if (r0 + r < rows) {
+      E::unpack(*reinterpret_cast<const uint4*>(qh + (size_t)(r0 + r) * D +
+                                                c * E::VEC),
+                f);
+#pragma unroll
+      for (int e = 0; e < E::VEC; ++e) f[e] = E::round(f[e] * scale);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E::VEC; ++e) f[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < E::VEC; ++e) qt[(c * E::VEC + e) * LDM + r] = f[e];
+  }
+
+  int lim[4];  // last visible global column of each of this thread's rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) lim[i] = offset + (r0 + ty * 4 + i) % C;
+  const int r_last = min(r0 + PF_BM, rows) - 1;
+  const int c_max = (r0 / C == r_last / C) ? (r_last % C) : (C - 1);
+  const int kv_end = min(offset + c_max + 1, max_pages * PT);
+
+  float m[4], l[4], acc[4][DV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DV; ++e) acc[i][e] = 0.f;
+  }
+  const size_t head_base = (size_t)h * num_pages_total;
+
+  for (int t0 = 0; t0 < kv_end; t0 += PF_BN) {
+    __syncthreads();  // Q staged (first tile); last tile's readers done
+    for (int i = tid; i < PF_BN * VPR; i += PF_THREADS) {
+      const int t = i / VPR;
+      const int c = i % VPR;
+      const int pos = t0 + t;
+      float kf[E::VEC], vf[E::VEC];
+      if (pos < kv_end) {
+        const int page = clamp_page(page_row[pos / PT], num_pages_total);
+        const T* base =
+            kv + ((head_base + page) * 2 * PT + pos % PT) * D + c * E::VEC;
+        E::unpack(*reinterpret_cast<const uint4*>(base), kf);
+        E::unpack(*reinterpret_cast<const uint4*>(base + (size_t)PT * D), vf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E::VEC; ++e) kf[e] = vf[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < E::VEC; ++e) {
+        kt[(c * E::VEC + e) * LDN + t] = kf[e];
+        vs[t * LDV + c * E::VEC + e] = vf[e];
+      }
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float4 a = *reinterpret_cast<const float4*>(qt + d * LDM + ty * 4);
+      const float4 k4 = *reinterpret_cast<const float4*>(kt + d * LDN + tx * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float kv4[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], kv4[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = t0 + tx * 4 + j;
+        if (col > lim[i] || col >= kv_end) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // The 16 threads of a row are the 16 lanes sharing ty in one warp.
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_next = fmaxf(m[i], mx);
+      const float alpha = (m[i] == -INFINITY) ? 0.f : expf(m[i] - m_next);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = (s[i][j] == -INFINITY) ? 0.f : expf(s[i][j] - m_next);
+        sum += p;
+        s[i][j] = E::round(p);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l[i] = alpha * l[i] + sum;
+      m[i] = m_next;
+#pragma unroll
+      for (int e = 0; e < DV; ++e) acc[i][e] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * LDM + ty * 4) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();
+
+    for (int c = 0; c < PF_BN; ++c) {
+      const float4 p4 = *reinterpret_cast<const float4*>(pt + c * LDM + ty * 4);
+      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+      const float* vr = vs + c * LDV + tx * DV;
+#pragma unroll
+      for (int e = 0; e < DV; ++e) {
+        const float ve = vr[e];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][e] = fmaf(pv[i], ve, acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    if (r < rows) {
+      const float li = (l[i] == 0.f) ? 1.f : l[i];
+      T* orow = out + (head_row0 + r) * D + tx * DV;
+#pragma unroll
+      for (int e = 0; e < DV; ++e) E::store(orow + e, acc[i][e] / li);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_decode(const void* q, const void* kv, const void* table,
+                  const void* lengths, void* out, int B, int Hq, int Hkv,
+                  int num_pages_total, int PT, int max_pages, float scale,
+                  cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  if (G * D > DEC_MAX_OUT * DEC_THREADS) return (int)cudaErrorInvalidValue;
+  const size_t smem = decode_smem_bytes(G, D);
+  auto kern = paged_decode_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(Hkv, B), DEC_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kv),
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(lengths),
+      static_cast<T*>(out), Hq, Hkv, num_pages_total, PT, max_pages, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_prefill(const void* q, const void* kv, const void* page_row,
+                   void* out, int Hq, int Hkv, int C, int num_pages_total,
+                   int PT, int max_pages, int offset, float scale,
+                   cudaStream_t stream) {
+  const int rows = (Hq / Hkv) * C;
+  const size_t smem = prefill_smem_bytes(D);
+  auto kern = paged_prefill_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3((rows + PF_BM - 1) / PF_BM, Hkv), PF_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kv),
+      static_cast<const int32_t*>(page_row), static_cast<T*>(out), Hq, Hkv, C,
+      num_pages_total, PT, max_pages, offset, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes).  dtype: 0 = float32, 1 = bfloat16.
+// Returns the launch's cudaError_t; cudaErrorInvalidValue for an unsupported
+// dtype or head dim.
+extern "C" {
+
+int mfa_paged_decode(const void* q, const void* kv, const void* table,
+                     const void* lengths, void* out, int dtype, int B, int Hq,
+                     int Hkv, int D, int num_pages_total, int PT,
+                     int max_pages, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MFA_DECODE(T, DD)                                                   \
+  return launch_decode<T, DD>(q, kv, table, lengths, out, B, Hq, Hkv,       \
+                              num_pages_total, PT, max_pages, scale, s)
+  if (dtype == 0) {
+    if (D == 32) MFA_DECODE(float, 32);
+    if (D == 64) MFA_DECODE(float, 64);
+    if (D == 128) MFA_DECODE(float, 128);
+  } else if (dtype == 1) {
+    if (D == 32) MFA_DECODE(__nv_bfloat16, 32);
+    if (D == 64) MFA_DECODE(__nv_bfloat16, 64);
+    if (D == 128) MFA_DECODE(__nv_bfloat16, 128);
+  }
+#undef MFA_DECODE
+  return (int)cudaErrorInvalidValue;
+}
+
+int mfa_paged_prefill(const void* q, const void* kv, const void* page_row,
+                      void* out, int dtype, int Hq, int Hkv, int C, int D,
+                      int num_pages_total, int PT, int max_pages, int offset,
+                      float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MFA_PREFILL(T, DD)                                                  \
+  return launch_prefill<T, DD>(q, kv, page_row, out, Hq, Hkv, C,           \
+                               num_pages_total, PT, max_pages, offset,     \
+                               scale, s)
+  if (dtype == 0) {
+    if (D == 32) MFA_PREFILL(float, 32);
+    if (D == 64) MFA_PREFILL(float, 64);
+    if (D == 128) MFA_PREFILL(float, 128);
+  } else if (dtype == 1) {
+    if (D == 32) MFA_PREFILL(__nv_bfloat16, 32);
+    if (D == 64) MFA_PREFILL(__nv_bfloat16, 64);
+    if (D == 128) MFA_PREFILL(__nv_bfloat16, 128);
+  }
+#undef MFA_PREFILL
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* mfa_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

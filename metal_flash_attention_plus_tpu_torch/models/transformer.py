@@ -1,0 +1,178 @@
+"""Flagship decoder-only GQA transformer, in PyTorch.
+
+The twin of the JAX package's ``models/transformer.py``: pre-RMSNorm,
+rotary embeddings, GQA attention, SwiGLU MLP, untied LM head.  Parameters
+are a plain dict mirroring the JAX pytree (``embed``, ``layers[i]`` with
+``ln1 wq wk wv wo ln2 wg wu wd``, ``ln_f``, ``unembed``), weights in JAX's
+``[in, out]`` layout so that ``x @ w`` computes the same product.
+
+``forward`` runs the plain dense reference attention.  It is the oracle
+the tests and ``chip_smoke.py`` hold the serving path to; the serving
+engine never calls it.  Its flash-kernel path comes with the training
+slice, as do ``block_sizes`` and ``remat``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from metal_flash_attention_plus_tpu_torch._device import (
+    DeviceLike,
+    resolve_device,
+)
+from metal_flash_attention_plus_tpu_torch.reference.attention import (
+    CAUSAL,
+    reference_attention,
+)
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32768
+    d_model: int = 1024
+    num_layers: int = 8
+    num_heads: int = 16
+    num_kv_heads: int = 4
+    head_dim: int = 64
+    d_ff: int = 4096
+    max_seq: int = 2048
+    rope_theta: float = 10000.0
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError("num_heads must be a multiple of num_kv_heads")
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+def init_params(
+    cfg: TransformerConfig,
+    generator: torch.Generator,
+    device: DeviceLike = None,
+) -> Params:
+    """Scaled-normal init (fp32 normals · fan_in^-0.5, stored in
+    ``cfg.dtype``); norm weights are fp32 ones.  The numbers come from
+    ``generator`` (a CPU generator) and differ from ``jax.random``'s; to
+    compare with the JAX package, convert its parameters with
+    :func:`models.convert.params_from_jax`."""
+    dev = resolve_device(device)
+    d, q, kv, f, v = (cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff,
+                      cfg.vocab_size)
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (w * fan_in ** -0.5).to(device=dev, dtype=cfg.dtype)
+
+    def ones():
+        return torch.ones(d, dtype=torch.float32, device=dev)
+
+    embed = dense((v, d), d)
+    unembed = dense((d, v), d)
+    layers = [
+        dict(
+            ln1=ones(),
+            wq=dense((d, q), d),
+            wk=dense((d, kv), d),
+            wv=dense((d, kv), d),
+            wo=dense((q, d), q),
+            ln2=ones(),
+            wg=dense((d, f), d),
+            wu=dense((d, f), d),
+            wd=dense((f, d), f),
+        )
+        for _ in range(cfg.num_layers)
+    ]
+    return dict(embed=embed, layers=layers, ln_f=ones(), unembed=unembed)
+
+
+def linear(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None):
+    """Dense ``[K, N]`` projection; the result is cast to ``out_dtype``
+    (default: x's dtype).  Quantized weights come with the W8A8 slice."""
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(
+            "quantized weights come with the W8A8 serving slice"
+        )
+    return (x @ w).to(out_dtype or x.dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary embedding.  x: [B, H, S, D] (D even); positions [S] or [B, S]."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )
+    ang = positions.float()[..., None] * freqs  # [S, d/2] or [B, S, d/2]
+    ang = ang[None, None] if positions.dim() == 1 else ang[:, None]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _split_heads(x: torch.Tensor, num_heads: int, head_dim: int):
+    b, s, _ = x.shape
+    return x.reshape(b, s, num_heads, head_dim).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor):
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def attention_block(
+    layer: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: TransformerConfig,
+) -> torch.Tensor:
+    """Pre-norm attention sublayer over the plain causal reference."""
+    h = rms_norm(x, layer["ln1"])
+    q = _split_heads(h @ layer["wq"], cfg.num_heads, cfg.head_dim)
+    k = _split_heads(h @ layer["wk"], cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(h @ layer["wv"], cfg.num_kv_heads, cfg.head_dim)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o, _ = reference_attention(q, k, v, mask=CAUSAL)
+    return x + (_merge_heads(o.to(x.dtype)) @ layer["wo"]).to(x.dtype)
+
+
+def mlp_block(layer: Params, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, layer["ln2"])
+    y = F.silu((h @ layer["wg"]).float()) * (h @ layer["wu"]).float()
+    return x + (y.to(x.dtype) @ layer["wd"]).to(x.dtype)
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """tokens [B, S] int → logits [B, S, V] fp32."""
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = params["embed"][tokens]
+    for layer in params["layers"]:
+        x = mlp_block(layer, attention_block(layer, x, positions, cfg))
+    h = rms_norm(x, params["ln_f"])
+    return (h @ params["unembed"]).float()

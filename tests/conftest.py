@@ -57,6 +57,9 @@ def eight_devices():
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test (MFA_SLOW_TESTS=1)")
     config.addinivalue_line("markers", "tpu_only: requires real TPU hardware")
+    config.addinivalue_line(
+        "markers", "cuda: requires an NVIDIA CUDA device (the torch port)"
+    )
 
 
 def pytest_collection_modifyitems(config, items):

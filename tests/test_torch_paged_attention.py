@@ -1,0 +1,122 @@
+"""Port parity: paged decode / chunked prefill attention vs the JAX package.
+
+The same seeded numpy inputs go to the JAX kernels (Pallas in interpret
+mode, fp32, HIGHEST matmul precision) and to the port's plain PyTorch
+versions, which is what the port's wrappers run for CPU tensors.  Held to
+TOLERANCES["fp32"] (max abs error).  The CUDA kernels are held to the
+plain versions in tests/test_torch_kernels.py, on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metal_flash_attention_plus_tpu.serving.paged_attention import (
+    paged_decode_attention as jax_decode,
+    paged_prefill_attention as jax_prefill,
+)
+from metal_flash_attention_plus_tpu_torch.attention.precisions import (
+    TOLERANCES,
+)
+from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_plain,
+    paged_prefill_attention,
+    paged_prefill_attention_plain,
+)
+
+HQ, HKV, D, PT, NP, MP = 4, 2, 32, 16, 12, 4
+
+
+def _pool(rng, dtype=np.float32):
+    """Random merged pool [Hkv, NP+1, 2PT, D]; the trash page is random too,
+    so a kernel that reads it unmasked shows up."""
+    return rng.standard_normal((HKV, NP + 1, 2 * PT, D)).astype(dtype)
+
+
+def _tables(rng, lengths):
+    """Scattered page tables, padded with the trash page (id NP)."""
+    perm = rng.permutation(NP)
+    table = np.full((len(lengths), MP), NP, np.int32)
+    nxt = 0
+    for i, n in enumerate(lengths):
+        pages = -(-n // PT)
+        table[i, :pages] = perm[nxt: nxt + pages]
+        nxt += pages
+    return table
+
+
+def _decode_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray([1, PT, PT + 1, 3 * PT - 5], np.int32)
+    q = rng.standard_normal((len(lengths), HQ, D)).astype(np.float32)
+    return q, _pool(rng), _tables(rng, lengths), lengths
+
+
+def _max_err(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b))))
+
+
+def test_decode_plain_matches_jax():
+    q, pool, table, lengths = _decode_inputs()
+    with jax.default_matmul_precision("highest"):
+        ref = jax_decode(jnp.asarray(q), jnp.asarray(pool),
+                         jnp.asarray(table), jnp.asarray(lengths),
+                         page_tokens=PT, interpret=True)
+    out = paged_decode_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(pool),
+        torch.from_numpy(table), torch.from_numpy(lengths), page_tokens=PT,
+    )
+    assert out.shape == (len(lengths), HQ, D) and out.dtype == torch.float32
+    assert _max_err(out.numpy(), ref) <= TOLERANCES["fp32"]
+
+
+def _prefill_inputs(offset, chunk=8, seed=1):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((HQ, chunk, D)).astype(np.float32)
+    row = _tables(rng, [offset + chunk])[0]
+    return q, _pool(rng), row
+
+
+@pytest.mark.parametrize("offset", [0, PT, PT + 5])
+def test_prefill_plain_matches_jax(offset):
+    q, pool, row = _prefill_inputs(offset)
+    with jax.default_matmul_precision("highest"):
+        ref = jax_prefill(jnp.asarray(q), jnp.asarray(pool), jnp.asarray(row),
+                          jnp.asarray(offset, jnp.int32), page_tokens=PT,
+                          interpret=True)
+    out = paged_prefill_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(pool), torch.from_numpy(row),
+        offset, page_tokens=PT,
+    )
+    assert out.shape == q.shape
+    assert _max_err(out.numpy(), ref) <= TOLERANCES["fp32"]
+
+
+def test_cpu_wrappers_take_plain_path_without_launching():
+    q, pool, table, lengths = _decode_inputs()
+    args = [torch.from_numpy(a) for a in (q, pool, table, lengths)]
+    before = (paged_decode_attention.launches,
+              paged_prefill_attention.launches)
+    out = paged_decode_attention(*args, page_tokens=PT)
+    torch.testing.assert_close(
+        out, paged_decode_attention_plain(*args, page_tokens=PT),
+        rtol=0, atol=0,
+    )
+    qp, poolp, row = _prefill_inputs(PT)
+    out = paged_prefill_attention(torch.from_numpy(qp), torch.from_numpy(poolp),
+                                  torch.from_numpy(row), PT, page_tokens=PT)
+    assert out.shape == qp.shape
+    assert (paged_decode_attention.launches,
+            paged_prefill_attention.launches) == before
+
+
+def test_bad_pool_shape_raises():
+    q, pool, table, lengths = _decode_inputs()
+    with pytest.raises(ValueError):
+        paged_decode_attention(
+            torch.from_numpy(q), torch.from_numpy(pool[:, :, :PT]),
+            torch.from_numpy(table), torch.from_numpy(lengths), page_tokens=PT,
+        )
