@@ -7,14 +7,28 @@ Builds the port's CUDA kernels and native runtime from the sources in the
 checkout, then, on the card:
 
 1. device and build: the card's name and power limit, build seconds;
-2. each kernel against its plain PyTorch version in bf16, at the flagship
-   shapes (decode also at head_dim 128; prefill at three chunk offsets);
-3. full-width logits: the flagship model (random weights from the seed)
-   through ``prefill_chunk`` and ``decode_step``, against the plain fp32
-   ``forward`` on fp32 copies of the same weights;
-4. the main path: a ``ServingEngine`` with its defaults serves 8 requests,
-   with every kernel's launch count set to 0 just before and read after;
-5. kernel, plain-version and library (SDPA) times at the engine's shapes.
+2. each paged kernel against its plain PyTorch version in bf16, at the
+   flagship shapes (decode also at head_dim 128; prefill at three chunk
+   offsets);
+3. the flash forward, dQ and dK/dV kernels against their plain versions
+   at the train shapes (B=4, Hq=16, Hkv=4, S=2048, D=64, causal) in bf16
+   and fp32, and at small shapes over the rest of the mask zoo, bias,
+   interleaved GQA, head dims 128 and 256, and ragged rectangular S;
+4. full-width serving logits: the flagship model (random weights from the
+   seed) through ``prefill_chunk`` and ``decode_step``, against the plain
+   fp32 ``forward`` (``attn_fn=plain_attention``, no kernel) on fp32
+   copies of the same weights;
+5. the serving path: a ``ServingEngine`` with its defaults serves 8
+   requests, with the paged kernels' launch counts set to 0 just before
+   and read after;
+6. full-width fp32 gradients: one ``loss_fn`` gradient at B=2, S=1024 on
+   fp32 copies of the flagship weights, through the flash kernels against
+   the same call with ``attn_fn=plain_attention``;
+7. the training path: ``make_train_step`` trains the bf16 flagship with
+   Adam for 8 steps on one seeded batch of 4 × 2049 tokens, with the flash
+   kernels' launch counts set to 0 just before and read after;
+8. kernel, plain-version and library (SDPA) times at the engine's and the
+   train step's shapes.
 
 Every phase raises on failure, so the script exits non-zero.  It prints
 the kernels' record as one JSON line and, as the very last line,
@@ -38,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from metal_flash_attention_plus_tpu_torch import _build
+from metal_flash_attention_plus_tpu_torch.attention import masking
 from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
@@ -50,6 +65,21 @@ from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
     forward,
     init_params,
+    loss_fn,
+    make_train_step,
+    plain_attention,
+    trainable_parameters,
+)
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    flash_attention_forward_plain,
+    flash_fwd,
+    row_ranges_tensor,
+)
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
+    flash_attention_dkv_plain,
+    flash_attention_dq_plain,
+    flash_dkv,
+    flash_dq,
 )
 from metal_flash_attention_plus_tpu_torch.serving.engine import ServingEngine
 from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
@@ -77,9 +107,25 @@ KERNEL_TOL = 2e-2
 # bf16 activations and bf16 K/V through 8 layers.
 LOGITS_REL_L2_TOL = TOLERANCES["mixed"]
 
+# Flash kernels vs plain versions: max abs error over the plain version's
+# max abs.  bf16 as the paged kernels (the same roundings at the same
+# places, fp32 sums in another order); L in bf16 at TOLERANCES["lse"];
+# fp32 at TOLERANCES["fp32"].
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: TOLERANCES["fp32"]}
+LSE_TOL = {torch.bfloat16: TOLERANCES["lse"],
+           torch.float32: TOLERANCES["fp32"]}
+# Full-width fp32 gradients, flash kernels vs the dense plain attention:
+# relative L2 per parameter; fp32 throughout, sums in another order.
+GRAD_REL_L2_TOL = 1e-3
+# The train step's shapes: the flagship at batch 4 × 2048 tokens.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+
 DEV = torch.device("cuda")
 SOURCE = "metal_flash_attention_plus_tpu_torch/csrc/paged_attention.cu"
 TPU_FILE = "metal_flash_attention_plus_tpu/serving/paged_attention.py"
+FLASH_SOURCE = "metal_flash_attention_plus_tpu_torch/csrc/flash_attention.cu"
+FLASH_TPU = "metal_flash_attention_plus_tpu/ops/flash_attention.py"
+FLASH_BWD_TPU = "metal_flash_attention_plus_tpu/ops/flash_attention_bwd.py"
 
 
 def log(msg: str):
@@ -149,7 +195,7 @@ def max_abs(a, b) -> float:
 
 
 # --------------------------------------------------------------------------
-# Phase 2: kernels vs plain versions
+# Phase 2: paged kernels vs plain versions
 # --------------------------------------------------------------------------
 
 
@@ -189,7 +235,111 @@ def check_prefill(rng, offset):
 
 
 # --------------------------------------------------------------------------
-# Phase 3: full-width logits vs the fp32 oracle
+# Phase 3: flash kernels vs plain versions
+# --------------------------------------------------------------------------
+
+
+def rel_err(out, ref) -> float:
+    """Max abs error over the reference's max abs; -inf (empty rows) must
+    match exactly."""
+    out, ref = out.float(), ref.float()
+    finite = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(out), finite) or not torch.equal(
+            out[~finite], ref[~finite]):
+        return float("inf")
+    scale = ref[finite].abs().max().clamp_min(1e-30)
+    return ((out[finite] - ref[finite]).abs().max() / scale).item()
+
+
+def flash_inputs(rng, b, hq, hkv, sq, skv, d, dtype, bias_shape=None):
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, np.float32)).to(DEV)
+
+    q, k, v, do = t(b, hq, sq, d), t(b, hkv, skv, d), t(b, hkv, skv, d), t(
+        b, hq, sq, d)
+    bias = None if bias_shape is None else t(*bias_shape)
+    return [x.to(dtype) for x in (q, k, v, do)] + [bias]
+
+
+def check_flash(rng, label, b, hq, hkv, sq, skv, d, dtype,
+                mask=masking.CAUSAL, ranges=None, bias_shape=None,
+                interleaved=False):
+    """Forward, dQ and dK/dV kernels against their plain versions on the
+    same inputs → {output: (rel err, max abs err)}; raises past a gate."""
+    q, k, v, do, bias = flash_inputs(rng, b, hq, hkv, sq, skv, d, dtype,
+                                     bias_shape)
+    rr = row_ranges_tensor(mask, sq, skv, ranges, DEV)
+    kw = dict(bias=bias, scale=d ** -0.5, interleaved_kv=interleaved)
+    want_dbias = bias is not None
+    o, lse = flash_fwd(q, k, v, rr, **kw)
+    torch.cuda.synchronize()
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, **kw)
+    di = (do.float() * o_ref).sum(-1)
+    dq, dbias = flash_dq(q, k, v, do, l_ref, di, rr, want_dbias=want_dbias,
+                         **kw)
+    dk, dv = flash_dkv(q, k, v, do, l_ref, di, rr, **kw)
+    torch.cuda.synchronize()
+    dq_ref, dbias_ref = flash_attention_dq_plain(
+        q, k, v, do, l_ref, di, rr, want_dbias=want_dbias, **kw)
+    dk_ref, dv_ref = flash_attention_dkv_plain(q, k, v, do, l_ref, di, rr,
+                                               **kw)
+    pairs = {"o": (o, o_ref), "l": (lse, l_ref), "dq": (dq, dq_ref),
+             "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+    if want_dbias:
+        pairs["dbias"] = (dbias, dbias_ref)
+    errs = {}
+    for name, (got, want) in pairs.items():
+        finite = torch.isfinite(want)
+        abs_err = (got.float()[finite] - want.float()[finite]).abs().max()
+        errs[name] = (rel_err(got, want), abs_err.item())
+    log(f"flash {label} {str(dtype)[6:]}: " + " ".join(
+        f"{n} {e[0]:.2e}" for n, e in errs.items()))
+    bad = {n: e[0] for n, e in errs.items()
+           if not e[0] <= (LSE_TOL if n == "l" else FLASH_TOL)[dtype]}
+    if bad:
+        raise AssertionError(f"flash {label} {dtype} disagrees: {bad}")
+    return errs
+
+
+def check_flash_all(rng):
+    """The train shapes in bf16 and fp32, then the mask zoo at small
+    shapes; returns the train-shape bf16 errors and the worst small one."""
+    train = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        train[dtype] = check_flash(rng, "train-shape causal", 4, 16, 4, 2048,
+                                   2048, 64, dtype)
+    seg = masking.build_segment_ranges(np.repeat(np.arange(6), 50))
+    seg[77] = (10, 10)  # an empty row
+    block = masking.build_block_sparse_ranges(
+        np.tril(np.ones((6, 6), bool)) & ~np.eye(6, k=-3, dtype=bool), 64)
+    small = [  # (label, head dim, options); B=2, Hq=8, Hkv=2, S=300
+        ("d128", 128, {}),
+        ("d256", 256, {}),
+        ("window-causal", 64,
+         dict(mask=masking.sliding_window(96, causal=True))),
+        ("segments-empty-row", 64, dict(
+            mask=masking.MaskSpec(masking.MaskKind.SPARSE_RANGES),
+            ranges=seg)),
+        ("block-sparse", 64, dict(
+            mask=masking.MaskSpec(masking.MaskKind.BLOCK_SPARSE,
+                                  block_size=64), ranges=block)),
+        ("bias-dbias", 64, dict(bias_shape=(1, 8, 300, 300))),
+        ("interleaved", 64, dict(interleaved=True)),
+    ]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, d, kw in small:
+            errs = check_flash(rng, label, 2, 8, 2, 300, 300, d, dtype, **kw)
+            worst = max(worst, *(e[0] for e in errs.values()))
+        errs = check_flash(rng, "ragged Sq=125 < Skv=1000", 1, 4, 4, 125,
+                           1000, 64, dtype)
+        worst = max(worst, *(e[0] for e in errs.values()))
+    return train, worst
+
+
+# --------------------------------------------------------------------------
+# Phase 4: full-width serving logits vs the fp32 oracle
 # --------------------------------------------------------------------------
 
 
@@ -214,8 +364,9 @@ def check_logits(cfg, params, rng):
     rows[1, :3] = torch.tensor([2, 11, 7])
     rows = rows.to(DEV)
 
-    def oracle(seq):
-        return forward(params32, torch.tensor([seq], device=DEV), cfg32)[0, -1]
+    def oracle(seq):  # dense fp32 attention: independent of the kernels
+        return forward(params32, torch.tensor([seq], device=DEV), cfg32,
+                       attn_fn=plain_attention)[0, -1]
 
     worst = 0.0
     last = []
@@ -250,7 +401,7 @@ def check_logits(cfg, params, rng):
 
 
 # --------------------------------------------------------------------------
-# Phase 4: the engine (the main path)
+# Phase 5: the engine (the serving path)
 # --------------------------------------------------------------------------
 
 
@@ -291,7 +442,86 @@ def run_engine(cfg, params, seed):
 
 
 # --------------------------------------------------------------------------
-# Phase 5: times at the engine's shapes
+# Phase 6: full-width fp32 gradients, kernels vs plain attention
+# --------------------------------------------------------------------------
+
+
+def fp32_copy(params):
+    return {
+        "embed": params["embed"].detach().float(),
+        "unembed": params["unembed"].detach().float(),
+        "ln_f": params["ln_f"].detach().clone(),
+        "layers": [{k: v.detach().float().clone() for k, v in layer.items()}
+                   for layer in params["layers"]],
+    }
+
+
+def check_train_grads(cfg, params, rng):
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = fp32_copy(params)
+    leaves = trainable_parameters(params32)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 1025))).to(DEV)
+    grads, losses = {}, {}
+    for name, attn in (("kernels", None), ("plain", plain_attention)):
+        for t in leaves:
+            t.grad = None
+        loss = loss_fn(params32, tokens, cfg32, attn_fn=attn)
+        loss.backward()
+        grads[name] = [t.grad.detach().clone() for t in leaves]
+        losses[name] = loss.item()
+    worst = max(rel_l2(g, p) for g, p in zip(grads["kernels"],
+                                             grads["plain"]))
+    log(f"full-width fp32 grads (B=2, S=1024): loss kernels "
+        f"{losses['kernels']:.6f} plain {losses['plain']:.6f}; worst "
+        f"parameter rel L2 {worst:.3e} (tol {GRAD_REL_L2_TOL})")
+    if not worst <= GRAD_REL_L2_TOL:
+        raise AssertionError(f"fp32 gradients disagree: {worst}")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# Phase 7: the training path
+# --------------------------------------------------------------------------
+
+
+def run_train(cfg, params, seed):
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(DEV)
+    optimizer = torch.optim.Adam(trainable_parameters(params), lr=3e-3)
+    step = make_train_step(cfg, optimizer)
+    state = optimizer.state
+    flash_fwd.launches = flash_dq.launches = flash_dkv.launches = 0
+    losses, t_first, t0 = [], 0.0, time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        params, state, loss = step(params, state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_fwd.launches, "flash_dq": flash_dq.launches,
+                "flash_dkv": flash_dkv.launches}
+    losses = [x.item() for x in losses]
+    tokens_per_s = (TRAIN_STEPS - 1) * TRAIN_BATCH * TRAIN_SEQ / wall
+    log("train losses: " + json.dumps(losses))
+    log(f"train: first step {t_first:.3f} s; steps 2-{TRAIN_STEPS} "
+        f"{wall:.3f} s, {wall / (TRAIN_STEPS - 1) * 1e3:.1f} ms/step, "
+        f"{tokens_per_s:.0f} tokens/s")
+    log("train launches: " + json.dumps(launches))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    want = cfg.num_layers * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"launch counts {launches}, expected {want} "
+                             "each")
+    return launches, tokens_per_s
+
+
+# --------------------------------------------------------------------------
+# Phase 8: times at the engine's and the train step's shapes
 # --------------------------------------------------------------------------
 
 
@@ -389,6 +619,65 @@ def time_prefill(rng, offset):
     return times, bound[by], by
 
 
+def bound_of(flops: float, nbytes: float):
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / BF16_FLOPS * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by
+
+
+def time_flash(rng):
+    """Forward, dQ and dK/dV at the train step's attention shapes (bf16,
+    causal), beside their plain versions and SDPA."""
+    b, hq, hkv, s, d = TRAIN_BATCH, 16, 4, TRAIN_SEQ, 64
+    q, k, v, do, _ = flash_inputs(rng, b, hq, hkv, s, s, d, torch.bfloat16)
+    rr = row_ranges_tensor(masking.CAUSAL, s, s, None, DEV)
+    kw = dict(scale=d ** -0.5)
+    o, lse = flash_fwd(q, k, v, rr, **kw)
+    di = (do.float() * o).sum(-1)
+    bwd_args = (q, k, v, do, lse, di, rr)
+    fns = {
+        "flash_fwd": (lambda: flash_fwd(q, k, v, rr, **kw),
+                      lambda: flash_attention_forward_plain(q, k, v, rr,
+                                                            **kw)),
+        "flash_dq": (lambda: flash_dq(*bwd_args, **kw),
+                     lambda: flash_attention_dq_plain(*bwd_args, **kw)),
+        "flash_dkv": (lambda: flash_dkv(*bwd_args, **kw),
+                      lambda: flash_attention_dkv_plain(*bwd_args, **kw)),
+    }
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                         enable_gqa=True)
+    library = {
+        "fwd": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20),
+        "bwd": time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), 20),
+    }
+    pairs = b * hq * s * (s + 1) // 2  # (query, key) pairs causal keeps
+    elems_q, elems_kv, rows = b * hq * s * d, b * hkv * s * d, b * hq * s
+    read_bwd = 2 * (2 * elems_q + 2 * elems_kv) + 2 * 4 * rows + 8 * s
+    work = {  # (flops, bytes) from the kernels' GEMM counts and I/O
+        "flash_fwd": (4 * d * pairs,
+                      2 * (elems_q + 2 * elems_kv) + 8 * s
+                      + 4 * (elems_q + rows)),
+        "flash_dq": (6 * d * pairs, read_bwd + 4 * elems_q),
+        "flash_dkv": (8 * d * pairs, read_bwd + 4 * 2 * elems_kv),
+    }
+    times = {}
+    for name, (kernel, plain) in fns.items():
+        t = {"plain_ms": time_ms(plain, 3, warmup=1),
+             "ms": time_ms(kernel, 10, warmup=2)}
+        t["plain_ms_2"] = time_ms(plain, 3, warmup=0)
+        t["ms_2"] = time_ms(kernel, 10, warmup=0)
+        t["library_ms"] = library["fwd" if name == "flash_fwd" else "bwd"]
+        t["bound_ms"], t["bound_by"] = bound_of(*work[name])
+        times[name] = t
+        log(f"{name} times at B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
+            "bf16: " + json.dumps(t))
+    return times
+
+
 # --------------------------------------------------------------------------
 
 
@@ -417,6 +706,10 @@ def main() -> int:
     phase_s["kernels"] = time.perf_counter() - t
 
     t = time.perf_counter()
+    flash_train_errs, flash_small_worst = check_flash_all(rng)
+    phase_s["flash_kernels"] = time.perf_counter() - t
+
+    t = time.perf_counter()
     cfg = TransformerConfig()  # the flagship: 8 x 1024, 16/4 heads, bf16
     gen = torch.Generator().manual_seed(args.seed)
     params = init_params(cfg, gen, device=DEV)
@@ -429,6 +722,14 @@ def main() -> int:
     phase_s["engine"] = time.perf_counter() - t
 
     t = time.perf_counter()
+    grad_worst = check_train_grads(cfg, params, rng)
+    phase_s["grads"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    train_launches, train_tps = run_train(cfg, params, args.seed)
+    phase_s["train"] = time.perf_counter() - t
+
+    t = time.perf_counter()
     with torch.inference_mode():
         dec_lens = [n + 16 for n in prompt_lens]
         dec_t, dec_bound, dec_by = time_decode(rng, dec_lens)
@@ -436,6 +737,7 @@ def main() -> int:
         # the flagship's path, so it has no launches there).
         d128_t, d128_bound, _ = time_decode(rng, dec_lens, d=128)
         pf_t, pf_bound, pf_by = time_prefill(rng, 512)
+    flash_t = time_flash(rng)
     phase_s["times"] = time.perf_counter() - t
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -457,6 +759,29 @@ def main() -> int:
          "bound_ms": pf_bound, "bound_by": pf_by,
          "library_ms": pf_t["library_ms"]},
     ]}
+    replaces = {"flash_fwd": f"{FLASH_TPU}:546",
+                "flash_dq": f"{FLASH_BWD_TPU}:77",
+                "flash_dkv": f"{FLASH_BWD_TPU}:954"}
+    for name, t in flash_t.items():
+        bf16 = flash_train_errs[torch.bfloat16]
+        fp32 = flash_train_errs[torch.float32]
+        keys = (("o", "l") if name == "flash_fwd" else
+                ("dq",) if name == "flash_dq" else ("dk", "dv"))
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": replaces[name], "launches": train_launches[name],
+            "max_abs_err": max(bf16[k][1] for k in keys),
+            "rel_err": max(bf16[k][0] for k in keys),
+            "rel_err_fp32": max(fp32[k][0] for k in keys),
+            "rel_err_small_shapes_worst": flash_small_worst,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": ("sdpa forward" if name == "flash_fwd" else
+                        "sdpa backward (dq, dk, dv together)"),
+        })
+    record["train"] = {"tokens_per_s": train_tps,
+                       "grad_rel_l2_worst": grad_worst}
     log(smi)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

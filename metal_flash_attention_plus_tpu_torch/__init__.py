@@ -1,28 +1,54 @@
 """PyTorch/CUDA port of metal_flash_attention_plus_tpu for NVIDIA Hopper.
 
 The JAX package beside this one is the reference the port is held
-against; this package imports nothing of it (nor of JAX).  This slice
-ports the paged serving path: the engine, the cached model, the paged KV
-cache and the two paged attention kernels (``csrc/paged_attention.cu``).
+against; this package imports nothing of it (nor of JAX).  Ported so far:
+
+- the paged serving path: the engine, the cached model, the paged KV
+  cache and the two paged attention kernels (``csrc/paged_attention.cu``);
+- the training path: the mask zoo, the flash forward, dQ and dK/dV
+  kernels (``csrc/flash_attention.cu``) behind the differentiable
+  ``flash_attention``, ``loss_fn`` and ``make_train_step``.
+
 Entry points take ``device=None``, meaning the CUDA card, and raise
 without one unless given ``device="cpu"``.
 """
 
+from metal_flash_attention_plus_tpu_torch.attention.masking import (
+    CAUSAL,
+    FULL,
+    MaskKind,
+    MaskSpec,
+    sliding_window,
+)
 from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
 from metal_flash_attention_plus_tpu_torch.models.cached import (
     decode_step,
     init_cache,
+    prefill,
     prefill_chunk,
 )
 from metal_flash_attention_plus_tpu_torch.models.convert import (
     params_from_jax,
+    params_to_numpy,
 )
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
     forward,
     init_params,
+    loss_fn,
+    make_train_step,
+    trainable_parameters,
+)
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    BlockSizes,
+    flash_attention,
+    flash_attention_forward,
+    flash_attention_with_lse,
+)
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
+    flash_attention_backward,
 )
 from metal_flash_attention_plus_tpu_torch.reference.attention import (
     reference_attention,
@@ -40,18 +66,33 @@ from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
 )
 
 __all__ = [
+    "CAUSAL",
+    "FULL",
     "TOLERANCES",
+    "BlockSizes",
     "GenerationRequest",
+    "MaskKind",
+    "MaskSpec",
     "PagedKVCache",
     "ServingEngine",
     "TransformerConfig",
     "decode_step",
+    "flash_attention",
+    "flash_attention_backward",
+    "flash_attention_forward",
+    "flash_attention_with_lse",
     "forward",
     "init_cache",
     "init_params",
+    "loss_fn",
+    "make_train_step",
     "paged_decode_attention",
     "paged_prefill_attention",
     "params_from_jax",
+    "params_to_numpy",
+    "prefill",
     "prefill_chunk",
     "reference_attention",
+    "sliding_window",
+    "trainable_parameters",
 ]

@@ -3,8 +3,10 @@
 Two libraries, both with a plain C interface loaded through ctypes:
 
 - ``libmfa_kernels``: every ``csrc/*.cu`` compiled by ``nvcc`` for Hopper
-  (``sm_90a``).  No PyTorch header is included, so the build takes
-  seconds rather than the minutes ``torch.utils.cpp_extension.load`` needs.
+  (``sm_90a``), one ``nvcc`` per source, all started together, then
+  linked into one library.  No PyTorch header is included, so the build
+  takes seconds rather than the minutes ``torch.utils.cpp_extension.load``
+  needs.
 - ``libmfa_runtime``: the host scheduler and page allocator, compiled by
   ``g++`` from the repository's ``cpp/mfa_runtime.cc`` (read, never
   written: the result goes to this package's build directory).
@@ -12,8 +14,11 @@ Two libraries, both with a plain C interface loaded through ctypes:
 Outputs go to ``BUILD_DIR`` (listed in ``.gitignore``) under a name that
 carries a hash of the sources and the command, so an edited source is
 rebuilt and a stale library is never loaded.  Each build writes a
-temporary file and ``os.replace``s it into place, so parallel test
-workers that build at once never load a half-written library.
+temporary directory and ``os.replace``s the library into place, so
+parallel test workers that build at once never load a half-written one.
+
+:func:`kernel_function` declares a kernel entry point's ctypes signature
+and :func:`check_launch` turns a nonzero return code into an error.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ RUNTIME_SOURCE = REPO_ROOT / "cpp" / "mfa_runtime.cc"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 GXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared"]
 
@@ -61,37 +66,57 @@ def _nvcc() -> str:
     )
 
 
+def _run_parallel(name: str, commands: Sequence[List[str]]):
+    """Run ``commands`` at once; raise with every failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in commands]
+    failures = []
+    try:
+        for cmd, proc in zip(commands, procs):
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failures.append(f"{' '.join(cmd)} ({proc.returncode}):\n"
+                                f"{out}\n{err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failures:
+        raise RuntimeError(f"building {name} failed:\n" + "\n".join(failures))
+
+
 def _build(
-    name: str, sources: Sequence[Path], command: Callable[[str], List[str]]
+    name: str,
+    inputs: Sequence[Path],
+    recipe: Callable[[str, str], List[List[List[str]]]],
 ) -> Path:
-    """Compile ``sources`` with ``command(out_path)`` unless a library with
-    the same content hash exists; returns the library's path."""
+    """Build a library unless one with the same content hash exists;
+    returns its path.
+
+    ``recipe(out, workdir)`` gives the build as stages, each a list of
+    commands run in parallel (the kernels: one ``nvcc -c`` per source, then
+    the link).  The hash covers ``inputs`` (sources and headers) and the
+    commands.
+    """
     h = hashlib.sha256()
-    for src in sources:
+    for src in inputs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(command("OUT")).encode())
+    h.update(repr(recipe("OUT", "WORK")).encode())
     target = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if target.exists():
         build_seconds[name] = 0.0
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            command(tmp), capture_output=True, text=True, timeout=600
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {name} failed ({proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+    with tempfile.TemporaryDirectory(prefix=f".{name}-",
+                                     dir=BUILD_DIR) as work:
+        tmp = os.path.join(work, "lib.so")
+        for stage in recipe(tmp, work):
+            _run_parallel(name, stage)
         os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     build_seconds[name] = time.perf_counter() - t0
     return target
 
@@ -103,19 +128,47 @@ def load_library(name: str) -> ctypes.CDLL:
             return _loaded[name]
         if name == "kernels":
             sources = sorted(CSRC_DIR.glob("*.cu"))
+            headers = sorted(CSRC_DIR.glob("*.cuh"))
             nvcc = _nvcc()
-            path = _build(
-                "mfa_kernels", sources,
-                lambda out: [nvcc, *NVCC_FLAGS, "-o", out,
-                             *map(str, sources)],
-            )
+
+            def recipe(out, work):
+                objs = [os.path.join(work, src.stem + ".o")
+                        for src in sources]
+                return [
+                    [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                     for src, obj in zip(sources, objs)],
+                    [[nvcc, "-shared", "-o", out, *objs]],
+                ]
+
+            path = _build("mfa_kernels", [*sources, *headers], recipe)
         elif name == "runtime":
             path = _build(
                 "mfa_runtime", [RUNTIME_SOURCE],
-                lambda out: ["g++", *GXX_FLAGS, "-o", out,
-                             str(RUNTIME_SOURCE)],
+                lambda out, work: [[["g++", *GXX_FLAGS, "-o", out,
+                                     str(RUNTIME_SOURCE)]]],
             )
         else:
             raise ValueError(f"unknown library {name!r}")
         _loaded[name] = ctypes.CDLL(str(path))
         return _loaded[name]
+
+
+def kernel_function(name: str, argtypes: Sequence) -> Callable[..., int]:
+    """The kernels library's C entry point ``name``: returns a
+    ``cudaError_t`` as int; pointers and the stream are ``c_void_p``."""
+    fn = getattr(load_library("kernels"), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+    return fn
+
+
+def check_launch(rc: int, name: str):
+    """Raise if a launch returned a nonzero ``cudaError_t``."""
+    if rc != 0:
+        lib = load_library("kernels")
+        lib.mfa_error_string.restype = ctypes.c_char_p
+        lib.mfa_error_string.argtypes = [ctypes.c_int]
+        raise RuntimeError(
+            f"{name} kernel launch failed: {lib.mfa_error_string(rc).decode()}"
+        )

@@ -55,47 +55,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static constexpr int VEC = 4;  // elements per 16-byte load
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int VEC = 8;
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-  }
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 v = __bfloat1622float2(h[i]);
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
-    }
-  }
-};
+using mfa::Elem;
 
 __device__ __forceinline__ int clamp_page(int page, int num_pages_total) {
   return min(max(page, 0), num_pages_total - 1);

@@ -1,12 +1,11 @@
-"""KV-cached transformer execution: chunked prefill into pages + paged decode.
+"""KV-cached transformer execution: prefill into pages + paged decode.
 
 The serving-side twin of ``models/transformer.py`` (same parameters, same
-math).  ``prefill_chunk`` scatters a chunk's K/V into the pages and runs
-the paged-prefill kernel over prefix + chunk; ``decode_step`` appends one
-token per sequence and runs the paged-decode kernel.  The cache is
-updated in place (see :mod:`serving.kv_cache`).  The non-chunked
-``prefill`` of the JAX package runs the flash kernel and comes with that
-slice.
+math).  ``prefill`` runs a whole prompt through the causal flash forward
+kernel and scatters its K/V into the pages; ``prefill_chunk`` scatters a
+chunk's K/V and runs the paged-prefill kernel over prefix + chunk;
+``decode_step`` appends one token per sequence and runs the paged-decode
+kernel.  The cache is updated in place (see :mod:`serving.kv_cache`).
 """
 
 from __future__ import annotations
@@ -17,12 +16,17 @@ import torch
 import torch.nn.functional as F
 
 from metal_flash_attention_plus_tpu_torch._device import DeviceLike
+from metal_flash_attention_plus_tpu_torch.attention.masking import CAUSAL
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
+    _merge_heads,
     _split_heads,
     linear,
     rms_norm,
     rope,
+)
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    flash_attention,
 )
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import (
     PagedKVCache,
@@ -55,6 +59,34 @@ def _mlp(layer, x):
         h2, layer["wu"], torch.float32
     )
     return x + linear(y.to(x.dtype), layer["wd"], x.dtype)
+
+
+def prefill(
+    params,
+    tokens: torch.Tensor,  # [L] one sequence's prompt
+    cache: PagedKVCache,
+    page_row: torch.Tensor,  # [max_pages] int32, trash-padded
+    cfg: TransformerConfig,
+) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Run a whole prompt and fill the cache → (last-position logits [V]
+    fp32, cache).  Attention is the causal flash forward kernel."""
+    positions = torch.arange(tokens.shape[0], device=tokens.device)
+    x = params["embed"][tokens][None]  # [1, L, D]
+    hd = cfg.head_dim
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["ln1"])
+        q = _split_heads(linear(h, layer["wq"]), cfg.num_heads, hd)
+        k = _split_heads(linear(h, layer["wk"]), cfg.num_kv_heads, hd)
+        v = _split_heads(linear(h, layer["wv"]), cfg.num_kv_heads, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        write_prompt(cache, li, k[0], v[0], page_row)
+        o = flash_attention(q, k, v, mask=CAUSAL, block_sizes=cfg.block_sizes)
+        x = x + linear(_merge_heads(o.to(x.dtype)), layer["wo"], x.dtype)
+        x = _mlp(layer, x)
+    hf = rms_norm(x[:, -1:], params["ln_f"])
+    logits = linear(hf, params["unembed"], torch.float32)
+    return logits[0, 0], cache
 
 
 def prefill_chunk(

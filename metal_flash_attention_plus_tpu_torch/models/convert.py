@@ -1,9 +1,11 @@
-"""Parameter conversion from the JAX package's pytree to the port's dict.
+"""Parameter conversion between the JAX package's pytree and the port's dict.
 
 ``params_from_jax`` takes the JAX ``init_params`` tree with every leaf
 already turned into a numpy array (``jax.tree.map(np.asarray, params)``
 on the JAX side), so this module imports nothing of JAX.  The layouts are
 the same (``[in, out]`` weights), so the conversion is a copy.
+``params_to_numpy`` goes the other way, for parameters or their
+gradients, so that a test can compare the two packages leaf by leaf.
 """
 
 from __future__ import annotations
@@ -52,5 +54,26 @@ def params_from_jax(
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
         return _to_tensor(node, dev, dtype)
+
+    return conv(tree)
+
+
+def params_to_numpy(tree: Any, grad: bool = False) -> Any:
+    """The port's params (or, with ``grad=True``, their ``.grad``s) as a
+    numpy tree in the JAX layout.  bf16 leaves widen to fp32, exactly
+    (numpy has no bfloat16 of its own); a missing gradient raises."""
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        t = node.grad if grad else node
+        if t is None:
+            raise ValueError("a parameter has no gradient")
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
 
     return conv(tree)

@@ -6,26 +6,34 @@ are a plain dict mirroring the JAX pytree (``embed``, ``layers[i]`` with
 ``ln1 wq wk wv wo ln2 wg wu wd``, ``ln_f``, ``unembed``), weights in JAX's
 ``[in, out]`` layout so that ``x @ w`` computes the same product.
 
-``forward`` runs the plain dense reference attention.  It is the oracle
-the tests and ``chip_smoke.py`` hold the serving path to; the serving
-engine never calls it.  Its flash-kernel path comes with the training
-slice, as do ``block_sizes`` and ``remat``.
+``forward`` runs causal :func:`ops.flash_attention.flash_attention` (the
+flash forward kernel, and the dQ and dK/dV kernels in the backward)
+unless ``attn_fn`` names another attention; ``attn_fn=plain_attention``
+gives the dense fp32 reference, the independent oracle that the tests and
+``chip_smoke.py`` hold the kernels and the serving path to.
+:func:`loss_fn` and :func:`make_train_step` are the training path.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from metal_flash_attention_plus_tpu_torch._device import (
     DeviceLike,
     resolve_device,
 )
+from metal_flash_attention_plus_tpu_torch.attention.masking import CAUSAL
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    BlockSizes,
+    flash_attention,
+)
 from metal_flash_attention_plus_tpu_torch.reference.attention import (
-    CAUSAL,
     reference_attention,
 )
 
@@ -44,6 +52,12 @@ class TransformerConfig:
     max_seq: int = 2048
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    # Tiles of the JAX package's Pallas grids; the Hopper kernels choose
+    # their own and ignore them (kept so configurations carry across).
+    block_sizes: BlockSizes = BlockSizes()
+    # Recompute each layer's activations in the backward
+    # (torch.utils.checkpoint, as jax.checkpoint in the JAX package).
+    remat: bool = False
 
     def __post_init__(self):
         if self.num_heads % self.num_kv_heads:
@@ -139,20 +153,32 @@ def _merge_heads(x: torch.Tensor):
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Causal dense fp32 reference attention, an ``attn_fn`` that runs no
+    kernel: the oracle the kernel path is held to."""
+    return reference_attention(q, k, v, mask=CAUSAL)[0]
+
+
 def attention_block(
     layer: Params,
     x: torch.Tensor,
     positions: torch.Tensor,
     cfg: TransformerConfig,
+    attn_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
-    """Pre-norm attention sublayer over the plain causal reference."""
+    """Pre-norm attention sublayer.  ``attn_fn(q, k, v)`` defaults to
+    causal flash attention."""
     h = rms_norm(x, layer["ln1"])
     q = _split_heads(h @ layer["wq"], cfg.num_heads, cfg.head_dim)
     k = _split_heads(h @ layer["wk"], cfg.num_kv_heads, cfg.head_dim)
     v = _split_heads(h @ layer["wv"], cfg.num_kv_heads, cfg.head_dim)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o, _ = reference_attention(q, k, v, mask=CAUSAL)
+    if attn_fn is None:
+        attn_fn = functools.partial(
+            flash_attention, mask=CAUSAL, block_sizes=cfg.block_sizes
+        )
+    o = attn_fn(q, k, v)
     return x + (_merge_heads(o.to(x.dtype)) @ layer["wo"]).to(x.dtype)
 
 
@@ -166,13 +192,73 @@ def forward(
     params: Params,
     tokens: torch.Tensor,
     cfg: TransformerConfig,
+    attn_fn: Optional[Callable] = None,
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """tokens [B, S] int → logits [B, S, V] fp32."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = params["embed"][tokens]
+
+    def layer_fn(layer, x):
+        x = attention_block(layer, x, positions, cfg, attn_fn=attn_fn)
+        return mlp_block(layer, x)
+
     for layer in params["layers"]:
-        x = mlp_block(layer, attention_block(layer, x, positions, cfg))
+        if cfg.remat:
+            x = checkpoint(functools.partial(layer_fn, layer), x,
+                           use_reentrant=False)
+        else:
+            x = layer_fn(layer, x)
     h = rms_norm(x, params["ln_f"])
     return (h @ params["unembed"]).float()
+
+
+def loss_fn(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    attn_fn: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Next-token cross entropy, mean over all predicted positions."""
+    logits = forward(params, tokens[:, :-1], cfg, attn_fn=attn_fn)
+    targets = tokens[:, 1:].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def trainable_parameters(params: Params) -> List[torch.Tensor]:
+    """Mark every leaf of ``params`` as requiring grad and return them in
+    a fixed order: what a ``torch.optim`` optimizer is built over."""
+    leaves = [params["embed"]]
+    for layer in params["layers"]:
+        leaves.extend(layer[name] for name in sorted(layer))
+    leaves += [params["ln_f"], params["unembed"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    return leaves
+
+
+def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer):
+    """Single-device train step: ``step(params, opt_state, tokens) →
+    (params, opt_state, loss)``, the counterpart of the JAX package's
+    jitted step over an optax optimizer.
+
+    ``optimizer`` is a ``torch.optim`` optimizer built over
+    :func:`trainable_parameters` of ``params``; ``opt_state`` is its
+    ``state``.  Both are updated IN PLACE (the JAX step returns new
+    pytrees) and returned so call sites read alike.  ``loss`` is the
+    detached loss before the update.
+    """
+
+    def step(params: Params, opt_state, tokens: torch.Tensor):
+        if opt_state is not optimizer.state:
+            raise ValueError("opt_state must be optimizer.state")
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, tokens, cfg)
+        loss.backward()
+        optimizer.step()
+        return params, optimizer.state, loss.detach()
+
+    return step

@@ -1,0 +1,562 @@
+"""Flash attention forward and its differentiable entry points.
+
+The port of the JAX package's ``ops/flash_attention.py``.  Same public
+contract: BHSD tensors, O in fp32 by default, L the natural-log row
+logsumexp, the whole mask zoo through per-row ``[start, end)`` ranges, an
+additive bias, grouped or interleaved GQA.  The TPU kernel
+``_fwd_kernel`` becomes ``csrc/flash_attention.cu::flash_fwd_kernel``
+behind :func:`flash_fwd`; the TPU-only schedules (packed, flat, wavefront,
+lean, two-level, the ones-fused rowsum, lane-replicated statistics, the
+Mosaic guard) have no counterpart: on Hopper one ``[Sq, 2]`` int32 table
+of row ranges, from which each CTA derives its live key span, covers
+every mask kind.
+
+:func:`flash_attention` is a ``torch.autograd.Function`` (the JAX
+``custom_vjp``); its backward runs the dQ and dK/dV kernels of
+:mod:`ops.flash_attention_bwd`.  On a CUDA tensor :func:`flash_fwd`
+launches its kernel or raises; its plain PyTorch version
+(:func:`flash_attention_forward_plain`) runs only for tensors on the CPU.
+
+Masked scores are set to ``mask_value`` after the bias is added (the
+dense reference masks first, then adds the bias); with the default
+sentinel the two orders agree on every row with a live key.  A row with
+no live key gives O = 0 and L = -inf here, as the JAX flash kernels do
+(the dense reference gives the mean of V there).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from metal_flash_attention_plus_tpu_torch import _build
+from metal_flash_attention_plus_tpu_torch.attention.masking import (
+    DEFAULT_MASK_VALUE,
+    FULL,
+    MaskKind,
+    MaskSpec,
+    Ranges,
+    expand_block_ranges_to_rows,
+)
+from metal_flash_attention_plus_tpu_torch.reference.attention import (
+    _expand_kv_heads,
+)
+
+LOG2E = float(np.log2(np.e))
+LN2 = float(np.log(2.0))
+HEAD_DIMS = (32, 64, 128, 256)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSizes:
+    """Sequence-tile sizes, kept so that a ``TransformerConfig`` carries
+    across from the JAX package with the same fields and checks.
+
+    The Hopper kernels pick their own tiles (64 query rows × 64 keys) and
+    read none of these; they tune the TPU's Pallas grids in the JAX
+    package.  ``block_*_major`` is a multiple of its inner tile (0 → equal
+    to it); every other field is a multiple of 128.
+    """
+
+    block_q: int = 512
+    block_kv: int = 512
+    block_kv_major: int = 0
+    block_q_dkv: int = 512
+    block_kv_dkv: int = 512
+    block_q_dq: int = 512
+    block_kv_dq: int = 512
+    block_kv_dq_major: int = 0
+    block_q_dkv_major: int = 0
+
+    def __post_init__(self):
+        majors = {
+            "block_kv_major": self.block_kv,
+            "block_kv_dq_major": self.block_kv_dq,
+            "block_q_dkv_major": self.block_q_dkv,
+        }
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name in majors:
+                if v and v % majors[f.name] != 0:
+                    raise ValueError(
+                        f"{f.name}={v} must be a multiple of its inner tile"
+                    )
+                continue
+            if v % 128 != 0:
+                raise ValueError(f"{f.name}={v} must be a multiple of 128")
+
+    @property
+    def kv_major(self) -> int:
+        return self.block_kv_major or self.block_kv
+
+    @property
+    def kv_dq_major(self) -> int:
+        return self.block_kv_dq_major or self.block_kv_dq
+
+    @property
+    def q_dkv_major(self) -> int:
+        return self.block_q_dkv_major or self.block_q_dkv
+
+
+# ---------------------------------------------------------------------------
+# Masks → per-row ranges → tile bounds
+# ---------------------------------------------------------------------------
+
+
+def compute_row_ranges(
+    mask: MaskSpec,
+    seq_q: int,
+    seq_kv: int,
+    *,
+    mask_ranges: Optional[np.ndarray] = None,
+    seq_q_padded: Optional[int] = None,
+    seq_kv_cap: Optional[int] = None,
+) -> np.ndarray:
+    """Lower any :class:`MaskSpec` to per-row ``[start, end)`` KV ranges.
+
+    Rows past ``seq_q`` (padding) get ``[0, 0)``; every ``end`` is clamped
+    to ``seq_kv_cap`` (default ``seq_kv``) and to at least ``start``.
+    Returns int32 ``[seq_q_padded or seq_q, 2]``.
+    """
+    sq_pad = seq_q_padded or seq_q
+    cap = seq_kv_cap if seq_kv_cap is not None else seq_kv
+    rows = np.arange(sq_pad)
+    off = seq_kv - seq_q  # rectangular causal: ends aligned
+
+    if mask.kind == MaskKind.NONE:
+        start = np.zeros(sq_pad, np.int64)
+        end = np.full(sq_pad, cap, np.int64)
+    elif mask.kind == MaskKind.CAUSAL:
+        start = np.zeros(sq_pad, np.int64)
+        end = np.minimum(rows + off + 1, cap)
+    elif mask.kind == MaskKind.SLIDING_WINDOW:
+        half = max(1, mask.window_size) // 2
+        start = np.maximum(0, rows - half)
+        end = np.minimum(rows + half, cap)
+        if mask.causal:
+            end = np.minimum(end, rows + off + 1)
+    elif mask.kind in (MaskKind.SPARSE_RANGES, MaskKind.BLOCK_SPARSE):
+        if mask_ranges is None:
+            raise ValueError(f"{mask.kind} requires mask_ranges")
+        r = np.asarray(mask_ranges)
+        if mask.kind == MaskKind.BLOCK_SPARSE:
+            r = expand_block_ranges_to_rows(r, mask.block_size, seq_q)
+        start = np.zeros(sq_pad, np.int64)
+        end = np.zeros(sq_pad, np.int64)
+        start[:seq_q] = r[:seq_q, 0]
+        end[:seq_q] = np.minimum(r[:seq_q, 1], cap)
+    else:
+        raise NotImplementedError(mask.kind)
+
+    if sq_pad > seq_q:
+        start[seq_q:] = 0
+        end[seq_q:] = 0
+    end = np.maximum(end, start)
+    return np.stack([start, end], axis=-1).astype(np.int32)
+
+
+def build_block_bounds(
+    row_ranges: np.ndarray, block_q: int, block_kv: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Per-q-block kv-block bounds, int32 ``[ni]`` each: (lo, hi,
+    max_start, min_end).  ``[lo, hi)`` is the live kv-block window of
+    q-block i (the rule each CUDA CTA applies to its own rows);
+    max_start/min_end are the all-rows-live bounds.  Empty q-blocks get
+    ``lo == hi``."""
+    sq_pad = row_ranges.shape[0]
+    ni = sq_pad // block_q
+    start = row_ranges[:, 0].reshape(ni, block_q).astype(np.int64)
+    end = row_ranges[:, 1].reshape(ni, block_q).astype(np.int64)
+    live = end > start
+    any_live = live.any(axis=1)
+    all_live = live.all(axis=1)
+    big = np.int64(np.iinfo(np.int32).max)
+    start_masked = np.where(live, start, big)
+    lo = np.where(any_live, start_masked.min(axis=1) // block_kv, 0)
+    hi = np.where(any_live, -(-end.max(axis=1) // block_kv), 0)
+    max_start = np.where(all_live, start.max(axis=1), big)
+    min_end = np.where(all_live, end.min(axis=1), -1)
+    return (
+        lo.astype(np.int32),
+        hi.astype(np.int32),
+        max_start.astype(np.int32),
+        min_end.astype(np.int32),
+    )
+
+
+def compute_row_ranges_dynamic(
+    mask_ranges: torch.Tensor,
+    seq_q: int,
+    seq_kv: int,
+    seq_q_padded: int,
+    seq_kv_cap: int,
+) -> torch.Tensor:
+    """:func:`compute_row_ranges` for SPARSE_RANGES given as a torch tensor
+    (built on the device, the analog of JAX's traced ranges): clipped to
+    ``[0, seq_kv_cap]``, ``end >= start``, padded rows empty.  Stays on the
+    tensor's device, so no host round trip.  Returns int32
+    ``[seq_q_padded, 2]``."""
+    r = mask_ranges.to(torch.int32)
+    start = r[:seq_q, 0].clamp(0, seq_kv_cap)
+    end = torch.maximum(r[:seq_q, 1].clamp(0, seq_kv_cap), start)
+    out = torch.stack([start, end], dim=-1)
+    if seq_q_padded > seq_q:
+        out = torch.cat([out, out.new_zeros(seq_q_padded - seq_q, 2)])
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _static_row_ranges(mask: MaskSpec, seq_q: int, seq_kv: int,
+                       device: torch.device) -> torch.Tensor:
+    """Row ranges of a mask without data, built once per shape and device
+    (callers only read them)."""
+    return torch.from_numpy(compute_row_ranges(mask, seq_q, seq_kv)).to(
+        device)
+
+
+def row_ranges_tensor(
+    mask: MaskSpec,
+    seq_q: int,
+    seq_kv: int,
+    mask_ranges: Optional[Ranges],
+    device: torch.device,
+) -> torch.Tensor:
+    """The int32 ``[seq_q, 2]`` row-range table the kernels read, on
+    ``device``: numpy ranges are lowered on the host, tensor ranges on
+    their device, and data-free masks come from a small cache."""
+    if isinstance(mask_ranges, torch.Tensor):
+        if mask.kind != MaskKind.SPARSE_RANGES:
+            raise ValueError("tensor mask_ranges require MaskKind.SPARSE_RANGES")
+        return compute_row_ranges_dynamic(
+            mask_ranges.to(device), seq_q, seq_kv, seq_q, seq_kv
+        ).contiguous()
+    if mask.kind in (MaskKind.SPARSE_RANGES, MaskKind.BLOCK_SPARSE):
+        return torch.from_numpy(compute_row_ranges(
+            mask, seq_q, seq_kv, mask_ranges=mask_ranges)).to(device)
+    return _static_row_ranges(mask, seq_q, seq_kv, torch.device(device))
+
+
+def range_mask(row_ranges: torch.Tensor, seq_kv: int):
+    """(keep [Sq, Skv] bool, live [Sq, 1] bool) of a row-range table."""
+    col = torch.arange(seq_kv, device=row_ranges.device)
+    start = row_ranges[:, :1].long()
+    end = row_ranges[:, 1:].long()
+    return (col >= start) & (col < end), end > start
+
+
+# ---------------------------------------------------------------------------
+# Input checks shared by the three kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def check_kernel_inputs(name, q, k, v, row_ranges, bias, *, q_like=(),
+                        stats=()):
+    """Raise unless the tensors are what the CUDA kernels take: q/k/v (and
+    ``q_like``: dO) of one dtype in DTYPE_CODES, BHSD with a supported head
+    dim, contiguous and 16-byte aligned on one CUDA device; the row-range
+    table int32 [Sq, 2]; ``stats`` (L, D) fp32 [B, Hq, Sq]; the bias fp32
+    [1 or B, 1 or Hq, Sq, Skv]."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {q.dtype} has no kernel "
+                        "(float32 or bfloat16)")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q [B, Hq, Sq, D] and k = v [B, Hkv, Skv, D]"
+                         " expected")
+    b, hq, sq, d = q.shape
+    _, hkv, skv, dk = k.shape
+    if k.shape[0] != b or dk != d or hq % hkv:
+        raise ValueError(f"{name}: shapes {tuple(q.shape)} / "
+                         f"{tuple(k.shape)} do not match")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    for t in (q, k, v, *q_like):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: q, k, v and dO must share a dtype")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    for t in q_like:
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: dO must have q's shape")
+    if row_ranges.dtype != torch.int32 or row_ranges.shape != (sq, 2):
+        raise ValueError(f"{name}: row ranges must be int32 [Sq, 2]")
+    for t in stats:
+        if t.dtype != torch.float32 or t.shape != (b, hq, sq):
+            raise ValueError(f"{name}: L and D must be fp32 [B, Hq, Sq]")
+    if bias is not None:
+        if (bias.dtype != torch.float32 or bias.dim() != 4
+                or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, hq)
+                or bias.shape[2:] != (sq, skv)):
+            raise ValueError(f"{name}: bias must be fp32 "
+                             "[1 or B, 1 or Hq, Sq, Skv]")
+    for t in (q, k, v, *q_like, row_ranges, *stats,
+              *(() if bias is None else (bias,))):
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def bias_args(bias: Optional[torch.Tensor]):
+    """(pointer, batch stride, head stride) of a contiguous fp32 bias; the
+    strides are 0 along broadcast dims."""
+    if bias is None:
+        return None, 0, 0
+    _, hb, sq, skv = bias.shape
+    return (bias.data_ptr(),
+            0 if bias.shape[0] == 1 else hb * sq * skv,
+            0 if hb == 1 else sq * skv)
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel and its plain version
+# ---------------------------------------------------------------------------
+
+_PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+_FWD_ARGS = ([_PTR] * 5 + [_I64, _I64] + [_PTR, _PTR] + [_I32] * 8
+             + [_F32, _F32, _PTR])
+
+
+def flash_attention_forward_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    row_ranges: torch.Tensor,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    scale: float,
+    interleaved_kv: bool = False,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`flash_fwd`, rounding where the
+    kernel does: q·(scale·log2e) rounded to q's dtype, base-2 softmax in
+    fp32, P rounded to V's dtype before P·V."""
+    hq, skv = q.shape[1], k.shape[2]
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    kx = _expand_kv_heads(k, hq, interleaved_kv).float()
+    vx = _expand_kv_heads(v, hq, interleaved_kv)
+    s = qs @ kx.transpose(-1, -2)
+    if bias is not None:
+        s = s + bias.float() * LOG2E
+    keep, live = range_mask(row_ranges, skv)
+    s = torch.where(keep, s, torch.full_like(s, mask_value))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    lsum = p.sum(dim=-1, keepdim=True)
+    o = (p.to(vx.dtype).float() @ vx.float()) / lsum
+    lse = (m * LN2 + torch.log(lsum))[..., 0]
+    o = torch.where(live, o, torch.zeros_like(o))
+    lse = torch.where(live[:, 0], lse, torch.full_like(lse, -float("inf")))
+    return o, lse
+
+
+def flash_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    row_ranges: torch.Tensor,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    scale: float,
+    interleaved_kv: bool = False,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward kernel: (o fp32 [B, Hq, Sq, D], l fp32 [B, Hq, Sq]).
+
+    ``row_ranges`` is the int32 [Sq, 2] table of :func:`row_ranges_tensor`;
+    ``bias`` is fp32 [1 or B, 1 or Hq, Sq, Skv].  CPU tensors take
+    :func:`flash_attention_forward_plain`; CUDA tensors launch
+    ``flash_fwd_kernel`` or raise.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_forward_plain(
+            q, k, v, row_ranges, bias=bias, scale=scale,
+            interleaved_kv=interleaved_kv, mask_value=mask_value)
+    check_kernel_inputs("flash_fwd", q, k, v, row_ranges, bias)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    bptr, bsb, bsh = bias_args(bias)
+    rc = _build.kernel_function("mfa_flash_fwd", _FWD_ARGS)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), row_ranges.data_ptr(),
+        bptr, bsb, bsh, o.data_ptr(), lse.data_ptr(), DTYPE_CODES[q.dtype],
+        b, hq, hkv, sq, skv, d, int(interleaved_kv), scale * LOG2E,
+        mask_value, stream_of(q),
+    )
+    _build.check_launch(rc, "flash_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+flash_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Public forward contract
+# ---------------------------------------------------------------------------
+
+
+def _default_scale(d: int, scale: Optional[float]) -> float:
+    return float(d) ** -0.5 if scale is None else float(scale)
+
+
+def kernel_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The bias as the kernels read it: fp32, contiguous, 4-D."""
+    if bias is None:
+        return None
+    if bias.dim() != 4:
+        raise ValueError("bias must be 4-D, broadcastable to [B, Hq, Sq, Skv]")
+    return bias.float().contiguous()
+
+
+def flash_attention_forward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    mask: MaskSpec = FULL,
+    mask_ranges: Optional[Ranges] = None,
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    block_sizes: BlockSizes = BlockSizes(),
+    interleaved_kv: bool = False,
+    mask_value: float = DEFAULT_MASK_VALUE,
+    out_dtype: torch.dtype = torch.float32,
+    row_max=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention forward.
+
+    Args:
+      q: [B, Hq, Sq, D] (bf16 or fp32); k, v: [B, Hkv, Skv, D], same dtype.
+      mask, mask_ranges, bias: the semantics of ``reference_attention``
+        (``mask_ranges`` numpy, or a torch tensor for SPARSE_RANGES).
+      block_sizes: accepted for parity with the JAX package; unused.
+      out_dtype: O's dtype (fp32 by default).
+      row_max: the JAX package's static-max softmax; not ported yet.
+
+    Returns (o [B, Hq, Sq, D] out_dtype, l [B, Hq, Sq] fp32 natural LSE).
+    """
+    del block_sizes  # the Hopper kernels choose their own tiles
+    if row_max is not None:
+        raise NotImplementedError(
+            "row_max (static-max softmax) is not ported yet")
+    sq, skv = q.shape[2], k.shape[2]
+    rr = row_ranges_tensor(mask, sq, skv, mask_ranges, q.device)
+    o, lse = flash_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), rr,
+        bias=kernel_bias(bias), scale=_default_scale(q.shape[-1], scale),
+        interleaved_kv=interleaved_kv, mask_value=mask_value,
+    )
+    return o.to(out_dtype), lse
+
+
+# ---------------------------------------------------------------------------
+# Differentiable public API
+# ---------------------------------------------------------------------------
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``custom_vjp`` analog: the forward kernel, then the dQ and dK/dV
+    kernels.  Gradients flow to q, k, v and bias; ``mask_ranges`` is
+    integer data and gets none; ``l`` is returned without a gradient.
+
+    The fp32 O is what the backward's D = rowsum(dO ⊙ O) is built from,
+    not the O cast to ``out_dtype`` that the caller sees."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask_ranges, mask, scale,
+                interleaved_kv, mask_value, out_dtype):
+        scale_f = _default_scale(q.shape[-1], scale)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        rr = row_ranges_tensor(mask, q.shape[2], k.shape[2], mask_ranges,
+                               q.device)
+        o, lse = flash_fwd(q, k, v, rr, bias=kernel_bias(bias), scale=scale_f,
+                           interleaved_kv=interleaved_kv,
+                           mask_value=mask_value)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.mask_ranges = mask_ranges
+        ctx.mask = mask
+        ctx.scale = scale_f
+        ctx.interleaved_kv = interleaved_kv
+        odt = q.dtype if out_dtype is None else out_dtype
+        ctx.mark_non_differentiable(lse)
+        return o.to(odt), lse
+
+    @staticmethod
+    def backward(ctx, do, _dl):
+        from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (  # noqa: E501
+            flash_attention_backward,
+        )
+
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_backward(
+            q, k, v, o, lse, do, mask=ctx.mask, mask_ranges=ctx.mask_ranges,
+            bias=bias, scale=ctx.scale, interleaved_kv=ctx.interleaved_kv,
+            compute_dbias=bias is not None and ctx.needs_input_grad[3],
+        )
+        return (
+            dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            None if dbias is None else dbias.to(bias.dtype),
+            None, None, None, None, None, None,
+        )
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    mask_ranges: Optional[Ranges] = None,
+    *,
+    mask: MaskSpec = FULL,
+    scale: Optional[float] = None,
+    block_sizes: BlockSizes = BlockSizes(),
+    interleaved_kv: bool = False,
+    mask_value: float = DEFAULT_MASK_VALUE,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Differentiable flash attention; returns O in ``out_dtype`` (default
+    q's dtype).  Gradients: dq, dk, dv, and dbias if a bias is given."""
+    return flash_attention_with_lse(
+        q, k, v, bias, mask_ranges, mask=mask, scale=scale,
+        block_sizes=block_sizes, interleaved_kv=interleaved_kv,
+        mask_value=mask_value, out_dtype=out_dtype,
+    )[0]
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    mask_ranges: Optional[Ranges] = None,
+    *,
+    mask: MaskSpec = FULL,
+    scale: Optional[float] = None,
+    block_sizes: BlockSizes = BlockSizes(),
+    interleaved_kv: bool = False,
+    mask_value: float = DEFAULT_MASK_VALUE,
+    out_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward returning (o, l) from one kernel launch; ``l`` carries no
+    gradient (JAX: ``stop_gradient``)."""
+    del block_sizes  # the Hopper kernels choose their own tiles
+    return _FlashAttention.apply(
+        q, k, v, bias, mask_ranges, mask, scale, interleaved_kv, mask_value,
+        out_dtype,
+    )
+

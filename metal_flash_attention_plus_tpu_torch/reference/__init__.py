@@ -2,6 +2,14 @@ from metal_flash_attention_plus_tpu_torch.reference.attention import (
     CAUSAL,
     FULL,
     reference_attention,
+    reference_attention_bwd,
+    reference_attention_vjp,
 )
 
-__all__ = ["CAUSAL", "FULL", "reference_attention"]
+__all__ = [
+    "CAUSAL",
+    "FULL",
+    "reference_attention",
+    "reference_attention_bwd",
+    "reference_attention_vjp",
+]

@@ -30,35 +30,9 @@ from metal_flash_attention_plus_tpu_torch import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _DECODE_MAX_GROUP_ELEMS = 2048  # Hq/Hkv · D held by one decode CTA
-_kernels = None
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    global _kernels
-    if _kernels is None:
-        lib = _build.load_library("kernels")
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mfa_paged_decode.restype = i32
-        lib.mfa_paged_decode.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
-            f32, ptr,
-        ]
-        lib.mfa_paged_prefill.restype = i32
-        lib.mfa_paged_prefill.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-            f32, ptr,
-        ]
-        lib.mfa_error_string.restype = ctypes.c_char_p
-        lib.mfa_error_string.argtypes = [i32]
-        _kernels = lib
-    return _kernels
-
-
-def _check_launch(lib: ctypes.CDLL, rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: {lib.mfa_error_string(rc).decode()}"
-        )
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_DECODE_ARGS = [_PTR] * 5 + [_I32] * 8 + [_F32, _PTR]
+_PREFILL_ARGS = [_PTR] * 4 + [_I32] * 9 + [_F32, _PTR]
 
 
 def _geometry(q_heads, head_dim, kv_pages, page_tokens):
@@ -182,14 +156,13 @@ def paged_decode_attention(
         raise ValueError("paged_decode: page_table [B, MP] / lengths [B] "
                          "do not match q's batch")
     out = torch.empty_like(q)
-    lib = _kernel_lib()
-    rc = lib.mfa_paged_decode(
+    rc = _build.kernel_function("mfa_paged_decode", _DECODE_ARGS)(
         q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], b, hq,
         hkv, d, num_pages_total, pt, page_table.shape[1],
         _default_scale(d, scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _check_launch(lib, rc, "paged_decode")
+    _build.check_launch(rc, "paged_decode")
     paged_decode_attention.launches += 1
     return out
 
@@ -275,14 +248,13 @@ def paged_prefill_attention(
     if offset < 0:
         raise ValueError(f"paged_prefill: offset {offset} < 0")
     out = torch.empty_like(q)
-    lib = _kernel_lib()
-    rc = lib.mfa_paged_prefill(
+    rc = _build.kernel_function("mfa_paged_prefill", _PREFILL_ARGS)(
         q.data_ptr(), kv_pages.data_ptr(), page_row.data_ptr(),
         out.data_ptr(), _DTYPE_CODES[q.dtype], hq, hkv, chunk, d,
         num_pages_total, pt, page_row.shape[0], offset,
         _default_scale(d, scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _check_launch(lib, rc, "paged_prefill")
+    _build.check_launch(rc, "paged_prefill")
     paged_prefill_attention.launches += 1
     return out
 

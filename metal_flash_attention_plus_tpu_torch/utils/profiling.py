@@ -1,15 +1,22 @@
-"""Where the serving engine's time goes on the card.
+"""Where the serving engine's or the train step's time goes on the card.
 
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling [--seed N]
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling --train
 
-Serves the traffic of ``chip_smoke.py``'s engine phase (:func:`smoke_requests`
-on the flagship model with random weights from the seed, engine defaults)
-twice: once to warm up, once under ``torch.profiler`` with CPU and CUDA
-activities.  Prints JSON lines: the engine's phase times and token counts,
-the device's busy time (sum of kernel times) and idle share of the
-profiled wall time, and the kernels ranked by device time.  The profiler
-itself slows the host, so the idle share it reads is an upper bound.
-Needs a CUDA device.
+Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
+phase (:func:`smoke_requests` on the flagship model with random weights
+from the seed, engine defaults) twice: once to warm up, once under
+``torch.profiler`` with CPU and CUDA activities.
+
+``--train``: the train step of ``chip_smoke.py``'s training phase (the
+bf16 flagship, Adam at lr 3e-3, one seeded batch of 4 × 2049 tokens): two
+steps to warm up, then the wall time of 3 unprofiled steps, then 3 steps
+under the profiler.
+
+Prints JSON lines: the phase times and counts, the device's busy time
+(sum of kernel times) and idle share of the profiled wall time, and the
+kernels ranked by device time.  The profiler itself slows the host, so
+the idle share it reads is an upper bound.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from torch.profiler import ProfilerActivity, profile
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
+    make_train_step,
+    trainable_parameters,
 )
 from metal_flash_attention_plus_tpu_torch.serving.engine import (
     GenerationRequest,
@@ -70,40 +79,82 @@ def kernel_table(prof, top: int = 15):
     return total, launches, [(k[:90], v[0], v[1]) for k, v in ranked[:top]]
 
 
+def print_profile(prof, wall_s: float, calls: int, what: str) -> int:
+    """The busy/idle line and the ranked kernels; 1 if no device time."""
+    busy_us, launches, ranked = kernel_table(prof)
+    if not busy_us:
+        print("profiling: the profiler recorded no device time",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+        "kernel_launches": launches,
+        f"launches_per_{what}": launches / calls,
+    }))
+    for name, us, count in ranked:
+        print(json.dumps({"kernel": name, "device_ms": us / 1e3,
+                          "count": count, "share": us / busy_us}))
+    return 0
+
+
+def profile_serving(cfg, params, seed: int) -> int:
+    serve_once(cfg, params, seed)  # warm-up: builds, cuBLAS plans
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine = serve_once(cfg, params, seed)
+        wall_s = time.perf_counter() - t0
+    stats = engine.stats
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "engine_stats": stats, "profiled_wall_s": wall_s}))
+    return print_profile(prof, wall_s,
+                         stats["prefill_calls"] + stats["decode_calls"],
+                         "model_call")
+
+
+def profile_train(cfg, params, seed: int, steps: int = 3) -> int:
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (4, 2049))).cuda()
+    optimizer = torch.optim.Adam(trainable_parameters(params), lr=3e-3)
+    step = make_train_step(cfg, optimizer)
+
+    def run(n):
+        nonlocal params
+        t0 = time.perf_counter()
+        for _ in range(n):
+            params, _, loss = step(params, optimizer.state, tokens)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, loss.item()
+
+    run(2)  # warm-up: kernel build, cuBLAS plans, optimizer state
+    wall_s, loss = run(steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall_s, _ = run(steps)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "steps": steps,
+        "tokens_per_step": 4 * 2048, "step_s": wall_s / steps,
+        "tokens_per_s": steps * 4 * 2048 / wall_s, "loss": loss,
+        "profiled_step_s": prof_wall_s / steps,
+    }))
+    return print_profile(prof, prof_wall_s, steps, "step")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of the engine")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profiling: no CUDA device is available", file=sys.stderr)
         return 2
     cfg = TransformerConfig()
     params = init_params(cfg, torch.Generator().manual_seed(args.seed))
-    serve_once(cfg, params, args.seed)  # warm-up: builds, cuBLAS plans
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine = serve_once(cfg, params, args.seed)
-        wall_s = time.perf_counter() - t0
-    stats = engine.stats
-    busy_us, launches, ranked = kernel_table(prof)
-    if not busy_us:
-        print("profiling: the profiler recorded no device time",
-              file=sys.stderr)
-        return 1
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "engine_stats": stats, "profiled_wall_s": wall_s}))
-    print(json.dumps({
-        "device_busy_s": busy_us / 1e6,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
-        "kernel_launches": launches,
-        "launches_per_model_call": launches / (
-            stats["prefill_calls"] + stats["decode_calls"]),
-    }))
-    for name, us, count in ranked:
-        print(json.dumps({"kernel": name, "device_ms": us / 1e3,
-                          "count": count, "share": us / busy_us}))
-    return 0
+    if args.train:
+        return profile_train(cfg, params, args.seed)
+    return profile_serving(cfg, params, args.seed)
 
 
 if __name__ == "__main__":

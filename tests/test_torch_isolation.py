@@ -52,8 +52,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert f"{PORT}.serving.engine" in report["modules"]
-    assert f"{PORT}.models.cached" in report["modules"]
+    for module in ("serving.engine", "models.cached", "models.transformer",
+                   "attention.masking", "ops.flash_attention",
+                   "ops.flash_attention_bwd", "entry"):
+        assert f"{PORT}.{module}" in report["modules"], module
     leaked = [m for m in report["loaded"] if _is_jax_or_reference(m)]
     assert leaked == [], leaked
     smoke = [m for m in report["smoke_imports"] if _is_jax_or_reference(m)]

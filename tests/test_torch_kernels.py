@@ -7,18 +7,32 @@ runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Tolerance: fp32 inputs are held to TOLERANCES["fp32"]; bf16 inputs to
-2e-2 max abs error — the kernel and the plain version round the same
-values to bf16 at the same places (q after scaling, P before P·V), so
-what is left is the order of fp32 accumulation and the one-pass vs online
-softmax rescaling of P before its bf16 rounding.
+2e-2 — the kernel and the plain version round the same values to bf16 at
+the same places (q after scaling, P before P·V, dS before dS·K), so what
+is left is the order of fp32 accumulation and, in the forwards, the
+one-pass vs online softmax rescaling of P before its bf16 rounding.  The
+paged kernels are held in max abs error, the flash kernels in max abs
+error over the plain version's max abs (their gradients reach ~10).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from metal_flash_attention_plus_tpu_torch.attention import masking
 from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
+)
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    flash_attention_forward_plain,
+    flash_fwd,
+    row_ranges_tensor,
+)
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
+    flash_attention_dkv_plain,
+    flash_attention_dq_plain,
+    flash_dkv,
+    flash_dq,
 )
 from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
     paged_decode_attention,
@@ -120,3 +134,127 @@ def test_kernel_rejects_unsupported_head_dim(cuda_device):
     lengths = torch.ones(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         paged_decode_attention(q, pool, table, lengths)
+
+
+# --------------------------------------------------------------------------
+# Flash attention: forward, dQ, dK/dV
+# --------------------------------------------------------------------------
+
+
+def _rel(out, ref):
+    ref = ref.float()
+    scale = ref[torch.isfinite(ref)].abs().max().clamp_min(1e-30)
+    both_inf = torch.isinf(ref) & (out.float() == ref)
+    diff = torch.where(both_inf, torch.zeros_like(ref), out.float() - ref)
+    return (diff.abs().max() / scale).item()
+
+
+def _flash_case(device, dtype, b, hq, hkv, sq, skv, d, mask, ranges=None,
+                bias_shape=None, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+
+    q, k, v = t(b, hq, sq, d), t(b, hkv, skv, d), t(b, hkv, skv, d)
+    do = t(b, hq, sq, d)
+    bias = None if bias_shape is None else t(*bias_shape)
+    rr = row_ranges_tensor(mask, sq, skv, ranges, device)
+    return ([x.to(dtype) for x in (q, k, v)], do.to(dtype), bias, rr)
+
+
+def _segments_with_empty_row():
+    ranges = masking.build_segment_ranges(np.repeat(np.arange(5), 26))
+    ranges[7] = (40, 40)
+    return ranges
+
+
+FLASH_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, mask, ranges, bias shape)
+    "causal_gqa4": (2, 8, 2, 160, 160, 64, masking.CAUSAL, None, None),
+    "full_group1": (1, 2, 2, 96, 130, 32, masking.FULL, None, None),
+    "window_causal": (1, 4, 1, 200, 200, 128, masking.sliding_window(
+        48, causal=True), None, None),
+    "segments_empty_row": (
+        1, 4, 2, 130, 130, 64, masking.MaskSpec(masking.MaskKind.SPARSE_RANGES),
+        _segments_with_empty_row(), None),
+    "block_sparse": (1, 4, 4, 128, 128, 64, masking.MaskSpec(
+        masking.MaskKind.BLOCK_SPARSE, block_size=32), masking.
+        build_block_sparse_ranges(np.eye(4, dtype=bool) | np.eye(
+            4, k=-1, dtype=bool), 32), None),
+    "bias_bcast": (2, 4, 2, 70, 90, 64, masking.CAUSAL, None, (1, 4, 70, 90)),
+    "ragged_rect": (1, 4, 4, 1000 // 8, 1000, 256, masking.CAUSAL, None,
+                    None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda_device, dtype, interleaved, name):
+    (q, k, v), do, bias, rr = _flash_case(cuda_device, dtype,
+                                          *FLASH_CASES[name])
+    scale = q.shape[-1] ** -0.5
+    kw = dict(bias=bias, scale=scale, interleaved_kv=interleaved)
+    n = (flash_fwd.launches, flash_dq.launches, flash_dkv.launches)
+    o, lse = flash_fwd(q, k, v, rr, **kw)
+    torch.cuda.synchronize()
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, **kw)
+    tol = _tol(dtype)
+    assert _rel(o, o_ref) <= tol
+    assert _rel(lse, l_ref) <= (TOLERANCES["fp32"] if dtype == torch.float32
+                                else TOLERANCES["lse"])
+    di = (do.float() * o_ref).sum(-1)
+    dq, dbias = flash_dq(q, k, v, do, l_ref, di, rr, want_dbias=bias
+                         is not None, **kw)
+    dk, dv = flash_dkv(q, k, v, do, l_ref, di, rr, **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_dq.launches, flash_dkv.launches) == (
+        n[0] + 1, n[1] + 1, n[2] + 1)
+    dq_ref, dbias_ref = flash_attention_dq_plain(
+        q, k, v, do, l_ref, di, rr, want_dbias=bias is not None, **kw)
+    dk_ref, dv_ref = flash_attention_dkv_plain(q, k, v, do, l_ref, di, rr,
+                                               **kw)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel(got, want) <= tol
+    if bias is not None:
+        assert _rel(dbias, dbias_ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_every_head_dim(cuda_device, d, dtype):
+    (q, k, v), do, _, rr = _flash_case(cuda_device, dtype, 1, 4, 1, 150, 150,
+                                       d, masking.CAUSAL, seed=d)
+    kw = dict(scale=d ** -0.5)
+    o, lse = flash_fwd(q, k, v, rr, **kw)
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, **kw)
+    di = (do.float() * o_ref).sum(-1)
+    dq, _ = flash_dq(q, k, v, do, l_ref, di, rr, **kw)
+    dk, dv = flash_dkv(q, k, v, do, l_ref, di, rr, **kw)
+    torch.cuda.synchronize()
+    dq_ref, _ = flash_attention_dq_plain(q, k, v, do, l_ref, di, rr, **kw)
+    dk_ref, dv_ref = flash_attention_dkv_plain(q, k, v, do, l_ref, di, rr,
+                                               **kw)
+    for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert _rel(got, want) <= _tol(dtype)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
+    (q, k, v), do, _, rr = _flash_case(cuda_device, torch.float32, 1, 2, 1,
+                                       64, 64, 64, masking.CAUSAL)
+    with pytest.raises(TypeError):
+        flash_fwd(q.half(), k.half(), v.half(), rr, scale=0.125)
+    with pytest.raises(ValueError):  # head dim 48 has no kernel
+        flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                  v[..., :48].contiguous(), rr, scale=0.125)
+    with pytest.raises(ValueError):  # not contiguous
+        flash_fwd(q.transpose(1, 2), k, v, rr, scale=0.125)
+    lse = torch.zeros(1, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError):  # L must be fp32 [B, Hq, Sq]
+        flash_dq(q, k, v, do, lse[..., :10], lse, rr, scale=0.125)

@@ -70,7 +70,7 @@ def test_params_from_jax_keeps_bf16_bits():
     assert f32["ln_f"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("mask", [FULL, CAUSAL])
+@pytest.mark.parametrize("mask", [FULL, CAUSAL], ids=["full", "causal"])
 @pytest.mark.parametrize("interleaved", [False, True])
 def test_reference_attention_matches_jax(mask, interleaved):
     from metal_flash_attention_plus_tpu.attention import masking
