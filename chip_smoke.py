@@ -28,7 +28,23 @@ checkout, then, on the card:
    Adam for 8 steps on one seeded batch of 4 × 2049 tokens, with the flash
    kernels' launch counts set to 0 just before and read after;
 8. kernel, plain-version and library (SDPA) times at the engine's and the
-   train step's shapes.
+   train step's shapes;
+9. the quantized serving slice (inputs from a second generator, seed + 1,
+   so the phases above see the same numbers as before it was added):
+   (a) the dynamic W8A8/W4A8 GEMM kernel against its plain version, bit
+   for bit, at the flagship's projection shapes; (b) the paged kernels'
+   int8 and int4 pool modes against their plain versions in bf16; (c)
+   full-width logits of ``quantize_weights`` params (W8A8 over an int8
+   pool, W4A8 over an int4 pool) through ``prefill_chunk`` and
+   ``decode_step`` against the fp32 ``forward`` on the dequantized weights
+   (``attn_fn=plain_attention``, no kernel), gated on the weights after
+   phase 7's train steps and reported without a gate, before phase 7, on
+   the random-init weights; (d) a ``ServingEngine`` with
+   W8A8 weights and an int8 pool, and one with W4A8 weights and an int4
+   pool, each serving the 8 requests with the launch counts set to 0 just
+   before and read after; (e) times of the GEMM summed over one model
+   call's projections and of the paged kernels' quantized modes, beside
+   their bounds, plain versions and library calls.
 
 Every phase raises on failure, so the script exits non-zero.  It prints
 the kernels' record as one JSON line and, as the very last line,
@@ -61,6 +77,9 @@ from metal_flash_attention_plus_tpu_torch.models.cached import (
     init_cache,
     prefill_chunk,
 )
+from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
+    quantize_weights,
+)
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
     forward,
@@ -81,7 +100,24 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_dkv,
     flash_dq,
 )
+from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
+    dyn_gemm,
+    dyn_gemm_plain,
+    quantize_rows,
+    weight_scales,
+)
+from metal_flash_attention_plus_tpu_torch.quant.params import (
+    QuantConfig,
+    QuantGranularity,
+    QuantStrategy,
+)
+from metal_flash_attention_plus_tpu_torch.quant.tensor import (
+    dequantize,
+    quantize,
+    unpack_int4,
+)
 from metal_flash_attention_plus_tpu_torch.serving.engine import ServingEngine
+from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
 from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -92,10 +128,11 @@ from metal_flash_attention_plus_tpu_torch.utils.profiling import (
     smoke_requests,
 )
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
-# bf16 tensor-core flop/s.
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s,
+# bf16 tensor-core flop/s and int8 tensor-core op/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 # Kernel vs plain version, both on identical bf16 inputs: they round the
 # same values to bf16 at the same places (q after scaling, P before P.V);
@@ -117,11 +154,24 @@ LSE_TOL = {torch.bfloat16: TOLERANCES["lse"],
 # Full-width fp32 gradients, flash kernels vs the dense plain attention:
 # relative L2 per parameter; fp32 throughout, sums in another order.
 GRAD_REL_L2_TOL = 1e-3
+# Quantized serving logits vs the fp32 oracle on the dequantized weights,
+# relative L2: the repo's quantized gates (W8A8 + int8 pool, W4A8 + int4
+# pool); the difference is the run-time int8 activations and the
+# quantized K/V.
+QUANT_LOGITS_TOL = {8: TOLERANCES["int8_rel"], 4: TOLERANCES["int4_rel"]}
+# The flagship's projections (N, K) in the order of one layer, and the
+# unembedding: one model call runs 8 × 7 + 1 = 57 dynamic GEMMs.
+PROJ_SHAPES = {"wq": (1024, 1024), "wk": (256, 1024), "wv": (256, 1024),
+               "wo": (1024, 1024), "wg": (4096, 1024), "wu": (4096, 1024),
+               "wd": (1024, 4096)}
+UNEMBED_SHAPE = (32768, 1024)
 # The train step's shapes: the flagship at batch 4 × 2048 tokens.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 
 DEV = torch.device("cuda")
 SOURCE = "metal_flash_attention_plus_tpu_torch/csrc/paged_attention.cu"
+GEMM_SOURCE = "metal_flash_attention_plus_tpu_torch/csrc/quantized_gemm.cu"
+GEMM_TPU = "metal_flash_attention_plus_tpu/ops/quantized_gemm.py"
 TPU_FILE = "metal_flash_attention_plus_tpu/serving/paged_attention.py"
 FLASH_SOURCE = "metal_flash_attention_plus_tpu_torch/csrc/flash_attention.cu"
 FLASH_TPU = "metal_flash_attention_plus_tpu/ops/flash_attention.py"
@@ -179,6 +229,12 @@ def paged_inputs(rng, lengths, hkv, d, pt, num_pages, max_pages,
     pool = torch.from_numpy(
         rng.standard_normal((hkv, num_pages + 1, 2 * pt, d), np.float32)
     ).to(DEV, dtype)
+    return pool, page_tables(rng, lengths, pt, num_pages, max_pages)
+
+
+def page_tables(rng, lengths, pt, num_pages, max_pages):
+    """Trash-padded page tables [len(lengths), max_pages] over scattered
+    pages, on the card."""
     perm = rng.permutation(num_pages)
     table = np.full((len(lengths), max_pages), num_pages, np.int32)
     nxt = 0
@@ -187,7 +243,7 @@ def paged_inputs(rng, lengths, hkv, d, pt, num_pages, max_pages,
         table[i, :pages] = perm[nxt: nxt + pages]
         nxt += pages
     assert nxt <= num_pages
-    return pool, torch.from_numpy(table).to(DEV)
+    return torch.from_numpy(table).to(DEV)
 
 
 def max_abs(a, b) -> float:
@@ -347,17 +403,22 @@ def rel_l2(x, ref) -> float:
     return ((x.float() - ref).norm() / ref.norm()).item()
 
 
-def check_logits(cfg, params, rng):
-    params32 = {
-        "embed": params["embed"].float(),
-        "unembed": params["unembed"].float(),
-        "ln_f": params["ln_f"],
-        "layers": [{k: v.float() for k, v in layer.items()}
-                   for layer in params["layers"]],
-    }
+def check_logits(cfg, params, rng, *, params32=None, quantized=False,
+                 tol=LOGITS_REL_L2_TOL, label="serving"):
+    """The cached path vs the fp32 oracle on ``params32`` (default: fp32
+    copies of ``params``); ``quantized`` is the pool's ``init_cache``
+    argument; ``tol=None`` reports without a gate."""
+    if params32 is None:
+        params32 = {
+            "embed": params["embed"].float(),
+            "unembed": params["unembed"].float(),
+            "ln_f": params["ln_f"],
+            "layers": [{k: v.float() for k, v in layer.items()}
+                       for layer in params["layers"]],
+        }
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     pt, chunk, num_pages, max_pages = 256, 256, 16, 8
-    cache = init_cache(cfg, num_pages, pt, device=DEV)
+    cache = init_cache(cfg, num_pages, pt, quantized=quantized, device=DEV)
     seqs = [list(rng.integers(0, cfg.vocab_size, n)) for n in (300, 420)]
     rows = torch.full((2, max_pages), num_pages, dtype=torch.int32)
     rows[0, :3] = torch.tensor([5, 0, 9])
@@ -380,7 +441,8 @@ def check_logits(cfg, params, rng):
                 rows[s].contiguous(), cfg)
         err = rel_l2(logits, oracle(seq))
         worst = max(worst, err)
-        log(f"prefill seq {s} ({len(seq)} tokens): logits rel L2 {err:.3e}")
+        log(f"{label} prefill seq {s} ({len(seq)} tokens): logits rel L2 "
+            f"{err:.3e}")
         last.append(int(torch.argmax(logits)))
     for _ in range(8):
         for s in range(2):
@@ -393,10 +455,11 @@ def check_logits(cfg, params, rng):
             err = rel_l2(logits[s], oracle(seqs[s]))
             worst = max(worst, err)
         last = torch.argmax(logits, dim=-1).tolist()
-    log(f"logits rel L2, worst over prefill + 8 decode steps: {worst:.3e} "
-        f"(tol {LOGITS_REL_L2_TOL})")
-    if not (np.isfinite(worst) and worst <= LOGITS_REL_L2_TOL):
-        raise AssertionError(f"serving logits disagree with the oracle: {worst}")
+    log(f"{label} logits rel L2, worst over prefill + 8 decode steps: "
+        f"{worst:.3e} ({'not gated' if tol is None else f'tol {tol}'})")
+    if tol is not None and not (np.isfinite(worst) and worst <= tol):
+        raise AssertionError(f"{label} logits disagree with the oracle: "
+                             f"{worst}")
     return worst
 
 
@@ -405,40 +468,55 @@ def check_logits(cfg, params, rng):
 # --------------------------------------------------------------------------
 
 
-def run_engine(cfg, params, seed):
+def run_engine(cfg, params, seed, quantized_cache=False, label="engine"):
+    """Serve the 8 smoke requests; with quantized weights every model call
+    must run 8 × 7 + 1 dynamic GEMMs, and none without."""
     requests = smoke_requests(cfg, seed)
     prompt_lens = [len(r.prompt) for r in requests]
-    engine = ServingEngine(params, cfg, device=DEV)
+    engine = ServingEngine(params, cfg, quantized_cache=quantized_cache,
+                           device=DEV)
     for req in requests:
         engine.submit(req)
     paged_prefill_attention.launches = 0
     paged_decode_attention.launches = 0
+    dyn_gemm.launches = 0
     t0 = time.perf_counter()
     outputs = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_prefill": paged_prefill_attention.launches,
                 "paged_decode": paged_decode_attention.launches}
+    gemms = dyn_gemm.launches
     stats = engine.stats
     for rid in range(len(prompt_lens)):
         toks = outputs[rid]
         if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {rid} did not finish: {toks}")
+            raise AssertionError(f"{label}: request {rid} did not finish: "
+                                 f"{toks}")
     want = {"paged_prefill": cfg.num_layers * stats["prefill_calls"],
             "paged_decode": cfg.num_layers * stats["decode_calls"]}
     if launches != want or min(launches.values()) == 0:
         raise AssertionError(f"launch counts {launches}, expected {want}")
+    calls = stats["prefill_calls"] + stats["decode_calls"]
+    quantized_weights = not isinstance(params["unembed"], torch.Tensor)
+    want_gemms = (7 * cfg.num_layers + 1) * calls if quantized_weights else 0
+    if gemms != want_gemms:
+        raise AssertionError(f"{label}: {gemms} dyn_gemm launches, expected "
+                             f"{want_gemms}")
     rates = {
         "prefill_tokens_per_s": stats["prefill_tokens"] / stats["prefill_s"],
         "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
     }
-    log("engine prompts: " + json.dumps(prompt_lens))
-    log("engine stats: " + json.dumps(stats))
-    log("engine rates: " + json.dumps(rates) + f" wall_s {wall:.3f}")
-    log("engine launches: " + json.dumps(launches) + " per model call: "
+    log(f"{label} prompts: " + json.dumps(prompt_lens))
+    log(f"{label} stats: " + json.dumps(stats))
+    log(f"{label} rates: " + json.dumps(rates) + f" wall_s {wall:.3f}")
+    log(f"{label} launches: " + json.dumps(launches) + " per model call: "
         + json.dumps({k: v / max(1, stats[c]) for (k, v), c in zip(
-            launches.items(), ("prefill_calls", "decode_calls"))}))
-    return launches, stats, prompt_lens
+            launches.items(), ("prefill_calls", "decode_calls"))})
+        + f"; dyn_gemm {gemms} ({gemms / max(1, calls):g} per model call)")
+    if quantized_weights:
+        launches["dyn_gemm"] = gemms
+    return launches, stats, prompt_lens, rates
 
 
 # --------------------------------------------------------------------------
@@ -679,6 +757,343 @@ def time_flash(rng):
 
 
 # --------------------------------------------------------------------------
+# Phase 9: the quantized serving slice
+# --------------------------------------------------------------------------
+
+W8_CFG = QuantConfig(bits=8, granularity=QuantGranularity.ROW)
+W4_CFG = QuantConfig(bits=4, granularity=QuantGranularity.ROW)
+
+
+def device_generator(rng):
+    """A generator on the card seeded from ``rng``: the large inputs of
+    phase 9 are drawn there, not on the host."""
+    return torch.Generator(device=DEV).manual_seed(int(rng.integers(2**62)))
+
+
+def gemm_operands(rng, m, n, k, cfg, with_c=False):
+    """bf16 activations [M, K] quantized per row, a random weight [N, K]
+    quantized with ``cfg``: the kernel's arguments."""
+    g = device_generator(rng)
+    a = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
+    w = torch.randn((n, k), generator=g, device=DEV)
+    wq = quantize(w * k ** -0.5, cfg)
+    qa, sa, rs = quantize_rows(a)
+    sb, zb = weight_scales(wq)
+    c = torch.randn((m, n), generator=g, device=DEV) if with_c else None
+    return (qa, wq.data, sa, rs, sb, zb), dict(bits=cfg.bits, c=c)
+
+
+def check_dyn_gemm(rng):
+    """(a) The GEMM kernel against its plain version, bit for bit, at every
+    (N, K) of the flagship, M in {8, 256, 1}, int8 and int4 ROW symmetric
+    weights; plus CENTERED ROW, TENSOR and c= cases.  → max abs error."""
+    shapes = sorted(set(PROJ_SHAPES.values()) | {UNEMBED_SHAPE})
+    cases = [(m, n, k, cfg, False) for m in (8, 256, 1) for n, k in shapes
+             for cfg in (W8_CFG, W4_CFG)]
+    cases += [
+        (256, 4096, 1024, QuantConfig(
+            bits=8, granularity=QuantGranularity.ROW,
+            strategy=QuantStrategy.CENTERED), False),
+        (8, 1024, 4096, QuantConfig(bits=8), False),  # TENSOR symmetric
+        (256, 1024, 1024, W8_CFG, True),
+    ]
+    worst = 0.0
+    for m, n, k, cfg, with_c in cases:
+        args, kw = gemm_operands(rng, m, n, k, cfg, with_c)
+        out = dyn_gemm(*args, **kw)
+        torch.cuda.synchronize()
+        ref = dyn_gemm_plain(*args, **kw)
+        err = max_abs(out, ref)
+        worst = max(worst, err)
+        if not torch.equal(out, ref):
+            raise AssertionError(
+                f"dyn_gemm M={m} N={n} K={k} {cfg.bits}-bit "
+                f"{cfg.granularity.value} {cfg.strategy.value} c={with_c} "
+                f"differs from its plain version: max abs {err}")
+    log(f"dyn_gemm: {len(cases)} cases (M 8/256/1 x {len(shapes)} shapes x "
+        "int8/int4 ROW, CENTERED, TENSOR, c=) bit-identical to the plain "
+        f"version (max abs {worst})")
+    return worst
+
+
+def quantized_pool(rng, bits, hkv, d, pt, num_pages):
+    """A random int8 pool (int8 halves [.., 2PT, D] or the int4 byte
+    [.., PT, D]: every byte value) and per-token scales around 1/127
+    (int8) or 1/7 (int4)."""
+    rows = pt if bits == 4 else 2 * pt
+    g = device_generator(rng)
+    pool = torch.randint(-128, 128, (hkv, num_pages + 1, rows, d),
+                         generator=g, device=DEV).to(torch.int8)
+    step = 7.0 if bits == 4 else 127.0
+    ks, vs = ((torch.rand((hkv, num_pages + 1, 1, pt), generator=g,
+                          device=DEV) * 1.5 + 0.5) / step for _ in range(2))
+    return pool, dict(k_scales=ks, v_scales=vs, kv_bits=bits)
+
+
+def check_decode_quantized(rng, d, bits):
+    b, hq, hkv, pt, num_pages, max_pages = 8, 16, 4, 256, 256, 16
+    lengths = np.asarray([1, pt, pt + 1, 1800, 3 * pt + 17, 37, 1024, 4000],
+                         np.int32)
+    pool, kw = quantized_pool(rng, bits, hkv, d, pt, num_pages)
+    table = page_tables(rng, lengths, pt, num_pages, max_pages)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d), np.float32)).to(
+        DEV, torch.bfloat16)
+    ln = torch.from_numpy(lengths).to(DEV)
+    out = paged_decode_attention(q, pool, table, ln, page_tokens=pt, **kw)
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_plain(q, pool, table, ln, page_tokens=pt,
+                                       **kw)
+    err = max_abs(out, ref)
+    log(f"decode int{bits} D={d}: max abs err {err:.3e} (tol {KERNEL_TOL})")
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"paged decode int{bits} D={d} disagrees: {err}")
+    return err
+
+
+def check_prefill_quantized(rng, offset, bits):
+    hq, hkv, d, pt, chunk, num_pages, max_pages = 16, 4, 64, 256, 256, 64, 16
+    pool, kw = quantized_pool(rng, bits, hkv, d, pt, num_pages)
+    row = page_tables(rng, [offset + chunk], pt, num_pages, max_pages)[0]
+    q = torch.from_numpy(rng.standard_normal((hq, chunk, d), np.float32)).to(
+        DEV, torch.bfloat16)
+    out = paged_prefill_attention(q, pool, row, offset, page_tokens=pt, **kw)
+    torch.cuda.synchronize()
+    ref = paged_prefill_attention_plain(q, pool, row, offset, page_tokens=pt,
+                                        **kw)
+    err = max_abs(out, ref)
+    log(f"prefill int{bits} offset={offset}: max abs err {err:.3e} "
+        f"(tol {KERNEL_TOL})")
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"paged prefill int{bits} offset={offset} "
+                             f"disagrees: {err}")
+    return err
+
+
+def dequantized_fp32(qparams):
+    """The fp32 oracle's weights: each quantized projection dequantized and
+    transposed back to [in, out]."""
+    def w(t):
+        return dequantize(t).t().contiguous()
+
+    return {
+        "embed": qparams["embed"].float(),
+        "unembed": w(qparams["unembed"]),
+        "ln_f": qparams["ln_f"],
+        "layers": [{k: (w(v) if k in PROJ_SHAPES else v)
+                    for k, v in layer.items()} for layer in qparams["layers"]],
+    }
+
+
+def gemm_bound(m, n, k, bits, with_c=False):
+    """(ms, by) of one dynamic GEMM: int8 operations over the int8 peak, or
+    its bytes (int8 A, the weight payload, scales and sums, fp32 out) over
+    the memory rate."""
+    nbytes = (m * k + n * k * bits // 8 + 8 * (m + n) + 4 * m * n
+              + (4 * m * n if with_c else 0))
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": 2 * m * n * k / INT8_OPS * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by
+
+
+def time_dyn_gemm(rng, m, cfg):
+    """One model call's 57 GEMMs (8 × the 7 projections at M rows, the
+    unembedding at 1 row in a prefill chunk, M rows in decode): kernel and
+    plain times, the summed bound, and two library yardsticks:
+    ``torch._int_mm`` on the same int8 operands (M padded to 32 where
+    M ≤ 16, as its shape rules ask; int4 weights unpacked to int8 first) and
+    ``torch.matmul`` of bf16 activations by the dequantized bf16 weights."""
+    m_unembed = 1 if m > 8 else m
+    work = [(8, m, n, k) for n, k in PROJ_SHAPES.values()]
+    work.append((1, m_unembed, *UNEMBED_SHAPE))
+    ops = []
+    for count, mm, n, k in work:
+        args, kw = gemm_operands(rng, mm, n, k, cfg)
+        qa, qb = args[0], args[1]
+        wi8 = unpack_int4(qb) if cfg.bits == 4 else qb
+        pad = qa if mm > 16 else torch.cat([qa, qa.new_zeros(32 - mm, k)])
+        wb = (wi8.float() * args[4][:, None]).to(torch.bfloat16).t()
+        wb = wb.contiguous()
+        ab = torch.from_numpy(rng.standard_normal((mm, k), np.float32)).to(
+            DEV, torch.bfloat16)
+        ops.append((count, args, kw, pad, wi8.t(), ab, wb))
+
+    def run(fn):
+        def go():
+            for count, *rest in ops:
+                for _ in range(count):
+                    fn(*rest)
+        return go
+
+    kernel = run(lambda args, kw, *_: dyn_gemm(*args, **kw))
+    plain = run(lambda args, kw, *_: dyn_gemm_plain(*args, **kw))
+    int_mm = run(lambda args, kw, pad, wt, *_: torch._int_mm(pad, wt))
+    bf16 = run(lambda args, kw, pad, wt, ab, wb: ab @ wb)
+    t = {"plain_ms": time_ms(plain, 2, warmup=1), "ms": time_ms(kernel, 10),
+         "library_ms": time_ms(int_mm, 10),
+         "library_bf16_matmul_ms": time_ms(bf16, 10)}
+    t["plain_ms_2"] = time_ms(plain, 2, warmup=0)
+    t["ms_2"] = time_ms(kernel, 10)
+    bounds = [(count, gemm_bound(mm, n, k, cfg.bits))
+              for count, mm, n, k in work]
+    t["bound_ms"] = sum(count * b for count, (b, _) in bounds)
+    by_bytes = sum(count * b for count, (b, by) in bounds if by == "bytes")
+    t["bound_by"] = ("bytes" if by_bytes >= t["bound_ms"] / 2
+                     else "operations")
+    log(f"dyn_gemm W{cfg.bits}A8 times, one model call at M={m} (57 "
+        "launches): " + json.dumps(t))
+    return t
+
+
+def dense_kv_quantized(pool, kw, row, n, pt):
+    """One sequence's first n tokens of K and V dequantized to bf16."""
+    t = torch.arange(n, device=DEV)
+    pidx, off = row.long()[t // pt], t % pt
+    if kw["kv_bits"] == 4:
+        k, v = unpack_kv4(pool[:, pidx, off])
+    else:
+        k, v = pool[:, pidx, off], pool[:, pidx, pt + off]
+    ks = kw["k_scales"][:, :, 0][:, pidx, off]
+    vs = kw["v_scales"][:, :, 0][:, pidx, off]
+    return ((k.float() * ks[..., None]).to(torch.bfloat16),
+            (v.float() * vs[..., None]).to(torch.bfloat16))
+
+
+def kv_token_bytes(bits, hkv, d):
+    """Live cache bytes per token: K and V payloads and two fp32 scales
+    per KV head."""
+    return hkv * (2 * d * bits // 8 + 8)
+
+
+def time_decode_quantized(rng, lengths, bits, d=64):
+    b, hq, hkv, pt, num_pages, max_pages = 8, 16, 4, 256, 256, 16
+    lengths = np.asarray(lengths, np.int32)
+    pool, kw = quantized_pool(rng, bits, hkv, d, pt, num_pages)
+    table = page_tables(rng, lengths, pt, num_pages, max_pages)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d), np.float32)).to(
+        DEV, torch.bfloat16)
+    ln = torch.from_numpy(lengths).to(DEV)
+    kernel = lambda: paged_decode_attention(  # noqa: E731
+        q, pool, table, ln, page_tokens=pt, **kw)
+    plain = lambda: paged_decode_attention_plain(  # noqa: E731
+        q, pool, table, ln, page_tokens=pt, **kw)
+    s_max = int(lengths.max())
+    k = torch.zeros(b, hkv, s_max, d, device=DEV, dtype=torch.bfloat16)
+    v = torch.zeros_like(k)
+    for i, n in enumerate(lengths):
+        k[i, :, :n], v[i, :, :n] = dense_kv_quantized(pool, kw, table[i],
+                                                      int(n), pt)
+    mask = (torch.arange(s_max, device=DEV)[None, :]
+            < ln[:, None].long()).view(b, 1, 1, s_max)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.view(b, hq, 1, d), k, v, attn_mask=mask, enable_gqa=True)
+    times = {"plain_ms": time_ms(plain, 10), "ms": time_ms(kernel, 100),
+             "library_ms": time_ms(library, 100)}
+    times["ms_2"] = time_ms(kernel, 100)
+    live = int(lengths.sum())
+    nbytes = (live * kv_token_bytes(bits, hkv, d) + 2 * b * hq * d * 2
+              + table.numel() * 4 + b * 4)
+    times["bound_ms"], times["bound_by"] = bound_of(4 * hq * live * d,
+                                                    nbytes)
+    log(f"decode int{bits} D={d} times at lengths {lengths.tolist()}: "
+        + json.dumps(times))
+    return times
+
+
+def time_prefill_quantized(rng, offset, bits):
+    hq, hkv, d, pt, chunk, num_pages, max_pages = 16, 4, 64, 256, 256, 64, 16
+    pool, kw = quantized_pool(rng, bits, hkv, d, pt, num_pages)
+    row = page_tables(rng, [offset + chunk], pt, num_pages, max_pages)[0]
+    q = torch.from_numpy(rng.standard_normal((hq, chunk, d), np.float32)).to(
+        DEV, torch.bfloat16)
+    kernel = lambda: paged_prefill_attention(  # noqa: E731
+        q, pool, row, offset, page_tokens=pt, **kw)
+    plain = lambda: paged_prefill_attention_plain(  # noqa: E731
+        q, pool, row, offset, page_tokens=pt, **kw)
+    n = offset + chunk
+    k, v = dense_kv_quantized(pool, kw, row, n, pt)
+    mask = (torch.arange(n, device=DEV)[None, :]
+            <= offset + torch.arange(chunk, device=DEV)[:, None])
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[None], k[None], v[None], attn_mask=mask, enable_gqa=True)
+    times = {"plain_ms": time_ms(plain, 10), "ms": time_ms(kernel, 50),
+             "library_ms": time_ms(library, 50)}
+    times["ms_2"] = time_ms(kernel, 50)
+    visible = chunk * offset + chunk * (chunk + 1) // 2
+    nbytes = (n * kv_token_bytes(bits, hkv, d) + 2 * hq * chunk * d * 2
+              + row.numel() * 4)
+    times["bound_ms"], times["bound_by"] = bound_of(4 * hq * d * visible,
+                                                    nbytes)
+    log(f"prefill int{bits} times at offset {offset}: " + json.dumps(times))
+    return times
+
+
+def quantized_logits_at_init(cfg, params, seed):
+    """Phase 9 (c) on the random-init weights, reported without a gate
+    (run before phase 7 trains ``params`` in place).  Their logits are
+    nearly flat, so the int4 pool's noise weighs far more in the relative
+    L2 than it does on the trained weights that (c) gates."""
+    out = {}
+    with torch.inference_mode():
+        for bits, wcfg in ((8, W8_CFG), (4, W4_CFG)):
+            qparams = quantize_weights(params, wcfg)
+            out[f"w{bits}a8+int{bits}"] = check_logits(
+                cfg, qparams, np.random.default_rng(seed + 2),
+                params32=dequantized_fp32(qparams), quantized=bits,
+                tol=None, label=f"random-init w{bits}a8+int{bits}")
+            del qparams
+    return out
+
+
+def run_quantized(cfg, params, seed, rng, dec_lens):
+    """Phase 9 (a)-(e) → the record's quantized fields.  ``params`` are the
+    flagship's weights after phase 7's 8 Adam steps.  The logits checks
+    draw their token sequences from a generator of their own (seed + 2),
+    so they see the same tokens whatever the kernel checks draw."""
+    out = {"errors": {}, "logits_rel_l2": {}, "engines": {}, "times": {}}
+    phase = {}
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["errors"]["dyn_gemm"] = check_dyn_gemm(rng)
+        for bits in (8, 4):
+            out["errors"][f"decode_int{bits}"] = max(
+                check_decode_quantized(rng, d, bits) for d in (64, 128))
+            out["errors"][f"prefill_int{bits}"] = max(
+                check_prefill_quantized(rng, off, bits)
+                for off in (0, 300, 512))
+    phase["quant_kernels"] = time.perf_counter() - t
+    for bits, wcfg in ((8, W8_CFG), (4, W4_CFG)):
+        label = f"w{bits}a8+int{bits}"
+        t = time.perf_counter()
+        with torch.inference_mode():
+            qparams = quantize_weights(params, wcfg)
+            out["logits_rel_l2"][label] = check_logits(
+                cfg, qparams, np.random.default_rng(seed + 2),
+                params32=dequantized_fp32(qparams),
+                quantized=bits, tol=QUANT_LOGITS_TOL[bits], label=label)
+        phase[f"logits_{label}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        launches, stats, _, rates = run_engine(
+            cfg, qparams, seed, quantized_cache=bits, label=f"engine {label}")
+        out["engines"][label] = {"launches": launches, "rates": rates,
+                                 "model_calls": stats["prefill_calls"]
+                                 + stats["decode_calls"]}
+        phase[f"engine_{label}"] = time.perf_counter() - t
+        del qparams
+    t = time.perf_counter()
+    with torch.inference_mode():
+        for bits, wcfg in ((8, W8_CFG), (4, W4_CFG)):
+            for m in (8, 256):
+                out["times"][f"dyn_gemm_w{bits}_m{m}"] = time_dyn_gemm(
+                    rng, m, wcfg)
+            out["times"][f"decode_int{bits}"] = time_decode_quantized(
+                rng, dec_lens, bits)
+            out["times"][f"prefill_int{bits}"] = time_prefill_quantized(
+                rng, 512, bits)
+    phase["quant_times"] = time.perf_counter() - t
+    return out, phase
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -718,12 +1133,17 @@ def main() -> int:
     phase_s["logits"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    launches, stats, prompt_lens = run_engine(cfg, params, args.seed)
+    launches, stats, prompt_lens, float_rates = run_engine(cfg, params,
+                                                           args.seed)
     phase_s["engine"] = time.perf_counter() - t
 
     t = time.perf_counter()
     grad_worst = check_train_grads(cfg, params, rng)
     phase_s["grads"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    init_logits = quantized_logits_at_init(cfg, params, args.seed)
+    phase_s["quant_logits_init"] = time.perf_counter() - t
 
     t = time.perf_counter()
     train_launches, train_tps = run_train(cfg, params, args.seed)
@@ -739,8 +1159,16 @@ def main() -> int:
         pf_t, pf_bound, pf_by = time_prefill(rng, 512)
     flash_t = time_flash(rng)
     phase_s["times"] = time.perf_counter() - t
+
+    quant, quant_phase = run_quantized(
+        cfg, params, args.seed, np.random.default_rng(args.seed + 1),
+        dec_lens)
+    phase_s.update(quant_phase)
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
+    engines = quant["engines"]
+    log("engine rates, float / W8A8+int8 / W4A8+int4: " + json.dumps(
+        {"float": float_rates, **{k: v["rates"] for k, v in engines.items()}}))
 
     record = {"kernels": [
         {"name": "paged_decode", "route": "cuda", "source": SOURCE,
@@ -759,6 +1187,39 @@ def main() -> int:
          "bound_ms": pf_bound, "bound_by": pf_by,
          "library_ms": pf_t["library_ms"]},
     ]}
+    # The paged kernels' int8 / int4 modes, from phase 9.
+    for entry, kind in zip(record["kernels"], ("decode", "prefill")):
+        for bits in (8, 4):
+            qt = quant["times"][f"{kind}_int{bits}"]
+            eng = engines[f"w{bits}a8+int{bits}"]["launches"]
+            entry.update({
+                f"launches_int{bits}": eng[f"paged_{kind}"],
+                f"max_abs_err_int{bits}": quant["errors"][
+                    f"{kind}_int{bits}"],
+                **{f"{key}_int{bits}": qt[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+            })
+    g8, g8p = (quant["times"][f"dyn_gemm_w8_m{m}"] for m in (8, 256))
+    g4, g4p = (quant["times"][f"dyn_gemm_w4_m{m}"] for m in (8, 256))
+    record["kernels"].append({
+        "name": "dyn_gemm", "route": "cuda", "source": GEMM_SOURCE,
+        "replaces": f"{GEMM_TPU}:1002",
+        "launches": sum(e["launches"]["dyn_gemm"] for e in engines.values()),
+        **{f"launches_{k.split('+')[0]}": e["launches"]["dyn_gemm"]
+           for k, e in engines.items()},
+        "max_abs_err": quant["errors"]["dyn_gemm"],
+        "shape": "one model call's 57 GEMMs at M=8 (decode), W8A8",
+        "ms": g8["ms"], "plain_ms": g8["plain_ms"],
+        "bound_ms": g8["bound_ms"], "bound_by": g8["bound_by"],
+        "library_ms": g8["library_ms"],
+        "library": "torch._int_mm on the same int8 operands (M padded to 32)",
+        "library_bf16_matmul_ms": g8["library_bf16_matmul_ms"],
+        **{f"{key}_{tag}": t[key] for tag, t in (
+            ("m256", g8p), ("w4_m8", g4), ("w4_m256", g4p))
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "library_bf16_matmul_ms")},
+    })
     replaces = {"flash_fwd": f"{FLASH_TPU}:546",
                 "flash_dq": f"{FLASH_BWD_TPU}:77",
                 "flash_dkv": f"{FLASH_BWD_TPU}:954"}
@@ -782,6 +1243,12 @@ def main() -> int:
         })
     record["train"] = {"tokens_per_s": train_tps,
                        "grad_rel_l2_worst": grad_worst}
+    record["quantized_serving"] = {
+        "logits_rel_l2": quant["logits_rel_l2"],
+        "logits_rel_l2_random_init_not_gated": init_logits,
+        "rates": {"float": float_rates,
+                  **{k: v["rates"] for k, v in engines.items()}},
+    }
     log(smi)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

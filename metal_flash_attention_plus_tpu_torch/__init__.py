@@ -7,7 +7,11 @@ against; this package imports nothing of it (nor of JAX).  Ported so far:
   cache and the two paged attention kernels (``csrc/paged_attention.cu``);
 - the training path: the mask zoo, the flash forward, dQ and dK/dV
   kernels (``csrc/flash_attention.cu``) behind the differentiable
-  ``flash_attention``, ``loss_fn`` and ``make_train_step``.
+  ``flash_attention``, ``loss_fn`` and ``make_train_step``;
+- the quantized serving path: ``QuantizedTensor`` and ``quantize``
+  (``quant/``), W8A8 / W4A8 weights (``quantize_weights``) through the
+  dynamic int8 GEMM kernel (``csrc/quantized_gemm.cu``), and int8 / int4
+  paged KV pools in both paged kernels.
 
 Entry points take ``device=None``, meaning the CUDA card, and raise
 without one unless given ``device="cpu"``.
@@ -33,6 +37,10 @@ from metal_flash_attention_plus_tpu_torch.models.convert import (
     params_from_jax,
     params_to_numpy,
 )
+from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
+    quantize_weights,
+    quantized_forward,
+)
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
     forward,
@@ -49,6 +57,19 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_backward,
+)
+from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
+    dynamic_quantized_matmul,
+)
+from metal_flash_attention_plus_tpu_torch.quant.params import (
+    QuantConfig,
+    QuantGranularity,
+    QuantStrategy,
+)
+from metal_flash_attention_plus_tpu_torch.quant.tensor import (
+    QuantizedTensor,
+    dequantize,
+    quantize,
 )
 from metal_flash_attention_plus_tpu_torch.reference.attention import (
     reference_attention,
@@ -74,9 +95,15 @@ __all__ = [
     "MaskKind",
     "MaskSpec",
     "PagedKVCache",
+    "QuantConfig",
+    "QuantGranularity",
+    "QuantStrategy",
+    "QuantizedTensor",
     "ServingEngine",
     "TransformerConfig",
     "decode_step",
+    "dequantize",
+    "dynamic_quantized_matmul",
     "flash_attention",
     "flash_attention_backward",
     "flash_attention_forward",
@@ -92,6 +119,9 @@ __all__ = [
     "params_to_numpy",
     "prefill",
     "prefill_chunk",
+    "quantize",
+    "quantize_weights",
+    "quantized_forward",
     "reference_attention",
     "sliding_window",
     "trainable_parameters",

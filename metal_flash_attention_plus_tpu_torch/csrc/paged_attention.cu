@@ -1,54 +1,72 @@
 // Paged attention kernels for Hopper (sm_90a): single-token decode and
-// chunked causal prefill over the merged float page pool.
+// chunked causal prefill over the merged page pool, float or quantized.
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
 //   - serving/paged_attention.py::_decode_kernel_streamed and ::_decode_kernel
 //     (one function, two TPU schedules chosen by head_dim) -> paged_decode_kernel
 //   - serving/paged_attention.py::_prefill_kernel -> paged_prefill_kernel
 //
-// Pool layout (both kernels): kv [Hkv, NP+1, 2*PT, D] of T (one layer of
-// serving/kv_cache.py's pool); K of a page in token rows [0, PT), V in rows
-// [PT, 2PT).  Page ids come from int32 tables; an id is clamped into the
-// pool so a bad entry cannot read outside it.  T is float or bf16.
+// Pool layouts (one layer of serving/kv_cache.py's pool), MODE of the
+// kernels' template:
+//   - KV_FLOAT: kv [Hkv, NP+1, 2*PT, D] of T (float or bf16, q's dtype); K of
+//     a page in token rows [0, PT), V in rows [PT, 2PT);
+//   - KV_INT8: the same rows in int8, with per-token symmetric scales
+//     ks, vs [Hkv, NP+1, 1, PT] fp32 (row vectors);
+//   - KV_INT4: kv [Hkv, NP+1, PT, D] int8, ONE byte per (token, d): K + 8 in
+//     the low nibble, V as the signed high nibble (value << 4); K is
+//     (byte & 0xF) - 8, V the arithmetic shift byte >> 4; scales as int8.
+// Page ids come from int32 tables; an id is clamped into the pool so a bad
+// entry cannot read outside it.  Each token's scale is read by its page id,
+// which serves both TPU decode schedules (per-page scales in the streamed
+// one, scales densified by the wrapper in the wave one).
 //
 // Numerics, shared with the plain PyTorch versions in
 // serving/paged_attention.py so the two can be held to a tight tolerance:
 //   - q is pre-scaled and rounded back to T: (float(q) * scale) -> T;
-//   - scores and all softmax statistics are fp32, natural exp, online
-//     (running max m, running sum l, rescale alpha = exp(m_prev - m_next),
-//     alpha = 0 while m_prev is -inf, p = 0 where the score is -inf);
-//   - P is rounded to T (V's type) before P.V; l sums the unrounded p;
+//   - s = sum_d q * k in fp32 (k the integer payload in the quantized
+//     modes), THEN s *= ks[token]; then the causal or length mask;
+//   - softmax statistics are fp32, natural exp, online (running max m,
+//     running sum l, rescale alpha = exp(m_prev - m_next), alpha = 0 while
+//     m_prev is -inf, p = 0 where the score is -inf); l sums the p before
+//     any V scale;
+//   - quantized modes: p *= vs[token]; then P is rounded to T before P.V
+//     with the integer V (float mode: P rounded to T, V in T);
 //   - the P.V sum is fp32 and the output is acc / l in T.
 //
 // Paged decode: what bounds it on the H100, and the design.
 //   One query token per sequence against its whole cache: 2 flops per KV
-//   byte, far below the ~295 flop/byte ridge, so the bound is the live KV
-//   bytes over 3.35 TB/s.  One CTA per (sequence, KV head) holds the GQA
-//   group's Hq/Hkv query rows (q head h -> kv head h / group), so each KV
-//   byte is read once for the whole group.  The CTA walks the live tokens,
+//   element, far below the ~295 flop/byte ridge, so the bound is the live
+//   KV bytes over 3.35 TB/s: 4*D bytes per token and KV head in bf16; in
+//   int8 half of that plus 8 bytes of scales; in int4 a quarter plus the
+//   same 8 bytes.  One CTA per (sequence, KV head) holds the GQA group's
+//   Hq/Hkv query rows (q head h -> kv head h / group), so each KV byte is
+//   read once for the whole group.  The CTA walks the live tokens,
 //   ceil(length / 64) tiles of 64 tokens, reading its own page ids; each
-//   tile's K and V rows are staged in shared memory with coalesced 16-byte
-//   loads (padded rows, no bank conflicts in the score loop) and consumed
-//   by scalar fp32 FMAs.  Tiles of 64 tokens rather than whole pages keep
-//   shared memory under 72 KB for any page size, D = 128 and fp32 alike.
-//   Known limit: at batch 8 x 4 KV heads this is 32 CTAs on 132 SMs, and
-//   each CTA loads then computes with no overlap; the kernel is latency
-//   bound, well short of the byte bound.  Split-KV (flash-decoding) and
-//   cp.async/TMA double buffering are the planned fixes.
+//   tile's K and V rows are staged in shared memory as fp32 with coalesced
+//   16-byte loads (int8 and int4 widened while staging; padded rows, no
+//   bank conflicts in the score loop) and consumed by scalar fp32 FMAs.
+//   Tiles of 64 tokens rather than whole pages keep shared memory under
+//   72 KB for any page size, D = 128 and fp32 alike.  Known limit: at batch
+//   8 x 4 KV heads this is 32 CTAs on 132 SMs, and each CTA loads then
+//   computes with no overlap; the kernel is latency bound, well short of
+//   the byte bound, so the quantized modes' fewer bytes move its time
+//   little.  Split-KV (flash-decoding) and cp.async/TMA double buffering
+//   are the planned fixes.
 //
 // Paged chunked prefill: what bounds it on the H100, and the design.
 //   A chunk of C queries of one sequence against its cached prefix plus its
 //   own causal triangle: 4*Hq*C*(offset+C)*D flops over ~(offset+C)*Hkv*2*D
 //   elements of KV, i.e. compute bound at the engine's C = 256 (989 TFLOP/s
-//   bf16 tensor cores).  This first version does the products with scalar
-//   fp32 FMAs (67 TFLOP/s peak), so it cannot reach that bound; it is the
-//   right-and-simple step before wgmma/TMA.  One CTA per (64-row tile of
-//   the group-major rows r = g*C + c, KV head); the rows of one KV head are
-//   contiguous in q [Hq, C, D], so the tile is one strided block.  The CTA
-//   walks 64-token KV tiles up to its own causal limit (global positions:
-//   column <= offset + (r mod C)), skipping the tiles no row of it can see.
-//   Q, K and P are staged transposed in shared memory so each thread's 4x4
-//   score block and 4 x D/16 output block read 16-byte vectors.
+//   bf16 tensor cores) in every pool mode.  This first version does the
+//   products with scalar fp32 FMAs (67 TFLOP/s peak), so it cannot reach
+//   that bound; it is the right-and-simple step before wgmma/TMA.  One CTA
+//   per (64-row tile of the group-major rows r = g*C + c, KV head); the
+//   rows of one KV head are contiguous in q [Hq, C, D], so the tile is one
+//   strided block.  The CTA walks 64-token KV tiles up to its own causal
+//   limit (global positions: column <= offset + (r mod C)), skipping the
+//   tiles no row of it can see.  Q, K and P are staged transposed in shared
+//   memory so each thread's 4x4 score block and 4 x D/16 output block read
+//   16-byte vectors.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,9 +79,69 @@ namespace {
 
 using mfa::Elem;
 
+constexpr int KV_FLOAT = 0;
+constexpr int KV_INT8 = 1;
+constexpr int KV_INT4 = 2;
+
 __device__ __forceinline__ int clamp_page(int page, int num_pages_total) {
   return min(max(page, 0), num_pages_total - 1);
 }
+
+// One 16-byte load of a token's K row (and its V row, or the shared byte)
+// widened to fp32: S is the pool's element type, VEC the elements per
+// load, ROWS the page rows per token (2: K and V halves; 1: the int4
+// byte).
+template <typename T, int MODE>
+struct KVLoad;
+
+template <typename T>
+struct KVLoad<T, KV_FLOAT> {
+  using S = T;
+  static constexpr int VEC = Elem<T>::VEC;
+  static constexpr int ROWS = 2;
+  static __device__ __forceinline__ void load(const S* p, size_t v_off,
+                                              float* kf, float* vf) {
+    Elem<T>::unpack(*reinterpret_cast<const uint4*>(p), kf);
+    Elem<T>::unpack(*reinterpret_cast<const uint4*>(p + v_off), vf);
+  }
+};
+
+template <typename T>
+struct KVLoad<T, KV_INT8> {
+  using S = int8_t;
+  static constexpr int VEC = 16;
+  static constexpr int ROWS = 2;
+  static __device__ __forceinline__ void load(const S* p, size_t v_off,
+                                              float* kf, float* vf) {
+    const uint4 uk = *reinterpret_cast<const uint4*>(p);
+    const uint4 uv = *reinterpret_cast<const uint4*>(p + v_off);
+    const int8_t* bk = reinterpret_cast<const int8_t*>(&uk);
+    const int8_t* bv = reinterpret_cast<const int8_t*>(&uv);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      kf[e] = (float)bk[e];
+      vf[e] = (float)bv[e];
+    }
+  }
+};
+
+template <typename T>
+struct KVLoad<T, KV_INT4> {
+  using S = int8_t;
+  static constexpr int VEC = 16;
+  static constexpr int ROWS = 1;
+  static __device__ __forceinline__ void load(const S* p, size_t,
+                                              float* kf, float* vf) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const int x = b[e];
+      kf[e] = (float)((x & 0xF) - 8);
+      vf[e] = (float)(x >> 4);
+    }
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Decode
@@ -75,19 +153,25 @@ constexpr int DEC_MAX_OUT = 16;   // output elements per thread: G*D <= 2048
 
 size_t decode_smem_bytes(int G, int D) {
   return sizeof(float) *
-         (size_t)(G * D + 2 * DEC_TK * (D + 4) + G * DEC_TK + 3 * G);
+         (size_t)(G * D + 2 * DEC_TK * (D + 4) + G * DEC_TK + 3 * G +
+                  2 * DEC_TK);
 }
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(DEC_THREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+paged_decode_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale,
                     const int32_t* __restrict__ table,
                     const int32_t* __restrict__ lengths, T* __restrict__ out,
                     int Hq, int Hkv, int num_pages_total, int PT,
                     int max_pages, float scale) {
   using E = Elem<T>;
+  using L = KVLoad<T, MODE>;
+  constexpr bool QUANT = MODE != KV_FLOAT;
   constexpr int KS = D + 4;  // padded smem row (floats)
-  constexpr int VPR = D / E::VEC;  // 16-byte vectors per token row
+  constexpr int VPR = D / L::VEC;  // 16-byte vectors per token row
+  const typename L::S* kv = static_cast<const typename L::S*>(kv_);
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int G = Hq / Hkv;
@@ -103,6 +187,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   float* m_s = ps + G * DEC_TK;    // [G]
   float* l_s = m_s + G;            // [G]
   float* a_s = l_s + G;            // [G]
+  float* ksc = a_s + G;            // [TK] K scales of the tile's tokens
+  float* vsc = ksc + DEC_TK;       // [TK] V scales
 
   const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
   for (int i = tid; i < G * D; i += DEC_THREADS)
@@ -125,21 +211,35 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       const int t = i / VPR;
       const int c = i % VPR;
       const int pos = t0 + t;
-      float kf[E::VEC], vf[E::VEC];
+      float kf[L::VEC], vf[L::VEC];
       if (pos < n_tok) {
         const int page = clamp_page(row[pos / PT], num_pages_total);
-        const T* base =
-            kv + ((head_base + page) * 2 * PT + pos % PT) * D + c * E::VEC;
-        E::unpack(*reinterpret_cast<const uint4*>(base), kf);
-        E::unpack(*reinterpret_cast<const uint4*>(base + (size_t)PT * D), vf);
+        L::load(kv + ((head_base + page) * L::ROWS * PT + pos % PT) * D +
+                    c * L::VEC,
+                (size_t)PT * D, kf, vf);
       } else {
 #pragma unroll
-        for (int e = 0; e < E::VEC; ++e) kf[e] = vf[e] = 0.f;
+        for (int e = 0; e < L::VEC; ++e) kf[e] = vf[e] = 0.f;
       }
 #pragma unroll
-      for (int e = 0; e < E::VEC; ++e) {
-        ks[t * KS + c * E::VEC + e] = kf[e];
-        vs[t * KS + c * E::VEC + e] = vf[e];
+      for (int e = 0; e < L::VEC; ++e) {
+        ks[t * KS + c * L::VEC + e] = kf[e];
+        vs[t * KS + c * L::VEC + e] = vf[e];
+      }
+    }
+    if (QUANT) {
+      for (int t = tid; t < DEC_TK; t += DEC_THREADS) {
+        const int pos = t0 + t;
+        float a = 0.f, v = 0.f;
+        if (pos < n_tok) {
+          const size_t at =
+              (head_base + clamp_page(row[pos / PT], num_pages_total)) * PT +
+              pos % PT;
+          a = kscale[at];
+          v = vscale[at];
+        }
+        ksc[t] = a;
+        vsc[t] = v;
       }
     }
     __syncthreads();
@@ -159,6 +259,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         s = fmaf(a.z, k4.z, s);
         s = fmaf(a.w, k4.w, s);
       }
+      if (QUANT) s *= ksc[t];
       ps[i] = (t0 + t < n_tok) ? s : -INFINITY;
     }
     __syncthreads();
@@ -180,8 +281,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      pr[lane] = E::round(p0);
-      pr[lane + 32] = E::round(p1);
+      pr[lane] = E::round(QUANT ? p0 * vsc[lane] : p0);
+      pr[lane + 32] = E::round(QUANT ? p1 * vsc[lane + 32] : p1);
       __syncwarp();
       if (lane == 0) {
         m_s[g] = m_next;
@@ -231,28 +332,36 @@ constexpr int PF_PAD = 4;
 size_t prefill_smem_bytes(int D) {
   const int ldm = PF_BM + PF_PAD, ldn = PF_BN + PF_PAD, ldv = D + PF_PAD;
   return sizeof(float) *
-         (size_t)(D * ldm + D * ldn + PF_BN * ldv + PF_BN * ldm);
+         (size_t)(D * ldm + D * ldn + PF_BN * ldv + PF_BN * ldm + 2 * PF_BN);
 }
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(PF_THREADS)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
+                     const float* __restrict__ kscale,
+                     const float* __restrict__ vscale,
                      const int32_t* __restrict__ page_row,
                      T* __restrict__ out, int Hq, int Hkv, int C,
                      int num_pages_total, int PT, int max_pages, int offset,
                      float scale) {
   using E = Elem<T>;
+  using L = KVLoad<T, MODE>;
+  constexpr bool QUANT = MODE != KV_FLOAT;
   constexpr int DV = D / 16;  // output dims per thread
   constexpr int LDM = PF_BM + PF_PAD;
   constexpr int LDN = PF_BN + PF_PAD;
   constexpr int LDV = D + PF_PAD;
-  constexpr int VPR = D / E::VEC;
+  constexpr int VPR = D / L::VEC;  // KV loads per token row
+  constexpr int QPR = D / E::VEC;  // q loads per row
+  const typename L::S* kv = static_cast<const typename L::S*>(kv_);
 
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                // [D][LDM]   Q transposed
   float* kt = qt + D * LDM;        // [D][LDN]   K transposed
   float* vs = kt + D * LDN;        // [BN][LDV]
   float* pt = vs + PF_BN * LDV;    // [BN][LDM]  P transposed
+  float* ksc = pt + PF_BN * LDM;   // [BN] K scales of the tile's tokens
+  float* vsc = ksc + PF_BN;        // [BN] V scales
 
   const int h = blockIdx.y;
   const int G = Hq / Hkv;
@@ -264,9 +373,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const size_t head_row0 = (size_t)h * rows;
   const T* qh = q + head_row0 * D;
 
-  for (int i = tid; i < PF_BM * VPR; i += PF_THREADS) {
-    const int r = i / VPR;
-    const int c = i % VPR;
+  for (int i = tid; i < PF_BM * QPR; i += PF_THREADS) {
+    const int r = i / QPR;
+    const int c = i % QPR;
     float f[E::VEC];
     if (r0 + r < rows) {
       E::unpack(*reinterpret_cast<const uint4*>(qh + (size_t)(r0 + r) * D +
@@ -305,21 +414,36 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       const int t = i / VPR;
       const int c = i % VPR;
       const int pos = t0 + t;
-      float kf[E::VEC], vf[E::VEC];
+      float kf[L::VEC], vf[L::VEC];
       if (pos < kv_end) {
         const int page = clamp_page(page_row[pos / PT], num_pages_total);
-        const T* base =
-            kv + ((head_base + page) * 2 * PT + pos % PT) * D + c * E::VEC;
-        E::unpack(*reinterpret_cast<const uint4*>(base), kf);
-        E::unpack(*reinterpret_cast<const uint4*>(base + (size_t)PT * D), vf);
+        L::load(kv + ((head_base + page) * L::ROWS * PT + pos % PT) * D +
+                    c * L::VEC,
+                (size_t)PT * D, kf, vf);
       } else {
 #pragma unroll
-        for (int e = 0; e < E::VEC; ++e) kf[e] = vf[e] = 0.f;
+        for (int e = 0; e < L::VEC; ++e) kf[e] = vf[e] = 0.f;
       }
 #pragma unroll
-      for (int e = 0; e < E::VEC; ++e) {
-        kt[(c * E::VEC + e) * LDN + t] = kf[e];
-        vs[t * LDV + c * E::VEC + e] = vf[e];
+      for (int e = 0; e < L::VEC; ++e) {
+        kt[(c * L::VEC + e) * LDN + t] = kf[e];
+        vs[t * LDV + c * L::VEC + e] = vf[e];
+      }
+    }
+    if (QUANT) {
+      for (int t = tid; t < PF_BN; t += PF_THREADS) {
+        const int pos = t0 + t;
+        float a = 0.f, v = 0.f;
+        if (pos < kv_end) {
+          const size_t at =
+              (head_base + clamp_page(page_row[pos / PT], num_pages_total)) *
+                  PT +
+              pos % PT;
+          a = kscale[at];
+          v = vscale[at];
+        }
+        ksc[t] = a;
+        vsc[t] = v;
       }
     }
     __syncthreads();
@@ -347,6 +471,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = t0 + tx * 4 + j;
+        if (QUANT) s[i][j] *= ksc[tx * 4 + j];
         if (col > lim[i] || col >= kv_end) s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -361,7 +486,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       for (int j = 0; j < 4; ++j) {
         const float p = (s[i][j] == -INFINITY) ? 0.f : expf(s[i][j] - m_next);
         sum += p;
-        s[i][j] = E::round(p);
+        s[i][j] = E::round(QUANT ? p * vsc[tx * 4 + j] : p);
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1)
@@ -402,92 +527,100 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   }
 }
 
-template <typename T, int D>
-int launch_decode(const void* q, const void* kv, const void* table,
-                  const void* lengths, void* out, int B, int Hq, int Hkv,
-                  int num_pages_total, int PT, int max_pages, float scale,
-                  cudaStream_t stream) {
+template <typename T, int D, int MODE>
+int launch_decode(const void* q, const void* kv, const void* ks,
+                  const void* vs, const void* table, const void* lengths,
+                  void* out, int B, int Hq, int Hkv, int num_pages_total,
+                  int PT, int max_pages, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
   if (G * D > DEC_MAX_OUT * DEC_THREADS) return (int)cudaErrorInvalidValue;
   const size_t smem = decode_smem_bytes(G, D);
-  auto kern = paged_decode_kernel<T, D>;
+  auto kern = paged_decode_kernel<T, D, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(Hkv, B), DEC_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kv),
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(lengths),
-      static_cast<T*>(out), Hq, Hkv, num_pages_total, PT, max_pages, scale);
+      static_cast<const T*>(q), kv, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(lengths), static_cast<T*>(out), Hq, Hkv,
+      num_pages_total, PT, max_pages, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_prefill(const void* q, const void* kv, const void* page_row,
-                   void* out, int Hq, int Hkv, int C, int num_pages_total,
-                   int PT, int max_pages, int offset, float scale,
-                   cudaStream_t stream) {
+template <typename T, int D, int MODE>
+int launch_prefill(const void* q, const void* kv, const void* ks,
+                   const void* vs, const void* page_row, void* out, int Hq,
+                   int Hkv, int C, int num_pages_total, int PT, int max_pages,
+                   int offset, float scale, cudaStream_t stream) {
   const int rows = (Hq / Hkv) * C;
   const size_t smem = prefill_smem_bytes(D);
-  auto kern = paged_prefill_kernel<T, D>;
+  auto kern = paged_prefill_kernel<T, D, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3((rows + PF_BM - 1) / PF_BM, Hkv), PF_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kv),
-      static_cast<const int32_t*>(page_row), static_cast<T*>(out), Hq, Hkv, C,
-      num_pages_total, PT, max_pages, offset, scale);
+      static_cast<const T*>(q), kv, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int32_t*>(page_row),
+      static_cast<T*>(out), Hq, Hkv, C, num_pages_total, PT, max_pages,
+      offset, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes).  dtype: 0 = float32, 1 = bfloat16.
-// Returns the launch's cudaError_t; cudaErrorInvalidValue for an unsupported
-// dtype or head dim.
+// Plain C interface (loaded with ctypes).  dtype (q's and, in mode 0, the
+// pool's): 0 = float32, 1 = bfloat16.  mode: 0 float pool, 1 int8 halves,
+// 2 int4 shared byte; ks and vs are ignored (may be null) in mode 0.
+// Returns the launch's cudaError_t; cudaErrorInvalidValue for an
+// unsupported dtype, mode or head dim.
 extern "C" {
 
-int mfa_paged_decode(const void* q, const void* kv, const void* table,
-                     const void* lengths, void* out, int dtype, int B, int Hq,
-                     int Hkv, int D, int num_pages_total, int PT,
-                     int max_pages, float scale, void* stream) {
+#define MFA_DISPATCH(LAUNCH, ...)                                           \
+  do {                                                                      \
+    if (dtype == 0) {                                                       \
+      MFA_MODES(LAUNCH, float, __VA_ARGS__);                                \
+    } else if (dtype == 1) {                                                \
+      MFA_MODES(LAUNCH, __nv_bfloat16, __VA_ARGS__);                        \
+    }                                                                       \
+  } while (0)
+#define MFA_MODES(LAUNCH, T, ...)                                           \
+  do {                                                                      \
+    if (mode == KV_FLOAT) MFA_DIMS(LAUNCH, T, KV_FLOAT, __VA_ARGS__);       \
+    if (mode == KV_INT8) MFA_DIMS(LAUNCH, T, KV_INT8, __VA_ARGS__);         \
+    if (mode == KV_INT4) MFA_DIMS(LAUNCH, T, KV_INT4, __VA_ARGS__);         \
+  } while (0)
+#define MFA_DIMS(LAUNCH, T, MODE, ...)                                      \
+  do {                                                                      \
+    if (D == 32) return LAUNCH<T, 32, MODE>(__VA_ARGS__);                   \
+    if (D == 64) return LAUNCH<T, 64, MODE>(__VA_ARGS__);                   \
+    if (D == 128) return LAUNCH<T, 128, MODE>(__VA_ARGS__);                 \
+  } while (0)
+
+int mfa_paged_decode(const void* q, const void* kv, const void* ks,
+                     const void* vs, const void* table, const void* lengths,
+                     void* out, int dtype, int mode, int B, int Hq, int Hkv,
+                     int D, int num_pages_total, int PT, int max_pages,
+                     float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_DECODE(T, DD)                                                   \
-  return launch_decode<T, DD>(q, kv, table, lengths, out, B, Hq, Hkv,       \
-                              num_pages_total, PT, max_pages, scale, s)
-  if (dtype == 0) {
-    if (D == 32) MFA_DECODE(float, 32);
-    if (D == 64) MFA_DECODE(float, 64);
-    if (D == 128) MFA_DECODE(float, 128);
-  } else if (dtype == 1) {
-    if (D == 32) MFA_DECODE(__nv_bfloat16, 32);
-    if (D == 64) MFA_DECODE(__nv_bfloat16, 64);
-    if (D == 128) MFA_DECODE(__nv_bfloat16, 128);
-  }
-#undef MFA_DECODE
+  MFA_DISPATCH(launch_decode, q, kv, ks, vs, table, lengths, out, B, Hq, Hkv,
+               num_pages_total, PT, max_pages, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-int mfa_paged_prefill(const void* q, const void* kv, const void* page_row,
-                      void* out, int dtype, int Hq, int Hkv, int C, int D,
+int mfa_paged_prefill(const void* q, const void* kv, const void* ks,
+                      const void* vs, const void* page_row, void* out,
+                      int dtype, int mode, int Hq, int Hkv, int C, int D,
                       int num_pages_total, int PT, int max_pages, int offset,
                       float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_PREFILL(T, DD)                                                  \
-  return launch_prefill<T, DD>(q, kv, page_row, out, Hq, Hkv, C,           \
-                               num_pages_total, PT, max_pages, offset,     \
-                               scale, s)
-  if (dtype == 0) {
-    if (D == 32) MFA_PREFILL(float, 32);
-    if (D == 64) MFA_PREFILL(float, 64);
-    if (D == 128) MFA_PREFILL(float, 128);
-  } else if (dtype == 1) {
-    if (D == 32) MFA_PREFILL(__nv_bfloat16, 32);
-    if (D == 64) MFA_PREFILL(__nv_bfloat16, 64);
-    if (D == 128) MFA_PREFILL(__nv_bfloat16, 128);
-  }
-#undef MFA_PREFILL
+  MFA_DISPATCH(launch_prefill, q, kv, ks, vs, page_row, out, Hq, Hkv, C,
+               num_pages_total, PT, max_pages, offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }
+
+#undef MFA_DIMS
+#undef MFA_MODES
+#undef MFA_DISPATCH
 
 const char* mfa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

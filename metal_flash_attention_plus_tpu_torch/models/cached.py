@@ -5,7 +5,11 @@ math).  ``prefill`` runs a whole prompt through the causal flash forward
 kernel and scatters its K/V into the pages; ``prefill_chunk`` scatters a
 chunk's K/V and runs the paged-prefill kernel over prefix + chunk;
 ``decode_step`` appends one token per sequence and runs the paged-decode
-kernel.  The cache is updated in place (see :mod:`serving.kv_cache`).
+kernel.  The cache is updated in place (see :mod:`serving.kv_cache`); a
+quantized pool (int8 or int4) is quantized as it is written and read by
+the paged kernels' quantized modes.  Quantized weights
+(``models.quantized_inference.quantize_weights``) run through ``linear``'s
+W8A8 / W4A8 GEMM.
 """
 
 from __future__ import annotations
@@ -44,13 +48,26 @@ def init_cache(
     num_pages: int,
     page_tokens: int,
     dtype: torch.dtype = torch.bfloat16,
+    quantized: Union[bool, int] = False,
     device: DeviceLike = None,
 ) -> PagedKVCache:
-    """Float page pool for ``cfg`` (quantized pools: a later slice)."""
+    """Page pool for ``cfg``.  ``quantized``: False → float pool in
+    ``dtype``; True or 8 → int8 halves; 4 → the int4 shared byte (K low
+    nibble, V high nibble)."""
+    bits = {False: 16, True: 8, 8: 8, 4: 4}[quantized]
     return PagedKVCache.create(
         cfg.num_layers, cfg.num_kv_heads, num_pages, page_tokens,
-        cfg.head_dim, dtype, device=device,
+        cfg.head_dim, dtype, bits=bits, device=device,
     )
+
+
+def _pool(cache: PagedKVCache, li: int):
+    """Layer ``li``'s pool arguments of the paged kernels."""
+    if not cache.quantized:
+        return dict(page_tokens=cache.page_tokens)
+    return dict(page_tokens=cache.page_tokens,
+                k_scales=cache.k_scales[li], v_scales=cache.v_scales[li],
+                kv_bits=cache.bits)
 
 
 def _mlp(layer, x):
@@ -121,7 +138,7 @@ def prefill_chunk(
         write_prompt(cache, li, k[0], v[0], page_row, offset=offset)
         o = paged_prefill_attention(
             q[0].contiguous(), cache.kv_pages[li], page_row, offset,
-            page_tokens=cache.page_tokens,
+            **_pool(cache, li),
         )  # [Hq, C, D]
         attn = o.transpose(0, 1).reshape(1, c, -1).to(x.dtype)
         x = _mlp(layer, x + linear(attn, layer["wo"], x.dtype))
@@ -154,7 +171,7 @@ def decode_step(
                       page_tables)
         o = paged_decode_attention(
             q[:, :, 0].contiguous(), cache.kv_pages[li], page_tables,
-            lengths, page_tokens=cache.page_tokens,
+            lengths, **_pool(cache, li),
         )  # [B, Hq, D]
         x = x + linear(o.reshape(x.shape[0], 1, -1), layer["wo"], x.dtype)
         x = _mlp(layer, x)

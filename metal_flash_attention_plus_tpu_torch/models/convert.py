@@ -6,6 +6,14 @@ on the JAX side), so this module imports nothing of JAX.  The layouts are
 the same (``[in, out]`` weights), so the conversion is a copy.
 ``params_to_numpy`` goes the other way, for parameters or their
 gradients, so that a test can compare the two packages leaf by leaf.
+
+Quantized parameters (the JAX ``quantize_weights`` output) carry across
+too.  After ``jax.tree.map(np.asarray, ...)`` their leaves are still the
+JAX package's ``QuantizedTensor`` objects, with numpy fields; they are
+recognised by their fields (``data``, ``scale``, ``zero_point``,
+``config``, ``shape``), never by importing the JAX class, and their
+config is mapped by the enums' values.  Payloads keep their integer
+dtypes whatever ``dtype`` says.
 """
 
 from __future__ import annotations
@@ -20,6 +28,47 @@ from metal_flash_attention_plus_tpu_torch._device import (
     resolve_device,
 )
 from metal_flash_attention_plus_tpu_torch.models.transformer import Params
+from metal_flash_attention_plus_tpu_torch.quant.params import (
+    QuantConfig,
+    QuantGranularity,
+    QuantStrategy,
+)
+from metal_flash_attention_plus_tpu_torch.quant.tensor import QuantizedTensor
+
+# Checked in this order: a numpy array has ``data`` and ``shape``, and
+# reading ``data`` of a bfloat16 array raises.
+_QT_FIELDS = ("config", "zero_point", "scale", "data", "shape")
+_FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def _is_quantized_leaf(node) -> bool:
+    return all(hasattr(node, f) for f in _QT_FIELDS)
+
+
+def _quantized_from_jax(node, device: torch.device) -> QuantizedTensor:
+    cfg = node.config
+
+    def raw(arr):
+        return torch.from_numpy(np.array(arr)).to(device)
+
+    return QuantizedTensor(
+        data=raw(node.data),
+        scale=raw(node.scale),
+        zero_point=raw(node.zero_point),
+        sums=None if getattr(node, "sums", None) is None else raw(node.sums),
+        config=QuantConfig(
+            bits=cfg.bits,
+            granularity=QuantGranularity(cfg.granularity.value),
+            strategy=QuantStrategy(cfg.strategy.value),
+            block_size=cfg.block_size,
+            block_rows=cfg.block_rows,
+            compute_sums=cfg.compute_sums,
+        ),
+        shape=tuple(node.shape),
+        orig_dtype=_FLOAT_DTYPES[np.dtype(getattr(
+            node, "orig_dtype", np.float32)).name],
+    )
 
 
 def _to_tensor(arr, device: torch.device, dtype: Optional[torch.dtype]):
@@ -53,6 +102,8 @@ def params_from_jax(
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
+        if _is_quantized_leaf(node):
+            return _quantized_from_jax(node, dev)
         return _to_tensor(node, dev, dtype)
 
     return conv(tree)
@@ -61,13 +112,20 @@ def params_from_jax(
 def params_to_numpy(tree: Any, grad: bool = False) -> Any:
     """The port's params (or, with ``grad=True``, their ``.grad``s) as a
     numpy tree in the JAX layout.  bf16 leaves widen to fp32, exactly
-    (numpy has no bfloat16 of its own); a missing gradient raises."""
+    (numpy has no bfloat16 of its own); a missing gradient raises.  A
+    :class:`QuantizedTensor` becomes a dict of its arrays (``data``,
+    ``scale``, ``zero_point`` and, where present, ``sums``)."""
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
+        if isinstance(node, QuantizedTensor):
+            arrays = dict(data=node.data, scale=node.scale,
+                          zero_point=node.zero_point, sums=node.sums)
+            return {k: v.detach().cpu().numpy() for k, v in arrays.items()
+                    if v is not None}
         t = node.grad if grad else node
         if t is None:
             raise ValueError("a parameter has no gradient")

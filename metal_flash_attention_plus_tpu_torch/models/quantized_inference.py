@@ -1,0 +1,139 @@
+"""Weight-quantized (W8A8 / W4A8) transformer inference.
+
+The twin of the JAX package's ``models/quantized_inference.py``: every
+projection weight is stored as a :class:`QuantizedTensor` (int8 per output
+channel, ROW symmetric, by default; ``bits=4`` for W4A8) over the
+transposed ``[out, in]`` layout, and every matmul runs the dynamic GEMM
+(:func:`ops.quantized_gemm.dynamic_quantized_matmul`): activations are
+quantized per row at run time and the product is integer.
+:func:`quantized_forward` is the uncached forward that the cached serving
+path (``models/cached.py`` through ``linear``) is held to.
+
+Inference only: no gradient flows through the integer weights.  Attention
+over quantized K/V (``quantize_kv=True``, the packed d=64 layout) needs the
+quantized-attention kernels and is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from metal_flash_attention_plus_tpu_torch.attention.masking import CAUSAL
+from metal_flash_attention_plus_tpu_torch.models.transformer import (
+    TransformerConfig,
+    _merge_heads,
+    _split_heads,
+    linear,
+    rms_norm,
+    rope,
+)
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    flash_attention_forward,
+)
+from metal_flash_attention_plus_tpu_torch.quant.params import (
+    QuantConfig,
+    QuantGranularity,
+    QuantStrategy,
+)
+from metal_flash_attention_plus_tpu_torch.quant.tensor import (
+    QuantizedTensor,
+    quantize,
+)
+
+Params = Dict[str, Any]
+
+WEIGHT_CFG = QuantConfig(
+    bits=8,
+    granularity=QuantGranularity.ROW,
+    strategy=QuantStrategy.SYMMETRIC,
+)
+
+_PROJ_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+
+def quantize_weights(params: Params, cfg: QuantConfig = WEIGHT_CFG) -> Params:
+    """Float params → quantized params: each projection ``[in, out]`` becomes
+    a :class:`QuantizedTensor` over the TRANSPOSED ``[out, in]`` layout (per
+    output channel scales; the GEMM's Bᵀ operand).  The embedding (a
+    gather) and the norm gains stay float; the unembedding is quantized
+    too.  The payloads lie on the weights' device."""
+
+    def qt(w):
+        return quantize(w.t().float(), cfg)
+
+    out = dict(params)
+    out["layers"] = [
+        {k: (qt(v) if k in _PROJ_KEYS else v) for k, v in layer.items()}
+        for layer in params["layers"]
+    ]
+    out["unembed"] = qt(params["unembed"])
+    return out
+
+
+def quantized_forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    *,
+    quantize_kv: bool = False,
+    positions=None,
+    packed_d64=None,
+) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, V] fp32, every projection through the
+    dynamic GEMM, attention through the flash forward kernel (causal).
+
+    ``quantize_kv`` and ``packed_d64`` (attention over runtime-quantized
+    K/V) raise :class:`NotImplementedError`: they run the quantized
+    attention kernels (``_qfwd_kernel``, ``_hpack_kernel``), which a later
+    slice ports.
+    """
+    if quantize_kv or packed_d64:
+        raise NotImplementedError(
+            "quantize_kv / packed_d64 need the quantized attention kernels "
+            "(_qfwd_kernel, _hpack_kernel) of the quantized-attention slice")
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = params["embed"][tokens]
+    dt = x.dtype
+    for layer in params["layers"]:
+        h = rms_norm(x, layer["ln1"])
+        q = _split_heads(linear(h, layer["wq"], dt), cfg.num_heads,
+                         cfg.head_dim)
+        k = _split_heads(linear(h, layer["wk"], dt), cfg.num_kv_heads,
+                         cfg.head_dim)
+        v = _split_heads(linear(h, layer["wv"], dt), cfg.num_kv_heads,
+                         cfg.head_dim)
+        k = rope(k, positions, cfg.rope_theta)
+        q = rope(q, positions, cfg.rope_theta)
+        o, _ = flash_attention_forward(q, k, v, mask=CAUSAL,
+                                       block_sizes=cfg.block_sizes)
+        x = x + linear(_merge_heads(o.to(dt)), layer["wo"], dt)
+        h2 = rms_norm(x, layer["ln2"])
+        y = F.silu(linear(h2, layer["wg"], torch.float32)) * linear(
+            h2, layer["wu"], torch.float32)
+        x = x + linear(y.to(dt), layer["wd"], dt)
+    hf = rms_norm(x, params["ln_f"])
+    return linear(hf, params["unembed"], torch.float32)
+
+
+def memory_footprint(params: Params) -> Dict[str, int]:
+    """Bytes of the parameters: payload, scales and zero points of each
+    quantized weight, the whole of each float one."""
+
+    def nbytes(t):
+        if isinstance(t, QuantizedTensor):
+            return sum(x.numel() * x.element_size()
+                       for x in (t.data, t.scale, t.zero_point))
+        return t.numel() * t.element_size()
+
+    def walk(node):
+        if isinstance(node, dict):
+            return sum(walk(v) for v in node.values())
+        if isinstance(node, (list, tuple)):
+            return sum(walk(v) for v in node)
+        return nbytes(node)
+
+    return {"total_bytes": walk(params)}

@@ -33,6 +33,10 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     BlockSizes,
     flash_attention,
 )
+from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
+    dynamic_quantized_matmul,
+)
+from metal_flash_attention_plus_tpu_torch.quant.tensor import QuantizedTensor
 from metal_flash_attention_plus_tpu_torch.reference.attention import (
     reference_attention,
 )
@@ -113,13 +117,17 @@ def init_params(
 
 
 def linear(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None):
-    """Dense ``[K, N]`` projection; the result is cast to ``out_dtype``
-    (default: x's dtype).  Quantized weights come with the W8A8 slice."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            "quantized weights come with the W8A8 serving slice"
-        )
-    return (x @ w).to(out_dtype or x.dtype)
+    """Projection by a dense ``[K, N]`` weight, or by a
+    :class:`QuantizedTensor` stored transposed ``[N, K]`` (the layout of
+    ``models.quantized_inference.quantize_weights``), which runs the
+    dynamic W8A8 / W4A8 GEMM with an fp32 result.  The result is cast to
+    ``out_dtype`` (default: x's dtype)."""
+    odt = out_dtype or x.dtype
+    if isinstance(w, QuantizedTensor):
+        x2 = x.reshape(-1, x.shape[-1])
+        y = dynamic_quantized_matmul(x2, w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], y.shape[-1]).to(odt)
+    return (x @ w).to(odt)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):

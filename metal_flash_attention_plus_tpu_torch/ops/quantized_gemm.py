@@ -1,0 +1,224 @@
+"""Dynamic W8A8 / W4A8 GEMM: float A [M, K] × quantized Bᵀ [N, K] → [M, N].
+
+The twin of the JAX package's ``ops/quantized_gemm.py::
+dynamic_quantized_matmul``.  A is quantized per row in the wrapper (int8
+symmetric, absmax/127, clipped to [-127, 127], and Σq per row), as the JAX
+wrapper does outside its kernel; :func:`dyn_gemm` then runs the
+integer product and the one-pass epilogue
+
+    out = (float(Σ_k qa·qb) − Σqa·z_b) · (s_a·s_b)  [+ C]
+
+in fp32, in that order, with the roundings of the JAX kernel as XLA runs
+it: the subtraction of Σqa·z_b and the addition of C are each one fused
+multiply-add.  On a CUDA tensor it launches ``dyn_gemm_kernel``
+(``csrc/quantized_gemm.cu``) or raises; on the CPU it runs
+:func:`dyn_gemm_plain`.  Its launches are counted in ``dyn_gemm.launches``.
+
+B is a :class:`QuantizedTensor` over ``[N, K]`` with ROW or TENSOR scales,
+int8 or group-planar int4 (K % 256 == 0); any strategy, the zero point is
+compensated exactly through Σqa.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from metal_flash_attention_plus_tpu_torch import _build
+from metal_flash_attention_plus_tpu_torch.quant.params import QuantGranularity
+from metal_flash_attention_plus_tpu_torch.quant.tensor import (
+    INT4_GROUP,
+    QuantizedTensor,
+    unpack_int4,
+)
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_DYN_ARGS = [_PTR] * 8 + [_I32] * 4 + [_PTR]
+
+
+def quantize_rows(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Runtime per-row symmetric int8 activations: (qa int8 [M, K], s_a fp32
+    [M], Σqa fp32 [M]).  Clipped to [-127, 127] (the KV pool clips to
+    -128; this does not)."""
+    af = a.float()
+    sa = af.abs().amax(dim=1, keepdim=True).clamp_min(1e-12) / 127.0
+    qa = torch.round(af / sa).clamp(-127, 127).to(torch.int8)
+    rs = qa.to(torch.int32).sum(dim=1).float()
+    return qa, sa[:, 0].contiguous(), rs
+
+
+def weight_scales(b_t: QuantizedTensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s_b, z_b) fp32 [N] of a ROW or TENSOR weight."""
+    n = b_t.shape[0]
+    sb = b_t.scale.reshape(-1).float()
+    zb = b_t.zero_point.reshape(-1).float()
+    if b_t.config.granularity == QuantGranularity.TENSOR:
+        sb, zb = sb.expand(n), zb.expand(n)
+    return sb.contiguous(), zb.contiguous()
+
+
+def _check_weight(b_t: QuantizedTensor, kdim: int):
+    cfg = b_t.config
+    if cfg.bits not in (8, 4):
+        raise ValueError("dynamic_quantized_matmul requires int8/int4 weights")
+    if cfg.granularity not in (QuantGranularity.ROW, QuantGranularity.TENSOR):
+        raise ValueError(
+            "dynamic_quantized_matmul needs ROW or TENSOR weight scales "
+            "(per-K-block scales need the compensated/blockwise path)")
+    if len(b_t.shape) != 2 or b_t.shape[1] != kdim:
+        raise ValueError(f"weight shape {b_t.shape} does not match K={kdim}")
+    if cfg.bits == 4 and kdim % INT4_GROUP:
+        raise ValueError(
+            f"int4 dynamic GEMM requires K % 256 == 0 (got K={kdim})")
+
+
+# ---------------------------------------------------------------------------
+# The kernel and its plain version
+# ---------------------------------------------------------------------------
+
+
+def fma32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x·y + z`` rounded once, as a fused multiply-add: the product
+    of two fp32 values is exact in float64; the float64 sum is turned into
+    its round-to-odd value (TwoSum gives the sum's error), which rounds to
+    fp32 exactly as the one-step rounding would."""
+    p = x.double() * y.double()
+    zz = z.double()
+    s = p + zz
+    bb = s - p
+    err = (p - (s - bb)) + (zz - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, -float("inf")))
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).float()
+
+
+def _epilogue(acc: torch.Tensor, sa, rs, sb, zb, c):
+    """fp32, in the kernel's order and roundings: d = acc − Σqa·z_b and, with
+    C, out = d·(s_a·s_b) + C, each one fused multiply-add (as XLA runs the
+    JAX kernel); without C, out = d·(s_a·s_b)."""
+    d = fma32(-rs[:, None].expand_as(acc), zb[None, :].expand_as(acc), acc)
+    s = sa[:, None] * sb[None, :]
+    return d * s if c is None else fma32(d, s, c.float())
+
+
+def dyn_gemm_plain(qa, qb, sa, rs, sb, zb, *, bits: int,
+                   c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dyn_gemm`: the same integer sum,
+    exactly, then the same epilogue.  The CPU multiplies in int64; torch
+    has no integer matmul on CUDA, so the card multiplies in float64,
+    which is exact here: |Σ qa·qb| ≤ 127·128·K < 2⁵³."""
+    w = unpack_int4(qb) if bits == 4 else qb
+    if qa.device.type == "cpu":
+        acc = (qa.long() @ w.long().t()).float()
+    else:
+        acc = (qa.double() @ w.double().t()).float()
+    return _epilogue(acc, sa, rs, sb, zb, c)
+
+
+def dyn_gemm(qa, qb, sa, rs, sb, zb, *, bits: int,
+             c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The integer GEMM with its epilogue → fp32 [M, N].
+
+    qa int8 [M, K]; qb int8 [N, K] (bits 8) or group-planar uint8
+    [N, K/2] (bits 4, K % 256 == 0); s_a, Σqa fp32 [M]; s_b, z_b fp32 [N];
+    c fp32 [M, N] or None.  CPU tensors take :func:`dyn_gemm_plain`; CUDA
+    tensors launch ``dyn_gemm_kernel`` or raise.
+    """
+    if qa.device.type == "cpu":
+        return dyn_gemm_plain(qa, qb, sa, rs, sb, zb, bits=bits, c=c)
+    m, kdim = qa.shape
+    n = qb.shape[0]
+    dev = qa.device
+    if dev.type != "cuda":
+        raise ValueError(f"dyn_gemm: no kernel for device {dev}")
+    if qa.dtype != torch.int8:
+        raise TypeError("dyn_gemm: activations must be int8")
+    want = (torch.int8, (n, kdim)) if bits == 8 else (
+        torch.uint8, (n, kdim // 2))
+    if bits not in (8, 4) or (qb.dtype, tuple(qb.shape)) != want:
+        raise TypeError(f"dyn_gemm: {bits}-bit weights must be "
+                        f"{want[0]} {want[1]}, got {qb.dtype} "
+                        f"{tuple(qb.shape)}")
+    if bits == 4 and kdim % INT4_GROUP:
+        raise ValueError(f"dyn_gemm: int4 needs K % 256 == 0 (got {kdim})")
+    for t, size in ((sa, m), (rs, m), (sb, n), (zb, n)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (size,):
+            raise TypeError("dyn_gemm: scales and sums must be fp32 [M] / [N]")
+    if c is not None and (c.dtype != torch.float32
+                          or tuple(c.shape) != (m, n)):
+        raise TypeError("dyn_gemm: c must be fp32 [M, N]")
+    tensors = (qa, qb, sa, rs, sb, zb) + (() if c is None else (c,))
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"dyn_gemm: all tensors must be on {dev}")
+        if not t.is_contiguous():
+            raise ValueError("dyn_gemm: tensors must be contiguous")
+    if qa.data_ptr() % 16 or qb.data_ptr() % 16:
+        raise ValueError("dyn_gemm: int8 operands must be 16-byte aligned")
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    rc = _build.kernel_function("mfa_dyn_gemm", _DYN_ARGS)(
+        qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), rs.data_ptr(),
+        sb.data_ptr(), zb.data_ptr(), None if c is None else c.data_ptr(),
+        out.data_ptr(), m, n, kdim, bits,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check_launch(rc, "dyn_gemm")
+    dyn_gemm.launches += 1
+    return out
+
+
+dyn_gemm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Public entry
+# ---------------------------------------------------------------------------
+
+
+def _operands(a: torch.Tensor, b_t: QuantizedTensor,
+              c: Optional[torch.Tensor]):
+    if a.dim() != 2:
+        raise ValueError(f"A must be [M, K], got {tuple(a.shape)}")
+    _check_weight(b_t, a.shape[1])
+    if c is not None:
+        if tuple(c.shape) != (a.shape[0], b_t.shape[0]):
+            raise ValueError(f"c must be [M, N], got {tuple(c.shape)}")
+        c = c.float().contiguous()
+    qa, sa, rs = quantize_rows(a)
+    sb, zb = weight_scales(b_t)
+    return (qa, b_t.data, sa, rs, sb, zb), dict(bits=b_t.config.bits, c=c)
+
+
+def dynamic_quantized_matmul_plain(
+    a: torch.Tensor,
+    b_t: QuantizedTensor,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    c: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dynamic_quantized_matmul`."""
+    args, kw = _operands(a, b_t, c)
+    return dyn_gemm_plain(*args, **kw).to(out_dtype or torch.float32)
+
+
+def dynamic_quantized_matmul(
+    a: torch.Tensor,
+    b_t: QuantizedTensor,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    c: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Dynamic W8A8 / W4A8 GEMM: float A [M, K] × quantized Bᵀ [N, K] →
+    [M, N] in ``out_dtype`` (default fp32).
+
+    ``c``: optional [M, N] added in fp32 in the epilogue.  The JAX
+    package's ``block_m/n/k`` are TPU tiles and are not taken: the CUDA
+    kernel chooses its own.
+    """
+    args, kw = _operands(a, b_t, c)
+    return dyn_gemm(*args, **kw).to(out_dtype or torch.float32)

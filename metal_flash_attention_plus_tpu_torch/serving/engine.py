@@ -8,19 +8,19 @@ pages, decodes run batched through the paged-decode kernel with padded
 batch slots pointing at the trash page.
 
 Greedy sampling; per-request EOS/max-token termination.  Everything runs
-under ``torch.inference_mode()``.  This slice serves the GQA transformer
-from a float page pool; the quantized pools and the MLA executor of the
-JAX engine come with later slices.  Where the JAX engine fuses several
-decode steps into one ``lax.scan`` dispatch, this one loops over
-``decode_step`` with the argmax kept on the device; per-step CUDA graphs
-are later work.
+under ``torch.inference_mode()``.  The engine serves the GQA transformer
+with float or quantized (W8A8 / W4A8) weights from a float, int8 or int4
+page pool; the MLA executor of the JAX engine comes with a later slice.
+Where the JAX engine fuses several decode steps into one ``lax.scan``
+dispatch, this one loops over ``decode_step`` with the argmax kept on the
+device; per-step CUDA graphs are later work.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -66,6 +66,9 @@ class ServingEngine:
         max_pages_per_seq: Optional[int] = None,
         cache_dtype: torch.dtype = torch.bfloat16,
         chunk_size: Optional[int] = None,
+        # False → float pages; True/8 → int8 K/V halves; 4 → the int4
+        # shared byte (K low nibble, V high nibble).
+        quantized_cache: Union[bool, int] = False,
         decode_steps: int = 1,
         device: DeviceLike = None,
     ):
@@ -84,7 +87,8 @@ class ServingEngine:
             self.pool, max_batch, token_budget=self.chunk_size
         )
         self.cache = cached.init_cache(
-            cfg, num_pages, page_tokens, cache_dtype, device=self.device
+            cfg, num_pages, page_tokens, cache_dtype,
+            quantized=quantized_cache, device=self.device,
         )
         self.requests: Dict[int, GenerationRequest] = {}
         self.outputs: Dict[int, List[int]] = {}

@@ -1,4 +1,4 @@
-"""Paged attention over the merged float page pool: decode and chunked prefill.
+"""Paged attention over the merged page pool: decode and chunked prefill.
 
 Each public function keeps the JAX package's signature and layouts
 (``metal_flash_attention_plus_tpu/serving/paged_attention.py``) and has a
@@ -8,14 +8,27 @@ wrapper launches its hand-written Hopper kernel
 tensors on the CPU.  Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.
 
-Pool: ``kv_pages [Hkv, NP+1, 2·PT, D]`` — K of a page in token rows
-``[0, PT)``, V in ``[PT, 2PT)`` (one layer of :class:`PagedKVCache`).
-Quantized pools (int8 halves, the int4 shared byte) come with a later slice.
+Pools (one layer of :class:`PagedKVCache`):
+
+- float: ``kv_pages [Hkv, NP+1, 2·PT, D]`` in q's dtype — K of a page in
+  token rows ``[0, PT)``, V in ``[PT, 2PT)``;
+- int8 (``k_scales`` given): the same rows in int8, with per-token
+  symmetric scales ``k_scales, v_scales [Hkv, NP+1, 1, PT]`` fp32;
+- int4 (``k_scales`` given and ``kv_bits=4``): ``[Hkv, NP+1, PT, D]`` int8,
+  one byte per (token, d) — K + 8 in the low nibble, V as the signed high
+  nibble (``value << 4``).
+
+As in the JAX package, the pool is quantized when ``k_scales`` is given;
+``kv_bits=4`` then selects the int4 byte and any other value means int8.
 
 Numerics shared by kernels and plain versions: q is pre-scaled and rounded
-back to its dtype, ``(q.f32 · scale).to(q.dtype)``; K and V are read in
-q's dtype; scores, softmax statistics and the P·V sum are fp32; P is cast
-to V's dtype before P·V; the output is in q's dtype.
+back to its dtype, ``(q.f32 · scale).to(q.dtype)``; scores, softmax
+statistics and the P·V sum are fp32.  Float pool: K and V are read in q's
+dtype and P is cast to it before P·V.  Quantized pools: the score is
+Σ q·k over the integer K, THEN multiplied by the token's K scale; the
+softmax sum takes P before any V scale; then P is multiplied by the
+token's V scale and cast to q's dtype before P·V over the integer V.  The
+output is in q's dtype.
 """
 
 from __future__ import annotations
@@ -26,23 +39,44 @@ from typing import Optional, Union
 import torch
 
 from metal_flash_attention_plus_tpu_torch import _build
+from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _DECODE_MAX_GROUP_ELEMS = 2048  # Hq/Hkv · D held by one decode CTA
+# Pool modes of the kernels: float, int8 halves, int4 shared byte.
+_MODE_FLOAT, _MODE_INT8, _MODE_INT4 = 0, 1, 2
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_DECODE_ARGS = [_PTR] * 5 + [_I32] * 8 + [_F32, _PTR]
-_PREFILL_ARGS = [_PTR] * 4 + [_I32] * 9 + [_F32, _PTR]
+_DECODE_ARGS = [_PTR] * 7 + [_I32] * 9 + [_F32, _PTR]
+_PREFILL_ARGS = [_PTR] * 6 + [_I32] * 10 + [_F32, _PTR]
 
 
-def _geometry(q_heads, head_dim, kv_pages, page_tokens):
+def _pool_mode(k_scales, v_scales, kv_bits: int) -> int:
+    """The JAX semantics: quantized iff ``k_scales`` is given; then
+    ``kv_bits=4`` is the int4 byte and any other value int8."""
+    if k_scales is None:
+        if v_scales is not None:
+            raise ValueError("v_scales given without k_scales")
+        if kv_bits == 4:
+            raise ValueError("int4 pools need k_scales and v_scales")
+        return _MODE_FLOAT
+    if v_scales is None:
+        raise ValueError("k_scales given without v_scales")
+    return _MODE_INT4 if kv_bits == 4 else _MODE_INT8
+
+
+def _geometry(q_heads, head_dim, kv_pages, page_tokens, mode):
+    """(Hkv, NP+1, PT); the int4 pool has PT rows per page, the others
+    2·PT."""
+    rows_per_token = 1 if mode == _MODE_INT4 else 2
     if kv_pages.dim() != 4:
-        raise ValueError(f"kv_pages must be [Hkv, NP+1, 2·PT, D], got "
+        raise ValueError(f"kv_pages must be [Hkv, NP+1, rows, D], got "
                          f"{tuple(kv_pages.shape)}")
     hkv, num_pages_total, page_rows, dk = kv_pages.shape
-    pt = page_rows // 2 if page_tokens is None else page_tokens
-    if page_rows != 2 * pt:
-        raise ValueError(f"page rows {page_rows} != 2 · page_tokens {pt}")
+    pt = page_rows // rows_per_token if page_tokens is None else page_tokens
+    if page_rows != rows_per_token * pt:
+        raise ValueError(f"page rows {page_rows} != {rows_per_token} · "
+                         f"page_tokens {pt}")
     if dk != head_dim:
         raise ValueError(f"head dim mismatch: q {head_dim}, pool {dk}")
     if q_heads % hkv:
@@ -50,23 +84,49 @@ def _geometry(q_heads, head_dim, kv_pages, page_tokens):
     return hkv, num_pages_total, pt
 
 
-def _check_cuda_inputs(name, floats, ints):
-    dev = floats[0].device
+def _scale_rows(scales, pages, mp, pt):
+    """Per-token scales of the gathered pages [Hkv, ..., MP·PT]."""
+    g = scales[:, pages.long()]  # [Hkv, ..., MP, 1, PT]
+    return g.reshape(*g.shape[:-3], mp * pt)
+
+
+def _read_kv(pages, pt, mode, dtype):
+    """K and V (fp32) of gathered pages [..., rows, D] → [..., PT, D] each:
+    float pools in ``dtype``, quantized pools as their integers."""
+    if mode == _MODE_INT4:
+        k, v = unpack_kv4(pages)
+        return k.float(), v.float()
+    k, v = pages[..., :pt, :], pages[..., pt:, :]
+    if mode == _MODE_FLOAT:
+        return k.to(dtype).float(), v.to(dtype).float()
+    return k.float(), v.float()
+
+
+def _check_cuda_inputs(name, q, kv_pages, ints, mode, scales, pt):
+    dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    dtype = floats[0].dtype
+    dtype = q.dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {dtype} has no kernel "
                         f"(float32 or bfloat16)")
-    for t in floats:
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: q and kv_pages must share a dtype")
-    for t in (*floats, *ints):
+    if mode == _MODE_FLOAT:
+        if kv_pages.dtype != dtype:
+            raise TypeError(f"{name}: q and a float kv_pages must share a "
+                            "dtype")
+    else:
+        if kv_pages.dtype != torch.int8:
+            raise TypeError(f"{name}: a quantized pool must be int8")
+        want = (kv_pages.shape[0], kv_pages.shape[1], 1, pt)
+        for t in scales:
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise TypeError(f"{name}: scales must be fp32 {want}")
+    for t in (q, kv_pages, *ints, *scales):
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    for t in floats:
+    for t in (q, kv_pages):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
     for t in ints:
@@ -95,23 +155,34 @@ def paged_decode_attention_plain(
     lengths: torch.Tensor,
     *,
     page_tokens: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    kv_bits: int = 8,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`paged_decode_attention`."""
+    mode = _pool_mode(k_scales, v_scales, kv_bits)
     b, hq, d = q.shape
-    hkv, _, pt = _geometry(hq, d, kv_pages, page_tokens)
+    hkv, _, pt = _geometry(hq, d, kv_pages, page_tokens, mode)
     group = hq // hkv
     mp = page_table.shape[1]
     qs = _prescale(q, _default_scale(d, scale)).view(b, hkv, group, d)
-    pages = kv_pages[:, page_table.long()]  # [Hkv, B, MP, 2PT, D]
-    k = pages[:, :, :, :pt].reshape(hkv, b, mp * pt, d).to(q.dtype).float()
-    v = pages[:, :, :, pt:].reshape(hkv, b, mp * pt, d).to(q.dtype)
+    pages = kv_pages[:, page_table.long()]  # [Hkv, B, MP, rows, D]
+    k, v = _read_kv(pages, pt, mode, q.dtype)
+    k = k.reshape(hkv, b, mp * pt, d)
+    v = v.reshape(hkv, b, mp * pt, d)
     s = torch.einsum("bhgd,hbtd->bhgt", qs, k)
+    if mode != _MODE_FLOAT:  # [Hkv, B, T] → [B, Hkv, 1, T]
+        s = s * _scale_rows(k_scales, page_table, mp, pt).transpose(
+            0, 1)[:, :, None]
     col = torch.arange(mp * pt, device=q.device)
     s = s.masked_fill(col >= lengths.long().view(b, 1, 1, 1), float("-inf"))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     lsum = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgt,hbtd->bhgd", p.to(v.dtype).float(), v.float())
+    if mode != _MODE_FLOAT:
+        p = p * _scale_rows(v_scales, page_table, mp, pt).transpose(
+            0, 1)[:, :, None]
+    o = torch.einsum("bhgt,hbtd->bhgd", p.to(q.dtype).float(), v)
     return (o / lsum).to(q.dtype).reshape(b, hq, d)
 
 
@@ -122,31 +193,43 @@ def paged_decode_attention(
     lengths: torch.Tensor,
     *,
     page_tokens: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    kv_bits: int = 8,
 ) -> torch.Tensor:
     """Single-token decode attention over a paged KV cache.
 
     Args:
       q: [B, Hq, D] current-step queries.
-      kv_pages: [Hkv, NP+1, 2·PT, D] merged page pool.
+      kv_pages: [Hkv, NP+1, 2·PT, D] merged page pool (float or int8), or
+        the int4 pool [Hkv, NP+1, PT, D].
       page_table: [B, max_pages] int32 physical page ids (entries past a
         sequence's last page are ignored; padded slots point at the trash
         page).
       lengths: [B] int32 tokens in each sequence's cache, INCLUDING the
         token being decoded (already appended); every length is ≥ 1.
-      page_tokens: PT (default: pool rows / 2).
+      page_tokens: PT (default: pool rows / 2, or the rows of an int4
+        pool).
+      k_scales, v_scales: [Hkv, NP+1, 1, PT] fp32 per-token scales of a
+        quantized pool; None for a float pool.
       scale: softmax scale (default D^-0.5).
+      kv_bits: 4 → the int4 pool (needs scales); anything else → int8.
 
     Returns [B, Hq, D] in q.dtype.  GQA: q head h reads kv head h // group.
     """
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, kv_pages, page_table, lengths, page_tokens=page_tokens,
-            scale=scale,
+            k_scales=k_scales, v_scales=v_scales, scale=scale,
+            kv_bits=kv_bits,
         )
+    mode = _pool_mode(k_scales, v_scales, kv_bits)
+    scales = () if mode == _MODE_FLOAT else (k_scales, v_scales)
     b, hq, d = q.shape
-    hkv, num_pages_total, pt = _geometry(hq, d, kv_pages, page_tokens)
-    _check_cuda_inputs("paged_decode", (q, kv_pages), (page_table, lengths))
+    hkv, num_pages_total, pt = _geometry(hq, d, kv_pages, page_tokens, mode)
+    _check_cuda_inputs("paged_decode", q, kv_pages, (page_table, lengths),
+                       mode, scales, pt)
     if d not in _HEAD_DIMS:
         raise ValueError(f"paged_decode: head dim {d} not in {_HEAD_DIMS}")
     if (hq // hkv) * d > _DECODE_MAX_GROUP_ELEMS:
@@ -156,11 +239,13 @@ def paged_decode_attention(
         raise ValueError("paged_decode: page_table [B, MP] / lengths [B] "
                          "do not match q's batch")
     out = torch.empty_like(q)
+    scale_ptrs = [t.data_ptr() for t in scales] or [None, None]
     rc = _build.kernel_function("mfa_paged_decode", _DECODE_ARGS)(
-        q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], b, hq,
-        hkv, d, num_pages_total, pt, page_table.shape[1],
-        _default_scale(d, scale), torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), kv_pages.data_ptr(), *scale_ptrs,
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[q.dtype], mode, b, hq, hkv, d, num_pages_total, pt,
+        page_table.shape[1], _default_scale(d, scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check_launch(rc, "paged_decode")
     paged_decode_attention.launches += 1
@@ -182,18 +267,25 @@ def paged_prefill_attention_plain(
     offset: Union[int, torch.Tensor],
     *,
     page_tokens: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    kv_bits: int = 8,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`paged_prefill_attention`."""
+    mode = _pool_mode(k_scales, v_scales, kv_bits)
     hq, chunk, d = q.shape
-    hkv, _, pt = _geometry(hq, d, kv_pages, page_tokens)
+    hkv, _, pt = _geometry(hq, d, kv_pages, page_tokens, mode)
     rows = (hq // hkv) * chunk
     mp = page_row.shape[0]
     qs = _prescale(q, _default_scale(d, scale)).view(hkv, rows, d)
-    pages = kv_pages[:, page_row.long()]  # [Hkv, MP, 2PT, D]
-    k = pages[:, :, :pt].reshape(hkv, mp * pt, d).to(q.dtype).float()
-    v = pages[:, :, pt:].reshape(hkv, mp * pt, d).to(q.dtype)
+    pages = kv_pages[:, page_row.long()]  # [Hkv, MP, rows, D]
+    k, v = _read_kv(pages, pt, mode, q.dtype)
+    k = k.reshape(hkv, mp * pt, d)
+    v = v.reshape(hkv, mp * pt, d)
     s = torch.einsum("hrd,htd->hrt", qs, k)
+    if mode != _MODE_FLOAT:
+        s = s * _scale_rows(k_scales, page_row, mp, pt)[:, None]
     # Causal in GLOBAL positions: group-major row r is chunk position
     # r mod chunk and sees columns ≤ offset + (r mod chunk).
     row = torch.arange(rows, device=q.device) % chunk
@@ -202,7 +294,9 @@ def paged_prefill_attention_plain(
     s = s.masked_fill(~visible, float("-inf"))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     lsum = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("hrt,htd->hrd", p.to(v.dtype).float(), v.float())
+    if mode != _MODE_FLOAT:
+        p = p * _scale_rows(v_scales, page_row, mp, pt)[:, None]
+    o = torch.einsum("hrt,htd->hrd", p.to(q.dtype).float(), v)
     return (o / lsum).to(q.dtype).reshape(hq, chunk, d)
 
 
@@ -213,7 +307,10 @@ def paged_prefill_attention(
     offset: Union[int, torch.Tensor],
     *,
     page_tokens: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    kv_bits: int = 8,
 ) -> torch.Tensor:
     """Chunked-prefill attention for ONE sequence over its paged cache.
 
@@ -223,11 +320,13 @@ def paged_prefill_attention(
 
     Args:
       q: [Hq, chunk, D] chunk queries.
-      kv_pages: [Hkv, NP+1, 2·PT, D] merged page pool.
+      kv_pages, k_scales, v_scales, kv_bits: the pool, as for
+        :func:`paged_decode_attention`.
       page_row: [max_pages] int32 physical page ids for this sequence.
       offset: the chunk's first global position (an int; a tensor is read
         back to the host).
-      page_tokens: PT (default: pool rows / 2).
+      page_tokens: PT (default: pool rows / 2, or the rows of an int4
+        pool).
       scale: softmax scale (default D^-0.5).
 
     Returns [Hq, chunk, D] in q.dtype.
@@ -235,11 +334,15 @@ def paged_prefill_attention(
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, kv_pages, page_row, offset, page_tokens=page_tokens,
-            scale=scale,
+            k_scales=k_scales, v_scales=v_scales, scale=scale,
+            kv_bits=kv_bits,
         )
+    mode = _pool_mode(k_scales, v_scales, kv_bits)
+    scales = () if mode == _MODE_FLOAT else (k_scales, v_scales)
     hq, chunk, d = q.shape
-    hkv, num_pages_total, pt = _geometry(hq, d, kv_pages, page_tokens)
-    _check_cuda_inputs("paged_prefill", (q, kv_pages), (page_row,))
+    hkv, num_pages_total, pt = _geometry(hq, d, kv_pages, page_tokens, mode)
+    _check_cuda_inputs("paged_prefill", q, kv_pages, (page_row,), mode,
+                       scales, pt)
     if d not in _HEAD_DIMS:
         raise ValueError(f"paged_prefill: head dim {d} not in {_HEAD_DIMS}")
     if page_row.dim() != 1:
@@ -248,11 +351,13 @@ def paged_prefill_attention(
     if offset < 0:
         raise ValueError(f"paged_prefill: offset {offset} < 0")
     out = torch.empty_like(q)
+    scale_ptrs = [t.data_ptr() for t in scales] or [None, None]
     rc = _build.kernel_function("mfa_paged_prefill", _PREFILL_ARGS)(
-        q.data_ptr(), kv_pages.data_ptr(), page_row.data_ptr(),
-        out.data_ptr(), _DTYPE_CODES[q.dtype], hq, hkv, chunk, d,
-        num_pages_total, pt, page_row.shape[0], offset,
-        _default_scale(d, scale), torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), kv_pages.data_ptr(), *scale_ptrs,
+        page_row.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], mode, hq,
+        hkv, chunk, d, num_pages_total, pt, page_row.shape[0], offset,
+        _default_scale(d, scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check_launch(rc, "paged_prefill")
     paged_prefill_attention.launches += 1

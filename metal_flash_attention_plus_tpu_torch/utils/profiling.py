@@ -1,12 +1,17 @@
 """Where the serving engine's or the train step's time goes on the card.
 
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling [--seed N]
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling --quantized 8
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --train
 
 Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
 phase (:func:`smoke_requests` on the flagship model with random weights
 from the seed, engine defaults) twice: once to warm up, once under
 ``torch.profiler`` with CPU and CUDA activities.
+
+``--quantized 8`` / ``--quantized 4``: the same traffic with W8A8 weights
+over an int8 page pool, or W4A8 weights (4-bit ROW symmetric) over an int4
+pool, as in ``chip_smoke.py``'s quantized engine phase.
 
 ``--train``: the train step of ``chip_smoke.py``'s training phase (the
 bf16 flagship, Adam at lr 3e-3, one seeded batch of 4 × 2049 tokens): two
@@ -32,11 +37,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
+    quantize_weights,
+)
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
     make_train_step,
     trainable_parameters,
+)
+from metal_flash_attention_plus_tpu_torch.quant.params import (
+    QuantConfig,
+    QuantGranularity,
 )
 from metal_flash_attention_plus_tpu_torch.serving.engine import (
     GenerationRequest,
@@ -56,9 +68,10 @@ def smoke_requests(cfg, seed: int):
     ]
 
 
-def serve_once(cfg, params, seed: int) -> ServingEngine:
+def serve_once(cfg, params, seed: int,
+               quantized_cache=False) -> ServingEngine:
     """One engine with default settings serving the smoke traffic."""
-    engine = ServingEngine(params, cfg)
+    engine = ServingEngine(params, cfg, quantized_cache=quantized_cache)
     for req in smoke_requests(cfg, seed):
         engine.submit(req)
     engine.run()
@@ -98,16 +111,23 @@ def print_profile(prof, wall_s: float, calls: int, what: str) -> int:
     return 0
 
 
-def profile_serving(cfg, params, seed: int) -> int:
-    serve_once(cfg, params, seed)  # warm-up: builds, cuBLAS plans
+def profile_serving(cfg, params, seed: int, quantized=None) -> int:
+    """``quantized`` 8 or 4: W8A8 / W4A8 weights over an int8 / int4
+    pool."""
+    if quantized:
+        params = quantize_weights(params, QuantConfig(
+            bits=quantized, granularity=QuantGranularity.ROW))
+    pool = quantized or False
+    serve_once(cfg, params, seed, pool)  # warm-up: builds, cuBLAS plans
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine = serve_once(cfg, params, seed)
+        engine = serve_once(cfg, params, seed, pool)
         wall_s = time.perf_counter() - t0
     stats = engine.stats
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "engine_stats": stats, "profiled_wall_s": wall_s}))
+                      "quantized": quantized, "engine_stats": stats,
+                      "profiled_wall_s": wall_s}))
     return print_profile(prof, wall_s,
                          stats["prefill_calls"] + stats["decode_calls"],
                          "model_call")
@@ -146,6 +166,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the engine")
+    ap.add_argument("--quantized", type=int, choices=(8, 4),
+                    help="serve W8A8 weights over an int8 pool (8) or W4A8 "
+                    "weights over an int4 pool (4)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profiling: no CUDA device is available", file=sys.stderr)
@@ -154,7 +177,7 @@ def main() -> int:
     params = init_params(cfg, torch.Generator().manual_seed(args.seed))
     if args.train:
         return profile_train(cfg, params, args.seed)
-    return profile_serving(cfg, params, args.seed)
+    return profile_serving(cfg, params, args.seed, args.quantized)
 
 
 if __name__ == "__main__":

@@ -54,7 +54,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for module in ("serving.engine", "models.cached", "models.transformer",
                    "attention.masking", "ops.flash_attention",
-                   "ops.flash_attention_bwd", "entry"):
+                   "ops.flash_attention_bwd", "entry", "quant.tensor",
+                   "ops.quantized_gemm", "models.quantized_inference"):
         assert f"{PORT}.{module}" in report["modules"], module
     leaked = [m for m in report["loaded"] if _is_jax_or_reference(m)]
     assert leaked == [], leaked

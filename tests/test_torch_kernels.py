@@ -12,7 +12,10 @@ the same places (q after scaling, P before P·V, dS before dS·K), so what
 is left is the order of fp32 accumulation and, in the forwards, the
 one-pass vs online softmax rescaling of P before its bf16 rounding.  The
 paged kernels are held in max abs error, the flash kernels in max abs
-error over the plain version's max abs (their gradients reach ~10).
+error over the plain version's max abs (their gradients reach ~10).  The
+paged kernels' int8/int4 pool modes take the same tolerances.  The
+dynamic W8A8/W4A8 GEMM is held bit for bit: both sides sum the int8
+products exactly and round the epilogue at the same places.
 """
 
 import numpy as np
@@ -34,6 +37,9 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_dkv,
     flash_dq,
 )
+from metal_flash_attention_plus_tpu_torch.ops import quantized_gemm as qg
+from metal_flash_attention_plus_tpu_torch.quant import params as qparams
+from metal_flash_attention_plus_tpu_torch.quant.tensor import quantize
 from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -258,3 +264,158 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     lse = torch.zeros(1, 2, 64, device=cuda_device)
     with pytest.raises(ValueError):  # L must be fp32 [B, Hq, Sq]
         flash_dq(q, k, v, do, lse[..., :10], lse, rr, scale=0.125)
+
+
+# --------------------------------------------------------------------------
+# The paged kernels' int8 / int4 pool modes
+# --------------------------------------------------------------------------
+
+
+def _quantized_pool(rng, bits, hkv, num_pages, pt, d, device):
+    rows = pt if bits == 4 else 2 * pt
+    pool = rng.integers(-128, 128, (hkv, num_pages + 1, rows, d))
+    scales = [torch.from_numpy(rng.uniform(
+        0.5, 2.0, (hkv, num_pages + 1, 1, pt)).astype(np.float32)).to(
+            device) / (7.0 if bits == 4 else 127.0) for _ in range(2)]
+    return torch.from_numpy(pool.astype(np.int8)).to(device), scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,pt", [(4, 2, 32, 16), (16, 4, 64, 256),
+                                         (8, 2, 128, 64)])
+def test_decode_kernel_quantized_modes_match_plain(cuda_device, bits, dtype,
+                                                   hq, hkv, d, pt):
+    rng = np.random.default_rng(bits)
+    lengths = np.asarray([1, pt, pt + 1, 3 * pt - 5], np.int32)
+    _, table = _inputs(rng, 1, 16, pt, 16, lengths, 4)
+    pool, (ks, vs) = _quantized_pool(rng, bits, hkv, 16, pt, d, cuda_device)
+    q = torch.from_numpy(rng.standard_normal((4, hq, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    args = (q, pool, torch.from_numpy(table).to(cuda_device),
+            torch.from_numpy(lengths).to(cuda_device))
+    kw = dict(page_tokens=pt, k_scales=ks, v_scales=vs, kv_bits=bits)
+    n = paged_decode_attention.launches
+    out = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == n + 1
+    ref = paged_decode_attention_plain(*args, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,pt,chunk,offset", [
+    (4, 2, 32, 16, 8, 21),
+    (16, 4, 64, 256, 256, 0),
+    (16, 4, 64, 256, 256, 300),
+    (8, 2, 128, 64, 48, 70),
+])
+def test_prefill_kernel_quantized_modes_match_plain(
+        cuda_device, bits, dtype, hq, hkv, d, pt, chunk, offset):
+    rng = np.random.default_rng(bits + 1)
+    max_pages = -(-(offset + chunk) // pt) + 1
+    _, table = _inputs(rng, 1, max_pages + 2, pt, 16, [offset + chunk],
+                       max_pages)
+    pool, (ks, vs) = _quantized_pool(rng, bits, hkv, max_pages + 2, pt, d,
+                                     cuda_device)
+    q = torch.from_numpy(rng.standard_normal((hq, chunk, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    args = (q, pool, torch.from_numpy(table[0]).to(cuda_device), offset)
+    kw = dict(page_tokens=pt, k_scales=ks, v_scales=vs, kv_bits=bits)
+    n = paged_prefill_attention.launches
+    out = paged_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches == n + 1
+    ref = paged_prefill_attention_plain(*args, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_reject_bad_quantized_pools(cuda_device):
+    q = torch.zeros(1, 2, 64, device=cuda_device)
+    table = torch.zeros(1, 1, dtype=torch.int32, device=cuda_device)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    scales = torch.ones(1, 2, 1, 16, device=cuda_device)
+    float_pool = torch.zeros(1, 2, 32, 64, device=cuda_device)
+    with pytest.raises(TypeError):  # scales with a float pool
+        paged_decode_attention(q, float_pool, table, lengths,
+                               k_scales=scales, v_scales=scales)
+    pool = float_pool.to(torch.int8)
+    with pytest.raises(TypeError):  # scales of the wrong shape
+        paged_decode_attention(q, pool, table, lengths,
+                               k_scales=scales[..., :8],
+                               v_scales=scales[..., :8])
+    with pytest.raises(ValueError):  # int4 without scales
+        paged_decode_attention(q, pool, table, lengths, kv_bits=4)
+
+
+# --------------------------------------------------------------------------
+# The dynamic W8A8 / W4A8 GEMM
+# --------------------------------------------------------------------------
+
+GEMM_CASES = {
+    # name: (bits, granularity, strategy, M, N, K, with c)
+    "w8_row_decode": (8, "row", "symmetric", 8, 1024, 1024, False),
+    "w8_row_ragged": (8, "row", "symmetric", 37, 70, 384, False),
+    "w8_row_ragged_k": (8, "row", "symmetric", 5, 33, 100, False),
+    "w8_row_centered_c": (8, "row", "centered", 256, 130, 1024, True),
+    "w8_tensor": (8, "tensor", "symmetric", 1, 257, 512, False),
+    "w4_row": (4, "row", "symmetric", 8, 256, 1024, False),
+    "w4_row_centered_ragged": (4, "row", "centered", 37, 70, 512, False),
+    "w4_tensor_c": (4, "tensor", "symmetric", 256, 1024, 4096, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GEMM_CASES))
+def test_dyn_gemm_matches_plain_bit_for_bit(cuda_device, name):
+    bits, gran, strategy, m, n, k, with_c = GEMM_CASES[name]
+    rng = np.random.default_rng(m + n + k)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device)
+
+    wq = quantize(t(n, k), qparams.QuantConfig(
+        bits=bits, granularity=qparams.QuantGranularity(gran),
+        strategy=qparams.QuantStrategy(strategy)))
+    qa, sa, rs = qg.quantize_rows(t(m, k).to(torch.bfloat16))
+    sb, zb = qg.weight_scales(wq)
+    c = t(m, n) if with_c else None
+    launches = qg.dyn_gemm.launches
+    out = qg.dyn_gemm(qa, wq.data, sa, rs, sb, zb, bits=bits, c=c)
+    torch.cuda.synchronize()
+    assert qg.dyn_gemm.launches == launches + 1
+    ref = qg.dyn_gemm_plain(qa, wq.data, sa, rs, sb, zb, bits=bits, c=c)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_dyn_gemm_rejects_what_it_does_not_take(cuda_device):
+    a = torch.ones(4, 256, device=cuda_device)
+    block = quantize(torch.ones(8, 256, device=cuda_device),
+                     qparams.QuantConfig(
+                         bits=8, granularity=qparams.QuantGranularity.BLOCK,
+                         block_size=128))
+    with pytest.raises(ValueError, match="ROW or TENSOR"):
+        qg.dynamic_quantized_matmul(a, block)
+    w4 = quantize(torch.ones(8, 128, device=cuda_device),
+                  qparams.QuantConfig(
+                      bits=4, granularity=qparams.QuantGranularity.ROW))
+    with pytest.raises(ValueError, match="K % 256"):
+        qg.dynamic_quantized_matmul(a[:, :128], w4)
+    w8 = quantize(torch.ones(8, 256, device=cuda_device), qparams.INT8_ROW)
+    qa, sa, rs = qg.quantize_rows(a)
+    sb, zb = qg.weight_scales(w8)
+    with pytest.raises(TypeError):  # float activations
+        qg.dyn_gemm(a, w8.data, sa, rs, sb, zb, bits=8)
+    with pytest.raises(TypeError):  # int8 payload declared int4
+        qg.dyn_gemm(qa, w8.data, sa, rs, sb, zb, bits=4)
+    with pytest.raises(TypeError):  # fp64 scales
+        qg.dyn_gemm(qa, w8.data, sa.double(), rs, sb, zb, bits=8)

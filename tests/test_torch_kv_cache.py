@@ -80,8 +80,16 @@ def test_chunk_write_at_offset_matches_whole_prompt():
 
 @pytest.mark.parametrize("bits", [4, 8])
 def test_quantized_pools_wait_for_their_slice(bits):
-    with pytest.raises(NotImplementedError):
-        tkv.PagedKVCache.create(L, HKV, NP, PT, D, bits=bits, device="cpu")
+    """The quantized pools have come: int8 halves or the int4 byte, with
+    fp32 row-vector scales, in the JAX package's shapes."""
+    t = tkv.PagedKVCache.create(L, HKV, NP, PT, D, bits=bits, device="cpu")
+    j = jkv.PagedKVCache.create(L, HKV, NP, PT, D, quantized=True, bits=bits)
+    assert t.quantized and t.kv_pages.dtype == torch.int8
+    assert tuple(t.kv_pages.shape) == tuple(j.kv_pages.shape)
+    assert tuple(t.k_scales.shape) == tuple(j.k_scales.shape)
+    assert t.v_scales.dtype == torch.float32
+    with pytest.raises(ValueError):
+        tkv.PagedKVCache.create(L, HKV, NP, PT, D, bits=2, device="cpu")
 
 
 def test_cache_without_device_needs_cuda():
