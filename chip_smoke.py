@@ -44,7 +44,29 @@ checkout, then, on the card:
    pool, each serving the 8 requests with the launch counts set to 0 just
    before and read after; (e) times of the GEMM summed over one model
    call's projections and of the paged kernels' quantized modes, beside
-   their bounds, plain versions and library calls.
+   their bounds, plain versions and library calls;
+10. the quantized-attention slice (inputs from a third generator, seed +
+   2): (a) the quantized forward kernel against its plain version in bf16,
+   at the flagship's attention shapes (B=2, Hq=16, Hkv=4, S=2048, D=64,
+   causal) in the unpacked model's mode (int8 Q, ROW K/V), dequant-on-load
+   ROW CENTERED int8 and int4 and folded TENSOR and ROW scales, and at
+   small shapes over int8 P·V with CHANNEL/TENSOR V, BLOCK_2D, bias, a
+   sliding window, interleaved GQA, D=128 and ragged S; (b) the head-pair
+   kernel against its plain version at the flagship shapes in the packed
+   layout, int8 and int4, causal and full; (c) both runtime quantization
+   kernels against their plain versions, bit for bit; (d) full-width
+   ``quantized_forward(quantize_weights(params), tokens, cfg,
+   quantize_kv=True)`` on 2 x 2048 tokens, packed (auto) and unpacked,
+   against the fp32 ``forward`` on the dequantized weights, gated on the
+   weights after phase 7's train steps and reported without a gate, before
+   phase 7, on the random-init weights, with 8 head-pair (packed) or 8
+   quantized-forward (unpacked) and 57 GEMM launches per call; (e)
+   ``QuantizedAttention`` (int8 CENTERED, and int4 with the Hadamard
+   rotation, causal) at the flagship attention shapes against the dense
+   fp32 attention, with 2 row-kernel and 1 quantized-forward launches per
+   call, and ``runtime_quantize`` with the blockwise-centered
+   configuration, the block kernel's entry point; (f) times of the four
+   kernels beside their bounds, plain versions and library calls.
 
 Every phase raises on failure, so the script exits non-zero.  It prints
 the kernels' record as one JSON line and, as the very last line,
@@ -72,6 +94,10 @@ from metal_flash_attention_plus_tpu_torch.attention import masking
 from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
+from metal_flash_attention_plus_tpu_torch.attention.quantized import (
+    QuantizedAttention,
+    QuantizedAttentionConfig,
+)
 from metal_flash_attention_plus_tpu_torch.models.cached import (
     decode_step,
     init_cache,
@@ -79,6 +105,7 @@ from metal_flash_attention_plus_tpu_torch.models.cached import (
 )
 from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
     quantize_weights,
+    quantized_forward,
 )
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -100,21 +127,37 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_dkv,
     flash_dq,
 )
+from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
+    hpack_arguments,
+    hpack_fwd,
+    hpack_fwd_plain,
+    pack_heads,
+    qattn_arguments,
+    qattn_fwd,
+    qattn_fwd_plain,
+)
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     dyn_gemm,
     dyn_gemm_plain,
     quantize_rows,
     weight_scales,
 )
+from metal_flash_attention_plus_tpu_torch.ops import (
+    runtime_quantization as rtq,
+)
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantConfig,
     QuantGranularity,
     QuantStrategy,
+    int8_blockwise,
 )
 from metal_flash_attention_plus_tpu_torch.quant.tensor import (
     dequantize,
     quantize,
     unpack_int4,
+)
+from metal_flash_attention_plus_tpu_torch.reference.attention import (
+    reference_attention,
 )
 from metal_flash_attention_plus_tpu_torch.serving.engine import ServingEngine
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
@@ -176,6 +219,12 @@ TPU_FILE = "metal_flash_attention_plus_tpu/serving/paged_attention.py"
 FLASH_SOURCE = "metal_flash_attention_plus_tpu_torch/csrc/flash_attention.cu"
 FLASH_TPU = "metal_flash_attention_plus_tpu/ops/flash_attention.py"
 FLASH_BWD_TPU = "metal_flash_attention_plus_tpu/ops/flash_attention_bwd.py"
+QATTN_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
+                "quantized_attention.cu")
+RTQ_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
+              "runtime_quantization.cu")
+QATTN_TPU = "metal_flash_attention_plus_tpu/ops/quantized_attention.py"
+RTQ_TPU = "metal_flash_attention_plus_tpu/ops/runtime_quantization.py"
 
 
 def log(msg: str):
@@ -1094,6 +1143,379 @@ def run_quantized(cfg, params, seed, rng, dec_lens):
     return out, phase
 
 # --------------------------------------------------------------------------
+# Phase 10: the quantized-attention slice
+# --------------------------------------------------------------------------
+
+# The flagship's attention shapes (B=2 sequences of 2048 tokens).
+ATTN_B, ATTN_HQ, ATTN_HKV, ATTN_S, ATTN_D = 2, 16, 4, 2048, 64
+QFWD_TOKENS = (2, 2048)  # the fully quantized forward's batch
+# The fully quantized forward and the facade vs their fp32 oracles,
+# relative L2: the int8 gate (weights, activations, Q and K/V in int8),
+# the JAX facade test's 0.05, and the int4 gate.
+QFWD_LOGITS_TOL = TOLERANCES["int8_rel"]
+FACADE_TOL = {8: 0.05, 4: TOLERANCES["int4_rel"]}
+
+
+def qcfg(bits=8, gran="row", strategy="symmetric", **kw):
+    return QuantConfig(bits=bits, granularity=QuantGranularity(gran),
+                       strategy=QuantStrategy(strategy), **kw)
+
+
+def attn_inputs(rng, b, hq, hkv, sq, skv, d, dtype=torch.bfloat16):
+    """bf16 Q and K/V (the float K/V as the model makes them) drawn on the
+    card."""
+    g = device_generator(rng)
+    return tuple(torch.randn(shape, generator=g, device=DEV).to(dtype)
+                 for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                               (b, hkv, skv, d)))
+
+
+def check_pair(label, kernel, plain):
+    """A kernel's (O, L) against its plain version's → (rel err of O, rel
+    err of L, max abs err of O); raises past the flash kernels' bf16
+    gates."""
+    (o, lse), (o_ref, l_ref) = kernel, plain
+    errs = (rel_err(o, o_ref), rel_err(lse, l_ref), max_abs(o, o_ref))
+    log(f"{label}: o {errs[0]:.2e} l {errs[1]:.2e} (max abs {errs[2]:.2e})")
+    if not (errs[0] <= FLASH_TOL[torch.bfloat16]
+            and errs[1] <= LSE_TOL[torch.bfloat16]):
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{errs}")
+    return errs
+
+
+def check_qattn(rng, label, b, hq, hkv, sq, skv, d, kcfg, vcfg,
+                mask=masking.CAUSAL, bias_shape=None, **opts):
+    q, k, v = attn_inputs(rng, b, hq, hkv, sq, skv, d)
+    if bias_shape is not None:
+        opts["bias"] = torch.randn(bias_shape, device=DEV,
+                                   generator=device_generator(rng))
+    args, kw = qattn_arguments(q, quantize(k.float(), kcfg),
+                               quantize(v.float(), vcfg), mask=mask, **opts)
+    out = qattn_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    return check_pair(f"qattn_fwd {label}", out, qattn_fwd_plain(*args, **kw))
+
+
+def check_qattn_all(rng):
+    """(a) The quantized forward kernel in each mode: the flagship shapes,
+    then small ones.  → {label: errors}."""
+    shapes = (ATTN_B, ATTN_HQ, ATTN_HKV, ATTN_S, ATTN_S, ATTN_D)
+    row8, row8c, row4c = qcfg(), qcfg(strategy="centered"), qcfg(
+        bits=4, strategy="centered")
+    ten8, ch8 = qcfg(gran="tensor"), qcfg(gran="channel")
+    b2d = qcfg(gran="block_2d", strategy="centered", block_rows=4,
+               block_size=32)
+    errs = {
+        "quantize_q_row": check_qattn(rng, "quantize_q ROW (flagship)",
+                                      *shapes, row8, row8, quantize_q=True),
+        "dequant_row8c": check_qattn(rng, "dequant ROW CENTERED int8 "
+                                     "(flagship)", *shapes, row8c, row8c),
+        "dequant_row4c": check_qattn(rng, "dequant ROW CENTERED int4 "
+                                     "(flagship)", *shapes, row4c, row4c),
+        "folded_tensor": check_qattn(rng, "folded TENSOR (flagship)",
+                                     *shapes, ten8, ten8),
+        "folded_row": check_qattn(rng, "folded ROW (flagship)", *shapes,
+                                  row8, row8),
+    }
+    small = (2, 8, 2, 300, 300)
+    cases = [  # (label, head dim, K, V, options)
+        ("int8_pv CHANNEL V", 64, row8, ch8, dict(quantize_q=True)),
+        ("int8_pv TENSOR V", 64, ten8, ten8, dict(quantize_q=True)),
+        ("BLOCK_2D", 64, b2d, b2d, {}),
+        ("bias", 64, row8c, row8c, dict(bias_shape=(1, 8, 300, 300))),
+        ("window-causal", 64, row8c, row8c,
+         dict(mask=masking.sliding_window(96, causal=True))),
+        ("interleaved", 64, row8c, row8c, dict(interleaved_kv=True)),
+        ("d128", 128, row8c, row8c, {}),
+    ]
+    for label, d, kcfg, vcfg, opts in cases:
+        errs[label] = check_qattn(rng, label, *small, d, kcfg, vcfg, **opts)
+    errs["ragged"] = check_qattn(rng, "ragged Sq=125 < Skv=1000", 1, 4, 4,
+                                 125, 1000, 64, row8c, row8c)
+    return errs
+
+
+def check_hpack_all(rng):
+    """(b) The head-pair kernel at the flagship shapes in the packed
+    layout, int8 and int4 CHANNEL scales, causal and full."""
+    errs = {}
+    for bits in (8, 4):
+        cfg = qcfg(bits=bits, gran="channel")
+        for mask, name in ((masking.CAUSAL, "causal"), (masking.FULL, "full")):
+            q, k, v = attn_inputs(rng, ATTN_B, ATTN_HQ, ATTN_HKV, ATTN_S,
+                                  ATTN_S, ATTN_D)
+            args, kw = hpack_arguments(pack_heads(q), quantize(k.float(), cfg),
+                                       quantize(v.float(), cfg), mask=mask)
+            out = hpack_fwd(*args, **kw)
+            torch.cuda.synchronize()
+            errs[f"int{bits}_{name}"] = check_pair(
+                f"hpack_fwd int{bits} {name} (flagship, packed)", out,
+                hpack_fwd_plain(*args, **kw))
+    return errs
+
+
+def check_runtime_quantization(rng):
+    """(c) Both runtime quantization kernels against their plain versions,
+    bit for bit: the row kernel on the facade's K/V rows ([2·4·2048, 64]
+    bf16) in each strategy, the block kernel on a [4096, 1024] bf16
+    activation at bs 64 in each strategy and at bs 128 (CENTERED, int8
+    and int4).  → the number of outputs compared."""
+    g = device_generator(rng)
+    rows = (torch.randn((ATTN_B * ATTN_HKV * ATTN_S, ATTN_D), generator=g,
+                        device=DEV) * 2 + 0.3).to(torch.bfloat16)
+    act = (torch.randn((4096, 1024), generator=g, device=DEV) * 2
+           + 0.3).to(torch.bfloat16)
+    cases = [("row", s, 8, None) for s in QuantStrategy]
+    cases += [("block", s, 8, 64) for s in QuantStrategy]
+    cases += [("block", QuantStrategy.CENTERED, bits, 128) for bits in (8, 4)]
+    for kind, strategy, bits, bs in cases:
+        if kind == "row":
+            got = rtq.rtq_rows(rows, strategy, bits, True)
+            torch.cuda.synchronize()
+            want = rtq.rtq_rows_plain(rows, strategy, bits, True)
+        else:
+            got = rtq.rtq_blocks(act, bs, strategy, bits, True)
+            torch.cuda.synchronize()
+            want = rtq.rtq_blocks_plain(act, bs, strategy, bits, True)
+        for name, a, b in zip(("codes", "scale", "zero point", "sums"),
+                              got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"runtime quantization {kind} {strategy.value} int{bits}"
+                    f" bs={bs}: {name} differs from the plain version")
+    log(f"runtime quantization: {len(cases)} cases (rows [16384, 64]: 3 "
+        "strategies; blocks [4096, 1024]: bs 64 x 3 strategies, bs 128 "
+        "int8/int4) bit-identical to the plain versions")
+    return len(cases)
+
+
+def run_quantized_attention_forward(cfg, qparams, seed, packed, tol, label):
+    """(d) ``quantized_forward(..., quantize_kv=True)`` on QFWD_TOKENS
+    tokens with the launch counts set to 0 just before and read after, against
+    the fp32 ``forward`` on the dequantized weights (plain attention, no
+    kernel); ``tol=None`` reports without a gate."""
+    tokens = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, QFWD_TOKENS)).to(DEV)
+    qattn_fwd.launches = hpack_fwd.launches = dyn_gemm.launches = 0
+    t0 = time.perf_counter()
+    logits = quantized_forward(qparams, tokens, cfg, quantize_kv=True,
+                               packed_d64=None if packed else False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"qattn_fwd": qattn_fwd.launches,
+                "hpack_fwd": hpack_fwd.launches,
+                "dyn_gemm": dyn_gemm.launches}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = forward(dequantized_fp32(qparams), tokens, cfg32,
+                  attn_fn=plain_attention)
+    err = rel_l2(logits, ref)
+    finite = bool(torch.isfinite(logits).all())
+    del ref
+    log(f"{label}: logits rel L2 {err:.3e} "
+        f"({'not gated' if tol is None else f'tol {tol}'}), "
+        f"{wall:.3f} s, launches " + json.dumps(launches))
+    want = {"qattn_fwd": 0 if packed else cfg.num_layers,
+            "hpack_fwd": cfg.num_layers if packed else 0,
+            "dyn_gemm": 7 * cfg.num_layers + 1}
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches}, expected "
+                             f"{want}")
+    if tuple(logits.shape) != (*QFWD_TOKENS, cfg.vocab_size) or not finite:
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)}, "
+                             f"finite {finite}")
+    if tol is not None and not err <= tol:
+        raise AssertionError(f"{label}: logits disagree with the oracle: "
+                             f"{err}")
+    return err, launches
+
+
+def run_quantized_attention_forwards(cfg, params, seed, tol, tag):
+    """(d) packed (auto) and unpacked, W8A8 weights of ``params``."""
+    out = {}
+    with torch.inference_mode():
+        qparams = quantize_weights(params, W8_CFG)
+        for packed in (True, False):
+            name = "packed" if packed else "unpacked"
+            out[name] = run_quantized_attention_forward(
+                cfg, qparams, seed, packed, tol,
+                f"{tag} quantized_forward(quantize_kv=True) {name}")
+        del qparams
+    return out
+
+
+def run_facade(rng):
+    """(e) ``QuantizedAttention`` at the flagship attention shapes, int8
+    CENTERED and int4 with the Hadamard rotation, causal, against the dense
+    fp32 attention over the float K/V, with the launch counts set to 0
+    just before each call and read after."""
+    q, k, v = attn_inputs(rng, ATTN_B, ATTN_HQ, ATTN_HKV, ATTN_S, ATTN_S,
+                          ATTN_D)
+    ref = reference_attention(q.float(), k.float(), v.float(),
+                              mask=masking.CAUSAL)[0]
+    out = {}
+    for bits, hadamard in ((8, False), (4, True)):
+        facade = QuantizedAttention(
+            config=QuantizedAttentionConfig(key_bits=bits, value_bits=bits,
+                                            hadamard=hadamard),
+            mask=masking.CAUSAL)
+        rtq.rtq_rows.launches = qattn_fwd.launches = 0
+        with torch.inference_mode():
+            o = facade(q, k, v)
+        torch.cuda.synchronize()
+        launches = {"runtime_quantize_row": rtq.rtq_rows.launches,
+                    "qattn_fwd": qattn_fwd.launches}
+        err = rel_l2(o, ref)
+        label = f"QuantizedAttention int{bits}" + (" hadamard" if hadamard
+                                                   else " CENTERED")
+        log(f"{label}: O rel L2 {err:.3e} (tol {FACADE_TOL[bits]}), "
+            "launches " + json.dumps(launches))
+        if launches != {"runtime_quantize_row": 2, "qattn_fwd": 1}:
+            raise AssertionError(f"{label}: launch counts {launches}")
+        if o.shape != q.shape or not err <= FACADE_TOL[bits]:
+            raise AssertionError(f"{label}: O rel L2 {err}")
+        out[f"int{bits}"] = (err, launches)
+    return out
+
+
+def run_block_quantizer(rng):
+    """The block kernel's entry point: ``runtime_quantize`` of a [4096,
+    1024] bf16 activation with the blockwise-centered configuration at bs
+    64 and 128, the launch count set to 0 just before and read after."""
+    act = torch.randn((4096, 1024), generator=device_generator(rng),
+                      device=DEV).to(torch.bfloat16)
+    rtq.rtq_blocks.launches = 0
+    for bs in (64, 128):
+        t = rtq.runtime_quantize(act, int8_blockwise(bs))
+        if tuple(t.data.shape) != (4096, 1024) or t.scale.shape != (
+                1, 1024 // bs):
+            raise AssertionError(f"runtime_quantize bs={bs}: shapes "
+                                 f"{tuple(t.data.shape)} {tuple(t.scale.shape)}")
+    torch.cuda.synchronize()
+    launches = rtq.rtq_blocks.launches
+    log(f"runtime_quantize(int8_blockwise(64 | 128)) on [4096, 1024]: "
+        f"{launches} block-kernel launches")
+    if launches != 2:
+        raise AssertionError(f"block kernel launches {launches}, expected 2")
+    return launches
+
+
+def attn_bound(pairs, ops_int8, ops_bf16, nbytes):
+    """(ms, by): bytes over the memory rate, or int8 and bf16 products over
+    their peaks, whichever is larger."""
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": (ops_int8 * pairs / INT8_OPS
+                            + ops_bf16 * pairs / BF16_FLOPS) * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by
+
+
+def dequantized_bf16(t):
+    return dequantize(t).to(torch.bfloat16)
+
+
+def time_quantized_attention(rng):
+    """(f) Kernel, plain and library times of the four kernels at the
+    shapes above: the quantized forward in the unpacked model's mode
+    (quantize_q, ROW K/V) and in the facade's (ROW CENTERED), the
+    head-pair kernel in the packed model's (CHANNEL, causal), the row
+    kernel on the facade's K/V rows and the block kernel on a [4096, 1024]
+    activation at bs 64.  Library: SDPA over the dequantized bf16 K/V for
+    attention; none for runtime quantization."""
+    b, hq, hkv, s, d = ATTN_B, ATTN_HQ, ATTN_HKV, ATTN_S, ATTN_D
+    pairs = b * hq * s * (s + 1) // 2
+    q, k, v = attn_inputs(rng, b, hq, hkv, s, s, d)
+    out_bytes = 4 * b * hq * s * d + 4 * b * hq * s + 8 * s  # O, L, ranges
+    kv_bytes = 2 * b * hkv * s * d  # int8 K and V payloads
+    times = {}
+
+    def timed(name, kernel, plain, library, bound, extra=None):
+        t = {"plain_ms": time_ms(plain, 2, warmup=1),
+             "ms": time_ms(kernel, 10, warmup=2)}
+        t["plain_ms_2"] = time_ms(plain, 2, warmup=0)
+        t["ms_2"] = time_ms(kernel, 10, warmup=0)
+        t["library_ms"] = None if library is None else time_ms(library, 10)
+        t["bound_ms"], t["bound_by"] = bound
+        t.update(extra or {})
+        log(f"{name} times: " + json.dumps(t))
+        return t
+
+    def sdpa(kq, vq):
+        kd, vd = dequantized_bf16(kq), dequantized_bf16(vq)
+        return lambda: F.scaled_dot_product_attention(
+            q, kd, vd, is_causal=True, enable_gqa=True)
+
+    row8, row8c = qcfg(), qcfg(strategy="centered")
+    kq, vq = quantize(k.float(), row8), quantize(v.float(), row8)
+    args, kw = qattn_arguments(q, kq, vq, mask=masking.CAUSAL,
+                               quantize_q=True)
+    times["qattn_fwd"] = timed(
+        "qattn_fwd quantize_q ROW (B=2 Hq=16 Hkv=4 S=2048 D=64 causal)",
+        lambda: qattn_fwd(*args, **kw), lambda: qattn_fwd_plain(*args, **kw),
+        sdpa(kq, vq),
+        attn_bound(pairs, 2 * d, 2 * d,
+                   b * hq * s * d + 4 * b * hq * s + kv_bytes
+                   + 12 * b * hkv * s + out_bytes))
+    kq, vq = quantize(k.float(), row8c), quantize(v.float(), row8c)
+    args, kw = qattn_arguments(q, kq, vq, mask=masking.CAUSAL)
+    facade_t = timed(
+        "qattn_fwd dequant ROW CENTERED (the facade's mode)",
+        lambda: qattn_fwd(*args, **kw), lambda: qattn_fwd_plain(*args, **kw),
+        sdpa(kq, vq),
+        attn_bound(pairs, 0, 4 * d, 2 * b * hq * s * d + kv_bytes
+                   + 16 * b * hkv * s + out_bytes))
+    times["qattn_fwd"].update({f"{key}_facade_mode": facade_t[key] for key in
+                               ("ms", "plain_ms", "library_ms", "bound_ms")})
+    ch8 = qcfg(gran="channel")
+    kq, vq = quantize(k.float(), ch8), quantize(v.float(), ch8)
+    args, kw = hpack_arguments(pack_heads(q), kq, vq, mask=masking.CAUSAL)
+    times["hpack_fwd"] = timed(
+        "hpack_fwd int8 CHANNEL causal (packed, the packed model's mode)",
+        lambda: hpack_fwd(*args, **kw), lambda: hpack_fwd_plain(*args, **kw),
+        sdpa(kq, vq),
+        attn_bound(pairs, 0, 4 * d, 2 * b * hq * s * d + kv_bytes
+                   + 4 * b * hkv * d + out_bytes))
+    g = device_generator(rng)
+    rows = torch.randn((b * hkv * s, d), generator=g, device=DEV).to(
+        torch.bfloat16)
+    centered = QuantStrategy.CENTERED
+    times["runtime_quantize_row"] = timed(
+        "runtime_quantize_row CENTERED [16384, 64] bf16",
+        lambda: rtq.rtq_rows(rows, centered, 8),
+        lambda: rtq.rtq_rows_plain(rows, centered, 8, False), None,
+        bound_of(0, 3 * rows.numel() + 8 * rows.shape[0]))
+    act = torch.randn((4096, 1024), generator=g, device=DEV).to(
+        torch.bfloat16)
+    times["runtime_quantize_block"] = timed(
+        "runtime_quantize_block CENTERED [4096, 1024] bf16 bs 64",
+        lambda: rtq.rtq_blocks(act, 64, centered, 8, True),
+        lambda: rtq.rtq_blocks_plain(act, 64, centered, 8, True), None,
+        bound_of(0, 3 * act.numel() + 12 * 16))
+    return times
+
+
+def run_quantized_attention(cfg, params, seed, rng):
+    """Phase 10 (a)-(f) except the random-init logits → its record."""
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["qattn_errors"] = check_qattn_all(rng)
+        out["hpack_errors"] = check_hpack_all(rng)
+        out["rtq_cases"] = check_runtime_quantization(rng)
+    phase["qattn_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["forward"] = run_quantized_attention_forwards(
+        cfg, params, seed, QFWD_LOGITS_TOL, "trained")
+    phase["qattn_forward"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["facade"] = run_facade(rng)
+    out["block_launches"] = run_block_quantizer(rng)
+    with torch.inference_mode():
+        out["times"] = time_quantized_attention(rng)
+    phase["qattn_facade_times"] = time.perf_counter() - t
+    return out, phase
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1146,6 +1568,11 @@ def main() -> int:
     phase_s["quant_logits_init"] = time.perf_counter() - t
 
     t = time.perf_counter()
+    init_qfwd = run_quantized_attention_forwards(cfg, params, args.seed, None,
+                                                 "random-init")
+    phase_s["qattn_forward_init"] = time.perf_counter() - t
+
+    t = time.perf_counter()
     train_launches, train_tps = run_train(cfg, params, args.seed)
     phase_s["train"] = time.perf_counter() - t
 
@@ -1164,6 +1591,9 @@ def main() -> int:
         cfg, params, args.seed, np.random.default_rng(args.seed + 1),
         dec_lens)
     phase_s.update(quant_phase)
+    qattn, qattn_phase = run_quantized_attention(
+        cfg, params, args.seed, np.random.default_rng(args.seed + 2))
+    phase_s.update(qattn_phase)
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
     engines = quant["engines"]
@@ -1241,6 +1671,52 @@ def main() -> int:
             "library": ("sdpa forward" if name == "flash_fwd" else
                         "sdpa backward (dq, dk, dv together)"),
         })
+    qt, fwd = qattn["times"], qattn["forward"]
+    flagship_modes = ("quantize_q_row", "dequant_row8c", "dequant_row4c",
+                      "folded_tensor", "folded_row")
+    small_worst = max(e[0] for n, e in qattn["qattn_errors"].items()
+                      if n not in flagship_modes)
+    qattn_entries = [
+        ("qattn_fwd", QATTN_SOURCE, f"{QATTN_TPU}:87",
+         fwd["unpacked"][1]["qattn_fwd"],
+         max(qattn["qattn_errors"][m][2] for m in flagship_modes),
+         {"rel_err": max(qattn["qattn_errors"][m][0]
+                         for m in flagship_modes),
+          "rel_err_small_shapes_worst": small_worst,
+          "launches_facade": qattn["facade"]["int8"][1]["qattn_fwd"],
+          "shape": "B=2 Hq=16 Hkv=4 S=2048 D=64 causal, quantize_q ROW "
+                   "(the unpacked quantized_forward's mode)"}),
+        ("hpack_fwd", QATTN_SOURCE, f"{QATTN_TPU}:654",
+         fwd["packed"][1]["hpack_fwd"],
+         max(e[2] for e in qattn["hpack_errors"].values()),
+         {"rel_err": max(e[0] for e in qattn["hpack_errors"].values()),
+          "shape": "packed [2, 8, 2048, 128], int8 CHANNEL, causal"}),
+        ("runtime_quantize_row", RTQ_SOURCE, f"{RTQ_TPU}:79",
+         qattn["facade"]["int8"][1]["runtime_quantize_row"], 0.0,
+         {"shape": "[16384, 64] bf16 CENTERED (the facade's K/V rows)"}),
+        ("runtime_quantize_block", RTQ_SOURCE, f"{RTQ_TPU}:63",
+         qattn["block_launches"], 0.0,
+         {"shape": "[4096, 1024] bf16 CENTERED bs 64"}),
+    ]
+    for name, source, replaces, launches, err, extra in qattn_entries:
+        t = qt[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            **({"library": "sdpa over the dequantized bf16 K/V"}
+               if t["library_ms"] is not None else {}),
+            **extra,
+            **{k: v for k, v in t.items() if k.endswith("_facade_mode")},
+        })
+    record["quantized_attention"] = {
+        "logits_rel_l2": {k: v[0] for k, v in fwd.items()},
+        "logits_rel_l2_random_init_not_gated": {
+            k: v[0] for k, v in init_qfwd.items()},
+        "facade_rel_l2": {k: v[0] for k, v in qattn["facade"].items()},
+    }
     record["train"] = {"tokens_per_s": train_tps,
                        "grad_rel_l2_worst": grad_worst}
     record["quantized_serving"] = {

@@ -11,7 +11,12 @@ against; this package imports nothing of it (nor of JAX).  Ported so far:
 - the quantized serving path: ``QuantizedTensor`` and ``quantize``
   (``quant/``), W8A8 / W4A8 weights (``quantize_weights``) through the
   dynamic int8 GEMM kernel (``csrc/quantized_gemm.cu``), and int8 / int4
-  paged KV pools in both paged kernels.
+  paged KV pools in both paged kernels;
+- the quantized-attention forward: ``quantized_forward(...,
+  quantize_kv=True)`` (packed d=64 head pairs or int8-Q scores) and the
+  ``QuantizedAttention`` facade, over the quantized forward and head-pair
+  kernels (``csrc/quantized_attention.cu``) and the runtime quantization
+  kernels (``csrc/runtime_quantization.cu``).
 
 Entry points take ``device=None``, meaning the CUDA card, and raise
 without one unless given ``device="cpu"``.
@@ -26,6 +31,10 @@ from metal_flash_attention_plus_tpu_torch.attention.masking import (
 )
 from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
+)
+from metal_flash_attention_plus_tpu_torch.attention.quantized import (
+    QuantizedAttention,
+    QuantizedAttentionConfig,
 )
 from metal_flash_attention_plus_tpu_torch.models.cached import (
     decode_step,
@@ -58,8 +67,19 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_backward,
 )
+from metal_flash_attention_plus_tpu_torch.ops.hadamard import (
+    hadamard_transform,
+)
+from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
+    quantized_flash_attention,
+    quantized_flash_attention_forward,
+    quantized_flash_attention_forward_packed,
+)
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     dynamic_quantized_matmul,
+)
+from metal_flash_attention_plus_tpu_torch.ops.runtime_quantization import (
+    runtime_quantize,
 )
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantConfig,
@@ -98,6 +118,8 @@ __all__ = [
     "QuantConfig",
     "QuantGranularity",
     "QuantStrategy",
+    "QuantizedAttention",
+    "QuantizedAttentionConfig",
     "QuantizedTensor",
     "ServingEngine",
     "TransformerConfig",
@@ -109,6 +131,7 @@ __all__ = [
     "flash_attention_forward",
     "flash_attention_with_lse",
     "forward",
+    "hadamard_transform",
     "init_cache",
     "init_params",
     "loss_fn",
@@ -121,8 +144,12 @@ __all__ = [
     "prefill_chunk",
     "quantize",
     "quantize_weights",
+    "quantized_flash_attention",
+    "quantized_flash_attention_forward",
+    "quantized_flash_attention_forward_packed",
     "quantized_forward",
     "reference_attention",
+    "runtime_quantize",
     "sliding_window",
     "trainable_parameters",
 ]

@@ -1,0 +1,110 @@
+// The 64 x 64 tile machinery shared by the flash and the quantized attention
+// kernels (csrc/flash_attention.cu, csrc/quantized_attention.cu): 256
+// threads per CTA, 16 x 16, each thread 4 rows x 4 columns of a tile;
+// operands staged in shared memory as fp32, transposed ([D][64 + 4]), so a
+// thread's four rows and four columns are 16-byte vectors; every mask is an
+// int32 [Sq, 2] table of per-row [start, end) key ranges.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace mfa {
+
+constexpr int BM = 64;         // query rows per tile
+constexpr int BN = 64;         // keys per tile
+constexpr int THREADS = 256;   // 16 x 16; each thread 4 rows x 4 columns
+constexpr int LD = BM + 4;     // padded row of a transposed [D][64] tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// acc[i][j] = sum_d a[d][ay*4 + i] * b[d][bx*4 + j] over transposed tiles.
+template <int D>
+__device__ __forceinline__ void tile_product(const float* a, int ay,
+                                             const float* b, int bx,
+                                             float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    const float4 x = *reinterpret_cast<const float4*>(a + d * LD + ay * 4);
+    const float4 y = *reinterpret_cast<const float4*>(b + d * LD + bx * 4);
+    const float xv[4] = {x.x, x.y, x.z, x.w};
+    const float yv[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
+  }
+}
+
+// acc[i][e] += sum_c p[c][py*4 + i] * m[(tx + 16e) * LD + c]: a [64 x 64]
+// tile p (stored [c][row], transposed) times a transposed [D][64] tile.
+template <int D>
+__device__ __forceinline__ void accumulate_pm(const float* p, int py,
+                                              const float* m, int tx,
+                                              float (&acc)[4][D / 16]) {
+#pragma unroll 4
+  for (int c = 0; c < 64; ++c) {
+    const float4 pv = *reinterpret_cast<const float4*>(p + c * LD + py * 4);
+    const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+    for (int e = 0; e < D / 16; ++e) {
+      const float me = m[(tx + 16 * e) * LD + c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][e] = fmaf(pr[i], me, acc[i][e]);
+    }
+  }
+}
+
+// Store v[i][j] (row ty*4+i, column tx*4+j) transposed: dst[col][row].
+__device__ __forceinline__ void store_t(float* dst, int ty, int tx,
+                                        const float (&v)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(dst + (tx * 4 + j) * LD + ty * 4) =
+        make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+}
+
+__device__ __forceinline__ void row_range(const int32_t* ranges, int r,
+                                          int Sq, int Skv, int& st, int& en) {
+  if (r < Sq) {
+    st = max(ranges[2 * r], 0);
+    en = min(ranges[2 * r + 1], Skv);
+  } else {
+    st = en = 0;
+  }
+}
+
+// The live key span [lo, hi) of rows [r0, r0 + 64): min start and max end
+// over the rows whose range is not empty; lo >= hi when none is live.
+__device__ __forceinline__ void key_span(const int32_t* ranges, int r0,
+                                         int Sq, int Skv, int* s_lo,
+                                         int* s_hi) {
+  if (threadIdx.x == 0) {
+    *s_lo = INT_MAX;
+    *s_hi = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x < BM) {
+    int st, en;
+    row_range(ranges, r0 + threadIdx.x, Sq, Skv, st, en);
+    if (en > st) {
+      atomicMin(s_lo, st);
+      atomicMax(s_hi, en);
+    }
+  }
+  __syncthreads();
+}
+
+template <typename K>
+cudaError_t set_smem(K kern, size_t bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace mfa

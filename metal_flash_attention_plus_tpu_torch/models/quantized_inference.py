@@ -9,9 +9,11 @@ quantized per row at run time and the product is integer.
 :func:`quantized_forward` is the uncached forward that the cached serving
 path (``models/cached.py`` through ``linear``) is held to.
 
-Inference only: no gradient flows through the integer weights.  Attention
-over quantized K/V (``quantize_kv=True``, the packed d=64 layout) needs the
-quantized-attention kernels and is not ported yet.
+Inference only: no gradient flows through the integer weights.
+``quantize_kv=True`` also runs attention over K/V quantized at run time
+(the fully quantized pipeline): through the head-pair kernel in the packed
+d=64 layout (``packed_d64``), or through the quantized forward kernel with
+int8 Q scores.
 """
 
 from __future__ import annotations
@@ -25,13 +27,20 @@ from metal_flash_attention_plus_tpu_torch.attention.masking import CAUSAL
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
     _merge_heads,
+    _merge_heads_packed,
     _split_heads,
+    _split_heads_packed,
     linear,
     rms_norm,
     rope,
+    rope_packed,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     flash_attention_forward,
+)
+from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
+    quantized_flash_attention_forward,
+    quantized_flash_attention_forward_packed,
 )
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantConfig,
@@ -83,34 +92,60 @@ def quantized_forward(
     packed_d64=None,
 ) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V] fp32, every projection through the
-    dynamic GEMM, attention through the flash forward kernel (causal).
+    dynamic GEMM.
 
-    ``quantize_kv`` and ``packed_d64`` (attention over runtime-quantized
-    K/V) raise :class:`NotImplementedError`: they run the quantized
-    attention kernels (``_qfwd_kernel``, ``_hpack_kernel``), which a later
-    slice ports.
+    Attention is the causal flash forward kernel, or with ``quantize_kv``
+    the fully quantized pipeline: K/V quantized at run time to int8,
+    SYMMETRIC, and attention over them.  ``packed_d64`` (None: on when
+    ``quantize_kv``, head_dim 64, an even head count and S % 128 == 0) runs
+    it in the packed head-pair layout: Q comes packed out of its
+    projection, RoPE rotates each 64-lane half, O goes packed into ``wo``,
+    K/V take per-CHANNEL scales and the head-pair kernel runs; otherwise
+    K/V take per-token (ROW) scales and the quantized forward kernel runs
+    with int8 Q (``quantize_q``).
     """
-    if quantize_kv or packed_d64:
-        raise NotImplementedError(
-            "quantize_kv / packed_d64 need the quantized attention kernels "
-            "(_qfwd_kernel, _hpack_kernel) of the quantized-attention slice")
+    s = tokens.shape[1]
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        positions = torch.arange(s, device=tokens.device)
+    if packed_d64 is None:
+        packed_d64 = (quantize_kv and cfg.head_dim == 64
+                      and cfg.num_heads % 2 == 0 and s % 128 == 0)
+    kv_cfg = QuantConfig(
+        bits=8,
+        granularity=(QuantGranularity.CHANNEL if packed_d64
+                     else QuantGranularity.ROW),
+        strategy=QuantStrategy.SYMMETRIC,
+    )
     x = params["embed"][tokens]
     dt = x.dtype
     for layer in params["layers"]:
         h = rms_norm(x, layer["ln1"])
-        q = _split_heads(linear(h, layer["wq"], dt), cfg.num_heads,
-                         cfg.head_dim)
+        qh = linear(h, layer["wq"], dt)
         k = _split_heads(linear(h, layer["wk"], dt), cfg.num_kv_heads,
                          cfg.head_dim)
         v = _split_heads(linear(h, layer["wv"], dt), cfg.num_kv_heads,
                          cfg.head_dim)
         k = rope(k, positions, cfg.rope_theta)
-        q = rope(q, positions, cfg.rope_theta)
-        o, _ = flash_attention_forward(q, k, v, mask=CAUSAL,
-                                       block_sizes=cfg.block_sizes)
-        x = x + linear(_merge_heads(o.to(dt)), layer["wo"], dt)
+        if packed_d64 or quantize_kv:
+            kq, vq = quantize(k.float(), kv_cfg), quantize(v.float(), kv_cfg)
+        if packed_d64:
+            q = rope_packed(_split_heads_packed(qh, cfg.num_heads), positions,
+                            cfg.rope_theta)
+            o, _ = quantized_flash_attention_forward_packed(
+                q, kq, vq, mask=CAUSAL, block_sizes=cfg.block_sizes)
+            merged = _merge_heads_packed(o.to(dt))
+        else:
+            q = rope(_split_heads(qh, cfg.num_heads, cfg.head_dim), positions,
+                     cfg.rope_theta)
+            if quantize_kv:
+                o, _ = quantized_flash_attention_forward(
+                    q, kq, vq, mask=CAUSAL, block_sizes=cfg.block_sizes,
+                    quantize_q=True)
+            else:
+                o, _ = flash_attention_forward(q, k, v, mask=CAUSAL,
+                                               block_sizes=cfg.block_sizes)
+            merged = _merge_heads(o.to(dt))
+        x = x + linear(merged, layer["wo"], dt)
         h2 = rms_norm(x, layer["ln2"])
         y = F.silu(linear(h2, layer["wg"], torch.float32)) * linear(
             h2, layer["wu"], torch.float32)

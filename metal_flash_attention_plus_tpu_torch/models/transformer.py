@@ -161,6 +161,36 @@ def _merge_heads(x: torch.Tensor):
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def _split_heads_packed(x: torch.Tensor, num_heads: int):
+    """Projection output [B, S, H·64] → the packed d=64 layout [B, H/2, S,
+    128]: head pairs are adjacent in the channel axis, so this is the same
+    transpose as :func:`_split_heads`."""
+    b, s, _ = x.shape
+    return x.reshape(b, s, num_heads // 2, 128).transpose(1, 2)
+
+
+def _merge_heads_packed(x: torch.Tensor):
+    """Packed [B, H/2, S, 128] → [B, S, H·64], heads in natural order."""
+    b, h2, s, d2 = x.shape
+    return x.transpose(1, 2).reshape(b, s, h2 * d2)
+
+
+def rope_packed(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary embedding over the packed d=64 layout [B, H/2, S, 128]: each
+    64-lane half is a head, rotated as :func:`rope` rotates it."""
+    half = 32  # head_dim 64 → 32-lane rotation halves
+    freqs = theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )
+    ang = positions.float()[..., None] * freqs
+    ang = ang[None, None] if positions.dim() == 1 else ang[:, None]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    a1, a2, b1, b2 = x.float().split(half, dim=-1)
+    out = torch.cat([a1 * cos - a2 * sin, a2 * cos + a1 * sin,
+                     b1 * cos - b2 * sin, b2 * cos + b1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Causal dense fp32 reference attention, an ``attn_fn`` that runs no
     kernel: the oracle the kernel path is held to."""

@@ -1,4 +1,5 @@
-"""Dynamic W8A8 / W4A8 GEMM: float A [M, K] × quantized Bᵀ [N, K] → [M, N].
+"""Dynamic W8A8 / W4A8 GEMM: float A [M, K] × quantized Bᵀ [N, K] → [M, N],
+and the K/V tile helpers of the quantized attention.
 
 The twin of the JAX package's ``ops/quantized_gemm.py::
 dynamic_quantized_matmul``.  A is quantized per row in the wrapper (int8
@@ -73,6 +74,55 @@ def _check_weight(b_t: QuantizedTensor, kdim: int):
     if cfg.bits == 4 and kdim % INT4_GROUP:
         raise ValueError(
             f"int4 dynamic GEMM requires K % 256 == 0 (got K={kdim})")
+
+
+# ---------------------------------------------------------------------------
+# K/V tile helpers of the quantized attention: the dequantized values its
+# plain versions use (the kernels dequantize while staging, the same way)
+# ---------------------------------------------------------------------------
+
+
+def unpack_int4_tile_int8(qtile: torch.Tensor, bk: int) -> torch.Tensor:
+    """Group-planar int4 → int8: packed [..., bk/2] → int8 [..., bk] (the
+    layout of :func:`quant.tensor.pack_int4`)."""
+    if qtile.shape[-1] * 2 != bk:
+        raise ValueError(f"packed width {qtile.shape[-1]} is not {bk}/2")
+    return unpack_int4(qtile)
+
+
+def dequant_kv_vals(payload, scale, zp, d, bits, compute_dtype):
+    """Per-token dequantization of a K/V payload [..., S, D] (int8, or
+    packed int4 [..., S, D/2]) with per-token scale and zero point
+    [..., S, 1]: ``((w − zp)·scale)`` in fp32, rounded to
+    ``compute_dtype``."""
+    w = (unpack_int4_tile_int8(payload, d) if bits == 4 else payload).float()
+    return ((w - zp) * scale).to(compute_dtype)
+
+
+def dequant_block2d_vals(payload, s, z, er, ec, d, bits, compute_dtype):
+    """BLOCK_2D dequantization: payload [..., S, D] with per-block scale and
+    zero point [..., S/br, D/bs] → ``w·s − z·s`` with the block values
+    expanded by the 0/1 products ``E_r · s · E_c`` (``er`` None when
+    br == 1), rounded to ``compute_dtype``."""
+    w = (unpack_int4_tile_int8(payload, d) if bits == 4 else payload).float()
+    s = s.float()
+    zs = z.float() * s
+    if er is not None:
+        s, zs = er @ s, er @ zs
+    return (w * (s @ ec) - zs @ ec).to(compute_dtype)
+
+
+def block2d_expanders(block_rows: int, block_size: int, bkv: int, d: int,
+                      device=None):
+    """(E_r [bkv, bkv/br] or None, E_c [d/bs, d]): the 0/1 fp32 matrices
+    that expand per-block values to per-element ones."""
+    ec = (torch.arange(d, device=device)[None, :] // block_size
+          == torch.arange(d // block_size, device=device)[:, None]).float()
+    if block_rows == 1:
+        return None, ec
+    er = (torch.arange(bkv, device=device)[:, None] // block_rows
+          == torch.arange(bkv // block_rows, device=device)[None, :]).float()
+    return er, ec
 
 
 # ---------------------------------------------------------------------------

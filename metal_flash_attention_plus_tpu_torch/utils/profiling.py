@@ -1,8 +1,11 @@
-"""Where the serving engine's or the train step's time goes on the card.
+"""Where the serving engine's, the train step's or the fully quantized
+forward's time goes on the card.
 
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling [--seed N]
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --quantized 8
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --train
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
+        --quantized-attention packed
 
 Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
 phase (:func:`smoke_requests` on the flagship model with random weights
@@ -17,6 +20,12 @@ pool, as in ``chip_smoke.py``'s quantized engine phase.
 bf16 flagship, Adam at lr 3e-3, one seeded batch of 4 × 2049 tokens): two
 steps to warm up, then the wall time of 3 unprofiled steps, then 3 steps
 under the profiler.
+
+``--quantized-attention packed`` / ``unpacked``: ``quantized_forward(...,
+quantize_kv=True)`` of W8A8 weights on 2 × 2048 seeded tokens, as in
+``chip_smoke.py`` phase 10 (d), in the packed head-pair layout or with
+int8-Q scores: one call to warm up, the wall time of 3 unprofiled calls,
+then 3 calls under the profiler.
 
 Prints JSON lines: the phase times and counts, the device's busy time
 (sum of kernel times) and idle share of the profiled wall time, and the
@@ -39,6 +48,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
     quantize_weights,
+    quantized_forward,
 )
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -161,6 +171,36 @@ def profile_train(cfg, params, seed: int, steps: int = 3) -> int:
     return print_profile(prof, prof_wall_s, steps, "step")
 
 
+def profile_quantized_attention(cfg, params, seed: int, layout: str,
+                                calls: int = 3) -> int:
+    qparams = quantize_weights(params)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 2048))).cuda()
+    packed = None if layout == "packed" else False
+
+    def run(n):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for _ in range(n):
+                quantized_forward(qparams, tokens, cfg, quantize_kv=True,
+                                  packed_d64=packed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(1)  # warm-up: kernel build, cuBLAS plans
+    wall_s = run(calls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall_s = run(calls)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "layout": layout,
+        "calls": calls, "tokens_per_call": tokens.numel(),
+        "call_s": wall_s / calls, "tokens_per_s": calls * tokens.numel()
+        / wall_s, "profiled_call_s": prof_wall_s / calls,
+    }))
+    return print_profile(prof, prof_wall_s, calls, "call")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -169,6 +209,8 @@ def main() -> int:
     ap.add_argument("--quantized", type=int, choices=(8, 4),
                     help="serve W8A8 weights over an int8 pool (8) or W4A8 "
                     "weights over an int4 pool (4)")
+    ap.add_argument("--quantized-attention", choices=("packed", "unpacked"),
+                    help="profile quantized_forward(quantize_kv=True)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profiling: no CUDA device is available", file=sys.stderr)
@@ -177,6 +219,9 @@ def main() -> int:
     params = init_params(cfg, torch.Generator().manual_seed(args.seed))
     if args.train:
         return profile_train(cfg, params, args.seed)
+    if args.quantized_attention:
+        return profile_quantized_attention(cfg, params, args.seed,
+                                           args.quantized_attention)
     return profile_serving(cfg, params, args.seed, args.quantized)
 
 

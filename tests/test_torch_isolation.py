@@ -55,7 +55,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     for module in ("serving.engine", "models.cached", "models.transformer",
                    "attention.masking", "ops.flash_attention",
                    "ops.flash_attention_bwd", "entry", "quant.tensor",
-                   "ops.quantized_gemm", "models.quantized_inference"):
+                   "ops.quantized_gemm", "models.quantized_inference",
+                   "ops.quantized_attention", "ops.runtime_quantization",
+                   "ops.hadamard", "attention.quantized"):
         assert f"{PORT}.{module}" in report["modules"], module
     leaked = [m for m in report["loaded"] if _is_jax_or_reference(m)]
     assert leaked == [], leaked

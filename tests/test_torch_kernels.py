@@ -15,7 +15,12 @@ paged kernels are held in max abs error, the flash kernels in max abs
 error over the plain version's max abs (their gradients reach ~10).  The
 paged kernels' int8/int4 pool modes take the same tolerances.  The
 dynamic W8A8/W4A8 GEMM is held bit for bit: both sides sum the int8
-products exactly and round the epilogue at the same places.
+products exactly and round the epilogue at the same places.  The quantized
+attention kernels are held as the flash kernels: fp32 where nothing is
+rounded (an fp32 Q with dequantized or integer K/V), 2e-2 (L 7e-3) where P
+is rounded (a bf16 Q, the int8 P of ``int8_pv``, the head-pair kernel's
+bf16 P) against the running row max in the kernel and the final one in the
+plain version.  The runtime quantization kernels are held bit for bit.
 """
 
 import numpy as np
@@ -37,7 +42,12 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_dkv,
     flash_dq,
 )
+from metal_flash_attention_plus_tpu_torch.ops import quantized_attention as qa
 from metal_flash_attention_plus_tpu_torch.ops import quantized_gemm as qg
+from metal_flash_attention_plus_tpu_torch.ops import runtime_quantization as rq
+from metal_flash_attention_plus_tpu_torch.ops.hadamard import (
+    hadamard_transform,
+)
 from metal_flash_attention_plus_tpu_torch.quant import params as qparams
 from metal_flash_attention_plus_tpu_torch.quant.tensor import quantize
 from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
@@ -419,3 +429,215 @@ def test_dyn_gemm_rejects_what_it_does_not_take(cuda_device):
         qg.dyn_gemm(qa, w8.data, sa, rs, sb, zb, bits=4)
     with pytest.raises(TypeError):  # fp64 scales
         qg.dyn_gemm(qa, w8.data, sa.double(), rs, sb, zb, bits=8)
+
+
+# --------------------------------------------------------------------------
+# The quantized attention kernels
+# --------------------------------------------------------------------------
+
+
+def _qcfg(bits=8, gran="row", strategy="symmetric", **kw):
+    return qparams.QuantConfig(
+        bits=bits, granularity=qparams.QuantGranularity(gran),
+        strategy=qparams.QuantStrategy(strategy), **kw)
+
+
+ROW8, ROW8C, ROW4, ROW4C = (_qcfg(), _qcfg(strategy="centered"),
+                            _qcfg(bits=4), _qcfg(bits=4, strategy="centered"))
+TEN8, CH8, CH4 = _qcfg(gran="tensor"), _qcfg(gran="channel"), _qcfg(
+    bits=4, gran="channel")
+B2D = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
+            block_size=32)
+BF16, F32 = torch.bfloat16, torch.float32
+QQ = dict(quantize_q=True)
+
+QATTN_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, K config, V config, Q dtype, mask,
+    #        options)
+    "dequant_row8c": (2, 8, 2, 200, 200, 64, ROW8C, ROW8C, BF16,
+                      masking.CAUSAL, {}),
+    "dequant_row4c_f32": (1, 4, 2, 130, 130, 64, ROW4C, ROW4C, F32,
+                          masking.CAUSAL, {}),
+    "dequant_tensor_f32_full": (1, 4, 2, 90, 170, 64, TEN8, TEN8, F32,
+                                masking.FULL, {}),
+    "quantize_q_row": (2, 8, 2, 200, 200, 64, ROW8, ROW8, BF16,
+                       masking.CAUSAL, QQ),
+    "quantize_q_int4_k_d128_f32": (1, 4, 1, 100, 150, 128, ROW4, ROW8C, F32,
+                                   masking.CAUSAL, QQ),
+    "int8_pv_channel": (1, 4, 2, 160, 160, 64, ROW8, CH8, BF16,
+                        masking.CAUSAL, QQ),
+    "int8_pv_tensor_d256": (1, 2, 1, 96, 96, 256, TEN8, TEN8, F32,
+                            masking.FULL, QQ),
+    "int8_pv_int4_v": (1, 4, 2, 160, 160, 64, ROW8, CH4, BF16,
+                       masking.CAUSAL, QQ),
+    "folded_tensor": (2, 8, 2, 200, 200, 64, TEN8, CH8, BF16, masking.CAUSAL,
+                      {}),
+    "folded_channel_interleaved": (1, 8, 2, 128, 128, 64, CH8, TEN8, BF16,
+                                   masking.CAUSAL, dict(interleaved_kv=True)),
+    "folded_row_window": (1, 4, 2, 300, 300, 64, ROW8, ROW8, BF16,
+                          masking.sliding_window(96, causal=True), {}),
+    "block2d_f32": (1, 4, 2, 128, 128, 64, B2D, B2D, F32, masking.CAUSAL,
+                    {}),
+    "block2d_bf16": (1, 4, 2, 128, 128, 64, B2D, B2D, BF16, masking.CAUSAL,
+                     {}),
+    "bias": (2, 8, 2, 200, 200, 64, ROW8C, ROW8C, BF16, masking.CAUSAL,
+             dict(bias=(1, 8, 200, 200))),
+    "d32_full_f32": (1, 4, 4, 70, 90, 32, ROW8C, ROW8C, F32, masking.FULL,
+                     {}),
+    "ragged_rect": (1, 4, 2, 70, 300, 64, ROW8C, ROW8C, BF16, masking.CAUSAL,
+                    {}),
+}
+
+
+def _qattn_inputs(device, b, hq, hkv, sq, skv, d, kcfg, vcfg, dtype,
+                  hadamard_block=None, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+
+    q, k, v = t(b, hq, sq, d).to(dtype), t(b, hkv, skv, d), t(b, hkv, skv, d)
+    if hadamard_block:
+        k, v = (hadamard_transform(x, hadamard_block) for x in (k, v))
+    return q, quantize(k, kcfg), quantize(v, vcfg)
+
+
+def _qattn_tols(dtype, p_int8=False):
+    if dtype == torch.float32 and not p_int8:
+        return TOLERANCES["fp32"], TOLERANCES["fp32"]
+    return BF16_TOL, TOLERANCES["lse"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(QATTN_CASES))
+def test_qattn_kernel_matches_plain(cuda_device, name):
+    b, hq, hkv, sq, skv, d, kcfg, vcfg, dtype, mask, opts = QATTN_CASES[name]
+    q, kq, vq = _qattn_inputs(cuda_device, b, hq, hkv, sq, skv, d, kcfg,
+                              vcfg, dtype)
+    opts = dict(opts)
+    if "bias" in opts:
+        opts["bias"] = torch.randn(opts["bias"], device=cuda_device)
+    args, kw = qa.qattn_arguments(q, kq, vq, mask=mask, **opts)
+    n = qa.qattn_fwd.launches
+    o, lse = qa.qattn_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert qa.qattn_fwd.launches == n + 1
+    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw)
+    tol_o, tol_l = _qattn_tols(dtype, kw["mode"].p_int8)
+    assert o.dtype == torch.float32 and o.shape == o_ref.shape
+    assert _rel(o, o_ref) <= tol_o
+    assert _rel(lse, l_ref) <= tol_l
+    fwd, _ = qa.quantized_flash_attention_forward(q, kq, vq, mask=mask,
+                                                  **opts)
+    assert torch.equal(fwd, o)
+
+
+@pytest.mark.cuda
+def test_qattn_hadamard_through_the_kernel(cuda_device):
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 2, 128, 128, 64, ROW4C,
+                              ROW4C, torch.float32, hadamard_block=64)
+    kw = dict(mask=masking.CAUSAL, hadamard_block=64)
+    o, lse = qa.quantized_flash_attention_forward(q, kq, vq, **kw)
+    cpu = (q.cpu(), kq.to("cpu"), vq.to("cpu"))
+    o_ref, l_ref = qa.quantized_flash_attention_forward(*cpu, **kw)
+    assert _rel(o.cpu(), o_ref) <= TOLERANCES["fp32"]
+    assert _rel(lse.cpu(), l_ref) <= TOLERANCES["fp32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("mask", [masking.FULL, masking.CAUSAL],
+                         ids=["full", "causal"])
+def test_hpack_kernel_matches_plain(cuda_device, mask, bits, dtype):
+    kcfg, vcfg = (CH8, TEN8) if bits == 8 else (CH4, _qcfg(bits=4,
+                                                          gran="tensor"))
+    q, kq, vq = _qattn_inputs(cuda_device, 2, 8, 2, 256, 320, 64, kcfg,
+                              vcfg, dtype, seed=bits)
+    args, kw = qa.hpack_arguments(qa.pack_heads(q), kq, vq, mask=mask)
+    n = qa.hpack_fwd.launches
+    o, lse = qa.hpack_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert qa.hpack_fwd.launches == n + 1
+    o_ref, l_ref = qa.hpack_fwd_plain(*args, **kw)
+    assert o.shape == (2, 4, 256, 128) and lse.shape == (2, 8, 256)
+    assert _rel(o, o_ref) <= BF16_TOL
+    assert _rel(lse, l_ref) <= TOLERANCES["lse"]
+
+
+@pytest.mark.cuda
+def test_quantized_attention_kernels_reject_what_they_do_not_take(
+        cuda_device):
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 2, 1, 64, 64, 64, ROW8C,
+                              ROW8C, torch.float32)
+    args, kw = qa.qattn_arguments(q, kq, vq)
+    qin, qs, kd, vd, kp, vp, rr = args
+    with pytest.raises(TypeError):  # a float payload
+        qa.qattn_fwd(qin, qs, kd.float(), vd, kp, vp, rr, **kw)
+    with pytest.raises(TypeError):  # per-token scales of the wrong shape
+        qa.qattn_fwd(qin, qs, kd, vd, (kp[0][..., :8], kp[1]), vp, rr, **kw)
+    with pytest.raises(TypeError):  # an int8 Q without its scales
+        qa.qattn_fwd(qin.to(torch.int8), None, kd, vd, kp, vp, rr, **kw)
+    with pytest.raises(ValueError):  # q on the CPU, payloads on the card
+        qa.check_qattn_inputs("qattn_fwd", qin.cpu(), qs, kd, vd, kp, vp,
+                              rr, None, kw["mode"])
+    with pytest.raises(ValueError):  # not the packed d=64 layout
+        qa.hpack_fwd(q, kd, vd, vp[0], rr, bits_k=8, bits_v=8)
+
+
+# --------------------------------------------------------------------------
+# Runtime quantization
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("strategy", list(qparams.QuantStrategy),
+                         ids=lambda s: s.value)
+@pytest.mark.parametrize("shape", [(1000, 64), (37, 200)],
+                         ids=["1000x64", "37x200"])
+def test_row_kernel_matches_plain_bit_for_bit(cuda_device, shape, strategy,
+                                              bits, dtype):
+    x = (torch.randn(shape, device=cuda_device) * 3 + 0.7).to(dtype)
+    n = rq.rtq_rows.launches
+    got = rq.rtq_rows(x, strategy, bits, True)
+    torch.cuda.synchronize()
+    assert rq.rtq_rows.launches == n + 1
+    want = rq.rtq_rows_plain(x, strategy, bits, True)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("strategy", list(qparams.QuantStrategy),
+                         ids=lambda s: s.value)
+@pytest.mark.parametrize("shape,bs", [((512, 256), 64), ((300, 384), 128)],
+                         ids=["512x256-64", "300x384-128"])
+def test_block_kernel_matches_plain_bit_for_bit(cuda_device, shape, bs,
+                                                strategy, bits, dtype):
+    x = (torch.randn(shape, device=cuda_device) * 3 + 0.7).to(dtype)
+    n = rq.rtq_blocks.launches
+    got = rq.rtq_blocks(x, bs, strategy, bits, True)
+    torch.cuda.synchronize()
+    assert rq.rtq_blocks.launches == n + 1
+    want = rq.rtq_blocks_plain(x, bs, strategy, bits, True)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_runtime_quantize_through_the_kernels(cuda_device):
+    x = torch.randn(256, 512, device=cuda_device)
+    for cfg in (qparams.int8_blockwise(64), _qcfg(bits=4, strategy="centered",
+                                                  compute_sums=True)):
+        got = rq.runtime_quantize(x, cfg)
+        want = rq.runtime_quantize(x.cpu(), cfg)
+        for field in ("data", "scale", "zero_point", "sums"):
+            assert torch.equal(getattr(got, field).cpu(),
+                               getattr(want, field))
+    with pytest.raises(TypeError):  # fp16 has no kernel
+        rq.rtq_rows(x.half(), qparams.QuantStrategy.SYMMETRIC, 8)

@@ -242,9 +242,14 @@ def test_quantized_forward_matches_jax(models, bits):
     got = tqi.quantized_forward(tq, torch.from_numpy(tokens), TCFG)
     assert got.shape == (1, 20, 128) and got.dtype == torch.float32
     assert _rel_l2(got, want) <= LOGIT_REL_L2
-    with pytest.raises(NotImplementedError, match="quantized attention"):
-        tqi.quantized_forward(tq, torch.from_numpy(tokens), TCFG,
-                              quantize_kv=True)
+    # With K/V quantized at run time too (S=20: int8-Q scores over ROW K/V).
+    with jax.default_matmul_precision("highest"):
+        want = jax.jit(lambda p, t: jqi.quantized_forward(
+            p, t, JCFG, quantize_kv=True))(jq, jnp.asarray(tokens))
+    got = tqi.quantized_forward(tq, torch.from_numpy(tokens), TCFG,
+                                quantize_kv=True)
+    assert got.shape == (1, 20, 128) and got.dtype == torch.float32
+    assert _rel_l2(got, want) <= LOGIT_REL_L2
 
 
 @pytest.mark.parametrize("bits", [8, 4])
