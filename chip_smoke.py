@@ -66,7 +66,28 @@ checkout, then, on the card:
    fp32 attention, with 2 row-kernel and 1 quantized-forward launches per
    call, and ``runtime_quantize`` with the blockwise-centered
    configuration, the block kernel's entry point; (f) times of the four
-   kernels beside their bounds, plain versions and library calls.
+   kernels beside their bounds, plain versions and library calls;
+11. the quantized backward (inputs from a fourth generator, seed + 3): (a)
+   the full-integer dQ and dK/dV kernels against their plain versions at
+   the JAX package's north-star shape (bench.py: B=4, H=4, S=4096, D=256,
+   FULL), levels 1 and 2, ROW and TENSOR K; the exact quantized dQ and
+   dK/dV kernels at the flagship's attention shapes in folded ROW /
+   CHANNEL / TENSOR and dequant ROW CENTERED int8 / int4 modes, and at
+   small shapes over BLOCK_2D, bias with dbias, a sliding window,
+   interleaved GQA, D=128 / 256 and ragged S; (b) bench.py's loss,
+   sum(O·dO) through ``quantized_flash_attention(quantize_q=True,
+   bwd_fullint=True | False)`` at the north-star shape, differentiated with
+   respect to (q, K scales, V scales) with one full-integer (or exact) dQ
+   and dK/dV launch each, the full-integer gradients against the exact
+   ones and the exact ones against the fp32 dense VJP on the dequantized
+   K/V (rel L2 ≤ 0.05 each); (c) ``quantized_flash_attention_qat`` and the
+   ``QuantizedAttention`` gradient with respect to q at the flagship's
+   attention shapes against the dense VJP (< 0.05); (d) on (b)'s own
+   inputs, the kernels it launched against their plain versions in the
+   modes it launched them (the quantized forward with int8 Q and P at
+   D=256, both full-integer and both exact kernels), then the four
+   backward kernels' and that forward's times beside their bounds, plain
+   versions and SDPA.
 
 Every phase raises on failure, so the script exits non-zero.  It prints
 the kernels' record as one JSON line and, as the very last line,
@@ -116,6 +137,12 @@ from metal_flash_attention_plus_tpu_torch.models.transformer import (
     plain_attention,
     trainable_parameters,
 )
+from metal_flash_attention_plus_tpu_torch.ops import (
+    flash_attention_bwd as fbwd,
+)
+from metal_flash_attention_plus_tpu_torch.ops import (
+    quantized_attention as tqa,
+)
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     flash_attention_forward_plain,
     flash_fwd,
@@ -128,6 +155,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_dq,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
+    KV_TILE,
     hpack_arguments,
     hpack_fwd,
     hpack_fwd_plain,
@@ -135,6 +163,8 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     qattn_arguments,
     qattn_fwd,
     qattn_fwd_plain,
+    quantized_flash_attention_forward,
+    quantized_flash_attention_qat,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     dyn_gemm,
@@ -158,6 +188,7 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
 )
 from metal_flash_attention_plus_tpu_torch.reference.attention import (
     reference_attention,
+    reference_attention_vjp,
 )
 from metal_flash_attention_plus_tpu_torch.serving.engine import ServingEngine
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
@@ -168,6 +199,10 @@ from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
     paged_prefill_attention_plain,
 )
 from metal_flash_attention_plus_tpu_torch.utils.profiling import (
+    NORTH_STAR_BLOCKS,
+    NORTH_STAR_SHAPE,
+    north_star_grads,
+    north_star_inputs,
     smoke_requests,
 )
 
@@ -225,6 +260,8 @@ RTQ_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
               "runtime_quantization.cu")
 QATTN_TPU = "metal_flash_attention_plus_tpu/ops/quantized_attention.py"
 RTQ_TPU = "metal_flash_attention_plus_tpu/ops/runtime_quantization.py"
+QBWD_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
+               "quantized_attention_bwd.cu")
 
 
 def log(msg: str):
@@ -1194,7 +1231,8 @@ def check_qattn(rng, label, b, hq, hkv, sq, skv, d, kcfg, vcfg,
                                quantize(v.float(), vcfg), mask=mask, **opts)
     out = qattn_fwd(*args, **kw)
     torch.cuda.synchronize()
-    return check_pair(f"qattn_fwd {label}", out, qattn_fwd_plain(*args, **kw))
+    return check_pair(f"qattn_fwd {label}", out,
+                      qattn_fwd_plain(*args, **kw, kv_tile=KV_TILE))
 
 
 def check_qattn_all(rng):
@@ -1516,6 +1554,423 @@ def run_quantized_attention(cfg, params, seed, rng):
     return out, phase
 
 # --------------------------------------------------------------------------
+# Phase 11: the quantized backward
+# --------------------------------------------------------------------------
+
+# The JAX package's north-star arm (bench.py's B=4, H=4, S=4096, D=256,
+# FULL, int8 ROW K / CHANNEL V, its block sizes), as utils/profiling.py
+# defines it.
+NS_B, NS_H, NS_S, NS_D = NORTH_STAR_SHAPE
+NS_BLOCKS = NORTH_STAR_BLOCKS
+# Relative L2 per gradient: full-integer vs exact is the JAX package's gate
+# (tests/test_quantized_attention.py:781, 840); the exact call and QAT vs
+# the fp32 dense VJP on the dequantized K/V, and the facade's dq, the int8
+# gate (test_quantized_attention.py:208).
+QBWD_TOL = 0.05
+BWD_KERNELS = (fbwd.qflash_dq, fbwd.qflash_dkv, fbwd.fullint_dq,
+               fbwd.fullint_dkv, qattn_fwd, rtq.rtq_rows)
+
+
+def reset_bwd_counts():
+    for fn in BWD_KERNELS:
+        fn.launches = 0
+
+
+def bwd_counts():
+    return {fn.__name__: fn.launches for fn in BWD_KERNELS if fn.launches}
+
+
+def bwd_inputs(q, kq, vq, g, mask=masking.FULL, **opts):
+    """(dO, L, D) of the quantized forward over (q, K, V); dO drawn on the
+    card from ``g``."""
+    o, lse = quantized_flash_attention_forward(q, kq, vq, mask=mask, **opts)
+    do = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)
+    return do, lse, (do.float() * o).sum(-1)
+
+
+def check_bwd_pair(label, got, want, names):
+    """Kernel outputs against the plain versions' → {name: (rel err, max
+    abs err)}; raises past the flash kernels' bf16 gate on the rel err."""
+    errs = {n: (rel_err(g, w), max_abs(g, w))
+            for n, g, w in zip(names, got, want) if w is not None}
+    log(f"{label}: " + " ".join(f"{n} {e[0]:.2e}" for n, e in errs.items()))
+    if not all(e[0] <= FLASH_TOL[torch.bfloat16] for e in errs.values()):
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{errs}")
+    return errs
+
+
+def check_qflash(rng, label, b, hq, hkv, sq, skv, d, kcfg, vcfg,
+                 mask=masking.CAUSAL, bias_shape=None, **opts):
+    """K1/K2 (the exact quantized dQ, dK/dV) against their plain versions
+    in the mode the JAX package's selection gives these configurations."""
+    q, k, v = attn_inputs(rng, b, hq, hkv, sq, skv, d)
+    kq, vq = quantize(k.float(), kcfg), quantize(v.float(), vcfg)
+    g = device_generator(rng)
+    bias = (None if bias_shape is None
+            else torch.randn(bias_shape, generator=g, device=DEV))
+    do, lse, di = bwd_inputs(q, kq, vq, g, mask=mask, bias=bias, **opts)
+    rr = row_ranges_tensor(mask, sq, skv, None, DEV)
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.qflash_arguments(
+        q, kq, vq, do, lse, di, rr, bias, scale=d ** -0.5,
+        want_dbias=bias is not None, **opts)
+    got = (*fbwd.qflash_dq(*dq_a, **dq_kw), *fbwd.qflash_dkv(*dkv_a,
+                                                              **dkv_kw))
+    torch.cuda.synchronize()
+    want = (*fbwd.qflash_dq_plain(*dq_a, **dq_kw),
+            *fbwd.qflash_dkv_plain(*dkv_a, **dkv_kw))
+    return check_bwd_pair(f"qflash {label} ({dq_kw['mode'].k}/"
+                          f"{dkv_kw['mode'].k} K)", got, want,
+                          ("dq", "dbias", "dk", "dv"))
+
+
+def check_fullint(rng, label, b, h, s, d, kcfg, vcfg, level2):
+    """K3/K4 (the full-integer dQ, dK/dV) against their plain versions;
+    level 2 quantizes over bench.py's tiles (512 keys, 1024 queries)."""
+    q, k, v = attn_inputs(rng, b, h, h, s, s, d)
+    kq, vq = quantize(k.float(), kcfg), quantize(v.float(), vcfg)
+    do, lse, di = bwd_inputs(q, kq, vq, device_generator(rng),
+                             quantize_q=True)
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.fullint_arguments(
+        q, kq, vq, None, lse, do, scale=d ** -0.5, block_sizes=NS_BLOCKS,
+        di=di, int8_grads=level2)
+    got = (fbwd.fullint_dq(*dq_a, **dq_kw), *fbwd.fullint_dkv(*dkv_a,
+                                                               **dkv_kw))
+    torch.cuda.synchronize()
+    want = (fbwd.fullint_dq_plain(*dq_a, **dq_kw),
+            *fbwd.fullint_dkv_plain(*dkv_a, **dkv_kw))
+    return check_bwd_pair(
+        f"fullint {label} level {2 if level2 else 1} (widths "
+        f"{dq_kw['width']}/{dkv_kw['width']})", got, want, ("dq", "dk", "dv"))
+
+
+def check_bwd_kernels_all(rng):
+    """(a) K3/K4 at the north-star shape (levels 1 and 2, ROW and TENSOR K),
+    K1/K2 at the flagship's attention shapes in five modes, then small
+    shapes.  → {label: errors}."""
+    ns = (NS_B, NS_H, NS_S, NS_D)
+    row8, row8c, row4c = qcfg(), qcfg(strategy="centered"), qcfg(
+        bits=4, strategy="centered")
+    ten8, ch8 = qcfg(gran="tensor"), qcfg(gran="channel")
+    errs = {}
+    for level2 in (False, True):
+        lv = 2 if level2 else 1
+        errs[f"fullint_row_l{lv}"] = check_fullint(
+            rng, "ROW K / CHANNEL V (north-star)", *ns, row8, ch8, level2)
+        errs[f"fullint_tensor_l{lv}"] = check_fullint(
+            rng, "TENSOR K / TENSOR V (north-star)", *ns, ten8, ten8, level2)
+    flagship = (ATTN_B, ATTN_HQ, ATTN_HKV, ATTN_S, ATTN_S, ATTN_D)
+    for name, kcfg, vcfg in (("folded_row", row8, row8),
+                             ("folded_channel", ch8, ch8),
+                             ("folded_tensor", ten8, ten8),
+                             ("dequant_row8c", row8c, row8c),
+                             ("dequant_row4c", row4c, row4c)):
+        errs[name] = check_qflash(rng, f"{name} (flagship)", *flagship,
+                                  kcfg, vcfg)
+    b2d = qcfg(gran="block_2d", strategy="centered", block_rows=4,
+               block_size=32)
+    small = (2, 8, 2, 300, 300)
+    for label, d, kcfg, vcfg, opts in (
+            ("BLOCK_2D", 64, b2d, b2d, {}),
+            ("bias-dbias", 64, row8c, row8c,
+             dict(bias_shape=(1, 8, 300, 300))),
+            ("window-causal", 64, row8c, row8c,
+             dict(mask=masking.sliding_window(96, causal=True))),
+            ("interleaved", 64, row8c, row8c, dict(interleaved_kv=True)),
+            ("folded CHANNEL interleaved", 64, ch8, ch8,
+             dict(interleaved_kv=True)),
+            ("d128", 128, row8c, row8c, {}),
+            ("d256 folded ROW", 256, row8, row8, {})):
+        errs[label] = check_qflash(rng, label, *small, d, kcfg, vcfg, **opts)
+    errs["ragged"] = check_qflash(rng, "ragged Sq=125 < Skv=1000", 1, 4, 4,
+                                  125, 1000, 64, row8c, row8c)
+    return errs
+
+
+def bench_grads(q, kq, vq, do, fullint):
+    """bench.py's gradients (``north_star_grads``), the launch counts set to
+    0 just before and read after → (grads, launches, s)."""
+    reset_bwd_counts()
+    t0 = time.perf_counter()
+    grads = north_star_grads(q, kq, vq, do, fullint)
+    torch.cuda.synchronize()
+    return grads, bwd_counts(), time.perf_counter() - t0
+
+
+def dense_grads(q, kq, vq, do, mask=masking.FULL):
+    """The fp32 dense VJP (dq, dk, dv) on the dequantized K/V, one batch
+    element at a time."""
+    kd, vd = dequantize(kq), dequantize(vq)
+    parts = [reference_attention_vjp(q[i:i + 1].float(), kd[i:i + 1],
+                                     vd[i:i + 1], do[i:i + 1].float(),
+                                     mask=mask)
+             for i in range(q.shape[0])]
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def gate_grads(label, got, want, names):
+    errs = {n: rel_l2(g, w) for n, g, w in zip(names, got, want)}
+    log(f"{label}: rel L2 " + json.dumps(errs) + f" (tol {QBWD_TOL})")
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    shapes = all(g.shape == w.shape for g, w in zip(got, want))
+    if not (finite and shapes and all(e <= QBWD_TOL for e in errs.values())):
+        raise AssertionError(f"{label}: {errs}, finite {finite}, shapes "
+                             f"{shapes}")
+    return errs
+
+
+def run_north_star(rng):
+    """(b) The full-width fwd+bwd, full-integer and exact, gated against
+    each other and the exact one against the dense VJP."""
+    q, kq, vq, do = north_star_inputs(device_generator(rng))
+    names = ("dq", "dk_scale", "dv_scale")
+    full, full_launches, full_s = bench_grads(q, kq, vq, do, True)
+    exact, exact_launches, exact_s = bench_grads(q, kq, vq, do, False)
+    log(f"north-star fwd+bwd (B={NS_B} H={NS_H} S={NS_S} D={NS_D} FULL): "
+        f"full-integer {full_s:.3f} s, launches {json.dumps(full_launches)};"
+        f" exact {exact_s:.3f} s, launches {json.dumps(exact_launches)}")
+    if full_launches != {"qattn_fwd": 1, "fullint_dq": 1, "fullint_dkv": 1}:
+        raise AssertionError(f"full-integer launches {full_launches}")
+    if exact_launches != {"qattn_fwd": 1, "qflash_dq": 1, "qflash_dkv": 1}:
+        raise AssertionError(f"exact launches {exact_launches}")
+    out = {"fullint_vs_exact": gate_grads(
+        "north-star full-integer vs exact", full, exact, names)}
+    dq, dk, dv = dense_grads(q, kq, vq, do)
+    dense = (dq, tqa._scale_zp_cotangents(dk, kq)[0],
+             tqa._scale_zp_cotangents(dv, vq)[0])
+    out["exact_vs_dense"] = gate_grads(
+        "north-star exact vs fp32 dense VJP on the dequantized K/V", exact,
+        dense, names)
+    out["fullint_vs_dense_not_gated"] = {
+        n: rel_l2(g, w) for n, g, w in zip(names, full, dense)}
+    out["launches"] = {"fullint": full_launches, "exact": exact_launches}
+    out["seconds"] = {"fullint": full_s, "exact": exact_s}
+    return out, (q, kq, vq, do)
+
+
+def run_qat(rng):
+    """(c) ``quantized_flash_attention_qat`` (int8 ROW CENTERED, causal) at
+    the flagship's attention shapes against the dense VJP on the
+    dequantized K/V, and the ``QuantizedAttention`` gradient with respect
+    to q; launch counts set to 0 just before each call and read after."""
+    q, k, v = attn_inputs(rng, ATTN_B, ATTN_HQ, ATTN_HKV, ATTN_S, ATTN_S,
+                          ATTN_D)
+    do = torch.randn(q.shape, generator=device_generator(rng),
+                     device=DEV).to(torch.bfloat16)
+    cfg = qcfg(strategy="centered")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_bwd_counts()
+    o = quantized_flash_attention_qat(*leaves, cfg, masking.CAUSAL)
+    grads = torch.autograd.grad((o.float() * do.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    qat_launches = bwd_counts()
+    want = {"qattn_fwd": 1, "qflash_dq": 1, "qflash_dkv": 1}
+    if qat_launches != want:
+        raise AssertionError(f"QAT launches {qat_launches}, expected {want}")
+    dense = dense_grads(q, quantize(k.float(), cfg), quantize(v.float(), cfg),
+                        do, masking.CAUSAL)
+    out = {"qat": gate_grads("QAT int8 ROW CENTERED (flagship, causal)",
+                             grads, dense, ("dq", "dk", "dv"))}
+    facade = QuantizedAttention(mask=masking.CAUSAL)
+    qg = q.clone().requires_grad_(True)
+    reset_bwd_counts()
+    of = facade(qg, k, v)
+    (dq,) = torch.autograd.grad((of.float() * do.float()).sum(), [qg])
+    torch.cuda.synchronize()
+    facade_launches = bwd_counts()
+    want = {"rtq_rows": 2, "qattn_fwd": 1, "qflash_dq": 1, "qflash_dkv": 1}
+    if facade_launches != want:
+        raise AssertionError(f"facade launches {facade_launches}, expected "
+                             f"{want}")
+    kq, vq = facade.quantize_kv(k, v)
+    out["facade"] = gate_grads(
+        "QuantizedAttention dq (int8 CENTERED, flagship, causal)", [dq],
+        dense_grads(q, kq, vq, do, masking.CAUSAL)[:1], ("dq",))
+    out["launches"] = {"qat": qat_launches, "facade": facade_launches}
+    return out, (q, k, v, do)
+
+
+def check_north_star_kernels(q, kq, vq, do):
+    """The main path's kernels against their plain versions on its own
+    north-star inputs, in the modes it launches them: the quantized
+    forward with int8 Q and int8 P (D=256), the full-integer dQ / dK/dV
+    (level 1, ROW K / CHANNEL V) and the exact ones (folded ROW K /
+    CHANNEL V) → ({name: errors}, the kernels' arguments)."""
+    d = q.shape[-1]
+    f_args, f_kw = qattn_arguments(q, kq, vq, quantize_q=True)
+    o, lse = qattn_fwd(*f_args, **f_kw)
+    torch.cuda.synchronize()
+    errs = {"qattn_fwd": check_pair(
+        "qattn_fwd int8 Q / int8 P D=256 (north-star)", (o, lse),
+        qattn_fwd_plain(*f_args, **f_kw, kv_tile=KV_TILE))}
+    # Not gated: the one-pass softmax rounds the int8 P against each row's
+    # final max, where the kernel (as the TPU's) rounds against the running
+    # one; over 4096 keys that moves O by ~0.1 of its max abs.
+    o_1, l_1 = qattn_fwd_plain(*f_args, **f_kw)
+    errs["qattn_fwd_one_pass"] = (rel_err(o, o_1), rel_err(lse, l_1),
+                                  max_abs(o, o_1))
+    log("qattn_fwd vs the one-pass plain version (not gated): o "
+        f"{errs['qattn_fwd_one_pass'][0]:.2e} l "
+        f"{errs['qattn_fwd_one_pass'][1]:.2e}")
+    del o_1, l_1
+    di = (do.float() * o).sum(-1)
+    (f_dq, f_dq_kw), (f_dkv, f_dkv_kw) = fbwd.fullint_arguments(
+        q, kq, vq, None, lse, do, scale=d ** -0.5, block_sizes=NS_BLOCKS,
+        di=di)
+    rr = row_ranges_tensor(masking.FULL, q.shape[2], q.shape[2], None, DEV)
+    (e_dq, e_dq_kw), (e_dkv, e_dkv_kw) = fbwd.qflash_arguments(
+        q, kq, vq, do, lse, di, rr, scale=d ** -0.5)
+    args = {"qattn_fwd": (f_args, f_kw), "fullint_dq": (f_dq, f_dq_kw),
+            "fullint_dkv": (f_dkv, f_dkv_kw), "qflash_dq": (e_dq, e_dq_kw),
+            "qflash_dkv": (e_dkv, e_dkv_kw)}
+    for name, outs, mode in (
+            ("fullint_dq", ("dq",), "level 1, ROW K / CHANNEL V"),
+            ("fullint_dkv", ("dk", "dv"), "level 1, ROW K / CHANNEL V"),
+            ("qflash_dq", ("dq", "dbias"), f"{e_dq_kw['mode'].k} K"),
+            ("qflash_dkv", ("dk", "dv"), f"{e_dkv_kw['mode'].k} K")):
+        a, kw = args[name]
+        got = getattr(fbwd, name)(*a, **kw)
+        torch.cuda.synchronize()
+        want = getattr(fbwd, f"{name}_plain")(*a, **kw)
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        errs[name] = check_bwd_pair(f"{name} {mode} (north-star)", got,
+                                    want, outs)
+    return errs, args
+
+
+def time_quantized_backward(ns_args, qat_inputs):
+    """(d) K1-K4 times beside their bounds, plain versions and the SDPA
+    backward over the dequantized bf16 K/V (dq, dk, dv together; a
+    yardstick): K3/K4 at the north-star shape (level 1, the main path's),
+    K1/K2 there in the exact arm's mode (folded ROW K / CHANNEL V) and at
+    the flagship's attention shapes in QAT's (dequant ROW CENTERED); the
+    quantized forward in the north-star's mode beside SDPA."""
+    (q, kq, vq, do), args = ns_args
+    b, h, s, d = q.shape
+    pairs = b * h * s * s
+    n_q, n_kv, rows = b * h * s * d, b * h * s * d, b * h * s
+    (f_dq, f_dq_kw), (f_dkv, f_dkv_kw) = args["fullint_dq"], args[
+        "fullint_dkv"]
+    (e_dq, e_dq_kw), (e_dkv, e_dkv_kw) = args["qflash_dq"], args[
+        "qflash_dkv"]
+    fwd_a, fwd_kw = args["qattn_fwd"]
+
+    def sdpa_bwd(q_, kd, vd, do_, causal):
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q_, kd, vd))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                             enable_gqa=True)
+        return lambda: torch.autograd.grad(out, (qg, kg, vg), do_,
+                                           retain_graph=True)
+
+    def timed(name, kernel, plain, library, bound):
+        t = {"plain_ms": time_ms(plain, 2, warmup=1),
+             "ms": time_ms(kernel, 5, warmup=1)}
+        t["plain_ms_2"] = time_ms(plain, 2, warmup=0)
+        t["ms_2"] = time_ms(kernel, 5, warmup=0)
+        t["library_ms"] = time_ms(library, 5, warmup=1)
+        t["bound_ms"], t["bound_by"] = bound
+        log(f"{name} times: " + json.dumps(t))
+        return t
+
+    kd, vd = dequantized_bf16(kq), dequantized_bf16(vq)
+    lib = sdpa_bwd(q, kd, vd, do, False)
+    stats = 4 * rows  # one fp32 [B, H, S] vector
+    int8_in = 2 * n_q + 2 * n_kv  # Q and dO (one copy), K and V payloads
+    times = {
+        "fullint_dq": timed(
+            "fullint_dq level 1 ROW K (north-star)",
+            lambda: fbwd.fullint_dq(*f_dq, **f_dq_kw),
+            lambda: fbwd.fullint_dq_plain(*f_dq, **f_dq_kw), lib,
+            attn_bound(pairs, 4 * d, 2 * d, int8_in + 4 * stats
+                       + 4 * b * h * s + 4 * n_q)),
+        "fullint_dkv": timed(
+            "fullint_dkv level 1 ROW K (north-star)",
+            lambda: fbwd.fullint_dkv(*f_dkv, **f_dkv_kw),
+            lambda: fbwd.fullint_dkv_plain(*f_dkv, **f_dkv_kw), lib,
+            attn_bound(pairs, 4 * d, 4 * d, int8_in + n_q + 5 * stats
+                       + 4 * b * h * s + 8 * n_kv)),
+        "qflash_dq": timed(
+            "qflash_dq folded ROW K / CHANNEL V (north-star, the exact arm)",
+            lambda: fbwd.qflash_dq(*e_dq, **e_dq_kw),
+            lambda: fbwd.qflash_dq_plain(*e_dq, **e_dq_kw), lib,
+            attn_bound(pairs, 0, 6 * d, 4 * n_q + 2 * n_kv + 3 * stats
+                       + 4 * b * h * d + 4 * n_q + 8 * s)),
+        "qflash_dkv": timed(
+            "qflash_dkv token K / channel V (north-star, the exact arm)",
+            lambda: fbwd.qflash_dkv(*e_dkv, **e_dkv_kw),
+            lambda: fbwd.qflash_dkv_plain(*e_dkv, **e_dkv_kw), lib,
+            attn_bound(pairs, 0, 8 * d, 4 * n_q + 2 * n_kv + 4 * stats
+                       + 4 * b * h * d + 8 * n_kv + 8 * s)),
+        # int8 Q with its scales, K with its per-token scales, V with its
+        # per-channel ones in; O and L out; int8 QK and int8 PV products.
+        "qattn_fwd": timed(
+            "qattn_fwd int8 Q / int8 P D=256 (north-star)",
+            lambda: qattn_fwd(*fwd_a, **fwd_kw),
+            lambda: qattn_fwd_plain(*fwd_a, **fwd_kw),
+            lambda: F.scaled_dot_product_attention(q, kd, vd),
+            attn_bound(pairs, 4 * d, 0, n_q + stats + 2 * n_kv
+                       + 4 * b * h * s + 4 * b * h * d + 4 * n_q + stats
+                       + 8 * s)),
+    }
+    del lib, kd, vd, args, f_dq, f_dkv, e_dq, e_dkv, fwd_a
+    # K1/K2 in QAT's mode at the flagship's attention shapes (causal).
+    q, k, v, do = qat_inputs
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    cfg = qcfg(strategy="centered")
+    kq, vq = quantize(k.float(), cfg), quantize(v.float(), cfg)
+    o, lse = quantized_flash_attention_forward(q, kq, vq,
+                                               mask=masking.CAUSAL)
+    di = (do.float() * o).sum(-1)
+    rr = row_ranges_tensor(masking.CAUSAL, s, s, None, DEV)
+    (e_dq, e_dq_kw), (e_dkv, e_dkv_kw) = fbwd.qflash_arguments(
+        q, kq, vq, do, lse, di, rr, scale=d ** -0.5)
+    lib = sdpa_bwd(q, dequantized_bf16(kq), dequantized_bf16(vq), do, True)
+    pairs = b * hq * s * (s + 1) // 2
+    n_q, n_kv, stats = b * hq * s * d, b * hkv * s * d, 4 * b * hq * s
+    for name, kernel, plain, ops, out_bytes in (
+            ("qflash_dq", fbwd.qflash_dq, fbwd.qflash_dq_plain, 6 * d,
+             4 * n_q + 4 * b * hkv * d),
+            ("qflash_dkv", fbwd.qflash_dkv, fbwd.qflash_dkv_plain, 8 * d,
+             8 * n_kv)):
+        a, kw = (e_dq, e_dq_kw) if name == "qflash_dq" else (e_dkv, e_dkv_kw)
+        t = timed(f"{name} dequant ROW CENTERED (flagship, causal: QAT's "
+                  "mode)", lambda: kernel(*a, **kw), lambda: plain(*a, **kw),
+                  lib, attn_bound(pairs, 0, ops, 4 * n_q + 2 * n_kv
+                                  + 16 * b * hkv * s + 2 * stats + out_bytes
+                                  + 8 * s))
+        times[name].update({f"{key}_qat_mode": t[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms")})
+    return times
+
+
+def run_quantized_backward(seed):
+    """Phase 11 (a)-(d), inputs from a fourth generator (seed + 3) →
+    (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 3)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["errors"] = check_bwd_kernels_all(rng)
+    phase["qbwd_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["north_star"], ns_inputs = run_north_star(rng)
+    phase["qbwd_north_star"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["qat"], qat_inputs = run_qat(rng)
+    phase["qbwd_qat"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.no_grad():
+        out["north_star_errors"], ns_args = check_north_star_kernels(
+            *ns_inputs)
+    phase["qbwd_north_star_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["times"] = time_quantized_backward((ns_inputs, ns_args), qat_inputs)
+    phase["qbwd_times"] = time.perf_counter() - t
+    return out, phase
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1594,6 +2049,8 @@ def main() -> int:
     qattn, qattn_phase = run_quantized_attention(
         cfg, params, args.seed, np.random.default_rng(args.seed + 2))
     phase_s.update(qattn_phase)
+    qbwd, qbwd_phase = run_quantized_backward(args.seed)
+    phase_s.update(qbwd_phase)
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
     engines = quant["engines"]
@@ -1711,6 +2168,70 @@ def main() -> int:
             **extra,
             **{k: v for k, v in t.items() if k.endswith("_facade_mode")},
         })
+    bt, ns, qat = qbwd["times"], qbwd["north_star"], qbwd["qat"]
+    errs, ns_errs = qbwd["errors"], qbwd["north_star_errors"]
+    next(e for e in record["kernels"] if e["name"] == "qattn_fwd").update({
+        "launches_north_star": ns["launches"]["fullint"]["qattn_fwd"],
+        "max_abs_err_north_star": ns_errs["qattn_fwd"][2],
+        "rel_err_north_star": ns_errs["qattn_fwd"][0],
+        "rel_err_l_north_star": ns_errs["qattn_fwd"][1],
+        "rel_err_one_pass_north_star_not_gated": ns_errs[
+            "qattn_fwd_one_pass"][0],
+        **{f"{key}_north_star": bt["qattn_fwd"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape_north_star": "B=4 H=4 S=4096 D=256 FULL, int8 Q and int8 P, "
+                            "ROW K / CHANNEL V (both arms of the north-star "
+                            "fwd+bwd)",
+    })
+
+    def worst(name, index):
+        """The worst (rel, max abs) error of a kernel over phase 11 (a)."""
+        outs = ("dq", "dbias") if name.endswith("_dq") else ("dk", "dv")
+        return max(e[index] for check, es in errs.items()
+                   if check.startswith("fullint") == name.startswith(
+                       "fullint")
+                   for out, e in es.items() if out in outs)
+
+    bwd_entries = [
+        ("qflash_dq", f"{FLASH_BWD_TPU}:77",
+         ns["launches"]["exact"]["qflash_dq"], "qflash",
+         "B=4 H=4 S=4096 D=256 FULL, folded ROW K / CHANNEL V (the exact "
+         "arm of the north-star fwd+bwd)"),
+        ("qflash_dkv", f"{FLASH_BWD_TPU}:954",
+         ns["launches"]["exact"]["qflash_dkv"], "qflash",
+         "B=4 H=4 S=4096 D=256 FULL, per-token K / channel V dequant"),
+        ("fullint_dq", f"{FLASH_BWD_TPU}:511",
+         ns["launches"]["fullint"]["fullint_dq"], "fullint",
+         "B=4 H=4 S=4096 D=256 FULL, level 1, ROW K (the north-star)"),
+        ("fullint_dkv", f"{FLASH_BWD_TPU}:584",
+         ns["launches"]["fullint"]["fullint_dkv"], "fullint",
+         "B=4 H=4 S=4096 D=256 FULL, level 1, ROW K (the north-star)"),
+    ]
+    for name, replaces, launches, prefix, shape in bwd_entries:
+        t = bt[name]
+        extra = ({"launches_qat": qat["launches"]["qat"][name],
+                  "launches_facade": qat["launches"]["facade"][name]}
+                 if prefix == "qflash" else {})
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": QBWD_SOURCE,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(e[1] for e in ns_errs[name].values()),
+            "rel_err": max(e[0] for e in ns_errs[name].values()),
+            "max_abs_err_all_modes_worst": worst(name, 1),
+            "rel_err_all_modes_worst": worst(name, 0),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": "sdpa backward over the dequantized bf16 K/V (dq, dk,"
+                       " dv together)",
+            "shape": shape, **extra,
+            **{k: v for k, v in t.items() if k.endswith("_qat_mode")},
+        })
+    record["quantized_backward"] = {
+        key: ns[key] for key in ("fullint_vs_exact", "exact_vs_dense",
+                                 "fullint_vs_dense_not_gated", "seconds")}
+    record["quantized_backward"].update(qat_rel_l2=qat["qat"],
+                                        facade_dq_rel_l2=qat["facade"])
     record["quantized_attention"] = {
         "logits_rel_l2": {k: v[0] for k, v in fwd.items()},
         "logits_rel_l2_random_init_not_gated": {

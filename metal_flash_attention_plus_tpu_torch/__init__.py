@@ -16,7 +16,13 @@ against; this package imports nothing of it (nor of JAX).  Ported so far:
   quantize_kv=True)`` (packed d=64 head pairs or int8-Q scores) and the
   ``QuantizedAttention`` facade, over the quantized forward and head-pair
   kernels (``csrc/quantized_attention.cu``) and the runtime quantization
-  kernels (``csrc/runtime_quantization.cu``).
+  kernels (``csrc/runtime_quantization.cu``);
+- the quantized backward: the gradient of ``quantized_flash_attention``
+  (exact, and full-integer with ``bwd_fullint``; dq, dbias and the K/V
+  scale and zero-point cotangents), of ``QuantizedAttention`` and of
+  ``quantized_flash_attention_qat`` / ``fake_quantize``, over the
+  quantized dQ / dK/dV and full-integer kernels
+  (``csrc/quantized_attention_bwd.cu``).
 
 Entry points take ``device=None``, meaning the CUDA card, and raise
 without one unless given ``device="cpu"``.
@@ -74,6 +80,7 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     quantized_flash_attention,
     quantized_flash_attention_forward,
     quantized_flash_attention_forward_packed,
+    quantized_flash_attention_qat,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     dynamic_quantized_matmul,
@@ -86,6 +93,7 @@ from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantGranularity,
     QuantStrategy,
 )
+from metal_flash_attention_plus_tpu_torch.quant.ste import fake_quantize
 from metal_flash_attention_plus_tpu_torch.quant.tensor import (
     QuantizedTensor,
     dequantize,
@@ -126,6 +134,7 @@ __all__ = [
     "decode_step",
     "dequantize",
     "dynamic_quantized_matmul",
+    "fake_quantize",
     "flash_attention",
     "flash_attention_backward",
     "flash_attention_forward",
@@ -147,6 +156,7 @@ __all__ = [
     "quantized_flash_attention",
     "quantized_flash_attention_forward",
     "quantized_flash_attention_forward_packed",
+    "quantized_flash_attention_qat",
     "quantized_forward",
     "reference_attention",
     "runtime_quantize",

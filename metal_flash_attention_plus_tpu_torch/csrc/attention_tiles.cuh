@@ -1,15 +1,18 @@
 // The 64 x 64 tile machinery shared by the flash and the quantized attention
-// kernels (csrc/flash_attention.cu, csrc/quantized_attention.cu): 256
-// threads per CTA, 16 x 16, each thread 4 rows x 4 columns of a tile;
-// operands staged in shared memory as fp32, transposed ([D][64 + 4]), so a
-// thread's four rows and four columns are 16-byte vectors; every mask is an
-// int32 [Sq, 2] table of per-row [start, end) key ranges.
+// kernels (csrc/flash_attention.cu, csrc/quantized_attention.cu,
+// csrc/quantized_attention_bwd.cu): 256 threads per CTA, 16 x 16, each
+// thread 4 rows x 4 columns of a tile; operands staged in shared memory as
+// fp32, transposed ([D][64 + 4]), so a thread's four rows and four columns
+// are 16-byte vectors; every mask is an int32 [Sq, 2] table of per-row
+// [start, end) key ranges.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace mfa {
 
@@ -19,6 +22,34 @@ constexpr int THREADS = 256;   // 16 x 16; each thread 4 rows x 4 columns
 constexpr int LD = BM + 4;     // padded row of a transposed [D][64] tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// Stage rows [row0, row0 + 64) of a [rows, D] matrix of T transposed into
+// dst[d * LD + r] as fp32, zeros past `limit`; SCALE rounds x*scale to T.
+template <typename T, int D, bool SCALE>
+__device__ __forceinline__ void stage_t(const T* __restrict__ src, int row0,
+                                        int limit, float* dst, float scale) {
+  using E = Elem<T>;
+  constexpr int VPR = D / E::VEC;
+  for (int i = threadIdx.x; i < 64 * VPR; i += THREADS) {
+    const int r = i / VPR;
+    const int c = i % VPR;
+    float f[E::VEC];
+    if (row0 + r < limit) {
+      E::unpack(*reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D +
+                                                c * E::VEC),
+                f);
+      if (SCALE) {
+#pragma unroll
+        for (int e = 0; e < E::VEC; ++e) f[e] = E::round(f[e] * scale);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E::VEC; ++e) f[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < E::VEC; ++e) dst[(c * E::VEC + e) * LD + r] = f[e];
+  }
+}
 
 // acc[i][j] = sum_d a[d][ay*4 + i] * b[d][bx*4 + j] over transposed tiles.
 template <int D>

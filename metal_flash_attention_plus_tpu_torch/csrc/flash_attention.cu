@@ -62,6 +62,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_bwd.cuh"
 #include "attention_tiles.cuh"
 #include "common.cuh"
 
@@ -69,6 +70,7 @@ namespace {
 
 using mfa::BM;
 using mfa::BN;
+using mfa::BwdArgs;
 using mfa::Elem;
 using mfa::LD;
 using mfa::LN2;
@@ -78,56 +80,13 @@ using mfa::accumulate_pm;
 using mfa::key_span;
 using mfa::row_range;
 using mfa::set_smem;
+using mfa::stage_t;
 using mfa::store_t;
 using mfa::tile_product;
-
-// Stage rows [row0, row0 + 64) of a [rows, D] matrix transposed into
-// dst[d * LD + r] as fp32, zeros past `limit`; SCALE rounds x*scale to T.
-template <typename T, int D, bool SCALE>
-__device__ __forceinline__ void stage_t(const T* __restrict__ src, int row0,
-                                        int limit, float* dst, float scale) {
-  using E = Elem<T>;
-  constexpr int VPR = D / E::VEC;
-  for (int i = threadIdx.x; i < 64 * VPR; i += THREADS) {
-    const int r = i / VPR;
-    const int c = i % VPR;
-    float f[E::VEC];
-    if (row0 + r < limit) {
-      E::unpack(*reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D +
-                                                c * E::VEC),
-                f);
-      if (SCALE) {
-#pragma unroll
-        for (int e = 0; e < E::VEC; ++e) f[e] = E::round(f[e] * scale);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < E::VEC; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < E::VEC; ++e) dst[(c * E::VEC + e) * LD + r] = f[e];
-  }
-}
 
 template <int D>
 constexpr size_t fwd_smem_floats() {
   return 2 * (size_t)D * LD + (size_t)BN * LD;  // Q^T, K^T|V^T, P^T
-}
-
-template <int D>
-constexpr size_t dq_smem_floats() {
-  return 3 * (size_t)D * LD + (size_t)BN * LD;  // Q^T, dO^T, K^T|V^T, dS^T
-}
-
-template <int D>
-__host__ __device__ constexpr bool dkv_resident() {
-  return D <= 128;
-}
-
-template <int D>
-constexpr size_t dkv_smem_floats() {
-  // Q^T, dO^T, K^T and V^T (one shared buffer at D = 256), P^T|dS^T
-  return (dkv_resident<D>() ? 4 : 3) * (size_t)D * LD + (size_t)BM * LD;
 }
 
 // ---------------------------------------------------------------------------
@@ -245,261 +204,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dQ
+// dQ and dK / dV: the bodies of attention_bwd.cuh over float K/V
 // ---------------------------------------------------------------------------
+
+// K or V rows of T, staged as they are.
+template <typename T, int D>
+struct FloatKV {
+  const T* k;
+  const T* v;
+  int Skv;
+  __device__ __forceinline__ void stage(bool is_v, size_t head, int t0,
+                                        int limit, float* dst) const {
+    stage_t<T, D, false>((is_v ? v : k) + head * Skv * D, t0, limit, dst,
+                         0.f);
+  }
+};
 
 // Replaces ops/flash_attention_bwd.py::_dq_kernel.  Bound: operations
-// (6*D per live pair: S, dP, dQ).  One CTA per 64 query rows keeps Q_s^T
-// and dO^T resident and loops over the live key tiles.
+// (6*D per live pair: S, dP, dQ).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ di,
-                const int32_t* __restrict__ ranges,
-                const float* __restrict__ bias, long long bias_sb,
-                long long bias_sh, float* __restrict__ dq,
-                float* __restrict__ dbias, int Hq, int Hkv, int Sq, int Skv,
-                int interleaved, float scale) {
-  constexpr int DV = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;           // [D][LD]  Q_s^T
-  float* dot = qt + D * LD;   // [D][LD]  dO^T
-  float* kvt = dot + D * LD;  // [D][LD]  V^T, then K^T
-  float* dst = kvt + D * LD;  // [BN][LD] dS^T
-  __shared__ int s_lo, s_hi;
-
-  const int r0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int hk = interleaved ? h % Hkv : h / group;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const size_t bh = (size_t)b * Hq + h;
-  const T* kh = k + ((size_t)b * Hkv + hk) * Skv * D;
-  const T* vh = v + ((size_t)b * Hkv + hk) * Skv * D;
-  const float* bh_bias =
-      bias ? bias + b * bias_sb + h * bias_sh : nullptr;
-
-  stage_t<T, D, true>(q + bh * Sq * D, r0, Sq, qt, scale);
-  stage_t<T, D, false>(dout + bh * Sq * D, r0, Sq, dot, 0.f);
-  key_span(ranges, r0, Sq, Skv, &s_lo, &s_hi);
-  const int c_lo = s_lo;
-  const int c_hi = s_hi;
-
-  int rs[4], re[4];
-  float lrow[4], drow[4], acc[4][DV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    row_range(ranges, r, Sq, Skv, rs[i], re[i]);
-    const float lv = r < Sq ? lse[bh * Sq + r] : 0.f;
-    lrow[i] = (lv == -INFINITY) ? 0.f : lv;
-    drow[i] = r < Sq ? di[bh * Sq + r] : 0.f;
-#pragma unroll
-    for (int e = 0; e < DV; ++e) acc[i][e] = 0.f;
-  }
-
-  for (int t0 = c_lo; t0 < c_hi; t0 += BN) {
-    stage_t<T, D, false>(vh, t0, c_hi, kvt, 0.f);
-    __syncthreads();
-    float dp[4][4];
-    tile_product<D>(dot, ty, kvt, tx, dp);
-    __syncthreads();  // every thread is done with V^T
-    stage_t<T, D, false>(kh, t0, c_hi, kvt, 0.f);
-    __syncthreads();
-    float s[4][4];
-    tile_product<D>(qt, ty, kvt, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = t0 + tx * 4 + j;
-        if (bh_bias && row < Sq && col < c_hi)
-          s[i][j] += bh_bias[(size_t)row * Skv + col];
-        const float p = (col < rs[i] || col >= re[i])
-                            ? 0.f
-                            : expf(s[i][j] - lrow[i]);
-        const float ds = p * (dp[i][j] - drow[i]);
-        if (dbias && row < Sq && col < Skv)
-          dbias[(bh * Sq + row) * Skv + col] = ds;
-        s[i][j] = Elem<T>::round(ds);
-      }
-    }
-    store_t(dst, ty, tx, s);
-    __syncthreads();  // dS^T staged
-    accumulate_pm<D>(dst, ty, kvt, tx, acc);
-    __syncthreads();  // before the next tile overwrites K^T and dS^T
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= Sq) continue;
-    float* drow_out = dq + (bh * Sq + r) * D;
-#pragma unroll
-    for (int e = 0; e < DV; ++e) drow_out[tx + 16 * e] = acc[i][e] * scale;
-  }
+flash_dq_kernel(const BwdArgs a, const FloatKV<T, D> kv) {
+  mfa::dq_body<T, D, true>(a, kv);
 }
 
-// ---------------------------------------------------------------------------
-// dK / dV
-// ---------------------------------------------------------------------------
-
 // Replaces ops/flash_attention_bwd.py::_dkv_kernel.  Bound: operations
-// (8*D per live pair: S, dP, dV, dK).  One CTA per 64 keys owns their dK
-// and dV and walks the GQA group x the query rows that meet its tile.
+// (8*D per live pair: S, dP, dV, dK).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ di,
-                 const int32_t* __restrict__ ranges,
-                 const float* __restrict__ bias, long long bias_sb,
-                 long long bias_sh, float* __restrict__ dk,
-                 float* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
-                 int interleaved, float scale) {
-  constexpr int DV = D / 16;
-  constexpr bool RESIDENT = dkv_resident<D>();
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                           // [D][LD]  Q_s^T
-  float* dot = qt + D * LD;                   // [D][LD]  dO^T
-  float* kt = dot + D * LD;                   // [D][LD]  K^T
-  float* vt = RESIDENT ? kt + D * LD : kt;    // [D][LD]  V^T
-  float* ps = vt + D * LD;                    // [BM][LD] P, then dS (q-major)
-  __shared__ int s_rmin, s_rmax;
-
-  const int c0 = blockIdx.x * BN;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // query columns tx*4 + j
-  const int ty = tid / 16;  // key rows ty*4 + i
-  const size_t bkv = (size_t)b * Hkv + hk;
-  const T* kh = k + bkv * Skv * D;
-  const T* vh = v + bkv * Skv * D;
-  const int c_end = min(c0 + BN, Skv);
-
-  // The span of query rows whose range meets this key tile.
-  if (tid == 0) {
-    s_rmin = INT_MAX;
-    s_rmax = -1;
-  }
-  __syncthreads();
-  {
-    int rmin = INT_MAX, rmax = -1;
-    for (int r = tid; r < Sq; r += THREADS) {
-      int st, en;
-      row_range(ranges, r, Sq, Skv, st, en);
-      if (en > st && st < c_end && en > c0) {
-        rmin = min(rmin, r);
-        rmax = max(rmax, r);
-      }
-    }
-    if (rmax >= 0) {
-      atomicMin(&s_rmin, rmin);
-      atomicMax(&s_rmax, rmax);
-    }
-  }
-  if (RESIDENT) {
-    stage_t<T, D, false>(kh, c0, Skv, kt, 0.f);
-    stage_t<T, D, false>(vh, c0, Skv, vt, 0.f);
-  }
-  __syncthreads();
-  const int row_lo = s_rmin;
-  const int row_hi = s_rmax + 1;
-
-  float dk_acc[4][DV], dv_acc[4][DV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DV; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-
-  for (int g = 0; g < group; ++g) {
-    const int h = interleaved ? g * Hkv + hk : hk * group + g;
-    const size_t bh = (size_t)b * Hq + h;
-    const float* bh_bias =
-        bias ? bias + b * bias_sb + h * bias_sh : nullptr;
-    for (int r0 = row_lo; r0 < row_hi; r0 += BM) {
-      stage_t<T, D, true>(q + bh * Sq * D, r0, row_hi, qt, scale);
-      stage_t<T, D, false>(dout + bh * Sq * D, r0, row_hi, dot, 0.f);
-      if (!RESIDENT) stage_t<T, D, false>(kh, c0, Skv, kt, 0.f);
-      int rs[4], re[4];
-      float lcol[4], dcol[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = r0 + tx * 4 + j;
-        row_range(ranges, r < row_hi ? r : Sq, Sq, Skv, rs[j], re[j]);
-        const float lv = r < row_hi ? lse[bh * Sq + r] : 0.f;
-        lcol[j] = (lv == -INFINITY) ? 0.f : lv;
-        dcol[j] = r < row_hi ? di[bh * Sq + r] : 0.f;
-      }
-      __syncthreads();
-      float pt[4][4];  // [key i][query j]
-      tile_product<D>(kt, ty, qt, tx, pt);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = c0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = r0 + tx * 4 + j;
-          float s = pt[i][j];
-          if (bh_bias && row < row_hi && col < Skv)
-            s += bh_bias[(size_t)row * Skv + col];
-          pt[i][j] =
-              (col < rs[j] || col >= re[j]) ? 0.f : expf(s - lcol[j]);
-        }
-      }
-      if (!RESIDENT) {
-        __syncthreads();  // every thread is done with K^T
-        stage_t<T, D, false>(vh, c0, Skv, vt, 0.f);
-        __syncthreads();
-      }
-      float dpt[4][4];
-      tile_product<D>(vt, ty, dot, tx, dpt);
-      float pr[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dpt[i][j] = pt[i][j] * (dpt[i][j] - dcol[j]);  // dS^T
-          pr[i][j] = Elem<T>::round(pt[i][j]);
-        }
-      // P, q-major: ps[q * LD + key], the layout accumulate_pm reads.
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(ps + (tx * 4 + j) * LD + ty * 4) =
-            make_float4(pr[0][j], pr[1][j], pr[2][j], pr[3][j]);
-      __syncthreads();
-      accumulate_pm<D>(ps, ty, dot, tx, dv_acc);  // dV += P^T.dO
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(ps + (tx * 4 + j) * LD + ty * 4) =
-            make_float4(Elem<T>::round(dpt[0][j]), Elem<T>::round(dpt[1][j]),
-                        Elem<T>::round(dpt[2][j]), Elem<T>::round(dpt[3][j]));
-      __syncthreads();
-      accumulate_pm<D>(ps, ty, qt, tx, dk_acc);  // dK += dS^T.Q_s
-      __syncthreads();  // before the next tile restages
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = c0 + ty * 4 + i;
-    if (key >= Skv) continue;
-    float* dkr = dk + (bkv * Skv + key) * D;
-    float* dvr = dv + (bkv * Skv + key) * D;
-#pragma unroll
-    for (int e = 0; e < DV; ++e) {
-      dkr[tx + 16 * e] = dk_acc[i][e];
-      dvr[tx + 16 * e] = dv_acc[i][e];
-    }
-  }
+flash_dkv_kernel(const BwdArgs a, const FloatKV<T, D> kv) {
+  mfa::dkv_body<T, D>(a, kv);
 }
 
 // ---------------------------------------------------------------------------
@@ -528,23 +262,39 @@ int launch_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// dQ (out0 = dQ, out1 = dbias or null) or dK/dV (out0 = dK, out1 = dV).
+template <typename T, int D, bool DQ>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* di, const void* ranges,
+               const void* bias, long long sb, long long sh, void* out0,
+               void* out1, Shape sp, float scale, cudaStream_t stream) {
+  const BwdArgs a{q, dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(di),
+                  static_cast<const int32_t*>(ranges),
+                  static_cast<const float*>(bias), sb, sh, nullptr, nullptr,
+                  nullptr, static_cast<float*>(out0),
+                  static_cast<float*>(out1), sp.Hq, sp.Hkv, sp.Sq, sp.Skv,
+                  sp.interleaved, scale};
+  const FloatKV<T, D> kv{static_cast<const T*>(k), static_cast<const T*>(v),
+                         sp.Skv};
+  const size_t smem = (DQ ? mfa::dq_smem_floats<D>()
+                          : mfa::dkv_smem_floats<D>()) * sizeof(float);
+  auto kern = DQ ? &flash_dq_kernel<T, D> : &flash_dkv_kernel<T, D>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = DQ ? (sp.Sq + BM - 1) / BM : (sp.Skv + BN - 1) / BN;
+  kern<<<dim3(tiles, DQ ? sp.Hq : sp.Hkv, sp.B), THREADS, smem, stream>>>(a,
+                                                                          kv);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* di, const void* ranges,
               const void* bias, long long sb, long long sh, void* dq,
               void* dbias, Shape sp, float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  auto kern = flash_dq_kernel<T, D>;
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((sp.Sq + BM - 1) / BM, sp.Hq, sp.B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int32_t*>(ranges), static_cast<const float*>(bias),
-      sb, sh, static_cast<float*>(dq), static_cast<float*>(dbias), sp.Hq,
-      sp.Hkv, sp.Sq, sp.Skv, sp.interleaved, scale);
-  return (int)cudaGetLastError();
+  return launch_bwd<T, D, true>(q, k, v, dout, lse, di, ranges, bias, sb, sh,
+                                dq, dbias, sp, scale, stream);
 }
 
 template <typename T, int D>
@@ -553,19 +303,8 @@ int launch_dkv(const void* q, const void* k, const void* v,
                const void* ranges, const void* bias, long long sb,
                long long sh, void* dk, void* dv, Shape sp, float scale,
                cudaStream_t stream) {
-  const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  auto kern = flash_dkv_kernel<T, D>;
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((sp.Skv + BN - 1) / BN, sp.Hkv, sp.B), THREADS, smem,
-         stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int32_t*>(ranges), static_cast<const float*>(bias),
-      sb, sh, static_cast<float*>(dk), static_cast<float*>(dv), sp.Hq,
-      sp.Hkv, sp.Sq, sp.Skv, sp.interleaved, scale);
-  return (int)cudaGetLastError();
+  return launch_bwd<T, D, false>(q, k, v, dout, lse, di, ranges, bias, sb,
+                                 sh, dk, dv, sp, scale, stream);
 }
 
 // Returns LAUNCH<T, D>(args...) for the runtime dtype (0 = float32,

@@ -58,22 +58,29 @@
 
 #include "attention_tiles.cuh"
 #include "common.cuh"
+#include "quantized_tiles.cuh"
 
 namespace {
 
 using mfa::BM;
 using mfa::BN;
 using mfa::Elem;
+using mfa::KVOperand;
 using mfa::LD;
 using mfa::LN2;
 using mfa::LOG2E;
 using mfa::THREADS;
 using mfa::accumulate_pm;
 using mfa::key_span;
+using mfa::round_bf16;
 using mfa::row_range;
 using mfa::set_smem;
+using mfa::stage_kv;
+using mfa::stage_kv_words;
+using mfa::stage_words;
 using mfa::store_t;
 using mfa::tile_product;
+using mfa::tile_product_i8;
 
 enum KScales { K_NONE = 0, K_TOKEN = 1, K_BLOCK2D = 2, K_COLUMN = 3 };
 enum VScales { V_TOKEN = 1, V_BLOCK2D = 2, V_P = 3, V_STORE = 4 };
@@ -101,74 +108,6 @@ struct Args {
   float mask_value;
 };
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return Elem<__nv_bfloat16>::round(x);
-}
-
-// Values [4w, 4w + 4) of one payload row of D values as an int32 word of
-// four int8: int8 rows as they are; int4 rows from the four bytes whose
-// low (values < D/2) or high nibbles hold them, minus 8 per byte.
-template <int D>
-__device__ __forceinline__ int load_word(const uint8_t* row, int w, int bits) {
-  const int e = 4 * w;
-  if (bits == 8) return *reinterpret_cast<const int*>(row + e);
-  constexpr int H = D / 2;
-  const unsigned u =
-      *reinterpret_cast<const unsigned*>(row + (e < H ? e : e - H));
-  const unsigned nib = e < H ? (u & 0x0F0F0F0Fu) : ((u >> 4) & 0x0F0F0F0Fu);
-  return (int)__vsub4(nib, 0x08080808u);
-}
-
-__device__ __forceinline__ float byte_of(int word, int e) {
-  return (float)(signed char)((word >> (8 * e)) & 0xFF);
-}
-
-// Stage payload rows [t0, t0 + 64) of kv head `head` (zeros from `limit`)
-// transposed into dst[d * LD + r] as fp32: the integer values, or
-// dequantized and rounded to the compute dtype for TOKEN / BLOCK2D.
-template <int D>
-__device__ __forceinline__ void stage_kv(const Args& a, const uint8_t* pay,
-                                         const float* sc, const float* zp,
-                                         int bits, int mode, size_t head,
-                                         int t0, int limit, float* dst) {
-  constexpr int W = D / 4;
-  const size_t row_bytes = bits == 8 ? D : D / 2;
-  const bool rb = a.flags & ROUND_BF16;
-  for (int i = threadIdx.x; i < 64 * W; i += THREADS) {
-    const int r = i / W;
-    const int w = i % W;
-    const int t = t0 + r;
-    float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (t < limit) {
-      const int word =
-          load_word<D>(pay + (head * a.Skv + t) * row_bytes, w, bits);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) f[e] = byte_of(word, e);
-      if (mode == K_TOKEN) {  // == V_TOKEN
-        const float s = sc[head * a.Skv + t];
-        const float z = zp[head * a.Skv + t];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = __fmul_rn(f[e] - z, s);
-          f[e] = rb ? round_bf16(x) : x;
-        }
-      } else if (mode == K_BLOCK2D) {  // == V_BLOCK2D
-        const size_t cell =
-            (head * (a.Skv / a.br) + t / a.br) * (size_t)(D / a.bs);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const size_t c = cell + (4 * w + e) / a.bs;
-          const float s = sc[c];
-          const float x = __fmul_rn(f[e], s) - __fmul_rn(zp[c], s);
-          f[e] = rb ? round_bf16(x) : x;
-        }
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[(4 * w + e) * LD + r] = f[e];
-  }
-}
-
 // Stage Q rows [r0, r0 + 64) of one head (zeros from Sq) transposed into
 // dst[d * LD + r] as fp32; rows `sr` elements apart.
 template <typename T, int D>
@@ -190,61 +129,6 @@ __device__ __forceinline__ void stage_q(const T* qh, long long sr, int r0,
     }
 #pragma unroll
     for (int e = 0; e < E::VEC; ++e) dst[(c * E::VEC + e) * LD + r] = f[e];
-  }
-}
-
-// int8 rows [r0, r0 + 64) (zeros from `limit`) as transposed words
-// dst[w * LD + r]: Q rows `sr` bytes apart, or payload rows of a kv head.
-template <int D>
-__device__ __forceinline__ void stage_q_words(const int8_t* qh, long long sr,
-                                              int r0, int Sq, int* dst) {
-  constexpr int W = D / 4;
-  for (int i = threadIdx.x; i < 64 * W; i += THREADS) {
-    const int r = i / W;
-    const int w = i % W;
-    dst[w * LD + r] =
-        r0 + r < Sq
-            ? *reinterpret_cast<const int*>(qh + (r0 + r) * sr + 4 * w)
-            : 0;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void stage_kv_words(const Args& a,
-                                               const uint8_t* pay, int bits,
-                                               size_t head, int t0, int limit,
-                                               int* dst) {
-  constexpr int W = D / 4;
-  const size_t row_bytes = bits == 8 ? D : D / 2;
-  for (int i = threadIdx.x; i < 64 * W; i += THREADS) {
-    const int r = i / W;
-    const int w = i % W;
-    const int t = t0 + r;
-    dst[w * LD + r] =
-        t < limit ? load_word<D>(pay + (head * a.Skv + t) * row_bytes, w, bits)
-                  : 0;
-  }
-}
-
-// acc[i][j] = sum_w dp4a(a[w][ay*4 + i], b[w][bx*4 + j]) over word tiles.
-template <int D>
-__device__ __forceinline__ void tile_product_i8(const int* a, int ay,
-                                                const int* b, int bx,
-                                                int (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-#pragma unroll 4
-  for (int w = 0; w < D / 4; ++w) {
-    const int4 x = *reinterpret_cast<const int4*>(a + w * LD + ay * 4);
-    const int4 y = *reinterpret_cast<const int4*>(b + w * LD + bx * 4);
-    const int xv[4] = {x.x, x.y, x.z, x.w};
-    const int yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(xv[i], yv[j], acc[i][j]);
   }
 }
 
@@ -284,8 +168,8 @@ __device__ __forceinline__ void qattn_body(const Args& a) {
   const bool p_int8 = a.flags & P_INT8;
 
   if constexpr (QINT) {
-    stage_q_words<D>(static_cast<const int8_t*>(a.q) + qoff, a.q_sr, r0,
-                     a.Sq, reinterpret_cast<int*>(qt));
+    stage_words<D>(static_cast<const int8_t*>(a.q) + qoff, a.q_sr, r0, a.Sq,
+                   reinterpret_cast<int*>(qt));
   } else {
     stage_q<QT, D>(static_cast<const QT*>(a.q) + qoff, a.q_sr, r0, a.Sq, qt);
   }
@@ -309,7 +193,7 @@ __device__ __forceinline__ void qattn_body(const Args& a) {
   for (int t0 = c_lo; t0 < c_hi; t0 += BN) {
     float s[4][4];
     if constexpr (QINT) {
-      stage_kv_words<D>(a, a.kq, a.bits_k, bk, t0, c_hi,
+      stage_kv_words<D>(a.kq, a.bits_k, bk, a.Skv, t0, c_hi,
                         reinterpret_cast<int*>(kvt));
       __syncthreads();
       int si[4][4];
@@ -320,13 +204,14 @@ __device__ __forceinline__ void qattn_body(const Args& a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = (float)si[i][j] * qsr[i];
     } else {
-      stage_kv<D>(a, a.kq, a.ks, a.kz, a.bits_k, a.k_scales, bk, t0, c_hi,
-                  kvt);
+      stage_kv<D>(KVOperand{a.kq, a.ks, a.kz, a.bits_k, a.k_scales}, bk,
+                  a.Skv, a.br, a.bs, rb, t0, c_hi, kvt);
       __syncthreads();
       tile_product<D>(qt, ty, kvt, tx, s);
     }
     __syncthreads();  // every thread is done with K^T
-    stage_kv<D>(a, a.vq, a.vs, a.vz, a.bits_v, a.v_scales, bk, t0, c_hi, kvt);
+    stage_kv<D>(KVOperand{a.vq, a.vs, a.vz, a.bits_v, a.v_scales}, bk, a.Skv,
+                a.br, a.bs, rb, t0, c_hi, kvt);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

@@ -1,6 +1,10 @@
-"""Quantized flash attention forward: int8 / packed-int4 K/V.
+"""Quantized flash attention: int8 / packed-int4 K/V.
 
-The port of the JAX package's ``ops/quantized_attention.py`` forward.  K and
+The port of the JAX package's ``ops/quantized_attention.py``: the forward
+below, and the differentiable :func:`quantized_flash_attention` (its
+backward in ``ops/flash_attention_bwd.py``, chained here into the K/V
+scale and zero-point cotangents) and :func:`quantized_flash_attention_qat`
+at the end.  K and
 V are :class:`QuantizedTensor` s ``[B, Hkv, Skv, D]``; Q stays float unless
 ``quantize_q``.  The mode selection, its errors, Q's pre-scaling and
 quantization are the JAX package's; the mode decides what the kernel does
@@ -35,8 +39,11 @@ table covers every mask.  What they did to the numbers is kept:
   unrounded p; with ``int8_pv`` the int8 P (``+0.5`` then truncation) or
   the unrounded ``127·2^(s−m)``, and L drops ln 127.
 
-The plain versions take the softmax in one pass; the kernels take it
-online over 64-key tiles, so P rounds against the running row max there.
+The kernels take the softmax online over 64-key tiles, so P rounds
+against the running row max, as the TPU kernel's does over its tiles.  The
+plain versions take it in one pass, or with ``kv_tile`` over the same
+tiles as a kernel; for the int8 P of ``int8_pv`` at thousands of keys the
+two differ by ~0.1 of O's max abs.
 """
 
 from __future__ import annotations
@@ -77,13 +84,19 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     unpack_int4_tile_int8,
 )
 from metal_flash_attention_plus_tpu_torch.quant.params import (
+    QuantConfig,
     QuantGranularity,
     QuantStrategy,
 )
-from metal_flash_attention_plus_tpu_torch.quant.tensor import QuantizedTensor
+from metal_flash_attention_plus_tpu_torch.quant.tensor import (
+    QuantizedTensor,
+    dequantize,
+    quantize,
+)
 
 LOG2_127 = float(np.log2(127.0))
 LN_127 = float(np.log(127.0))
+KV_TILE = 64  # the kernels' query rows and keys per tile (BM, BN)
 
 K_SCALES = {"none": 0, "token": 1, "block2d": 2, "column": 3}
 V_SCALES = {"token": 1, "block2d": 2, "p": 3, "store": 4}
@@ -132,8 +145,9 @@ class QAttnMode:
 
 def _kv_values(payload, scale, zp, mode_scales, bits, d, block,
                compute_dtype):
-    """fp32 [B, Hkv, Skv, D] values the kernel stages: dequantized and
-    rounded for "token" / "block2d", the integers otherwise."""
+    """fp32 [B, Hkv, Skv, D] values the kernels stage: dequantized and
+    rounded for "token" / "block2d" / "channel" (``w·s``, scales
+    [B, Hkv, D]), the integers otherwise."""
     if mode_scales == "token":
         return dequant_kv_vals(payload, scale[..., None], zp[..., None], d,
                                bits, compute_dtype).float()
@@ -142,8 +156,32 @@ def _kv_values(payload, scale, zp, mode_scales, bits, d, block,
                                    payload.device)
         return dequant_block2d_vals(payload, scale, zp, er, ec, d, bits,
                                     compute_dtype).float()
-    return (unpack_int4_tile_int8(payload, d) if bits == 4
-            else payload).float()
+    w = (unpack_int4_tile_int8(payload, d) if bits == 4 else payload).float()
+    if mode_scales == "channel":
+        return (w * scale[:, :, None, :]).to(compute_dtype).float()
+    return w
+
+
+def _running_max(s: torch.Tensor, row_ranges: torch.Tensor,
+                 kv_tile: int) -> torch.Tensor:
+    """Each score's row max over the key tiles up to its own, as the kernel
+    walks them: a block of ``KV_TILE`` query rows takes ``kv_tile``-key
+    tiles from the block's first live key (key 0 under FULL and CAUSAL,
+    where the TPU kernel's tiles start too)."""
+    sq, skv = s.shape[-2:]
+    start = row_ranges[:, 0].long().clamp_min(0)
+    live = row_ranges[:, 1].long().clamp(max=skv) > start
+    start = torch.where(live, start, torch.full_like(start, skv))
+    blocks = -(-sq // KV_TILE)
+    lo = torch.nn.functional.pad(start, (0, blocks * KV_TILE - sq),
+                                 value=skv).view(blocks, KV_TILE).amin(1)
+    lo = lo.repeat_interleave(KV_TILE)[:sq, None]
+    col = torch.arange(skv, device=s.device)
+    # Keys before the block's first live key are masked for all its rows.
+    tile = ((col - lo).clamp_min(0) // kv_tile).expand_as(s)
+    tile_max = torch.full((*s.shape[:-1], -(-skv // kv_tile)), -float("inf"),
+                          device=s.device).scatter_reduce(-1, tile, s, "amax")
+    return tile_max.cummax(-1).values.gather(-1, tile)
 
 
 def qattn_fwd_plain(
@@ -159,9 +197,14 @@ def qattn_fwd_plain(
     bias: Optional[torch.Tensor] = None,
     interleaved_kv: bool = False,
     mask_value: float = DEFAULT_MASK_VALUE,
+    kv_tile: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`qattn_fwd`: the same values, the
-    same roundings, the softmax in one pass."""
+    same roundings, the softmax in one pass.  ``kv_tile``: round P against
+    the running row max over tiles of that many keys and rescale, as an
+    online softmax does (``KV_TILE``: the kernel's tiles).  That changes
+    what the int8 P of ``p_int8`` rounds to; over thousands of keys it
+    moves O by ~0.1 of its max abs from the one-pass values."""
     hq, d = q.shape[1], q.shape[3]
     hkv, skv = kq.shape[1], kq.shape[2]
     cd = torch.bfloat16 if mode.round_bf16 else torch.float32
@@ -184,14 +227,21 @@ def qattn_fwd_plain(
     keep, live = range_mask(row_ranges, skv)
     s = torch.where(keep, s, torch.full_like(s, mask_value))
     m = s.amax(dim=-1, keepdim=True)
+    m_run = m
+    if kv_tile is not None:  # a row's -inf prefix adds nothing, as on-chip
+        m_run = _running_max(s, row_ranges, kv_tile)
+        m_run = torch.where(torch.isinf(m_run), m, m_run)
     if mode.p_int8:
-        raw = torch.exp2(s + (LOG2_127 - m))
+        raw = torch.exp2(s + (LOG2_127 - m_run))
         p = torch.floor(raw + 0.5)
     else:
-        raw = p = torch.exp2(s - m)
+        raw = p = torch.exp2(s - m_run)
         if mode.v_scales == "p":
             p = p * per_head(v_params[0])[:, :, None, :]
         p = p.to(cd).float()
+    if kv_tile is not None:  # earlier tiles rescaled to the final max
+        rescale = torch.exp2(m_run - m)
+        raw, p = raw * rescale, p * rescale
     lsum = (p if mode.l_rounded else raw).sum(dim=-1, keepdim=True)
     o = (p @ v) / lsum
     if mode.v_scales == "store":
@@ -222,7 +272,7 @@ def _scale_shapes(mode_scales, b, hkv, skv, d, block):
         return cell, cell
     if mode_scales in ("column", "p"):
         return tok, None
-    if mode_scales == "store":
+    if mode_scales in ("store", "channel"):
         return (b, hkv, d), None
     return None, None
 
@@ -256,7 +306,7 @@ def check_qattn_inputs(name, q, q_scales, kq, vq, k_params, v_params,
     _check_payload(name, vq, mode.bits_v, b, hkv, skv, d)
     if (q.dtype == torch.int8) != (q_scales is not None):
         raise TypeError(f"{name}: an int8 Q needs its scales, a float Q none")
-    tensors = [q, kq, vq, row_ranges]
+    tensors = [q, kq, vq]
     if q_scales is not None:
         if q_scales.dtype != torch.float32 or q_scales.shape != (b, hq, sq):
             raise TypeError(f"{name}: Q scales must be fp32 [B, Hq, Sq]")
@@ -274,8 +324,19 @@ def check_qattn_inputs(name, q, q_scales, kq, vq, k_params, v_params,
                 raise TypeError(f"{name}: {scales} scales must be fp32 "
                                 f"{shape}, got {t.dtype} {tuple(t.shape)}")
             tensors.append(t)
+    check_placement(name, dev, tensors, (q, kq, vq), row_ranges, bias,
+                    (b, hq, sq, skv))
+
+
+def check_placement(name, dev, tensors, aligned, row_ranges, bias, dims):
+    """Raise unless the row-range table is int32 [Sq, 2], the bias fp32
+    [1 or B, 1 or Hq, Sq, Skv] or None, every tensor (and those two)
+    contiguous on ``dev``, and each of ``aligned`` 16-byte aligned;
+    ``dims`` = (B, Hq, Sq, Skv)."""
+    b, hq, sq, skv = dims
     if row_ranges.dtype != torch.int32 or row_ranges.shape != (sq, 2):
         raise ValueError(f"{name}: row ranges must be int32 [Sq, 2]")
+    tensors = [*tensors, row_ranges]
     if bias is not None:
         if (bias.dtype != torch.float32 or bias.dim() != 4
                 or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, hq)
@@ -288,10 +349,10 @@ def check_qattn_inputs(name, q, q_scales, kq, vq, k_params, v_params,
             raise ValueError(f"{name}: all tensors must be on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    for t in (q, kq, vq):
+    for t in aligned:
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: Q and the payloads must be 16-byte "
-                             "aligned")
+            raise ValueError(f"{name}: Q, dO and the payloads must be "
+                             "16-byte aligned")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -748,26 +809,113 @@ def quantized_flash_attention_forward(
 
 
 # ---------------------------------------------------------------------------
-# Differentiable wrapper (the forward only, in this slice)
+# Differentiable wrapper: gradients to q, bias and the K/V scales and zero
+# points; the integer payloads are data
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class _KVMeta:
+    config_k: QuantConfig
+    config_v: QuantConfig
+    shape: Tuple[int, ...]
+
+
+def _flatten_kv(k: QuantizedTensor, v: QuantizedTensor):
+    """The six tensors autograd sees, and what rebuilds K/V from them."""
+    flat = (k.data, k.scale, k.zero_point, v.data, v.scale, v.zero_point)
+    return flat, _KVMeta(k.config, v.config, tuple(k.shape))
+
+
+def _rebuild_kv(flat, meta: _KVMeta):
+    kd, ks, kz, vd, vs, vz = flat
+    return (QuantizedTensor(data=kd, scale=ks, zero_point=kz, sums=None,
+                            config=meta.config_k, shape=meta.shape),
+            QuantizedTensor(data=vd, scale=vs, zero_point=vz, sums=None,
+                            config=meta.config_v, shape=meta.shape))
+
+
+def _scale_zp_cotangents(dxdeq: torch.Tensor, qt: QuantizedTensor):
+    """Exact cotangents of X = (w − zp)·scale with respect to (scale, zp),
+    from the gradient with respect to the dequantized X: dscale =
+    Σ_cell dX ⊙ (w − zp), dzp = −Σ_cell dX ⊙ scale; (w − zp) is recovered
+    as X / scale, so an int4 payload needs no unpacking.  An integer zero
+    point gets None."""
+    dx = dxdeq.float()
+    deq = dequantize(qt)
+    g = qt.config.granularity
+    b, h, s, d = qt.shape
+    if g == QuantGranularity.BLOCK_2D:
+        br, bs = qt.config.block_rows, qt.config.block_size
+        scale_el = qt.scale.float().repeat_interleave(br, dim=2)
+        scale_el = scale_el.repeat_interleave(bs, dim=3)
+    elif g == QuantGranularity.CHANNEL:
+        scale_el = qt.scale.float()  # [B, H, 1, D]
+    else:
+        scale_el = _per_token_params(qt)[0][..., None]  # [B, H, S, 1]
+    ds_cells = dx * (deq / scale_el)
+    dz_cells = -dx * scale_el
+    if g == QuantGranularity.ROW:
+        red = dict(dim=-1)
+    elif g == QuantGranularity.CHANNEL:
+        red = dict(dim=-2, keepdim=True)
+    elif g == QuantGranularity.BLOCK_2D:
+        ds_cells = ds_cells.reshape(b, h, s // br, br, d // bs, bs)
+        dz_cells = dz_cells.reshape(b, h, s // br, br, d // bs, bs)
+        red = dict(dim=(3, 5))
+    else:  # TENSOR
+        red = dict(dim=tuple(range(4)))
+    dscale = ds_cells.sum(**red).reshape(qt.scale.shape)
+    dzp = dz_cells.sum(**red).reshape(qt.zero_point.shape)
+    return (dscale.to(qt.scale.dtype),
+            None if not qt.zero_point.is_floating_point()
+            else dzp.to(qt.zero_point.dtype))
+
+
 class _QuantizedFlashAttention(torch.autograd.Function):
-    """``custom_vjp`` analog: the forward kernel; the backward (the
-    dequantizing dQ / dK/dV kernels and the scale / zero-point cotangents)
-    belongs to the quantized-backward slice of the port."""
+    """``custom_vjp`` analog.  Autograd sees the K/V payloads, scales and
+    zero points as six tensors, so ``torch.autograd.grad`` reaches a scale
+    tensor put into a :class:`QuantizedTensor` (``dataclasses.replace(kq,
+    scale=s)``).  Backward: the quantized dQ and dK/dV kernels (exact, or
+    the full-integer pair with ``bwd_fullint``), dK/dV with respect to the
+    dequantized K/V chained into the scale and zero-point cotangents."""
 
     @staticmethod
-    def forward(ctx, q, bias, k, v, kw):
-        o, _ = quantized_flash_attention_forward(q, k, v, bias=bias, **kw)
+    def forward(ctx, q, bias, kd, ks, kz, vd, vs, vz, meta, kw):
+        k, v = _rebuild_kv((kd, ks, kz, vd, vs, vz), meta)
+        fwd = {n: kw[n] for n in ("mask", "scale", "interleaved_kv",
+                                  "mask_value", "hadamard_block",
+                                  "quantize_q")}
+        o, lse = quantized_flash_attention_forward(q, k, v, bias=bias, **fwd)
+        ctx.save_for_backward(q, bias, kd, ks, kz, vd, vs, vz, o, lse)
+        ctx.meta, ctx.kw = meta, kw
         return o.to(q.dtype)
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "the backward of quantized_flash_attention (dequantizing dQ and "
-            "dK/dV kernels, scale and zero-point cotangents) is not ported "
-            "yet: it belongs to the quantized-backward slice")
+        from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (  # noqa: E501
+            flash_attention_backward,
+        )
+
+        q, bias, *flat, o, lse = ctx.saved_tensors
+        k, v = _rebuild_kv(flat, ctx.meta)
+        kw, hb = ctx.kw, ctx.kw["hadamard_block"]
+        q_in = q
+        if hb:
+            # The payloads are rotated: the backward runs in that basis.
+            q_in, o, do = (hadamard_transform(t, hb) for t in (q, o, do))
+        dq, dk, dv, dbias = flash_attention_backward(
+            q_in, k, v, o, lse, do, mask=kw["mask"], bias=bias,
+            scale=kw["scale"], block_sizes=kw["block_sizes"],
+            interleaved_kv=kw["interleaved_kv"],
+            compute_dbias=bias is not None, fullint=kw["bwd_fullint"])
+        if hb:
+            dq = hadamard_transform(dq, hb)
+        dks, dkz = _scale_zp_cotangents(dk, k)
+        dvs, dvz = _scale_zp_cotangents(dv, v)
+        return (dq.to(q.dtype),
+                None if dbias is None else dbias.to(bias.dtype),
+                None, dks, dkz, None, dvs, dvz, None, None)
 
 
 def quantized_flash_attention(
@@ -783,11 +931,74 @@ def quantized_flash_attention(
     mask_value: float = DEFAULT_MASK_VALUE,
     hadamard_block: Optional[int] = None,
     quantize_q: bool = False,
+    bwd_fullint: bool = False,
 ) -> torch.Tensor:
-    """Quantized-KV flash attention as a ``torch.autograd.Function``;
-    returns O in q's dtype.  Its backward raises NotImplementedError until
-    the quantized-backward slice is ported."""
-    kw = dict(mask=mask, scale=scale, block_sizes=block_sizes,
+    """Differentiable quantized-KV flash attention; returns O in q's dtype.
+
+    Gradients: dq, dbias, and exact cotangents for the K/V ``scale`` and
+    float ``zero_point`` tensors (through the dequantizing dK/dV kernel);
+    the integer payloads get none.  ``quantize_q``: the forward's int8-Q
+    pipeline.  ``bwd_fullint``: the full-integer backward kernels where
+    ``fullint_backward_supported`` (approximate: per-token int8 Q and dO;
+    its level 2 reads ``block_sizes``); other configurations take the
+    exact kernels."""
+    if scale is None:
+        scale = float(q.shape[-1]) ** -0.5
+    flat, meta = _flatten_kv(k, v)
+    kw = dict(mask=mask, scale=float(scale), block_sizes=block_sizes,
               interleaved_kv=interleaved_kv, mask_value=mask_value,
-              hadamard_block=hadamard_block, quantize_q=quantize_q)
-    return _QuantizedFlashAttention.apply(q, bias, k, v, kw)
+              hadamard_block=hadamard_block, quantize_q=quantize_q,
+              bwd_fullint=bwd_fullint)
+    return _QuantizedFlashAttention.apply(q, bias, *flat, meta, kw)
+
+
+# ---------------------------------------------------------------------------
+# QAT: float K/V masters, quantized compute, straight-through dK/dV
+# ---------------------------------------------------------------------------
+
+
+class _QuantizedAttentionQAT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, config, kw):
+        kq, vq = quantize(k, config), quantize(v, config)
+        o, lse = quantized_flash_attention_forward(q, kq, vq, **kw)
+        ctx.save_for_backward(q, o, lse)
+        ctx.kv, ctx.kw, ctx.dtypes = (kq, vq), kw, (k.dtype, v.dtype)
+        return o.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (  # noqa: E501
+            flash_attention_backward,
+        )
+
+        q, o, lse = ctx.saved_tensors
+        kw = ctx.kw
+        dq, dk, dv, _ = flash_attention_backward(
+            q, *ctx.kv, o, lse, do, mask=kw["mask"], scale=kw["scale"],
+            block_sizes=kw["block_sizes"],
+            interleaved_kv=kw["interleaved_kv"])
+        # STE: the gradients with respect to the dequantized K/V pass
+        # through the quantization to the float masters unchanged.
+        return (dq.to(q.dtype), dk.to(ctx.dtypes[0]), dv.to(ctx.dtypes[1]),
+                None, None)
+
+
+def quantized_flash_attention_qat(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    config: QuantConfig = QuantConfig(),
+    mask: MaskSpec = FULL,
+    scale: Optional[float] = None,
+    block_sizes: BlockSizes = BlockSizes(),
+    interleaved_kv: bool = False,
+    mask_value: float = DEFAULT_MASK_VALUE,
+) -> torch.Tensor:
+    """Train-time quantized attention over FLOAT K/V masters: the forward
+    quantizes K/V with ``config`` and runs the quantized forward kernel
+    (the serving numerics); the backward runs the dequantizing dQ and
+    dK/dV kernels and passes dK/dV straight through to the masters."""
+    kw = dict(mask=mask, scale=scale, block_sizes=block_sizes,
+              interleaved_kv=interleaved_kv, mask_value=mask_value)
+    return _QuantizedAttentionQAT.apply(q, k, v, config, kw)

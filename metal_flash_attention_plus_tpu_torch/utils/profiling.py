@@ -1,11 +1,13 @@
-"""Where the serving engine's, the train step's or the fully quantized
-forward's time goes on the card.
+"""Where the serving engine's, the train step's, the fully quantized
+forward's or the quantized fwd+bwd's time goes on the card.
 
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling [--seed N]
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --quantized 8
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --train
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --quantized-attention packed
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
+        --quantized-backward fullint
 
 Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
 phase (:func:`smoke_requests` on the flagship model with random weights
@@ -27,6 +29,13 @@ quantize_kv=True)`` of W8A8 weights on 2 × 2048 seeded tokens, as in
 int8-Q scores: one call to warm up, the wall time of 3 unprofiled calls,
 then 3 calls under the profiler.
 
+``--quantized-backward fullint`` / ``exact``: one fwd+bwd of the JAX
+package's north-star arm (bench.py: B=4, H=4, S=4096, D=256, FULL, bf16 Q,
+int8 ROW / CHANNEL SYMMETRIC K / V, ``quantize_q=True``), the gradient of
+sum(O·dO) with respect to q and the K/V scales, with the full-integer or
+the exact backward, as in ``chip_smoke.py`` phase 11 (b): one call to warm
+up, the wall time of 3 unprofiled calls, then 3 calls under the profiler.
+
 Prints JSON lines: the phase times and counts, the device's busy time
 (sum of kernel times) and idle share of the profiled wall time, and the
 kernels ranked by device time.  The profiler itself slows the host, so
@@ -36,6 +45,7 @@ the idle share it reads is an upper bound.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -56,10 +66,18 @@ from metal_flash_attention_plus_tpu_torch.models.transformer import (
     make_train_step,
     trainable_parameters,
 )
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    BlockSizes,
+)
+from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
+    quantized_flash_attention,
+)
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantConfig,
     QuantGranularity,
+    QuantStrategy,
 )
+from metal_flash_attention_plus_tpu_torch.quant.tensor import quantize
 from metal_flash_attention_plus_tpu_torch.serving.engine import (
     GenerationRequest,
     ServingEngine,
@@ -76,6 +94,44 @@ def smoke_requests(cfg, seed: int):
         )
         for rid, n in enumerate(rng.integers(100, 1801, 8))
     ]
+
+
+# The JAX package's north-star arm (bench.py run_fwd_bwd_config, the arm
+# fwd_bwd_d256_int8_full): B=4, H=4, S=4096, D=256, FULL, bf16 Q and dO,
+# int8 ROW SYMMETRIC K, int8 CHANNEL SYMMETRIC V, bench.py's block sizes.
+NORTH_STAR_SHAPE = (4, 4, 4096, 256)
+NORTH_STAR_BLOCKS = BlockSizes(
+    block_q=512, block_kv=512, block_kv_major=2048, block_q_dq=1024,
+    block_kv_dq=512, block_kv_dq_major=2048, block_q_dkv=1024,
+    block_kv_dkv=512, block_q_dkv_major=2048)
+
+
+def north_star_inputs(generator: torch.Generator):
+    """bench.py's inputs drawn from ``generator`` on its device: bf16 Q and
+    dO, K and V quantized int8 ROW / CHANNEL SYMMETRIC from fp32."""
+    q, k, v, do = (torch.randn(NORTH_STAR_SHAPE, generator=generator,
+                               device=generator.device) for _ in range(4))
+    sym = QuantStrategy.SYMMETRIC
+    return (q.to(torch.bfloat16),
+            quantize(k, QuantConfig(bits=8, granularity=QuantGranularity.ROW,
+                                    strategy=sym)),
+            quantize(v, QuantConfig(bits=8,
+                                    granularity=QuantGranularity.CHANNEL,
+                                    strategy=sym)),
+            do.to(torch.bfloat16))
+
+
+def north_star_grads(q, kq, vq, do, fullint: bool):
+    """bench.py's loss, sum(O·dO) through ``quantized_flash_attention(...,
+    quantize_q=True, bwd_fullint=fullint)``, differentiated with respect to
+    (q, K scales, V scales), the scales given by ``dataclasses.replace``."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (q, kq.scale, vq.scale)]
+    o = quantized_flash_attention(
+        leaves[0], dataclasses.replace(kq, scale=leaves[1]),
+        dataclasses.replace(vq, scale=leaves[2]),
+        block_sizes=NORTH_STAR_BLOCKS, quantize_q=True, bwd_fullint=fullint)
+    return torch.autograd.grad((o.float() * do.float()).sum(), leaves)
 
 
 def serve_once(cfg, params, seed: int,
@@ -201,6 +257,31 @@ def profile_quantized_attention(cfg, params, seed: int, layout: str,
     return print_profile(prof, prof_wall_s, calls, "call")
 
 
+def profile_quantized_backward(seed: int, arm: str, calls: int = 3) -> int:
+    q, kq, vq, do = north_star_inputs(
+        torch.Generator(device="cuda").manual_seed(seed))
+
+    def run(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            north_star_grads(q, kq, vq, do, arm == "fullint")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(1)  # warm-up: kernel build
+    wall_s = run(calls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall_s = run(calls)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "arm": arm,
+        "shape": list(NORTH_STAR_SHAPE), "calls": calls,
+        "fwd_bwd_s": wall_s / calls,
+        "profiled_fwd_bwd_s": prof_wall_s / calls,
+    }))
+    return print_profile(prof, prof_wall_s, calls, "fwd_bwd")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -211,10 +292,15 @@ def main() -> int:
                     "weights over an int4 pool (4)")
     ap.add_argument("--quantized-attention", choices=("packed", "unpacked"),
                     help="profile quantized_forward(quantize_kv=True)")
+    ap.add_argument("--quantized-backward", choices=("fullint", "exact"),
+                    help="profile the north-star quantized fwd+bwd with the "
+                    "full-integer or the exact backward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profiling: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.quantized_backward:
+        return profile_quantized_backward(args.seed, args.quantized_backward)
     cfg = TransformerConfig()
     params = init_params(cfg, torch.Generator().manual_seed(args.seed))
     if args.train:

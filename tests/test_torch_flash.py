@@ -21,6 +21,8 @@ import pytest
 import torch
 
 from metal_flash_attention_plus_tpu.attention import masking as jm
+from metal_flash_attention_plus_tpu.quant import params as jparams
+from metal_flash_attention_plus_tpu.quant import tensor as jtensor
 from metal_flash_attention_plus_tpu.reference import attention as jref
 from metal_flash_attention_plus_tpu_torch.attention import masking as tm
 from metal_flash_attention_plus_tpu_torch.attention.precisions import (
@@ -30,6 +32,8 @@ from metal_flash_attention_plus_tpu_torch.ops import flash_attention as tfa
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_backward,
 )
+from metal_flash_attention_plus_tpu_torch.quant import params as tparams
+from metal_flash_attention_plus_tpu_torch.quant import tensor as ttensor
 from metal_flash_attention_plus_tpu_torch.reference import (
     attention as tref,
 )
@@ -244,12 +248,34 @@ def test_lse_output_has_no_gradient_and_out_dtype():
 
 
 def test_unported_options_raise():
+    """``row_max`` is not ported; ``fullint=True`` over float K/V takes the
+    exact kernels (the full-integer backward needs quantized K/V), giving
+    ``fullint=False``'s gradients bit for bit, as in the JAX package; and
+    quantized K/V run, matching the JAX package's backward over them."""
     q, k, v, do, _ = _inputs("causal_gqa", seed=7)
     tq, tk, tv, tdo = _torch(q, k, v, do)
     with pytest.raises(NotImplementedError):
         tfa.flash_attention_forward(tq, tk, tv, row_max="estimate")
     o, lse = tfa.flash_attention_forward(tq, tk, tv)
-    with pytest.raises(NotImplementedError):
-        flash_attention_backward(tq, tk, tv, o, lse, tdo, fullint=True)
-    with pytest.raises(NotImplementedError):
-        flash_attention_backward(tq, object(), object(), o, lse, tdo)
+    exact = flash_attention_backward(tq, tk, tv, o, lse, tdo)
+    for a, b in zip(exact[:3], flash_attention_backward(
+            tq, tk, tv, o, lse, tdo, fullint=True)[:3]):
+        assert torch.equal(a, b)
+    tcfg = tparams.QuantConfig(bits=8)
+    kq, vq = ttensor.quantize(tk, tcfg), ttensor.quantize(tv, tcfg)
+
+    def to_jax(t):
+        return jtensor.QuantizedTensor(
+            data=jnp.asarray(t.data.numpy()),
+            scale=jnp.asarray(t.scale.numpy()),
+            zero_point=jnp.asarray(t.zero_point.numpy()), sums=None,
+            config=jparams.QuantConfig(bits=8), shape=t.shape)
+
+    got = flash_attention_backward(tq, kq, vq, o, lse, tdo, fullint=True)
+    with jax.default_matmul_precision("highest"):
+        want = jbwd.flash_attention_backward(
+            jnp.asarray(q), to_jax(kq), to_jax(vq), jnp.asarray(o.numpy()),
+            jnp.asarray(lse.numpy()), jnp.asarray(do), block_sizes=JBS,
+            fullint=True)
+    for g, w in zip(got[:3], want[:3]):
+        assert _rel(g.numpy(), w) <= TOL

@@ -23,6 +23,8 @@ bf16 P) against the running row max in the kernel and the final one in the
 plain version.  The runtime quantization kernels are held bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     flash_fwd,
     row_ranges_tensor,
 )
+from metal_flash_attention_plus_tpu_torch.ops import flash_attention_bwd as fbwd
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_dkv_plain,
     flash_attention_dq_plain,
@@ -470,6 +473,9 @@ QATTN_CASES = {
                             masking.FULL, QQ),
     "int8_pv_int4_v": (1, 4, 2, 160, 160, 64, ROW8, CH4, BF16,
                        masking.CAUSAL, QQ),
+    # The north-star fwd+bwd's forward: int8 Q and P, ROW K / CHANNEL V.
+    "int8_pv_channel_d256_full": (1, 2, 2, 128, 128, 256, ROW8, CH8, BF16,
+                                  masking.FULL, QQ),
     "folded_tensor": (2, 8, 2, 200, 200, 64, TEN8, CH8, BF16, masking.CAUSAL,
                       {}),
     "folded_channel_interleaved": (1, 8, 2, 128, 128, 64, CH8, TEN8, BF16,
@@ -523,7 +529,7 @@ def test_qattn_kernel_matches_plain(cuda_device, name):
     o, lse = qa.qattn_fwd(*args, **kw)
     torch.cuda.synchronize()
     assert qa.qattn_fwd.launches == n + 1
-    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw)
+    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw, kv_tile=qa.KV_TILE)
     tol_o, tol_l = _qattn_tols(dtype, kw["mode"].p_int8)
     assert o.dtype == torch.float32 and o.shape == o_ref.shape
     assert _rel(o, o_ref) <= tol_o
@@ -584,6 +590,194 @@ def test_quantized_attention_kernels_reject_what_they_do_not_take(
                               rr, None, kw["mode"])
     with pytest.raises(ValueError):  # not the packed d=64 layout
         qa.hpack_fwd(q, kd, vd, vp[0], rr, bits_k=8, bits_v=8)
+
+
+# --------------------------------------------------------------------------
+# The quantized backward kernels
+# --------------------------------------------------------------------------
+
+QBWD_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, K config, V config, Q dtype, mask,
+    #        options)
+    "dequant_row8c": (2, 8, 2, 200, 200, 64, ROW8C, ROW8C, BF16,
+                      masking.CAUSAL, {}),
+    "dequant_row4c_f32": (1, 4, 2, 130, 130, 64, ROW4C, ROW4C, F32,
+                          masking.CAUSAL, {}),
+    "dequant_tensor_f32_full": (1, 4, 2, 90, 170, 64, TEN8, TEN8, F32,
+                                masking.FULL, {}),
+    "dequant_k8_v4_f32": (1, 4, 1, 128, 128, 64, ROW8C, ROW4C, F32,
+                          masking.CAUSAL, {}),
+    "folded_tensor": (2, 8, 2, 200, 200, 64, TEN8, CH8, BF16, masking.CAUSAL,
+                      {}),
+    "folded_channel_interleaved": (1, 8, 2, 128, 128, 64, CH8, TEN8, BF16,
+                                   masking.CAUSAL, dict(interleaved_kv=True)),
+    "folded_row_window": (1, 4, 2, 300, 300, 64, ROW8, ROW8, BF16,
+                          masking.sliding_window(96, causal=True), {}),
+    "folded_int4_k": (1, 4, 2, 160, 160, 64, CH4, CH8, BF16, masking.CAUSAL,
+                      {}),
+    "block2d_f32": (1, 4, 2, 128, 128, 64, B2D, B2D, F32, masking.CAUSAL,
+                    {}),
+    "block2d_bf16": (1, 4, 2, 128, 128, 64, B2D, B2D, BF16, masking.CAUSAL,
+                     {}),
+    "bias_dbias": (2, 8, 2, 200, 200, 64, ROW8C, ROW8C, BF16, masking.CAUSAL,
+                   dict(bias=(1, 8, 200, 200))),
+    "d32_full_f32": (1, 4, 4, 70, 90, 32, ROW8C, ROW8C, F32, masking.FULL,
+                     {}),
+    "d128_folded_row": (1, 4, 2, 160, 160, 128, ROW8, ROW8, BF16,
+                        masking.CAUSAL, {}),
+    "d256_f32_full": (1, 2, 1, 96, 96, 256, ROW8C, ROW8C, F32, masking.FULL,
+                      {}),
+    # The north-star's exact arm: folded ROW K / CHANNEL V at D=256.
+    "d256_folded_row_k_channel_v_full": (1, 2, 2, 128, 128, 256, ROW8, CH8,
+                                         BF16, masking.FULL, {}),
+    "ragged_rect": (1, 4, 2, 70, 300, 64, ROW8C, ROW8C, BF16, masking.CAUSAL,
+                    {}),
+}
+
+
+def _bwd_inputs(device, q, kq, vq, mask, seed, **opts):
+    """(dO, L, D) of a quantized forward on the card."""
+    o, lse = qa.quantized_flash_attention_forward(q, kq, vq, mask=mask,
+                                                  **opts)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    do = torch.randn(q.shape, generator=gen, device=device).to(q.dtype)
+    return do, lse, (do.float() * o).sum(dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(QBWD_CASES))
+def test_qflash_kernels_match_plain(cuda_device, name):
+    """The exact quantized dQ and dK/dV kernels (dbias too) against their
+    plain versions, tolerances as the flash kernels'."""
+    b, hq, hkv, sq, skv, d, kcfg, vcfg, dtype, mask, opts = QBWD_CASES[name]
+    q, kq, vq = _qattn_inputs(cuda_device, b, hq, hkv, sq, skv, d, kcfg,
+                              vcfg, dtype)
+    opts = dict(opts)
+    bias = None
+    if "bias" in opts:
+        bias = torch.randn(opts.pop("bias"), device=cuda_device)
+    do, lse, di = _bwd_inputs(cuda_device, q, kq, vq, mask, 1, bias=bias,
+                              **opts)
+    rr = row_ranges_tensor(mask, sq, skv, None, cuda_device)
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.qflash_arguments(
+        q, kq, vq, do, lse, di, rr, bias, scale=d ** -0.5,
+        want_dbias=bias is not None, **opts)
+    n = (fbwd.qflash_dq.launches, fbwd.qflash_dkv.launches)
+    dq, dbias = fbwd.qflash_dq(*dq_a, **dq_kw)
+    dk, dv = fbwd.qflash_dkv(*dkv_a, **dkv_kw)
+    torch.cuda.synchronize()
+    assert (fbwd.qflash_dq.launches, fbwd.qflash_dkv.launches) == (
+        n[0] + 1, n[1] + 1)
+    dq_ref, dbias_ref = fbwd.qflash_dq_plain(*dq_a, **dq_kw)
+    dk_ref, dv_ref = fbwd.qflash_dkv_plain(*dkv_a, **dkv_kw)
+    tol = _tol(dtype)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref),
+                      (dbias, dbias_ref)):
+        if want is None:
+            assert got is None
+            continue
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel(got, want) <= tol, name
+
+
+FULLINT_CASES = {
+    # name: (b, hq, hkv, s, d, K config, V config, level 2 blocks or None,
+    #        interleaved)
+    "row_chan_l1": (1, 4, 2, 256, 128, ROW8, CH8, None, False),
+    "row_chan_l2_w128": (1, 4, 2, 256, 128, ROW8, CH8, 128, False),
+    "tens_tens_l1": (2, 4, 4, 192, 64, TEN8, TEN8, None, False),
+    "tens_tens_l2_w64": (2, 4, 4, 192, 64, TEN8, TEN8, 512, False),
+    "ragged_l2_w8": (1, 4, 2, 200, 64, ROW8, TEN8, 512, False),
+    "d256_l1": (1, 2, 2, 128, 256, ROW8, CH8, None, False),
+    "d32_interleaved_l2": (1, 8, 2, 256, 32, ROW8, CH8, 128, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FULLINT_CASES))
+def test_fullint_kernels_match_plain(cuda_device, name):
+    """The full-integer dQ and dK/dV kernels against their plain versions
+    (bf16 tolerance: dS and P rounded to bf16, or row-quantized to int8
+    over the resolved widths, from fp32 values summed in another order)."""
+    b, hq, hkv, s, d, kcfg, vcfg, blocks, inter = FULLINT_CASES[name]
+    q, kq, vq = _qattn_inputs(cuda_device, b, hq, hkv, s, s, d, kcfg, vcfg,
+                              BF16)
+    assert fbwd.fullint_backward_supported(q, kq, vq, masking.FULL, None,
+                                           None)
+    opts = dict(interleaved_kv=inter)
+    do, lse, di = _bwd_inputs(cuda_device, q, kq, vq, masking.FULL, 2,
+                              quantize_q=True, **opts)
+    bs = fbwd.BlockSizes(**({} if blocks is None else dict(
+        block_kv_dq=blocks, block_q_dkv=blocks)))
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.fullint_arguments(
+        q, kq, vq, None, lse, do, scale=d ** -0.5, block_sizes=bs, di=di,
+        int8_grads=blocks is not None, **opts)
+    if blocks is not None:
+        assert (dq_kw["width"], dkv_kw["width"]) == fbwd.fullint_widths(
+            bs, s, s)
+    n = (fbwd.fullint_dq.launches, fbwd.fullint_dkv.launches)
+    dq = fbwd.fullint_dq(*dq_a, **dq_kw)
+    dk, dv = fbwd.fullint_dkv(*dkv_a, **dkv_kw)
+    torch.cuda.synchronize()
+    assert (fbwd.fullint_dq.launches, fbwd.fullint_dkv.launches) == (
+        n[0] + 1, n[1] + 1)
+    dk_ref, dv_ref = fbwd.fullint_dkv_plain(*dkv_a, **dkv_kw)
+    for got, want in ((dq, fbwd.fullint_dq_plain(*dq_a, **dq_kw)),
+                      (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel(got, want) <= BF16_TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fullint", [False, True])
+def test_quantized_autograd_on_the_card(cuda_device, fullint):
+    """``quantized_flash_attention``'s gradients (q, K/V scales) on the card
+    against the same call on the CPU (the plain versions)."""
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 2, 256, 256, 64, ROW8, CH8,
+                              BF16)
+    do = torch.randn(q.shape, device=cuda_device).to(BF16)
+
+    def grads(q_, kq_, vq_, do_):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (q_, kq_.scale, vq_.scale)]
+        k2 = dataclasses.replace(kq_, scale=leaves[1])
+        v2 = dataclasses.replace(vq_, scale=leaves[2])
+        o = qa.quantized_flash_attention(leaves[0], k2, v2,
+                                         quantize_q=fullint,
+                                         bwd_fullint=fullint)
+        return torch.autograd.grad((o.float() * do_.float()).sum(), leaves)
+
+    n = (fbwd.fullint_dq.launches, fbwd.qflash_dq.launches)
+    got = grads(q, kq, vq, do)
+    torch.cuda.synchronize()
+    assert (fbwd.fullint_dq.launches - n[0],
+            fbwd.qflash_dq.launches - n[1]) == ((1, 0) if fullint else (0, 1))
+    want = grads(q.cpu(), kq.to("cpu"), vq.to("cpu"), do.cpu())
+    for g, w in zip(got, want):
+        assert _rel(g.float().cpu(), w.float()) <= BF16_TOL
+
+
+@pytest.mark.cuda
+def test_quantized_backward_kernels_reject_what_they_do_not_take(
+        cuda_device):
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 2, 1, 64, 64, 64, ROW8, CH8,
+                              BF16)
+    do, lse, di = _bwd_inputs(cuda_device, q, kq, vq, masking.FULL, 3)
+    rr = row_ranges_tensor(masking.FULL, 64, 64, None, cuda_device)
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.qflash_arguments(
+        q, kq, vq, do, lse, di, rr, scale=0.125)
+    with pytest.raises(TypeError):  # a float payload
+        fbwd.qflash_dq(*dq_a[:2], dq_a[2].float(), *dq_a[3:], **dq_kw)
+    with pytest.raises(ValueError):  # dO on the CPU
+        fbwd.qflash_dkv(dkv_a[0], dkv_a[1].cpu(), *dkv_a[2:], **dkv_kw)
+    with pytest.raises(TypeError):  # store multipliers of the wrong shape
+        fbwd.qflash_dq(*dq_a, **{**dq_kw, "dqsc": dq_kw["dqsc"][..., :8]})
+    (fq_a, fq_kw), _ = fbwd.fullint_arguments(q, kq, vq, None, lse, do,
+                                               scale=0.125, di=di)
+    with pytest.raises(TypeError):  # a bf16 Q where int8 is taken
+        fbwd.fullint_dq(q, *fq_a[1:], **fq_kw)
+    with pytest.raises(ValueError):  # a negative width
+        fbwd.fullint_dq(*fq_a, **{**fq_kw, "width": -1})
 
 
 # --------------------------------------------------------------------------

@@ -24,6 +24,9 @@ import pytest
 import torch
 
 from metal_flash_attention_plus_tpu.attention import masking as jmask
+from metal_flash_attention_plus_tpu.ops.flash_attention import (
+    BlockSizes as JBlockSizes,
+)
 from metal_flash_attention_plus_tpu.ops import quantized_attention as jqa
 from metal_flash_attention_plus_tpu.quant import params as jparams
 from metal_flash_attention_plus_tpu.quant import tensor as jtensor
@@ -32,6 +35,9 @@ from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
 from metal_flash_attention_plus_tpu_torch.ops import hadamard as thad
+from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    range_mask,
+)
 from metal_flash_attention_plus_tpu_torch.ops import quantized_attention as tqa
 from metal_flash_attention_plus_tpu_torch.quant import params as tparams
 from metal_flash_attention_plus_tpu_torch.quant import tensor as ttensor
@@ -224,6 +230,88 @@ def test_folded_channel_k_with_interleaved_gqa_matches_dense():
     assert (got - want).abs().max().item() <= 1e-2
 
 
+@pytest.mark.parametrize("mask", ["full", "causal"])
+def test_int8_p_over_several_key_tiles_matches_jax(mask):
+    """Over several key tiles the int8 P of ``int8_pv`` rounds against the
+    running row max, in the JAX kernel (its 128-key inner tiles here) and
+    in the plain version with ``kv_tile`` (the kernel's tiling, 64 keys,
+    on the card); in one pass O lands ~1e-2 away at these sizes.  Seed 0
+    has no P within fp32 noise of a half-integer, which would round either
+    way and move O by ~4e-4 (two of eight seeds have one)."""
+    rng = np.random.default_rng(0)
+    (jq, jk, jv), (tq, tk, tv) = _inputs(rng, 1, 2, 2, 384, 384, 64, ROW8,
+                                         CH8, "f32")
+    with jax.default_matmul_precision("highest"):
+        jo, jl = jqa.quantized_flash_attention_forward(
+            jq, jk, jv, mask=MASKS[mask][0], quantize_q=True,
+            block_sizes=JBlockSizes(block_q=128, block_kv=128))
+    args, kw = tqa.qattn_arguments(tq, tk, tv, mask=MASKS[mask][1],
+                                   quantize_q=True)
+    assert kw["mode"].p_int8
+    to, tl = tqa.qattn_fwd_plain(*args, **kw, kv_tile=128)
+    one_pass, _ = tqa.qattn_fwd_plain(*args, **kw)
+    assert _max_err(to, jo) <= TOLERANCES["fp32"]
+    assert _max_err(tl, jl) <= TOLERANCES["fp32"]
+    assert _max_err(one_pass, jo) > 10 * TOLERANCES["fp32"]
+    assert torch.equal(tqa.qattn_fwd_plain(*args, **kw, kv_tile=384)[0],
+                       one_pass)
+
+
+def _online(args, kw, sq, skv):
+    """The kernel's softmax, written as a loop: each block of 64 query rows
+    walks 64-key tiles from its first live key, P rounded against the
+    running max, earlier tiles rescaled."""
+    q_in, q_sc, kd, vd, k_par, v_par, rr = args
+    mode = kw["mode"]
+    s = q_in.float() @ kd.float().transpose(-1, -2)
+    if q_sc is not None:
+        s = s * q_sc[..., None] * k_par[0][:, :, None, :]
+    keep, live = range_mask(rr, skv)
+    s = torch.where(keep, s, torch.full_like(s, kw["mask_value"]))
+    v = vd.float()
+    o = torch.zeros(*s.shape[:-1], v.shape[-1])
+    lsum = torch.zeros(*s.shape[:-1], 1)
+    for r0 in range(0, sq, 64):
+        rows = slice(r0, min(r0 + 64, sq))
+        starts = [int(a) for a, b in rr[rows].tolist() if b > a]
+        m = torch.full((*s.shape[:2], rows.stop - r0, 1), -float("inf"))
+        acc, l = torch.zeros_like(o[:, :, rows]), torch.zeros_like(m)
+        for t0 in range(min(starts, default=skv), skv, 64):
+            st = s[:, :, rows, t0:t0 + 64]
+            m_next = torch.maximum(m, st.amax(-1, keepdim=True))
+            alpha = torch.where(torch.isinf(m), torch.zeros_like(m),
+                                torch.exp2(m - m_next))
+            if mode.p_int8:
+                raw = torch.exp2(st + (tqa.LOG2_127 - m_next))
+                p = torch.floor(raw + 0.5)
+            else:
+                raw = torch.exp2(st - m_next)
+                p = raw.to(torch.bfloat16).float()
+            l = alpha * l + (p if mode.l_rounded else raw).sum(-1, True)
+            acc = alpha * acc + p @ v[:, :, t0:t0 + 64]
+            m = m_next
+        o[:, :, rows], lsum[:, :, rows] = acc / l, l
+    if mode.v_scales == "store":
+        o = o * v_par[0][:, :, None, :]
+    return torch.where(live & (lsum > 0), o, torch.zeros_like(o))
+
+
+@pytest.mark.parametrize("quantize_q", [True, False],
+                         ids=["int8_p", "bf16_p"])
+def test_tiled_plain_version_is_the_online_softmax(quantize_q):
+    """``kv_tile=KV_TILE`` gives what the kernel's loop gives, under a
+    sliding window whose row blocks start their tiles at different keys."""
+    _, (tq, tk, tv) = _inputs(np.random.default_rng(3), 1, 2, 2, 200, 200,
+                              64, ROW8 if quantize_q else TEN8, CH8, "bf16")
+    mask = tmask.sliding_window(96, causal=True)
+    args, kw = tqa.qattn_arguments(tq, tk, tv, mask=mask,
+                                   quantize_q=quantize_q)
+    assert kw["mode"].p_int8 == quantize_q and kw["mode"].v_scales == "store"
+    got, _ = tqa.qattn_fwd_plain(*args, **kw, kv_tile=tqa.KV_TILE)
+    want = _online(args, kw, 200, 200)
+    assert (got - want).abs().max().item() <= TOLERANCES["fp32"]
+
+
 ERRORS = {
     # name: (K config, V config, Q dtype, options, error)
     "quantize_q_centered_k": (ROW8C, ROW8, "f32", dict(quantize_q=True),
@@ -260,12 +348,21 @@ def test_packed_api_preconditions_raise(case):
 
 
 def test_differentiable_wrapper_forward_and_backward_raise():
-    _, (tq, tk, tv) = _inputs(np.random.default_rng(2), 1, 2, 1, 64, 64, 64,
-                              ROW8C, ROW8C, "f32")
+    """The differentiable wrapper's forward is the forward's O in q's
+    dtype, and its backward (which raised before the quantized backward
+    was ported) now gives the JAX package's dq at TOLERANCES["fp32"]
+    (max abs over the JAX value's max abs)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(np.random.default_rng(2), 1, 2, 1,
+                                         64, 64, 64, ROW8C, ROW8C, "f32")
     tq.requires_grad_(True)
     o = tqa.quantized_flash_attention(tq, tk, tv, mask=tmask.CAUSAL)
     want, _ = tqa.quantized_flash_attention_forward(tq.detach(), tk, tv,
                                                     mask=tmask.CAUSAL)
     assert o.dtype == tq.dtype and torch.equal(o.detach(), want)
-    with pytest.raises(NotImplementedError, match="quantized-backward"):
-        o.sum().backward()
+    o.sum().backward()
+    with jax.default_matmul_precision("highest"):
+        jdq = jax.grad(lambda q_: jnp.sum(jqa.quantized_flash_attention(
+            q_, jk, jv, mask=jmask.CAUSAL)))(jq)
+    jdq = np.asarray(jdq)
+    err = np.abs(tq.grad.numpy() - jdq).max() / np.abs(jdq).max()
+    assert err <= TOLERANCES["fp32"]
