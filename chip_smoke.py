@@ -32,7 +32,7 @@ checkout, then, on the card:
 9. the quantized serving slice (inputs from a second generator, seed + 1,
    so the phases above see the same numbers as before it was added):
    (a) the dynamic W8A8/W4A8 GEMM kernel against its plain version, bit
-   for bit, at the flagship's projection shapes; (b) the paged kernels'
+   for bit, at the flagship's and MLAConfig()'s projection shapes; (b) the paged kernels'
    int8 and int4 pool modes against their plain versions in bf16; (c)
    full-width logits of ``quantize_weights`` params (W8A8 over an int8
    pool, W4A8 over an int4 pool) through ``prefill_chunk`` and
@@ -87,7 +87,37 @@ checkout, then, on the card:
    modes it launched them (the quantized forward with int8 Q and P at
    D=256, both full-integer and both exact kernels), then the four
    backward kernels' and that forward's times beside their bounds, plain
-   versions and SDPA.
+   versions and SDPA;
+12. MLA serving and the weight-only GEMM (inputs from a fifth generator,
+   seed + 4): (a) both paged kernels at MLA's geometry (Hq=16 over Hkv=1,
+   D=288, one-state latent pages, v_tail_zero=32) with bf16 and int8
+   pools against their plain versions; (b) the flash forward, dQ and
+   dK/dV kernels at D=80 and 288; (c) the quantized forward's int8 P over
+   the TPU's block_kv spans (NORTH_STAR_BLOCKS' and 128) at the
+   north-star shape against ``qattn_fwd_plain(kv_tile=block_kv)``; (d)
+   both weight-only GEMM kernels against their plain versions at the
+   decompression shape (M=4096, N=1024, K=256): folded int8 / int4 ROW and
+   int8 TENSOR, dequant-on-load BLOCK 128, ASYMMETRIC ROW and an fp32 A,
+   each with and without ``c=``; (e) ``mla_decompress`` over quantized
+   W_uk / W_uv (int8 ROW, int8 BLOCK 128) then ``flash_attention`` at B=2,
+   S=2048 against ``mla_absorbed_attention`` on the dequantized weights
+   (rel L2 ≤ 0.05), 2 GEMM launches per call, and
+   ``mla_absorbed_attention`` over a per-token int8 latent at B=2, S=2048
+   (the quantized forward at Hq=16 over Hkv=1, D=256) with its one launch
+   held to the plain version on the same arguments; (f) full-width
+   ``MLAConfig()`` serving logits (random weights from the seed) through
+   ``mla_prefill_chunk`` and ``mla_decode_step`` against the fp32
+   ``mla_forward`` with the dense decompress-then-attend attention (no
+   kernel): float latent pool (rel L2 ≤ 0.05) and ``quantize_mla_weights``
+   over an int8 latent pool, on the dequantized weights (≤ 0.25); (g)
+   ``ServingEngine(..., executor=mla_executor())`` serving the 8 requests,
+   float and W8A8 + int8 latent, the launch counts set to 0 just before
+   and read after; (h) times of the paged kernels at MLA's geometry, the
+   flash kernels at D=288 and both GEMM kernels beside their bounds, plain
+   versions and library calls.
+
+Phase 10 and 11 hold the quantized forward to its plain version over the
+key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
 
 Every phase raises on failure, so the script exits non-zero.  It prints
 the kernels' record as one JSON line and, as the very last line,
@@ -105,6 +135,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -124,7 +155,15 @@ from metal_flash_attention_plus_tpu_torch.models.cached import (
     init_cache,
     prefill_chunk,
 )
+from metal_flash_attention_plus_tpu_torch.models.mla_transformer import (
+    MLAConfig,
+    init_mla_params,
+    mla_forward,
+    plain_mla_attention,
+)
 from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
+    WEIGHT_CFG,
+    quantize_mla_weights,
     quantize_weights,
     quantized_forward,
 )
@@ -144,6 +183,8 @@ from metal_flash_attention_plus_tpu_torch.ops import (
     quantized_attention as tqa,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    BlockSizes,
+    flash_attention,
     flash_attention_forward_plain,
     flash_fwd,
     row_ranges_tensor,
@@ -154,11 +195,16 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_dkv,
     flash_dq,
 )
+from metal_flash_attention_plus_tpu_torch.ops.mla import (
+    mla_absorbed_attention,
+    mla_decompress,
+)
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     KV_TILE,
     hpack_arguments,
     hpack_fwd,
     hpack_fwd_plain,
+    int8_p_tile,
     pack_heads,
     qattn_arguments,
     qattn_fwd,
@@ -171,6 +217,11 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     dyn_gemm_plain,
     quantize_rows,
     weight_scales,
+    wo_arguments,
+    wo_folded_gemm,
+    wo_folded_gemm_plain,
+    wo_gemm,
+    wo_gemm_plain,
 )
 from metal_flash_attention_plus_tpu_torch.ops import (
     runtime_quantization as rtq,
@@ -182,6 +233,7 @@ from metal_flash_attention_plus_tpu_torch.quant.params import (
     int8_blockwise,
 )
 from metal_flash_attention_plus_tpu_torch.quant.tensor import (
+    QuantizedTensor,
     dequantize,
     quantize,
     unpack_int4,
@@ -190,7 +242,10 @@ from metal_flash_attention_plus_tpu_torch.reference.attention import (
     reference_attention,
     reference_attention_vjp,
 )
-from metal_flash_attention_plus_tpu_torch.serving.engine import ServingEngine
+from metal_flash_attention_plus_tpu_torch.serving.engine import (
+    ServingEngine,
+    mla_executor,
+)
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
 from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
     paged_decode_attention,
@@ -243,6 +298,9 @@ PROJ_SHAPES = {"wq": (1024, 1024), "wk": (256, 1024), "wv": (256, 1024),
                "wo": (1024, 1024), "wg": (4096, 1024), "wu": (4096, 1024),
                "wd": (1024, 4096)}
 UNEMBED_SHAPE = (32768, 1024)
+# MLAConfig()'s projections (N, K) that the flagship has not: the RoPE
+# queries and the shared RoPE key (wq, wdkv, wo and the MLP are above).
+MLA_PROJ_SHAPES = {"wqr": (512, 1024), "wkr": (32, 1024)}
 # The train step's shapes: the flagship at batch 4 × 2048 tokens.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 
@@ -489,11 +547,25 @@ def rel_l2(x, ref) -> float:
     return ((x.float() - ref).norm() / ref.norm()).item()
 
 
+GQA_EXECUTOR = types.SimpleNamespace(
+    init_cache=init_cache, prefill_chunk=prefill_chunk,
+    decode_step=decode_step)
+# (forward, attn_fn) of a model family's fp32 oracle: dense attention that
+# runs no kernel.
+GQA_ORACLE = (forward, plain_attention)
+MLA_ORACLE = (mla_forward, plain_mla_attention)
+
+
 def check_logits(cfg, params, rng, *, params32=None, quantized=False,
-                 tol=LOGITS_REL_L2_TOL, label="serving"):
-    """The cached path vs the fp32 oracle on ``params32`` (default: fp32
-    copies of ``params``); ``quantized`` is the pool's ``init_cache``
-    argument; ``tol=None`` reports without a gate."""
+                 tol=LOGITS_REL_L2_TOL, label="serving",
+                 executor=GQA_EXECUTOR, oracle=GQA_ORACLE):
+    """The cached path (``executor``'s calls, as the engine makes them) vs
+    the fp32 ``oracle`` on ``params32`` (default: fp32 copies of
+    ``params``); ``quantized`` is the pool's ``init_cache`` argument;
+    ``tol=None`` reports without a gate."""
+    init, prefill, decode = (executor.init_cache, executor.prefill_chunk,
+                             executor.decode_step)
+    fwd, attn = oracle
     if params32 is None:
         params32 = {
             "embed": params["embed"].float(),
@@ -504,7 +576,7 @@ def check_logits(cfg, params, rng, *, params32=None, quantized=False,
         }
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     pt, chunk, num_pages, max_pages = 256, 256, 16, 8
-    cache = init_cache(cfg, num_pages, pt, quantized=quantized, device=DEV)
+    cache = init(cfg, num_pages, pt, quantized=quantized, device=DEV)
     seqs = [list(rng.integers(0, cfg.vocab_size, n)) for n in (300, 420)]
     rows = torch.full((2, max_pages), num_pages, dtype=torch.int32)
     rows[0, :3] = torch.tensor([5, 0, 9])
@@ -512,8 +584,8 @@ def check_logits(cfg, params, rng, *, params32=None, quantized=False,
     rows = rows.to(DEV)
 
     def oracle(seq):  # dense fp32 attention: independent of the kernels
-        return forward(params32, torch.tensor([seq], device=DEV), cfg32,
-                       attn_fn=plain_attention)[0, -1]
+        return fwd(params32, torch.tensor([seq], device=DEV), cfg32,
+                   attn_fn=attn)[0, -1]
 
     worst = 0.0
     last = []
@@ -522,7 +594,7 @@ def check_logits(cfg, params, rng, *, params32=None, quantized=False,
             part = seq[start: start + chunk]
             padded = torch.zeros(chunk, dtype=torch.long)
             padded[: len(part)] = torch.tensor(part)
-            logits, cache = prefill_chunk(
+            logits, cache = prefill(
                 params, padded.to(DEV), start, len(part) - 1, cache,
                 rows[s].contiguous(), cfg)
         err = rel_l2(logits, oracle(seq))
@@ -536,7 +608,7 @@ def check_logits(cfg, params, rng, *, params32=None, quantized=False,
         tokens = torch.tensor(last, device=DEV)
         lengths = torch.tensor([len(x) for x in seqs], dtype=torch.int32,
                                device=DEV)
-        logits, cache = decode_step(params, tokens, lengths, rows, cache, cfg)
+        logits, cache = decode(params, tokens, lengths, rows, cache, cfg)
         for s in range(2):
             err = rel_l2(logits[s], oracle(seqs[s]))
             worst = max(worst, err)
@@ -554,13 +626,15 @@ def check_logits(cfg, params, rng, *, params32=None, quantized=False,
 # --------------------------------------------------------------------------
 
 
-def run_engine(cfg, params, seed, quantized_cache=False, label="engine"):
+def run_engine(cfg, params, seed, quantized_cache=False, label="engine",
+               executor=None, layer_gemms=7):
     """Serve the 8 smoke requests; with quantized weights every model call
-    must run 8 × 7 + 1 dynamic GEMMs, and none without."""
+    must run layers × ``layer_gemms`` + 1 dynamic GEMMs (8 × 7 + 1 for the
+    flagship, 8 × 8 + 1 for MLA), and none without."""
     requests = smoke_requests(cfg, seed)
     prompt_lens = [len(r.prompt) for r in requests]
     engine = ServingEngine(params, cfg, quantized_cache=quantized_cache,
-                           device=DEV)
+                           executor=executor, device=DEV)
     for req in requests:
         engine.submit(req)
     paged_prefill_attention.launches = 0
@@ -585,7 +659,8 @@ def run_engine(cfg, params, seed, quantized_cache=False, label="engine"):
         raise AssertionError(f"launch counts {launches}, expected {want}")
     calls = stats["prefill_calls"] + stats["decode_calls"]
     quantized_weights = not isinstance(params["unembed"], torch.Tensor)
-    want_gemms = (7 * cfg.num_layers + 1) * calls if quantized_weights else 0
+    want_gemms = ((layer_gemms * cfg.num_layers + 1) * calls
+                  if quantized_weights else 0)
     if gemms != want_gemms:
         raise AssertionError(f"{label}: {gemms} dyn_gemm launches, expected "
                              f"{want_gemms}")
@@ -790,10 +865,9 @@ def bound_of(flops: float, nbytes: float):
     return bound[by], by
 
 
-def time_flash(rng):
-    """Forward, dQ and dK/dV at the train step's attention shapes (bf16,
-    causal), beside their plain versions and SDPA."""
-    b, hq, hkv, s, d = TRAIN_BATCH, 16, 4, TRAIN_SEQ, 64
+def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
+    """Forward, dQ and dK/dV at the train step's attention shapes (or the
+    ones given; bf16, causal), beside their plain versions and SDPA."""
     q, k, v, do, _ = flash_inputs(rng, b, hq, hkv, s, s, d, torch.bfloat16)
     rr = row_ranges_tensor(masking.CAUSAL, s, s, None, DEV)
     kw = dict(scale=d ** -0.5)
@@ -871,9 +945,11 @@ def gemm_operands(rng, m, n, k, cfg, with_c=False):
 
 def check_dyn_gemm(rng):
     """(a) The GEMM kernel against its plain version, bit for bit, at every
-    (N, K) of the flagship, M in {8, 256, 1}, int8 and int4 ROW symmetric
+    (N, K) of the flagship and of MLAConfig() (N=32 is less than one
+    64-column tile), M in {8, 256, 1}, int8 and int4 ROW symmetric
     weights; plus CENTERED ROW, TENSOR and c= cases.  → max abs error."""
-    shapes = sorted(set(PROJ_SHAPES.values()) | {UNEMBED_SHAPE})
+    shapes = sorted(set(PROJ_SHAPES.values()) | set(MLA_PROJ_SHAPES.values())
+                    | {UNEMBED_SHAPE})
     cases = [(m, n, k, cfg, False) for m in (8, 256, 1) for n, k in shapes
              for cfg in (W8_CFG, W4_CFG)]
     cases += [
@@ -957,16 +1033,18 @@ def check_prefill_quantized(rng, offset, bits):
 
 def dequantized_fp32(qparams):
     """The fp32 oracle's weights: each quantized projection dequantized and
-    transposed back to [in, out]."""
+    transposed back to [in, out], the float leaves in fp32."""
     def w(t):
-        return dequantize(t).t().contiguous()
+        if isinstance(t, QuantizedTensor):
+            return dequantize(t).t().contiguous()
+        return t.float()
 
     return {
         "embed": qparams["embed"].float(),
         "unembed": w(qparams["unembed"]),
         "ln_f": qparams["ln_f"],
-        "layers": [{k: (w(v) if k in PROJ_SHAPES else v)
-                    for k, v in layer.items()} for layer in qparams["layers"]],
+        "layers": [{k: w(v) for k, v in layer.items()}
+                   for layer in qparams["layers"]],
     }
 
 
@@ -1221,6 +1299,13 @@ def check_pair(label, kernel, plain):
     return errs
 
 
+def main_path_tile(kw, skv, block_sizes=BlockSizes()):
+    """The key span ``quantized_flash_attention_forward`` hands the kernel:
+    the TPU's resolved ``block_kv`` where P is int8, else None (the
+    kernel's 64-key tiles)."""
+    return int8_p_tile(block_sizes, skv) if kw["mode"].p_int8 else None
+
+
 def check_qattn(rng, label, b, hq, hkv, sq, skv, d, kcfg, vcfg,
                 mask=masking.CAUSAL, bias_shape=None, **opts):
     q, k, v = attn_inputs(rng, b, hq, hkv, sq, skv, d)
@@ -1229,10 +1314,11 @@ def check_qattn(rng, label, b, hq, hkv, sq, skv, d, kcfg, vcfg,
                                    generator=device_generator(rng))
     args, kw = qattn_arguments(q, quantize(k.float(), kcfg),
                                quantize(v.float(), vcfg), mask=mask, **opts)
-    out = qattn_fwd(*args, **kw)
+    tile = main_path_tile(kw, skv)
+    out = qattn_fwd(*args, **kw, kv_tile=tile)
     torch.cuda.synchronize()
     return check_pair(f"qattn_fwd {label}", out,
-                      qattn_fwd_plain(*args, **kw, kv_tile=KV_TILE))
+                      qattn_fwd_plain(*args, **kw, kv_tile=tile or KV_TILE))
 
 
 def check_qattn_all(rng):
@@ -1487,9 +1573,11 @@ def time_quantized_attention(rng):
     kq, vq = quantize(k.float(), row8), quantize(v.float(), row8)
     args, kw = qattn_arguments(q, kq, vq, mask=masking.CAUSAL,
                                quantize_q=True)
+    tile = main_path_tile(kw, s)
     times["qattn_fwd"] = timed(
         "qattn_fwd quantize_q ROW (B=2 Hq=16 Hkv=4 S=2048 D=64 causal)",
-        lambda: qattn_fwd(*args, **kw), lambda: qattn_fwd_plain(*args, **kw),
+        lambda: qattn_fwd(*args, **kw, kv_tile=tile),
+        lambda: qattn_fwd_plain(*args, **kw, kv_tile=tile),
         sdpa(kq, vq),
         attn_bound(pairs, 2 * d, 2 * d,
                    b * hq * s * d + 4 * b * hq * s + kv_bytes
@@ -1798,15 +1886,17 @@ def check_north_star_kernels(q, kq, vq, do):
     CHANNEL V) → ({name: errors}, the kernels' arguments)."""
     d = q.shape[-1]
     f_args, f_kw = qattn_arguments(q, kq, vq, quantize_q=True)
+    f_kw["kv_tile"] = main_path_tile(f_kw, q.shape[2], NS_BLOCKS)
     o, lse = qattn_fwd(*f_args, **f_kw)
     torch.cuda.synchronize()
     errs = {"qattn_fwd": check_pair(
-        "qattn_fwd int8 Q / int8 P D=256 (north-star)", (o, lse),
-        qattn_fwd_plain(*f_args, **f_kw, kv_tile=KV_TILE))}
+        f"qattn_fwd int8 Q / int8 P D=256 over {f_kw['kv_tile']}-key spans "
+        "(north-star)", (o, lse), qattn_fwd_plain(*f_args, **f_kw))}
     # Not gated: the one-pass softmax rounds the int8 P against each row's
     # final max, where the kernel (as the TPU's) rounds against the running
-    # one; over 4096 keys that moves O by ~0.1 of its max abs.
-    o_1, l_1 = qattn_fwd_plain(*f_args, **f_kw)
+    # one over block_kv spans; over 4096 keys that moves O by ~0.1 of its
+    # max abs.
+    o_1, l_1 = qattn_fwd_plain(*f_args, **{**f_kw, "kv_tile": None})
     errs["qattn_fwd_one_pass"] = (rel_err(o, o_1), rel_err(lse, l_1),
                                   max_abs(o, o_1))
     log("qattn_fwd vs the one-pass plain version (not gated): o "
@@ -1971,6 +2061,431 @@ def run_quantized_backward(seed):
     return out, phase
 
 # --------------------------------------------------------------------------
+# Phase 12: MLA serving and the weight-only GEMM
+# --------------------------------------------------------------------------
+
+# MLAConfig()'s latent attention: 16 query heads over one head-shared
+# latent state of d_c + d_r = 256 + 32 lanes, V's rope tail of 32 zeroed,
+# softmax scale (dh + d_r)^-0.5 (models/cached_mla.py).
+MLA_HQ, MLA_D, MLA_VTZ = 16, 288, 32
+MLA_SCALE = (64 + 32) ** -0.5
+# The decompression (mla_decompress at B=2, S=2048): GEMMs of M = B·S
+# latent rows, N = H·dh = 16·64, K = d_c = 256.
+DEC_B, DEC_S, DEC_H, DEC_DH, DEC_DC = 2, 2048, 16, 64, 256
+# The weight-only GEMM kernels vs their plain versions on the same
+# arguments, fp32 results: the same products (exact for bf16 × int8 and
+# bf16 × bf16) summed in another order.  Max abs over the plain's max abs.
+WO_TOL = TOLERANCES["fp32"]
+# The decompression path vs the absorbed path on the dequantized weights,
+# relative L2: bf16 K/V against bf16 absorbed queries.
+DECOMPRESS_TOL = TOLERANCES["mixed"]
+# The absorbed attention over a per-token int8 latent vs the fp32 dense
+# attention on the dequantized latent, relative L2: tests/test_mla.py's
+# int8 gate.
+ABSORBED_INT8_TOL = TOLERANCES["int8_rel"] / 5
+# (label, weight config, A dtype): the folded kernel's modes, then the
+# dequant-on-load kernel's.
+WO_CASES = (
+    ("folded int8 ROW", WEIGHT_CFG, torch.bfloat16),
+    ("folded int4 ROW", QuantConfig(bits=4, granularity=QuantGranularity.ROW),
+     torch.bfloat16),
+    ("folded int8 TENSOR", QuantConfig(bits=8), torch.bfloat16),
+    ("wo int8 BLOCK 128", int8_blockwise(128), torch.bfloat16),
+    ("wo int8 ASYMMETRIC ROW", QuantConfig(
+        bits=8, granularity=QuantGranularity.ROW,
+        strategy=QuantStrategy.ASYMMETRIC), torch.bfloat16),
+    ("wo int8 ROW fp32 A", WEIGHT_CFG, torch.float32),
+)
+
+
+def mla_pool(rng, quantized, num_pages, pt):
+    """A latent pool [1, NP+1, PT, 288] (one state per token): bf16
+    states, or int8 ones with one scale per token for K and V."""
+    g = device_generator(rng)
+    shape = (1, num_pages + 1, pt, MLA_D)
+    if not quantized:
+        pool = torch.randn(shape, generator=g, device=DEV)
+        return pool.to(torch.bfloat16), {}
+    pool = torch.randint(-128, 128, shape, generator=g, device=DEV)
+    sc = (torch.rand((1, num_pages + 1, 1, pt), generator=g, device=DEV)
+          * 1.5 + 0.5) / 127
+    return pool.to(torch.int8), dict(k_scales=sc, v_scales=sc)
+
+
+def mla_gate(label, out, ref):
+    """A paged kernel's output at MLA's geometry against its plain
+    version's → (rel err, max abs err); raises past the bf16 gate or if
+    the rope tail of the output is not zero."""
+    errs = (rel_err(out, ref), max_abs(out, ref))
+    tail = out[..., MLA_D - MLA_VTZ:].float().abs().max().item()
+    log(f"{label}: rel {errs[0]:.2e} max abs {errs[1]:.2e} (tol "
+        f"{FLASH_TOL[torch.bfloat16]}), rope-tail max {tail}")
+    if not (errs[0] <= FLASH_TOL[torch.bfloat16] and tail == 0.0):
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{errs}, tail {tail}")
+    return errs
+
+
+def check_mla_paged(rng):
+    """(a) Both paged kernels at MLA's geometry (Hq=16 over Hkv=1, D=288,
+    one-state pages, v_tail_zero=32) with bf16 and int8 pools: decode at
+    phase 2's lengths, prefill of a 256-token chunk at three offsets.
+    → {label: (rel err, max abs err)}."""
+    pt, num_pages, max_pages, chunk = 256, 256, 16, 256
+    lengths = np.asarray([1, pt, pt + 1, 1800, 3 * pt + 17, 37, 1024, 4000],
+                         np.int32)
+    errs = {}
+    for quantized in (False, True):
+        kind = "int8" if quantized else "bf16"
+        pool, kw = mla_pool(rng, quantized, num_pages, pt)
+        kw.update(page_tokens=pt, v_tail_zero=MLA_VTZ, scale=MLA_SCALE)
+        table = page_tables(rng, lengths, pt, num_pages, max_pages)
+        q = torch.from_numpy(rng.standard_normal(
+            (len(lengths), MLA_HQ, MLA_D), np.float32)).to(DEV, torch.bfloat16)
+        ln = torch.from_numpy(lengths).to(DEV)
+        out = paged_decode_attention(q, pool, table, ln, **kw)
+        torch.cuda.synchronize()
+        errs[f"decode_{kind}"] = mla_gate(
+            f"paged_decode MLA {kind} pool", out,
+            paged_decode_attention_plain(q, pool, table, ln, **kw))
+        for offset in (0, 300, 512):
+            row = page_tables(rng, [offset + chunk], pt, num_pages,
+                              max_pages)[0]
+            q = torch.from_numpy(rng.standard_normal(
+                (MLA_HQ, chunk, MLA_D), np.float32)).to(DEV, torch.bfloat16)
+            out = paged_prefill_attention(q, pool, row, offset, **kw)
+            torch.cuda.synchronize()
+            errs[f"prefill_{kind}_{offset}"] = mla_gate(
+                f"paged_prefill MLA {kind} pool offset={offset}", out,
+                paged_prefill_attention_plain(q, pool, row, offset, **kw))
+    return errs
+
+
+def check_mla_flash(rng):
+    """(b) The flash forward, dQ and dK/dV kernels at MLA's latent head
+    dims: D=80 (tests/test_mla_serving.py's d_c + d_r) and D=288
+    (MLAConfig()'s), 16 query heads over one KV head, bf16 and fp32 at
+    S=300, and D=288 bf16 at mla_forward's B=2, S=2048.  → {label:
+    {output: (rel err, max abs err)}}."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (80, 288):
+            errs[f"d{d}_{str(dtype)[6:]}"] = check_flash(
+                rng, f"MLA latent D={d}", 2, MLA_HQ, 1, 300, 300, d, dtype)
+    errs["d288_mla_forward"] = check_flash(
+        rng, "MLA latent D=288 (B=2 S=2048)", DEC_B, MLA_HQ, 1, DEC_S, DEC_S,
+        MLA_D, torch.bfloat16)
+    return errs
+
+
+def check_int8_p_spans(rng):
+    """(c) The quantized forward in the north-star's int8-Q / int8-P mode
+    against ``qattn_fwd_plain(kv_tile=block_kv)`` at the north-star shape,
+    for NORTH_STAR_BLOCKS' block_kv and for 128.  → {label: errors}."""
+    q, kq, vq, _ = north_star_inputs(device_generator(rng))
+    args, kw = qattn_arguments(q, kq, vq, quantize_q=True)
+    errs = {}
+    for block_kv in (NS_BLOCKS.block_kv, 128):
+        tile = int8_p_tile(BlockSizes(block_kv=block_kv), NS_S)
+        out = qattn_fwd(*args, **kw, kv_tile=tile)
+        torch.cuda.synchronize()
+        errs[f"block_kv_{block_kv}"] = check_pair(
+            f"qattn_fwd int8 Q / int8 P over {tile}-key spans (north-star)",
+            out, qattn_fwd_plain(*args, **kw, kv_tile=tile))
+    return errs
+
+
+def wo_pair(a, wq, c=None):
+    """(kernel, plain, args, kw) of ``quantized_matmul(a, wq, c=c)``."""
+    folded, args, kw = wo_arguments(a, wq, c)
+    if folded:
+        return wo_folded_gemm, wo_folded_gemm_plain, args, kw
+    return wo_gemm, wo_gemm_plain, args, kw
+
+
+def check_wo_gemm(rng):
+    """(d) Both weight-only GEMM kernels against their plain versions at the
+    decompression shape in each mode of WO_CASES, with and without ``c=``.
+    → {label: (rel err, max abs err)}."""
+    m, n, k = DEC_B * DEC_S, DEC_H * DEC_DH, DEC_DC
+    g = device_generator(rng)
+    errs = {}
+    for label, cfg, adtype in WO_CASES:
+        for with_c in (False, True):
+            a = torch.randn((m, k), generator=g, device=DEV).to(adtype)
+            wq = quantize(torch.randn((n, k), generator=g, device=DEV)
+                          * k ** -0.5, cfg)
+            c = (torch.randn((m, n), generator=g, device=DEV) if with_c
+                 else None)
+            kernel, plain, args, kw = wo_pair(a, wq, c)
+            name = f"{label}{' c=' if with_c else ''}"
+            if (kernel is wo_folded_gemm) != label.startswith("folded"):
+                raise AssertionError(f"{name}: dispatched to {kernel}")
+            out = kernel(*args, **kw)
+            torch.cuda.synchronize()
+            ref = plain(*args, **kw)
+            errs[name] = (rel_err(out, ref), max_abs(out, ref))
+            log(f"{kernel.__name__} {name} (M={m} N={n} K={k}): rel "
+                f"{errs[name][0]:.2e} max abs {errs[name][1]:.2e} (tol "
+                f"{WO_TOL})")
+            if not errs[name][0] <= WO_TOL:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {errs[name]}")
+    return errs
+
+
+def run_decompression(rng):
+    """(e) The decompression path: ``mla_decompress(latent, W_uk_q, W_uv_q,
+    16)`` then ``flash_attention(q, k, v, CAUSAL)`` at B=2, S=2048, against
+    ``mla_absorbed_attention`` on the dequantized weights; W_uk/W_uv int8
+    ROW (the folded kernel) and int8 BLOCK 128 (the dequant-on-load one),
+    the launch counts set to 0 just before and read after.  → {config:
+    {rel_l2, launches}}."""
+    b, s, h, dh, dc = DEC_B, DEC_S, DEC_H, DEC_DH, DEC_DC
+    g = device_generator(rng)
+    latent = torch.randn((b, s, dc), generator=g, device=DEV).to(
+        torch.bfloat16)
+    q = torch.randn((b, h, s, dh), generator=g, device=DEV).to(torch.bfloat16)
+    w_uk = torch.randn((h, dh, dc), generator=g, device=DEV) * dc ** -0.5
+    w_uv = torch.randn((h, dc, dh), generator=g, device=DEV) * dc ** -0.5
+    out = {}
+    for name, cfg in (("int8 ROW", WEIGHT_CFG),
+                      ("int8 BLOCK 128", int8_blockwise(128))):
+        wk = quantize(w_uk.reshape(h * dh, dc), cfg)
+        wv = quantize(w_uv.transpose(1, 2).reshape(h * dh, dc), cfg)
+        wo_folded_gemm.launches = wo_gemm.launches = flash_fwd.launches = 0
+        k, v = mla_decompress(latent, wk, wv, h)
+        o = flash_attention(q, k, v, mask=masking.CAUSAL)
+        torch.cuda.synchronize()
+        launches = {"wo_folded_gemm": wo_folded_gemm.launches,
+                    "wo_gemm": wo_gemm.launches,
+                    "flash_fwd": flash_fwd.launches}
+        folded = cfg is WEIGHT_CFG
+        want = {"wo_folded_gemm": 2 * folded, "wo_gemm": 2 * (not folded),
+                "flash_fwd": 1}
+        ref = mla_absorbed_attention(
+            q, latent, dequantize(wk).reshape(h, dh, dc),
+            dequantize(wv).reshape(h, dh, dc).transpose(1, 2),
+            mask=masking.CAUSAL)
+        err = rel_l2(o, ref.float())
+        log(f"decompression {name}: mla_decompress + flash_attention vs "
+            f"absorbed, rel L2 {err:.3e} (tol {DECOMPRESS_TOL}); launches "
+            + json.dumps(launches))
+        if launches != want:
+            raise AssertionError(f"decompression {name}: launches "
+                                 f"{launches}, expected {want}")
+        if not (np.isfinite(err) and err <= DECOMPRESS_TOL
+                and o.shape == (b, h, s, dh)):
+            raise AssertionError(f"decompression {name} disagrees with the "
+                                 f"absorbed path: {err}")
+        out[name] = {"rel_l2": err, "launches": launches}
+    return out
+
+
+def run_absorbed_quantized(rng):
+    """(e) ``mla_absorbed_attention`` over a per-token int8 latent (ROW
+    CENTERED, logical [B, 1, S, d_c], as tests/test_mla.py quantizes it) at
+    B=2, S=2048, causal: the quantized forward at MLA's geometry (Hq=16
+    over Hkv=1, D=256), its launch count set to 0 just before and read
+    after.  The kernel on that call's arguments (rebuilt as
+    ``quantized_flash_attention_forward`` builds them) against its plain
+    version, the path's output against the plain O carried through W_uv,
+    and against the fp32 dense attention on the dequantized latent
+    (ABSORBED_INT8_TOL).  → {errors, launches}."""
+    b, s, h, dh, dc = DEC_B, DEC_S, DEC_H, DEC_DH, DEC_DC
+    g = device_generator(rng)
+    latent = torch.randn((b, s, dc), generator=g, device=DEV)
+    q = torch.randn((b, h, s, dh), generator=g, device=DEV).to(torch.bfloat16)
+    w_uk = torch.randn((h, dh, dc), generator=g, device=DEV) * dc ** -0.5
+    w_uv = torch.randn((h, dc, dh), generator=g, device=DEV) * dc ** -0.5
+    c = quantize(latent[:, None], QuantConfig(
+        granularity=QuantGranularity.ROW, strategy=QuantStrategy.CENTERED))
+    qattn_fwd.launches = 0
+    o = mla_absorbed_attention(q, c, w_uk, w_uv, mask=masking.CAUSAL)
+    torch.cuda.synchronize()
+    launches = qattn_fwd.launches
+    if launches != 1:
+        raise AssertionError(f"absorbed quantized latent: {launches} "
+                             "qattn_fwd launches, expected 1")
+    q_lat = torch.einsum("bhsd,hdc->bhsc", q.float(), w_uk.float()).to(q.dtype)
+    args, kw = qattn_arguments(q_lat, c, c, mask=masking.CAUSAL,
+                               scale=dh ** -0.5)
+    tile = main_path_tile(kw, s)
+    got = qattn_fwd(*args, **kw, kv_tile=tile)
+    torch.cuda.synchronize()
+    plain = qattn_fwd_plain(*args, **kw, kv_tile=tile or KV_TILE)
+    errs = {"kernel": check_pair(
+        f"qattn_fwd {kw['mode'].k_scales} K / {kw['mode'].v_scales} V, Hq=16 "
+        "over Hkv=1, D=256 (MLA's quantized latent)", got, plain)}
+    o_plain = torch.einsum("bhsc,hcd->bhsd", plain[0].to(q.dtype).float(),
+                           w_uv.float())
+    errs["path"] = (rel_err(o, o_plain), max_abs(o, o_plain))
+    ref = plain_mla_attention(q, dequantize(c)[:, 0], w_uk, w_uv,
+                              mask=masking.CAUSAL).float()
+    errs["vs_fp32_rel_l2"] = rel_l2(o, ref)
+    log(f"mla_absorbed_attention over an int8 latent (B={b} S={s}): vs the "
+        f"plain O through W_uv rel {errs['path'][0]:.2e} (tol "
+        f"{FLASH_TOL[torch.bfloat16]}), vs fp32 dense rel L2 "
+        f"{errs['vs_fp32_rel_l2']:.3e} (tol {ABSORBED_INT8_TOL}); "
+        f"qattn_fwd launches {launches}")
+    if not (errs["path"][0] <= FLASH_TOL[torch.bfloat16]
+            and errs["vs_fp32_rel_l2"] <= ABSORBED_INT8_TOL
+            and o.shape == (b, h, s, dh)):
+        raise AssertionError(f"absorbed quantized latent disagrees: {errs}")
+    return {"errors": errs, "launches": launches}
+
+
+def time_wo_gemm(rng):
+    """Both weight-only kernels at the decompression shape in
+    ``mla_decompress``'s modes (bf16 latent; int8 ROW folded, int8 BLOCK
+    128 dequant-on-load), beside their bounds (the bf16 latent, the int8
+    payload and its scales read once, the bf16 result written once; or
+    2·M·N·K over the bf16 peak), plain versions and ``torch.matmul`` of the
+    latent by the pre-dequantized bf16 weight."""
+    m, n, k = DEC_B * DEC_S, DEC_H * DEC_DH, DEC_DC
+    g = device_generator(rng)
+    a = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
+    w = torch.randn((n, k), generator=g, device=DEV) * k ** -0.5
+    times = {}
+    for cfg, vectors in ((WEIGHT_CFG, n), (int8_blockwise(128), 2 * k)):
+        wq = quantize(w, cfg)
+        kernel, plain, args, kw = wo_pair(a, wq)
+        wbt = dequantize(wq).to(torch.bfloat16).t().contiguous()
+        t = {"plain_ms": time_ms(lambda: plain(*args, **kw), 5, warmup=1),
+             "ms": time_ms(lambda: kernel(*args, **kw), 20)}
+        t["plain_ms_2"] = time_ms(lambda: plain(*args, **kw), 5, warmup=0)
+        t["ms_2"] = time_ms(lambda: kernel(*args, **kw), 20)
+        t["library_ms"] = time_ms(lambda: a @ wbt, 20)
+        t["bound_ms"], t["bound_by"] = bound_of(
+            2 * m * n * k, 2 * m * k + n * k + 4 * vectors + 2 * m * n)
+        log(f"{kernel.__name__} {cfg.granularity.value} times (M={m} N={n} "
+            f"K={k}, bf16 latent): " + json.dumps(t))
+        times[kernel.__name__] = t
+    return times
+
+
+def mla_dense_kv(pool, row, n, pt):
+    """One sequence's first n latent states as K [1, n, D] and V (the rope
+    tail zeroed), bf16."""
+    t = torch.arange(n, device=DEV)
+    k = pool[:, row.long()[t // pt], t % pt]
+    v = k.clone()
+    v[..., MLA_D - MLA_VTZ:] = 0
+    return k, v
+
+
+def time_mla_paged(rng, lengths):
+    """Both paged kernels at MLA's geometry with a bf16 latent pool: decode
+    at the engine's decode lengths, a 256-token prefill chunk at offset
+    512; beside their bounds (one state per live token read once; QK over
+    288 lanes, PV over 256), plain versions and SDPA over the dense K/V."""
+    pt, num_pages, max_pages, chunk, offset = 256, 256, 16, 256, 512
+    hq, d, dv = MLA_HQ, MLA_D, MLA_D - MLA_VTZ
+    lengths = np.asarray(lengths, np.int32)
+    b = len(lengths)
+    pool, _ = mla_pool(rng, False, num_pages, pt)
+    kw = dict(page_tokens=pt, v_tail_zero=MLA_VTZ, scale=MLA_SCALE)
+    table = page_tables(rng, lengths, pt, num_pages, max_pages)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d), np.float32)).to(
+        DEV, torch.bfloat16)
+    ln = torch.from_numpy(lengths).to(DEV)
+    s_max = int(lengths.max())
+    k = torch.zeros(b, 1, s_max, d, device=DEV, dtype=torch.bfloat16)
+    v = torch.zeros_like(k)
+    for i, n in enumerate(lengths):
+        k[i, :, :n], v[i, :, :n] = mla_dense_kv(pool, table[i], int(n), pt)
+    mask = (torch.arange(s_max, device=DEV)[None, :]
+            < ln[:, None].long()).view(b, 1, 1, s_max)
+    q4 = q.view(b, hq, 1, d)
+    dec = {"plain_ms": time_ms(lambda: paged_decode_attention_plain(
+        q, pool, table, ln, **kw), 10),
+        "ms": time_ms(lambda: paged_decode_attention(q, pool, table, ln,
+                                                     **kw), 50),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask, enable_gqa=True, scale=MLA_SCALE), 50)}
+    dec["ms_2"] = time_ms(lambda: paged_decode_attention(q, pool, table, ln,
+                                                         **kw), 50)
+    live = int(lengths.sum())
+    dec["bound_ms"], dec["bound_by"] = bound_of(
+        2 * hq * live * (d + dv),
+        live * d * 2 + 2 * b * hq * d * 2 + table.numel() * 4 + b * 4)
+    log(f"paged_decode MLA bf16 times at lengths {lengths.tolist()}: "
+        + json.dumps(dec))
+    row = page_tables(rng, [offset + chunk], pt, num_pages, max_pages)[0]
+    q = torch.from_numpy(rng.standard_normal((hq, chunk, d), np.float32)).to(
+        DEV, torch.bfloat16)
+    n = offset + chunk
+    k, v = mla_dense_kv(pool, row, n, pt)
+    mask = (torch.arange(n, device=DEV)[None, :]
+            <= offset + torch.arange(chunk, device=DEV)[:, None])
+    pf = {"plain_ms": time_ms(lambda: paged_prefill_attention_plain(
+        q, pool, row, offset, **kw), 10),
+        "ms": time_ms(lambda: paged_prefill_attention(q, pool, row, offset,
+                                                      **kw), 20),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=mask, enable_gqa=True,
+            scale=MLA_SCALE), 20)}
+    pf["ms_2"] = time_ms(lambda: paged_prefill_attention(q, pool, row, offset,
+                                                         **kw), 20)
+    visible = chunk * offset + chunk * (chunk + 1) // 2
+    pf["bound_ms"], pf["bound_by"] = bound_of(
+        2 * hq * visible * (d + dv),
+        n * d * 2 + 2 * hq * chunk * d * 2 + row.numel() * 4)
+    log(f"paged_prefill MLA bf16 times at offset {offset}: " + json.dumps(pf))
+    return {"decode": dec, "prefill": pf}
+
+
+def run_mla(seed, dec_lens):
+    """Phase 12 (a)-(h), inputs from a fifth generator (seed + 4), the
+    model's weights from ``seed`` → (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 4)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["paged_errors"] = check_mla_paged(rng)
+        out["flash_errors"] = check_mla_flash(rng)
+        out["int8_p_errors"] = check_int8_p_spans(rng)
+        out["wo_errors"] = check_wo_gemm(rng)
+        out["decompression"] = run_decompression(rng)
+        out["absorbed_quantized"] = run_absorbed_quantized(rng)
+    phase["mla_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cfg = MLAConfig()  # 8 x 1024, 16 heads, d_c 256 + d_r 32, bf16
+    params = init_mla_params(cfg, torch.Generator().manual_seed(seed),
+                             device=DEV)
+    qparams = quantize_mla_weights(params)
+    out["logits_rel_l2"] = {}
+    with torch.inference_mode():
+        mla = dict(executor=mla_executor(), oracle=MLA_ORACLE)
+        out["logits_rel_l2"]["float"] = check_logits(
+            cfg, params, np.random.default_rng(seed + 5),
+            label="MLA float latent", **mla)
+        out["logits_rel_l2"]["w8a8+int8"] = check_logits(
+            cfg, qparams, np.random.default_rng(seed + 5),
+            params32=dequantized_fp32(qparams), quantized=8,
+            tol=QUANT_LOGITS_TOL[8], label="MLA w8a8+int8 latent", **mla)
+    phase["mla_logits"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["engines"] = {}
+    for label, p, pool in (("float", params, False),
+                           ("w8a8+int8", qparams, 8)):
+        launches, stats, _, rates = run_engine(
+            cfg, p, seed, quantized_cache=pool, label=f"MLA engine {label}",
+            executor=mla_executor(), layer_gemms=8)
+        out["engines"][label] = {"launches": launches, "rates": rates,
+                                 "model_calls": stats["prefill_calls"]
+                                 + stats["decode_calls"]}
+    phase["mla_engines"] = time.perf_counter() - t
+    del params, qparams
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["paged_times"] = time_mla_paged(rng, dec_lens)
+        out["wo_times"] = time_wo_gemm(rng)
+    out["flash_times"] = time_flash(rng, DEC_B, MLA_HQ, 1, DEC_S, MLA_D)
+    phase["mla_times"] = time.perf_counter() - t
+    return out, phase
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2051,11 +2566,15 @@ def main() -> int:
     phase_s.update(qattn_phase)
     qbwd, qbwd_phase = run_quantized_backward(args.seed)
     phase_s.update(qbwd_phase)
+    mla, mla_phase = run_mla(args.seed, dec_lens)
+    phase_s.update(mla_phase)
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
     engines = quant["engines"]
     log("engine rates, float / W8A8+int8 / W4A8+int4: " + json.dumps(
         {"float": float_rates, **{k: v["rates"] for k, v in engines.items()}}))
+    log("MLA engine rates, float / W8A8+int8 latent: " + json.dumps(
+        {k: v["rates"] for k, v in mla["engines"].items()}))
 
     record = {"kernels": [
         {"name": "paged_decode", "route": "cuda", "source": SOURCE,
@@ -2110,11 +2629,26 @@ def main() -> int:
     replaces = {"flash_fwd": f"{FLASH_TPU}:546",
                 "flash_dq": f"{FLASH_BWD_TPU}:77",
                 "flash_dkv": f"{FLASH_BWD_TPU}:954"}
+    # The paged kernels at MLA's geometry, from phase 12.
+    for entry, kind in zip(record["kernels"], ("decode", "prefill")):
+        mt = mla["paged_times"][kind]
+        errs_k = [e for n, e in mla["paged_errors"].items()
+                  if n.startswith(kind)]
+        entry.update({
+            **{f"launches_mla_{k}": e["launches"][f"paged_{kind}"]
+               for k, e in mla["engines"].items()},
+            "rel_err_mla": max(e[0] for e in errs_k),
+            "max_abs_err_mla": max(e[1] for e in errs_k),
+            **{f"{key}_mla": mt[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
+    mla_flash = mla["flash_errors"]
     for name, t in flash_t.items():
         bf16 = flash_train_errs[torch.bfloat16]
         fp32 = flash_train_errs[torch.float32]
         keys = (("o", "l") if name == "flash_fwd" else
                 ("dq",) if name == "flash_dq" else ("dk", "dv"))
+        mt = mla["flash_times"][name]
         record["kernels"].append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces[name], "launches": train_launches[name],
@@ -2127,7 +2661,16 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library": ("sdpa forward" if name == "flash_fwd" else
                         "sdpa backward (dq, dk, dv together)"),
+            **{f"rel_err_mla_d{d}": max(
+                errs[k][0] for label, errs in mla_flash.items()
+                if label.startswith(f"d{d}") for k in keys)
+               for d in (80, 288)},
+            **{f"{key}_mla_d288": mt[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    next(e for e in record["kernels"] if e["name"] == "flash_fwd")[
+        "launches_mla_decompression"] = sum(
+            d["launches"]["flash_fwd"] for d in mla["decompression"].values())
     qt, fwd = qattn["times"], qattn["forward"]
     flagship_modes = ("quantize_q_row", "dequant_row8c", "dequant_row4c",
                       "folded_tensor", "folded_row")
@@ -2182,6 +2725,15 @@ def main() -> int:
         "shape_north_star": "B=4 H=4 S=4096 D=256 FULL, int8 Q and int8 P, "
                             "ROW K / CHANNEL V (both arms of the north-star "
                             "fwd+bwd)",
+        "launches_mla_quantized_latent": mla["absorbed_quantized"][
+            "launches"],
+        "rel_err_mla_quantized_latent": mla["absorbed_quantized"][
+            "errors"]["kernel"][0],
+        "max_abs_err_mla_quantized_latent": mla["absorbed_quantized"][
+            "errors"]["kernel"][2],
+        "shape_mla_quantized_latent": "B=2 Hq=16 Hkv=1 S=2048 D=256 causal, "
+                                      "bf16 Q, ROW CENTERED int8 latent "
+                                      "(mla_absorbed_attention)",
     })
 
     def worst(name, index):
@@ -2227,6 +2779,37 @@ def main() -> int:
             "shape": shape, **extra,
             **{k: v for k, v in t.items() if k.endswith("_qat_mode")},
         })
+    wo_modes = {"wo_folded_gemm": (f"{GEMM_TPU}:235", "int8 ROW (WEIGHT_CFG)"),
+                "wo_gemm": (f"{GEMM_TPU}:196", "int8 BLOCK 128 CENTERED")}
+    for name, (replaces, mode) in wo_modes.items():
+        t = mla["wo_times"][name]
+        errs_k = [e for n, e in mla["wo_errors"].items()
+                  if n.startswith("folded") == (name == "wo_folded_gemm")]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": GEMM_SOURCE,
+            "replaces": replaces,
+            "launches": sum(d["launches"][name]
+                            for d in mla["decompression"].values()),
+            "max_abs_err": max(e[1] for e in errs_k),
+            "rel_err": max(e[0] for e in errs_k),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": "torch.matmul of the bf16 latent by the "
+                       "pre-dequantized bf16 weight",
+            "shape": f"M={DEC_B * DEC_S} N={DEC_H * DEC_DH} K={DEC_DC}, bf16 "
+                     f"latent, {mode} (mla_decompress)",
+        })
+    record["mla"] = {
+        "logits_rel_l2": mla["logits_rel_l2"],
+        "decompression_rel_l2": {k: v["rel_l2"]
+                                 for k, v in mla["decompression"].items()},
+        "absorbed_int8_latent_rel_l2": mla["absorbed_quantized"]["errors"][
+            "vs_fp32_rel_l2"],
+        "int8_p_span_rel_err": {k: v[0]
+                                for k, v in mla["int8_p_errors"].items()},
+        "rates": {k: v["rates"] for k, v in mla["engines"].items()},
+    }
     record["quantized_backward"] = {
         key: ns[key] for key in ("fullint_vs_exact", "exact_vs_dense",
                                  "fullint_vs_dense_not_gated", "seconds")}

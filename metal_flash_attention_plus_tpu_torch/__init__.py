@@ -22,7 +22,13 @@ against; this package imports nothing of it (nor of JAX).  Ported so far:
   scale and zero-point cotangents), of ``QuantizedAttention`` and of
   ``quantized_flash_attention_qat`` / ``fake_quantize``, over the
   quantized dQ / dK/dV and full-integer kernels
-  (``csrc/quantized_attention_bwd.cu``).
+  (``csrc/quantized_attention_bwd.cu``);
+- MLA serving: ``MLAConfig`` models through ``ServingEngine(...,
+  executor=mla_executor())`` over one-state latent pages (the paged
+  kernels' ``v_tail_zero`` mode, head dim d_c + d_r), float or W8A8
+  (``quantize_mla_weights``), and ``mla_decompress`` over quantized
+  weights through the weight-only GEMM kernels (``quantized_matmul``,
+  ``csrc/quantized_gemm.cu``).
 
 Entry points take ``device=None``, meaning the CUDA card, and raise
 without one unless given ``device="cpu"``.
@@ -48,11 +54,23 @@ from metal_flash_attention_plus_tpu_torch.models.cached import (
     prefill,
     prefill_chunk,
 )
+from metal_flash_attention_plus_tpu_torch.models.cached_mla import (
+    init_mla_cache,
+    mla_decode_step,
+    mla_prefill_chunk,
+)
 from metal_flash_attention_plus_tpu_torch.models.convert import (
     params_from_jax,
     params_to_numpy,
 )
+from metal_flash_attention_plus_tpu_torch.models.mla_transformer import (
+    MLAConfig,
+    init_mla_params,
+    mla_forward,
+    mla_loss_fn,
+)
 from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
+    quantize_mla_weights,
     quantize_weights,
     quantized_forward,
 )
@@ -84,6 +102,7 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     dynamic_quantized_matmul,
+    quantized_matmul,
 )
 from metal_flash_attention_plus_tpu_torch.ops.runtime_quantization import (
     runtime_quantize,
@@ -102,9 +121,14 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
 from metal_flash_attention_plus_tpu_torch.reference.attention import (
     reference_attention,
 )
+from metal_flash_attention_plus_tpu_torch.ops.mla import (
+    mla_absorbed_attention,
+    mla_decompress,
+)
 from metal_flash_attention_plus_tpu_torch.serving.engine import (
     GenerationRequest,
     ServingEngine,
+    mla_executor,
 )
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import (
     PagedKVCache,
@@ -115,11 +139,11 @@ from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
 )
 
 __all__ = [
+    "BlockSizes",
     "CAUSAL",
     "FULL",
-    "TOLERANCES",
-    "BlockSizes",
     "GenerationRequest",
+    "MLAConfig",
     "MaskKind",
     "MaskSpec",
     "PagedKVCache",
@@ -130,6 +154,7 @@ __all__ = [
     "QuantizedAttentionConfig",
     "QuantizedTensor",
     "ServingEngine",
+    "TOLERANCES",
     "TransformerConfig",
     "decode_step",
     "dequantize",
@@ -142,9 +167,18 @@ __all__ = [
     "forward",
     "hadamard_transform",
     "init_cache",
+    "init_mla_cache",
+    "init_mla_params",
     "init_params",
     "loss_fn",
     "make_train_step",
+    "mla_absorbed_attention",
+    "mla_decode_step",
+    "mla_decompress",
+    "mla_executor",
+    "mla_forward",
+    "mla_loss_fn",
+    "mla_prefill_chunk",
     "paged_decode_attention",
     "paged_prefill_attention",
     "params_from_jax",
@@ -152,12 +186,14 @@ __all__ = [
     "prefill",
     "prefill_chunk",
     "quantize",
+    "quantize_mla_weights",
     "quantize_weights",
     "quantized_flash_attention",
     "quantized_flash_attention_forward",
     "quantized_flash_attention_forward_packed",
     "quantized_flash_attention_qat",
     "quantized_forward",
+    "quantized_matmul",
     "reference_attention",
     "runtime_quantize",
     "sliding_window",

@@ -40,35 +40,52 @@ struct BwdArgs {
   float scale;  // Q's pre-scale where the body scales Q, dQ's store scale
 };
 
+// Above D = 256 three [D][LD] tiles no longer fit in 227 KB beside a
+// [64][LD] one, so the dQ and dK/dV bodies keep two: Q_s^T and dO^T take
+// turns in one buffer, K^T and V^T in the other, each restaged per tile.
+template <int D>
+__host__ __device__ constexpr bool dq_do_resident() {
+  return D <= 256;
+}
+
 template <int D>
 constexpr size_t dq_smem_floats() {
-  return 3 * (size_t)D * LD + (size_t)BN * LD;  // Q^T, dO^T, K^T|V^T, dS^T
+  // Q^T, dO^T (Q^T's buffer above D = 256), K^T|V^T, dS^T
+  return (dq_do_resident<D>() ? 3 : 2) * (size_t)D * LD + (size_t)BN * LD;
+}
+
+// [D][LD] buffers of the dK/dV body: Q^T, dO^T, K^T, V^T up to D = 128;
+// K^T and V^T share one up to D = 256; Q^T and dO^T one more above.
+template <int D>
+__host__ __device__ constexpr int dkv_buffers() {
+  return D <= 128 ? 4 : (D <= 256 ? 3 : 2);
 }
 
 template <int D>
 __host__ __device__ constexpr bool dkv_resident() {
-  return D <= 128;
+  return dkv_buffers<D>() == 4;
 }
 
 template <int D>
 constexpr size_t dkv_smem_floats() {
-  // Q^T, dO^T, K^T and V^T (one shared buffer at D = 256), P^T|dS^T
-  return (dkv_resident<D>() ? 4 : 3) * (size_t)D * LD + (size_t)BM * LD;
+  return dkv_buffers<D>() * (size_t)D * LD + (size_t)BM * LD;  // + P^T|dS^T
 }
 
 // dQ for one (64 query rows, b, q head): Q_s^T and dO^T stay in shared
-// memory, the CTA loops over the live key tiles; per tile V^T then K^T are
+// memory (above D = 256 they take turns in one buffer, restaged per key
+// tile), the CTA loops over the live key tiles; per tile V^T then K^T are
 // staged in one buffer and K^T serves both S = Q_s.K^T and dQ += dS.K.
 // SCALE_Q: Q is scaled by a.scale and rounded to T here (else the caller
 // passed it pre-scaled).
 template <typename T, int D, bool SCALE_Q, typename KV>
 __device__ __forceinline__ void dq_body(const BwdArgs& a, const KV& kv) {
   constexpr int DV = D / 16;
+  constexpr bool RESIDENT = dq_do_resident<D>();
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;           // [D][LD]  Q_s^T
-  float* dot = qt + D * LD;   // [D][LD]  dO^T
-  float* kvt = dot + D * LD;  // [D][LD]  V^T, then K^T
-  float* dst = kvt + D * LD;  // [BN][LD] dS^T
+  float* qt = smem;                          // [D][LD]  Q_s^T
+  float* dot = RESIDENT ? qt + D * LD : qt;  // [D][LD]  dO^T
+  float* kvt = dot + D * LD;                 // [D][LD]  V^T, then K^T
+  float* dst = kvt + D * LD;                 // [BN][LD] dS^T
   __shared__ int s_lo, s_hi;
 
   const int Sq = a.Sq, Skv = a.Skv;
@@ -87,10 +104,12 @@ __device__ __forceinline__ void dq_body(const BwdArgs& a, const KV& kv) {
   const float* ksr = a.ksr ? a.ksr + bk * Skv : nullptr;
   const float* vsr = a.vsr ? a.vsr + bk * Skv : nullptr;
 
-  stage_t<T, D, SCALE_Q>(static_cast<const T*>(a.q) + bh * Sq * D, r0, Sq,
-                         qt, a.scale);
-  stage_t<T, D, false>(static_cast<const T*>(a.dout) + bh * Sq * D, r0, Sq,
-                       dot, 0.f);
+  const T* qh = static_cast<const T*>(a.q) + bh * Sq * D;
+  const T* doh = static_cast<const T*>(a.dout) + bh * Sq * D;
+  if (RESIDENT) {
+    stage_t<T, D, SCALE_Q>(qh, r0, Sq, qt, a.scale);
+    stage_t<T, D, false>(doh, r0, Sq, dot, 0.f);
+  }
   key_span(a.ranges, r0, Sq, Skv, &s_lo, &s_hi);
   const int c_lo = s_lo;
   const int c_hi = s_hi;
@@ -109,11 +128,13 @@ __device__ __forceinline__ void dq_body(const BwdArgs& a, const KV& kv) {
   }
 
   for (int t0 = c_lo; t0 < c_hi; t0 += BN) {
+    if (!RESIDENT) stage_t<T, D, false>(doh, r0, Sq, dot, 0.f);
     kv.stage(true, bk, t0, c_hi, kvt);
     __syncthreads();
     float dp[4][4];
     tile_product<D>(dot, ty, kvt, tx, dp);
-    __syncthreads();  // every thread is done with V^T
+    __syncthreads();  // every thread is done with V^T (and dO^T)
+    if (!RESIDENT) stage_t<T, D, SCALE_Q>(qh, r0, Sq, qt, a.scale);
     kv.stage(false, bk, t0, c_hi, kvt);
     __syncthreads();
     float s[4][4];
@@ -161,16 +182,18 @@ __device__ __forceinline__ void dq_body(const BwdArgs& a, const KV& kv) {
 // dK / dV for one (64 keys, b, kv head): the CTA owns its tile's dK and dV
 // and walks the GQA group's q heads x the query rows whose range meets the
 // tile (their span), so the group reduction needs no atomics and no second
-// pass.  K^T and V^T stay resident for D <= 128; at D = 256 they share one
-// buffer, restaged per query tile, to keep shared memory under 227 KB.
+// pass.  K^T and V^T stay resident for D <= 128; up to D = 256 they share
+// one buffer, restaged per query tile, to keep shared memory under 227 KB;
+// above it Q_s^T and dO^T share another (Q_s^T staged twice per tile).
 template <typename T, int D, typename KV>
 __device__ __forceinline__ void dkv_body(const BwdArgs& a, const KV& kv) {
   constexpr int DV = D / 16;
   constexpr bool RESIDENT = dkv_resident<D>();
+  constexpr bool Q_DO_SHARED = dkv_buffers<D>() == 2;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                         // [D][LD]  Q_s^T
-  float* dot = qt + D * LD;                 // [D][LD]  dO^T
-  float* kt = dot + D * LD;                 // [D][LD]  K^T
+  float* qt = smem;                             // [D][LD]  Q_s^T
+  float* dot = Q_DO_SHARED ? qt : qt + D * LD;  // [D][LD]  dO^T
+  float* kt = dot + D * LD;                     // [D][LD]  K^T
   float* vt = RESIDENT ? kt + D * LD : kt;  // [D][LD]  V^T
   float* ps = vt + D * LD;                  // [BM][LD] P, then dS (q-major)
   __shared__ int s_rmin, s_rmax;
@@ -226,11 +249,11 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, const KV& kv) {
     const size_t bh = (size_t)b * a.Hq + h;
     const float* bh_bias =
         a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+    const T* qh = static_cast<const T*>(a.q) + bh * Sq * D;
+    const T* doh = static_cast<const T*>(a.dout) + bh * Sq * D;
     for (int r0 = row_lo; r0 < row_hi; r0 += BM) {
-      stage_t<T, D, true>(static_cast<const T*>(a.q) + bh * Sq * D, r0,
-                          row_hi, qt, a.scale);
-      stage_t<T, D, false>(static_cast<const T*>(a.dout) + bh * Sq * D, r0,
-                           row_hi, dot, 0.f);
+      stage_t<T, D, true>(qh, r0, row_hi, qt, a.scale);
+      if (!Q_DO_SHARED) stage_t<T, D, false>(doh, r0, row_hi, dot, 0.f);
       if (!RESIDENT) kv.stage(false, bkv, c0, Skv, kt);
       int rs[4], re[4];
       float lcol[4], dcol[4];
@@ -259,7 +282,8 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, const KV& kv) {
         }
       }
       if (!RESIDENT) {
-        __syncthreads();  // every thread is done with K^T
+        __syncthreads();  // every thread is done with K^T (and Q_s^T)
+        if (Q_DO_SHARED) stage_t<T, D, false>(doh, r0, row_hi, dot, 0.f);
         kv.stage(true, bkv, c0, Skv, vt);
         __syncthreads();
       }
@@ -281,6 +305,7 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, const KV& kv) {
       __syncthreads();
       accumulate_pm<D>(ps, ty, dot, tx, dv_acc);  // dV += P^T.dO
       __syncthreads();
+      if (Q_DO_SHARED) stage_t<T, D, true>(qh, r0, row_hi, qt, a.scale);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         *reinterpret_cast<float4*>(ps + (tx * 4 + j) * LD + ty * 4) =

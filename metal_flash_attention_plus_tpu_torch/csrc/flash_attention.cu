@@ -54,7 +54,12 @@
 //     of rows whose range meets the tile), so the group reduction needs no
 //     atomics and no second pass.  K^T and V^T stay resident for D <= 128;
 //     at D = 256 they share one buffer, restaged per query tile, to keep
-//     shared memory under 227 KB.
+//     shared memory under 227 KB; at D = 288 Q_s^T and dO^T share one too
+//     (dQ likewise restages Q_s^T and dO^T per key tile there).
+//   Head dims: the kernels are built for D = 32, 64, 128, 256 and 288
+//   (MLAConfig's latent width d_c + d_r); the wrappers run any other
+//   multiple of 16 up to 288 at the next of these, its Q/K/V/dO lanes
+//   zero-padded, which adds nothing to S, O or any gradient.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -308,18 +313,20 @@ int launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // Returns LAUNCH<T, D>(args...) for the runtime dtype (0 = float32,
-// 1 = bfloat16) and head dim (32, 64, 128, 256).
+// 1 = bfloat16) and head dim (32, 64, 128, 256, 288).
+#define MFA_DIMS(LAUNCH, T, ...)                                   \
+  do {                                                             \
+    if (D == 32) return LAUNCH<T, 32>(__VA_ARGS__);                \
+    if (D == 64) return LAUNCH<T, 64>(__VA_ARGS__);                \
+    if (D == 128) return LAUNCH<T, 128>(__VA_ARGS__);              \
+    if (D == 256) return LAUNCH<T, 256>(__VA_ARGS__);              \
+    if (D == 288) return LAUNCH<T, 288>(__VA_ARGS__);              \
+  } while (0)
 #define MFA_DISPATCH(LAUNCH, ...)                                  \
   if (dtype == 0) {                                                \
-    if (D == 32) return LAUNCH<float, 32>(__VA_ARGS__);            \
-    if (D == 64) return LAUNCH<float, 64>(__VA_ARGS__);            \
-    if (D == 128) return LAUNCH<float, 128>(__VA_ARGS__);          \
-    if (D == 256) return LAUNCH<float, 256>(__VA_ARGS__);          \
+    MFA_DIMS(LAUNCH, float, __VA_ARGS__);                          \
   } else if (dtype == 1) {                                         \
-    if (D == 32) return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);    \
-    if (D == 64) return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);    \
-    if (D == 128) return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);  \
-    if (D == 256) return LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__);  \
+    MFA_DIMS(LAUNCH, __nv_bfloat16, __VA_ARGS__);                  \
   }                                                                \
   return (int)cudaErrorInvalidValue
 

@@ -33,6 +33,14 @@
 // base-2 online softmax in fp32; bias*log2(e) added after the K column
 // scale, then masked scores set to mask_value; O = acc / l (x the V channel
 // scale at STORE); L = m*ln2 + log(l); an empty row gives O = 0, L = -inf.
+// The CTA walks its live keys in 64-key tiles aligned to multiples of 64
+// from key 0, P rounded against the running row max.  An int8 Q (the only
+// Q of the int8 P of P_INT8, whose integers depend on that max) walks them
+// inside spans of kv_span keys (a multiple of 64) aligned the same way, as
+// the TPU kernel walks its block_kv tiles: with kv_span > 64 a first pass
+// over each span takes the span's row max, so P rounds against the TPU's
+// max whatever the CUDA tile (the wrapper passes the TPU's block_kv).  The
+// other instances compile no span loop and take kv_span = 64 only.
 //
 // What bounds them on the H100, and the design.
 //   At the flagship's attention shapes (B=2, Hq=16, Hkv=4, S=2048, D=64,
@@ -105,6 +113,7 @@ struct Args {
   long long q_sb, q_spair, q_shalf, q_sr;  // Q and O element strides
   int Hq, Hkv, Sq, Skv, interleaved;
   int bits_k, bits_v, k_scales, v_scales, flags, br, bs;
+  int kv_span;  // keys per span of the running max (a multiple of BN)
   float mask_value;
 };
 
@@ -190,7 +199,11 @@ __device__ __forceinline__ void qattn_body(const Args& a) {
     for (int e = 0; e < DV; ++e) acc[i][e] = 0.f;
   }
 
-  for (int t0 = c_lo; t0 < c_hi; t0 += BN) {
+  // One 64-key tile t0: the masked, scaled scores; pass 0 only folds them
+  // into each row's span max (this thread's columns), pass 1 rounds P
+  // against the running max and accumulates P.V.
+  float smax[4];
+  auto tile = [&](int t0, int pass) {
     float s[4][4];
     if constexpr (QINT) {
       stage_kv_words<D>(a.kq, a.bits_k, bk, a.Skv, t0, c_hi,
@@ -210,13 +223,14 @@ __device__ __forceinline__ void qattn_body(const Args& a) {
       tile_product<D>(qt, ty, kvt, tx, s);
     }
     __syncthreads();  // every thread is done with K^T
-    stage_kv<D>(KVOperand{a.vq, a.vs, a.vz, a.bits_v, a.v_scales}, bk, a.Skv,
-                a.br, a.bs, rb, t0, c_hi, kvt);
+    if (pass == 1)
+      stage_kv<D>(KVOperand{a.vq, a.vs, a.vz, a.bits_v, a.v_scales}, bk,
+                  a.Skv, a.br, a.bs, rb, t0, c_hi, kvt);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = r0 + ty * 4 + i;
-      float mx = -INFINITY;
+      float mx = smax[i];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = t0 + tx * 4 + j;
@@ -226,6 +240,10 @@ __device__ __forceinline__ void qattn_body(const Args& a) {
           s[i][j] += bh_bias[(size_t)row * a.Skv + col] * LOG2E;
         if (col < rs[i] || col >= re[i]) s[i][j] = a.mask_value;
         mx = fmaxf(mx, s[i][j]);
+      }
+      if (pass == 0) {
+        smax[i] = mx;
+        continue;
       }
       // The 16 threads of a row are the 16 lanes sharing ty in one warp.
 #pragma unroll
@@ -259,10 +277,30 @@ __device__ __forceinline__ void qattn_body(const Args& a) {
 #pragma unroll
       for (int e = 0; e < DV; ++e) acc[i][e] *= alpha;
     }
+    if (pass == 0) return;
     store_t(pt, ty, tx, s);
     __syncthreads();  // V^T and P^T staged
     accumulate_pm<D>(pt, ty, kvt, tx, acc);
     __syncthreads();  // before the next tile overwrites them
+  };
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) smax[i] = -INFINITY;
+  if constexpr (QINT) {
+    // Spans of kv_span keys aligned to multiples of it (only an int8 Q
+    // rounds an int8 P); with kv_span > BN a first pass over the span's
+    // tiles takes each row's max before the second computes P against it.
+    const int span = a.kv_span;
+    for (int sp0 = (c_lo / span) * span; sp0 < c_hi; sp0 += span) {
+      const int t_beg = max(sp0, (c_lo / BN) * BN);
+      const int t_end = min(sp0 + span, c_hi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) smax[i] = -INFINITY;
+      for (int pass = span > BN ? 0 : 1; pass < 2; ++pass)
+        for (int t0 = t_beg; t0 < t_end; t0 += BN) tile(t0, pass);
+    }
+  } else {
+    for (int t0 = (c_lo / BN) * BN; t0 < c_hi; t0 += BN) tile(t0, 1);
   }
 
   const float l_off = p_int8 ? LN_127 : 0.f;
@@ -337,8 +375,9 @@ int mfa_qattn_fwd(const void* q, const void* qs, const void* kq,
                   void* o, void* lse, int qtype, int B, int Hq, int Hkv,
                   int Sq, int Skv, int D, int interleaved, int bits_k,
                   int bits_v, int k_scales, int v_scales, int flags, int br,
-                  int bs, float mask_value, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || !valid_bits(bits_k) || !valid_bits(bits_v))
+                  int bs, int kv_span, float mask_value, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || !valid_bits(bits_k) || !valid_bits(bits_v) ||
+      kv_span <= 0 || kv_span % BN || (qtype != 2 && kv_span != BN))
     return (int)cudaErrorInvalidValue;
   const long long plane = (long long)Sq * D;
   const Args a{q, static_cast<const float*>(qs),
@@ -350,7 +389,7 @@ int mfa_qattn_fwd(const void* q, const void* qs, const void* kq,
                static_cast<float*>(o), static_cast<float*>(lse),
                Hq * plane, 2 * plane, plane, D,
                Hq, Hkv, Sq, Skv, interleaved, bits_k, bits_v, k_scales,
-               v_scales, flags, br, bs, mask_value};
+               v_scales, flags, br, bs, kv_span, mask_value};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qtype == 0) return launch_qattn_d<float>(a, B, D, s);
   if (qtype == 1) return launch_qattn_d<__nv_bfloat16>(a, B, D, s);
@@ -374,7 +413,7 @@ int mfa_hpack_fwd(const void* q, const void* kq, const void* vq,
                static_cast<float*>(o), static_cast<float*>(lse),
                H2 * pair, pair, 64, 128,
                Hq, Hkv, Sq, Skv, interleaved, bits_k, bits_v, K_NONE,
-               V_STORE, ROUND_BF16, 1, 1, mask_value};
+               V_STORE, ROUND_BF16, 1, 1, BN, mask_value};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = smem_floats<64>() * sizeof(float);
   if (qtype == 0) return launch(hpack_fwd_kernel<float>, a, B, smem, s);

@@ -1,14 +1,17 @@
 """Parameter conversion between the JAX package's pytree and the port's dict.
 
-``params_from_jax`` takes the JAX ``init_params`` tree with every leaf
-already turned into a numpy array (``jax.tree.map(np.asarray, params)``
-on the JAX side), so this module imports nothing of JAX.  The layouts are
-the same (``[in, out]`` weights), so the conversion is a copy.
+``params_from_jax`` takes the JAX ``init_params`` (or ``init_mla_params``)
+tree with every leaf already turned into a numpy array
+(``jax.tree.map(np.asarray, params)`` on the JAX side), so this module
+imports nothing of JAX.  The layouts are the same (``[in, out]`` weights;
+MLA's 3-D ``w_uk [H, dh, d_c]`` and ``w_uv [H, d_c, dh]`` as they are),
+so the conversion is a copy.
 ``params_to_numpy`` goes the other way, for parameters or their
 gradients, so that a test can compare the two packages leaf by leaf.
 
-Quantized parameters (the JAX ``quantize_weights`` output) carry across
-too.  After ``jax.tree.map(np.asarray, ...)`` their leaves are still the
+Quantized parameters (the JAX ``quantize_weights`` or
+``quantize_mla_weights`` output) carry across too.  After
+``jax.tree.map(np.asarray, ...)`` their leaves are still the
 JAX package's ``QuantizedTensor`` objects, with numpy fields; they are
 recognised by their fields (``data``, ``scale``, ``zero_point``,
 ``config``, ``shape``), never by importing the JAX class, and their
@@ -90,10 +93,10 @@ def params_from_jax(
     device: DeviceLike = None,
     dtype: Optional[torch.dtype] = None,
 ) -> Params:
-    """JAX transformer params (numpy leaves) → the port's params.
+    """JAX transformer or MLA params (numpy leaves) → the port's params.
 
-    ``dtype=None`` keeps each leaf's own dtype; otherwise weight matrices
-    are cast to ``dtype``.
+    ``dtype=None`` keeps each leaf's own dtype; otherwise weights of two
+    or more dimensions are cast to ``dtype``.
     """
     dev = resolve_device(device)
 

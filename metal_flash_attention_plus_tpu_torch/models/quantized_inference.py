@@ -61,6 +61,7 @@ WEIGHT_CFG = QuantConfig(
 )
 
 _PROJ_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+_MLA_PROJ_KEYS = ("wq", "wqr", "wdkv", "wkr", "wo", "wg", "wu", "wd")
 
 
 def quantize_weights(params: Params, cfg: QuantConfig = WEIGHT_CFG) -> Params:
@@ -76,6 +77,26 @@ def quantize_weights(params: Params, cfg: QuantConfig = WEIGHT_CFG) -> Params:
     out = dict(params)
     out["layers"] = [
         {k: (qt(v) if k in _PROJ_KEYS else v) for k, v in layer.items()}
+        for layer in params["layers"]
+    ]
+    out["unembed"] = qt(params["unembed"])
+    return out
+
+
+def quantize_mla_weights(params: Params,
+                         cfg: QuantConfig = WEIGHT_CFG) -> Params:
+    """The MLA family's :func:`quantize_weights`: every 2-D projection
+    (NoPE and RoPE queries, latent down-projection, shared RoPE key,
+    output, MLP, unembedding) becomes a transposed :class:`QuantizedTensor`;
+    the absorbed 3-D up-projections ``w_uk`` / ``w_uv`` stay float (they
+    ride inside the latent attention, not through a GEMM)."""
+
+    def qt(w):
+        return quantize(w.t().float(), cfg)
+
+    out = dict(params)
+    out["layers"] = [
+        {k: (qt(v) if k in _MLA_PROJ_KEYS else v) for k, v in layer.items()}
         for layer in params["layers"]
     ]
     out["unembed"] = qt(params["unembed"])

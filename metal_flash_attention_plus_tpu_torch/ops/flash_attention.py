@@ -49,7 +49,10 @@ from metal_flash_attention_plus_tpu_torch.reference.attention import (
 
 LOG2E = float(np.log2(np.e))
 LN2 = float(np.log(2.0))
-HEAD_DIMS = (32, 64, 128, 256)
+# The widths the flash kernels are built for.  Any other head dim that is a
+# multiple of 16 up to 288 runs at the next one up with its Q/K/V/dO lanes
+# zero-padded: zero lanes add nothing to S or O and take no gradient.
+FLASH_WIDTHS = (32, 64, 128, 256, 288)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -255,13 +258,30 @@ def range_mask(row_ranges: torch.Tensor, seq_kv: int):
 # ---------------------------------------------------------------------------
 
 
+def flash_width(d: int) -> int:
+    """The kernel width a head dim ``d`` runs at (see ``FLASH_WIDTHS``)."""
+    if d % 16 == 0:
+        for w in FLASH_WIDTHS:
+            if d <= w:
+                return w
+    raise ValueError(f"head dim {d} has no flash kernel (multiples of 16 up "
+                     f"to {FLASH_WIDTHS[-1]})")
+
+
+def pad_lanes(width: int, *tensors: torch.Tensor):
+    """The tensors with their last dim zero-padded to ``width``."""
+    return [t if t.shape[-1] == width else
+            torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+            for t in tensors]
+
+
 def check_kernel_inputs(name, q, k, v, row_ranges, bias, *, q_like=(),
                         stats=()):
     """Raise unless the tensors are what the CUDA kernels take: q/k/v (and
-    ``q_like``: dO) of one dtype in DTYPE_CODES, BHSD with a supported head
-    dim, contiguous and 16-byte aligned on one CUDA device; the row-range
-    table int32 [Sq, 2]; ``stats`` (L, D) fp32 [B, Hq, Sq]; the bias fp32
-    [1 or B, 1 or Hq, Sq, Skv]."""
+    ``q_like``: dO) of one dtype in DTYPE_CODES, BHSD with a head dim that
+    :func:`flash_width` takes, contiguous and 16-byte aligned on one CUDA
+    device; the row-range table int32 [Sq, 2]; ``stats`` (L, D) fp32
+    [B, Hq, Sq]; the bias fp32 [1 or B, 1 or Hq, Sq, Skv]."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
@@ -276,8 +296,7 @@ def check_kernel_inputs(name, q, k, v, row_ranges, bias, *, q_like=(),
     if k.shape[0] != b or dk != d or hq % hkv:
         raise ValueError(f"{name}: shapes {tuple(q.shape)} / "
                          f"{tuple(k.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    flash_width(d)
     for t in (q, k, v, *q_like):
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: q, k, v and dO must share a dtype")
@@ -379,14 +398,16 @@ def flash_fwd(
     ``row_ranges`` is the int32 [Sq, 2] table of :func:`row_ranges_tensor`;
     ``bias`` is fp32 [1 or B, 1 or Hq, Sq, Skv].  CPU tensors take
     :func:`flash_attention_forward_plain`; CUDA tensors launch
-    ``flash_fwd_kernel`` or raise.
+    ``flash_fwd_kernel`` or raise (at the head dim's :func:`flash_width`).
     """
     if q.device.type == "cpu":
         return flash_attention_forward_plain(
             q, k, v, row_ranges, bias=bias, scale=scale,
             interleaved_kv=interleaved_kv, mask_value=mask_value)
     check_kernel_inputs("flash_fwd", q, k, v, row_ranges, bias)
-    b, hq, sq, d = q.shape
+    b, hq, sq, d_in = q.shape
+    d = flash_width(d_in)
+    q, k, v = pad_lanes(d, q, k, v)
     hkv, skv = k.shape[1], k.shape[2]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -399,7 +420,7 @@ def flash_fwd(
     )
     _build.check_launch(rc, "flash_fwd")
     flash_fwd.launches += 1
-    return o, lse
+    return (o if d == d_in else o[..., :d_in].contiguous()), lse
 
 
 flash_fwd.launches = 0

@@ -57,18 +57,20 @@ from metal_flash_attention_plus_tpu_torch.attention.masking import (
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     DTYPE_CODES,
-    HEAD_DIMS,
     BlockSizes,
     _default_scale,
     bias_args,
     build_block_bounds,
     check_kernel_inputs,
+    flash_width,
     kernel_bias,
+    pad_lanes,
     range_mask,
     row_ranges_tensor,
     stream_of,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
+    HEAD_DIMS,
     _FOLDED,
     _channel_scales,
     _check_payload,
@@ -214,21 +216,23 @@ def flash_dq(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The dQ kernel: (dq fp32 [B, Hq, Sq, D], dS as dbias fp32
     [B, Hq, Sq, Skv] or None).  ``do`` in q's dtype; ``lse``/``di`` fp32
-    [B, Hq, Sq]; ``bias`` fp32 [1 or B, 1 or Hq, Sq, Skv]."""
+    [B, Hq, Sq]; ``bias`` fp32 [1 or B, 1 or Hq, Sq, Skv].  The kernel runs
+    at the head dim's ``flash_width``."""
     if q.device.type == "cpu":
         return flash_attention_dq_plain(
             q, k, v, do, lse, di, row_ranges, bias=bias, scale=scale,
             interleaved_kv=interleaved_kv, want_dbias=want_dbias)
     check_kernel_inputs("flash_dq", q, k, v, row_ranges, bias, q_like=(do,),
                         stats=(lse, di))
-    b, hq, sq, _ = q.shape
+    b, hq, sq, d = q.shape
+    q, k, v, do = pad_lanes(flash_width(d), q, k, v, do)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dbias = (torch.zeros((b, hq, sq, k.shape[2]), dtype=torch.float32,
                          device=q.device) if want_dbias else None)
     _launch("flash_dq", "mfa_flash_dq", q, k, v, do, lse, di, row_ranges,
             bias, dq, dbias, scale, interleaved_kv)
     flash_dq.launches += 1
-    return dq, dbias
+    return (dq if dq.shape[-1] == d else dq[..., :d].contiguous()), dbias
 
 
 flash_dq.launches = 0
@@ -248,18 +252,23 @@ def flash_dkv(
     interleaved_kv: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel: (dk, dv) fp32 [B, Hkv, Skv, D], summed over each
-    KV head's group of q heads.  Inputs as for :func:`flash_dq`."""
+    KV head's group of q heads.  Inputs as for :func:`flash_dq`; the kernel
+    runs at the head dim's ``flash_width``."""
     if q.device.type == "cpu":
         return flash_attention_dkv_plain(
             q, k, v, do, lse, di, row_ranges, bias=bias, scale=scale,
             interleaved_kv=interleaved_kv)
     check_kernel_inputs("flash_dkv", q, k, v, row_ranges, bias,
                         q_like=(do,), stats=(lse, di))
+    d = q.shape[-1]
+    q, k, v, do = pad_lanes(flash_width(d), q, k, v, do)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     _launch("flash_dkv", "mfa_flash_dkv", q, k, v, do, lse, di, row_ranges,
             bias, dk, dv, scale, interleaved_kv)
     flash_dkv.launches += 1
+    if dk.shape[-1] != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 

@@ -39,11 +39,16 @@ table covers every mask.  What they did to the numbers is kept:
   unrounded p; with ``int8_pv`` the int8 P (``+0.5`` then truncation) or
   the unrounded ``127·2^(s−m)``, and L drops ln 127.
 
-The kernels take the softmax online over 64-key tiles, so P rounds
-against the running row max, as the TPU kernel's does over its tiles.  The
-plain versions take it in one pass, or with ``kv_tile`` over the same
-tiles as a kernel; for the int8 P of ``int8_pv`` at thousands of keys the
-two differ by ~0.1 of O's max abs.
+The kernels take the softmax online over key tiles aligned to multiples
+of their width from key 0, so P rounds against the running row max, as the
+TPU kernel's does over its ``block_kv`` tiles.  For the int8 P of
+``int8_pv`` that max decides the integers (at thousands of keys a one-pass
+softmax lands ~0.1 of O's max abs away), so the forward resolves
+``block_kv`` from ``block_sizes`` as the JAX package does and hands it to
+the kernel as ``kv_tile``: a first pass over each such span takes the
+span's row max.  The plain versions take the softmax in one pass, or with
+``kv_tile`` over the same spans as a kernel; on CPU tensors ``qattn_fwd``
+hands them its own spans, so it computes the same on either device.
 """
 
 from __future__ import annotations
@@ -64,7 +69,6 @@ from metal_flash_attention_plus_tpu_torch.attention.masking import (
     Ranges,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
-    HEAD_DIMS,
     LN2,
     LOG2E,
     BlockSizes,
@@ -97,6 +101,17 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
 LOG2_127 = float(np.log2(127.0))
 LN_127 = float(np.log(127.0))
 KV_TILE = 64  # the kernels' query rows and keys per tile (BM, BN)
+HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernels are built for
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def int8_p_tile(block_sizes: BlockSizes, skv: int) -> int:
+    """The key span the JAX kernel rounds an int8 P over: its resolved
+    ``block_kv``, ``min(block_kv, round_up(Skv, 128))``."""
+    return min(block_sizes.block_kv, _round_up(skv, 128))
 
 K_SCALES = {"none": 0, "token": 1, "block2d": 2, "column": 3}
 V_SCALES = {"token": 1, "block2d": 2, "p": 3, "store": 4}
@@ -106,7 +121,7 @@ _FOLDED = (QuantGranularity.TENSOR, QuantGranularity.CHANNEL,
 
 _PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-_QATTN_ARGS = ([_PTR] * 10 + [_I64, _I64, _PTR, _PTR] + [_I32] * 15
+_QATTN_ARGS = ([_PTR] * 10 + [_I64, _I64, _PTR, _PTR] + [_I32] * 16
                + [_F32, _PTR])
 _HPACK_ARGS = [_PTR] * 7 + [_I32] * 9 + [_F32, _PTR]
 
@@ -162,23 +177,12 @@ def _kv_values(payload, scale, zp, mode_scales, bits, d, block,
     return w
 
 
-def _running_max(s: torch.Tensor, row_ranges: torch.Tensor,
-                 kv_tile: int) -> torch.Tensor:
+def _running_max(s: torch.Tensor, kv_tile: int) -> torch.Tensor:
     """Each score's row max over the key tiles up to its own, as the kernel
-    walks them: a block of ``KV_TILE`` query rows takes ``kv_tile``-key
-    tiles from the block's first live key (key 0 under FULL and CAUSAL,
-    where the TPU kernel's tiles start too)."""
-    sq, skv = s.shape[-2:]
-    start = row_ranges[:, 0].long().clamp_min(0)
-    live = row_ranges[:, 1].long().clamp(max=skv) > start
-    start = torch.where(live, start, torch.full_like(start, skv))
-    blocks = -(-sq // KV_TILE)
-    lo = torch.nn.functional.pad(start, (0, blocks * KV_TILE - sq),
-                                 value=skv).view(blocks, KV_TILE).amin(1)
-    lo = lo.repeat_interleave(KV_TILE)[:sq, None]
-    col = torch.arange(skv, device=s.device)
-    # Keys before the block's first live key are masked for all its rows.
-    tile = ((col - lo).clamp_min(0) // kv_tile).expand_as(s)
+    walks them: tiles of ``kv_tile`` keys aligned to multiples of it from
+    key 0, as the TPU kernel's ``block_kv`` tiles are."""
+    skv = s.shape[-1]
+    tile = (torch.arange(skv, device=s.device) // kv_tile).expand_as(s)
     tile_max = torch.full((*s.shape[:-1], -(-skv // kv_tile)), -float("inf"),
                           device=s.device).scatter_reduce(-1, tile, s, "amax")
     return tile_max.cummax(-1).values.gather(-1, tile)
@@ -202,9 +206,10 @@ def qattn_fwd_plain(
     """Plain PyTorch version of :func:`qattn_fwd`: the same values, the
     same roundings, the softmax in one pass.  ``kv_tile``: round P against
     the running row max over tiles of that many keys and rescale, as an
-    online softmax does (``KV_TILE``: the kernel's tiles).  That changes
-    what the int8 P of ``p_int8`` rounds to; over thousands of keys it
-    moves O by ~0.1 of its max abs from the one-pass values."""
+    online softmax does (the kernel's spans: ``kv_tile`` when it is given
+    one, else ``KV_TILE``).  That changes what the int8 P of ``p_int8``
+    rounds to; over thousands of keys it moves O by ~0.1 of its max abs
+    from the one-pass values."""
     hq, d = q.shape[1], q.shape[3]
     hkv, skv = kq.shape[1], kq.shape[2]
     cd = torch.bfloat16 if mode.round_bf16 else torch.float32
@@ -229,7 +234,7 @@ def qattn_fwd_plain(
     m = s.amax(dim=-1, keepdim=True)
     m_run = m
     if kv_tile is not None:  # a row's -inf prefix adds nothing, as on-chip
-        m_run = _running_max(s, row_ranges, kv_tile)
+        m_run = _running_max(s, kv_tile)
         m_run = torch.where(torch.isinf(m_run), m, m_run)
     if mode.p_int8:
         raw = torch.exp2(s + (LOG2_127 - m_run))
@@ -372,6 +377,7 @@ def qattn_fwd(
     bias: Optional[torch.Tensor] = None,
     interleaved_kv: bool = False,
     mask_value: float = DEFAULT_MASK_VALUE,
+    kv_tile: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The quantized forward kernel: (o fp32 [B, Hq, Sq, D], l fp32
     [B, Hq, Sq]).
@@ -380,16 +386,26 @@ def qattn_fwd(
     kq, vq: int8 [B, Hkv, Skv, D] or group-planar uint8 [.., D/2];
     ``k_params`` / ``v_params``: (scale, zero point) fp32 in the shapes of
     ``mode`` — per token [B, Hkv, Skv], per block [B, Hkv, Skv/br, D/bs],
-    per channel [B, Hkv, D] (V "store"), None where unused.  CPU tensors
-    take :func:`qattn_fwd_plain`; CUDA tensors launch ``qattn_fwd_kernel``
-    or raise."""
+    per channel [B, Hkv, D] (V "store"), None where unused.  ``kv_tile``:
+    the key span (a multiple of 64, above 64 for an int8 Q only) whose
+    running row max P rounds against, the TPU's ``block_kv``
+    (:func:`int8_p_tile`); None: the kernel's ``KV_TILE``-key tiles.  CPU
+    tensors take :func:`qattn_fwd_plain` over the same spans; CUDA tensors
+    launch ``qattn_fwd_kernel`` or raise."""
     kw = dict(mode=mode, bias=bias, interleaved_kv=interleaved_kv,
               mask_value=mask_value)
+    span = KV_TILE if kv_tile is None else kv_tile
     if q.device.type == "cpu":
         return qattn_fwd_plain(q, q_scales, kq, vq, k_params, v_params,
-                               row_ranges, **kw)
+                               row_ranges, kv_tile=span, **kw)
     check_qattn_inputs("qattn_fwd", q, q_scales, kq, vq, k_params, v_params,
                        row_ranges, bias, mode)
+    if span <= 0 or span % KV_TILE:
+        raise ValueError(f"qattn_fwd: kv_tile {kv_tile} is not a positive "
+                         f"multiple of {KV_TILE}")
+    if span != KV_TILE and q.dtype != torch.int8:
+        raise ValueError("qattn_fwd: key spans other than KV_TILE need an "
+                         "int8 Q (the int8-P mode)")
     b, hq, sq, d = q.shape
     hkv, skv = kq.shape[1], kq.shape[2]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -402,7 +418,7 @@ def qattn_fwd(
         o.data_ptr(), lse.data_ptr(), Q_TYPES[q.dtype], b, hq, hkv, sq, skv,
         d, int(interleaved_kv), mode.bits_k, mode.bits_v,
         K_SCALES[mode.k_scales], V_SCALES[mode.v_scales], mode.flags,
-        mode.block[0], mode.block[1], mask_value, stream_of(q),
+        mode.block[0], mode.block[1], span, mask_value, stream_of(q),
     )
     _build.check_launch(rc, "qattn_fwd")
     qattn_fwd.launches += 1
@@ -775,11 +791,11 @@ def quantized_flash_attention_forward(
     were quantized in the Hadamard-rotated basis; Q is rotated on the fly
     and O un-rotated after the kernel (both exact).  Unmasked d=64 calls
     with folded TENSOR / CHANNEL scales take the head-pair kernel, as in
-    the JAX package.  ``block_sizes`` is the TPU's tiling, accepted and
-    unused.  Returns (o [B, Hq, Sq, D] ``out_dtype``, l [B, Hq, Sq] fp32
-    natural LSE).
+    the JAX package.  ``block_sizes`` is the TPU's tiling: its ``block_kv``
+    gives the spans the int8 P of ``int8_pv`` rounds over
+    (:func:`int8_p_tile`), and the other modes read none of it.  Returns
+    (o [B, Hq, Sq, D] ``out_dtype``, l [B, Hq, Sq] fp32 natural LSE).
     """
-    del block_sizes
     b, hq, sq, d = q.shape
     _, hkv, skv, dk = k.shape
     if d != dk or tuple(v.shape) != tuple(k.shape) or hq % hkv:
@@ -800,7 +816,8 @@ def quantized_flash_attention_forward(
         q, k, v, mask=mask, mask_ranges=mask_ranges, bias=bias, scale=scale,
         interleaved_kv=interleaved_kv, mask_value=mask_value,
         quantize_q=quantize_q)
-    o, lse = qattn_fwd(*args, **kw)
+    o, lse = qattn_fwd(*args, **kw, kv_tile=(
+        int8_p_tile(block_sizes, skv) if pipe.int8_pv else None))
     o = o.to(out_dtype)
     if hadamard_block:
         # V was stored rotated, so O came out rotated: H once more.
@@ -883,9 +900,9 @@ class _QuantizedFlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, bias, kd, ks, kz, vd, vs, vz, meta, kw):
         k, v = _rebuild_kv((kd, ks, kz, vd, vs, vz), meta)
-        fwd = {n: kw[n] for n in ("mask", "scale", "interleaved_kv",
-                                  "mask_value", "hadamard_block",
-                                  "quantize_q")}
+        fwd = {n: kw[n] for n in ("mask", "scale", "block_sizes",
+                                  "interleaved_kv", "mask_value",
+                                  "hadamard_block", "quantize_q")}
         o, lse = quantized_flash_attention_forward(q, k, v, bias=bias, **fwd)
         ctx.save_for_backward(q, bias, kd, ks, kz, vd, vs, vz, o, lse)
         ctx.meta, ctx.kw = meta, kw

@@ -1,8 +1,21 @@
-"""Dynamic W8A8 / W4A8 GEMM: float A [M, K] × quantized Bᵀ [N, K] → [M, N],
-and the K/V tile helpers of the quantized attention.
+"""Quantized GEMMs: float A [M, K] × quantized Bᵀ [N, K] → [M, N], and the
+K/V tile helpers of the quantized attention.
 
-The twin of the JAX package's ``ops/quantized_gemm.py::
-dynamic_quantized_matmul``.  A is quantized per row in the wrapper (int8
+Two entry points of the JAX package's ``ops/quantized_gemm.py``:
+
+- :func:`quantized_matmul`, the weight-only GEMM (A stays float), with the
+  JAX dispatch: SYMMETRIC TENSOR / ROW weights and a non-fp32 A take
+  :func:`wo_folded_gemm` (``csrc/quantized_gemm.cu::wo_folded_kernel``, the
+  TPU's ``_wo_folded_kernel``): A in bf16 times the integer weights, the
+  scale on the fp32 accumulator once, then C; every other weight (or an
+  fp32 A) takes :func:`wo_gemm` (``wo_kernel``, the TPU's ``_wo_kernel``):
+  each weight ``(q − zp)·s`` with TENSOR, ROW or BLOCK (per K-block)
+  scales, rounded to the compute dtype (fp32 for an fp32 A, else bf16),
+  fp32 accumulation, C added at the store.  Launches are counted in
+  ``wo_folded_gemm.launches`` and ``wo_gemm.launches``.
+- :func:`dynamic_quantized_matmul`, W8A8 / W4A8, below.
+
+The dynamic GEMM.  A is quantized per row in the wrapper (int8
 symmetric, absmax/127, clipped to [-127, 127], and Σq per row), as the JAX
 wrapper does outside its kernel; :func:`dyn_gemm` then runs the
 integer product and the one-pass epilogue
@@ -28,7 +41,10 @@ from typing import Optional, Tuple
 import torch
 
 from metal_flash_attention_plus_tpu_torch import _build
-from metal_flash_attention_plus_tpu_torch.quant.params import QuantGranularity
+from metal_flash_attention_plus_tpu_torch.quant.params import (
+    QuantGranularity,
+    QuantStrategy,
+)
 from metal_flash_attention_plus_tpu_torch.quant.tensor import (
     INT4_GROUP,
     QuantizedTensor,
@@ -37,6 +53,11 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _DYN_ARGS = [_PTR] * 8 + [_I32] * 4 + [_PTR]
+_WO_FOLDED_ARGS = [_PTR] * 5 + [_I32] * 4 + [_PTR]
+_WO_ARGS = [_PTR] * 6 + [_I32] * 6 + [_PTR]
+# The weight-only kernel's scale cells (csrc/quantized_gemm.cu::WoScales).
+WO_SCALES = {QuantGranularity.TENSOR: 0, QuantGranularity.ROW: 1,
+             QuantGranularity.BLOCK: 2}
 
 
 def quantize_rows(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
@@ -272,3 +293,210 @@ def dynamic_quantized_matmul(
     """
     args, kw = _operands(a, b_t, c)
     return dyn_gemm(*args, **kw).to(out_dtype or torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Weight-only GEMMs: the kernels, their plain versions, quantized_matmul
+# ---------------------------------------------------------------------------
+
+
+def _weight_ints(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """The payload [N, K] int8 or group-planar [N, K/2] uint8 as fp32
+    integers [N, K]."""
+    return (unpack_int4(w) if bits == 4 else w).float()
+
+
+def _check_wo(name, a, a_dtypes, w, bits, vectors, c):
+    """Raise unless the tensors are what the weight-only kernels take: A
+    [M, K] in ``a_dtypes``, the payload of ``bits`` for [N, K], each of
+    ``vectors`` (tensor, length) fp32 of that length, C fp32 [M, N] or
+    None, all contiguous on one CUDA device."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if a.dim() != 2 or a.dtype not in a_dtypes:
+        raise TypeError(f"{name}: A must be [M, K] in {a_dtypes}, got "
+                        f"{a.dtype} {tuple(a.shape)}")
+    m, kdim = a.shape
+    n = w.shape[0]
+    want = (torch.int8, (n, kdim)) if bits == 8 else (
+        torch.uint8, (n, kdim // 2))
+    if bits not in (8, 4) or (w.dtype, tuple(w.shape)) != want:
+        raise TypeError(f"{name}: {bits}-bit weights must be {want[0]} "
+                        f"{want[1]}, got {w.dtype} {tuple(w.shape)}")
+    if bits == 4 and kdim % INT4_GROUP:
+        raise ValueError(f"{name}: int4 needs K % 256 == 0 (got {kdim})")
+    for t, size in vectors:
+        if t.dtype != torch.float32 or tuple(t.shape) != (size,):
+            raise TypeError(f"{name}: scales and zero points must be fp32 "
+                            f"[{size}]")
+    if c is not None and (c.dtype != torch.float32
+                          or tuple(c.shape) != (m, n)):
+        raise TypeError(f"{name}: c must be fp32 [M, N]")
+    for t in (a, w, *(t for t, _ in vectors),
+              *(() if c is None else (c,))):
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def wo_folded_gemm_plain(a, w, scale, *, bits: int,
+                         c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`wo_folded_gemm`: exact bf16 × int
+    products summed in fp32, then × the scale, then + C."""
+    r = (a.to(torch.bfloat16).float() @ _weight_ints(w, bits).t()) * scale
+    return r if c is None else r + c.float()
+
+
+def wo_folded_gemm(a, w, scale, *, bits: int,
+                   c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The folded weight-only kernel → fp32 [M, N]: ``(A·Wᵀ)·s[n] (+ C)``.
+
+    a bf16 [M, K]; w int8 [N, K] (bits 8) or group-planar uint8 [N, K/2]
+    (bits 4, K % 256 == 0); scale fp32 [N] (a TENSOR scale repeated);
+    c fp32 [M, N] or None.  CPU tensors take :func:`wo_folded_gemm_plain`;
+    CUDA tensors launch ``wo_folded_kernel`` or raise.
+    """
+    if a.device.type == "cpu":
+        return wo_folded_gemm_plain(a, w, scale, bits=bits, c=c)
+    n = w.shape[0]
+    _check_wo("wo_folded_gemm", a, (torch.bfloat16,), w, bits,
+              ((scale, n),), c)
+    m, kdim = a.shape
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    rc = _build.kernel_function("mfa_wo_folded_gemm", _WO_FOLDED_ARGS)(
+        a.data_ptr(), w.data_ptr(), scale.data_ptr(),
+        None if c is None else c.data_ptr(), out.data_ptr(), m, n, kdim,
+        bits, torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _build.check_launch(rc, "wo_folded_gemm")
+    wo_folded_gemm.launches += 1
+    return out
+
+
+wo_folded_gemm.launches = 0
+
+
+def _cells(scales: int, n: int, kdim: int):
+    """(view of the dequantized weight's scale cells, their count) for
+    TENSOR (one), ROW (per n) or BLOCK (per k) scales."""
+    return ((1, 1), 1) if scales == 0 else (
+        ((n, 1), n) if scales == 1 else ((1, kdim), kdim))
+
+
+def wo_gemm_plain(a, w, scale, zp, *, bits: int, scales: int,
+                  c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`wo_gemm`: ``(q − zp)·s`` in fp32
+    rounded to the compute dtype, A in it, the product summed in fp32,
+    then + C."""
+    cd = torch.float32 if a.dtype == torch.float32 else torch.bfloat16
+    n, kdim = w.shape[0], a.shape[1]
+    view, _ = _cells(scales, n, kdim)
+    deq = ((_weight_ints(w, bits) - zp.reshape(view)) * scale.reshape(view))
+    acc = a.to(cd).float() @ deq.to(cd).float().t()
+    return acc if c is None else acc + c.float()
+
+
+def wo_gemm(a, w, scale, zp, *, bits: int, scales: int,
+            c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dequant-on-load weight-only kernel → fp32 [M, N]:
+    ``A·round_cd((q − zp)·s)ᵀ (+ C)``.
+
+    a fp32 or bf16 [M, K] (its dtype is the compute dtype); w as for
+    :func:`wo_folded_gemm`; ``scales`` 0 (TENSOR: scale, zp fp32 [1]),
+    1 (ROW: [N]) or 2 (BLOCK, per element: [K]); c fp32 [M, N] or None.
+    CPU tensors take :func:`wo_gemm_plain`; CUDA tensors launch
+    ``wo_kernel`` or raise.
+    """
+    if a.device.type == "cpu":
+        return wo_gemm_plain(a, w, scale, zp, bits=bits, scales=scales, c=c)
+    m, kdim = a.shape
+    n = w.shape[0]
+    if scales not in (0, 1, 2):
+        raise ValueError(f"wo_gemm: scales {scales} is not 0, 1 or 2")
+    _, cells = _cells(scales, n, kdim)
+    _check_wo("wo_gemm", a, (torch.float32, torch.bfloat16), w, bits,
+              ((scale, cells), (zp, cells)), c)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    rc = _build.kernel_function("mfa_wo_gemm", _WO_ARGS)(
+        a.data_ptr(), w.data_ptr(), scale.data_ptr(), zp.data_ptr(),
+        None if c is None else c.data_ptr(), out.data_ptr(), m, n, kdim,
+        bits, scales, int(a.dtype == torch.bfloat16),
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _build.check_launch(rc, "wo_gemm")
+    wo_gemm.launches += 1
+    return out
+
+
+wo_gemm.launches = 0
+
+
+def wo_arguments(a: torch.Tensor, b_t: QuantizedTensor,
+                 c: Optional[torch.Tensor] = None):
+    """The JAX dispatch of :func:`quantized_matmul` → (folded, args, kw):
+    ``wo_folded_gemm(*args, **kw)`` when ``folded``, else
+    ``wo_gemm(*args, **kw)`` (and their plain versions on the same
+    arguments)."""
+    if a.dim() != 2 or len(b_t.shape) != 2 or a.shape[1] != b_t.shape[1]:
+        raise ValueError(f"A {tuple(a.shape)} and Bᵀ {tuple(b_t.shape)} do "
+                         "not match")
+    m, kdim = a.shape
+    n = b_t.shape[0]
+    cfg = b_t.config
+    g = cfg.granularity
+    if g == QuantGranularity.BLOCK and kdim % cfg.block_size:
+        raise ValueError(f"K={kdim} is not a multiple of the block size "
+                         f"{cfg.block_size}")
+    if cfg.bits == 4 and kdim % INT4_GROUP:
+        raise ValueError(
+            f"int4 kernel path requires K % 256 == 0 (got K={kdim}); "
+            "dequantize explicitly for ragged K")
+    if c is not None:
+        if tuple(c.shape) != (m, n):
+            raise ValueError(f"c must be [M, N], got {tuple(c.shape)}")
+        c = c.float().contiguous()
+    if (cfg.strategy == QuantStrategy.SYMMETRIC
+            and g in (QuantGranularity.TENSOR, QuantGranularity.ROW)
+            and a.dtype != torch.float32):
+        scale = b_t.scale.reshape(-1).float().expand(n).contiguous()
+        args = (a.to(torch.bfloat16).contiguous(), b_t.data, scale)
+        return True, args, dict(bits=cfg.bits, c=c)
+    if g not in WO_SCALES:
+        raise NotImplementedError(g)
+    scale = b_t.scale.reshape(-1).float()
+    zp = b_t.zero_point.reshape(-1).float()
+    if g == QuantGranularity.BLOCK:  # per K-block → per element [K]
+        scale = scale.repeat_interleave(cfg.block_size)
+        zp = zp.repeat_interleave(cfg.block_size)
+    a_c = a if a.dtype == torch.float32 else a.to(torch.bfloat16)
+    args = (a_c.contiguous(), b_t.data, scale.contiguous(), zp.contiguous())
+    return False, args, dict(bits=cfg.bits, scales=WO_SCALES[g], c=c)
+
+
+def quantized_matmul(
+    a: torch.Tensor,
+    b_t: QuantizedTensor,
+    *,
+    block_m: int = 512,
+    block_n: int = 512,
+    block_k: int = 512,
+    out_dtype: Optional[torch.dtype] = None,
+    c: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """A [M, K] (bf16/fp32) × dequant(Bᵀ [N, K]) → [M, N] in ``out_dtype``
+    (default A's dtype).
+
+    With SYMMETRIC TENSOR / ROW weight scales and a non-fp32 A the folded
+    kernel runs (A in bf16 times the integer weights, the scales once on
+    the accumulator); otherwise the weights are dequantized per tile, with
+    TENSOR, ROW or BLOCK scales.  ``c``: an optional [M, N] added in fp32
+    at the store (unscaled).  int4 weights need K % 256 == 0.  The JAX
+    package's ``block_m/n/k`` are TPU tiles, accepted and unused: the CUDA
+    kernels choose their own.
+    """
+    del block_m, block_n, block_k
+    folded, args, kw = wo_arguments(a, b_t, c)
+    out = (wo_folded_gemm if folded else wo_gemm)(*args, **kw)
+    return out.to(out_dtype or a.dtype)

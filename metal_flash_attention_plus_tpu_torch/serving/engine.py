@@ -8,9 +8,11 @@ pages, decodes run batched through the paged-decode kernel with padded
 batch slots pointing at the trash page.
 
 Greedy sampling; per-request EOS/max-token termination.  Everything runs
-under ``torch.inference_mode()``.  The engine serves the GQA transformer
-with float or quantized (W8A8 / W4A8) weights from a float, int8 or int4
-page pool; the MLA executor of the JAX engine comes with a later slice.
+under ``torch.inference_mode()``.  An executor decides the model family:
+the default serves the GQA transformer (``models/cached.py``) with float
+or quantized (W8A8 / W4A8) weights from a float, int8 or int4 page pool;
+:func:`mla_executor` serves MLA models (``models/cached_mla.py``) from a
+float or int8 latent pool, with float or W8A8 weights.
 Where the JAX engine fuses several decode steps into one ``lax.scan``
 dispatch, this one loops over ``decode_step`` with the argmax kept on the
 device; per-step CUDA graphs are later work.
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import types
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -48,11 +51,33 @@ class GenerationRequest:
     eos_token: Optional[int] = None
 
 
+def _gqa_executor():
+    return types.SimpleNamespace(
+        init_cache=cached.init_cache,
+        prefill_chunk=cached.prefill_chunk,
+        decode_step=cached.decode_step,
+    )
+
+
+def mla_executor():
+    """Executor for MLA models: latent-cache pages ([c | k_rope], Hkv = 1)."""
+    from metal_flash_attention_plus_tpu_torch.models import cached_mla
+
+    return types.SimpleNamespace(
+        init_cache=cached_mla.init_mla_cache,
+        prefill_chunk=cached_mla.mla_prefill_chunk,
+        decode_step=cached_mla.mla_decode_step,
+    )
+
+
 class ServingEngine:
     """Single-host continuous-batching engine over the paged KV cache.
 
     ``params`` must already be on ``device`` (default: the CUDA card;
-    without one the engine raises unless ``device="cpu"``).
+    without one the engine raises unless ``device="cpu"``).  ``executor``
+    (default: the GQA transformer's) gives the cache and the model calls:
+    ``init_cache``, ``prefill_chunk``, ``decode_step``; ``mla_executor()``
+    for an :class:`MLAConfig` model.
     """
 
     def __init__(
@@ -69,6 +94,7 @@ class ServingEngine:
         # False → float pages; True/8 → int8 K/V halves; 4 → the int4
         # shared byte (K low nibble, V high nibble).
         quantized_cache: Union[bool, int] = False,
+        executor=None,
         decode_steps: int = 1,
         device: DeviceLike = None,
     ):
@@ -86,7 +112,8 @@ class ServingEngine:
         self.sched = Scheduler(
             self.pool, max_batch, token_budget=self.chunk_size
         )
-        self.cache = cached.init_cache(
+        self.ex = executor or _gqa_executor()
+        self.cache = self.ex.init_cache(
             cfg, num_pages, page_tokens, cache_dtype,
             quantized=quantized_cache, device=self.device,
         )
@@ -162,7 +189,7 @@ class ServingEngine:
             chunk = full[it.chunk_start: it.chunk_start + it.chunk_len]
             padded = np.zeros(self.chunk_size, np.int64)
             padded[: len(chunk)] = chunk
-            logits, self.cache = cached.prefill_chunk(
+            logits, self.cache = self.ex.prefill_chunk(
                 self.params,
                 self._to_device(padded),
                 it.chunk_start,
@@ -211,7 +238,7 @@ class ServingEngine:
             pt = self._to_device(pts)
             steps = []
             for _ in range(n_steps):
-                logits, self.cache = cached.decode_step(
+                logits, self.cache = self.ex.decode_step(
                     self.params, tok, ln, pt, self.cache, self.cfg
                 )
                 self._decode_calls += 1

@@ -8,10 +8,11 @@ wrapper launches its hand-written Hopper kernel
 tensors on the CPU.  Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.
 
-Pools (one layer of :class:`PagedKVCache`):
+Pools (one layer of :class:`PagedKVCache`, or of the MLA latent cache):
 
-- float: ``kv_pages [Hkv, NP+1, 2·PT, D]`` in q's dtype — K of a page in
-  token rows ``[0, PT)``, V in ``[PT, 2PT)``;
+- float: ``kv_pages [Hkv, NP+1, S_sub·PT, D]`` in q's dtype.  S_sub = 2:
+  K of a page in token rows ``[0, PT)``, V in ``[PT, 2PT)``; S_sub = 1:
+  one state per token that is both K and V (MLA's latent pages);
 - int8 (``k_scales`` given): the same rows in int8, with per-token
   symmetric scales ``k_scales, v_scales [Hkv, NP+1, 1, PT]`` fp32;
 - int4 (``k_scales`` given and ``kv_bits=4``): ``[Hkv, NP+1, PT, D]`` int8,
@@ -20,6 +21,11 @@ Pools (one layer of :class:`PagedKVCache`):
 
 As in the JAX package, the pool is quantized when ``k_scales`` is given;
 ``kv_bits=4`` then selects the int4 byte and any other value means int8.
+S_sub is ``page rows // page_tokens`` (``page_tokens`` defaults to the page
+rows: S_sub = 1).  ``v_tail_zero``: V reads K's rows with its last
+``v_tail_zero`` lanes set to 0 (the rope tail of an MLA latent state).
+The int4 pool takes neither S_sub = 2 nor ``v_tail_zero``, as in JAX.  The
+kernels take any head dim that is a multiple of 16 up to 288.
 
 Numerics shared by kernels and plain versions: q is pre-scaled and rounded
 back to its dtype, ``(q.f32 · scale).to(q.dtype)``; scores, softmax
@@ -42,13 +48,12 @@ from metal_flash_attention_plus_tpu_torch import _build
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
-_DECODE_MAX_GROUP_ELEMS = 2048  # Hq/Hkv · D held by one decode CTA
+_MAX_HEAD_DIM = 288  # the kernels take multiples of 16 up to this
 # Pool modes of the kernels: float, int8 halves, int4 shared byte.
 _MODE_FLOAT, _MODE_INT8, _MODE_INT4 = 0, 1, 2
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_DECODE_ARGS = [_PTR] * 7 + [_I32] * 9 + [_F32, _PTR]
-_PREFILL_ARGS = [_PTR] * 6 + [_I32] * 10 + [_F32, _PTR]
+_DECODE_ARGS = [_PTR] * 7 + [_I32] * 11 + [_F32, _PTR]
+_PREFILL_ARGS = [_PTR] * 6 + [_I32] * 12 + [_F32, _PTR]
 
 
 def _pool_mode(k_scales, v_scales, kv_bits: int) -> int:
@@ -65,23 +70,30 @@ def _pool_mode(k_scales, v_scales, kv_bits: int) -> int:
     return _MODE_INT4 if kv_bits == 4 else _MODE_INT8
 
 
-def _geometry(q_heads, head_dim, kv_pages, page_tokens, mode):
-    """(Hkv, NP+1, PT); the int4 pool has PT rows per page, the others
-    2·PT."""
-    rows_per_token = 1 if mode == _MODE_INT4 else 2
+def _geometry(q_heads, head_dim, kv_pages, page_tokens, mode,
+              v_tail_zero):
+    """(Hkv, NP+1, PT, S_sub) of a pool, as the JAX package reads it:
+    S_sub = page rows // PT, 1 or 2 (1 for the int4 byte)."""
     if kv_pages.dim() != 4:
         raise ValueError(f"kv_pages must be [Hkv, NP+1, rows, D], got "
                          f"{tuple(kv_pages.shape)}")
     hkv, num_pages_total, page_rows, dk = kv_pages.shape
-    pt = page_rows // rows_per_token if page_tokens is None else page_tokens
-    if page_rows != rows_per_token * pt:
-        raise ValueError(f"page rows {page_rows} != {rows_per_token} · "
+    pt = page_rows if page_tokens is None else page_tokens
+    s_sub = page_rows // pt if pt > 0 else 0
+    if s_sub not in (1, 2) or page_rows != s_sub * pt:
+        raise ValueError(f"page rows {page_rows} are neither 1 nor 2 · "
                          f"page_tokens {pt}")
+    if mode == _MODE_INT4 and (s_sub != 1 or v_tail_zero):
+        raise ValueError("int4 pools need [.., page_tokens, D] shared-byte "
+                         "pages and no v_tail_zero")
     if dk != head_dim:
         raise ValueError(f"head dim mismatch: q {head_dim}, pool {dk}")
+    if not 0 <= v_tail_zero < head_dim:
+        raise ValueError(f"v_tail_zero {v_tail_zero} outside [0, "
+                         f"{head_dim})")
     if q_heads % hkv:
         raise ValueError(f"Hq={q_heads} is not a multiple of Hkv={hkv}")
-    return hkv, num_pages_total, pt
+    return hkv, num_pages_total, pt, s_sub
 
 
 def _scale_rows(scales, pages, mp, pt):
@@ -90,16 +102,22 @@ def _scale_rows(scales, pages, mp, pt):
     return g.reshape(*g.shape[:-3], mp * pt)
 
 
-def _read_kv(pages, pt, mode, dtype):
+def _read_kv(pages, pt, mode, dtype, v_tail_zero):
     """K and V (fp32) of gathered pages [..., rows, D] → [..., PT, D] each:
-    float pools in ``dtype``, quantized pools as their integers."""
+    float pools in ``dtype``, quantized pools as their integers; V's rows
+    are the page's last PT (K's own when S_sub = 1), its last
+    ``v_tail_zero`` lanes zeroed."""
     if mode == _MODE_INT4:
         k, v = unpack_kv4(pages)
-        return k.float(), v.float()
-    k, v = pages[..., :pt, :], pages[..., pt:, :]
-    if mode == _MODE_FLOAT:
-        return k.to(dtype).float(), v.to(dtype).float()
-    return k.float(), v.float()
+    else:
+        k, v = pages[..., :pt, :], pages[..., -pt:, :]
+        if mode == _MODE_FLOAT:
+            k, v = k.to(dtype), v.to(dtype)
+    k, v = k.float(), v.float()
+    if v_tail_zero:
+        v = v.clone()
+        v[..., v.shape[-1] - v_tail_zero:] = 0.0
+    return k, v
 
 
 def _check_cuda_inputs(name, q, kv_pages, ints, mode, scales, pt):
@@ -132,6 +150,10 @@ def _check_cuda_inputs(name, q, kv_pages, ints, mode, scales, pt):
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: page tables and lengths must be int32")
+    d = q.shape[-1]
+    if d % 16 or not 0 < d <= _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} has no kernel (multiples "
+                         f"of 16 up to {_MAX_HEAD_DIM})")
 
 
 def _default_scale(d: int, scale: Optional[float]) -> float:
@@ -158,17 +180,19 @@ def paged_decode_attention_plain(
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    v_tail_zero: int = 0,
     kv_bits: int = 8,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`paged_decode_attention`."""
     mode = _pool_mode(k_scales, v_scales, kv_bits)
     b, hq, d = q.shape
-    hkv, _, pt = _geometry(hq, d, kv_pages, page_tokens, mode)
+    hkv, _, pt, _ = _geometry(hq, d, kv_pages, page_tokens, mode,
+                              v_tail_zero)
     group = hq // hkv
     mp = page_table.shape[1]
     qs = _prescale(q, _default_scale(d, scale)).view(b, hkv, group, d)
     pages = kv_pages[:, page_table.long()]  # [Hkv, B, MP, rows, D]
-    k, v = _read_kv(pages, pt, mode, q.dtype)
+    k, v = _read_kv(pages, pt, mode, q.dtype, v_tail_zero)
     k = k.reshape(hkv, b, mp * pt, d)
     v = v.reshape(hkv, b, mp * pt, d)
     s = torch.einsum("bhgd,hbtd->bhgt", qs, k)
@@ -196,24 +220,26 @@ def paged_decode_attention(
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    v_tail_zero: int = 0,
     kv_bits: int = 8,
 ) -> torch.Tensor:
     """Single-token decode attention over a paged KV cache.
 
     Args:
       q: [B, Hq, D] current-step queries.
-      kv_pages: [Hkv, NP+1, 2·PT, D] merged page pool (float or int8), or
-        the int4 pool [Hkv, NP+1, PT, D].
+      kv_pages: [Hkv, NP+1, S_sub·PT, D] merged page pool (float or int8;
+        S_sub = 1 → one state per token is K and V), or the int4 pool
+        [Hkv, NP+1, PT, D].
       page_table: [B, max_pages] int32 physical page ids (entries past a
         sequence's last page are ignored; padded slots point at the trash
         page).
       lengths: [B] int32 tokens in each sequence's cache, INCLUDING the
         token being decoded (already appended); every length is ≥ 1.
-      page_tokens: PT (default: pool rows / 2, or the rows of an int4
-        pool).
+      page_tokens: PT (default: the pool's rows, S_sub = 1).
       k_scales, v_scales: [Hkv, NP+1, 1, PT] fp32 per-token scales of a
         quantized pool; None for a float pool.
       scale: softmax scale (default D^-0.5).
+      v_tail_zero: V's last lanes read as 0 (MLA's rope tail).
       kv_bits: 4 → the int4 pool (needs scales); anything else → int8.
 
     Returns [B, Hq, D] in q.dtype.  GQA: q head h reads kv head h // group.
@@ -222,19 +248,15 @@ def paged_decode_attention(
         return paged_decode_attention_plain(
             q, kv_pages, page_table, lengths, page_tokens=page_tokens,
             k_scales=k_scales, v_scales=v_scales, scale=scale,
-            kv_bits=kv_bits,
+            v_tail_zero=v_tail_zero, kv_bits=kv_bits,
         )
     mode = _pool_mode(k_scales, v_scales, kv_bits)
     scales = () if mode == _MODE_FLOAT else (k_scales, v_scales)
     b, hq, d = q.shape
-    hkv, num_pages_total, pt = _geometry(hq, d, kv_pages, page_tokens, mode)
+    hkv, num_pages_total, pt, s_sub = _geometry(hq, d, kv_pages, page_tokens,
+                                                mode, v_tail_zero)
     _check_cuda_inputs("paged_decode", q, kv_pages, (page_table, lengths),
                        mode, scales, pt)
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"paged_decode: head dim {d} not in {_HEAD_DIMS}")
-    if (hq // hkv) * d > _DECODE_MAX_GROUP_ELEMS:
-        raise ValueError("paged_decode: Hq/Hkv · D exceeds "
-                         f"{_DECODE_MAX_GROUP_ELEMS}")
     if page_table.shape[0] != b or lengths.shape != (b,):
         raise ValueError("paged_decode: page_table [B, MP] / lengths [B] "
                          "do not match q's batch")
@@ -244,7 +266,7 @@ def paged_decode_attention(
         q.data_ptr(), kv_pages.data_ptr(), *scale_ptrs,
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[q.dtype], mode, b, hq, hkv, d, num_pages_total, pt,
-        page_table.shape[1], _default_scale(d, scale),
+        s_sub, v_tail_zero, page_table.shape[1], _default_scale(d, scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check_launch(rc, "paged_decode")
@@ -270,17 +292,19 @@ def paged_prefill_attention_plain(
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    v_tail_zero: int = 0,
     kv_bits: int = 8,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`paged_prefill_attention`."""
     mode = _pool_mode(k_scales, v_scales, kv_bits)
     hq, chunk, d = q.shape
-    hkv, _, pt = _geometry(hq, d, kv_pages, page_tokens, mode)
+    hkv, _, pt, _ = _geometry(hq, d, kv_pages, page_tokens, mode,
+                              v_tail_zero)
     rows = (hq // hkv) * chunk
     mp = page_row.shape[0]
     qs = _prescale(q, _default_scale(d, scale)).view(hkv, rows, d)
     pages = kv_pages[:, page_row.long()]  # [Hkv, MP, rows, D]
-    k, v = _read_kv(pages, pt, mode, q.dtype)
+    k, v = _read_kv(pages, pt, mode, q.dtype, v_tail_zero)
     k = k.reshape(hkv, mp * pt, d)
     v = v.reshape(hkv, mp * pt, d)
     s = torch.einsum("hrd,htd->hrt", qs, k)
@@ -310,6 +334,7 @@ def paged_prefill_attention(
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    v_tail_zero: int = 0,
     kv_bits: int = 8,
 ) -> torch.Tensor:
     """Chunked-prefill attention for ONE sequence over its paged cache.
@@ -320,13 +345,12 @@ def paged_prefill_attention(
 
     Args:
       q: [Hq, chunk, D] chunk queries.
-      kv_pages, k_scales, v_scales, kv_bits: the pool, as for
-        :func:`paged_decode_attention`.
+      kv_pages, k_scales, v_scales, v_tail_zero, kv_bits: the pool, as
+        for :func:`paged_decode_attention`.
       page_row: [max_pages] int32 physical page ids for this sequence.
       offset: the chunk's first global position (an int; a tensor is read
         back to the host).
-      page_tokens: PT (default: pool rows / 2, or the rows of an int4
-        pool).
+      page_tokens: PT (default: the pool's rows, S_sub = 1).
       scale: softmax scale (default D^-0.5).
 
     Returns [Hq, chunk, D] in q.dtype.
@@ -335,16 +359,15 @@ def paged_prefill_attention(
         return paged_prefill_attention_plain(
             q, kv_pages, page_row, offset, page_tokens=page_tokens,
             k_scales=k_scales, v_scales=v_scales, scale=scale,
-            kv_bits=kv_bits,
+            v_tail_zero=v_tail_zero, kv_bits=kv_bits,
         )
     mode = _pool_mode(k_scales, v_scales, kv_bits)
     scales = () if mode == _MODE_FLOAT else (k_scales, v_scales)
     hq, chunk, d = q.shape
-    hkv, num_pages_total, pt = _geometry(hq, d, kv_pages, page_tokens, mode)
+    hkv, num_pages_total, pt, s_sub = _geometry(hq, d, kv_pages, page_tokens,
+                                                mode, v_tail_zero)
     _check_cuda_inputs("paged_prefill", q, kv_pages, (page_row,), mode,
                        scales, pt)
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"paged_prefill: head dim {d} not in {_HEAD_DIMS}")
     if page_row.dim() != 1:
         raise ValueError("paged_prefill: page_row must be [max_pages]")
     offset = int(offset)
@@ -355,8 +378,8 @@ def paged_prefill_attention(
     rc = _build.kernel_function("mfa_paged_prefill", _PREFILL_ARGS)(
         q.data_ptr(), kv_pages.data_ptr(), *scale_ptrs,
         page_row.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], mode, hq,
-        hkv, chunk, d, num_pages_total, pt, page_row.shape[0], offset,
-        _default_scale(d, scale),
+        hkv, chunk, d, num_pages_total, pt, s_sub, v_tail_zero,
+        page_row.shape[0], offset, _default_scale(d, scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check_launch(rc, "paged_prefill")

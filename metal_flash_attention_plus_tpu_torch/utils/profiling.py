@@ -3,6 +3,8 @@ forward's or the quantized fwd+bwd's time goes on the card.
 
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling [--seed N]
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --quantized 8
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling --mla \
+        [--quantized 8]
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --train
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --quantized-attention packed
@@ -17,6 +19,11 @@ from the seed, engine defaults) twice: once to warm up, once under
 ``--quantized 8`` / ``--quantized 4``: the same traffic with W8A8 weights
 over an int8 page pool, or W4A8 weights (4-bit ROW symmetric) over an int4
 pool, as in ``chip_smoke.py``'s quantized engine phase.
+
+``--mla``: the same traffic on ``MLAConfig()`` (random weights from the
+seed) through ``mla_executor()``, over a float latent pool or, with
+``--quantized 8``, W8A8 weights (``quantize_mla_weights``) over an int8
+one, as in ``chip_smoke.py`` phase 12 (g).
 
 ``--train``: the train step of ``chip_smoke.py``'s training phase (the
 bf16 flagship, Adam at lr 3e-3, one seeded batch of 4 × 2049 tokens): two
@@ -56,7 +63,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from metal_flash_attention_plus_tpu_torch.models.mla_transformer import (
+    MLAConfig,
+    init_mla_params,
+)
 from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
+    quantize_mla_weights,
     quantize_weights,
     quantized_forward,
 )
@@ -81,6 +93,7 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import quantize
 from metal_flash_attention_plus_tpu_torch.serving.engine import (
     GenerationRequest,
     ServingEngine,
+    mla_executor,
 )
 
 
@@ -134,10 +147,11 @@ def north_star_grads(q, kq, vq, do, fullint: bool):
     return torch.autograd.grad((o.float() * do.float()).sum(), leaves)
 
 
-def serve_once(cfg, params, seed: int,
-               quantized_cache=False) -> ServingEngine:
+def serve_once(cfg, params, seed: int, quantized_cache=False,
+               executor=None) -> ServingEngine:
     """One engine with default settings serving the smoke traffic."""
-    engine = ServingEngine(params, cfg, quantized_cache=quantized_cache)
+    engine = ServingEngine(params, cfg, quantized_cache=quantized_cache,
+                           executor=executor)
     for req in smoke_requests(cfg, seed):
         engine.submit(req)
     engine.run()
@@ -177,21 +191,27 @@ def print_profile(prof, wall_s: float, calls: int, what: str) -> int:
     return 0
 
 
-def profile_serving(cfg, params, seed: int, quantized=None) -> int:
+def profile_serving(cfg, params, seed: int, quantized=None,
+                    mla: bool = False) -> int:
     """``quantized`` 8 or 4: W8A8 / W4A8 weights over an int8 / int4
-    pool."""
-    if quantized:
+    pool.  ``mla``: an :class:`MLAConfig` model through ``mla_executor()``
+    (``quantized`` 8 only: ``quantize_mla_weights``, an int8 latent
+    pool)."""
+    if quantized and mla:
+        params = quantize_mla_weights(params)
+    elif quantized:
         params = quantize_weights(params, QuantConfig(
             bits=quantized, granularity=QuantGranularity.ROW))
     pool = quantized or False
-    serve_once(cfg, params, seed, pool)  # warm-up: builds, cuBLAS plans
+    executor = mla_executor() if mla else None
+    serve_once(cfg, params, seed, pool, executor)  # warm-up: builds, plans
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine = serve_once(cfg, params, seed, pool)
+        engine = serve_once(cfg, params, seed, pool, executor)
         wall_s = time.perf_counter() - t0
     stats = engine.stats
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "mla": mla,
                       "quantized": quantized, "engine_stats": stats,
                       "profiled_wall_s": wall_s}))
     return print_profile(prof, wall_s,
@@ -290,6 +310,9 @@ def main() -> int:
     ap.add_argument("--quantized", type=int, choices=(8, 4),
                     help="serve W8A8 weights over an int8 pool (8) or W4A8 "
                     "weights over an int4 pool (4)")
+    ap.add_argument("--mla", action="store_true",
+                    help="serve MLAConfig() through mla_executor() (with "
+                    "--quantized 8: W8A8 weights over an int8 latent pool)")
     ap.add_argument("--quantized-attention", choices=("packed", "unpacked"),
                     help="profile quantized_forward(quantize_kv=True)")
     ap.add_argument("--quantized-backward", choices=("fullint", "exact"),
@@ -301,6 +324,13 @@ def main() -> int:
         return 2
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
+    if args.mla:
+        if args.quantized == 4:
+            ap.error("MLA latent pools are float or int8")
+        cfg = MLAConfig()
+        params = init_mla_params(cfg, torch.Generator().manual_seed(args.seed))
+        return profile_serving(cfg, params, args.seed, args.quantized,
+                               mla=True)
     cfg = TransformerConfig()
     params = init_params(cfg, torch.Generator().manual_seed(args.seed))
     if args.train:

@@ -29,6 +29,9 @@ from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
 from metal_flash_attention_plus_tpu_torch.ops import flash_attention as tfa
+from metal_flash_attention_plus_tpu_torch.ops import (
+    flash_attention_bwd as fbwd,
+)
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_backward,
 )
@@ -98,9 +101,13 @@ CASES = {
                           False, (1, 4, 100, 100)),
     "ragged_rect_bias": (1, 2, 2, 70, 190, 16, (tm.CAUSAL, jm.CAUSAL, None),
                          False, (1, 1, 70, 190)),
+    # MLA's latent attention: one KV head, D = d_c + d_r = 64 + 16.
+    "mla_latent_d80": (1, 4, 1, 96, 96, 80, (tm.CAUSAL, jm.CAUSAL, None),
+                       False, None),
 }
 BWD_CASES = ["causal_gqa", "causal_interleaved", "window_causal_rect",
-             "segments_empty_row", "bias_causal_bcast", "ragged_rect_bias"]
+             "segments_empty_row", "bias_causal_bcast", "ragged_rect_bias",
+             "mla_latent_d80"]
 
 
 def _inputs(name, seed=0):
@@ -279,3 +286,34 @@ def test_unported_options_raise():
             fullint=True)
     for g, w in zip(got[:3], want[:3]):
         assert _rel(g.numpy(), w) <= TOL
+
+
+def test_kernel_widths_and_zero_padded_lanes():
+    """On the card a head dim runs at the next width the kernels are built
+    for, its Q/K/V/dO lanes zero-padded: the padded call gives the same O,
+    L and gradients in the head dim's lanes, and zeros in the rest."""
+    assert [tfa.flash_width(d) for d in (16, 48, 64, 80, 96, 272, 288)] == [
+        32, 64, 64, 128, 128, 288, 288]
+    for d in (40, 304):
+        with pytest.raises(ValueError):
+            tfa.flash_width(d)
+    q, k, v, do, _ = _inputs("window_causal_rect", seed=2)
+    q, k, v, do = _torch(q, k, v, do)
+    rr = tfa.row_ranges_tensor(tm.sliding_window(40, causal=True), 96, 160,
+                               None, "cpu")
+    kw = dict(scale=64 ** -0.5)
+    o, lse = tfa.flash_attention_forward_plain(q, k, v, rr, **kw)
+    po, plse = tfa.flash_attention_forward_plain(*tfa.pad_lanes(80, q, k, v),
+                                                 rr, **kw)
+    assert _rel(po[..., :64].numpy(), o.numpy()) <= TOL
+    assert _rel(plse.numpy(), lse.numpy()) <= TOL
+    assert not po[..., 64:].any()
+    di = (do * o).sum(-1)
+    grads = (fbwd.flash_attention_dq_plain(q, k, v, do, lse, di, rr, **kw)[0],
+             *fbwd.flash_attention_dkv_plain(q, k, v, do, lse, di, rr, **kw))
+    padded = tfa.pad_lanes(80, q, k, v, do)
+    pgrads = (fbwd.flash_attention_dq_plain(*padded, lse, di, rr, **kw)[0],
+              *fbwd.flash_attention_dkv_plain(*padded, lse, di, rr, **kw))
+    for got, want in zip(pgrads, grads):
+        assert _rel(got[..., :64].numpy(), want.numpy()) <= TOL
+        assert not got[..., 64:].any()

@@ -19,8 +19,14 @@ products exactly and round the epilogue at the same places.  The quantized
 attention kernels are held as the flash kernels: fp32 where nothing is
 rounded (an fp32 Q with dequantized or integer K/V), 2e-2 (L 7e-3) where P
 is rounded (a bf16 Q, the int8 P of ``int8_pv``, the head-pair kernel's
-bf16 P) against the running row max in the kernel and the final one in the
-plain version.  The runtime quantization kernels are held bit for bit.
+bf16 P); the plain version takes the kernel's key spans (``kv_tile``).
+The runtime quantization kernels are held bit for bit.  The weight-only
+GEMM kernels sum exact products (bf16 × int8, bf16 × bf16) or fp32 ones in
+another order than the plain versions: an fp32 result within
+TOLERANCES["fp32"] of its max abs, a bf16 one within one bf16 ulp.  MLA's
+modes of the paged kernels (one-state latent pages, ``v_tail_zero``,
+D = 80 and 288, Hq = 16 over Hkv = 1) and of the flash kernels (D = 80 and
+288) take their kernels' tolerances.
 """
 
 import dataclasses
@@ -34,6 +40,7 @@ from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    BlockSizes,
     flash_attention_forward_plain,
     flash_fwd,
     row_ranges_tensor,
@@ -147,8 +154,8 @@ def test_prefill_kernel_matches_plain(cuda_device, dtype, hq, hkv, d, pt,
 
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_head_dim(cuda_device):
-    q = torch.zeros(1, 2, 48, device=cuda_device)
-    pool = torch.zeros(1, 2, 32, 48, device=cuda_device)
+    q = torch.zeros(1, 2, 40, device=cuda_device)  # not a multiple of 16
+    pool = torch.zeros(1, 2, 32, 40, device=cuda_device)
     table = torch.zeros(1, 1, dtype=torch.int32, device=cuda_device)
     lengths = torch.ones(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
@@ -244,9 +251,10 @@ def test_flash_kernels_match_plain(cuda_device, dtype, interleaved, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 48, 64, 80, 128, 256, 288])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_every_head_dim(cuda_device, d, dtype):
+    """Each built width, and 48 (run at 64, zero-padded)."""
     (q, k, v), do, _, rr = _flash_case(cuda_device, dtype, 1, 4, 1, 150, 150,
                                        d, masking.CAUSAL, seed=d)
     kw = dict(scale=d ** -0.5)
@@ -269,9 +277,9 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
                                        64, 64, 64, masking.CAUSAL)
     with pytest.raises(TypeError):
         flash_fwd(q.half(), k.half(), v.half(), rr, scale=0.125)
-    with pytest.raises(ValueError):  # head dim 48 has no kernel
-        flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                  v[..., :48].contiguous(), rr, scale=0.125)
+    with pytest.raises(ValueError):  # head dim 40 has no kernel
+        flash_fwd(q[..., :40].contiguous(), k[..., :40].contiguous(),
+                  v[..., :40].contiguous(), rr, scale=0.125)
     with pytest.raises(ValueError):  # not contiguous
         flash_fwd(q.transpose(1, 2), k, v, rr, scale=0.125)
     lse = torch.zeros(1, 2, 64, device=cuda_device)
@@ -525,11 +533,15 @@ def test_qattn_kernel_matches_plain(cuda_device, name):
     if "bias" in opts:
         opts["bias"] = torch.randn(opts["bias"], device=cuda_device)
     args, kw = qa.qattn_arguments(q, kq, vq, mask=mask, **opts)
+    # The public forward's spans: the TPU's block_kv for an int8 P.
+    tile = (qa.int8_p_tile(BlockSizes(), skv) if kw["mode"].p_int8
+            else None)
     n = qa.qattn_fwd.launches
-    o, lse = qa.qattn_fwd(*args, **kw)
+    o, lse = qa.qattn_fwd(*args, **kw, kv_tile=tile)
     torch.cuda.synchronize()
     assert qa.qattn_fwd.launches == n + 1
-    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw, kv_tile=qa.KV_TILE)
+    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw,
+                                      kv_tile=tile or qa.KV_TILE)
     tol_o, tol_l = _qattn_tols(dtype, kw["mode"].p_int8)
     assert o.dtype == torch.float32 and o.shape == o_ref.shape
     assert _rel(o, o_ref) <= tol_o
@@ -835,3 +847,164 @@ def test_runtime_quantize_through_the_kernels(cuda_device):
                                getattr(want, field))
     with pytest.raises(TypeError):  # fp16 has no kernel
         rq.rtq_rows(x.half(), qparams.QuantStrategy.SYMMETRIC, 8)
+
+
+# --------------------------------------------------------------------------
+# MLA's modes of the paged kernels: one-state latent pages, v_tail_zero
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("d,vtz", [(288, 32), (80, 16)])
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_latent_paged_kernels_match_plain(cuda_device, kernel, d, vtz,
+                                          pool_kind):
+    """Hq = 16 over Hkv = 1: the decode splits the group over CTAs at
+    D = 288; D = 80 runs the kernels' run-time head dim."""
+    rng = np.random.default_rng(d + vtz)
+    hq, pt, num_pages = 16, 64, 12
+    dtype = torch.float32 if pool_kind == "f32" else torch.bfloat16
+    if pool_kind == "int8":
+        pool = torch.from_numpy(rng.integers(-128, 128, (
+            1, num_pages + 1, pt, d)).astype(np.int8)).to(cuda_device)
+        sc = torch.from_numpy(rng.uniform(0.5, 2.0, (
+            1, num_pages + 1, 1, pt)).astype(np.float32)).to(cuda_device) / 127
+        kw = dict(k_scales=sc, v_scales=sc)
+    else:
+        pool = torch.from_numpy(rng.standard_normal((
+            1, num_pages + 1, pt, d)).astype(np.float32)).to(cuda_device,
+                                                             dtype)
+        kw = {}
+    kw.update(page_tokens=pt, v_tail_zero=vtz, scale=0.1)
+    if kernel == "decode":
+        lengths = np.asarray([1, pt + 3, 3 * pt - 5, 4 * pt], np.int32)
+        _, table = _inputs(rng, 1, num_pages, pt, 16, lengths, 4)
+        args = (torch.from_numpy(rng.standard_normal((4, hq, d)).astype(
+            np.float32)).to(cuda_device, dtype), pool,
+            torch.from_numpy(table).to(cuda_device),
+            torch.from_numpy(lengths).to(cuda_device))
+        fn, plain = paged_decode_attention, paged_decode_attention_plain
+    else:
+        offset, chunk = 70, 100
+        _, table = _inputs(rng, 1, num_pages, pt, 16, [offset + chunk], 4)
+        args = (torch.from_numpy(rng.standard_normal((hq, chunk, d)).astype(
+            np.float32)).to(cuda_device, dtype), pool,
+            torch.from_numpy(table[0]).to(cuda_device), offset)
+        fn, plain = paged_prefill_attention, paged_prefill_attention_plain
+    n = fn.launches
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    ref = plain(*args, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype)
+    # V's rope tail is zero, so the output's is too.
+    assert not out[..., d - vtz:].float().abs().max().item()
+
+
+# --------------------------------------------------------------------------
+# The quantized forward's int8 P over the TPU's key spans
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_kv", [128, 512])
+@pytest.mark.parametrize("mask", [masking.FULL, masking.CAUSAL],
+                         ids=["full", "causal"])
+def test_qattn_int8_p_over_key_spans_matches_plain(cuda_device, mask,
+                                                   block_kv):
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 2, 256, 1024, 256, ROW8,
+                              CH8, torch.bfloat16, seed=block_kv)
+    args, kw = qa.qattn_arguments(q, kq, vq, mask=mask, quantize_q=True)
+    assert kw["mode"].p_int8
+    tile = qa.int8_p_tile(BlockSizes(block_kv=block_kv), 1024)
+    o, lse = qa.qattn_fwd(*args, **kw, kv_tile=tile)
+    torch.cuda.synchronize()
+    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw, kv_tile=tile)
+    assert _rel(o, o_ref) <= BF16_TOL
+    assert _rel(lse, l_ref) <= TOLERANCES["lse"]
+    fwd, _ = qa.quantized_flash_attention_forward(
+        q, kq, vq, mask=mask, quantize_q=True,
+        block_sizes=BlockSizes(block_kv=block_kv))
+    assert torch.equal(fwd, o)
+    with pytest.raises(ValueError):  # spans are whole 64-key tiles
+        qa.qattn_fwd(*args, **kw, kv_tile=96)
+    f_args, f_kw = qa.qattn_arguments(q, kq, vq, mask=mask)
+    with pytest.raises(ValueError):  # only an int8 Q walks key spans
+        qa.qattn_fwd(*f_args, **f_kw, kv_tile=tile)
+
+
+# --------------------------------------------------------------------------
+# The weight-only GEMMs
+# --------------------------------------------------------------------------
+
+WO_CASES = {
+    # name: (bits, granularity, strategy, block, A dtype, M, N, K, with c):
+    # SYMMETRIC TENSOR / ROW with a bf16 A take the folded kernel.
+    "folded_row8": (8, "row", "symmetric", None, BF16, 300, 200, 256, False),
+    "folded_row8_c": (8, "row", "symmetric", None, BF16, 300, 200, 256, True),
+    "folded_row4": (4, "row", "symmetric", None, BF16, 70, 130, 512, False),
+    "folded_tensor8_c": (8, "tensor", "symmetric", None, BF16, 37, 70, 96,
+                         True),
+    "wo_block128": (8, "block", "centered", 128, BF16, 300, 200, 256, False),
+    "wo_block64_int4_c": (4, "block", "centered", 64, BF16, 37, 70, 256,
+                          True),
+    "wo_asym_row": (8, "row", "asymmetric", None, BF16, 300, 200, 256, False),
+    "wo_asym_row_c": (8, "row", "asymmetric", None, BF16, 37, 70, 100, True),
+    "wo_f32_row": (8, "row", "symmetric", None, F32, 300, 200, 256, False),
+    "wo_f32_tensor_int4_c": (4, "tensor", "centered", None, F32, 37, 70, 256,
+                             True),
+}
+
+
+def _bf16_close(out, ref):
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+        out.abs(), ref.abs()).clamp_min(2.0 ** -126))) - 7)
+    return bool(((out - ref).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WO_CASES))
+def test_weight_only_gemm_kernels_match_plain(cuda_device, name):
+    bits, gran, strategy, bs, adtype, m, n, k, with_c = WO_CASES[name]
+    rng = np.random.default_rng(m + n + k + bits)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device)
+
+    wq = quantize(t(n, k), _qcfg(bits=bits, gran=gran, strategy=strategy,
+                                 block_size=bs))
+    a = t(m, k).to(adtype)
+    c = t(m, n) if with_c else None
+    folded = name.startswith("folded")
+    n0 = (qg.wo_folded_gemm.launches, qg.wo_gemm.launches)
+    out = qg.quantized_matmul(a, wq, c=c)
+    torch.cuda.synchronize()
+    assert (qg.wo_folded_gemm.launches, qg.wo_gemm.launches) == (
+        n0[0] + folded, n0[1] + (not folded))
+    ref = qg.quantized_matmul(a.cpu(), wq.to("cpu"),
+                              c=None if c is None else c.cpu())
+    assert out.dtype == adtype and out.shape == (m, n)
+    if adtype == F32:
+        assert _rel(out.cpu(), ref) <= TOLERANCES["fp32"]
+    else:
+        assert _bf16_close(out.cpu().float(), ref.float())
+
+
+@pytest.mark.cuda
+def test_weight_only_gemm_kernels_reject_what_they_do_not_take(cuda_device):
+    a = torch.ones(4, 256, device=cuda_device, dtype=BF16)
+    w8 = quantize(torch.ones(8, 256, device=cuda_device), ROW8)
+    scale = w8.scale.reshape(-1).float()
+    with pytest.raises(TypeError):  # the folded kernel takes a bf16 A
+        qg.wo_folded_gemm(a.float(), w8.data, scale, bits=8)
+    with pytest.raises(TypeError):  # an int8 payload declared int4
+        qg.wo_folded_gemm(a, w8.data, scale, bits=4)
+    with pytest.raises(TypeError):  # ROW scales of the wrong length
+        qg.wo_gemm(a, w8.data, scale[:4], scale[:4], bits=8, scales=1)
+    with pytest.raises(ValueError):  # not a scale kind of the kernel
+        qg.wo_gemm(a, w8.data, scale, scale, bits=8, scales=3)
+    with pytest.raises(ValueError):  # CPU tensors for the kernel
+        qg.wo_gemm(a, w8.data.cpu(), scale, scale, bits=8, scales=1)

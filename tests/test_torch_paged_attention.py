@@ -4,7 +4,10 @@ The same seeded numpy inputs go to the JAX kernels (Pallas in interpret
 mode, fp32, HIGHEST matmul precision) and to the port's plain PyTorch
 versions, which is what the port's wrappers run for CPU tensors.  Held to
 TOLERANCES["fp32"] (max abs error).  The CUDA kernels are held to the
-plain versions in tests/test_torch_kernels.py, on the card.
+plain versions in tests/test_torch_kernels.py, on the card.  Besides the
+two-state pool (K and V halves), MLA's latent pool: one state per token
+(S_sub = 1) read as K and, with its rope tail zeroed (``v_tail_zero``), as
+V, at a head dim (80) outside the GQA model's.
 """
 
 import jax
@@ -114,9 +117,47 @@ def test_cpu_wrappers_take_plain_path_without_launching():
 
 
 def test_bad_pool_shape_raises():
+    """Page rows must be 1 or 2 · page_tokens (one-state pages, PT rows, are
+    MLA's latent layout and valid)."""
     q, pool, table, lengths = _decode_inputs()
     with pytest.raises(ValueError):
         paged_decode_attention(
-            torch.from_numpy(q), torch.from_numpy(pool[:, :, :PT]),
+            torch.from_numpy(q), torch.from_numpy(pool[:, :, :PT + 3]),
             torch.from_numpy(table), torch.from_numpy(lengths), page_tokens=PT,
         )
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_latent_pages_with_v_tail_zero_match_jax(kernel, quantized):
+    """Hq = 4 over Hkv = 1 at D = 80 = d_c 64 + d_r 16, V's last 16 lanes
+    zeroed; the int8 pool's one scale per token serves K and V."""
+    rng = np.random.default_rng(7 + quantized)
+    d, vtz, hq = 80, 16, 4
+    if quantized:
+        pool = rng.integers(-128, 128, (1, NP + 1, PT, d)).astype(np.int8)
+        scales = rng.uniform(0.5, 2.0, (1, NP + 1, 1, PT)).astype(
+            np.float32) / 127
+        kw = dict(k_scales=scales, v_scales=scales)
+    else:
+        pool = rng.standard_normal((1, NP + 1, PT, d)).astype(np.float32)
+        kw = {}
+    if kernel == "decode":
+        lengths = np.asarray([1, PT + 3, 3 * PT - 5], np.int32)
+        args = (rng.standard_normal((3, hq, d)).astype(np.float32), pool,
+                _tables(rng, lengths), lengths)
+        jfn, tfn = jax_decode, paged_decode_attention_plain
+    else:
+        offset, chunk = 19, 9
+        args = (rng.standard_normal((hq, chunk, d)).astype(np.float32), pool,
+                _tables(rng, [offset + chunk])[0], offset)
+        jfn, tfn = jax_prefill, paged_prefill_attention_plain
+    with jax.default_matmul_precision("highest"):
+        ref = jfn(*(jnp.asarray(a) for a in args), page_tokens=PT,
+                  v_tail_zero=vtz, interpret=True,
+                  **{k: jnp.asarray(v) for k, v in kw.items()})
+    out = tfn(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                for a in args), page_tokens=PT, v_tail_zero=vtz,
+              **{k: torch.from_numpy(v) for k, v in kw.items()})
+    assert out.shape == args[0].shape
+    assert _max_err(out.numpy(), ref) <= TOLERANCES["fp32"]

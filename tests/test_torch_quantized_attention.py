@@ -36,6 +36,7 @@ from metal_flash_attention_plus_tpu_torch.attention.precisions import (
 )
 from metal_flash_attention_plus_tpu_torch.ops import hadamard as thad
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    BlockSizes,
     range_mask,
 )
 from metal_flash_attention_plus_tpu_torch.ops import quantized_attention as tqa
@@ -259,8 +260,9 @@ def test_int8_p_over_several_key_tiles_matches_jax(mask):
 
 def _online(args, kw, sq, skv):
     """The kernel's softmax, written as a loop: each block of 64 query rows
-    walks 64-key tiles from its first live key, P rounded against the
-    running max, earlier tiles rescaled."""
+    walks 64-key tiles aligned to multiples of 64, from the one holding its
+    first live key, P rounded against the running max, earlier tiles
+    rescaled."""
     q_in, q_sc, kd, vd, k_par, v_par, rr = args
     mode = kw["mode"]
     s = q_in.float() @ kd.float().transpose(-1, -2)
@@ -276,7 +278,7 @@ def _online(args, kw, sq, skv):
         starts = [int(a) for a, b in rr[rows].tolist() if b > a]
         m = torch.full((*s.shape[:2], rows.stop - r0, 1), -float("inf"))
         acc, l = torch.zeros_like(o[:, :, rows]), torch.zeros_like(m)
-        for t0 in range(min(starts, default=skv), skv, 64):
+        for t0 in range(min(starts, default=skv) // 64 * 64, skv, 64):
             st = s[:, :, rows, t0:t0 + 64]
             m_next = torch.maximum(m, st.amax(-1, keepdim=True))
             alpha = torch.where(torch.isinf(m), torch.zeros_like(m),
@@ -300,7 +302,8 @@ def _online(args, kw, sq, skv):
                          ids=["int8_p", "bf16_p"])
 def test_tiled_plain_version_is_the_online_softmax(quantize_q):
     """``kv_tile=KV_TILE`` gives what the kernel's loop gives, under a
-    sliding window whose row blocks start their tiles at different keys."""
+    sliding window whose row blocks start at different key tiles; the
+    wrapper on CPU tensors takes the kernel's tiles without being told."""
     _, (tq, tk, tv) = _inputs(np.random.default_rng(3), 1, 2, 2, 200, 200,
                               64, ROW8 if quantize_q else TEN8, CH8, "bf16")
     mask = tmask.sliding_window(96, causal=True)
@@ -310,6 +313,33 @@ def test_tiled_plain_version_is_the_online_softmax(quantize_q):
     got, _ = tqa.qattn_fwd_plain(*args, **kw, kv_tile=tqa.KV_TILE)
     want = _online(args, kw, 200, 200)
     assert (got - want).abs().max().item() <= TOLERANCES["fp32"]
+    assert torch.equal(tqa.qattn_fwd(*args, **kw)[0], got)
+
+
+@pytest.mark.parametrize("block_kv", [128, 256])
+@pytest.mark.parametrize("mask", ["full", "causal"])
+def test_int8_p_rounds_over_the_tpu_key_tiles(mask, block_kv):
+    """The forward resolves ``block_kv`` from ``block_sizes`` as the JAX
+    package does and rounds the int8 P over those spans (4 and 2 key tiles
+    of 512 keys here), as the JAX kernel does; a one-pass softmax lands
+    well away.  Seed 1 has no P within fp32 noise of a half-integer."""
+    rng = np.random.default_rng(1)
+    (jq, jk, jv), (tq, tk, tv) = _inputs(rng, 1, 2, 2, 256, 512, 64, ROW8,
+                                         CH8, "f32")
+    with jax.default_matmul_precision("highest"):
+        jo, jl = jqa.quantized_flash_attention_forward(
+            jq, jk, jv, mask=MASKS[mask][0], quantize_q=True,
+            block_sizes=JBlockSizes(block_q=128, block_kv=block_kv))
+    to, tl = tqa.quantized_flash_attention_forward(
+        tq, tk, tv, mask=MASKS[mask][1], quantize_q=True,
+        block_sizes=BlockSizes(block_q=128, block_kv=block_kv))
+    assert tqa.int8_p_tile(BlockSizes(block_kv=block_kv), 512) == block_kv
+    assert _max_err(to, jo) <= TOLERANCES["fp32"]
+    assert _max_err(tl, jl) <= TOLERANCES["fp32"]
+    args, kw = tqa.qattn_arguments(tq, tk, tv, mask=MASKS[mask][1],
+                                   quantize_q=True)
+    one_pass, _ = tqa.qattn_fwd_plain(*args, **kw)
+    assert _max_err(one_pass, jo) > 10 * TOLERANCES["fp32"]
 
 
 ERRORS = {

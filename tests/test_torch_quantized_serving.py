@@ -198,9 +198,19 @@ def test_paged_mode_rules():
                                        k_scales=scales, v_scales=scales,
                                        kv_bits=4)  # 16 rows: PT = 16
     assert out.shape == (1, 2, 32)
-    with pytest.raises(ValueError):  # int8 halves: 16 rows is PT 8
-        paged_decode_attention_plain(q, pool, table, lengths, page_tokens=16,
+    with pytest.raises(ValueError):  # 16 rows are neither 1 nor 2 · 5
+        paged_decode_attention_plain(q, pool, table, lengths, page_tokens=5,
                                      k_scales=scales, v_scales=scales)
+    with pytest.raises(ValueError):  # int4 pools take no v_tail_zero
+        paged_decode_attention_plain(q, pool, table, lengths,
+                                     k_scales=scales, v_scales=scales,
+                                     kv_bits=4, v_tail_zero=8)
+    # int8 with 16 rows of 16 tokens: one state per token (S_sub = 1), as
+    # the JAX package reads it.
+    out = paged_decode_attention_plain(q, pool, table, lengths,
+                                       page_tokens=16, k_scales=scales,
+                                       v_scales=scales)
+    assert out.shape == (1, 2, 32)
 
 
 # --------------------------------------------------------------------------
