@@ -51,7 +51,9 @@ checkout, then, on the card:
    causal) in the unpacked model's mode (int8 Q, ROW K/V), dequant-on-load
    ROW CENTERED int8 and int4 and folded TENSOR and ROW scales, and at
    small shapes over int8 P·V with CHANNEL/TENSOR V, BLOCK_2D, bias, a
-   sliding window, interleaved GQA, D=128 and ragged S; (b) the head-pair
+   sliding window, interleaved GQA, D=128, ragged S and D=80 / 96 (run
+   zero-padded at 128; at D=96 also BLOCK_2D with 48-wide blocks, which
+   do not tile 128); (b) the head-pair
    kernel against its plain version at the flagship shapes in the packed
    layout, int8 and int4, causal and full; (c) both runtime quantization
    kernels against their plain versions, bit for bit; (d) full-width
@@ -74,7 +76,9 @@ checkout, then, on the card:
    dK/dV kernels at the flagship's attention shapes in folded ROW /
    CHANNEL / TENSOR and dequant ROW CENTERED int8 / int4 modes, and at
    small shapes over BLOCK_2D, bias with dbias, a sliding window,
-   interleaved GQA, D=128 / 256 and ragged S; (b) bench.py's loss,
+   interleaved GQA, D=128 / 256, ragged S and D=80 / 96 (zero-padded at
+   128, at D=96 also BLOCK_2D with 48-wide blocks; the full-integer pair
+   too, level 1); (b) bench.py's loss,
    sum(O·dO) through ``quantized_flash_attention(quantize_q=True,
    bwd_fullint=True | False)`` at the north-star shape, differentiated with
    respect to (q, K scales, V scales) with one full-integer (or exact) dQ
@@ -114,7 +118,21 @@ checkout, then, on the card:
    float and W8A8 + int8 latent, the launch counts set to 0 just before
    and read after; (h) times of the paged kernels at MLA's geometry, the
    flash kernels at D=288 and both GEMM kernels beside their bounds, plain
-   versions and library calls.
+   versions and library calls;
+13. the GEMM engine (inputs from a sixth generator, seed + 5): (a) the
+   quantized-A kernels (folded int8 / int4 ROW and int8 TENSOR; dequant
+   ROW ASYMMETRIC, BLOCK 128 and an fp32 B) and the compensated ones
+   (BLOCK 128 and 512 with asymmetric zero points, bit for bit; small
+   blocks 32 and 64; each with and without ``c=``) against their plain
+   versions at the flagship's projection shapes (M=4096) and
+   benchmarks/gemm_bench.py's (M=128 and 4096, N=K=8192); (b)
+   ``ops.gemm.matmul`` at M=4096, N=K=1024 over every operand kind and
+   dispatch arm (the degraded QT × QT arms: int4 A, unequal blocks, ROW
+   B, no fast int8 path; ``transpose_a``; ``c=``) against the dequantized
+   reference, with exactly one launch of the expected GEMM kernel per
+   call; (c) the four kernels' times at gemm_bench's shapes, on
+   utils/profiling.py's arms, beside their bounds, plain versions and
+   library calls.
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -212,9 +230,23 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     quantized_flash_attention_forward,
     quantized_flash_attention_qat,
 )
+from metal_flash_attention_plus_tpu_torch.ops.gemm import (
+    GEMMDescriptor,
+    matmul,
+)
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
+    comp_arguments,
+    comp_gemm,
+    comp_gemm_plain,
+    comp_small_gemm,
+    comp_small_gemm_plain,
     dyn_gemm,
     dyn_gemm_plain,
+    qa_arguments,
+    qa_folded_gemm,
+    qa_folded_gemm_plain,
+    qa_gemm,
+    qa_gemm_plain,
     quantize_rows,
     weight_scales,
     wo_arguments,
@@ -225,6 +257,10 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
 )
 from metal_flash_attention_plus_tpu_torch.ops import (
     runtime_quantization as rtq,
+)
+from metal_flash_attention_plus_tpu_torch.quant import capabilities
+from metal_flash_attention_plus_tpu_torch.quant.compensation import (
+    dequantized_gemm_reference,
 )
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantConfig,
@@ -253,19 +289,23 @@ from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
     paged_prefill_attention,
     paged_prefill_attention_plain,
 )
+from metal_flash_attention_plus_tpu_torch.utils.roofline import H100_SXM
 from metal_flash_attention_plus_tpu_torch.utils.profiling import (
+    GEMM_SHAPES,
     NORTH_STAR_BLOCKS,
     NORTH_STAR_SHAPE,
     north_star_grads,
     north_star_inputs,
+    gemm_arm,
     smoke_requests,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s,
-# bf16 tensor-core flop/s and int8 tensor-core op/s.
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-INT8_OPS = 1979e12
+# bf16 tensor-core flop/s and int8 tensor-core op/s (utils/roofline.py's
+# H100_SXM).
+HBM_BYTES_PER_S = H100_SXM.hbm_gbps * 1e9
+BF16_FLOPS = H100_SXM.bf16_tflops * 1e12
+INT8_OPS = H100_SXM.int8_tops * 1e12
 
 # Kernel vs plain version, both on identical bf16 inputs: they round the
 # same values to bf16 at the same places (q after scaling, P before P.V);
@@ -1330,6 +1370,8 @@ def check_qattn_all(rng):
     ten8, ch8 = qcfg(gran="tensor"), qcfg(gran="channel")
     b2d = qcfg(gran="block_2d", strategy="centered", block_rows=4,
                block_size=32)
+    b2d48 = qcfg(gran="block_2d", strategy="centered", block_rows=4,
+                 block_size=48)
     errs = {
         "quantize_q_row": check_qattn(rng, "quantize_q ROW (flagship)",
                                       *shapes, row8, row8, quantize_q=True),
@@ -1352,6 +1394,11 @@ def check_qattn_all(rng):
          dict(mask=masking.sliding_window(96, causal=True))),
         ("interleaved", 64, row8c, row8c, dict(interleaved_kv=True)),
         ("d128", 128, row8c, row8c, {}),
+        # Head dims run zero-padded to the next built width.
+        ("quantize_q d80", 80, row8, row8, dict(quantize_q=True)),
+        ("int4 ROW CENTERED d96", 96, row4c, row4c, {}),
+        ("folded CHANNEL d96", 96, ch8, ch8, {}),
+        ("BLOCK_2D 48 d96", 96, b2d48, b2d48, {}),
     ]
     for label, d, kcfg, vcfg, opts in cases:
         errs[label] = check_qattn(rng, label, *small, d, kcfg, vcfg, **opts)
@@ -1757,6 +1804,8 @@ def check_bwd_kernels_all(rng):
                                   kcfg, vcfg)
     b2d = qcfg(gran="block_2d", strategy="centered", block_rows=4,
                block_size=32)
+    b2d48 = qcfg(gran="block_2d", strategy="centered", block_rows=4,
+                 block_size=48)
     small = (2, 8, 2, 300, 300)
     for label, d, kcfg, vcfg, opts in (
             ("BLOCK_2D", 64, b2d, b2d, {}),
@@ -1768,8 +1817,16 @@ def check_bwd_kernels_all(rng):
             ("folded CHANNEL interleaved", 64, ch8, ch8,
              dict(interleaved_kv=True)),
             ("d128", 128, row8c, row8c, {}),
-            ("d256 folded ROW", 256, row8, row8, {})):
+            ("d256 folded ROW", 256, row8, row8, {}),
+            # Head dims run zero-padded to the next built width.
+            ("d80", 80, row8c, row8c, {}),
+            ("d96 int4", 96, row4c, row4c, {}),
+            ("d96 folded ROW", 96, row8, row8, {}),
+            ("BLOCK_2D 48 d96", 96, b2d48, b2d48, {})):
         errs[label] = check_qflash(rng, label, *small, d, kcfg, vcfg, **opts)
+    for d in (80, 96):
+        errs[f"fullint_d{d}_l1"] = check_fullint(
+            rng, f"ROW K / CHANNEL V D={d}", 2, 4, 512, d, row8, ch8, False)
     errs["ragged"] = check_qflash(rng, "ragged Sq=125 < Skv=1000", 1, 4, 4,
                                   125, 1000, 64, row8c, row8c)
     return errs
@@ -2486,6 +2543,304 @@ def run_mla(seed, dec_lens):
     return out, phase
 
 # --------------------------------------------------------------------------
+# Phase 13: the GEMM engine
+# --------------------------------------------------------------------------
+
+# The flagship's projections over 2 × 2048 tokens: M rows, (N, K) of
+# q/o, k/v, gate/up and down.
+GEMM_M = 4096
+ENGINE_SHAPES = ((1024, 1024), (256, 1024), (4096, 1024), (1024, 4096))
+# The quantized-A and small-block kernels vs their plain versions on the
+# same arguments, fp32 results: the same exact products (int × bf16,
+# bf16 × bf16, fp32 × fp32) summed in another order.  Max abs over the
+# plain's max abs.  comp_gemm is held bit for bit.
+GEMM_KERNEL_TOL = TOLERANCES["fp32"]
+# matmul vs dequantized_gemm_reference (or the exact fp32 product of the
+# dequantized operands), relative L2: an fp32 compute dtype, and a bf16
+# one (an operand or the result rounded to bf16).
+MATMUL_TOL = {"fp32": 1e-5, "bf16": 1e-2}
+GEMM_KERNELS = (qa_folded_gemm, qa_gemm, comp_gemm, comp_small_gemm,
+                wo_folded_gemm, wo_gemm, dyn_gemm)
+F16 = torch.float16
+
+
+def blk(bs, strategy="centered"):
+    return qcfg(gran="block", strategy=strategy, block_size=bs)
+
+
+# (label, A config, B config or B dtype): the kernels' modes in (a).
+GEMM_KERNEL_MODES = (
+    ("qa folded int8 ROW", qcfg(), torch.bfloat16),
+    ("qa folded int4 ROW", qcfg(bits=4), torch.bfloat16),
+    ("qa folded int8 TENSOR", qcfg(gran="tensor"), torch.bfloat16),
+    ("qa int8 ROW ASYMMETRIC", qcfg(strategy="asymmetric"), torch.bfloat16),
+    ("qa int8 BLOCK 128", blk(128), torch.bfloat16),
+    ("qa int8 ROW fp32 B", qcfg(), torch.float32),
+    ("comp BLOCK 128 ASYMMETRIC", blk(128, "asymmetric"),
+     blk(128, "asymmetric")),
+    ("comp BLOCK 512 ASYMMETRIC", blk(512, "asymmetric"),
+     blk(512, "asymmetric")),
+    ("comp-small BLOCK 32", blk(32), blk(32)),
+    ("comp-small BLOCK 64", blk(64), blk(64)),
+)
+
+
+def gemm_kernel_pair(a, b, c=None):
+    """(kernel, plain, args, kw) of the GEMM kernel ``matmul(a, b, c=c)``
+    launches for a quantized A (C only for a quantized B: the qa path
+    adds it outside its kernel)."""
+    if isinstance(b, QuantizedTensor):
+        small, args, kw = comp_arguments(a, b, c)
+        return ((comp_small_gemm, comp_small_gemm_plain) if small
+                else (comp_gemm, comp_gemm_plain)) + (args, kw)
+    folded, args, kw = qa_arguments(a, b)
+    return ((qa_folded_gemm, qa_folded_gemm_plain) if folded
+            else (qa_gemm, qa_gemm_plain)) + (args, kw)
+
+
+def gemm_mode_operands(g, m, n, k, a_spec, b_spec, with_c=False):
+    """A [M, K] quantized with ``a_spec`` (shifted, so asymmetric zero
+    points are nonzero) or of that dtype; B [K, N] of dtype ``b_spec`` or
+    Bᵀ [N, K] quantized with it; C fp32 [M, N] or None."""
+    a = torch.randn((m, k), generator=g, device=DEV)
+    a = (quantize(a + 0.25, a_spec) if isinstance(a_spec, QuantConfig)
+         else a.to(a_spec))
+    if isinstance(b_spec, QuantConfig):
+        b = quantize(torch.randn((n, k), generator=g, device=DEV) - 0.2,
+                     b_spec)
+    else:
+        b = (torch.randn((k, n), generator=g, device=DEV)
+             * k ** -0.5).to(b_spec)
+    c = torch.randn((m, n), generator=g, device=DEV) if with_c else None
+    return a, b, c
+
+
+def check_gemm_kernels(rng):
+    """(a) The four kernels against their plain versions in each mode of
+    GEMM_KERNEL_MODES at the flagship's projection shapes (M = 4096) and
+    gemm_bench's (M = 128 and 4096, N = K = 8192); the compensated modes
+    with and without ``c=``.  → {label: (rel err, max abs err)}, worst
+    over the shapes."""
+    g = device_generator(rng)
+    shapes = [(GEMM_M, n, k) for n, k in ENGINE_SHAPES] + list(GEMM_SHAPES)
+    errs = {}
+    for label, a_cfg, b_spec in GEMM_KERNEL_MODES:
+        cs = (False, True) if isinstance(b_spec, QuantConfig) else (False,)
+        for with_c in cs:
+            name = f"{label}{' c=' if with_c else ''}"
+            worst = (0.0, 0.0)
+            for m, n, k in shapes:
+                a, b, c = gemm_mode_operands(g, m, n, k, a_cfg, b_spec,
+                                             with_c)
+                kernel, plain, args, kw = gemm_kernel_pair(a, b, c)
+                out = kernel(*args, **kw)
+                torch.cuda.synchronize()
+                ref = plain(*args, **kw)
+                e = (rel_err(out, ref), max_abs(out, ref))
+                worst = max(worst[0], e[0]), max(worst[1], e[1])
+                exact = kernel is comp_gemm
+                if not (torch.equal(out, ref) if exact
+                        else e[0] <= GEMM_KERNEL_TOL):
+                    raise AssertionError(
+                        f"{kernel.__name__} {name} M={m} N={n} K={k} "
+                        f"disagrees with its plain version: {e}")
+                del a, b, c, args, out, ref
+            errs[name] = worst
+            log(f"{kernel.__name__} {name}: {len(shapes)} shapes, worst rel "
+                f"{worst[0]:.2e} max abs {worst[1]:.2e} (tol "
+                f"{'bit for bit' if exact else GEMM_KERNEL_TOL})")
+    return errs
+
+
+# (label, A spec, B spec, the kernel matmul launches or None, compute
+# dtype, with c, options): every operand kind and dispatch arm in (b).
+MATMUL_CASES = (
+    ("float x float fp32", torch.float32, torch.float32, None, "fp32",
+     False, {}),
+    ("float x float bf16", torch.bfloat16, torch.bfloat16, None, "bf16",
+     False, {}),
+    ("float x float fp32 transpose_a + c", torch.float32, torch.float32,
+     None, "fp32", True, dict(transpose_a=True)),
+    ("float x QT folded int8 ROW", torch.bfloat16, qcfg(), wo_folded_gemm,
+     "bf16", False, {}),
+    ("float x QT int8 BLOCK 128 + c", torch.bfloat16, blk(128), wo_gemm,
+     "bf16", True, {}),
+    ("float x QT fp32 A, int8 ROW ASYMMETRIC", torch.float32,
+     qcfg(strategy="asymmetric"), wo_gemm, "fp32", False, {}),
+    ("QT x float folded int8 ROW", qcfg(), torch.bfloat16, qa_folded_gemm,
+     "bf16", False, {}),
+    ("QT x float folded int4 ROW + c", qcfg(bits=4), torch.bfloat16,
+     qa_folded_gemm, "bf16", True, {}),
+    ("QT x float folded int8 TENSOR, fp16 B", qcfg(gran="tensor"), F16,
+     qa_folded_gemm, "bf16", False, {}),
+    ("QT x float int8 ROW ASYMMETRIC", qcfg(strategy="asymmetric"),
+     torch.bfloat16, qa_gemm, "bf16", False, {}),
+    ("QT x float int8 BLOCK 128", blk(128), torch.bfloat16, qa_gemm, "bf16",
+     False, {}),
+    ("QT x float int8 ROW, fp32 B + c", qcfg(), torch.float32, qa_gemm,
+     "fp32", True, {}),
+    ("QT x QT BLOCK 128 ASYMMETRIC", blk(128, "asymmetric"),
+     blk(128, "asymmetric"), comp_gemm, "fp32", False, {}),
+    ("QT x QT BLOCK 512 + c", blk(512), blk(512), comp_gemm, "fp32", True,
+     {}),
+    ("QT x QT BLOCK 32", blk(32), blk(32), comp_small_gemm, "fp32", False,
+     {}),
+    ("QT x QT BLOCK 64 ASYMMETRIC + c", blk(64, "asymmetric"),
+     blk(64, "asymmetric"), comp_small_gemm, "fp32", True, {}),
+    ("QT x QT degraded: int4 A", qcfg(bits=4, gran="block",
+                                      strategy="centered", block_size=128),
+     blk(128), wo_gemm, "bf16", False, {}),
+    ("QT x QT degraded: blocks 128 / 64", blk(128), blk(64), wo_gemm,
+     "bf16", False, {}),
+    ("QT x QT degraded: ROW B", blk(128), qcfg(), wo_folded_gemm, "bf16",
+     False, {}),
+    ("QT x QT degraded: no fast int8 path + c", blk(128), blk(128), wo_gemm,
+     "bf16", True, dict(no_int8=True)),
+)
+
+
+def matmul_reference(a, b, c):
+    """The exact fp32 product of the dequantized operands (+ C):
+    ``dequantized_gemm_reference`` for two quantized ones."""
+    if isinstance(a, QuantizedTensor) and isinstance(b, QuantizedTensor):
+        ref = dequantized_gemm_reference(a, b)
+    else:
+        af = dequantize(a) if isinstance(a, QuantizedTensor) else a.float()
+        bf = (dequantize(b).t() if isinstance(b, QuantizedTensor)
+              else b.float())
+        ref = af @ bf
+    return ref if c is None else ref + c
+
+
+def run_matmul_paths(rng):
+    """(b) ``matmul`` at M=4096, N=K=1024 over MATMUL_CASES, each call
+    with every GEMM kernel's count set to 0 just before and read just
+    after: exactly one launch of the expected kernel (none for float ×
+    float), none of the others.  → {label: {rel_l2, launches}}."""
+    g = device_generator(rng)
+    m, n, k = GEMM_M, 1024, 1024
+    probe = capabilities.probe_capabilities
+    out = {}
+    for label, a_spec, b_spec, want, compute, with_c, opts in MATMUL_CASES:
+        a, b, c = gemm_mode_operands(g, m, n, k, a_spec, b_spec, with_c)
+        a_in, desc = a, None
+        if opts.get("transpose_a"):
+            a_in = a.t().contiguous()
+            desc = GEMMDescriptor(m=m, n=n, k=k, transpose_a=True)
+        if opts.get("no_int8"):
+            capabilities.probe_capabilities = (
+                lambda device=None: dataclasses.replace(
+                    probe(device), has_int8_mxu=False))
+        for fn in GEMM_KERNELS:
+            fn.launches = 0
+        try:
+            res = matmul(a_in, b, descriptor=desc, c=c)
+            torch.cuda.synchronize()
+        finally:
+            capabilities.probe_capabilities = probe
+        launches = {fn.__name__: fn.launches for fn in GEMM_KERNELS}
+        expected = {fn.__name__: int(fn is want) for fn in GEMM_KERNELS}
+        err = rel_l2(res, matmul_reference(a, b, c))
+        log(f"matmul {label}: rel L2 {err:.3e} (tol {MATMUL_TOL[compute]}), "
+            f"launches {[k_ for k_, v in launches.items() if v]}")
+        if launches != expected:
+            raise AssertionError(f"matmul {label}: launches {launches}, "
+                                 f"expected {expected}")
+        if not (np.isfinite(err) and err <= MATMUL_TOL[compute]
+                and res.shape == (m, n)):
+            raise AssertionError(f"matmul {label} disagrees with the "
+                                 f"dequantized reference: {err}")
+        out[label] = {"rel_l2": err, "launches": launches}
+    return out
+
+
+# gemm_bench-shape arm of utils/profiling.py each kernel is timed on, the
+# library call it is set beside, and what bounds its operations.
+GEMM_TIMED = (
+    ("qa_folded_gemm", "qa_folded_int8_row", BF16_FLOPS),
+    ("qa_gemm", "qa_int8_row_asymmetric", BF16_FLOPS),
+    ("comp_gemm", "compensated_int8", INT8_OPS),
+    ("comp_small_gemm", "compensated_small_int8_b64", INT8_OPS),
+)
+GEMM_LIBRARY = {
+    "qa_folded_gemm": "torch.matmul of the dequantized bf16 A by the bf16 B",
+    "qa_gemm": "torch.matmul of the dequantized bf16 A by the bf16 B",
+    "comp_gemm": "torch._int_mm over the int8 payloads (the raw int32 "
+                 "product only)",
+    "comp_small_gemm": "fp32 torch.matmul of the dequantized operands, TF32 "
+                       "off",
+}
+
+
+def time_gemm_kernels(rng):
+    """(c) The four kernels at gemm_bench's shapes on utils/profiling.py's
+    arms, beside their bounds (the operands read once, the fp32 result
+    written once; or 2·M·N·K over the bf16 peak for the quantized-A
+    kernels, over the int8 peak for both compensated kernels: their
+    operands are int8 payloads with per-block scales, whose block
+    products the int8 tensor cores take at any block that is a multiple
+    of 32, so comp_small_gemm's exact-fp32 design, copied from the TPU
+    kernel, is not the card's limit), plain versions and library calls
+    (GEMM_LIBRARY).
+    → {kernel: {"m{M}": times}}."""
+    g = device_generator(rng)
+    times = {}
+    for name, arm, peak in GEMM_TIMED:
+        times[name] = {}
+        for m, n, k in GEMM_SHAPES:
+            _, (a, b) = gemm_arm(arm, m, n, k, g)
+            kernel, plain, args, kw = gemm_kernel_pair(a, b)
+            if name.startswith("qa"):
+                ad = dequantize(a).to(torch.bfloat16)
+                library = (lambda ad=ad, b=b: ad @ b)
+                vec = 2 * m * 4
+            elif name == "comp_gemm":
+                library = (lambda a=a, b=b: torch._int_mm(a.data, b.data.t()))
+                vec = 4 * (m + n) * (k // 512) + 16 * (k // 512)
+            else:
+                ad, bd = dequantize(a), dequantize(b).t()
+                library = (lambda ad=ad, bd=bd: ad @ bd)
+                vec = 16 * k
+            iters = 10 if m <= 128 else 3
+            t = {"plain_ms": time_ms(lambda: plain(*args, **kw), 2,
+                                     warmup=1),
+                 "ms": time_ms(lambda: kernel(*args, **kw), iters,
+                               warmup=1)}
+            t["ms_2"] = time_ms(lambda: kernel(*args, **kw), iters, warmup=0)
+            t["library_ms"] = time_ms(library, iters, warmup=1)
+            a_bytes = a.nbytes_payload
+            b_bytes = (b.nbytes_payload if isinstance(b, QuantizedTensor)
+                       else b.numel() * b.element_size())
+            bound = {"bytes": (a_bytes + b_bytes + vec + 4 * m * n)
+                     / HBM_BYTES_PER_S * 1e3,
+                     "operations": 2 * m * n * k / peak * 1e3}
+            t["bound_by"] = max(bound, key=bound.get)
+            t["bound_ms"] = bound[t["bound_by"]]
+            log(f"{name} times at M={m} N={n} K={k} ({arm}): "
+                + json.dumps(t))
+            times[name][f"m{m}"] = t
+            del a, b, args, kw
+    return times
+
+
+def run_gemm_engine(seed):
+    """Phase 13 (a)-(c), inputs from a sixth generator (seed + 5) →
+    (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 5)
+    out, phase = {}, {}
+    with torch.inference_mode():
+        t = time.perf_counter()
+        out["kernel_errors"] = check_gemm_kernels(rng)
+        phase["gemm_kernels"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["matmul"] = run_matmul_paths(rng)
+        phase["gemm_matmul"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["times"] = time_gemm_kernels(rng)
+        phase["gemm_times"] = time.perf_counter() - t
+    return out, phase
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2568,6 +2923,8 @@ def main() -> int:
     phase_s.update(qbwd_phase)
     mla, mla_phase = run_mla(args.seed, dec_lens)
     phase_s.update(mla_phase)
+    gemm, gemm_phase = run_gemm_engine(args.seed)
+    phase_s.update(gemm_phase)
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
     engines = quant["engines"]
@@ -2800,6 +3157,39 @@ def main() -> int:
             "shape": f"M={DEC_B * DEC_S} N={DEC_H * DEC_DH} K={DEC_DC}, bf16 "
                      f"latent, {mode} (mla_decompress)",
         })
+    gemm_tpu = {"qa_folded_gemm": 498, "qa_gemm": 461, "comp_gemm": 707,
+                "comp_small_gemm": 763}
+    gemm_shape = {
+        "qa_folded_gemm": "int8 ROW SYMMETRIC A x bf16 B",
+        "qa_gemm": "int8 ROW ASYMMETRIC A x bf16 B",
+        "comp_gemm": "int8 x int8 BLOCK 512 SYMMETRIC",
+        "comp_small_gemm": "int8 x int8 BLOCK 64 CENTERED"}
+    for name, line in gemm_tpu.items():
+        t = gemm["times"][name]
+        errs_k = [e for label, e in gemm["kernel_errors"].items()
+                  if label.startswith(
+                      "qa folded" if name == "qa_folded_gemm" else
+                      "qa int8" if name == "qa_gemm" else
+                      "comp BLOCK" if name == "comp_gemm" else "comp-small")]
+        big, small = t[f"m{GEMM_SHAPES[1][0]}"], t[f"m{GEMM_SHAPES[0][0]}"]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": GEMM_SOURCE,
+            "replaces": f"{GEMM_TPU}:{line}",
+            "launches": sum(c["launches"][name]
+                            for c in gemm["matmul"].values()),
+            "max_abs_err": max(e[1] for e in errs_k),
+            "rel_err": max(e[0] for e in errs_k),
+            **{key: big[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "library": GEMM_LIBRARY[name],
+            "shape": "M=%d N=%d K=%d, %s" % (*GEMM_SHAPES[1],
+                                             gemm_shape[name]),
+            **{f"{key}_m{GEMM_SHAPES[0][0]}": small[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
+    record["gemm_engine"] = {
+        "matmul_rel_l2": {k: v["rel_l2"] for k, v in gemm["matmul"].items()},
+    }
     record["mla"] = {
         "logits_rel_l2": mla["logits_rel_l2"],
         "decompression_rel_l2": {k: v["rel_l2"]

@@ -28,7 +28,14 @@ against; this package imports nothing of it (nor of JAX).  Ported so far:
   kernels' ``v_tail_zero`` mode, head dim d_c + d_r), float or W8A8
   (``quantize_mla_weights``), and ``mla_decompress`` over quantized
   weights through the weight-only GEMM kernels (``quantized_matmul``,
-  ``csrc/quantized_gemm.cu``).
+  ``csrc/quantized_gemm.cu``);
+- the GEMM engine: ``matmul`` (with ``GEMMDescriptor``) over float and
+  quantized operands: float × float through ``torch.matmul``, float ×
+  quantized through ``quantized_matmul``, quantized × float through
+  ``quantized_matmul_qa`` and quantized × quantized through
+  ``compensated_matmul``, over the quantized-A and compensated GEMM
+  kernels (``csrc/quantized_gemm.cu``); ``resolve_strategy`` and
+  ``capability_report`` (``quant/capabilities.py``).
 
 Entry points take ``device=None``, meaning the CUDA card, and raise
 without one unless given ``device="cpu"``.
@@ -91,6 +98,10 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_backward,
 )
+from metal_flash_attention_plus_tpu_torch.ops.gemm import (
+    GEMMDescriptor,
+    matmul,
+)
 from metal_flash_attention_plus_tpu_torch.ops.hadamard import (
     hadamard_transform,
 )
@@ -101,8 +112,11 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     quantized_flash_attention_qat,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
+    compensated_matmul,
     dynamic_quantized_matmul,
+    per_row_block_sums,
     quantized_matmul,
+    quantized_matmul_qa,
 )
 from metal_flash_attention_plus_tpu_torch.ops.runtime_quantization import (
     runtime_quantize,
@@ -111,6 +125,10 @@ from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantConfig,
     QuantGranularity,
     QuantStrategy,
+)
+from metal_flash_attention_plus_tpu_torch.quant.capabilities import (
+    capability_report,
+    resolve_strategy,
 )
 from metal_flash_attention_plus_tpu_torch.quant.ste import fake_quantize
 from metal_flash_attention_plus_tpu_torch.quant.tensor import (
@@ -142,6 +160,7 @@ __all__ = [
     "BlockSizes",
     "CAUSAL",
     "FULL",
+    "GEMMDescriptor",
     "GenerationRequest",
     "MLAConfig",
     "MaskKind",
@@ -156,6 +175,8 @@ __all__ = [
     "ServingEngine",
     "TOLERANCES",
     "TransformerConfig",
+    "capability_report",
+    "compensated_matmul",
     "decode_step",
     "dequantize",
     "dynamic_quantized_matmul",
@@ -172,6 +193,7 @@ __all__ = [
     "init_params",
     "loss_fn",
     "make_train_step",
+    "matmul",
     "mla_absorbed_attention",
     "mla_decode_step",
     "mla_decompress",
@@ -183,6 +205,7 @@ __all__ = [
     "paged_prefill_attention",
     "params_from_jax",
     "params_to_numpy",
+    "per_row_block_sums",
     "prefill",
     "prefill_chunk",
     "quantize",
@@ -194,7 +217,9 @@ __all__ = [
     "quantized_flash_attention_qat",
     "quantized_forward",
     "quantized_matmul",
+    "quantized_matmul_qa",
     "reference_attention",
+    "resolve_strategy",
     "runtime_quantize",
     "sliding_window",
     "trainable_parameters",

@@ -1,11 +1,17 @@
-// Quantized GEMMs for Hopper (sm_90a): the dynamic W8A8 / W4A8 GEMM and the
-// two weight-only GEMMs (a float A times a quantized weight).
+// Quantized GEMMs for Hopper (sm_90a): the dynamic W8A8 / W4A8 GEMM, the
+// two weight-only GEMMs (a float A times a quantized weight), the two
+// quantized-A GEMMs (a quantized A times a float B) and the two compensated
+// int8 x int8 GEMMs.
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
 //   - ops/quantized_gemm.py::_dyn_kernel        -> dyn_gemm_kernel
 //   - ops/quantized_gemm.py::_wo_folded_kernel  -> wo_folded_kernel
 //   - ops/quantized_gemm.py::_wo_kernel         -> wo_kernel
-// The weight-only kernels are described after dyn_gemm_kernel.
+//   - ops/quantized_gemm.py::_qa_folded_kernel  -> qa_folded_kernel
+//   - ops/quantized_gemm.py::_qa_kernel         -> qa_kernel
+//   - ops/quantized_gemm.py::_comp_kernel       -> comp_kernel
+//   - ops/quantized_gemm.py::_comp_small_kernel -> comp_small_kernel
+// Each family is described before its kernels.
 //
 // dyn_gemm_kernel:
 // Computes out[m, n] = (float(acc) - rs[m] * zb[n]) * (sa[m] * sb[n]) [+ c]
@@ -115,6 +121,54 @@ __device__ __forceinline__ void load_int4_16(const uint8_t* __restrict__ base,
   }
 }
 
+// Word-major (transposed) int8 tiles of one K step: as_[kw][m], bs_[kw][n].
+typedef uint32_t DgTile[DG_KW][DG_BM + DG_PAD];
+
+// One K step [k0, k0 + DG_BK) of the 64 x 64 output tile at (m0, n0):
+// stage A rows and B rows (int8, or int4 B unpacked to int8) as words,
+// transposed so that each thread's 4 x 4 block of outputs reads 16-byte
+// vectors, then acc[i][j] += their products with __dp4a (four int8
+// products per instruction, into int32).
+template <int BITS>
+__device__ __forceinline__ void dg_step(const int8_t* __restrict__ qa,
+                                        const void* __restrict__ qb, int M,
+                                        int N, int K, int m0, int n0, int k0,
+                                        DgTile& as_, DgTile& bs_,
+                                        int (&acc)[4][4]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // output columns tx*4 .. +3
+  const int ty = tid / 16;  // output rows ty*4 .. +3
+  // Staging: thread -> (tile row r, 16-byte chunk q) of both tiles.
+  const int sr = tid / 4;
+  const int sq = tid % 4;
+  uint32_t wa[4], wb[4];
+  load_int8_16(qa, m0 + sr, M, k0 + sq * 16, K, wa);
+  if (BITS == 8)
+    load_int8_16(static_cast<const int8_t*>(qb), n0 + sr, N, k0 + sq * 16, K,
+                 wb);
+  else
+    load_int4_16(static_cast<const uint8_t*>(qb), n0 + sr, N, k0 + sq * 16,
+                 K, wb);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    as_[sq * 4 + i][sr] = wa[i];
+    bs_[sq * 4 + i][sr] = wb[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int kw = 0; kw < DG_KW; ++kw) {
+    const uint4 a4 = *reinterpret_cast<const uint4*>(&as_[kw][ty * 4]);
+    const uint4 b4 = *reinterpret_cast<const uint4*>(&bs_[kw][tx * 4]);
+    const int av[4] = {(int)a4.x, (int)a4.y, (int)a4.z, (int)a4.w};
+    const int bv[4] = {(int)b4.x, (int)b4.y, (int)b4.z, (int)b4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+  }
+  __syncthreads();
+}
+
 template <int BITS>
 __global__ void __launch_bounds__(DG_THREADS)
 dyn_gemm_kernel(const int8_t* __restrict__ qa, const void* __restrict__ qb,
@@ -122,18 +176,12 @@ dyn_gemm_kernel(const int8_t* __restrict__ qa, const void* __restrict__ qb,
                 const float* __restrict__ sb, const float* __restrict__ zb,
                 const float* __restrict__ c, float* __restrict__ out, int M,
                 int N, int K) {
-  // Word-major (transposed) tiles: as_[kw][m], bs_[kw][n].
-  __shared__ __align__(16) uint32_t as_[DG_KW][DG_BM + DG_PAD];
-  __shared__ __align__(16) uint32_t bs_[DG_KW][DG_BN + DG_PAD];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns tx*4 .. +3
-  const int ty = tid / 16;  // output rows ty*4 .. +3
+  __shared__ __align__(16) DgTile as_;
+  __shared__ __align__(16) DgTile bs_;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * DG_BM;
   const int n0 = blockIdx.x * DG_BN;
-  // Staging: thread -> (tile row r, 16-byte chunk q) of both tiles.
-  const int sr = tid / 4;
-  const int sq = tid % 4;
 
   int acc[4][4];
 #pragma unroll
@@ -141,34 +189,8 @@ dyn_gemm_kernel(const int8_t* __restrict__ qa, const void* __restrict__ qb,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
-  for (int k0 = 0; k0 < K; k0 += DG_BK) {
-    uint32_t wa[4], wb[4];
-    load_int8_16(qa, m0 + sr, M, k0 + sq * 16, K, wa);
-    if (BITS == 8)
-      load_int8_16(static_cast<const int8_t*>(qb), n0 + sr, N, k0 + sq * 16,
-                   K, wb);
-    else
-      load_int4_16(static_cast<const uint8_t*>(qb), n0 + sr, N, k0 + sq * 16,
-                   K, wb);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      as_[sq * 4 + i][sr] = wa[i];
-      bs_[sq * 4 + i][sr] = wb[i];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kw = 0; kw < DG_KW; ++kw) {
-      const uint4 a4 = *reinterpret_cast<const uint4*>(&as_[kw][ty * 4]);
-      const uint4 b4 = *reinterpret_cast<const uint4*>(&bs_[kw][tx * 4]);
-      const int av[4] = {(int)a4.x, (int)a4.y, (int)a4.z, (int)a4.w};
-      const int bv[4] = {(int)b4.x, (int)b4.y, (int)b4.z, (int)b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  for (int k0 = 0; k0 < K; k0 += DG_BK)
+    dg_step<BITS>(qa, qb, M, N, K, m0, n0, k0, as_, bs_, acc);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -240,6 +262,20 @@ __device__ __forceinline__ int weight_at(const void* w, int n, int k, int K) {
   return (int)((j < 128) ? (byte & 0xF) : (byte >> 4)) - 8;
 }
 
+// Element (r, k) of a quantized operand [R, K], dequantized in fp32 with the
+// scale and zero point of its TENSOR (one), ROW (per r) or BLOCK (per k,
+// expanded to [K] by the wrapper) cell and rounded to the compute type CT:
+// round_CT((q - zp) * s), as the TPU kernels do.
+template <typename CT, int BITS>
+__device__ __forceinline__ float dequant_at(const void* q,
+                                            const float* __restrict__ scale,
+                                            const float* __restrict__ zp,
+                                            int scales, int r, int k, int K) {
+  const int cell = scales == WO_TENSOR ? 0 : (scales == WO_ROW ? r : k);
+  const float v = (float)weight_at<BITS>(q, r, k, K);
+  return Elem<CT>::round(__fmul_rn(__fsub_rn(v, zp[cell]), scale[cell]));
+}
+
 // acc[i][j] += sum over the staged K step of a[m][k] * b[n][k], both tiles
 // transposed [BK][LD]: one 16-byte vector of rows and one of columns per k.
 __device__ __forceinline__ void wo_step(float (*as)[WO_LD],
@@ -258,18 +294,43 @@ __device__ __forceinline__ void wo_step(float (*as)[WO_LD],
   }
 }
 
+// Stage the K step [k0, k0 + BK) of an operand stored by rows ([R, K], K
+// contiguous: A, or W / B^T), rows [r0, r0 + 64), transposed as fp32:
+// t[kk][r] = at(r0 + r, k0 + kk), 0 outside [R) x [K).  Neighbouring
+// threads read neighbouring k.
+template <typename F>
+__device__ __forceinline__ void stage_rows(float (*t)[WO_LD], int R, int K,
+                                           int r0, int k0, F at) {
+  for (int i = threadIdx.x; i < WO_BM * WO_BK; i += WO_THREADS) {
+    const int r = i / WO_BK;
+    const int kk = i % WO_BK;
+    const int row = r0 + r, k = k0 + kk;
+    t[kk][r] = (row < R && k < K) ? at(row, k) : 0.f;
+  }
+}
+
+// The same step of an operand stored by columns (B [K, N], N contiguous),
+// columns [c0, c0 + 64): t[kk][c] = at(k0 + kk, c0 + c).  Neighbouring
+// threads read neighbouring n.
+template <typename F>
+__device__ __forceinline__ void stage_cols(float (*t)[WO_LD], int C, int K,
+                                           int c0, int k0, F at) {
+  for (int i = threadIdx.x; i < WO_BN * WO_BK; i += WO_THREADS) {
+    const int kk = i / WO_BN;
+    const int c = i % WO_BN;
+    const int col = c0 + c, k = k0 + kk;
+    t[kk][c] = (col < C && k < K) ? at(k, col) : 0.f;
+  }
+}
+
 // Stage A rows [m0, m0 + 64) x columns [k0, k0 + BK) transposed, as fp32.
 template <typename AT>
 __device__ __forceinline__ void wo_stage_a(const AT* __restrict__ a, int M,
                                            int K, int m0, int k0,
                                            float (*as)[WO_LD]) {
-  for (int i = threadIdx.x; i < WO_BM * WO_BK; i += WO_THREADS) {
-    const int r = i / WO_BK;
-    const int kk = i % WO_BK;
-    const int m = m0 + r, k = k0 + kk;
-    as[kk][r] = (m < M && k < K) ? Elem<AT>::load(a + (size_t)m * K + k)
-                                 : 0.f;
-  }
+  stage_rows(as, M, K, m0, k0, [=](int m, int k) {
+    return Elem<AT>::load(a + (size_t)m * K + k);
+  });
 }
 
 template <int BITS>
@@ -287,12 +348,9 @@ wo_folded_kernel(const __nv_bfloat16* __restrict__ a,
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += WO_BK) {
     wo_stage_a(a, M, K, m0, k0, as);
-    for (int i = threadIdx.x; i < WO_BN * WO_BK; i += WO_THREADS) {
-      const int r = i / WO_BK;
-      const int kk = i % WO_BK;
-      const int n = n0 + r, k = k0 + kk;
-      bs[kk][r] = (n < N && k < K) ? (float)weight_at<BITS>(w, n, k, K) : 0.f;
-    }
+    stage_rows(bs, N, K, n0, k0, [=](int n, int k) {
+      return (float)weight_at<BITS>(w, n, k, K);
+    });
     __syncthreads();
     wo_step(as, bs, ty, tx, acc);
     __syncthreads();
@@ -327,18 +385,234 @@ wo_kernel(const AT* __restrict__ a, const void* __restrict__ w,
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += WO_BK) {
     wo_stage_a(a, M, K, m0, k0, as);
-    for (int i = threadIdx.x; i < WO_BN * WO_BK; i += WO_THREADS) {
-      const int r = i / WO_BK;
-      const int kk = i % WO_BK;
-      const int n = n0 + r, k = k0 + kk;
-      float deq = 0.f;
-      if (n < N && k < K) {
-        const int cell = scales == WO_TENSOR ? 0 : (scales == WO_ROW ? n : k);
-        const float q = (float)weight_at<BITS>(w, n, k, K);
-        deq = Elem<AT>::round(__fmul_rn(__fsub_rn(q, zp[cell]), scale[cell]));
-      }
-      bs[kk][r] = deq;
+    stage_rows(bs, N, K, n0, k0, [=](int n, int k) {
+      return dequant_at<AT, BITS>(w, scale, zp, scales, n, k, K);
+    });
+    __syncthreads();
+    wo_step(as, bs, ty, tx, acc);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= N) continue;
+      const size_t idx = (size_t)m * N + n;
+      out[idx] = c ? __fadd_rn(acc[i][j], c[idx]) : acc[i][j];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Quantized-A GEMMs: out [M, N] fp32 = A x B, A the payload [M, K] int8 or
+// [M, K/2] uint8 group-planar int4 (read as weight_at reads a weight), B a
+// float [K, N].  The transposes of the weight-only pair, on the same tile
+// body, with the quantized operand on the A side:
+//
+//   - qa_folded_kernel (the TPU's _qa_folded_kernel: SYMMETRIC TENSOR / ROW
+//     A, a non-fp32 B cast to bf16 by the wrapper): acc = sum_k q * b over
+//     the integers, exact products summed in fp32; out = acc * s[m] (a
+//     TENSOR scale repeated over M by the wrapper), rounded once;
+//   - qa_kernel (the TPU's _qa_kernel: every other A, or an fp32 B): each A
+//     element dequantized by dequant_at with TENSOR, ROW (per m) or BLOCK
+//     (per k) cells and rounded to B's type BT (the compute type), then
+//     acc = sum_k deq * b in fp32; out = acc.
+// C is not read: the GEMM engine adds it after these kernels, in fp32.
+//
+// What bounds them on the H100, and the design.  At the GEMM bench's
+// shapes (M = 128 or 4096, N = K = 8192) the product is 2*M*N*K = 17 or
+// 550 GFLOP against 67 + 134 + 4 MB (M = 128: B bf16, out fp32) or 34 +
+// 134 + 134 MB (M = 4096): the bf16 tensor cores (989 TFLOP/s) would bound
+// M = 4096 at ~0.56 ms and the bytes M = 128 at ~0.06 ms.  These first
+// versions are the weight-only kernels' scalar fp32 FMAs (67 TFLOP/s peak):
+// ~8 ms at best for M = 4096.  bf16 mma.sync / wgmma is the planned speed
+// work.
+// ---------------------------------------------------------------------------
+
+template <int BITS>
+__global__ void __launch_bounds__(WO_THREADS)
+qa_folded_kernel(const void* __restrict__ a,
+                 const __nv_bfloat16* __restrict__ b,
+                 const float* __restrict__ scale, float* __restrict__ out,
+                 int M, int N, int K) {
+  __shared__ __align__(16) float as[WO_BK][WO_LD];
+  __shared__ __align__(16) float bs[WO_BK][WO_LD];
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * WO_BM;
+  const int n0 = blockIdx.x * WO_BN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += WO_BK) {
+    stage_rows(as, M, K, m0, k0, [=](int m, int k) {
+      return (float)weight_at<BITS>(a, m, k, K);
+    });
+    stage_cols(bs, N, K, n0, k0, [=](int k, int n) {
+      return __bfloat162float(b[(size_t)k * N + n]);
+    });
+    __syncthreads();
+    wo_step(as, bs, ty, tx, acc);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) out[(size_t)m * N + n] = __fmul_rn(acc[i][j], scale[m]);
+    }
+  }
+}
+
+template <typename BT, int BITS>
+__global__ void __launch_bounds__(WO_THREADS)
+qa_kernel(const void* __restrict__ a, const BT* __restrict__ b,
+          const float* __restrict__ scale, const float* __restrict__ zp,
+          int scales, float* __restrict__ out, int M, int N, int K) {
+  __shared__ __align__(16) float as[WO_BK][WO_LD];
+  __shared__ __align__(16) float bs[WO_BK][WO_LD];
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * WO_BM;
+  const int n0 = blockIdx.x * WO_BN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += WO_BK) {
+    stage_rows(as, M, K, m0, k0, [=](int m, int k) {
+      return dequant_at<BT, BITS>(a, scale, zp, scales, m, k, K);
+    });
+    stage_cols(bs, N, K, n0, k0, [=](int k, int n) {
+      return Elem<BT>::load(b + (size_t)k * N + n);
+    });
+    __syncthreads();
+    wo_step(as, bs, ty, tx, acc);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) out[(size_t)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Compensated int8 x int8 GEMMs: out [M, N] fp32 = dequant(A) x
+// dequant(B^T)^T (+ C), A [M, K] and B^T [N, K] int8, both BLOCK-quantized
+// along K with one block size bs: per-block scales sa, sb and zero points
+// za, zb.
+//
+//   - comp_kernel (the TPU's _comp_kernel; bs a multiple of 128): per K
+//     block b, the exact int32 block product Sqq = A_b . B_b^T (dg_step's
+//     __dp4a), then in int32 comp = Sqq - zb*SqA - za*SqB + bs*za*zb with
+//     the wrapper's per-row block sums SqA [M, nb], SqB [N, nb], rounded to
+//     fp32, and acc = fma(sa*sb, comp, acc): the fused multiply-add XLA
+//     gives the TPU kernel, so the plain version matches bit for bit; C
+//     added at the store;
+//   - comp_small_kernel (the TPU's _comp_small_kernel; blocks the int8
+//     product cannot separate, 16..64): both operands dequantized per
+//     element in fp32 as fma(q, s[k], -(z*s)[k]) (the per-block vectors
+//     expanded to [K] by the wrapper; the fused form XLA gives the TPU
+//     kernel), exact fp32 products summed in fp32, C at the store.
+//
+// What bounds them on the H100, and the design.  At the GEMM bench's
+// shapes the product is 2*M*N*K = 17 or 550 G operations against 67 + 1 +
+// 4 MB or 34 + 67 + 134 MB of int8 operands and fp32 output.  comp_kernel's
+// int8 products would run on the int8 tensor cores (1,979 TOP/s: ~0.28 ms
+// at M = 4096); this first version is dyn_gemm_kernel's __dp4a tile, with
+// the compensation applied once per block per output in registers.
+// comp_small_kernel computes what the TPU kernel computes, an exact fp32
+// product of the dequantized operands, on the weight-only kernels' scalar
+// fp32 tile.  The fp32 is the TPU's choice (a contraction under 128 leaves
+// its MXU part empty), not the H100's limit: its operands are int8 too,
+// and s8 mma.sync takes k = 32, so 32- and 64-blocks split into int8
+// block products with the per-block compensation, as in comp_kernel.  Its
+// bound is therefore the int8 one as well (~0.28 ms at M = 4096).
+// s8 mma.sync / wgmma with the compensation in the epilogue of each block
+// is the planned speed work for both.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(DG_THREADS)
+comp_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
+            const float* __restrict__ sa, const int* __restrict__ za,
+            const float* __restrict__ sb, const int* __restrict__ zb,
+            const int* __restrict__ sqa, const int* __restrict__ sqb,
+            const float* __restrict__ c, float* __restrict__ out, int M,
+            int N, int K, int bs) {
+  __shared__ __align__(16) DgTile as_;
+  __shared__ __align__(16) DgTile bs_;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * DG_BM;
+  const int n0 = blockIdx.x * DG_BN;
+  const int nb = K / bs;
+  float acc[4][4] = {};
+  for (int blk = 0; blk < nb; ++blk) {
+    int part[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = 0;
+    for (int k0 = blk * bs; k0 < (blk + 1) * bs; k0 += DG_BK)
+      dg_step<8>(qa, qb, M, N, K, m0, n0, k0, as_, bs_, part);
+    const float s = __fmul_rn(sa[blk], sb[blk]);
+    const int zab = za[blk], zbb = zb[blk];
+    const int zz = bs * zab * zbb;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + ty * 4 + i;
+      const int rsa = (m < M) ? sqa[(size_t)m * nb + blk] : 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + tx * 4 + j;
+        const int rsb = (n < N) ? sqb[(size_t)n * nb + blk] : 0;
+        const int comp = part[i][j] - zbb * rsa - zab * rsb + zz;
+        acc[i][j] = __fmaf_rn(s, __int2float_rn(comp), acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= N) continue;
+      const size_t idx = (size_t)m * N + n;
+      out[idx] = c ? __fadd_rn(acc[i][j], c[idx]) : acc[i][j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WO_THREADS)
+comp_small_kernel(const int8_t* __restrict__ qa,
+                  const int8_t* __restrict__ qb,
+                  const float* __restrict__ sa, const float* __restrict__ zsa,
+                  const float* __restrict__ sb, const float* __restrict__ zsb,
+                  const float* __restrict__ c, float* __restrict__ out, int M,
+                  int N, int K) {
+  __shared__ __align__(16) float as[WO_BK][WO_LD];
+  __shared__ __align__(16) float bs[WO_BK][WO_LD];
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * WO_BM;
+  const int n0 = blockIdx.x * WO_BN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += WO_BK) {
+    stage_rows(as, M, K, m0, k0, [=](int m, int k) {
+      return __fmaf_rn((float)qa[(size_t)m * K + k], sa[k], -zsa[k]);
+    });
+    stage_rows(bs, N, K, n0, k0, [=](int n, int k) {
+      return __fmaf_rn((float)qb[(size_t)n * K + k], sb[k], -zsb[k]);
+    });
     __syncthreads();
     wo_step(as, bs, ty, tx, acc);
     __syncthreads();
@@ -445,6 +719,95 @@ int mfa_wo_gemm(const void* a, const void* w, const void* scale,
   else
     return (int)cudaErrorInvalidValue;
 #undef MFA_WO
+  return (int)cudaGetLastError();
+}
+
+// a: the payload [M, K] (int8) or [M, K/2] (uint8 int4); b: bf16 [K, N];
+// scale: fp32 [M]; out: fp32 [M, N].
+int mfa_qa_folded_gemm(const void* a, const void* b, const void* scale,
+                       void* out, int M, int N, int K, int bits,
+                       void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (bits == 4 && K % 256 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(b);
+  const float* ps = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(out);
+  if (bits == 8)
+    qa_folded_kernel<8><<<wo_grid(M, N), WO_THREADS, 0, s>>>(a, pb, ps, o, M,
+                                                             N, K);
+  else if (bits == 4)
+    qa_folded_kernel<4><<<wo_grid(M, N), WO_THREADS, 0, s>>>(a, pb, ps, o, M,
+                                                             N, K);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// a: the payload; b: [K, N] of btype (0 float32, 1 bfloat16: the compute
+// type); scale, zp: fp32 [1] (scales 0, TENSOR), [M] (1, ROW) or [K] (2,
+// BLOCK); out: fp32 [M, N].
+int mfa_qa_gemm(const void* a, const void* b, const void* scale,
+                const void* zp, void* out, int M, int N, int K, int bits,
+                int scales, int btype, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || scales < WO_TENSOR || scales > WO_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  if (bits == 4 && K % 256 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ps = static_cast<const float*>(scale);
+  const float* pz = static_cast<const float*>(zp);
+  float* o = static_cast<float*>(out);
+  const dim3 g = wo_grid(M, N);
+#define MFA_QA(BT, BITS)                                                   \
+  qa_kernel<BT, BITS><<<g, WO_THREADS, 0, s>>>(                           \
+      a, static_cast<const BT*>(b), ps, pz, scales, o, M, N, K)
+  if (btype == 0 && bits == 8)
+    MFA_QA(float, 8);
+  else if (btype == 0 && bits == 4)
+    MFA_QA(float, 4);
+  else if (btype == 1 && bits == 8)
+    MFA_QA(__nv_bfloat16, 8);
+  else if (btype == 1 && bits == 4)
+    MFA_QA(__nv_bfloat16, 4);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef MFA_QA
+  return (int)cudaGetLastError();
+}
+
+// qa: int8 [M, K]; qb: int8 [N, K] (B^T); sa, sb: fp32 [K/bs]; za, zb:
+// int32 [K/bs]; sqa, sqb: int32 block sums [M, K/bs], [N, K/bs]; c: fp32
+// [M, N] or null; out: fp32 [M, N].  bs a multiple of 128 dividing K.
+int mfa_comp_gemm(const void* qa, const void* qb, const void* sa,
+                  const void* za, const void* sb, const void* zb,
+                  const void* sqa, const void* sqb, const void* c, void* out,
+                  int M, int N, int K, int bs, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || bs <= 0 || bs % 128 != 0 || K % bs != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + DG_BN - 1) / DG_BN, (M + DG_BM - 1) / DG_BM);
+  comp_kernel<<<grid, DG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb),
+      static_cast<const float*>(sa), static_cast<const int*>(za),
+      static_cast<const float*>(sb), static_cast<const int*>(zb),
+      static_cast<const int*>(sqa), static_cast<const int*>(sqb),
+      static_cast<const float*>(c), static_cast<float*>(out), M, N, K, bs);
+  return (int)cudaGetLastError();
+}
+
+// qa: int8 [M, K]; qb: int8 [N, K] (B^T); sa, zsa, sb, zsb: fp32 [K] (the
+// per-block scale and z*scale expanded per element); c: fp32 [M, N] or
+// null; out: fp32 [M, N].
+int mfa_comp_small_gemm(const void* qa, const void* qb, const void* sa,
+                        const void* zsa, const void* sb, const void* zsb,
+                        const void* c, void* out, int M, int N, int K,
+                        void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  comp_small_kernel<<<wo_grid(M, N), WO_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb),
+      static_cast<const float*>(sa), static_cast<const float*>(zsa),
+      static_cast<const float*>(sb), static_cast<const float*>(zsb),
+      static_cast<const float*>(c), static_cast<float*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 

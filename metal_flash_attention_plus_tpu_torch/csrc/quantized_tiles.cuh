@@ -27,7 +27,8 @@ enum Dequant { DQ_NONE = 0, DQ_TOKEN = 1, DQ_BLOCK2D = 2, DQ_CHANNEL = 5 };
 
 // One K or V operand: the payload, its bit width, its dequantization and
 // its scales and zero points in that mode's shapes (per token [B, Hkv, Skv],
-// per block [B, Hkv, Skv/br, D/bs], per channel [B, Hkv, D]; unused: null).
+// per block [B, Hkv, Skv/br, ceil(D/bs)], per channel [B, Hkv, D]; unused:
+// null).  A width padded past the head dim may end in a part block.
 struct KVOperand {
   const uint8_t* pay;
   const float* sc;
@@ -85,7 +86,8 @@ __device__ __forceinline__ void stage_kv(const KVOperand& op, size_t head,
           f[e] = rb ? round_bf16(x) : x;
         }
       } else if (op.mode == DQ_BLOCK2D) {
-        const size_t cell = (head * (Skv / br) + t / br) * (size_t)(D / bs);
+        const size_t cell =
+            (head * (Skv / br) + t / br) * (size_t)((D + bs - 1) / bs);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const size_t c = cell + (4 * w + e) / bs;

@@ -70,7 +70,6 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     stream_of,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
-    HEAD_DIMS,
     _FOLDED,
     _channel_scales,
     _check_payload,
@@ -80,6 +79,9 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     _ptr,
     _scale_shapes,
     check_placement,
+    pad_payload,
+    pad_scales,
+    qattn_width,
 )
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantGranularity,
@@ -360,8 +362,7 @@ def check_qflash_inputs(name, q, do, kq, vq, k_params, v_params, lse, di,
     if kq.shape[0] != b or hq % hkv:
         raise ValueError(f"{name}: shapes {tuple(q.shape)} / "
                          f"{tuple(kq.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    qattn_width(d)
     if (mode.k not in DEQUANT or mode.v not in DEQUANT
             or mode.bits_k not in (8, 4) or mode.bits_v not in (8, 4)):
         raise ValueError(f"{name}: mode {mode} has no kernel")
@@ -389,6 +390,19 @@ def check_qflash_inputs(name, q, do, kq, vq, k_params, v_params, lse, di,
                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
     check_placement(name, dev, [q, do, kq, vq, *(t for t, _ in specs)],
                     (q, do, kq, vq), row_ranges, bias, (b, hq, sq, skv))
+
+
+def pad_qflash_kv(d: int, kq, vq, k_params, v_params, mode: KVMode):
+    """(kq, vq, k_params, v_params) at the kernel width of head dim ``d``
+    (:func:`qattn_width`): the payloads widened with zeros (int4
+    repacked), per-channel and BLOCK_2D scales padded with cells of scale
+    1 and zero point 0.  The padded lanes meet the zero lanes of Q and dO
+    and land in gradient lanes that are cut off."""
+    w = qattn_width(d)
+    return (pad_payload(kq, mode.bits_k, d, w),
+            pad_payload(vq, mode.bits_v, d, w),
+            pad_scales(k_params, mode.k, d, w, mode.block),
+            pad_scales(v_params, mode.v, d, w, mode.block))
 
 
 def _launch_qflash(name, dq, q, do, kq, vq, k_params, v_params, ksr, vsr,
@@ -448,7 +462,13 @@ def qflash_dq(
                                row_ranges, want_dbias=want_dbias, **kw)
     check_qflash_inputs("qflash_dq", q, do, kq, vq, k_params, v_params, lse,
                         di, row_ranges, bias, mode, ksr, vsr, dqsc)
-    b, hq, sq, _ = q.shape
+    b, hq, sq, d = q.shape
+    w = qattn_width(d)
+    kq, vq, k_params, v_params = pad_qflash_kv(d, kq, vq, k_params,
+                                               v_params, mode)
+    q, do = pad_lanes(w, q, do)
+    if w != d:
+        dqsc = torch.nn.functional.pad(dqsc, (0, w - d), value=1.0)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dbias = (torch.zeros((b, hq, sq, kq.shape[2]), dtype=torch.float32,
                          device=q.device) if want_dbias else None)
@@ -456,7 +476,7 @@ def qflash_dq(
                    vsr, dqsc, lse, di, row_ranges, bias, dq, dbias, mode, 1.0,
                    interleaved_kv)
     qflash_dq.launches += 1
-    return dq, dbias
+    return (dq if w == d else dq[..., :d].contiguous()), dbias
 
 
 qflash_dq.launches = 0
@@ -491,13 +511,20 @@ def qflash_dkv(
                                 row_ranges, **kw)
     check_qflash_inputs("qflash_dkv", q, do, kq, vq, k_params, v_params, lse,
                         di, row_ranges, bias, mode)
-    shape = (*kq.shape[:3], q.shape[3])
+    d = q.shape[3]
+    w = qattn_width(d)
+    kq, vq, k_params, v_params = pad_qflash_kv(d, kq, vq, k_params,
+                                               v_params, mode)
+    q, do = pad_lanes(w, q, do)
+    shape = (*kq.shape[:3], w)
     dk = torch.empty(shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(shape, dtype=torch.float32, device=q.device)
     _launch_qflash("qflash_dkv", False, q, do, kq, vq, k_params, v_params,
                    None, None, None, lse, di, row_ranges, bias, dk, dv, mode,
                    scale, interleaved_kv)
     qflash_dkv.launches += 1
+    if w != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 
@@ -684,7 +711,8 @@ def _check_fullint(name, qq, qsc, kq, ks, vq, dos, lse, di, width):
                          "expected")
     b, hq, sq, d = qq.shape
     hkv, skv = kq.shape[1], kq.shape[2]
-    if kq.shape[0] != b or hq % hkv or d not in HEAD_DIMS or width < 0:
+    qattn_width(d)
+    if kq.shape[0] != b or hq % hkv or width < 0:
         raise ValueError(f"{name}: shapes {tuple(qq.shape)} / "
                          f"{tuple(kq.shape)}, width {width} have no kernel")
     rows = (b, hq, sq)
@@ -749,11 +777,13 @@ def fullint_dq(
                                 **kw)
     _check_fullint("fullint_dq", qq, qsc, kq, ks, vq, [(dov, dovsc)], lse,
                    di, width)
+    d = qq.shape[3]
+    qq, kq, vq, dov = pad_lanes(qattn_width(d), qq, kq, vq, dov)
     dq = torch.empty(qq.shape, dtype=torch.float32, device=qq.device)
     _launch_fullint("fullint_dq", True, qq, qsc, kq, ks, vq, None, None, dov,
                     dovsc, lse, di, dq, None, width, store, interleaved_kv)
     fullint_dq.launches += 1
-    return dq
+    return dq if dq.shape[3] == d else dq[..., :d].contiguous()
 
 
 fullint_dq.launches = 0
@@ -787,11 +817,15 @@ def fullint_dkv(
                                  lse, di, **kw)
     _check_fullint("fullint_dkv", qq, qsc, kq, ks, vq,
                    [(dor, dorsc), (dov, dovsc)], lse, di, width)
+    d = qq.shape[3]
+    qq, kq, vq, dor, dov = pad_lanes(qattn_width(d), qq, kq, vq, dor, dov)
     dk = torch.empty(kq.shape, dtype=torch.float32, device=kq.device)
     dv = torch.empty(kq.shape, dtype=torch.float32, device=kq.device)
     _launch_fullint("fullint_dkv", False, qq, qsc, kq, ks, vq, dor, dorsc,
                     dov, dovsc, lse, di, dk, dv, width, store, interleaved_kv)
     fullint_dkv.launches += 1
+    if dk.shape[3] != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 

@@ -74,6 +74,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     BlockSizes,
     bias_args,
     kernel_bias,
+    pad_lanes,
     range_mask,
     row_ranges_tensor,
     stream_of,
@@ -95,17 +96,65 @@ from metal_flash_attention_plus_tpu_torch.quant.params import (
 from metal_flash_attention_plus_tpu_torch.quant.tensor import (
     QuantizedTensor,
     dequantize,
+    pack_int4,
     quantize,
+    unpack_int4,
 )
 
 LOG2_127 = float(np.log2(127.0))
 LN_127 = float(np.log(127.0))
 KV_TILE = 64  # the kernels' query rows and keys per tile (BM, BN)
-HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernels are built for
+# The head dims the quantized kernels (forward, exact and full-integer
+# backward) are built for; other multiples of 16 up to 256 run zero-padded
+# to the next (:func:`qattn_width`).
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
+
+
+def qattn_width(d: int) -> int:
+    """The kernel width a head dim ``d`` runs at (see ``HEAD_DIMS``)."""
+    if d % 16 == 0:
+        for w in HEAD_DIMS:
+            if d <= w:
+                return w
+    raise ValueError(f"head dim {d} has no quantized kernel (multiples of "
+                     f"16 up to {HEAD_DIMS[-1]})")
+
+
+def pad_payload(t: torch.Tensor, bits: int, d: int,
+                width: int) -> torch.Tensor:
+    """A K/V payload of head dim ``d`` (int8 [..., D], or group-planar int4
+    [..., D/2]) widened to ``width`` lanes holding the integer 0.  An int4
+    payload narrower than a packing group splits at its own midpoint, so it
+    is repacked at the new width, not extended."""
+    if width == d:
+        return t
+    if bits == 4:
+        return pack_int4(torch.nn.functional.pad(unpack_int4(t),
+                                                 (0, width - d)))
+    return torch.nn.functional.pad(t, (0, width - d))
+
+
+def pad_scales(params, kind: str, d: int, width: int, block):
+    """A mode's (scale, zero point) for ``width`` lanes: per-channel
+    ("store", "channel") and BLOCK_2D vectors get cells of scale 1 and
+    zero point 0 (so padded lanes dequantize to exactly 0); per-token ones
+    have no lane dim and stay.  BLOCK_2D gets whole cells, the last one
+    cut short where the block size does not tile ``width`` (a block of 48
+    at D=96: one cell over lanes 96-127; the kernels index a lane's cell
+    as lane // bs)."""
+    s, z = params
+    if width == d or kind not in ("store", "channel", "block2d"):
+        return params
+    cells = width - d
+    if kind == "block2d":
+        cells = -(-cells // block[1])
+    pad = torch.nn.functional.pad
+    return (pad(s, (0, cells), value=1.0),
+            None if z is None else pad(z, (0, cells)))
 
 
 def int8_p_tile(block_sizes: BlockSizes, skv: int) -> int:
@@ -298,8 +347,7 @@ def check_qattn_inputs(name, q, q_scales, kq, vq, k_params, v_params,
     if kq.shape[0] != b or hq % hkv:
         raise ValueError(f"{name}: shapes {tuple(q.shape)} / "
                          f"{tuple(kq.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    qattn_width(d)
     if (mode.k_scales not in K_SCALES or mode.v_scales not in V_SCALES
             or mode.bits_k not in (8, 4) or mode.bits_v not in (8, 4)):
         raise ValueError(f"{name}: mode {mode} has no kernel")
@@ -391,7 +439,13 @@ def qattn_fwd(
     running row max P rounds against, the TPU's ``block_kv``
     (:func:`int8_p_tile`); None: the kernel's ``KV_TILE``-key tiles.  CPU
     tensors take :func:`qattn_fwd_plain` over the same spans; CUDA tensors
-    launch ``qattn_fwd_kernel`` or raise."""
+    launch ``qattn_fwd_kernel`` or raise.
+
+    A head dim outside ``HEAD_DIMS`` runs at :func:`qattn_width`
+    (:func:`pad_qattn_arguments`): the padded lanes meet Q's zero lanes in
+    S and land in O's padded lanes, which are cut off, so they change
+    nothing; ``mode.l_rounded`` was chosen from the true head dim by
+    :func:`qattn_arguments`."""
     kw = dict(mode=mode, bias=bias, interleaved_kv=interleaved_kv,
               mask_value=mask_value)
     span = KV_TILE if kv_tile is None else kv_tile
@@ -406,6 +460,9 @@ def qattn_fwd(
     if span != KV_TILE and q.dtype != torch.int8:
         raise ValueError("qattn_fwd: key spans other than KV_TILE need an "
                          "int8 Q (the int8-P mode)")
+    d_in = q.shape[3]
+    q, kq, vq, k_params, v_params = pad_qattn_arguments(
+        q, kq, vq, k_params, v_params, mode)
     b, hq, sq, d = q.shape
     hkv, skv = kq.shape[1], kq.shape[2]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -422,10 +479,26 @@ def qattn_fwd(
     )
     _build.check_launch(rc, "qattn_fwd")
     qattn_fwd.launches += 1
-    return o, lse
+    return (o if d == d_in else o[..., :d_in].contiguous()), lse
 
 
 qattn_fwd.launches = 0
+
+
+def pad_qattn_arguments(q, kq, vq, k_params, v_params, mode: QAttnMode):
+    """(q, kq, vq, k_params, v_params) of :func:`qattn_fwd` at the kernel
+    width of Q's head dim: Q zero-padded, the payloads by
+    :func:`pad_payload`, the scales by :func:`pad_scales`; unchanged at a
+    built width."""
+    d = q.shape[3]
+    w = qattn_width(d)
+    if w == d:
+        return q, kq, vq, k_params, v_params
+    (q,) = pad_lanes(w, q)
+    return (q, pad_payload(kq, mode.bits_k, d, w),
+            pad_payload(vq, mode.bits_v, d, w),
+            pad_scales(k_params, mode.k_scales, d, w, mode.block),
+            pad_scales(v_params, mode.v_scales, d, w, mode.block))
 
 
 # ---------------------------------------------------------------------------

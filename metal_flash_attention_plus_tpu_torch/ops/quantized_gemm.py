@@ -1,18 +1,34 @@
-"""Quantized GEMMs: float A [M, K] × quantized Bᵀ [N, K] → [M, N], and the
-K/V tile helpers of the quantized attention.
+"""Quantized GEMMs, and the K/V tile helpers of the quantized attention.
 
-Two entry points of the JAX package's ``ops/quantized_gemm.py``:
+The entry points of the JAX package's ``ops/quantized_gemm.py``, each with
+the JAX dispatch over its CUDA kernels (``csrc/quantized_gemm.cu``); every
+kernel wrapper launches its kernel on CUDA tensors (or raises), runs its
+plain PyTorch version (``*_plain``) on CPU tensors, and counts its launches
+in ``<wrapper>.launches``:
 
-- :func:`quantized_matmul`, the weight-only GEMM (A stays float), with the
-  JAX dispatch: SYMMETRIC TENSOR / ROW weights and a non-fp32 A take
-  :func:`wo_folded_gemm` (``csrc/quantized_gemm.cu::wo_folded_kernel``, the
-  TPU's ``_wo_folded_kernel``): A in bf16 times the integer weights, the
-  scale on the fp32 accumulator once, then C; every other weight (or an
-  fp32 A) takes :func:`wo_gemm` (``wo_kernel``, the TPU's ``_wo_kernel``):
-  each weight ``(q − zp)·s`` with TENSOR, ROW or BLOCK (per K-block)
-  scales, rounded to the compute dtype (fp32 for an fp32 A, else bf16),
-  fp32 accumulation, C added at the store.  Launches are counted in
-  ``wo_folded_gemm.launches`` and ``wo_gemm.launches``.
+- :func:`quantized_matmul`, the weight-only GEMM: float A [M, K] ×
+  quantized Bᵀ [N, K].  SYMMETRIC TENSOR / ROW weights and a non-fp32 A
+  take :func:`wo_folded_gemm` (``wo_folded_kernel``, the TPU's
+  ``_wo_folded_kernel``): A in bf16 times the integer weights, the scale
+  on the fp32 accumulator once, then C; every other weight (or an fp32 A)
+  takes :func:`wo_gemm` (``wo_kernel``, the TPU's ``_wo_kernel``): each
+  weight ``(q − zp)·s`` with TENSOR, ROW or BLOCK (per K-block) scales,
+  rounded to the compute dtype (fp32 for an fp32 A, else bf16), fp32
+  accumulation, C added at the store.
+- :func:`quantized_matmul_qa`, the transpose: quantized A [M, K] × float B
+  [K, N].  SYMMETRIC TENSOR / ROW A and a non-fp32 B (rounded to bf16,
+  whatever its dtype) take :func:`qa_folded_gemm` (``qa_folded_kernel``,
+  the TPU's ``_qa_folded_kernel``), the scale per row of A on the
+  accumulator; every other A (or an fp32 B) takes :func:`qa_gemm`
+  (``qa_kernel``, the TPU's ``_qa_kernel``), dequantizing A to B's
+  precision.  Neither takes C: ``ops.gemm.matmul`` adds it after them.
+- :func:`compensated_matmul`: int8 A [M, K] × int8 Bᵀ [N, K], both BLOCK
+  along K with one block size.  A block size that is a multiple of 128
+  takes :func:`comp_gemm` (``comp_kernel``, the TPU's ``_comp_kernel``):
+  integer block products and the per-block zero-point compensation from
+  :func:`per_row_block_sums`; smaller blocks take :func:`comp_small_gemm`
+  (``comp_small_kernel``, the TPU's ``_comp_small_kernel``): both operands
+  dequantized per element, exact fp32 products.
 - :func:`dynamic_quantized_matmul`, W8A8 / W4A8, below.
 
 The dynamic GEMM.  A is quantized per row in the wrapper (int8
@@ -24,13 +40,12 @@ integer product and the one-pass epilogue
 
 in fp32, in that order, with the roundings of the JAX kernel as XLA runs
 it: the subtraction of Σqa·z_b and the addition of C are each one fused
-multiply-add.  On a CUDA tensor it launches ``dyn_gemm_kernel``
-(``csrc/quantized_gemm.cu``) or raises; on the CPU it runs
-:func:`dyn_gemm_plain`.  Its launches are counted in ``dyn_gemm.launches``.
+multiply-add.  B is a :class:`QuantizedTensor` over ``[N, K]`` with ROW or
+TENSOR scales, int8 or group-planar int4 (K % 256 == 0); any strategy, the
+zero point is compensated exactly through Σqa.
 
-B is a :class:`QuantizedTensor` over ``[N, K]`` with ROW or TENSOR scales,
-int8 or group-planar int4 (K % 256 == 0); any strategy, the zero point is
-compensated exactly through Σqa.
+The JAX package's ``block_m/n/k`` are TPU tiles: the entry points accept
+them and the CUDA kernels choose their own.
 """
 
 from __future__ import annotations
@@ -41,6 +56,9 @@ from typing import Optional, Tuple
 import torch
 
 from metal_flash_attention_plus_tpu_torch import _build
+from metal_flash_attention_plus_tpu_torch.attention.precisions import (
+    exact_fp32,
+)
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantGranularity,
     QuantStrategy,
@@ -97,6 +115,36 @@ def _check_weight(b_t: QuantizedTensor, kdim: int):
             f"int4 dynamic GEMM requires K % 256 == 0 (got K={kdim})")
 
 
+def _check_gemm(name: str, specs, aligned=()):
+    """Raise unless each (tensor, dtypes, shape) of ``specs`` (None tensors
+    skipped) has one of ``dtypes`` and that shape, all contiguous on the
+    first tensor's CUDA device, and each of ``aligned`` 16-byte aligned."""
+    dev = specs[0][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t, dtypes, shape in specs:
+        if t is None:
+            continue
+        if t.dtype not in dtypes or tuple(t.shape) != tuple(shape):
+            raise TypeError(f"{name}: expected {dtypes} {tuple(shape)}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous on {dev}")
+    for t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: int8 operands must be 16-byte aligned")
+
+
+def _payload_spec(t: torch.Tensor, bits: int, rows: int, kdim: int):
+    """The (tensor, dtypes, shape) a ``bits``-bit [rows, K] payload has."""
+    if bits not in (8, 4):
+        raise ValueError(f"payload bits {bits} are not 8 or 4")
+    if bits == 4 and kdim % INT4_GROUP:
+        raise ValueError(f"int4 needs K % 256 == 0 (got {kdim})")
+    return ((t, (torch.int8,), (rows, kdim)) if bits == 8
+            else (t, (torch.uint8,), (rows, kdim // 2)))
+
+
 # ---------------------------------------------------------------------------
 # K/V tile helpers of the quantized attention: the dequantized values its
 # plain versions use (the kernels dequantize while staging, the same way)
@@ -135,10 +183,11 @@ def dequant_block2d_vals(payload, s, z, er, ec, d, bits, compute_dtype):
 
 def block2d_expanders(block_rows: int, block_size: int, bkv: int, d: int,
                       device=None):
-    """(E_r [bkv, bkv/br] or None, E_c [d/bs, d]): the 0/1 fp32 matrices
-    that expand per-block values to per-element ones."""
+    """(E_r [bkv, bkv/br] or None, E_c [ceil(d/bs), d]): the 0/1 fp32
+    matrices that expand per-block values to per-element ones."""
     ec = (torch.arange(d, device=device)[None, :] // block_size
-          == torch.arange(d // block_size, device=device)[:, None]).float()
+          == torch.arange(-(-d // block_size),
+                          device=device)[:, None]).float()
     if block_rows == 1:
         return None, ec
     er = (torch.arange(bkv, device=device)[:, None] // block_rows
@@ -204,39 +253,17 @@ def dyn_gemm(qa, qb, sa, rs, sb, zb, *, bits: int,
         return dyn_gemm_plain(qa, qb, sa, rs, sb, zb, bits=bits, c=c)
     m, kdim = qa.shape
     n = qb.shape[0]
-    dev = qa.device
-    if dev.type != "cuda":
-        raise ValueError(f"dyn_gemm: no kernel for device {dev}")
-    if qa.dtype != torch.int8:
-        raise TypeError("dyn_gemm: activations must be int8")
-    want = (torch.int8, (n, kdim)) if bits == 8 else (
-        torch.uint8, (n, kdim // 2))
-    if bits not in (8, 4) or (qb.dtype, tuple(qb.shape)) != want:
-        raise TypeError(f"dyn_gemm: {bits}-bit weights must be "
-                        f"{want[0]} {want[1]}, got {qb.dtype} "
-                        f"{tuple(qb.shape)}")
-    if bits == 4 and kdim % INT4_GROUP:
-        raise ValueError(f"dyn_gemm: int4 needs K % 256 == 0 (got {kdim})")
-    for t, size in ((sa, m), (rs, m), (sb, n), (zb, n)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (size,):
-            raise TypeError("dyn_gemm: scales and sums must be fp32 [M] / [N]")
-    if c is not None and (c.dtype != torch.float32
-                          or tuple(c.shape) != (m, n)):
-        raise TypeError("dyn_gemm: c must be fp32 [M, N]")
-    tensors = (qa, qb, sa, rs, sb, zb) + (() if c is None else (c,))
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"dyn_gemm: all tensors must be on {dev}")
-        if not t.is_contiguous():
-            raise ValueError("dyn_gemm: tensors must be contiguous")
-    if qa.data_ptr() % 16 or qb.data_ptr() % 16:
-        raise ValueError("dyn_gemm: int8 operands must be 16-byte aligned")
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    f32 = (torch.float32,)
+    _check_gemm("dyn_gemm", [
+        (qa, (torch.int8,), (m, kdim)), _payload_spec(qb, bits, n, kdim),
+        (sa, f32, (m,)), (rs, f32, (m,)), (sb, f32, (n,)), (zb, f32, (n,)),
+        (c, f32, (m, n))], aligned=(qa, qb))
+    out = torch.empty((m, n), dtype=torch.float32, device=qa.device)
     rc = _build.kernel_function("mfa_dyn_gemm", _DYN_ARGS)(
         qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), rs.data_ptr(),
         sb.data_ptr(), zb.data_ptr(), None if c is None else c.data_ptr(),
         out.data_ptr(), m, n, kdim, bits,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(qa.device).cuda_stream,
     )
     _build.check_launch(rc, "dyn_gemm")
     dyn_gemm.launches += 1
@@ -300,52 +327,17 @@ def dynamic_quantized_matmul(
 # ---------------------------------------------------------------------------
 
 
-def _weight_ints(w: torch.Tensor, bits: int) -> torch.Tensor:
+def _payload_ints(w: torch.Tensor, bits: int) -> torch.Tensor:
     """The payload [N, K] int8 or group-planar [N, K/2] uint8 as fp32
     integers [N, K]."""
     return (unpack_int4(w) if bits == 4 else w).float()
-
-
-def _check_wo(name, a, a_dtypes, w, bits, vectors, c):
-    """Raise unless the tensors are what the weight-only kernels take: A
-    [M, K] in ``a_dtypes``, the payload of ``bits`` for [N, K], each of
-    ``vectors`` (tensor, length) fp32 of that length, C fp32 [M, N] or
-    None, all contiguous on one CUDA device."""
-    dev = a.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    if a.dim() != 2 or a.dtype not in a_dtypes:
-        raise TypeError(f"{name}: A must be [M, K] in {a_dtypes}, got "
-                        f"{a.dtype} {tuple(a.shape)}")
-    m, kdim = a.shape
-    n = w.shape[0]
-    want = (torch.int8, (n, kdim)) if bits == 8 else (
-        torch.uint8, (n, kdim // 2))
-    if bits not in (8, 4) or (w.dtype, tuple(w.shape)) != want:
-        raise TypeError(f"{name}: {bits}-bit weights must be {want[0]} "
-                        f"{want[1]}, got {w.dtype} {tuple(w.shape)}")
-    if bits == 4 and kdim % INT4_GROUP:
-        raise ValueError(f"{name}: int4 needs K % 256 == 0 (got {kdim})")
-    for t, size in vectors:
-        if t.dtype != torch.float32 or tuple(t.shape) != (size,):
-            raise TypeError(f"{name}: scales and zero points must be fp32 "
-                            f"[{size}]")
-    if c is not None and (c.dtype != torch.float32
-                          or tuple(c.shape) != (m, n)):
-        raise TypeError(f"{name}: c must be fp32 [M, N]")
-    for t in (a, w, *(t for t, _ in vectors),
-              *(() if c is None else (c,))):
-        if t.device != dev:
-            raise ValueError(f"{name}: all tensors must be on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
 
 
 def wo_folded_gemm_plain(a, w, scale, *, bits: int,
                          c: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`wo_folded_gemm`: exact bf16 × int
     products summed in fp32, then × the scale, then + C."""
-    r = (a.to(torch.bfloat16).float() @ _weight_ints(w, bits).t()) * scale
+    r = (a.to(torch.bfloat16).float() @ _payload_ints(w, bits).t()) * scale
     return r if c is None else r + c.float()
 
 
@@ -360,10 +352,12 @@ def wo_folded_gemm(a, w, scale, *, bits: int,
     """
     if a.device.type == "cpu":
         return wo_folded_gemm_plain(a, w, scale, bits=bits, c=c)
-    n = w.shape[0]
-    _check_wo("wo_folded_gemm", a, (torch.bfloat16,), w, bits,
-              ((scale, n),), c)
     m, kdim = a.shape
+    n = w.shape[0]
+    f32 = (torch.float32,)
+    _check_gemm("wo_folded_gemm", [
+        (a, (torch.bfloat16,), (m, kdim)), _payload_spec(w, bits, n, kdim),
+        (scale, f32, (n,)), (c, f32, (m, n))])
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     rc = _build.kernel_function("mfa_wo_folded_gemm", _WO_FOLDED_ARGS)(
         a.data_ptr(), w.data_ptr(), scale.data_ptr(),
@@ -393,7 +387,7 @@ def wo_gemm_plain(a, w, scale, zp, *, bits: int, scales: int,
     cd = torch.float32 if a.dtype == torch.float32 else torch.bfloat16
     n, kdim = w.shape[0], a.shape[1]
     view, _ = _cells(scales, n, kdim)
-    deq = ((_weight_ints(w, bits) - zp.reshape(view)) * scale.reshape(view))
+    deq = ((_payload_ints(w, bits) - zp.reshape(view)) * scale.reshape(view))
     acc = a.to(cd).float() @ deq.to(cd).float().t()
     return acc if c is None else acc + c.float()
 
@@ -416,8 +410,11 @@ def wo_gemm(a, w, scale, zp, *, bits: int, scales: int,
     if scales not in (0, 1, 2):
         raise ValueError(f"wo_gemm: scales {scales} is not 0, 1 or 2")
     _, cells = _cells(scales, n, kdim)
-    _check_wo("wo_gemm", a, (torch.float32, torch.bfloat16), w, bits,
-              ((scale, cells), (zp, cells)), c)
+    f32 = (torch.float32,)
+    _check_gemm("wo_gemm", [
+        (a, (torch.float32, torch.bfloat16), (m, kdim)),
+        _payload_spec(w, bits, n, kdim), (scale, f32, (cells,)),
+        (zp, f32, (cells,)), (c, f32, (m, n))])
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     rc = _build.kernel_function("mfa_wo_gemm", _WO_ARGS)(
         a.data_ptr(), w.data_ptr(), scale.data_ptr(), zp.data_ptr(),
@@ -500,3 +497,369 @@ def quantized_matmul(
     folded, args, kw = wo_arguments(a, b_t, c)
     out = (wo_folded_gemm if folded else wo_gemm)(*args, **kw)
     return out.to(out_dtype or a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Quantized A × float B: the kernels, their plain versions,
+# quantized_matmul_qa
+# ---------------------------------------------------------------------------
+
+
+_QA_FOLDED_ARGS = [_PTR] * 4 + [_I32] * 4 + [_PTR]
+_QA_ARGS = [_PTR] * 5 + [_I32] * 6 + [_PTR]
+
+
+def qa_folded_gemm_plain(a, b, scale, *, bits: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`qa_folded_gemm`: exact int × bf16
+    products summed in fp32, then × the row scale."""
+    with exact_fp32():
+        return (_payload_ints(a, bits) @ b.float()) * scale[:, None]
+
+
+def qa_folded_gemm(a, b, scale, *, bits: int) -> torch.Tensor:
+    """The folded quantized-A kernel → fp32 [M, N]: ``(A·B)·s[m]``.
+
+    a int8 [M, K] (bits 8) or group-planar uint8 [M, K/2] (bits 4, K % 256
+    == 0); b bf16 [K, N]; scale fp32 [M] (a TENSOR scale repeated).  CPU
+    tensors take :func:`qa_folded_gemm_plain`; CUDA tensors launch
+    ``qa_folded_kernel`` or raise."""
+    if a.device.type == "cpu":
+        return qa_folded_gemm_plain(a, b, scale, bits=bits)
+    m, kdim, n = a.shape[0], b.shape[0], b.shape[1]
+    _check_gemm("qa_folded_gemm", [
+        _payload_spec(a, bits, m, kdim), (b, (torch.bfloat16,), (kdim, n)),
+        (scale, (torch.float32,), (m,))])
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    rc = _build.kernel_function("mfa_qa_folded_gemm", _QA_FOLDED_ARGS)(
+        a.data_ptr(), b.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n,
+        kdim, bits, torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check_launch(rc, "qa_folded_gemm")
+    qa_folded_gemm.launches += 1
+    return out
+
+
+qa_folded_gemm.launches = 0
+
+
+def qa_gemm_plain(a, b, scale, zp, *, bits: int,
+                  scales: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`qa_gemm`: ``(q − zp)·s`` in fp32
+    rounded to B's dtype (the compute dtype), the product summed in fp32."""
+    m, kdim = a.shape[0], b.shape[0]
+    view, _ = _cells(scales, m, kdim)
+    deq = (_payload_ints(a, bits) - zp.reshape(view)) * scale.reshape(view)
+    with exact_fp32():
+        return deq.to(b.dtype).float() @ b.float()
+
+
+def qa_gemm(a, b, scale, zp, *, bits: int, scales: int) -> torch.Tensor:
+    """The dequant-on-load quantized-A kernel → fp32 [M, N]:
+    ``round_cd((q − zp)·s)·B``.
+
+    a as for :func:`qa_folded_gemm`; b fp32 or bf16 [K, N] (its dtype is
+    the compute dtype); ``scales`` 0 (TENSOR: scale, zp fp32 [1]), 1 (ROW,
+    per row of A: [M]) or 2 (BLOCK, per element of K: [K]).  CPU tensors
+    take :func:`qa_gemm_plain`; CUDA tensors launch ``qa_kernel`` or
+    raise."""
+    if a.device.type == "cpu":
+        return qa_gemm_plain(a, b, scale, zp, bits=bits, scales=scales)
+    m, kdim, n = a.shape[0], b.shape[0], b.shape[1]
+    if scales not in (0, 1, 2):
+        raise ValueError(f"qa_gemm: scales {scales} is not 0, 1 or 2")
+    _, cells = _cells(scales, m, kdim)
+    _check_gemm("qa_gemm", [
+        _payload_spec(a, bits, m, kdim),
+        (b, (torch.float32, torch.bfloat16), (kdim, n)),
+        (scale, (torch.float32,), (cells,)), (zp, (torch.float32,), (cells,))])
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    rc = _build.kernel_function("mfa_qa_gemm", _QA_ARGS)(
+        a.data_ptr(), b.data_ptr(), scale.data_ptr(), zp.data_ptr(),
+        out.data_ptr(), m, n, kdim, bits, scales,
+        int(b.dtype == torch.bfloat16),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check_launch(rc, "qa_gemm")
+    qa_gemm.launches += 1
+    return out
+
+
+qa_gemm.launches = 0
+
+
+def qa_arguments(a_q: QuantizedTensor, b: torch.Tensor):
+    """The JAX dispatch of :func:`quantized_matmul_qa` → (folded, args, kw):
+    ``qa_folded_gemm(*args, **kw)`` when ``folded``, else
+    ``qa_gemm(*args, **kw)`` (and their plain versions on the same
+    arguments)."""
+    if len(a_q.shape) != 2 or b.dim() != 2 or a_q.shape[1] != b.shape[0]:
+        raise ValueError(f"A {tuple(a_q.shape)} and B {tuple(b.shape)} do "
+                         "not match")
+    m, kdim = a_q.shape
+    cfg = a_q.config
+    g = cfg.granularity
+    if g == QuantGranularity.BLOCK and kdim % cfg.block_size:
+        raise ValueError(f"K={kdim} is not a multiple of the block size "
+                         f"{cfg.block_size}")
+    if cfg.bits == 4 and kdim % INT4_GROUP:
+        raise ValueError(
+            f"int4 kernel path requires K % 256 == 0 (got K={kdim}); "
+            "dequantize explicitly for ragged K")
+    if (cfg.strategy == QuantStrategy.SYMMETRIC
+            and g in (QuantGranularity.TENSOR, QuantGranularity.ROW)
+            and b.dtype != torch.float32):
+        # B is rounded to bf16 whatever its float dtype, as in the JAX
+        # kernel's call.
+        scale = a_q.scale.reshape(-1).float().expand(m).contiguous()
+        args = (a_q.data, b.to(torch.bfloat16).contiguous(), scale)
+        return True, args, dict(bits=cfg.bits)
+    if g not in WO_SCALES:
+        raise NotImplementedError(g)
+    scale = a_q.scale.reshape(-1).float()
+    zp = a_q.zero_point.reshape(-1).float()
+    if g == QuantGranularity.BLOCK:  # per K-block → per element [K]
+        scale = scale.repeat_interleave(cfg.block_size)
+        zp = zp.repeat_interleave(cfg.block_size)
+    cd = torch.float32 if b.dtype == torch.float32 else torch.bfloat16
+    args = (a_q.data, b.to(cd).contiguous(), scale.contiguous(),
+            zp.contiguous())
+    return False, args, dict(bits=cfg.bits, scales=WO_SCALES[g])
+
+
+def quantized_matmul_qa(
+    a_q: QuantizedTensor,
+    b: torch.Tensor,
+    *,
+    block_m: int = 512,
+    block_n: int = 512,
+    block_k: int = 512,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """dequant(A [M, K]) × B [K, N] (bf16/fp16/fp32) → [M, N] in
+    ``out_dtype`` (default B's dtype).
+
+    The quantized-activation orientation of :func:`quantized_matmul`.  With
+    SYMMETRIC TENSOR / ROW scales (ROW: per row of A) and a non-fp32 B the
+    folded kernel runs (the integers times B in bf16, the scales once on
+    the accumulator's rows); otherwise A is dequantized per tile with
+    TENSOR, ROW or BLOCK scales in B's precision (bf16 unless B is fp32).
+    int4 A needs K % 256 == 0.  ``block_m/n/k`` are the TPU's tiles,
+    accepted and unused."""
+    del block_m, block_n, block_k
+    folded, args, kw = qa_arguments(a_q, b)
+    out = (qa_folded_gemm if folded else qa_gemm)(*args, **kw)
+    return out.to(out_dtype or b.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Both operands int8, BLOCK along K: the compensated GEMMs
+# ---------------------------------------------------------------------------
+
+_COMP_ARGS = [_PTR] * 10 + [_I32] * 4 + [_PTR]
+_COMP_SMALL_ARGS = [_PTR] * 8 + [_I32] * 3 + [_PTR]
+
+
+def per_row_block_sums(qt: QuantizedTensor) -> torch.Tensor:
+    """Per-row per-K-block Σq, the compensation's SqA / SqB: payload
+    [..., K] → int32 [..., K/bs]."""
+    q = unpack_int4(qt.data) if qt.bits == 4 else qt.data
+    k, bs = qt.shape[-1], qt.config.block_size
+    q = q.reshape(*qt.shape[:-1], k // bs, bs)
+    return q.sum(dim=-1, dtype=torch.int32)
+
+
+def _int_product(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """Exact int64 a·b_tᵀ of two int8 matrices: int64 on the CPU; on a card
+    (no integer matmul) in float64, exact below 2⁵³."""
+    if a.device.type == "cpu":
+        return a.long() @ b_t.long().t()
+    return (a.double() @ b_t.double().t()).long()
+
+
+def comp_gemm_plain(qa, qb, sa, za, sb, zb, sqa, sqb, *, bs: int,
+                    c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`comp_gemm`, bit for bit: per block
+    the exact integer compensation, rounded to fp32, then
+    ``acc = fma(s_a·s_b, comp, acc)`` (the fused multiply-add XLA gives the
+    JAX kernel), then + C."""
+    m, n = qa.shape[0], qb.shape[0]
+    acc = torch.zeros((m, n), dtype=torch.float32, device=qa.device)
+    za, zb = za.long(), zb.long()
+    for i in range(qa.shape[1] // bs):
+        blk = slice(i * bs, (i + 1) * bs)
+        comp = (_int_product(qa[:, blk], qb[:, blk])
+                - zb[i] * sqa[:, i:i + 1].long()
+                - za[i] * sqb[:, i].long()[None, :]
+                + bs * za[i] * zb[i]).float()
+        acc = fma32((sa[i] * sb[i]).expand_as(comp), comp, acc)
+    return acc if c is None else acc + c.float()
+
+
+def comp_gemm(qa, qb, sa, za, sb, zb, sqa, sqb, *, bs: int,
+              c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The compensated int8 × int8 kernel → fp32 [M, N]:
+    ``Σ_b s_a·s_b·(Sqq − z_b·SqA − z_a·SqB + bs·z_a·z_b) (+ C)``.
+
+    qa int8 [M, K]; qb int8 [N, K] (Bᵀ); ``bs`` the K-block, a multiple of
+    128 dividing K; sa, sb fp32 [K/bs]; za, zb int32 [K/bs]; sqa, sqb the
+    int32 block sums [M, K/bs], [N, K/bs]; c fp32 [M, N] or None.  CPU
+    tensors take :func:`comp_gemm_plain`; CUDA tensors launch
+    ``comp_kernel`` or raise."""
+    if qa.device.type == "cpu":
+        return comp_gemm_plain(qa, qb, sa, za, sb, zb, sqa, sqb, bs=bs, c=c)
+    m, kdim = qa.shape
+    n = qb.shape[0]
+    if bs <= 0 or bs % 128 or kdim % bs:
+        raise ValueError(f"comp_gemm: block {bs} is not a multiple of 128 "
+                         f"dividing K={kdim}")
+    nb = kdim // bs
+    i32, f32 = (torch.int32,), (torch.float32,)
+    _check_gemm("comp_gemm", [
+        (qa, (torch.int8,), (m, kdim)), (qb, (torch.int8,), (n, kdim)),
+        (sa, f32, (nb,)), (za, i32, (nb,)), (sb, f32, (nb,)),
+        (zb, i32, (nb,)), (sqa, i32, (m, nb)), (sqb, i32, (n, nb)),
+        (c, f32, (m, n))], aligned=(qa, qb))
+    out = torch.empty((m, n), dtype=torch.float32, device=qa.device)
+    rc = _build.kernel_function("mfa_comp_gemm", _COMP_ARGS)(
+        qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), za.data_ptr(),
+        sb.data_ptr(), zb.data_ptr(), sqa.data_ptr(), sqb.data_ptr(),
+        None if c is None else c.data_ptr(), out.data_ptr(), m, n, kdim, bs,
+        torch.cuda.current_stream(qa.device).cuda_stream)
+    _build.check_launch(rc, "comp_gemm")
+    comp_gemm.launches += 1
+    return out
+
+
+comp_gemm.launches = 0
+
+
+def small_block_tile(bs: int, kdim: int) -> int:
+    """The JAX small-block arm's K tile: a multiple of 128 and of ``bs``
+    (the smallest), times as many as fit in min(512, K)."""
+    base = 128
+    while base % bs:
+        base += 128
+    return base * max(1, min(512, kdim) // base)
+
+
+def comp_small_gemm_plain(qa, qb, sa, zsa, sb, zsb, *, bs: int,
+                          c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`comp_small_gemm`: each operand
+    ``fma(q, s, −z·s)`` in fp32 (the fused multiply-add XLA gives the JAX
+    kernel), exact fp32 products summed per K tile of
+    :func:`small_block_tile` in the JAX kernel's order, then + C."""
+    a = fma32(qa.float(), sa.expand(qa.shape), -zsa.expand(qa.shape))
+    b = fma32(qb.float(), sb.expand(qb.shape), -zsb.expand(qb.shape))
+    kdim = qa.shape[1]
+    bk = small_block_tile(bs, kdim)
+    acc = torch.zeros((qa.shape[0], qb.shape[0]), dtype=torch.float32,
+                      device=qa.device)
+    with exact_fp32():
+        for k0 in range(0, kdim, bk):
+            acc = acc + a[:, k0:k0 + bk] @ b[:, k0:k0 + bk].t()
+    return acc if c is None else acc + c.float()
+
+
+def comp_small_gemm(qa, qb, sa, zsa, sb, zsb, *, bs: int,
+                    c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The small-block compensated kernel (blocks not a multiple of 128) →
+    fp32 [M, N]: both operands dequantized per element, exact fp32
+    products, C at the store.
+
+    qa int8 [M, K]; qb int8 [N, K]; sa, sb the per-block scales and zsa,
+    zsb the per-block z·s, each expanded to fp32 [K]; ``bs`` the block.
+    CPU tensors take :func:`comp_small_gemm_plain`; CUDA tensors launch
+    ``comp_small_kernel`` or raise."""
+    if qa.device.type == "cpu":
+        return comp_small_gemm_plain(qa, qb, sa, zsa, sb, zsb, bs=bs, c=c)
+    m, kdim = qa.shape
+    n = qb.shape[0]
+    if bs <= 0 or kdim % bs:
+        raise ValueError(f"comp_small_gemm: block {bs} does not divide "
+                         f"K={kdim}")
+    f32 = (torch.float32,)
+    _check_gemm("comp_small_gemm", [
+        (qa, (torch.int8,), (m, kdim)), (qb, (torch.int8,), (n, kdim)),
+        (sa, f32, (kdim,)), (zsa, f32, (kdim,)), (sb, f32, (kdim,)),
+        (zsb, f32, (kdim,)), (c, f32, (m, n))])
+    out = torch.empty((m, n), dtype=torch.float32, device=qa.device)
+    rc = _build.kernel_function("mfa_comp_small_gemm", _COMP_SMALL_ARGS)(
+        qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), zsa.data_ptr(),
+        sb.data_ptr(), zsb.data_ptr(), None if c is None else c.data_ptr(),
+        out.data_ptr(), m, n, kdim,
+        torch.cuda.current_stream(qa.device).cuda_stream)
+    _build.check_launch(rc, "comp_small_gemm")
+    comp_small_gemm.launches += 1
+    return out
+
+
+comp_small_gemm.launches = 0
+
+
+def _expand_block_params(t: QuantizedTensor):
+    """Per-K-block (scale, z·scale) → per-element fp32 [K] vectors."""
+    bs = t.config.block_size
+    s = t.scale.reshape(-1).float()
+    zs = t.zero_point.reshape(-1).float() * s
+    return (s.repeat_interleave(bs).contiguous(),
+            zs.repeat_interleave(bs).contiguous())
+
+
+def comp_arguments(a: QuantizedTensor, b_t: QuantizedTensor,
+                   c: Optional[torch.Tensor] = None):
+    """The JAX dispatch of :func:`compensated_matmul` → (small, args, kw):
+    ``comp_small_gemm(*args, **kw)`` when ``small`` (a block size not a
+    multiple of 128), else ``comp_gemm(*args, **kw)`` (and their plain
+    versions on the same arguments).  Raises where the JAX package
+    asserts: int8 × int8, BLOCK granularity, one block size, one K."""
+    ca, cb = a.config, b_t.config
+    if a.bits != 8 or b_t.bits != 8:
+        raise ValueError("compensated path is int8×int8")
+    if (ca.granularity != QuantGranularity.BLOCK
+            or cb.granularity != QuantGranularity.BLOCK):
+        raise ValueError("compensated path needs BLOCK granularity")
+    bs = ca.block_size
+    if bs != cb.block_size:
+        raise ValueError("operand block sizes must match")
+    if (len(a.shape) != 2 or len(b_t.shape) != 2 or a.shape[1] != b_t.shape[1]
+            or a.shape[1] % bs):
+        raise ValueError(f"A {tuple(a.shape)} and Bᵀ {tuple(b_t.shape)} do "
+                         f"not share a K of whole {bs}-blocks")
+    if c is not None:
+        if tuple(c.shape) != (a.shape[0], b_t.shape[0]):
+            raise ValueError(f"c must be [M, N], got {tuple(c.shape)}")
+        c = c.float().contiguous()
+    kw = dict(bs=bs, c=c)
+    if bs % 128:
+        return True, (a.data, b_t.data, *_expand_block_params(a),
+                      *_expand_block_params(b_t)), kw
+    nb = a.shape[1] // bs
+
+    def params(t):
+        return (t.scale.reshape(nb).float().contiguous(),
+                t.zero_point.reshape(nb).to(torch.int32).contiguous())
+
+    (sa, za), (sb, zb) = params(a), params(b_t)
+    return False, (a.data, b_t.data, sa, za, sb, zb, per_row_block_sums(a),
+                   per_row_block_sums(b_t)), kw
+
+
+def compensated_matmul(
+    a: QuantizedTensor,
+    b_t: QuantizedTensor,
+    *,
+    block_m: int = 512,
+    block_n: int = 512,
+    out_dtype: torch.dtype = torch.float32,
+    c: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """int8 A [M, K] × int8 Bᵀ [N, K], both BLOCK along K with one block
+    size, with per-block zero-point compensation → [M, N] in ``out_dtype``.
+
+    ``c``: an optional [M, N] added in fp32 at the store.  A block size
+    that is a multiple of 128 takes :func:`comp_gemm` (integer block
+    products, the compensation per block); smaller ones (the reference's
+    16–64) take :func:`comp_small_gemm` (exact fp32 per-element dequant).
+    ``block_m/n`` are the TPU's tiles, accepted and unused."""
+    del block_m, block_n
+    small, args, kw = comp_arguments(a, b_t, c)
+    out = (comp_small_gemm if small else comp_gemm)(*args, **kw)
+    return out.to(out_dtype)

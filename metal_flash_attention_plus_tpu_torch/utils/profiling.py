@@ -1,5 +1,6 @@
 """Where the serving engine's, the train step's, the fully quantized
-forward's or the quantized fwd+bwd's time goes on the card.
+forward's, the quantized fwd+bwd's or the GEMM engine's time goes on the
+card.
 
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling [--seed N]
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --quantized 8
@@ -10,6 +11,7 @@ forward's or the quantized fwd+bwd's time goes on the card.
         --quantized-attention packed
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --quantized-backward fullint
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling --gemm
 
 Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
 phase (:func:`smoke_requests` on the flagship model with random weights
@@ -42,6 +44,14 @@ int8 ROW / CHANNEL SYMMETRIC K / V, ``quantize_q=True``), the gradient of
 sum(O·dO) with respect to q and the K/V scales, with the full-integer or
 the exact backward, as in ``chip_smoke.py`` phase 11 (b): one call to warm
 up, the wall time of 3 unprofiled calls, then 3 calls under the profiler.
+
+``--gemm``: the GEMM engine at ``benchmarks/gemm_bench.py``'s shapes (M =
+128 and 4096, N = K = 8192; :data:`GEMM_SHAPES`) in its arms and the
+quantized-A and small-block ones (:data:`GEMM_ARMS`, operands from
+:func:`gemm_arm`, which ``chip_smoke.py`` phase 13 reuses): each arm's
+time by CUDA events over 5 calls after one to warm up, with its TFLOP/s
+and weight GB/s as gemm_bench reports them, then one call of every arm
+under the profiler.
 
 Prints JSON lines: the phase times and counts, the device's busy time
 (sum of kernel times) and idle share of the profiled wall time, and the
@@ -81,8 +91,12 @@ from metal_flash_attention_plus_tpu_torch.models.transformer import (
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     BlockSizes,
 )
+from metal_flash_attention_plus_tpu_torch.ops.gemm import matmul
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     quantized_flash_attention,
+)
+from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
+    dynamic_quantized_matmul,
 )
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantConfig,
@@ -145,6 +159,49 @@ def north_star_grads(q, kq, vq, do, fullint: bool):
         dataclasses.replace(vq, scale=leaves[2]),
         block_sizes=NORTH_STAR_BLOCKS, quantize_q=True, bwd_fullint=fullint)
     return torch.autograd.grad((o.float() * do.float()).sum(), leaves)
+
+
+# benchmarks/gemm_bench.py's shapes (M, N, K): decode-like and prefill-like.
+GEMM_SHAPES = ((128, 8192, 8192), (4096, 8192, 8192))
+# gemm_bench's arms (weight-only int8 / int4 BLOCK 256, dynamic W8A8 /
+# W4A8, compensated int8 BLOCK 512) and the other three kernels of the
+# GEMM engine's quantized operands: the folded quantized A (int8 ROW
+# SYMMETRIC), the dequantizing one (int8 ROW ASYMMETRIC) and small
+# compensated blocks (int8 BLOCK 64 CENTERED).
+GEMM_ARMS = ("weight_only_int8", "weight_only_int4", "dynamic_w8a8",
+             "dynamic_w4a8", "compensated_int8", "qa_folded_int8_row",
+             "qa_int8_row_asymmetric", "compensated_small_int8_b64")
+
+
+def gemm_arm(arm: str, m: int, n: int, k: int, generator: torch.Generator):
+    """(entry point, operands) of one GEMM arm, drawn from ``generator`` on
+    its device as gemm_bench draws them: a bf16 A [M, K] and an fp32
+    weight [N, K] (Bᵀ), quantized as the arm says; quantized-A arms take A
+    quantized from fp32 and B = the weight transposed, in bf16."""
+    dev = generator.device
+    a = torch.randn((m, k), generator=generator, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn((n, k), generator=generator, device=dev)
+    block, row = QuantGranularity.BLOCK, QuantGranularity.ROW
+    if arm.startswith("weight_only_int"):
+        return matmul, (a, quantize(w, QuantConfig(
+            bits=int(arm[-1]), granularity=block, block_size=256)))
+    if arm.startswith("dynamic_w"):
+        return dynamic_quantized_matmul, (a, quantize(w, QuantConfig(
+            bits=int(arm[len("dynamic_w")]), granularity=row)))
+    if arm.startswith("compensated"):
+        cfg = (QuantConfig(bits=8, granularity=block, block_size=512)
+               if arm == "compensated_int8" else QuantConfig(
+                   bits=8, granularity=block, block_size=64,
+                   strategy=QuantStrategy.CENTERED))
+        return matmul, (quantize(a.float(), cfg), quantize(w, cfg))
+    if arm.startswith("qa_"):
+        strategy = (QuantStrategy.ASYMMETRIC if arm.endswith("asymmetric")
+                    else QuantStrategy.SYMMETRIC)
+        aq = quantize(a.float(), QuantConfig(bits=8, granularity=row,
+                                             strategy=strategy))
+        return matmul, (aq, w.t().contiguous().to(torch.bfloat16))
+    raise ValueError(f"unknown GEMM arm {arm!r}")
 
 
 def serve_once(cfg, params, seed: int, quantized_cache=False,
@@ -302,6 +359,47 @@ def profile_quantized_backward(seed: int, arm: str, calls: int = 3) -> int:
     return print_profile(prof, prof_wall_s, calls, "fwd_bwd")
 
 
+def cuda_ms(fn, iters: int) -> float:
+    """Mean ms of ``fn`` over ``iters`` calls, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_gemm(seed: int, iters: int = 5) -> int:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    calls = []
+    for m, n, k in GEMM_SHAPES:
+        for arm in GEMM_ARMS:
+            fn, args = gemm_arm(arm, m, n, k, g)
+            run = (lambda fn=fn, args=args: fn(*args))
+            run()  # warm-up: kernel build
+            ms = cuda_ms(run, iters)
+            weight = args[1] if arm.startswith(("weight", "dynamic", "comp")) \
+                else args[0]
+            print(json.dumps({
+                "device": torch.cuda.get_device_name(0), "arm": arm,
+                "m": m, "n": n, "k": k, "ms": ms,
+                "tflops": 2.0 * m * n * k / ms / 1e9,
+                "quantized_operand_gbs": weight.nbytes_payload / ms / 1e6,
+            }))
+            calls.append(run)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for run in calls:
+            run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    return print_profile(prof, wall_s, len(calls), "gemm_call")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -318,10 +416,14 @@ def main() -> int:
     ap.add_argument("--quantized-backward", choices=("fullint", "exact"),
                     help="profile the north-star quantized fwd+bwd with the "
                     "full-integer or the exact backward")
+    ap.add_argument("--gemm", action="store_true",
+                    help="profile the GEMM engine at gemm_bench's shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profiling: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.gemm:
+        return profile_gemm(args.seed)
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
     if args.mla:

@@ -28,7 +28,6 @@ from metal_flash_attention_plus_tpu_torch.attention import masking as tm
 from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
-from metal_flash_attention_plus_tpu_torch.ops import flash_attention as tfa
 from metal_flash_attention_plus_tpu_torch.ops import (
     flash_attention_bwd as fbwd,
 )
@@ -40,6 +39,10 @@ from metal_flash_attention_plus_tpu_torch.quant import tensor as ttensor
 from metal_flash_attention_plus_tpu_torch.reference import (
     attention as tref,
 )
+
+# The port's ops/__init__ re-exports a function of the same name too.
+tfa = importlib.import_module(
+    "metal_flash_attention_plus_tpu_torch.ops.flash_attention")
 
 # The JAX package's ops/__init__ re-exports functions of these names.
 jfa = importlib.import_module(

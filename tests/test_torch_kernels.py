@@ -21,9 +21,14 @@ rounded (an fp32 Q with dequantized or integer K/V), 2e-2 (L 7e-3) where P
 is rounded (a bf16 Q, the int8 P of ``int8_pv``, the head-pair kernel's
 bf16 P); the plain version takes the kernel's key spans (``kv_tile``).
 The runtime quantization kernels are held bit for bit.  The weight-only
-GEMM kernels sum exact products (bf16 × int8, bf16 × bf16) or fp32 ones in
-another order than the plain versions: an fp32 result within
-TOLERANCES["fp32"] of its max abs, a bf16 one within one bf16 ulp.  MLA's
+and quantized-A GEMM kernels sum exact products (bf16 × int8, bf16 × bf16)
+or fp32 ones in another order than the plain versions: an fp32 result
+within TOLERANCES["fp32"] of its max abs, a bf16 one within one bf16 ulp;
+so does the small-block compensated kernel, while the compensated kernel
+is held bit for bit (exact integer compensation, the same fused
+multiply-add per block).  The quantized attention kernels at head dims
+outside their built widths (80, 96) run zero-padded and take the same
+tolerances.  MLA's
 modes of the paged kernels (one-state latent pages, ``v_tail_zero``,
 D = 80 and 288, Hq = 16 over Hkv = 1) and of the flash kernels (D = 80 and
 288) take their kernels' tolerances.
@@ -459,6 +464,11 @@ TEN8, CH8, CH4 = _qcfg(gran="tensor"), _qcfg(gran="channel"), _qcfg(
     bits=4, gran="channel")
 B2D = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
             block_size=32)
+B2D16 = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
+              block_size=16)
+# 48-wide blocks tile D=96 but not its kernel width 128.
+B2D48 = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
+              block_size=48)
 BF16, F32 = torch.bfloat16, torch.float32
 QQ = dict(quantize_q=True)
 
@@ -500,6 +510,17 @@ QATTN_CASES = {
                      {}),
     "ragged_rect": (1, 4, 2, 70, 300, 64, ROW8C, ROW8C, BF16, masking.CAUSAL,
                     {}),
+    # Head dims outside HEAD_DIMS, zero-padded to the next built width.
+    "quantize_q_d80": (1, 4, 2, 128, 128, 80, ROW8, ROW8, BF16,
+                       masking.CAUSAL, QQ),
+    "int8_pv_channel_d96": (1, 4, 2, 160, 160, 96, ROW8, CH8, BF16,
+                            masking.CAUSAL, QQ),
+    "dequant_row4c_d96_f32": (1, 4, 2, 130, 130, 96, ROW4C, ROW4C, F32,
+                              masking.CAUSAL, {}),
+    "block2d_d80_f32": (1, 4, 2, 128, 128, 80, B2D16, B2D16, F32,
+                        masking.CAUSAL, {}),
+    "block2d48_d96_f32": (1, 4, 2, 128, 128, 96, B2D48, B2D48, F32,
+                          masking.CAUSAL, {}),
 }
 
 
@@ -644,6 +665,17 @@ QBWD_CASES = {
                                          BF16, masking.FULL, {}),
     "ragged_rect": (1, 4, 2, 70, 300, 64, ROW8C, ROW8C, BF16, masking.CAUSAL,
                     {}),
+    # Head dims outside HEAD_DIMS, zero-padded to the next built width.
+    "d80_dequant_row8c_f32": (1, 4, 2, 128, 128, 80, ROW8C, ROW8C, F32,
+                              masking.CAUSAL, {}),
+    "d96_dequant_row4c": (1, 4, 2, 130, 130, 96, ROW4C, ROW4C, BF16,
+                          masking.CAUSAL, {}),
+    "d96_folded_channel": (1, 4, 2, 128, 128, 96, CH8, CH4, BF16,
+                           masking.CAUSAL, {}),
+    "d80_block2d_f32": (1, 4, 2, 128, 128, 80, B2D16, B2D16, F32,
+                        masking.CAUSAL, {}),
+    "d96_block2d48_f32": (1, 4, 2, 128, 128, 96, B2D48, B2D48, F32,
+                          masking.CAUSAL, {}),
 }
 
 
@@ -702,6 +734,9 @@ FULLINT_CASES = {
     "ragged_l2_w8": (1, 4, 2, 200, 64, ROW8, TEN8, 512, False),
     "d256_l1": (1, 2, 2, 128, 256, ROW8, CH8, None, False),
     "d32_interleaved_l2": (1, 8, 2, 256, 32, ROW8, CH8, 128, True),
+    # Head dims outside HEAD_DIMS, zero-padded to the next built width.
+    "d80_l1": (1, 4, 2, 256, 80, ROW8, CH8, None, False),
+    "d96_l2_w128": (1, 4, 2, 256, 96, TEN8, TEN8, 128, False),
 }
 
 
@@ -1008,3 +1043,133 @@ def test_weight_only_gemm_kernels_reject_what_they_do_not_take(cuda_device):
         qg.wo_gemm(a, w8.data, scale, scale, bits=8, scales=3)
     with pytest.raises(ValueError):  # CPU tensors for the kernel
         qg.wo_gemm(a, w8.data.cpu(), scale, scale, bits=8, scales=1)
+
+
+# --------------------------------------------------------------------------
+# The quantized-A and compensated GEMMs
+# --------------------------------------------------------------------------
+
+QA_GEMM_CASES = {
+    # name: (bits, granularity, strategy, block, B dtype, M, N, K): SYMMETRIC
+    # TENSOR / ROW with a non-fp32 B take the folded kernel.
+    "folded_row8": (8, "row", "symmetric", None, BF16, 300, 200, 256),
+    "folded_row4": (4, "row", "symmetric", None, BF16, 70, 130, 512),
+    "folded_tensor8_fp16_b": (8, "tensor", "symmetric", None, torch.float16,
+                              37, 70, 96),
+    "qa_row8_asym": (8, "row", "asymmetric", None, BF16, 300, 200, 256),
+    "qa_block128": (8, "block", "centered", 128, BF16, 130, 70, 512),
+    "qa_block64_int4_f32": (4, "block", "centered", 64, F32, 37, 70, 256),
+    "qa_row8_f32": (8, "row", "symmetric", None, F32, 300, 200, 256),
+    "qa_tensor4_centered_f32": (4, "tensor", "centered", None, F32, 37, 70,
+                                256),
+}
+
+
+def _t(rng, device, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(QA_GEMM_CASES))
+def test_qa_gemm_kernels_match_plain(cuda_device, name):
+    """The quantized-A kernels against their plain versions on the same
+    arguments: an fp32 result within TOLERANCES["fp32"] of its max abs,
+    through ``quantized_matmul_qa`` (which rounds to B's dtype) one bf16
+    or fp16 ulp."""
+    bits, gran, strategy, bs, bdtype, m, n, k = QA_GEMM_CASES[name]
+    rng = np.random.default_rng(m + n + k + bits)
+    aq = quantize(_t(rng, cuda_device, m, k), _qcfg(
+        bits=bits, gran=gran, strategy=strategy, block_size=bs))
+    b = _t(rng, cuda_device, k, n).to(bdtype)
+    folded, args, kw = qg.qa_arguments(aq, b)
+    assert folded == name.startswith("folded")
+    kernel, plain = ((qg.qa_folded_gemm, qg.qa_folded_gemm_plain) if folded
+                     else (qg.qa_gemm, qg.qa_gemm_plain))
+    n0 = (qg.qa_folded_gemm.launches, qg.qa_gemm.launches)
+    out = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert (qg.qa_folded_gemm.launches, qg.qa_gemm.launches) == (
+        n0[0] + folded, n0[1] + (not folded))
+    ref = plain(*args, **kw)
+    assert out.dtype == F32 and out.shape == (m, n)
+    assert _rel(out, ref) <= TOLERANCES["fp32"]
+    got = qg.quantized_matmul_qa(aq, b)
+    want = qg.quantized_matmul_qa(aq.to("cpu"), b.cpu())
+    assert got.dtype == bdtype
+    if bdtype == F32:
+        assert _rel(got.cpu(), want) <= TOLERANCES["fp32"]
+    else:
+        assert _bf16_close(got.cpu().float(), want.float())
+
+
+COMP_GEMM_CASES = {
+    # name: (block, strategy, M, N, K, with c)
+    "b128_asym": (128, "asymmetric", 300, 200, 512, False),
+    "b128_centered_c": (128, "centered", 70, 130, 256, True),
+    "b512_asym_c": (512, "asymmetric", 130, 70, 1024, True),
+    "small_b32": (32, "centered", 300, 200, 256, False),
+    "small_b64_asym_c": (64, "asymmetric", 70, 130, 512, True),
+    "small_b16_ragged_k": (16, "centered", 37, 70, 208, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(COMP_GEMM_CASES))
+def test_comp_gemm_kernels_match_plain(cuda_device, name):
+    """The compensated kernel bit for bit (exact integer compensation, the
+    same fused multiply-add per block), the small-block one within
+    TOLERANCES["fp32"] (fp32 products summed in another order)."""
+    bs, strategy, m, n, k, with_c = COMP_GEMM_CASES[name]
+    rng = np.random.default_rng(m + n + k + bs)
+    cfg = _qcfg(gran="block", strategy=strategy, block_size=bs)
+    aq = quantize(_t(rng, cuda_device, m, k) + 0.3, cfg)
+    bq = quantize(_t(rng, cuda_device, n, k) - 0.2, cfg)
+    c = _t(rng, cuda_device, m, n) if with_c else None
+    small, args, kw = qg.comp_arguments(aq, bq, c)
+    assert small == name.startswith("small")
+    kernel, plain = ((qg.comp_small_gemm, qg.comp_small_gemm_plain) if small
+                     else (qg.comp_gemm, qg.comp_gemm_plain))
+    n0 = (qg.comp_gemm.launches, qg.comp_small_gemm.launches)
+    out = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert (qg.comp_gemm.launches, qg.comp_small_gemm.launches) == (
+        n0[0] + (not small), n0[1] + small)
+    ref = plain(*args, **kw)
+    assert out.dtype == F32 and out.shape == (m, n)
+    if small:
+        assert _rel(out, ref) <= TOLERANCES["fp32"]
+    else:
+        assert torch.equal(out, ref)
+    cpu = qg.compensated_matmul(aq.to("cpu"), bq.to("cpu"),
+                                c=None if c is None else c.cpu())
+    assert _rel(qg.compensated_matmul(aq, bq, c=c).cpu(), cpu) <= (
+        TOLERANCES["fp32"])
+
+
+@pytest.mark.cuda
+def test_qa_and_comp_kernels_reject_what_they_do_not_take(cuda_device):
+    aq = quantize(torch.ones(8, 256, device=cuda_device), ROW8)
+    b = torch.ones(256, 16, device=cuda_device, dtype=BF16)
+    scale = aq.scale.reshape(-1).float()
+    with pytest.raises(TypeError):  # the folded kernel takes a bf16 B
+        qg.qa_folded_gemm(aq.data, b.float(), scale, bits=8)
+    with pytest.raises(TypeError):  # an int8 payload declared int4
+        qg.qa_folded_gemm(aq.data, b, scale, bits=4)
+    with pytest.raises(TypeError):  # ROW scales of the wrong length
+        qg.qa_gemm(aq.data, b, scale[:4], scale[:4], bits=8, scales=1)
+    with pytest.raises(ValueError):  # not a scale kind of the kernel
+        qg.qa_gemm(aq.data, b, scale, scale, bits=8, scales=3)
+    with pytest.raises(ValueError):  # a CPU B for the kernel
+        qg.qa_gemm(aq.data, b.cpu(), scale, scale, bits=8, scales=1)
+    cfg = _qcfg(gran="block", strategy="centered", block_size=128)
+    a8, b8 = (quantize(torch.randn(r, 256, device=cuda_device), cfg)
+              for r in (8, 16))
+    _, args, kw = qg.comp_arguments(a8, b8)
+    with pytest.raises(ValueError):  # blocks of 64 are the small kernel's
+        qg.comp_gemm(*args, bs=64)
+    with pytest.raises(TypeError):  # float zero points
+        qg.comp_gemm(*args[:3], args[3].float(), *args[4:], **kw)
+    buf = torch.zeros(8 * 256 + 8, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):  # a payload 8 bytes off 16
+        qg.comp_gemm(buf[8:].view(8, 256), *args[1:], **kw)

@@ -16,10 +16,13 @@ from metal_flash_attention_plus_tpu.ops.flash_attention_bwd import (
     build_kv_block_bounds as j_build_kv_block_bounds,
 )
 from metal_flash_attention_plus_tpu_torch.attention import masking as tm
-from metal_flash_attention_plus_tpu_torch.ops import flash_attention as tfa
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     build_kv_block_bounds,
 )
+
+# The port's ops/__init__ re-exports a function of the same name too.
+tfa = importlib.import_module(
+    "metal_flash_attention_plus_tpu_torch.ops.flash_attention")
 
 # The JAX package's ops/__init__ re-exports a function of the same name.
 jfa = importlib.import_module(

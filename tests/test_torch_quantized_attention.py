@@ -110,6 +110,12 @@ CASES = {
     "gqa_interleaved": (1, 4, 2, 128, 128, 64, ROW8C, ROW8C, "f32", "causal",
                         dict(interleaved_kv=True)),
     "ragged": (1, 2, 1, 100, 150, 32, ROW8C, ROW8C, "f32", "causal", {}),
+    # Head dims the kernels are not built for (run zero-padded on the card).
+    "quantize_q_d80": (1, 4, 2, 128, 128, 80, ROW8, ROW8, "f32", "causal",
+                       dict(quantize_q=True)),
+    "quantize_q_d96_bf16": (1, 4, 2, 128, 128, 96, ROW8, ROW8, "bf16",
+                            "causal", dict(quantize_q=True)),
+    "row4_d96": (1, 4, 2, 128, 128, 96, ROW4C, ROW4C, "f32", "causal", {}),
 }
 
 
@@ -176,6 +182,67 @@ def test_forward_mode_matches_jax(name):
     tol = BF16_TOL if qdtype == "bf16" else TOLERANCES["fp32"]
     assert _max_err(to, jo) <= tol
     assert _max_err(tl, jl) <= tol
+
+
+B2D16 = _cfg(gran="block_2d", strategy="centered", block_rows=8,
+             block_size=16)
+# 48-wide blocks tile D=96 but not its kernel width 128.
+B2D48 = _cfg(gran="block_2d", strategy="centered", block_rows=8,
+             block_size=48)
+PADDED = {  # name: (head dim, K config, V config, Q dtype, options)
+    "quantize_q_d80": (80, ROW8, ROW8, "f32", dict(quantize_q=True)),
+    "int8_pv_channel_d96": (96, ROW8, CH8, "f32", dict(quantize_q=True)),
+    "int4_token_d80": (80, ROW4C, ROW4C, "f32", {}),
+    "block2d_d80": (80, B2D16, B2D16, "f32", {}),
+    "block2d48_d96": (96, B2D48, B2D48, "f32", {}),
+    "folded_channel_d48_bf16": (48, CH8, TEN8, "bf16", {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PADDED))
+def test_kernel_width_padding_changes_nothing(name):
+    """On the card a head dim outside HEAD_DIMS runs at ``qattn_width``
+    over ``pad_qattn_arguments``' tensors.  The plain version over those,
+    its O cut back to the head dim, computes what it computes over the
+    originals (fp32 sums in another order: the fp32 / bf16 gates).  The
+    int4 payload is repacked, not extended, and BLOCK_2D lanes past the
+    head dim dequantize to exactly 0."""
+    d, kcfg, vcfg, qdtype, opts = PADDED[name]
+    _, (tq, tk, tv) = _inputs(np.random.default_rng(d), 1, 4, 2, 64, 96, d,
+                              kcfg, vcfg, qdtype)
+    args, kw = tqa.qattn_arguments(tq, tk, tv, mask=tmask.CAUSAL, **opts)
+    mode, w = kw["mode"], tqa.qattn_width(d)
+    q, q_scales, kq, vq, kp, vp, rr = args
+    pq, pkq, pvq, pkp, pvp = tqa.pad_qattn_arguments(q, kq, vq, kp, vp, mode)
+    assert pq.shape[-1] == w and torch.equal(pq[..., :d], q)
+    for orig, padded, bits in ((kq, pkq, mode.bits_k), (vq, pvq, mode.bits_v)):
+        ints = ttensor.unpack_int4 if bits == 4 else (lambda t: t)
+        assert padded.shape[-1] == (w if bits == 8 else w // 2)
+        assert torch.equal(ints(padded)[..., :d], ints(orig))
+        assert not ints(padded)[..., d:].any()
+    if mode.k_scales == "block2d":
+        lanes = tqa._kv_values(pkq, *pkp, "block2d", 8, w, mode.block,
+                               torch.float32)
+        assert not lanes[..., d:].any()
+    o, lse = tqa.qattn_fwd_plain(*args, **kw)
+    po, pl = tqa.qattn_fwd_plain(pq, q_scales, pkq, pvq, pkp, pvp, rr, **kw)
+    tol = BF16_TOL if qdtype == "bf16" else TOLERANCES["fp32"]
+    assert (po[..., :d] - o).abs().max() <= tol * o.abs().max()
+    assert (pl - lse).abs().max() <= tol
+
+
+def test_kernel_width_padding_of_untiled_blocks_and_widths():
+    s = torch.full((1, 1, 4, 1), 3.0)
+    # A 96-wide block does not tile 128: one cell, cut short, over lanes
+    # 96-127, of scale 1 and zero point 0.
+    ps, pz = tqa.pad_scales((s, s), "block2d", 96, 128, (8, 96))
+    assert torch.equal(ps[..., 1], torch.ones(1, 1, 4))
+    assert torch.equal(pz[..., 1], torch.zeros(1, 1, 4))
+    assert torch.equal(ps[..., :1], s) and ps.shape[-1] == 2
+    with pytest.raises(ValueError):  # no kernel width for 272
+        tqa.qattn_width(272)
+    assert [tqa.qattn_width(d) for d in (16, 48, 64, 80, 96, 144, 256)] == [
+        32, 64, 64, 128, 128, 256, 256]
 
 
 @pytest.mark.parametrize("qdtype", ["f32", "bf16"])

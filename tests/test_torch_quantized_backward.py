@@ -154,6 +154,13 @@ EXACT = {
     "bias_dbias": (2, 4, 2, 96, 128, 64, ROW8C, ROW8C, "f32", "causal",
                    dict(bias=(1, 4, 96, 128))),
     "ragged": (1, 2, 1, 100, 150, 32, ROW8C, ROW8C, "f32", "causal", {}),
+    # Head dims the kernels are not built for (run zero-padded on the card).
+    "token_int8_d80": (1, 4, 2, 128, 128, 80, ROW8C, ROW8C, "f32", "causal",
+                       {}),
+    "token_int4_d96": (1, 4, 2, 128, 128, 96, ROW4C, ROW4C, "f32", "causal",
+                       {}),
+    "folded_row_d96_bf16": (1, 4, 2, 128, 128, 96, ROW8, ROW8, "bf16",
+                            "causal", {}),
 }
 
 
@@ -269,6 +276,97 @@ def test_fullint_backward_matches_jax(name, monkeypatch):
         # ... an approximation of the exact backward: rel L2 < 0.05, the
         # JAX package's gate.
         assert 0 < (g - e).norm() / e.norm() < 0.05
+
+
+@pytest.mark.parametrize("d", [80, 96])
+def test_fullint_backward_odd_head_dims_match_jax(d):
+    """Level 1 at head dims the kernels run zero-padded (B=1, Hq=4, Hkv=2,
+    S=128, bf16, FULL, ROW K / CHANNEL V)."""
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(
+        d, 1, 4, 2, 128, 128, d, ROW8, CH8, "bf16")
+    (jo, jl), (to, tl) = _forward(tq, tk, tv)
+    with jax.default_matmul_precision("highest"):
+        want = jbwd.flash_attention_backward(jq, jk, jv, jo, jl, jdo,
+                                             fullint=True)
+    got = tbwd.flash_attention_backward(tq, tk, tv, to, tl, tdo,
+                                        fullint=True)
+    for g, w in zip(got[:3], want[:3]):
+        assert _err(g, w) <= BF16_TOL
+
+
+PADDED = {  # name: (head dim, K, V, Q dtype)
+    "token_int8_d80": (80, ROW8C, ROW8C, "f32"),
+    "token_int4_d96": (96, ROW4C, ROW4C, "f32"),
+    "block2d_d80": (80, _cfg(gran="block_2d", strategy="centered",
+                             block_rows=8, block_size=16),
+                    _cfg(gran="block_2d", strategy="centered", block_rows=8,
+                         block_size=16), "f32"),
+    # 48-wide blocks tile D=96 but not its kernel width 128.
+    "block2d48_d96": (96, _cfg(gran="block_2d", strategy="centered",
+                               block_rows=8, block_size=48),
+                      _cfg(gran="block_2d", strategy="centered",
+                           block_rows=8, block_size=48), "f32"),
+    "folded_channel_d48_bf16": (48, CH8, CH4, "bf16"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PADDED))
+def test_exact_kernel_width_padding_changes_nothing(name):
+    """On the card the exact dQ and dK/dV kernels run a head dim outside
+    HEAD_DIMS at ``qattn_width``: Q and dO zero-padded, K/V by
+    ``pad_qflash_kv``, dQ's store multipliers padded with 1.  The plain
+    versions over those, cut back to the head dim, compute what they
+    compute over the originals."""
+    d, kcfg, vcfg, qdtype = PADDED[name]
+    _, (tq, tk, tv, tdo) = _inputs(d, 1, 4, 2, 64, 96, d, kcfg, vcfg, qdtype)
+    o, lse = tqa.quantized_flash_attention_forward(tq, tk, tv,
+                                                   mask=tmask.CAUSAL)
+    di = (tdo.float() * o).sum(-1)
+    rr = tbwd.row_ranges_tensor(tmask.CAUSAL, 64, 96, None, "cpu")
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = tbwd.qflash_arguments(
+        tq, tk, tv, tdo.to(tq.dtype), lse, di, rr, scale=d ** -0.5)
+    w = tqa.qattn_width(d)
+
+    def padded(args, mode):
+        q, do, kq, vq, kp, vp, *rest = args
+        return (*tbwd.pad_lanes(w, q, do),
+                *tbwd.pad_qflash_kv(d, kq, vq, kp, vp, mode), *rest)
+
+    dqsc = torch.nn.functional.pad(dq_kw["dqsc"], (0, w - d), value=1.0)
+    want = (tbwd.qflash_dq_plain(*dq_a, **dq_kw)[0],
+            *tbwd.qflash_dkv_plain(*dkv_a, **dkv_kw))
+    got = (tbwd.qflash_dq_plain(*padded(dq_a, dq_kw["mode"]),
+                                **{**dq_kw, "dqsc": dqsc})[0],
+           *tbwd.qflash_dkv_plain(*padded(dkv_a, dkv_kw["mode"]), **dkv_kw))
+    for g, w_ in zip(got, want):
+        assert g.shape[-1] == w
+        assert (g[..., :d] - w_).abs().max() <= _tol(qdtype) * w_.abs().max()
+
+
+@pytest.mark.parametrize("d", [80, 96])
+def test_fullint_kernel_width_padding_changes_nothing(d):
+    """The full-integer kernels' integer operands zero-padded to
+    ``qattn_width``: the plain versions cut back to the head dim compute
+    what they compute over the originals."""
+    _, (tq, tk, tv, tdo) = _inputs(d, 1, 4, 2, 128, 128, d, ROW8, CH8,
+                                   "bf16")
+    o, lse = tqa.quantized_flash_attention_forward(tq, tk, tv)
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = tbwd.fullint_arguments(
+        tq, tk, tv, o, lse, tdo, scale=d ** -0.5)
+    w = tqa.qattn_width(d)
+    qq, qsc, kq, ks, vq, dov, dovsc, l_, di = dq_a
+    pq, pk, pv, pdov = tbwd.pad_lanes(w, qq, kq, vq, dov)
+    want = tbwd.fullint_dq_plain(*dq_a, **dq_kw)
+    got = tbwd.fullint_dq_plain(pq, qsc, pk, ks, pv, pdov, dovsc, l_, di,
+                                **dq_kw)
+    assert (got[..., :d] - want).abs().max() <= BF16_TOL * want.abs().max()
+    qq, qsc, kq, ks, vq, dor, dorsc, dov, dovsc, l_, di = dkv_a
+    pq, pk, pv, pdor, pdov = tbwd.pad_lanes(w, qq, kq, vq, dor, dov)
+    want = tbwd.fullint_dkv_plain(*dkv_a, **dkv_kw)
+    got = tbwd.fullint_dkv_plain(pq, qsc, pk, ks, pv, pdor, dorsc, pdov,
+                                 dovsc, l_, di, **dkv_kw)
+    for g, w_ in zip(got, want):
+        assert (g[..., :d] - w_).abs().max() <= BF16_TOL * w_.abs().max()
 
 
 def test_fullint_widths_follow_the_tpu_tiles():
