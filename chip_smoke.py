@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
 
 Builds the port's CUDA kernels and native runtime from the sources in the
 checkout, then, on the card:
@@ -136,6 +136,16 @@ checkout, then, on the card:
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
+Phases 10 (f) and 13 (c) log which body the quantized forward and the
+quantized-A GEMM run (``qattn_body``, ``qa_gemm_body``: tensor cores or
+fp32 FMAs).
+
+``--parent DIR`` (a checkout of the parent commit, e.g. ``git archive``
+into a directory ``.gitignore`` lists) also builds DIR's kernels, at once
+with this checkout's, and times every kernel the phases time on both
+libraries in turns (parent, change, change, parent) through the same
+wrappers; the turns go into the log, a summary line each, and the
+redesigned kernels' record entries.
 
 Every phase raises on failure, so the script exits non-zero.  It prints
 the kernels' record as one JSON line and, as the very last line,
@@ -147,6 +157,8 @@ the script alone, outside the repository, fails at import.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -154,6 +166,7 @@ import sys
 import threading
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -225,6 +238,7 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     int8_p_tile,
     pack_heads,
     qattn_arguments,
+    qattn_body,
     qattn_fwd,
     qattn_fwd_plain,
     quantized_flash_attention_forward,
@@ -246,6 +260,7 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     qa_folded_gemm,
     qa_folded_gemm_plain,
     qa_gemm,
+    qa_gemm_body,
     qa_gemm_plain,
     quantize_rows,
     weight_scales,
@@ -358,6 +373,9 @@ RTQ_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
               "runtime_quantization.cu")
 QATTN_TPU = "metal_flash_attention_plus_tpu/ops/quantized_attention.py"
 RTQ_TPU = "metal_flash_attention_plus_tpu/ops/runtime_quantization.py"
+# What the record says of the two kernels moved onto the tensor cores.
+REDESIGNED = ("mma.sync tensor-core body for its bf16 (and int8) instances, "
+              "cp.async staging")
 QBWD_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
                "quantized_attention_bwd.cu")
 
@@ -374,23 +392,82 @@ def nvidia_smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+# The kernels library of a parent checkout (``--parent DIR``) and the
+# timings taken on it beside this checkout's, in turns: (label, {"parent":
+# [ms, ms], "change": [ms, ms]}).
+PARENT = {"lib": None, "turns": []}
+
+
+@contextlib.contextmanager
+def kernels_of(lib):
+    """Run the port's kernel wrappers on ``lib``'s kernels (the same C
+    interface) instead of this checkout's."""
+    own = _build.kernel_function
+
+    def function(name, argtypes):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        return fn
+
+    _build.kernel_function = function
+    try:
+        yield
+    finally:
+        _build.kernel_function = own
+
+
+def parent_turns(label, t, kernel, iters):
+    """With ``--parent``: ``kernel`` timed on the parent's library and on
+    this checkout's in turns (parent, change, change, parent), into
+    ``t["parent_turns_ms"]`` and the summary; nothing otherwise."""
+    if PARENT["lib"] is None:
+        return
+    turns = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        with (kernels_of(PARENT["lib"]) if who == "parent"
+              else contextlib.nullcontext()):
+            turns[who].append(time_ms(kernel, iters, warmup=1))
+    t["parent_turns_ms"] = turns
+    PARENT["turns"].append((label, turns))
+    log(f"{label} parent / change turns: " + json.dumps(turns))
+
+
+def log_parent_summary():
+    """One line per timing taken in turns: the parent's and the change's
+    times and the change's mean over the parent's."""
+    for label, t in PARENT["turns"]:
+        p, c = t["parent"], t["change"]
+        log(f"turns {label}: parent {p[0]:.5g} / {p[1]:.5g} ms, change "
+            f"{c[0]:.5g} / {c[1]:.5g} ms, change/parent "
+            f"{sum(c) / sum(p):.4f}")
+
+
 # --------------------------------------------------------------------------
 # Phase 1: build
 # --------------------------------------------------------------------------
 
 
-def build_all():
-    """nvcc (kernels) and g++ (runtime) started together."""
+def build_all(parent=None):
+    """nvcc (kernels) and g++ (runtime) started together; with ``parent``
+    (a checkout of the parent commit), its kernels too, into
+    ``PARENT["lib"]``."""
     errors = []
 
     def run(name):
         try:
-            _build.load_library(name)
+            if name == "parent":
+                csrc = Path(parent) / _build.CSRC_DIR.relative_to(
+                    _build.REPO_ROOT)
+                PARENT["lib"] = ctypes.CDLL(str(_build.build_kernels(
+                    csrc.resolve(), "mfa_kernels_parent")))
+            else:
+                _build.load_library(name)
         except BaseException as exc:  # reported and re-raised below
             errors.append(exc)
 
-    threads = [threading.Thread(target=run, args=(n,))
-               for n in ("kernels", "runtime")]
+    names = ("kernels", "runtime") + (("parent",) if parent else ())
+    threads = [threading.Thread(target=run, args=(n,)) for n in names]
     for t in threads:
         t.start()
     for t in threads:
@@ -850,6 +927,7 @@ def time_decode(rng, lengths, d=64):
              "library_ms": time_ms(library, 100)}
     times["plain_ms_2"] = time_ms(plain, 10)
     times["ms_2"] = time_ms(kernel, 100)
+    parent_turns(f"paged_decode D={d}", times, kernel, 100)
     live = int(lengths.sum())
     nbytes = (live * hkv * 2 * d * 2  # live K and V, bf16
               + 2 * b * hq * d * 2  # q in, out
@@ -886,6 +964,7 @@ def time_prefill(rng, offset):
              "library_ms": time_ms(library, 50)}
     times["plain_ms_2"] = time_ms(plain, 10)
     times["ms_2"] = time_ms(kernel, 50)
+    parent_turns(f"paged_prefill offset {offset}", times, kernel, 50)
     # What this chunk needs: row c sees offset + c + 1 columns.
     visible = chunk * offset + chunk * (chunk + 1) // 2
     flops = 4 * hq * d * visible
@@ -950,6 +1029,7 @@ def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
         t["ms_2"] = time_ms(kernel, 10, warmup=0)
         t["library_ms"] = library["fwd" if name == "flash_fwd" else "bwd"]
         t["bound_ms"], t["bound_by"] = bound_of(*work[name])
+        parent_turns(f"{name} B={b} S={s} D={d}", t, kernel, 10)
         times[name] = t
         log(f"{name} times at B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
             "bf16: " + json.dumps(t))
@@ -1138,6 +1218,7 @@ def time_dyn_gemm(rng, m, cfg):
          "library_bf16_matmul_ms": time_ms(bf16, 10)}
     t["plain_ms_2"] = time_ms(plain, 2, warmup=0)
     t["ms_2"] = time_ms(kernel, 10)
+    parent_turns(f"dyn_gemm W{cfg.bits}A8 57 GEMMs at M={m}", t, kernel, 10)
     bounds = [(count, gemm_bound(mm, n, k, cfg.bits))
               for count, mm, n, k in work]
     t["bound_ms"] = sum(count * b for count, (b, _) in bounds)
@@ -1606,6 +1687,7 @@ def time_quantized_attention(rng):
         t["plain_ms_2"] = time_ms(plain, 2, warmup=0)
         t["ms_2"] = time_ms(kernel, 10, warmup=0)
         t["library_ms"] = None if library is None else time_ms(library, 10)
+        parent_turns(name, t, kernel, 10)
         t["bound_ms"], t["bound_by"] = bound
         t.update(extra or {})
         log(f"{name} times: " + json.dumps(t))
@@ -1621,6 +1703,8 @@ def time_quantized_attention(rng):
     args, kw = qattn_arguments(q, kq, vq, mask=masking.CAUSAL,
                                quantize_q=True)
     tile = main_path_tile(kw, s)
+    body = qattn_body(args[0].dtype, kw["mode"])
+    log(f"qattn_fwd quantize_q ROW runs the {body} body")
     times["qattn_fwd"] = timed(
         "qattn_fwd quantize_q ROW (B=2 Hq=16 Hkv=4 S=2048 D=64 causal)",
         lambda: qattn_fwd(*args, **kw, kv_tile=tile),
@@ -1628,9 +1712,11 @@ def time_quantized_attention(rng):
         sdpa(kq, vq),
         attn_bound(pairs, 2 * d, 2 * d,
                    b * hq * s * d + 4 * b * hq * s + kv_bytes
-                   + 12 * b * hkv * s + out_bytes))
+                   + 12 * b * hkv * s + out_bytes), {"body": body})
     kq, vq = quantize(k.float(), row8c), quantize(v.float(), row8c)
     args, kw = qattn_arguments(q, kq, vq, mask=masking.CAUSAL)
+    log("qattn_fwd dequant ROW CENTERED runs the "
+        f"{qattn_body(args[0].dtype, kw['mode'])} body")
     facade_t = timed(
         "qattn_fwd dequant ROW CENTERED (the facade's mode)",
         lambda: qattn_fwd(*args, **kw), lambda: qattn_fwd_plain(*args, **kw),
@@ -1638,7 +1724,8 @@ def time_quantized_attention(rng):
         attn_bound(pairs, 0, 4 * d, 2 * b * hq * s * d + kv_bytes
                    + 16 * b * hkv * s + out_bytes))
     times["qattn_fwd"].update({f"{key}_facade_mode": facade_t[key] for key in
-                               ("ms", "plain_ms", "library_ms", "bound_ms")})
+                               ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "parent_turns_ms") if key in facade_t})
     ch8 = qcfg(gran="channel")
     kq, vq = quantize(k.float(), ch8), quantize(v.float(), ch8)
     args, kw = hpack_arguments(pack_heads(q), kq, vq, mask=masking.CAUSAL)
@@ -2016,6 +2103,7 @@ def time_quantized_backward(ns_args, qat_inputs):
         t["plain_ms_2"] = time_ms(plain, 2, warmup=0)
         t["ms_2"] = time_ms(kernel, 5, warmup=0)
         t["library_ms"] = time_ms(library, 5, warmup=1)
+        parent_turns(name, t, kernel, 5)
         t["bound_ms"], t["bound_by"] = bound
         log(f"{name} times: " + json.dumps(t))
         return t
@@ -2413,6 +2501,8 @@ def time_wo_gemm(rng):
         t["plain_ms_2"] = time_ms(lambda: plain(*args, **kw), 5, warmup=0)
         t["ms_2"] = time_ms(lambda: kernel(*args, **kw), 20)
         t["library_ms"] = time_ms(lambda: a @ wbt, 20)
+        parent_turns(f"{kernel.__name__} {cfg.granularity.value} M={m}", t,
+                     lambda: kernel(*args, **kw), 20)
         t["bound_ms"], t["bound_by"] = bound_of(
             2 * m * n * k, 2 * m * k + n * k + 4 * vectors + 2 * m * n)
         log(f"{kernel.__name__} {cfg.granularity.value} times (M={m} N={n} "
@@ -2790,6 +2880,9 @@ def time_gemm_kernels(rng):
         for m, n, k in GEMM_SHAPES:
             _, (a, b) = gemm_arm(arm, m, n, k, g)
             kernel, plain, args, kw = gemm_kernel_pair(a, b)
+            if kernel is qa_gemm:
+                log(f"qa_gemm at M={m} runs the "
+                    f"{qa_gemm_body(args[1].dtype)} tile")
             if name.startswith("qa"):
                 ad = dequantize(a).to(torch.bfloat16)
                 library = (lambda ad=ad, b=b: ad @ b)
@@ -2808,6 +2901,8 @@ def time_gemm_kernels(rng):
                                warmup=1)}
             t["ms_2"] = time_ms(lambda: kernel(*args, **kw), iters, warmup=0)
             t["library_ms"] = time_ms(library, iters, warmup=1)
+            parent_turns(f"{name} M={m} N={n} K={k}", t,
+                         lambda: kernel(*args, **kw), iters)
             a_bytes = a.nbytes_payload
             b_bytes = (b.nbytes_payload if isinstance(b, QuantizedTensor)
                        else b.numel() * b.element_size())
@@ -2846,6 +2941,10 @@ def run_gemm_engine(seed):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None, help=(
+        "a checkout of the parent commit: its kernels are built too, and "
+        "every timed kernel is also timed on them in turns (parent, "
+        "change, change, parent)"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2858,7 +2957,7 @@ def main() -> int:
     t = time.perf_counter()
     smi = nvidia_smi_line()
     log(f"device: {smi}")
-    build_all()
+    build_all(args.parent)
     phase_s["build"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -2925,6 +3024,7 @@ def main() -> int:
     phase_s.update(mla_phase)
     gemm, gemm_phase = run_gemm_engine(args.seed)
     phase_s.update(gemm_phase)
+    log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
     engines = quant["engines"]
@@ -3042,12 +3142,15 @@ def main() -> int:
           "rel_err_small_shapes_worst": small_worst,
           "launches_facade": qattn["facade"]["int8"][1]["qattn_fwd"],
           "shape": "B=2 Hq=16 Hkv=4 S=2048 D=64 causal, quantize_q ROW "
-                   "(the unpacked quantized_forward's mode)"}),
+                   "(the unpacked quantized_forward's mode)",
+          "body": qt["qattn_fwd"]["body"],
+          "redesigned": REDESIGNED}),
         ("hpack_fwd", QATTN_SOURCE, f"{QATTN_TPU}:654",
          fwd["packed"][1]["hpack_fwd"],
          max(e[2] for e in qattn["hpack_errors"].values()),
          {"rel_err": max(e[0] for e in qattn["hpack_errors"].values()),
-          "shape": "packed [2, 8, 2048, 128], int8 CHANNEL, causal"}),
+          "shape": "packed [2, 8, 2048, 128], int8 CHANNEL, causal",
+          "body": "fp32_fma"}),
         ("runtime_quantize_row", RTQ_SOURCE, f"{RTQ_TPU}:79",
          qattn["facade"]["int8"][1]["runtime_quantize_row"], 0.0,
          {"shape": "[16384, 64] bf16 CENTERED (the facade's K/V rows)"}),
@@ -3066,7 +3169,8 @@ def main() -> int:
             **({"library": "sdpa over the dequantized bf16 K/V"}
                if t["library_ms"] is not None else {}),
             **extra,
-            **{k: v for k, v in t.items() if k.endswith("_facade_mode")},
+            **{k: v for k, v in t.items() if k.endswith("_facade_mode")
+               or k == "parent_turns_ms"},
         })
     bt, ns, qat = qbwd["times"], qbwd["north_star"], qbwd["qat"]
     errs, ns_errs = qbwd["errors"], qbwd["north_star_errors"]
@@ -3078,7 +3182,8 @@ def main() -> int:
         "rel_err_one_pass_north_star_not_gated": ns_errs[
             "qattn_fwd_one_pass"][0],
         **{f"{key}_north_star": bt["qattn_fwd"][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "parent_turns_ms") if key in bt["qattn_fwd"]},
         "shape_north_star": "B=4 H=4 S=4096 D=256 FULL, int8 Q and int8 P, "
                             "ROW K / CHANNEL V (both arms of the north-star "
                             "fwd+bwd)",
@@ -3185,7 +3290,12 @@ def main() -> int:
             "shape": "M=%d N=%d K=%d, %s" % (*GEMM_SHAPES[1],
                                              gemm_shape[name]),
             **{f"{key}_m{GEMM_SHAPES[0][0]}": small[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "parent_turns_ms") if key in small},
+            **({"parent_turns_ms": big["parent_turns_ms"]}
+               if "parent_turns_ms" in big else {}),
+            **({"body": qa_gemm_body(torch.bfloat16),
+                "redesigned": REDESIGNED} if name == "qa_gemm" else {}),
         })
     record["gemm_engine"] = {
         "matmul_rel_l2": {k: v["rel_l2"] for k, v in gemm["matmul"].items()},

@@ -49,7 +49,8 @@ GXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared"]
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # Seconds each library took to build in this process (0.0 when an existing
-# build was reused) — chip_smoke.py prints them.
+# build was reused), and each of its commands ("<library> <source>", "<library>
+# link") — chip_smoke.py prints them.
 build_seconds: Dict[str, float] = {}
 
 
@@ -66,25 +67,32 @@ def _nvcc() -> str:
     )
 
 
-def _run_parallel(name: str, commands: Sequence[List[str]]):
-    """Run ``commands`` at once; raise with every failure's output."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for c in commands]
-    failures = []
-    try:
-        for cmd, proc in zip(commands, procs):
-            out, err = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                failures.append(f"{' '.join(cmd)} ({proc.returncode}):\n"
-                                f"{out}\n{err}")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+def _run_parallel(name: str, commands: Sequence[List[str]]) -> List[float]:
+    """Run ``commands`` at once; raise with every failure's output.
+    Returns each command's seconds."""
+    results: List = [None] * len(commands)
+
+    def run(i, cmd):
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=600)
+            results[i] = (p.returncode, p.stdout, p.stderr)
+        except subprocess.TimeoutExpired:  # run() has killed it
+            results[i] = (-1, "", "timed out after 600 s")
+        results[i] += (time.perf_counter() - t0,)
+
+    threads = [threading.Thread(target=run, args=(i, c))
+               for i, c in enumerate(commands)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    failures = [f"{' '.join(cmd)} ({rc}):\n{out}\n{err}"
+                for cmd, (rc, out, err, _) in zip(commands, results) if rc]
     if failures:
         raise RuntimeError(f"building {name} failed:\n" + "\n".join(failures))
+    return [r[3] for r in results]
 
 
 def _build(
@@ -115,10 +123,31 @@ def _build(
                                      dir=BUILD_DIR) as work:
         tmp = os.path.join(work, "lib.so")
         for stage in recipe(tmp, work):
-            _run_parallel(name, stage)
+            for cmd, sec in zip(stage, _run_parallel(name, stage)):
+                what = Path(cmd[-1]).name if "-c" in cmd else "link"
+                build_seconds[f"{name} {what}"] = sec
         os.replace(tmp, target)
     build_seconds[name] = time.perf_counter() - t0
     return target
+
+
+def build_kernels(csrc_dir: Path = CSRC_DIR,
+                  name: str = "mfa_kernels") -> Path:
+    """Build every ``*.cu`` of ``csrc_dir`` (one ``nvcc`` each, all started
+    together, then the link) into ``BUILD_DIR/lib<name>-<hash>.so``."""
+    sources = sorted(csrc_dir.glob("*.cu"))
+    headers = sorted(csrc_dir.glob("*.cuh"))
+    nvcc = _nvcc()
+
+    def recipe(out, work):
+        objs = [os.path.join(work, src.stem + ".o") for src in sources]
+        return [
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+             for src, obj in zip(sources, objs)],
+            [[nvcc, "-shared", "-o", out, *objs]],
+        ]
+
+    return _build(name, [*sources, *headers], recipe)
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -127,20 +156,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _loaded:
             return _loaded[name]
         if name == "kernels":
-            sources = sorted(CSRC_DIR.glob("*.cu"))
-            headers = sorted(CSRC_DIR.glob("*.cuh"))
-            nvcc = _nvcc()
-
-            def recipe(out, work):
-                objs = [os.path.join(work, src.stem + ".o")
-                        for src in sources]
-                return [
-                    [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                     for src, obj in zip(sources, objs)],
-                    [[nvcc, "-shared", "-o", out, *objs]],
-                ]
-
-            path = _build("mfa_kernels", [*sources, *headers], recipe)
+            path = build_kernels()
         elif name == "runtime":
             path = _build(
                 "mfa_runtime", [RUNTIME_SOURCE],

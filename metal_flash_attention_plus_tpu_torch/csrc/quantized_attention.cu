@@ -3,7 +3,8 @@
 // forward, and the same computation over the packed d = 64 head-pair layout.
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
-//   - ops/quantized_attention.py::_qfwd_kernel   -> qattn_fwd_kernel
+//   - ops/quantized_attention.py::_qfwd_kernel   -> qattn_fwd_tc_kernel (a
+//     bf16 or int8 Q), qattn_fwd_kernel (an fp32 Q)
 //   - ops/quantized_attention.py::_hpack_kernel  -> hpack_fwd_kernel
 //
 // Layouts.  Q is [B, Hq, Sq, D] of T (float or bf16, pre-scaled by the
@@ -27,8 +28,14 @@
 //   as the TPU kernel's ones-lane rowsum does), P_INT8 (P in 1/127 units,
 //   round(127 * 2^(s - m)) by +0.5 and truncation, times integer V; L drops
 //   ln 127).
-// An int8 Q runs the score product with __dp4a (int8 x int8 -> int32, times
-// the row's Q scale); a float Q with fp32 FMAs over the staged values.
+// Two bodies compute it.  A bf16 or int8 Q with ROUND_BF16 (every such call
+// of the port's forward) takes the tensor-core body, qattn_fwd_tc_kernel:
+// mma.sync s8 or bf16 products over K/V staged with cp.async (see its
+// comment below).  An fp32 Q (also quantized to int8: ROUND_BF16 off), and
+// the head-pair kernel, take the scalar body: scores with __dp4a (int8 x int8 -> int32, times the row's Q
+// scale) or fp32 FMAs over the staged values, P.V with fp32 FMAs.  fp32
+// stays off the tensor cores: TF32 keeps ~3 digits, and the fp32 modes are
+// held to 2e-5.
 // Numerics, shared with the plain versions in ops/quantized_attention.py:
 // base-2 online softmax in fp32; bias*log2(e) added after the K column
 // scale, then masked scores set to mask_value; O = acc / l (x the V channel
@@ -45,17 +52,19 @@
 // What bounds them on the H100, and the design.
 //   At the flagship's attention shapes (B=2, Hq=16, Hkv=4, S=2048, D=64,
 //   causal) the work is ~34 G products (4*D per live query-key pair), i.e.
-//   operation bound on the tensor cores by far over its ~20 MB of bytes.
-//   These first versions take the flash forward's shape (one CTA per 64
-//   query rows, b, q head; 256 threads, 4 x 4 scores each; m, l and the
-//   accumulator in registers; only the tiles of the CTA's live key span) and
-//   its scalar fp32 FMAs, with __dp4a for int8 x int8 scores, so they sit
-//   far from that bound.  The payload is widened (and dequantized) while it
-//   is staged into shared memory, 4 values per 32-bit load, so device memory
-//   sees only the integer bytes.  The head-pair kernel keeps the TPU's packed
-//   I/O (Q read and O written in [B, Hq/2, S, 128] through strides, no
-//   pack/unpack pass) but not its block-diagonal product: one CTA per (64
-//   rows, b, head of the pair) needs none on Hopper.
+//   operation bound on the tensor cores by far over its ~20 MB of bytes; so
+//   is the north-star (B=4, H=4, S=4096, D=256: 275 G int8 operations).  The
+//   scalar body takes the flash forward's shape (one CTA per 64 query rows,
+//   b, q head; 256 threads, 4 x 4 scores each; m, l and the accumulator in
+//   registers; only the tiles of the CTA's live key span) and runs at ~1/60
+//   of the int8 peak.  The tensor-core body keeps the grid and the walk and
+//   moves both products onto mma.sync, with the payload staged as its
+//   integer bytes (cp.async, double-buffered) and widened once per tile in
+//   shared memory, so device memory sees only the integer bytes.  The
+//   head-pair kernel keeps the TPU's packed I/O (Q read and O written in
+//   [B, Hq/2, S, 128] through strides, no pack/unpack pass) but not its
+//   block-diagonal product: one CTA per (64 rows, b, head of the pair)
+//   needs none on Hopper.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +75,7 @@
 
 #include "attention_tiles.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 #include "quantized_tiles.cuh"
 
 namespace {
@@ -80,6 +90,7 @@ using mfa::LOG2E;
 using mfa::THREADS;
 using mfa::accumulate_pm;
 using mfa::key_span;
+using mfa::load_word;
 using mfa::round_bf16;
 using mfa::row_range;
 using mfa::set_smem;
@@ -336,18 +347,663 @@ __global__ void __launch_bounds__(THREADS) hpack_fwd_kernel(const Args a) {
   qattn_body<QT, 64>(a);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body: qattn_fwd_kernel's bf16 and int8 Q instances with
+// ROUND_BF16 (every call of the port's forward whose Q is not fp32).
+//
+// One CTA per (64 query rows, b, q head), as the scalar body, with 4 warps
+// of 16 query rows each (FlashAttention-2's split: no warp shares a row, so
+// the row max and sum reduce over the 4 lanes of a quad).  S and the O
+// accumulator live in mma fragments; m and l per fragment row.  Per 64-key
+// step of the walk (the same tiles and spans as the scalar body):
+//   1. cp.async brings the next step's raw payload rows (int8, or packed
+//      int4; K, and V in pass 1) and the per-token scales and zero points
+//      the mode reads into the other of two buffers while this step runs;
+//      Q was brought once at the start;
+//   2. the payload becomes an operand tile in shared memory: K as int8 rows
+//      (an int8 Q: used in place when K is int8, unpacked when int4) or as
+//      bf16 rows (a bf16 Q: the integers, or stage_kv's dequantized and
+//      bf16-rounded values, bit for bit); V as bf16 rows, or for the int8
+//      P of P_INT8 over integer V (V_P / V_STORE) as int8 V^T;
+//   3. S = Q.K^T on mma.sync: s8 m16n8k32 into int32 (exactly the __dp4a
+//      scores, times the row's Q scale) or bf16 m16n8k16 into fp32;
+//   4. the element-wise steps in the scalar body's order (K column scale,
+//      bias, mask, max, exp2, V_P's scale, the bf16 or int8 rounding of P,
+//      l) on the fragments, the mode's branches outside the loops and
+//      selects inside; pass 0 of an int8-P span only folds the max, and in
+//      pass 1 alpha is 1 after a span's first tile, so O is not rescaled;
+//   5. P.V with P taken from the S fragments as the A operand in registers:
+//      bf16 m16n8k16 into the fp32 accumulator, or s8 m16n8k32 of the int8
+//      P by int8 V into int32 per 64-key tile, added as acc*alpha +
+//      float(tile).  The s8 A operand holds a lane's own S columns, so the
+//      keys of each 16-key group are permuted (position 4j + i holds key 2j
+//      + i for i < 2, 8 + 2j + i - 2 otherwise) and V^T is stored in that
+//      order; k is summed over, so the product is unchanged.
+// Integer-to-float and float-to-bf16 conversions go through the FP32 and
+// integer pipes (mma.cuh): the conversion unit runs at an eighth of their
+// rate and would bound the body.  Shared memory rows are padded by 16
+// bytes, so ldmatrix's eight row addresses fall in distinct banks.  The
+// CTAs walk the row tiles last first (under a causal mask the last walk
+// the most keys).  At D=256 the accumulator is 128 fp32 registers a
+// thread: two CTAs an SM.
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
+// The per-token vectors a step stages beside its payload rows: K's scale
+// (TOKEN, COLUMN) and zero point (TOKEN), V's scale (TOKEN, P) and zero
+// point (TOKEN).
+enum TokVec { TK_SCALE = 0, TK_ZP = 1, TV_SCALE = 2, TV_ZP = 3, TOK_VECS = 4 };
+
+// Byte offsets of the tensor-core body's shared memory.
+template <typename QT, int D>
+struct TcSmem {
+  static constexpr int QB = sizeof(QT);
+  static constexpr int Q_LD = D * QB + 16;  // a Q row (int8 or bf16)
+  static constexpr int RAW_LD = D + 16;     // a raw payload row
+  static constexpr int K_LD = D * QB + 16;  // a K operand row
+  static constexpr int VB_LD = 2 * D + 16;  // a bf16 V row [key][d]
+  static constexpr int VT_LD = BN + 16;     // an int8 V^T row [d][key]
+  // tok: two buffers of the tile's per-token vectors, TOK_VECS x BN fp32.
+  int kraw, vraw, kop, vop, total;
+  static constexpr int TOK = BM * Q_LD;
+  __host__ __device__ TcSmem(bool k_direct, bool pv_s8) {
+    kraw = TOK + 2 * TOK_VECS * BN * 4;
+    vraw = kraw + 2 * BN * RAW_LD;
+    kop = vraw + 2 * BN * RAW_LD;
+    vop = kop + (k_direct ? 0 : BN * K_LD);
+    total = vop + (pv_s8 ? D * VT_LD : BN * VB_LD);
+  }
+};
+
+// P.V runs s8 x s8 for the int8 P over integer V; K is used as staged for
+// an int8 Q over int8 K.
+__host__ __device__ inline bool tc_pv_s8(int flags, int v_scales) {
+  return (flags & P_INT8) && (v_scales == V_P || v_scales == V_STORE);
+}
+
+// The walk over one CTA's live keys [c_lo, c_hi): spans of `span` keys
+// aligned to multiples of it, each in 64-key tiles, with a first pass
+// (pass 0, K only: the span's row max) when span > 64.
+struct Walk {
+  int span, c_hi, lo_tile, sp0, t_beg, t_end, pass, t0;
+  __device__ void start_span() {
+    t_beg = max(sp0, lo_tile);
+    t_end = min(sp0 + span, c_hi);
+    pass = span > BN ? 0 : 1;
+    t0 = t_beg;
+  }
+  __device__ Walk(int span_, int c_lo, int c_hi_)
+      : span(span_), c_hi(c_hi_), lo_tile((c_lo / BN) * BN),
+        sp0((c_lo / span_) * span_) {
+    if (live()) start_span();
+  }
+  __device__ bool live() const { return sp0 < c_hi; }
+  // The first tile of a span's first pass: the span's max starts anew.
+  __device__ bool fresh() const {
+    return t0 == t_beg && pass == (span > BN ? 0 : 1);
+  }
+  __device__ void advance() {
+    t0 += BN;
+    if (t0 < t_end) return;
+    if (pass == 0) {
+      pass = 1;
+      t0 = t_beg;
+    } else {
+      sp0 += span;
+      if (live()) start_span();
+    }
+  }
+};
+
+// cp.async payload rows [t0, t0 + 64) of kv head `head` into dst (rows
+// RAW_LD bytes apart); rows from `limit` are zeros.
+template <int D, int RAW_LD>
+__device__ __forceinline__ void stage_raw(const uint8_t* pay, int bits,
+                                          size_t head, int Skv, int t0,
+                                          int limit, uint8_t* dst) {
+  const int row_bytes = bits == 8 ? D : D / 2;
+  const int cpr = row_bytes / 16;  // chunks a row: a power of 2, <= 16
+  const int c = threadIdx.x % cpr;
+  const uint8_t* src = pay + head * Skv * row_bytes + c * 16;
+  dst += c * 16;
+  for (int r = threadIdx.x / cpr; r < BN; r += TC_THREADS / cpr) {
+    const bool ok = t0 + r < limit;
+    mfa::cp_async16(dst + r * RAW_LD,
+                    src + (size_t)(ok ? t0 + r : 0) * row_bytes, ok ? 16 : 0);
+  }
+}
+
+// cp.async the per-token vectors of keys [t0, t0 + 64) of kv head `head`
+// that the mode reads into tok[v * BN + r]; zeros from `limit`.
+__device__ __forceinline__ void stage_tok(const Args& a, size_t head, int t0,
+                                          int limit, float* tok) {
+#pragma unroll
+  for (int it = 0; it < TOK_VECS * BN / TC_THREADS; ++it) {
+    const int i = it * TC_THREADS + threadIdx.x;
+    const int v = i / BN;
+    const int r = i % BN;
+    const bool need =
+        v == TK_SCALE ? a.k_scales == K_TOKEN || a.k_scales == K_COLUMN
+        : v == TK_ZP  ? a.k_scales == K_TOKEN
+        : v == TV_SCALE ? a.v_scales == V_TOKEN || a.v_scales == V_P
+                        : a.v_scales == V_TOKEN;
+    if (!need) continue;
+    const float* src = v == TK_SCALE ? a.ks
+                       : v == TK_ZP  ? a.kz
+                       : v == TV_SCALE ? a.vs
+                                       : a.vz;
+    const bool ok = t0 + r < limit;
+    mfa::cp_async4(tok + i, src + head * a.Skv + (ok ? t0 + r : 0),
+                   ok ? 4 : 0);
+  }
+}
+
+// The values [4w, 4w + 4) of payload row t, read as the int8 word `word`,
+// as stage_kv stages them with rounding to bf16 (bit for bit): the
+// integers, or dequantized in op.mode (TOKEN, with the row's scale and
+// zero point ts, tz; BLOCK2D; the forward's other modes keep the
+// integers), as two bf16x2 registers.  Its conversions run on the FP32 and
+// integer pipes (mma.cuh).
+template <int D>
+__device__ __forceinline__ uint2 dequant_bf16(const KVOperand& op,
+                                              size_t head, int Skv, int br,
+                                              int bs, int t, int w, int word,
+                                              float ts, float tz) {
+  const uint32_t x = (uint32_t)word ^ 0x80808080u;
+  float f[4] = {mfa::s8_f32<0>(x), mfa::s8_f32<1>(x), mfa::s8_f32<2>(x),
+                mfa::s8_f32<3>(x)};
+  if (op.mode == mfa::DQ_TOKEN) {
+    const float s = ts;
+    const float z = tz;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = __fmul_rn(f[e] - z, s);
+  } else if (op.mode == mfa::DQ_BLOCK2D) {
+    const size_t cell =
+        (head * (Skv / br) + t / br) * (size_t)((D + bs - 1) / bs);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const size_t c = cell + (4 * w + e) / bs;
+      const float s = op.sc[c];
+      f[e] = __fmul_rn(f[e], s) - __fmul_rn(op.zp[c], s);
+    }
+  }
+  return make_uint2(__byte_perm(mfa::bf16_bits(f[0]), mfa::bf16_bits(f[1]),
+                                0x7632),
+                    __byte_perm(mfa::bf16_bits(f[2]), mfa::bf16_bits(f[3]),
+                                0x7632));
+}
+
+// Raw payload rows -> bf16 rows [key][d] (dst_ld bytes apart):
+// dequant_bf16's values, zeros from `limit`; ts, tz the staged per-token
+// scale and zero point.
+template <int D, int RAW_LD>
+__device__ __forceinline__ void convert_bf16(const KVOperand& op,
+                                             const uint8_t* raw, size_t head,
+                                             int Skv, int br, int bs, int t0,
+                                             int limit, const float* ts,
+                                             const float* tz, uint8_t* dst,
+                                             int dst_ld) {
+  constexpr int W = D / 4;
+#pragma unroll 2
+  for (int it = 0; it < BN * W / TC_THREADS; ++it) {
+    const int i = it * TC_THREADS + threadIdx.x;
+    const int r = i / W;
+    const int w = i % W;
+    *reinterpret_cast<uint2*>(dst + r * dst_ld + 8 * w) =
+        t0 + r < limit
+            ? dequant_bf16<D>(op, head, Skv, br, bs, t0 + r, w,
+                              load_word<D>(raw + r * RAW_LD, w, op.bits),
+                              ts[r], tz[r])
+            : make_uint2(0u, 0u);
+  }
+}
+
+// Raw payload rows -> int8 rows [key][d] (int4 unpacked), zeros from
+// `limit`.
+template <int D, int RAW_LD, int DST_LD>
+__device__ __forceinline__ void convert_s8(const uint8_t* raw, int bits,
+                                           int t0, int limit, uint8_t* dst) {
+  constexpr int W = D / 4;
+#pragma unroll 2
+  for (int it = 0; it < BN * W / TC_THREADS; ++it) {
+    const int i = it * TC_THREADS + threadIdx.x;
+    const int r = i / W;
+    const int w = i % W;
+    *reinterpret_cast<int*>(dst + r * DST_LD + 4 * w) =
+        t0 + r < limit ? load_word<D>(raw + r * RAW_LD, w, bits) : 0;
+  }
+}
+
+// Raw payload rows -> int8 V^T [d][key position] (VT_LD bytes a row), keys
+// permuted within each 16-key group as the s8 P operand holds them.
+template <int D, int RAW_LD, int VT_LD>
+__device__ __forceinline__ void convert_vt(const uint8_t* raw, int bits,
+                                           int t0, int limit, uint8_t* dst) {
+  constexpr int W = D / 4;
+#pragma unroll 2
+  for (int it = 0; it < 16 * W / TC_THREADS; ++it) {
+    const int i = it * TC_THREADS + threadIdx.x;
+    const int quad = i % 16;  // positions [4 quad, 4 quad + 4)
+    const int w = i / 16;     // (neighbouring threads store to one row)
+    const int k0 = 16 * (quad >> 2) + 2 * (quad & 3);
+    const int keys[4] = {k0, k0 + 1, k0 + 8, k0 + 9};
+    unsigned x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = t0 + keys[j] < limit
+                 ? (unsigned)load_word<D>(raw + keys[j] * RAW_LD, w, bits)
+                 : 0u;
+    // 4 x 4 byte transpose: y[e] holds byte e of x[0..3].
+    const unsigned lo01 = __byte_perm(x[0], x[1], 0x5140);
+    const unsigned hi01 = __byte_perm(x[0], x[1], 0x7362);
+    const unsigned lo23 = __byte_perm(x[2], x[3], 0x5140);
+    const unsigned hi23 = __byte_perm(x[2], x[3], 0x7362);
+    const unsigned y[4] = {__byte_perm(lo01, lo23, 0x5410),
+                           __byte_perm(lo01, lo23, 0x7632),
+                           __byte_perm(hi01, hi23, 0x5410),
+                           __byte_perm(hi01, hi23, 0x7632)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      *reinterpret_cast<unsigned*>(dst + (4 * w + e) * VT_LD + 4 * quad) =
+          y[e];
+  }
+}
+
+// Replaces ops/quantized_attention.py::_qfwd_kernel for a bf16 or int8 Q
+// with ROUND_BF16.  Bound: operations (4*D per live pair, int8 or bf16).
+template <typename QT, int D>
+__global__ void __launch_bounds__(TC_THREADS)
+    qattn_fwd_tc_kernel(const Args a) {
+  constexpr bool QINT = std::is_same<QT, int8_t>::value;
+  using L = TcSmem<QT, D>;
+  constexpr int NB = D / 8;  // 8-column blocks of O
+  extern __shared__ __align__(16) uint8_t sm[];
+  __shared__ int s_lo, s_hi;
+
+  const bool p_int8 = a.flags & P_INT8;
+  const bool l_rounded = a.flags & L_ROUNDED;
+  const bool pv_s8 = tc_pv_s8(a.flags, a.v_scales);
+  const bool k_direct = QINT && a.bits_k == 8;
+  const L lay(k_direct, pv_s8);
+  uint8_t* qsm = sm;
+  float* tok = reinterpret_cast<float*>(sm + L::TOK);
+  uint8_t* kraw = sm + lay.kraw;
+  uint8_t* vraw = sm + lay.vraw;
+  uint8_t* kop = sm + lay.kop;
+  uint8_t* vop = sm + lay.vop;
+
+  // The last row tiles first: under a causal mask they walk the most keys.
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bh = (size_t)b * a.Hq + h;
+  const size_t bk = (size_t)b * a.Hkv + hk;
+  const long long qoff =
+      b * a.q_sb + (h >> 1) * a.q_spair + (h & 1) * a.q_shalf;
+  const float* bh_bias =
+      a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+
+  {  // Q rows [r0, r0 + 64), zeros from Sq
+    constexpr int CPR = D * L::QB / 16;
+    const uint8_t* qg = static_cast<const uint8_t*>(a.q);
+    for (int i = tid; i < BM * CPR; i += TC_THREADS) {
+      const int r = i / CPR;
+      const int c = i % CPR;
+      const bool ok = r0 + r < a.Sq;
+      mfa::cp_async16(
+          qsm + r * L::Q_LD + c * 16,
+          qg + (size_t)(qoff + (long long)(ok ? r0 + r : 0) * a.q_sr) * L::QB +
+              c * 16,
+          ok ? 16 : 0);
+    }
+  }
+  key_span(a.ranges, r0, a.Sq, a.Skv, &s_lo, &s_hi);
+  const int c_hi = s_hi;
+
+  int row[2], rs[2], re[2];
+  float m[2], l[2], qsr[2], smax[2], acc[NB][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = r0 + warp * 16 + g + 8 * i;
+    row_range(a.ranges, row[i], a.Sq, a.Skv, rs[i], re[i]);
+    qsr[i] = (QINT && row[i] < a.Sq) ? a.qs[bh * a.Sq + row[i]] : 1.f;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    smax[i] = -INFINITY;
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+
+  const KVOperand kop_d{a.kq, a.ks, a.kz, a.bits_k, a.k_scales};
+  const KVOperand vop_d{a.vq, a.vs, a.vz, a.bits_v, a.v_scales};
+  auto prefetch = [&](const Walk& w, int buf) {
+    stage_tok(a, bk, w.t0, c_hi, tok + buf * TOK_VECS * BN);
+    stage_raw<D, L::RAW_LD>(a.kq, a.bits_k, bk, a.Skv, w.t0, c_hi,
+                            kraw + buf * BN * L::RAW_LD);
+    if (w.pass == 1)
+      stage_raw<D, L::RAW_LD>(a.vq, a.bits_v, bk, a.Skv, w.t0, c_hi,
+                              vraw + buf * BN * L::RAW_LD);
+  };
+
+  Walk w(a.kv_span, s_lo, c_hi);
+  int buf = 0;
+  if (w.live()) prefetch(w, 0);
+  mfa::cp_async_commit();  // Q and the first step
+  while (w.live()) {
+    const Walk cur = w;
+    w.advance();
+    mfa::cp_async_wait<0>();
+    __syncthreads();  // this step staged; the last one's readers done
+    const uint8_t* kr = kraw + buf * BN * L::RAW_LD;
+    const uint8_t* vr = vraw + buf * BN * L::RAW_LD;
+    const float* tk = tok + buf * TOK_VECS * BN;
+    buf ^= 1;
+    if (w.live()) prefetch(w, buf);
+    mfa::cp_async_commit();
+    if constexpr (QINT) {
+      if (!k_direct)
+        convert_s8<D, L::RAW_LD, L::K_LD>(kr, a.bits_k, cur.t0, c_hi, kop);
+    } else {
+      convert_bf16<D, L::RAW_LD>(kop_d, kr, bk, a.Skv, a.br, a.bs, cur.t0,
+                                 c_hi, tk + TK_SCALE * BN, tk + TK_ZP * BN,
+                                 kop, L::K_LD);
+    }
+    if (cur.pass == 1) {
+      if (pv_s8)
+        convert_vt<D, L::RAW_LD, L::VT_LD>(vr, a.bits_v, cur.t0, c_hi, vop);
+      else
+        convert_bf16<D, L::RAW_LD>(vop_d, vr, bk, a.Skv, a.br, a.bs, cur.t0,
+                                   c_hi, tk + TV_SCALE * BN, tk + TV_ZP * BN,
+                                   vop, L::VB_LD);
+    }
+    if (!k_direct || cur.pass == 1) __syncthreads();  // operand tiles ready
+
+    // S = Q.K^T for this warp's 16 rows and the tile's 64 keys.
+    float s[8][4];
+    {
+      const uint8_t* kt = k_direct ? kr : kop;
+      const int k_ld = k_direct ? L::RAW_LD : L::K_LD;
+      const uint8_t* qp = qsm + (warp * 16 + mfa::ldsm_a_row(lane)) * L::Q_LD +
+                          mfa::ldsm_a_byte(lane);
+      const uint8_t* kp =
+          kt + mfa::ldsm_b_row(lane) * k_ld + mfa::ldsm_b_byte(lane);
+      if constexpr (QINT) {
+        // |S| < 2^22 for D <= 128: summed from mma.cuh's I32_BIAS.
+        constexpr int S0 = D <= 128 ? mfa::I32_BIAS : 0;
+        int si[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) si[j][e] = S0;
+#pragma unroll
+        for (int kc = 0; kc < D / 32; ++kc) {
+          uint32_t af[4];
+          mfa::ldsm_x4(af, qp + kc * 32);
+#pragma unroll
+          for (int j2 = 0; j2 < 4; ++j2) {
+            uint32_t bf[4];
+            mfa::ldsm_x4(bf, kp + j2 * 16 * k_ld + kc * 32);
+            mfa::mma_s8(si[2 * j2], af, bf[0], bf[1], si[2 * j2]);
+            mfa::mma_s8(si[2 * j2 + 1], af, bf[2], bf[3], si[2 * j2 + 1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = (S0 ? mfa::biased_f32(si[j][e]) : (float)si[j][e]) *
+                      qsr[e >> 1];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc) {
+          uint32_t af[4];
+          mfa::ldsm_x4(af, qp + kc * 32);
+#pragma unroll
+          for (int j2 = 0; j2 < 4; ++j2) {
+            uint32_t bf[4];
+            mfa::ldsm_x4(bf, kp + j2 * 16 * k_ld + kc * 32);
+            mfa::mma_bf16(s[2 * j2], af, bf[0], bf[1], s[2 * j2]);
+            mfa::mma_bf16(s[2 * j2 + 1], af, bf[2], bf[3], s[2 * j2 + 1]);
+          }
+        }
+      }
+    }
+
+    // The scalar body's element-wise steps, in its order; the mode's
+    // branches outside the loops over the fragment, selects inside.
+    if (cur.fresh()) smax[0] = smax[1] = -INFINITY;
+    if (a.k_scales == K_COLUMN) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = cur.t0 + 8 * j + 2 * tq + c;
+          const float cs = tk[TK_SCALE * BN + 8 * j + 2 * tq + c];
+          if (col < a.Skv) {
+            s[j][c] *= cs;
+            s[j][2 + c] *= cs;
+          }
+        }
+    }
+    if (bh_bias) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = cur.t0 + 8 * j + 2 * tq + c;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (row[i] < a.Sq && col < c_hi)
+              s[j][2 * i + c] +=
+                  bh_bias[(size_t)row[i] * a.Skv + col] * LOG2E;
+        }
+    }
+    float mx[2] = {smax[0], smax[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = cur.t0 + 8 * j + 2 * tq + c;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float& x = s[j][2 * i + c];
+          x = (col < rs[i] || col >= re[i]) ? a.mask_value : x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+    if (cur.pass == 0) {
+      smax[0] = mx[0];
+      smax[1] = mx[1];
+      continue;
+    }
+    float alpha[2], m_next[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_next[i] = fmaxf(m[i], mx[i]);
+      alpha[i] = (m[i] == -INFINITY) ? 0.f : exp2f(m[i] - m_next[i]);
+    }
+    // P (0 where the score is -inf: exp2 of -inf - -inf would be NaN).
+    if (p_int8) {  // (float)(int)(raw + 0.5f), raw < 2^23
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[j][e];
+          const bool dead = x == -INFINITY;
+          const float raw =
+              dead ? 0.f : exp2f(x + (LOG2_127 - m_next[e >> 1]));
+          const float p = __fadd_rz(raw + 0.5f, 8388608.0f) - 8388608.0f;
+          sum[e >> 1] += l_rounded ? p : raw;
+          s[j][e] = p;
+        }
+    } else {
+      const bool v_p = a.v_scales == V_P;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = cur.t0 + 8 * j + 2 * tq + c;
+          const float vsc = v_p && col < a.Skv
+                                ? tk[TV_SCALE * BN + 8 * j + 2 * tq + c]
+                                : 1.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float x = s[j][2 * i + c];
+            const float raw = x == -INFINITY ? 0.f : exp2f(x - m_next[i]);
+            const float p = __uint_as_float(mfa::bf16_bits(raw * vsc));
+            sum[i] += l_rounded ? p : raw;
+            s[j][2 * i + c] = p;
+          }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = alpha[i] * l[i] + sum[i];
+      m[i] = m_next[i];
+    }
+    // alpha is 1 after a span's first tile (its max came from pass 0).
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        acc[nb][0] *= alpha[0];
+        acc[nb][1] *= alpha[0];
+        acc[nb][2] *= alpha[1];
+        acc[nb][3] *= alpha[1];
+      }
+    }
+
+    // O += P.V, P from the S fragments.
+    if (pv_s8) {
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int j = 4 * kk;
+        // P is an integer in [0, 127]: the low byte of P + 2^23's bits.
+        constexpr float B23 = 8388608.0f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)  // a0 / a1: keys of blocks j, j + 1
+          pa[kk][r] = mfa::low_bytes(s[j][2 * r] + B23, s[j][2 * r + 1] + B23,
+                                     s[j + 1][2 * r] + B23,
+                                     s[j + 1][2 * r + 1] + B23);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)  // a2 / a3: blocks j + 2, j + 3
+          pa[kk][2 + r] = mfa::low_bytes(
+              s[j + 2][2 * r] + B23, s[j + 2][2 * r + 1] + B23,
+              s[j + 3][2 * r] + B23, s[j + 3][2 * r + 1] + B23);
+      }
+      const uint8_t* vt =
+          vop + mfa::ldsm_b_row(lane) * L::VT_LD + mfa::ldsm_b_byte(lane);
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {
+        uint32_t b0[4], b1[4];
+        mfa::ldsm_x4(b0, vt + n2 * 16 * L::VT_LD);
+        mfa::ldsm_x4(b1, vt + n2 * 16 * L::VT_LD + 32);
+        // |P.V| <= 64 * 127 * 128 < 2^22: summed from I32_BIAS, as above.
+        constexpr int M0 = mfa::I32_BIAS;
+        int c0[4] = {M0, M0, M0, M0}, c1[4] = {M0, M0, M0, M0};
+        mfa::mma_s8(c0, pa[0], b0[0], b0[1], c0);
+        mfa::mma_s8(c0, pa[1], b1[0], b1[1], c0);
+        mfa::mma_s8(c1, pa[0], b0[2], b0[3], c1);
+        mfa::mma_s8(c1, pa[1], b1[2], b1[3], c1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * n2][e] += mfa::biased_f32(c0[e]);
+          acc[2 * n2 + 1][e] += mfa::biased_f32(c1[e]);
+        }
+      }
+    } else {
+      const uint8_t* vb = vop + mfa::ldsm_t_k(lane) * L::VB_LD +
+                          mfa::ldsm_t_n(lane) * 2;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int j = 2 * kk;
+        // P is exact in bf16: rounded to it, or an integer up to 127.
+        const uint32_t pa[4] = {
+            mfa::pack_bf16_exact(s[j][0], s[j][1]),
+            mfa::pack_bf16_exact(s[j][2], s[j][3]),
+            mfa::pack_bf16_exact(s[j + 1][0], s[j + 1][1]),
+            mfa::pack_bf16_exact(s[j + 1][2], s[j + 1][3])};
+#pragma unroll
+        for (int n2 = 0; n2 < NB / 2; ++n2) {
+          uint32_t bf[4];
+          mfa::ldsm_x4_t(bf, vb + kk * 16 * L::VB_LD + n2 * 32);
+          mfa::mma_bf16(acc[2 * n2], pa, bf[0], bf[1], acc[2 * n2]);
+          mfa::mma_bf16(acc[2 * n2 + 1], pa, bf[2], bf[3], acc[2 * n2 + 1]);
+        }
+      }
+    }
+  }
+  mfa::cp_async_wait<0>();
+
+  const float l_off = p_int8 ? LN_127 : 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= a.Sq) continue;
+    const bool live = re[i] > rs[i] && l[i] > 0.f;
+    float* orow = a.o + qoff + (long long)row[i] * a.q_sr;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int d = 8 * nb + 2 * tq;
+      float o0 = live ? acc[nb][2 * i] / l[i] : 0.f;
+      float o1 = live ? acc[nb][2 * i + 1] / l[i] : 0.f;
+      if (a.v_scales == V_STORE) {
+        o0 *= a.vs[bk * D + d];
+        o1 *= a.vs[bk * D + d + 1];
+      }
+      *reinterpret_cast<float2*>(orow + d) = make_float2(o0, o1);
+    }
+    if (tq == 0)
+      a.lse[bh * a.Sq + row[i]] =
+          live ? m[i] * LN2 + logf(l[i]) - l_off : -INFINITY;
+  }
+}
+
 template <typename K>
-int launch(K kern, const Args& a, int B, size_t smem, cudaStream_t stream) {
+int launch(K kern, const Args& a, int B, int threads, size_t smem,
+           cudaStream_t stream) {
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((a.Sq + BM - 1) / BM, a.Hq, B), THREADS, smem, stream>>>(a);
+  kern<<<dim3((a.Sq + BM - 1) / BM, a.Hq, B), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// The body a call takes (ops/quantized_attention.py::qattn_body gives the
+// same answer): the tensor-core one for a bf16 or int8 Q with ROUND_BF16,
+// the scalar one for an fp32 Q and for an int8 Q without it (an fp32 Q
+// quantized to int8 keeps fp32 products); a bf16 Q always rounds to bf16.
 template <typename QT, int D>
 int launch_qattn(const Args& a, int B, cudaStream_t stream) {
-  return launch(qattn_fwd_kernel<QT, D>, a, B, smem_floats<D>() * sizeof(float),
-                stream);
+  if constexpr (!std::is_same<QT, float>::value) {
+    if (a.flags & ROUND_BF16) {
+      const TcSmem<QT, D> lay(
+          std::is_same<QT, int8_t>::value && a.bits_k == 8,
+          tc_pv_s8(a.flags, a.v_scales));
+      return launch(qattn_fwd_tc_kernel<QT, D>, a, B, TC_THREADS, lay.total,
+                    stream);
+    }
+  }
+  if constexpr (std::is_same<QT, __nv_bfloat16>::value) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return launch(qattn_fwd_kernel<QT, D>, a, B, THREADS,
+                  smem_floats<D>() * sizeof(float), stream);
+  }
 }
 
 template <typename QT>
@@ -365,7 +1021,8 @@ bool valid_bits(int bits) { return bits == 8 || bits == 4; }
 
 // Plain C interface (loaded with ctypes).  Returns the launch's
 // cudaError_t; cudaErrorInvalidValue for an unsupported type, head dim,
-// bit width or head grouping.  qtype: 0 float32, 1 bfloat16, 2 int8.
+// bit width or head grouping, or a bf16 Q without ROUND_BF16.  qtype: 0
+// float32, 1 bfloat16, 2 int8.
 extern "C" {
 
 int mfa_qattn_fwd(const void* q, const void* qs, const void* kq,
@@ -416,9 +1073,10 @@ int mfa_hpack_fwd(const void* q, const void* kq, const void* vq,
                V_STORE, ROUND_BF16, 1, 1, BN, mask_value};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = smem_floats<64>() * sizeof(float);
-  if (qtype == 0) return launch(hpack_fwd_kernel<float>, a, B, smem, s);
+  if (qtype == 0)
+    return launch(hpack_fwd_kernel<float>, a, B, THREADS, smem, s);
   if (qtype == 1)
-    return launch(hpack_fwd_kernel<__nv_bfloat16>, a, B, smem, s);
+    return launch(hpack_fwd_kernel<__nv_bfloat16>, a, B, THREADS, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,7 +8,8 @@
 //   - ops/quantized_gemm.py::_wo_folded_kernel  -> wo_folded_kernel
 //   - ops/quantized_gemm.py::_wo_kernel         -> wo_kernel
 //   - ops/quantized_gemm.py::_qa_folded_kernel  -> qa_folded_kernel
-//   - ops/quantized_gemm.py::_qa_kernel         -> qa_kernel
+//   - ops/quantized_gemm.py::_qa_kernel         -> qa_tc_kernel (bf16 B),
+//                                                   qa_kernel (fp32 B)
 //   - ops/quantized_gemm.py::_comp_kernel       -> comp_kernel
 //   - ops/quantized_gemm.py::_comp_small_kernel -> comp_small_kernel
 // Each family is described before its kernels.
@@ -53,6 +54,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -419,17 +421,20 @@ wo_kernel(const AT* __restrict__ a, const void* __restrict__ w,
 //   - qa_kernel (the TPU's _qa_kernel: every other A, or an fp32 B): each A
 //     element dequantized by dequant_at with TENSOR, ROW (per m) or BLOCK
 //     (per k) cells and rounded to B's type BT (the compute type), then
-//     acc = sum_k deq * b in fp32; out = acc.
+//     acc = sum_k deq * b in fp32; out = acc.  A bf16 B (the compute type
+//     bf16) takes qa_tc_kernel below, the same function on the tensor
+//     cores; an fp32 B stays on this scalar tile (TF32 would break its
+//     fp32 gate).
 // C is not read: the GEMM engine adds it after these kernels, in fp32.
 //
 // What bounds them on the H100, and the design.  At the GEMM bench's
 // shapes (M = 128 or 4096, N = K = 8192) the product is 2*M*N*K = 17 or
 // 550 GFLOP against 67 + 134 + 4 MB (M = 128: B bf16, out fp32) or 34 +
 // 134 + 134 MB (M = 4096): the bf16 tensor cores (989 TFLOP/s) would bound
-// M = 4096 at ~0.56 ms and the bytes M = 128 at ~0.06 ms.  These first
-// versions are the weight-only kernels' scalar fp32 FMAs (67 TFLOP/s peak):
-// ~8 ms at best for M = 4096.  bf16 mma.sync / wgmma is the planned speed
-// work.
+// M = 4096 at ~0.56 ms and the bytes M = 128 at ~0.06 ms.  The scalar
+// tile is the weight-only kernels' fp32 FMAs (67 TFLOP/s peak): ~8 ms at
+// best for M = 4096.  qa_tc_kernel runs the bf16 products on mma.sync;
+// wgmma with TMA is the next step.
 // ---------------------------------------------------------------------------
 
 template <int BITS>
@@ -501,6 +506,290 @@ qa_kernel(const void* __restrict__ a, const BT* __restrict__ b,
       if (n < N) out[(size_t)m * N + n] = acc[i][j];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// qa_tc_kernel: qa_kernel's bf16-B instances on the tensor cores.  Each CTA
+// computes a BM x 128 output tile (BM = 128, or 64 where 128-row tiles
+// would give fewer than two CTAs for each SM, e.g. M = 128) with 8 warps of
+// 32 x 64 (or 32 x 32) outputs, over K steps of 32 in a 4-stage cp.async
+// ring:
+//   - A's payload bytes (32 per row: int8, or the int4 group half's packed
+//     bytes) and B's bf16 rows [K, N] (16-byte chunks) are copied into the
+//     ring ahead of use (zeros past M, N and K; element loads where a row
+//     is not 16-byte aligned: K % 16 or N % 8 not 0);
+//   - each step's A tile is dequantized once into bf16 rows, during the
+//     previous step's products (two bf16 tiles, one barrier a step), with
+//     dequant_at's arithmetic and rounding (round_bf16((q - zp)*s)), zeros
+//     past M and K; a thread takes 16 (or 8) k of one row, the same row
+//     each step, so a TENSOR or ROW scale stays in registers (BLOCK ones
+//     are staged beside the payload); the payload's integers become floats
+//     on the FP32 pipe (mma.cuh's s8_f32) and the rounding to bf16 runs on
+//     the conversion unit (cvt.rn.bf16x2), so the two share the work;
+//   - A by ldmatrix, B by ldmatrix.trans, bf16 m16n8k16 into fp32.  The two
+//     products of a step sum into a zeroed fragment that is then added to
+//     the accumulator in fp32 (round to nearest), so the tensor core's own
+//     accumulation spans 32 products only and the result stays within the
+//     fp32 gate of the plain version at K = 8192.
+// qa_folded_kernel and the weight-only pair can move onto this tile: they
+// differ in what A's dequantization does and in the epilogue.
+// ---------------------------------------------------------------------------
+
+constexpr int QT_BN = 128;
+constexpr int QT_BK = 32;
+constexpr int QT_THREADS = 256;
+constexpr int QT_ARAW_LD = QT_BK + 16;   // bytes per staged A payload row
+constexpr int QT_A_LD = 2 * QT_BK + 16;  // bytes per dequantized bf16 A row
+constexpr int QT_B_LD = 2 * QT_BN + 16;  // bytes per staged bf16 B row
+
+// The card's SM count (read once).
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+constexpr int QT_STAGES = 4;  // the cp.async ring
+
+// A's payload ring, B's ring, two dequantized A tiles and the ring of
+// BLOCK scales and zero points (~80 KB at BM = 128: two CTAs an SM).
+template <int BM>
+constexpr size_t qa_tc_smem() {
+  return (size_t)QT_STAGES * (BM * QT_ARAW_LD + QT_BK * QT_B_LD) +
+         2 * (size_t)BM * QT_A_LD + QT_STAGES * 2 * QT_BK * sizeof(float);
+}
+
+template <int BITS, int BM>
+__global__ void __launch_bounds__(QT_THREADS, 2)
+qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
+             const float* __restrict__ scale, const float* __restrict__ zp,
+             int scales, float* __restrict__ out, int M, int N, int K) {
+  constexpr int STAGES = QT_STAGES;
+  constexpr int WARPS_M = BM / 32;
+  constexpr int WN = QT_BN / (8 / WARPS_M);  // columns per warp
+  constexpr int NT = WN / 8;                 // 8-column blocks per warp
+  constexpr int ACH = QT_BK / 16;            // 16-byte chunks per A row
+  constexpr int BCH = QT_BN / 8;             // 16-byte chunks per B row
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint8_t* araw = sm;
+  uint8_t* bsm = araw + STAGES * BM * QT_ARAW_LD;
+  uint8_t* adq = bsm + STAGES * QT_BK * QT_B_LD;  // two tiles
+  float* bvec = reinterpret_cast<float*>(adq + 2 * BM * QT_A_LD);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm0 = (warp % WARPS_M) * 32;
+  const int wn0 = (warp / WARPS_M) * WN;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * QT_BN;
+  const uint8_t* ap = static_cast<const uint8_t*>(a);
+  const uint8_t* bp = reinterpret_cast<const uint8_t*>(b);
+  const bool a_vec = BITS == 4 || (K % 16 == 0 && ((uintptr_t)a & 15) == 0);
+  const bool b_vec = N % 8 == 0 && ((uintptr_t)b & 15) == 0;
+  const int nk = (K + QT_BK - 1) / QT_BK;
+
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * QT_BK;
+    uint8_t* ar = araw + stage * BM * QT_ARAW_LD;
+    for (int i = tid; i < BM * ACH; i += QT_THREADS) {
+      const int r = i / ACH;
+      const int c = i % ACH;
+      const int m = m0 + r;
+      uint8_t* dst = ar + r * QT_ARAW_LD + c * 16;
+      if (BITS == 4) {  // K % 256 == 0: the 32 k share one group half
+        const size_t off = (size_t)(m < M ? m : 0) * (K / 2) +
+                           (size_t)(k0 / 256) * 128 + (k0 % 256) % 128 +
+                           c * 16;
+        mfa::cp_async16(dst, ap + off, m < M ? 16 : 0);
+      } else if (a_vec) {
+        const int kk = k0 + c * 16;
+        const bool ok = m < M && kk < K;
+        mfa::cp_async16(dst, ap + (ok ? (size_t)m * K + kk : 0),
+                        ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int kk = k0 + c * 16 + e;
+          dst[e] = (m < M && kk < K) ? ap[(size_t)m * K + kk] : 0;
+        }
+      }
+    }
+    if (scales == WO_BLOCK && tid < 2 * QT_BK) {  // the step's scales, zps
+      const int k = k0 + tid % QT_BK;
+      const float* v = tid < QT_BK ? scale : zp;
+      mfa::cp_async4(bvec + stage * 2 * QT_BK + tid, v + (k < K ? k : 0),
+                     k < K ? 4 : 0);
+    }
+    uint8_t* bs = bsm + stage * QT_BK * QT_B_LD;
+    for (int i = tid; i < QT_BK * BCH; i += QT_THREADS) {
+      const int r = i / BCH;
+      const int c = i % BCH;
+      const int k = k0 + r;
+      const int n = n0 + c * 8;
+      uint8_t* dst = bs + r * QT_B_LD + c * 16;
+      if (b_vec) {
+        const bool ok = k < K && n < N;
+        mfa::cp_async16(dst, bp + (ok ? ((size_t)k * N + n) * 2 : 0),
+                        ok ? 16 : 0);
+      } else {
+        const uint16_t* bh = reinterpret_cast<const uint16_t*>(b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          reinterpret_cast<uint16_t*>(dst)[e] =
+              (k < K && n + e < N) ? bh[(size_t)k * N + n + e] : 0;
+      }
+    }
+  };
+
+  // A's staged payload -> bf16 rows: each thread dequantizes EPT
+  // consecutive k of one row, the same row every step, with that row's
+  // scale and zero point (TENSOR, ROW) held in registers or the step's
+  // per-k ones (BLOCK) staged beside the payload; zeros past M and K (whose
+  // B rows are zeros too).
+  constexpr int EPT = BM * QT_BK / QT_THREADS;  // 16 or 8
+  const int dr = tid / (QT_BK / EPT);
+  const int dk = (tid % (QT_BK / EPT)) * EPT;
+  const bool row_live = m0 + dr < M;
+  const int row_cell = scales == WO_ROW ? m0 + dr : 0;
+  const float row_s = row_live ? scale[row_cell] : 0.f;
+  const float row_z = row_live ? zp[row_cell] : 0.f;
+  auto dequant = [&](int stage, int kt, uint8_t* dst) {
+    const int k0 = kt * QT_BK + dk;
+    const uint8_t* src = araw + stage * BM * QT_ARAW_LD + dr * QT_ARAW_LD + dk;
+    const float* bsc = bvec + stage * 2 * QT_BK + dk;
+    const int shift = (BITS == 4 && (kt * QT_BK % 256) >= 128) ? 4 : 0;
+    uint32_t w[EPT / 4];
+#pragma unroll
+    for (int v = 0; v < EPT / 8; ++v) {
+      const uint2 u = *reinterpret_cast<const uint2*>(src + 8 * v);
+      w[2 * v] = u.x;
+      w[2 * v + 1] = u.y;
+    }
+    uint32_t out[EPT / 2];
+#pragma unroll
+    for (int v = 0; v < EPT / 4; ++v) {
+      float q[4];
+      if (BITS == 8) {
+        const uint32_t x = w[v] ^ 0x80808080u;
+        q[0] = mfa::s8_f32<0>(x);
+        q[1] = mfa::s8_f32<1>(x);
+        q[2] = mfa::s8_f32<2>(x);
+        q[3] = mfa::s8_f32<3>(x);
+      } else {  // nibbles hold q + 8
+        const uint32_t x = (w[v] >> shift) & 0x0F0F0F0Fu;
+        q[0] = mfa::u8_f32<0>(x) - 8.0f;
+        q[1] = mfa::u8_f32<1>(x) - 8.0f;
+        q[2] = mfa::u8_f32<2>(x) - 8.0f;
+        q[3] = mfa::u8_f32<3>(x) - 8.0f;
+      }
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + 4 * v + e;
+        const float sc = scales == WO_BLOCK ? bsc[4 * v + e] : row_s;
+        const float z = scales == WO_BLOCK ? bsc[QT_BK + 4 * v + e] : row_z;
+        d[e] = row_live && k < K ? __fmul_rn(__fsub_rn(q[e], z), sc) : 0.f;
+      }
+      out[2 * v] = mfa::pack_bf16(d[0], d[1]);
+      out[2 * v + 1] = mfa::pack_bf16(d[2], d[3]);
+    }
+#pragma unroll
+    for (int v = 0; v < EPT / 8; ++v)
+      *reinterpret_cast<uint4*>(dst + dr * QT_A_LD + 2 * dk + 16 * v) =
+          make_uint4(out[4 * v], out[4 * v + 1], out[4 * v + 2],
+                     out[4 * v + 3]);
+  };
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  const uint8_t* a_frag = adq + (wm0 + mfa::ldsm_a_row(lane)) * QT_A_LD +
+                          mfa::ldsm_a_byte(lane);
+  const int b_frag =
+      mfa::ldsm_t_k(lane) * QT_B_LD + (wn0 + mfa::ldsm_t_n(lane)) * 2;
+
+  // Step kt's A is dequantized during step kt - 1's products, into the
+  // other of the two bf16 tiles: one barrier a step.
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load(st, st);
+    mfa::cp_async_commit();
+  }
+  mfa::cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  dequant(0, 0, adq);
+  for (int kt = 0; kt < nk; ++kt) {
+    mfa::cp_async_wait<STAGES - 3>();
+    __syncthreads();  // step kt + 1 staged, A of step kt dequantized;
+                      // step kt - 1's readers done
+    if (kt + STAGES - 1 < nk)
+      load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    mfa::cp_async_commit();
+    if (kt + 1 < nk)
+      dequant((kt + 1) % STAGES, kt + 1, adq + ((kt + 1) & 1) * BM * QT_A_LD);
+    const uint8_t* as = a_frag + (kt & 1) * BM * QT_A_LD;
+    const uint8_t* bs = bsm + (kt % STAGES) * QT_BK * QT_B_LD + b_frag;
+    uint32_t af[2][2][4], bf[NT][2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the step's two 16-k slices
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        mfa::ldsm_x4(af[mi][h], as + mi * 16 * QT_A_LD + h * 32);
+#pragma unroll
+      for (int n2 = 0; n2 < NT / 2; ++n2) {
+        uint32_t r[4];
+        mfa::ldsm_x4_t(r, bs + h * 16 * QT_B_LD + n2 * 32);
+        bf[2 * n2][h][0] = r[0];
+        bf[2 * n2][h][1] = r[1];
+        bf[2 * n2 + 1][h][0] = r[2];
+        bf[2 * n2 + 1][h][1] = r[3];
+      }
+    }
+    // 32 products on the tensor core, then added in fp32.
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        mfa::mma_bf16(p, af[mi][0], bf[ni][0][0], bf[ni][0][1], p);
+        mfa::mma_bf16(p, af[mi][1], bf[ni][1][0], bf[ni][1][1], p);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], p[e]);
+      }
+  }
+  mfa::cp_async_wait<0>();
+
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + wm0 + 16 * mi + g + 8 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int n = n0 + wn0 + 8 * ni + 2 * tq;
+        float* o = out + (size_t)m * N + n;
+        const float v0 = acc[mi][ni][2 * i];
+        const float v1 = acc[mi][ni][2 * i + 1];
+        if (n + 1 < N && N % 2 == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (n < N) o[0] = v0;
+          if (n + 1 < N) o[1] = v1;
+        }
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -757,6 +1046,35 @@ int mfa_qa_gemm(const void* a, const void* b, const void* scale,
   const float* ps = static_cast<const float*>(scale);
   const float* pz = static_cast<const float*>(zp);
   float* o = static_cast<float*>(out);
+  if (btype == 1) {  // bf16 B: the tensor-core tile
+    const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(b);
+    // 128-row tiles where they give two CTAs for each SM, else 64-row ones.
+    const bool wide = (long long)((M + 127) / 128) *
+                          ((N + QT_BN - 1) / QT_BN) >=
+                      2LL * sm_count();
+#define MFA_QA_TC(BITS, BM)                                                  \
+  do {                                                                       \
+    cudaError_t err = cudaFuncSetAttribute(                                  \
+        qa_tc_kernel<BITS, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+        (int)qa_tc_smem<BM>());                                              \
+    if (err != cudaSuccess) return (int)err;                                 \
+    qa_tc_kernel<BITS, BM>                                                   \
+        <<<dim3((N + QT_BN - 1) / QT_BN, (M + BM - 1) / BM), QT_THREADS,     \
+           qa_tc_smem<BM>(), s>>>(a, pb, ps, pz, scales, o, M, N, K);        \
+  } while (0)
+    if (bits == 8 && wide)
+      MFA_QA_TC(8, 128);
+    else if (bits == 8)
+      MFA_QA_TC(8, 64);
+    else if (bits == 4 && wide)
+      MFA_QA_TC(4, 128);
+    else if (bits == 4)
+      MFA_QA_TC(4, 64);
+    else
+      return (int)cudaErrorInvalidValue;
+#undef MFA_QA_TC
+    return (int)cudaGetLastError();
+  }
   const dim3 g = wo_grid(M, N);
 #define MFA_QA(BT, BITS)                                                   \
   qa_kernel<BT, BITS><<<g, WO_THREADS, 0, s>>>(                           \
@@ -765,10 +1083,6 @@ int mfa_qa_gemm(const void* a, const void* b, const void* scale,
     MFA_QA(float, 8);
   else if (btype == 0 && bits == 4)
     MFA_QA(float, 4);
-  else if (btype == 1 && bits == 8)
-    MFA_QA(__nv_bfloat16, 8);
-  else if (btype == 1 && bits == 4)
-    MFA_QA(__nv_bfloat16, 4);
   else
     return (int)cudaErrorInvalidValue;
 #undef MFA_QA

@@ -21,7 +21,9 @@ with the scales:
   TENSOR / CHANNEL V scales multiply O at the store, ROW V scales P.
 
 The TPU kernel ``_qfwd_kernel`` becomes ``csrc/quantized_attention.cu::
-qattn_fwd_kernel`` behind :func:`qattn_fwd`; ``_hpack_kernel`` (the d=64
+qattn_fwd_tc_kernel`` (tensor cores; a bf16 or int8 Q) and
+``qattn_fwd_kernel`` (fp32 FMAs; an fp32 Q) behind :func:`qattn_fwd`
+(:func:`qattn_body` says which); ``_hpack_kernel`` (the d=64
 head-pair layout) becomes ``hpack_fwd_kernel`` behind :func:`hpack_fwd`.
 On CUDA tensors each launches its kernel or raises; their plain PyTorch
 versions run for CPU tensors.  The TPU's tiles, schedules, ones-lane
@@ -202,6 +204,22 @@ class QAttnMode:
                 | 4 * int(self.p_int8))
 
 
+def qattn_body(q_dtype: torch.dtype, mode: QAttnMode,
+               packed: bool = False) -> str:
+    """Which body of ``csrc/quantized_attention.cu`` a launch runs:
+    "tensor_core" (``qattn_fwd_tc_kernel``: mma.sync over int8 or bf16
+    products) for a bf16 or int8 Q whose products round to bf16
+    (``mode.round_bf16``, as every bf16 Q's do), "fp32_fma" (the scalar
+    body) for an fp32 Q, also one quantized to int8, and for the head-pair
+    kernel (``packed``).  fp32 stays off the tensor cores: TF32 keeps ~3
+    digits and the fp32 modes are held to 2e-5.  The C interface routes
+    the same way."""
+    if (not packed and q_dtype in (torch.bfloat16, torch.int8)
+            and mode.round_bf16):
+        return "tensor_core"
+    return "fp32_fma"
+
+
 # ---------------------------------------------------------------------------
 # The forward kernel and its plain version
 # ---------------------------------------------------------------------------
@@ -359,6 +377,9 @@ def check_qattn_inputs(name, q, q_scales, kq, vq, k_params, v_params,
     _check_payload(name, vq, mode.bits_v, b, hkv, skv, d)
     if (q.dtype == torch.int8) != (q_scales is not None):
         raise TypeError(f"{name}: an int8 Q needs its scales, a float Q none")
+    if q.dtype == torch.bfloat16 and not mode.round_bf16:
+        raise TypeError(f"{name}: a bf16 Q rounds its products to bf16 "
+                        "(mode.round_bf16)")
     tensors = [q, kq, vq]
     if q_scales is not None:
         if q_scales.dtype != torch.float32 or q_scales.shape != (b, hq, sq):

@@ -552,6 +552,14 @@ def qa_gemm_plain(a, b, scale, zp, *, bits: int,
         return deq.to(b.dtype).float() @ b.float()
 
 
+def qa_gemm_body(b_dtype: torch.dtype) -> str:
+    """Which tile of ``csrc/quantized_gemm.cu`` :func:`qa_gemm` launches for
+    a B of ``b_dtype``: "tensor_core" (``qa_tc_kernel``: bf16 mma.sync) for
+    bf16, "fp32_fma" (``qa_kernel``'s scalar tile) for fp32, whose gate
+    TF32 would break.  The C interface routes the same way."""
+    return "tensor_core" if b_dtype == torch.bfloat16 else "fp32_fma"
+
+
 def qa_gemm(a, b, scale, zp, *, bits: int, scales: int) -> torch.Tensor:
     """The dequant-on-load quantized-A kernel → fp32 [M, N]:
     ``round_cd((q − zp)·s)·B``.
@@ -559,8 +567,8 @@ def qa_gemm(a, b, scale, zp, *, bits: int, scales: int) -> torch.Tensor:
     a as for :func:`qa_folded_gemm`; b fp32 or bf16 [K, N] (its dtype is
     the compute dtype); ``scales`` 0 (TENSOR: scale, zp fp32 [1]), 1 (ROW,
     per row of A: [M]) or 2 (BLOCK, per element of K: [K]).  CPU tensors
-    take :func:`qa_gemm_plain`; CUDA tensors launch ``qa_kernel`` or
-    raise."""
+    take :func:`qa_gemm_plain`; CUDA tensors launch ``qa_tc_kernel`` (bf16
+    B) or ``qa_kernel`` (fp32 B; :func:`qa_gemm_body`) or raise."""
     if a.device.type == "cpu":
         return qa_gemm_plain(a, b, scale, zp, bits=bits, scales=scales)
     m, kdim, n = a.shape[0], b.shape[0], b.shape[1]

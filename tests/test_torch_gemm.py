@@ -598,3 +598,21 @@ def test_attention_op_counts_match_jax():
         kw = dict(num_heads=4, batch=2, phase=phase)
         assert roofline.attention_flops(256, 512, 64, **kw) == (
             jroof.attention_flops(256, 512, 64, **kw))
+
+
+@pytest.mark.parametrize("bdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
+@pytest.mark.parametrize("name", ["8b_row_asym", "8b_block128_centered",
+                                  "4b_row_centered"])
+def test_qa_gemm_body_follows_the_compute_dtype(name, bdtype):
+    """The dequant-on-load arm hands ``qa_gemm`` B in the compute dtype
+    (fp32 for an fp32 B, else bf16), and ``qa_gemm_body`` sends bf16 to the
+    tensor-core tile and fp32 to the fp32-FMA one, as the C interface
+    does."""
+    a, bt = _data(seed=len(name))
+    _, ta = _quant(a, QA_CONFIGS[name])
+    folded, args, _ = tqg.qa_arguments(ta, torch.from_numpy(bt.T.copy()).to(
+        bdtype))
+    assert not folded
+    want = "fp32_fma" if bdtype == torch.float32 else "tensor_core"
+    assert tqg.qa_gemm_body(args[1].dtype) == want

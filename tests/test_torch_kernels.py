@@ -521,6 +521,41 @@ QATTN_CASES = {
                         masking.CAUSAL, {}),
     "block2d48_d96_f32": (1, 4, 2, 128, 128, 96, B2D48, B2D48, F32,
                           masking.CAUSAL, {}),
+    # The tensor-core body (a bf16 or int8 Q) at its ragged edges: Skv
+    # under one 64-key tile, int4 K/V, BLOCK_2D, bias, windows, interleaved
+    # GQA, every built width and the padded ones.
+    "tc_short_kv": (1, 4, 2, 100, 40, 64, ROW8C, ROW8C, BF16, masking.FULL,
+                    {}),
+    "tc_quantize_q_short_kv": (1, 4, 2, 50, 37, 128, ROW8, CH8, BF16,
+                               masking.FULL, QQ),
+    "tc_dequant_row4c": (1, 4, 2, 130, 130, 64, ROW4C, ROW4C, BF16,
+                         masking.CAUSAL, {}),
+    "tc_quantize_q_int4_k": (1, 4, 2, 130, 130, 64, ROW4, ROW8, BF16,
+                             masking.CAUSAL, QQ),
+    "tc_block2d_d128": (1, 4, 2, 96, 160, 128, B2D, B2D, BF16,
+                        masking.CAUSAL, {}),
+    "tc_quantize_q_bias": (1, 4, 2, 100, 100, 64, ROW8, ROW8, BF16,
+                           masking.CAUSAL, dict(quantize_q=True,
+                                                bias=(1, 4, 100, 100))),
+    "tc_int8_pv_window": (1, 4, 2, 300, 300, 64, ROW8, CH8, BF16,
+                          masking.sliding_window(96, causal=True), QQ),
+    "tc_int8_pv_interleaved": (1, 8, 2, 128, 128, 64, ROW8, CH8, BF16,
+                               masking.CAUSAL,
+                               dict(quantize_q=True, interleaved_kv=True)),
+    "tc_dequant_d32": (1, 4, 4, 70, 90, 32, ROW8C, ROW8C, BF16, masking.FULL,
+                       {}),
+    "tc_int8_pv_d32": (1, 4, 2, 70, 90, 32, ROW8, CH8, BF16, masking.FULL,
+                       QQ),
+    "tc_dequant_d128": (1, 4, 2, 150, 150, 128, ROW8C, ROW8C, BF16,
+                        masking.CAUSAL, {}),
+    "tc_dequant_d256": (1, 2, 1, 100, 130, 256, ROW8C, ROW8C, BF16,
+                        masking.CAUSAL, {}),
+    "tc_quantize_q_row_d256": (1, 2, 1, 100, 130, 256, ROW8, ROW8, BF16,
+                               masking.CAUSAL, QQ),
+    "tc_int8_pv_int4_v_d256": (1, 2, 1, 100, 200, 256, ROW8, CH4, BF16,
+                               masking.FULL, QQ),
+    "tc_folded_row_d96": (1, 4, 2, 130, 130, 96, ROW8, ROW8, BF16,
+                          masking.CAUSAL, {}),
 }
 
 
@@ -618,6 +653,8 @@ def test_quantized_attention_kernels_reject_what_they_do_not_take(
         qa.qattn_fwd(qin, qs, kd, vd, (kp[0][..., :8], kp[1]), vp, rr, **kw)
     with pytest.raises(TypeError):  # an int8 Q without its scales
         qa.qattn_fwd(qin.to(torch.int8), None, kd, vd, kp, vp, rr, **kw)
+    with pytest.raises(TypeError):  # a bf16 Q whose products stay fp32
+        qa.qattn_fwd(qin.to(torch.bfloat16), qs, kd, vd, kp, vp, rr, **kw)
     with pytest.raises(ValueError):  # q on the CPU, payloads on the card
         qa.check_qattn_inputs("qattn_fwd", qin.cpu(), qs, kd, vd, kp, vp,
                               rr, None, kw["mode"])
@@ -1064,6 +1101,23 @@ QA_GEMM_CASES = {
                                 256),
 }
 
+# The tensor-core tile (bf16 B) at its ragged edges: M = 1 and 128, K not a
+# multiple of 32 (and of 16: element loads), N not a multiple of 8 (element
+# loads, odd N), int4 A with BLOCK cells, and both of its tile shapes
+# (64 x 128 for the small ones; 128 x 128 at M = 1100, N = 4104, two CTAs
+# for each SM).  Same fields as QA_GEMM_CASES.
+QA_TC_CASES = {
+    "m1": (8, "row", "asymmetric", None, BF16, 1, 200, 256),
+    "m128_block128": (8, "block", "centered", 128, BF16, 128, 1000, 1024),
+    "k200": (8, "row", "asymmetric", None, BF16, 300, 200, 200),
+    "k272_tensor": (8, "tensor", "centered", None, BF16, 130, 136, 272),
+    "odd_n": (8, "row", "asymmetric", None, BF16, 70, 99, 96),
+    "int4_block64": (4, "block", "centered", 64, BF16, 130, 70, 512),
+    "wide_k528": (8, "row", "asymmetric", None, BF16, 1100, 4104, 528),
+    "wide_int4_n4100": (4, "row", "asymmetric", None, BF16, 600, 4100,
+                        512),
+}
+
 
 def _t(rng, device, *shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(
@@ -1101,6 +1155,34 @@ def test_qa_gemm_kernels_match_plain(cuda_device, name):
         assert _rel(got.cpu(), want) <= TOLERANCES["fp32"]
     else:
         assert _bf16_close(got.cpu().float(), want.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(QA_TC_CASES))
+def test_qa_tensor_core_tile_ragged_edges_match_plain(cuda_device, name):
+    """``qa_tc_kernel`` against the plain version on the same arguments at
+    the fp32 gate (TOLERANCES["fp32"] of its max abs), and
+    ``quantized_matmul_qa`` on the card returning exactly that result
+    rounded to B's dtype.  (The kernel sums k on the tensor cores, in
+    another order than the CPU's plain version, so a result near 0 can
+    round to another bf16 value than the CPU's: the one-ulp comparison
+    of test_qa_gemm_kernels_match_plain holds only by chance there.)"""
+    bits, gran, strategy, bs, bdtype, m, n, k = QA_TC_CASES[name]
+    rng = np.random.default_rng(m + n + k + bits)
+    aq = quantize(_t(rng, cuda_device, m, k), _qcfg(
+        bits=bits, gran=gran, strategy=strategy, block_size=bs))
+    b = _t(rng, cuda_device, k, n).to(bdtype)
+    folded, args, kw = qg.qa_arguments(aq, b)
+    assert not folded and qg.qa_gemm_body(args[1].dtype) == "tensor_core"
+    n0 = qg.qa_gemm.launches
+    out = qg.qa_gemm(*args, **kw)
+    torch.cuda.synchronize()
+    assert qg.qa_gemm.launches == n0 + 1
+    ref = qg.qa_gemm_plain(*args, **kw)
+    assert out.dtype == F32 and out.shape == (m, n)
+    assert _rel(out, ref) <= TOLERANCES["fp32"]
+    got = qg.quantized_matmul_qa(aq, b)
+    assert got.dtype == bdtype and torch.equal(got, out.to(bdtype))
 
 
 COMP_GEMM_CASES = {

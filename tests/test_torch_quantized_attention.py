@@ -463,3 +463,34 @@ def test_differentiable_wrapper_forward_and_backward_raise():
     jdq = np.asarray(jdq)
     err = np.abs(tq.grad.numpy() - jdq).max() / np.abs(jdq).max()
     assert err <= TOLERANCES["fp32"]
+
+
+# name: (K config, V config, Q dtype, options, the body qattn_fwd runs).
+BODIES = {
+    "bf16_dequant_row": (ROW8C, ROW8C, "bf16", {}, "tensor_core"),
+    "bf16_folded_tensor": (TEN8, CH8, "bf16", {}, "tensor_core"),
+    "bf16_block2d_int4": (B2D, B2D, "bf16", {}, "tensor_core"),
+    "int8_q_row": (ROW8, ROW8, "bf16", dict(quantize_q=True), "tensor_core"),
+    "int8_q_int8_p": (ROW8, CH8, "bf16", dict(quantize_q=True),
+                      "tensor_core"),
+    "f32_dequant_row": (ROW8C, ROW8C, "f32", {}, "fp32_fma"),
+    "f32_quantize_q": (ROW8, CH4, "f32", dict(quantize_q=True), "fp32_fma"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BODIES))
+def test_kernel_body_follows_q_dtype_and_mode(name):
+    """``qattn_body`` routes as the C interface does: the tensor-core body
+    for a bf16 or int8 Q whose products round to bf16, the fp32-FMA body
+    for an fp32 Q (``quantize_q`` makes it int8 but keeps the compute dtype
+    fp32, so P stays unrounded), and for the head-pair kernel whatever its
+    Q."""
+    kcfg, vcfg, qdtype, opts, want = BODIES[name]
+    _, (tq, tk, tv) = _inputs(np.random.default_rng(3), 1, 2, 1, 64, 64, 64,
+                              kcfg, vcfg, qdtype)
+    args, kw = tqa.qattn_arguments(tq, tk, tv, **opts)
+    assert args[0].dtype == (torch.int8 if opts else tq.dtype)
+    assert kw["mode"].round_bf16 == (tq.dtype != torch.float32)
+    assert tqa.qattn_body(args[0].dtype, kw["mode"]) == want
+    assert tqa.qattn_body(args[0].dtype, kw["mode"],
+                          packed=True) == "fp32_fma"
