@@ -136,9 +136,10 @@ checkout, then, on the card:
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
-Phases 10 (f) and 13 (c) log which body the quantized forward and the
-quantized-A GEMM run (``qattn_body``, ``qa_gemm_body``: tensor cores or
-fp32 FMAs).
+Phases 10 (f), 13 (c), 8, 11 (d) and 12 (h) log which body the quantized
+forward, the quantized-A GEMMs (folded and dequantizing) and the dK/dV
+kernels run (``qattn_body``, ``qa_gemm_body``, ``dkv_body``: tensor cores
+or fp32 FMAs).
 
 ``--parent DIR`` (a checkout of the parent commit, e.g. ``git archive``
 into a directory ``.gitignore`` lists) also builds DIR's kernels, at once
@@ -221,6 +222,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     row_ranges_tensor,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
+    dkv_body,
     flash_attention_dkv_plain,
     flash_attention_dq_plain,
     flash_dkv,
@@ -373,7 +375,7 @@ RTQ_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
               "runtime_quantization.cu")
 QATTN_TPU = "metal_flash_attention_plus_tpu/ops/quantized_attention.py"
 RTQ_TPU = "metal_flash_attention_plus_tpu/ops/runtime_quantization.py"
-# What the record says of the two kernels moved onto the tensor cores.
+# What the record says of the kernels moved onto the tensor cores.
 REDESIGNED = ("mma.sync tensor-core body for its bf16 (and int8) instances, "
               "cp.async staging")
 QBWD_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
@@ -1029,6 +1031,9 @@ def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
         t["ms_2"] = time_ms(kernel, 10, warmup=0)
         t["library_ms"] = library["fwd" if name == "flash_fwd" else "bwd"]
         t["bound_ms"], t["bound_by"] = bound_of(*work[name])
+        if name == "flash_dkv":
+            t["body"] = dkv_body(q.dtype, d)
+            log(f"flash_dkv at D={d} runs the {t['body']} body")
         parent_turns(f"{name} B={b} S={s} D={d}", t, kernel, 10)
         times[name] = t
         log(f"{name} times at B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
@@ -2148,6 +2153,9 @@ def time_quantized_backward(ns_args, qat_inputs):
                        + 4 * b * h * s + 4 * b * h * d + 4 * n_q + stats
                        + 8 * s)),
     }
+    times["qflash_dkv"]["body"] = dkv_body(e_dkv[0].dtype, d)
+    log(f"qflash_dkv at the north-star (D={d}) runs the "
+        f"{times['qflash_dkv']['body']} body")
     del lib, kd, vd, args, f_dq, f_dkv, e_dq, e_dkv, fwd_a
     # K1/K2 in QAT's mode at the flagship's attention shapes (causal).
     q, k, v, do = qat_inputs
@@ -2177,6 +2185,9 @@ def time_quantized_backward(ns_args, qat_inputs):
                                   + 8 * s))
         times[name].update({f"{key}_qat_mode": t[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms")})
+    times["qflash_dkv"]["body_qat_mode"] = dkv_body(e_dkv[0].dtype, d)
+    log(f"qflash_dkv in QAT's mode (D={d}) runs the "
+        f"{times['qflash_dkv']['body_qat_mode']} body")
     return times
 
 
@@ -2880,8 +2891,8 @@ def time_gemm_kernels(rng):
         for m, n, k in GEMM_SHAPES:
             _, (a, b) = gemm_arm(arm, m, n, k, g)
             kernel, plain, args, kw = gemm_kernel_pair(a, b)
-            if kernel is qa_gemm:
-                log(f"qa_gemm at M={m} runs the "
+            if kernel in (qa_gemm, qa_folded_gemm):
+                log(f"{name} at M={m} runs the "
                     f"{qa_gemm_body(args[1].dtype)} tile")
             if name.startswith("qa"):
                 ad = dequantize(a).to(torch.bfloat16)
@@ -3124,6 +3135,8 @@ def main() -> int:
                for d in (80, 288)},
             **{f"{key}_mla_d288": mt[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **({"body": t["body"], "body_mla_d288": mt["body"],
+                "redesigned": REDESIGNED} if "body" in t else {}),
         })
     next(e for e in record["kernels"] if e["name"] == "flash_fwd")[
         "launches_mla_decompression"] = sum(
@@ -3240,6 +3253,8 @@ def main() -> int:
                        " dv together)",
             "shape": shape, **extra,
             **{k: v for k, v in t.items() if k.endswith("_qat_mode")},
+            **({"body": t["body"], "redesigned": REDESIGNED}
+               if "body" in t else {}),
         })
     wo_modes = {"wo_folded_gemm": (f"{GEMM_TPU}:235", "int8 ROW (WEIGHT_CFG)"),
                 "wo_gemm": (f"{GEMM_TPU}:196", "int8 BLOCK 128 CENTERED")}
@@ -3295,7 +3310,7 @@ def main() -> int:
             **({"parent_turns_ms": big["parent_turns_ms"]}
                if "parent_turns_ms" in big else {}),
             **({"body": qa_gemm_body(torch.bfloat16),
-                "redesigned": REDESIGNED} if name == "qa_gemm" else {}),
+                "redesigned": REDESIGNED} if name.startswith("qa") else {}),
         })
     record["gemm_engine"] = {
         "matmul_rel_l2": {k: v["rel_l2"] for k, v in gemm["matmul"].items()},

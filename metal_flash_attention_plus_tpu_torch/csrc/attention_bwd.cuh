@@ -11,6 +11,13 @@
 // P = exp(S - L), 0 where masked; dP = dO.V^T (x vsr); dS = P*(dP - D);
 // dbias = dS; dQ = round_T(dS (x ksr)).K x (dqsc or scale);
 // dV = round_T(P)^T.dO; dK = round_T(dS)^T.Q_s.
+//
+// Two dK/dV bodies: dkv_body, scalar fp32 FMAs over the transposed fp32
+// tiles (every fp32 instance, and bf16 at D = 288), and dkv_tc_body, bf16
+// mma.sync over bf16 tiles (the bf16 instances up to D = 256: dkv_tc says
+// which; ops/flash_attention_bwd.py::dkv_body gives the same answer).
+// fp32 stays off the tensor cores: TF32 keeps ~3 digits and the fp32
+// instances are held to 2e-5.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,8 +25,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_tiles.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace mfa {
 
@@ -179,6 +189,32 @@ __device__ __forceinline__ void dq_body(const BwdArgs& a, const KV& kv) {
   }
 }
 
+// The span [*s_rmin, *s_rmax] of query rows whose range meets keys
+// [c0, c_end); *s_rmax < 0 when none does.  Ends with a barrier.
+__device__ __forceinline__ void query_span(const int32_t* ranges, int Sq,
+                                           int Skv, int c0, int c_end,
+                                           int* s_rmin, int* s_rmax) {
+  if (threadIdx.x == 0) {
+    *s_rmin = INT_MAX;
+    *s_rmax = -1;
+  }
+  __syncthreads();
+  int rmin = INT_MAX, rmax = -1;
+  for (int r = threadIdx.x; r < Sq; r += blockDim.x) {
+    int st, en;
+    row_range(ranges, r, Sq, Skv, st, en);
+    if (en > st && st < c_end && en > c0) {
+      rmin = min(rmin, r);
+      rmax = max(rmax, r);
+    }
+  }
+  if (rmax >= 0) {
+    atomicMin(s_rmin, rmin);
+    atomicMax(s_rmax, rmax);
+  }
+  __syncthreads();
+}
+
 // dK / dV for one (64 keys, b, kv head): the CTA owns its tile's dK and dV
 // and walks the GQA group's q heads x the query rows whose range meets the
 // tile (their span), so the group reduction needs no atomics and no second
@@ -209,27 +245,7 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, const KV& kv) {
   const size_t bkv = (size_t)b * a.Hkv + hk;
   const int c_end = min(c0 + BN, Skv);
 
-  // The span of query rows whose range meets this key tile.
-  if (tid == 0) {
-    s_rmin = INT_MAX;
-    s_rmax = -1;
-  }
-  __syncthreads();
-  {
-    int rmin = INT_MAX, rmax = -1;
-    for (int r = tid; r < Sq; r += THREADS) {
-      int st, en;
-      row_range(a.ranges, r, Sq, Skv, st, en);
-      if (en > st && st < c_end && en > c0) {
-        rmin = min(rmin, r);
-        rmax = max(rmax, r);
-      }
-    }
-    if (rmax >= 0) {
-      atomicMin(&s_rmin, rmin);
-      atomicMax(&s_rmax, rmax);
-    }
-  }
+  query_span(a.ranges, Sq, Skv, c0, c_end, &s_rmin, &s_rmax);
   if (RESIDENT) {
     kv.stage(false, bkv, c0, Skv, kt);
     kv.stage(true, bkv, c0, Skv, vt);
@@ -327,6 +343,366 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, const KV& kv) {
     for (int e = 0; e < DV; ++e) {
       dkr[tx + 16 * e] = dk_acc[i][e];
       dvr[tx + 16 * e] = dv_acc[i][e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core dK/dV body (T = bf16, D <= 256)
+//
+// The grid, the walk and the numerics are dkv_body's: one CTA per (64 keys,
+// b, kv head) owns its dK and dV tile and walks the GQA group's q heads x
+// the span of query rows that meets its keys, 64 rows a step, no atomics.
+// Operands are bf16 row-major tiles [rows][D] in shared memory (rows padded
+// by 16 bytes, so ldmatrix's eight row addresses fall in distinct banks):
+// K and V resident (bf16 rows copied with cp.async, or payload bytes copied
+// with cp.async and dequantized there, as dkv_body's staging rounds them);
+// per step Q (then scaled and rounded to Q_s in place), dO and the rows'
+// L, D and key ranges arrive by cp.async into one of two buffers while the
+// other step computes.  The 4 * NS warps (NS = dkv_tc_split) take 16 keys
+// each:
+//   - S^T = K.Q_s^T and dP^T = V.dO^T by bf16 m16n8k16 into fp32, a warp
+//     its 16 keys x 64 / NS query columns (ldmatrix of both operands'
+//     rows: mma_nt);
+//   - P^T = exp(S^T + bias - L) (0 where masked; as exp2, which the
+//     element-wise steps' cost favours), dS^T = P^T (dP^T - D) on the
+//     fragments, in dkv_body's order;
+//   - dV += round_bf16(P^T).dO and dK += round_bf16(dS^T).Q_s by bf16
+//     m16n8k16 into fp32 accumulators, a warp its 16 keys x D / NS lanes,
+//     dO and Q_s read by ldmatrix.trans (mma_rn).  With NS = 1 (D <= 64)
+//     a warp's P^T / dS^T fragments are the A operand as they are (the C
+//     fragment of two m16n8 blocks is the A fragment of one m16n8k16):
+//     nothing goes through shared memory; with NS > 1 they pass through two
+//     bf16 [64][64] tiles.
+// Registers: the accumulators take 2 * 16 * D / NS fp32 a warp, 64 a
+// thread for D >= 64 (32 at D = 32); NS grows with D (1, 1, 2, 4 at D = 32,
+// 64, 128, 256) so they do not outgrow the 255 a thread.  The 4-warp CTAs
+// (D <= 64) are held to 170 registers, three an SM: the element-wise steps
+// and the products' latency, not the tensor cores, bound them.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__host__ __device__ constexpr int dkv_tc_split() {
+  return D <= 64 ? 1 : D / 64;
+}
+
+template <int D>
+__host__ __device__ constexpr int dkv_tc_threads() {
+  return 128 * dkv_tc_split<D>();
+}
+
+// CTAs an SM the body is compiled for (its __launch_bounds__): three 4-warp
+// CTAs at D <= 64 (<= 170 registers a thread), else one.
+template <int D>
+__host__ __device__ constexpr int dkv_tc_min_blocks() {
+  return D <= 64 ? 3 : 1;
+}
+
+// Whether the dK/dV of T at head dim D runs dkv_tc_body (else dkv_body).
+template <typename T, int D>
+__host__ __device__ constexpr bool dkv_tc() {
+  return std::is_same<T, __nv_bfloat16>::value && D <= 256;
+}
+
+// Byte offsets of dkv_tc_body's shared memory (~218 KB at D = 256).
+template <int D>
+struct DkvTcSmem {
+  static constexpr int NS = dkv_tc_split<D>();
+  static constexpr int ROW = 2 * D + 16;    // a bf16 row [.., D]
+  static constexpr int TILE = BN * ROW;     // 64 rows
+  static constexpr int P_LD = 2 * BM + 16;  // a P^T / dS^T row [key][64]
+  static constexpr int STATS = 4 * BM * 4;  // L [64], D [64], ranges [64][2]
+  static constexpr int K = 0;
+  static constexpr int V = TILE;
+  static constexpr int Q = 2 * TILE;   // two buffers
+  static constexpr int DO = 4 * TILE;  // two buffers
+  static constexpr int ST = 6 * TILE;  // two buffers
+  static constexpr int PS = ST + 2 * STATS;
+  static constexpr size_t BYTES = PS + (NS > 1 ? 2 * BN * P_LD : 0);
+};
+
+// cp.async rows [row0, row0 + 64) of a bf16 [rows, D] matrix into dst
+// (ROW bytes apart), NT threads; rows from `limit` are zeros.
+template <int D, int ROW, int NT>
+__device__ __forceinline__ void stage_rows_async(const __nv_bfloat16* src,
+                                                 int row0, int limit,
+                                                 uint8_t* dst) {
+  constexpr int CPR = 2 * D / 16;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < 64 * CPR; i += NT) {
+    const int r = i / CPR;
+    const int c = i % CPR;
+    const bool ok = row0 + r < limit;
+    cp_async16(dst + r * ROW + c * 16,
+               src + (size_t)(ok ? row0 + r : 0) * D + c * 8, ok ? 16 : 0);
+  }
+}
+
+// acc[j] += A[ar0, ar0 + 16) . B[br0 + 8j, br0 + 8j + 8)^T over 16 * KC
+// lanes: A and B bf16 row-major tiles whose rows hold k (A_LD, B_LD bytes
+// a row), both read by ldmatrix; NB even.
+template <int KC, int NB, int A_LD, int B_LD>
+__device__ __forceinline__ void mma_nt(const uint8_t* A, int ar0,
+                                       const uint8_t* B, int br0,
+                                       float (&acc)[NB][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint8_t* ap = A + (ar0 + ldsm_a_row(lane)) * A_LD + ldsm_a_byte(lane);
+  const uint8_t* bp = B + (br0 + ldsm_b_row(lane)) * B_LD + ldsm_b_byte(lane);
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    uint32_t af[4];
+    ldsm_x4(af, ap + kc * 32);
+#pragma unroll
+    for (int j2 = 0; j2 < NB / 2; ++j2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, bp + j2 * 16 * B_LD + kc * 32);
+      mma_bf16(acc[2 * j2], af, bf[0], bf[1], acc[2 * j2]);
+      mma_bf16(acc[2 * j2 + 1], af, bf[2], bf[3], acc[2 * j2 + 1]);
+    }
+  }
+}
+
+// acc[j] += A . B[k0, k0 + 16)[bc0 + 8j, bc0 + 8j + 8): A one m16n8k16 A
+// fragment (16 rows x 16 k), B a bf16 row-major tile [k][n] (B_LD bytes a
+// row) read by ldmatrix.trans; NB even.
+template <int NB, int B_LD>
+__device__ __forceinline__ void mma_rn(const uint32_t (&af)[4],
+                                       const uint8_t* B, int k0, int bc0,
+                                       float (&acc)[NB][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint8_t* bp =
+      B + (k0 + ldsm_t_k(lane)) * B_LD + (bc0 + ldsm_t_n(lane)) * 2;
+#pragma unroll
+  for (int n2 = 0; n2 < NB / 2; ++n2) {
+    uint32_t bf[4];
+    ldsm_x4_t(bf, bp + n2 * 32);
+    mma_bf16(acc[2 * n2], af, bf[0], bf[1], acc[2 * n2]);
+    mma_bf16(acc[2 * n2 + 1], af, bf[2], bf[3], acc[2 * n2 + 1]);
+  }
+}
+
+// Two C fragments (16 rows x columns [16 kc, 16 kc + 16): blocks 2 kc and
+// 2 kc + 1) rounded to bf16 as the A fragment of those rows with the
+// columns as k.
+template <int NB>
+__device__ __forceinline__ void c_to_a_bf16(const float (&c)[NB][4], int kc,
+                                            uint32_t (&af)[4]) {
+  af[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
+  af[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
+  af[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
+  af[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
+}
+
+// Q rows in place: x -> round_bf16(x * scale), as stage_t<T, D, true> rounds
+// them (bf16_bits gives cvt.rn's bits on the FP32 pipe); NT threads.
+template <int D, int ROW, int NT>
+__device__ __forceinline__ void scale_rows_bf16(uint8_t* tile, float scale) {
+  constexpr int CPR = 2 * D / 16;
+  for (int i = threadIdx.x; i < 64 * CPR; i += NT) {
+    uint4* p = reinterpret_cast<uint4*>(tile + (i / CPR) * ROW +
+                                        (i % CPR) * 16);
+    uint4 u = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lo = __fmul_rn(__uint_as_float(w[e] << 16), scale);
+      const float hi = __fmul_rn(__uint_as_float(w[e] & 0xFFFF0000u), scale);
+      w[e] = __byte_perm(bf16_bits(lo), bf16_bits(hi), 0x7632);
+    }
+    *p = u;
+  }
+}
+
+// The tensor-core dK/dV (see above).  KV gives tc_load<NT, ROW>(is_v, kv
+// head, t0, limit, dst, raw) (cp.async of the tile's 64 rows: bf16 rows
+// into dst, ROW bytes apart, or payload rows into the scratch `raw`, D
+// bytes apart) and tc_convert<NT, ROW>(...) (raw -> dst as bf16 rows;
+// nothing for bf16 rows); NT threads.
+template <int D, typename KV>
+__device__ __forceinline__ void dkv_tc_body(const BwdArgs& a, const KV& kv) {
+  using L = DkvTcSmem<D>;
+  constexpr int NS = L::NS;
+  constexpr int NT = dkv_tc_threads<D>();
+  constexpr int QW = BM / NS;  // query columns of a warp's S^T, dP^T
+  constexpr int NQB = QW / 8;
+  constexpr int DW = D / NS;  // dK / dV lanes a warp accumulates
+  constexpr int NDB = DW / 8;
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  __shared__ int s_rmin, s_rmax;
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int c0 = blockIdx.x * BN;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = a.Hq / a.Hkv;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kw = warp & 3;     // keys c0 + 16 kw + [0, 16)
+  const int part = warp >> 2;  // query columns / lanes part * QW, part * DW
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bkv = (size_t)b * a.Hkv + hk;
+  uint8_t* sk = smem_tc + L::K;
+  uint8_t* sv = smem_tc + L::V;
+
+  // K and V (their payloads into the second Q / dO buffers), then step 0.
+  kv.template tc_load<NT, L::ROW>(false, bkv, c0, Skv, sk,
+                                 smem_tc + L::Q + L::TILE);
+  kv.template tc_load<NT, L::ROW>(true, bkv, c0, Skv, sv,
+                                 smem_tc + L::DO + L::TILE);
+  cp_async_commit();
+  query_span(a.ranges, Sq, Skv, c0, min(c0 + BN, Skv), &s_rmin, &s_rmax);
+  const int row_lo = s_rmin;
+  const int row_hi = s_rmax + 1;
+  const int tiles = row_hi > row_lo ? (row_hi - row_lo + BM - 1) / BM : 0;
+  const int steps = group * tiles;
+  auto head_of = [&](int it) {
+    const int gi = it / tiles;
+    return a.interleaved ? gi * a.Hkv + hk : hk * group + gi;
+  };
+  auto prefetch = [&](int it, int buf) {
+    const size_t bh = (size_t)b * a.Hq + head_of(it);
+    const int r0 = row_lo + (it % tiles) * BM;
+    stage_rows_async<D, L::ROW, NT>(
+        static_cast<const __nv_bfloat16*>(a.q) + bh * Sq * D, r0, row_hi,
+        smem_tc + L::Q + buf * L::TILE);
+    stage_rows_async<D, L::ROW, NT>(
+        static_cast<const __nv_bfloat16*>(a.dout) + bh * Sq * D, r0, row_hi,
+        smem_tc + L::DO + buf * L::TILE);
+    // L, D and the key ranges of rows [r0, r0 + 64): zeros from row_hi.
+    float* st = reinterpret_cast<float*>(smem_tc + L::ST + buf * L::STATS);
+    for (int i = threadIdx.x; i < 4 * BM; i += NT) {
+      const int r = r0 + (i < 2 * BM ? i % BM : (i - 2 * BM) / 2);
+      const bool ok = r < row_hi;
+      const float* src =
+          i < BM ? a.lse + bh * Sq + r
+          : i < 2 * BM ? a.di + bh * Sq + r
+                       : reinterpret_cast<const float*>(a.ranges) + 2 * r +
+                             (i & 1);
+      cp_async4(st + i, ok ? src : a.lse, ok ? 4 : 0);
+    }
+  };
+  if (steps > 0) prefetch(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // K and V's rows landed
+  kv.template tc_convert<NT, L::ROW>(false, bkv, c0, Skv, sk,
+                                    smem_tc + L::Q + L::TILE);
+  kv.template tc_convert<NT, L::ROW>(true, bkv, c0, Skv, sv,
+                                    smem_tc + L::DO + L::TILE);
+
+  float dk[NDB][4], dv[NDB][4];
+#pragma unroll
+  for (int j = 0; j < NDB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // step it staged, K and V converted; step it - 1 done
+    if (it + 1 < steps) prefetch(it + 1, buf ^ 1);
+    cp_async_commit();
+    uint8_t* sq = smem_tc + L::Q + buf * L::TILE;
+    const uint8_t* sdo = smem_tc + L::DO + buf * L::TILE;
+    const float* st =
+        reinterpret_cast<const float*>(smem_tc + L::ST + buf * L::STATS);
+    scale_rows_bf16<D, L::ROW, NT>(sq, a.scale);
+    __syncthreads();  // Q_s ready
+
+    const int h = head_of(it);
+    const int r0 = row_lo + (it % tiles) * BM;
+    const float* bh_bias =
+        a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+    float s[NQB][4], dp[NQB][4];
+#pragma unroll
+    for (int j = 0; j < NQB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_nt<D / 16, NQB, L::ROW, L::ROW>(sk, 16 * kw, sq, part * QW, s);
+    mma_nt<D / 16, NQB, L::ROW, L::ROW>(sv, 16 * kw, sdo, part * QW, dp);
+
+    // P^T and dS^T: element (key 16 kw + g + 8i, query column qc + c) at
+    // [j][2i + c], in dkv_body's order; exp(S - L) as exp2 of
+    // S log2(e) - L log2(e) (the argument rounded once more: ~1e-6 of P,
+    // far below its bf16 rounding), live where key - start < end - start.
+#pragma unroll
+    for (int j = 0; j < NQB; ++j) {
+      const int qc = part * QW + 8 * j + 2 * tq;
+      const float2 lv = *reinterpret_cast<const float2*>(st + qc);
+      const float2 dv2 = *reinterpret_cast<const float2*>(st + BM + qc);
+      const int4 rg = *reinterpret_cast<const int4*>(st + 2 * BM + 2 * qc);
+      const float l2[2] = {lv.x == -INFINITY ? 0.f : lv.x * LOG2E,
+                           lv.y == -INFINITY ? 0.f : lv.y * LOG2E};
+      const float dq[2] = {dv2.x, dv2.y};
+      const int rs[2] = {rg.x, rg.z};
+      const unsigned span[2] = {(unsigned)max(min(rg.y, Skv) - rg.x, 0),
+                                (unsigned)max(min(rg.w, Skv) - rg.z, 0)};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = c0 + 16 * kw + g + 8 * i;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int row = r0 + qc + c;
+          float x = s[j][2 * i + c];
+          if (bh_bias && row < row_hi && key < Skv)
+            x += bh_bias[(size_t)row * Skv + key];
+          const bool live = (unsigned)(key - rs[c]) < span[c];
+          const float p = live ? exp2f(fmaf(x, LOG2E, -l2[c])) : 0.f;
+          s[j][2 * i + c] = p;
+          dp[j][2 * i + c] = p * (dp[j][2 * i + c] - dq[c]);
+        }
+      }
+    }
+
+    // dV += round_bf16(P^T).dO, dK += round_bf16(dS^T).Q_s, 16 queries a
+    // step: the A fragments from the warp's own C fragments (NS = 1) or
+    // from the CTA's P^T and dS^T tiles.
+    uint8_t* ps = smem_tc + L::PS;
+    uint8_t* dss = ps + BN * L::P_LD;
+    if constexpr (NS > 1) {
+#pragma unroll
+      for (int j = 0; j < NQB; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int off = (16 * kw + g + 8 * i) * L::P_LD +
+                          (part * QW + 8 * j + 2 * tq) * 2;
+          *reinterpret_cast<uint32_t*>(ps + off) =
+              pack_bf16(s[j][2 * i], s[j][2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(dss + off) =
+              pack_bf16(dp[j][2 * i], dp[j][2 * i + 1]);
+        }
+      __syncthreads();  // the CTA's P^T and dS^T tiles
+    }
+    const int a_off =
+        (16 * kw + ldsm_a_row(lane)) * L::P_LD + ldsm_a_byte(lane);
+#pragma unroll
+    for (int kc = 0; kc < BM / 16; ++kc) {
+      uint32_t pa[4], dsa[4];
+      if constexpr (NS == 1) {
+        c_to_a_bf16(s, kc, pa);
+        c_to_a_bf16(dp, kc, dsa);
+      } else {
+        ldsm_x4(pa, ps + a_off + kc * 32);
+        ldsm_x4(dsa, dss + a_off + kc * 32);
+      }
+      mma_rn<NDB, L::ROW>(pa, sdo, 16 * kc, part * DW, dv);
+      mma_rn<NDB, L::ROW>(dsa, sq, 16 * kc, part * DW, dk);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = c0 + 16 * kw + g + 8 * i;
+    if (key >= Skv) continue;
+    float* dkr = a.out0 + (bkv * Skv + key) * D + part * DW + 2 * tq;
+    float* dvr = a.out1 + (bkv * Skv + key) * D + part * DW + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NDB; ++j) {
+      *reinterpret_cast<float2*>(dkr + 8 * j) =
+          make_float2(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<float2*>(dvr + 8 * j) =
+          make_float2(dv[j][2 * i], dv[j][2 * i + 1]);
     }
   }
 }

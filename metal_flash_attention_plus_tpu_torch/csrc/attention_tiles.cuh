@@ -138,4 +138,15 @@ cudaError_t set_smem(K kern, size_t bytes) {
                               (int)bytes);
 }
 
+// kern<<<grid, threads, smem, stream>>>(args...) with its dynamic shared
+// memory allowed; returns the launch's cudaError_t.
+template <typename K, typename... Args>
+int launch_with_smem(K kern, dim3 grid, int threads, size_t smem,
+                     cudaStream_t stream, const Args&... args) {
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace mfa

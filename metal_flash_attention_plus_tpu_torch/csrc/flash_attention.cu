@@ -55,7 +55,10 @@
 //     atomics and no second pass.  K^T and V^T stay resident for D <= 128;
 //     at D = 256 they share one buffer, restaged per query tile, to keep
 //     shared memory under 227 KB; at D = 288 Q_s^T and dO^T share one too
-//     (dQ likewise restages Q_s^T and dO^T per key tile there).
+//     (dQ likewise restages Q_s^T and dO^T per key tile there).  The bf16
+//     instances up to D = 256 run the same grid and walk on the tensor
+//     cores instead (flash_dkv_tc_kernel: attention_bwd.cuh::dkv_tc_body,
+//     bf16 mma.sync over bf16 tiles, K and V resident at every width).
 //   Head dims: the kernels are built for D = 32, 64, 128, 256 and 288
 //   (MLAConfig's latent width d_c + d_r); the wrappers run any other
 //   multiple of 16 up to 288 at the next of these, its Q/K/V/dO lanes
@@ -84,6 +87,7 @@ using mfa::THREADS;
 using mfa::accumulate_pm;
 using mfa::key_span;
 using mfa::row_range;
+using mfa::launch_with_smem;
 using mfa::set_smem;
 using mfa::stage_t;
 using mfa::store_t;
@@ -223,6 +227,18 @@ struct FloatKV {
     stage_t<T, D, false>((is_v ? v : k) + head * Skv * D, t0, limit, dst,
                          0.f);
   }
+  // dkv_tc_body's staging (T = bf16): the rows as they are, by cp.async.
+  template <int NT, int ROW>
+  __device__ __forceinline__ void tc_load(bool is_v, size_t head, int t0,
+                                          int limit, uint8_t* dst,
+                                          uint8_t*) const {
+    mfa::stage_rows_async<D, ROW, NT>((is_v ? v : k) + head * Skv * D, t0,
+                                      limit, dst);
+  }
+  template <int NT, int ROW>
+  __device__ __forceinline__ void tc_convert(bool, size_t, int, int,
+                                             uint8_t*,
+                                             const uint8_t*) const {}
 };
 
 // Replaces ops/flash_attention_bwd.py::_dq_kernel.  Bound: operations
@@ -234,11 +250,20 @@ flash_dq_kernel(const BwdArgs a, const FloatKV<T, D> kv) {
 }
 
 // Replaces ops/flash_attention_bwd.py::_dkv_kernel.  Bound: operations
-// (8*D per live pair: S, dP, dV, dK).
+// (8*D per live pair: S, dP, dV, dK).  The fp32 instances and bf16 at
+// D = 288; the other bf16 ones take flash_dkv_tc_kernel (mfa::dkv_tc).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const BwdArgs a, const FloatKV<T, D> kv) {
   mfa::dkv_body<T, D>(a, kv);
+}
+
+// The same on the tensor cores: bf16 up to D = 256 (attention_bwd.cuh).
+template <int D>
+__global__ void __launch_bounds__(mfa::dkv_tc_threads<D>(),
+                           mfa::dkv_tc_min_blocks<D>())
+flash_dkv_tc_kernel(const BwdArgs a, const FloatKV<__nv_bfloat16, D> kv) {
+  mfa::dkv_tc_body<D>(a, kv);
 }
 
 // ---------------------------------------------------------------------------
@@ -282,15 +307,20 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                   sp.interleaved, scale};
   const FloatKV<T, D> kv{static_cast<const T*>(k), static_cast<const T*>(v),
                          sp.Skv};
-  const size_t smem = (DQ ? mfa::dq_smem_floats<D>()
-                          : mfa::dkv_smem_floats<D>()) * sizeof(float);
-  auto kern = DQ ? &flash_dq_kernel<T, D> : &flash_dkv_kernel<T, D>;
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = DQ ? (sp.Sq + BM - 1) / BM : (sp.Skv + BN - 1) / BN;
-  kern<<<dim3(tiles, DQ ? sp.Hq : sp.Hkv, sp.B), THREADS, smem, stream>>>(a,
-                                                                          kv);
-  return (int)cudaGetLastError();
+  const dim3 grid(DQ ? (sp.Sq + BM - 1) / BM : (sp.Skv + BN - 1) / BN,
+                  DQ ? sp.Hq : sp.Hkv, sp.B);
+  if constexpr (DQ)
+    return launch_with_smem(flash_dq_kernel<T, D>, grid, THREADS,
+                            mfa::dq_smem_floats<D>() * sizeof(float), stream,
+                            a, kv);
+  else if constexpr (mfa::dkv_tc<T, D>())
+    return launch_with_smem(flash_dkv_tc_kernel<D>, grid,
+                            mfa::dkv_tc_threads<D>(), mfa::DkvTcSmem<D>::BYTES,
+                            stream, a, kv);
+  else
+    return launch_with_smem(flash_dkv_kernel<T, D>, grid, THREADS,
+                            mfa::dkv_smem_floats<D>() * sizeof(float), stream,
+                            a, kv);
 }
 
 template <typename T, int D>

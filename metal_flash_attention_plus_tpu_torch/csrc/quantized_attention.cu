@@ -455,24 +455,6 @@ struct Walk {
   }
 };
 
-// cp.async payload rows [t0, t0 + 64) of kv head `head` into dst (rows
-// RAW_LD bytes apart); rows from `limit` are zeros.
-template <int D, int RAW_LD>
-__device__ __forceinline__ void stage_raw(const uint8_t* pay, int bits,
-                                          size_t head, int Skv, int t0,
-                                          int limit, uint8_t* dst) {
-  const int row_bytes = bits == 8 ? D : D / 2;
-  const int cpr = row_bytes / 16;  // chunks a row: a power of 2, <= 16
-  const int c = threadIdx.x % cpr;
-  const uint8_t* src = pay + head * Skv * row_bytes + c * 16;
-  dst += c * 16;
-  for (int r = threadIdx.x / cpr; r < BN; r += TC_THREADS / cpr) {
-    const bool ok = t0 + r < limit;
-    mfa::cp_async16(dst + r * RAW_LD,
-                    src + (size_t)(ok ? t0 + r : 0) * row_bytes, ok ? 16 : 0);
-  }
-}
-
 // cp.async the per-token vectors of keys [t0, t0 + 64) of kv head `head`
 // that the mode reads into tok[v * BN + r]; zeros from `limit`.
 __device__ __forceinline__ void stage_tok(const Args& a, size_t head, int t0,
@@ -686,11 +668,13 @@ __global__ void __launch_bounds__(TC_THREADS)
   const KVOperand vop_d{a.vq, a.vs, a.vz, a.bits_v, a.v_scales};
   auto prefetch = [&](const Walk& w, int buf) {
     stage_tok(a, bk, w.t0, c_hi, tok + buf * TOK_VECS * BN);
-    stage_raw<D, L::RAW_LD>(a.kq, a.bits_k, bk, a.Skv, w.t0, c_hi,
-                            kraw + buf * BN * L::RAW_LD);
+    mfa::stage_raw<D, L::RAW_LD, TC_THREADS>(a.kq, a.bits_k, bk, a.Skv,
+                                             w.t0, c_hi,
+                                             kraw + buf * BN * L::RAW_LD);
     if (w.pass == 1)
-      stage_raw<D, L::RAW_LD>(a.vq, a.bits_v, bk, a.Skv, w.t0, c_hi,
-                              vraw + buf * BN * L::RAW_LD);
+      mfa::stage_raw<D, L::RAW_LD, TC_THREADS>(a.vq, a.bits_v, bk, a.Skv,
+                                               w.t0, c_hi,
+                                               vraw + buf * BN * L::RAW_LD);
   };
 
   Walk w(a.kv_span, s_lo, c_hi);

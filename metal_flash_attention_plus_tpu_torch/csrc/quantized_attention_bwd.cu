@@ -21,6 +21,9 @@
 //     dequantized (per token, per BLOCK_2D block or per channel) and rounded
 //     to T as it is staged, then used with the unfolded Q (scaled by `scale`
 //     and rounded here) and dO; the group reduction happens in the kernel.
+//     bf16 runs on the tensor cores (qflash_dkv_tc_kernel: dkv_tc_body, the
+//     payload rows copied by cp.async and dequantized in shared memory),
+//     fp32 on the scalar body.
 //
 // The full-integer pair takes per-token int8 Q (Q*scale quantized, scales
 // qsc [B, Hq, Sq], times a TENSOR K scale) and int8 dO twice: dO itself
@@ -51,7 +54,8 @@
 //   versions take the flash kernels' shape (one CTA per 64 query rows or 64
 //   keys, 256 threads, 4 x 4 outputs each) with __dp4a for the int8
 //   products and scalar fp32 FMAs for the rest, so they sit far from that
-//   bound; wgmma (s8 and bf16) is later work.  The payloads are widened
+//   bound; the bf16 exact dK/dV runs bf16 mma.sync (dkv_tc_body), the rest
+//   awaits mma.sync / wgmma (s8 and bf16).  The payloads are widened
 //   while they are staged into shared memory, so device memory sees only
 //   the integer bytes.
 
@@ -76,7 +80,7 @@ using mfa::THREADS;
 using mfa::accumulate_pm;
 using mfa::byte_of;
 using mfa::round_bf16;
-using mfa::set_smem;
+using mfa::launch_with_smem;
 using mfa::stage_kv;
 using mfa::stage_words;
 using mfa::store_t;
@@ -97,6 +101,22 @@ struct QuantKV {
                                         int limit, float* dst) const {
     stage_kv<D>(is_v ? v : k, head, Skv, br, bs, rb, t0, limit, dst);
   }
+  // dkv_tc_body's staging (bf16): the payload rows by cp.async into `raw`,
+  // then dequantized and rounded to bf16 rows there, as stage_kv rounds.
+  template <int NT, int ROW>
+  __device__ __forceinline__ void tc_load(bool is_v, size_t head, int t0,
+                                          int limit, uint8_t*,
+                                          uint8_t* raw) const {
+    const KVOperand& op = is_v ? v : k;
+    mfa::stage_raw<D, D, NT>(op.pay, op.bits, head, Skv, t0, limit, raw);
+  }
+  template <int NT, int ROW>
+  __device__ __forceinline__ void tc_convert(bool is_v, size_t head, int t0,
+                                             int limit, uint8_t* dst,
+                                             const uint8_t* raw) const {
+    mfa::dequant_rows_bf16<D, D, NT>(is_v ? v : k, raw, head, Skv, br, bs,
+                                     t0, limit, dst, ROW);
+  }
 };
 
 // Replaces _dq_kernel's quantized modes.  Bound: operations (6*D per live
@@ -108,11 +128,19 @@ qflash_dq_kernel(const BwdArgs a, const QuantKV<D> kv) {
 }
 
 // Replaces _dkv_kernel's quantized modes.  Bound: operations (8*D per live
-// pair).
+// pair).  The fp32 instances; bf16 takes qflash_dkv_tc_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 qflash_dkv_kernel(const BwdArgs a, const QuantKV<D> kv) {
   mfa::dkv_body<T, D>(a, kv);
+}
+
+// The same on the tensor cores (attention_bwd.cuh::dkv_tc_body), bf16.
+template <int D>
+__global__ void __launch_bounds__(mfa::dkv_tc_threads<D>(),
+                           mfa::dkv_tc_min_blocks<D>())
+qflash_dkv_tc_kernel(const BwdArgs a, const QuantKV<D> kv) {
+  mfa::dkv_tc_body<D>(a, kv);
 }
 
 // ---------------------------------------------------------------------------
@@ -458,35 +486,35 @@ fullint_dkv_kernel(const FullintArgs a) {
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <typename K, typename... Args>
-int launch(K kern, dim3 grid, size_t smem, cudaStream_t stream,
-           const Args&... args) {
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, THREADS, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int D>
 int launch_qflash(bool dq, const BwdArgs& a, const QuantKV<D>& kv, int B,
                   cudaStream_t stream) {
   if (dq)
-    return launch(qflash_dq_kernel<T, D>,
-                  dim3((a.Sq + BM - 1) / BM, a.Hq, B),
-                  mfa::dq_smem_floats<D>() * sizeof(float), stream, a, kv);
-  return launch(qflash_dkv_kernel<T, D>,
-                dim3((a.Skv + BN - 1) / BN, a.Hkv, B),
-                mfa::dkv_smem_floats<D>() * sizeof(float), stream, a, kv);
+    return launch_with_smem(qflash_dq_kernel<T, D>,
+                            dim3((a.Sq + BM - 1) / BM, a.Hq, B), THREADS,
+                            mfa::dq_smem_floats<D>() * sizeof(float), stream,
+                            a, kv);
+  const dim3 grid((a.Skv + BN - 1) / BN, a.Hkv, B);
+  if constexpr (mfa::dkv_tc<T, D>())
+    return launch_with_smem(qflash_dkv_tc_kernel<D>, grid,
+                            mfa::dkv_tc_threads<D>(), mfa::DkvTcSmem<D>::BYTES,
+                            stream, a, kv);
+  else
+    return launch_with_smem(qflash_dkv_kernel<T, D>, grid, THREADS,
+                            mfa::dkv_smem_floats<D>() * sizeof(float), stream,
+                            a, kv);
 }
 
 template <int D>
 int launch_fullint(bool dq, const FullintArgs& a, int B,
                    cudaStream_t stream) {
   if (dq)
-    return launch(fullint_dq_kernel<D>, dim3((a.Sq + BM - 1) / BM, a.Hq, B),
-                  fullint_dq_smem_bytes<D>(), stream, a);
-  return launch(fullint_dkv_kernel<D>, dim3((a.Skv + BN - 1) / BN, a.Hkv, B),
-                fullint_dkv_smem_bytes<D>(), stream, a);
+    return launch_with_smem(fullint_dq_kernel<D>,
+                            dim3((a.Sq + BM - 1) / BM, a.Hq, B), THREADS,
+                            fullint_dq_smem_bytes<D>(), stream, a);
+  return launch_with_smem(fullint_dkv_kernel<D>,
+                          dim3((a.Skv + BN - 1) / BN, a.Hkv, B), THREADS,
+                          fullint_dkv_smem_bytes<D>(), stream, a);
 }
 
 bool valid_bits(int bits) { return bits == 8 || bits == 4; }

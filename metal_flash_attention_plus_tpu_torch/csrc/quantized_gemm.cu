@@ -7,7 +7,7 @@
 //   - ops/quantized_gemm.py::_dyn_kernel        -> dyn_gemm_kernel
 //   - ops/quantized_gemm.py::_wo_folded_kernel  -> wo_folded_kernel
 //   - ops/quantized_gemm.py::_wo_kernel         -> wo_kernel
-//   - ops/quantized_gemm.py::_qa_folded_kernel  -> qa_folded_kernel
+//   - ops/quantized_gemm.py::_qa_folded_kernel  -> qa_tc_kernel (folded)
 //   - ops/quantized_gemm.py::_qa_kernel         -> qa_tc_kernel (bf16 B),
 //                                                   qa_kernel (fp32 B)
 //   - ops/quantized_gemm.py::_comp_kernel       -> comp_kernel
@@ -411,20 +411,20 @@ wo_kernel(const AT* __restrict__ a, const void* __restrict__ w,
 // ---------------------------------------------------------------------------
 // Quantized-A GEMMs: out [M, N] fp32 = A x B, A the payload [M, K] int8 or
 // [M, K/2] uint8 group-planar int4 (read as weight_at reads a weight), B a
-// float [K, N].  The transposes of the weight-only pair, on the same tile
-// body, with the quantized operand on the A side:
+// float [K, N]:
 //
-//   - qa_folded_kernel (the TPU's _qa_folded_kernel: SYMMETRIC TENSOR / ROW
-//     A, a non-fp32 B cast to bf16 by the wrapper): acc = sum_k q * b over
-//     the integers, exact products summed in fp32; out = acc * s[m] (a
-//     TENSOR scale repeated over M by the wrapper), rounded once;
-//   - qa_kernel (the TPU's _qa_kernel: every other A, or an fp32 B): each A
-//     element dequantized by dequant_at with TENSOR, ROW (per m) or BLOCK
-//     (per k) cells and rounded to B's type BT (the compute type), then
-//     acc = sum_k deq * b in fp32; out = acc.  A bf16 B (the compute type
-//     bf16) takes qa_tc_kernel below, the same function on the tensor
-//     cores; an fp32 B stays on this scalar tile (TF32 would break its
-//     fp32 gate).
+//   - the TPU's _qa_folded_kernel (SYMMETRIC TENSOR / ROW A, a non-fp32 B
+//     cast to bf16 by the wrapper): acc = sum_k q * b over the integers,
+//     exact products summed in fp32; out = acc * s[m] (a TENSOR scale
+//     repeated over M by the wrapper), rounded once.  qa_tc_kernel's
+//     FOLDED instances below;
+//   - the TPU's _qa_kernel (every other A, or an fp32 B): each A element
+//     dequantized by dequant_at with TENSOR, ROW (per m) or BLOCK (per k)
+//     cells and rounded to B's type BT (the compute type), then acc =
+//     sum_k deq * b in fp32; out = acc.  A bf16 B (the compute type bf16)
+//     takes qa_tc_kernel below, on the tensor cores; an fp32 B stays on
+//     qa_kernel, the weight-only pair's scalar tile with the quantized
+//     operand on the A side (TF32 would break its fp32 gate).
 // C is not read: the GEMM engine adds it after these kernels, in fp32.
 //
 // What bounds them on the H100, and the design.  At the GEMM bench's
@@ -436,42 +436,6 @@ wo_kernel(const AT* __restrict__ a, const void* __restrict__ w,
 // best for M = 4096.  qa_tc_kernel runs the bf16 products on mma.sync;
 // wgmma with TMA is the next step.
 // ---------------------------------------------------------------------------
-
-template <int BITS>
-__global__ void __launch_bounds__(WO_THREADS)
-qa_folded_kernel(const void* __restrict__ a,
-                 const __nv_bfloat16* __restrict__ b,
-                 const float* __restrict__ scale, float* __restrict__ out,
-                 int M, int N, int K) {
-  __shared__ __align__(16) float as[WO_BK][WO_LD];
-  __shared__ __align__(16) float bs[WO_BK][WO_LD];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * WO_BM;
-  const int n0 = blockIdx.x * WO_BN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += WO_BK) {
-    stage_rows(as, M, K, m0, k0, [=](int m, int k) {
-      return (float)weight_at<BITS>(a, m, k, K);
-    });
-    stage_cols(bs, N, K, n0, k0, [=](int k, int n) {
-      return __bfloat162float(b[(size_t)k * N + n]);
-    });
-    __syncthreads();
-    wo_step(as, bs, ty, tx, acc);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[(size_t)m * N + n] = __fmul_rn(acc[i][j], scale[m]);
-    }
-  }
-}
 
 template <typename BT, int BITS>
 __global__ void __launch_bounds__(WO_THREADS)
@@ -509,7 +473,8 @@ qa_kernel(const void* __restrict__ a, const BT* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// qa_tc_kernel: qa_kernel's bf16-B instances on the tensor cores.  Each CTA
+// qa_tc_kernel: qa_kernel's bf16-B instances and the folded GEMM on the
+// tensor cores.  Each CTA
 // computes a BM x 128 output tile (BM = 128, or 64 where 128-row tiles
 // would give fewer than two CTAs for each SM, e.g. M = 128) with 8 warps of
 // 32 x 64 (or 32 x 32) outputs, over K steps of 32 in a 4-stage cp.async
@@ -531,8 +496,11 @@ qa_kernel(const void* __restrict__ a, const BT* __restrict__ b,
 //     the accumulator in fp32 (round to nearest), so the tensor core's own
 //     accumulation spans 32 products only and the result stays within the
 //     fp32 gate of the plain version at K = 8192.
-// qa_folded_kernel and the weight-only pair can move onto this tile: they
-// differ in what A's dequantization does and in the epilogue.
+// FOLDED (the folded GEMM): A's integers become bf16 unchanged (exact for
+// int8 and int4: no zero point, no scale) and the epilogue multiplies the
+// row's scale, out = acc * s[m], rounded once.  The weight-only pair can
+// move onto this tile too: it differs in what A's dequantization does and
+// in the epilogue.
 // ---------------------------------------------------------------------------
 
 constexpr int QT_BN = 128;
@@ -563,7 +531,7 @@ constexpr size_t qa_tc_smem() {
          2 * (size_t)BM * QT_A_LD + QT_STAGES * 2 * QT_BK * sizeof(float);
 }
 
-template <int BITS, int BM>
+template <int BITS, int BM, bool FOLDED>
 __global__ void __launch_bounds__(QT_THREADS, 2)
 qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
              const float* __restrict__ scale, const float* __restrict__ zp,
@@ -655,8 +623,8 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
   const int dk = (tid % (QT_BK / EPT)) * EPT;
   const bool row_live = m0 + dr < M;
   const int row_cell = scales == WO_ROW ? m0 + dr : 0;
-  const float row_s = row_live ? scale[row_cell] : 0.f;
-  const float row_z = row_live ? zp[row_cell] : 0.f;
+  const float row_s = !FOLDED && row_live ? scale[row_cell] : 0.f;
+  const float row_z = !FOLDED && row_live ? zp[row_cell] : 0.f;
   auto dequant = [&](int stage, int kt, uint8_t* dst) {
     const int k0 = kt * QT_BK + dk;
     const uint8_t* src = araw + stage * BM * QT_ARAW_LD + dr * QT_ARAW_LD + dk;
@@ -692,7 +660,9 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
         const int k = k0 + 4 * v + e;
         const float sc = scales == WO_BLOCK ? bsc[4 * v + e] : row_s;
         const float z = scales == WO_BLOCK ? bsc[QT_BK + 4 * v + e] : row_z;
-        d[e] = row_live && k < K ? __fmul_rn(__fsub_rn(q[e], z), sc) : 0.f;
+        d[e] = !(row_live && k < K) ? 0.f
+               : FOLDED              ? q[e]
+                                     : __fmul_rn(__fsub_rn(q[e], z), sc);
       }
       out[2 * v] = mfa::pack_bf16(d[0], d[1]);
       out[2 * v + 1] = mfa::pack_bf16(d[2], d[3]);
@@ -776,12 +746,15 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
     for (int i = 0; i < 2; ++i) {
       const int m = m0 + wm0 + 16 * mi + g + 8 * i;
       if (m >= M) continue;
+      const float row_scale = FOLDED ? scale[m] : 1.f;
 #pragma unroll
       for (int ni = 0; ni < NT; ++ni) {
         const int n = n0 + wn0 + 8 * ni + 2 * tq;
         float* o = out + (size_t)m * N + n;
-        const float v0 = acc[mi][ni][2 * i];
-        const float v1 = acc[mi][ni][2 * i + 1];
+        const float v0 = FOLDED ? __fmul_rn(acc[mi][ni][2 * i], row_scale)
+                                : acc[mi][ni][2 * i];
+        const float v1 = FOLDED ? __fmul_rn(acc[mi][ni][2 * i + 1], row_scale)
+                                : acc[mi][ni][2 * i + 1];
         if (n + 1 < N && N % 2 == 0) {
           *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
         } else {
@@ -924,6 +897,38 @@ dim3 wo_grid(int M, int N) {
   return dim3((N + WO_BN - 1) / WO_BN, (M + WO_BM - 1) / WO_BM);
 }
 
+// qa_tc_kernel<BITS, BM, FOLDED> over [M, N] with 128-row tiles where they
+// give two CTAs for each SM, else 64-row ones.
+template <bool FOLDED>
+int launch_qa_tc(const void* a, const __nv_bfloat16* b, const float* scale,
+                 const float* zp, int scales, float* out, int M, int N,
+                 int K, int bits, cudaStream_t s) {
+  const bool wide = (long long)((M + 127) / 128) * ((N + QT_BN - 1) / QT_BN) >=
+                    2LL * sm_count();
+#define MFA_QA_TC(BITS, BM)                                                  \
+  do {                                                                       \
+    auto kern = qa_tc_kernel<BITS, BM, FOLDED>;                              \
+    cudaError_t err = cudaFuncSetAttribute(                                  \
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,                   \
+        (int)qa_tc_smem<BM>());                                              \
+    if (err != cudaSuccess) return (int)err;                                 \
+    kern<<<dim3((N + QT_BN - 1) / QT_BN, (M + BM - 1) / BM), QT_THREADS,     \
+           qa_tc_smem<BM>(), s>>>(a, b, scale, zp, scales, out, M, N, K);    \
+  } while (0)
+  if (bits == 8 && wide)
+    MFA_QA_TC(8, 128);
+  else if (bits == 8)
+    MFA_QA_TC(8, 64);
+  else if (bits == 4 && wide)
+    MFA_QA_TC(4, 128);
+  else if (bits == 4)
+    MFA_QA_TC(4, 64);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef MFA_QA_TC
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  bits: 8 or 4.  Returns the
@@ -1012,25 +1017,16 @@ int mfa_wo_gemm(const void* a, const void* w, const void* scale,
 }
 
 // a: the payload [M, K] (int8) or [M, K/2] (uint8 int4); b: bf16 [K, N];
-// scale: fp32 [M]; out: fp32 [M, N].
+// scale: fp32 [M]; out: fp32 [M, N].  Runs qa_tc_kernel's folded tile.
 int mfa_qa_folded_gemm(const void* a, const void* b, const void* scale,
                        void* out, int M, int N, int K, int bits,
                        void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   if (bits == 4 && K % 256 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(b);
-  const float* ps = static_cast<const float*>(scale);
-  float* o = static_cast<float*>(out);
-  if (bits == 8)
-    qa_folded_kernel<8><<<wo_grid(M, N), WO_THREADS, 0, s>>>(a, pb, ps, o, M,
-                                                             N, K);
-  else if (bits == 4)
-    qa_folded_kernel<4><<<wo_grid(M, N), WO_THREADS, 0, s>>>(a, pb, ps, o, M,
-                                                             N, K);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return launch_qa_tc<true>(a, static_cast<const __nv_bfloat16*>(b),
+                            static_cast<const float*>(scale), nullptr,
+                            WO_ROW, static_cast<float*>(out), M, N, K, bits,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // a: the payload; b: [K, N] of btype (0 float32, 1 bfloat16: the compute
@@ -1046,35 +1042,9 @@ int mfa_qa_gemm(const void* a, const void* b, const void* scale,
   const float* ps = static_cast<const float*>(scale);
   const float* pz = static_cast<const float*>(zp);
   float* o = static_cast<float*>(out);
-  if (btype == 1) {  // bf16 B: the tensor-core tile
-    const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(b);
-    // 128-row tiles where they give two CTAs for each SM, else 64-row ones.
-    const bool wide = (long long)((M + 127) / 128) *
-                          ((N + QT_BN - 1) / QT_BN) >=
-                      2LL * sm_count();
-#define MFA_QA_TC(BITS, BM)                                                  \
-  do {                                                                       \
-    cudaError_t err = cudaFuncSetAttribute(                                  \
-        qa_tc_kernel<BITS, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-        (int)qa_tc_smem<BM>());                                              \
-    if (err != cudaSuccess) return (int)err;                                 \
-    qa_tc_kernel<BITS, BM>                                                   \
-        <<<dim3((N + QT_BN - 1) / QT_BN, (M + BM - 1) / BM), QT_THREADS,     \
-           qa_tc_smem<BM>(), s>>>(a, pb, ps, pz, scales, o, M, N, K);        \
-  } while (0)
-    if (bits == 8 && wide)
-      MFA_QA_TC(8, 128);
-    else if (bits == 8)
-      MFA_QA_TC(8, 64);
-    else if (bits == 4 && wide)
-      MFA_QA_TC(4, 128);
-    else if (bits == 4)
-      MFA_QA_TC(4, 64);
-    else
-      return (int)cudaErrorInvalidValue;
-#undef MFA_QA_TC
-    return (int)cudaGetLastError();
-  }
+  if (btype == 1)  // bf16 B: the tensor-core tile
+    return launch_qa_tc<false>(a, static_cast<const __nv_bfloat16*>(b), ps,
+                               pz, scales, o, M, N, K, bits, s);
   const dim3 g = wo_grid(M, N);
 #define MFA_QA(BT, BITS)                                                   \
   qa_kernel<BT, BITS><<<g, WO_THREADS, 0, s>>>(                           \

@@ -7,7 +7,9 @@
 // value j + D/2 in its high one, each stored + 8).  They are read four
 // values to a 32-bit word and either widened to fp32 (or dequantized) while
 // they are staged into the transposed [D][LD] tiles of attention_tiles.cuh,
-// or kept as words [D/4][LD] for __dp4a products.
+// or kept as words [D/4][LD] for __dp4a products; the tensor-core bodies
+// copy the payload rows with cp.async (stage_raw) and widen them in shared
+// memory (to bf16 rows: dequant_rows_bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +18,7 @@
 
 #include "attention_tiles.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace mfa {
 
@@ -58,9 +61,45 @@ __device__ __forceinline__ float byte_of(int word, int e) {
   return (float)(signed char)((word >> (8 * e)) & 0xFF);
 }
 
+// The values [4w, 4w + 4) of payload row t of kv head `head`, read as the
+// int8 word `word`: the integers, or dequantized in op.mode and, with `rb`,
+// rounded to bf16.
+template <int D>
+__device__ __forceinline__ void kv_values(const KVOperand& op, size_t head,
+                                          int Skv, int br, int bs, bool rb,
+                                          int t, int w, int word,
+                                          float (&f)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) f[e] = byte_of(word, e);
+  if (op.mode == DQ_TOKEN) {
+    const float s = op.sc[head * Skv + t];
+    const float z = op.zp[head * Skv + t];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = __fmul_rn(f[e] - z, s);
+      f[e] = rb ? round_bf16(x) : x;
+    }
+  } else if (op.mode == DQ_BLOCK2D) {
+    const size_t cell =
+        (head * (Skv / br) + t / br) * (size_t)((D + bs - 1) / bs);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const size_t c = cell + (4 * w + e) / bs;
+      const float s = op.sc[c];
+      const float x = __fmul_rn(f[e], s) - __fmul_rn(op.zp[c], s);
+      f[e] = rb ? round_bf16(x) : x;
+    }
+  } else if (op.mode == DQ_CHANNEL) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = __fmul_rn(f[e], op.sc[head * D + 4 * w + e]);
+      f[e] = rb ? round_bf16(x) : x;
+    }
+  }
+}
+
 // Stage payload rows [t0, t0 + 64) of kv head `head` (zeros from `limit`)
-// transposed into dst[d * LD + r] as fp32: the integer values, or
-// dequantized and, with `rb`, rounded to bf16.
+// transposed into dst[d * LD + r] as fp32: kv_values' values.
 template <int D>
 __device__ __forceinline__ void stage_kv(const KVOperand& op, size_t head,
                                          int Skv, int br, int bs, bool rb,
@@ -72,39 +111,54 @@ __device__ __forceinline__ void stage_kv(const KVOperand& op, size_t head,
     const int w = i % W;
     const int t = t0 + r;
     float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (t < limit) {
-      const int word =
-          load_word<D>(op.pay + (head * Skv + t) * row_bytes, w, op.bits);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) f[e] = byte_of(word, e);
-      if (op.mode == DQ_TOKEN) {
-        const float s = op.sc[head * Skv + t];
-        const float z = op.zp[head * Skv + t];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = __fmul_rn(f[e] - z, s);
-          f[e] = rb ? round_bf16(x) : x;
-        }
-      } else if (op.mode == DQ_BLOCK2D) {
-        const size_t cell =
-            (head * (Skv / br) + t / br) * (size_t)((D + bs - 1) / bs);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const size_t c = cell + (4 * w + e) / bs;
-          const float s = op.sc[c];
-          const float x = __fmul_rn(f[e], s) - __fmul_rn(op.zp[c], s);
-          f[e] = rb ? round_bf16(x) : x;
-        }
-      } else if (op.mode == DQ_CHANNEL) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = __fmul_rn(f[e], op.sc[head * D + 4 * w + e]);
-          f[e] = rb ? round_bf16(x) : x;
-        }
-      }
-    }
+    if (t < limit)
+      kv_values<D>(op, head, Skv, br, bs, rb, t, w,
+                   load_word<D>(op.pay + (head * Skv + t) * row_bytes, w,
+                                op.bits),
+                   f);
 #pragma unroll
     for (int e = 0; e < 4; ++e) dst[(4 * w + e) * LD + r] = f[e];
+  }
+}
+
+// cp.async payload rows [t0, t0 + 64) of kv head `head` into dst (rows
+// RAW_LD bytes apart), NT threads; rows from `limit` are zeros.
+template <int D, int RAW_LD, int NT>
+__device__ __forceinline__ void stage_raw(const uint8_t* pay, int bits,
+                                          size_t head, int Skv, int t0,
+                                          int limit, uint8_t* dst) {
+  const int row_bytes = bits == 8 ? D : D / 2;
+  const int cpr = row_bytes / 16;  // chunks a row: a power of 2, <= 16
+  const int c = threadIdx.x % cpr;
+  const uint8_t* src = pay + head * Skv * row_bytes + c * 16;
+  dst += c * 16;
+  for (int r = threadIdx.x / cpr; r < 64; r += NT / cpr) {
+    const bool ok = t0 + r < limit;
+    cp_async16(dst + r * RAW_LD, src + (size_t)(ok ? t0 + r : 0) * row_bytes,
+               ok ? 16 : 0);
+  }
+}
+
+// Raw payload rows (stage_raw's, RAW_LD bytes apart) of keys [t0, t0 + 64)
+// -> bf16 rows [key][D] of dst (dst_ld bytes apart): kv_values' values
+// rounded to bf16, zeros from `limit`; NT threads.
+template <int D, int RAW_LD, int NT>
+__device__ __forceinline__ void dequant_rows_bf16(const KVOperand& op,
+                                                  const uint8_t* raw,
+                                                  size_t head, int Skv,
+                                                  int br, int bs, int t0,
+                                                  int limit, uint8_t* dst,
+                                                  int dst_ld) {
+  constexpr int W = D / 4;
+  for (int i = threadIdx.x; i < 64 * W; i += NT) {
+    const int r = i / W;
+    const int w = i % W;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (t0 + r < limit)
+      kv_values<D>(op, head, Skv, br, bs, true, t0 + r, w,
+                   load_word<D>(raw + r * RAW_LD, w, op.bits), f);
+    *reinterpret_cast<uint2*>(dst + r * dst_ld + 8 * w) =
+        make_uint2(pack_bf16_exact(f[0], f[1]), pack_bf16_exact(f[2], f[3]));
   }
 }
 

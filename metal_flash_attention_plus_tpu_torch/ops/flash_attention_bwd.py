@@ -9,7 +9,10 @@ disjoint outputs, so no atomics:
   writes dbias = dS.
 - :func:`flash_dkv` → ``flash_dkv_kernel`` (TPU ``_dkv_kernel``): per key
   tile, walks the GQA group's q heads × the live query rows, dV += Pᵀ·dO,
-  dK += dSᵀ·Q_s; the group reduction happens inside the kernel.
+  dK += dSᵀ·Q_s; the group reduction happens inside the kernel.  Its bf16
+  instances up to D = 256, and those of :func:`qflash_dkv`, run the
+  tensor-core body (bf16 mma.sync); fp32 and bf16 at D = 288 the scalar
+  one (:func:`dkv_body`).
 - Quantized K/V (:class:`QuantizedTensor`), exact: :func:`qflash_dq` and
   :func:`qflash_dkv` → ``csrc/quantized_attention_bwd.cu`` (the TPU
   kernels' quantized modes), the same two bodies with K/V staged from their
@@ -185,6 +188,20 @@ def flash_attention_dkv_plain(
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
+
+
+def dkv_body(dtype: torch.dtype, d: int) -> str:
+    """Which body of ``csrc/attention_bwd.cuh`` the dK/dV kernels
+    (:func:`flash_dkv`, :func:`qflash_dkv`) run for a Q of ``dtype`` at head
+    dim ``d``: "tensor_core" (``dkv_tc_body``: bf16 mma.sync) for bf16 at a
+    kernel width up to 256, "fp32_fma" (``dkv_body``: scalar fp32 FMAs) for
+    fp32, whose 2e-5 gate TF32 would break, and for bf16 at MLA's width 288,
+    whose double-buffered tiles would take 242 KB of the 227 KB of shared
+    memory a CTA may have.  The C launchers route the same way
+    (``mfa::dkv_tc``)."""
+    if dtype == torch.bfloat16 and flash_width(d) <= 256:
+        return "tensor_core"
+    return "fp32_fma"
 
 
 def _launch(name, fn_name, q, k, v, do, lse, di, row_ranges, bias, out0,

@@ -17,11 +17,12 @@ in ``<wrapper>.launches``:
   accumulation, C added at the store.
 - :func:`quantized_matmul_qa`, the transpose: quantized A [M, K] × float B
   [K, N].  SYMMETRIC TENSOR / ROW A and a non-fp32 B (rounded to bf16,
-  whatever its dtype) take :func:`qa_folded_gemm` (``qa_folded_kernel``,
-  the TPU's ``_qa_folded_kernel``), the scale per row of A on the
-  accumulator; every other A (or an fp32 B) takes :func:`qa_gemm`
-  (``qa_kernel``, the TPU's ``_qa_kernel``), dequantizing A to B's
-  precision.  Neither takes C: ``ops.gemm.matmul`` adds it after them.
+  whatever its dtype) take :func:`qa_folded_gemm` (``qa_tc_kernel``'s
+  folded tile, the TPU's ``_qa_folded_kernel``), the scale per row of A on
+  the accumulator; every other A (or an fp32 B) takes :func:`qa_gemm`
+  (``qa_tc_kernel`` for a bf16 B, ``qa_kernel`` for an fp32 one; the
+  TPU's ``_qa_kernel``), dequantizing A to B's precision.  Neither takes
+  C: ``ops.gemm.matmul`` adds it after them.
 - :func:`compensated_matmul`: int8 A [M, K] × int8 Bᵀ [N, K], both BLOCK
   along K with one block size.  A block size that is a multiple of 128
   takes :func:`comp_gemm` (``comp_kernel``, the TPU's ``_comp_kernel``):
@@ -521,8 +522,10 @@ def qa_folded_gemm(a, b, scale, *, bits: int) -> torch.Tensor:
 
     a int8 [M, K] (bits 8) or group-planar uint8 [M, K/2] (bits 4, K % 256
     == 0); b bf16 [K, N]; scale fp32 [M] (a TENSOR scale repeated).  CPU
-    tensors take :func:`qa_folded_gemm_plain`; CUDA tensors launch
-    ``qa_folded_kernel`` or raise."""
+    tensors take :func:`qa_folded_gemm_plain`; CUDA tensors launch the
+    folded instances of ``qa_tc_kernel`` (bf16 mma.sync over A's integers
+    as bf16, each 32-product tensor-core sum added in fp32, the row's scale
+    at the store; :func:`qa_gemm_body`) or raise."""
     if a.device.type == "cpu":
         return qa_folded_gemm_plain(a, b, scale, bits=bits)
     m, kdim, n = a.shape[0], b.shape[0], b.shape[1]
@@ -553,10 +556,13 @@ def qa_gemm_plain(a, b, scale, zp, *, bits: int,
 
 
 def qa_gemm_body(b_dtype: torch.dtype) -> str:
-    """Which tile of ``csrc/quantized_gemm.cu`` :func:`qa_gemm` launches for
-    a B of ``b_dtype``: "tensor_core" (``qa_tc_kernel``: bf16 mma.sync) for
-    bf16, "fp32_fma" (``qa_kernel``'s scalar tile) for fp32, whose gate
-    TF32 would break.  The C interface routes the same way."""
+    """Which tile of ``csrc/quantized_gemm.cu`` a quantized-A kernel runs
+    for a B of ``b_dtype`` (the B :func:`qa_arguments` hands it):
+    "tensor_core" (``qa_tc_kernel``: bf16 mma.sync) for bf16, which is
+    every :func:`qa_folded_gemm` call (its B is always bf16) and a
+    :func:`qa_gemm` call in bf16; "fp32_fma" (``qa_kernel``'s scalar tile)
+    for an fp32 B, whose gate TF32 would break.  The C interface routes
+    the same way."""
     return "tensor_core" if b_dtype == torch.bfloat16 else "fp32_fma"
 
 

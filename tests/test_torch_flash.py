@@ -320,3 +320,15 @@ def test_kernel_widths_and_zero_padded_lanes():
     for got, want in zip(pgrads, grads):
         assert _rel(got[..., :64].numpy(), want.numpy()) <= TOL
         assert not got[..., 64:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288])
+def test_dkv_body_follows_dtype_and_kernel_width(dtype, d):
+    """The flash dK/dV kernel runs the tensor-core body for bf16 at a
+    kernel width up to 256 and the fp32-FMA body for fp32 and for MLA's
+    width 288 (272 runs at 288), as the C launcher routes."""
+    tensor_core = dtype == torch.bfloat16 and d <= 256
+    assert fbwd.dkv_body(dtype, d) == (
+        "tensor_core" if tensor_core else "fp32_fma")
+    assert (tfa.flash_width(d) <= 256) == (d <= 256)

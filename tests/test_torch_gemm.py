@@ -232,7 +232,8 @@ QA_CONFIGS = {
 def test_quantized_matmul_qa_matches_jax(name, bdtype):
     """Every config of the JAX test's QA_CONFIGS with an fp32 B (the
     dequant kernel at HIGHEST) and a bf16 B (SYMMETRIC TENSOR / ROW: the
-    folded kernel; the others dequantize to bf16)."""
+    folded kernel; the others dequantize to bf16; both on the tensor-core
+    tile)."""
     cfg = QA_CONFIGS[name]
     a, bt = _data(seed=len(name))
     ja, ta = _quant(a, cfg)
@@ -243,10 +244,13 @@ def test_quantized_matmul_qa_matches_jax(name, bdtype):
         want = jqg.quantized_matmul_qa(ja, jnp.asarray(b).astype(jdt))
     got = tqg.quantized_matmul_qa(ta, torch.from_numpy(b).to(tdt))
     assert got.dtype == tdt and got.shape == (96, 64)
-    folded, _, _ = tqg.qa_arguments(ta, torch.from_numpy(b).to(tdt))
+    folded, args, _ = tqg.qa_arguments(ta, torch.from_numpy(b).to(tdt))
     assert folded == (bdtype == "bf16" and name in ("8b_tensor_sym",
                                                     "8b_row_sym",
                                                     "4b_tensor_sym"))
+    # A bf16 B, folded or dequantizing, runs the tensor-core tile.
+    assert tqg.qa_gemm_body(args[1].dtype) == (
+        "tensor_core" if bdtype == "bf16" else "fp32_fma")
     assert _err(got, want) <= (BF16_TOL if bdtype == "bf16"
                                else TOLERANCES["fp32"])
     ref = tcomp.dequantize(ta) @ torch.from_numpy(b).to(tdt).float()

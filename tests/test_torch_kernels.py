@@ -217,6 +217,16 @@ FLASH_CASES = {
     "bias_bcast": (2, 4, 2, 70, 90, 64, masking.CAUSAL, None, (1, 4, 70, 90)),
     "ragged_rect": (1, 4, 4, 1000 // 8, 1000, 256, masking.CAUSAL, None,
                     None),
+    # Where the tensor-core dK/dV body's tiling is at risk: a key tile's
+    # query span starting mid-tile (Sq < Skv, ends aligned), causal rows
+    # with no live key (Sq > Skv), a group of 4 at D=256, bias at D=128.
+    "rect_span_mid_tile": (1, 4, 2, 150, 250, 64, masking.CAUSAL, None,
+                           None),
+    "rect_empty_rows_d128": (1, 4, 2, 250, 150, 128, masking.CAUSAL, None,
+                             None),
+    "gqa4_d256": (1, 8, 2, 200, 200, 256, masking.CAUSAL, None, None),
+    "bias_d128": (2, 4, 2, 100, 130, 128, masking.CAUSAL, None,
+                  (2, 1, 100, 130)),
 }
 
 
@@ -713,6 +723,21 @@ QBWD_CASES = {
                         masking.CAUSAL, {}),
     "d96_block2d48_f32": (1, 4, 2, 128, 128, 96, B2D48, B2D48, F32,
                           masking.CAUSAL, {}),
+    # The tensor-core dK/dV body's risky tilings (bf16): a query span
+    # starting mid-tile, causal rows with no live key, an interleaved group
+    # of 4 at D=256, bias at D=128, BLOCK_2D rows and D=32.
+    "tc_rect_span_mid_tile": (1, 4, 2, 150, 250, 64, ROW8C, ROW8C, BF16,
+                              masking.CAUSAL, {}),
+    "tc_rect_empty_rows_d128": (1, 4, 2, 250, 150, 128, ROW4C, ROW8C, BF16,
+                                masking.CAUSAL, {}),
+    "tc_d256_gqa4_interleaved": (1, 8, 2, 130, 130, 256, ROW8, CH8, BF16,
+                                 masking.CAUSAL, dict(interleaved_kv=True)),
+    "tc_bias_d128": (1, 4, 2, 100, 130, 128, ROW8C, ROW8C, BF16,
+                     masking.CAUSAL, dict(bias=(1, 4, 100, 130))),
+    "tc_block2d_d128_rect": (1, 4, 2, 96, 160, 128, B2D, B2D, BF16,
+                             masking.CAUSAL, {}),
+    "tc_d32_full": (1, 4, 4, 70, 90, 32, ROW8C, ROW4C, BF16, masking.FULL,
+                    {}),
 }
 
 
@@ -1116,6 +1141,19 @@ QA_TC_CASES = {
     "wide_k528": (8, "row", "asymmetric", None, BF16, 1100, 4104, 528),
     "wide_int4_n4100": (4, "row", "asymmetric", None, BF16, 600, 4100,
                         512),
+    # The folded GEMM (SYMMETRIC TENSOR / ROW A) on the same tile: ragged
+    # M, N and K (K % 16 and N % 8 not 0), M = 128, both tile shapes, int4.
+    "folded_row8_ragged": (8, "row", "symmetric", None, BF16, 300, 99, 200),
+    "folded_row8_m128": (8, "row", "symmetric", None, BF16, 128, 1000, 1024),
+    "folded_row8_wide_k528": (8, "row", "symmetric", None, BF16, 1100, 4100,
+                              528),
+    "folded_row4_ragged_n": (4, "row", "symmetric", None, BF16, 130, 70,
+                             512),
+    "folded_row4_wide": (4, "row", "symmetric", None, BF16, 600, 4104, 512),
+    "folded_tensor8_ragged": (8, "tensor", "symmetric", None, BF16, 37, 70,
+                              104),
+    "folded_tensor8_m128_k200": (8, "tensor", "symmetric", None, BF16, 128,
+                                 136, 200),
 }
 
 
@@ -1160,25 +1198,29 @@ def test_qa_gemm_kernels_match_plain(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(QA_TC_CASES))
 def test_qa_tensor_core_tile_ragged_edges_match_plain(cuda_device, name):
-    """``qa_tc_kernel`` against the plain version on the same arguments at
-    the fp32 gate (TOLERANCES["fp32"] of its max abs), and
-    ``quantized_matmul_qa`` on the card returning exactly that result
-    rounded to B's dtype.  (The kernel sums k on the tensor cores, in
-    another order than the CPU's plain version, so a result near 0 can
-    round to another bf16 value than the CPU's: the one-ulp comparison
-    of test_qa_gemm_kernels_match_plain holds only by chance there.)"""
+    """``qa_tc_kernel`` (dequant-on-load, or folded) against the plain
+    version on the same arguments at the fp32 gate (TOLERANCES["fp32"] of
+    its max abs), one launch a call, and ``quantized_matmul_qa`` on the
+    card returning exactly that result rounded to B's dtype.  (The kernel
+    sums k on the tensor cores, in another order than the CPU's plain
+    version, so a result near 0 can round to another bf16 value than the
+    CPU's: the one-ulp comparison of test_qa_gemm_kernels_match_plain holds
+    only by chance there.)"""
     bits, gran, strategy, bs, bdtype, m, n, k = QA_TC_CASES[name]
     rng = np.random.default_rng(m + n + k + bits)
     aq = quantize(_t(rng, cuda_device, m, k), _qcfg(
         bits=bits, gran=gran, strategy=strategy, block_size=bs))
     b = _t(rng, cuda_device, k, n).to(bdtype)
     folded, args, kw = qg.qa_arguments(aq, b)
-    assert not folded and qg.qa_gemm_body(args[1].dtype) == "tensor_core"
-    n0 = qg.qa_gemm.launches
-    out = qg.qa_gemm(*args, **kw)
+    assert folded == name.startswith("folded")
+    assert qg.qa_gemm_body(args[1].dtype) == "tensor_core"
+    kernel, plain = ((qg.qa_folded_gemm, qg.qa_folded_gemm_plain) if folded
+                     else (qg.qa_gemm, qg.qa_gemm_plain))
+    n0 = kernel.launches
+    out = kernel(*args, **kw)
     torch.cuda.synchronize()
-    assert qg.qa_gemm.launches == n0 + 1
-    ref = qg.qa_gemm_plain(*args, **kw)
+    assert kernel.launches == n0 + 1
+    ref = plain(*args, **kw)
     assert out.dtype == F32 and out.shape == (m, n)
     assert _rel(out, ref) <= TOLERANCES["fp32"]
     got = qg.quantized_matmul_qa(aq, b)

@@ -343,6 +343,26 @@ def test_exact_kernel_width_padding_changes_nothing(name):
         assert (g[..., :d] - w_).abs().max() <= _tol(qdtype) * w_.abs().max()
 
 
+@pytest.mark.parametrize("qdtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 48, 64, 80, 96, 128, 256])
+def test_dkv_kernel_body_follows_the_q_dtype(qdtype, d):
+    """The exact dK/dV launch gets Q in its own dtype, in the dequantizing
+    and (bf16) folded modes alike, at a kernel width of at most 256: a bf16
+    Q takes the tensor-core dK/dV body at every head dim, an fp32 one the
+    fp32-FMA body (``dkv_body``, as the C launcher routes)."""
+    want = "tensor_core" if qdtype == "bf16" else "fp32_fma"
+    for kcfg, vcfg in ((ROW8C, ROW4C), (ROW8, ROW8)):
+        _, (tq, tk, tv, tdo) = _inputs(d, 1, 2, 1, 16, 24, d, kcfg, vcfg,
+                                       qdtype)
+        stats = torch.zeros(1, 2, 16)
+        rr = tbwd.row_ranges_tensor(tmask.CAUSAL, 16, 24, None, "cpu")
+        _, (dkv_a, dkv_kw) = tbwd.qflash_arguments(
+            tq, tk, tv, tdo, stats, stats, rr, scale=d ** -0.5)
+        q = dkv_a[0]
+        assert q.dtype == tq.dtype and tqa.qattn_width(q.shape[-1]) <= 256
+        assert tbwd.dkv_body(q.dtype, q.shape[-1]) == want
+
+
 @pytest.mark.parametrize("d", [80, 96])
 def test_fullint_kernel_width_padding_changes_nothing(d):
     """The full-integer kernels' integer operands zero-padded to
