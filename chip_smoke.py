@@ -137,9 +137,10 @@ checkout, then, on the card:
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
 Phases 10 (f), 13 (c), 8, 11 (d) and 12 (h) log which body the quantized
-forward, the quantized-A GEMMs (folded and dequantizing) and the dK/dV
-kernels run (``qattn_body``, ``qa_gemm_body``, ``dkv_body``: tensor cores
-or fp32 FMAs).
+forward and the head-pair call, the quantized-A GEMMs (folded and
+dequantizing), the flash forward and the dK/dV kernels run
+(``qattn_body``, ``qa_gemm_body``, ``fwd_body``, ``dkv_body``: tensor
+cores or fp32 FMAs).
 
 ``--parent DIR`` (a checkout of the parent commit, e.g. ``git archive``
 into a directory ``.gitignore`` lists) also builds DIR's kernels, at once
@@ -219,6 +220,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_forward_plain,
     flash_fwd,
+    fwd_body,
     row_ranges_tensor,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
@@ -234,6 +236,7 @@ from metal_flash_attention_plus_tpu_torch.ops.mla import (
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     KV_TILE,
+    QAttnMode,
     hpack_arguments,
     hpack_fwd,
     hpack_fwd_plain,
@@ -1031,9 +1034,10 @@ def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
         t["ms_2"] = time_ms(kernel, 10, warmup=0)
         t["library_ms"] = library["fwd" if name == "flash_fwd" else "bwd"]
         t["bound_ms"], t["bound_by"] = bound_of(*work[name])
-        if name == "flash_dkv":
-            t["body"] = dkv_body(q.dtype, d)
-            log(f"flash_dkv at D={d} runs the {t['body']} body")
+        if name in ("flash_fwd", "flash_dkv"):
+            t["body"] = (fwd_body if name == "flash_fwd" else dkv_body)(
+                q.dtype, d)
+            log(f"{name} at D={d} runs the {t['body']} body")
         parent_turns(f"{name} B={b} S={s} D={d}", t, kernel, 10)
         times[name] = t
         log(f"{name} times at B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
@@ -1734,12 +1738,14 @@ def time_quantized_attention(rng):
     ch8 = qcfg(gran="channel")
     kq, vq = quantize(k.float(), ch8), quantize(v.float(), ch8)
     args, kw = hpack_arguments(pack_heads(q), kq, vq, mask=masking.CAUSAL)
+    body = qattn_body(args[0].dtype, QAttnMode("none", "store"), packed=True)
+    log(f"hpack_fwd ({args[0].dtype} packed Q) runs the {body} body")
     times["hpack_fwd"] = timed(
         "hpack_fwd int8 CHANNEL causal (packed, the packed model's mode)",
         lambda: hpack_fwd(*args, **kw), lambda: hpack_fwd_plain(*args, **kw),
         sdpa(kq, vq),
         attn_bound(pairs, 0, 4 * d, 2 * b * hq * s * d + kv_bytes
-                   + 4 * b * hkv * d + out_bytes))
+                   + 4 * b * hkv * d + out_bytes), {"body": body})
     g = device_generator(rng)
     rows = torch.randn((b * hkv * s, d), generator=g, device=DEV).to(
         torch.bfloat16)
@@ -3163,7 +3169,8 @@ def main() -> int:
          max(e[2] for e in qattn["hpack_errors"].values()),
          {"rel_err": max(e[0] for e in qattn["hpack_errors"].values()),
           "shape": "packed [2, 8, 2048, 128], int8 CHANNEL, causal",
-          "body": "fp32_fma"}),
+          "body": qt["hpack_fwd"]["body"],
+          "redesigned": REDESIGNED}),
         ("runtime_quantize_row", RTQ_SOURCE, f"{RTQ_TPU}:79",
          qattn["facade"]["int8"][1]["runtime_quantize_row"], 0.0,
          {"shape": "[16384, 64] bf16 CENTERED (the facade's K/V rows)"}),

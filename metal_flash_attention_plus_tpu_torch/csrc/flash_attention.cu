@@ -2,9 +2,11 @@
 // dK/dV backward, each one CUDA kernel over BHSD tensors.
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
-//   - ops/flash_attention.py::_fwd_kernel         -> flash_fwd_kernel
+//   - ops/flash_attention.py::_fwd_kernel         -> flash_fwd_tc_kernel
+//     (bf16 up to D = 256), flash_fwd_kernel (fp32, and bf16 at D = 288)
 //   - ops/flash_attention_bwd.py::_dq_kernel      -> flash_dq_kernel
-//   - ops/flash_attention_bwd.py::_dkv_kernel     -> flash_dkv_kernel
+//   - ops/flash_attention_bwd.py::_dkv_kernel     -> flash_dkv_tc_kernel
+//     (bf16 up to D = 256), flash_dkv_kernel (fp32, and bf16 at D = 288)
 //
 // Layouts: q/dO [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] of T (float or bf16),
 // contiguous; L and D (= rowsum(dO*O)) fp32 [B, Hq, Sq]; O, dQ fp32
@@ -31,21 +33,28 @@
 // What bounds them on the H100, and the design.
 //   At the training shapes (B=4, Hq=16, Hkv=4, S=2048, D=64, causal) each
 //   kernel does 2-4 products of 64x64 tiles per KV tile with D = 64 deep:
-//   ~70 GFLOP for the forward, i.e. compute bound on the tensor cores
-//   (989 TFLOP/s bf16) by a wide margin over the ~40 MB of bytes.  These
-//   first versions do the products with scalar fp32 FMAs (67 TFLOP/s peak),
-//   so they cannot reach that bound; they are the right-and-simple step
-//   before mma/wgmma, TMA and warp specialisation.  All three use 256
-//   threads on a 64 x 64 tile, 4 x 4 scores per thread; operands are staged
-//   in shared memory as fp32, transposed ([D][64 + 4]) so a thread's four
-//   rows and four columns are 16-byte vectors and the products read two
-//   vectors per 16 FMAs.
+//   4*D operations per live query-key pair for the forward (~34 G), 6*D
+//   for dQ, 8*D for dK/dV, i.e. compute bound on the tensor cores (989
+//   TFLOP/s bf16) by a wide margin over the ~40 MB of bytes.  So the bf16
+//   forward and dK/dV up to D = 256 run on the tensor cores (bf16 mma.sync
+//   into fp32, operands staged by cp.async): flash_fwd_tc_kernel below and
+//   flash_dkv_tc_kernel (attention_bwd.cuh::dkv_tc_body).  fp32 stays on
+//   scalar fp32 FMAs (67 TFLOP/s peak): TF32 keeps ~3 digits and the fp32
+//   instances are held to 2e-5.  So does bf16 at MLA's D = 288, where the
+//   forward's accumulator (144 fp32 registers a thread beside S) would
+//   spill and the dK/dV's double-buffered tiles overflow shared memory.
+//   The scalar kernels, and dQ, use 256 threads on a 64 x 64 tile, 4 x 4
+//   scores per thread; operands are staged in shared memory as fp32,
+//   transposed ([D][64 + 4]) so a thread's four rows and four columns are
+//   16-byte vectors and the products read two vectors per 16 FMAs.
 //   - forward: one CTA per (64 query rows, b, q head).  The TPU's sequential
 //     grid carried m, l and the accumulator from KV block to KV block; here
 //     one CTA loops over its KV tiles and keeps them in registers.  The CTA
 //     reduces its rows' ranges to the live key span [min start, max end)
 //     and visits only the tiles in it (causal: about half), so no padded
-//     copy is made and dead tiles cost nothing.
+//     copy is made and dead tiles cost nothing.  The tensor-core forward
+//     keeps that grid and walk as FlashAttention-2 does on mma.sync (see
+//     its comment).
 //   - dQ: one CTA per (64 query rows, b, q head); Q_s^T and dO^T stay in
 //     shared memory; per KV tile V^T then K^T are staged in one buffer, and
 //     K^T serves both S = Q_s.K^T and dQ += dS.K.
@@ -70,6 +79,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_bwd.cuh"
 #include "attention_tiles.cuh"
 #include "common.cuh"
@@ -88,7 +99,6 @@ using mfa::accumulate_pm;
 using mfa::key_span;
 using mfa::row_range;
 using mfa::launch_with_smem;
-using mfa::set_smem;
 using mfa::stage_t;
 using mfa::store_t;
 using mfa::tile_product;
@@ -102,7 +112,8 @@ constexpr size_t fwd_smem_floats() {
 // Forward
 // ---------------------------------------------------------------------------
 
-// Replaces ops/flash_attention.py::_fwd_kernel.  Bound: tensor-core
+// Replaces ops/flash_attention.py::_fwd_kernel for fp32, and for bf16 at
+// D = 288 (flash_fwd_tc_kernel takes bf16 up to D = 256).  Bound:
 // operations (4*D per live query-key pair), not bytes; this scalar-FMA
 // version runs at a fraction of it.  One CTA per 64 query rows loops over
 // the live key tiles with m, l and the accumulator in registers.
@@ -213,6 +224,265 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// The forward on the tensor cores: the bf16 instances up to D = 256.
+//
+// FlashAttention-2's forward on mma.sync.  One CTA per (64 query rows, b,
+// q head), as flash_fwd_kernel, with 4 warps of 16 query rows each: no
+// warp shares a row, so the row max and sum reduce over the 4 lanes of a
+// quad.  S and the O accumulator live in mma fragments; m and l per
+// fragment row.
+//   1. Q's rows arrive once by cp.async and are scaled in shared memory,
+//      x -> round_bf16(x * qscale), bit for bit as stage_t<T, D, true>.
+//   2. The CTA walks its live key span [c_lo, c_hi) in 64-key tiles
+//      aligned to multiples of 64 from key 0 (flash_fwd_kernel's start at
+//      c_lo); cp.async brings the next tile's K and V rows into the other
+//      of two buffers while this one runs.  The plain version is one pass
+//      over each row's final max, so only P's bf16 rounding against the
+//      running max differs with the tile boundaries, which the bf16 gate
+//      already covers.
+//   3. S = Q_s.K^T by bf16 m16n8k16 into fp32 (mma_nt; Q by ldmatrix from
+//      shared memory each tile, which keeps D = 256 in registers).
+//   4. The scalar kernel's element-wise steps in its order on the
+//      fragments: bias * log2(e) (a float2 a fragment pair where aligned),
+//      masked scores set to mask_value, the running max, exp2, l summing
+//      the unrounded p, P rounded to bf16, alpha rescaling l and O.  A row
+//      whose first tiles are fully masked carries p = 1 against m =
+//      mask_value until its first live key, whose alpha (exp2 of mask_value
+//      minus a real score) wipes it, as in the scalar kernel.  At D = 64
+//      these steps, not the products, hold the kernel, so they are kept
+//      short: a tile inside every row's range of the warp skips the mask
+//      selects; p is ex2.approx.ftz (exp2f's extra range handling cost
+//      more than the products; it only differs where p < 2^-126, far below
+//      P's bf16 rounding); P rounds by cvt.rn.bf16x2, two values an
+//      instruction.
+//   5. O += P.V with P taken from the S fragments as the A operand in
+//      registers and V read by ldmatrix.trans (mma_rn).
+// Rows in shared memory are padded by 16 bytes, so ldmatrix's eight row
+// addresses fall in distinct banks.  The CTAs walk the row tiles last
+// first (under a causal mask the last walk the most keys).  Shared memory
+// is Q plus two buffers each of K and V: 5 x 64 rows, 165 KB at D = 256
+// (one CTA an SM), 85 KB at D = 128, 45 KB at D = 64.
+// ---------------------------------------------------------------------------
+
+// Whether the forward of T at head dim D runs flash_fwd_tc_kernel (else
+// flash_fwd_kernel); ops/flash_attention.py::fwd_body answers the same.
+template <typename T, int D>
+constexpr bool fwd_tc() {
+  return std::is_same<T, __nv_bfloat16>::value && D <= 256;
+}
+
+constexpr int FWD_TC_THREADS = 128;  // 4 warps x 16 query rows
+
+// Byte offsets of flash_fwd_tc_kernel's shared memory.
+template <int D>
+struct FwdTcSmem {
+  static constexpr int ROW = 2 * D + 16;  // a bf16 row [.., D]
+  static constexpr int TILE = BN * ROW;   // 64 rows
+  static constexpr int Q = 0;
+  static constexpr int K = TILE;      // two buffers
+  static constexpr int V = 3 * TILE;  // two buffers
+  static constexpr size_t BYTES = 5 * (size_t)TILE;
+};
+
+// Replaces ops/flash_attention.py::_fwd_kernel for bf16 up to D = 256.
+// Bound: tensor-core operations (4*D per live query-key pair).
+template <int D>
+__global__ void __launch_bounds__(FWD_TC_THREADS)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const int32_t* __restrict__ ranges,
+                    const float* __restrict__ bias, long long bias_sb,
+                    long long bias_sh, float* __restrict__ o,
+                    float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                    int Skv, int interleaved, float qscale,
+                    float mask_value) {
+  using L = FwdTcSmem<D>;
+  constexpr int NT = FWD_TC_THREADS;
+  constexpr int NB = D / 8;  // 8-lane blocks of O
+  extern __shared__ __align__(16) uint8_t smem_fwd[];
+  __shared__ int s_lo, s_hi;
+
+  // The last row tiles first: under a causal mask they walk the most keys.
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = interleaved ? h % Hkv : h / (Hq / Hkv);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bh = (size_t)b * Hq + h;
+  const __nv_bfloat16* kh = k + ((size_t)b * Hkv + hk) * Skv * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * Hkv + hk) * Skv * D;
+  const float* bh_bias = bias ? bias + b * bias_sb + h * bias_sh : nullptr;
+  uint8_t* sq = smem_fwd + L::Q;
+
+  mfa::stage_rows_async<D, L::ROW, NT>(q + bh * Sq * D, r0, Sq, sq);
+  mfa::cp_async_commit();
+  key_span(ranges, r0, Sq, Skv, &s_lo, &s_hi);
+  const int c_hi = s_hi;
+  auto prefetch = [&](int t0, int buf) {
+    mfa::stage_rows_async<D, L::ROW, NT>(kh, t0, c_hi,
+                                         smem_fwd + L::K + buf * L::TILE);
+    mfa::stage_rows_async<D, L::ROW, NT>(vh, t0, c_hi,
+                                         smem_fwd + L::V + buf * L::TILE);
+  };
+  int t0 = (s_lo / BN) * BN;
+  if (t0 < c_hi) prefetch(t0, 0);
+  mfa::cp_async_commit();
+  mfa::cp_async_wait<1>();
+  __syncthreads();  // Q's rows landed
+  mfa::scale_rows_bf16<D, L::ROW, NT>(sq, qscale);
+
+  int row[2], rs[2], re[2];
+  float m[2], l[2], acc[NB][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = r0 + warp * 16 + g + 8 * i;
+    row_range(ranges, row[i], Sq, Skv, rs[i], re[i]);
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  // Keys [live_lo, live_hi) are live in every row of this warp: a tile
+  // inside them needs no mask.
+  int live_lo = max(rs[0], rs[1]), live_hi = min(re[0], re[1]);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    live_lo = max(live_lo, __shfl_xor_sync(0xffffffffu, live_lo, off));
+    live_hi = min(live_hi, __shfl_xor_sync(0xffffffffu, live_hi, off));
+  }
+
+  for (int buf = 0; t0 < c_hi; t0 += BN, buf ^= 1) {
+    mfa::cp_async_wait<0>();
+    __syncthreads();  // this tile staged, Q scaled; the last tile's readers
+                      // done with the other buffer
+    if (t0 + BN < c_hi) prefetch(t0 + BN, buf ^ 1);
+    mfa::cp_async_commit();
+    const uint8_t* sk = smem_fwd + L::K + buf * L::TILE;
+    const uint8_t* sv = smem_fwd + L::V + buf * L::TILE;
+
+    // S = Q_s.K^T for this warp's 16 rows and the tile's 64 keys: element
+    // (row[i], key t0 + 8j + 2tq + c) at s[j][2i + c].
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mfa::mma_nt<D / 16, 8, L::ROW, L::ROW>(sq, warp * 16, sk, 0, s);
+
+    if (bh_bias) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = t0 + 8 * j + 2 * tq;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (row[i] >= Sq || col >= c_hi) continue;
+          const float* bp = bh_bias + (size_t)row[i] * Skv + col;
+          float2 bv;
+          if (col + 1 < c_hi && !(reinterpret_cast<uintptr_t>(bp) & 7)) {
+            bv = *reinterpret_cast<const float2*>(bp);
+          } else {
+            bv.x = bp[0];
+            bv.y = col + 1 < c_hi ? bp[1] : 0.f;
+          }
+          s[j][2 * i] += bv.x * LOG2E;
+          s[j][2 * i + 1] += bv.y * LOG2E;
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (t0 >= live_lo && t0 + BN <= live_hi) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = t0 + 8 * j + 2 * tq + c;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float& x = s[j][2 * i + c];
+            x = (col < rs[i] || col >= re[i]) ? mask_value : x;
+            mx[i] = fmaxf(mx[i], x);
+          }
+        }
+    }
+    float alpha[2], m_next[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_next[i] = fmaxf(m[i], mx[i]);
+      alpha[i] = (m[i] == -INFINITY) ? 0.f : exp2f(m[i] - m_next[i]);
+    }
+    // P = 2^(s - m) (mma.cuh's ex2_approx); l sums it unrounded, P.V takes it
+    // rounded to bf16.  A row whose max is still -inf (every score -inf)
+    // subtracts 0 instead, so its P is 2^-inf = 0, not NaN.
+    const float mref[2] = {m_next[0] == -INFINITY ? 0.f : m_next[0],
+                           m_next[1] == -INFINITY ? 0.f : m_next[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = mfa::ex2_approx(s[j][e] - mref[e >> 1]);
+        sum[e >> 1] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = alpha[i] * l[i] + sum[i];
+      m[i] = m_next[i];
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        acc[nb][0] *= alpha[0];
+        acc[nb][1] *= alpha[0];
+        acc[nb][2] *= alpha[1];
+        acc[nb][3] *= alpha[1];
+      }
+    }
+
+    // O += P.V, 16 keys a step, P's A fragment from the S fragments,
+    // rounded to bf16 two at a time (cvt.rn.bf16x2).
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int j = 2 * kk;
+      const uint32_t pa[4] = {mfa::pack_bf16(s[j][0], s[j][1]),
+                              mfa::pack_bf16(s[j][2], s[j][3]),
+                              mfa::pack_bf16(s[j + 1][0], s[j + 1][1]),
+                              mfa::pack_bf16(s[j + 1][2], s[j + 1][3])};
+      mfa::mma_rn<NB, L::ROW>(pa, sv, 16 * kk, 0, acc);
+    }
+  }
+  mfa::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Sq) continue;
+    const bool live = re[i] > rs[i] && l[i] > 0.f;
+    const float inv = live ? 1.f / l[i] : 0.f;
+    float* orow = o + (bh * Sq + row[i]) * D + 2 * tq;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      *reinterpret_cast<float2*>(orow + 8 * nb) =
+          make_float2(acc[nb][2 * i] * inv, acc[nb][2 * i + 1] * inv);
+    if (tq == 0)
+      lse[bh * Sq + row[i]] = live ? m[i] * LN2 + logf(l[i]) : -INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // dQ and dK / dV: the bodies of attention_bwd.cuh over float K/V
 // ---------------------------------------------------------------------------
 
@@ -274,22 +544,31 @@ struct Shape {
   int B, Hq, Hkv, Sq, Skv, interleaved;
 };
 
+// The forward of T at head dim D: flash_fwd_tc_kernel where fwd_tc says
+// so, else flash_fwd_kernel.
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v,
                const void* ranges, const void* bias, long long sb,
                long long sh, void* o, void* lse, Shape sp, float qscale,
                float mask_value, cudaStream_t stream) {
-  const size_t smem = fwd_smem_floats<D>() * sizeof(float);
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((sp.Sq + BM - 1) / BM, sp.Hq, sp.B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(ranges),
-      static_cast<const float*>(bias), sb, sh, static_cast<float*>(o),
-      static_cast<float*>(lse), sp.Hq, sp.Hkv, sp.Sq, sp.Skv, sp.interleaved,
-      qscale, mask_value);
-  return (int)cudaGetLastError();
+  const dim3 grid((sp.Sq + BM - 1) / BM, sp.Hq, sp.B);
+  const auto* rr = static_cast<const int32_t*>(ranges);
+  const auto* bp = static_cast<const float*>(bias);
+  auto* op = static_cast<float*>(o);
+  auto* lp = static_cast<float*>(lse);
+  if constexpr (fwd_tc<T, D>())
+    return launch_with_smem(
+        flash_fwd_tc_kernel<D>, grid, FWD_TC_THREADS, FwdTcSmem<D>::BYTES,
+        stream, static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), rr, bp, sb, sh, op, lp, sp.Hq, sp.Hkv,
+        sp.Sq, sp.Skv, sp.interleaved, qscale, mask_value);
+  else
+    return launch_with_smem(
+        flash_fwd_kernel<T, D>, grid, THREADS,
+        fwd_smem_floats<D>() * sizeof(float), stream,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), rr, bp, sb, sh, op, lp, sp.Hq, sp.Hkv,
+        sp.Sq, sp.Skv, sp.interleaved, qscale, mask_value);
 }
 
 // dQ (out0 = dQ, out1 = dbias or null) or dK/dV (out0 = dK, out1 = dV).

@@ -2,6 +2,7 @@
 // as inline PTX: mma.sync (bf16 m16n8k16 into fp32, s8 m16n8k32 into
 // int32), ldmatrix (plain and transposed) and 16-byte cp.async with commit
 // and wait groups.  Used by the tensor-core bodies of
+// csrc/flash_attention.cu, csrc/attention_bwd.cuh,
 // csrc/quantized_attention.cu and csrc/quantized_gemm.cu.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
@@ -165,6 +166,16 @@ __device__ __forceinline__ uint32_t low_bytes(float a, float b, float c,
   return __byte_perm(
       __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x0040),
       __byte_perm(__float_as_uint(c), __float_as_uint(d), 0x0040), 0x5410);
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: results below 2^-126
+// flushed to 0, 2^-inf = 0).  exp2f adds instructions for the subnormal
+// range, which neither a bf16-rounded P nor the row sum l sees; in the
+// softmax bodies they cost more than the products.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats as a bf16x2 register (lo in the low half), rounded to nearest.

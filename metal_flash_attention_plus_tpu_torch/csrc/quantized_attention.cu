@@ -5,7 +5,9 @@
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
 //   - ops/quantized_attention.py::_qfwd_kernel   -> qattn_fwd_tc_kernel (a
 //     bf16 or int8 Q), qattn_fwd_kernel (an fp32 Q)
-//   - ops/quantized_attention.py::_hpack_kernel  -> hpack_fwd_kernel
+//   - ops/quantized_attention.py::_hpack_kernel  -> qattn_fwd_tc_kernel<bf16,
+//     64> (a bf16 Q), qattn_fwd_kernel<float, 64> (an fp32 Q), launched by
+//     mfa_hpack_fwd through the packed strides
 //
 // Layouts.  Q is [B, Hq, Sq, D] of T (float or bf16, pre-scaled by the
 // wrapper) or int8 with per-row fp32 scales qs [B, Hq, Sq]; the element of
@@ -29,13 +31,14 @@
 //   round(127 * 2^(s - m)) by +0.5 and truncation, times integer V; L drops
 //   ln 127).
 // Two bodies compute it.  A bf16 or int8 Q with ROUND_BF16 (every such call
-// of the port's forward) takes the tensor-core body, qattn_fwd_tc_kernel:
-// mma.sync s8 or bf16 products over K/V staged with cp.async (see its
-// comment below).  An fp32 Q (also quantized to int8: ROUND_BF16 off), and
-// the head-pair kernel, take the scalar body: scores with __dp4a (int8 x int8 -> int32, times the row's Q
-// scale) or fp32 FMAs over the staged values, P.V with fp32 FMAs.  fp32
-// stays off the tensor cores: TF32 keeps ~3 digits, and the fp32 modes are
-// held to 2e-5.
+// of the port's forward, and every bf16 head-pair call) takes the
+// tensor-core body, qattn_fwd_tc_kernel: mma.sync s8 or bf16 products over
+// K/V staged with cp.async (see its comment below).  An fp32 Q (also
+// quantized to int8: ROUND_BF16 off; also in the head-pair layout) takes
+// the scalar body: scores with __dp4a (int8 x int8 -> int32, times the
+// row's Q scale) or fp32 FMAs over the staged values, P.V with fp32 FMAs.
+// fp32 stays off the tensor cores: TF32 keeps ~3 digits, and the fp32
+// modes are held to 2e-5.
 // Numerics, shared with the plain versions in ops/quantized_attention.py:
 // base-2 online softmax in fp32; bias*log2(e) added after the K column
 // scale, then masked scores set to mask_value; O = acc / l (x the V channel
@@ -61,10 +64,15 @@
 //   moves both products onto mma.sync, with the payload staged as its
 //   integer bytes (cp.async, double-buffered) and widened once per tile in
 //   shared memory, so device memory sees only the integer bytes.  The
-//   head-pair kernel keeps the TPU's packed I/O (Q read and O written in
-//   [B, Hq/2, S, 128] through strides, no pack/unpack pass) but not its
-//   block-diagonal product: one CTA per (64 rows, b, head of the pair)
-//   needs none on Hopper.
+//   head-pair call is these bodies in one mode (K_NONE: the K scales folded
+//   into Q; V_STORE: the V channel scales at the store; ROUND_BF16) with
+//   the TPU's packed I/O (Q read and O written in [B, Hq/2, S, 128]
+//   through the strides, no pack/unpack pass) but not its block-diagonal
+//   product: one CTA per (64 rows, b, head of the pair) needs none on
+//   Hopper.  The odd head's lanes start 128 bytes (bf16 Q) or 256 bytes
+//   (fp32 O) into the packed row, so its 16-byte Q copies and float2 O
+//   stores stay aligned, and the shared memory takes 64 lanes a row as
+//   for an unpacked Q.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -334,22 +342,17 @@ __device__ __forceinline__ void qattn_body(const Args& a) {
   }
 }
 
-// Replaces ops/quantized_attention.py::_qfwd_kernel.
+// Replaces ops/quantized_attention.py::_qfwd_kernel for an fp32 Q, and
+// _hpack_kernel for an fp32 packed Q.
 template <typename QT, int D>
 __global__ void __launch_bounds__(THREADS) qattn_fwd_kernel(const Args a) {
   qattn_body<QT, D>(a);
 }
 
-// Replaces ops/quantized_attention.py::_hpack_kernel: d = 64, Q and O in the
-// packed head-pair layout, K/V scales folded (K into Q, V at the store).
-template <typename QT>
-__global__ void __launch_bounds__(THREADS) hpack_fwd_kernel(const Args a) {
-  qattn_body<QT, 64>(a);
-}
-
 // ---------------------------------------------------------------------------
 // The tensor-core body: qattn_fwd_kernel's bf16 and int8 Q instances with
-// ROUND_BF16 (every call of the port's forward whose Q is not fp32).
+// ROUND_BF16 (every call of the port's forward whose Q is not fp32, and
+// the head-pair call for a bf16 packed Q).
 //
 // One CTA per (64 query rows, b, q head), as the scalar body, with 4 warps
 // of 16 query rows each (FlashAttention-2's split: no warp shares a row, so
@@ -592,7 +595,8 @@ __device__ __forceinline__ void convert_vt(const uint8_t* raw, int bits,
 }
 
 // Replaces ops/quantized_attention.py::_qfwd_kernel for a bf16 or int8 Q
-// with ROUND_BF16.  Bound: operations (4*D per live pair, int8 or bf16).
+// with ROUND_BF16, and _hpack_kernel for a bf16 packed Q (D = 64).  Bound:
+// operations (4*D per live pair, int8 or bf16).
 template <typename QT, int D>
 __global__ void __launch_bounds__(TC_THREADS)
     qattn_fwd_tc_kernel(const Args a) {
@@ -820,16 +824,17 @@ __global__ void __launch_bounds__(TC_THREADS)
       m_next[i] = fmaxf(m[i], mx[i]);
       alpha[i] = (m[i] == -INFINITY) ? 0.f : exp2f(m[i] - m_next[i]);
     }
-    // P (0 where the score is -inf: exp2 of -inf - -inf would be NaN).
+    // P = 2^(s - m) (mma.cuh's ex2_approx).  A row whose max is still
+    // -inf (every score -inf) subtracts 0 instead, so its P is 0, not NaN.
+    const float mref[2] = {m_next[0] == -INFINITY ? 0.f : m_next[0],
+                           m_next[1] == -INFINITY ? 0.f : m_next[1]};
     if (p_int8) {  // (float)(int)(raw + 0.5f), raw < 2^23
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float x = s[j][e];
-          const bool dead = x == -INFINITY;
-          const float raw =
-              dead ? 0.f : exp2f(x + (LOG2_127 - m_next[e >> 1]));
+          const float raw = mfa::ex2_approx(x + (LOG2_127 - mref[e >> 1]));
           const float p = __fadd_rz(raw + 0.5f, 8388608.0f) - 8388608.0f;
           sum[e >> 1] += l_rounded ? p : raw;
           s[j][e] = p;
@@ -847,7 +852,7 @@ __global__ void __launch_bounds__(TC_THREADS)
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const float x = s[j][2 * i + c];
-            const float raw = x == -INFINITY ? 0.f : exp2f(x - m_next[i]);
+            const float raw = mfa::ex2_approx(x - mref[i]);
             const float p = __uint_as_float(mfa::bf16_bits(raw * vsc));
             sum[i] += l_rounded ? p : raw;
             s[j][2 * i + c] = p;
@@ -971,6 +976,8 @@ int launch(K kern, const Args& a, int B, int threads, size_t smem,
 // same answer): the tensor-core one for a bf16 or int8 Q with ROUND_BF16,
 // the scalar one for an fp32 Q and for an int8 Q without it (an fp32 Q
 // quantized to int8 keeps fp32 products); a bf16 Q always rounds to bf16.
+// The head-pair call (mfa_hpack_fwd, always ROUND_BF16) routes the same
+// way: bf16 to the tensor cores, fp32 to the scalar body.
 template <typename QT, int D>
 int launch_qattn(const Args& a, int B, cudaStream_t stream) {
   if constexpr (!std::is_same<QT, float>::value) {
@@ -1056,11 +1063,8 @@ int mfa_hpack_fwd(const void* q, const void* kq, const void* vq,
                Hq, Hkv, Sq, Skv, interleaved, bits_k, bits_v, K_NONE,
                V_STORE, ROUND_BF16, 1, 1, BN, mask_value};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_floats<64>() * sizeof(float);
-  if (qtype == 0)
-    return launch(hpack_fwd_kernel<float>, a, B, THREADS, smem, s);
-  if (qtype == 1)
-    return launch(hpack_fwd_kernel<__nv_bfloat16>, a, B, THREADS, smem, s);
+  if (qtype == 0) return launch_qattn<float, 64>(a, B, s);
+  if (qtype == 1) return launch_qattn<__nv_bfloat16, 64>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

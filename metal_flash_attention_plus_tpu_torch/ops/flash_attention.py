@@ -268,6 +268,19 @@ def flash_width(d: int) -> int:
                      f"to {FLASH_WIDTHS[-1]})")
 
 
+def fwd_body(dtype: torch.dtype, d: int) -> str:
+    """Which forward kernel :func:`flash_fwd` launches for a Q of ``dtype``
+    at head dim ``d``: "tensor_core" (``flash_fwd_tc_kernel``: bf16
+    mma.sync) for bf16 at a kernel width up to 256, "fp32_fma"
+    (``flash_fwd_kernel``: scalar fp32 FMAs) for fp32, whose 2e-5 gate TF32
+    would break, and for bf16 at MLA's width 288, whose fp32 accumulator
+    (144 registers a thread beside S) would spill.  The C launcher routes
+    the same way (``fwd_tc`` in ``csrc/flash_attention.cu``)."""
+    if dtype == torch.bfloat16 and flash_width(d) <= 256:
+        return "tensor_core"
+    return "fp32_fma"
+
+
 def pad_lanes(width: int, *tensors: torch.Tensor):
     """The tensors with their last dim zero-padded to ``width``."""
     return [t if t.shape[-1] == width else
@@ -397,8 +410,9 @@ def flash_fwd(
 
     ``row_ranges`` is the int32 [Sq, 2] table of :func:`row_ranges_tensor`;
     ``bias`` is fp32 [1 or B, 1 or Hq, Sq, Skv].  CPU tensors take
-    :func:`flash_attention_forward_plain`; CUDA tensors launch
-    ``flash_fwd_kernel`` or raise (at the head dim's :func:`flash_width`).
+    :func:`flash_attention_forward_plain`; CUDA tensors launch the kernel
+    :func:`fwd_body` names (``flash_fwd_tc_kernel`` or ``flash_fwd_kernel``)
+    at the head dim's :func:`flash_width`, or raise.
     """
     if q.device.type == "cpu":
         return flash_attention_forward_plain(

@@ -24,7 +24,8 @@ The TPU kernel ``_qfwd_kernel`` becomes ``csrc/quantized_attention.cu::
 qattn_fwd_tc_kernel`` (tensor cores; a bf16 or int8 Q) and
 ``qattn_fwd_kernel`` (fp32 FMAs; an fp32 Q) behind :func:`qattn_fwd`
 (:func:`qattn_body` says which); ``_hpack_kernel`` (the d=64
-head-pair layout) becomes ``hpack_fwd_kernel`` behind :func:`hpack_fwd`.
+head-pair layout) becomes the same two kernels at d=64, launched through
+the packed strides behind :func:`hpack_fwd`.
 On CUDA tensors each launches its kernel or raises; their plain PyTorch
 versions run for CPU tensors.  The TPU's tiles, schedules, ones-lane
 rowsum and host padding have no counterpart: one ``[Sq, 2]`` row-range
@@ -210,12 +211,15 @@ def qattn_body(q_dtype: torch.dtype, mode: QAttnMode,
     "tensor_core" (``qattn_fwd_tc_kernel``: mma.sync over int8 or bf16
     products) for a bf16 or int8 Q whose products round to bf16
     (``mode.round_bf16``, as every bf16 Q's do), "fp32_fma" (the scalar
-    body) for an fp32 Q, also one quantized to int8, and for the head-pair
-    kernel (``packed``).  fp32 stays off the tensor cores: TF32 keeps ~3
-    digits and the fp32 modes are held to 2e-5.  The C interface routes
-    the same way."""
-    if (not packed and q_dtype in (torch.bfloat16, torch.int8)
-            and mode.round_bf16):
+    body) for an fp32 Q, also one quantized to int8.  The head-pair call
+    (``packed``: :func:`hpack_fwd`, whose mode always rounds to bf16) runs
+    the same two bodies through the packed strides: "tensor_core" for a
+    bf16 packed Q, "fp32_fma" for an fp32 one.  fp32 stays off the tensor
+    cores: TF32 keeps ~3 digits and the fp32 modes are held to 2e-5.  The
+    C interface routes the same way."""
+    if packed:
+        return "tensor_core" if q_dtype == torch.bfloat16 else "fp32_fma"
+    if q_dtype in (torch.bfloat16, torch.int8) and mode.round_bf16:
         return "tensor_core"
     return "fp32_fma"
 
@@ -523,7 +527,7 @@ def pad_qattn_arguments(q, kq, vq, k_params, v_params, mode: QAttnMode):
 
 
 # ---------------------------------------------------------------------------
-# The d = 64 head-pair kernel over the packed layout
+# The d = 64 head-pair call over the packed layout
 # ---------------------------------------------------------------------------
 
 
@@ -576,7 +580,10 @@ def hpack_fwd(
     ``vsc`` the V scales per channel, fp32 [B, Hkv, 64].  Returns (o_packed
     fp32 [B, Hq/2, Sq, 128], l fp32 [B, Hq, Sq]); P is rounded to bf16
     whatever Q's dtype.  CPU tensors take :func:`hpack_fwd_plain`; CUDA
-    tensors launch ``hpack_fwd_kernel`` or raise."""
+    tensors launch the quantized forward's kernels through the packed
+    strides, no pack or unpack pass: ``qattn_fwd_tc_kernel`` (tensor
+    cores) for a bf16 Q, ``qattn_fwd_kernel`` (fp32 FMAs) for an fp32 one
+    (:func:`qattn_body` with ``packed=True``); or raise."""
     kw = dict(bits_k=bits_k, bits_v=bits_v, interleaved_kv=interleaved_kv,
               mask_value=mask_value)
     if q_packed.device.type == "cpu":

@@ -332,3 +332,16 @@ def test_dkv_body_follows_dtype_and_kernel_width(dtype, d):
     assert fbwd.dkv_body(dtype, d) == (
         "tensor_core" if tensor_core else "fp32_fma")
     assert (tfa.flash_width(d) <= 256) == (d <= 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288])
+def test_fwd_body_follows_dtype_and_kernel_width(dtype, d):
+    """The flash forward launches the tensor-core kernel for bf16 at a
+    kernel width up to 256 (48 runs at 64, 80 at 128) and the fp32-FMA
+    kernel for fp32 and for MLA's width 288 (272 runs at 288), as the C
+    launcher routes; it picks the same body as the dK/dV kernels."""
+    tensor_core = dtype == torch.bfloat16 and d <= 256
+    assert tfa.fwd_body(dtype, d) == (
+        "tensor_core" if tensor_core else "fp32_fma")
+    assert tfa.fwd_body(dtype, d) == fbwd.dkv_body(dtype, d)

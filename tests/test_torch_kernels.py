@@ -227,6 +227,21 @@ FLASH_CASES = {
     "gqa4_d256": (1, 8, 2, 200, 200, 256, masking.CAUSAL, None, None),
     "bias_d128": (2, 4, 2, 100, 130, 128, masking.CAUSAL, None,
                   (2, 1, 100, 130)),
+    # Where the tensor-core forward's walk is at risk (64-key tiles aligned
+    # from key 0): window rows starting mid-tile, so a row's first tiles
+    # are fully masked and alpha must wipe the mask_value transient; Sq
+    # not a multiple of 64 with empty rows (Sq > Skv, causal); a group of 4
+    # at D=256 with ragged Sq (both GQA layouts: every case runs
+    # interleaved too); bias at D=32 over an odd Skv (unaligned float2
+    # pairs).
+    "window_mid_tile": (1, 4, 2, 300, 300, 64, masking.sliding_window(
+        100, causal=True), None, None),
+    "ragged_sq_empty_rows": (1, 4, 2, 190, 120, 64, masking.CAUSAL, None,
+                             None),
+    "gqa4_d256_ragged": (1, 8, 2, 130, 200, 256, masking.CAUSAL, None,
+                         None),
+    "bias_d32": (2, 4, 2, 100, 131, 32, masking.CAUSAL, None,
+                 (2, 4, 100, 131)),
 }
 
 
@@ -566,6 +581,12 @@ QATTN_CASES = {
                                masking.FULL, QQ),
     "tc_folded_row_d96": (1, 4, 2, 130, 130, 96, ROW8, ROW8, BF16,
                           masking.CAUSAL, {}),
+    # The head-pair call's own mode, unpacked (hpack_fwd runs this body
+    # through the packed strides for a bf16 Q): CHANNEL K folded into Q
+    # (K_NONE), CHANNEL V at the store (V_STORE), P rounded to bf16, l
+    # summing it unrounded.
+    "tc_head_pair_mode": (1, 4, 2, 130, 130, 64, CH8, CH8, BF16,
+                          masking.CAUSAL, dict(head_pair_mode=True)),
 }
 
 
@@ -596,9 +617,14 @@ def test_qattn_kernel_matches_plain(cuda_device, name):
     q, kq, vq = _qattn_inputs(cuda_device, b, hq, hkv, sq, skv, d, kcfg,
                               vcfg, dtype)
     opts = dict(opts)
+    head_pair = opts.pop("head_pair_mode", False)
     if "bias" in opts:
         opts["bias"] = torch.randn(opts["bias"], device=cuda_device)
     args, kw = qa.qattn_arguments(q, kq, vq, mask=mask, **opts)
+    if head_pair:  # hpack_fwd's mode: l sums the unrounded P
+        kw["mode"] = dataclasses.replace(kw["mode"], l_rounded=False)
+        assert kw["mode"] == qa.QAttnMode(k_scales="none", v_scales="store")
+        assert qa.qattn_body(args[0].dtype, kw["mode"]) == "tensor_core"
     # The public forward's spans: the TPU's block_kv for an int8 P.
     tile = (qa.int8_p_tile(BlockSizes(), skv) if kw["mode"].p_int8
             else None)
@@ -612,9 +638,10 @@ def test_qattn_kernel_matches_plain(cuda_device, name):
     assert o.dtype == torch.float32 and o.shape == o_ref.shape
     assert _rel(o, o_ref) <= tol_o
     assert _rel(lse, l_ref) <= tol_l
-    fwd, _ = qa.quantized_flash_attention_forward(q, kq, vq, mask=mask,
-                                                  **opts)
-    assert torch.equal(fwd, o)
+    if not head_pair:  # the public forward runs the mode it was given
+        fwd, _ = qa.quantized_flash_attention_forward(q, kq, vq, mask=mask,
+                                                      **opts)
+        assert torch.equal(fwd, o)
 
 
 @pytest.mark.cuda
@@ -629,23 +656,37 @@ def test_qattn_hadamard_through_the_kernel(cuda_device):
     assert _rel(lse.cpu(), l_ref) <= TOLERANCES["fp32"]
 
 
+HPACK_CASES = {
+    # name: (b, hq, hkv, sq, skv, options); ragged: Sq not a multiple of
+    # 64 (the odd head's last rows past Sq).
+    "rect": (2, 8, 2, 256, 320, {}),
+    "ragged_sq": (1, 8, 2, 200, 200, {}),
+    "interleaved": (1, 8, 2, 256, 256, dict(interleaved_kv=True)),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("mask", [masking.FULL, masking.CAUSAL],
                          ids=["full", "causal"])
-def test_hpack_kernel_matches_plain(cuda_device, mask, bits, dtype):
+@pytest.mark.parametrize("case", sorted(HPACK_CASES))
+def test_hpack_kernel_matches_plain(cuda_device, case, mask, bits, dtype):
+    """The head-pair call (a bf16 Q: the tensor-core body; fp32: the
+    scalar one) against its plain version."""
+    b, hq, hkv, sq, skv, opts = HPACK_CASES[case]
     kcfg, vcfg = (CH8, TEN8) if bits == 8 else (CH4, _qcfg(bits=4,
                                                           gran="tensor"))
-    q, kq, vq = _qattn_inputs(cuda_device, 2, 8, 2, 256, 320, 64, kcfg,
+    q, kq, vq = _qattn_inputs(cuda_device, b, hq, hkv, sq, skv, 64, kcfg,
                               vcfg, dtype, seed=bits)
-    args, kw = qa.hpack_arguments(qa.pack_heads(q), kq, vq, mask=mask)
+    args, kw = qa.hpack_arguments(qa.pack_heads(q), kq, vq, mask=mask,
+                                  **opts)
     n = qa.hpack_fwd.launches
     o, lse = qa.hpack_fwd(*args, **kw)
     torch.cuda.synchronize()
     assert qa.hpack_fwd.launches == n + 1
     o_ref, l_ref = qa.hpack_fwd_plain(*args, **kw)
-    assert o.shape == (2, 4, 256, 128) and lse.shape == (2, 8, 256)
+    assert o.shape == (b, hq // 2, sq, 128) and lse.shape == (b, hq, sq)
     assert _rel(o, o_ref) <= BF16_TOL
     assert _rel(lse, l_ref) <= TOLERANCES["lse"]
 

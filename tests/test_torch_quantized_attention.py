@@ -483,8 +483,9 @@ def test_kernel_body_follows_q_dtype_and_mode(name):
     """``qattn_body`` routes as the C interface does: the tensor-core body
     for a bf16 or int8 Q whose products round to bf16, the fp32-FMA body
     for an fp32 Q (``quantize_q`` makes it int8 but keeps the compute dtype
-    fp32, so P stays unrounded), and for the head-pair kernel whatever its
-    Q."""
+    fp32, so P stays unrounded).  The head-pair call, whose packed Q is
+    bf16 or fp32 and whose mode always rounds to bf16, takes the
+    tensor-core body for a bf16 Q and the fp32-FMA body for an fp32 one."""
     kcfg, vcfg, qdtype, opts, want = BODIES[name]
     _, (tq, tk, tv) = _inputs(np.random.default_rng(3), 1, 2, 1, 64, 64, 64,
                               kcfg, vcfg, qdtype)
@@ -492,5 +493,5 @@ def test_kernel_body_follows_q_dtype_and_mode(name):
     assert args[0].dtype == (torch.int8 if opts else tq.dtype)
     assert kw["mode"].round_bf16 == (tq.dtype != torch.float32)
     assert tqa.qattn_body(args[0].dtype, kw["mode"]) == want
-    assert tqa.qattn_body(args[0].dtype, kw["mode"],
-                          packed=True) == "fp32_fma"
+    assert tqa.qattn_body(tq.dtype, kw["mode"], packed=True) == (
+        "tensor_core" if tq.dtype == torch.bfloat16 else "fp32_fma")
