@@ -26,7 +26,10 @@ checkout, then, on the card:
    the same call with ``attn_fn=plain_attention``;
 7. the training path: ``make_train_step`` trains the bf16 flagship with
    Adam for 8 steps on one seeded batch of 4 × 2049 tokens, with the flash
-   kernels' launch counts set to 0 just before and read after;
+   kernels' launch counts set to 0 just before and read after; then the
+   same 8 steps twice more from the same initial parameters, the two runs
+   equal bit for bit after every step (parameters and gradients) and their
+   final parameters equal to the first run's;
 8. kernel, plain-version and library (SDPA) times at the engine's and the
    train step's shapes;
 9. the quantized serving slice (inputs from a second generator, seed + 1,
@@ -138,9 +141,9 @@ Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
 Phases 10 (f), 13 (c), 8, 11 (d) and 12 (h) log which body the quantized
 forward and the head-pair call, the quantized-A GEMMs (folded and
-dequantizing), the flash forward and the dK/dV kernels run
-(``qattn_body``, ``qa_gemm_body``, ``fwd_body``, ``dkv_body``: tensor
-cores or fp32 FMAs).
+dequantizing), the flash forward and the dQ and dK/dV kernels run
+(``qattn_body``, ``qa_gemm_body``, ``fwd_body``, ``dq_body``,
+``dkv_body``: tensor cores or fp32 FMAs).
 
 ``--parent DIR`` (a checkout of the parent commit, e.g. ``git archive``
 into a directory ``.gitignore`` lists) also builds DIR's kernels, at once
@@ -225,6 +228,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     dkv_body,
+    dq_body,
     flash_attention_dkv_plain,
     flash_attention_dq_plain,
     flash_dkv,
@@ -317,7 +321,11 @@ from metal_flash_attention_plus_tpu_torch.utils.profiling import (
     north_star_grads,
     north_star_inputs,
     gemm_arm,
+    clone_params,
+    params_digest,
     smoke_requests,
+    train_tokens,
+    train_twice,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s,
@@ -383,6 +391,22 @@ REDESIGNED = ("mma.sync tensor-core body for its bf16 (and int8) instances, "
               "cp.async staging")
 QBWD_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
                "quantized_attention_bwd.cu")
+# The device kernel each record entry's wrapper launches at the entry's
+# (main-path) shape.
+DEVICE_KERNELS = {
+    "paged_decode": "paged_decode_kernel",
+    "paged_prefill": "paged_prefill_kernel", "dyn_gemm": "dyn_gemm_kernel",
+    "flash_fwd": "flash_fwd_tc_kernel", "flash_dq": "flash_dq_tc_kernel",
+    "flash_dkv": "flash_dkv_tc_kernel", "qattn_fwd": "qattn_fwd_tc_kernel",
+    "hpack_fwd": "qattn_fwd_tc_kernel",
+    "runtime_quantize_row": "rtq_row_kernel",
+    "runtime_quantize_block": "rtq_block_kernel",
+    "qflash_dq": "qflash_dq_tc_kernel", "qflash_dkv": "qflash_dkv_tc_kernel",
+    "fullint_dq": "fullint_dq_kernel", "fullint_dkv": "fullint_dkv_kernel",
+    "wo_folded_gemm": "wo_folded_kernel", "wo_gemm": "wo_kernel",
+    "qa_folded_gemm": "qa_tc_kernel", "qa_gemm": "qa_tc_kernel",
+    "comp_gemm": "comp_tc_kernel", "comp_small_gemm": "comp_small_kernel",
+}
 
 
 def log(msg: str):
@@ -847,8 +871,7 @@ def check_train_grads(cfg, params, rng):
 
 
 def run_train(cfg, params, seed):
-    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(DEV)
+    tokens = train_tokens(cfg, seed, DEV)  # 4 x 2049: TRAIN_BATCH, TRAIN_SEQ
     optimizer = torch.optim.Adam(trainable_parameters(params), lr=3e-3)
     step = make_train_step(cfg, optimizer)
     state = optimizer.state
@@ -879,6 +902,26 @@ def run_train(cfg, params, seed):
         raise AssertionError(f"launch counts {launches}, expected {want} "
                              "each")
     return launches, tokens_per_s
+
+
+def check_train_determinism(cfg, init, seed, trained):
+    """Phase 7's training, from its initial parameters ``init``, run twice
+    more (``train_twice``): the two runs equal bit for bit after each step,
+    and their final parameters equal phase 7's (``trained``)."""
+    rows, final = train_twice(cfg, init, train_tokens(cfg, seed, DEV),
+                              TRAIN_STEPS)
+    digests = (params_digest(final), params_digest(trained))
+    differ = [r for r in rows if r["params_differ"] or r["grads_differ"]
+              or r["losses"][0] != r["losses"][1]]
+    log(f"train determinism: two runs of {TRAIN_STEPS} steps from phase "
+        f"7's initial parameters equal bit for bit after every step: "
+        f"{not differ}; their final parameters equal phase 7's: "
+        f"{digests[0] == digests[1]} (sha256 {digests[0][:16]})")
+    if differ or digests[0] != digests[1]:
+        raise AssertionError(f"training is not deterministic: {differ[:2]} "
+                             f"{digests}")
+    return {"steps": TRAIN_STEPS, "bitwise_equal": True,
+            "params_sha256": digests[0]}
 
 
 # --------------------------------------------------------------------------
@@ -1034,10 +1077,9 @@ def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
         t["ms_2"] = time_ms(kernel, 10, warmup=0)
         t["library_ms"] = library["fwd" if name == "flash_fwd" else "bwd"]
         t["bound_ms"], t["bound_by"] = bound_of(*work[name])
-        if name in ("flash_fwd", "flash_dkv"):
-            t["body"] = (fwd_body if name == "flash_fwd" else dkv_body)(
-                q.dtype, d)
-            log(f"{name} at D={d} runs the {t['body']} body")
+        t["body"] = {"flash_fwd": fwd_body, "flash_dq": dq_body,
+                     "flash_dkv": dkv_body}[name](q.dtype, d)
+        log(f"{name} at D={d} runs the {t['body']} body")
         parent_turns(f"{name} B={b} S={s} D={d}", t, kernel, 10)
         times[name] = t
         log(f"{name} times at B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
@@ -2159,9 +2201,10 @@ def time_quantized_backward(ns_args, qat_inputs):
                        + 4 * b * h * s + 4 * b * h * d + 4 * n_q + stats
                        + 8 * s)),
     }
-    times["qflash_dkv"]["body"] = dkv_body(e_dkv[0].dtype, d)
-    log(f"qflash_dkv at the north-star (D={d}) runs the "
-        f"{times['qflash_dkv']['body']} body")
+    for name, body in (("qflash_dq", dq_body), ("qflash_dkv", dkv_body)):
+        times[name]["body"] = body(e_dkv[0].dtype, d)
+        log(f"{name} at the north-star (D={d}) runs the "
+            f"{times[name]['body']} body")
     del lib, kd, vd, args, f_dq, f_dkv, e_dq, e_dkv, fwd_a
     # K1/K2 in QAT's mode at the flagship's attention shapes (causal).
     q, k, v, do = qat_inputs
@@ -2191,9 +2234,10 @@ def time_quantized_backward(ns_args, qat_inputs):
                                   + 8 * s))
         times[name].update({f"{key}_qat_mode": t[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms")})
-    times["qflash_dkv"]["body_qat_mode"] = dkv_body(e_dkv[0].dtype, d)
-    log(f"qflash_dkv in QAT's mode (D={d}) runs the "
-        f"{times['qflash_dkv']['body_qat_mode']} body")
+    for name, body in (("qflash_dq", dq_body), ("qflash_dkv", dkv_body)):
+        times[name]["body_qat_mode"] = body(e_dkv[0].dtype, d)
+        log(f"{name} in QAT's mode (D={d}) runs the "
+            f"{times[name]['body_qat_mode']} body")
     return times
 
 
@@ -3014,8 +3058,13 @@ def main() -> int:
     phase_s["qattn_forward_init"] = time.perf_counter() - t
 
     t = time.perf_counter()
+    train_init = clone_params(params)
     train_launches, train_tps = run_train(cfg, params, args.seed)
     phase_s["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    train_det = check_train_determinism(cfg, train_init, args.seed, params)
+    del train_init
+    phase_s["train_determinism"] = time.perf_counter() - t
 
     t = time.perf_counter()
     with torch.inference_mode():
@@ -3316,9 +3365,13 @@ def main() -> int:
                 "parent_turns_ms") if key in small},
             **({"parent_turns_ms": big["parent_turns_ms"]}
                if "parent_turns_ms" in big else {}),
-            **({"body": qa_gemm_body(torch.bfloat16),
-                "redesigned": REDESIGNED} if name.startswith("qa") else {}),
+            **({"body": (qa_gemm_body(torch.bfloat16)
+                         if name.startswith("qa") else "tensor_core"),
+                "redesigned": REDESIGNED}
+               if name != "comp_small_gemm" else {}),
         })
+    for entry in record["kernels"]:
+        entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
     record["gemm_engine"] = {
         "matmul_rel_l2": {k: v["rel_l2"] for k, v in gemm["matmul"].items()},
     }
@@ -3344,7 +3397,8 @@ def main() -> int:
         "facade_rel_l2": {k: v[0] for k, v in qattn["facade"].items()},
     }
     record["train"] = {"tokens_per_s": train_tps,
-                       "grad_rel_l2_worst": grad_worst}
+                       "grad_rel_l2_worst": grad_worst,
+                       "determinism": train_det}
     record["quantized_serving"] = {
         "logits_rel_l2": quant["logits_rel_l2"],
         "logits_rel_l2_random_init_not_gated": init_logits,

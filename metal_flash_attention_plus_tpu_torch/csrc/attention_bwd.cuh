@@ -12,10 +12,11 @@
 // dbias = dS; dQ = round_T(dS (x ksr)).K x (dqsc or scale);
 // dV = round_T(P)^T.dO; dK = round_T(dS)^T.Q_s.
 //
-// Two dK/dV bodies: dkv_body, scalar fp32 FMAs over the transposed fp32
-// tiles (every fp32 instance, and bf16 at D = 288), and dkv_tc_body, bf16
-// mma.sync over bf16 tiles (the bf16 instances up to D = 256: dkv_tc says
-// which; ops/flash_attention_bwd.py::dkv_body gives the same answer).
+// Two bodies each: dq_body and dkv_body, scalar fp32 FMAs over the
+// transposed fp32 tiles (every fp32 instance, and bf16 at D = 288), and
+// dq_tc_body and dkv_tc_body, bf16 mma.sync over bf16 tiles (the bf16
+// instances up to D = 256: dq_tc / dkv_tc say which;
+// ops/flash_attention_bwd.py::dq_body / dkv_body give the same answer).
 // fp32 stays off the tensor cores: TF32 keeps ~3 digits and the fp32
 // instances are held to 2e-5.
 #pragma once
@@ -703,6 +704,289 @@ __device__ __forceinline__ void dkv_tc_body(const BwdArgs& a, const KV& kv) {
           make_float2(dk[j][2 * i], dk[j][2 * i + 1]);
       *reinterpret_cast<float2*>(dvr + 8 * j) =
           make_float2(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// The tensor-core dQ body (T = bf16, D <= 256)
+//
+// dq_body's grid and numerics on bf16 mma.sync: one CTA per (64 query rows,
+// b, q head), the row tiles last first (under a causal mask they walk the
+// most keys), walking the live key span [min start, max end) of its rows in
+// 64-key tiles aligned from key 0.  Q (scaled and rounded to Q_s in place
+// where SCALE_Q, bit for bit as stage_t<T, D, true>) and dO stay resident
+// as bf16 rows; each key tile's K and V rows arrive by cp.async while the
+// previous tile computes: bf16 rows into one of two buffers, or payload
+// rows into one of two scratch buffers, dequantized into one bf16 tile at
+// the start of the tile's step (KV::RAW), as dq_body's staging rounds them;
+// the per-token ksr / vsr beside them.  L, D and the key ranges are read
+// once per row.  The 4 * NS warps (NS = dkv_tc_split) take 16 query rows
+// each:
+//   - S = Q_s.K^T and dP = dO.V^T by bf16 m16n8k16 into fp32, a warp its
+//     16 rows x 64 / NS key columns (ldmatrix of both operands' rows:
+//     mma_nt), times ksr / vsr where given;
+//   - P = 2^(S log2(e) + bias log2(e) - L log2(e)) (ex2.approx.ftz; 0 where
+//     masked, no mask select on a key range every row of the warp keeps),
+//     dS = P (dP - D), dbias = dS on request;
+//   - dQ += round_bf16(dS (x ksr)).K by bf16 m16n8k16 into fp32, a warp its
+//     16 rows x D / NS lanes, K read by ldmatrix.trans (mma_rn).  With
+//     NS = 1 (D <= 64) the dS fragments are the A operand as they are (the
+//     C fragment of two m16n8 blocks is the A fragment of one m16n8k16);
+//     with NS > 1 they pass through one bf16 [64][64] tile.
+// dQ is stored times dqsc[d] or scale.  Registers: the dQ accumulator takes
+// D / (2 NS) fp32 a thread, S and dP 32 / NS each, so NS = D / 64 keeps
+// D = 256 at ~125 (~165 at D <= 64, where one warp holds S and dP for all
+// 64 keys); shared memory ~208 KB at D = 256 (one CTA an SM), ~112 KB at
+// D = 128 (two), ~55 KB at D = 64 (three, as the registers allow).
+// ---------------------------------------------------------------------------
+
+template <int D>
+__host__ __device__ constexpr int dq_tc_threads() {
+  return 128 * dkv_tc_split<D>();
+}
+
+// CTAs an SM the body is compiled for: three 4-warp CTAs at D <= 64 (<= 170
+// registers a thread), two at D = 128, one at D = 256.
+template <int D>
+__host__ __device__ constexpr int dq_tc_min_blocks() {
+  return D <= 64 ? 3 : (D <= 128 ? 2 : 1);
+}
+
+// Whether the dQ of T at head dim D runs dq_tc_body (else dq_body);
+// ops/flash_attention_bwd.py::dq_body gives the same answer.
+template <typename T, int D>
+__host__ __device__ constexpr bool dq_tc() {
+  return dkv_tc<T, D>();
+}
+
+// Byte offsets of dq_tc_body's shared memory.  RAW: K and V arrive as
+// payload rows (D bytes, two buffers each) dequantized into one bf16 tile
+// each; else as bf16 rows into two tiles each.
+template <int D, bool RAW>
+struct DqTcSmem {
+  static constexpr int NS = dkv_tc_split<D>();
+  static constexpr int ROW = 2 * D + 16;    // a bf16 row [.., D]
+  static constexpr int TILE = BN * ROW;     // 64 rows
+  static constexpr int S_LD = 2 * BN + 16;  // a dS row [query][64 keys]
+  static constexpr int KV_BUFS = RAW ? 1 : 2;
+  static constexpr int Q = 0;
+  static constexpr int DO = TILE;
+  static constexpr int K = 2 * TILE;
+  static constexpr int V = K + KV_BUFS * TILE;
+  static constexpr int RAW_K = V + KV_BUFS * TILE;  // two buffers
+  static constexpr int RAW_V = RAW_K + (RAW ? 2 * BN * D : 0);
+  static constexpr int SC = RAW_V + (RAW ? 2 * BN * D : 0);  // ksr|vsr, x2
+  static constexpr int DS = SC + 2 * 2 * BN * 4;
+  static constexpr size_t BYTES = DS + (NS > 1 ? BM * S_LD : 0);
+};
+
+// The tensor-core dQ (see above).  KV: tc_load / tc_convert as for
+// dkv_tc_body, and RAW (whether tc_load fills the scratch and tc_convert
+// the tile).
+template <int D, bool SCALE_Q, typename KV>
+__device__ __forceinline__ void dq_tc_body(const BwdArgs& a, const KV& kv) {
+  using L = DqTcSmem<D, KV::RAW>;
+  constexpr int NS = L::NS;
+  constexpr int NT = dq_tc_threads<D>();
+  constexpr int KW = BN / NS;  // key columns of a warp's S, dP
+  constexpr int NKB = KW / 8;
+  constexpr int DW = D / NS;  // dQ lanes a warp accumulates
+  constexpr int NDB = DW / 8;
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  __shared__ int s_lo, s_hi;
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rw = warp & 3;     // query rows r0 + 16 rw + [0, 16)
+  const int part = warp >> 2;  // key columns part * KW, dQ lanes part * DW
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bh = (size_t)b * a.Hq + h;
+  const size_t bk = (size_t)b * a.Hkv + hk;
+  const float* bh_bias =
+      a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  const float* ksr = a.ksr ? a.ksr + bk * Skv : nullptr;
+  const float* vsr = a.vsr ? a.vsr + bk * Skv : nullptr;
+  uint8_t* sq = smem_tc + L::Q;
+  const uint8_t* sdo = smem_tc + L::DO;
+
+  stage_rows_async<D, L::ROW, NT>(
+      static_cast<const __nv_bfloat16*>(a.q) + bh * Sq * D, r0, Sq, sq);
+  stage_rows_async<D, L::ROW, NT>(
+      static_cast<const __nv_bfloat16*>(a.dout) + bh * Sq * D, r0, Sq,
+      smem_tc + L::DO);
+  cp_async_commit();
+  key_span(a.ranges, r0, Sq, Skv, &s_lo, &s_hi);
+  const int c_hi = s_hi;
+  const int c0 = (s_lo / BN) * BN;
+  const int tiles = c0 < c_hi ? (c_hi - c0 + BN - 1) / BN : 0;
+  // Tile it's K and V rows (and ksr, vsr) into buffer `buf`: zeros from
+  // c_hi.
+  auto load = [&](int it, int buf) {
+    const int t0 = c0 + it * BN;
+    kv.template tc_load<NT, L::ROW>(false, bk, t0, c_hi,
+                                   smem_tc + L::K + buf * L::TILE,
+                                   smem_tc + L::RAW_K + buf * BN * D);
+    kv.template tc_load<NT, L::ROW>(true, bk, t0, c_hi,
+                                   smem_tc + L::V + buf * L::TILE,
+                                   smem_tc + L::RAW_V + buf * BN * D);
+    float* sc = reinterpret_cast<float*>(smem_tc + L::SC) + buf * 2 * BN;
+    const int i = threadIdx.x;
+    const float* src = i < BN ? ksr : vsr;
+    if (i < 2 * BN && src) {
+      const bool ok = t0 + i % BN < c_hi;
+      cp_async4(sc + i, ok ? src + t0 + i % BN : src, ok ? 4 : 0);
+    }
+  };
+  if (tiles > 0) load(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // Q's and dO's rows landed
+  if (SCALE_Q) scale_rows_bf16<D, L::ROW, NT>(sq, a.scale);
+
+  // This thread's rows: r0 + 16 rw + g + 8i.
+  float l2[2], dd[2];
+  int rs[2];
+  unsigned span[2];
+  int live_lo = 0, live_hi = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 16 * rw + g + 8 * i;
+    int st, en;
+    row_range(a.ranges, row, Sq, Skv, st, en);
+    rs[i] = st;
+    span[i] = (unsigned)max(en - st, 0);
+    live_lo = max(live_lo, st);
+    live_hi = min(live_hi, en);
+    const float lv = row < Sq ? a.lse[bh * Sq + row] : 0.f;
+    l2[i] = lv == -INFINITY ? 0.f : lv * LOG2E;
+    dd[i] = row < Sq ? a.di[bh * Sq + row] : 0.f;
+  }
+  // Keys [live_lo, live_hi) are live in every row of this warp.
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    live_lo = max(live_lo, __shfl_xor_sync(0xffffffffu, live_lo, off));
+    live_hi = min(live_hi, __shfl_xor_sync(0xffffffffu, live_hi, off));
+  }
+
+  float acc[NDB][4];
+#pragma unroll
+  for (int j = 0; j < NDB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1;
+    const int t0 = c0 + it * BN;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it staged, Q scaled; tile it - 1 done
+    if (it + 1 < tiles) load(it + 1, buf ^ 1);
+    cp_async_commit();
+    const int kb = KV::RAW ? 0 : buf;
+    uint8_t* sk = smem_tc + L::K + kb * L::TILE;
+    uint8_t* sv = smem_tc + L::V + kb * L::TILE;
+    if constexpr (KV::RAW) {
+      kv.template tc_convert<NT, L::ROW>(false, bk, t0, c_hi, sk,
+                                        smem_tc + L::RAW_K + buf * BN * D);
+      kv.template tc_convert<NT, L::ROW>(true, bk, t0, c_hi, sv,
+                                        smem_tc + L::RAW_V + buf * BN * D);
+      __syncthreads();  // K and V dequantized
+    }
+    const float* sks =
+        reinterpret_cast<const float*>(smem_tc + L::SC) + buf * 2 * BN;
+
+    // S and dP for rows 16 rw + [0, 16) and keys kc0 + [0, KW): element
+    // (row g + 8i, key kc0 + 8j + 2tq + c) at [j][2i + c].
+    const int kc0 = part * KW;
+    float s[NKB][4], dp[NKB][4];
+#pragma unroll
+    for (int j = 0; j < NKB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_nt<D / 16, NKB, L::ROW, L::ROW>(sq, 16 * rw, sk, kc0, s);
+    mma_nt<D / 16, NKB, L::ROW, L::ROW>(sdo, 16 * rw, sv, kc0, dp);
+    if (ksr) {
+#pragma unroll
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sks[kc0 + 8 * j + 2 * tq + (e & 1)];
+    }
+    if (vsr) {
+#pragma unroll
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] *= sks[BN + kc0 + 8 * j + 2 * tq + (e & 1)];
+    }
+
+    // P, dS (dbias) in dq_body's order; s[j][e] becomes dS (x ksr), the
+    // value dS.K rounds.
+    const bool whole = t0 + kc0 >= live_lo && t0 + kc0 + KW <= live_hi;
+#pragma unroll
+    for (int j = 0; j < NKB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int row = r0 + 16 * rw + g + 8 * i;
+        const int key = t0 + kc0 + 8 * j + 2 * tq + (e & 1);
+        float x = s[j][e];
+        if (bh_bias && row < Sq && key < Skv)
+          x += bh_bias[(size_t)row * Skv + key];
+        float p = ex2_approx(fmaf(x, LOG2E, -l2[i]));
+        if (!whole) p = (unsigned)(key - rs[i]) < span[i] ? p : 0.f;
+        const float ds = p * (dp[j][e] - dd[i]);
+        if (a.out1 && row < Sq && key < Skv)
+          a.out1[(bh * Sq + row) * Skv + key] = ds;
+        s[j][e] = ksr ? ds * sks[kc0 + 8 * j + 2 * tq + (e & 1)] : ds;
+      }
+
+    // dQ += round_bf16(dS).K, 16 keys a step: the A fragments from the
+    // warp's own C fragments (NS = 1) or from the CTA's dS tile.
+    uint8_t* sds = smem_tc + L::DS;
+    if constexpr (NS > 1) {
+#pragma unroll
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<uint32_t*>(
+              sds + (16 * rw + g + 8 * i) * L::S_LD +
+              (kc0 + 8 * j + 2 * tq) * 2) =
+              pack_bf16(s[j][2 * i], s[j][2 * i + 1]);
+      __syncthreads();  // the CTA's dS tile
+    }
+    const int a_off =
+        (16 * rw + ldsm_a_row(lane)) * L::S_LD + ldsm_a_byte(lane);
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      uint32_t af[4];
+      if constexpr (NS == 1)
+        c_to_a_bf16(s, kc, af);
+      else
+        ldsm_x4(af, sds + a_off + kc * 32);
+      mma_rn<NDB, L::ROW>(af, sk, 16 * kc, part * DW, acc);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 16 * rw + g + 8 * i;
+    if (row >= Sq) continue;
+    float* out = a.out0 + (bh * Sq + row) * D + part * DW + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NDB; ++j) {
+      const int d = part * DW + 8 * j + 2 * tq;
+      const float m0 = a.dqsc ? a.dqsc[bk * D + d] : a.scale;
+      const float m1 = a.dqsc ? a.dqsc[bk * D + d + 1] : a.scale;
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * i] * m0, acc[j][2 * i + 1] * m1);
     }
   }
 }

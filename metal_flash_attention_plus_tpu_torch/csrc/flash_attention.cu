@@ -4,7 +4,8 @@
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
 //   - ops/flash_attention.py::_fwd_kernel         -> flash_fwd_tc_kernel
 //     (bf16 up to D = 256), flash_fwd_kernel (fp32, and bf16 at D = 288)
-//   - ops/flash_attention_bwd.py::_dq_kernel      -> flash_dq_kernel
+//   - ops/flash_attention_bwd.py::_dq_kernel      -> flash_dq_tc_kernel
+//     (bf16 up to D = 256), flash_dq_kernel (fp32, and bf16 at D = 288)
 //   - ops/flash_attention_bwd.py::_dkv_kernel     -> flash_dkv_tc_kernel
 //     (bf16 up to D = 256), flash_dkv_kernel (fp32, and bf16 at D = 288)
 //
@@ -36,14 +37,15 @@
 //   4*D operations per live query-key pair for the forward (~34 G), 6*D
 //   for dQ, 8*D for dK/dV, i.e. compute bound on the tensor cores (989
 //   TFLOP/s bf16) by a wide margin over the ~40 MB of bytes.  So the bf16
-//   forward and dK/dV up to D = 256 run on the tensor cores (bf16 mma.sync
-//   into fp32, operands staged by cp.async): flash_fwd_tc_kernel below and
+//   forward, dQ and dK/dV up to D = 256 run on the tensor cores (bf16
+//   mma.sync into fp32, operands staged by cp.async): flash_fwd_tc_kernel
+//   below, flash_dq_tc_kernel (attention_bwd.cuh::dq_tc_body) and
 //   flash_dkv_tc_kernel (attention_bwd.cuh::dkv_tc_body).  fp32 stays on
 //   scalar fp32 FMAs (67 TFLOP/s peak): TF32 keeps ~3 digits and the fp32
 //   instances are held to 2e-5.  So does bf16 at MLA's D = 288, where the
 //   forward's accumulator (144 fp32 registers a thread beside S) would
-//   spill and the dK/dV's double-buffered tiles overflow shared memory.
-//   The scalar kernels, and dQ, use 256 threads on a 64 x 64 tile, 4 x 4
+//   spill and the dQ's and dK/dV's double-buffered tiles overflow shared
+//   memory.  The scalar kernels use 256 threads on a 64 x 64 tile, 4 x 4
 //   scores per thread; operands are staged in shared memory as fp32,
 //   transposed ([D][64 + 4]) so a thread's four rows and four columns are
 //   16-byte vectors and the products read two vectors per 16 FMAs.
@@ -57,7 +59,10 @@
 //     its comment).
 //   - dQ: one CTA per (64 query rows, b, q head); Q_s^T and dO^T stay in
 //     shared memory; per KV tile V^T then K^T are staged in one buffer, and
-//     K^T serves both S = Q_s.K^T and dQ += dS.K.
+//     K^T serves both S = Q_s.K^T and dQ += dS.K.  The bf16 instances up to
+//     D = 256 keep that grid on the tensor cores (flash_dq_tc_kernel:
+//     attention_bwd.cuh::dq_tc_body, Q and dO resident as bf16 rows, K and
+//     V double-buffered by cp.async).
 //   - dK/dV: one CTA per (64 keys, b, kv head) owns its tile's dK and dV,
 //     looping over the GQA group's q heads x the live query rows (the span
 //     of rows whose range meets the tile), so the group reduction needs no
@@ -509,14 +514,24 @@ struct FloatKV {
   __device__ __forceinline__ void tc_convert(bool, size_t, int, int,
                                              uint8_t*,
                                              const uint8_t*) const {}
+  static constexpr bool RAW = false;  // tc_load fills the bf16 tile
 };
 
 // Replaces ops/flash_attention_bwd.py::_dq_kernel.  Bound: operations
-// (6*D per live pair: S, dP, dQ).
+// (6*D per live pair: S, dP, dQ).  The fp32 instances and bf16 at D = 288;
+// the other bf16 ones take flash_dq_tc_kernel (mfa::dq_tc).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const BwdArgs a, const FloatKV<T, D> kv) {
   mfa::dq_body<T, D, true>(a, kv);
+}
+
+// The same on the tensor cores: bf16 up to D = 256 (attention_bwd.cuh).
+template <int D>
+__global__ void __launch_bounds__(mfa::dq_tc_threads<D>(),
+                           mfa::dq_tc_min_blocks<D>())
+flash_dq_tc_kernel(const BwdArgs a, const FloatKV<__nv_bfloat16, D> kv) {
+  mfa::dq_tc_body<D, true>(a, kv);
 }
 
 // Replaces ops/flash_attention_bwd.py::_dkv_kernel.  Bound: operations
@@ -588,7 +603,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                          sp.Skv};
   const dim3 grid(DQ ? (sp.Sq + BM - 1) / BM : (sp.Skv + BN - 1) / BN,
                   DQ ? sp.Hq : sp.Hkv, sp.B);
-  if constexpr (DQ)
+  if constexpr (DQ && mfa::dq_tc<T, D>())
+    return launch_with_smem(flash_dq_tc_kernel<D>, grid,
+                            mfa::dq_tc_threads<D>(),
+                            mfa::DqTcSmem<D, false>::BYTES, stream, a, kv);
+  else if constexpr (DQ)
     return launch_with_smem(flash_dq_kernel<T, D>, grid, THREADS,
                             mfa::dq_smem_floats<D>() * sizeof(float), stream,
                             a, kv);
@@ -682,6 +701,31 @@ int mfa_flash_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MFA_DISPATCH(launch_dkv, q, k, v, dout, lse, di, ranges, bias, bias_sb,
                bias_sh, dk, dv, sp, scale, s);
+}
+
+// Which of the forward (bit 0), dQ (bit 1) and dK/dV (bit 2) kernels of
+// dtype at the built head dim D run on the tensor cores (fwd_tc, dq_tc,
+// dkv_tc; the quantized launchers route by dq_tc and dkv_tc too); -1 for
+// a dtype or head dim without kernels.
+int mfa_flash_tc_bodies(int dtype, int D) {
+#define MFA_BODIES(T, DD)                                          \
+  if (D == DD)                                                     \
+    return (int)fwd_tc<T, DD>() | (int)mfa::dq_tc<T, DD>() << 1 |  \
+           (int)mfa::dkv_tc<T, DD>() << 2
+#define MFA_BODIES_ALL(T) \
+  MFA_BODIES(T, 32);      \
+  MFA_BODIES(T, 64);      \
+  MFA_BODIES(T, 128);     \
+  MFA_BODIES(T, 256);     \
+  MFA_BODIES(T, 288)
+  if (dtype == 0) {
+    MFA_BODIES_ALL(float);
+  } else if (dtype == 1) {
+    MFA_BODIES_ALL(__nv_bfloat16);
+  }
+#undef MFA_BODIES_ALL
+#undef MFA_BODIES
+  return -1;
 }
 
 }  // extern "C"

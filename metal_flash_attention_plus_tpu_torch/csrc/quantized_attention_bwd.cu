@@ -16,7 +16,10 @@
 //     ((w - zp)*s) or per BLOCK_2D block and rounded to T, or read as its
 //     integers (folded); per-token K scales (ROW, folded) multiply S's and
 //     dS's columns, per-token V scales dP's; dQ is stored times a
-//     per-channel vector [B, Hkv, D] (scale x the folded K scales);
+//     per-channel vector [B, Hkv, D] (scale x the folded K scales).
+//     bf16 runs on the tensor cores (qflash_dq_tc_kernel: dq_tc_body, the
+//     payload rows double-buffered by cp.async and dequantized in shared
+//     memory a tile at a time), fp32 on the scalar body;
 //   - dK/dV: gradients with respect to the DEQUANTIZED K/V: each K/V tile is
 //     dequantized (per token, per BLOCK_2D block or per channel) and rounded
 //     to T as it is staged, then used with the unfolded Q (scaled by `scale`
@@ -54,8 +57,9 @@
 //   versions take the flash kernels' shape (one CTA per 64 query rows or 64
 //   keys, 256 threads, 4 x 4 outputs each) with __dp4a for the int8
 //   products and scalar fp32 FMAs for the rest, so they sit far from that
-//   bound; the bf16 exact dK/dV runs bf16 mma.sync (dkv_tc_body), the rest
-//   awaits mma.sync / wgmma (s8 and bf16).  The payloads are widened
+//   bound; the bf16 exact dQ and dK/dV run bf16 mma.sync (dq_tc_body,
+//   dkv_tc_body), the full-integer pair awaits mma.sync / wgmma (s8 and
+//   bf16).  The payloads are widened
 //   while they are staged into shared memory, so device memory sees only
 //   the integer bytes.
 
@@ -117,14 +121,24 @@ struct QuantKV {
     mfa::dequant_rows_bf16<D, D, NT>(is_v ? v : k, raw, head, Skv, br, bs,
                                      t0, limit, dst, ROW);
   }
+  static constexpr bool RAW = true;  // tc_load fills `raw`, tc_convert dst
 };
 
 // Replaces _dq_kernel's quantized modes.  Bound: operations (6*D per live
-// pair).
+// pair).  The fp32 instances; bf16 takes qflash_dq_tc_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 qflash_dq_kernel(const BwdArgs a, const QuantKV<D> kv) {
   mfa::dq_body<T, D, false>(a, kv);
+}
+
+// The same on the tensor cores (attention_bwd.cuh::dq_tc_body), bf16: the
+// payload rows double-buffered by cp.async, dequantized in shared memory.
+template <int D>
+__global__ void __launch_bounds__(mfa::dq_tc_threads<D>(),
+                           mfa::dq_tc_min_blocks<D>())
+qflash_dq_tc_kernel(const BwdArgs a, const QuantKV<D> kv) {
+  mfa::dq_tc_body<D, false>(a, kv);
 }
 
 // Replaces _dkv_kernel's quantized modes.  Bound: operations (8*D per live
@@ -489,11 +503,17 @@ fullint_dkv_kernel(const FullintArgs a) {
 template <typename T, int D>
 int launch_qflash(bool dq, const BwdArgs& a, const QuantKV<D>& kv, int B,
                   cudaStream_t stream) {
-  if (dq)
-    return launch_with_smem(qflash_dq_kernel<T, D>,
-                            dim3((a.Sq + BM - 1) / BM, a.Hq, B), THREADS,
+  const dim3 dq_grid((a.Sq + BM - 1) / BM, a.Hq, B);
+  if constexpr (mfa::dq_tc<T, D>()) {
+    if (dq)
+      return launch_with_smem(qflash_dq_tc_kernel<D>, dq_grid,
+                              mfa::dq_tc_threads<D>(),
+                              mfa::DqTcSmem<D, true>::BYTES, stream, a, kv);
+  } else if (dq) {
+    return launch_with_smem(qflash_dq_kernel<T, D>, dq_grid, THREADS,
                             mfa::dq_smem_floats<D>() * sizeof(float), stream,
                             a, kv);
+  }
   const dim3 grid((a.Skv + BN - 1) / BN, a.Hkv, B);
   if constexpr (mfa::dkv_tc<T, D>())
     return launch_with_smem(qflash_dkv_tc_kernel<D>, grid,

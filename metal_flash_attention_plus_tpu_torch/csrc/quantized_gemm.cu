@@ -10,7 +10,7 @@
 //   - ops/quantized_gemm.py::_qa_folded_kernel  -> qa_tc_kernel (folded)
 //   - ops/quantized_gemm.py::_qa_kernel         -> qa_tc_kernel (bf16 B),
 //                                                   qa_kernel (fp32 B)
-//   - ops/quantized_gemm.py::_comp_kernel       -> comp_kernel
+//   - ops/quantized_gemm.py::_comp_kernel       -> comp_tc_kernel
 //   - ops/quantized_gemm.py::_comp_small_kernel -> comp_small_kernel
 // Each family is described before its kernels.
 //
@@ -771,13 +771,14 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
 // along K with one block size bs: per-block scales sa, sb and zero points
 // za, zb.
 //
-//   - comp_kernel (the TPU's _comp_kernel; bs a multiple of 128): per K
-//     block b, the exact int32 block product Sqq = A_b . B_b^T (dg_step's
-//     __dp4a), then in int32 comp = Sqq - zb*SqA - za*SqB + bs*za*zb with
-//     the wrapper's per-row block sums SqA [M, nb], SqB [N, nb], rounded to
-//     fp32, and acc = fma(sa*sb, comp, acc): the fused multiply-add XLA
-//     gives the TPU kernel, so the plain version matches bit for bit; C
-//     added at the store;
+//   - comp_tc_kernel (the TPU's _comp_kernel; bs a multiple of 128): per K
+//     block b, the exact int32 block product Sqq = A_b . B_b^T on the s8
+//     tensor cores, then in int32 comp = Sqq - zb*SqA - za*SqB + bs*za*zb
+//     with the wrapper's per-row block sums SqA [M, nb], SqB [N, nb],
+//     rounded to fp32, and acc = fma(sa*sb, comp, acc): the fused
+//     multiply-add XLA gives the TPU kernel, so the plain version matches
+//     bit for bit (integer sums are exact in any order, and the fp32 steps
+//     run per block in the same order); C added at the store;
 //   - comp_small_kernel (the TPU's _comp_small_kernel; blocks the int8
 //     product cannot separate, 16..64): both operands dequantized per
 //     element in fp32 as fma(q, s[k], -(z*s)[k]) (the per-block vectors
@@ -786,72 +787,192 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
 //
 // What bounds them on the H100, and the design.  At the GEMM bench's
 // shapes the product is 2*M*N*K = 17 or 550 G operations against 67 + 1 +
-// 4 MB or 34 + 67 + 134 MB of int8 operands and fp32 output.  comp_kernel's
-// int8 products would run on the int8 tensor cores (1,979 TOP/s: ~0.28 ms
-// at M = 4096); this first version is dyn_gemm_kernel's __dp4a tile, with
-// the compensation applied once per block per output in registers.
-// comp_small_kernel computes what the TPU kernel computes, an exact fp32
-// product of the dequantized operands, on the weight-only kernels' scalar
-// fp32 tile.  The fp32 is the TPU's choice (a contraction under 128 leaves
-// its MXU part empty), not the H100's limit: its operands are int8 too,
-// and s8 mma.sync takes k = 32, so 32- and 64-blocks split into int8
-// block products with the per-block compensation, as in comp_kernel.  Its
-// bound is therefore the int8 one as well (~0.28 ms at M = 4096).
-// s8 mma.sync / wgmma with the compensation in the epilogue of each block
-// is the planned speed work for both.
+// 4 MB or 34 + 67 + 134 MB of int8 operands and fp32 output: the int8
+// tensor cores (1,979 TOP/s) bound M = 4096 at ~0.28 ms, the bytes M = 128
+// at ~0.02 ms.  comp_tc_kernel is qa_tc_kernel's frame for two int8
+// operands: a BM x 128 output tile a CTA (BM = 128, or 64 where 128-row
+// tiles would give fewer than two CTAs for each SM, e.g. M = 128), 8 warps
+// of 32 x 64 (or 32 x 32) outputs; both operands' rows of k, 128 bytes a
+// step, copied by cp.async into a 4-stage ring (zeros past M and N; K is
+// whole blocks), read by ldmatrix and multiplied by s8 m16n8k32 mma.sync
+// into int32 fragments that are zeroed at each block's start; at each
+// block's end the compensation and the fp32 fused multiply-add run on the
+// fragments.  Two accumulators (the block's int32, the fp32 sum) take 128
+// registers a thread at BM = 128, so that tile runs one CTA an SM.  wgmma
+// with TMA is the next step.  comp_small_kernel computes what the TPU
+// kernel computes, an exact fp32 product of the dequantized operands, on
+// the weight-only kernels' scalar fp32 tile.  The fp32 is the TPU's choice
+// (a contraction under 128 leaves its MXU part empty), not the H100's
+// limit: its operands are int8 too, and s8 mma.sync takes k = 32, so 32-
+// and 64-blocks split into int8 block products with the per-block
+// compensation, as in comp_tc_kernel.  Its bound is therefore the int8 one
+// as well (~0.28 ms at M = 4096).
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(DG_THREADS)
-comp_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
-            const float* __restrict__ sa, const int* __restrict__ za,
-            const float* __restrict__ sb, const int* __restrict__ zb,
-            const int* __restrict__ sqa, const int* __restrict__ sqb,
-            const float* __restrict__ c, float* __restrict__ out, int M,
-            int N, int K, int bs) {
-  __shared__ __align__(16) DgTile as_;
-  __shared__ __align__(16) DgTile bs_;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * DG_BM;
-  const int n0 = blockIdx.x * DG_BN;
+constexpr int CT_BN = 128;
+constexpr int CT_BK = 128;          // k bytes a step
+constexpr int CT_LD = CT_BK + 16;   // bytes a staged row
+constexpr int CT_STAGES = 4;        // the cp.async ring
+constexpr int CT_THREADS = 256;
+
+// Both operands' rings (144 KB at BM = 128, 108 KB at 64).
+template <int BM>
+constexpr size_t comp_tc_smem() {
+  return (size_t)CT_STAGES * (BM + CT_BN) * CT_LD;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(CT_THREADS, BM == 128 ? 1 : 2)
+comp_tc_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
+               const float* __restrict__ sa, const int* __restrict__ za,
+               const float* __restrict__ sb, const int* __restrict__ zb,
+               const int* __restrict__ sqa, const int* __restrict__ sqb,
+               const float* __restrict__ c, float* __restrict__ out, int M,
+               int N, int K, int bs) {
+  constexpr int STAGES = CT_STAGES;
+  constexpr int WARPS_M = BM / 32;
+  constexpr int WN = CT_BN / (8 / WARPS_M);  // columns per warp
+  constexpr int NT = WN / 8;                 // 8-column blocks per warp
+  constexpr int CH = CT_BK / 16;             // 16-byte chunks per row
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint8_t* as = sm;                             // [STAGES][BM][CT_LD]
+  uint8_t* bsm = sm + STAGES * BM * CT_LD;      // [STAGES][CT_BN][CT_LD]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wm0 = (warp % WARPS_M) * 32;
+  const int wn0 = (warp / WARPS_M) * WN;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * CT_BN;
+  const int nk = K / CT_BK;
+  const int per_block = bs / CT_BK;
   const int nb = K / bs;
-  float acc[4][4] = {};
-  for (int blk = 0; blk < nb; ++blk) {
-    int part[4][4];
+
+  auto load = [&](int stage, int kt) {
+    const size_t k0 = (size_t)kt * CT_BK;
+    for (int i = tid; i < (BM + CT_BN) * CH; i += CT_THREADS) {
+      const int r = i / CH;
+      const int ch = i % CH;
+      const bool is_a = r < BM;
+      const int row = is_a ? m0 + r : n0 + r - BM;
+      const bool ok = row < (is_a ? M : N);
+      const int8_t* src = (is_a ? qa : qb) + (ok ? (size_t)row * K : 0) +
+                          k0 + ch * 16;
+      uint8_t* dst = (is_a ? as + stage * BM * CT_LD + r * CT_LD
+                           : bsm + stage * CT_BN * CT_LD + (r - BM) * CT_LD) +
+                     ch * 16;
+      mfa::cp_async16(dst, src, ok ? 16 : 0);
+    }
+  };
+
+  int part[2][NT][4];
+  float acc[2][NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0;
-    for (int k0 = blk * bs; k0 < (blk + 1) * bs; k0 += DG_BK)
-      dg_step<8>(qa, qb, M, N, K, m0, n0, k0, as_, bs_, part);
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        part[mi][ni][e] = 0;
+        acc[mi][ni][e] = 0.f;
+      }
+  const int a_off = (wm0 + mfa::ldsm_a_row(lane)) * CT_LD +
+                    mfa::ldsm_a_byte(lane);
+  const int b_off = (wn0 + mfa::ldsm_b_row(lane)) * CT_LD +
+                    mfa::ldsm_b_byte(lane);
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load(st, st);
+    mfa::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    mfa::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step kt staged; step kt - 1's readers done
+    if (kt + STAGES - 1 < nk)
+      load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    mfa::cp_async_commit();
+    const uint8_t* a_s = as + (kt % STAGES) * BM * CT_LD + a_off;
+    const uint8_t* b_s = bsm + (kt % STAGES) * CT_BN * CT_LD + b_off;
+#pragma unroll
+    for (int kk = 0; kk < CT_BK / 32; ++kk) {  // 32 bytes of k a product
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        mfa::ldsm_x4(af[mi], a_s + mi * 16 * CT_LD + kk * 32);
+#pragma unroll
+      for (int n2 = 0; n2 < NT / 2; ++n2) {
+        uint32_t bf[4];
+        mfa::ldsm_x4(bf, b_s + n2 * 16 * CT_LD + kk * 32);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mfa::mma_s8(part[mi][2 * n2], af[mi], bf[0], bf[1],
+                      part[mi][2 * n2]);
+          mfa::mma_s8(part[mi][2 * n2 + 1], af[mi], bf[2], bf[3],
+                      part[mi][2 * n2 + 1]);
+        }
+      }
+    }
+    if ((kt + 1) % per_block) continue;
+    // The block's end: its compensation, then acc = fma(sa*sb, comp, acc),
+    // in int32 and fp32 as the plain version.
+    const int blk = (kt + 1) / per_block - 1;
     const float s = __fmul_rn(sa[blk], sb[blk]);
     const int zab = za[blk], zbb = zb[blk];
     const int zz = bs * zab * zbb;
+    int rsb[NT][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ty * 4 + i;
-      const int rsa = (m < M) ? sqa[(size_t)m * nb + blk] : 0;
+    for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx * 4 + j;
-        const int rsb = (n < N) ? sqb[(size_t)n * nb + blk] : 0;
-        const int comp = part[i][j] - zbb * rsa - zab * rsb + zz;
-        acc[i][j] = __fmaf_rn(s, __int2float_rn(comp), acc[i][j]);
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + wn0 + 8 * ni + 2 * tq + e;
+        rsb[ni][e] = n < N ? sqb[(size_t)n * nb + blk] : 0;
+      }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = m0 + wm0 + 16 * mi + g + 8 * i;
+        const int rsa = m < M ? sqa[(size_t)m * nb + blk] : 0;
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int& p = part[mi][ni][2 * i + e];
+            const int comp = p - zbb * rsa - zab * rsb[ni][e] + zz;
+            float& x = acc[mi][ni][2 * i + e];
+            x = __fmaf_rn(s, __int2float_rn(comp), x);
+            p = 0;
+          }
+      }
+  }
+  mfa::cp_async_wait<0>();
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + wm0 + 16 * mi + g + 8 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int n = n0 + wn0 + 8 * ni + 2 * tq;
+        const size_t idx = (size_t)m * N + n;
+        float v0 = acc[mi][ni][2 * i], v1 = acc[mi][ni][2 * i + 1];
+        if (c) {
+          if (n < N) v0 = __fadd_rn(v0, c[idx]);
+          if (n + 1 < N) v1 = __fadd_rn(v1, c[idx + 1]);
+        }
+        if (n + 1 < N && N % 2 == 0) {
+          *reinterpret_cast<float2*>(out + idx) = make_float2(v0, v1);
+        } else {
+          if (n < N) out[idx] = v0;
+          if (n + 1 < N) out[idx + 1] = v1;
+        }
       }
     }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      const size_t idx = (size_t)m * N + n;
-      out[idx] = c ? __fadd_rn(acc[i][j], c[idx]) : acc[i][j];
-    }
-  }
 }
 
 __global__ void __launch_bounds__(WO_THREADS)
@@ -1059,22 +1180,41 @@ int mfa_qa_gemm(const void* a, const void* b, const void* scale,
   return (int)cudaGetLastError();
 }
 
-// qa: int8 [M, K]; qb: int8 [N, K] (B^T); sa, sb: fp32 [K/bs]; za, zb:
-// int32 [K/bs]; sqa, sqb: int32 block sums [M, K/bs], [N, K/bs]; c: fp32
-// [M, N] or null; out: fp32 [M, N].  bs a multiple of 128 dividing K.
+// qa: int8 [M, K]; qb: int8 [N, K] (B^T), both 16-byte aligned; sa, sb:
+// fp32 [K/bs]; za, zb: int32 [K/bs]; sqa, sqb: int32 block sums [M, K/bs],
+// [N, K/bs]; c: fp32 [M, N] or null; out: fp32 [M, N].  bs a multiple of
+// 128 dividing K.  Runs comp_tc_kernel with 128-row tiles where they give
+// two CTAs for each SM, else 64-row ones.
 int mfa_comp_gemm(const void* qa, const void* qb, const void* sa,
                   const void* za, const void* sb, const void* zb,
                   const void* sqa, const void* sqb, const void* c, void* out,
                   int M, int N, int K, int bs, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || bs <= 0 || bs % 128 != 0 || K % bs != 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + DG_BN - 1) / DG_BN, (M + DG_BM - 1) / DG_BM);
-  comp_kernel<<<grid, DG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb),
-      static_cast<const float*>(sa), static_cast<const int*>(za),
-      static_cast<const float*>(sb), static_cast<const int*>(zb),
-      static_cast<const int*>(sqa), static_cast<const int*>(sqb),
-      static_cast<const float*>(c), static_cast<float*>(out), M, N, K, bs);
+  const bool wide = (long long)((M + 127) / 128) * ((N + CT_BN - 1) / CT_BN) >=
+                    2LL * sm_count();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MFA_COMP_TC(BM)                                                      \
+  do {                                                                       \
+    auto kern = comp_tc_kernel<BM>;                                          \
+    cudaError_t err = cudaFuncSetAttribute(                                  \
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,                   \
+        (int)comp_tc_smem<BM>());                                            \
+    if (err != cudaSuccess) return (int)err;                                 \
+    kern<<<dim3((N + CT_BN - 1) / CT_BN, (M + BM - 1) / BM), CT_THREADS,     \
+           comp_tc_smem<BM>(), s>>>(                                         \
+        static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb),      \
+        static_cast<const float*>(sa), static_cast<const int*>(za),          \
+        static_cast<const float*>(sb), static_cast<const int*>(zb),          \
+        static_cast<const int*>(sqa), static_cast<const int*>(sqb),          \
+        static_cast<const float*>(c), static_cast<float*>(out), M, N, K,     \
+        bs);                                                                 \
+  } while (0)
+  if (wide)
+    MFA_COMP_TC(128);
+  else
+    MFA_COMP_TC(64);
+#undef MFA_COMP_TC
   return (int)cudaGetLastError();
 }
 

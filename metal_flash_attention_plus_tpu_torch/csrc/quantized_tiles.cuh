@@ -61,6 +61,34 @@ __device__ __forceinline__ float byte_of(int word, int e) {
   return (float)(signed char)((word >> (8 * e)) & 0xFF);
 }
 
+// The integers f of values [4w, 4w + 4) of payload row t of kv head
+// `head`, dequantized in place in op.mode (unrounded; DQ_NONE keeps them).
+template <int D>
+__device__ __forceinline__ void dequant_values(const KVOperand& op,
+                                               size_t head, int Skv, int br,
+                                               int bs, int t, int w,
+                                               float (&f)[4]) {
+  if (op.mode == DQ_TOKEN) {
+    const float s = op.sc[head * Skv + t];
+    const float z = op.zp[head * Skv + t];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = __fmul_rn(f[e] - z, s);
+  } else if (op.mode == DQ_BLOCK2D) {
+    const size_t cell =
+        (head * (Skv / br) + t / br) * (size_t)((D + bs - 1) / bs);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const size_t c = cell + (4 * w + e) / bs;
+      const float s = op.sc[c];
+      f[e] = __fmul_rn(f[e], s) - __fmul_rn(op.zp[c], s);
+    }
+  } else if (op.mode == DQ_CHANNEL) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[e] = __fmul_rn(f[e], op.sc[head * D + 4 * w + e]);
+  }
+}
+
 // The values [4w, 4w + 4) of payload row t of kv head `head`, read as the
 // int8 word `word`: the integers, or dequantized in op.mode and, with `rb`,
 // rounded to bf16.
@@ -71,30 +99,10 @@ __device__ __forceinline__ void kv_values(const KVOperand& op, size_t head,
                                           float (&f)[4]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) f[e] = byte_of(word, e);
-  if (op.mode == DQ_TOKEN) {
-    const float s = op.sc[head * Skv + t];
-    const float z = op.zp[head * Skv + t];
+  dequant_values<D>(op, head, Skv, br, bs, t, w, f);
+  if (rb && op.mode != DQ_NONE) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = __fmul_rn(f[e] - z, s);
-      f[e] = rb ? round_bf16(x) : x;
-    }
-  } else if (op.mode == DQ_BLOCK2D) {
-    const size_t cell =
-        (head * (Skv / br) + t / br) * (size_t)((D + bs - 1) / bs);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const size_t c = cell + (4 * w + e) / bs;
-      const float s = op.sc[c];
-      const float x = __fmul_rn(f[e], s) - __fmul_rn(op.zp[c], s);
-      f[e] = rb ? round_bf16(x) : x;
-    }
-  } else if (op.mode == DQ_CHANNEL) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = __fmul_rn(f[e], op.sc[head * D + 4 * w + e]);
-      f[e] = rb ? round_bf16(x) : x;
-    }
+    for (int e = 0; e < 4; ++e) f[e] = round_bf16(f[e]);
   }
 }
 
@@ -141,7 +149,13 @@ __device__ __forceinline__ void stage_raw(const uint8_t* pay, int bits,
 
 // Raw payload rows (stage_raw's, RAW_LD bytes apart) of keys [t0, t0 + 64)
 // -> bf16 rows [key][D] of dst (dst_ld bytes apart): kv_values' values
-// rounded to bf16, zeros from `limit`; NT threads.
+// rounded to bf16, zeros from `limit`; NT threads, 16 values of one row a
+// thread at a time (a per-token scale and zero point read once for them).
+// The bytes become floats on the FP32 pipe (mma.cuh's s8_f32) and a
+// dequantized pair is rounded by one cvt.rn.bf16x2 (the integers, exact in
+// bf16, by none), so the conversion unit sees one instruction per two
+// values at most: the tensor-core dQ runs this for every key tile of every
+// CTA.
 template <int D, int RAW_LD, int NT>
 __device__ __forceinline__ void dequant_rows_bf16(const KVOperand& op,
                                                   const uint8_t* raw,
@@ -149,16 +163,39 @@ __device__ __forceinline__ void dequant_rows_bf16(const KVOperand& op,
                                                   int br, int bs, int t0,
                                                   int limit, uint8_t* dst,
                                                   int dst_ld) {
-  constexpr int W = D / 4;
-  for (int i = threadIdx.x; i < 64 * W; i += NT) {
-    const int r = i / W;
-    const int w = i % W;
-    float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (t0 + r < limit)
-      kv_values<D>(op, head, Skv, br, bs, true, t0 + r, w,
-                   load_word<D>(raw + r * RAW_LD, w, op.bits), f);
-    *reinterpret_cast<uint2*>(dst + r * dst_ld + 8 * w) =
-        make_uint2(pack_bf16_exact(f[0], f[1]), pack_bf16_exact(f[2], f[3]));
+  constexpr int C = D / 16;  // 16-value chunks a row
+  for (int i = threadIdx.x; i < 64 * C; i += NT) {
+    const int r = i / C;
+    const int c = i % C;
+    const int t = t0 + r;
+    uint32_t out[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    if (t < limit) {
+      const bool token = op.mode == DQ_TOKEN;
+      const float s = token ? op.sc[head * Skv + t] : 0.f;
+      const float z = token ? op.zp[head * Skv + t] : 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int w = 4 * c + q;
+        const uint32_t x =
+            (uint32_t)load_word<D>(raw + r * RAW_LD, w, op.bits) ^ 0x80808080u;
+        float f[4] = {s8_f32<0>(x), s8_f32<1>(x), s8_f32<2>(x),
+                      s8_f32<3>(x)};
+        if (token) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[e] = __fmul_rn(f[e] - z, s);
+        } else {
+          dequant_values<D>(op, head, Skv, br, bs, t, w, f);
+        }
+        const bool exact = op.mode == DQ_NONE;
+        out[2 * q] =
+            exact ? pack_bf16_exact(f[0], f[1]) : pack_bf16(f[0], f[1]);
+        out[2 * q + 1] =
+            exact ? pack_bf16_exact(f[2], f[3]) : pack_bf16(f[2], f[3]);
+      }
+    }
+    uint4* d = reinterpret_cast<uint4*>(dst + r * dst_ld + 32 * c);
+    d[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    d[1] = make_uint4(out[4], out[5], out[6], out[7]);
   }
 }
 

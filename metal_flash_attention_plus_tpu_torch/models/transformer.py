@@ -236,7 +236,7 @@ def forward(
     """tokens [B, S] int → logits [B, S, V] fp32."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, params["embed"])
 
     def layer_fn(layer, x):
         x = attention_block(layer, x, positions, cfg, attn_fn=attn_fn)
@@ -258,12 +258,18 @@ def loss_fn(
     cfg: TransformerConfig,
     attn_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
-    """Next-token cross entropy, mean over all predicted positions."""
+    """Next-token cross entropy, mean over all predicted positions:
+    mean(logsumexp(logits) − logits[target]), the JAX package's loss.
+
+    ``F.cross_entropy`` computes it with a backward that writes each
+    target's gradient once (``torch.gather``'s scatter-add backward is
+    nondeterministic on CUDA), and ``forward`` looks the tokens up with
+    ``F.embedding``, whose CUDA backward sums each row's gradients in a
+    fixed order: a train step gives the same bits every run."""
     logits = forward(params, tokens[:, :-1], cfg, attn_fn=attn_fn)
     targets = tokens[:, 1:].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return (lse - tgt).mean()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
 
 
 def trainable_parameters(params: Params) -> List[torch.Tensor]:

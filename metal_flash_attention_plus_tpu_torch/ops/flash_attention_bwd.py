@@ -6,7 +6,10 @@ disjoint outputs, so no atomics:
 - :func:`flash_dq` → ``csrc/flash_attention.cu::flash_dq_kernel`` (TPU
   ``_dq_kernel``): per query tile, recomputes P = exp(S − L) from the
   saved logsumexp, dP = dO·Vᵀ, dS = P ⊙ (dP − D), dQ += dS·K; optionally
-  writes dbias = dS.
+  writes dbias = dS.  Its bf16 instances up to D = 256, and those of
+  :func:`qflash_dq`, run the tensor-core body (``flash_dq_tc_kernel``,
+  ``qflash_dq_tc_kernel``: bf16 mma.sync); fp32 and bf16 at D = 288 the
+  scalar one (:func:`dq_body`).
 - :func:`flash_dkv` → ``flash_dkv_kernel`` (TPU ``_dkv_kernel``): per key
   tile, walks the GQA group's q heads × the live query rows, dV += Pᵀ·dO,
   dK += dSᵀ·Q_s; the group reduction happens inside the kernel.  Its bf16
@@ -204,6 +207,18 @@ def dkv_body(dtype: torch.dtype, d: int) -> str:
     return "fp32_fma"
 
 
+def dq_body(dtype: torch.dtype, d: int) -> str:
+    """Which body of ``csrc/attention_bwd.cuh`` the dQ kernels
+    (:func:`flash_dq`, :func:`qflash_dq`) run for a Q of ``dtype`` at head
+    dim ``d``: "tensor_core" (``dq_tc_body``: bf16 mma.sync) for bf16 at a
+    kernel width up to 256, "fp32_fma" (``dq_body``: scalar fp32 FMAs) for
+    fp32 and for bf16 at MLA's width 288, where Q, dO and the
+    double-buffered K / V tiles would overflow shared memory; the same
+    answer as :func:`dkv_body`.  The C launchers route the same way
+    (``mfa::dq_tc``)."""
+    return dkv_body(dtype, d)
+
+
 def _launch(name, fn_name, q, k, v, do, lse, di, row_ranges, bias, out0,
             out1, scale, interleaved_kv):
     b, hq, sq, d = q.shape
@@ -236,7 +251,7 @@ def flash_dq(
     """The dQ kernel: (dq fp32 [B, Hq, Sq, D], dS as dbias fp32
     [B, Hq, Sq, Skv] or None).  ``do`` in q's dtype; ``lse``/``di`` fp32
     [B, Hq, Sq]; ``bias`` fp32 [1 or B, 1 or Hq, Sq, Skv].  The kernel runs
-    at the head dim's ``flash_width``."""
+    at the head dim's ``flash_width``, on the body :func:`dq_body` names."""
     if q.device.type == "cpu":
         return flash_attention_dq_plain(
             q, k, v, do, lse, di, row_ranges, bias=bias, scale=scale,
@@ -470,8 +485,8 @@ def qflash_dq(
     (None for "int"); ``ksr`` / ``vsr``: per-token K / V scales fp32
     [B, Hkv, Skv] on S's and dS's / dP's columns; ``dqsc``: the store
     multipliers fp32 [B, Hkv, D].  CPU tensors take
-    :func:`qflash_dq_plain`; CUDA tensors launch ``qflash_dq_kernel`` or
-    raise."""
+    :func:`qflash_dq_plain`; CUDA tensors launch ``qflash_dq_tc_kernel``
+    (bf16) or ``qflash_dq_kernel`` (fp32; :func:`dq_body`) or raise."""
     kw = dict(mode=mode, dqsc=dqsc, ksr=ksr, vsr=vsr, bias=bias,
               interleaved_kv=interleaved_kv)
     if q.device.type == "cpu":

@@ -25,9 +25,9 @@ in ``<wrapper>.launches``:
   C: ``ops.gemm.matmul`` adds it after them.
 - :func:`compensated_matmul`: int8 A [M, K] × int8 Bᵀ [N, K], both BLOCK
   along K with one block size.  A block size that is a multiple of 128
-  takes :func:`comp_gemm` (``comp_kernel``, the TPU's ``_comp_kernel``):
-  integer block products and the per-block zero-point compensation from
-  :func:`per_row_block_sums`; smaller blocks take :func:`comp_small_gemm`
+  takes :func:`comp_gemm` (``comp_tc_kernel``, the TPU's
+  ``_comp_kernel``): integer block products on the s8 tensor cores and the
+  per-block zero-point compensation from :func:`per_row_block_sums`; smaller blocks take :func:`comp_small_gemm`
   (``comp_small_kernel``, the TPU's ``_comp_small_kernel``): both operands
   dequantized per element, exact fp32 products.
 - :func:`dynamic_quantized_matmul`, W8A8 / W4A8, below.
@@ -309,6 +309,9 @@ def dynamic_quantized_matmul(
     a: torch.Tensor,
     b_t: QuantizedTensor,
     *,
+    block_m: int = 512,
+    block_n: int = 512,
+    block_k: int = 1024,
     out_dtype: Optional[torch.dtype] = None,
     c: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -316,9 +319,10 @@ def dynamic_quantized_matmul(
     [M, N] in ``out_dtype`` (default fp32).
 
     ``c``: optional [M, N] added in fp32 in the epilogue.  The JAX
-    package's ``block_m/n/k`` are TPU tiles and are not taken: the CUDA
+    package's ``block_m/n/k`` are TPU tiles, accepted and unused: the CUDA
     kernel chooses its own.
     """
+    del block_m, block_n, block_k
     args, kw = _operands(a, b_t, c)
     return dyn_gemm(*args, **kw).to(out_dtype or torch.float32)
 
@@ -716,7 +720,8 @@ def comp_gemm(qa, qb, sa, za, sb, zb, sqa, sqb, *, bs: int,
     128 dividing K; sa, sb fp32 [K/bs]; za, zb int32 [K/bs]; sqa, sqb the
     int32 block sums [M, K/bs], [N, K/bs]; c fp32 [M, N] or None.  CPU
     tensors take :func:`comp_gemm_plain`; CUDA tensors launch
-    ``comp_kernel`` or raise."""
+    ``comp_tc_kernel`` (the int8 products on the s8 tensor cores, bit for
+    bit with the plain version) or raise."""
     if qa.device.type == "cpu":
         return comp_gemm_plain(qa, qb, sa, za, sb, zb, sqa, sqb, bs=bs, c=c)
     m, kdim = qa.shape

@@ -4,6 +4,7 @@ from metal_flash_attention_plus_tpu_torch.reference.attention import (
     reference_attention,
     reference_attention_bwd,
     reference_attention_vjp,
+    reference_mha,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "reference_attention",
     "reference_attention_bwd",
     "reference_attention_vjp",
+    "reference_mha",
 ]

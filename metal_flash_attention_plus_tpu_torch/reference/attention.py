@@ -158,6 +158,13 @@ def reference_attention_bwd(
             _reduce_kv_heads(dv, hkv, interleaved_kv), d)
 
 
+def reference_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  **kwargs) -> torch.Tensor:
+    """:func:`reference_attention`'s output alone (its keyword arguments
+    pass through)."""
+    return reference_attention(q, k, v, **kwargs)[0]
+
+
 def reference_attention_vjp(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -12,6 +12,8 @@ card.
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --quantized-backward fullint
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --gemm
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
+        --determinism [STEPS]
 
 Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
 phase (:func:`smoke_requests` on the flagship model with random weights
@@ -53,6 +55,16 @@ time by CUDA events over 5 calls after one to warm up, with its TFLOP/s
 and weight GB/s as gemm_bench reports them, then one call of every arm
 under the profiler.
 
+``--determinism [STEPS]``: the train step of ``--train`` run twice from
+one seeded initial state for STEPS steps (default 8) in turn, the two
+copies compared bit for bit after every step (:func:`train_twice`: the
+parameters and their gradients that differ), then one step under PyTorch's
+deterministic-algorithm check in its warning mode
+(:func:`nondeterministic_ops`: the operations it flags, and the loss with
+the allocator's new memory filled with NaN).  Ends with a digest of the
+parameters after a third run of STEPS steps, so that two processes can be
+compared.
+
 Prints JSON lines: the phase times and counts, the device's busy time
 (sum of kernel times) and idle share of the profiled wall time, and the
 kernels ranked by device time.  The profiler itself slows the host, so
@@ -63,10 +75,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import sys
 import time
+import warnings
 from collections import defaultdict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -276,9 +291,127 @@ def profile_serving(cfg, params, seed: int, quantized=None,
                          "model_call")
 
 
+def named_parameters(params) -> List[Tuple[str, torch.Tensor]]:
+    """(name, tensor) of every leaf, in :func:`trainable_parameters`' order
+    (which marks them as requiring grad)."""
+    names = ["embed"]
+    for i, layer in enumerate(params["layers"]):
+        names += [f"layers.{i}.{k}" for k in sorted(layer)]
+    names += ["ln_f", "unembed"]
+    return list(zip(names, trainable_parameters(params)))
+
+
+def clone_params(params):
+    """A detached copy of a parameter tree."""
+    return {"embed": params["embed"].detach().clone(),
+            "layers": [{k: v.detach().clone() for k, v in layer.items()}
+                       for layer in params["layers"]],
+            "ln_f": params["ln_f"].detach().clone(),
+            "unembed": params["unembed"].detach().clone()}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as integers: equal exactly when bitwise
+    equal (``-0.0 != 0.0``, a NaN equals itself)."""
+    return t.detach().view({2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def _differ(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return not torch.equal(_bits(a), _bits(b))
+
+
+def train_twice(cfg, params, tokens, steps: int, lr: float = 3e-3):
+    """Train two copies of ``params`` (left as they are) from one state,
+    one after the other, with ``make_train_step`` and Adam at ``lr`` on
+    ``tokens`` for ``steps`` steps, and compare the copies bit for bit
+    after every step.  → (per step: both losses, and the names of the
+    parameters and of the gradients that differ, empty when the step is
+    deterministic; the second copy's final parameters).  Holds the first
+    copy's parameters and gradients of every step."""
+    first, out = [], []
+    for run in range(2):
+        p = clone_params(params)
+        named = named_parameters(p)
+        optimizer = torch.optim.Adam([t for _, t in named], lr=lr)
+        step = make_train_step(cfg, optimizer)
+        for i in range(steps):
+            p, _, loss = step(p, optimizer.state, tokens)
+            snap = [(t.detach().clone(), t.grad.detach().clone())
+                    for _, t in named]
+            if run == 0:
+                first.append((loss.item(), snap))
+                continue
+            loss0, snap0 = first[i]
+            out.append({
+                "step": i + 1, "losses": [loss0, loss.item()],
+                "params_differ": [n for (n, _), (a, _), (b, _) in zip(
+                    named, snap0, snap) if _differ(a, b)],
+                "grads_differ": [n for (n, _), (_, a), (_, b) in zip(
+                    named, snap0, snap) if _differ(a, b)],
+            })
+            first[i] = None
+    return out, p
+
+
+def nondeterministic_ops(cfg, params, tokens, lr: float = 3e-3):
+    """One train step on a copy of ``params`` under PyTorch's
+    deterministic-algorithm check in its warning mode, restored after.
+    → (the distinct messages it gave: the operations PyTorch documents as
+    nondeterministic that the step ran, the loss).  In that mode the
+    allocator's new memory is filled with NaN, so a finite loss also says
+    that no kernel of the step read memory it had not written."""
+    p = clone_params(params)
+    optimizer = torch.optim.Adam([t for _, t in named_parameters(p)], lr=lr)
+    step = make_train_step(cfg, optimizer)
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            _, _, loss = step(p, optimizer.state, tokens)
+            loss = loss.item()
+        finally:
+            torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+    return sorted({str(w.message).splitlines()[0] for w in caught}), loss
+
+
+def params_digest(params) -> str:
+    """sha256 of every parameter's bytes, in :func:`named_parameters`'
+    order."""
+    h = hashlib.sha256()
+    for _, t in named_parameters(params):
+        h.update(_bits(t).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_tokens(cfg, seed: int, device) -> torch.Tensor:
+    """The train phase's batch: 4 × 2049 seeded tokens."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (4, 2049))).to(device)
+
+
+def profile_determinism(cfg, params, seed: int, steps: int) -> int:
+    tokens = train_tokens(cfg, seed, "cuda")
+    rows, _ = train_twice(cfg, params, tokens, steps)
+    for row in rows:
+        print(json.dumps(row))
+    ops, loss = nondeterministic_ops(cfg, params, tokens)
+    print(json.dumps({"flagged_by_deterministic_mode": ops,
+                      "loss_with_nan_filled_new_memory": loss}))
+    optimizer = torch.optim.Adam(trainable_parameters(params), lr=3e-3)
+    step = make_train_step(cfg, optimizer)
+    for _ in range(steps):
+        params, _, loss = step(params, optimizer.state, tokens)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "steps": steps, "final_loss": loss.item(),
+                      "final_params_sha256": params_digest(params)}))
+    return 0
+
+
 def profile_train(cfg, params, seed: int, steps: int = 3) -> int:
-    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (4, 2049))).cuda()
+    tokens = train_tokens(cfg, seed, "cuda")
     optimizer = torch.optim.Adam(trainable_parameters(params), lr=3e-3)
     step = make_train_step(cfg, optimizer)
 
@@ -418,6 +551,10 @@ def main() -> int:
                     "full-integer or the exact backward")
     ap.add_argument("--gemm", action="store_true",
                     help="profile the GEMM engine at gemm_bench's shapes")
+    ap.add_argument("--determinism", type=int, nargs="?", const=8,
+                    metavar="STEPS",
+                    help="train twice from one state and compare bit for "
+                    "bit after each of STEPS steps (default 8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profiling: no CUDA device is available", file=sys.stderr)
@@ -435,6 +572,8 @@ def main() -> int:
                                mla=True)
     cfg = TransformerConfig()
     params = init_params(cfg, torch.Generator().manual_seed(args.seed))
+    if args.determinism:
+        return profile_determinism(cfg, params, args.seed, args.determinism)
     if args.train:
         return profile_train(cfg, params, args.seed)
     if args.quantized_attention:

@@ -345,3 +345,16 @@ def test_fwd_body_follows_dtype_and_kernel_width(dtype, d):
     assert tfa.fwd_body(dtype, d) == (
         "tensor_core" if tensor_core else "fp32_fma")
     assert tfa.fwd_body(dtype, d) == fbwd.dkv_body(dtype, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288])
+def test_dq_body_follows_dtype_and_kernel_width(dtype, d):
+    """The flash and quantized dQ kernels run the tensor-core body for bf16
+    at a kernel width up to 256 and the fp32-FMA body for fp32 and for
+    MLA's width 288 (272 runs at 288), as the C launchers route: the same
+    answer as the dK/dV kernels'."""
+    tensor_core = dtype == torch.bfloat16 and d <= 256
+    assert fbwd.dq_body(dtype, d) == (
+        "tensor_core" if tensor_core else "fp32_fma")
+    assert fbwd.dq_body(dtype, d) == fbwd.dkv_body(dtype, d)

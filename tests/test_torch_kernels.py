@@ -301,6 +301,107 @@ def test_flash_kernels_every_head_dim(cuda_device, d, dtype):
         assert _rel(got, want) <= _tol(dtype)
 
 
+# The tensor-core dQ body (bf16 up to D = 256) at each built width, where
+# its tiling is at risk: a causal group of 4, a window over interleaved GQA
+# (rows whose first tiles are fully masked), sparse ranges with an empty
+# row, bias with dbias over an odd Skv, Skv < 64 < Sq (causal rows with no
+# live key, Sq not a multiple of 64) and a full mask over Skv > Sq.
+# name: (b, hq, hkv, sq, skv, mask, ranges, bias shape, interleaved)
+DQ_TC_CASES = {
+    "causal_gqa4": (2, 8, 2, 160, 160, masking.CAUSAL, None, None, False),
+    "window_interleaved": (1, 8, 2, 200, 200, masking.sliding_window(
+        48, causal=True), None, None, True),
+    "segments_empty_row": (
+        1, 4, 2, 130, 130, masking.MaskSpec(masking.MaskKind.SPARSE_RANGES),
+        _segments_with_empty_row(), None, False),
+    "bias_dbias": (2, 4, 2, 100, 131, masking.CAUSAL, None, (2, 1, 100, 131),
+                   False),
+    "short_kv_empty_rows": (1, 4, 2, 190, 40, masking.CAUSAL, None, None,
+                            False),
+    "full_rect": (1, 4, 4, 70, 300, masking.FULL, None, None, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("name", sorted(DQ_TC_CASES))
+def test_flash_dq_tensor_core_body_matches_plain(cuda_device, name, d):
+    """The bf16 dQ (and dbias) on the tensor-core body against the plain
+    version, one launch a call, max abs over the plain's max abs at the
+    bf16 gate."""
+    b, hq, hkv, sq, skv, mask, ranges, bias_shape, inter = DQ_TC_CASES[name]
+    (q, k, v), do, bias, rr = _flash_case(
+        cuda_device, torch.bfloat16, b, hq, hkv, sq, skv, d, mask, ranges,
+        bias_shape, seed=d)
+    assert fbwd.dq_body(q.dtype, d) == "tensor_core"
+    kw = dict(bias=bias, scale=d ** -0.5, interleaved_kv=inter)
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, **kw)
+    di = (do.float() * o_ref).sum(-1)
+    n = flash_dq.launches
+    dq, dbias = flash_dq(q, k, v, do, l_ref, di, rr,
+                         want_dbias=bias is not None, **kw)
+    torch.cuda.synchronize()
+    assert flash_dq.launches == n + 1
+    dq_ref, dbias_ref = flash_attention_dq_plain(
+        q, k, v, do, l_ref, di, rr, want_dbias=bias is not None, **kw)
+    assert dq.dtype == torch.float32 and dq.shape == dq_ref.shape
+    assert torch.isfinite(dq).all()
+    assert _rel(dq, dq_ref) <= BF16_TOL, name
+    if bias is not None:
+        assert _rel(dbias, dbias_ref) <= BF16_TOL, name
+
+
+@pytest.mark.cuda
+def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
+    """The C launchers' routing (mfa::fwd_tc, dq_tc, dkv_tc, as the
+    library reports it) agrees with fwd_body / dq_body / dkv_body at every
+    built width: bf16 up to 256 on the tensor cores, fp32 and D = 288 on
+    the scalar bodies."""
+    import ctypes
+
+    from metal_flash_attention_plus_tpu_torch import _build
+    from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+        DTYPE_CODES,
+        fwd_body,
+    )
+
+    bodies = _build.kernel_function("mfa_flash_tc_bodies",
+                                    [ctypes.c_int, ctypes.c_int])
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (32, 64, 128, 256, 288):
+            bits = bodies(DTYPE_CODES[dtype], d)
+            want = [f(dtype, d) == "tensor_core" for f in (
+                fwd_body, fbwd.dq_body, fbwd.dkv_body)]
+            assert [bool(bits >> i & 1) for i in range(3)] == want, (dtype, d)
+            assert want == [dtype == torch.bfloat16 and d <= 256] * 3
+    assert bodies(DTYPE_CODES[torch.bfloat16], 48) == -1
+
+
+@pytest.mark.cuda
+def test_flagship_training_is_deterministic(cuda_device):
+    """The bf16 flagship trained twice from one initial state (Adam, the
+    train phase's 4 x 2049 seeded tokens): every parameter and gradient
+    equal bit for bit after each of 8 steps."""
+    from metal_flash_attention_plus_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from metal_flash_attention_plus_tpu_torch.utils.profiling import (
+        train_tokens,
+        train_twice,
+    )
+
+    cfg = TransformerConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device=cuda_device)
+    rows, _ = train_twice(cfg, params, train_tokens(cfg, 0, cuda_device), 8)
+    assert len(rows) == 8
+    for row in rows:
+        assert row["losses"][0] == row["losses"][1], row
+        assert not row["params_differ"] and not row["grads_differ"], row
+    assert rows[-1]["losses"][0] < rows[0]["losses"][0]
+
+
 @pytest.mark.cuda
 def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     (q, k, v), do, _, rr = _flash_case(cuda_device, torch.float32, 1, 2, 1,
@@ -494,6 +595,10 @@ B2D16 = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
 # 48-wide blocks tile D=96 but not its kernel width 128.
 B2D48 = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
               block_size=48)
+TEN4 = _qcfg(bits=4, gran="tensor")
+ROW4A, ROW8A = (_qcfg(bits=b, strategy="asymmetric") for b in (4, 8))
+B2D4 = _qcfg(bits=4, gran="block_2d", strategy="centered", block_rows=8,
+             block_size=32)
 BF16, F32 = torch.bfloat16, torch.float32
 QQ = dict(quantize_q=True)
 
@@ -779,6 +884,31 @@ QBWD_CASES = {
                              masking.CAUSAL, {}),
     "tc_d32_full": (1, 4, 4, 70, 90, 32, ROW8C, ROW4C, BF16, masking.FULL,
                     {}),
+    # The tensor-core dQ body (bf16) in the modes qflash_arguments builds,
+    # int8 and int4: folded ROW / TENSOR / CHANNEL (the integers, column
+    # scales on S, dS and dP), dequant per token (ASYMMETRIC, CENTERED) and
+    # BLOCK_2D, dbias; D = 80 / 96 zero-padded to 128; Skv < 64 < Sq with
+    # causal rows that see no key.
+    "dq_tc_folded_row4": (1, 4, 2, 150, 150, 64, ROW4, ROW4, BF16,
+                          masking.CAUSAL, {}),
+    "dq_tc_folded_tensor_int4_v_d128": (1, 4, 2, 130, 200, 128, TEN8, TEN4,
+                                        BF16, masking.FULL, {}),
+    "dq_tc_folded_channel4_d256": (1, 4, 2, 130, 130, 256, CH4, CH4, BF16,
+                                   masking.CAUSAL, {}),
+    "dq_tc_token_asym4_d256": (1, 2, 1, 100, 160, 256, ROW4A, ROW8A, BF16,
+                               masking.CAUSAL, {}),
+    "dq_tc_block2d_int4_d128": (1, 4, 2, 128, 192, 128, B2D4, B2D4, BF16,
+                                masking.CAUSAL, {}),
+    "dq_tc_dbias_folded_row_d32": (1, 4, 2, 100, 131, 32, ROW8, ROW8, BF16,
+                                   masking.CAUSAL,
+                                   dict(bias=(1, 4, 100, 131))),
+    "dq_tc_d80_folded_row_dbias": (1, 4, 2, 128, 128, 80, ROW8, CH8, BF16,
+                                   masking.CAUSAL,
+                                   dict(bias=(1, 4, 128, 128))),
+    "dq_tc_d96_block2d48": (1, 4, 2, 128, 128, 96, B2D48, B2D48, BF16,
+                            masking.CAUSAL, {}),
+    "dq_tc_short_kv_empty_rows": (1, 4, 2, 100, 40, 64, ROW8C, ROW4C, BF16,
+                                  masking.CAUSAL, {}),
 }
 
 
@@ -809,6 +939,8 @@ def test_qflash_kernels_match_plain(cuda_device, name):
     (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.qflash_arguments(
         q, kq, vq, do, lse, di, rr, bias, scale=d ** -0.5,
         want_dbias=bias is not None, **opts)
+    assert fbwd.dq_body(dtype, d) == (
+        "tensor_core" if dtype == BF16 else "fp32_fma")
     n = (fbwd.qflash_dq.launches, fbwd.qflash_dkv.launches)
     dq, dbias = fbwd.qflash_dq(*dq_a, **dq_kw)
     dk, dv = fbwd.qflash_dkv(*dkv_a, **dkv_kw)
@@ -1273,6 +1405,11 @@ COMP_GEMM_CASES = {
     "b128_asym": (128, "asymmetric", 300, 200, 512, False),
     "b128_centered_c": (128, "centered", 70, 130, 256, True),
     "b512_asym_c": (512, "asymmetric", 130, 70, 1024, True),
+    # The s8 tensor-core tile: K one 128-block with ragged M and N; M = 1;
+    # 128-row tiles (at least two CTAs for each SM) over an odd N with c=.
+    "b128_one_block_ragged": (128, "asymmetric", 37, 70, 128, False),
+    "b384_m1_c": (384, "centered", 1, 130, 768, True),
+    "b128_wide_odd_n_c": (128, "asymmetric", 2200, 2001, 256, True),
     "small_b32": (32, "centered", 300, 200, 256, False),
     "small_b64_asym_c": (64, "asymmetric", 70, 130, 512, True),
     "small_b16_ragged_k": (16, "centered", 37, 70, 208, False),

@@ -93,6 +93,29 @@ def test_reference_attention_matches_jax(mask, interleaved):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("mask", [FULL, CAUSAL], ids=["full", "causal"])
+def test_reference_mha_matches_jax(mask):
+    """``reference_mha``: the reference attention's output alone, its
+    keyword arguments passed through, as the JAX one."""
+    from metal_flash_attention_plus_tpu.attention import masking
+    from metal_flash_attention_plus_tpu.reference import (
+        reference_mha as jmha,
+    )
+    from metal_flash_attention_plus_tpu_torch.reference import reference_mha
+
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((1, 4, 20, 16)).astype(np.float32)
+    k = rng.standard_normal((1, 2, 20, 16)).astype(np.float32)
+    v = rng.standard_normal((1, 2, 20, 16)).astype(np.float32)
+    jmask = masking.CAUSAL if mask == CAUSAL else masking.FULL
+    want = np.asarray(jmha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           mask=jmask, scale=0.2, interleaved_kv=True))
+    got = reference_mha(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), mask=mask, scale=0.2,
+                        interleaved_kv=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+
+
 def test_init_params_is_seeded_and_shaped():
     a = ttf.init_params(TCFG, torch.Generator().manual_seed(3), device="cpu")
     b = ttf.init_params(TCFG, torch.Generator().manual_seed(3), device="cpu")

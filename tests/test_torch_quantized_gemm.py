@@ -70,6 +70,22 @@ def test_plain_matches_jax_bit_for_bit(name):
         want)
 
 
+@pytest.mark.parametrize("blocks", [(512, 512, 1024), (128, 256, 256)])
+def test_takes_the_jax_block_arguments(blocks):
+    """``block_m/n/k`` as the JAX signature takes them: TPU tiles, accepted
+    and unused, so the result is the JAX one at the same blocks, bit for
+    bit."""
+    a, w, c, jcfg, tcfg = _case("w8_row_centered_c")
+    bm, bn, bk = blocks
+    want = np.asarray(jax_dynamic_matmul(
+        jnp.asarray(a), jtensor.quantize(jnp.asarray(w), jcfg),
+        block_m=bm, block_n=bn, block_k=bk, c=jnp.asarray(c)))
+    got = tq.dynamic_quantized_matmul(
+        torch.from_numpy(a), ttensor.quantize(torch.from_numpy(w), tcfg),
+        block_m=bm, block_n=bn, block_k=bk, c=torch.from_numpy(c))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_fma32_rounds_once():
     rng = np.random.default_rng(5)
     x, y, z = (torch.from_numpy(rng.standard_normal(4096).astype(np.float32))

@@ -91,6 +91,51 @@ def test_loss_and_every_gradient_match_jax():
     assert _max_err(tgrads, jgrads) <= GRAD_TOL
 
 
+def test_loss_over_repeated_tokens_matches_jax():
+    """``loss_fn`` (``F.embedding``, ``F.cross_entropy``) against the JAX
+    ``loss_fn`` (indexing, ``logsumexp`` − the gathered target) where five
+    token ids fill the batch, so each of their embedding rows sums many
+    gradients and each target logit many rows: loss and every gradient at
+    GRAD_TOL."""
+    jparams, tparams, _ = _setup(seed=7)
+    tokens = np.random.default_rng(7).choice([3, 17, 64, 90, 127], (2, 33))
+    with jax.default_matmul_precision("highest"):
+        jloss, jgrads = jax.value_and_grad(jtf.loss_fn)(
+            jparams, jnp.asarray(tokens, jnp.int32), JCFG)
+    ttf.trainable_parameters(tparams)
+    loss = ttf.loss_fn(tparams, torch.from_numpy(tokens), TCFG)
+    loss.backward()
+    assert abs(loss.item() - float(jloss)) <= GRAD_TOL
+    tgrads = params_to_numpy(tparams, grad=True)
+    assert _max_err(tgrads, jgrads) <= GRAD_TOL
+    assert np.count_nonzero(np.abs(tgrads["embed"]).sum(-1)) == 5
+
+
+def test_train_steps_from_one_state_are_bitwise_equal():
+    """Two runs of ``make_train_step`` (bf16, Adam) from one initial state
+    give the same parameters and gradients, bit for bit, after each step
+    (``utils/profiling.py::train_twice``, which the card runs on the
+    flagship)."""
+    from metal_flash_attention_plus_tpu_torch.utils.profiling import (
+        train_twice,
+    )
+
+    cfg = ttf.TransformerConfig(**DIMS, dtype=torch.bfloat16)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(8),
+                             device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(8).integers(0, 128, (2, 41)))
+    before = [t.clone() for t in ttf.trainable_parameters(params)]
+    rows, final = train_twice(cfg, params, tokens, 2)
+    assert [r["step"] for r in rows] == [1, 2]
+    for r in rows:
+        assert r["losses"][0] == r["losses"][1]
+        assert r["params_differ"] == [] and r["grads_differ"] == []
+    after = ttf.trainable_parameters(params)
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert not torch.equal(final["embed"], params["embed"])
+
+
 def test_two_sgd_steps_match_optax():
     jparams, tparams, tokens = _setup(seed=1)
     opt = optax.sgd(0.5)
