@@ -81,7 +81,8 @@ checkout, then, on the card:
    small shapes over BLOCK_2D, bias with dbias, a sliding window,
    interleaved GQA, D=128 / 256, ragged S and D=80 / 96 (zero-padded at
    128, at D=96 also BLOCK_2D with 48-wide blocks; the full-integer pair
-   too, level 1); (b) bench.py's loss,
+   too, level 1), and the full-integer pair at level 2 over 8-wide spans
+   (S=200), the width its scalar kernels take; (b) bench.py's loss,
    sum(O·dO) through ``quantized_flash_attention(quantize_q=True,
    bwd_fullint=True | False)`` at the north-star shape, differentiated with
    respect to (q, K scales, V scales) with one full-integer (or exact) dQ
@@ -94,7 +95,8 @@ checkout, then, on the card:
    modes it launched them (the quantized forward with int8 Q and P at
    D=256, both full-integer and both exact kernels), then the four
    backward kernels' and that forward's times beside their bounds, plain
-   versions and SDPA;
+   versions and SDPA, the full-integer pair at level 2 too (512-key and
+   1024-query spans);
 12. MLA serving and the weight-only GEMM (inputs from a fifth generator,
    seed + 4): (a) both paged kernels at MLA's geometry (Hq=16 over Hkv=1,
    D=288, one-state latent pages, v_tail_zero=32) with bf16 and int8
@@ -141,9 +143,10 @@ Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
 Phases 10 (f), 13 (c), 8, 11 (d) and 12 (h) log which body the quantized
 forward and the head-pair call, the quantized-A GEMMs (folded and
-dequantizing), the flash forward and the dQ and dK/dV kernels run
-(``qattn_body``, ``qa_gemm_body``, ``fwd_body``, ``dq_body``,
-``dkv_body``: tensor cores or fp32 FMAs).
+dequantizing), the flash forward and the dQ and dK/dV kernels, the exact
+and the full-integer ones, run (``qattn_body``, ``qa_gemm_body``,
+``fwd_body``, ``dq_body``, ``dkv_body``, ``fullint_body``: tensor cores,
+or fp32 FMAs / ``__dp4a``).
 
 ``--parent DIR`` (a checkout of the parent commit, e.g. ``git archive``
 into a directory ``.gitignore`` lists) also builds DIR's kernels, at once
@@ -233,6 +236,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_dq_plain,
     flash_dkv,
     flash_dq,
+    fullint_body,
 )
 from metal_flash_attention_plus_tpu_torch.ops.mla import (
     mla_absorbed_attention,
@@ -402,7 +406,8 @@ DEVICE_KERNELS = {
     "runtime_quantize_row": "rtq_row_kernel",
     "runtime_quantize_block": "rtq_block_kernel",
     "qflash_dq": "qflash_dq_tc_kernel", "qflash_dkv": "qflash_dkv_tc_kernel",
-    "fullint_dq": "fullint_dq_kernel", "fullint_dkv": "fullint_dkv_kernel",
+    "fullint_dq": "fullint_dq_tc_kernel",
+    "fullint_dkv": "fullint_dkv_tc_kernel",
     "wo_folded_gemm": "wo_folded_kernel", "wo_gemm": "wo_kernel",
     "qa_folded_gemm": "qa_tc_kernel", "qa_gemm": "qa_tc_kernel",
     "comp_gemm": "comp_tc_kernel", "comp_small_gemm": "comp_small_kernel",
@@ -1967,6 +1972,10 @@ def check_bwd_kernels_all(rng):
     for d in (80, 96):
         errs[f"fullint_d{d}_l1"] = check_fullint(
             rng, f"ROW K / CHANNEL V D={d}", 2, 4, 512, d, row8, ch8, False)
+    # S=200 resolves to 8-wide level-2 spans: the scalar kernels' widths.
+    errs["fullint_w8_l2"] = check_fullint(
+        rng, "ROW K / CHANNEL V S=200 (scalar widths)", 1, 4, 200, 64, row8,
+        ch8, True)
     errs["ragged"] = check_qflash(rng, "ragged Sq=125 < Skv=1000", 1, 4, 4,
                                   125, 1000, 64, row8c, row8c)
     return errs
@@ -2205,7 +2214,31 @@ def time_quantized_backward(ns_args, qat_inputs):
         times[name]["body"] = body(e_dkv[0].dtype, d)
         log(f"{name} at the north-star (D={d}) runs the "
             f"{times[name]['body']} body")
-    del lib, kd, vd, args, f_dq, f_dkv, e_dq, e_dkv, fwd_a
+    # K3/K4 at level 2 on the same inputs: dS (P^T, dS^T) row-quantized
+    # over bench.py's 512-key (1024-query) spans, every product int8.
+    lse, di = f_dq[7], f_dq[8]  # fullint_dq's L (-inf as 0) and D
+    (l2_dq, l2_dq_kw), (l2_dkv, l2_dkv_kw) = fbwd.fullint_arguments(
+        q, kq, vq, None, lse, do, scale=d ** -0.5, block_sizes=NS_BLOCKS,
+        di=di, int8_grads=True)
+    for name, kernel, plain, a, kw, ops, nbytes in (
+            ("fullint_dq", fbwd.fullint_dq, fbwd.fullint_dq_plain, l2_dq,
+             l2_dq_kw, 6 * d, int8_in + 4 * stats + 4 * b * h * s + 4 * n_q),
+            ("fullint_dkv", fbwd.fullint_dkv, fbwd.fullint_dkv_plain,
+             l2_dkv, l2_dkv_kw, 8 * d,
+             int8_in + n_q + 5 * stats + 4 * b * h * s + 8 * n_kv)):
+        t = timed(f"{name} level 2 ROW K, width {kw['width']} (north-star)",
+                  lambda: kernel(*a, **kw), lambda: plain(*a, **kw), lib,
+                  attn_bound(pairs, ops, 0, nbytes))
+        times[name].update({f"{key}_level2": t[key] for key in (
+            "ms", "ms_2", "plain_ms", "bound_ms", "bound_by",
+            "parent_turns_ms") if key in t})
+        times[name]["width_level2"] = kw["width"]
+        times[name]["body"] = fullint_body(d, 0)
+        times[name]["body_level2"] = fullint_body(d, kw["width"])
+        log(f"{name} at the north-star (D={d}) runs the "
+            f"{times[name]['body']} body at level 1, the "
+            f"{times[name]['body_level2']} body at level 2")
+    del lib, kd, vd, args, f_dq, f_dkv, e_dq, e_dkv, fwd_a, l2_dq, l2_dkv
     # K1/K2 in QAT's mode at the flagship's attention shapes (causal).
     q, k, v, do = qat_inputs
     b, hq, s, d = q.shape
@@ -3308,7 +3341,8 @@ def main() -> int:
             "library": "sdpa backward over the dequantized bf16 K/V (dq, dk,"
                        " dv together)",
             "shape": shape, **extra,
-            **{k: v for k, v in t.items() if k.endswith("_qat_mode")},
+            **{k: v for k, v in t.items()
+               if k.endswith(("_qat_mode", "_level2"))},
             **({"body": t["body"], "redesigned": REDESIGNED}
                if "body" in t else {}),
         })

@@ -168,6 +168,20 @@ __device__ __forceinline__ uint32_t low_bytes(float a, float b, float c,
       __byte_perm(__float_as_uint(c), __float_as_uint(d), 0x0040), 0x5410);
 }
 
+// A 4 x 4 byte transpose: y[e] holds byte e of x[0], x[1], x[2], x[3]
+// (x[0]'s in its low byte).
+__device__ __forceinline__ void transpose_bytes(const unsigned (&x)[4],
+                                                unsigned (&y)[4]) {
+  const unsigned lo01 = __byte_perm(x[0], x[1], 0x5140);
+  const unsigned hi01 = __byte_perm(x[0], x[1], 0x7362);
+  const unsigned lo23 = __byte_perm(x[2], x[3], 0x5140);
+  const unsigned hi23 = __byte_perm(x[2], x[3], 0x7362);
+  y[0] = __byte_perm(lo01, lo23, 0x5410);
+  y[1] = __byte_perm(lo01, lo23, 0x7632);
+  y[2] = __byte_perm(hi01, hi23, 0x5410);
+  y[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
 // 2^x on the special-function unit (ex2.approx.ftz: results below 2^-126
 // flushed to 0, 2^-inf = 0).  exp2f adds instructions for the subnormal
 // range, which neither a bf16-rounded P nor the row sum l sees; in the

@@ -572,21 +572,13 @@ __device__ __forceinline__ void convert_vt(const uint8_t* raw, int bits,
     const int w = i / 16;     // (neighbouring threads store to one row)
     const int k0 = 16 * (quad >> 2) + 2 * (quad & 3);
     const int keys[4] = {k0, k0 + 1, k0 + 8, k0 + 9};
-    unsigned x[4];
+    unsigned x[4], y[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       x[j] = t0 + keys[j] < limit
                  ? (unsigned)load_word<D>(raw + keys[j] * RAW_LD, w, bits)
                  : 0u;
-    // 4 x 4 byte transpose: y[e] holds byte e of x[0..3].
-    const unsigned lo01 = __byte_perm(x[0], x[1], 0x5140);
-    const unsigned hi01 = __byte_perm(x[0], x[1], 0x7362);
-    const unsigned lo23 = __byte_perm(x[2], x[3], 0x5140);
-    const unsigned hi23 = __byte_perm(x[2], x[3], 0x7362);
-    const unsigned y[4] = {__byte_perm(lo01, lo23, 0x5410),
-                           __byte_perm(lo01, lo23, 0x7632),
-                           __byte_perm(hi01, hi23, 0x5410),
-                           __byte_perm(hi01, hi23, 0x7632)};
+    mfa::transpose_bytes(x, y);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       *reinterpret_cast<unsigned*>(dst + (4 * w + e) * VT_LD + 4 * quad) =

@@ -33,7 +33,7 @@
 // (dor, scales dorsc) and dO times the V scales (dov, dovsc).  K and V are
 // int8 SYMMETRIC: ROW K scales ks [B, Hkv, Skv] or none (TENSOR, folded into
 // qsc and the store multiplier).  L is the logsumexp with -inf read as 0.
-//   - dQ: S = Q_int.K_int^T and dP = dOv_int.V_int^T in int32 (__dp4a);
+//   - dQ: S = Q_int.K_int^T and dP = dOv_int.V_int^T in int32;
 //     p = exp(S*qsc (*ks) - L); dS = p*(dP*dovsc - D) (*ks); dQ += dS'.K_int
 //     with dS' = round_bf16(dS) (level 1) or dS row-quantized to int8
 //     (absmax/127, +-0.5 then truncation) and scaled back (level 2);
@@ -45,23 +45,39 @@
 //     (1 / a TENSOR K scale).
 //   Level 2 quantizes each row over the TPU kernel's tile width `width`
 //   (its block_kv_dq for dQ, block_q_dkv for dK/dV), passed as data: a
-//   tile's row maxima come from a first pass over it (S and dP computed
-//   twice), so level 2 is held to the TPU numerics whatever the CUDA tiles.
-//   width = 0 is level 1.
+//   span's row maxima come from a first pass over it (S and dP computed
+//   twice) where it is wider than one 64-wide tile, so level 2 is held to
+//   the TPU numerics whatever the CUDA tiles.  width = 0 is level 1.
 //
 // What bounds them on the H100, and the design.
 //   At the JAX package's north-star shape (B=4, H=4, S=4096, D=256, FULL)
 //   each product is 2*S^2*D*B*H = 1.37e11 operations: the full-integer dQ
-//   does two int8 products and one bf16 (bound ~0.28 ms), its dK/dV two of
-//   each (~0.42 ms); the exact pair does 3 and 4 bf16 products.  These first
-//   versions take the flash kernels' shape (one CTA per 64 query rows or 64
-//   keys, 256 threads, 4 x 4 outputs each) with __dp4a for the int8
-//   products and scalar fp32 FMAs for the rest, so they sit far from that
-//   bound; the bf16 exact dQ and dK/dV run bf16 mma.sync (dq_tc_body,
-//   dkv_tc_body), the full-integer pair awaits mma.sync / wgmma (s8 and
-//   bf16).  The payloads are widened
-//   while they are staged into shared memory, so device memory sees only
-//   the integer bytes.
+//   does two int8 products and one bf16 (level 2: three int8; bound ~0.28
+//   ms), its dK/dV two of each (~0.42 ms): operations bound them.  They run
+//   on the tensor cores (fullint_dq_tc_kernel, fullint_dkv_tc_kernel; the
+//   grids and walks of attention_bwd.cuh's dq_tc_body and dkv_tc_body):
+//   the int8 rows are copied by cp.async as they are (16-byte rows padded
+//   by 16, so ldmatrix's eight row addresses fall in distinct banks), S and
+//   dP (S^T, dP^T) run as s8 m16n8k32 mma.sync into int32 (summed from
+//   mma.cuh's I32_BIAS: |S| <= 127 * 128 * 256 < 2^22, Q and dO being
+//   clamped to +-127), the element-wise steps on the C fragments
+//   (ex2.approx with log2(e) folded in), and the output products as bf16
+//   m16n8k16 over the integer operand converted to bf16 rows once a tile
+//   on the FP32 pipe (level 1: int8 is exact in bf16) or as s8 m16n8k32 over
+//   the operand transposed into [d][position] rows, its positions permuted
+//   within each 16 as the A operand built from C fragments holds them
+//   (level 2; quantized_attention.cu's int8 P.V does the same).  Level 2's
+//   dQ sums each span's integer product in int32 and scales it by am/127
+//   at the span's end, as the plain version's _quantized_product does; the
+//   dK/dV, whose two fp32 accumulators leave no room for two int32 ones at
+//   D = 256 (64 of the 128 registers its 16 warps may have), scales each
+//   tile's integer product (each k step's where a span ends between
+//   them).  Widths that are not whole k steps (32
+//   keys or queries: below it, or 8 or 16 times an odd number, which
+//   sequences that no power of two from 32 divides get) take the scalar
+//   kernels (fullint_dq_kernel, fullint_dkv_kernel: __dp4a and fp32
+//   FMAs); the routing is fullint_tc, as
+//   ops/flash_attention_bwd.py::fullint_body says.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,10 +96,10 @@ using mfa::BN;
 using mfa::BwdArgs;
 using mfa::KVOperand;
 using mfa::LD;
+using mfa::LOG2E;
 using mfa::THREADS;
 using mfa::accumulate_pm;
 using mfa::byte_of;
-using mfa::round_bf16;
 using mfa::launch_with_smem;
 using mfa::stage_kv;
 using mfa::stage_words;
@@ -180,6 +196,8 @@ struct FullintArgs {
   float store;  // multiplier of dQ | dK at the store
 };
 
+// The scalar kernels (level-2 widths that are not whole s8 k steps).
+
 // int8 rows [r0, r0 + 64) of a [rows, D] matrix (zeros from `limit`)
 // transposed into dst[d * LD + r] as fp32.
 template <int D>
@@ -229,9 +247,10 @@ constexpr size_t fullint_dkv_smem_bytes() {
   return (4 * (size_t)(D / 4) * LD + (size_t)D * LD + (size_t)BM * LD) * 4;
 }
 
-// Replaces _dq_fullint_kernel.  Bound: operations (2 int8 and 1 bf16
-// product of 2*D per pair).  One CTA per (64 query rows, b, q head) keeps
-// its Q and dOv words resident and walks the keys.
+// Replaces _dq_fullint_kernel at level-2 widths that are not whole s8 k
+// steps (the rest take fullint_dq_tc_kernel).  Bound: operations (3 int8 products of
+// 2*D per pair).  One CTA per (64 query rows, b, q head) keeps its Q and
+// dOv words resident and walks the keys; __dp4a and scalar fp32 FMAs.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 fullint_dq_kernel(const FullintArgs a) {
@@ -275,12 +294,10 @@ fullint_dq_kernel(const FullintArgs a) {
     for (int e = 0; e < DV; ++e) acc[i][e] = 0.f;
   }
 
-  const bool level2 = a.width > 0;
-  const int width = level2 ? a.width : Skv;
-  for (int c0 = 0; c0 < Skv; c0 += width) {
-    const int c_end = min(c0 + width, Skv);
+  for (int c0 = 0; c0 < Skv; c0 += a.width) {
+    const int c_end = min(c0 + a.width, Skv);
     float amax[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int pass = level2 ? 0 : 1; pass < 2; ++pass) {
+    for (int pass = 0; pass < 2; ++pass) {
       for (int t0 = c0; t0 < c_end; t0 += BN) {
         __syncthreads();  // the previous tile's readers are done
         stage_words<D>(vh, D, t0, c_end, kvw);
@@ -322,8 +339,7 @@ fullint_dq_kernel(const FullintArgs a) {
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            ds[i][j] = level2 ? rowquant(ds[i][j], amax[i], true)
-                              : round_bf16(ds[i][j]);
+            ds[i][j] = rowquant(ds[i][j], amax[i], true);
         store_t(dst, ty, tx, ds);
         __syncthreads();  // dS'^T and K^T staged
         accumulate_pm<D>(dst, ty, kf, tx, acc);
@@ -341,10 +357,11 @@ fullint_dq_kernel(const FullintArgs a) {
   }
 }
 
-// Replaces _dkv_fullint_kernel.  Bound: operations (2 int8 and 2 bf16
-// products of 2*D per pair).  One CTA per (64 keys, b, kv head) keeps its K
-// and V words resident, owns its dK and dV and walks the group's q heads x
-// every query row (the path has no mask).
+// Replaces _dkv_fullint_kernel at level-2 widths that are not whole s8 k
+// steps (the rest take fullint_dkv_tc_kernel).  Bound: operations (4 int8 products of
+// 2*D per pair).  One CTA per (64 keys, b, kv head) keeps its K and V words
+// resident, owns its dK and dV and walks the group's q heads x every query
+// row (the path has no mask); __dp4a and scalar fp32 FMAs.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 fullint_dkv_kernel(const FullintArgs a) {
@@ -383,17 +400,16 @@ fullint_dkv_kernel(const FullintArgs a) {
 #pragma unroll
     for (int e = 0; e < DV; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
-  const bool level2 = a.width > 0;
-  const int width = level2 ? a.width : Sq;
+
   for (int g = 0; g < group; ++g) {
     const int h = a.interleaved ? g * a.Hkv + hk : hk * group + g;
     const size_t bh = (size_t)b * a.Hq + h;
     const int8_t* qh = a.qq + bh * Sq * D;
-    for (int q0 = 0; q0 < Sq; q0 += width) {
-      const int q_end = min(q0 + width, Sq);
+    for (int q0 = 0; q0 < Sq; q0 += a.width) {
+      const int q_end = min(q0 + a.width, Sq);
       float am_p[4] = {0.f, 0.f, 0.f, 0.f};
       float am_s[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int pass = level2 ? 0 : 1; pass < 2; ++pass) {
+      for (int pass = 0; pass < 2; ++pass) {
         for (int r0 = q0; r0 < q_end; r0 += BM) {
           __syncthreads();  // the previous tile's readers are done
           stage_words<D>(qh, D, r0, q_end, qw);
@@ -457,10 +473,8 @@ fullint_dkv_kernel(const FullintArgs a) {
           for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              pd[i][j] = level2 ? rowquant(pd[i][j], am_p[i], false)
-                                : round_bf16(pd[i][j]);
-              dsv[i][j] = level2 ? rowquant(dsv[i][j], am_s[i], true)
-                                 : round_bf16(dsv[i][j]);
+              pd[i][j] = rowquant(pd[i][j], am_p[i], false);
+              dsv[i][j] = rowquant(dsv[i][j], am_s[i], true);
             }
           // P', q-major: ps[q * LD + key], the layout accumulate_pm reads.
 #pragma unroll
@@ -497,6 +511,822 @@ fullint_dkv_kernel(const FullintArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// The full-integer pair on the tensor cores (level 1; level-2 widths of
+// whole s8 k steps)
+//
+// fullint_dq_tc_kernel: one CTA per (64 query rows, b, q head), 4 * NS
+// warps of 16 rows (NS = fi_split: the warp groups split S's and dP's key
+// columns and dQ's lanes, as in dq_tc_body); Q and dOv resident as int8
+// rows, each key tile's K and V rows (and ROW K scales) double-buffered by
+// cp.async.  fullint_dkv_tc_kernel: one CTA per (64 keys, b, kv head), 4 * NS
+// warps of 16 keys (the groups split S^T's and dP^T's query columns and
+// dK's and dV's lanes, as in dkv_tc_body); K and V resident, each step's Q,
+// dOv and dO rows and their per-row vectors double-buffered, walking the
+// group's q heads x every query tile (the path has no mask).  With NS = 1
+// (level 1 up to D = 64) a warp's C fragments of dS (P^T, dS^T) are the
+// output product's A operand as they are; with NS > 1 they pass through
+// shared memory.
+// ---------------------------------------------------------------------------
+
+// The level-2 widths the tensor-core kernels take: whole s8 k steps (32
+// keys or queries), the spans whose integer products they sum under one
+// scale.  A sequence that no power of two from 32 divides gets a narrower
+// width from the TPU's tiling (_tile_width), or one of 8 or 16 times an odd
+// number (48 at 336): those take the scalar kernels.
+constexpr int FI_K_STEP = 32;
+
+__host__ __device__ constexpr bool fullint_tc(int width) {
+  return width % FI_K_STEP == 0;
+}
+
+// Warp groups: dkv_tc_split's at level 1 (1, 1, 2, 4 at D = 32, 64, 128,
+// 256); at level 2, where the dQ's int32 span sums double its accumulators,
+// 2 up to D = 128 and 4 at D = 256, so the quantized dS (P', dS') always
+// pass through shared memory.
+template <int D, bool L2>
+__host__ __device__ constexpr int fi_split() {
+  return L2 ? (D <= 128 ? 2 : 4) : mfa::dkv_tc_split<D>();
+}
+
+// CTAs an SM a kernel is compiled for (its __launch_bounds__): three 4-warp
+// CTAs at level 1 up to D = 64 (<= 170 registers a thread), two for the
+// level-1 dQ at D = 128 and the level-2 dQ up to D = 64, else one.
+template <int D, bool L2, bool DQ>
+__host__ __device__ constexpr int fi_min_blocks() {
+  return L2 ? (DQ && D <= 64 ? 2 : 1)
+            : (D <= 64 ? 3 : (DQ && D == 128 ? 2 : 1));
+}
+
+// Row sizes (bytes) of the shared tiles.
+template <int D>
+struct FiRows {
+  static constexpr int RI = D + 16;       // an int8 row [.., D]
+  static constexpr int TI = BN * RI;      // 64 int8 rows
+  static constexpr int RB = 2 * D + 16;   // a bf16 row [.., D]
+  static constexpr int PT = BN + 16;      // an int8 row of 64 positions
+  static constexpr int PB = 2 * BN + 16;  // a bf16 row of 64
+};
+
+// Byte offsets of fullint_dq_tc_kernel's shared memory (147,968 bytes at
+// D = 256, level 1).
+template <int D, bool L2>
+struct FiDqSmem : FiRows<D> {
+  using R = FiRows<D>;
+  static constexpr int NS = fi_split<D, L2>();
+  static constexpr int Q = 0;
+  static constexpr int DOV = R::TI;
+  static constexpr int K = 2 * R::TI;  // two buffers
+  static constexpr int V = 4 * R::TI;  // two buffers
+  // K as the dQ product's operand: bf16 rows [key][d] (level 1) or int8
+  // [d][key position] (level 2).
+  static constexpr int KOP = 6 * R::TI;
+  static constexpr int KS = KOP + (L2 ? D * R::PT : BN * R::RB);  // x2
+  static constexpr int AM = KS + 2 * BN * 4;  // [NS][64 rows][2 spans]
+  static constexpr int DS = AM + (L2 ? NS * BM * 2 * 4 : 0);
+  static constexpr size_t BYTES = DS + (NS > 1 ? BM * (L2 ? R::PT : R::PB) : 0);
+};
+
+// Byte offsets of fullint_dkv_tc_kernel's shared memory (227,840 bytes at
+// D = 256, level 1, of the 232,448 a CTA may have).
+template <int D, bool L2>
+struct FiDkvSmem : FiRows<D> {
+  using R = FiRows<D>;
+  static constexpr int NS = fi_split<D, L2>();
+  static constexpr int K = 0;
+  static constexpr int V = R::TI;
+  static constexpr int Q = 2 * R::TI;    // two buffers
+  static constexpr int DOV = 4 * R::TI;  // two buffers
+  static constexpr int DOR = 6 * R::TI;  // two buffers
+  // qsc, L, D, dorsc, dovsc of the step's 64 queries, two buffers.
+  static constexpr int ST = 8 * R::TI;
+  // Q and dO as the dK / dV products' operands: bf16 rows [query][d]
+  // (level 1) or int8 [d][query position] (level 2).
+  static constexpr int OP_BYTES = L2 ? D * R::PT : BM * R::RB;
+  static constexpr int OP = ST + 2 * 5 * BM * 4;
+  static constexpr int AM = OP + 2 * OP_BYTES;  // [NS][64 keys][2][P, dS]
+  static constexpr int PS = AM + (L2 ? NS * BN * 4 * 4 : 0);
+  static constexpr size_t BYTES =
+      PS + (NS > 1 ? 2 * BN * (L2 ? R::PT : R::PB) : 0);
+};
+
+// cp.async of int8 rows [t0, t0 + 64) of matrix `head` of a [.., n, D]
+// tensor into dst (D + 16 bytes apart; quantized_tiles.cuh's stage_raw),
+// NT threads; rows from n are zeros.
+template <int D, int NT>
+__device__ __forceinline__ void fi_stage_rows(const int8_t* x, size_t head,
+                                              int n, int t0, uint8_t* dst) {
+  mfa::stage_raw<D, D + 16, NT>(reinterpret_cast<const uint8_t*>(x), 8, head,
+                                n, t0, n, dst);
+}
+
+// 64 int8 rows (D + 16 bytes apart) as bf16 rows (2 D + 16 bytes apart),
+// 16 values an item, on the FP32 pipe (mma.cuh::s8_f32; exact).
+template <int D, int NT>
+__device__ __forceinline__ void fi_rows_bf16(const uint8_t* src,
+                                             uint8_t* dst) {
+  constexpr int CPR = D / 16;
+  for (int i = threadIdx.x; i < 64 * CPR; i += NT) {
+    const int r = i / CPR;
+    const int c = i % CPR;
+    const uint4 u =
+        *reinterpret_cast<const uint4*>(src + r * (D + 16) + 16 * c);
+    const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                           u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+    uint32_t o[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[2 * e] = mfa::pack_bf16_exact(mfa::s8_f32<0>(w[e]),
+                                      mfa::s8_f32<1>(w[e]));
+      o[2 * e + 1] = mfa::pack_bf16_exact(mfa::s8_f32<2>(w[e]),
+                                          mfa::s8_f32<3>(w[e]));
+    }
+    uint4* d = reinterpret_cast<uint4*>(dst + r * (2 * D + 16) + 32 * c);
+    d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  }
+}
+
+// 64 int8 rows (D + 16 bytes apart) transposed into int8 [d][position]
+// rows (BN + 16 bytes apart), the rows permuted within each 16 as an s8 A
+// operand built from C fragments holds them: position 16 b + 4 t + 2 h + c
+// holds row 16 b + 8 h + 2 t + c.
+template <int D, int NT>
+__device__ __forceinline__ void fi_rows_t(const uint8_t* src, uint8_t* dst) {
+  constexpr int W = D / 4;
+  for (int i = threadIdx.x; i < 16 * W; i += NT) {
+    const int quad = i % 16;  // positions [4 quad, 4 quad + 4)
+    const int w = i / 16;
+    const int k0 = 16 * (quad >> 2) + 2 * (quad & 3);
+    const int rows[4] = {k0, k0 + 1, k0 + 8, k0 + 9};
+    unsigned x[4], y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = *reinterpret_cast<const unsigned*>(src + rows[j] * (D + 16) +
+                                                4 * w);
+    mfa::transpose_bytes(x, y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      *reinterpret_cast<unsigned*>(dst + (4 * w + e) * (BN + 16) +
+                                   4 * quad) = y[e];
+  }
+}
+
+// acc[j] += A . B[br0 + 8j, br0 + 8j + 8)^T for one s8 A fragment (16 rows
+// x 32 bytes of k): B an int8 tile whose rows hold k (B_LD bytes a row),
+// its 32-byte k chunk at kbyte, read by ldmatrix; NB even.
+template <int NB, int B_LD>
+__device__ __forceinline__ void mma_s8_rows(const uint32_t (&af)[4],
+                                            const uint8_t* B, int br0,
+                                            int kbyte, int (&acc)[NB][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint8_t* bp = B + (br0 + mfa::ldsm_b_row(lane)) * B_LD +
+                      mfa::ldsm_b_byte(lane) + kbyte;
+#pragma unroll
+  for (int j2 = 0; j2 < NB / 2; ++j2) {
+    uint32_t bf[4];
+    mfa::ldsm_x4(bf, bp + j2 * 16 * B_LD);
+    mfa::mma_s8(acc[2 * j2], af, bf[0], bf[1], acc[2 * j2]);
+    mfa::mma_s8(acc[2 * j2 + 1], af, bf[2], bf[3], acc[2 * j2 + 1]);
+  }
+}
+
+// acc[j] += A[ar0, ar0 + 16) . B[br0 + 8j, br0 + 8j + 8)^T over 32 * KC
+// bytes of k, A and B int8 tiles whose rows hold k, summed from I32_BIAS
+// (mma.cuh: read back with biased_f32).
+template <int KC, int NB, int LDA, int LDB>
+__device__ __forceinline__ void mma_s8_nt(const uint8_t* A, int ar0,
+                                          const uint8_t* B, int br0,
+                                          int (&acc)[NB][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = mfa::I32_BIAS;
+  const uint8_t* ap =
+      A + (ar0 + mfa::ldsm_a_row(lane)) * LDA + mfa::ldsm_a_byte(lane);
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    uint32_t af[4];
+    mfa::ldsm_x4(af, ap + kc * 32);
+    mma_s8_rows<NB, LDB>(af, B, br0, kc * 32, acc);
+  }
+}
+
+// Level 2's quantization of x at inv = 127 / max(am, 1e-30) (am the row's
+// max over its span), as ops/flash_attention_bwd.py::_rowquant_signed and
+// _rowquant_pos round: +-0.5 (+0.5 where x >= 0) then truncation, on the
+// FP32 pipe; returned as 1.5 * 2^23 + q, whose low byte is q's
+// two's-complement byte (mma.cuh::low_bytes).
+__device__ __forceinline__ float fi_quant(float x, float inv) {
+  const float xs = x * inv;
+  const float t =
+      __fadd_rz(fabsf(xs) + 0.5f, 8388608.0f) - 8388608.0f;  // trunc
+  return 12582912.0f + (xs >= 0.f ? t : -t);
+}
+
+// A warp's C fragments of fi_quant's values (its 16 rows x columns c0 +
+// [0, 8 NB)) into a CTA's int8 [row][position] tile (LDT bytes a row), in
+// the permuted positions fi_rows_t gives.
+template <int NB, int LDT>
+__device__ __forceinline__ void fi_store_s8(const float (&c)[NB][4], int r0,
+                                            int c0, uint8_t* tile) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const int kb = c0 + 8 * j;
+    const int pos = 16 * (kb >> 4) + 4 * tq + 2 * ((kb >> 3) & 1);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint16_t*>(tile + (r0 + g + 8 * i) * LDT + pos) =
+          (uint16_t)__byte_perm(__float_as_uint(c[j][2 * i]),
+                                __float_as_uint(c[j][2 * i + 1]), 0x0040);
+  }
+}
+
+// A warp's C fragments rounded to bf16 into a CTA's bf16 [row][column]
+// tile (LDT bytes a row), columns c0 + [0, 8 NB).
+template <int NB, int LDT>
+__device__ __forceinline__ void fi_store_bf16(const float (&c)[NB][4],
+                                              int r0, int c0,
+                                              uint8_t* tile) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(tile + (r0 + g + 8 * i) * LDT +
+                                   (c0 + 8 * j + 2 * tq) * 2) =
+          mfa::pack_bf16(c[j][2 * i], c[j][2 * i + 1]);
+}
+
+// acc += iacc * sc (sc per row: [e >> 1]), iacc back to 0: a span's integer
+// product scaled back.
+template <int NB>
+__device__ __forceinline__ void fi_flush(float (&acc)[NB][4],
+                                         int (&iacc)[NB][4],
+                                         const float (&sc)[2]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] += (float)iacc[j][e] * sc[e >> 1];
+      iacc[j][e] = 0;
+    }
+}
+
+// v[sp] for a run-time sp, and v[sp] = max(v[sp], m), without indexing the
+// registers at run time.
+__device__ __forceinline__ float pick(const float (&v)[2], bool sp) {
+  return sp ? v[1] : v[0];
+}
+__device__ __forceinline__ void max_at(float (&v)[2], bool sp, float m) {
+  v[0] = sp ? v[0] : fmaxf(v[0], m);
+  v[1] = sp ? fmaxf(v[1], m) : v[1];
+}
+
+// The max of a value over the 4 lanes that share a C fragment row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// The order in which a kernel visits the 64-wide tiles of the sequence it
+// walks (keys for dQ, a q head's queries for dK/dV), n long: level 1
+// (width 0) one pass over every tile; level 2 spans of `width` (a multiple
+// of 32), grouped in chunks of whole tiles: the span (a multiple of 64) or
+// two (32, 96, ...).  A chunk of several tiles takes two passes (its spans'
+// row maxima, then the products), a chunk of one tile one.  Span sp of a
+// chunk holds its positions [sp * width, (sp + 1) * width).
+struct FiWalk {
+  int tiles, passes, chunks;
+  __device__ FiWalk(int width, int n) {
+    const int chunk = width == 0 ? max((n + BN - 1) / BN * BN, BN)
+                                 : (width % BN ? 2 * width : width);
+    tiles = chunk / BN;
+    passes = tiles > 1 && width ? 2 : 1;
+    chunks = (n + chunk - 1) / chunk;
+  }
+  __device__ int steps() const { return chunks * passes * tiles; }
+  __device__ int t0(int it) const {
+    return (it / (passes * tiles) * tiles + it % tiles) * BN;
+  }
+  __device__ int pass(int it) const { return it / tiles % passes; }
+  __device__ int tile(int it) const { return it % tiles; }
+};
+
+// Replaces _dq_fullint_kernel.  Bound: operations (2 int8 and 1 bf16
+// product of 2*D per pair; level 2: 3 int8).
+template <int D, bool L2>
+__global__ void __launch_bounds__(128 * fi_split<D, L2>(),
+                                  fi_min_blocks<D, L2, true>())
+fullint_dq_tc_kernel(const FullintArgs a) {
+  using L = FiDqSmem<D, L2>;
+  constexpr int NS = L::NS;
+  constexpr int NT = 128 * NS;
+  constexpr int KW = BN / NS;  // key columns of a warp's S, dP
+  constexpr int NKB = KW / 8;
+  constexpr int DW = D / NS;  // dQ lanes a warp accumulates
+  constexpr int NDB = DW / 8;
+  static_assert(!L2 || NS > 1, "level 2 stages dS in shared memory");
+  extern __shared__ __align__(16) uint8_t sm[];
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int r0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rw = warp & 3;     // query rows r0 + 16 rw + [0, 16)
+  const int part = warp >> 2;  // key columns kc0 + [0, KW), dQ lanes
+  const int kc0 = part * KW;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bh = (size_t)b * a.Hq + h;
+  const size_t bk = (size_t)b * a.Hkv + hk;
+  const float* ks = a.ks ? a.ks + bk * Skv : nullptr;
+
+  fi_stage_rows<D, NT>(a.qq, bh, Sq, r0, sm + L::Q);
+  fi_stage_rows<D, NT>(a.dov, bh, Sq, r0, sm + L::DOV);
+  mfa::cp_async_commit();
+  const FiWalk wk(L2 ? a.width : 0, Skv);
+  const int steps = wk.steps();
+  // Step it's K and V rows (and ROW K scales) into buffer buf.
+  auto load = [&](int it, int buf) {
+    const int t0 = wk.t0(it);
+    fi_stage_rows<D, NT>(a.kq, bk, Skv, t0, sm + L::K + buf * L::TI);
+    fi_stage_rows<D, NT>(a.vq, bk, Skv, t0, sm + L::V + buf * L::TI);
+    if (ks && threadIdx.x < BN) {
+      const int i = threadIdx.x;
+      const bool ok = t0 + i < Skv;
+      mfa::cp_async4(reinterpret_cast<float*>(sm + L::KS) + buf * BN + i,
+                     ks + (ok ? t0 + i : 0), ok ? 4 : 0);
+    }
+  };
+  if (steps > 0) load(0, 0);
+  mfa::cp_async_commit();
+
+  // This thread's rows: r0 + 16 rw + g + 8i.
+  float qs[2], l2[2], dd[2], dvs[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 16 * rw + g + 8 * i;
+    const bool live = row < Sq;
+    qs[i] = live ? a.qsc[bh * Sq + row] : 0.f;
+    l2[i] = live ? a.lse[bh * Sq + row] * LOG2E : 0.f;
+    dd[i] = live ? a.di[bh * Sq + row] : 0.f;
+    dvs[i] = live ? a.dovsc[bh * Sq + row] : 0.f;
+  }
+  float acc[NDB][4];
+  int iacc[NDB][4];
+#pragma unroll
+  for (int j = 0; j < NDB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] = 0.f;
+      iacc[j][e] = 0;
+    }
+  // Level 2, per row and span of the chunk: the running |dS| max of this
+  // thread's values, then the rows' 127 / am and am / 127.
+  float run[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float inv[2][2], sc[2][2];
+
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    mfa::cp_async_wait<0>();
+    __syncthreads();  // step it staged; step it - 1 done
+    if (it + 1 < steps) load(it + 1, buf ^ 1);
+    mfa::cp_async_commit();
+    const int t0 = wk.t0(it);
+    const int pass = wk.pass(it);
+    const int tile = wk.tile(it);
+    const bool last = pass == wk.passes - 1;
+    const uint8_t* sk = sm + L::K + buf * L::TI;
+    const uint8_t* sv = sm + L::V + buf * L::TI;
+    if (last) {
+      if constexpr (L2)
+        fi_rows_t<D, NT>(sk, sm + L::KOP);
+      else
+        fi_rows_bf16<D, NT>(sk, sm + L::KOP);
+    }
+
+    // S and dP for rows 16 rw + [0, 16), keys kc0 + [0, KW): element (row
+    // g + 8i, key kc0 + 8j + 2tq + c) at [j][2i + c].
+    float ds[NKB][4];
+    {
+      int si[NKB][4], dpi[NKB][4];
+      mma_s8_nt<D / 32, NKB, L::RI, L::RI>(sm + L::Q, 16 * rw, sk, kc0, si);
+      mma_s8_nt<D / 32, NKB, L::RI, L::RI>(sm + L::DOV, 16 * rw, sv, kc0,
+                                           dpi);
+      const float* kst = reinterpret_cast<const float*>(sm + L::KS) +
+                         buf * BN;
+#pragma unroll
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int kc = kc0 + 8 * j + 2 * tq + (e & 1);
+          const float ksv = ks ? kst[kc] : 1.f;
+          const float s = mfa::biased_f32(si[j][e]) * qs[i] * ksv;
+          const float p = t0 + kc < Skv
+                              ? mfa::ex2_approx(fmaf(s, LOG2E, -l2[i]))
+                              : 0.f;
+          ds[j][e] =
+              p * (mfa::biased_f32(dpi[j][e]) * dvs[i] - dd[i]) * ksv;
+        }
+    }
+
+    uint8_t* sds = sm + L::DS;
+    if constexpr (!L2) {
+      // dQ += round_bf16(dS).K, 16 keys a k step.
+      if constexpr (NS > 1) fi_store_bf16<NKB, L::PB>(ds, 16 * rw, kc0, sds);
+      __syncthreads();  // K's bf16 rows (and the CTA's dS tile)
+      const int a_off =
+          (16 * rw + mfa::ldsm_a_row(lane)) * L::PB + mfa::ldsm_a_byte(lane);
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        uint32_t af[4];
+        if constexpr (NS == 1)
+          mfa::c_to_a_bf16(ds, kc, af);
+        else
+          mfa::ldsm_x4(af, sds + a_off + kc * 32);
+        mfa::mma_rn<NDB, L::RB>(af, sm + L::KOP, 16 * kc, part * DW, acc);
+      }
+    } else {
+      if (pass == 0) {
+        if (tile == 0) run[0][0] = run[0][1] = run[1][0] = run[1][1] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NKB; ++j) {
+          const bool sp = tile * BN + kc0 + 8 * j >= a.width;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            max_at(run[i], sp,
+                   fmaxf(fabsf(ds[j][2 * i]), fabsf(ds[j][2 * i + 1])));
+        }
+      }
+      if (!last) continue;
+      if (tile == 0) {  // the chunk's row maxima are complete
+        float* amx = reinterpret_cast<float*>(sm + L::AM);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int sp = 0; sp < 2; ++sp) {
+            const float m = quad_max(run[i][sp]);
+            if (tq == 0) amx[(part * BM + 16 * rw + g + 8 * i) * 2 + sp] = m;
+          }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int sp = 0; sp < 2; ++sp) {
+            float am = 0.f;
+#pragma unroll
+            for (int p = 0; p < NS; ++p)
+              am = fmaxf(am, amx[(p * BM + 16 * rw + g + 8 * i) * 2 + sp]);
+            inv[i][sp] = 127.f / fmaxf(am, 1e-30f);
+            sc[i][sp] = am * (1.f / 127.f);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < NKB; ++j) {
+        const bool sp = tile * BN + kc0 + 8 * j >= a.width;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = fi_quant(ds[j][e], pick(inv[e >> 1], sp));
+      }
+      // dQ += dS_int.K_int, 32 keys a k step (K^T in permuted positions).
+      fi_store_s8<NKB, L::PT>(ds, 16 * rw, kc0, sds);
+      __syncthreads();  // K^T and the CTA's dS tile
+      uint32_t af[2][4];
+      const uint8_t* ap = sds + (16 * rw + mfa::ldsm_a_row(lane)) * L::PT +
+                          mfa::ldsm_a_byte(lane);
+      mfa::ldsm_x4(af[0], ap);
+      mfa::ldsm_x4(af[1], ap + 32);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        mma_s8_rows<NDB, L::PT>(af[kk], sm + L::KOP, part * DW, 32 * kk,
+                                iacc);
+        const int pos = (2 * tile + kk) * 32;  // the k step's, in the chunk
+        if ((pos + 32) % a.width == 0) {  // its span ends here
+          const bool sp = pos >= a.width;
+          fi_flush(acc, iacc, {pick(sc[0], sp), pick(sc[1], sp)});
+        }
+      }
+    }
+  }
+  mfa::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 16 * rw + g + 8 * i;
+    if (row >= Sq) continue;
+    float* out = a.out0 + (bh * Sq + row) * D + part * DW + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NDB; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * i] * a.store, acc[j][2 * i + 1] * a.store);
+  }
+}
+
+// Replaces _dkv_fullint_kernel.  Bound: operations (2 int8 and 2 bf16
+// products of 2*D per pair; level 2: 4 int8).
+template <int D, bool L2>
+__global__ void __launch_bounds__(128 * fi_split<D, L2>(),
+                                  fi_min_blocks<D, L2, false>())
+fullint_dkv_tc_kernel(const FullintArgs a) {
+  using L = FiDkvSmem<D, L2>;
+  constexpr int NS = L::NS;
+  constexpr int NT = 128 * NS;
+  constexpr int QW = BM / NS;  // query columns of a warp's S^T, dP^T
+  constexpr int NQB = QW / 8;
+  constexpr int DW = D / NS;  // dK / dV lanes a warp accumulates
+  constexpr int NDB = DW / 8;
+  static_assert(!L2 || NS > 1, "level 2 stages P' and dS' in shared memory");
+  extern __shared__ __align__(16) uint8_t sm[];
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int c0 = blockIdx.x * BN;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = a.Hq / a.Hkv;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kw = warp & 3;     // keys c0 + 16 kw + [0, 16)
+  const int part = warp >> 2;  // query columns qc0 + [0, QW), dK/dV lanes
+  const int qc0 = part * QW;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bkv = (size_t)b * a.Hkv + hk;
+
+  fi_stage_rows<D, NT>(a.kq, bkv, Skv, c0, sm + L::K);
+  fi_stage_rows<D, NT>(a.vq, bkv, Skv, c0, sm + L::V);
+  mfa::cp_async_commit();
+  const FiWalk wk(L2 ? a.width : 0, Sq);
+  const int per = wk.steps();  // steps a q head
+  const int steps = group * per;
+  auto head_of = [&](int it) {
+    const int gi = it / per;
+    return a.interleaved ? gi * a.Hkv + hk : hk * group + gi;
+  };
+  // Step it's Q, dOv (and, in its last pass, dO) rows and their vectors
+  // into buffer buf: zeros from Sq.
+  auto prefetch = [&](int it, int buf) {
+    const size_t bh = (size_t)b * a.Hq + head_of(it);
+    const int r0 = wk.t0(it % per);
+    fi_stage_rows<D, NT>(a.qq, bh, Sq, r0, sm + L::Q + buf * L::TI);
+    fi_stage_rows<D, NT>(a.dov, bh, Sq, r0, sm + L::DOV + buf * L::TI);
+    if (wk.pass(it % per) == wk.passes - 1)
+      fi_stage_rows<D, NT>(a.dor, bh, Sq, r0, sm + L::DOR + buf * L::TI);
+    float* st = reinterpret_cast<float*>(sm + L::ST) + buf * 5 * BM;
+    for (int i = threadIdx.x; i < 5 * BM; i += NT) {
+      const int v = i / BM;
+      const int r = r0 + i % BM;
+      const bool ok = r < Sq;
+      const float* src = v == 0   ? a.qsc
+                         : v == 1 ? a.lse
+                         : v == 2 ? a.di
+                         : v == 3 ? a.dorsc
+                                  : a.dovsc;
+      mfa::cp_async4(st + i, src + bh * Sq + (ok ? r : 0), ok ? 4 : 0);
+    }
+  };
+  if (steps > 0) prefetch(0, 0);
+  mfa::cp_async_commit();
+
+  float ksr[2];  // this thread's keys c0 + 16 kw + g + 8i
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = c0 + 16 * kw + g + 8 * i;
+    ksr[i] = (a.ks && key < Skv) ? a.ks[bkv * Skv + key] : 1.f;
+  }
+  float dk[NDB][4], dv[NDB][4];
+#pragma unroll
+  for (int j = 0; j < NDB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  // Level 2, per [P', dS'][key row][span of the chunk]: this thread's
+  // running max, then the rows' 127 / am and am / 127.
+  float run[2][2][2] = {}, inv[2][2][2], sc[2][2][2];
+
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    mfa::cp_async_wait<0>();
+    __syncthreads();  // step it staged, K and V landed; step it - 1 done
+    if (it + 1 < steps) prefetch(it + 1, buf ^ 1);
+    mfa::cp_async_commit();
+    const int sit = it % per;
+    const int r0 = wk.t0(sit);
+    const int pass = wk.pass(sit);
+    const int tile = wk.tile(sit);
+    const bool last = pass == wk.passes - 1;
+    const uint8_t* sq = sm + L::Q + buf * L::TI;
+    const uint8_t* sdor = sm + L::DOR + buf * L::TI;
+    uint8_t* opq = sm + L::OP;
+    uint8_t* opdo = sm + L::OP + L::OP_BYTES;
+    if (last) {
+      if constexpr (L2) {
+        fi_rows_t<D, NT>(sq, opq);
+        fi_rows_t<D, NT>(sdor, opdo);
+      } else {
+        fi_rows_bf16<D, NT>(sq, opq);
+        fi_rows_bf16<D, NT>(sdor, opdo);
+      }
+    }
+
+    // S^T and dP^T for keys 16 kw + [0, 16), queries qc0 + [0, QW):
+    // element (key g + 8i, query qc0 + 8j + 2tq + c) at [j][2i + c].
+    float pd[NQB][4], dsv[NQB][4];
+    {
+      int sti[NQB][4], dpti[NQB][4];
+      mma_s8_nt<D / 32, NQB, L::RI, L::RI>(sm + L::K, 16 * kw, sq, qc0, sti);
+      mma_s8_nt<D / 32, NQB, L::RI, L::RI>(sm + L::V, 16 * kw,
+                                           sm + L::DOV + buf * L::TI, qc0,
+                                           dpti);
+      const float* st =
+          reinterpret_cast<const float*>(sm + L::ST) + buf * 5 * BM;
+#pragma unroll
+      for (int j = 0; j < NQB; ++j) {
+        const int qc = qc0 + 8 * j + 2 * tq;
+        const float2 qs = *reinterpret_cast<const float2*>(st + qc);
+        const float2 lv = *reinterpret_cast<const float2*>(st + BM + qc);
+        const float2 di = *reinterpret_cast<const float2*>(st + 2 * BM + qc);
+        const float2 dors =
+            *reinterpret_cast<const float2*>(st + 3 * BM + qc);
+        const float2 dovs =
+            *reinterpret_cast<const float2*>(st + 4 * BM + qc);
+        const float q2[2] = {qs.x, qs.y};
+        const float l2[2] = {lv.x * LOG2E, lv.y * LOG2E};
+        const float d2[2] = {di.x, di.y};
+        const float r2[2] = {dors.x, dors.y};
+        const float v2[2] = {dovs.x, dovs.y};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 2 * i + c;
+            const float x = mfa::biased_f32(sti[j][e]) * q2[c] * ksr[i];
+            const float pt = r0 + qc + c < Sq
+                                 ? mfa::ex2_approx(fmaf(x, LOG2E, -l2[c]))
+                                 : 0.f;
+            dsv[j][e] =
+                pt * (mfa::biased_f32(dpti[j][e]) * v2[c] - d2[c]) * q2[c];
+            pd[j][e] = pt * r2[c];
+          }
+      }
+    }
+
+    uint8_t* ps = sm + L::PS;
+    uint8_t* dss = ps + BN * (L2 ? L::PT : L::PB);
+    if constexpr (!L2) {
+      // dV += round_bf16(P').dO, dK += round_bf16(dS').Q, 16 queries a k
+      // step.
+      if constexpr (NS > 1) {
+        fi_store_bf16<NQB, L::PB>(pd, 16 * kw, qc0, ps);
+        fi_store_bf16<NQB, L::PB>(dsv, 16 * kw, qc0, dss);
+      }
+      __syncthreads();  // Q's and dO's bf16 rows (and P', dS' tiles)
+      const int a_off =
+          (16 * kw + mfa::ldsm_a_row(lane)) * L::PB + mfa::ldsm_a_byte(lane);
+#pragma unroll
+      for (int kc = 0; kc < BM / 16; ++kc) {
+        uint32_t pa[4], dsa[4];
+        if constexpr (NS == 1) {
+          mfa::c_to_a_bf16(pd, kc, pa);
+          mfa::c_to_a_bf16(dsv, kc, dsa);
+        } else {
+          mfa::ldsm_x4(pa, ps + a_off + kc * 32);
+          mfa::ldsm_x4(dsa, dss + a_off + kc * 32);
+        }
+        mfa::mma_rn<NDB, L::RB>(pa, opdo, 16 * kc, part * DW, dv);
+        mfa::mma_rn<NDB, L::RB>(dsa, opq, 16 * kc, part * DW, dk);
+      }
+    } else {
+      if (pass == 0) {
+        if (tile == 0)
+#pragma unroll
+          for (int k = 0; k < 8; ++k) (&run[0][0][0])[k] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NQB; ++j) {
+          const bool sp = tile * BM + qc0 + 8 * j >= a.width;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            max_at(run[0][i], sp, fmaxf(pd[j][2 * i], pd[j][2 * i + 1]));
+            max_at(run[1][i], sp,
+                   fmaxf(fabsf(dsv[j][2 * i]), fabsf(dsv[j][2 * i + 1])));
+          }
+        }
+      }
+      if (!last) continue;
+      if (tile == 0) {  // the chunk's row maxima are complete
+        float* amx = reinterpret_cast<float*>(sm + L::AM);
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int sp = 0; sp < 2; ++sp) {
+              const float m = quad_max(run[k][i][sp]);
+              if (tq == 0)
+                amx[((part * BN + 16 * kw + g + 8 * i) * 2 + sp) * 2 + k] = m;
+            }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int sp = 0; sp < 2; ++sp) {
+              float am = 0.f;
+#pragma unroll
+              for (int p = 0; p < NS; ++p)
+                am = fmaxf(
+                    am, amx[((p * BN + 16 * kw + g + 8 * i) * 2 + sp) * 2 + k]);
+              inv[k][i][sp] = 127.f / fmaxf(am, 1e-30f);
+              sc[k][i][sp] = am * (1.f / 127.f);
+            }
+      }
+#pragma unroll
+      for (int j = 0; j < NQB; ++j) {
+        const bool sp = tile * BM + qc0 + 8 * j >= a.width;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pd[j][e] = fi_quant(pd[j][e], pick(inv[0][e >> 1], sp));
+          dsv[j][e] = fi_quant(dsv[j][e], pick(inv[1][e >> 1], sp));
+        }
+      }
+      // dV += P_int.dO_int, dK += dS_int.Q_int, 32 queries a k step (dO^T,
+      // Q^T in permuted positions).
+      fi_store_s8<NQB, L::PT>(pd, 16 * kw, qc0, ps);
+      fi_store_s8<NQB, L::PT>(dsv, 16 * kw, qc0, dss);
+      __syncthreads();  // Q^T, dO^T and the P', dS' tiles
+      uint32_t pa[2][4], dsa[2][4];
+      const int a_off = (16 * kw + mfa::ldsm_a_row(lane)) * L::PT +
+                        mfa::ldsm_a_byte(lane);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        mfa::ldsm_x4(pa[kk], ps + a_off + 32 * kk);
+        mfa::ldsm_x4(dsa[kk], dss + a_off + 32 * kk);
+      }
+      // The tile's integer products (|x| <= 64 * 127 * 127 < 2^22, summed
+      // from I32_BIAS) scaled into the fp32 accumulators, or each k step's
+      // where a span ends between them.
+      const int pos = 64 * tile;  // the tile's, in the chunk
+      const bool split = (pos + 32) % a.width == 0;
+      const bool sp0 = pos >= a.width;
+      const bool sp1 = pos + 32 >= a.width;
+#pragma unroll
+      for (int n2 = 0; n2 < NDB / 2; ++n2) {
+        int cv[2][4], ck[2][4];
+        auto scale_into = [&](bool sp) {
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dv[2 * n2 + m][e] +=
+                  mfa::biased_f32(cv[m][e]) * pick(sc[0][e >> 1], sp);
+              dk[2 * n2 + m][e] +=
+                  mfa::biased_f32(ck[m][e]) * pick(sc[1][e >> 1], sp);
+              cv[m][e] = ck[m][e] = mfa::I32_BIAS;
+            }
+        };
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cv[0][e] = cv[1][e] = ck[0][e] = ck[1][e] = mfa::I32_BIAS;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          mma_s8_rows<2, L::PT>(pa[kk], opdo, part * DW + 16 * n2, 32 * kk,
+                                cv);
+          mma_s8_rows<2, L::PT>(dsa[kk], opq, part * DW + 16 * n2, 32 * kk,
+                                ck);
+          if (kk == 0 && split) scale_into(sp0);
+        }
+        scale_into(sp1);
+      }
+    }
+  }
+  mfa::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = c0 + 16 * kw + g + 8 * i;
+    if (key >= Skv) continue;
+    float* dkr = a.out0 + (bkv * Skv + key) * D + part * DW + 2 * tq;
+    float* dvr = a.out1 + (bkv * Skv + key) * D + part * DW + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NDB; ++j) {
+      *reinterpret_cast<float2*>(dkr + 8 * j) =
+          make_float2(dk[j][2 * i] * a.store, dk[j][2 * i + 1] * a.store);
+      *reinterpret_cast<float2*>(dvr + 8 * j) =
+          make_float2(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -525,9 +1355,26 @@ int launch_qflash(bool dq, const BwdArgs& a, const QuantKV<D>& kv, int B,
                             a, kv);
 }
 
+template <int D, bool L2>
+int launch_fullint_tc(bool dq, const FullintArgs& a, int B,
+                      cudaStream_t stream) {
+  constexpr int NT = 128 * fi_split<D, L2>();
+  if (dq)
+    return launch_with_smem(fullint_dq_tc_kernel<D, L2>,
+                            dim3((a.Sq + BM - 1) / BM, a.Hq, B), NT,
+                            FiDqSmem<D, L2>::BYTES, stream, a);
+  return launch_with_smem(fullint_dkv_tc_kernel<D, L2>,
+                          dim3((a.Skv + BN - 1) / BN, a.Hkv, B), NT,
+                          FiDkvSmem<D, L2>::BYTES, stream, a);
+}
+
+// Level 1 and level-2 widths from one k step on the tensor cores, the
+// narrower widths on the scalar kernels.
 template <int D>
 int launch_fullint(bool dq, const FullintArgs& a, int B,
                    cudaStream_t stream) {
+  if (a.width == 0) return launch_fullint_tc<D, false>(dq, a, B, stream);
+  if (fullint_tc(a.width)) return launch_fullint_tc<D, true>(dq, a, B, stream);
   if (dq)
     return launch_with_smem(fullint_dq_kernel<D>,
                             dim3((a.Sq + BM - 1) / BM, a.Hq, B), THREADS,
@@ -618,6 +1465,14 @@ int mfa_fullint_bwd(int dq, const void* qq, const void* qsc, const void* kq,
   if (D == 128) return launch_fullint<128>(dq, a, B, s);
   if (D == 256) return launch_fullint<256>(dq, a, B, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The kernels mfa_fullint_bwd launches at head dim D and level-2 width
+// `width` (0: level 1): 1 the tensor-core pair, 0 the scalar pair, -1 none
+// (ops/flash_attention_bwd.py::fullint_body gives the same answer).
+int mfa_fullint_tc_body(int D, int width) {
+  if ((D != 32 && D != 64 && D != 128 && D != 256) || width < 0) return -1;
+  return fullint_tc(width) ? 1 : 0;
 }
 
 }  // extern "C"

@@ -31,7 +31,11 @@ disjoint outputs, so no atomics:
   :func:`fullint_dkv` (TPU ``_dq_fullint_kernel`` / ``_dkv_fullint_kernel``)
   over per-token int8 Q and dO; level 1 by default, level 2
   (``MFA_BWD_FULLINT_LEVEL=2``) row-quantizes dS and P per tile of the
-  TPU's width, resolved from ``block_sizes`` as the JAX package does.
+  TPU's width, resolved from ``block_sizes`` as the JAX package does.  They
+  run on the tensor cores (``fullint_dq_tc_kernel``,
+  ``fullint_dkv_tc_kernel``: s8 mma.sync, bf16 or s8 for the output
+  products) except at level-2 widths that are not multiples of 32
+  (:func:`fullint_body`).
 
 D = rowsum(dO ⊙ O) is computed once in plain torch, in fp32 from the fp32
 O residual, and shared by both kernels (callers may pass it as ``di``).
@@ -732,6 +736,27 @@ def fullint_dkv_plain(qq, qsc, kq, ks, vq, dor, dorsc, dov, dovsc, lse, di,
             _reduce_kv_heads(dv, hkv, interleaved_kv))
 
 
+FULLINT_K_STEP = 32  # keys or queries of one s8 m16n8k32 k step
+
+
+def fullint_body(d: int, width: int) -> str:
+    """Which kernels :func:`fullint_dq` and :func:`fullint_dkv` launch at
+    head dim ``d`` and level-2 width ``width`` (0: level 1): "tensor_core"
+    (``fullint_dq_tc_kernel``, ``fullint_dkv_tc_kernel``: s8 mma.sync for
+    S and dP, bf16 mma.sync at level 1 and s8 at level 2 for the output
+    products) at level 1 and at widths of whole s8 k steps (multiples of
+    32 keys or queries), the spans whose integer products they sum under
+    one scale; "dp4a" (``fullint_dq_kernel``, ``fullint_dkv_kernel``:
+    __dp4a and scalar fp32 FMAs) at the other widths, which
+    :func:`fullint_widths` gives sequences that no power of two from 32
+    divides (below 32, or 8 or 16 times an odd number: 48 at 336).  The C
+    launcher routes the same way (``mfa_fullint_tc_body``)."""
+    qattn_width(d)
+    if width < 0:
+        raise ValueError(f"level-2 width {width} has no kernel")
+    return "tensor_core" if width % FULLINT_K_STEP == 0 else "dp4a"
+
+
 def _check_fullint(name, qq, qsc, kq, ks, vq, dos, lse, di, width):
     """Raise unless the tensors are what ``fullint_*_kernel`` take; ``dos``:
     the (int8 dO, scales) pairs."""
@@ -802,7 +827,7 @@ def fullint_dq(
     the V scales, per-token int8 and scales; ``lse`` with -inf read as 0;
     ``width``: level 2's row-quantization width (0: level 1); ``store``:
     dQ's multiplier.  CPU tensors take :func:`fullint_dq_plain`; CUDA
-    tensors launch ``fullint_dq_kernel`` or raise."""
+    tensors launch the kernel :func:`fullint_body` names or raise."""
     kw = dict(store=store, width=width, interleaved_kv=interleaved_kv)
     if qq.device.type == "cpu":
         return fullint_dq_plain(qq, qsc, kq, ks, vq, dov, dovsc, lse, di,
@@ -842,7 +867,7 @@ def fullint_dkv(
     summed over each KV head's group; ``dor`` / ``dorsc``: dO itself,
     per-token int8 and scales; ``store``: dK's multiplier; the rest as for
     :func:`fullint_dq`.  CPU tensors take :func:`fullint_dkv_plain`; CUDA
-    tensors launch ``fullint_dkv_kernel`` or raise."""
+    tensors launch the kernel :func:`fullint_body` names or raise."""
     kw = dict(store=store, width=width, interleaved_kv=interleaved_kv)
     if qq.device.type == "cpu":
         return fullint_dkv_plain(qq, qsc, kq, ks, vq, dor, dorsc, dov, dovsc,

@@ -960,8 +960,8 @@ def test_qflash_kernels_match_plain(cuda_device, name):
 
 
 FULLINT_CASES = {
-    # name: (b, hq, hkv, s, d, K config, V config, level 2 blocks or None,
-    #        interleaved)
+    # name: (b, hq, hkv, s or (sq, skv), d, K config, V config, level 2
+    #        blocks or None, interleaved)
     "row_chan_l1": (1, 4, 2, 256, 128, ROW8, CH8, None, False),
     "row_chan_l2_w128": (1, 4, 2, 256, 128, ROW8, CH8, 128, False),
     "tens_tens_l1": (2, 4, 4, 192, 64, TEN8, TEN8, None, False),
@@ -972,6 +972,18 @@ FULLINT_CASES = {
     # Head dims outside HEAD_DIMS, zero-padded to the next built width.
     "d80_l1": (1, 4, 2, 256, 80, ROW8, CH8, None, False),
     "d96_l2_w128": (1, 4, 2, 256, 96, TEN8, TEN8, 128, False),
+    # The north-star's spans: 512 keys (dQ) and queries (dK/dV), eight
+    # 64-wide tiles each, at its head dim.
+    "d256_l2_w512": (1, 2, 2, 1024, 256, ROW8, CH8, 512, False),
+    # Widths of whole k steps that are not whole tiles: two 32-wide spans
+    # a tile (S=160), 96-wide spans across tiles (S=288).
+    "w32_l2": (1, 4, 2, 160, 128, ROW8, CH8, 512, False),
+    "w96_l2": (1, 4, 2, 288, 64, ROW8, TEN8, 512, False),
+    # Widths below one k step, on the scalar kernels (fullint_body).
+    "w16_l2": (1, 4, 2, 144, 64, ROW8, CH8, 512, False),
+    "w1_l2": (1, 4, 2, 129, 128, TEN8, CH8, 512, False),
+    "gqa8_interleaved_l1": (1, 16, 2, 256, 128, ROW8, CH8, None, True),
+    "sq_ne_skv": (1, 4, 2, (192, 320), 128, ROW8, CH8, 128, False),
 }
 
 
@@ -980,10 +992,12 @@ FULLINT_CASES = {
 def test_fullint_kernels_match_plain(cuda_device, name):
     """The full-integer dQ and dK/dV kernels against their plain versions
     (bf16 tolerance: dS and P rounded to bf16, or row-quantized to int8
-    over the resolved widths, from fp32 values summed in another order)."""
+    over the resolved widths, from fp32 values summed in another order),
+    on the kernels ``fullint_body`` names for the resolved widths."""
     b, hq, hkv, s, d, kcfg, vcfg, blocks, inter = FULLINT_CASES[name]
-    q, kq, vq = _qattn_inputs(cuda_device, b, hq, hkv, s, s, d, kcfg, vcfg,
-                              BF16)
+    sq, skv = s if isinstance(s, tuple) else (s, s)
+    q, kq, vq = _qattn_inputs(cuda_device, b, hq, hkv, sq, skv, d, kcfg,
+                              vcfg, BF16)
     assert fbwd.fullint_backward_supported(q, kq, vq, masking.FULL, None,
                                            None)
     opts = dict(interleaved_kv=inter)
@@ -996,7 +1010,7 @@ def test_fullint_kernels_match_plain(cuda_device, name):
         int8_grads=blocks is not None, **opts)
     if blocks is not None:
         assert (dq_kw["width"], dkv_kw["width"]) == fbwd.fullint_widths(
-            bs, s, s)
+            bs, sq, skv)
     n = (fbwd.fullint_dq.launches, fbwd.fullint_dkv.launches)
     dq = fbwd.fullint_dq(*dq_a, **dq_kw)
     dk, dv = fbwd.fullint_dkv(*dkv_a, **dkv_kw)
@@ -1008,6 +1022,26 @@ def test_fullint_kernels_match_plain(cuda_device, name):
                       (dk, dk_ref), (dv, dv_ref)):
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert _rel(got, want) <= BF16_TOL, name
+
+
+@pytest.mark.cuda
+def test_fullint_kernels_route_as_the_python_bodies_say(cuda_device):
+    """The C launcher's routing of the full-integer pair (as the library
+    reports it) agrees with fullint_body at every built width, level 1 and
+    every level-2 width up to 4096: whole s8 k steps on the tensor cores,
+    the rest on the scalar kernels."""
+    import ctypes
+
+    from metal_flash_attention_plus_tpu_torch import _build
+
+    body = _build.kernel_function("mfa_fullint_tc_body",
+                                  [ctypes.c_int, ctypes.c_int])
+    for d in (32, 64, 128, 256):
+        for width in range(4097):
+            want = fbwd.fullint_body(d, width) == "tensor_core"
+            assert body(d, width) == int(want), (d, width)
+            assert want == (width % 32 == 0)
+    assert body(48, 0) == -1 and body(64, -1) == -1
 
 
 @pytest.mark.cuda

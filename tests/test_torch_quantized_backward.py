@@ -236,26 +236,32 @@ JBS128 = jfa.BlockSizes(block_q=128, block_kv=128, block_q_dkv=128,
                         block_kv_dkv=128, block_q_dq=128, block_kv_dq=128)
 
 FULLINT = {
-    # name: (K, V, level, 128-wide level-2 tiles, interleaved)
-    "row_chan_l1": ("row", "chan", None, False, False),
-    "row_chan_l2": ("row", "chan", "2", False, False),
-    "tens_tens_l1": ("tens", "tens", None, False, False),
-    "tens_tens_l2_tiles128": ("tens", "tens", "2", True, False),
-    "row_chan_l2_tiles128_interleaved": ("row", "chan", "2", True, True),
+    # name: (K, V, level, 128-wide level-2 tiles, interleaved, head dim)
+    "row_chan_l1": ("row", "chan", None, False, False, 128),
+    "row_chan_l2": ("row", "chan", "2", False, False, 128),
+    "tens_tens_l1": ("tens", "tens", None, False, False, 128),
+    "tens_tens_l2_tiles128": ("tens", "tens", "2", True, False, 128),
+    "row_chan_l2_tiles128_interleaved": ("row", "chan", "2", True, True,
+                                         128),
+    # The north-star's head dim, both levels.
+    "row_chan_l1_d256": ("row", "chan", None, False, False, 256),
+    "row_chan_l2_d256": ("row", "chan", "2", False, False, 256),
+    "row_tens_l1": ("row", "tens", None, False, False, 128),
+    "row_chan_l1_interleaved": ("row", "chan", None, False, True, 128),
 }
 
 
 @pytest.mark.parametrize("name", sorted(FULLINT))
 def test_fullint_backward_matches_jax(name, monkeypatch):
     """At the JAX package's test shapes (B=1, Hq=4, Hkv=2, S=256, D=128,
-    bf16, FULL); level 2 with the default 512 blocks (one 256-wide tile)
-    and with 128-wide tiles, whose row maxima the port takes from
-    ``block_sizes`` as the JAX package does."""
-    kname, vname, level, tiles128, inter = FULLINT[name]
+    bf16, FULL; D=256 too); level 2 with the default 512 blocks (one
+    256-wide tile) and with 128-wide tiles, whose row maxima the port takes
+    from ``block_sizes`` as the JAX package does."""
+    kname, vname, level, tiles128, inter, d = FULLINT[name]
     if level:
         monkeypatch.setenv("MFA_BWD_FULLINT_LEVEL", level)
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(
-        21, 1, 4, 2, 256, 256, 128, _SYM[kname], _SYM[vname], "bf16")
+        21, 1, 4, 2, 256, 256, d, _SYM[kname], _SYM[vname], "bf16")
     jbs = JBS128 if tiles128 else jfa.BlockSizes()
     tbs = tbwd.BlockSizes(**dataclasses.asdict(jbs))
     assert tbwd.fullint_backward_supported(tq, tk, tv, tmask.FULL, None,
@@ -276,6 +282,28 @@ def test_fullint_backward_matches_jax(name, monkeypatch):
         # ... an approximation of the exact backward: rel L2 < 0.05, the
         # JAX package's gate.
         assert 0 < (g - e).norm() / e.norm() < 0.05
+
+
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+def test_fullint_body_follows_the_level_2_width(d):
+    """The full-integer pair runs on the tensor cores at level 1 and at
+    widths of whole s8 k steps (multiples of 32), on the scalar kernels at
+    the widths ``fullint_widths`` gives other sequences (S=200: 8, S=336:
+    48, S=129: 1), and has no kernel for a negative width or a head dim
+    past 256."""
+    bs = tbwd.BlockSizes()
+    for s, want in ((4096, "tensor_core"), (256, "tensor_core"),
+                    (160, "tensor_core"), (288, "tensor_core"),
+                    (200, "dp4a"), (336, "dp4a"), (129, "dp4a"),
+                    (144, "dp4a")):
+        widths = tbwd.fullint_widths(bs, s, s)
+        assert {tbwd.fullint_body(d, w) for w in widths} == {want}, s
+    assert tbwd.fullint_widths(bs, 160, 288) == (96, 32)
+    assert tbwd.fullint_body(d, 0) == "tensor_core"
+    with pytest.raises(ValueError):
+        tbwd.fullint_body(d, -1)
+    with pytest.raises(ValueError):
+        tbwd.fullint_body(272, 0)
 
 
 @pytest.mark.parametrize("d", [80, 96])
