@@ -107,10 +107,11 @@ checkout, then, on the card:
    both weight-only GEMM kernels against their plain versions at the
    decompression shape (M=4096, N=1024, K=256): folded int8 / int4 ROW and
    int8 TENSOR, dequant-on-load BLOCK 128, ASYMMETRIC ROW and an fp32 A,
-   each with and without ``c=``; (e) ``mla_decompress`` over quantized
+   each with and without ``c=``, in fp32, and their bf16 results equal to
+   the fp32 ones rounded; (e) ``mla_decompress`` over quantized
    W_uk / W_uv (int8 ROW, int8 BLOCK 128) then ``flash_attention`` at B=2,
    S=2048 against ``mla_absorbed_attention`` on the dequantized weights
-   (rel L2 ≤ 0.05), 2 GEMM launches per call, and
+   (rel L2 ≤ 0.05), 2 GEMM launches per call, the path's time, and
    ``mla_absorbed_attention`` over a per-token int8 latent at B=2, S=2048
    (the quantized forward at Hq=16 over Hkv=1, D=256) with its one launch
    held to the plain version on the same arguments; (f) full-width
@@ -137,23 +138,28 @@ checkout, then, on the card:
    reference, with exactly one launch of the expected GEMM kernel per
    call; (c) the four kernels' times at gemm_bench's shapes, on
    utils/profiling.py's arms, beside their bounds, plain versions and
-   library calls.
+   library calls, and both weight-only kernels' there (gemm_bench's
+   weight-only int8 / int4 BLOCK 256 arms through ``wo_gemm``, int8 ROW
+   SYMMETRIC through ``wo_folded_gemm``), first held to their plain
+   versions in fp32 and their bf16 results to the fp32 ones rounded.
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
 Phases 10 (f), 13 (c), 8, 11 (d) and 12 (h) log which body the quantized
-forward and the head-pair call, the quantized-A GEMMs (folded and
-dequantizing), the flash forward and the dQ and dK/dV kernels, the exact
-and the full-integer ones, run (``qattn_body``, ``qa_gemm_body``,
-``fwd_body``, ``dq_body``, ``dkv_body``, ``fullint_body``: tensor cores,
-or fp32 FMAs / ``__dp4a``).
+forward and the head-pair call, the quantized-A and the weight-only GEMMs
+(folded and dequantizing), the flash forward and the dQ and dK/dV kernels,
+the exact and the full-integer ones, run (``qattn_body``,
+``qa_gemm_body``, ``wo_gemm_body``, ``fwd_body``, ``dq_body``,
+``dkv_body``, ``fullint_body``: tensor cores, or fp32 FMAs / ``__dp4a``).
 
 ``--parent DIR`` (a checkout of the parent commit, e.g. ``git archive``
 into a directory ``.gitignore`` lists) also builds DIR's kernels, at once
 with this checkout's, and times every kernel the phases time on both
 libraries in turns (parent, change, change, parent) through the same
-wrappers; the turns go into the log, a summary line each, and the
-redesigned kernels' record entries.
+wrappers (a parent whose weight-only kernels write fp32 only runs
+``quantized_matmul`` as it did then: fp32, then the cast); the turns go
+into the log, a summary line each, and the redesigned kernels' record
+entries.
 
 Every phase raises on failure, so the script exits non-zero.  It prints
 the kernels' record as one JSON line and, as the very last line,
@@ -278,10 +284,16 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     quantize_rows,
     weight_scales,
     wo_arguments,
+    wo_call,
     wo_folded_gemm,
     wo_folded_gemm_plain,
     wo_gemm,
+    wo_gemm_body,
     wo_gemm_plain,
+    wo_tile,
+)
+from metal_flash_attention_plus_tpu_torch.ops import (
+    quantized_gemm as qgemm,
 )
 from metal_flash_attention_plus_tpu_torch.ops import (
     runtime_quantization as rtq,
@@ -408,7 +420,7 @@ DEVICE_KERNELS = {
     "qflash_dq": "qflash_dq_tc_kernel", "qflash_dkv": "qflash_dkv_tc_kernel",
     "fullint_dq": "fullint_dq_tc_kernel",
     "fullint_dkv": "fullint_dkv_tc_kernel",
-    "wo_folded_gemm": "wo_folded_kernel", "wo_gemm": "wo_kernel",
+    "wo_folded_gemm": "wo_tc_kernel", "wo_gemm": "wo_tc_kernel",
     "qa_folded_gemm": "qa_tc_kernel", "qa_gemm": "qa_tc_kernel",
     "comp_gemm": "comp_tc_kernel", "comp_small_gemm": "comp_small_kernel",
 }
@@ -432,23 +444,46 @@ def nvidia_smi_line() -> str:
 PARENT = {"lib": None, "turns": []}
 
 
+# The weight-only entry points' arguments from the out type to the stream
+# (out type, tile rows, K splits, workspace), by the out type's index: a
+# library from before the kernels stored the caller's dtype (it has no
+# ``mfa_wo_tc_body``) lacks them; its kernels write fp32 and choose their
+# own tile (the workspace goes unused).
+WO_OTYPE_ARG = {"mfa_wo_folded_gemm": 9, "mfa_wo_gemm": 12}
+
+
 @contextlib.contextmanager
 def kernels_of(lib):
     """Run the port's kernel wrappers on ``lib``'s kernels (the same C
-    interface) instead of this checkout's."""
-    own = _build.kernel_function
+    interface) instead of this checkout's.  A library whose weight-only
+    kernels write fp32 only is called without the out-type argument, and
+    ``quantized_matmul`` stores fp32 and casts meanwhile, as it did over
+    those kernels."""
+    own, own_types = _build.kernel_function, qgemm.WO_OUT_TYPES
+    legacy = not hasattr(lib, "mfa_wo_tc_body")
 
     def function(name, argtypes):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = list(argtypes)
-        return fn
+        if not (legacy and name in WO_OTYPE_ARG):
+            fn.argtypes = list(argtypes)
+            return fn
+        i = WO_OTYPE_ARG[name]
+        fn.argtypes = list(argtypes[:i]) + list(argtypes[-1:])
+
+        def fp32_only(*args):
+            if args[i] != qgemm.WO_OUT_TYPES[torch.float32]:
+                raise ValueError(f"{name} of this library writes fp32 only")
+            return fn(*args[:i], args[-1])
+        return fp32_only
 
     _build.kernel_function = function
+    if legacy:
+        qgemm.WO_OUT_TYPES = {torch.float32: own_types[torch.float32]}
     try:
         yield
     finally:
-        _build.kernel_function = own
+        _build.kernel_function, qgemm.WO_OUT_TYPES = own, own_types
 
 
 def parent_turns(label, t, kernel, iters):
@@ -2442,10 +2477,33 @@ def wo_pair(a, wq, c=None):
     return wo_gemm, wo_gemm_plain, args, kw
 
 
+def check_wo(name, a, wq, c=None):
+    """The weight-only kernel of ``quantized_matmul(a, wq, c=c)`` against
+    its plain version, fp32 out, at WO_TOL, and its bf16 result equal to
+    the fp32 one rounded, bit for bit.  → (kernel, (rel err, max abs
+    err))."""
+    kernel, plain, args, kw = wo_pair(a, wq, c)
+    out = kernel(*args, **kw)
+    out16 = kernel(*args, **kw, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = plain(*args, **kw)
+    e = (rel_err(out, ref), max_abs(out, ref))
+    log(f"{kernel.__name__} {name} (M={a.shape[0]} N={wq.shape[0]} "
+        f"K={a.shape[1]}, {wo_gemm_body(args[0].dtype)} tile): rel "
+        f"{e[0]:.2e} max abs {e[1]:.2e} (tol {WO_TOL}); bf16 out = fp32 out "
+        "rounded")
+    if not e[0] <= WO_TOL:
+        raise AssertionError(f"{name} disagrees with its plain version: {e}")
+    if not torch.equal(out16, out.to(torch.bfloat16)):
+        raise AssertionError(f"{name}: the bf16 result is not the fp32 one "
+                             "rounded")
+    return kernel, e
+
+
 def check_wo_gemm(rng):
     """(d) Both weight-only GEMM kernels against their plain versions at the
-    decompression shape in each mode of WO_CASES, with and without ``c=``.
-    → {label: (rel err, max abs err)}."""
+    decompression shape in each mode of WO_CASES, with and without ``c=``
+    (``check_wo``).  → {label: (rel err, max abs err)}."""
     m, n, k = DEC_B * DEC_S, DEC_H * DEC_DH, DEC_DC
     g = device_generator(rng)
     errs = {}
@@ -2456,20 +2514,10 @@ def check_wo_gemm(rng):
                           * k ** -0.5, cfg)
             c = (torch.randn((m, n), generator=g, device=DEV) if with_c
                  else None)
-            kernel, plain, args, kw = wo_pair(a, wq, c)
             name = f"{label}{' c=' if with_c else ''}"
+            kernel, errs[name] = check_wo(name, a, wq, c)
             if (kernel is wo_folded_gemm) != label.startswith("folded"):
                 raise AssertionError(f"{name}: dispatched to {kernel}")
-            out = kernel(*args, **kw)
-            torch.cuda.synchronize()
-            ref = plain(*args, **kw)
-            errs[name] = (rel_err(out, ref), max_abs(out, ref))
-            log(f"{kernel.__name__} {name} (M={m} N={n} K={k}): rel "
-                f"{errs[name][0]:.2e} max abs {errs[name][1]:.2e} (tol "
-                f"{WO_TOL})")
-            if not errs[name][0] <= WO_TOL:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version: {errs[name]}")
     return errs
 
 
@@ -2478,8 +2526,9 @@ def run_decompression(rng):
     16)`` then ``flash_attention(q, k, v, CAUSAL)`` at B=2, S=2048, against
     ``mla_absorbed_attention`` on the dequantized weights; W_uk/W_uv int8
     ROW (the folded kernel) and int8 BLOCK 128 (the dequant-on-load one),
-    the launch counts set to 0 just before and read after.  → {config:
-    {rel_l2, launches}}."""
+    the launch counts set to 0 just before and read after; then the path's
+    time (with ``--parent``, in turns).  → {config: {rel_l2, launches,
+    times}}."""
     b, s, h, dh, dc = DEC_B, DEC_S, DEC_H, DEC_DH, DEC_DC
     g = device_generator(rng)
     latent = torch.randn((b, s, dc), generator=g, device=DEV).to(
@@ -2517,7 +2566,14 @@ def run_decompression(rng):
                 and o.shape == (b, h, s, dh)):
             raise AssertionError(f"decompression {name} disagrees with the "
                                  f"absorbed path: {err}")
-        out[name] = {"rel_l2": err, "launches": launches}
+        path = (lambda wk=wk, wv=wv: flash_attention(  # noqa: E731
+            q, *mla_decompress(latent, wk, wv, h), mask=masking.CAUSAL))
+        times = {"ms": time_ms(path, 10), "ms_2": time_ms(path, 10)}
+        parent_turns(f"decompression {name}: mla_decompress + "
+                     "flash_attention", times, path, 10)
+        log(f"decompression {name} path times (B={b} S={s}): "
+            + json.dumps(times))
+        out[name] = {"rel_l2": err, "launches": launches, "times": times}
     return out
 
 
@@ -2574,34 +2630,62 @@ def run_absorbed_quantized(rng):
     return {"errors": errs, "launches": launches}
 
 
+def time_wo_call(label, a, wq, vectors, iters, plain_iters=5):
+    """The weight-only kernel ``quantized_matmul(a, wq)`` launches, as it
+    launches it (``wo_call``: the bf16 result stored by the kernel; by CUDA
+    events, and its kernels' device time under the profiler, which the
+    events exceed where the host's launch is the longer) and in fp32,
+    beside its bound (A, the payload and its scale vectors read once,
+    the bf16 result written once; or 2·M·N·K over the bf16 peak), its plain
+    version at bf16 out (timed once, ``plain_iters`` calls) and
+    ``torch.matmul`` of A by the pre-dequantized bf16 Wᵀ.  With
+    ``--parent``, ``quantized_matmul``'s call in turns (the parent: its fp32
+    kernel, then the cast)."""
+    m, k = a.shape
+    n = wq.shape[0]
+    kernel, plain, args, kw = wo_pair(a, wq)
+    bf16 = torch.bfloat16
+    folded = kernel is wo_folded_gemm
+    call = (lambda: wo_call(folded, args, kw, bf16))  # noqa: E731
+    wbt = dequantize(wq).to(bf16).t().contiguous()
+    t = {"plain_ms": time_ms(lambda: plain(*args, **kw, out_dtype=bf16),
+                             plain_iters, warmup=1),
+         "ms": time_ms(call, iters)}
+    t["ms_2"] = time_ms(call, iters)
+    t["ms_fp32_out"] = time_ms(lambda: kernel(*args, **kw), iters)
+    t["library_ms"] = time_ms(lambda: a @ wbt, iters)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    t["device_ms"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+    t["body"] = wo_gemm_body(args[0].dtype)
+    t["tile_rows"], t["k_splits"] = wo_tile(
+        m, n, k, torch.cuda.get_device_properties(DEV).multi_processor_count)
+    parent_turns(label, t, call, iters)
+    t["bound_ms"], t["bound_by"] = bound_of(
+        2 * m * n * k, 2 * m * k + wq.nbytes_payload + 4 * vectors + 2 * m * n)
+    log(f"{label} times (M={m} N={n} K={k}, bf16 A, {t['body']} tile): "
+        + json.dumps(t))
+    return t
+
+
 def time_wo_gemm(rng):
     """Both weight-only kernels at the decompression shape in
     ``mla_decompress``'s modes (bf16 latent; int8 ROW folded, int8 BLOCK
-    128 dequant-on-load), beside their bounds (the bf16 latent, the int8
-    payload and its scales read once, the bf16 result written once; or
-    2·M·N·K over the bf16 peak), plain versions and ``torch.matmul`` of the
-    latent by the pre-dequantized bf16 weight."""
+    128 dequant-on-load), by ``time_wo_call``."""
     m, n, k = DEC_B * DEC_S, DEC_H * DEC_DH, DEC_DC
     g = device_generator(rng)
     a = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
     w = torch.randn((n, k), generator=g, device=DEV) * k ** -0.5
     times = {}
-    for cfg, vectors in ((WEIGHT_CFG, n), (int8_blockwise(128), 2 * k)):
-        wq = quantize(w, cfg)
-        kernel, plain, args, kw = wo_pair(a, wq)
-        wbt = dequantize(wq).to(torch.bfloat16).t().contiguous()
-        t = {"plain_ms": time_ms(lambda: plain(*args, **kw), 5, warmup=1),
-             "ms": time_ms(lambda: kernel(*args, **kw), 20)}
-        t["plain_ms_2"] = time_ms(lambda: plain(*args, **kw), 5, warmup=0)
-        t["ms_2"] = time_ms(lambda: kernel(*args, **kw), 20)
-        t["library_ms"] = time_ms(lambda: a @ wbt, 20)
-        parent_turns(f"{kernel.__name__} {cfg.granularity.value} M={m}", t,
-                     lambda: kernel(*args, **kw), 20)
-        t["bound_ms"], t["bound_by"] = bound_of(
-            2 * m * n * k, 2 * m * k + n * k + 4 * vectors + 2 * m * n)
-        log(f"{kernel.__name__} {cfg.granularity.value} times (M={m} N={n} "
-            f"K={k}, bf16 latent): " + json.dumps(t))
-        times[kernel.__name__] = t
+    for name, cfg, vectors in (("wo_folded_gemm", WEIGHT_CFG, n),
+                               ("wo_gemm", int8_blockwise(128), 2 * k)):
+        times[name] = time_wo_call(f"{name} {cfg.granularity.value} M={m}",
+                                   a, quantize(w, cfg), vectors, 20)
     return times
 
 
@@ -2938,14 +3022,19 @@ def run_matmul_paths(rng):
     return out
 
 
-# gemm_bench-shape arm of utils/profiling.py each kernel is timed on, the
-# library call it is set beside, and what bounds its operations.
+# gemm_bench-shape arm of utils/profiling.py each kernel is timed on (its
+# label: the kernel's name, and the payload's for the weight-only ones),
+# the library call it is set beside, and what bounds its operations.
 GEMM_TIMED = (
     ("qa_folded_gemm", "qa_folded_int8_row", BF16_FLOPS),
     ("qa_gemm", "qa_int8_row_asymmetric", BF16_FLOPS),
     ("comp_gemm", "compensated_int8", INT8_OPS),
     ("comp_small_gemm", "compensated_small_int8_b64", INT8_OPS),
+    ("wo_gemm int8", "weight_only_int8", BF16_FLOPS),
+    ("wo_gemm int4", "weight_only_int4", BF16_FLOPS),
+    ("wo_folded_gemm", "weight_only_folded_int8_row", BF16_FLOPS),
 )
+WO_LIBRARY = "torch.matmul of the bf16 A by the pre-dequantized bf16 Wᵀ"
 GEMM_LIBRARY = {
     "qa_folded_gemm": "torch.matmul of the dequantized bf16 A by the bf16 B",
     "qa_gemm": "torch.matmul of the dequantized bf16 A by the bf16 B",
@@ -2953,26 +3042,41 @@ GEMM_LIBRARY = {
                  "product only)",
     "comp_small_gemm": "fp32 torch.matmul of the dequantized operands, TF32 "
                        "off",
+    "wo_gemm": WO_LIBRARY,
+    "wo_folded_gemm": WO_LIBRARY,
 }
 
 
 def time_gemm_kernels(rng):
-    """(c) The four kernels at gemm_bench's shapes on utils/profiling.py's
-    arms, beside their bounds (the operands read once, the fp32 result
-    written once; or 2·M·N·K over the bf16 peak for the quantized-A
-    kernels, over the int8 peak for both compensated kernels: their
-    operands are int8 payloads with per-block scales, whose block
-    products the int8 tensor cores take at any block that is a multiple
-    of 32, so comp_small_gemm's exact-fp32 design, copied from the TPU
-    kernel, is not the card's limit), plain versions and library calls
-    (GEMM_LIBRARY).
-    → {kernel: {"m{M}": times}}."""
+    """(c) The seven kernels' arms at gemm_bench's shapes on
+    utils/profiling.py's arms, beside their bounds (the operands read once,
+    the fp32 result written once, bf16 for the weight-only ones; or
+    2·M·N·K over the bf16 peak for the quantized-A and weight-only kernels,
+    over the int8 peak for both compensated kernels: their operands are
+    int8 payloads with per-block scales, whose block products the int8
+    tensor cores take at any block that is a multiple of 32, so
+    comp_small_gemm's exact-fp32 design, copied from the TPU kernel, is not
+    the card's limit), plain versions and library calls (GEMM_LIBRARY).
+    The weight-only kernels are first held to their plain versions there
+    (``check_wo``) and timed by ``time_wo_call``.
+    → {label: {"m{M}": times}}."""
     g = device_generator(rng)
     times = {}
     for name, arm, peak in GEMM_TIMED:
         times[name] = {}
         for m, n, k in GEMM_SHAPES:
             _, (a, b) = gemm_arm(arm, m, n, k, g)
+            iters = 10 if m <= 128 else 3
+            if name.startswith("wo"):
+                _, err = check_wo(f"M={m} N={n} K={k}", a, b)
+                folded = name == "wo_folded_gemm"
+                t = time_wo_call(f"{name} M={m} N={n} K={k}", a, b,
+                                 n if folded else 2 * k, iters,
+                                 plain_iters=1 if m > 128 else 2)
+                t["rel_err"], t["max_abs_err"] = err
+                times[name][f"m{m}"] = t
+                del a, b
+                continue
             kernel, plain, args, kw = gemm_kernel_pair(a, b)
             if kernel in (qa_gemm, qa_folded_gemm):
                 log(f"{name} at M={m} runs the "
@@ -2988,7 +3092,6 @@ def time_gemm_kernels(rng):
                 ad, bd = dequantize(a), dequantize(b).t()
                 library = (lambda ad=ad, bd=bd: ad @ bd)
                 vec = 16 * k
-            iters = 10 if m <= 128 else 3
             t = {"plain_ms": time_ms(lambda: plain(*args, **kw), 2,
                                      warmup=1),
                  "ms": time_ms(lambda: kernel(*args, **kw), iters,
@@ -3348,25 +3451,51 @@ def main() -> int:
         })
     wo_modes = {"wo_folded_gemm": (f"{GEMM_TPU}:235", "int8 ROW (WEIGHT_CFG)"),
                 "wo_gemm": (f"{GEMM_TPU}:196", "int8 BLOCK 128 CENTERED")}
+    # gemm_bench's shapes, by record key: (label in 13 (c), mode).
+    wo_bench = {"wo_folded_gemm": {"int8_row": ("wo_folded_gemm",
+                                                "int8 ROW SYMMETRIC")},
+                "wo_gemm": {"int8_block256": ("wo_gemm int8",
+                                              "int8 BLOCK 256 SYMMETRIC"),
+                            "int4_block256": ("wo_gemm int4",
+                                              "int4 BLOCK 256 SYMMETRIC")}}
+    wo_keys = ("ms", "device_ms", "ms_fp32_out", "plain_ms", "bound_ms",
+               "bound_by", "library_ms", "body", "tile_rows", "k_splits",
+               "rel_err", "max_abs_err", "parent_turns_ms")
     for name, (replaces, mode) in wo_modes.items():
         t = mla["wo_times"][name]
         errs_k = [e for n, e in mla["wo_errors"].items()
                   if n.startswith("folded") == (name == "wo_folded_gemm")]
-        record["kernels"].append({
+        entry = {
             "name": name, "route": "cuda", "source": GEMM_SOURCE,
             "replaces": replaces,
             "launches": sum(d["launches"][name]
                             for d in mla["decompression"].values()),
+            "launches_matmul_paths": sum(c["launches"][name]
+                                         for c in gemm["matmul"].values()),
             "max_abs_err": max(e[1] for e in errs_k),
             "rel_err": max(e[0] for e in errs_k),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "library": "torch.matmul of the bf16 latent by the "
-                       "pre-dequantized bf16 weight",
+            "library_ms": t["library_ms"], "library": WO_LIBRARY,
+            "device_ms": t["device_ms"], "ms_fp32_out": t["ms_fp32_out"],
+            "body": t["body"],
+            "tile_rows": t["tile_rows"], "k_splits": t["k_splits"],
+            "body_fp32_a": wo_gemm_body(torch.float32),
+            "redesigned": REDESIGNED,
             "shape": f"M={DEC_B * DEC_S} N={DEC_H * DEC_DH} K={DEC_DC}, bf16 "
-                     f"latent, {mode} (mla_decompress)",
-        })
+                     f"latent, {mode}, bf16 out (mla_decompress)",
+            **({"parent_turns_ms": t["parent_turns_ms"]}
+               if "parent_turns_ms" in t else {}),
+        }
+        for tag, (label, bench_mode) in wo_bench[name].items():
+            for m, n, k in GEMM_SHAPES:
+                bt_ = gemm["times"][label][f"m{m}"]
+                entry[f"shape_{tag}_m{m}"] = (
+                    f"M={m} N={n} K={k}, bf16 A, {bench_mode}, bf16 out "
+                    "(benchmarks/gemm_bench.py)")
+                entry.update({f"{key}_{tag}_m{m}": bt_[key]
+                              for key in wo_keys if key in bt_})
+        record["kernels"].append(entry)
     gemm_tpu = {"qa_folded_gemm": 498, "qa_gemm": 461, "comp_gemm": 707,
                 "comp_small_gemm": 763}
     gemm_shape = {
@@ -3413,6 +3542,8 @@ def main() -> int:
         "logits_rel_l2": mla["logits_rel_l2"],
         "decompression_rel_l2": {k: v["rel_l2"]
                                  for k, v in mla["decompression"].items()},
+        "decompression_path_times": {
+            k: v["times"] for k, v in mla["decompression"].items()},
         "absorbed_int8_latent_rel_l2": mla["absorbed_quantized"]["errors"][
             "vs_fp32_rel_l2"],
         "int8_p_span_rel_err": {k: v[0]

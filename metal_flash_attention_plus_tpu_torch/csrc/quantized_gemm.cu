@@ -5,8 +5,9 @@
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
 //   - ops/quantized_gemm.py::_dyn_kernel        -> dyn_gemm_kernel
-//   - ops/quantized_gemm.py::_wo_folded_kernel  -> wo_folded_kernel
-//   - ops/quantized_gemm.py::_wo_kernel         -> wo_kernel
+//   - ops/quantized_gemm.py::_wo_folded_kernel  -> wo_tc_kernel (folded)
+//   - ops/quantized_gemm.py::_wo_kernel         -> wo_tc_kernel (bf16 A),
+//                                                   wo_kernel (fp32 A)
 //   - ops/quantized_gemm.py::_qa_folded_kernel  -> qa_tc_kernel (folded)
 //   - ops/quantized_gemm.py::_qa_kernel         -> qa_tc_kernel (bf16 B),
 //                                                   qa_kernel (fp32 B)
@@ -50,6 +51,7 @@
 //   are the planned speed work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -213,36 +215,38 @@ dyn_gemm_kernel(const int8_t* __restrict__ qa, const void* __restrict__ qb,
 }
 
 // ---------------------------------------------------------------------------
-// Weight-only GEMMs: out [M, N] fp32 = A [M, K] x W^T, W the payload [N, K]
-// int8 or [N, K/2] uint8 group-planar int4 (as dyn_gemm_kernel reads it).
+// Weight-only GEMMs: out [M, N] = A [M, K] x W^T, W the payload [N, K] int8
+// or [N, K/2] uint8 group-planar int4 (as dyn_gemm_kernel reads it):
 //
-//   - wo_folded_kernel (the TPU's _wo_folded_kernel: SYMMETRIC TENSOR / ROW
-//     weights, a non-fp32 A cast to bf16 by the wrapper): acc = sum_k a * w
-//     over the integer weights, exact products (bf16 x int8 fits fp32's
-//     24-bit significand) summed in fp32; then out = acc * s[n] and, with
-//     C, out + c, each rounded once (the scale multiplies the accumulator
-//     once, and C is not scaled);
-//   - wo_kernel (the TPU's _wo_kernel: every other weight, or an fp32 A):
-//     each weight element dequantized (w - zp) * s in fp32 with the scale
-//     and zero point of its TENSOR (one), ROW (per n) or BLOCK (per k,
-//     expanded to [K] by the wrapper) cell, rounded to the compute type AT
-//     (fp32 for an fp32 A, else bf16), then acc = sum_k a * deq in fp32;
-//     out = acc (+ c).
-// The kernel writes fp32; the wrapper rounds it to the caller's dtype once,
-// as the TPU kernels' store does.
+//   - the TPU's _wo_folded_kernel (SYMMETRIC TENSOR / ROW weights, a non-fp32
+//     A cast to bf16 by the wrapper): acc = sum_k a * w over the integer
+//     weights, exact products (bf16 x int8 fits fp32's 24-bit significand)
+//     summed in fp32; then out = acc * s[n] and, with C, out + c, each
+//     rounded once (the scale multiplies the accumulator once, and C is not
+//     scaled).  wo_tc_kernel's FOLDED instances below;
+//   - the TPU's _wo_kernel (every other weight, or an fp32 A): each weight
+//     element dequantized (w - zp) * s in fp32 with the scale and zero point
+//     of its TENSOR (one), ROW (per n) or BLOCK (per k, expanded to [K] by
+//     the wrapper) cell, rounded to the compute type AT (fp32 for an fp32 A,
+//     else bf16), then acc = sum_k a * deq in fp32; out = acc (+ c).  A bf16
+//     A takes wo_tc_kernel below, on the tensor cores; an fp32 A stays on
+//     wo_kernel, the scalar tile here (TF32 would break its fp32 gate).
+// Both store the caller's type (OutType: fp32, or bf16 / fp16 rounded once
+// to nearest), as the TPU kernels' store does, so a bf16 result is the fp32
+// one rounded.
 //
-// What bounds them on the H100, and the design.  At MLA's decompression
-// (M = B*S = 4096 latent rows, N = H*dh = 1024, K = d_c = 256) the work is
-// 2*M*N*K = 2.1 GFLOP over ~10.7 MB (A 2 MB bf16, W 0.26 MB int8, out
-// 8.4 MB fp32), ~197 flop/byte: below the bf16 ridge (~295), so bytes bound
-// it, at ~3.2 us.  These first versions are simple: one CTA per 64 x 64
-// output tile, 256 threads with 4 x 4 outputs each; each K step stages a
-// 64 x 32 tile of A and of the weights in shared memory as fp32 (the
-// weights widened, or dequantized and rounded, while staging), transposed
-// so each thread's rows and columns are 16-byte vectors, and accumulates
-// with scalar fp32 FMAs (67 TFLOP/s peak: ~32 us at best).  bf16 mma.sync /
-// wgmma with the int8 weights widened in registers is the planned speed
-// work.
+// What bounds them on the H100.  At MLA's decompression (M = B*S = 4096
+// latent rows, N = H*dh = 1024, K = d_c = 256) the work is 2*M*N*K =
+// 2.1 GFLOP over ~10.7 MB (A 2 MB bf16, W 0.26 MB int8, out 8.4 MB bf16),
+// ~197 flop/byte: below the bf16 ridge (~295), so bytes bound it, at
+// ~3.2 us.  At the GEMM bench's shapes (M = 128 or 4096, N = K = 8192) the
+// bf16 tensor cores bound M = 4096 at ~0.56 ms and the weight's bytes
+// M = 128 at ~0.02 ms (int8).  The scalar tile: one CTA per 64 x 64 output
+// tile, 256 threads with 4 x 4 outputs each; each K step stages a 64 x 32
+// tile of A and of the weights in shared memory as fp32 (the weights
+// dequantized and rounded while staging), transposed so each thread's rows
+// and columns are 16-byte vectors, and accumulates with scalar fp32 FMAs
+// (67 TFLOP/s peak).
 // ---------------------------------------------------------------------------
 
 constexpr int WO_BM = 64;
@@ -252,6 +256,38 @@ constexpr int WO_THREADS = 256;
 constexpr int WO_LD = 64 + 4;
 
 enum WoScales { WO_TENSOR = 0, WO_ROW = 1, WO_BLOCK = 2 };
+enum OutType { OUT_F32 = 0, OUT_BF16 = 1, OUT_F16 = 2 };
+
+// out[idx] = v in `otype`, rounded once to nearest.
+__device__ __forceinline__ void store_out(void* out, int otype, size_t idx,
+                                          float v) {
+  if (otype == OUT_BF16)
+    static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
+  else if (otype == OUT_F16)
+    static_cast<__half*>(out)[idx] = __float2half_rn(v);
+  else
+    static_cast<float*>(out)[idx] = v;
+}
+
+// out[idx], out[idx + 1] = v0, v1: one aligned vector store where `pair`
+// (both in range, idx even), else v0 and, where `hi`, v1.
+__device__ __forceinline__ void store_out2(void* out, int otype, size_t idx,
+                                           float v0, float v1, bool pair,
+                                           bool hi) {
+  if (!pair) {
+    store_out(out, otype, idx, v0);
+    if (hi) store_out(out, otype, idx + 1, v1);
+  } else if (otype == OUT_BF16) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
+                                       idx) = __floats2bfloat162_rn(v0, v1);
+  } else if (otype == OUT_F16) {
+    *reinterpret_cast<__half2*>(static_cast<__half*>(out) + idx) =
+        __floats2half2_rn(v0, v1);
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) =
+        make_float2(v0, v1);
+  }
+}
 
 // Weight element (n, k) as an integer: int8, or the group-planar int4 nibble
 // (group k / 256; within it byte j % 128, low nibble for j < 128), - 8.
@@ -335,49 +371,13 @@ __device__ __forceinline__ void wo_stage_a(const AT* __restrict__ a, int M,
   });
 }
 
+// wo_kernel's fp32-A instances (the bf16 A runs wo_tc_kernel).
 template <int BITS>
 __global__ void __launch_bounds__(WO_THREADS)
-wo_folded_kernel(const __nv_bfloat16* __restrict__ a,
-                 const void* __restrict__ w, const float* __restrict__ scale,
-                 const float* __restrict__ c, float* __restrict__ out, int M,
-                 int N, int K) {
-  __shared__ __align__(16) float as[WO_BK][WO_LD];
-  __shared__ __align__(16) float bs[WO_BK][WO_LD];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * WO_BM;
-  const int n0 = blockIdx.x * WO_BN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += WO_BK) {
-    wo_stage_a(a, M, K, m0, k0, as);
-    stage_rows(bs, N, K, n0, k0, [=](int n, int k) {
-      return (float)weight_at<BITS>(w, n, k, K);
-    });
-    __syncthreads();
-    wo_step(as, bs, ty, tx, acc);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      const size_t idx = (size_t)m * N + n;
-      const float r = __fmul_rn(acc[i][j], scale[n]);
-      out[idx] = c ? __fadd_rn(r, c[idx]) : r;
-    }
-  }
-}
-
-template <typename AT, int BITS>
-__global__ void __launch_bounds__(WO_THREADS)
-wo_kernel(const AT* __restrict__ a, const void* __restrict__ w,
+wo_kernel(const float* __restrict__ a, const void* __restrict__ w,
           const float* __restrict__ scale, const float* __restrict__ zp,
-          int scales, const float* __restrict__ c, float* __restrict__ out,
-          int M, int N, int K) {
+          int scales, const float* __restrict__ c, void* __restrict__ out,
+          int otype, int M, int N, int K) {
   __shared__ __align__(16) float as[WO_BK][WO_LD];
   __shared__ __align__(16) float bs[WO_BK][WO_LD];
   const int tx = threadIdx.x % 16;
@@ -388,7 +388,7 @@ wo_kernel(const AT* __restrict__ a, const void* __restrict__ w,
   for (int k0 = 0; k0 < K; k0 += WO_BK) {
     wo_stage_a(a, M, K, m0, k0, as);
     stage_rows(bs, N, K, n0, k0, [=](int n, int k) {
-      return dequant_at<AT, BITS>(w, scale, zp, scales, n, k, K);
+      return dequant_at<float, BITS>(w, scale, zp, scales, n, k, K);
     });
     __syncthreads();
     wo_step(as, bs, ty, tx, acc);
@@ -403,7 +403,7 @@ wo_kernel(const AT* __restrict__ a, const void* __restrict__ w,
       const int n = n0 + tx * 4 + j;
       if (n >= N) continue;
       const size_t idx = (size_t)m * N + n;
-      out[idx] = c ? __fadd_rn(acc[i][j], c[idx]) : acc[i][j];
+      store_out(out, otype, idx, c ? __fadd_rn(acc[i][j], c[idx]) : acc[i][j]);
     }
   }
 }
@@ -498,9 +498,8 @@ qa_kernel(const void* __restrict__ a, const BT* __restrict__ b,
 //     fp32 gate of the plain version at K = 8192.
 // FOLDED (the folded GEMM): A's integers become bf16 unchanged (exact for
 // int8 and int4: no zero point, no scale) and the epilogue multiplies the
-// row's scale, out = acc * s[m], rounded once.  The weight-only pair can
-// move onto this tile too: it differs in what A's dequantization does and
-// in the epilogue.
+// row's scale, out = acc * s[m], rounded once.  wo_tc_kernel below runs the
+// weight-only pair on the same frame, the quantized operand on B's side.
 // ---------------------------------------------------------------------------
 
 constexpr int QT_BN = 128;
@@ -531,6 +530,133 @@ constexpr size_t qa_tc_smem() {
          2 * (size_t)BM * QT_A_LD + QT_STAGES * 2 * QT_BK * sizeof(float);
 }
 
+// Copy the K step [k0, k0 + QT_BK) of payload rows [r0, r0 + R) of a
+// quantized operand [rows, K] into one ring stage (R rows of QT_ARAW_LD
+// bytes) by cp.async: int8, or int4 (K % 256 == 0: the 32 k share one group
+// half, whose 32 packed bytes are copied); zeros past `rows` and K; element
+// loads where an int8 row is not 16-byte aligned (`vec` false).
+template <int BITS, int R>
+__device__ __forceinline__ void stage_payload(uint8_t* dst,
+                                              const uint8_t* __restrict__ p,
+                                              int r0, int rows, int K, int k0,
+                                              bool vec) {
+  constexpr int CH = QT_BK / 16;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < R * CH; i += QT_THREADS) {
+    const int r = i / CH;
+    const int c = i % CH;
+    const int row = r0 + r;
+    uint8_t* d = dst + r * QT_ARAW_LD + c * 16;
+    if (BITS == 4) {
+      const size_t off = (size_t)(row < rows ? row : 0) * (K / 2) +
+                         (size_t)(k0 / 256) * 128 + (k0 % 256) % 128 + c * 16;
+      mfa::cp_async16(d, p + off, row < rows ? 16 : 0);
+    } else if (vec) {
+      const int kk = k0 + c * 16;
+      const bool ok = row < rows && kk < K;
+      mfa::cp_async16(d, p + (ok ? (size_t)row * K + kk : 0), ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int kk = k0 + c * 16 + e;
+        d[e] = (row < rows && kk < K) ? p[(size_t)row * K + kk] : 0;
+      }
+    }
+  }
+}
+
+// The step's BLOCK scales and zero points (per k, 2 * QT_BK floats) beside
+// the payload, by cp.async; zeros past K.
+__device__ __forceinline__ void stage_block_cells(float* dst,
+                                                  const float* __restrict__ s,
+                                                  const float* __restrict__ z,
+                                                  int K, int k0) {
+  const int tid = threadIdx.x;
+  if (tid < 2 * QT_BK) {
+    const int k = k0 + tid % QT_BK;
+    mfa::cp_async4(dst + tid, (tid < QT_BK ? s : z) + (k < K ? k : 0),
+                   k < K ? 4 : 0);
+  }
+}
+
+// EPT consecutive k of one staged payload row (`src`, at the thread's first
+// k, which is k0) -> bf16 at `dst`, with dequant_at's arithmetic and
+// rounding, round_bf16((q - zp) * s): the row's scale and zero point
+// (TENSOR, ROW) in registers, or the step's per-k ones (BLOCK) from `bsc`;
+// FOLDED: the integers unchanged (exact in bf16); zeros where the row is
+// not live or past K.  The payload's integers become floats on the FP32
+// pipe (mma.cuh's s8_f32) and the rounding to bf16 runs on the conversion
+// unit (cvt.rn.bf16x2), so the two share the work.  `shift`: 4 for the high
+// nibbles of an int4 group's second half.
+template <int BITS, int EPT, bool FOLDED>
+__device__ __forceinline__ void dequant_bf16(const uint8_t* src,
+                                             const float* bsc, int scales,
+                                             float row_s, float row_z,
+                                             bool live, int k0, int K,
+                                             int shift, uint8_t* dst) {
+  uint32_t w[EPT / 4];
+#pragma unroll
+  for (int v = 0; v < EPT / 8; ++v) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src + 8 * v);
+    w[2 * v] = u.x;
+    w[2 * v + 1] = u.y;
+  }
+  uint32_t out[EPT / 2];
+#pragma unroll
+  for (int v = 0; v < EPT / 4; ++v) {
+    float q[4];
+    if (BITS == 8) {
+      const uint32_t x = w[v] ^ 0x80808080u;
+      q[0] = mfa::s8_f32<0>(x);
+      q[1] = mfa::s8_f32<1>(x);
+      q[2] = mfa::s8_f32<2>(x);
+      q[3] = mfa::s8_f32<3>(x);
+    } else {  // nibbles hold q + 8
+      const uint32_t x = (w[v] >> shift) & 0x0F0F0F0Fu;
+      q[0] = mfa::u8_f32<0>(x) - 8.0f;
+      q[1] = mfa::u8_f32<1>(x) - 8.0f;
+      q[2] = mfa::u8_f32<2>(x) - 8.0f;
+      q[3] = mfa::u8_f32<3>(x) - 8.0f;
+    }
+    float d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + 4 * v + e;
+      const float sc = scales == WO_BLOCK ? bsc[4 * v + e] : row_s;
+      const float z = scales == WO_BLOCK ? bsc[QT_BK + 4 * v + e] : row_z;
+      d[e] = !(live && k < K) ? 0.f
+             : FOLDED         ? q[e]
+                              : __fmul_rn(__fsub_rn(q[e], z), sc);
+    }
+    out[2 * v] = mfa::pack_bf16(d[0], d[1]);
+    out[2 * v + 1] = mfa::pack_bf16(d[2], d[3]);
+  }
+#pragma unroll
+  for (int v = 0; v < EPT / 8; ++v)
+    *reinterpret_cast<uint4*>(dst + 16 * v) = make_uint4(
+        out[4 * v], out[4 * v + 1], out[4 * v + 2], out[4 * v + 3]);
+}
+
+// One step's 32 products on the tensor core, summed into a zeroed fragment
+// and then added to the accumulator in fp32 (round to nearest): af the A
+// fragments of 2 x 16 rows, bf the B fragments of NT 8-column blocks, each
+// for the step's two 16-k slices.
+template <int NT>
+__device__ __forceinline__ void mma_step(float (&acc)[2][NT][4],
+                                         const uint32_t (&af)[2][2][4],
+                                         const uint32_t (&bf)[NT][2][2]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      float p[4] = {0.f, 0.f, 0.f, 0.f};
+      mfa::mma_bf16(p, af[mi][0], bf[ni][0][0], bf[ni][0][1], p);
+      mfa::mma_bf16(p, af[mi][1], bf[ni][1][0], bf[ni][1][1], p);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], p[e]);
+    }
+}
+
 template <int BITS, int BM, bool FOLDED>
 __global__ void __launch_bounds__(QT_THREADS, 2)
 qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
@@ -540,7 +666,6 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
   constexpr int WARPS_M = BM / 32;
   constexpr int WN = QT_BN / (8 / WARPS_M);  // columns per warp
   constexpr int NT = WN / 8;                 // 8-column blocks per warp
-  constexpr int ACH = QT_BK / 16;            // 16-byte chunks per A row
   constexpr int BCH = QT_BN / 8;             // 16-byte chunks per B row
   extern __shared__ __align__(16) uint8_t sm[];
   uint8_t* araw = sm;
@@ -562,36 +687,10 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
 
   auto load = [&](int stage, int kt) {
     const int k0 = kt * QT_BK;
-    uint8_t* ar = araw + stage * BM * QT_ARAW_LD;
-    for (int i = tid; i < BM * ACH; i += QT_THREADS) {
-      const int r = i / ACH;
-      const int c = i % ACH;
-      const int m = m0 + r;
-      uint8_t* dst = ar + r * QT_ARAW_LD + c * 16;
-      if (BITS == 4) {  // K % 256 == 0: the 32 k share one group half
-        const size_t off = (size_t)(m < M ? m : 0) * (K / 2) +
-                           (size_t)(k0 / 256) * 128 + (k0 % 256) % 128 +
-                           c * 16;
-        mfa::cp_async16(dst, ap + off, m < M ? 16 : 0);
-      } else if (a_vec) {
-        const int kk = k0 + c * 16;
-        const bool ok = m < M && kk < K;
-        mfa::cp_async16(dst, ap + (ok ? (size_t)m * K + kk : 0),
-                        ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const int kk = k0 + c * 16 + e;
-          dst[e] = (m < M && kk < K) ? ap[(size_t)m * K + kk] : 0;
-        }
-      }
-    }
-    if (scales == WO_BLOCK && tid < 2 * QT_BK) {  // the step's scales, zps
-      const int k = k0 + tid % QT_BK;
-      const float* v = tid < QT_BK ? scale : zp;
-      mfa::cp_async4(bvec + stage * 2 * QT_BK + tid, v + (k < K ? k : 0),
-                     k < K ? 4 : 0);
-    }
+    stage_payload<BITS, BM>(araw + stage * BM * QT_ARAW_LD, ap, m0, M, K, k0,
+                            a_vec);
+    if (scales == WO_BLOCK)
+      stage_block_cells(bvec + stage * 2 * QT_BK, scale, zp, K, k0);
     uint8_t* bs = bsm + stage * QT_BK * QT_B_LD;
     for (int i = tid; i < QT_BK * BCH; i += QT_THREADS) {
       const int r = i / BCH;
@@ -626,52 +725,11 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
   const float row_s = !FOLDED && row_live ? scale[row_cell] : 0.f;
   const float row_z = !FOLDED && row_live ? zp[row_cell] : 0.f;
   auto dequant = [&](int stage, int kt, uint8_t* dst) {
-    const int k0 = kt * QT_BK + dk;
-    const uint8_t* src = araw + stage * BM * QT_ARAW_LD + dr * QT_ARAW_LD + dk;
-    const float* bsc = bvec + stage * 2 * QT_BK + dk;
     const int shift = (BITS == 4 && (kt * QT_BK % 256) >= 128) ? 4 : 0;
-    uint32_t w[EPT / 4];
-#pragma unroll
-    for (int v = 0; v < EPT / 8; ++v) {
-      const uint2 u = *reinterpret_cast<const uint2*>(src + 8 * v);
-      w[2 * v] = u.x;
-      w[2 * v + 1] = u.y;
-    }
-    uint32_t out[EPT / 2];
-#pragma unroll
-    for (int v = 0; v < EPT / 4; ++v) {
-      float q[4];
-      if (BITS == 8) {
-        const uint32_t x = w[v] ^ 0x80808080u;
-        q[0] = mfa::s8_f32<0>(x);
-        q[1] = mfa::s8_f32<1>(x);
-        q[2] = mfa::s8_f32<2>(x);
-        q[3] = mfa::s8_f32<3>(x);
-      } else {  // nibbles hold q + 8
-        const uint32_t x = (w[v] >> shift) & 0x0F0F0F0Fu;
-        q[0] = mfa::u8_f32<0>(x) - 8.0f;
-        q[1] = mfa::u8_f32<1>(x) - 8.0f;
-        q[2] = mfa::u8_f32<2>(x) - 8.0f;
-        q[3] = mfa::u8_f32<3>(x) - 8.0f;
-      }
-      float d[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = k0 + 4 * v + e;
-        const float sc = scales == WO_BLOCK ? bsc[4 * v + e] : row_s;
-        const float z = scales == WO_BLOCK ? bsc[QT_BK + 4 * v + e] : row_z;
-        d[e] = !(row_live && k < K) ? 0.f
-               : FOLDED              ? q[e]
-                                     : __fmul_rn(__fsub_rn(q[e], z), sc);
-      }
-      out[2 * v] = mfa::pack_bf16(d[0], d[1]);
-      out[2 * v + 1] = mfa::pack_bf16(d[2], d[3]);
-    }
-#pragma unroll
-    for (int v = 0; v < EPT / 8; ++v)
-      *reinterpret_cast<uint4*>(dst + dr * QT_A_LD + 2 * dk + 16 * v) =
-          make_uint4(out[4 * v], out[4 * v + 1], out[4 * v + 2],
-                     out[4 * v + 3]);
+    dequant_bf16<BITS, EPT, FOLDED>(
+        araw + stage * BM * QT_ARAW_LD + dr * QT_ARAW_LD + dk,
+        bvec + stage * 2 * QT_BK + dk, scales, row_s, row_z, row_live,
+        kt * QT_BK + dk, K, shift, dst + dr * QT_A_LD + 2 * dk);
   };
 
   float acc[2][NT][4];
@@ -723,18 +781,7 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
         bf[2 * n2 + 1][h][1] = r[3];
       }
     }
-    // 32 products on the tensor core, then added in fp32.
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        float p[4] = {0.f, 0.f, 0.f, 0.f};
-        mfa::mma_bf16(p, af[mi][0], bf[ni][0][0], bf[ni][0][1], p);
-        mfa::mma_bf16(p, af[mi][1], bf[ni][1][0], bf[ni][1][1], p);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], p[e]);
-      }
+    mma_step<NT>(acc, af, bf);
   }
   mfa::cp_async_wait<0>();
 
@@ -763,6 +810,251 @@ qa_tc_kernel(const void* __restrict__ a, const __nv_bfloat16* __restrict__ b,
         }
       }
     }
+}
+
+// ---------------------------------------------------------------------------
+// wo_tc_kernel: the weight-only pair's bf16-A instances on the tensor cores,
+// on qa_tc_kernel's frame with the quantized operand on B's side: A [M, K]
+// bf16 times W^T, W stored [N, K], K contiguous in both.  Each CTA computes
+// a BM x 128 output tile (BM = 128, or 64 for an M of 64 or less, as the
+// wrapper's wo_tile chooses) with 8 warps of 32 x 64 (or 32 x 32) outputs,
+// over K steps of 32 in a 4-stage cp.async ring:
+//   - A's bf16 rows (64 bytes a step) and W's payload bytes (32 a row: int8,
+//     or the int4 group half's packed bytes, as weight_at reads them) are
+//     copied into the ring ahead of use (zeros past M, N and K; element
+//     loads where a row is not 16-byte aligned: K % 8 (A) or K % 16 (int8
+//     W) not 0);
+//   - each step's W tile is dequantized once into bf16 rows [128][32],
+//     during the previous step's products (two bf16 tiles, one barrier a
+//     step), by qa_tc_kernel's dequant_bf16: dequant_at's arithmetic and
+//     rounding, round_bf16((q - zp) * s) with TENSOR, ROW (per n, in
+//     registers) or BLOCK (per k, staged beside the payload) cells, or the
+//     integers unchanged (FOLDED: exact in bf16);
+//   - A and W both by ldmatrix, non-transposed (W's [n][k] rows are the
+//     column-major B fragment m16n8k16 takes), bf16 m16n8k16 into fp32; each
+//     step's 32 products sum into a zeroed fragment that is then added to
+//     the accumulator in fp32 (round to nearest), which holds K = 8192 to
+//     the fp32 gate of the plain version;
+//   - the epilogue: FOLDED acc * s[n] rounded once, then + c (unscaled);
+//     else acc (+ c); stored in the caller's type (OutType) directly.
+// ~85 KB of shared memory at BM = 128 (two CTAs an SM).
+// Split K: where the 128-row tiles leave SMs without a CTA (the GEMM bench's
+// M = 128: 64 tiles), wo_tile splits the K steps into gridDim.z contiguous
+// ranges; each CTA writes its range's fp32 sum to the workspace `part`
+// [splits, M, N], and wo_reduce_kernel adds the splits in order and runs
+// the epilogue: a fixed-order sum, the same bits from run to run.
+// ---------------------------------------------------------------------------
+
+// A's ring (bf16 rows of QT_A_LD bytes), W's payload ring, two dequantized
+// W tiles and the ring of BLOCK scales and zero points.
+template <int BM>
+constexpr size_t wo_tc_smem() {
+  return (size_t)QT_STAGES * (BM * QT_A_LD + QT_BN * QT_ARAW_LD) +
+         2 * (size_t)QT_BN * QT_A_LD + QT_STAGES * 2 * QT_BK * sizeof(float);
+}
+
+template <int BITS, int BM, bool FOLDED>
+__global__ void __launch_bounds__(QT_THREADS, 2)
+wo_tc_kernel(const __nv_bfloat16* __restrict__ a, const void* __restrict__ w,
+             const float* __restrict__ scale, const float* __restrict__ zp,
+             int scales, const float* __restrict__ c, void* __restrict__ out,
+             float* __restrict__ part, int otype, int M, int N, int K) {
+  constexpr int STAGES = QT_STAGES;
+  constexpr int WARPS_M = BM / 32;
+  constexpr int WN = QT_BN / (8 / WARPS_M);  // columns per warp
+  constexpr int NT = WN / 8;                 // 8-column blocks per warp
+  constexpr int ACH = 2 * QT_BK / 16;        // 16-byte chunks per A row
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint8_t* asm_ = sm;
+  uint8_t* wraw = asm_ + STAGES * BM * QT_A_LD;
+  uint8_t* wdq = wraw + STAGES * QT_BN * QT_ARAW_LD;  // two tiles
+  float* bvec = reinterpret_cast<float*>(wdq + 2 * QT_BN * QT_A_LD);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm0 = (warp % WARPS_M) * 32;
+  const int wn0 = (warp / WARPS_M) * WN;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * QT_BN;
+  const uint8_t* ap = reinterpret_cast<const uint8_t*>(a);
+  const uint8_t* wp = static_cast<const uint8_t*>(w);
+  const bool a_vec = K % 8 == 0 && ((uintptr_t)a & 15) == 0;
+  const bool w_vec = BITS == 4 || (K % 16 == 0 && ((uintptr_t)w & 15) == 0);
+  // This CTA's K steps [kt0, kt0 + nk): its split's range.
+  const int steps = (K + QT_BK - 1) / QT_BK;
+  const int kt0 = (int)((long long)steps * blockIdx.z / gridDim.z);
+  const int nk = (int)((long long)steps * (blockIdx.z + 1) / gridDim.z) - kt0;
+
+  // Step kt of the range (0 <= kt < nk) into ring stage `stage`.
+  auto load = [&](int stage, int kt) {
+    const int k0 = (kt0 + kt) * QT_BK;
+    uint8_t* as = asm_ + stage * BM * QT_A_LD;
+    for (int i = tid; i < BM * ACH; i += QT_THREADS) {
+      const int r = i / ACH;
+      const int ch = i % ACH;
+      const int m = m0 + r;
+      const int k = k0 + ch * 8;
+      uint8_t* dst = as + r * QT_A_LD + ch * 16;
+      if (a_vec) {
+        const bool ok = m < M && k < K;
+        mfa::cp_async16(dst, ap + (ok ? ((size_t)m * K + k) * 2 : 0),
+                        ok ? 16 : 0);
+      } else {
+        const uint16_t* ah = reinterpret_cast<const uint16_t*>(a);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          reinterpret_cast<uint16_t*>(dst)[e] =
+              (m < M && k + e < K) ? ah[(size_t)m * K + k + e] : 0;
+      }
+    }
+    stage_payload<BITS, QT_BN>(wraw + stage * QT_BN * QT_ARAW_LD, wp, n0, N,
+                               K, k0, w_vec);
+    if (scales == WO_BLOCK)
+      stage_block_cells(bvec + stage * 2 * QT_BK, scale, zp, K, k0);
+  };
+
+  // W's staged payload -> bf16 rows: each thread dequantizes 16 consecutive
+  // k of one row, the same row every step, with that row's scale and zero
+  // point (TENSOR, ROW) in registers; zeros past N and K (whose A columns
+  // are zeros too).
+  constexpr int EPT = QT_BN * QT_BK / QT_THREADS;  // 16
+  const int dr = tid / (QT_BK / EPT);
+  const int dk = (tid % (QT_BK / EPT)) * EPT;
+  const bool row_live = n0 + dr < N;
+  const int row_cell = scales == WO_ROW ? n0 + dr : 0;
+  const float row_s = !FOLDED && row_live ? scale[row_cell] : 0.f;
+  const float row_z = !FOLDED && row_live ? zp[row_cell] : 0.f;
+  auto dequant = [&](int stage, int kt, uint8_t* dst) {
+    const int k0 = (kt0 + kt) * QT_BK;
+    const int shift = (BITS == 4 && (k0 % 256) >= 128) ? 4 : 0;
+    dequant_bf16<BITS, EPT, FOLDED>(
+        wraw + stage * QT_BN * QT_ARAW_LD + dr * QT_ARAW_LD + dk,
+        bvec + stage * 2 * QT_BK + dk, scales, row_s, row_z, row_live,
+        k0 + dk, K, shift, dst + dr * QT_A_LD + 2 * dk);
+  };
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  const int a_frag =
+      (wm0 + mfa::ldsm_a_row(lane)) * QT_A_LD + mfa::ldsm_a_byte(lane);
+  const int b_frag =
+      (wn0 + mfa::ldsm_b_row(lane)) * QT_A_LD + mfa::ldsm_b_byte(lane);
+
+  // Step kt's W is dequantized during step kt - 1's products, into the
+  // other of the two bf16 tiles: one barrier a step.
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load(st, st);
+    mfa::cp_async_commit();
+  }
+  mfa::cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  dequant(0, 0, wdq);
+  for (int kt = 0; kt < nk; ++kt) {
+    mfa::cp_async_wait<STAGES - 3>();
+    __syncthreads();  // step kt + 1 staged, W of step kt dequantized;
+                      // step kt - 1's readers done
+    if (kt + STAGES - 1 < nk)
+      load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    mfa::cp_async_commit();
+    if (kt + 1 < nk)
+      dequant((kt + 1) % STAGES, kt + 1,
+              wdq + ((kt + 1) & 1) * QT_BN * QT_A_LD);
+    const uint8_t* as = asm_ + (kt % STAGES) * BM * QT_A_LD + a_frag;
+    const uint8_t* ws = wdq + (kt & 1) * QT_BN * QT_A_LD + b_frag;
+    uint32_t af[2][2][4], bf[NT][2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the step's two 16-k slices
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        mfa::ldsm_x4(af[mi][h], as + mi * 16 * QT_A_LD + h * 32);
+#pragma unroll
+      for (int n2 = 0; n2 < NT / 2; ++n2) {
+        uint32_t r[4];
+        mfa::ldsm_x4(r, ws + n2 * 16 * QT_A_LD + h * 32);
+        bf[2 * n2][h][0] = r[0];
+        bf[2 * n2][h][1] = r[1];
+        bf[2 * n2 + 1][h][0] = r[2];
+        bf[2 * n2 + 1][h][1] = r[3];
+      }
+    }
+    mma_step<NT>(acc, af, bf);
+  }
+  mfa::cp_async_wait<0>();
+
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  if (part != nullptr) {  // split K: the range's sum, for wo_reduce_kernel
+    float* p = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = m0 + wm0 + 16 * mi + g + 8 * i;
+        if (m >= M) continue;
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const int n = n0 + wn0 + 8 * ni + 2 * tq;
+          if (n < N)
+            store_out2(p, OUT_F32, (size_t)m * N + n, acc[mi][ni][2 * i],
+                       acc[mi][ni][2 * i + 1], n + 1 < N && N % 2 == 0,
+                       n + 1 < N);
+        }
+      }
+    return;
+  }
+  float col_s[NT][2];  // FOLDED: the columns' scales
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + wn0 + 8 * ni + 2 * tq + e;
+      col_s[ni][e] = FOLDED && n < N ? scale[n] : 1.f;
+    }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + wm0 + 16 * mi + g + 8 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int n = n0 + wn0 + 8 * ni + 2 * tq;
+        if (n >= N) continue;
+        const size_t idx = (size_t)m * N + n;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = acc[mi][ni][2 * i + e];
+          if (FOLDED) v[e] = __fmul_rn(v[e], col_s[ni][e]);
+          if (c != nullptr && n + e < N) v[e] = __fadd_rn(v[e], c[idx + e]);
+        }
+        store_out2(out, otype, idx, v[0], v[1], n + 1 < N && N % 2 == 0,
+                   n + 1 < N);
+      }
+    }
+}
+
+// out = the epilogue of sum_s part[s] (s = 0, 1, ... in order, fp32 round to
+// nearest): with `scale` (folded) the sum times scale[n] rounded once, then
+// + c; stored in otype.  One thread per output element.
+__global__ void __launch_bounds__(256)
+wo_reduce_kernel(const float* __restrict__ part, int splits,
+                 const float* __restrict__ scale, const float* __restrict__ c,
+                 void* __restrict__ out, int otype, int M, int N) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t mn = (size_t)M * N;
+  if (idx >= mn) return;
+  float v = part[idx];
+  for (int sp = 1; sp < splits; ++sp) v = __fadd_rn(v, part[sp * mn + idx]);
+  if (scale != nullptr) v = __fmul_rn(v, scale[idx % N]);
+  if (c != nullptr) v = __fadd_rn(v, c[idx]);
+  store_out(out, otype, idx, v);
 }
 
 // ---------------------------------------------------------------------------
@@ -1050,6 +1342,50 @@ int launch_qa_tc(const void* a, const __nv_bfloat16* b, const float* scale,
   return (int)cudaGetLastError();
 }
 
+// wo_tc_kernel<BITS, BM, FOLDED> over [M, N] with BM-row tiles (64 or 128)
+// and K split `splits` ways (1: no workspace; else ws [splits, M, N] fp32,
+// summed by wo_reduce_kernel), as the wrapper's wo_tile chose.
+template <bool FOLDED>
+int launch_wo_tc(const void* a, const void* w, const float* scale,
+                 const float* zp, int scales, const float* c, void* out,
+                 int otype, int M, int N, int K, int bits, int bm, int splits,
+                 float* ws, cudaStream_t s) {
+  if (splits < 1 || splits > (K + QT_BK - 1) / QT_BK ||
+      (splits > 1) != (ws != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* pa = static_cast<const __nv_bfloat16*>(a);
+#define MFA_WO_TC(BITS, BM)                                                  \
+  do {                                                                       \
+    auto kern = wo_tc_kernel<BITS, BM, FOLDED>;                              \
+    cudaError_t err = cudaFuncSetAttribute(                                  \
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,                   \
+        (int)wo_tc_smem<BM>());                                              \
+    if (err != cudaSuccess) return (int)err;                                 \
+    kern<<<dim3((N + QT_BN - 1) / QT_BN, (M + BM - 1) / BM, splits),         \
+           QT_THREADS, wo_tc_smem<BM>(), s>>>(pa, w, scale, zp, scales, c,   \
+                                              out, ws, otype, M, N, K);      \
+  } while (0)
+  if (bits == 8 && bm == 128)
+    MFA_WO_TC(8, 128);
+  else if (bits == 8 && bm == 64)
+    MFA_WO_TC(8, 64);
+  else if (bits == 4 && bm == 128)
+    MFA_WO_TC(4, 128);
+  else if (bits == 4 && bm == 64)
+    MFA_WO_TC(4, 64);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef MFA_WO_TC
+  if (splits > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t mn = (size_t)M * N;
+    wo_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
+        ws, splits, FOLDED ? scale : nullptr, c, out, otype, M, N);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  bits: 8 or 4.  Returns the
@@ -1083,58 +1419,61 @@ int mfa_dyn_gemm(const void* qa, const void* qb, const void* sa,
 }
 
 // a: bf16 [M, K]; w: the payload; scale: fp32 [N]; c: fp32 [M, N] or null;
-// out: fp32 [M, N].
+// out: [M, N] of otype (0 float32, 1 bfloat16, 2 float16); bm, splits: the
+// tile's rows (64, 128) and the K splits; ws: fp32 [splits, M, N] when
+// splits > 1, else null.  Runs wo_tc_kernel's folded tile.
 int mfa_wo_folded_gemm(const void* a, const void* w, const void* scale,
                        const void* c, void* out, int M, int N, int K,
-                       int bits, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  if (bits == 4 && K % 256 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* pa = static_cast<const __nv_bfloat16*>(a);
-  const float* ps = static_cast<const float*>(scale);
-  const float* pc = static_cast<const float*>(c);
-  float* o = static_cast<float*>(out);
-  if (bits == 8)
-    wo_folded_kernel<8><<<wo_grid(M, N), WO_THREADS, 0, s>>>(pa, w, ps, pc, o,
-                                                             M, N, K);
-  else if (bits == 4)
-    wo_folded_kernel<4><<<wo_grid(M, N), WO_THREADS, 0, s>>>(pa, w, ps, pc, o,
-                                                             M, N, K);
-  else
+                       int bits, int otype, int bm, int splits, void* ws,
+                       void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || otype < OUT_F32 || otype > OUT_F16)
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (bits == 4 && K % 256 != 0) return (int)cudaErrorInvalidValue;
+  return launch_wo_tc<true>(a, w, static_cast<const float*>(scale), nullptr,
+                            WO_ROW, static_cast<const float*>(c), out, otype,
+                            M, N, K, bits, bm, splits,
+                            static_cast<float*>(ws),
+                            static_cast<cudaStream_t>(stream));
 }
 
 // a: [M, K] of atype (0 float32, 1 bfloat16: the compute type); w: the
 // payload; scale, zp: fp32 [1] (scales 0, TENSOR), [N] (1, ROW) or [K]
-// (2, BLOCK); c: fp32 [M, N] or null; out: fp32 [M, N].
+// (2, BLOCK); c: fp32 [M, N] or null; out: [M, N] of otype; bm, splits,
+// ws as above (the tensor-core tile's; an fp32 A takes 64 and 1).  Routes
+// as mfa_wo_tc_body says.
 int mfa_wo_gemm(const void* a, const void* w, const void* scale,
                 const void* zp, const void* c, void* out, int M, int N,
-                int K, int bits, int scales, int atype, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || scales < WO_TENSOR || scales > WO_BLOCK)
+                int K, int bits, int scales, int atype, int otype, int bm,
+                int splits, void* ws, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || scales < WO_TENSOR ||
+      scales > WO_BLOCK || otype < OUT_F32 || otype > OUT_F16)
     return (int)cudaErrorInvalidValue;
   if (bits == 4 && K % 256 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ps = static_cast<const float*>(scale);
   const float* pz = static_cast<const float*>(zp);
   const float* pc = static_cast<const float*>(c);
-  float* o = static_cast<float*>(out);
-  const dim3 g = wo_grid(M, N);
-#define MFA_WO(AT, BITS)                                                   \
-  wo_kernel<AT, BITS><<<g, WO_THREADS, 0, s>>>(                           \
-      static_cast<const AT*>(a), w, ps, pz, scales, pc, o, M, N, K)
+  if (atype == 1)  // bf16 A: the tensor-core tile
+    return launch_wo_tc<false>(a, w, ps, pz, scales, pc, out, otype, M, N, K,
+                               bits, bm, splits, static_cast<float*>(ws), s);
+  if (bm != 64 || splits != 1 || ws != nullptr)
+    return (int)cudaErrorInvalidValue;
+  const float* pa = static_cast<const float*>(a);
   if (atype == 0 && bits == 8)
-    MFA_WO(float, 8);
+    wo_kernel<8><<<wo_grid(M, N), WO_THREADS, 0, s>>>(pa, w, ps, pz, scales,
+                                                      pc, out, otype, M, N, K);
   else if (atype == 0 && bits == 4)
-    MFA_WO(float, 4);
-  else if (atype == 1 && bits == 8)
-    MFA_WO(__nv_bfloat16, 8);
-  else if (atype == 1 && bits == 4)
-    MFA_WO(__nv_bfloat16, 4);
+    wo_kernel<4><<<wo_grid(M, N), WO_THREADS, 0, s>>>(pa, w, ps, pz, scales,
+                                                      pc, out, otype, M, N, K);
   else
     return (int)cudaErrorInvalidValue;
-#undef MFA_WO
   return (int)cudaGetLastError();
+}
+
+// Which tile mfa_wo_gemm runs for an A of atype: 1 the tensor-core tile
+// (bfloat16), 0 the scalar fp32 one (float32), -1 no A type of the kernel.
+int mfa_wo_tc_body(int atype) {
+  return atype == 1 ? 1 : (atype == 0 ? 0 : -1);
 }
 
 // a: the payload [M, K] (int8) or [M, K/2] (uint8 int4); b: bf16 [K, N];

@@ -8,13 +8,15 @@ in ``<wrapper>.launches``:
 
 - :func:`quantized_matmul`, the weight-only GEMM: float A [M, K] ×
   quantized Bᵀ [N, K].  SYMMETRIC TENSOR / ROW weights and a non-fp32 A
-  take :func:`wo_folded_gemm` (``wo_folded_kernel``, the TPU's
+  take :func:`wo_folded_gemm` (``wo_tc_kernel``'s folded tile, the TPU's
   ``_wo_folded_kernel``): A in bf16 times the integer weights, the scale
   on the fp32 accumulator once, then C; every other weight (or an fp32 A)
-  takes :func:`wo_gemm` (``wo_kernel``, the TPU's ``_wo_kernel``): each
-  weight ``(q − zp)·s`` with TENSOR, ROW or BLOCK (per K-block) scales,
-  rounded to the compute dtype (fp32 for an fp32 A, else bf16), fp32
-  accumulation, C added at the store.
+  takes :func:`wo_gemm` (``wo_tc_kernel`` for a bf16 A, ``wo_kernel`` for
+  an fp32 one; the TPU's ``_wo_kernel``): each weight ``(q − zp)·s`` with
+  TENSOR, ROW or BLOCK (per K-block) scales, rounded to the compute dtype
+  (fp32 for an fp32 A, else bf16), fp32 accumulation, C added at the
+  store.  Both store the caller's dtype (:data:`WO_OUT_TYPES`) rounded
+  once from the fp32 result, as the TPU kernels' store does.
 - :func:`quantized_matmul_qa`, the transpose: quantized A [M, K] × float B
   [K, N].  SYMMETRIC TENSOR / ROW A and a non-fp32 B (rounded to bf16,
   whatever its dtype) take :func:`qa_folded_gemm` (``qa_tc_kernel``'s
@@ -72,11 +74,13 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _DYN_ARGS = [_PTR] * 8 + [_I32] * 4 + [_PTR]
-_WO_FOLDED_ARGS = [_PTR] * 5 + [_I32] * 4 + [_PTR]
-_WO_ARGS = [_PTR] * 6 + [_I32] * 6 + [_PTR]
+_WO_FOLDED_ARGS = [_PTR] * 5 + [_I32] * 7 + [_PTR] * 2
+_WO_ARGS = [_PTR] * 6 + [_I32] * 9 + [_PTR] * 2
 # The weight-only kernel's scale cells (csrc/quantized_gemm.cu::WoScales).
 WO_SCALES = {QuantGranularity.TENSOR: 0, QuantGranularity.ROW: 1,
              QuantGranularity.BLOCK: 2}
+# The dtypes the weight-only kernels store (csrc/quantized_gemm.cu::OutType).
+WO_OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def quantize_rows(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
@@ -338,38 +342,101 @@ def _payload_ints(w: torch.Tensor, bits: int) -> torch.Tensor:
     return (unpack_int4(w) if bits == 4 else w).float()
 
 
+def _wo_out_type(name: str, out_dtype: torch.dtype) -> int:
+    if out_dtype not in WO_OUT_TYPES:
+        raise TypeError(f"{name}: the kernel stores {list(WO_OUT_TYPES)}, "
+                        f"not {out_dtype}")
+    return WO_OUT_TYPES[out_dtype]
+
+
+def wo_tile(m: int, n: int, kdim: int, sms: int) -> Tuple[int, int]:
+    """(rows of ``wo_tc_kernel``'s BM × 128 tile, K splits) for [M, N]
+    over K on a card of ``sms`` SMs: 128-row tiles where they give every SM
+    a CTA (MLA's decompression: 256 tiles in one wave of two CTAs an SM
+    beat 512 of 64 rows in two); else (a small M: the GEMM bench's M = 128)
+    128-row tiles where M > 64, so the weight is read and dequantized once,
+    and K split into as many contiguous step ranges (≤ 16, each ≥ 8 steps
+    of 32) as keep to two CTAs for each SM, their fp32 sums added in order
+    by ``wo_reduce_kernel`` (``utils/profiling.py --wo-tiles`` times the
+    alternatives)."""
+    cols = -(-n // 128)
+    if -(-m // 128) * cols >= sms:
+        return 128, 1
+    bm = 128 if m > 64 else 64
+    tiles = -(-m // bm) * cols
+    return bm, max(1, min(2 * sms // tiles, 16, -(-kdim // 32) // 8))
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _wo_launch(name, a, m, n, kdim, otype, fn_args, argtypes):
+    """Launch ``mfa_<name>`` on ``fn_args`` (its arguments before the out
+    type), with the out type, the tile, K splits and workspace of
+    :func:`wo_tile` (64 and 1 for an fp32 A), on the current stream."""
+    bm, splits = (wo_tile(m, n, kdim, _sm_count(a.device))
+                  if a.dtype == torch.bfloat16 else (64, 1))
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+          if splits > 1 else None)
+    rc = _build.kernel_function(f"mfa_{name}", argtypes)(
+        *fn_args, otype, bm, splits, None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check_launch(rc, name)
+
+
 def wo_folded_gemm_plain(a, w, scale, *, bits: int,
-                         c: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         c: Optional[torch.Tensor] = None,
+                         out_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
     """Plain PyTorch version of :func:`wo_folded_gemm`: exact bf16 × int
-    products summed in fp32, then × the scale, then + C."""
+    products summed in fp32, then × the scale, then + C, rounded once to
+    ``out_dtype``."""
     r = (a.to(torch.bfloat16).float() @ _payload_ints(w, bits).t()) * scale
-    return r if c is None else r + c.float()
+    return (r if c is None else r + c.float()).to(out_dtype)
+
+
+def wo_gemm_body(a_dtype: torch.dtype) -> str:
+    """Which tile of ``csrc/quantized_gemm.cu`` a weight-only kernel runs
+    for an A of ``a_dtype`` (the A :func:`wo_arguments` hands it):
+    "tensor_core" (``wo_tc_kernel``: bf16 mma.sync) for bf16, which is
+    every :func:`wo_folded_gemm` call (its A is always bf16) and a
+    :func:`wo_gemm` call in bf16; "fp32_fma" (``wo_kernel``'s scalar tile)
+    for an fp32 A, whose gate TF32 would break.  The C interface routes
+    the same way (``mfa_wo_tc_body``)."""
+    return "tensor_core" if a_dtype == torch.bfloat16 else "fp32_fma"
 
 
 def wo_folded_gemm(a, w, scale, *, bits: int,
-                   c: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The folded weight-only kernel → fp32 [M, N]: ``(A·Wᵀ)·s[n] (+ C)``.
+                   c: Optional[torch.Tensor] = None,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The folded weight-only kernel → [M, N] in ``out_dtype``:
+    ``(A·Wᵀ)·s[n] (+ C)``, rounded once.
 
     a bf16 [M, K]; w int8 [N, K] (bits 8) or group-planar uint8 [N, K/2]
     (bits 4, K % 256 == 0); scale fp32 [N] (a TENSOR scale repeated);
-    c fp32 [M, N] or None.  CPU tensors take :func:`wo_folded_gemm_plain`;
-    CUDA tensors launch ``wo_folded_kernel`` or raise.
+    c fp32 [M, N] or None; ``out_dtype`` one of :data:`WO_OUT_TYPES`.  CPU
+    tensors take :func:`wo_folded_gemm_plain`; CUDA tensors launch the
+    folded instances of ``wo_tc_kernel`` (bf16 mma.sync over the integer
+    weights as bf16, each 32-product tensor-core sum added in fp32, the
+    column's scale at the store; tile and K splits of :func:`wo_tile`;
+    :func:`wo_gemm_body`) or raise.
     """
     if a.device.type == "cpu":
-        return wo_folded_gemm_plain(a, w, scale, bits=bits, c=c)
+        return wo_folded_gemm_plain(a, w, scale, bits=bits, c=c,
+                                    out_dtype=out_dtype)
     m, kdim = a.shape
     n = w.shape[0]
+    otype = _wo_out_type("wo_folded_gemm", out_dtype)
     f32 = (torch.float32,)
     _check_gemm("wo_folded_gemm", [
         (a, (torch.bfloat16,), (m, kdim)), _payload_spec(w, bits, n, kdim),
         (scale, f32, (n,)), (c, f32, (m, n))])
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    rc = _build.kernel_function("mfa_wo_folded_gemm", _WO_FOLDED_ARGS)(
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    _wo_launch("wo_folded_gemm", a, m, n, kdim, otype, (
         a.data_ptr(), w.data_ptr(), scale.data_ptr(),
         None if c is None else c.data_ptr(), out.data_ptr(), m, n, kdim,
-        bits, torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    _build.check_launch(rc, "wo_folded_gemm")
+        bits), _WO_FOLDED_ARGS)
     wo_folded_gemm.launches += 1
     return out
 
@@ -385,49 +452,51 @@ def _cells(scales: int, n: int, kdim: int):
 
 
 def wo_gemm_plain(a, w, scale, zp, *, bits: int, scales: int,
-                  c: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  c: Optional[torch.Tensor] = None,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version of :func:`wo_gemm`: ``(q − zp)·s`` in fp32
     rounded to the compute dtype, A in it, the product summed in fp32,
-    then + C."""
+    then + C, rounded once to ``out_dtype``."""
     cd = torch.float32 if a.dtype == torch.float32 else torch.bfloat16
     n, kdim = w.shape[0], a.shape[1]
     view, _ = _cells(scales, n, kdim)
     deq = ((_payload_ints(w, bits) - zp.reshape(view)) * scale.reshape(view))
     acc = a.to(cd).float() @ deq.to(cd).float().t()
-    return acc if c is None else acc + c.float()
+    return (acc if c is None else acc + c.float()).to(out_dtype)
 
 
 def wo_gemm(a, w, scale, zp, *, bits: int, scales: int,
-            c: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The dequant-on-load weight-only kernel → fp32 [M, N]:
-    ``A·round_cd((q − zp)·s)ᵀ (+ C)``.
+            c: Optional[torch.Tensor] = None,
+            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The dequant-on-load weight-only kernel → [M, N] in ``out_dtype``:
+    ``A·round_cd((q − zp)·s)ᵀ (+ C)``, rounded once.
 
     a fp32 or bf16 [M, K] (its dtype is the compute dtype); w as for
     :func:`wo_folded_gemm`; ``scales`` 0 (TENSOR: scale, zp fp32 [1]),
-    1 (ROW: [N]) or 2 (BLOCK, per element: [K]); c fp32 [M, N] or None.
-    CPU tensors take :func:`wo_gemm_plain`; CUDA tensors launch
-    ``wo_kernel`` or raise.
+    1 (ROW: [N]) or 2 (BLOCK, per element: [K]); c fp32 [M, N] or None;
+    ``out_dtype`` one of :data:`WO_OUT_TYPES`.  CPU tensors take
+    :func:`wo_gemm_plain`; CUDA tensors launch ``wo_tc_kernel`` (bf16 A)
+    or ``wo_kernel`` (fp32 A; :func:`wo_gemm_body`) or raise.
     """
     if a.device.type == "cpu":
-        return wo_gemm_plain(a, w, scale, zp, bits=bits, scales=scales, c=c)
+        return wo_gemm_plain(a, w, scale, zp, bits=bits, scales=scales, c=c,
+                             out_dtype=out_dtype)
     m, kdim = a.shape
     n = w.shape[0]
     if scales not in (0, 1, 2):
         raise ValueError(f"wo_gemm: scales {scales} is not 0, 1 or 2")
+    otype = _wo_out_type("wo_gemm", out_dtype)
     _, cells = _cells(scales, n, kdim)
     f32 = (torch.float32,)
     _check_gemm("wo_gemm", [
         (a, (torch.float32, torch.bfloat16), (m, kdim)),
         _payload_spec(w, bits, n, kdim), (scale, f32, (cells,)),
         (zp, f32, (cells,)), (c, f32, (m, n))])
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    rc = _build.kernel_function("mfa_wo_gemm", _WO_ARGS)(
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    _wo_launch("wo_gemm", a, m, n, kdim, otype, (
         a.data_ptr(), w.data_ptr(), scale.data_ptr(), zp.data_ptr(),
         None if c is None else c.data_ptr(), out.data_ptr(), m, n, kdim,
-        bits, scales, int(a.dtype == torch.bfloat16),
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    _build.check_launch(rc, "wo_gemm")
+        bits, scales, int(a.dtype == torch.bfloat16)), _WO_ARGS)
     wo_gemm.launches += 1
     return out
 
@@ -440,7 +509,7 @@ def wo_arguments(a: torch.Tensor, b_t: QuantizedTensor,
     """The JAX dispatch of :func:`quantized_matmul` → (folded, args, kw):
     ``wo_folded_gemm(*args, **kw)`` when ``folded``, else
     ``wo_gemm(*args, **kw)`` (and their plain versions on the same
-    arguments)."""
+    arguments), fp32 out unless :func:`wo_call` says otherwise."""
     if a.dim() != 2 or len(b_t.shape) != 2 or a.shape[1] != b_t.shape[1]:
         raise ValueError(f"A {tuple(a.shape)} and Bᵀ {tuple(b_t.shape)} do "
                          "not match")
@@ -477,6 +546,16 @@ def wo_arguments(a: torch.Tensor, b_t: QuantizedTensor,
     return False, args, dict(bits=cfg.bits, scales=WO_SCALES[g], c=c)
 
 
+def wo_call(folded: bool, args, kw, out_dtype: torch.dtype) -> torch.Tensor:
+    """The weight-only kernel of :func:`wo_arguments`' dispatch, storing
+    ``out_dtype`` itself where it is one of :data:`WO_OUT_TYPES` (else fp32,
+    then cast): :func:`quantized_matmul`'s one launch."""
+    store = out_dtype if out_dtype in WO_OUT_TYPES else torch.float32
+    out = (wo_folded_gemm if folded else wo_gemm)(*args, **kw,
+                                                  out_dtype=store)
+    return out.to(out_dtype)
+
+
 def quantized_matmul(
     a: torch.Tensor,
     b_t: QuantizedTensor,
@@ -494,14 +573,14 @@ def quantized_matmul(
     kernel runs (A in bf16 times the integer weights, the scales once on
     the accumulator); otherwise the weights are dequantized per tile, with
     TENSOR, ROW or BLOCK scales.  ``c``: an optional [M, N] added in fp32
-    at the store (unscaled).  int4 weights need K % 256 == 0.  The JAX
-    package's ``block_m/n/k`` are TPU tiles, accepted and unused: the CUDA
-    kernels choose their own.
+    at the store (unscaled).  The kernel stores ``out_dtype`` itself,
+    rounded once from the fp32 result (:func:`wo_call`).  int4 weights need
+    K % 256 == 0.  The JAX package's ``block_m/n/k`` are TPU tiles,
+    accepted and unused: the CUDA kernels choose their own.
     """
     del block_m, block_n, block_k
     folded, args, kw = wo_arguments(a, b_t, c)
-    out = (wo_folded_gemm if folded else wo_gemm)(*args, **kw)
-    return out.to(out_dtype or a.dtype)
+    return wo_call(folded, args, kw, out_dtype or a.dtype)
 
 
 # ---------------------------------------------------------------------------

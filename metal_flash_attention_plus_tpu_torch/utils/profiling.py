@@ -12,6 +12,7 @@ card.
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --quantized-backward fullint
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --gemm
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling --wo-tiles
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --determinism [STEPS]
 
@@ -49,11 +50,20 @@ up, the wall time of 3 unprofiled calls, then 3 calls under the profiler.
 
 ``--gemm``: the GEMM engine at ``benchmarks/gemm_bench.py``'s shapes (M =
 128 and 4096, N = K = 8192; :data:`GEMM_SHAPES`) in its arms and the
-quantized-A and small-block ones (:data:`GEMM_ARMS`, operands from
-:func:`gemm_arm`, which ``chip_smoke.py`` phase 13 reuses): each arm's
-time by CUDA events over 5 calls after one to warm up, with its TFLOP/s
-and weight GB/s as gemm_bench reports them, then one call of every arm
-under the profiler.
+folded weight-only, quantized-A and small-block ones (:data:`GEMM_ARMS`,
+operands from :func:`gemm_arm`, which ``chip_smoke.py`` phase 13 reuses):
+each arm's time by CUDA events over 5 calls after one to warm up, with its
+TFLOP/s and weight GB/s as gemm_bench reports them, then one call of every
+arm under the profiler.
+
+``--wo-tiles``: the weight-only kernels (bf16 A and out; int8 ROW folded,
+int8 BLOCK 256 and int4 BLOCK 256 dequant-on-load) at MLA's decompression
+and gemm_bench's shapes (:data:`WO_TILE_SHAPES`) over tile plans (rows of
+the tile, K splits: :data:`WO_TILE_PLANS`), each forced in place of
+``ops.quantized_gemm.wo_tile``'s choice, which the output marks: each
+plan's time by CUDA events over 20 calls after 3 to warm up, and its
+kernels' device time over 20 more under the profiler (the events' time
+includes the host's launch where it is the longer).
 
 ``--determinism [STEPS]``: the train step of ``--train`` run twice from
 one seeded initial state for STEPS steps (default 8) in turn, the two
@@ -110,8 +120,11 @@ from metal_flash_attention_plus_tpu_torch.ops.gemm import matmul
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     quantized_flash_attention,
 )
+from metal_flash_attention_plus_tpu_torch.ops import quantized_gemm
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     dynamic_quantized_matmul,
+    wo_arguments,
+    wo_call,
 )
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantConfig,
@@ -179,13 +192,15 @@ def north_star_grads(q, kq, vq, do, fullint: bool):
 # benchmarks/gemm_bench.py's shapes (M, N, K): decode-like and prefill-like.
 GEMM_SHAPES = ((128, 8192, 8192), (4096, 8192, 8192))
 # gemm_bench's arms (weight-only int8 / int4 BLOCK 256, dynamic W8A8 /
-# W4A8, compensated int8 BLOCK 512) and the other three kernels of the
-# GEMM engine's quantized operands: the folded quantized A (int8 ROW
-# SYMMETRIC), the dequantizing one (int8 ROW ASYMMETRIC) and small
-# compensated blocks (int8 BLOCK 64 CENTERED).
+# W4A8, compensated int8 BLOCK 512) and the other four kernels' arms of
+# the GEMM engine's quantized operands: the folded weight-only GEMM (int8
+# ROW SYMMETRIC weights), the folded quantized A (int8 ROW SYMMETRIC), the
+# dequantizing one (int8 ROW ASYMMETRIC) and small compensated blocks
+# (int8 BLOCK 64 CENTERED).
 GEMM_ARMS = ("weight_only_int8", "weight_only_int4", "dynamic_w8a8",
-             "dynamic_w4a8", "compensated_int8", "qa_folded_int8_row",
-             "qa_int8_row_asymmetric", "compensated_small_int8_b64")
+             "dynamic_w4a8", "compensated_int8", "weight_only_folded_int8_row",
+             "qa_folded_int8_row", "qa_int8_row_asymmetric",
+             "compensated_small_int8_b64")
 
 
 def gemm_arm(arm: str, m: int, n: int, k: int, generator: torch.Generator):
@@ -201,6 +216,8 @@ def gemm_arm(arm: str, m: int, n: int, k: int, generator: torch.Generator):
     if arm.startswith("weight_only_int"):
         return matmul, (a, quantize(w, QuantConfig(
             bits=int(arm[-1]), granularity=block, block_size=256)))
+    if arm == "weight_only_folded_int8_row":
+        return matmul, (a, quantize(w, QuantConfig(bits=8, granularity=row)))
     if arm.startswith("dynamic_w"):
         return dynamic_quantized_matmul, (a, quantize(w, QuantConfig(
             bits=int(arm[len("dynamic_w")]), granularity=row)))
@@ -533,6 +550,54 @@ def profile_gemm(seed: int, iters: int = 5) -> int:
     return print_profile(prof, wall_s, len(calls), "gemm_call")
 
 
+# MLA's decompression (M = B·S = 4096, N = H·dh = 1024, K = d_c = 256) and
+# gemm_bench's shapes; the weight-only tile plans (tile rows, K splits)
+# timed there (K splits only where the 128-row tiles leave SMs idle).
+WO_TILE_SHAPES = ((4096, 1024, 256),) + GEMM_SHAPES
+WO_TILE_PLANS = ((64, 1), (128, 1), (64, 2), (64, 4), (128, 2), (128, 4),
+                 (128, 8))
+
+
+def profile_wo_tiles(seed: int, iters: int = 20) -> int:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = quantized_gemm.wo_tile
+    block = QuantGranularity.BLOCK
+    arms = {"folded_int8_row": QuantConfig(bits=8,
+                                           granularity=QuantGranularity.ROW),
+            "int8_block256": QuantConfig(bits=8, granularity=block,
+                                         block_size=256),
+            "int4_block256": QuantConfig(bits=4, granularity=block,
+                                         block_size=256)}
+    for m, n, k in WO_TILE_SHAPES:
+        a = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.randn((n, k), generator=g, device="cuda")
+        for arm, cfg in arms.items():
+            folded, args, kw = wo_arguments(a, quantize(w, cfg))
+            for plan in WO_TILE_PLANS:
+                if plan[1] > 1 and -(-m // 128) * -(-n // 128) >= sms:
+                    continue
+                quantized_gemm.wo_tile = lambda *_, plan=plan: plan
+                try:
+                    run = (lambda: wo_call(folded, args, kw, torch.bfloat16))
+                    for _ in range(3):
+                        run()
+                    ms = cuda_ms(run, iters)
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(iters):
+                            run()
+                        torch.cuda.synchronize()
+                finally:
+                    quantized_gemm.wo_tile = chosen
+                print(json.dumps({
+                    "device": torch.cuda.get_device_name(0), "arm": arm,
+                    "m": m, "n": n, "k": k, "tile_rows": plan[0],
+                    "k_splits": plan[1], "ms": ms,
+                    "device_ms": kernel_table(prof)[0] / 1e3 / iters,
+                    "chosen": plan == chosen(m, n, k, sms)}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -551,6 +616,8 @@ def main() -> int:
                     "full-integer or the exact backward")
     ap.add_argument("--gemm", action="store_true",
                     help="profile the GEMM engine at gemm_bench's shapes")
+    ap.add_argument("--wo-tiles", action="store_true",
+                    help="time the weight-only kernels over tile plans")
     ap.add_argument("--determinism", type=int, nargs="?", const=8,
                     metavar="STEPS",
                     help="train twice from one state and compare bit for "
@@ -561,6 +628,8 @@ def main() -> int:
         return 2
     if args.gemm:
         return profile_gemm(args.seed)
+    if args.wo_tiles:
+        return profile_wo_tiles(args.seed)
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
     if args.mla:

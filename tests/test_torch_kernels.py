@@ -23,7 +23,9 @@ bf16 P); the plain version takes the kernel's key spans (``kv_tile``).
 The runtime quantization kernels are held bit for bit.  The weight-only
 and quantized-A GEMM kernels sum exact products (bf16 × int8, bf16 × bf16)
 or fp32 ones in another order than the plain versions: an fp32 result
-within TOLERANCES["fp32"] of its max abs, a bf16 one within one bf16 ulp;
+within TOLERANCES["fp32"] of its max abs, a bf16 one within one bf16 ulp
+(the weight-only ones: their bf16 / fp16 results equal their fp32 ones
+rounded, bit for bit);
 so does the small-block compensated kernel, while the compensated kernel
 is held bit for bit (exact integer compensation, the same fused
 multiply-add per block).  The quantized attention kernels at head dims
@@ -1244,21 +1246,61 @@ def test_qattn_int8_p_over_key_spans_matches_plain(cuda_device, mask,
 # --------------------------------------------------------------------------
 
 WO_CASES = {
-    # name: (bits, granularity, strategy, block, A dtype, M, N, K, with c):
-    # SYMMETRIC TENSOR / ROW with a bf16 A take the folded kernel.
-    "folded_row8": (8, "row", "symmetric", None, BF16, 300, 200, 256, False),
-    "folded_row8_c": (8, "row", "symmetric", None, BF16, 300, 200, 256, True),
-    "folded_row4": (4, "row", "symmetric", None, BF16, 70, 130, 512, False),
+    # name: (bits, granularity, strategy, block, A dtype, M, N, K, with c,
+    # out dtype or None for A's): SYMMETRIC TENSOR / ROW with a bf16 A take
+    # the folded kernel.
+    "folded_row8": (8, "row", "symmetric", None, BF16, 300, 200, 256, False,
+                    None),
+    "folded_row8_c": (8, "row", "symmetric", None, BF16, 300, 200, 256, True,
+                      None),
+    "folded_row4": (4, "row", "symmetric", None, BF16, 70, 130, 512, False,
+                    None),
     "folded_tensor8_c": (8, "tensor", "symmetric", None, BF16, 37, 70, 96,
-                         True),
-    "wo_block128": (8, "block", "centered", 128, BF16, 300, 200, 256, False),
+                         True, None),
+    "wo_block128": (8, "block", "centered", 128, BF16, 300, 200, 256, False,
+                    None),
     "wo_block64_int4_c": (4, "block", "centered", 64, BF16, 37, 70, 256,
-                          True),
-    "wo_asym_row": (8, "row", "asymmetric", None, BF16, 300, 200, 256, False),
-    "wo_asym_row_c": (8, "row", "asymmetric", None, BF16, 37, 70, 100, True),
-    "wo_f32_row": (8, "row", "symmetric", None, F32, 300, 200, 256, False),
+                          True, None),
+    "wo_asym_row": (8, "row", "asymmetric", None, BF16, 300, 200, 256, False,
+                    None),
+    "wo_asym_row_c": (8, "row", "asymmetric", None, BF16, 37, 70, 100, True,
+                      None),
+    "wo_f32_row": (8, "row", "symmetric", None, F32, 300, 200, 256, False,
+                   None),
     "wo_f32_tensor_int4_c": (4, "tensor", "centered", None, F32, 37, 70, 256,
-                             True),
+                             True, None),
+    # The tensor-core tile at gemm_bench's depth (K = 8192, the fp32 gate
+    # over 256 tensor-core sums), gemm_bench's int4 BLOCK 256, M and N off
+    # the 128 / 64 tiles with both tile shapes (128-row tiles at M = 1100,
+    # N = 4100: two CTAs for each SM), K % 32 and N % 2 not 0, and out
+    # dtypes other than A's (an fp32 A stored in bf16 by the scalar tile).
+    "folded_row8_k8192": (8, "row", "symmetric", None, BF16, 256, 384, 8192,
+                          False, None),
+    "wo_block256_k8192_c": (8, "block", "symmetric", 256, BF16, 130, 200,
+                            8192, True, None),
+    "wo_block256_int4": (4, "block", "symmetric", 256, BF16, 200, 130, 1024,
+                         False, None),
+    "folded_row8_wide_ragged_c": (8, "row", "symmetric", None, BF16, 1100,
+                                  4100, 528, True, None),
+    "wo_row4_asym_wide_ragged": (4, "row", "asymmetric", None, BF16, 1100,
+                                 4100, 512, False, None),
+    "wo_tensor8_odd_n_k200": (8, "tensor", "centered", None, BF16, 65, 99,
+                              200, True, None),
+    "folded_row8_f32_out": (8, "row", "symmetric", None, BF16, 300, 200, 256,
+                            False, F32),
+    "folded_tensor4_f16_out_c": (4, "tensor", "symmetric", None, BF16, 37, 70,
+                                 256, True, torch.float16),
+    "wo_block128_f16_out": (8, "block", "centered", 128, BF16, 130, 99, 256,
+                            False, torch.float16),
+    "wo_f32_row_bf16_out_c": (8, "row", "asymmetric", None, F32, 300, 200,
+                              256, True, BF16),
+    # Split K (wo_tile): M = 1 over 8 splits; an odd N over 16, fp16 out.
+    # (folded_row8_k8192 and wo_block256_k8192_c split 16 ways, and
+    # wo_block256_int4 4 ways, too.)
+    "wo_m1_split_c": (8, "row", "asymmetric", None, BF16, 1, 1000, 2048,
+                      True, None),
+    "folded_row4_split_odd_n": (4, "row", "symmetric", None, BF16, 64, 257,
+                                4096, False, torch.float16),
 }
 
 
@@ -1271,7 +1313,14 @@ def _bf16_close(out, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(WO_CASES))
 def test_weight_only_gemm_kernels_match_plain(cuda_device, name):
-    bits, gran, strategy, bs, adtype, m, n, k, with_c = WO_CASES[name]
+    """The weight-only kernel of each arm (the body ``wo_gemm_body`` names)
+    in fp32 against its plain version on the same arguments, on the card
+    and on the CPU, at the fp32 gate (TOLERANCES["fp32"] of its max abs:
+    the kernels sum exact products in another order); then
+    ``quantized_matmul`` on the card, one more launch, returning exactly
+    that fp32 result rounded to the out dtype (the kernels round it once at
+    the store)."""
+    bits, gran, strategy, bs, adtype, m, n, k, with_c, out = WO_CASES[name]
     rng = np.random.default_rng(m + n + k + bits)
 
     def t(*shape):
@@ -1282,19 +1331,42 @@ def test_weight_only_gemm_kernels_match_plain(cuda_device, name):
                                  block_size=bs))
     a = t(m, k).to(adtype)
     c = t(m, n) if with_c else None
-    folded = name.startswith("folded")
+    folded, args, kw = qg.wo_arguments(a, wq, c)
+    assert folded == name.startswith("folded")
+    assert qg.wo_gemm_body(args[0].dtype) == (
+        "fp32_fma" if adtype == F32 else "tensor_core")
+    kernel, plain = ((qg.wo_folded_gemm, qg.wo_folded_gemm_plain) if folded
+                     else (qg.wo_gemm, qg.wo_gemm_plain))
     n0 = (qg.wo_folded_gemm.launches, qg.wo_gemm.launches)
-    out = qg.quantized_matmul(a, wq, c=c)
+    got32 = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert got32.dtype == F32 and got32.shape == (m, n)
+    assert _rel(got32, plain(*args, **kw)) <= TOLERANCES["fp32"]
+    ref = qg.quantized_matmul(a.cpu(), wq.to("cpu"),
+                              c=None if c is None else c.cpu(),
+                              out_dtype=F32)
+    assert _rel(got32.cpu(), ref) <= TOLERANCES["fp32"]
+    got = qg.quantized_matmul(a, wq, c=c, out_dtype=out)
     torch.cuda.synchronize()
     assert (qg.wo_folded_gemm.launches, qg.wo_gemm.launches) == (
-        n0[0] + folded, n0[1] + (not folded))
-    ref = qg.quantized_matmul(a.cpu(), wq.to("cpu"),
-                              c=None if c is None else c.cpu())
-    assert out.dtype == adtype and out.shape == (m, n)
-    if adtype == F32:
-        assert _rel(out.cpu(), ref) <= TOLERANCES["fp32"]
-    else:
-        assert _bf16_close(out.cpu().float(), ref.float())
+        n0[0] + 2 * folded, n0[1] + 2 * (not folded))
+    assert got.dtype == (out or adtype)
+    assert torch.equal(got, got32.to(got.dtype))
+
+
+@pytest.mark.cuda
+def test_weight_only_gemm_routes_as_wo_gemm_body_says(cuda_device):
+    """The C interface's routing (``mfa_wo_tc_body``) agrees with
+    ``wo_gemm_body``: a bf16 A on the tensor-core tile, an fp32 A on the
+    scalar one, nothing else."""
+    import ctypes
+
+    from metal_flash_attention_plus_tpu_torch import _build
+
+    body = _build.kernel_function("mfa_wo_tc_body", [ctypes.c_int])
+    for atype, dtype in ((0, F32), (1, BF16)):
+        assert body(atype) == int(qg.wo_gemm_body(dtype) == "tensor_core")
+    assert body(2) == -1 and body(-1) == -1
 
 
 @pytest.mark.cuda
@@ -1312,6 +1384,11 @@ def test_weight_only_gemm_kernels_reject_what_they_do_not_take(cuda_device):
         qg.wo_gemm(a, w8.data, scale, scale, bits=8, scales=3)
     with pytest.raises(ValueError):  # CPU tensors for the kernel
         qg.wo_gemm(a, w8.data.cpu(), scale, scale, bits=8, scales=1)
+    with pytest.raises(TypeError):  # not a dtype the kernels store
+        qg.wo_folded_gemm(a, w8.data, scale, bits=8, out_dtype=torch.float64)
+    with pytest.raises(TypeError):
+        qg.wo_gemm(a, w8.data, scale, scale, bits=8, scales=1,
+                   out_dtype=torch.int32)
 
 
 # --------------------------------------------------------------------------
