@@ -271,10 +271,13 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     comp_arguments,
     comp_gemm,
     comp_gemm_plain,
+    comp_small_body,
     comp_small_gemm,
     comp_small_gemm_plain,
+    compensated_matmul,
     dyn_gemm,
     dyn_gemm_plain,
+    dyn_tile,
     qa_arguments,
     qa_folded_gemm,
     qa_folded_gemm_plain,
@@ -411,7 +414,7 @@ QBWD_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
 # (main-path) shape.
 DEVICE_KERNELS = {
     "paged_decode": "paged_decode_kernel",
-    "paged_prefill": "paged_prefill_kernel", "dyn_gemm": "dyn_gemm_kernel",
+    "paged_prefill": "paged_prefill_kernel", "dyn_gemm": "dyn_tc_kernel",
     "flash_fwd": "flash_fwd_tc_kernel", "flash_dq": "flash_dq_tc_kernel",
     "flash_dkv": "flash_dkv_tc_kernel", "qattn_fwd": "qattn_fwd_tc_kernel",
     "hpack_fwd": "qattn_fwd_tc_kernel",
@@ -422,8 +425,11 @@ DEVICE_KERNELS = {
     "fullint_dkv": "fullint_dkv_tc_kernel",
     "wo_folded_gemm": "wo_tc_kernel", "wo_gemm": "wo_tc_kernel",
     "qa_folded_gemm": "qa_tc_kernel", "qa_gemm": "qa_tc_kernel",
-    "comp_gemm": "comp_tc_kernel", "comp_small_gemm": "comp_small_kernel",
+    "comp_gemm": "comp_tc_kernel", "comp_small_gemm": "comp_tc_kernel",
 }
+# comp_small_gemm's kernel for the blocks comp_small_body routes to the
+# scalar tile (not a multiple of 16; 13 (a)'s BLOCK 8 mode).
+COMP_SMALL_SCALAR = "comp_small_kernel"
 
 
 def log(msg: str):
@@ -444,62 +450,83 @@ def nvidia_smi_line() -> str:
 PARENT = {"lib": None, "turns": []}
 
 
-# The weight-only entry points' arguments from the out type to the stream
-# (out type, tile rows, K splits, workspace), by the out type's index: a
-# library from before the kernels stored the caller's dtype (it has no
-# ``mfa_wo_tc_body``) lacks them; its kernels write fp32 and choose their
-# own tile (the workspace goes unused).
-WO_OTYPE_ARG = {"mfa_wo_folded_gemm": 9, "mfa_wo_gemm": 12}
+# Arguments a parent's library lacks, by entry point: (a symbol that only
+# newer libraries have, the index of the first argument it lacks); it
+# takes the arguments before that one and the stream.  The weight-only
+# entry points from before the kernels stored the caller's dtype (no
+# ``mfa_wo_tc_body``) lack the out type, tile rows, K splits and workspace:
+# their kernels write fp32 and choose their own tile.  The dynamic GEMM
+# from before the s8 tile (no ``mfa_comp_small_body``) lacks the tile rows
+# and K splits: its kernel chooses its own.
+LEGACY_ARGS = {"mfa_wo_folded_gemm": ("mfa_wo_tc_body", 9),
+               "mfa_wo_gemm": ("mfa_wo_tc_body", 12),
+               "mfa_dyn_gemm": ("mfa_comp_small_body", 12)}
 
 
 @contextlib.contextmanager
 def kernels_of(lib):
     """Run the port's kernel wrappers on ``lib``'s kernels (the same C
-    interface) instead of this checkout's.  A library whose weight-only
-    kernels write fp32 only is called without the out-type argument, and
+    interface) instead of this checkout's.  An entry point of LEGACY_ARGS
+    that ``lib`` has in its older form is called without the arguments it
+    lacks.  A library whose weight-only kernels write fp32 only:
     ``quantized_matmul`` stores fp32 and casts meanwhile, as it did over
-    those kernels."""
-    own, own_types = _build.kernel_function, qgemm.WO_OUT_TYPES
-    legacy = not hasattr(lib, "mfa_wo_tc_body")
+    those kernels.  A library without the small-block tensor-core tile:
+    ``comp_small_gemm`` takes the scalar tile, its only kernel."""
+    own = (_build.kernel_function, qgemm.WO_OUT_TYPES, qgemm.comp_small_body)
 
     def function(name, argtypes):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        if not (legacy and name in WO_OTYPE_ARG):
+        if name not in LEGACY_ARGS or hasattr(lib, LEGACY_ARGS[name][0]):
             fn.argtypes = list(argtypes)
             return fn
-        i = WO_OTYPE_ARG[name]
+        i = LEGACY_ARGS[name][1]
         fn.argtypes = list(argtypes[:i]) + list(argtypes[-1:])
 
-        def fp32_only(*args):
-            if args[i] != qgemm.WO_OUT_TYPES[torch.float32]:
+        def older(*args):
+            if (name.startswith("mfa_wo")
+                    and args[i] != qgemm.WO_OUT_TYPES[torch.float32]):
                 raise ValueError(f"{name} of this library writes fp32 only")
             return fn(*args[:i], args[-1])
-        return fp32_only
+        return older
 
     _build.kernel_function = function
-    if legacy:
-        qgemm.WO_OUT_TYPES = {torch.float32: own_types[torch.float32]}
+    if not hasattr(lib, "mfa_wo_tc_body"):
+        qgemm.WO_OUT_TYPES = {torch.float32: own[1][torch.float32]}
+    if not hasattr(lib, "mfa_comp_small_body"):
+        qgemm.comp_small_body = lambda bs: "scalar"
     try:
         yield
     finally:
-        _build.kernel_function, qgemm.WO_OUT_TYPES = own, own_types
+        (_build.kernel_function, qgemm.WO_OUT_TYPES,
+         qgemm.comp_small_body) = own
 
 
-def parent_turns(label, t, kernel, iters):
+def parent_turns(label, t, kernel, iters, device=False, parent_kernel=None):
     """With ``--parent``: ``kernel`` timed on the parent's library and on
     this checkout's in turns (parent, change, change, parent), into
-    ``t["parent_turns_ms"]`` and the summary; nothing otherwise."""
+    ``t["parent_turns_ms"]`` and the summary (``parent_kernel`` in the
+    parent's turns where it is given); with ``device``, each turn's device
+    ms too (``device_ms``), into ``t["parent_turns_device_ms"]``; nothing
+    without ``--parent``."""
     if PARENT["lib"] is None:
         return
     turns = {"parent": [], "change": []}
+    dev = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
+        fn = parent_kernel if who == "parent" and parent_kernel else kernel
         with (kernels_of(PARENT["lib"]) if who == "parent"
               else contextlib.nullcontext()):
-            turns[who].append(time_ms(kernel, iters, warmup=1))
+            turns[who].append(time_ms(fn, iters, warmup=1))
+            if device:
+                dev[who].append(device_ms(fn, iters))
     t["parent_turns_ms"] = turns
     PARENT["turns"].append((label, turns))
     log(f"{label} parent / change turns: " + json.dumps(turns))
+    if device:
+        t["parent_turns_device_ms"] = dev
+        PARENT["turns"].append((f"{label} (device ms)", dev))
+        log(f"{label} parent / change turns, device ms: " + json.dumps(dev))
 
 
 def log_parent_summary():
@@ -983,6 +1010,28 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """The device time of ``fn``'s kernels per call, ms: ``iters`` calls
+    under the profiler, each CUDA kernel's mean time by the launches it
+    makes a call (what the events of ``time_ms`` exceed where the host's
+    launches are the longer).  The profiler may miss launches (one of
+    three ``comp_small_gemm`` launches in this script's runs, also after
+    a spin kernel that goes first and is left out), so a kernel's
+    launches a call are its traced ones over ``iters``, rounded up: fewer
+    than ``iters`` misses of a kernel leave the time whole."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(
+        e.self_device_time_total / e.count * -(-e.count // iters)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "spin_kernel" not in e.key and e.count) / 1e3
+
+
 def dense_kv(pool, row, n, pt):
     """One sequence's first n tokens of K and V, [Hkv, n, D]."""
     t = torch.arange(n, device=DEV)
@@ -1157,7 +1206,7 @@ def gemm_operands(rng, m, n, k, cfg, with_c=False):
 def check_dyn_gemm(rng):
     """(a) The GEMM kernel against its plain version, bit for bit, at every
     (N, K) of the flagship and of MLAConfig() (N=32 is less than one
-    64-column tile), M in {8, 256, 1}, int8 and int4 ROW symmetric
+    128-column tile), M in {8, 256, 1}, int8 and int4 ROW symmetric
     weights; plus CENTERED ROW, TENSOR and c= cases.  → max abs error."""
     shapes = sorted(set(PROJ_SHAPES.values()) | set(MLA_PROJ_SHAPES.values())
                     | {UNEMBED_SHAPE})
@@ -1271,19 +1320,30 @@ def gemm_bound(m, n, k, bits, with_c=False):
     return bound[by], by
 
 
-def time_dyn_gemm(rng, m, cfg):
+def time_dyn_gemm(rng, m, cfg, m_unembed):
     """One model call's 57 GEMMs (8 × the 7 projections at M rows, the
-    unembedding at 1 row in a prefill chunk, M rows in decode): kernel and
-    plain times, the summed bound, and two library yardsticks:
+    unembedding at ``m_unembed`` rows: 1 in a prefill chunk, M in decode
+    and in the fully quantized forward), each first held to its plain
+    version bit for bit: kernel and plain times by CUDA events, the
+    kernels' device time (``device_ms``: at M = 8 and 256 the events time
+    the host's 57 launches), the summed bound, and two library yardsticks:
     ``torch._int_mm`` on the same int8 operands (M padded to 32 where
-    M ≤ 16, as its shape rules ask; int4 weights unpacked to int8 first) and
-    ``torch.matmul`` of bf16 activations by the dequantized bf16 weights."""
-    m_unembed = 1 if m > 8 else m
+    M ≤ 16, as its shape rules ask; int4 weights unpacked to int8 first)
+    and ``torch.matmul`` of bf16 activations by the dequantized bf16
+    weights.  With ``--parent``, the 57 calls in turns, events and device
+    ms."""
     work = [(8, m, n, k) for n, k in PROJ_SHAPES.values()]
     work.append((1, m_unembed, *UNEMBED_SHAPE))
     ops = []
     for count, mm, n, k in work:
         args, kw = gemm_operands(rng, mm, n, k, cfg)
+        out = dyn_gemm(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, dyn_gemm_plain(*args, **kw)):
+            raise AssertionError(
+                f"dyn_gemm M={mm} N={n} K={k} {cfg.bits}-bit differs from "
+                "its plain version")
+        del out
         qa, qb = args[0], args[1]
         wi8 = unpack_int4(qb) if cfg.bits == 4 else qb
         pad = qa if mm > 16 else torch.cat([qa, qa.new_zeros(32 - mm, k)])
@@ -1309,7 +1369,13 @@ def time_dyn_gemm(rng, m, cfg):
          "library_bf16_matmul_ms": time_ms(bf16, 10)}
     t["plain_ms_2"] = time_ms(plain, 2, warmup=0)
     t["ms_2"] = time_ms(kernel, 10)
-    parent_turns(f"dyn_gemm W{cfg.bits}A8 57 GEMMs at M={m}", t, kernel, 10)
+    t["device_ms"] = device_ms(kernel, 10)
+    t["library_device_ms"] = device_ms(int_mm, 10)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    t["tiles"] = {f"{mm}x{n}x{k}": dyn_tile(mm, n, k, sms)
+                  for _, mm, n, k in work}
+    parent_turns(f"dyn_gemm W{cfg.bits}A8 57 GEMMs at M={m}", t, kernel, 10,
+                 device=True)
     bounds = [(count, gemm_bound(mm, n, k, cfg.bits))
               for count, mm, n, k in work]
     t["bound_ms"] = sum(count * b for count, (b, _) in bounds)
@@ -1459,9 +1525,11 @@ def run_quantized(cfg, params, seed, rng, dec_lens):
     t = time.perf_counter()
     with torch.inference_mode():
         for bits, wcfg in ((8, W8_CFG), (4, W4_CFG)):
-            for m in (8, 256):
+            # decode, a prefill chunk (its logits: the last token's), the
+            # fully quantized forward (2 × 2048 tokens, every token's)
+            for m, m_unembed in ((8, 8), (256, 1), (QFWD_M, QFWD_M)):
                 out["times"][f"dyn_gemm_w{bits}_m{m}"] = time_dyn_gemm(
-                    rng, m, wcfg)
+                    rng, m, wcfg, m_unembed)
             out["times"][f"decode_int{bits}"] = time_decode_quantized(
                 rng, dec_lens, bits)
             out["times"][f"prefill_int{bits}"] = time_prefill_quantized(
@@ -1476,6 +1544,7 @@ def run_quantized(cfg, params, seed, rng, dec_lens):
 # The flagship's attention shapes (B=2 sequences of 2048 tokens).
 ATTN_B, ATTN_HQ, ATTN_HKV, ATTN_S, ATTN_D = 2, 16, 4, 2048, 64
 QFWD_TOKENS = (2, 2048)  # the fully quantized forward's batch
+QFWD_M = QFWD_TOKENS[0] * QFWD_TOKENS[1]  # its GEMMs' rows
 # The fully quantized forward and the facade vs their fp32 oracles,
 # relative L2: the int8 gate (weights, activations, Q and K/V in int8),
 # the JAX facade test's 0.05, and the int4 gate.
@@ -2654,14 +2723,7 @@ def time_wo_call(label, a, wq, vectors, iters, plain_iters=5):
     t["ms_2"] = time_ms(call, iters)
     t["ms_fp32_out"] = time_ms(lambda: kernel(*args, **kw), iters)
     t["library_ms"] = time_ms(lambda: a @ wbt, iters)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    t["device_ms"] = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+    t["device_ms"] = device_ms(call, iters)
     t["body"] = wo_gemm_body(args[0].dtype)
     t["tile_rows"], t["k_splits"] = wo_tile(
         m, n, k, torch.cuda.get_device_properties(DEV).multi_processor_count)
@@ -2848,8 +2910,10 @@ GEMM_KERNEL_MODES = (
      blk(128, "asymmetric")),
     ("comp BLOCK 512 ASYMMETRIC", blk(512, "asymmetric"),
      blk(512, "asymmetric")),
+    ("comp-small BLOCK 16", blk(16), blk(16)),  # m16n8k16 products
     ("comp-small BLOCK 32", blk(32), blk(32)),
     ("comp-small BLOCK 64", blk(64), blk(64)),
+    ("comp-small BLOCK 8", blk(8), blk(8)),  # the scalar tile
 )
 
 
@@ -3047,16 +3111,46 @@ GEMM_LIBRARY = {
 }
 
 
+def scalar_comp_small_call(args, kw):
+    """``comp_small_gemm``'s scalar route as a parent whose wrapper took the
+    per-element [K] vectors from ``comp_arguments`` ran it: the vectors
+    expanded here, outside the timed call, and the call launching the
+    library's ``mfa_comp_small_gemm`` on them."""
+    qa, qb, sa, za, sb, zb = args[:6]
+    bs, c = kw["bs"], kw["c"]
+    (s_a, zs_a), (s_b, zs_b) = (qgemm._block_vectors(sa, za, bs),
+                                qgemm._block_vectors(sb, zb, bs))
+    (m, k), n = qa.shape, qb.shape[0]
+
+    def call():
+        out = torch.empty((m, n), dtype=torch.float32, device=qa.device)
+        rc = _build.kernel_function(
+            "mfa_comp_small_gemm", qgemm._COMP_SMALL_ARGS)(
+            qa.data_ptr(), qb.data_ptr(), s_a.data_ptr(), zs_a.data_ptr(),
+            s_b.data_ptr(), zs_b.data_ptr(),
+            None if c is None else c.data_ptr(), out.data_ptr(), m, n, k,
+            torch.cuda.current_stream(qa.device).cuda_stream)
+        _build.check_launch(rc, "comp_small_gemm")
+        return out
+    return call
+
+
 def time_gemm_kernels(rng):
     """(c) The seven kernels' arms at gemm_bench's shapes on
     utils/profiling.py's arms, beside their bounds (the operands read once,
-    the fp32 result written once, bf16 for the weight-only ones; or
+    the fp32 result written once, bf16 for the weight-only ones; for the
+    compensated kernels the per-block scales and zero points too, not the
+    block sums their wrapper derives from the operands; or
     2·M·N·K over the bf16 peak for the quantized-A and weight-only kernels,
     over the int8 peak for both compensated kernels: their operands are
     int8 payloads with per-block scales, whose block products the int8
-    tensor cores take at any block that is a multiple of 32, so
-    comp_small_gemm's exact-fp32 design, copied from the TPU kernel, is not
-    the card's limit), plain versions and library calls (GEMM_LIBRARY).
+    tensor cores take), the kernels' device time, plain versions and
+    library calls (GEMM_LIBRARY).  The kernels are timed on arguments made
+    before the timed calls; the compensated kernels' whole
+    ``compensated_matmul`` call (``call_ms``: the arguments, the block sums
+    among them, and the kernel) too.  The parent's small-block turns run
+    its scalar kernel on per-element vectors expanded before the timed
+    calls, as its wrapper took them.
     The weight-only kernels are first held to their plain versions there
     (``check_wo``) and timed by ``time_wo_call``.
     → {label: {"m{M}": times}}."""
@@ -3085,21 +3179,31 @@ def time_gemm_kernels(rng):
                 ad = dequantize(a).to(torch.bfloat16)
                 library = (lambda ad=ad, b=b: ad @ b)
                 vec = 2 * m * 4
-            elif name == "comp_gemm":
-                library = (lambda a=a, b=b: torch._int_mm(a.data, b.data.t()))
-                vec = 4 * (m + n) * (k // 512) + 16 * (k // 512)
             else:
-                ad, bd = dequantize(a), dequantize(b).t()
-                library = (lambda ad=ad, bd=bd: ad @ bd)
-                vec = 16 * k
+                if name == "comp_gemm":
+                    library = (lambda a=a, b=b: torch._int_mm(
+                        a.data, b.data.t()))
+                else:
+                    ad, bd = dequantize(a), dequantize(b).t()
+                    library = (lambda ad=ad, bd=bd: ad @ bd)
+                # per block: two scales, two zero points
+                vec = 16 * (k // b.config.block_size)
+                t_call = time_ms(lambda a=a, b=b: compensated_matmul(a, b),
+                                 iters, warmup=1)
             t = {"plain_ms": time_ms(lambda: plain(*args, **kw), 2,
                                      warmup=1),
                  "ms": time_ms(lambda: kernel(*args, **kw), iters,
                                warmup=1)}
             t["ms_2"] = time_ms(lambda: kernel(*args, **kw), iters, warmup=0)
+            t["device_ms"] = device_ms(lambda: kernel(*args, **kw), iters)
             t["library_ms"] = time_ms(library, iters, warmup=1)
+            if name.startswith("comp"):
+                t["call_ms"] = t_call
             parent_turns(f"{name} M={m} N={n} K={k}", t,
-                         lambda: kernel(*args, **kw), iters)
+                         lambda: kernel(*args, **kw), iters,
+                         device=name == "comp_small_gemm",
+                         parent_kernel=scalar_comp_small_call(args, kw)
+                         if name == "comp_small_gemm" else None)
             a_bytes = a.nbytes_payload
             b_bytes = (b.nbytes_payload if isinstance(b, QuantizedTensor)
                        else b.numel() * b.element_size())
@@ -3265,8 +3369,10 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")},
             })
-    g8, g8p = (quant["times"][f"dyn_gemm_w8_m{m}"] for m in (8, 256))
-    g4, g4p = (quant["times"][f"dyn_gemm_w4_m{m}"] for m in (8, 256))
+    g8, g8p, g8q = (quant["times"][f"dyn_gemm_w8_m{m}"]
+                    for m in (8, 256, QFWD_M))
+    g4, g4p, g4q = (quant["times"][f"dyn_gemm_w4_m{m}"]
+                    for m in (8, 256, QFWD_M))
     record["kernels"].append({
         "name": "dyn_gemm", "route": "cuda", "source": GEMM_SOURCE,
         "replaces": f"{GEMM_TPU}:1002",
@@ -3280,10 +3386,22 @@ def main() -> int:
         "library_ms": g8["library_ms"],
         "library": "torch._int_mm on the same int8 operands (M padded to 32)",
         "library_bf16_matmul_ms": g8["library_bf16_matmul_ms"],
+        "device_ms": g8["device_ms"],
+        "library_device_ms": g8["library_device_ms"],
+        "shape_m4096": f"the fully quantized forward's 57 GEMMs at "
+                       f"M={QFWD_M}, the unembedding's too",
         **{f"{key}_{tag}": t[key] for tag, t in (
-            ("m256", g8p), ("w4_m8", g4), ("w4_m256", g4p))
+            ("m256", g8p), ("m4096", g8q), ("w4_m8", g4), ("w4_m256", g4p),
+            ("w4_m4096", g4q))
            for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                       "library_ms", "library_bf16_matmul_ms")},
+                       "library_ms", "library_bf16_matmul_ms", "device_ms",
+                       "library_device_ms")},
+        **{f"parent_turns_{kind}_{tag}": t[f"parent_turns_{kind}"]
+           for tag, t in (("m8", g8), ("m256", g8p), ("m4096", g8q),
+                          ("w4_m8", g4), ("w4_m256", g4p),
+                          ("w4_m4096", g4q))
+           for kind in ("ms", "device_ms") if f"parent_turns_{kind}" in t},
+        "body": "tensor_core", "redesigned": REDESIGNED,
     })
     replaces = {"flash_fwd": f"{FLASH_TPU}:546",
                 "flash_dq": f"{FLASH_BWD_TPU}:77",
@@ -3523,15 +3641,23 @@ def main() -> int:
             "library": GEMM_LIBRARY[name],
             "shape": "M=%d N=%d K=%d, %s" % (*GEMM_SHAPES[1],
                                              gemm_shape[name]),
+            **({"call_ms": big["call_ms"]} if "call_ms" in big else {}),
             **{f"{key}_m{GEMM_SHAPES[0][0]}": small[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "parent_turns_ms") if key in small},
+                "call_ms", "parent_turns_ms", "parent_turns_device_ms")
+               if key in small},
             **({"parent_turns_ms": big["parent_turns_ms"]}
                if "parent_turns_ms" in big else {}),
-            **({"body": (qa_gemm_body(torch.bfloat16)
-                         if name.startswith("qa") else "tensor_core"),
-                "redesigned": REDESIGNED}
-               if name != "comp_small_gemm" else {}),
+            **{f"device_ms{tag}": tt["device_ms"] for tag, tt in (
+                ("", big), (f"_m{GEMM_SHAPES[0][0]}", small))},
+            **({"parent_turns_device_ms": big["parent_turns_device_ms"]}
+               if "parent_turns_device_ms" in big else {}),
+            "body": (qa_gemm_body(torch.bfloat16) if name.startswith("qa")
+                     else comp_small_body(64) if name == "comp_small_gemm"
+                     else "tensor_core"),
+            "redesigned": REDESIGNED,
+            **({"device_kernel_scalar_route": COMP_SMALL_SCALAR}
+               if name == "comp_small_gemm" else {}),
         })
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]

@@ -1,6 +1,7 @@
 // Warp-level tensor-core and asynchronous-copy helpers for Hopper (sm_90a),
 // as inline PTX: mma.sync (bf16 m16n8k16 into fp32, s8 m16n8k32 into
-// int32), ldmatrix (plain and transposed) and 16-byte cp.async with commit
+// int32, s8 m16n8k16 into int32), ldmatrix (plain and transposed) and
+// 16-byte cp.async with commit
 // and wait groups.  Used by the tensor-core bodies of
 // csrc/flash_attention.cu, csrc/attention_bwd.cuh,
 // csrc/quantized_attention.cu and csrc/quantized_gemm.cu.
@@ -124,6 +125,21 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
         "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]));
+}
+
+// d = a * b + c, s8 x s8 -> int32 over 16 bytes of k (m16n8k16): a0 row g
+// and a1 row g + 8, bytes [4t, 4t + 4); b0 column g, bytes [4t, 4t + 4).
+// The two halves of an m16n8k32 fragment ({a0, a1} / {a2, a3} and b0 / b1)
+// are the fragments of its two 16-byte slices.
+__device__ __forceinline__ void mma_s8_k16(int (&d)[4], uint32_t a0,
+                                           uint32_t a1, uint32_t b0,
+                                           const int (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "r"(c[0]), "r"(c[1]), "r"(c[2]),
+        "r"(c[3]));
 }
 
 // Exact conversions on the FP32 and integer pipes.  Hopper's conversion

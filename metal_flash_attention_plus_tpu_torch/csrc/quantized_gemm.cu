@@ -4,7 +4,7 @@
 // int8 x int8 GEMMs.
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
-//   - ops/quantized_gemm.py::_dyn_kernel        -> dyn_gemm_kernel
+//   - ops/quantized_gemm.py::_dyn_kernel        -> dyn_tc_kernel
 //   - ops/quantized_gemm.py::_wo_folded_kernel  -> wo_tc_kernel (folded)
 //   - ops/quantized_gemm.py::_wo_kernel         -> wo_tc_kernel (bf16 A),
 //                                                   wo_kernel (fp32 A)
@@ -12,44 +12,14 @@
 //   - ops/quantized_gemm.py::_qa_kernel         -> qa_tc_kernel (bf16 B),
 //                                                   qa_kernel (fp32 B)
 //   - ops/quantized_gemm.py::_comp_kernel       -> comp_tc_kernel
-//   - ops/quantized_gemm.py::_comp_small_kernel -> comp_small_kernel
-// Each family is described before its kernels.
-//
-// dyn_gemm_kernel:
-// Computes out[m, n] = (float(acc) - rs[m] * zb[n]) * (sa[m] * sb[n]) [+ c]
-// with acc = sum_k qa[m, k] * qb[n, k] accumulated exactly in int32:
-//   - qa [M, K] int8: activations quantized per row by the wrapper
-//     (ops/quantized_gemm.py), sa their scales, rs their row sums (fp32);
-//   - qb [N, K] int8, or [N, K/2] uint8 group-planar int4 (BITS == 4):
-//     element k lies in group g = k / 256 at offset j = k % 256, in byte
-//     g * 128 + j % 128, low nibble if j < 128, high nibble otherwise,
-//     stored as value + 8; the kernel unpacks it to int8 on the fly;
-//   - sb, zb [N] fp32: the weight's per-output-channel (or broadcast
-//     per-tensor) scale and zero point; c [M, N] fp32 or null.
-// The epilogue runs once per output element in the JAX kernel's order and
-// with its roundings as XLA runs it (XLA fuses a multiply into the add or
-// subtract that follows it): d = fma(-rs, zb, float(acc)); out = fma(d,
-// sa*sb, c) with C, d * (sa*sb) without.  Every step is an explicitly
-// rounded intrinsic, so the compiler contracts nothing else, and the plain
-// PyTorch version computes the same numbers exactly.
-//
-// What bounds it on the H100, and the design.
-//   Decode (M = 8) reads every weight byte for 16 multiply-adds per byte:
-//   the bound is the weight bytes over 3.35 TB/s.  Per decode step the
-//   flagship's int8 weights are 8 x 15.2 M + 33.6 M ~= 155 MB, ~46 us, half
-//   of bf16's (int4: a quarter).  A prefill chunk (M = 256) does 512 int8
-//   operations per weight byte, above the ~590 op/byte ridge of the int8
-//   tensor cores (1,979 TOP/s) only at M >= ~300, so it is near the ridge.
-//   This first version is simple and exact: one CTA computes a 64 x 64
-//   output tile; each K step stages a 64 x 64-byte tile of A and of B in
-//   shared memory as 32-bit words (int4 unpacked to int8 while staging),
-//   transposed so that each thread's 4 x 4 block of outputs reads 16-byte
-//   vectors, and accumulates with __dp4a (four int8 products per
-//   instruction, into int32).  It does not use the tensor cores, and at
-//   decode the N / 64 CTAs of a 1024-wide projection leave most SMs idle;
-//   mma.sync / wgmma s8, TMA or cp.async staging and split-K for small M
-//   are the planned speed work.
+//   - ops/quantized_gemm.py::_comp_small_kernel -> comp_tc_kernel (blocks
+//                                                   of a multiple of 16),
+//                                                   comp_small_kernel
+//                                                   (other blocks)
+// Each family is described before its kernels; dyn_tc_kernel and
+// comp_tc_kernel share the s8 tile at the end.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -62,161 +32,9 @@ namespace {
 
 using mfa::Elem;
 
-constexpr int DG_BM = 64;       // output rows per CTA
-constexpr int DG_BN = 64;       // output columns per CTA
-constexpr int DG_BK = 64;       // K bytes per step
-constexpr int DG_THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int DG_KW = DG_BK / 4;  // 32-bit words per staged row
-constexpr int DG_PAD = 4;
-
-__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xFF) | ((uint32_t)(b & 0xFF) << 8) |
-         ((uint32_t)(c & 0xFF) << 16) | ((uint32_t)(d & 0xFF) << 24);
-}
-
-// 16 int8 values of row `row` from column k (4 words); zero outside the
-// row's [0, K) or when row >= rows.  Vector loads need K % 16 == 0.
-__device__ __forceinline__ void load_int8_16(const int8_t* __restrict__ base,
-                                             int row, int rows, int k, int K,
-                                             uint32_t* w) {
-  if (row < rows && (K % 16) == 0 && k + 16 <= K) {
-    const uint4 u =
-        *reinterpret_cast<const uint4*>(base + (size_t)row * K + k);
-    w[0] = u.x;
-    w[1] = u.y;
-    w[2] = u.z;
-    w[3] = u.w;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kk = k + 4 * i + e;
-      v[e] = (row < rows && kk < K) ? (int)base[(size_t)row * K + kk] : 0;
-    }
-    w[i] = pack4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// 16 int4 values (as int8) of row `row` from column k; K % 256 == 0 and k
-// a multiple of 16, so the 16 elements share one group half and lie in 16
-// consecutive bytes.
-__device__ __forceinline__ void load_int4_16(const uint8_t* __restrict__ base,
-                                             int row, int rows, int k, int K,
-                                             uint32_t* w) {
-  if (row >= rows) {
-    w[0] = w[1] = w[2] = w[3] = 0u;
-    return;
-  }
-  const int j = k % 256;
-  const size_t byte = (size_t)row * (K / 2) + (size_t)(k / 256) * 128 + j % 128;
-  const uint4 u = *reinterpret_cast<const uint4*>(base + byte);
-  const uint32_t src[4] = {u.x, u.y, u.z, u.w};
-  const int shift = (j < 128) ? 0 : 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      v[e] = (int)((src[i] >> (8 * e + shift)) & 0xFu) - 8;
-    w[i] = pack4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// Word-major (transposed) int8 tiles of one K step: as_[kw][m], bs_[kw][n].
-typedef uint32_t DgTile[DG_KW][DG_BM + DG_PAD];
-
-// One K step [k0, k0 + DG_BK) of the 64 x 64 output tile at (m0, n0):
-// stage A rows and B rows (int8, or int4 B unpacked to int8) as words,
-// transposed so that each thread's 4 x 4 block of outputs reads 16-byte
-// vectors, then acc[i][j] += their products with __dp4a (four int8
-// products per instruction, into int32).
-template <int BITS>
-__device__ __forceinline__ void dg_step(const int8_t* __restrict__ qa,
-                                        const void* __restrict__ qb, int M,
-                                        int N, int K, int m0, int n0, int k0,
-                                        DgTile& as_, DgTile& bs_,
-                                        int (&acc)[4][4]) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns tx*4 .. +3
-  const int ty = tid / 16;  // output rows ty*4 .. +3
-  // Staging: thread -> (tile row r, 16-byte chunk q) of both tiles.
-  const int sr = tid / 4;
-  const int sq = tid % 4;
-  uint32_t wa[4], wb[4];
-  load_int8_16(qa, m0 + sr, M, k0 + sq * 16, K, wa);
-  if (BITS == 8)
-    load_int8_16(static_cast<const int8_t*>(qb), n0 + sr, N, k0 + sq * 16, K,
-                 wb);
-  else
-    load_int4_16(static_cast<const uint8_t*>(qb), n0 + sr, N, k0 + sq * 16,
-                 K, wb);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    as_[sq * 4 + i][sr] = wa[i];
-    bs_[sq * 4 + i][sr] = wb[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int kw = 0; kw < DG_KW; ++kw) {
-    const uint4 a4 = *reinterpret_cast<const uint4*>(&as_[kw][ty * 4]);
-    const uint4 b4 = *reinterpret_cast<const uint4*>(&bs_[kw][tx * 4]);
-    const int av[4] = {(int)a4.x, (int)a4.y, (int)a4.z, (int)a4.w};
-    const int bv[4] = {(int)b4.x, (int)b4.y, (int)b4.z, (int)b4.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-  }
-  __syncthreads();
-}
-
-template <int BITS>
-__global__ void __launch_bounds__(DG_THREADS)
-dyn_gemm_kernel(const int8_t* __restrict__ qa, const void* __restrict__ qb,
-                const float* __restrict__ sa, const float* __restrict__ rs,
-                const float* __restrict__ sb, const float* __restrict__ zb,
-                const float* __restrict__ c, float* __restrict__ out, int M,
-                int N, int K) {
-  __shared__ __align__(16) DgTile as_;
-  __shared__ __align__(16) DgTile bs_;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * DG_BM;
-  const int n0 = blockIdx.x * DG_BN;
-
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += DG_BK)
-    dg_step<BITS>(qa, qb, M, N, K, m0, n0, k0, as_, bs_, acc);
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-    const float sam = sa[m];
-    const float rsm = rs[m];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      const float d = __fmaf_rn(-rsm, zb[n], __int2float_rn(acc[i][j]));
-      const float s = __fmul_rn(sam, sb[n]);
-      const size_t idx = (size_t)m * N + n;
-      out[idx] = (c != nullptr) ? __fmaf_rn(d, s, c[idx]) : __fmul_rn(d, s);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Weight-only GEMMs: out [M, N] = A [M, K] x W^T, W the payload [N, K] int8
-// or [N, K/2] uint8 group-planar int4 (as dyn_gemm_kernel reads it):
+// or [N, K/2] uint8 group-planar int4 (as weight_at below reads it):
 //
 //   - the TPU's _wo_folded_kernel (SYMMETRIC TENSOR / ROW weights, a non-fp32
 //     A cast to bf16 by the wrapper): acc = sum_k a * w over the integer
@@ -1063,209 +881,35 @@ wo_reduce_kernel(const float* __restrict__ part, int splits,
 // along K with one block size bs: per-block scales sa, sb and zero points
 // za, zb.
 //
-//   - comp_tc_kernel (the TPU's _comp_kernel; bs a multiple of 128): per K
-//     block b, the exact int32 block product Sqq = A_b . B_b^T on the s8
-//     tensor cores, then in int32 comp = Sqq - zb*SqA - za*SqB + bs*za*zb
-//     with the wrapper's per-row block sums SqA [M, nb], SqB [N, nb],
-//     rounded to fp32, and acc = fma(sa*sb, comp, acc): the fused
-//     multiply-add XLA gives the TPU kernel, so the plain version matches
-//     bit for bit (integer sums are exact in any order, and the fp32 steps
-//     run per block in the same order); C added at the store;
-//   - comp_small_kernel (the TPU's _comp_small_kernel; blocks the int8
-//     product cannot separate, 16..64): both operands dequantized per
-//     element in fp32 as fma(q, s[k], -(z*s)[k]) (the per-block vectors
-//     expanded to [K] by the wrapper; the fused form XLA gives the TPU
-//     kernel), exact fp32 products summed in fp32, C at the store.
+//   - the TPU's _comp_kernel (bs a multiple of 128): per K block b, the
+//     exact int32 block product Sqq = A_b . B_b^T, then in int32 comp =
+//     Sqq - zb*SqA - za*SqB + bs*za*zb with the wrapper's per-row block
+//     sums SqA [M, nb], SqB [N, nb], rounded to fp32, and acc = fma(sa*sb,
+//     comp, acc): the fused multiply-add XLA gives the TPU kernel, so the
+//     plain version matches bit for bit (integer sums are exact in any
+//     order, and the fp32 steps run per block in the same order); C added
+//     at the store.  comp_tc_kernel, the s8 tile below, with K unsplit (a
+//     split would add fp32 partial sums in another order);
+//   - the TPU's _comp_small_kernel (blocks that are not a multiple of 128,
+//     the reference's 16..64), whose plain version dequantizes both
+//     operands per element in fp32 as fma(q, s[k], -(z*s)[k]) and sums
+//     exact fp32 products: comp_tc_kernel for a block of a multiple of 16
+//     runs the same integer block product and compensation per block
+//     instead, one rounding a block rather than one an element, so it is
+//     the more exact of the two; comp_small_kernel for the other blocks (8,
+//     24, 40, ...: QuantConfig takes any multiple of 8) keeps the
+//     per-element dequantization (the per-block vectors expanded to [K] by
+//     the wrapper) on the weight-only kernels' scalar fp32 tile.  The
+//     wrapper's comp_small_body chooses by the block size.
 //
-// What bounds them on the H100, and the design.  At the GEMM bench's
-// shapes the product is 2*M*N*K = 17 or 550 G operations against 67 + 1 +
-// 4 MB or 34 + 67 + 134 MB of int8 operands and fp32 output: the int8
-// tensor cores (1,979 TOP/s) bound M = 4096 at ~0.28 ms, the bytes M = 128
-// at ~0.02 ms.  comp_tc_kernel is qa_tc_kernel's frame for two int8
-// operands: a BM x 128 output tile a CTA (BM = 128, or 64 where 128-row
-// tiles would give fewer than two CTAs for each SM, e.g. M = 128), 8 warps
-// of 32 x 64 (or 32 x 32) outputs; both operands' rows of k, 128 bytes a
-// step, copied by cp.async into a 4-stage ring (zeros past M and N; K is
-// whole blocks), read by ldmatrix and multiplied by s8 m16n8k32 mma.sync
-// into int32 fragments that are zeroed at each block's start; at each
-// block's end the compensation and the fp32 fused multiply-add run on the
-// fragments.  Two accumulators (the block's int32, the fp32 sum) take 128
-// registers a thread at BM = 128, so that tile runs one CTA an SM.  wgmma
-// with TMA is the next step.  comp_small_kernel computes what the TPU
-// kernel computes, an exact fp32 product of the dequantized operands, on
-// the weight-only kernels' scalar fp32 tile.  The fp32 is the TPU's choice
-// (a contraction under 128 leaves its MXU part empty), not the H100's
-// limit: its operands are int8 too, and s8 mma.sync takes k = 32, so 32-
-// and 64-blocks split into int8 block products with the per-block
-// compensation, as in comp_tc_kernel.  Its bound is therefore the int8 one
-// as well (~0.28 ms at M = 4096).
+// What bounds them on the H100.  At the GEMM bench's shapes the product is
+// 2*M*N*K = 17 or 550 G operations against 67 + 1 + 4 MB or 34 + 67 + 134
+// MB of int8 operands and fp32 output: the int8 tensor cores (1,979 TOP/s)
+// bound M = 4096 at ~0.28 ms, the bytes M = 128 at ~0.02 ms.  The small
+// blocks' fp32 is the TPU's choice (a contraction under 128 leaves its MXU
+// part empty), not the H100's limit: their operands are int8 too, so their
+// bound is the int8 one as well.
 // ---------------------------------------------------------------------------
-
-constexpr int CT_BN = 128;
-constexpr int CT_BK = 128;          // k bytes a step
-constexpr int CT_LD = CT_BK + 16;   // bytes a staged row
-constexpr int CT_STAGES = 4;        // the cp.async ring
-constexpr int CT_THREADS = 256;
-
-// Both operands' rings (144 KB at BM = 128, 108 KB at 64).
-template <int BM>
-constexpr size_t comp_tc_smem() {
-  return (size_t)CT_STAGES * (BM + CT_BN) * CT_LD;
-}
-
-template <int BM>
-__global__ void __launch_bounds__(CT_THREADS, BM == 128 ? 1 : 2)
-comp_tc_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
-               const float* __restrict__ sa, const int* __restrict__ za,
-               const float* __restrict__ sb, const int* __restrict__ zb,
-               const int* __restrict__ sqa, const int* __restrict__ sqb,
-               const float* __restrict__ c, float* __restrict__ out, int M,
-               int N, int K, int bs) {
-  constexpr int STAGES = CT_STAGES;
-  constexpr int WARPS_M = BM / 32;
-  constexpr int WN = CT_BN / (8 / WARPS_M);  // columns per warp
-  constexpr int NT = WN / 8;                 // 8-column blocks per warp
-  constexpr int CH = CT_BK / 16;             // 16-byte chunks per row
-  extern __shared__ __align__(16) uint8_t sm[];
-  uint8_t* as = sm;                             // [STAGES][BM][CT_LD]
-  uint8_t* bsm = sm + STAGES * BM * CT_LD;      // [STAGES][CT_BN][CT_LD]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int wm0 = (warp % WARPS_M) * 32;
-  const int wn0 = (warp / WARPS_M) * WN;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * CT_BN;
-  const int nk = K / CT_BK;
-  const int per_block = bs / CT_BK;
-  const int nb = K / bs;
-
-  auto load = [&](int stage, int kt) {
-    const size_t k0 = (size_t)kt * CT_BK;
-    for (int i = tid; i < (BM + CT_BN) * CH; i += CT_THREADS) {
-      const int r = i / CH;
-      const int ch = i % CH;
-      const bool is_a = r < BM;
-      const int row = is_a ? m0 + r : n0 + r - BM;
-      const bool ok = row < (is_a ? M : N);
-      const int8_t* src = (is_a ? qa : qb) + (ok ? (size_t)row * K : 0) +
-                          k0 + ch * 16;
-      uint8_t* dst = (is_a ? as + stage * BM * CT_LD + r * CT_LD
-                           : bsm + stage * CT_BN * CT_LD + (r - BM) * CT_LD) +
-                     ch * 16;
-      mfa::cp_async16(dst, src, ok ? 16 : 0);
-    }
-  };
-
-  int part[2][NT][4];
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        part[mi][ni][e] = 0;
-        acc[mi][ni][e] = 0.f;
-      }
-  const int a_off = (wm0 + mfa::ldsm_a_row(lane)) * CT_LD +
-                    mfa::ldsm_a_byte(lane);
-  const int b_off = (wn0 + mfa::ldsm_b_row(lane)) * CT_LD +
-                    mfa::ldsm_b_byte(lane);
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nk) load(st, st);
-    mfa::cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    mfa::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // step kt staged; step kt - 1's readers done
-    if (kt + STAGES - 1 < nk)
-      load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    mfa::cp_async_commit();
-    const uint8_t* a_s = as + (kt % STAGES) * BM * CT_LD + a_off;
-    const uint8_t* b_s = bsm + (kt % STAGES) * CT_BN * CT_LD + b_off;
-#pragma unroll
-    for (int kk = 0; kk < CT_BK / 32; ++kk) {  // 32 bytes of k a product
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        mfa::ldsm_x4(af[mi], a_s + mi * 16 * CT_LD + kk * 32);
-#pragma unroll
-      for (int n2 = 0; n2 < NT / 2; ++n2) {
-        uint32_t bf[4];
-        mfa::ldsm_x4(bf, b_s + n2 * 16 * CT_LD + kk * 32);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mfa::mma_s8(part[mi][2 * n2], af[mi], bf[0], bf[1],
-                      part[mi][2 * n2]);
-          mfa::mma_s8(part[mi][2 * n2 + 1], af[mi], bf[2], bf[3],
-                      part[mi][2 * n2 + 1]);
-        }
-      }
-    }
-    if ((kt + 1) % per_block) continue;
-    // The block's end: its compensation, then acc = fma(sa*sb, comp, acc),
-    // in int32 and fp32 as the plain version.
-    const int blk = (kt + 1) / per_block - 1;
-    const float s = __fmul_rn(sa[blk], sb[blk]);
-    const int zab = za[blk], zbb = zb[blk];
-    const int zz = bs * zab * zbb;
-    int rsb[NT][2];
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + wn0 + 8 * ni + 2 * tq + e;
-        rsb[ni][e] = n < N ? sqb[(size_t)n * nb + blk] : 0;
-      }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = m0 + wm0 + 16 * mi + g + 8 * i;
-        const int rsa = m < M ? sqa[(size_t)m * nb + blk] : 0;
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            int& p = part[mi][ni][2 * i + e];
-            const int comp = p - zbb * rsa - zab * rsb[ni][e] + zz;
-            float& x = acc[mi][ni][2 * i + e];
-            x = __fmaf_rn(s, __int2float_rn(comp), x);
-            p = 0;
-          }
-      }
-  }
-  mfa::cp_async_wait<0>();
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + wm0 + 16 * mi + g + 8 * i;
-      if (m >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const int n = n0 + wn0 + 8 * ni + 2 * tq;
-        const size_t idx = (size_t)m * N + n;
-        float v0 = acc[mi][ni][2 * i], v1 = acc[mi][ni][2 * i + 1];
-        if (c) {
-          if (n < N) v0 = __fadd_rn(v0, c[idx]);
-          if (n + 1 < N) v1 = __fadd_rn(v1, c[idx + 1]);
-        }
-        if (n + 1 < N && N % 2 == 0) {
-          *reinterpret_cast<float2*>(out + idx) = make_float2(v0, v1);
-        } else {
-          if (n < N) out[idx] = v0;
-          if (n + 1 < N) out[idx + 1] = v1;
-        }
-      }
-    }
-}
 
 __global__ void __launch_bounds__(WO_THREADS)
 comp_small_kernel(const int8_t* __restrict__ qa,
@@ -1304,6 +948,577 @@ comp_small_kernel(const int8_t* __restrict__ qa,
       out[idx] = c ? __fadd_rn(acc[i][j], c[idx]) : acc[i][j];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The s8 tensor-core tile: dyn_tc_kernel (the dynamic GEMM) and
+// comp_tc_kernel (both compensated GEMMs).  Both multiply
+// A [M, K] int8 rows by B^T [N, K] rows of k (int8, or for the dynamic GEMM
+// the group-planar int4 payload) with s8 mma.sync into int32 fragments.
+//
+// dyn_tc_kernel computes out[m, n] = (float(acc) - rs[m] * zb[n]) *
+// (sa[m] * sb[n]) [+ c] with acc = sum_k qa[m, k] * qb[n, k], one int32
+// accumulator over all of K (exact in any order):
+//   - qa [M, K] int8: activations quantized per row by the wrapper
+//     (ops/quantized_gemm.py), sa their scales, rs their row sums (fp32);
+//   - qb [N, K] int8, or [N, K/2] uint8 group-planar int4 (BITS == 4):
+//     element k lies in group g = k / 256 at offset j = k % 256, in byte
+//     g * 128 + j % 128, low nibble if j < 128, high nibble otherwise,
+//     stored as value + 8;
+//   - sb, zb [N] fp32: the weight's per-output-channel (or broadcast
+//     per-tensor) scale and zero point; c [M, N] fp32 or null.
+// The epilogue runs once per output element in the JAX kernel's order and
+// with its roundings as XLA runs it (XLA fuses a multiply into the add or
+// subtract that follows it): d = fma(-rs, zb, float(acc)); out = fma(d,
+// sa*sb, c) with C, d * (sa*sb) without.  Every step is an explicitly
+// rounded intrinsic, so the compiler contracts nothing else, and the plain
+// PyTorch version computes the same numbers exactly.
+//
+// comp_tc_kernel runs the compensated arithmetic per block of bs (a
+// multiple of 16; K whole blocks): Sqq summed in int32 over the block,
+// at its end comp = Sqq - zb*SqA - za*SqB + bs*za*zb in int32, then acc =
+// fma(sa*sb, float(comp), acc) in fp32, C at the store.  A block that is a
+// multiple of 32 takes m16n8k32 steps (S8_COMP32), one of 16, 48, 80, ...
+// m16n8k16 ones (S8_COMP16), so a block ends between two products.
+// float(comp) is exact where |comp| < 2^24; where the block's zero points
+// bound |comp| below 2^22 (bs * (128 + |za|) * (128 + |zb|) < 2^22: every
+// symmetric block of 16..127, and centered ones near zero) it is formed on
+// the integer and FP32 pipes (mma.cuh's biased_f32, the bias folded into
+// the column term) instead of the conversion unit, which runs at an eighth
+// of their rate.  Per block and output element that is one IADD3, one FADD
+// and one FFMA beside bs / 32 (or bs / 16) products; the block's per-row and
+// per-column terms (zb * SqA[m], za * SqB[n] - bs*za*zb - bias) are loaded
+// once per thread and block, at the previous block's end.
+//
+// What bounds them on the H100, and the design.  The dynamic GEMM at
+// decode (M = 8) reads every weight byte for 16 operations: the weight's
+// bytes over 3.35 TB/s bound it (~0.048 ms for one model call's 57 int8
+// GEMMs), and at ~1 MB a projection each launch is latency, not bytes.  At
+// the fully quantized forward's M = 4096 the int8 tensor cores (1,979
+// TOP/s) bound the 57 GEMMs' ~1.27 T operations at ~0.64 ms.  One CTA
+// computes a BM x 128 output tile, BM = 128 (8 warps of 32 x 64 outputs),
+// 64 (32 x 32) or 16 (16 x 16) as the wrapper's dyn_tile / comp_small_tile
+// choose (mfa_comp_gemm: 128 where 128-row tiles give two CTAs for each SM,
+// else 64, K unsplit; the compensated tile's two accumulators, int32 and
+// fp32, keep its BM = 128 instance to one CTA an SM), over steps of 128 k: A's rows (128 bytes) and B's (128 bytes, or
+// int4: the 64 packed bytes of half a group, whose low nibbles are k in
+// [j, j + 64) and high ones k + 128, which A stages as two 64-byte pieces)
+// copied by cp.async into a ring (3 stages for the dynamic BM = 128 tile,
+// which keeps two CTAs an SM, else 4); zeros past M, N and K; element loads
+// where a row is not 16-byte aligned (K % 16 != 0).  ldmatrix reads both;
+// int4 B's nibbles become int8 in registers after it ((v + 0x78) ^ 0x80 a
+// byte: v - 8), each packed fragment giving the fragments of two k slices.
+// Split K: where the tiles leave SMs idle (decode, prefill chunks), the K
+// steps are split into gridDim.z ranges (whole blocks for the compensated
+// GEMM) run by one thread block cluster (1, 1, splits); each CTA leaves its
+// partial tile in its shared memory, and after a cluster barrier each adds
+// every rank's partials for 1 / splits of the tile's rows through
+// distributed shared memory (int32: exact; fp32: in rank order) and runs
+// the epilogue on them: one launch a GEMM, no workspace, the same bits
+// every run.  Without a split the tile goes through shared memory all the
+// same, so every store is a coalesced 16-byte vector.
+// ---------------------------------------------------------------------------
+
+constexpr int S8_BN = 128;              // output columns a CTA
+constexpr int S8_BK = 128;              // k a step
+constexpr int S8_LD = S8_BK + 16;       // bytes a staged A row, int8 B row
+constexpr int S8_LD4 = S8_BK / 2 + 16;  // bytes a staged int4 B row
+constexpr int S8_THREADS = 256;
+constexpr int S8_RLD = S8_BN + 8;       // words a row of the result tile
+constexpr int S8_MAX_SPLITS = 8;        // a portable cluster
+
+enum S8Kind { S8_DYN = 0, S8_COMP32 = 1, S8_COMP16 = 2 };
+
+// The steps of 128 k in lcm(bs, 128): the compensated GEMM splits K in
+// ranges of whole units, so that no block straddles two CTAs.
+__host__ __device__ constexpr int s8_unit(int bs) {
+  return bs / ((bs & -bs) < S8_BK ? (bs & -bs) : S8_BK);
+}
+
+template <int KIND, int BM>
+__host__ __device__ constexpr int s8_stages() {
+  return KIND == S8_DYN && BM == 128 ? 3 : 4;
+}
+
+template <int BITS, int BM>
+__host__ __device__ constexpr int s8_stage_bytes() {
+  return BM * S8_LD + S8_BN * (BITS == 4 ? S8_LD4 : S8_LD);
+}
+
+// The ring, or the result tile [BM][S8_RLD] of 32-bit words that reuses
+// it, whichever is larger.
+template <int KIND, int BITS, int BM>
+__host__ __device__ constexpr size_t s8_smem() {
+  const size_t ring =
+      (size_t)s8_stages<KIND, BM>() * s8_stage_bytes<BITS, BM>();
+  const size_t res = (size_t)BM * S8_RLD * 4;
+  return ring > res ? ring : res;
+}
+
+// The arguments of both kernels.  The dynamic GEMM: sa, rs [M], sb, zb [N]
+// fp32.  The compensated one: sa, sb [K/bs] fp32 and za, zbi [K/bs] int32
+// per block, sqa [M, K/bs] and sqb [N, K/bs] int32 block sums, bs.
+struct S8Args {
+  const int8_t* qa;
+  const void* qb;
+  const float* c;
+  float* out;
+  int M, N, K;
+  const float* sa;
+  const float* sb;
+  const float* rs;
+  const float* zb;
+  const int* za;
+  const int* zbi;
+  const int* sqa;
+  const int* sqb;
+  int bs;
+};
+
+// 16 bytes of row `row` of an int8 [rows, K] matrix from column k into d:
+// cp.async where `vec` (K % 16 == 0, the base 16-byte aligned; zeros past
+// `rows` and K), else element loads.
+__device__ __forceinline__ void s8_copy16(uint8_t* d,
+                                          const uint8_t* __restrict__ p,
+                                          int row, int rows, int k, int K,
+                                          bool vec) {
+  if (vec) {
+    const bool ok = row < rows && k < K;
+    mfa::cp_async16(d, p + (ok ? (size_t)row * K + k : 0), ok ? 16 : 0);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    d[e] = (row < rows && k + e < K) ? p[(size_t)row * K + k + e] : 0;
+}
+
+// Copy step kt of A rows [m0, m0 + BM) into `as` and of B rows [n0, n0 +
+// 128) into `bs`.  int8: k in [128 kt, 128 kt + 128).  int4 (K % 256 ==
+// 0): half h = kt % 2 of group g = kt / 2, i.e. B's packed bytes [128 g +
+// 64 h, +64) and A's k [256 g + 64 h, +64) then [256 g + 128 + 64 h, +64),
+// so A's byte j meets the low nibble of B's byte j and A's byte 64 + j its
+// high nibble.
+template <int BITS, int BM>
+__device__ __forceinline__ void s8_stage(uint8_t* as, uint8_t* bs,
+                                         const uint8_t* __restrict__ qa,
+                                         const uint8_t* __restrict__ qb,
+                                         int m0, int n0, int M, int N, int K,
+                                         int kt, bool vec) {
+  constexpr int CH = S8_BK / 16;  // 16-byte chunks an A row
+  for (int i = threadIdx.x; i < BM * CH; i += S8_THREADS) {
+    const int r = i / CH;
+    const int ch = i % CH;
+    const int k = BITS == 4 ? (kt >> 1) * 256 + (ch >> 2) * 128 +
+                                  (kt & 1) * 64 + (ch & 3) * 16
+                            : kt * S8_BK + ch * 16;
+    s8_copy16(as + r * S8_LD + ch * 16, qa, m0 + r, M, k, K, vec);
+  }
+  if (BITS == 4) {
+    for (int i = threadIdx.x; i < S8_BN * CH / 2; i += S8_THREADS) {
+      const int r = i / (CH / 2);
+      const int ch = i % (CH / 2);
+      const bool ok = n0 + r < N;
+      const size_t off = (size_t)(n0 + r) * (K / 2) +
+                         (size_t)(kt >> 1) * 128 + (kt & 1) * 64 + ch * 16;
+      mfa::cp_async16(bs + r * S8_LD4 + ch * 16, qb + (ok ? off : 0),
+                      ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < S8_BN * CH; i += S8_THREADS) {
+      const int r = i / CH;
+      const int ch = i % CH;
+      s8_copy16(bs + r * S8_LD + ch * 16, qb, n0 + r, N, kt * S8_BK + ch * 16,
+                K, vec);
+    }
+  }
+}
+
+// Four int4 weights (the nibbles v = value + 8 of x >> shift) as four int8.
+__device__ __forceinline__ uint32_t s8_nibbles(uint32_t x, int shift) {
+  return (((x >> shift) & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u;
+}
+
+// a + b of two fp32 values held as their bits, rounded to nearest.
+__device__ __forceinline__ uint32_t add_f32_bits(uint32_t a, uint32_t b) {
+  return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
+}
+
+template <int KIND, int BITS, int BM>
+__device__ __forceinline__ void s8_tile(const S8Args& p) {
+  namespace cg = cooperative_groups;
+  constexpr bool COMP = KIND != S8_DYN;
+  constexpr int STAGES = s8_stages<KIND, BM>();
+  constexpr int STAGE = s8_stage_bytes<BITS, BM>();
+  constexpr int WARPS_M = BM >= 32 ? BM / 32 : 1;
+  constexpr int MT = BM >= 32 ? 2 : 1;       // 16-row fragments a warp
+  constexpr int WN = S8_BN / (8 / WARPS_M);  // columns a warp
+  constexpr int NT = WN / 8;                 // 8-column blocks a warp
+  constexpr int BLD = BITS == 4 ? S8_LD4 : S8_LD;
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wm0 = (warp % WARPS_M) * MT * 16;
+  const int wn0 = (warp / WARPS_M) * WN;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * S8_BN;
+  const int M = p.M, N = p.N, K = p.K;
+  const uint8_t* qa = reinterpret_cast<const uint8_t*>(p.qa);
+  const uint8_t* qb = static_cast<const uint8_t*>(p.qb);
+  const bool vec = K % 16 == 0 && ((uintptr_t)qa & 15) == 0 &&
+                   ((uintptr_t)qb & 15) == 0;
+  // This CTA's steps [kt0, kt0 + nk): its split's range, in units of whole
+  // blocks for the compensated GEMM (lcm(bs, 128) / 128 steps).
+  const int steps = (K + S8_BK - 1) / S8_BK;
+  const int unit = COMP ? s8_unit(p.bs) : 1;
+  const int units = (steps + unit - 1) / unit;
+  const int kt0 =
+      min(steps, (int)((long long)units * blockIdx.z / gridDim.z) * unit);
+  const int nk =
+      min(steps,
+          (int)((long long)units * (blockIdx.z + 1) / gridDim.z) * unit) -
+      kt0;
+
+  auto load = [&](int stage, int kt) {
+    uint8_t* st = sm + stage * STAGE;
+    s8_stage<BITS, BM>(st, st + BM * S8_LD, qa, qb, m0, n0, M, N, K, kt0 + kt,
+                       vec);
+  };
+
+  int part[MT][NT][4];
+  float acc[MT][NT][4];  // the compensated GEMM's fp32 sum
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        part[mi][ni][e] = 0;
+        acc[mi][ni][e] = 0.f;
+      }
+
+  // The compensated GEMM's current block: the scale product, whether its
+  // conversion may take biased_f32, the row and column terms, and the k at
+  // which it ends (INT_MAX past this CTA's range).
+  float blk_s = 0.f;
+  bool blk_fast = false;
+  int rowt[MT][2], colt[NT][2];
+  int blk_end = 0x7FFFFFFF;
+  auto block_terms = [&](int blk) {
+    const int nb = K / p.bs;
+    const int za = p.za[blk], zb = p.zbi[blk];
+    blk_s = __fmul_rn(p.sa[blk], p.sb[blk]);
+    blk_fast = (long long)p.bs * (128 + abs(za)) * (128 + abs(zb)) <
+               (1LL << 22);
+    const int zz = p.bs * za * zb + (blk_fast ? mfa::I32_BIAS : 0);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = m0 + wm0 + 16 * mi + g + 8 * i;
+        rowt[mi][i] = m < M ? zb * p.sqa[(size_t)m * nb + blk] : 0;
+      }
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + wn0 + 8 * ni + 2 * tq + e;
+        colt[ni][e] = (n < N ? za * p.sqb[(size_t)n * nb + blk] : 0) - zz;
+      }
+  };
+  if constexpr (COMP) {
+    if (nk > 0) {
+      blk_end = kt0 * S8_BK + p.bs;
+      block_terms(kt0 * S8_BK / p.bs);
+    }
+  }
+  // After the products of every k < kend: where a block ends there, its
+  // compensation, then the next block's terms.
+  auto block_end = [&](int kend) {
+    if constexpr (COMP) {
+      if (kend != blk_end) return;
+      if (blk_fast) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int comp = part[mi][ni][e] - rowt[mi][e >> 1] -
+                               colt[ni][e & 1];
+              acc[mi][ni][e] =
+                  __fmaf_rn(blk_s, mfa::biased_f32(comp), acc[mi][ni][e]);
+              part[mi][ni][e] = 0;
+            }
+      } else {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int comp = part[mi][ni][e] - rowt[mi][e >> 1] -
+                               colt[ni][e & 1];
+              acc[mi][ni][e] =
+                  __fmaf_rn(blk_s, __int2float_rn(comp), acc[mi][ni][e]);
+              part[mi][ni][e] = 0;
+            }
+      }
+      const int next = blk_end + p.bs;
+      if (next <= K && next <= (kt0 + nk) * S8_BK) {
+        blk_end = next;
+        block_terms(next / p.bs - 1);
+      } else {
+        blk_end = 0x7FFFFFFF;
+      }
+    }
+  };
+
+  const int a_off =
+      (wm0 + mfa::ldsm_a_row(lane)) * S8_LD + mfa::ldsm_a_byte(lane);
+  const int b_off =
+      (wn0 + mfa::ldsm_b_row(lane)) * BLD + mfa::ldsm_b_byte(lane);
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load(st, st);
+    mfa::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    mfa::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step kt staged; step kt - 1's readers done
+    if (kt + STAGES - 1 < nk)
+      load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    mfa::cp_async_commit();
+    const uint8_t* a_s = sm + (kt % STAGES) * STAGE + a_off;
+    const uint8_t* b_s = sm + (kt % STAGES) * STAGE + BM * S8_LD + b_off;
+    if constexpr (BITS == 4) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // 32 packed bytes: two 32-k slices
+        uint32_t bp[NT / 2][4];
+#pragma unroll
+        for (int n2 = 0; n2 < NT / 2; ++n2)
+          mfa::ldsm_x4(bp[n2], b_s + n2 * 16 * BLD + c * 32);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {  // low nibbles: A's slice c
+          uint32_t af[MT][4];
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi)
+            mfa::ldsm_x4(af[mi], a_s + mi * 16 * S8_LD + (c + 2 * hi) * 32);
+#pragma unroll
+          for (int n2 = 0; n2 < NT / 2; ++n2) {
+            uint32_t bf[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) bf[j] = s8_nibbles(bp[n2][j], 4 * hi);
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) {
+              mfa::mma_s8(part[mi][2 * n2], af[mi], bf[0], bf[1],
+                          part[mi][2 * n2]);
+              mfa::mma_s8(part[mi][2 * n2 + 1], af[mi], bf[2], bf[3],
+                          part[mi][2 * n2 + 1]);
+            }
+          }
+        }
+      }
+    } else {
+      const int kbase = (kt0 + kt) * S8_BK;
+#pragma unroll
+      for (int kk = 0; kk < S8_BK / 32; ++kk) {
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          mfa::ldsm_x4(af[mi], a_s + mi * 16 * S8_LD + kk * 32);
+        uint32_t bf[NT / 2][4];
+#pragma unroll
+        for (int n2 = 0; n2 < NT / 2; ++n2)
+          mfa::ldsm_x4(bf[n2], b_s + n2 * 16 * BLD + kk * 32);
+        if constexpr (KIND == S8_COMP16) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // the slice's two 16-k halves
+#pragma unroll
+            for (int n2 = 0; n2 < NT / 2; ++n2)
+#pragma unroll
+              for (int mi = 0; mi < MT; ++mi) {
+                mfa::mma_s8_k16(part[mi][2 * n2], af[mi][2 * h],
+                                af[mi][2 * h + 1], bf[n2][h],
+                                part[mi][2 * n2]);
+                mfa::mma_s8_k16(part[mi][2 * n2 + 1], af[mi][2 * h],
+                                af[mi][2 * h + 1], bf[n2][2 + h],
+                                part[mi][2 * n2 + 1]);
+              }
+            block_end(kbase + kk * 32 + 16 * (h + 1));
+          }
+        } else {
+#pragma unroll
+          for (int n2 = 0; n2 < NT / 2; ++n2)
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) {
+              mfa::mma_s8(part[mi][2 * n2], af[mi], bf[n2][0], bf[n2][1],
+                          part[mi][2 * n2]);
+              mfa::mma_s8(part[mi][2 * n2 + 1], af[mi], bf[n2][2],
+                          bf[n2][3], part[mi][2 * n2 + 1]);
+            }
+          block_end(kbase + (kk + 1) * 32);
+        }
+      }
+    }
+  }
+  mfa::cp_async_wait<0>();
+  __syncthreads();  // every ring read done: the result tile reuses it
+
+  // This CTA's tile (the int32 sums, or the fp32 sum) into shared memory.
+  uint32_t* res = reinterpret_cast<uint32_t*>(sm);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int r = wm0 + 16 * mi + g + 8 * i;
+        const int col = wn0 + 8 * ni + 2 * tq;
+        uint2 v;
+        if constexpr (COMP)
+          v = make_uint2(__float_as_uint(acc[mi][ni][2 * i]),
+                         __float_as_uint(acc[mi][ni][2 * i + 1]));
+        else
+          v = make_uint2((uint32_t)part[mi][ni][2 * i],
+                         (uint32_t)part[mi][ni][2 * i + 1]);
+        *reinterpret_cast<uint2*>(res + r * S8_RLD + col) = v;
+      }
+  const int splits = gridDim.z;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (splits > 1)
+    cluster.sync();  // every rank's partial tile written
+  else
+    __syncthreads();
+
+  // Rank z sums rows [z * rows, (z + 1) * rows) of every rank's tile (rank
+  // order) and runs the epilogue on them: a warp a row, four columns a lane.
+  const int rows = (BM + splits - 1) / splits;
+  const int r_hi = min(min(BM, (int)(blockIdx.z + 1) * rows), M - m0);
+  const int col = lane * 4;
+  const int n = n0 + col;
+  const bool out_vec =
+      N % 4 == 0 && n + 3 < N && ((uintptr_t)p.out & 15) == 0;
+  float col_s[4], col_z[4];  // the dynamic GEMM's s_b, z_b of the columns
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    col_s[e] = !COMP && n + e < N ? p.sb[n + e] : 0.f;
+    col_z[e] = !COMP && n + e < N ? p.zb[n + e] : 0.f;
+  }
+  for (int r = (int)blockIdx.z * rows + warp; r < r_hi; r += 8) {
+    uint4 v = *reinterpret_cast<const uint4*>(res + r * S8_RLD + col);
+    if (splits > 1) {
+      v = *reinterpret_cast<const uint4*>(cluster.map_shared_rank(res, 0) +
+                                          r * S8_RLD + col);
+      for (int q = 1; q < splits; ++q) {
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            cluster.map_shared_rank(res, q) + r * S8_RLD + col);
+        if constexpr (COMP)
+          v = make_uint4(add_f32_bits(v.x, w.x), add_f32_bits(v.y, w.y),
+                         add_f32_bits(v.z, w.z), add_f32_bits(v.w, w.w));
+        else
+          v = make_uint4(v.x + w.x, v.y + w.y, v.z + w.z, v.w + w.w);
+      }
+    }
+    const int m = m0 + r;
+    const uint32_t vv[4] = {v.x, v.y, v.z, v.w};
+    float o[4];
+    const float sam = COMP ? 0.f : p.sa[m];
+    const float rsm = COMP ? 0.f : p.rs[m];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[e] = 0.f;
+      if (n + e >= N) continue;
+      const size_t idx = (size_t)m * N + n + e;
+      if constexpr (COMP) {
+        o[e] = __uint_as_float(vv[e]);
+        if (p.c != nullptr) o[e] = __fadd_rn(o[e], p.c[idx]);
+      } else {
+        const float d =
+            __fmaf_rn(-rsm, col_z[e], __int2float_rn((int)vv[e]));
+        const float s = __fmul_rn(sam, col_s[e]);
+        o[e] = p.c != nullptr ? __fmaf_rn(d, s, p.c[idx]) : __fmul_rn(d, s);
+      }
+    }
+    float* dst = p.out + (size_t)m * N + n;
+    if (out_vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < N) dst[e] = o[e];
+    }
+  }
+  if (splits > 1) cluster.sync();  // the other ranks' reads done
+}
+
+template <int BITS, int BM>
+__global__ void __launch_bounds__(S8_THREADS, 2)
+dyn_tc_kernel(const S8Args p) {
+  s8_tile<S8_DYN, BITS, BM>(p);
+}
+
+template <bool K16, int BM>
+__global__ void __launch_bounds__(S8_THREADS, BM == 128 ? 1 : 2)
+comp_tc_kernel(const S8Args p) {
+  s8_tile<K16 ? S8_COMP16 : S8_COMP32, 8, BM>(p);
+}
+
+// One s8 tile kernel over [M, N] with BM-row tiles and K split `splits`
+// ways (one cluster (1, 1, splits) a tile when splits > 1).
+template <typename Kernel>
+int launch_s8(Kernel kern, size_t smem, const S8Args& p, int bm, int splits,
+              cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.N + S8_BN - 1) / S8_BN, (p.M + bm - 1) / bm, splits);
+  cfg.blockDim = dim3(S8_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kern, p);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The compensated GEMMs' arguments of the s8 tile.
+S8Args comp_args(const void* qa, const void* qb, const void* sa,
+                 const void* za, const void* sb, const void* zb,
+                 const void* sqa, const void* sqb, const void* c, void* out,
+                 int M, int N, int K, int bs) {
+  S8Args p = {};
+  p.qa = static_cast<const int8_t*>(qa);
+  p.qb = qb;
+  p.c = static_cast<const float*>(c);
+  p.out = static_cast<float*>(out);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.sa = static_cast<const float*>(sa);
+  p.sb = static_cast<const float*>(sb);
+  p.za = static_cast<const int*>(za);
+  p.zbi = static_cast<const int*>(zb);
+  p.sqa = static_cast<const int*>(sqa);
+  p.sqb = static_cast<const int*>(sqb);
+  p.bs = bs;
+  return p;
+}
+
+// Whether K's steps split `splits` ways in ranges of whole units (`unit`
+// steps each) leave every range at least one unit, within a cluster.
+bool s8_splits_ok(int K, int unit, int splits) {
+  const int units = ((K + S8_BK - 1) / S8_BK + unit - 1) / unit;
+  return splits >= 1 && splits <= S8_MAX_SPLITS && splits <= units;
 }
 
 dim3 wo_grid(int M, int N) {
@@ -1392,30 +1607,43 @@ int launch_wo_tc(const void* a, const void* w, const float* scale,
 // launch's cudaError_t; cudaErrorInvalidValue for bad bits or shapes.
 extern "C" {
 
+// qa: int8 [M, K]; qb: int8 [N, K] or uint8 [N, K/2] (bits 4, K % 256 ==
+// 0), both 16-byte aligned; sa, rs: fp32 [M]; sb, zb: fp32 [N]; c: fp32
+// [M, N] or null; out: fp32 [M, N]; bm, splits: the tile's rows (16, 64,
+// 128) and the K splits (1..8, each at least one step of 128), as the
+// wrapper's dyn_tile chose.  Runs dyn_tc_kernel.
 int mfa_dyn_gemm(const void* qa, const void* qb, const void* sa,
                  const void* rs, const void* sb, const void* zb,
                  const void* c, void* out, int M, int N, int K, int bits,
-                 void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  if (bits == 4 && K % 256 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + DG_BN - 1) / DG_BN, (M + DG_BM - 1) / DG_BM);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* a = static_cast<const int8_t*>(qa);
-  const float* fsa = static_cast<const float*>(sa);
-  const float* frs = static_cast<const float*>(rs);
-  const float* fsb = static_cast<const float*>(sb);
-  const float* fzb = static_cast<const float*>(zb);
-  const float* fc = static_cast<const float*>(c);
-  float* o = static_cast<float*>(out);
-  if (bits == 8)
-    dyn_gemm_kernel<8><<<grid, DG_THREADS, 0, s>>>(a, qb, fsa, frs, fsb, fzb,
-                                                   fc, o, M, N, K);
-  else if (bits == 4)
-    dyn_gemm_kernel<4><<<grid, DG_THREADS, 0, s>>>(a, qb, fsa, frs, fsb, fzb,
-                                                   fc, o, M, N, K);
-  else
+                 int bm, int splits, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || !s8_splits_ok(K, 1, splits))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (bits == 4 && K % 256 != 0) return (int)cudaErrorInvalidValue;
+  S8Args p = {};
+  p.qa = static_cast<const int8_t*>(qa);
+  p.qb = qb;
+  p.c = static_cast<const float*>(c);
+  p.out = static_cast<float*>(out);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.sa = static_cast<const float*>(sa);
+  p.sb = static_cast<const float*>(sb);
+  p.rs = static_cast<const float*>(rs);
+  p.zb = static_cast<const float*>(zb);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MFA_DYN_TC(BITS, BM)                                                  \
+  if (bits == BITS && bm == BM)                                               \
+    return launch_s8(dyn_tc_kernel<BITS, BM>, s8_smem<S8_DYN, BITS, BM>(), p, \
+                     BM, splits, s);
+  MFA_DYN_TC(8, 16)
+  MFA_DYN_TC(8, 64)
+  MFA_DYN_TC(8, 128)
+  MFA_DYN_TC(4, 16)
+  MFA_DYN_TC(4, 64)
+  MFA_DYN_TC(4, 128)
+#undef MFA_DYN_TC
+  return (int)cudaErrorInvalidValue;
 }
 
 // a: bf16 [M, K]; w: the payload; scale: fp32 [N]; c: fp32 [M, N] or null;
@@ -1522,7 +1750,8 @@ int mfa_qa_gemm(const void* a, const void* b, const void* scale,
 // qa: int8 [M, K]; qb: int8 [N, K] (B^T), both 16-byte aligned; sa, sb:
 // fp32 [K/bs]; za, zb: int32 [K/bs]; sqa, sqb: int32 block sums [M, K/bs],
 // [N, K/bs]; c: fp32 [M, N] or null; out: fp32 [M, N].  bs a multiple of
-// 128 dividing K.  Runs comp_tc_kernel with 128-row tiles where they give
+// 128 dividing K.  Runs comp_tc_kernel (m16n8k32, K unsplit: bit for bit
+// with the plain version's block order) with 128-row tiles where they give
 // two CTAs for each SM, else 64-row ones.
 int mfa_comp_gemm(const void* qa, const void* qb, const void* sa,
                   const void* za, const void* sb, const void* zb,
@@ -1530,36 +1759,60 @@ int mfa_comp_gemm(const void* qa, const void* qb, const void* sa,
                   int M, int N, int K, int bs, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || bs <= 0 || bs % 128 != 0 || K % bs != 0)
     return (int)cudaErrorInvalidValue;
-  const bool wide = (long long)((M + 127) / 128) * ((N + CT_BN - 1) / CT_BN) >=
+  const bool wide = (long long)((M + 127) / 128) * ((N + S8_BN - 1) / S8_BN) >=
                     2LL * sm_count();
+  const S8Args p = comp_args(qa, qb, sa, za, sb, zb, sqa, sqb, c, out, M, N,
+                             K, bs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_COMP_TC(BM)                                                      \
-  do {                                                                       \
-    auto kern = comp_tc_kernel<BM>;                                          \
-    cudaError_t err = cudaFuncSetAttribute(                                  \
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,                   \
-        (int)comp_tc_smem<BM>());                                            \
-    if (err != cudaSuccess) return (int)err;                                 \
-    kern<<<dim3((N + CT_BN - 1) / CT_BN, (M + BM - 1) / BM), CT_THREADS,     \
-           comp_tc_smem<BM>(), s>>>(                                         \
-        static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb),      \
-        static_cast<const float*>(sa), static_cast<const int*>(za),          \
-        static_cast<const float*>(sb), static_cast<const int*>(zb),          \
-        static_cast<const int*>(sqa), static_cast<const int*>(sqb),          \
-        static_cast<const float*>(c), static_cast<float*>(out), M, N, K,     \
-        bs);                                                                 \
-  } while (0)
-  if (wide)
-    MFA_COMP_TC(128);
-  else
-    MFA_COMP_TC(64);
-#undef MFA_COMP_TC
-  return (int)cudaGetLastError();
+  return wide ? launch_s8(comp_tc_kernel<false, 128>,
+                          s8_smem<S8_COMP32, 8, 128>(), p, 128, 1, s)
+              : launch_s8(comp_tc_kernel<false, 64>,
+                          s8_smem<S8_COMP32, 8, 64>(), p, 64, 1, s);
+}
+
+// The k of the s8 products comp_tc_kernel runs for a block of bs
+// (32: m16n8k32, 16: m16n8k16), or 0 where mfa_comp_small_gemm's scalar
+// tile takes the block (bs not a multiple of 16).
+int mfa_comp_small_body(int bs) {
+  return bs <= 0 || bs % 16 != 0 ? 0 : (bs % 32 == 0 ? 32 : 16);
+}
+
+// qa: int8 [M, K]; qb: int8 [N, K] (B^T); sa, sb: fp32 [K/bs]; za, zb:
+// int32 [K/bs]; sqa, sqb: int32 block sums [M, K/bs], [N, K/bs]; c: fp32
+// [M, N] or null; out: fp32 [M, N]; bs a multiple of 16 dividing K; bm,
+// splits: the tile's rows (16, 64, 128) and the K splits (1..8, each at
+// least one unit of lcm(bs, 128) k), as the wrapper's comp_small_tile
+// chose.  Runs comp_tc_kernel.
+int mfa_comp_small_tc_gemm(const void* qa, const void* qb, const void* sa,
+                           const void* za, const void* sb, const void* zb,
+                           const void* sqa, const void* sqb, const void* c,
+                           void* out, int M, int N, int K, int bs, int bm,
+                           int splits, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || mfa_comp_small_body(bs) == 0 ||
+      K % bs != 0 || !s8_splits_ok(K, s8_unit(bs), splits))
+    return (int)cudaErrorInvalidValue;
+  const S8Args p = comp_args(qa, qb, sa, za, sb, zb, sqa, sqb, c, out, M, N,
+                             K, bs);
+  const bool k16 = mfa_comp_small_body(bs) == 16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MFA_COMP_SMALL_TC(K16, KIND, BM)                                      \
+  if (k16 == K16 && bm == BM)                                                 \
+    return launch_s8(comp_tc_kernel<K16, BM>, s8_smem<KIND, 8, BM>(), p, BM, \
+                     splits, s);
+  MFA_COMP_SMALL_TC(false, S8_COMP32, 16)
+  MFA_COMP_SMALL_TC(false, S8_COMP32, 64)
+  MFA_COMP_SMALL_TC(false, S8_COMP32, 128)
+  MFA_COMP_SMALL_TC(true, S8_COMP16, 16)
+  MFA_COMP_SMALL_TC(true, S8_COMP16, 64)
+  MFA_COMP_SMALL_TC(true, S8_COMP16, 128)
+#undef MFA_COMP_SMALL_TC
+  return (int)cudaErrorInvalidValue;
 }
 
 // qa: int8 [M, K]; qb: int8 [N, K] (B^T); sa, zsa, sb, zsb: fp32 [K] (the
 // per-block scale and z*scale expanded per element); c: fp32 [M, N] or
-// null; out: fp32 [M, N].
+// null; out: fp32 [M, N].  Runs comp_small_kernel, the scalar tile of the
+// blocks mfa_comp_small_body gives 0.
 int mfa_comp_small_gemm(const void* qa, const void* qb, const void* sa,
                         const void* zsa, const void* sb, const void* zsb,
                         const void* c, void* out, int M, int N, int K,

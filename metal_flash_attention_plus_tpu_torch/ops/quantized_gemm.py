@@ -29,15 +29,19 @@ in ``<wrapper>.launches``:
   along K with one block size.  A block size that is a multiple of 128
   takes :func:`comp_gemm` (``comp_tc_kernel``, the TPU's
   ``_comp_kernel``): integer block products on the s8 tensor cores and the
-  per-block zero-point compensation from :func:`per_row_block_sums`; smaller blocks take :func:`comp_small_gemm`
-  (``comp_small_kernel``, the TPU's ``_comp_small_kernel``): both operands
-  dequantized per element, exact fp32 products.
+  per-block zero-point compensation from :func:`per_row_block_sums`;
+  other blocks take :func:`comp_small_gemm` (the TPU's
+  ``_comp_small_kernel``, whose plain version dequantizes both operands
+  per element and sums exact fp32 products): ``comp_tc_kernel`` too for a
+  block of a multiple of 16, or ``comp_small_kernel``'s per-element
+  dequantization for the others (:func:`comp_small_body`).
 - :func:`dynamic_quantized_matmul`, W8A8 / W4A8, below.
 
 The dynamic GEMM.  A is quantized per row in the wrapper (int8
 symmetric, absmax/127, clipped to [-127, 127], and Σq per row), as the JAX
 wrapper does outside its kernel; :func:`dyn_gemm` then runs the
-integer product and the one-pass epilogue
+integer product (``dyn_tc_kernel``: s8 tensor cores, tiles and K splits of
+:func:`dyn_tile`) and the one-pass epilogue
 
     out = (float(Σ_k qa·qb) − Σqa·z_b) · (s_a·s_b)  [+ C]
 
@@ -54,6 +58,7 @@ them and the CUDA kernels choose their own.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -73,7 +78,7 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
 )
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-_DYN_ARGS = [_PTR] * 8 + [_I32] * 4 + [_PTR]
+_DYN_ARGS = [_PTR] * 8 + [_I32] * 6 + [_PTR]
 _WO_FOLDED_ARGS = [_PTR] * 5 + [_I32] * 7 + [_PTR] * 2
 _WO_ARGS = [_PTR] * 6 + [_I32] * 9 + [_PTR] * 2
 # The weight-only kernel's scale cells (csrc/quantized_gemm.cu::WoScales).
@@ -245,6 +250,32 @@ def dyn_gemm_plain(qa, qb, sa, rs, sb, zb, *, bits: int,
     return _epilogue(acc, sa, rs, sb, zb, c)
 
 
+def _s8_tile(m: int, n: int, units: int, slots: int,
+             sms: int) -> Tuple[int, int]:
+    """(rows of the s8 tile's BM × 128 tile, K splits) for [M, N] over
+    ``units`` indivisible K ranges on ``sms`` SMs: 16-row tiles for M ≤ 16
+    (decode); else 128-row tiles where they give every SM a CTA, 64-row
+    ones where they do not; K split into as many ranges (≤ 8: one cluster;
+    each ≥ 2 units) as keep to ``slots`` CTAs for each SM."""
+    cols = -(-n // 128)
+    bm = 16 if m <= 16 else (128 if -(-m // 128) * cols >= sms else 64)
+    tiles = -(-m // bm) * cols
+    return bm, max(1, min(slots * sms // tiles, 8, units // 2))
+
+
+def dyn_tile(m: int, n: int, kdim: int, sms: int) -> Tuple[int, int]:
+    """(tile rows, K splits) of ``dyn_tc_kernel`` for [M, N] over K on a
+    card of ``sms`` SMs (:func:`_s8_tile` over K's steps of 128, splits up
+    to one CTA for each SM, which ``utils/profiling.py --dyn-tiles`` found
+    as fast as two or faster at every shape of the model): the fully
+    quantized forward's M = 4096 takes 128-row tiles over most
+    projections, decode (M ≤ 16) 16-row tiles with K split but over the
+    unembedding, a prefill chunk (M = 256) 64-row tiles with K split four
+    ways where N ≤ 1024.  The splits' int32 partials add exactly, so the
+    result is the same bits whatever the plan."""
+    return _s8_tile(m, n, -(-kdim // 128), 1, sms)
+
+
 def dyn_gemm(qa, qb, sa, rs, sb, zb, *, bits: int,
              c: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The integer GEMM with its epilogue → fp32 [M, N].
@@ -252,7 +283,8 @@ def dyn_gemm(qa, qb, sa, rs, sb, zb, *, bits: int,
     qa int8 [M, K]; qb int8 [N, K] (bits 8) or group-planar uint8
     [N, K/2] (bits 4, K % 256 == 0); s_a, Σqa fp32 [M]; s_b, z_b fp32 [N];
     c fp32 [M, N] or None.  CPU tensors take :func:`dyn_gemm_plain`; CUDA
-    tensors launch ``dyn_gemm_kernel`` or raise.
+    tensors launch ``dyn_tc_kernel`` (s8 mma.sync; the tile and K splits of
+    :func:`dyn_tile`, the splits summed inside the launch) or raise.
     """
     if qa.device.type == "cpu":
         return dyn_gemm_plain(qa, qb, sa, rs, sb, zb, bits=bits, c=c)
@@ -264,10 +296,11 @@ def dyn_gemm(qa, qb, sa, rs, sb, zb, *, bits: int,
         (sa, f32, (m,)), (rs, f32, (m,)), (sb, f32, (n,)), (zb, f32, (n,)),
         (c, f32, (m, n))], aligned=(qa, qb))
     out = torch.empty((m, n), dtype=torch.float32, device=qa.device)
+    bm, splits = dyn_tile(m, n, kdim, _sm_count(qa.device))
     rc = _build.kernel_function("mfa_dyn_gemm", _DYN_ARGS)(
         qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), rs.data_ptr(),
         sb.data_ptr(), zb.data_ptr(), None if c is None else c.data_ptr(),
-        out.data_ptr(), m, n, kdim, bits,
+        out.data_ptr(), m, n, kdim, bits, bm, splits,
         torch.cuda.current_stream(qa.device).cuda_stream,
     )
     _build.check_launch(rc, "dyn_gemm")
@@ -751,6 +784,7 @@ def quantized_matmul_qa(
 # ---------------------------------------------------------------------------
 
 _COMP_ARGS = [_PTR] * 10 + [_I32] * 4 + [_PTR]
+_COMP_SMALL_TC_ARGS = [_PTR] * 10 + [_I32] * 6 + [_PTR]
 _COMP_SMALL_ARGS = [_PTR] * 8 + [_I32] * 3 + [_PTR]
 
 
@@ -799,8 +833,8 @@ def comp_gemm(qa, qb, sa, za, sb, zb, sqa, sqb, *, bs: int,
     128 dividing K; sa, sb fp32 [K/bs]; za, zb int32 [K/bs]; sqa, sqb the
     int32 block sums [M, K/bs], [N, K/bs]; c fp32 [M, N] or None.  CPU
     tensors take :func:`comp_gemm_plain`; CUDA tensors launch
-    ``comp_tc_kernel`` (the int8 products on the s8 tensor cores, bit for
-    bit with the plain version) or raise."""
+    ``comp_tc_kernel`` (the int8 products on the s8 tensor cores, K
+    unsplit, bit for bit with the plain version) or raise."""
     if qa.device.type == "cpu":
         return comp_gemm_plain(qa, qb, sa, za, sb, zb, sqa, sqb, bs=bs, c=c)
     m, kdim = qa.shape
@@ -838,12 +872,23 @@ def small_block_tile(bs: int, kdim: int) -> int:
     return base * max(1, min(512, kdim) // base)
 
 
-def comp_small_gemm_plain(qa, qb, sa, zsa, sb, zsb, *, bs: int,
+def _block_vectors(s, z, bs: int):
+    """Per-block scales s fp32 and zero points z int32 [K/bs] → the
+    per-element fp32 (s, z·s) [K] of the small-block dequantization."""
+    return (s.repeat_interleave(bs).contiguous(),
+            (z.float() * s).repeat_interleave(bs).contiguous())
+
+
+def comp_small_gemm_plain(qa, qb, sa, za, sb, zb, sqa, sqb, *, bs: int,
                           c: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`comp_small_gemm`: each operand
-    ``fma(q, s, −z·s)`` in fp32 (the fused multiply-add XLA gives the JAX
-    kernel), exact fp32 products summed per K tile of
-    :func:`small_block_tile` in the JAX kernel's order, then + C."""
+    """Plain PyTorch version of :func:`comp_small_gemm`, the JAX kernel's
+    numerics (``sqa``, ``sqb`` unread): each operand ``fma(q, s, −z·s)``
+    in fp32 (the fused multiply-add XLA gives the JAX kernel), exact fp32
+    products summed per K tile of :func:`small_block_tile` in the JAX
+    kernel's order, then + C."""
+    del sqa, sqb
+    (sa, zsa), (sb, zsb) = _block_vectors(sa, za, bs), _block_vectors(
+        sb, zb, bs)
     a = fma32(qa.float(), sa.expand(qa.shape), -zsa.expand(qa.shape))
     b = fma32(qb.float(), sb.expand(qb.shape), -zsb.expand(qb.shape))
     kdim = qa.shape[1]
@@ -856,34 +901,78 @@ def comp_small_gemm_plain(qa, qb, sa, zsa, sb, zsb, *, bs: int,
     return acc if c is None else acc + c.float()
 
 
-def comp_small_gemm(qa, qb, sa, zsa, sb, zsb, *, bs: int,
+def comp_small_body(bs: int) -> str:
+    """Which kernel :func:`comp_small_gemm` launches for a block of ``bs``:
+    "tensor_core" (``comp_tc_kernel``: s8 m16n8k32 products for a
+    multiple of 32, m16n8k16 for 16, 48, 80, ..., the compensation per
+    block) for a multiple of 16; "scalar" (``comp_small_kernel``: per-
+    element dequantization, exact fp32 products) for the other multiples
+    of 8 that ``QuantConfig`` takes.  By configuration only: no failure
+    moves a call from one to the other.  The C interface routes the same
+    way (``mfa_comp_small_body``)."""
+    return "tensor_core" if bs % 16 == 0 else "scalar"
+
+
+def comp_small_tile(m: int, n: int, kdim: int, bs: int,
+                    sms: int) -> Tuple[int, int]:
+    """(tile rows, K splits) of ``comp_tc_kernel`` (:func:`_s8_tile`
+    over K's units of lcm(bs, 128), which no block straddles; splits up to
+    two CTAs for each SM): gemm_bench's M = 4096 takes 128-row tiles, its
+    M = 128 64-row tiles with K split in two."""
+    step = bs // math.gcd(bs, 128)
+    return _s8_tile(m, n, -(-(-(-kdim // 128)) // step), 2, sms)
+
+
+def comp_small_gemm(qa, qb, sa, za, sb, zb, sqa, sqb, *, bs: int,
                     c: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The small-block compensated kernel (blocks not a multiple of 128) →
-    fp32 [M, N]: both operands dequantized per element, exact fp32
-    products, C at the store.
+    fp32 [M, N], with :func:`comp_gemm`'s arguments.
 
-    qa int8 [M, K]; qb int8 [N, K]; sa, sb the per-block scales and zsa,
-    zsb the per-block z·s, each expanded to fp32 [K]; ``bs`` the block.
-    CPU tensors take :func:`comp_small_gemm_plain`; CUDA tensors launch
-    ``comp_small_kernel`` or raise."""
+    qa int8 [M, K]; qb int8 [N, K] (Bᵀ); ``bs`` the K-block, dividing K;
+    sa, sb fp32 [K/bs]; za, zb int32 [K/bs]; sqa, sqb the int32 block sums
+    [M, K/bs], [N, K/bs] (None for the scalar route, which reads none); c
+    fp32 [M, N] or None.  CPU tensors take :func:`comp_small_gemm_plain`;
+    CUDA tensors launch the kernel of :func:`comp_small_body`
+    (``comp_tc_kernel``: integer block
+    products and the compensation per block, tile and K splits of
+    :func:`comp_small_tile`; ``comp_small_kernel``: both operands
+    dequantized per element, exact fp32 products) or raise."""
     if qa.device.type == "cpu":
-        return comp_small_gemm_plain(qa, qb, sa, zsa, sb, zsb, bs=bs, c=c)
+        return comp_small_gemm_plain(qa, qb, sa, za, sb, zb, sqa, sqb, bs=bs,
+                                     c=c)
     m, kdim = qa.shape
     n = qb.shape[0]
     if bs <= 0 or kdim % bs:
         raise ValueError(f"comp_small_gemm: block {bs} does not divide "
                          f"K={kdim}")
-    f32 = (torch.float32,)
+    nb = kdim // bs
+    i32, f32 = (torch.int32,), (torch.float32,)
     _check_gemm("comp_small_gemm", [
         (qa, (torch.int8,), (m, kdim)), (qb, (torch.int8,), (n, kdim)),
-        (sa, f32, (kdim,)), (zsa, f32, (kdim,)), (sb, f32, (kdim,)),
-        (zsb, f32, (kdim,)), (c, f32, (m, n))])
+        (sa, f32, (nb,)), (za, i32, (nb,)), (sb, f32, (nb,)),
+        (zb, i32, (nb,)), (sqa, i32, (m, nb)), (sqb, i32, (n, nb)),
+        (c, f32, (m, n))])
+    tc = comp_small_body(bs) == "tensor_core"
+    if tc and (sqa is None or sqb is None):
+        raise ValueError("comp_small_gemm: the tensor-core route needs the "
+                         "block sums sqa, sqb")
     out = torch.empty((m, n), dtype=torch.float32, device=qa.device)
-    rc = _build.kernel_function("mfa_comp_small_gemm", _COMP_SMALL_ARGS)(
-        qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), zsa.data_ptr(),
-        sb.data_ptr(), zsb.data_ptr(), None if c is None else c.data_ptr(),
-        out.data_ptr(), m, n, kdim,
-        torch.cuda.current_stream(qa.device).cuda_stream)
+    stream = torch.cuda.current_stream(qa.device).cuda_stream
+    cp = None if c is None else c.data_ptr()
+    if tc:
+        bm, splits = comp_small_tile(m, n, kdim, bs, _sm_count(qa.device))
+        rc = _build.kernel_function("mfa_comp_small_tc_gemm",
+                                    _COMP_SMALL_TC_ARGS)(
+            qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), za.data_ptr(),
+            sb.data_ptr(), zb.data_ptr(), sqa.data_ptr(), sqb.data_ptr(), cp,
+            out.data_ptr(), m, n, kdim, bs, bm, splits, stream)
+    else:
+        (s_a, zs_a), (s_b, zs_b) = (_block_vectors(sa, za, bs),
+                                    _block_vectors(sb, zb, bs))
+        rc = _build.kernel_function("mfa_comp_small_gemm", _COMP_SMALL_ARGS)(
+            qa.data_ptr(), qb.data_ptr(), s_a.data_ptr(), zs_a.data_ptr(),
+            s_b.data_ptr(), zs_b.data_ptr(), cp, out.data_ptr(), m, n, kdim,
+            stream)
     _build.check_launch(rc, "comp_small_gemm")
     comp_small_gemm.launches += 1
     return out
@@ -892,21 +981,15 @@ def comp_small_gemm(qa, qb, sa, zsa, sb, zsb, *, bs: int,
 comp_small_gemm.launches = 0
 
 
-def _expand_block_params(t: QuantizedTensor):
-    """Per-K-block (scale, z·scale) → per-element fp32 [K] vectors."""
-    bs = t.config.block_size
-    s = t.scale.reshape(-1).float()
-    zs = t.zero_point.reshape(-1).float() * s
-    return (s.repeat_interleave(bs).contiguous(),
-            zs.repeat_interleave(bs).contiguous())
-
-
 def comp_arguments(a: QuantizedTensor, b_t: QuantizedTensor,
                    c: Optional[torch.Tensor] = None):
     """The JAX dispatch of :func:`compensated_matmul` → (small, args, kw):
     ``comp_small_gemm(*args, **kw)`` when ``small`` (a block size not a
     multiple of 128), else ``comp_gemm(*args, **kw)`` (and their plain
-    versions on the same arguments).  Raises where the JAX package
+    versions on the same arguments), both with the per-block scales, int32
+    zero points and :func:`per_row_block_sums` (a read of both payloads:
+    None in their place where :func:`comp_small_body` sends the block to
+    the scalar tile, which reads no sums).  Raises where the JAX package
     asserts: int8 × int8, BLOCK granularity, one block size, one K."""
     ca, cb = a.config, b_t.config
     if a.bits != 8 or b_t.bits != 8:
@@ -925,10 +1008,6 @@ def comp_arguments(a: QuantizedTensor, b_t: QuantizedTensor,
         if tuple(c.shape) != (a.shape[0], b_t.shape[0]):
             raise ValueError(f"c must be [M, N], got {tuple(c.shape)}")
         c = c.float().contiguous()
-    kw = dict(bs=bs, c=c)
-    if bs % 128:
-        return True, (a.data, b_t.data, *_expand_block_params(a),
-                      *_expand_block_params(b_t)), kw
     nb = a.shape[1] // bs
 
     def params(t):
@@ -936,8 +1015,10 @@ def comp_arguments(a: QuantizedTensor, b_t: QuantizedTensor,
                 t.zero_point.reshape(nb).to(torch.int32).contiguous())
 
     (sa, za), (sb, zb) = params(a), params(b_t)
-    return False, (a.data, b_t.data, sa, za, sb, zb, per_row_block_sums(a),
-                   per_row_block_sums(b_t)), kw
+    small = bool(bs % 128)
+    sums = ((None, None) if small and comp_small_body(bs) == "scalar"
+            else (per_row_block_sums(a), per_row_block_sums(b_t)))
+    return small, (a.data, b_t.data, sa, za, sb, zb, *sums), dict(bs=bs, c=c)
 
 
 def compensated_matmul(
@@ -954,8 +1035,9 @@ def compensated_matmul(
 
     ``c``: an optional [M, N] added in fp32 at the store.  A block size
     that is a multiple of 128 takes :func:`comp_gemm` (integer block
-    products, the compensation per block); smaller ones (the reference's
-    16–64) take :func:`comp_small_gemm` (exact fp32 per-element dequant).
+    products, the compensation per block); others (the reference's 16–64)
+    take :func:`comp_small_gemm` (the same for a multiple of 16, exact fp32
+    per-element dequantization for the rest).
     ``block_m/n`` are the TPU's tiles, accepted and unused."""
     del block_m, block_n
     small, args, kw = comp_arguments(a, b_t, c)

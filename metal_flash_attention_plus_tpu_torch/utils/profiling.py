@@ -13,6 +13,7 @@ card.
         --quantized-backward fullint
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --gemm
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --wo-tiles
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling --dyn-tiles
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --determinism [STEPS]
 
@@ -64,6 +65,15 @@ the tile, K splits: :data:`WO_TILE_PLANS`), each forced in place of
 plan's time by CUDA events over 20 calls after 3 to warm up, and its
 kernels' device time over 20 more under the profiler (the events' time
 includes the host's launch where it is the longer).
+
+``--dyn-tiles``: the s8 tile's kernels over tile plans (rows of the tile,
+K splits: :data:`DYN_TILE_PLANS`), each forced in place of
+``ops.quantized_gemm.dyn_tile``'s or ``comp_small_tile``'s choice, which
+the output marks: the dynamic GEMM (W8A8, int8 ROW weights) at the
+flagship's projection and unembedding shapes for decode (M = 8), a
+prefill chunk (M = 256) and the fully quantized forward (M = 4096); the
+small-block compensated GEMM (BLOCK 64 CENTERED) at gemm_bench's shapes.
+Timed as ``--wo-tiles`` times its plans.
 
 ``--determinism [STEPS]``: the train step of ``--train`` run twice from
 one seeded initial state for STEPS steps (default 8) in turn, the two
@@ -598,6 +608,69 @@ def profile_wo_tiles(seed: int, iters: int = 20) -> int:
     return 0
 
 
+# The s8 tile's plans (tile rows, K splits) timed by --dyn-tiles, and the
+# flagship's (N, K) of its projections and unembedding.
+DYN_TILE_PLANS = ((16, 1), (16, 2), (16, 4), (16, 8), (64, 1), (64, 2),
+                  (64, 4), (64, 8), (128, 1), (128, 2), (128, 4))
+DYN_TILE_NK = ((1024, 1024), (256, 1024), (4096, 1024), (1024, 4096),
+               (32768, 1024))
+
+
+def _time_plans(label, run, shape, planner, fallback, plans, iters,
+                **extra) -> None:
+    """Time ``run`` with each of ``plans`` forced on the module's planner
+    ``planner`` (restored to ``fallback`` after), as --wo-tiles does."""
+    m, n, k = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for plan in plans:
+        setattr(quantized_gemm, planner, lambda *_, plan=plan: plan)
+        try:
+            for _ in range(3):
+                run()
+            ms = cuda_ms(run, iters)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    run()
+                torch.cuda.synchronize()
+        finally:
+            setattr(quantized_gemm, planner, fallback)
+        print(json.dumps({
+            "device": torch.cuda.get_device_name(0), "kernel": label,
+            "m": m, "n": n, "k": k, **extra, "tile_rows": plan[0],
+            "k_splits": plan[1], "ms": ms,
+            "device_ms": kernel_table(prof)[0] / 1e3 / iters,
+            "chosen": plan == fallback(m, n, k, *extra.values(), sms)}))
+
+
+def profile_dyn_tiles(seed: int, iters: int = 20) -> int:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for m in (8, 256, 4096):
+        a = torch.randn((m, 4096), generator=g, device="cuda").to(
+            torch.bfloat16)
+        for n, k in DYN_TILE_NK:
+            wq = quantize(torch.randn((n, k), generator=g, device="cuda"),
+                          QuantConfig(bits=8,
+                                      granularity=QuantGranularity.ROW))
+            qa, sa, rs = quantized_gemm.quantize_rows(a[:, :k])
+            sb, zb = quantized_gemm.weight_scales(wq)
+            steps = -(-k // 128)
+            plans = [p for p in DYN_TILE_PLANS
+                     if p[1] <= steps and (m > 16) == (p[0] > 16)]
+            _time_plans("dyn_gemm", lambda: quantized_gemm.dyn_gemm(
+                qa, wq.data, sa, rs, sb, zb, bits=8), (m, n, k), "dyn_tile",
+                quantized_gemm.dyn_tile, plans, iters)
+    for m, n, k in GEMM_SHAPES:
+        _, (aq, bq) = gemm_arm("compensated_small_int8_b64", m, n, k, g)
+        _, args, kw = quantized_gemm.comp_arguments(aq, bq)
+        plans = [p for p in DYN_TILE_PLANS if p[0] > 16]
+        _time_plans("comp_small_gemm",
+                    lambda: quantized_gemm.comp_small_gemm(*args, **kw),
+                    (m, n, k), "comp_small_tile",
+                    quantized_gemm.comp_small_tile, plans,
+                    iters if m <= 128 else 5, bs=64)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -618,6 +691,9 @@ def main() -> int:
                     help="profile the GEMM engine at gemm_bench's shapes")
     ap.add_argument("--wo-tiles", action="store_true",
                     help="time the weight-only kernels over tile plans")
+    ap.add_argument("--dyn-tiles", action="store_true",
+                    help="time the s8 tile's kernels (the dynamic and the "
+                    "small-block compensated GEMMs) over tile plans")
     ap.add_argument("--determinism", type=int, nargs="?", const=8,
                     metavar="STEPS",
                     help="train twice from one state and compare bit for "
@@ -630,6 +706,8 @@ def main() -> int:
         return profile_gemm(args.seed)
     if args.wo_tiles:
         return profile_wo_tiles(args.seed)
+    if args.dyn_tiles:
+        return profile_dyn_tiles(args.seed)
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
     if args.mla:

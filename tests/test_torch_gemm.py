@@ -150,12 +150,14 @@ def test_compensated_matmul_matches_jax_bit_for_bit(name):
 
 
 @pytest.mark.parametrize("bs,strategy", [(16, "centered"), (64, "centered"),
-                                         (32, "asymmetric")])
+                                         (32, "asymmetric"),
+                                         (48, "asymmetric")])
 def test_compensated_small_blocks_match_jax(bs, strategy):
-    """Blocks below 128 (the reference's 16–64) through the exact fp32
-    per-element-dequant arm; asymmetric: nonzero zero points on both
-    sides."""
-    a, bt = _data(seed=bs, shift_a=0.5, shift_b=-0.25)
+    """Blocks below 128 (the reference's 16–64, and 48, which the JAX arm
+    tiles by 384) through the exact fp32 per-element-dequant arm;
+    asymmetric: nonzero zero points on both sides."""
+    a, bt = _data(k=768 if bs == 48 else 512, seed=bs, shift_a=0.5,
+                  shift_b=-0.25)
     cfg = _cfg(gran="block", strategy=strategy, bs=bs)
     (ja, ta), (jb, tb) = _quant(a, cfg), _quant(bt, cfg)
     want = jqg.compensated_matmul(ja, jb)
@@ -163,6 +165,65 @@ def test_compensated_small_blocks_match_jax(bs, strategy):
     assert _err(got, want) <= TOLERANCES["fp32"]
     deq = tcomp.dequantized_gemm_reference(ta, tb)
     assert (got - deq).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("bs", [8, 16, 24, 32, 48, 64, 80])
+def test_comp_small_body_routes_by_block_size(bs):
+    """The small-block kernel's route, by configuration: the s8 tensor-core
+    tile for a multiple of 16 (m16n8k32 products for 32, 64; m16n8k16 for
+    16, 48, 80), the scalar per-element tile for the other multiples of 8;
+    both routes take the same argument list from ``comp_arguments``, whose
+    block sums (a read of both payloads) the scalar route, which reads
+    none, gets as None."""
+    want = "tensor_core" if bs % 16 == 0 else "scalar"
+    assert tqg.comp_small_body(bs) == want
+    a, bt = _data(m=8, k=240 * 4, n=8, seed=bs)
+    cfg = tparams.QuantConfig(bits=8, granularity=tparams.QuantGranularity(
+        "block"), strategy=tparams.QuantStrategy("centered"), block_size=bs)
+    ta, tb = (ttensor.quantize(torch.from_numpy(x), cfg) for x in (a, bt))
+    small, args, kw = tqg.comp_arguments(ta, tb)
+    assert small and kw["bs"] == bs and len(args) == 8
+    sums = args[6:]
+    if want == "scalar":
+        assert sums == (None, None)
+    else:
+        assert all(torch.equal(s, tqg.per_row_block_sums(t))
+                   for s, t in zip(sums, (ta, tb)))
+    assert torch.equal(tqg.comp_small_gemm(*args, **kw),
+                       tqg.comp_small_gemm_plain(*args, **kw))
+    # 128-row tiles at gemm_bench's M = 4096; 64-row ones, K split in two,
+    # at its M = 128 (K = 8192: 64 steps, in units of lcm(bs, 128) k)
+    assert tqg.comp_small_tile(4096, 8192, 8192, bs, 132) == (128, 1)
+    assert tqg.comp_small_tile(128, 8192, 8192, bs, 132) == (64, 2)
+
+
+@pytest.mark.parametrize("bs", [16, 32, 48])
+def test_comp_arguments_give_the_tensor_core_route_its_operands(bs):
+    """``comp_arguments`` hands the small-block tensor-core route
+    ``comp_gemm``'s operands: per-block fp32 scales and int32 zero points,
+    and the per-row block sums.  On them the plain version (the JAX
+    numerics) equals the JAX kernel at TOLERANCES["fp32"], and so does the
+    tensor-core route's own arithmetic (``comp_gemm_plain``: the exact
+    int32 compensation per block, one fp32 fused multiply-add a block),
+    under the cancellation of asymmetric zero points on both sides."""
+    k = 768
+    a, bt = _data(k=k, seed=bs + 1, shift_a=0.4, shift_b=-0.3)
+    cfg = _cfg(gran="block", strategy="asymmetric", bs=bs)
+    (ja, ta), (jb, tb) = _quant(a, cfg), _quant(bt, cfg)
+    c = np.random.default_rng(bs).standard_normal((96, 64)).astype(
+        np.float32)
+    small, args, kw = tqg.comp_arguments(ta, tb, c=torch.from_numpy(c))
+    assert small and tqg.comp_small_body(bs) == "tensor_core"
+    qa, qb, sa, za, sb, zb, sqa, sqb = args
+    assert all(t.shape == (k // bs,) for t in (sa, za, sb, zb))
+    assert sa.dtype == sb.dtype == torch.float32
+    assert za.dtype == zb.dtype == torch.int32 and bool((za != 0).any())
+    assert torch.equal(sqa, tqg.per_row_block_sums(ta))
+    assert torch.equal(sqb, tqg.per_row_block_sums(tb))
+    want = jqg.compensated_matmul(ja, jb, c=jnp.asarray(c))
+    assert _err(tqg.comp_small_gemm_plain(*args, **kw), want) <= (
+        TOLERANCES["fp32"])
+    assert _err(tqg.comp_gemm_plain(*args, **kw), want) <= TOLERANCES["fp32"]
 
 
 def test_compensated_small_block_tile_and_dequant_form():

@@ -522,6 +522,15 @@ GEMM_CASES = {
     "w4_row": (4, "row", "symmetric", 8, 256, 1024, False),
     "w4_row_centered_ragged": (4, "row", "centered", 37, 70, 512, False),
     "w4_tensor_c": (4, "tensor", "symmetric", 256, 1024, 4096, True),
+    # dyn_tile's plans: decode with K split over a cluster (int8 and int4),
+    # M = 1 over the unembedding's 256 column tiles, a prefill chunk with
+    # K split and c=, and the 128-row tiles of the fully quantized forward.
+    "w8_split_k_decode": (8, "row", "symmetric", 8, 256, 4096, False),
+    "w4_split_k_decode": (4, "row", "symmetric", 8, 256, 4096, False),
+    "w8_m1_unembed": (8, "row", "symmetric", 1, 32768, 1024, False),
+    "w8_split_k_prefill_c": (8, "row", "symmetric", 256, 256, 1024, True),
+    "w8_tile128": (8, "row", "symmetric", 4096, 1024, 1024, False),
+    "w4_tile128_centered": (4, "row", "centered", 4096, 1024, 1024, False),
 }
 
 
@@ -1524,7 +1533,32 @@ COMP_GEMM_CASES = {
     "small_b32": (32, "centered", 300, 200, 256, False),
     "small_b64_asym_c": (64, "asymmetric", 70, 130, 512, True),
     "small_b16_ragged_k": (16, "centered", 37, 70, 208, False),
+    # comp_tc_kernel's m16n8k16 blocks (48, 80) unsplit, the scalar tile's
+    # blocks (8, 24) and gemm_bench's M = 128 at K = 8192 (64-row tiles, K
+    # split in two).
+    "small_b48_k16": (48, "centered", 300, 200, 480, False),
+    "small_b80_k16_asym_c": (80, "asymmetric", 70, 130, 640, True),
+    # K split where a unit of lcm(bs, 128) k spans several steps of 128
+    # (48: 3, 80: 5, 96: 3), so ranges start mid-K on a block's start and
+    # end on a block's end: 10 units in 5 ranges, 6 in 3, and 11 in 5
+    # (ranges of 2 and 3 units).
+    "small_b48_split_asym_c": (48, "asymmetric", 64, 256, 3840, True),
+    "small_b80_split_asym_c": (80, "asymmetric", 64, 256, 3840, True),
+    "small_b96_split_uneven": (96, "centered", 64, 256, 4224, False),
+    "small_b8_scalar": (8, "centered", 37, 70, 136, False),
+    "small_b24_scalar_asym_c": (24, "asymmetric", 70, 130, 240, True),
+    "small_b64_m128_k8192": (64, "centered", 128, 1024, 8192, False),
 }
+
+
+def _kernels_run(fn):
+    """(fn's result, the names of the CUDA kernels it launched)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 @pytest.mark.cuda
@@ -1541,13 +1575,22 @@ def test_comp_gemm_kernels_match_plain(cuda_device, name):
     c = _t(rng, cuda_device, m, n) if with_c else None
     small, args, kw = qg.comp_arguments(aq, bq, c)
     assert small == name.startswith("small")
+    if "split" in name:
+        sms = torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count
+        assert qg.comp_small_tile(m, n, k, bs, sms)[1] > 1
     kernel, plain = ((qg.comp_small_gemm, qg.comp_small_gemm_plain) if small
                      else (qg.comp_gemm, qg.comp_gemm_plain))
     n0 = (qg.comp_gemm.launches, qg.comp_small_gemm.launches)
-    out = kernel(*args, **kw)
-    torch.cuda.synchronize()
+    out, ran = _kernels_run(lambda: kernel(*args, **kw))
     assert (qg.comp_gemm.launches, qg.comp_small_gemm.launches) == (
         n0[0] + (not small), n0[1] + small)
+    # the route comp_small_body names (comp_gemm: the s8 tile), and nothing
+    # else
+    tc = not small or qg.comp_small_body(bs) == "tensor_core"
+    assert tc == (bs % 16 == 0)
+    assert [any(k in name for name in ran) for k in (
+        "comp_tc_kernel<", "comp_small_kernel(")] == [tc, not tc]
     ref = plain(*args, **kw)
     assert out.dtype == F32 and out.shape == (m, n)
     if small:
@@ -1558,6 +1601,34 @@ def test_comp_gemm_kernels_match_plain(cuda_device, name):
                                 c=None if c is None else c.cpu())
     assert _rel(qg.compensated_matmul(aq, bq, c=c).cpu(), cpu) <= (
         TOLERANCES["fp32"])
+
+
+@pytest.mark.cuda
+def test_comp_small_gemm_routes_as_comp_small_body_says(cuda_device):
+    """The C interface's routing (``mfa_comp_small_body``: the k of the s8
+    products, 0 for the scalar tile) agrees with ``comp_small_body``."""
+    import ctypes
+
+    from metal_flash_attention_plus_tpu_torch import _build
+
+    body = _build.kernel_function("mfa_comp_small_body", [ctypes.c_int])
+    for bs in (8, 16, 24, 32, 40, 48, 64, 80, 96, 192):
+        tc = qg.comp_small_body(bs) == "tensor_core"
+        assert body(bs) == (0 if not tc else (32 if bs % 32 == 0 else 16))
+
+
+@pytest.mark.cuda
+def test_dyn_gemm_launches_the_s8_tile_once(cuda_device):
+    """One launch of ``dyn_tc_kernel`` per call, split K included (the
+    cluster sums the splits: no second kernel)."""
+    w = quantize(torch.randn(256, 4096, device=cuda_device), qparams.INT8_ROW)
+    qa, sa, rs = qg.quantize_rows(torch.randn(8, 4096, device=cuda_device))
+    sb, zb = qg.weight_scales(w)
+    assert qg.dyn_tile(8, 256, 4096, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)[1] > 1
+    _, ran = _kernels_run(
+        lambda: qg.dyn_gemm(qa, w.data, sa, rs, sb, zb, bits=8))
+    assert len(ran) == 1 and "dyn_tc_kernel<" in ran.pop()
 
 
 @pytest.mark.cuda

@@ -140,3 +140,47 @@ def test_rejects_what_it_does_not_take():
     w8 = ttensor.quantize(torch.ones(8, 128), tparams.INT8_ROW)
     with pytest.raises(ValueError):
         tq.dynamic_quantized_matmul(a, w8)  # K mismatch
+
+
+# (M, N, K) → dyn_tile's (tile rows, K splits) on a 132-SM card.
+DYN_TILE_PLANS = {
+    # the flagship at decode (M = 8): 16-row tiles, K split in clusters of
+    # up to 8 where the projection leaves SMs idle (K steps of 128, each
+    # range at least two), none over the unembedding's 256 tiles
+    (8, 1024, 1024): (16, 4),
+    (8, 256, 1024): (16, 4),
+    (8, 4096, 1024): (16, 4),
+    (8, 1024, 4096): (16, 8),
+    (8, 32768, 1024): (16, 1),
+    (1, 32768, 1024): (16, 1),
+    # a prefill chunk (M = 256): 64-row tiles, K split four ways where
+    # N ≤ 1024
+    (256, 1024, 1024): (64, 4),
+    (256, 4096, 1024): (64, 1),
+    (256, 256, 1024): (64, 4),
+    # the fully quantized forward (M = 4096): 128-row tiles where they fill
+    # the SMs, else 64-row ones
+    (4096, 1024, 1024): (128, 1),
+    (4096, 32768, 1024): (128, 1),
+    (4096, 256, 1024): (64, 1),
+    # MLAConfig()'s RoPE projections, gemm_bench's shapes, a ragged K
+    (8, 32, 1024): (16, 4),
+    (256, 512, 1024): (64, 4),
+    (128, 8192, 8192): (64, 1),
+    (4096, 8192, 8192): (128, 1),
+    (5, 33, 100): (16, 1),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(DYN_TILE_PLANS))
+def test_dyn_tile_splits_k_only_where_the_tiles_leave_sms_idle(shape):
+    """``dyn_tc_kernel``'s plan: 16-row tiles at decode, 128-row ones
+    where they give every SM a CTA, else 64-row ones; K split (≤ 8 ranges
+    of ≥ 2 steps, one cluster) up to one CTA for each SM."""
+    m, n, k = shape
+    bm, splits = tq.dyn_tile(m, n, k, 132)
+    assert (bm, splits) == DYN_TILE_PLANS[shape]
+    tiles = -(-m // bm) * -(-n // 128)
+    assert splits == 1 or (tiles * splits <= 132
+                           and 2 * splits <= -(-k // 128))
+
