@@ -9,7 +9,11 @@ checkout, then, on the card:
 1. device and build: the card's name and power limit, build seconds;
 2. each paged kernel against its plain PyTorch version in bf16, at the
    flagship shapes (decode also at head_dim 128; prefill at three chunk
-   offsets);
+   offsets); then, from a seventh generator (seed + 6), both in fp32 over
+   float, int8 and int4 pools at D=64 and over MLA's latent pages at
+   D=288 (bf16 pools: phases 9 (b) and 12 (a)), and the bf16 and fp32
+   decode twice on the same inputs, equal bit for bit (its KV axis is
+   split across CTAs and the splits merge in a fixed order);
 3. the flash forward, dQ and dK/dV kernels against their plain versions
    at the train shapes (B=4, Hq=16, Hkv=4, S=2048, D=64, causal) in bf16
    and fp32, and at small shapes over the rest of the mask zoo, bias,
@@ -31,7 +35,10 @@ checkout, then, on the card:
    equal bit for bit after every step (parameters and gradients) and their
    final parameters equal to the first run's;
 8. kernel, plain-version and library (SDPA) times at the engine's and the
-   train step's shapes;
+   train step's shapes (the paged decode's time covers both of its
+   launches, the split kernel and the merge; the paged kernels' and SDPA's
+   device time by the profiler beside their events, and at D=64 the
+   decode's by kernel);
 9. the quantized serving slice (inputs from a second generator, seed + 1,
    so the phases above see the same numbers as before it was added):
    (a) the dynamic W8A8/W4A8 GEMM kernel against its plain version, bit
@@ -122,9 +129,10 @@ checkout, then, on the card:
    over an int8 latent pool, on the dequantized weights (≤ 0.25); (g)
    ``ServingEngine(..., executor=mla_executor())`` serving the 8 requests,
    float and W8A8 + int8 latent, the launch counts set to 0 just before
-   and read after; (h) times of the paged kernels at MLA's geometry, the
-   flash kernels at D=288 and both GEMM kernels beside their bounds, plain
-   versions and library calls;
+   and read after; (h) times of the paged kernels at MLA's geometry (the
+   decode's split kernel and merge together; the prefill on the tensor
+   cores over the 256 kept lanes), the flash kernels at D=288 and both
+   GEMM kernels beside their bounds, plain versions and library calls;
 13. the GEMM engine (inputs from a sixth generator, seed + 5): (a) the
    quantized-A kernels (folded int8 / int4 ROW and int8 TENSOR; dequant
    ROW ASYMMETRIC, BLOCK 128 and an fp32 B) and the compensated ones
@@ -148,9 +156,10 @@ key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
 Phases 10 (f), 13 (c), 8, 11 (d) and 12 (h) log which body the quantized
 forward and the head-pair call, the quantized-A and the weight-only GEMMs
 (folded and dequantizing), the flash forward and the dQ and dK/dV kernels,
-the exact and the full-integer ones, run (``qattn_body``,
-``qa_gemm_body``, ``wo_gemm_body``, ``fwd_body``, ``dq_body``,
-``dkv_body``, ``fullint_body``: tensor cores, or fp32 FMAs / ``__dp4a``).
+the exact and the full-integer ones, and the paged kernels run
+(``qattn_body``, ``qa_gemm_body``, ``wo_gemm_body``, ``fwd_body``,
+``dq_body``, ``dkv_body``, ``fullint_body``, ``decode_body``,
+``prefill_body``: tensor cores, or fp32 FMAs / ``__dp4a``).
 
 ``--parent DIR`` (a checkout of the parent commit, e.g. ``git archive``
 into a directory ``.gitignore`` lists) also builds DIR's kernels, at once
@@ -327,10 +336,12 @@ from metal_flash_attention_plus_tpu_torch.serving.engine import (
 )
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
 from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
+    decode_body,
     paged_decode_attention,
     paged_decode_attention_plain,
     paged_prefill_attention,
     paged_prefill_attention_plain,
+    prefill_body,
 )
 from metal_flash_attention_plus_tpu_torch.utils.roofline import H100_SXM
 from metal_flash_attention_plus_tpu_torch.utils.profiling import (
@@ -413,8 +424,8 @@ QBWD_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
 # The device kernel each record entry's wrapper launches at the entry's
 # (main-path) shape.
 DEVICE_KERNELS = {
-    "paged_decode": "paged_decode_kernel",
-    "paged_prefill": "paged_prefill_kernel", "dyn_gemm": "dyn_tc_kernel",
+    "paged_decode": "paged_decode_tc_kernel",
+    "paged_prefill": "paged_prefill_tc_kernel", "dyn_gemm": "dyn_tc_kernel",
     "flash_fwd": "flash_fwd_tc_kernel", "flash_dq": "flash_dq_tc_kernel",
     "flash_dkv": "flash_dkv_tc_kernel", "qattn_fwd": "qattn_fwd_tc_kernel",
     "hpack_fwd": "qattn_fwd_tc_kernel",
@@ -430,6 +441,18 @@ DEVICE_KERNELS = {
 # comp_small_gemm's kernel for the blocks comp_small_body routes to the
 # scalar tile (not a multiple of 16; 13 (a)'s BLOCK 8 mode).
 COMP_SMALL_SCALAR = "comp_small_kernel"
+# The paged decode's second launch where its KV axis is split.
+PAGED_MERGE = "paged_decode_merge_kernel"
+# What the record says of the redesigned paged kernels.
+PAGED_REDESIGNED = {
+    "paged_decode": "split-KV over CTAs (decode_splits), a cp.async ring "
+                    "gathering token rows by page id, bf16 mma.sync for "
+                    "the bf16 instances, the splits merged in a fixed "
+                    "order by paged_decode_merge_kernel",
+    "paged_prefill": "FlashAttention-2 on bf16 mma.sync (flash_fwd_tc_"
+                     "kernel's frame), a cp.async ring gathering token rows "
+                     "by page id, P.V over the kept lanes",
+}
 
 
 def log(msg: str):
@@ -457,10 +480,13 @@ PARENT = {"lib": None, "turns": []}
 # ``mfa_wo_tc_body``) lack the out type, tile rows, K splits and workspace:
 # their kernels write fp32 and choose their own tile.  The dynamic GEMM
 # from before the s8 tile (no ``mfa_comp_small_body``) lacks the tile rows
-# and K splits: its kernel chooses its own.
+# and K splits: its kernel chooses its own.  The paged decode from before
+# the split KV axis (no ``mfa_paged_bodies``) lacks the splits and the
+# workspace.
 LEGACY_ARGS = {"mfa_wo_folded_gemm": ("mfa_wo_tc_body", 9),
                "mfa_wo_gemm": ("mfa_wo_tc_body", 12),
-               "mfa_dyn_gemm": ("mfa_comp_small_body", 12)}
+               "mfa_dyn_gemm": ("mfa_comp_small_body", 12),
+               "mfa_paged_decode": ("mfa_paged_bodies", 19)}
 
 
 @contextlib.contextmanager
@@ -645,6 +671,83 @@ def check_prefill(rng, offset):
     if not err <= KERNEL_TOL:
         raise AssertionError(f"paged prefill offset={offset} disagrees: {err}")
     return err
+
+
+def paged_pool_f32(gen, kind, hkv, num_pages, pt, d, states):
+    """An fp32 pool (``f32``), or an int8 one (``int8`` halves or one
+    state, the ``int4`` byte) with per-token scales, from ``gen`` on the
+    card → (pool, kwargs)."""
+    rows = pt if kind == "int4" else states * pt
+    shape = (hkv, num_pages + 1, rows, d)
+    if kind == "f32":
+        return torch.randn(shape, generator=gen, device=DEV), {}
+    pool = torch.randint(-128, 128, shape, generator=gen, device=DEV)
+    step = 7.0 if kind == "int4" else 127.0
+    ks, vs = ((torch.rand((hkv, num_pages + 1, 1, pt), generator=gen,
+                          device=DEV) * 1.5 + 0.5) / step for _ in range(2))
+    return pool.to(torch.int8), dict(k_scales=ks, v_scales=vs,
+                                     kv_bits=4 if kind == "int4" else 8)
+
+
+def check_paged_fp32(seed):
+    """Both paged kernels with an fp32 q (the decode on paged_decode_kernel,
+    the prefill on paged_prefill_kernel, both fp32 FMAs) against their plain
+    versions at TOLERANCES["fp32"]: float, int8 and int4 pools at the
+    flagship's geometry (D=64, phase 2's lengths; prefill of a 256-token
+    chunk at offset 300), and MLA's one-state latent pages (Hq=16 over
+    Hkv=1, D=288, v_tail_zero=32), float and int8; then the bf16 and fp32
+    decode twice on the same inputs, equal bit for bit.  Inputs from a
+    seventh generator (seed + 6) → ({label: max abs err}, {label:
+    bitwise equal})."""
+    rng = np.random.default_rng(seed + 6)
+    gen = device_generator(rng)
+    tol = TOLERANCES["fp32"]
+    pt, num_pages, max_pages, chunk, offset = 256, 256, 16, 256, 300
+    lengths = np.asarray([1, pt, pt + 1, 1800, 3 * pt + 17, 37, 1024, 4000],
+                         np.int32)
+    ln = torch.from_numpy(lengths).to(DEV)
+    errs, same = {}, {}
+    geoms = [("flagship", 16, 4, 64, 2, 0, kind)
+             for kind in ("f32", "int8", "int4")]
+    geoms += [("mla", MLA_HQ, 1, MLA_D, 1, MLA_VTZ, kind)
+              for kind in ("f32", "int8")]
+    for geom, hq, hkv, d, states, vtz, kind in geoms:
+        pool, kw = paged_pool_f32(gen, kind, hkv, num_pages, pt, d, states)
+        kw.update(page_tokens=pt, v_tail_zero=vtz)
+        table = page_tables(rng, lengths, pt, num_pages, max_pages)
+        q = torch.randn((len(lengths), hq, d), generator=gen, device=DEV)
+        label = f"decode {geom} {kind}"
+        out = paged_decode_attention(q, pool, table, ln, **kw)
+        torch.cuda.synchronize()
+        errs[label] = max_abs(out, paged_decode_attention_plain(
+            q, pool, table, ln, **kw))
+        row = page_tables(rng, [offset + chunk], pt, num_pages,
+                          max_pages)[0]
+        qp = torch.randn((hq, chunk, d), generator=gen, device=DEV)
+        out = paged_prefill_attention(qp, pool, row, offset, **kw)
+        torch.cuda.synchronize()
+        errs[f"prefill {geom} {kind}"] = max_abs(
+            out, paged_prefill_attention_plain(qp, pool, row, offset, **kw))
+    log("paged kernels, fp32 q, max abs err (tol "
+        f"{tol}; bodies {decode_body(torch.float32)} / "
+        f"{prefill_body(torch.float32, 64, 2, 0)}): " + json.dumps(errs))
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"paged kernels (fp32) disagree: {bad}")
+    for dtype in (torch.bfloat16, torch.float32):
+        pool, _ = paged_pool_f32(gen, "f32", 4, num_pages, pt, 64, 2)
+        pool = pool.to(dtype)
+        table = page_tables(rng, lengths, pt, num_pages, max_pages)
+        q = torch.randn((len(lengths), 16, 64), generator=gen,
+                        device=DEV).to(dtype)
+        outs = [paged_decode_attention(q, pool, table, ln, page_tokens=pt)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        same[str(dtype)] = torch.equal(outs[0], outs[1])
+    log("paged decode, two calls bit for bit equal: " + json.dumps(same))
+    if not all(same.values()):
+        raise AssertionError(f"paged decode is not deterministic: {same}")
+    return errs, same
 
 
 # --------------------------------------------------------------------------
@@ -1010,13 +1113,13 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """The device time of ``fn``'s kernels per call, ms: ``iters`` calls
-    under the profiler, each CUDA kernel's mean time by the launches it
-    makes a call (what the events of ``time_ms`` exceed where the host's
-    launches are the longer).  The profiler may miss launches (one of
-    three ``comp_small_gemm`` launches in this script's runs, also after
-    a spin kernel that goes first and is left out), so a kernel's
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """Each CUDA kernel's device time per call of ``fn``, ms, by the
+    profiler: ``iters`` calls under it, each kernel's mean time by the
+    launches it makes a call (what the events of ``time_ms`` exceed where
+    the host's launches are the longer).  The profiler may miss launches
+    (one of three ``comp_small_gemm`` launches in this script's runs, also
+    after a spin kernel that goes first and is left out), so a kernel's
     launches a call are its traced ones over ``iters``, rounded up: fewer
     than ``iters`` misses of a kernel leave the time whole."""
     with torch.profiler.profile(
@@ -1025,11 +1128,17 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(
-        e.self_device_time_total / e.count * -(-e.count // iters)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and "spin_kernel" not in e.key and e.count) / 1e3
+    return {e.key: e.self_device_time_total / e.count
+            * -(-e.count // iters) / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.key and e.count}
+
+
+def device_ms(fn, iters: int) -> float:
+    """The device time of ``fn``'s kernels per call, ms
+    (:func:`device_ms_by_kernel` summed)."""
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def dense_kv(pool, row, n, pt):
@@ -1064,7 +1173,11 @@ def time_decode(rng, lengths, d=64):
              "library_ms": time_ms(library, 100)}
     times["plain_ms_2"] = time_ms(plain, 10)
     times["ms_2"] = time_ms(kernel, 100)
-    parent_turns(f"paged_decode D={d}", times, kernel, 100)
+    times["device_ms"] = device_ms(kernel, 100)
+    times["library_device_ms"] = device_ms(library, 100)
+    if d == 64:
+        times["device_ms_by_kernel"] = device_ms_by_kernel(kernel, 100)
+    parent_turns(f"paged_decode D={d}", times, kernel, 100, device=True)
     live = int(lengths.sum())
     nbytes = (live * hkv * 2 * d * 2  # live K and V, bf16
               + 2 * b * hq * d * 2  # q in, out
@@ -1101,7 +1214,10 @@ def time_prefill(rng, offset):
              "library_ms": time_ms(library, 50)}
     times["plain_ms_2"] = time_ms(plain, 10)
     times["ms_2"] = time_ms(kernel, 50)
-    parent_turns(f"paged_prefill offset {offset}", times, kernel, 50)
+    times["device_ms"] = device_ms(kernel, 50)
+    times["library_device_ms"] = device_ms(library, 50)
+    parent_turns(f"paged_prefill offset {offset}", times, kernel, 50,
+                 device=True)
     # What this chunk needs: row c sees offset + c + 1 columns.
     visible = chunk * offset + chunk * (chunk + 1) // 2
     flops = 4 * hq * d * visible
@@ -1432,6 +1548,10 @@ def time_decode_quantized(rng, lengths, bits, d=64):
     times = {"plain_ms": time_ms(plain, 10), "ms": time_ms(kernel, 100),
              "library_ms": time_ms(library, 100)}
     times["ms_2"] = time_ms(kernel, 100)
+    times["device_ms"] = device_ms(kernel, 100)
+    times["library_device_ms"] = device_ms(library, 100)
+    parent_turns(f"paged_decode int{bits} D={d}", times, kernel, 100,
+                 device=True)
     live = int(lengths.sum())
     nbytes = (live * kv_token_bytes(bits, hkv, d) + 2 * b * hq * d * 2
               + table.numel() * 4 + b * 4)
@@ -1461,6 +1581,10 @@ def time_prefill_quantized(rng, offset, bits):
     times = {"plain_ms": time_ms(plain, 10), "ms": time_ms(kernel, 50),
              "library_ms": time_ms(library, 50)}
     times["ms_2"] = time_ms(kernel, 50)
+    times["device_ms"] = device_ms(kernel, 50)
+    times["library_device_ms"] = device_ms(library, 50)
+    parent_turns(f"paged_prefill int{bits} offset {offset}", times, kernel,
+                 50, device=True)
     visible = chunk * offset + chunk * (chunk + 1) // 2
     nbytes = (n * kv_token_bytes(bits, hkv, d) + 2 * hq * chunk * d * 2
               + row.numel() * 4)
@@ -2792,6 +2916,14 @@ def time_mla_paged(rng, lengths):
             q4, k, v, attn_mask=mask, enable_gqa=True, scale=MLA_SCALE), 50)}
     dec["ms_2"] = time_ms(lambda: paged_decode_attention(q, pool, table, ln,
                                                          **kw), 50)
+    dec["device_ms"] = device_ms(
+        lambda: paged_decode_attention(q, pool, table, ln, **kw), 50)
+    dec["library_device_ms"] = device_ms(
+        lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask, enable_gqa=True, scale=MLA_SCALE), 50)
+    parent_turns("paged_decode MLA D=288", dec,
+                 lambda: paged_decode_attention(q, pool, table, ln, **kw), 50,
+                 device=True)
     live = int(lengths.sum())
     dec["bound_ms"], dec["bound_by"] = bound_of(
         2 * hq * live * (d + dv),
@@ -2814,6 +2946,15 @@ def time_mla_paged(rng, lengths):
             scale=MLA_SCALE), 20)}
     pf["ms_2"] = time_ms(lambda: paged_prefill_attention(q, pool, row, offset,
                                                          **kw), 20)
+    pf["device_ms"] = device_ms(
+        lambda: paged_prefill_attention(q, pool, row, offset, **kw), 20)
+    pf["library_device_ms"] = device_ms(
+        lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=mask, enable_gqa=True,
+            scale=MLA_SCALE), 20)
+    parent_turns(f"paged_prefill MLA D=288 offset {offset}", pf,
+                 lambda: paged_prefill_attention(q, pool, row, offset, **kw),
+                 20, device=True)
     visible = chunk * offset + chunk * (chunk + 1) // 2
     pf["bound_ms"], pf["bound_by"] = bound_of(
         2 * hq * visible * (d + dv),
@@ -3265,6 +3406,7 @@ def main() -> int:
     err_dec = check_decode(rng, 64)
     err_dec128 = check_decode(rng, 128)
     err_pf = max(check_prefill(rng, off) for off in (0, 512, 300))
+    paged_fp32_errs, paged_same = check_paged_fp32(args.seed)
     phase_s["kernels"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -3348,14 +3490,41 @@ def main() -> int:
          "library_ms_d128": d128_t["library_ms"],
          "ms": dec_t["ms"], "plain_ms": dec_t["plain_ms"],
          "bound_ms": dec_bound, "bound_by": dec_by,
-         "library_ms": dec_t["library_ms"]},
+         "library_ms": dec_t["library_ms"],
+         "replaces_also": f"{TPU_FILE}:65",
+         "ms_covers": "the split kernel and " + PAGED_MERGE,
+         "device_ms": dec_t["device_ms"],
+         "device_ms_d128": d128_t["device_ms"],
+         "library_device_ms": dec_t["library_device_ms"],
+         "library_device_ms_d128": d128_t["library_device_ms"],
+         "device_ms_by_kernel": dec_t["device_ms_by_kernel"],
+         "device_kernel_merge": PAGED_MERGE,
+         "device_kernel_fp32": "paged_decode_kernel",
+         "bitwise_equal_two_calls": paged_same,
+         "body": decode_body(torch.bfloat16),
+         "redesigned": PAGED_REDESIGNED["paged_decode"],
+         **{f"parent_turns_{kind}{tag}": t[f"parent_turns_{kind}"]
+            for tag, t in (("", dec_t), ("_d128", d128_t))
+            for kind in ("ms", "device_ms") if f"parent_turns_{kind}" in t}},
         {"name": "paged_prefill", "route": "cuda", "source": SOURCE,
          "replaces": f"{TPU_FILE}:306",
          "launches": launches["paged_prefill"], "max_abs_err": err_pf,
          "ms": pf_t["ms"], "plain_ms": pf_t["plain_ms"],
          "bound_ms": pf_bound, "bound_by": pf_by,
-         "library_ms": pf_t["library_ms"]},
+         "library_ms": pf_t["library_ms"],
+         "device_ms": pf_t["device_ms"],
+         "library_device_ms": pf_t["library_device_ms"],
+         "device_kernel_fp32": "paged_prefill_kernel",
+         "body": prefill_body(torch.bfloat16, 64, 2, 0),
+         "redesigned": PAGED_REDESIGNED["paged_prefill"],
+         **{f"parent_turns_{kind}": pf_t[f"parent_turns_{kind}"]
+            for kind in ("ms", "device_ms") if f"parent_turns_{kind}" in pf_t}},
     ]}
+    for entry in record["kernels"]:
+        kind = entry["name"].split("_")[1]
+        entry["max_abs_err_fp32"] = {
+            k.split(" ", 1)[1]: v for k, v in paged_fp32_errs.items()
+            if k.startswith(kind)}
     # The paged kernels' int8 / int4 modes, from phase 9.
     for entry, kind in zip(record["kernels"], ("decode", "prefill")):
         for bits in (8, 4):
@@ -3367,7 +3536,9 @@ def main() -> int:
                     f"{kind}_int{bits}"],
                 **{f"{key}_int{bits}": qt[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")},
+                    "library_ms", "device_ms", "library_device_ms",
+                    "parent_turns_ms", "parent_turns_device_ms")
+                if key in qt},
             })
     g8, g8p, g8q = (quant["times"][f"dyn_gemm_w8_m{m}"]
                     for m in (8, 256, QFWD_M))
@@ -3417,7 +3588,12 @@ def main() -> int:
             "rel_err_mla": max(e[0] for e in errs_k),
             "max_abs_err_mla": max(e[1] for e in errs_k),
             **{f"{key}_mla": mt[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "library_device_ms", "parent_turns_ms",
+                "parent_turns_device_ms") if key in mt},
+            "body_mla": (decode_body(torch.bfloat16) if kind == "decode"
+                         else prefill_body(torch.bfloat16, MLA_D, 1,
+                                           MLA_VTZ)),
         })
     mla_flash = mla["flash_errors"]
     for name, t in flash_t.items():

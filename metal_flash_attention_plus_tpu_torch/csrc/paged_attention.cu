@@ -3,8 +3,11 @@
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
 //   - serving/paged_attention.py::_decode_kernel_streamed and ::_decode_kernel
-//     (one function, two TPU schedules chosen by head_dim) -> paged_decode_kernel
-//   - serving/paged_attention.py::_prefill_kernel -> paged_prefill_kernel
+//     (one function, two TPU schedules chosen by head_dim) ->
+//     paged_decode_tc_kernel (bf16) and paged_decode_kernel (fp32), each
+//     followed by paged_decode_merge_kernel where the KV axis is split
+//   - serving/paged_attention.py::_prefill_kernel -> paged_prefill_tc_kernel
+//     (bf16, where prefill_tc says so) and paged_prefill_kernel (the rest)
 //
 // Pool layouts (one layer of serving/kv_cache.py's pool, or of the MLA
 // latent pool of models/cached_mla.py), MODE of the kernels' template:
@@ -19,15 +22,17 @@
 //     (byte & 0xF) - 8, V the arithmetic shift byte >> 4; scales as int8.
 // V_TAIL_ZERO (vtz): V reads K's rows with its last vtz lanes zeroed (the
 // rope tail of an MLA latent state, so one pool serves both sides).  The
-// kernels stage V whole and store 0 in O's last vtz lanes instead: each O
-// lane depends on its own V lane only, so the kept lanes are the same.
+// kernels compute O only over the kept lanes [0, D - vtz) and store 0 in
+// the last vtz: each O lane depends on its own V lane only.
 // Page ids come from int32 tables; an id is clamped into the pool so a bad
 // entry cannot read outside it.  Each token's scale is read by its page id,
 // which serves both TPU decode schedules (per-page scales in the streamed
 // one, scales densified by the wrapper in the wave one).
-// Head dims: D is a template constant for 32, 64, 128 and 288 (MLA's
-// 256 + 32), and a run-time value (any multiple of 16 up to 288) in the
-// DC = 0 instances.
+// Head dims: any multiple of 16 up to 288.  The tensor-core kernels are
+// built for the widths DP = 32, 64, 128, 256 and 288 (MLA's 256 + 32) and
+// run a head dim D <= DP with their loops cut at D; the scalar kernels take
+// D as a template constant for 32, 64, 128 and 288, and as a run-time
+// value in their DC = 0 instances.
 //
 // Numerics, shared with the plain PyTorch versions in
 // serving/paged_attention.py so the two can be held to a tight tolerance:
@@ -41,51 +46,92 @@
 //   - quantized modes: p *= vs[token]; then P is rounded to T before P.V
 //     with the integer V (float mode: P rounded to T, V in T);
 //   - the P.V sum is fp32 and the output is acc / l in T.
+// The tensor-core kernels round P against the running max of their own
+// 64-token tiles (and, in the decode, of their own split of the KV axis),
+// where the plain versions take the row's global max: the same effect as
+// the tensor-core forwards' tile boundaries (csrc/flash_attention.cu),
+// covered by the bf16 gate.
 //
 // Paged decode: what bounds it on the H100, and the design.
 //   One query token per sequence against its whole cache: 2 flops per KV
 //   element, far below the ~295 flop/byte ridge, so the bound is the live
 //   KV bytes over 3.35 TB/s: 4*D bytes per token and KV head in bf16 (2*D
 //   with one-state pages); in int8 half of that plus 8 bytes of scales; in
-//   int4 a quarter plus the same 8 bytes.  One CTA per (sequence, KV head,
-//   slice of the GQA group) holds up to 2048 / D of the group's query rows
-//   (q head h -> kv head h / group), so each KV byte is read once per slice:
-//   once for the flagship (group 4 x D 64), three times for MLA (group 16 x
-//   D 288, Hkv = 1), whose slices also triple the CTAs of its one KV head.
-//   The CTA walks the live tokens, ceil(length / 64) tiles of 64 tokens,
-//   reading its own page ids; each tile's K and V rows are staged in shared
-//   memory as fp32 with coalesced 16-byte loads (int8 and int4 widened while
-//   staging; padded rows, no bank conflicts in the score loop) and consumed
-//   by scalar fp32 FMAs.  Tiles of 64 tokens rather than whole pages keep
-//   shared memory under 160 KB for any page size, D = 288 and fp32 alike.
-//   Known limit: at batch 8 x 4 KV heads this is 32 CTAs on 132 SMs, and
-//   each CTA loads then computes with no overlap; the kernel is latency
-//   bound, well short of the byte bound, so the quantized modes' fewer bytes
-//   move its time little.  Split-KV (flash-decoding) and cp.async/TMA double
-//   buffering are the planned fixes.
+//   int4 a quarter plus the same 8 bytes.  At the engine's batch (8
+//   sequences x 4 KV heads, or 8 x 1 for MLA) one CTA per (sequence, KV
+//   head) fills a quarter of the 132 SMs and each waits on its own loads,
+//   so the KV axis is split across CTAs (flash-decoding): the grid is
+//   (KV head x group slice, sequence, split), each split a fixed range of
+//   `per` tokens of the table's capacity, planned on the host from shapes
+//   alone (serving/paged_attention.py::decode_splits: two 64-token tiles
+//   a split, more where the grid would pass eight CTAs an SM; 32 splits,
+//   1024 CTAs, at the engine's batch), so no length is read back: each
+//   CTA is a short chain of tile loads, and many chains keep the loads in
+//   flight that one long chain would wait on.  A split past its
+//   sequence's length writes an empty partial (m = -inf, l = 0) and exits.
+//   Each split leaves its unnormalised partial (m, l, O) in an fp32
+//   workspace [B, Hq, splits, D + 2]; paged_decode_merge_kernel, a second
+//   launch, a CTA per query row, sums the splits in split order (weights
+//   exp(m_s - max m), no atomics), so a call's result does not depend on
+//   the order the CTAs ran in.  One split (a one-page table) writes O
+//   directly and skips the merge.
+//   The whole GQA group (up to 16 query rows; a larger group is sliced into
+//   16-row slices) shares one CTA, so each KV byte is read once per split.
+//   - bf16 (paged_decode_tc_kernel, 4 warps): the tile's 64 token rows are
+//     gathered through their page ids into a cp.async ring of two to four
+//     stages (decode_stages), 16 bytes a thread, one token row at a time
+//     (any page size); int8 and
+//     int4 payloads land as bytes and are widened into bf16 rows in shared
+//     memory (exact: |x| <= 128).  The group's rows, zero-padded to 16,
+//     are the A operand of bf16 mma.sync m16n8k16 into fp32: S = Q.K^T with
+//     warp w taking tokens [16w, 16w + 16) (ks applied to S, the mask,
+//     the tile's row max and sums exchanged through shared memory), then P
+//     (times vs, rounded to bf16) from shared memory against V read by
+//     ldmatrix.trans for O += P.V, whose 16-lane column blocks are dealt
+//     to the warps (at most 5 a warp at D = 288, so nothing spills).  With
+//     one-state pages one staged tile serves as K and V, and P.V runs over
+//     the ceil((D - vtz) / 16) blocks of kept lanes only (256 for MLA).
+//   - fp32 (paged_decode_kernel, 8 warps): the same grid, split and ring
+//     (32-token tiles, fp32 rows), products by scalar fp32 FMAs: TF32
+//     would keep ~3 digits against the 2e-5 gate.
 //
 // Paged chunked prefill: what bounds it on the H100, and the design.
 //   A chunk of C queries of one sequence against its cached prefix plus its
-//   own causal triangle: 4*Hq*C*(offset+C)*D flops over ~(offset+C)*Hkv*2*D
-//   elements of KV, i.e. compute bound at the engine's C = 256 (989 TFLOP/s
-//   bf16 tensor cores) in every pool mode.  This first version does the
-//   products with scalar fp32 FMAs (67 TFLOP/s peak), so it cannot reach
-//   that bound; it is the right-and-simple step before wgmma/TMA.  One CTA
-//   per (64-row tile of the group-major rows r = g*C + c, KV head); the
-//   rows of one KV head are contiguous in q [Hq, C, D], so the tile is one
-//   strided block.  The CTA walks 64-token KV tiles up to its own causal
-//   limit (global positions: column <= offset + (r mod C)), skipping the
-//   tiles no row of it can see.  Q, K and P are staged transposed in shared
-//   memory so each thread's 4x4 score block and 4 x D/16 output block read
-//   16-byte vectors.  Above D = 128, K^T and V share one buffer (V staged
-//   after the scores), which keeps D = 288 at 171 KB of shared memory.
+//   own causal triangle: 4*Hq*D flops per visible query-key pair (plus 2 *
+//   D more per pair over the cached bytes, ~(offset+C)*Hkv*2*D elements),
+//   i.e. compute bound on the tensor cores (989 TFLOP/s bf16) at the
+//   engine's C = 256 in every pool mode.  The rows of one KV head are the
+//   group-major rows r = g*C + c, contiguous in q [Hq, C, D]; causality is
+//   in global positions (column <= offset + (r mod C)).
+//   - bf16 up to D = 256, and MLA's D = 288 with one-state pages whose
+//     kept lanes D - vtz fit 256 (paged_prefill_tc_kernel; prefill_tc, and
+//     serving/paged_attention.py::prefill_body): FlashAttention-2 on
+//     mma.sync, flash_fwd_tc_kernel's frame: one CTA per (64 rows, KV head),
+//     the row tiles walked last first, 4 warps x 16 rows, S and O in
+//     fragments; each 64-token KV tile is gathered through the page row
+//     into a cp.async ring of two to four stages (prefill_stages; payload
+//     bytes widened into bf16 rows as in the decode; one tile a stage with
+//     one-state pages); tiles no
+//     row of the CTA sees are not visited, tiles every row of a warp sees
+//     skip the mask selects, and P.V runs over the kept lanes only (MLA:
+//     256, as flash_fwd_tc_kernel's D = 256).  Known limit: at the
+//     engine's chunk (C = 256 over 4 KV heads, or 16 heads over MLA's one)
+//     that is 64 CTAs on 132 SMs, each a chain of up to 12 tiles, so the
+//     tiles' latency, not the tensor cores, sets its time.
+//   - fp32, and the other bf16 shapes (paged_prefill_kernel): scalar fp32
+//     FMAs on 256 threads, a 4 x 4 score block a thread; Q, K and P staged
+//     transposed in shared memory as fp32 so each thread's rows and columns
+//     are 16-byte vectors; above D = 128, K^T and V share one buffer (V
+//     staged after the scores), which keeps D = 288 at 171 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -94,11 +140,1095 @@ using mfa::Elem;
 constexpr int KV_FLOAT = 0;
 constexpr int KV_INT8 = 1;
 constexpr int KV_INT4 = 2;
-constexpr int MAX_D = 288;  // the run-time head dim's limit (DC = 0)
+constexpr int MAX_D = 288;  // the largest head dim
 
 __device__ __forceinline__ int clamp_page(int page, int num_pages_total) {
   return min(max(page, 0), num_pages_total - 1);
 }
+
+// Where a token's rows lie in the pool: page rows (S_SUB * PT, or PT for
+// the int4 byte), V's row offset within the page (0 when K is V), V's
+// zeroed tail lanes and the page's states (S_SUB; 1 for the int4 byte).
+struct PoolGeom {
+  int PT, rows, v_row, vtz, ss;
+};
+
+template <int MODE>
+PoolGeom pool_geom(int PT, int s_sub, int vtz) {
+  const int ss = MODE == KV_INT4 ? 1 : s_sub;
+  return PoolGeom{PT, ss * PT, (ss - 1) * PT, vtz, ss};
+}
+
+// Whether a prefill of dtype (0 = float32, 1 = bfloat16) at head dim D
+// over pages of s_sub states with vtz zeroed V lanes runs
+// paged_prefill_tc_kernel (else paged_prefill_kernel): bf16 where D <= 256,
+// or where one-state pages leave D - vtz <= 256 lanes for P.V.  The bf16
+// decode always runs paged_decode_tc_kernel, fp32 paged_decode_kernel.
+// serving/paged_attention.py::prefill_body and ::decode_body answer the
+// same.
+bool prefill_tc(int dtype, int D, int s_sub, int vtz) {
+  return dtype == 1 && (D <= 256 || (s_sub == 1 && D - vtz <= 256));
+}
+
+// The tensor-core kernels' built width for a head dim D.
+int tc_width(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 288;
+}
+
+using mfa::launch_with_smem;
+
+// ---------------------------------------------------------------------------
+// Staging: token rows through their page ids, payloads widened
+// ---------------------------------------------------------------------------
+
+// cp.async the rows of tokens [t0, t0 + NTOK) of one KV head into dst:
+// each token's `halves` rows of row_bytes (1: its K row, which is V too,
+// or its int4 byte; 2: K's row, then V's half_stride bytes on), dst_ld
+// bytes apart; tokens from `lim` are zeros.  NT threads; warp w stages
+// tokens [w * TPW, (w + 1) * TPW): lane j < TPW reads token j's page id
+// once (clamped into the pool) and works out its pool row, which the
+// warp's 16-byte copies take by shuffle, consecutive lanes on consecutive
+// chunks of a row (a copy's token by a multiply-high: the index is below
+// 2^16, so the rounded-up reciprocal divides exactly).  With kscale, the
+// tokens' K and V scales (zeros from `lim`) go to sc[0, NTOK) and
+// sc[NTOK, 2 NTOK).
+template <int NT, int NTOK>
+__device__ __forceinline__ void stage_tokens(
+    const uint8_t* __restrict__ kv, const int32_t* __restrict__ table_row,
+    size_t head_base, int num_pages_total, const PoolGeom& pg, int halves,
+    int row_bytes, int t0, int lim, uint8_t* dst, int dst_ld,
+    int half_stride, const float* kscale, const float* vscale, float* sc) {
+  constexpr int TPW = NTOK / (NT / 32);
+  static_assert(TPW >= 1 && TPW <= 32, "a warp stages 1 to 32 tokens");
+  const int lane = threadIdx.x & 31;
+  const int tw = (threadIdx.x >> 5) * TPW;
+  const int my_pos = t0 + tw + lane;
+  const bool my_ok = lane < TPW && my_pos < lim;
+  size_t my_row = 0;  // the token's K row in the pool (rows of row_bytes)
+  if (my_ok) {
+    const int page = clamp_page(table_row[my_pos / pg.PT], num_pages_total);
+    const int off = my_pos % pg.PT;
+    my_row = (head_base + page) * pg.rows + off;
+    if (kscale != nullptr) {
+      const size_t at = (head_base + page) * pg.PT + off;
+      mfa::cp_async4(sc + tw + lane, kscale + at, 4);
+      mfa::cp_async4(sc + NTOK + tw + lane, vscale + at, 4);
+    }
+  } else if (kscale != nullptr && lane < TPW) {
+    mfa::cp_async4(sc + tw + lane, kscale, 0);
+    mfa::cp_async4(sc + NTOK + tw + lane, vscale, 0);
+  }
+  const int cpr = row_bytes >> 4;  // 16-byte chunks a row
+  const int per_tok = halves * cpr;
+  const int total = TPW * per_tok;
+  const uint32_t magic = 0xFFFFFFFFu / (uint32_t)per_tok + 1u;
+  const uint32_t row_lo = (uint32_t)my_row;
+  const uint32_t row_hi = (uint32_t)(my_row >> 32);
+  for (int base = 0; base < total; base += 32) {
+    const int i = base + lane;
+    const int j = min((int)__umulhi((uint32_t)i, magic), TPW - 1);
+    const size_t row =
+        (size_t)__shfl_sync(0xffffffffu, row_lo, j) |
+        (size_t)__shfl_sync(0xffffffffu, row_hi, j) << 32;
+    const bool ok = __shfl_sync(0xffffffffu, my_ok ? 1 : 0, j) != 0;
+    if (i < total) {
+      const int rem = i - j * per_tok;
+      const int hf = rem >= cpr ? 1 : 0;
+      const int c = rem - hf * cpr;
+      const uint8_t* src =
+          kv + (row + hf * pg.v_row) * (size_t)row_bytes + c * 16;
+      mfa::cp_async16(dst + hf * half_stride + (tw + j) * dst_ld + c * 16,
+                      src, ok ? 16 : 0);
+    }
+  }
+}
+
+// 16 payload bytes (one 16-byte chunk of a row) as floats: k the int8
+// values (KV_INT8), or of the int4 bytes the K nibbles (low, minus 8) and
+// v the V nibbles (the signed high ones).  On the FP32 pipe (mma.cuh's
+// byte tricks): exact, and off the conversion unit.
+template <int E>
+__device__ __forceinline__ float u8_minus8(uint32_t x) {
+  return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7650 | E)) -
+         8388616.0f;
+}
+
+template <int MODE>
+__device__ __forceinline__ void widen16(const uint4& u, float (&k)[16],
+                                        float (&v)[16]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if constexpr (MODE == KV_INT4) {
+      const uint32_t lo = w[q] & 0x0F0F0F0Fu;
+      const uint32_t hi = ((w[q] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      k[4 * q] = u8_minus8<0>(lo);
+      k[4 * q + 1] = u8_minus8<1>(lo);
+      k[4 * q + 2] = u8_minus8<2>(lo);
+      k[4 * q + 3] = u8_minus8<3>(lo);
+      v[4 * q] = u8_minus8<0>(hi);
+      v[4 * q + 1] = u8_minus8<1>(hi);
+      v[4 * q + 2] = u8_minus8<2>(hi);
+      v[4 * q + 3] = u8_minus8<3>(hi);
+    } else {
+      const uint32_t x = w[q] ^ 0x80808080u;
+      k[4 * q] = mfa::s8_f32<0>(x);
+      k[4 * q + 1] = mfa::s8_f32<1>(x);
+      k[4 * q + 2] = mfa::s8_f32<2>(x);
+      k[4 * q + 3] = mfa::s8_f32<3>(x);
+    }
+  }
+}
+
+// Staged payload rows [NTOK][raw_ld] (`halves` of them, raw_half bytes
+// apart) -> rows of the operand tiles dst ([NTOK][dst_ld], K then V
+// dst_half bytes on): int8 halves as they are, the int4 byte as its K
+// nibble into the K tile and its V nibble into the V tile; bf16 rows
+// (BF16) or fp32 rows.  D / 16 chunks a row, NT threads.
+template <int MODE, bool BF16, int NT, int NTOK>
+__device__ __forceinline__ void widen_rows(const uint8_t* raw, int raw_ld,
+                                           int raw_half, int halves, int D,
+                                           uint8_t* dst, int dst_ld,
+                                           int dst_half) {
+  const int cpr = D >> 4;
+  const int per_half = NTOK * cpr;
+  for (int i = threadIdx.x; i < halves * per_half; i += NT) {
+    const int hf = i >= per_half ? 1 : 0;
+    const int rem = i - hf * per_half;
+    const int r = rem / cpr;
+    const int c = rem - r * cpr;
+    const uint4 u =
+        *reinterpret_cast<const uint4*>(raw + hf * raw_half + r * raw_ld +
+                                        c * 16);
+    float k[16], v[16];
+    widen16<MODE>(u, k, v);
+    const int nout = MODE == KV_INT4 ? 2 : 1;
+#pragma unroll
+    for (int o = 0; o < nout; ++o) {
+      const float* f = o ? v : k;
+      uint8_t* d = dst + (hf + o) * dst_half + r * dst_ld;
+      if constexpr (BF16) {
+        uint4* p = reinterpret_cast<uint4*>(d + c * 32);
+        p[0] = make_uint4(mfa::pack_bf16_exact(f[0], f[1]),
+                          mfa::pack_bf16_exact(f[2], f[3]),
+                          mfa::pack_bf16_exact(f[4], f[5]),
+                          mfa::pack_bf16_exact(f[6], f[7]));
+        p[1] = make_uint4(mfa::pack_bf16_exact(f[8], f[9]),
+                          mfa::pack_bf16_exact(f[10], f[11]),
+                          mfa::pack_bf16_exact(f[12], f[13]),
+                          mfa::pack_bf16_exact(f[14], f[15]));
+      } else {
+        float4* p = reinterpret_cast<float4*>(d + c * 64);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = make_float4(f[4 * e], f[4 * e + 1], f[4 * e + 2],
+                             f[4 * e + 3]);
+      }
+    }
+  }
+}
+
+// bf16 rows in place, 16-byte chunks `cpr` a row: x -> round_bf16(x *
+// scale), as (float(q) * scale) -> bf16 (bf16_bits gives cvt.rn's bits on
+// the FP32 pipe); NT threads.
+template <int NT>
+__device__ __forceinline__ void scale_rows(uint8_t* tile, int ld, int rows,
+                                           int cpr, float scale) {
+  for (int i = threadIdx.x; i < rows * cpr; i += NT) {
+    uint4* p = reinterpret_cast<uint4*>(tile + (i / cpr) * ld +
+                                        (i % cpr) * 16);
+    uint4 u = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lo = __fmul_rn(__uint_as_float(w[e] << 16), scale);
+      const float hi = __fmul_rn(__uint_as_float(w[e] & 0xFFFF0000u), scale);
+      w[e] = __byte_perm(mfa::bf16_bits(lo), mfa::bf16_bits(hi), 0x7632);
+    }
+    *p = u;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernels' shared pieces
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 128;  // 4 warps
+constexpr int TK = 64;           // KV tokens a tile
+constexpr int PROW = 2 * TK + 16;  // a bf16 row of P [16][64]
+
+// The stages of a tensor-core kernel's cp.async ring at width DP: as many
+// as keep a CTA's shared memory within the card's 227 KB at every pool
+// layout it takes (the prefill at 288: one-state pages only).  A chain of
+// tiles waits on each tile's loads less the deeper the ring: the decode's
+// splits and the prefill's 64 CTAs are such chains.
+template <int DP>
+__host__ __device__ constexpr int decode_stages() {
+  return DP <= 64 ? 4 : DP <= 128 ? 3 : 2;
+}
+template <int DP>
+__host__ __device__ constexpr int prefill_stages() {
+  return DP <= 64 ? 4 : DP == 256 ? 2 : 3;
+}
+
+// Byte offsets of a tensor-core kernel's shared memory: an NS-stage ring
+// of staged token rows ([NS][halves][TK][stage_ld]: the bf16 operand rows
+// of a float pool, else payload bytes), the widened bf16 operand tiles of
+// a quantized pool ([nkv][TK][ROW]), Q ([q_rows][ROW]), the decode's P
+// ([16][PROW]), the scales ([NS][2][TK] fp32) and the decode's row
+// statistics ([2][4][16] fp32).
+struct TcLayout {
+  int halves, nkv, stage_ld;
+  int conv, q, p, sc, red, bytes;
+};
+
+template <int DP, int MODE, int NS>
+__host__ __device__ __forceinline__ TcLayout tc_layout(int ss, int q_rows,
+                                                       bool decode) {
+  constexpr int ROW = 2 * DP + 16;
+  TcLayout L;
+  L.halves = MODE == KV_INT4 ? 1 : ss;
+  L.nkv = MODE == KV_INT4 ? 2 : ss;
+  L.stage_ld = MODE == KV_FLOAT ? ROW : DP + 16;
+  L.conv = NS * L.halves * TK * L.stage_ld;
+  L.q = L.conv + (MODE == KV_FLOAT ? 0 : L.nkv * TK * ROW);
+  L.p = L.q + q_rows * ROW;
+  L.sc = L.p + (decode ? 16 * PROW : 0);
+  L.red = L.sc + NS * 2 * TK * (int)sizeof(float);
+  L.bytes = L.red + (decode ? 2 * 4 * 16 * (int)sizeof(float) : 0);
+  return L;
+}
+
+// acc[j] += A[ar0, ar0 + 16) . B[br0 + 8j, br0 + 8j + 8)^T over the first
+// 16 * kc_n lanes (kc_n <= KCM): bf16 row tiles whose rows hold k (A_LD,
+// B_LD bytes a row), both read by ldmatrix; NB even.
+template <int KCM, int NB, int A_LD, int B_LD>
+__device__ __forceinline__ void mma_qk(const uint8_t* A, int ar0,
+                                       const uint8_t* B, int br0, int kc_n,
+                                       float (&acc)[NB][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint8_t* ap =
+      A + (ar0 + mfa::ldsm_a_row(lane)) * A_LD + mfa::ldsm_a_byte(lane);
+  const uint8_t* bp =
+      B + (br0 + mfa::ldsm_b_row(lane)) * B_LD + mfa::ldsm_b_byte(lane);
+#pragma unroll
+  for (int kc = 0; kc < KCM; ++kc) {
+    if (kc < kc_n) {
+      uint32_t af[4];
+      mfa::ldsm_x4(af, ap + kc * 32);
+#pragma unroll
+      for (int j2 = 0; j2 < NB / 2; ++j2) {
+        uint32_t bf[4];
+        mfa::ldsm_x4(bf, bp + j2 * 16 * B_LD + kc * 32);
+        mfa::mma_bf16(acc[2 * j2], af, bf[0], bf[1], acc[2 * j2]);
+        mfa::mma_bf16(acc[2 * j2 + 1], af, bf[2], bf[3], acc[2 * j2 + 1]);
+      }
+    }
+  }
+}
+
+// acc[0..1] += A . V[k0, k0 + 16)[16 cb, 16 cb + 16): A one m16n8k16 A
+// fragment (16 rows x 16 tokens), V a bf16 row tile [token][lane] (ROW
+// bytes a row) read by ldmatrix.trans.
+template <int ROW>
+__device__ __forceinline__ void mma_pv(const uint32_t (&af)[4],
+                                       const uint8_t* V, int k0, int cb,
+                                       float (&acc0)[4], float (&acc1)[4]) {
+  const int lane = threadIdx.x & 31;
+  uint32_t bf[4];
+  mfa::ldsm_x4_t(bf, V + (k0 + mfa::ldsm_t_k(lane)) * ROW +
+                         (16 * cb + mfa::ldsm_t_n(lane)) * 2);
+  mfa::mma_bf16(acc0, af, bf[0], bf[1], acc0);
+  mfa::mma_bf16(acc1, af, bf[2], bf[3], acc1);
+}
+
+// ---------------------------------------------------------------------------
+// Decode
+// ---------------------------------------------------------------------------
+
+struct DecodeArgs {
+  const void* q;
+  const void* kv;
+  const float* kscale;
+  const float* vscale;
+  const int32_t* table;
+  const int32_t* lengths;
+  void* out;
+  float* ws;  // [B, Hq, splits, D + 2]: m, l, O of each split (splits > 1)
+  int Hq, G, gc, gslices, D, num_pages_total, max_pages, splits, per;
+  PoolGeom pg;
+  float scale;
+};
+
+// Replaces serving/paged_attention.py::_decode_kernel_streamed and
+// ::_decode_kernel for a bf16 q.  Bound: the live KV bytes (see above).
+template <int DP, int MODE>
+__global__ void __launch_bounds__(TC_THREADS)
+paged_decode_tc_kernel(const DecodeArgs a) {
+  constexpr bool QUANT = MODE != KV_FLOAT;
+  constexpr int ROW = 2 * DP + 16;
+  constexpr int KCM = DP / 16;
+  constexpr int NCH = (DP / 16 + 3) / 4;  // 16-lane O blocks a warp, at most
+  constexpr int NS = decode_stages<DP>();
+  extern __shared__ __align__(16) uint8_t smem[];
+  const PoolGeom pg = a.pg;
+  const TcLayout L = tc_layout<DP, MODE, NS>(pg.ss, 16, true);
+  const int D = a.D;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int h = blockIdx.x / a.gslices;
+  const int g0 = (blockIdx.x % a.gslices) * a.gc;
+  const int gn = min(a.gc, a.G - g0);
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_tok = min(a.lengths[b], a.max_pages * pg.PT);
+  const int t_begin = split * a.per;
+  const int t_end = min(t_begin + a.per, n_tok);
+  const size_t qrow0 = (size_t)b * a.Hq + (size_t)h * a.G + g0;
+  const size_t part_ld = (size_t)a.splits * (D + 2);
+  float* part = a.splits > 1
+                    ? a.ws + (qrow0 * a.splits + split) * (size_t)(D + 2)
+                    : nullptr;
+  if (a.splits > 1 && t_begin >= t_end) {  // past the sequence: empty
+    if (tid < gn) {
+      part[tid * part_ld] = -INFINITY;
+      part[tid * part_ld + 1] = 0.f;
+    }
+    return;
+  }
+  uint8_t* sq = smem + L.q;
+  uint8_t* sp = smem + L.p;
+  float* ssc = reinterpret_cast<float*>(smem + L.sc);
+  float* red = reinterpret_cast<float*>(smem + L.red);  // [2][4][16]
+  const int ring_stage = L.halves * TK * L.stage_ld;
+  const size_t head_base = (size_t)h * a.num_pages_total;
+  auto stage = [&](int t0, int buf) {
+    stage_tokens<TC_THREADS, TK>(
+        static_cast<const uint8_t*>(a.kv), a.table + (size_t)b * a.max_pages,
+        head_base, a.num_pages_total, pg, L.halves, QUANT ? D : 2 * D, t0,
+        t_end, smem + buf * ring_stage, L.stage_ld, TK * L.stage_ld,
+        QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * TK);
+  };
+
+  // The group's q rows, zero rows up to 16, scaled and rounded in place.
+  const int qc = D / 8;  // 16-byte chunks a q row
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + qrow0 * D;
+  for (int i = tid; i < 16 * qc; i += TC_THREADS) {
+    const int r = i / qc;
+    const int c = i - r * qc;
+    const bool ok = r < gn;
+    mfa::cp_async16(sq + r * ROW + c * 16,
+                    qb + (size_t)(ok ? r : 0) * D + c * 8, ok ? 16 : 0);
+  }
+  mfa::cp_async_commit();
+  for (int k = 0; k < NS - 1; ++k) {  // tiles 0 .. NS - 2, a group each
+    if (t_begin + k * TK < t_end) stage(t_begin + k * TK, k);
+    mfa::cp_async_commit();
+  }
+  mfa::cp_async_wait<NS - 1>();
+  __syncthreads();  // q landed
+  scale_rows<TC_THREADS>(sq, ROW, 16, qc, a.scale);
+
+  const int v_keep = D - pg.vtz;
+  const int nchunks = (v_keep + 15) / 16;  // 16-lane O blocks computed
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NCH][2][4];
+#pragma unroll
+  for (int k = 0; k < NCH; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[k][0][e] = acc[k][1][e] = 0.f;
+
+  for (int t0 = t_begin, buf = 0; t0 < t_end;
+       t0 += TK, buf = buf + 1 == NS ? 0 : buf + 1) {
+    mfa::cp_async_wait<NS - 2>();
+    __syncthreads();  // this tile staged, q scaled; the last tile's
+                      // readers done with its stage
+    if (t0 + (NS - 1) * TK < t_end)
+      stage(t0 + (NS - 1) * TK, buf == 0 ? NS - 1 : buf - 1);
+    mfa::cp_async_commit();
+    const uint8_t* sk = smem + buf * ring_stage;
+    if constexpr (QUANT) {
+      widen_rows<MODE, true, TC_THREADS, TK>(sk, L.stage_ld, TK * L.stage_ld,
+                                             L.halves, D, smem + L.conv, ROW,
+                                             TK * ROW);
+      __syncthreads();
+      sk = smem + L.conv;
+    }
+    const uint8_t* sv = L.nkv == 2 ? sk + TK * ROW : sk;
+    const float* ksc = ssc + buf * 2 * TK;
+    const float* vsc = ksc + TK;
+
+    // S for this warp's 16 tokens: element (row g + 8i, token 16 warp + 8j
+    // + 2tq + c) at s[j][2i + c].
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mma_qk<KCM, 2, ROW, ROW>(sq, 0, sk, 16 * warp, D / 16, s);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tl = 16 * warp + 8 * j + 2 * tq + (e & 1);
+        float x = s[j][e];
+        if (QUANT) x *= ksc[tl];
+        x = t0 + tl < t_end ? x : -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      if (tq == 0) red[warp * 16 + g + 8 * i] = mx[i];
+    }
+    __syncthreads();  // the warps' row maxima
+    float alpha[2], mref[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = g + 8 * i;
+      const float tm = fmaxf(fmaxf(red[r], red[16 + r]),
+                             fmaxf(red[32 + r], red[48 + r]));
+      const float m_next = fmaxf(m[i], tm);
+      alpha[i] = m[i] == -INFINITY ? 0.f : __expf(m[i] - m_next);
+      mref[i] = m_next == -INFINITY ? 0.f : m_next;
+      m[i] = m_next;
+    }
+    // P = exp(s - m): l sums it before the V scale; P.V takes it times vs,
+    // rounded to bf16, from shared memory.
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int tl = 16 * warp + 8 * j + 2 * tq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float p0 = __expf(s[j][2 * i] - mref[i]);
+        float p1 = __expf(s[j][2 * i + 1] - mref[i]);
+        sum[i] += p0 + p1;
+        if (QUANT) {
+          p0 *= vsc[tl];
+          p1 *= vsc[tl + 1];
+        }
+        *reinterpret_cast<uint32_t*>(sp + (g + 8 * i) * PROW + 2 * tl) =
+            mfa::pack_bf16(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      if (tq == 0) red[64 + warp * 16 + g + 8 * i] = sum[i];
+    }
+    __syncthreads();  // P and the warps' row sums
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 64 + g + 8 * i;
+      l[i] = alpha[i] * l[i] +
+             (((red[r] + red[16 + r]) + red[32 + r]) + red[48 + r]);
+    }
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+      for (int k = 0; k < NCH; ++k)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          acc[k][n][0] *= alpha[0];
+          acc[k][n][1] *= alpha[0];
+          acc[k][n][2] *= alpha[1];
+          acc[k][n][3] *= alpha[1];
+        }
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mfa::ldsm_x4(pa[kk], sp + mfa::ldsm_a_row(lane) * PROW + kk * 32 +
+                               mfa::ldsm_a_byte(lane));
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int cb = warp + 4 * k;
+      if (cb < nchunks) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_pv<ROW>(pa[kk], sv, 16 * kk, cb, acc[k][0], acc[k][1]);
+      }
+    }
+  }
+  mfa::cp_async_wait<0>();
+
+  if (a.splits == 1) {
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) + qrow0 * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = g + 8 * i;
+      if (r >= gn) continue;
+      const float li = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        const int cb = warp + 4 * k;
+        if (cb >= nchunks) continue;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int d = 16 * cb + 8 * n + 2 * tq;
+          *reinterpret_cast<uint32_t*>(ob + (size_t)r * D + d) =
+              mfa::pack_bf16(d < v_keep ? acc[k][n][2 * i] / li : 0.f,
+                             d + 1 < v_keep ? acc[k][n][2 * i + 1] / li : 0.f);
+        }
+      }
+    }
+    const int zl = D - 16 * nchunks;  // lanes past the computed blocks
+    for (int i = tid; i < gn * zl; i += TC_THREADS)
+      ob[(size_t)(i / zl) * D + 16 * nchunks + i % zl] = __float2bfloat16(0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = g + 8 * i;
+      if (r >= gn) continue;
+      float* pr = part + r * part_ld;
+      if (warp == 0 && tq == 0) {
+        pr[0] = m[i];
+        pr[1] = l[i];
+      }
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        const int cb = warp + 4 * k;
+        if (cb >= nchunks) continue;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          *reinterpret_cast<float2*>(pr + 2 + 16 * cb + 8 * n + 2 * tq) =
+              make_float2(acc[k][n][2 * i], acc[k][n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// q_row . k_row over n4 float4s, the products summed in lane order; fully
+// unrolled when the head dim DC is a compile-time constant.
+template <int DC>
+__device__ __forceinline__ float row_dot(const float4* a, const float4* b,
+                                         int n4) {
+  float s = 0.f;
+  auto step = [&](int c) {
+    const float4 x = a[c];
+    const float4 y = b[c];
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s);
+    s = fmaf(x.w, y.w, s);
+  };
+  if constexpr (DC != 0) {
+#pragma unroll
+    for (int c = 0; c < DC / 4; ++c) step(c);
+  } else {
+#pragma unroll 8
+    for (int c = 0; c < n4; ++c) step(c);
+  }
+  return s;
+}
+
+constexpr int SC_THREADS = 256;  // 8 warps
+constexpr int SC_TK = 32;        // KV tokens a tile
+constexpr int SC_MAX_OUT = 18;   // outputs a thread: 16 rows x 288 lanes
+
+// The stages of paged_decode_kernel's ring at head dim DC (0: run time,
+// up to 288), as decode_stages: within 227 KB for two-state fp32 pages.
+template <int DC>
+__host__ __device__ constexpr int sc_stages() {
+  return DC != 0 && DC <= 64 ? 4 : DC == 128 ? 3 : 2;
+}
+
+// Byte offsets of paged_decode_kernel's shared memory: the ring of staged
+// rows ([NS][halves][SC_TK][stage_ld]: fp32 rows of D + 4 floats for a
+// float pool, else payload bytes), the widened fp32 K and V tiles of a
+// quantized pool, q [gc][D], P [gc][SC_TK], m, l, alpha [gc] and the
+// scales [NS][2][SC_TK].
+struct ScLayout {
+  int halves, nkv, stage_ld, conv, q, p, stats, sc, bytes;
+};
+
+template <int MODE, int NS>
+__host__ __device__ __forceinline__ ScLayout sc_layout(int D, int ss,
+                                                       int gc) {
+  const int row = (D + 4) * (int)sizeof(float);
+  ScLayout L;
+  L.halves = MODE == KV_INT4 ? 1 : ss;
+  L.nkv = MODE == KV_INT4 ? 2 : ss;
+  L.stage_ld = MODE == KV_FLOAT ? row : D + 16;
+  L.conv = NS * L.halves * SC_TK * L.stage_ld;
+  L.q = L.conv + (MODE == KV_FLOAT ? 0 : L.nkv * SC_TK * row);
+  L.p = L.q + gc * D * (int)sizeof(float);
+  L.stats = L.p + gc * SC_TK * (int)sizeof(float);
+  L.sc = L.stats + ((3 * gc + 3) / 4) * 4 * (int)sizeof(float);
+  L.bytes = L.sc + NS * 2 * SC_TK * (int)sizeof(float);
+  return L;
+}
+
+// Replaces serving/paged_attention.py::_decode_kernel_streamed and
+// ::_decode_kernel for an fp32 q: paged_decode_tc_kernel's grid, splits and
+// ring over 32-token tiles of fp32 rows, the products by scalar fp32 FMAs.
+template <int DC, int MODE>
+__global__ void __launch_bounds__(SC_THREADS)
+paged_decode_kernel(const DecodeArgs a) {
+  constexpr bool QUANT = MODE != KV_FLOAT;
+  constexpr int NS = sc_stages<DC>();
+  extern __shared__ __align__(16) uint8_t smem[];
+  const PoolGeom pg = a.pg;
+  const int D = DC ? DC : a.D;
+  const int KS = D + 4;  // floats a staged row
+  const ScLayout L = sc_layout<MODE, NS>(D, pg.ss, a.gc);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int h = blockIdx.x / a.gslices;
+  const int g0 = (blockIdx.x % a.gslices) * a.gc;
+  const int gn = min(a.gc, a.G - g0);
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_tok = min(a.lengths[b], a.max_pages * pg.PT);
+  const int t_begin = split * a.per;
+  const int t_end = min(t_begin + a.per, n_tok);
+  const size_t qrow0 = (size_t)b * a.Hq + (size_t)h * a.G + g0;
+  const size_t part_ld = (size_t)a.splits * (D + 2);
+  float* part = a.splits > 1
+                    ? a.ws + (qrow0 * a.splits + split) * (size_t)(D + 2)
+                    : nullptr;
+  if (a.splits > 1 && t_begin >= t_end) {  // past the sequence: empty
+    if (tid < gn) {
+      part[tid * part_ld] = -INFINITY;
+      part[tid * part_ld + 1] = 0.f;
+    }
+    return;
+  }
+  float* qs = reinterpret_cast<float*>(smem + L.q);   // [gc][D]
+  float* ps = reinterpret_cast<float*>(smem + L.p);   // [gc][SC_TK]
+  float* m_s = reinterpret_cast<float*>(smem + L.stats);
+  float* l_s = m_s + a.gc;
+  float* a_s = l_s + a.gc;
+  float* ssc = reinterpret_cast<float*>(smem + L.sc);
+  const int ring_stage = L.halves * SC_TK * L.stage_ld;
+  const size_t head_base = (size_t)h * a.num_pages_total;
+  auto stage = [&](int t0, int buf) {
+    stage_tokens<SC_THREADS, SC_TK>(
+        static_cast<const uint8_t*>(a.kv), a.table + (size_t)b * a.max_pages,
+        head_base, a.num_pages_total, pg, L.halves, QUANT ? D : 4 * D, t0,
+        t_end, smem + buf * ring_stage, L.stage_ld, SC_TK * L.stage_ld,
+        QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * SC_TK);
+  };
+  for (int k = 0; k < NS - 1; ++k) {  // tiles 0 .. NS - 2, a group each
+    if (t_begin + k * SC_TK < t_end) stage(t_begin + k * SC_TK, k);
+    mfa::cp_async_commit();
+  }
+
+  const float* qb = static_cast<const float*>(a.q) + qrow0 * D;
+  for (int i = tid; i < gn * D; i += SC_THREADS) qs[i] = qb[i] * a.scale;
+  for (int g = tid; g < gn; g += SC_THREADS) {
+    m_s[g] = -INFINITY;
+    l_s[g] = 0.f;
+  }
+  float acc[SC_MAX_OUT];
+#pragma unroll
+  for (int k = 0; k < SC_MAX_OUT; ++k) acc[k] = 0.f;
+  const int n_out = gn * D;
+
+  for (int t0 = t_begin, buf = 0; t0 < t_end;
+       t0 += SC_TK, buf = buf + 1 == NS ? 0 : buf + 1) {
+    mfa::cp_async_wait<NS - 2>();
+    __syncthreads();  // this tile staged; the last tile's readers done
+    if (t0 + (NS - 1) * SC_TK < t_end)
+      stage(t0 + (NS - 1) * SC_TK, buf == 0 ? NS - 1 : buf - 1);
+    mfa::cp_async_commit();
+    const uint8_t* st = smem + buf * ring_stage;
+    if constexpr (QUANT) {
+      widen_rows<MODE, false, SC_THREADS, SC_TK>(
+          st, L.stage_ld, SC_TK * L.stage_ld, L.halves, D, smem + L.conv,
+          KS * 4, SC_TK * KS * 4);
+      __syncthreads();
+      st = smem + L.conv;
+    }
+    const float* kt = reinterpret_cast<const float*>(st);
+    const float* vt = L.nkv == 2 ? kt + SC_TK * KS : kt;
+    const float* ksc = ssc + buf * 2 * SC_TK;
+    const float* vsc = ksc + SC_TK;
+
+    for (int i = tid; i < gn * SC_TK; i += SC_THREADS) {
+      const int g = i / SC_TK;
+      const int t = i % SC_TK;
+      float s = row_dot<DC>(reinterpret_cast<const float4*>(qs + g * D),
+                            reinterpret_cast<const float4*>(kt + t * KS),
+                            D / 4);
+      if (QUANT) s *= ksc[t];
+      ps[i] = (t0 + t < t_end) ? s : -INFINITY;
+    }
+    __syncthreads();
+
+    for (int g = warp; g < gn; g += SC_THREADS / 32) {
+      float* pr = ps + g * SC_TK;
+      const float s0 = pr[lane];
+      float mx = s0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_prev = m_s[g];
+      const float m_next = fmaxf(m_prev, mx);
+      const float alpha = (m_prev == -INFINITY) ? 0.f : expf(m_prev - m_next);
+      const float p0 = (s0 == -INFINITY) ? 0.f : expf(s0 - m_next);
+      float sum = p0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      pr[lane] = QUANT ? p0 * vsc[lane] : p0;
+      __syncwarp();
+      if (lane == 0) {
+        m_s[g] = m_next;
+        l_s[g] = alpha * l_s[g] + sum;
+        a_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int k = 0; k < SC_MAX_OUT; ++k) {
+      const int o = tid + k * SC_THREADS;
+      if (o < n_out) {
+        const int g = o / D;
+        const int d = o % D;
+        const float* pr = ps + g * SC_TK;
+        float pv = 0.f;
+#pragma unroll 8
+        for (int t = 0; t < SC_TK; ++t) pv = fmaf(pr[t], vt[t * KS + d], pv);
+        acc[k] = acc[k] * a_s[g] + pv;
+      }
+    }
+  }
+  mfa::cp_async_wait<0>();
+  __syncthreads();  // m_s, l_s final
+
+  const int v_keep = D - pg.vtz;
+  float* ob = static_cast<float*>(a.out) + qrow0 * D;
+#pragma unroll
+  for (int k = 0; k < SC_MAX_OUT; ++k) {
+    const int o = tid + k * SC_THREADS;
+    if (o >= n_out) continue;
+    const int g = o / D;
+    const int d = o % D;
+    if (a.splits == 1) {
+      const float l = l_s[g] == 0.f ? 1.f : l_s[g];
+      ob[o] = d < v_keep ? acc[k] / l : 0.f;
+    } else {
+      part[g * part_ld + 2 + d] = acc[k];
+    }
+  }
+  if (a.splits > 1 && tid < gn) {
+    part[tid * part_ld] = m_s[tid];
+    part[tid * part_ld + 1] = l_s[tid];
+  }
+}
+
+constexpr int MERGE_THREADS = 128;
+
+// One CTA per query row: its splits' partials -> O = sum_s w_s O_s /
+// sum_s w_s l_s, w_s = exp(m_s - max m).  The splits that hold tokens of
+// the row's sequence are a prefix (each split a range of positions from
+// 0), found as those whose m is not -inf; the sums run over them in split
+// order (l by every thread alike, each O lane by one thread, its loads
+// independent of each other), so the result is the same bits on every
+// call.  Lanes from v_keep are 0.
+template <typename T>
+__global__ void __launch_bounds__(MERGE_THREADS)
+paged_decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ out,
+                          int splits, int D, int v_keep) {
+  extern __shared__ float wl[];  // [splits] weights, then [splits] l
+  __shared__ float red_m[MERGE_THREADS / 32];
+  __shared__ int red_n[MERGE_THREADS / 32];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t ld = (size_t)D + 2;
+  const float* p = ws + (size_t)blockIdx.x * splits * ld;
+  float mx = -INFINITY;
+  int live = 0;
+  for (int s = tid; s < splits; s += MERGE_THREADS) {
+    const float ms = p[s * ld];
+    if (ms != -INFINITY) {
+      mx = fmaxf(mx, ms);
+      live = s + 1;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    live = max(live, __shfl_xor_sync(0xffffffffu, live, o));
+  }
+  if (lane == 0) {
+    red_m[warp] = mx;
+    red_n[warp] = live;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < MERGE_THREADS / 32; ++w) {
+    mx = fmaxf(mx, red_m[w]);
+    live = max(live, red_n[w]);
+  }
+  for (int s = tid; s < live; s += MERGE_THREADS) {
+    wl[s] = expf(p[s * ld] - mx);
+    wl[splits + s] = p[s * ld + 1];
+  }
+  __syncthreads();
+  float lsum = 0.f;
+  for (int s = 0; s < live; ++s) lsum = fmaf(wl[s], wl[splits + s], lsum);
+  T* o = out + (size_t)blockIdx.x * D;
+  for (int d = tid; d < D; d += MERGE_THREADS) {
+    float acc = 0.f;
+    if (d < v_keep) {
+      const float* pd = p + 2 + d;
+#pragma unroll 4
+      for (int s = 0; s < live; ++s) acc = fmaf(wl[s], pd[s * ld], acc);
+    }
+    Elem<T>::store(o + d, lsum > 0.f ? acc / lsum : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Chunked prefill on the tensor cores
+// ---------------------------------------------------------------------------
+
+struct PrefillArgs {
+  const void* q;
+  const void* kv;
+  const float* kscale;
+  const float* vscale;
+  const int32_t* page_row;
+  void* out;
+  int Hq, Hkv, C, D, num_pages_total, max_pages, offset;
+  PoolGeom pg;
+  float scale;
+};
+
+// Replaces serving/paged_attention.py::_prefill_kernel for a bf16 q where
+// prefill_tc says so.  Bound: tensor-core operations (4*D per visible
+// query-key pair).
+template <int DP, int MODE>
+__global__ void __launch_bounds__(TC_THREADS)
+paged_prefill_tc_kernel(const PrefillArgs a) {
+  constexpr bool QUANT = MODE != KV_FLOAT;
+  constexpr int ROW = 2 * DP + 16;
+  constexpr int KCM = DP / 16;
+  constexpr int DVP = DP > 256 ? 256 : DP;  // P.V lanes, at most
+  constexpr int NB = DVP / 8;
+  constexpr int NS = prefill_stages<DP>();
+  extern __shared__ __align__(16) uint8_t smem[];
+  const PoolGeom pg = a.pg;
+  const TcLayout L = tc_layout<DP, MODE, NS>(pg.ss, 64, false);
+  const int D = a.D;
+  const int C = a.C;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int rows = (a.Hq / a.Hkv) * C;
+  // The last row tiles first: they see the most keys.
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * 64;
+  const int h = blockIdx.y;
+  const size_t head_row0 = (size_t)h * rows;
+  uint8_t* sq = smem + L.q;
+  float* ssc = reinterpret_cast<float*>(smem + L.sc);
+  const int ring_stage = L.halves * TK * L.stage_ld;
+  const size_t head_base = (size_t)h * a.num_pages_total;
+
+  const int r_last = min(r0 + 64, rows) - 1;
+  const int c_max = (r0 / C == r_last / C) ? (r_last % C) : (C - 1);
+  const int kv_end = min(a.offset + c_max + 1, a.max_pages * pg.PT);
+  auto stage = [&](int t0, int buf) {
+    stage_tokens<TC_THREADS, TK>(
+        static_cast<const uint8_t*>(a.kv), a.page_row, head_base,
+        a.num_pages_total, pg, L.halves, QUANT ? D : 2 * D, t0, kv_end,
+        smem + buf * ring_stage, L.stage_ld, TK * L.stage_ld,
+        QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * TK);
+  };
+
+  const int qc = D / 8;
+  const __nv_bfloat16* qh =
+      static_cast<const __nv_bfloat16*>(a.q) + head_row0 * D;
+  for (int i = tid; i < 64 * qc; i += TC_THREADS) {
+    const int r = i / qc;
+    const int c = i - r * qc;
+    const bool ok = r0 + r < rows;
+    mfa::cp_async16(sq + r * ROW + c * 16,
+                    qh + (size_t)(ok ? r0 + r : 0) * D + c * 8, ok ? 16 : 0);
+  }
+  mfa::cp_async_commit();
+  for (int k = 0; k < NS - 1; ++k) {  // tiles 0 .. NS - 2, a group each
+    if (k * TK < kv_end) stage(k * TK, k);
+    mfa::cp_async_commit();
+  }
+  mfa::cp_async_wait<NS - 1>();
+  __syncthreads();  // Q landed
+  scale_rows<TC_THREADS>(sq, ROW, 64, qc, a.scale);
+
+  // Row i of this thread's fragments: r0 + 16 warp + g + 8i; its last
+  // visible column (padding rows see every column: their O is not stored).
+  int row[2], lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = r0 + 16 * warp + g + 8 * i;
+    lim[i] = row[i] < rows ? a.offset + row[i] % C : kv_end - 1;
+  }
+  // Columns [0, w_lo] are visible in every row of this warp, none past
+  // w_hi in any.
+  int w_lo = min(lim[0], lim[1]), w_hi = max(lim[0], lim[1]);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    w_lo = min(w_lo, __shfl_xor_sync(0xffffffffu, w_lo, off));
+    w_hi = max(w_hi, __shfl_xor_sync(0xffffffffu, w_hi, off));
+  }
+  const int v_keep = D - pg.vtz;
+  const int npairs = (v_keep + 15) / 16;  // 16-lane O blocks computed
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+
+  for (int t0 = 0, buf = 0; t0 < kv_end;
+       t0 += TK, buf = buf + 1 == NS ? 0 : buf + 1) {
+    mfa::cp_async_wait<NS - 2>();
+    __syncthreads();  // this tile staged, Q scaled; the last tile's
+                      // readers done with its stage
+    if (t0 + (NS - 1) * TK < kv_end)
+      stage(t0 + (NS - 1) * TK, buf == 0 ? NS - 1 : buf - 1);
+    mfa::cp_async_commit();
+    const uint8_t* sk = smem + buf * ring_stage;
+    if constexpr (QUANT) {
+      widen_rows<MODE, true, TC_THREADS, TK>(sk, L.stage_ld, TK * L.stage_ld,
+                                             L.halves, D, smem + L.conv, ROW,
+                                             TK * ROW);
+      __syncthreads();
+      sk = smem + L.conv;
+    }
+    if (t0 > w_hi) continue;  // no row of this warp sees the tile
+    const uint8_t* sv = L.nkv == 2 ? sk + TK * ROW : sk;
+    const float* ksc = ssc + buf * 2 * TK;
+    const float* vsc = ksc + TK;
+
+    // S = Q_s.K^T for this warp's 16 rows and the tile's 64 tokens: element
+    // (row[i], token t0 + 8j + 2tq + c) at s[j][2i + c].
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mma_qk<KCM, 8, ROW, ROW>(sq, 16 * warp, sk, 0, D / 16, s);
+    if (QUANT) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 k2 =
+            *reinterpret_cast<const float2*>(ksc + 8 * j + 2 * tq);
+        s[j][0] *= k2.x;
+        s[j][1] *= k2.y;
+        s[j][2] *= k2.x;
+        s[j][3] *= k2.y;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (t0 + TK - 1 <= w_lo && t0 + TK <= kv_end) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = t0 + 8 * j + 2 * tq + (e & 1);
+          float& x = s[j][e];
+          x = (col > lim[e >> 1] || col >= kv_end) ? -INFINITY : x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
+    float alpha[2], mref[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_next = fmaxf(m[i], mx[i]);
+      alpha[i] = m[i] == -INFINITY ? 0.f : __expf(m[i] - m_next);
+      mref[i] = m_next == -INFINITY ? 0.f : m_next;
+      m[i] = m_next;
+    }
+    // P = exp(s - m): l sums it before the V scale; P.V takes it times vs,
+    // rounded to bf16 (cvt.rn.bf16x2 while packing the A fragments).
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float2 v2 = make_float2(1.f, 1.f);
+      if (QUANT) v2 = *reinterpret_cast<const float2*>(vsc + 8 * j + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(s[j][e] - mref[e >> 1]);
+        sum[e >> 1] += p;
+        s[j][e] = QUANT ? p * ((e & 1) ? v2.y : v2.x) : p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = alpha[i] * l[i] + sum[i];
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        acc[nb][0] *= alpha[0];
+        acc[nb][1] *= alpha[0];
+        acc[nb][2] *= alpha[1];
+        acc[nb][3] *= alpha[1];
+      }
+    }
+    // O += P.V over the kept lanes' blocks, 16 tokens a step.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int j = 2 * kk;
+      const uint32_t pa[4] = {mfa::pack_bf16(s[j][0], s[j][1]),
+                              mfa::pack_bf16(s[j][2], s[j][3]),
+                              mfa::pack_bf16(s[j + 1][0], s[j + 1][1]),
+                              mfa::pack_bf16(s[j + 1][2], s[j + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NB / 2; ++np)
+        if (np < npairs)
+          mma_pv<ROW>(pa, sv, 16 * kk, np, acc[2 * np], acc[2 * np + 1]);
+    }
+  }
+  mfa::cp_async_wait<0>();
+
+  __nv_bfloat16* oh = static_cast<__nv_bfloat16*>(a.out) + head_row0 * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= rows) continue;
+    const float li = l[i] == 0.f ? 1.f : l[i];
+    __nv_bfloat16* orow = oh + (size_t)row[i] * D;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int d = 8 * nb + 2 * tq;
+      if (nb / 2 < npairs)
+        *reinterpret_cast<uint32_t*>(orow + d) = mfa::pack_bf16(
+            d < v_keep ? acc[nb][2 * i] / li : 0.f,
+            d + 1 < v_keep ? acc[nb][2 * i + 1] / li : 0.f);
+    }
+  }
+  const int zl = D - 16 * npairs;  // lanes past the computed blocks
+  const int tile_rows = min(64, rows - r0);
+  for (int i = tid; i < tile_rows * zl; i += TC_THREADS)
+    oh[(size_t)(r0 + i / zl) * D + 16 * npairs + i % zl] =
+        __float2bfloat16(0.f);
+}
+
+// ---------------------------------------------------------------------------
+// Chunked prefill, scalar
+// ---------------------------------------------------------------------------
 
 // 16-byte loads of a token's K and V rows widened to fp32: S is the pool's
 // element type, VEC the elements per load.  load() reads the K row (is_v
@@ -176,221 +1306,6 @@ struct KVLoad<T, KV_INT4> {
   }
 };
 
-// q_row . k_row over n4 float4s, the products summed in lane order; fully
-// unrolled when the head dim DC is a compile-time constant.
-template <int DC>
-__device__ __forceinline__ float row_dot(const float4* a, const float4* b,
-                                         int n4) {
-  float s = 0.f;
-  auto step = [&](int c) {
-    const float4 x = a[c];
-    const float4 y = b[c];
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-    s = fmaf(x.z, y.z, s);
-    s = fmaf(x.w, y.w, s);
-  };
-  if constexpr (DC != 0) {
-#pragma unroll
-    for (int c = 0; c < DC / 4; ++c) step(c);
-  } else {
-#pragma unroll 8
-    for (int c = 0; c < n4; ++c) step(c);
-  }
-  return s;
-}
-
-// Where a token's rows lie in the pool: page rows (S_SUB * PT, or PT for
-// the int4 byte) and V's row offset within the page (0 when K is V).
-struct PoolGeom {
-  int PT, rows, v_row, vtz;
-};
-
-template <int MODE>
-PoolGeom pool_geom(int PT, int s_sub, int vtz) {
-  const int ss = MODE == KV_INT4 ? 1 : s_sub;
-  return PoolGeom{PT, ss * PT, (ss - 1) * PT, vtz};
-}
-
-// ---------------------------------------------------------------------------
-// Decode
-// ---------------------------------------------------------------------------
-
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_TK = 64;        // KV tokens per tile
-constexpr int DEC_MAX_OUT = 16;   // output elements per thread
-constexpr int DEC_MAX_ROWS = DEC_MAX_OUT * DEC_THREADS;  // gc * D per CTA
-
-size_t decode_smem_bytes(int gc, int D) {
-  return sizeof(float) *
-         (size_t)(gc * D + 2 * DEC_TK * (D + 4) + gc * DEC_TK + 3 * gc +
-                  2 * DEC_TK);
-}
-
-template <typename T, int DC, int MODE>
-__global__ void __launch_bounds__(DEC_THREADS)
-paged_decode_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
-                    const float* __restrict__ kscale,
-                    const float* __restrict__ vscale,
-                    const int32_t* __restrict__ table,
-                    const int32_t* __restrict__ lengths, T* __restrict__ out,
-                    int Hq, int Hkv, int gc, int d_rt, int num_pages_total,
-                    PoolGeom pg, int max_pages, float scale) {
-  using E = Elem<T>;
-  using L = KVLoad<T, MODE>;
-  constexpr bool QUANT = MODE != KV_FLOAT;
-  const int D = DC ? DC : d_rt;
-  const int KS = D + 4;           // padded smem row (floats)
-  const int VPR = D / L::VEC;     // 16-byte vectors per token row
-  const int v_keep = D - pg.vtz;  // output lanes V does not zero
-  const int PT = pg.PT;
-  const typename L::S* kv = static_cast<const typename L::S*>(kv_);
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = Hq / Hkv;
-  const int g0 = blockIdx.z * gc;     // this CTA's slice of the group
-  const int gn = min(gc, G - g0);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                // [gc][D]
-  float* ks = qs + gc * D;         // [TK][KS]
-  float* vs = ks + DEC_TK * KS;    // [TK][KS]
-  float* ps = vs + DEC_TK * KS;    // [gc][TK]
-  float* m_s = ps + gc * DEC_TK;   // [gc]
-  float* l_s = m_s + gc;           // [gc]
-  float* a_s = l_s + gc;           // [gc]
-  float* ksc = a_s + gc;           // [TK] K scales of the tile's tokens
-  float* vsc = ksc + DEC_TK;       // [TK] V scales
-
-  const T* qb = q + ((size_t)b * Hq + (size_t)h * G + g0) * D;
-  for (int i = tid; i < gn * D; i += DEC_THREADS)
-    qs[i] = E::round(E::load(qb + i) * scale);
-  for (int g = tid; g < gn; g += DEC_THREADS) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-  float acc[DEC_MAX_OUT];
-#pragma unroll
-  for (int k = 0; k < DEC_MAX_OUT; ++k) acc[k] = 0.f;
-
-  const int n_out = gn * D;
-  const int32_t* row = table + (size_t)b * max_pages;
-  const size_t head_base = (size_t)h * num_pages_total;
-  const size_t v_off = (size_t)pg.v_row * D;
-  const int n_tok = min(lengths[b], max_pages * PT);
-
-  for (int t0 = 0; t0 < n_tok; t0 += DEC_TK) {
-    for (int i = tid; i < DEC_TK * VPR; i += DEC_THREADS) {
-      const int t = i / VPR;
-      const int c = i % VPR;
-      const int pos = t0 + t;
-      float kf[L::VEC], vf[L::VEC];
-      if (pos < n_tok) {
-        const int page = clamp_page(row[pos / PT], num_pages_total);
-        L::load2(
-            kv + ((head_base + page) * pg.rows + pos % PT) * D + c * L::VEC,
-            v_off, kf, vf);
-      } else {
-#pragma unroll
-        for (int e = 0; e < L::VEC; ++e) kf[e] = vf[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < L::VEC; ++e) {
-        ks[t * KS + c * L::VEC + e] = kf[e];
-        vs[t * KS + c * L::VEC + e] = vf[e];
-      }
-    }
-    if (QUANT) {
-      for (int t = tid; t < DEC_TK; t += DEC_THREADS) {
-        const int pos = t0 + t;
-        float a = 0.f, v = 0.f;
-        if (pos < n_tok) {
-          const size_t at =
-              (head_base + clamp_page(row[pos / PT], num_pages_total)) * PT +
-              pos % PT;
-          a = kscale[at];
-          v = vscale[at];
-        }
-        ksc[t] = a;
-        vsc[t] = v;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < gn * DEC_TK; i += DEC_THREADS) {
-      const int g = i / DEC_TK;
-      const int t = i % DEC_TK;
-      float s = row_dot<DC>(reinterpret_cast<const float4*>(qs + g * D),
-                            reinterpret_cast<const float4*>(ks + t * KS),
-                            D / 4);
-      if (QUANT) s *= ksc[t];
-      ps[i] = (t0 + t < n_tok) ? s : -INFINITY;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < gn; g += DEC_THREADS / 32) {
-      float* pr = ps + g * DEC_TK;
-      const float s0 = pr[lane];
-      const float s1 = pr[lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[g];
-      const float m_next = fmaxf(m_prev, mx);
-      const float alpha = (m_prev == -INFINITY) ? 0.f : expf(m_prev - m_next);
-      const float p0 = (s0 == -INFINITY) ? 0.f : expf(s0 - m_next);
-      const float p1 = (s1 == -INFINITY) ? 0.f : expf(s1 - m_next);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      pr[lane] = E::round(QUANT ? p0 * vsc[lane] : p0);
-      pr[lane + 32] = E::round(QUANT ? p1 * vsc[lane + 32] : p1);
-      __syncwarp();
-      if (lane == 0) {
-        m_s[g] = m_next;
-        l_s[g] = alpha * l_s[g] + sum;
-        a_s[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int k = 0; k < DEC_MAX_OUT; ++k) {
-      const int o = tid + k * DEC_THREADS;
-      if (o < n_out) {
-        const int g = o / D;
-        const int d = o % D;
-        const float* pr = ps + g * DEC_TK;
-        float pv = 0.f;
-#pragma unroll 8
-        for (int t = 0; t < DEC_TK; ++t) pv = fmaf(pr[t], vs[t * KS + d], pv);
-        acc[k] = acc[k] * a_s[g] + pv;
-      }
-    }
-    __syncthreads();
-  }
-
-  T* ob = out + ((size_t)b * Hq + (size_t)h * G + g0) * D;
-#pragma unroll
-  for (int k = 0; k < DEC_MAX_OUT; ++k) {
-    const int o = tid + k * DEC_THREADS;
-    if (o < n_out) {
-      float l = l_s[o / D];
-      if (l == 0.f) l = 1.f;
-      E::store(ob + o, o % D < v_keep ? acc[k] / l : 0.f);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Chunked prefill
-// ---------------------------------------------------------------------------
-
 constexpr int PF_BM = 64;  // query rows per CTA
 constexpr int PF_BN = 64;  // KV tokens per tile
 constexpr int PF_THREADS = 256;  // 16 x 16: 4 rows x 4 columns each
@@ -409,6 +1324,8 @@ size_t prefill_smem_bytes(int D, bool share) {
          ((size_t)D * ldm + kv + (size_t)PF_BN * ldm + 2 * PF_BN);
 }
 
+// Replaces serving/paged_attention.py::_prefill_kernel for an fp32 q, and
+// for the bf16 shapes prefill_tc leaves here.
 template <typename T, int DC, int MODE>
 __global__ void __launch_bounds__(PF_THREADS)
 paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
@@ -435,8 +1352,8 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
   const int PT = pg.PT;
   const typename L::S* kv = static_cast<const typename L::S*>(kv_);
 
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                // [D][LDM]   Q transposed
+  extern __shared__ __align__(16) float smem_pf[];
+  float* qt = smem_pf;             // [D][LDM]   Q transposed
   float* kt = qt + D * LDM;        // [D][LDN]   K transposed
   float* vs = SHARE ? kt : kt + D * LDN;  // [BN][LDV]
   float* pt = SHARE ? kt + max(D * LDN, PF_BN * LDV)
@@ -629,51 +1546,125 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
   }
 }
 
-template <typename T, int DC, int MODE>
-int launch_decode(const void* q, const void* kv, const void* ks,
-                  const void* vs, const void* table, const void* lengths,
-                  void* out, int B, int Hq, int Hkv, int D,
-                  int num_pages_total, int PT, int s_sub, int vtz,
-                  int max_pages, float scale, cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  // Slices of the group: as few as hold G * D outputs at DEC_MAX_ROWS each,
-  // evened out.
-  const int splits = (G * D + DEC_MAX_ROWS - 1) / DEC_MAX_ROWS;
-  const int gc = (G + splits - 1) / splits;
-  if (gc * D > DEC_MAX_ROWS) return (int)cudaErrorInvalidValue;
-  const size_t smem = decode_smem_bytes(gc, D);
-  auto kern = paged_decode_kernel<T, DC, MODE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(Hkv, B, (G + gc - 1) / gc), DEC_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), kv, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(out), Hq, Hkv,
-      gc, D, num_pages_total, pool_geom<MODE>(PT, s_sub, vtz), max_pages,
-      scale);
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+template <int DP, int MODE>
+int launch_decode_tc(const DecodeArgs& a, dim3 grid, cudaStream_t stream) {
+  const TcLayout L =
+      tc_layout<DP, MODE, decode_stages<DP>()>(a.pg.ss, 16, true);
+  return launch_with_smem(paged_decode_tc_kernel<DP, MODE>, grid,
+                          TC_THREADS, L.bytes, stream, a);
+}
+
+template <int DC, int MODE>
+int launch_decode_fma(const DecodeArgs& a, dim3 grid, cudaStream_t stream) {
+  const ScLayout L = sc_layout<MODE, sc_stages<DC>()>(a.D, a.pg.ss, a.gc);
+  return launch_with_smem(paged_decode_kernel<DC, MODE>, grid, SC_THREADS,
+                          L.bytes, stream, a);
+}
+
+// The decode of a dtype in one pool mode: the split kernel, then (splits
+// > 1) the merge.
+template <int MODE>
+int launch_decode(int dtype, const DecodeArgs& a, int B, int Hkv,
+                  cudaStream_t stream) {
+  const dim3 grid(Hkv * a.gslices, B, a.splits);
+  int rc = (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    switch (tc_width(a.D)) {
+      case 32: rc = launch_decode_tc<32, MODE>(a, grid, stream); break;
+      case 64: rc = launch_decode_tc<64, MODE>(a, grid, stream); break;
+      case 128: rc = launch_decode_tc<128, MODE>(a, grid, stream); break;
+      case 256: rc = launch_decode_tc<256, MODE>(a, grid, stream); break;
+      default: rc = launch_decode_tc<288, MODE>(a, grid, stream); break;
+    }
+  } else if (dtype == 0) {
+    switch (a.D) {
+      case 32: rc = launch_decode_fma<32, MODE>(a, grid, stream); break;
+      case 64: rc = launch_decode_fma<64, MODE>(a, grid, stream); break;
+      case 128: rc = launch_decode_fma<128, MODE>(a, grid, stream); break;
+      case 288: rc = launch_decode_fma<288, MODE>(a, grid, stream); break;
+      default: rc = launch_decode_fma<0, MODE>(a, grid, stream); break;
+    }
+  }
+  if (rc != 0 || a.splits == 1) return rc;
+  const dim3 mgrid(B * a.Hq);
+  const size_t msmem = 2 * sizeof(float) * a.splits;
+  const int v_keep = a.D - a.pg.vtz;
+  if (dtype == 1)
+    return launch_with_smem(paged_decode_merge_kernel<__nv_bfloat16>, mgrid,
+                            MERGE_THREADS, msmem, stream, a.ws,
+                            static_cast<__nv_bfloat16*>(a.out), a.splits,
+                            a.D, v_keep);
+  return launch_with_smem(paged_decode_merge_kernel<float>, mgrid,
+                          MERGE_THREADS, msmem, stream, a.ws,
+                          static_cast<float*>(a.out), a.splits, a.D, v_keep);
+}
+
+template <int DP, int MODE>
+int launch_prefill_tc(const PrefillArgs& a, cudaStream_t stream) {
+  const int rows = (a.Hq / a.Hkv) * a.C;
+  const TcLayout L =
+      tc_layout<DP, MODE, prefill_stages<DP>()>(a.pg.ss, 64, false);
+  return launch_with_smem(paged_prefill_tc_kernel<DP, MODE>,
+                          dim3((rows + 63) / 64, a.Hkv), TC_THREADS, L.bytes,
+                          stream, a);
 }
 
 template <typename T, int DC, int MODE>
-int launch_prefill(const void* q, const void* kv, const void* ks,
-                   const void* vs, const void* page_row, void* out, int Hq,
-                   int Hkv, int C, int D, int num_pages_total, int PT,
-                   int s_sub, int vtz, int max_pages, int offset, float scale,
-                   cudaStream_t stream) {
-  const int rows = (Hq / Hkv) * C;
+int launch_prefill_fma(const PrefillArgs& a, cudaStream_t stream) {
+  const int rows = (a.Hq / a.Hkv) * a.C;
   const size_t smem =
-      prefill_smem_bytes(D, prefill_shares_kv(DC ? DC : MAX_D));
-  auto kern = paged_prefill_kernel<T, DC, MODE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((rows + PF_BM - 1) / PF_BM, Hkv), PF_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), kv, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int32_t*>(page_row),
-      static_cast<T*>(out), Hq, Hkv, C, D, num_pages_total,
-      pool_geom<MODE>(PT, s_sub, vtz), max_pages, offset, scale);
-  return (int)cudaGetLastError();
+      prefill_smem_bytes(a.D, prefill_shares_kv(DC ? DC : MAX_D));
+  return launch_with_smem(
+      paged_prefill_kernel<T, DC, MODE>,
+      dim3((rows + PF_BM - 1) / PF_BM, a.Hkv), PF_THREADS, smem, stream,
+      static_cast<const T*>(a.q), a.kv, a.kscale, a.vscale, a.page_row,
+      static_cast<T*>(a.out), a.Hq, a.Hkv, a.C, a.D, a.num_pages_total, a.pg,
+      a.max_pages, a.offset, a.scale);
+}
+
+// The prefill of a dtype in one pool mode: paged_prefill_tc_kernel where
+// prefill_tc says so, else paged_prefill_kernel (bf16 there only at the
+// widths above 256: D = 272 and 288).
+template <int MODE>
+int launch_prefill(int dtype, const PrefillArgs& a, cudaStream_t stream) {
+  if (prefill_tc(dtype, a.D, a.pg.ss, a.pg.vtz)) {
+    switch (tc_width(a.D)) {
+      case 32: return launch_prefill_tc<32, MODE>(a, stream);
+      case 64: return launch_prefill_tc<64, MODE>(a, stream);
+      case 128: return launch_prefill_tc<128, MODE>(a, stream);
+      case 256: return launch_prefill_tc<256, MODE>(a, stream);
+      default: return launch_prefill_tc<288, MODE>(a, stream);
+    }
+  }
+  if (dtype == 1) {
+    if (a.D == 288)
+      return launch_prefill_fma<__nv_bfloat16, 288, MODE>(a, stream);
+    return launch_prefill_fma<__nv_bfloat16, 0, MODE>(a, stream);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (a.D) {
+    case 32: return launch_prefill_fma<float, 32, MODE>(a, stream);
+    case 64: return launch_prefill_fma<float, 64, MODE>(a, stream);
+    case 128: return launch_prefill_fma<float, 128, MODE>(a, stream);
+    case 288: return launch_prefill_fma<float, 288, MODE>(a, stream);
+    default: return launch_prefill_fma<float, 0, MODE>(a, stream);
+  }
+}
+
+bool valid_layout(int mode, int D, int s_sub, int vtz) {
+  if (D <= 0 || D % 16 || D > MAX_D || vtz < 0 || vtz >= D) return false;
+  if (mode == KV_INT4) return s_sub == 1 && vtz == 0;
+  return s_sub == 1 || s_sub == 2;
+}
+
+PoolGeom geom_of(int mode, int PT, int s_sub, int vtz) {
+  if (mode == KV_INT8) return pool_geom<KV_INT8>(PT, s_sub, vtz);
+  if (mode == KV_INT4) return pool_geom<KV_INT4>(PT, s_sub, vtz);
+  return pool_geom<KV_FLOAT>(PT, s_sub, vtz);
 }
 
 }  // namespace
@@ -683,49 +1674,50 @@ int launch_prefill(const void* q, const void* kv, const void* ks,
 // 2 int4 shared byte; ks and vs are ignored (may be null) in mode 0.
 // s_sub: page rows per token (1 or 2; 1 for the int4 byte); vtz: V's
 // zeroed tail lanes.  Returns the launch's cudaError_t;
-// cudaErrorInvalidValue for an unsupported dtype, mode, page layout or head
-// dim (a multiple of 16 up to 288).
+// cudaErrorInvalidValue for an unsupported dtype, mode, page layout, head
+// dim (a multiple of 16 up to 288) or split plan.
 extern "C" {
 
-#define MFA_DISPATCH(LAUNCH, ...)                                           \
-  do {                                                                      \
-    if (dtype == 0) {                                                       \
-      MFA_MODES(LAUNCH, float, __VA_ARGS__);                                \
-    } else if (dtype == 1) {                                                \
-      MFA_MODES(LAUNCH, __nv_bfloat16, __VA_ARGS__);                        \
-    }                                                                       \
-  } while (0)
-#define MFA_MODES(LAUNCH, T, ...)                                           \
-  do {                                                                      \
-    if (mode == KV_FLOAT) MFA_DIMS(LAUNCH, T, KV_FLOAT, __VA_ARGS__);       \
-    if (mode == KV_INT8) MFA_DIMS(LAUNCH, T, KV_INT8, __VA_ARGS__);         \
-    if (mode == KV_INT4) MFA_DIMS(LAUNCH, T, KV_INT4, __VA_ARGS__);         \
-  } while (0)
-#define MFA_DIMS(LAUNCH, T, MODE, ...)                                      \
-  do {                                                                      \
-    if (D == 32) return LAUNCH<T, 32, MODE>(__VA_ARGS__);                   \
-    if (D == 64) return LAUNCH<T, 64, MODE>(__VA_ARGS__);                   \
-    if (D == 128) return LAUNCH<T, 128, MODE>(__VA_ARGS__);                 \
-    if (D == 288) return LAUNCH<T, 288, MODE>(__VA_ARGS__);                 \
-    return LAUNCH<T, 0, MODE>(__VA_ARGS__);                                 \
-  } while (0)
-
-static bool valid_layout(int mode, int D, int s_sub, int vtz) {
-  if (D <= 0 || D % 16 || D > MAX_D || vtz < 0 || vtz >= D) return false;
-  if (mode == KV_INT4) return s_sub == 1 && vtz == 0;
-  return s_sub == 1 || s_sub == 2;
-}
-
+// splits: the KV axis's splits (serving/paged_attention.py::decode_splits),
+// each ceil(ceil(max_pages * PT / 64) / splits) * 64 tokens; ws: an fp32
+// workspace [B, Hq, splits, D + 2] when splits > 1 (else unused).
 int mfa_paged_decode(const void* q, const void* kv, const void* ks,
                      const void* vs, const void* table, const void* lengths,
                      void* out, int dtype, int mode, int B, int Hq, int Hkv,
                      int D, int num_pages_total, int PT, int s_sub, int vtz,
-                     int max_pages, float scale, void* stream) {
-  if (!valid_layout(mode, D, s_sub, vtz) || Hkv <= 0 || Hq % Hkv)
+                     int max_pages, float scale, int splits, void* ws,
+                     void* stream) {
+  if (!valid_layout(mode, D, s_sub, vtz) || Hkv <= 0 || Hq % Hkv ||
+      splits < 1 || (splits > 1 && ws == nullptr) || PT <= 0 ||
+      max_pages <= 0)
     return (int)cudaErrorInvalidValue;
+  const int G = Hq / Hkv;
+  const int gslices = (G + 15) / 16;
+  const int tiles = (max_pages * PT + TK - 1) / TK;
+  DecodeArgs a;
+  a.q = q;
+  a.kv = kv;
+  a.kscale = static_cast<const float*>(ks);
+  a.vscale = static_cast<const float*>(vs);
+  a.table = static_cast<const int32_t*>(table);
+  a.lengths = static_cast<const int32_t*>(lengths);
+  a.out = out;
+  a.ws = static_cast<float*>(ws);
+  a.Hq = Hq;
+  a.G = G;
+  a.gslices = gslices;
+  a.gc = (G + gslices - 1) / gslices;
+  a.D = D;
+  a.num_pages_total = num_pages_total;
+  a.max_pages = max_pages;
+  a.splits = splits;
+  a.per = (tiles + splits - 1) / splits * TK;
+  a.pg = geom_of(mode, PT, s_sub, vtz);
+  a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MFA_DISPATCH(launch_decode, q, kv, ks, vs, table, lengths, out, B, Hq, Hkv,
-               D, num_pages_total, PT, s_sub, vtz, max_pages, scale, s);
+  if (mode == KV_FLOAT) return launch_decode<KV_FLOAT>(dtype, a, B, Hkv, s);
+  if (mode == KV_INT8) return launch_decode<KV_INT8>(dtype, a, B, Hkv, s);
+  if (mode == KV_INT4) return launch_decode<KV_INT4>(dtype, a, B, Hkv, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -734,17 +1726,41 @@ int mfa_paged_prefill(const void* q, const void* kv, const void* ks,
                       int dtype, int mode, int Hq, int Hkv, int C, int D,
                       int num_pages_total, int PT, int s_sub, int vtz,
                       int max_pages, int offset, float scale, void* stream) {
-  if (!valid_layout(mode, D, s_sub, vtz) || Hkv <= 0 || Hq % Hkv)
+  if (!valid_layout(mode, D, s_sub, vtz) || Hkv <= 0 || Hq % Hkv ||
+      PT <= 0 || C <= 0)
     return (int)cudaErrorInvalidValue;
+  PrefillArgs a;
+  a.q = q;
+  a.kv = kv;
+  a.kscale = static_cast<const float*>(ks);
+  a.vscale = static_cast<const float*>(vs);
+  a.page_row = static_cast<const int32_t*>(page_row);
+  a.out = out;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.C = C;
+  a.D = D;
+  a.num_pages_total = num_pages_total;
+  a.max_pages = max_pages;
+  a.offset = offset;
+  a.pg = geom_of(mode, PT, s_sub, vtz);
+  a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MFA_DISPATCH(launch_prefill, q, kv, ks, vs, page_row, out, Hq, Hkv, C, D,
-               num_pages_total, PT, s_sub, vtz, max_pages, offset, scale, s);
+  if (mode == KV_FLOAT) return launch_prefill<KV_FLOAT>(dtype, a, s);
+  if (mode == KV_INT8) return launch_prefill<KV_INT8>(dtype, a, s);
+  if (mode == KV_INT4) return launch_prefill<KV_INT4>(dtype, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-#undef MFA_DIMS
-#undef MFA_MODES
-#undef MFA_DISPATCH
+// Which paged kernels a call of dtype at head dim D over pages of s_sub
+// states with vtz zeroed V lanes runs on the tensor cores: bit 0 the decode
+// (paged_decode_tc_kernel), bit 1 the prefill (prefill_tc); -1 for a
+// dtype or layout without kernels.
+int mfa_paged_bodies(int dtype, int D, int s_sub, int vtz) {
+  if ((dtype != 0 && dtype != 1) || !valid_layout(KV_FLOAT, D, s_sub, vtz))
+    return -1;
+  return (dtype == 1 ? 1 : 0) | (prefill_tc(dtype, D, s_sub, vtz) ? 2 : 0);
+}
 
 const char* mfa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

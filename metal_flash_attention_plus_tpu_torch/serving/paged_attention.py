@@ -34,12 +34,23 @@ dtype and P is cast to it before P·V.  Quantized pools: the score is
 Σ q·k over the integer K, THEN multiplied by the token's K scale; the
 softmax sum takes P before any V scale; then P is multiplied by the
 token's V scale and cast to q's dtype before P·V over the integer V.  The
-output is in q's dtype.
+output is in q's dtype.  The bf16 kernels round P against the running max
+of their 64-token tiles (the decode: of its split of the KV axis too),
+the plain versions against the row's max; the bf16 gate covers it.
+
+Kernels (:func:`decode_body`, :func:`prefill_body` say which a call takes):
+the bf16 decode runs ``paged_decode_tc_kernel`` (mma.sync) and the fp32
+one ``paged_decode_kernel`` (fp32 FMAs), both with the KV axis split
+across CTAs as :func:`decode_splits` plans and, for more than one split,
+``paged_decode_merge_kernel`` after them over a workspace the wrapper
+allocates; the bf16 prefill runs ``paged_prefill_tc_kernel`` where
+:func:`prefill_body` says so, the rest ``paged_prefill_kernel``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Union
 
 import torch
@@ -52,8 +63,9 @@ _MAX_HEAD_DIM = 288  # the kernels take multiples of 16 up to this
 # Pool modes of the kernels: float, int8 halves, int4 shared byte.
 _MODE_FLOAT, _MODE_INT8, _MODE_INT4 = 0, 1, 2
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_DECODE_ARGS = [_PTR] * 7 + [_I32] * 11 + [_F32, _PTR]
+_DECODE_ARGS = [_PTR] * 7 + [_I32] * 11 + [_F32, _I32, _PTR, _PTR]
 _PREFILL_ARGS = [_PTR] * 6 + [_I32] * 12 + [_F32, _PTR]
+_DECODE_TILE = 64  # KV tokens a tile of the decode kernels' splits
 
 
 def _pool_mode(k_scales, v_scales, kv_bits: int) -> int:
@@ -165,6 +177,59 @@ def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
     return (q.float() * scale).to(q.dtype).float()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_body(dtype: torch.dtype) -> str:
+    """Which decode kernel a q of ``dtype`` launches: "tensor_core"
+    (``paged_decode_tc_kernel``: bf16 mma.sync) for bf16, "fp32_fma"
+    (``paged_decode_kernel``: scalar fp32 FMAs, which the 2e-5 gate needs;
+    TF32 would break it) for fp32.  The C library answers the same
+    (``mfa_paged_bodies``, bit 0)."""
+    return "tensor_core" if dtype == torch.bfloat16 else "fp32_fma"
+
+
+def prefill_body(dtype: torch.dtype, head_dim: int, page_states: int,
+                 v_tail_zero: int) -> str:
+    """Which prefill kernel a q of ``dtype`` at ``head_dim`` over pages of
+    ``page_states`` states (S_sub) with ``v_tail_zero`` zeroed V lanes
+    launches: "tensor_core" (``paged_prefill_tc_kernel``) for bf16 where
+    ``head_dim`` ≤ 256, or where one-state pages leave ``head_dim −
+    v_tail_zero`` ≤ 256 lanes for P·V (MLA's 288 − 32; the fp32 O
+    accumulator of more lanes would spill); "fp32_fma"
+    (``paged_prefill_kernel``) for fp32 and every other shape.  The C
+    launcher routes the same way (``prefill_tc``; ``mfa_paged_bodies``,
+    bit 1)."""
+    if dtype == torch.bfloat16 and (
+            head_dim <= 256
+            or (page_states == 1 and head_dim - v_tail_zero <= 256)):
+        return "tensor_core"
+    return "fp32_fma"
+
+
+def decode_splits(batch: int, kv_heads: int, group: int, capacity: int,
+                  sms: int) -> int:
+    """The number of splits of the decode's KV axis, from shapes alone
+    (no length is read back): the table's ``capacity`` (max_pages · PT)
+    in 64-token tiles, dealt into equal ranges of whole tiles, two tiles
+    each, or more where the grid (KV heads × 16-row group slices × batch ×
+    splits) would exceed eight CTAs for each of ``sms`` SMs.  Each CTA is
+    a chain of tile loads, so short ranges keep many loads in flight; a
+    split past its sequence's length costs one early exit.  At
+    ``chip_smoke.py``'s decode lengths ``utils/profiling.py
+    --decode-splits`` found 32 splits (two tiles each) the fastest of
+    4–64 for the flagship's decode (batch 8, 4 KV heads, capacity 4096),
+    D = 64 and 128, bf16 and int8, and within 7% of the fastest (64) for
+    MLA's (batch 8, one KV head): both take 32; a one-page table takes
+    one."""
+    tiles = -(-capacity // _DECODE_TILE)
+    ctas = batch * kv_heads * -(-group // 16)
+    per = max(2, -(-tiles * ctas // (8 * sms)))
+    return -(-tiles // per)
+
+
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
@@ -262,11 +327,17 @@ def paged_decode_attention(
                          "do not match q's batch")
     out = torch.empty_like(q)
     scale_ptrs = [t.data_ptr() for t in scales] or [None, None]
+    max_pages = page_table.shape[1]
+    splits = decode_splits(b, hkv, hq // hkv, max_pages * pt,
+                           _sm_count(q.device.index or 0))
+    ws = (torch.empty((b, hq, splits, d + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
     rc = _build.kernel_function("mfa_paged_decode", _DECODE_ARGS)(
         q.data_ptr(), kv_pages.data_ptr(), *scale_ptrs,
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[q.dtype], mode, b, hq, hkv, d, num_pages_total, pt,
-        s_sub, v_tail_zero, page_table.shape[1], _default_scale(d, scale),
+        s_sub, v_tail_zero, max_pages, _default_scale(d, scale), splits,
+        None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check_launch(rc, "paged_decode")

@@ -15,6 +15,8 @@ card.
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --wo-tiles
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --dyn-tiles
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
+        --decode-splits
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --determinism [STEPS]
 
 Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
@@ -74,6 +76,16 @@ flagship's projection and unembedding shapes for decode (M = 8), a
 prefill chunk (M = 256) and the fully quantized forward (M = 4096); the
 small-block compensated GEMM (BLOCK 64 CENTERED) at gemm_bench's shapes.
 Timed as ``--wo-tiles`` times its plans.
+
+``--decode-splits``: the paged decode (bf16 q) at ``chip_smoke.py``'s
+phase 8 geometry (the 8 smoke prompts' lengths + 16, 256-token pages, 16
+pages a table) with a float pool at D = 64 and 128, an int8 pool at
+D = 64, and MLA's one-state latent pages (Hq = 16 over Hkv = 1, D = 288,
+``v_tail_zero`` 32), over split counts (:data:`DECODE_SPLIT_PLANS`), each
+forced in place of ``serving.paged_attention.decode_splits``' choice,
+which the output marks: the time by CUDA events over 50 calls after 3 to
+warm up, and the device time of the split kernel and of the merge over 50
+more under the profiler.
 
 ``--determinism [STEPS]``: the train step of ``--train`` run twice from
 one seeded initial state for STEPS steps (default 8) in turn, the two
@@ -147,6 +159,7 @@ from metal_flash_attention_plus_tpu_torch.serving.engine import (
     ServingEngine,
     mla_executor,
 )
+from metal_flash_attention_plus_tpu_torch.serving import paged_attention
 
 
 def smoke_requests(cfg, seed: int):
@@ -273,7 +286,7 @@ def kernel_table(prof, top: int = 15):
 
 def print_profile(prof, wall_s: float, calls: int, what: str) -> int:
     """The busy/idle line and the ranked kernels; 1 if no device time."""
-    busy_us, launches, ranked = kernel_table(prof)
+    busy_us, launches, ranked = kernel_table(prof, top=25)
     if not busy_us:
         print("profiling: the profiler recorded no device time",
               file=sys.stderr)
@@ -671,6 +684,89 @@ def profile_dyn_tiles(seed: int, iters: int = 20) -> int:
     return 0
 
 
+# Split counts --decode-splits forces on the paged decode.
+DECODE_SPLIT_PLANS = (4, 8, 16, 32, 64)
+
+
+def decode_split_inputs(geom: str, lengths, g: torch.Generator):
+    """(q, pool, table, lengths, kwargs) of the paged decode at
+    ``chip_smoke.py``'s phase 8 geometry: ``flagship64`` / ``flagship128``
+    (bf16 pool, Hq = 16 over Hkv = 4), ``int8`` (int8 halves at D = 64),
+    ``mla`` (one-state bf16 latent pages, Hq = 16 over Hkv = 1, D = 288,
+    ``v_tail_zero`` 32); pages scattered, the trash page last."""
+    pt, num_pages, max_pages = 256, 256, 16
+    hq, hkv, d, states = {"flagship64": (16, 4, 64, 2),
+                          "flagship128": (16, 4, 128, 2),
+                          "int8": (16, 4, 64, 2),
+                          "mla": (16, 1, 288, 1)}[geom]
+    shape = (hkv, num_pages + 1, states * pt, d)
+    kw = dict(page_tokens=pt)
+    if geom == "int8":
+        pool = torch.randint(-128, 128, shape, generator=g,
+                             device="cuda").to(torch.int8)
+        kw.update(k_scales=torch.rand((hkv, num_pages + 1, 1, pt),
+                                      generator=g, device="cuda") / 127,
+                  v_scales=torch.rand((hkv, num_pages + 1, 1, pt),
+                                      generator=g, device="cuda") / 127)
+    else:
+        pool = torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+    if geom == "mla":
+        kw.update(v_tail_zero=32, scale=(64 + 32) ** -0.5)
+    perm = torch.randperm(num_pages, generator=g, device="cuda").to(
+        torch.int32)
+    table = torch.full((len(lengths), max_pages), num_pages,
+                       dtype=torch.int32, device="cuda")
+    nxt = 0
+    for i, n in enumerate(lengths):
+        pages = -(-n // pt)
+        table[i, :pages] = perm[nxt: nxt + pages]
+        nxt += pages
+    q = torch.randn((len(lengths), hq, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, pool, table, ln, kw
+
+
+def profile_decode_splits(seed: int, iters: int = 50) -> int:
+    cfg = TransformerConfig()
+    lengths = [len(r.prompt) + 16 for r in smoke_requests(cfg, seed)]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planner = paged_attention.decode_splits
+    for geom in ("flagship64", "flagship128", "int8", "mla"):
+        q, pool, table, ln, kw = decode_split_inputs(geom, lengths, g)
+        hkv = pool.shape[0]
+        chosen = planner(len(lengths), hkv, q.shape[1] // hkv,
+                         table.shape[1] * kw["page_tokens"], sms)
+        for splits in sorted({chosen, *DECODE_SPLIT_PLANS}):
+            paged_attention.decode_splits = lambda *_, s=splits: s
+            try:
+                def run():
+                    paged_attention.paged_decode_attention(q, pool, table,
+                                                           ln, **kw)
+                for _ in range(3):
+                    run()
+                ms = cuda_ms(run, iters)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(iters):
+                        run()
+                    torch.cuda.synchronize()
+            finally:
+                paged_attention.decode_splits = planner
+            by_kernel = {("merge" if "merge" in name else "split"):
+                         us / 1e3 / iters
+                         for name, us, _ in kernel_table(prof)[2]}
+            print(json.dumps({
+                "device": torch.cuda.get_device_name(0), "kernel":
+                "paged_decode", "geometry": geom, "lengths": lengths,
+                "splits": splits, "ms": ms,
+                "device_ms": sum(by_kernel.values()), **{
+                    f"device_ms_{k}": v for k, v in by_kernel.items()},
+                "chosen": splits == chosen}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -694,6 +790,8 @@ def main() -> int:
     ap.add_argument("--dyn-tiles", action="store_true",
                     help="time the s8 tile's kernels (the dynamic and the "
                     "small-block compensated GEMMs) over tile plans")
+    ap.add_argument("--decode-splits", action="store_true",
+                    help="time the paged decode over split counts")
     ap.add_argument("--determinism", type=int, nargs="?", const=8,
                     metavar="STEPS",
                     help="train twice from one state and compare bit for "
@@ -708,6 +806,8 @@ def main() -> int:
         return profile_wo_tiles(args.seed)
     if args.dyn_tiles:
         return profile_dyn_tiles(args.seed)
+    if args.decode_splits:
+        return profile_decode_splits(args.seed)
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
     if args.mla:

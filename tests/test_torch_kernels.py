@@ -33,7 +33,9 @@ outside their built widths (80, 96) run zero-padded and take the same
 tolerances.  MLA's
 modes of the paged kernels (one-state latent pages, ``v_tail_zero``,
 D = 80 and 288, Hq = 16 over Hkv = 1) and of the flash kernels (D = 80 and
-288) take their kernels' tolerances.
+288) take their kernels' tolerances.  The paged decode splits the KV axis
+across CTAs and merges the splits in a fixed order, so two calls on the
+same inputs are held equal bit for bit.
 """
 
 import dataclasses
@@ -1216,6 +1218,195 @@ def test_latent_paged_kernels_match_plain(cuda_device, kernel, d, vtz,
     assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype)
     # V's rope tail is zero, so the output's is too.
     assert not out[..., d - vtz:].float().abs().max().item()
+
+
+# --------------------------------------------------------------------------
+# The paged kernels' redesign: split-KV decode, tensor-core prefill
+# --------------------------------------------------------------------------
+
+
+def _paged_pool(device, kind, hkv, num_pages, pt, d, states, seed):
+    """A pool of ``kind`` (bf16 / f32 floats, int8 halves or one state,
+    the int4 byte) from a generator on the card, and its kwargs."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = pt if kind == "int4" else states * pt
+    shape = (hkv, num_pages + 1, rows, d)
+    if kind in ("bf16", "f32"):
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        return torch.randn(shape, generator=g, device=device).to(dtype), {}
+    pool = torch.randint(-128, 128, shape, generator=g, device=device)
+    step = 7.0 if kind == "int4" else 127.0
+    ks, vs = ((torch.rand((hkv, num_pages + 1, 1, pt), generator=g,
+                          device=device) * 1.5 + 0.5) / step
+              for _ in range(2))
+    return pool.to(torch.int8), dict(k_scales=ks, v_scales=vs,
+                                     kv_bits=4 if kind == "int4" else 8)
+
+
+def _page_table(rng, lengths, pt, num_pages, max_pages, device):
+    perm = rng.permutation(num_pages)
+    table = np.full((len(lengths), max_pages), num_pages, np.int32)
+    nxt = 0
+    for i, n in enumerate(lengths):
+        pages = -(-int(n) // pt)
+        table[i, :pages] = perm[nxt: nxt + pages]
+        nxt += pages
+    return torch.from_numpy(table).to(device)
+
+
+# (head dim, page states, v_tail_zero): the flagship's two-state pages at
+# D = 64 and 128, MLA's one-state latent pages at D = 288 with V's rope
+# tail of 32 zeroed (the int4 byte: one state, no tail).
+SPLIT_LAYOUTS = [(64, 2, 0), (128, 2, 0), (288, 1, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_kind", ["float", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,states,vtz", SPLIT_LAYOUTS)
+@pytest.mark.parametrize("group", [1, 4, 16])
+@pytest.mark.parametrize("pt", [16, 48, 256])
+def test_decode_kernel_many_splits_match_plain(cuda_device, pt, group, d,
+                                               states, vtz, dtype,
+                                               pool_kind):
+    """Lengths 1, PT, PT + 1 and 4000 in one batch over a 4000-token
+    table: every split count from the plan (up to 63 at PT = 16), splits
+    past a sequence's end, page sizes that are not multiples of 64."""
+    from metal_flash_attention_plus_tpu_torch.serving import (
+        paged_attention as pa,
+    )
+
+    if pool_kind == "int4":
+        states, vtz = 1, 0
+    hq = max(group, 2)
+    hkv = hq // group
+    lengths = np.asarray([1, pt, pt + 1, 4000], np.int32)
+    max_pages = -(-4000 // pt)
+    num_pages = int(sum(-(-n // pt) for n in lengths)) + 3
+    rng = np.random.default_rng(pt + group + d)
+    kind = pool_kind if pool_kind != "float" else (
+        "bf16" if dtype == torch.bfloat16 else "f32")
+    pool, kw = _paged_pool(cuda_device, kind, hkv, num_pages, pt, d, states,
+                           seed=pt * group + d)
+    kw.update(page_tokens=pt, v_tail_zero=vtz, scale=0.1)
+    table = _page_table(rng, lengths, pt, num_pages, max_pages, cuda_device)
+    q = torch.from_numpy(rng.standard_normal((len(lengths), hq, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    splits = pa.decode_splits(len(lengths), hkv, group, max_pages * pt,
+                              torch.cuda.get_device_properties(
+                                  cuda_device).multi_processor_count)
+    assert splits > 1
+    n = paged_decode_attention.launches
+    out = paged_decode_attention(q, pool, table, ln, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == n + 1
+    ref = paged_decode_attention_plain(q, pool, table, ln, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype)
+    if vtz:
+        assert not out[..., d - vtz:].float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool_kind", ["float", "int8"])
+def test_decode_kernel_is_deterministic(cuda_device, pool_kind, dtype):
+    """Two calls on the same inputs give the same bits: the splits merge
+    in a fixed order, with no atomics."""
+    d, pt, hq, hkv = 64, 256, 16, 4
+    lengths = np.asarray([1, 300, 1800, 4000, 77, 2500, 1024, 3999],
+                         np.int32)
+    rng = np.random.default_rng(11)
+    kind = pool_kind if pool_kind != "float" else (
+        "bf16" if dtype == torch.bfloat16 else "f32")
+    pool, kw = _paged_pool(cuda_device, kind, hkv, 80, pt, d, 2, seed=3)
+    table = _page_table(rng, lengths, pt, 80, 16, cuda_device)
+    q = torch.from_numpy(rng.standard_normal((8, hq, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    outs = [paged_decode_attention(q, pool, table, ln, page_tokens=pt, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+def _prefill_tc_cases():
+    cases = []
+    for d, states, vtz, hq, hkv in [(64, 2, 0, 16, 4), (128, 2, 0, 8, 2),
+                                    (288, 1, 32, 16, 1)]:
+        for kind in ("bf16", "int8", "int4"):
+            if kind == "int4" and d == 288:
+                continue  # the int4 byte leaves 288 lanes: scalar
+            for pt, chunk, offset in [(16, 100, 70), (48, 256, 300),
+                                      (256, 256, 512), (256, 64, 0)]:
+                cases.append((d, states, vtz, hq, hkv, kind, pt, chunk,
+                              offset))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,states,vtz,hq,hkv,kind,pt,chunk,offset",
+                         _prefill_tc_cases())
+def test_prefill_tensor_core_instances_match_plain(cuda_device, d, states,
+                                                   vtz, hq, hkv, kind, pt,
+                                                   chunk, offset):
+    """paged_prefill_tc_kernel at D = 64, 128 and MLA's 288 / 32 over
+    float, int8 and int4 pools, chunks that end mid-tile and offsets that
+    split a row tile's visible range."""
+    from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
+        prefill_body,
+    )
+
+    if kind == "int4":
+        states = 1
+    assert prefill_body(torch.bfloat16, d, states, vtz) == "tensor_core"
+    rng = np.random.default_rng(d + pt + offset)
+    max_pages = -(-(offset + chunk) // pt) + 1
+    pool, kw = _paged_pool(cuda_device, kind, hkv, max_pages + 2, pt, d,
+                           states, seed=d * pt + offset)
+    kw.update(page_tokens=pt, v_tail_zero=vtz, scale=d ** -0.5)
+    row = _page_table(rng, [offset + chunk], pt, max_pages + 2, max_pages,
+                      cuda_device)[0]
+    q = torch.from_numpy(rng.standard_normal((hq, chunk, d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    n = paged_prefill_attention.launches
+    out = paged_prefill_attention(q, pool, row, offset, **kw)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches == n + 1
+    ref = paged_prefill_attention_plain(q, pool, row, offset, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    if vtz:
+        assert not out[..., d - vtz:].float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_paged_kernels_route_as_the_python_bodies_say(cuda_device):
+    """The C library's routing (mfa_paged_bodies: bit 0 the decode, bit 1
+    the prefill on the tensor cores) agrees with decode_body and
+    prefill_body."""
+    import ctypes
+
+    from metal_flash_attention_plus_tpu_torch import _build
+    from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
+        _DTYPE_CODES,
+        decode_body,
+        prefill_body,
+    )
+
+    bodies = _build.kernel_function("mfa_paged_bodies", [ctypes.c_int] * 4)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (32, 64, 80, 128, 256, 272, 288):
+            for states in (1, 2):
+                for vtz in (0, 16, 32):
+                    if vtz >= d:
+                        continue  # no lane of V is kept: no layout
+                    bits = bodies(_DTYPE_CODES[dtype], d, states, vtz)
+                    want = (decode_body(dtype) == "tensor_core") | (
+                        prefill_body(dtype, d, states, vtz)
+                        == "tensor_core") << 1
+                    assert bits == want, (dtype, d, states, vtz)
+    assert bodies(_DTYPE_CODES[torch.bfloat16], 40, 2, 0) == -1
 
 
 # --------------------------------------------------------------------------

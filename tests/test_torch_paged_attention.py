@@ -7,7 +7,10 @@ TOLERANCES["fp32"] (max abs error).  The CUDA kernels are held to the
 plain versions in tests/test_torch_kernels.py, on the card.  Besides the
 two-state pool (K and V halves), MLA's latent pool: one state per token
 (S_sub = 1) read as K and, with its rope tail zeroed (``v_tail_zero``), as
-V, at a head dim (80) outside the GQA model's.
+V, at a head dim (80) outside the GQA model's.  The kernels' host-side
+choices are pure functions of shapes, checked here too: the decode's split
+plan (``decode_splits``) and which body each kernel runs (``decode_body``,
+``prefill_body``; the card tests hold the C library to the same answers).
 """
 
 import jax
@@ -24,10 +27,13 @@ from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
 from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
+    decode_body,
+    decode_splits,
     paged_decode_attention,
     paged_decode_attention_plain,
     paged_prefill_attention,
     paged_prefill_attention_plain,
+    prefill_body,
 )
 
 HQ, HKV, D, PT, NP, MP = 4, 2, 32, 16, 12, 4
@@ -161,3 +167,59 @@ def test_latent_pages_with_v_tail_zero_match_jax(kernel, quantized):
               **{k: torch.from_numpy(v) for k, v in kw.items()})
     assert out.shape == args[0].shape
     assert _max_err(out.numpy(), ref) <= TOLERANCES["fp32"]
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("batch,kv_heads,group,capacity,splits", [
+    (8, 4, 4, 4096, 32),     # the flagship engine's decode
+    (8, 1, 16, 4096, 32),    # MLA's latent decode
+    (1, 1, 16, 4096, 32),    # one MLA sequence
+    (1, 2, 2, 48, 1),        # a one-page cache
+    (64, 8, 4, 4096, 2),     # 512 (b, KV head) pairs: 32 tiles a split
+    (1, 1, 1, 100000, 782),  # one long sequence: 2 tiles a split
+    (8, 4, 4, 4000, 32),     # a capacity that ends mid-tile
+])
+def test_decode_split_plan(batch, kv_heads, group, capacity, splits):
+    got = decode_splits(batch, kv_heads, group, capacity, H100_SMS)
+    assert got == splits
+    tiles = -(-capacity // 64)
+    per = -(-tiles // got)  # tiles a split, as the C launcher derives it
+    assert per * got >= tiles and per * (got - 1) < tiles  # none empty
+    ctas = batch * kv_heads * -(-group // 16)
+    # Two tiles a split, or as few more as keep to 8 CTAs an SM.
+    assert per == max(2, -(-tiles * ctas // (8 * H100_SMS))) or got == 1
+    assert ctas * got <= 8 * H100_SMS or per > 2
+
+
+@pytest.mark.parametrize("group", [1, 4, 16, 17, 40])
+def test_decode_split_plan_counts_group_slices(group):
+    """A group over 16 rows runs in 16-row slices, each a CTA: the plan
+    counts them, so a larger group needs no more splits."""
+    one = decode_splits(2, 1, 16, 4096, H100_SMS)
+    got = decode_splits(2, 1, group, 4096, H100_SMS)
+    assert got <= one if group > 16 else got == one
+
+
+@pytest.mark.parametrize("dtype,d,states,vtz,want", [
+    (torch.bfloat16, 64, 2, 0, "tensor_core"),
+    (torch.bfloat16, 128, 2, 0, "tensor_core"),
+    (torch.bfloat16, 256, 2, 0, "tensor_core"),
+    (torch.bfloat16, 80, 1, 16, "tensor_core"),
+    (torch.bfloat16, 288, 1, 32, "tensor_core"),   # MLA: 256 kept lanes
+    (torch.bfloat16, 288, 1, 16, "fp32_fma"),      # 272 kept lanes
+    (torch.bfloat16, 288, 2, 32, "fp32_fma"),      # two-state pages
+    (torch.bfloat16, 288, 1, 0, "fp32_fma"),       # the int4 byte at 288
+    (torch.bfloat16, 272, 1, 16, "tensor_core"),
+    (torch.float32, 64, 2, 0, "fp32_fma"),
+    (torch.float32, 288, 1, 32, "fp32_fma"),
+])
+def test_prefill_routing_rule(dtype, d, states, vtz, want):
+    assert prefill_body(dtype, d, states, vtz) == want
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),
+                                        (torch.float32, "fp32_fma")])
+def test_decode_routing_rule(dtype, want):
+    assert decode_body(dtype) == want
