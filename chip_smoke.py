@@ -66,7 +66,11 @@ checkout, then, on the card:
    do not tile 128); (b) the head-pair
    kernel against its plain version at the flagship shapes in the packed
    layout, int8 and int4, causal and full; (c) both runtime quantization
-   kernels against their plain versions, bit for bit; (d) full-width
+   kernels against their plain versions, bit for bit, each called twice
+   with the same bits, in every strategy at 8 and 4 bits in bf16 and
+   fp32, at the facade's rows, at [4096, 1024] with bs 64 and 128 and at
+   ragged, unaligned and small shapes (RTQ_ROW_SHAPES, RTQ_BLOCK_SHAPES);
+   (d) full-width
    ``quantized_forward(quantize_weights(params), tokens, cfg,
    quantize_kv=True)`` on 2 x 2048 tokens, packed (auto) and unpacked,
    against the fp32 ``forward`` on the dequantized weights, gated on the
@@ -78,7 +82,10 @@ checkout, then, on the card:
    fp32 attention, with 2 row-kernel and 1 quantized-forward launches per
    call, and ``runtime_quantize`` with the blockwise-centered
    configuration, the block kernel's entry point; (f) times of the four
-   kernels beside their bounds, plain versions and library calls;
+   kernels beside their bounds, plain versions and library calls (the
+   two quantizers also by the profiler's device time, the block kernel at
+   bs 64 and 128), and of one int8 CENTERED ``QuantizedAttention`` call
+   by events and device time by kernel;
 11. the quantized backward (inputs from a fourth generator, seed + 3): (a)
    the full-integer dQ and dK/dV kernels against their plain versions at
    the JAX package's north-star shape (bench.py: B=4, H=4, S=4096, D=256,
@@ -184,6 +191,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -421,6 +429,18 @@ REDESIGNED = ("mma.sync tensor-core body for its bf16 (and int8) instances, "
               "cp.async staging")
 QBWD_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
                "quantized_attention_bwd.cu")
+# What the record says of the redesigned runtime quantizers.
+RTQ_REDESIGNED = {
+    "runtime_quantize_row": "sub-warp rows (a group of 8 lanes at K = 64), "
+                            "16-byte loads held in registers, every pass "
+                            "from them, 8-byte code stores",
+    "runtime_quantize_block": "each block's slab split over a thread block "
+                              "cluster (16 blocks x 16 CTAs at bs 64, 8 x 16 "
+                              "at bs 128), 16-byte loads held in registers, "
+                              "one statistics pass, the partials exchanged "
+                              "in rank order through distributed shared "
+                              "memory",
+}
 # The device kernel each record entry's wrapper launches at the entry's
 # (main-path) shape.
 DEVICE_KERNELS = {
@@ -482,11 +502,13 @@ PARENT = {"lib": None, "turns": []}
 # from before the s8 tile (no ``mfa_comp_small_body``) lacks the tile rows
 # and K splits: its kernel chooses its own.  The paged decode from before
 # the split KV axis (no ``mfa_paged_bodies``) lacks the splits and the
-# workspace.
+# workspace.  The block quantizer from before the cluster (no
+# ``mfa_rtq_row_group``) lacks the cluster size.
 LEGACY_ARGS = {"mfa_wo_folded_gemm": ("mfa_wo_tc_body", 9),
                "mfa_wo_gemm": ("mfa_wo_tc_body", 12),
                "mfa_dyn_gemm": ("mfa_comp_small_body", 12),
-               "mfa_paged_decode": ("mfa_paged_bodies", 19)}
+               "mfa_paged_decode": ("mfa_paged_bodies", 19),
+               "mfa_rtq_blocks": ("mfa_rtq_row_group", 12)}
 
 
 @contextlib.contextmanager
@@ -528,31 +550,41 @@ def kernels_of(lib):
          qgemm.comp_small_body) = own
 
 
-def parent_turns(label, t, kernel, iters, device=False, parent_kernel=None):
+def parent_turns(label, t, kernel, iters, device=False, parent_kernel=None,
+                 by_kernel=False):
     """With ``--parent``: ``kernel`` timed on the parent's library and on
     this checkout's in turns (parent, change, change, parent), into
     ``t["parent_turns_ms"]`` and the summary (``parent_kernel`` in the
     parent's turns where it is given); with ``device``, each turn's device
-    ms too (``device_ms``), into ``t["parent_turns_device_ms"]``; nothing
-    without ``--parent``."""
+    ms too (``device_ms``), into ``t["parent_turns_device_ms"]``, and with
+    ``by_kernel`` each turn's device ms by kernel (``kernel_label``) into
+    ``t["parent_turns_device_ms_by_kernel"]``; nothing without
+    ``--parent``."""
     if PARENT["lib"] is None:
         return
     turns = {"parent": [], "change": []}
     dev = {"parent": [], "change": []}
+    per = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         fn = parent_kernel if who == "parent" and parent_kernel else kernel
         with (kernels_of(PARENT["lib"]) if who == "parent"
               else contextlib.nullcontext()):
             turns[who].append(time_ms(fn, iters, warmup=1))
-            if device:
-                dev[who].append(device_ms(fn, iters))
+            if device or by_kernel:
+                by = device_ms_by_label(fn, iters)
+                dev[who].append(sum(by.values()))
+                per[who].append(by)
     t["parent_turns_ms"] = turns
     PARENT["turns"].append((label, turns))
     log(f"{label} parent / change turns: " + json.dumps(turns))
-    if device:
+    if device or by_kernel:
         t["parent_turns_device_ms"] = dev
         PARENT["turns"].append((f"{label} (device ms)", dev))
         log(f"{label} parent / change turns, device ms: " + json.dumps(dev))
+    if by_kernel:
+        t["parent_turns_device_ms_by_kernel"] = per
+        log(f"{label} parent / change turns, device ms by kernel: "
+            + json.dumps(per))
 
 
 def log_parent_summary():
@@ -1139,6 +1171,21 @@ def device_ms(fn, iters: int) -> float:
     """The device time of ``fn``'s kernels per call, ms
     (:func:`device_ms_by_kernel` summed)."""
     return sum(device_ms_by_kernel(fn, iters).values())
+
+
+def kernel_label(key: str) -> str:
+    """A profiler kernel name without its return type, namespaces,
+    template arguments and parameters."""
+    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", name, maxsplit=1)[0].rsplit("::", 1)[-1]
+
+
+def device_ms_by_label(fn, iters: int) -> dict:
+    """:func:`device_ms_by_kernel` summed by :func:`kernel_label`."""
+    out = {}
+    for key, ms in device_ms_by_kernel(fn, iters).items():
+        out[kernel_label(key)] = out.get(kernel_label(key), 0.0) + ms
+    return out
 
 
 def dense_kv(pool, row, n, pt):
@@ -1791,39 +1838,74 @@ def check_hpack_all(rng):
     return errs
 
 
+# Runtime quantization's shapes past the main path's (rows [R, K]; blocks
+# [R, K] and bs): ragged and unaligned widths, a slab whose rows do not
+# divide over its cluster or number fewer than its CTAs, bs 32 and 256, a
+# band past the CTA's held chunks; the offset puts the base off 16-byte
+# alignment.
+RTQ_ROW_SHAPES = [((50, 37), 0), ((64, 96), 0), ((33, 100), 0),
+                  ((300, 64), 1), ((9, 2000), 0)]
+RTQ_BLOCK_SHAPES = [((300, 384), 128, 0), ((300, 256), 32, 0),
+                    ((200, 1024), 256, 0), ((5, 256), 64, 0),
+                    ((40, 300), 100, 0), ((64, 512), 64, 1),
+                    ((20000, 64), 64, 0)]
+
+
+def rtq_input(g, shape, dtype, offset=0):
+    """x [R, K] of ``dtype`` drawn on the card, ``offset`` elements into
+    its storage."""
+    n = shape[0] * shape[1]
+    flat = torch.randn(n + offset, generator=g, device=DEV) * 2 + 0.3
+    return flat.to(dtype)[offset:].view(shape)
+
+
 def check_runtime_quantization(rng):
     """(c) Both runtime quantization kernels against their plain versions,
-    bit for bit: the row kernel on the facade's K/V rows ([2·4·2048, 64]
-    bf16) in each strategy, the block kernel on a [4096, 1024] bf16
-    activation at bs 64 in each strategy and at bs 128 (CENTERED, int8
-    and int4).  → the number of outputs compared."""
+    bit for bit (codes, scales, zero points, Σq), each called twice on the
+    same input with the same bits: the row kernel on the facade's K/V rows
+    ([2·4·2048, 64]) and the block kernel on a [4096, 1024] activation at
+    bs 64 and 128, in every strategy at 8 and 4 bits in bf16 and fp32;
+    then the same over RTQ_ROW_SHAPES and RTQ_BLOCK_SHAPES.  → the number
+    of cases compared."""
     g = device_generator(rng)
-    rows = (torch.randn((ATTN_B * ATTN_HKV * ATTN_S, ATTN_D), generator=g,
-                        device=DEV) * 2 + 0.3).to(torch.bfloat16)
-    act = (torch.randn((4096, 1024), generator=g, device=DEV) * 2
-           + 0.3).to(torch.bfloat16)
-    cases = [("row", s, 8, None) for s in QuantStrategy]
-    cases += [("block", s, 8, 64) for s in QuantStrategy]
-    cases += [("block", QuantStrategy.CENTERED, bits, 128) for bits in (8, 4)]
-    for kind, strategy, bits, bs in cases:
-        if kind == "row":
-            got = rtq.rtq_rows(rows, strategy, bits, True)
-            torch.cuda.synchronize()
-            want = rtq.rtq_rows_plain(rows, strategy, bits, True)
-        else:
-            got = rtq.rtq_blocks(act, bs, strategy, bits, True)
-            torch.cuda.synchronize()
-            want = rtq.rtq_blocks_plain(act, bs, strategy, bits, True)
-        for name, a, b in zip(("codes", "scale", "zero point", "sums"),
-                              got, want):
-            if not torch.equal(a, b):
-                raise AssertionError(
-                    f"runtime quantization {kind} {strategy.value} int{bits}"
-                    f" bs={bs}: {name} differs from the plain version")
-    log(f"runtime quantization: {len(cases)} cases (rows [16384, 64]: 3 "
-        "strategies; blocks [4096, 1024]: bs 64 x 3 strategies, bs 128 "
-        "int8/int4) bit-identical to the plain versions")
-    return len(cases)
+    inputs = [("row", rtq_input(g, (ATTN_B * ATTN_HKV * ATTN_S, ATTN_D), dt),
+               None) for dt in (torch.bfloat16, torch.float32)]
+    inputs += [("block", rtq_input(g, (4096, 1024), dt), bs)
+               for dt in (torch.bfloat16, torch.float32) for bs in (64, 128)]
+    inputs += [("row", rtq_input(g, shape, dt, off), None)
+               for shape, off in RTQ_ROW_SHAPES
+               for dt in (torch.bfloat16, torch.float32)]
+    inputs += [("block", rtq_input(g, shape, dt, off), bs)
+               for shape, bs, off in RTQ_BLOCK_SHAPES
+               for dt in (torch.bfloat16, torch.float32)]
+    cases = 0
+    for kind, x, bs in inputs:
+        for strategy in QuantStrategy:
+            for bits in (8, 4):
+                if kind == "row":
+                    call = lambda: rtq.rtq_rows(  # noqa: E731
+                        x, strategy, bits, True)
+                    want = rtq.rtq_rows_plain(x, strategy, bits, True)
+                else:
+                    call = lambda: rtq.rtq_blocks(  # noqa: E731
+                        x, bs, strategy, bits, True)
+                    want = rtq.rtq_blocks_plain(x, bs, strategy, bits, True)
+                first = call()
+                second = call()
+                torch.cuda.synchronize()
+                for name, a, b, w in zip(("codes", "scale", "zero point",
+                                          "sums"), first, second, want):
+                    if not (torch.equal(a, w) and torch.equal(b, w)):
+                        raise AssertionError(
+                            f"runtime quantization {kind} {list(x.shape)} "
+                            f"{x.dtype} {strategy.value} int{bits} bs={bs}:"
+                            f" {name} differs from the plain version or "
+                            "between two calls")
+                cases += 1
+    log(f"runtime quantization: {cases} cases (rows [16384, 64] and blocks "
+        "[4096, 1024] bs 64 / 128, then the ragged shapes; 3 strategies x "
+        "int8/int4 x bf16/fp32) bit-identical to the plain versions, twice")
+    return cases
 
 
 def run_quantized_attention_forward(cfg, qparams, seed, packed, tol, label):
@@ -1956,8 +2038,9 @@ def time_quantized_attention(rng):
     (quantize_q, ROW K/V) and in the facade's (ROW CENTERED), the
     head-pair kernel in the packed model's (CHANNEL, causal), the row
     kernel on the facade's K/V rows and the block kernel on a [4096, 1024]
-    activation at bs 64.  Library: SDPA over the dequantized bf16 K/V for
-    attention; none for runtime quantization."""
+    activation at bs 64 and 128 (both quantizers also by device time), and
+    one facade call (:func:`time_facade`).  Library: SDPA over the
+    dequantized bf16 K/V for attention; none for runtime quantization."""
     b, hq, hkv, s, d = ATTN_B, ATTN_HQ, ATTN_HKV, ATTN_S, ATTN_D
     pairs = b * hq * s * (s + 1) // 2
     q, k, v = attn_inputs(rng, b, hq, hkv, s, s, d)
@@ -1965,13 +2048,16 @@ def time_quantized_attention(rng):
     kv_bytes = 2 * b * hkv * s * d  # int8 K and V payloads
     times = {}
 
-    def timed(name, kernel, plain, library, bound, extra=None):
+    def timed(name, kernel, plain, library, bound, extra=None, device=False):
         t = {"plain_ms": time_ms(plain, 2, warmup=1),
              "ms": time_ms(kernel, 10, warmup=2)}
         t["plain_ms_2"] = time_ms(plain, 2, warmup=0)
         t["ms_2"] = time_ms(kernel, 10, warmup=0)
+        if device:  # events time the host's dispatch of a short kernel
+            t["device_ms"] = device_ms(kernel, 10)
+            t["device_ms_2"] = device_ms(kernel, 10)
         t["library_ms"] = None if library is None else time_ms(library, 10)
-        parent_turns(name, t, kernel, 10)
+        parent_turns(name, t, kernel, 10, device=device)
         t["bound_ms"], t["bound_by"] = bound
         t.update(extra or {})
         log(f"{name} times: " + json.dumps(t))
@@ -2029,15 +2115,43 @@ def time_quantized_attention(rng):
         "runtime_quantize_row CENTERED [16384, 64] bf16",
         lambda: rtq.rtq_rows(rows, centered, 8),
         lambda: rtq.rtq_rows_plain(rows, centered, 8, False), None,
-        bound_of(0, 3 * rows.numel() + 8 * rows.shape[0]))
+        bound_of(0, 3 * rows.numel() + 8 * rows.shape[0]), device=True)
     act = torch.randn((4096, 1024), generator=g, device=DEV).to(
         torch.bfloat16)
     times["runtime_quantize_block"] = timed(
         "runtime_quantize_block CENTERED [4096, 1024] bf16 bs 64",
         lambda: rtq.rtq_blocks(act, 64, centered, 8, True),
         lambda: rtq.rtq_blocks_plain(act, 64, centered, 8, True), None,
-        bound_of(0, 3 * act.numel() + 12 * 16))
+        bound_of(0, 3 * act.numel() + 12 * 16), device=True)
+    bs128 = timed(
+        "runtime_quantize_block CENTERED [4096, 1024] bf16 bs 128",
+        lambda: rtq.rtq_blocks(act, 128, centered, 8, True),
+        lambda: rtq.rtq_blocks_plain(act, 128, centered, 8, True), None,
+        bound_of(0, 3 * act.numel() + 12 * 8), device=True)
+    times["runtime_quantize_block"].update(
+        {f"{key}_bs128": bs128[key] for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms",
+            "parent_turns_device_ms") if key in bs128})
+    times["facade"] = time_facade(q, k, v)
     return times
+
+
+def time_facade(q, k, v):
+    """(f) One ``QuantizedAttention`` int8 CENTERED call (phase 10 (e)'s
+    shape, causal): events, and device ms by kernel (its two row
+    quantizers and one ``qattn_fwd``), in turns with ``--parent``."""
+    facade = QuantizedAttention(
+        config=QuantizedAttentionConfig(key_bits=8, value_bits=8,
+                                        hadamard=False),
+        mask=masking.CAUSAL)
+    call = lambda: facade(q, k, v)  # noqa: E731
+    t = {"ms": time_ms(call, 10), "ms_2": time_ms(call, 10, warmup=0)}
+    t["device_ms_by_kernel"] = device_ms_by_label(call, 10)
+    t["device_ms"] = sum(t["device_ms_by_kernel"].values())
+    parent_turns("QuantizedAttention int8 CENTERED call (B=2 Hq=16 Hkv=4 "
+                 "S=2048 D=64 causal)", t, call, 10, by_kernel=True)
+    log("QuantizedAttention int8 CENTERED call times: " + json.dumps(t))
+    return t
 
 
 def run_quantized_attention(cfg, params, seed, rng):
@@ -3253,8 +3367,10 @@ GEMM_LIBRARY = {
 
 
 def scalar_comp_small_call(args, kw):
-    """``comp_small_gemm``'s scalar route as a parent whose wrapper took the
-    per-element [K] vectors from ``comp_arguments`` ran it: the vectors
+    """``comp_small_gemm``'s scalar route as a parent without the
+    small-block tensor-core tile (no ``mfa_comp_small_body``), whose wrapper
+    took the per-element [K] vectors from ``comp_arguments``, ran it: the
+    vectors
     expanded here, outside the timed call, and the call launching the
     library's ``mfa_comp_small_gemm`` on them."""
     qa, qb, sa, za, sb, zb = args[:6]
@@ -3340,11 +3456,14 @@ def time_gemm_kernels(rng):
             t["library_ms"] = time_ms(library, iters, warmup=1)
             if name.startswith("comp"):
                 t["call_ms"] = t_call
+            scalar_parent = (name == "comp_small_gemm" and PARENT["lib"]
+                             is not None and not hasattr(
+                                 PARENT["lib"], "mfa_comp_small_body"))
             parent_turns(f"{name} M={m} N={n} K={k}", t,
                          lambda: kernel(*args, **kw), iters,
                          device=name == "comp_small_gemm",
                          parent_kernel=scalar_comp_small_call(args, kw)
-                         if name == "comp_small_gemm" else None)
+                         if scalar_parent else None)
             a_bytes = a.nbytes_payload
             b_bytes = (b.nbytes_payload if isinstance(b, QuantizedTensor)
                        else b.numel() * b.element_size())
@@ -3652,10 +3771,15 @@ def main() -> int:
           "redesigned": REDESIGNED}),
         ("runtime_quantize_row", RTQ_SOURCE, f"{RTQ_TPU}:79",
          qattn["facade"]["int8"][1]["runtime_quantize_row"], 0.0,
-         {"shape": "[16384, 64] bf16 CENTERED (the facade's K/V rows)"}),
+         {"shape": "[16384, 64] bf16 CENTERED (the facade's K/V rows)",
+          "redesigned": RTQ_REDESIGNED["runtime_quantize_row"],
+          "facade_call": qt["facade"]}),
         ("runtime_quantize_block", RTQ_SOURCE, f"{RTQ_TPU}:63",
          qattn["block_launches"], 0.0,
-         {"shape": "[4096, 1024] bf16 CENTERED bs 64"}),
+         {"shape": "[4096, 1024] bf16 CENTERED bs 64 with sums",
+          "redesigned": RTQ_REDESIGNED["runtime_quantize_block"],
+          "cluster": rtq.block_cluster(1024, 64),
+          "cluster_bs128": rtq.block_cluster(1024, 128)}),
     ]
     for name, source, replaces, launches, err, extra in qattn_entries:
         t = qt[name]
@@ -3669,7 +3793,8 @@ def main() -> int:
                if t["library_ms"] is not None else {}),
             **extra,
             **{k: v for k, v in t.items() if k.endswith("_facade_mode")
-               or k == "parent_turns_ms"},
+               or k.endswith("_bs128") or k.startswith("device_ms")
+               or k.startswith("parent_turns")},
         })
     bt, ns, qat = qbwd["times"], qbwd["north_star"], qbwd["qat"]
     errs, ns_errs = qbwd["errors"], qbwd["north_star_errors"]

@@ -162,7 +162,7 @@ def mla_forward(
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     attn_fn = attn_fn or mla_absorbed_attention
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, params["embed"])
     for layer in params["layers"]:
         hn = rms_norm(x, layer["ln1"])
         q, qr = mla_layer_q(layer, hn, positions, cfg)
@@ -184,9 +184,14 @@ def mla_forward(
 
 def mla_loss_fn(params: Params, tokens: torch.Tensor, cfg: MLAConfig,
                 attn_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Next-token cross entropy, mean over all predicted positions."""
+    """Next-token cross entropy, mean over all predicted positions:
+    mean(logsumexp(logits) − logits[target]), the JAX package's loss.
+
+    As in ``transformer.loss_fn``: ``F.cross_entropy`` writes each target's
+    gradient once and ``mla_forward`` looks the tokens up with
+    ``F.embedding``, so the gradient has no scatter-add backward that is
+    nondeterministic on CUDA."""
     logits = mla_forward(params, tokens[:, :-1], cfg, attn_fn=attn_fn)
     targets = tokens[:, 1:].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return (lse - tgt).mean()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))

@@ -18,18 +18,28 @@ are bit-identical: the constant divisors (qmax, qmax − qmin, a cell's
 element count) become multiplies by their fp32 reciprocals, as XLA folds
 them; the divisions by a scale (``x / scale``, ``−mean / scale``,
 ``min / scale``) are IEEE divisions; rounding is half to even (``rintf`` /
-``torch.round``); and CENTERED's sum takes one fixed order:
+``torch.round``); and CENTERED's sum takes one fixed order.  A chunk is
+8 consecutive columns of one row (columns past the row's or the block's
+end are absent); a lane or thread sums its chunks' columns in order from
+0.0, chunk after chunk:
 
-- a row: lane ``l`` of a warp sums x[l], x[l + 32], ... in order from 0.0,
-  then the 32 lanes combine by xor butterfly (offsets 16, 8, 4, 2, 1);
-- a block: thread ``t`` of 1024 sums the block's elements t, t + 1024, ...
-  (row-major over its [R, block_size] slab) in order from 0.0, then the
-  1024 partial sums combine pairwise, ``a[t] += a[t + s]`` for s = 512 down
-  to 1.
+- a row of K columns: n = ceil(K / 8) chunks held by a group of G lanes
+  (:func:`row_group`: the power of two >= n, at most 32); lane ``j`` sums
+  chunks j, j + G, j + 2G, ...; then the G lanes combine by xor butterfly
+  over offsets G/2, ..., 1;
+- a block: its [R, block_size] slab split over a cluster of C CTAs
+  (:func:`block_cluster`), rank ``r`` taking rows [r·B, min(R, (r+1)·B)),
+  B = ceil(R / C); a band's chunks are numbered row-major, ceil(bs / 8)
+  to a row, and thread ``t`` of 512 sums chunks t, t + 512, ...; the 512
+  sums combine by xor butterfly over offsets 16, ..., 1 in each warp of
+  32, the 16 warp sums over offsets 8, ..., 1, and the C band sums add in
+  rank order, ((b0 + b1) + b2) + ....
 
-The JAX package sums in XLA's order, so on data whose sums are not exact
-the mean, and through it a scale or a code, may differ in the last bit;
-on data whose every partial sum is exact the three agree bit for bit.
+Both orders depend on the shape alone, not on the dtype, so a bf16 input
+quantizes as its fp32 values do.  The JAX package sums in XLA's order,
+so on data whose sums are not exact the mean, and through it a scale or a
+code, may differ in the last bit; on data whose every partial sum is
+exact the three agree bit for bit.
 """
 
 from __future__ import annotations
@@ -55,14 +65,18 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
 
 EPS = 1e-12
 WARP = 32
-BLOCK_THREADS = 1024
+CHUNK = 8  # columns a chunk: one 16-byte load in bf16, two in fp32
+BLOCK_THREADS = 512  # a block kernel CTA
+BLOCK_WARPS = BLOCK_THREADS // WARP
+MAX_CLUSTER = 16  # CTAs sharing a block's slab (a non-portable size past 8)
+CLUSTER_GRID = 256  # the block kernel's grid: two CTAs on each of 132 SMs
 STRATEGY_CODES = {QuantStrategy.SYMMETRIC: 0, QuantStrategy.CENTERED: 1,
                   QuantStrategy.ASYMMETRIC: 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ROW_ARGS = [_PTR] * 5 + [_I32] * 4 + [_F32, _F32, _PTR]
-_BLOCK_ARGS = [_PTR] * 5 + [_I32] * 5 + [_F32, _F32, _PTR]
+_BLOCK_ARGS = [_PTR] * 5 + [_I32] * 5 + [_F32, _F32, _I32, _PTR]
 
 Codes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
@@ -72,33 +86,80 @@ Codes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 # ---------------------------------------------------------------------------
 
 
-def _warp_sum(cells: torch.Tensor) -> torch.Tensor:
+def row_group(k: int) -> int:
+    """The lanes of a warp that hold one row of ``k`` columns in the row
+    kernel: the power of two that covers its ceil(k / 8) chunks, at most
+    32 (``csrc/runtime_quantization.cu::row_group``)."""
+    n, g = -(-k // CHUNK), 1
+    while g < n and g < WARP:
+        g *= 2
+    return g
+
+
+def block_cluster(k: int, block_size: int) -> int:
+    """The CTAs that share one block's slab in the block kernel: the power
+    of two, at most 16, that brings the grid of k / block_size clusters to
+    256 CTAs, two on each SM (16 blocks x 16 at bs 64 on K = 1024; 8 x 16
+    at bs 128)."""
+    nb, c = k // block_size, 1
+    while nb * c < CLUSTER_GRID and c < MAX_CLUSTER:
+        c *= 2
+    return c
+
+
+def _chunk_sums(chunks: torch.Tensor) -> torch.Tensor:
+    """[..., passes, lanes, 8] → [..., lanes]: each lane's chunks summed
+    in order from 0.0, pass after pass, column after column."""
+    acc = torch.zeros(chunks.shape[:-3] + chunks.shape[-2:-1],
+                      dtype=torch.float32, device=chunks.device)
+    for p in range(chunks.shape[-3]):
+        for e in range(CHUNK):
+            acc = acc + chunks[..., p, :, e]
+    return acc
+
+
+def _butterfly(acc: torch.Tensor, width: int) -> torch.Tensor:
+    """[..., width] → [...]: the xor butterfly over offsets width/2, ...,
+    1 (lane 0's result; every lane ends with the same bits)."""
+    lane = torch.arange(width, device=acc.device)
+    off = width // 2
+    while off:
+        acc = acc + acc[..., lane ^ off]
+        off //= 2
+    return acc[..., 0]
+
+
+def _row_sum(cells: torch.Tensor) -> torch.Tensor:
     """Σ of each row of fp32 ``cells`` [G, n] in the row kernel's order."""
-    g, n = cells.shape
-    lanes = F.pad(cells, (0, (-n) % WARP)).reshape(g, -1, WARP)
-    acc = torch.zeros((g, WARP), dtype=torch.float32, device=cells.device)
-    for j in range(lanes.shape[1]):
-        acc = acc + lanes[:, j]
-    lane = torch.arange(WARP, device=cells.device)
-    for off in (16, 8, 4, 2, 1):
-        acc = acc + acc[:, lane ^ off]
-    return acc[:, 0]
+    rows, n = cells.shape
+    g = row_group(n)
+    nch = -(-n // CHUNK)
+    passes = -(-nch // g)
+    chunks = F.pad(cells, (0, passes * g * CHUNK - n)).reshape(
+        rows, passes, g, CHUNK)
+    return _butterfly(_chunk_sums(chunks), g)
 
 
-def _block_sum(cells: torch.Tensor) -> torch.Tensor:
-    """Σ of each row of fp32 ``cells`` [G, n] in the block kernel's order."""
-    g, n = cells.shape
-    parts = F.pad(cells, (0, (-n) % BLOCK_THREADS)).reshape(
-        g, -1, BLOCK_THREADS)
-    acc = torch.zeros((g, BLOCK_THREADS), dtype=torch.float32,
-                      device=cells.device)
-    for j in range(parts.shape[1]):
-        acc = acc + parts[:, j]
-    s = BLOCK_THREADS // 2
-    while s:
-        acc = acc[:, :s] + acc[:, s: 2 * s]
-        s //= 2
-    return acc[:, 0]
+def _block_sum(cells: torch.Tensor, rows: int, block_size: int,
+               cluster: int) -> torch.Tensor:
+    """Σ of each row of fp32 ``cells`` [nb, rows · block_size] (a block's
+    slab, row-major) in the block kernel's order over ``cluster`` CTAs."""
+    nb = cells.shape[0]
+    cpr = -(-block_size // CHUNK)
+    band = -(-rows // cluster)
+    slab = F.pad(cells.reshape(nb, rows, block_size),
+                 (0, cpr * CHUNK - block_size, 0, cluster * band - rows))
+    chunks = slab.reshape(nb, cluster, band * cpr, CHUNK)
+    passes = -(-(band * cpr) // BLOCK_THREADS)
+    chunks = F.pad(chunks, (0, 0, 0, passes * BLOCK_THREADS - band * cpr))
+    acc = _chunk_sums(chunks.reshape(nb, cluster, passes, BLOCK_THREADS,
+                                     CHUNK))
+    warps = _butterfly(acc.reshape(nb, cluster, BLOCK_WARPS, WARP), WARP)
+    bands = _butterfly(warps, BLOCK_WARPS)
+    total = bands[:, 0]
+    for r in range(1, cluster):
+        total = total + bands[:, r]
+    return total
 
 
 def _recip(n: float, device) -> torch.Tensor:
@@ -152,7 +213,7 @@ def rtq_rows_plain(x: torch.Tensor, strategy: QuantStrategy, bits: int,
     cfg = QuantConfig(bits=bits)
     cells = x.float()
     scale, zp = _stats(cells, strategy, float(cfg.qmax), float(cfg.qmin),
-                       _warp_sum)
+                       _row_sum)
     return _codes(cells, scale, zp, float(cfg.qmax), float(cfg.qmin),
                   want_sums)
 
@@ -166,8 +227,10 @@ def rtq_blocks_plain(x: torch.Tensor, block_size: int,
     nb = k // block_size
     cells = x.float().reshape(r, nb, block_size).transpose(0, 1).reshape(
         nb, r * block_size)
-    scale, zp = _stats(cells, strategy, float(cfg.qmax), float(cfg.qmin),
-                       _block_sum)
+    cluster = block_cluster(k, block_size)
+    scale, zp = _stats(
+        cells, strategy, float(cfg.qmax), float(cfg.qmin),
+        lambda c: _block_sum(c, r, block_size, cluster))
     q, scale, zp, sums = _codes(cells, scale, zp, float(cfg.qmax),
                                 float(cfg.qmin), want_sums)
     q = q.reshape(nb, r, block_size).transpose(0, 1).reshape(r, k)
@@ -227,8 +290,8 @@ def rtq_blocks(x: torch.Tensor, block_size: int,
     """Per-K-block runtime quantization of x [R, K] (statistics over each
     [R, block_size] slab) → (int8 codes [R, K], scale fp32 [K/bs], zero
     point int32 [K/bs], Σq int32 [K/bs] or None).  CPU tensors take
-    :func:`rtq_blocks_plain`; CUDA tensors launch
-    ``rtq_block_kernel`` or raise."""
+    :func:`rtq_blocks_plain`; CUDA tensors launch ``rtq_block_kernel``,
+    a cluster of :func:`block_cluster` CTAs a block, or raise."""
     if x.shape[1] % block_size:
         raise ValueError(f"K={x.shape[1]} not divisible by "
                          f"block_size={block_size}")
@@ -242,7 +305,7 @@ def rtq_blocks(x: torch.Tensor, block_size: int,
         x.data_ptr(), codes.data_ptr(), scale.data_ptr(), zp.data_ptr(),
         None if sums is None else sums.data_ptr(), DTYPE_CODES[x.dtype], r, k,
         block_size, STRATEGY_CODES[strategy], float(cfg.qmax),
-        float(cfg.qmin), stream_of(x))
+        float(cfg.qmin), block_cluster(k, block_size), stream_of(x))
     _build.check_launch(rc, "rtq_blocks")
     rtq_blocks.launches += 1
     return codes, scale, zp, sums

@@ -87,6 +87,15 @@ which the output marks: the time by CUDA events over 50 calls after 3 to
 warm up, and the device time of the split kernel and of the merge over 50
 more under the profiler.
 
+``--rtq-clusters``: the runtime block quantizer on a [4096, 1024] bf16
+activation, CENTERED with Σq, at bs 64 and 128, over cluster sizes
+(:data:`RTQ_CLUSTER_PLANS`), each forced in place of
+``ops.runtime_quantization.block_cluster``'s choice, which the output
+marks, and held bit for bit to the plain version over the same cluster
+(whose summation order it sets): the time by CUDA events over 50 calls
+after 3 to warm up, the device time over 50 more under the profiler, and
+how many such clusters the card holds at once (``mfa_rtq_max_clusters``).
+
 ``--determinism [STEPS]``: the train step of ``--train`` run twice from
 one seeded initial state for STEPS steps (default 8) in turn, the two
 copies compared bit for bit after every step (:func:`train_twice`: the
@@ -106,6 +115,7 @@ the idle share it reads is an upper bound.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -120,6 +130,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from metal_flash_attention_plus_tpu_torch import _build
 from metal_flash_attention_plus_tpu_torch.models.mla_transformer import (
     MLAConfig,
     init_mla_params,
@@ -143,6 +154,7 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     quantized_flash_attention,
 )
 from metal_flash_attention_plus_tpu_torch.ops import quantized_gemm
+from metal_flash_attention_plus_tpu_torch.ops import runtime_quantization
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
     dynamic_quantized_matmul,
     wo_arguments,
@@ -767,6 +779,49 @@ def profile_decode_splits(seed: int, iters: int = 50) -> int:
     return 0
 
 
+# Cluster sizes --rtq-clusters times beside block_cluster's choice.
+RTQ_CLUSTER_PLANS = (4, 8, 16)
+
+
+def profile_rtq_clusters(seed: int, iters: int = 50) -> int:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    act = torch.randn((4096, 1024), generator=g, device="cuda").to(
+        torch.bfloat16)
+    centered = QuantStrategy.CENTERED
+    planner = runtime_quantization.block_cluster
+    active = _build.kernel_function("mfa_rtq_max_clusters", [ctypes.c_int])
+    for bs in (64, 128):
+        chosen = planner(act.shape[1], bs)
+        for cluster in sorted({chosen, *RTQ_CLUSTER_PLANS}):
+            runtime_quantization.block_cluster = lambda *_, c=cluster: c
+            try:
+                def run():
+                    return runtime_quantization.rtq_blocks(act, bs, centered,
+                                                           8, True)
+                want = runtime_quantization.rtq_blocks_plain(
+                    act, bs, centered, 8, True)
+                same = all(torch.equal(a, b) for a, b in zip(run(), want))
+                for _ in range(3):
+                    run()
+                ms = cuda_ms(run, iters)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(iters):
+                        run()
+                    torch.cuda.synchronize()
+            finally:
+                runtime_quantization.block_cluster = planner
+            print(json.dumps({
+                "device": torch.cuda.get_device_name(0),
+                "kernel": "rtq_block_kernel", "shape": list(act.shape),
+                "bs": bs, "cluster": cluster,
+                "ctas": act.shape[1] // bs * cluster,
+                "max_active_clusters": active(cluster),
+                "bit_identical": same, "ms": ms,
+                "device_ms": kernel_table(prof)[0] / 1e3 / iters,
+                "chosen": cluster == chosen}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -792,6 +847,9 @@ def main() -> int:
                     "small-block compensated GEMMs) over tile plans")
     ap.add_argument("--decode-splits", action="store_true",
                     help="time the paged decode over split counts")
+    ap.add_argument("--rtq-clusters", action="store_true",
+                    help="time the runtime block quantizer over cluster "
+                    "sizes")
     ap.add_argument("--determinism", type=int, nargs="?", const=8,
                     metavar="STEPS",
                     help="train twice from one state and compare bit for "
@@ -808,6 +866,8 @@ def main() -> int:
         return profile_dyn_tiles(args.seed)
     if args.decode_splits:
         return profile_decode_splits(args.seed)
+    if args.rtq_clusters:
+        return profile_rtq_clusters(args.seed)
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
     if args.mla:

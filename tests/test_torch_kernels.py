@@ -1114,23 +1114,50 @@ def test_quantized_backward_kernels_reject_what_they_do_not_take(
 # --------------------------------------------------------------------------
 
 
+def _rtq_input(device, shape, dtype, offset):
+    """x [R, K] of ``dtype``; ``offset`` elements into its storage, so a
+    nonzero offset leaves the base off 16-byte alignment (the kernels'
+    scalar loads)."""
+    n = shape[0] * shape[1]
+    flat = torch.randn(n + offset, device=device) * 3 + 0.7
+    return flat.to(dtype)[offset:].view(shape)
+
+
+def _same_twice(call, want):
+    """Two calls of ``call`` give the same bits, and those of ``want``."""
+    first = call()
+    torch.cuda.synchronize()
+    second = call()
+    torch.cuda.synchronize()
+    for a, b, w in zip(first, second, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("strategy", list(qparams.QuantStrategy),
                          ids=lambda s: s.value)
-@pytest.mark.parametrize("shape", [(1000, 64), (37, 200)],
-                         ids=["1000x64", "37x200"])
-def test_row_kernel_matches_plain_bit_for_bit(cuda_device, shape, strategy,
-                                              bits, dtype):
-    x = (torch.randn(shape, device=cuda_device) * 3 + 0.7).to(dtype)
+@pytest.mark.parametrize("shape,offset", [
+    ((1000, 64), 0), ((37, 200), 0),
+    ((16384, 64), 0),  # the facade's K/V rows
+    ((50, 37), 0),     # rows not a multiple of 16 bytes, a ragged chunk
+    ((64, 96), 0), ((33, 100), 0), ((5, 1), 0),
+    ((300, 64), 1),    # a base off 16-byte alignment
+    ((9, 2000), 0),    # past four chunks a lane: re-read from L1
+], ids=["1000x64", "37x200", "16384x64", "50x37", "64x96", "33x100", "5x1",
+        "300x64-unaligned", "9x2000"])
+def test_row_kernel_matches_plain_bit_for_bit(cuda_device, shape, offset,
+                                              strategy, bits, dtype):
+    x = _rtq_input(cuda_device, shape, dtype, offset)
     n = rq.rtq_rows.launches
-    got = rq.rtq_rows(x, strategy, bits, True)
-    torch.cuda.synchronize()
-    assert rq.rtq_rows.launches == n + 1
     want = rq.rtq_rows_plain(x, strategy, bits, True)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    _same_twice(lambda: rq.rtq_rows(x, strategy, bits, True), want)
+    assert rq.rtq_rows.launches == n + 2
+    got = rq.rtq_rows(x, strategy, bits, False)
+    assert got[3] is None and all(torch.equal(a, b)
+                                  for a, b in zip(got[:3], want[:3]))
 
 
 @pytest.mark.cuda
@@ -1138,18 +1165,56 @@ def test_row_kernel_matches_plain_bit_for_bit(cuda_device, shape, strategy,
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("strategy", list(qparams.QuantStrategy),
                          ids=lambda s: s.value)
-@pytest.mark.parametrize("shape,bs", [((512, 256), 64), ((300, 384), 128)],
-                         ids=["512x256-64", "300x384-128"])
+@pytest.mark.parametrize("shape,bs,offset", [
+    ((512, 256), 64, 0),
+    ((300, 384), 128, 0),   # 3 blocks x 16 CTAs: R not a multiple of C
+    ((4096, 1024), 64, 0), ((4096, 1024), 128, 0),  # the main path's
+    ((300, 256), 32, 0), ((200, 1024), 256, 0),
+    ((5, 256), 64, 0),      # R < C: empty bands
+    ((40, 300), 100, 0),    # bs not a multiple of 8
+    ((64, 512), 64, 1),     # a base off 16-byte alignment
+    ((20000, 64), 64, 0),   # a band past the held chunks: re-read from L2
+], ids=["512x256-64", "300x384-128", "4096x1024-64", "4096x1024-128",
+        "300x256-32", "200x1024-256", "5x256-64", "40x300-100",
+        "64x512-64-unaligned", "20000x64-64"])
 def test_block_kernel_matches_plain_bit_for_bit(cuda_device, shape, bs,
-                                                strategy, bits, dtype):
-    x = (torch.randn(shape, device=cuda_device) * 3 + 0.7).to(dtype)
+                                                offset, strategy, bits,
+                                                dtype):
+    x = _rtq_input(cuda_device, shape, dtype, offset)
     n = rq.rtq_blocks.launches
-    got = rq.rtq_blocks(x, bs, strategy, bits, True)
-    torch.cuda.synchronize()
-    assert rq.rtq_blocks.launches == n + 1
     want = rq.rtq_blocks_plain(x, bs, strategy, bits, True)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    _same_twice(lambda: rq.rtq_blocks(x, bs, strategy, bits, True), want)
+    assert rq.rtq_blocks.launches == n + 2
+    got = rq.rtq_blocks(x, bs, strategy, bits, False)
+    assert got[3] is None and all(torch.equal(a, b)
+                                  for a, b in zip(got[:3], want[:3]))
+
+
+@pytest.mark.cuda
+def test_row_group_matches_the_kernel(cuda_device):
+    """The C library's lanes a row (mfa_rtq_row_group) are the plain
+    version's (``row_group``)."""
+    import ctypes
+
+    from metal_flash_attention_plus_tpu_torch import _build
+
+    group = _build.kernel_function("mfa_rtq_row_group", [ctypes.c_int])
+    for k in (1, 7, 8, 9, 37, 64, 96, 100, 200, 256, 257, 2000, 4096):
+        assert group(k) == rq.row_group(k), k
+
+
+@pytest.mark.cuda
+def test_block_clusters_fit_on_the_card(cuda_device):
+    """Every cluster size block_cluster plans launches: the card holds at
+    least one cluster of it at once (mfa_rtq_max_clusters)."""
+    import ctypes
+
+    from metal_flash_attention_plus_tpu_torch import _build
+
+    active = _build.kernel_function("mfa_rtq_max_clusters", [ctypes.c_int])
+    for cluster in (1, 2, 4, 8, 16):
+        assert active(cluster) >= 1, cluster
+    assert active(17) < 0  # past MAX_CLUSTER
 
 
 @pytest.mark.cuda

@@ -89,6 +89,20 @@ def test_mla_forward_matches_jax_and_is_causal():
     assert loss.ndim == 0 and torch.isfinite(loss)
 
 
+def test_mla_loss_matches_jax():
+    """``mla_loss_fn`` (``F.embedding``, ``F.cross_entropy``) against the
+    JAX loss (indexing, logsumexp − take_along_axis), repeated tokens
+    included."""
+    jparams, tparams = _params()
+    toks = np.random.default_rng(2).integers(0, 128, (2, 33))
+    toks[1, 5:9] = toks[1, 4]
+    with jax.default_matmul_precision("highest"):
+        want = float(jmt.mla_loss_fn(jparams, jnp.asarray(toks), JCFG))
+    got = tmt.mla_loss_fn(tparams, torch.from_numpy(toks), TCFG)
+    assert got.ndim == 0 and got.dtype == torch.float32
+    assert abs(got.item() - want) <= LOGIT_TOL
+
+
 def test_quantize_mla_weights_matches_jax_byte_for_byte():
     jparams, tparams = _params()
     want = params_to_numpy(params_from_jax(
