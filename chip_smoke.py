@@ -156,7 +156,33 @@ checkout, then, on the card:
    library calls, and both weight-only kernels' there (gemm_bench's
    weight-only int8 / int4 BLOCK 256 arms through ``wo_gemm``, int8 ROW
    SYMMETRIC through ``wo_folded_gemm``), first held to their plain
-   versions in fp32 and their bf16 results to the fp32 ones rounded.
+   versions in fp32 and their bf16 results to the fp32 ones rounded;
+14. the dispatch layer (inputs from an eighth generator, seed + 7; the
+   calibration store is a fresh temporary directory, ``MFA_CACHE_DIR``,
+   set before phase 1): (a) ``MultiHeadAttention`` at the path's shape
+   (the train step's B=4, Hq=16, Hkv=4, S=2048, D=64, causal, bf16) and
+   at small shapes (grouped and interleaved GQA, MQA, a sliding window):
+   ``forward`` launches 1 flash forward, ``__call__`` with
+   ``torch.autograd.grad`` 1 forward + 1 dQ + 1 dK/dV, ``backward`` 1 dQ
+   + 1 dK/dV (the counts set to 0 just before and read after), each equal
+   bit for bit to the direct ``flash_attention_forward`` /
+   ``flash_attention`` / ``flash_attention_backward`` call; (b) the flash
+   forward's static-max mode (``row_max``) against its plain version on
+   the same subtrahends, bf16 at the path's shape and at D=128, 256 and
+   288 (the scalar kernel), fp32 at D=64, over FULL, CAUSAL, a window and
+   sparse ranges, with "estimate" and a caller's bound (the true row max
+   + 5), at the flash gates, O's gap to the running-max kernel logged;
+   ``flash_attention_forward(row_max="estimate")`` at the path's shape
+   with its one launch; (c) ``AttentionTuner.calibrate_gemm`` into the
+   run's store: the dynamic GEMM at the flagship projections' (N, K) for
+   M = 8, 256 and 4096, the weight-only GEMM at gemm_bench's (128, 8192,
+   8192), the chosen plan against the cold start with both device times,
+   ``recommend_gemm`` giving it back, and the GEMM launched under it held
+   to its plain version (the dynamic one bit for bit); (d)
+   ``QuantizedAttention().benchmark()`` at its defaults; (e) device and
+   event times of the static-max kernel, the running-max kernel and SDPA
+   at the path's shape, beside the bound and the static-max plain version
+   (the running-max kernel in ``--parent`` turns).
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -187,13 +213,17 @@ the script alone, outside the repository, fails at import.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -205,6 +235,16 @@ import torch.nn.functional as F
 
 from metal_flash_attention_plus_tpu_torch import _build
 from metal_flash_attention_plus_tpu_torch.attention import masking
+from metal_flash_attention_plus_tpu_torch.attention.descriptor import (
+    AttentionDescriptor,
+)
+from metal_flash_attention_plus_tpu_torch.attention.multi_head import (
+    MultiHeadAttention,
+)
+from metal_flash_attention_plus_tpu_torch.attention.tuning import (
+    AttentionTuner,
+    tile_of,
+)
 from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
@@ -245,8 +285,11 @@ from metal_flash_attention_plus_tpu_torch.ops import (
     quantized_attention as tqa,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    LOG2E,
     BlockSizes,
+    estimate_row_max_scaled,
     flash_attention,
+    flash_attention_forward,
     flash_attention_forward_plain,
     flash_fwd,
     fwd_body,
@@ -359,6 +402,7 @@ from metal_flash_attention_plus_tpu_torch.utils.profiling import (
     north_star_grads,
     north_star_inputs,
     gemm_arm,
+    measure_held,
     clone_params,
     params_digest,
     smoke_requests,
@@ -457,6 +501,7 @@ DEVICE_KERNELS = {
     "wo_folded_gemm": "wo_tc_kernel", "wo_gemm": "wo_tc_kernel",
     "qa_folded_gemm": "qa_tc_kernel", "qa_gemm": "qa_tc_kernel",
     "comp_gemm": "comp_tc_kernel", "comp_small_gemm": "comp_tc_kernel",
+    "flash_fwd_static_max": "flash_fwd_tc_kernel",
 }
 # comp_small_gemm's kernel for the blocks comp_small_body routes to the
 # scalar tile (not a multiple of 16; 13 (a)'s BLOCK 8 mode).
@@ -503,8 +548,11 @@ PARENT = {"lib": None, "turns": []}
 # and K splits: its kernel chooses its own.  The paged decode from before
 # the split KV axis (no ``mfa_paged_bodies``) lacks the splits and the
 # workspace.  The block quantizer from before the cluster (no
-# ``mfa_rtq_row_group``) lacks the cluster size.
-LEGACY_ARGS = {"mfa_wo_folded_gemm": ("mfa_wo_tc_body", 9),
+# ``mfa_rtq_row_group``) lacks the cluster size.  The flash forward from
+# before the static-max mode (no ``mfa_flash_static_max_body``) lacks the
+# row_max pointer: it runs the running max only.
+LEGACY_ARGS = {"mfa_flash_fwd": ("mfa_flash_static_max_body", 19),
+               "mfa_wo_folded_gemm": ("mfa_wo_tc_body", 9),
                "mfa_wo_gemm": ("mfa_wo_tc_body", 12),
                "mfa_dyn_gemm": ("mfa_comp_small_body", 12),
                "mfa_paged_decode": ("mfa_paged_bodies", 19),
@@ -1169,8 +1217,11 @@ def device_ms_by_kernel(fn, iters: int) -> dict:
 
 def device_ms(fn, iters: int) -> float:
     """The device time of ``fn``'s kernels per call, ms
-    (:func:`device_ms_by_kernel` summed)."""
-    return sum(device_ms_by_kernel(fn, iters).values())
+    (:func:`device_ms_by_kernel` summed).  Where the profiler recorded no
+    kernel of ``fn`` at all, :func:`measure_held`'s time (events around a
+    train that a spin kernel holds back until it is enqueued)."""
+    ms = sum(device_ms_by_kernel(fn, iters).values())
+    return ms or measure_held(fn, iters=iters, warmup=0) * 1e3
 
 
 def kernel_label(key: str) -> str:
@@ -2147,7 +2198,8 @@ def time_facade(q, k, v):
     call = lambda: facade(q, k, v)  # noqa: E731
     t = {"ms": time_ms(call, 10), "ms_2": time_ms(call, 10, warmup=0)}
     t["device_ms_by_kernel"] = device_ms_by_label(call, 10)
-    t["device_ms"] = sum(t["device_ms_by_kernel"].values())
+    t["device_ms"] = (sum(t["device_ms_by_kernel"].values())
+                      or measure_held(call, iters=10, warmup=0) * 1e3)
     parent_turns("QuantizedAttention int8 CENTERED call (B=2 Hq=16 Hkv=4 "
                  "S=2048 D=64 causal)", t, call, 10, by_kernel=True)
     log("QuantizedAttention int8 CENTERED call times: " + json.dumps(t))
@@ -3496,6 +3548,334 @@ def run_gemm_engine(seed):
         phase["gemm_times"] = time.perf_counter() - t
     return out, phase
 
+
+# --------------------------------------------------------------------------
+# Phase 14: the dispatch layer
+# --------------------------------------------------------------------------
+
+# The path's attention shape, the train step's: B, Hq, Hkv, S, D (causal,
+# bf16).
+MHA_SHAPE = (TRAIN_BATCH, 16, 4, TRAIN_SEQ, 64)
+# (a)'s small shapes (B=2, S=300, D=64): (label, Hq, Hkv, interleaved,
+# mask).
+MHA_SMALL = (
+    ("gqa-grouped causal", 8, 2, False, masking.CAUSAL),
+    ("gqa-interleaved causal", 8, 2, True, masking.CAUSAL),
+    ("mqa causal", 8, 1, False, masking.CAUSAL),
+    ("gqa window", 8, 2, False, masking.sliding_window(96)),
+)
+# (b)'s widths past the path's at B=2, Hq=8, Hkv=2, S=300: bf16 at D =
+# 128, 256 and 288 (the scalar kernel), fp32 at D = 64.
+STATIC_SMALL = ((torch.bfloat16, 128), (torch.bfloat16, 256),
+                (torch.bfloat16, 288), (torch.float32, 64))
+# (c): the dynamic GEMM at the flagship projections' distinct (N, K) for
+# M = 8 (decode), 256 (a prefill chunk) and the fully quantized forward's
+# rows; the weight-only GEMM at gemm_bench's M = 128.
+CALIB_DYN_MS = (8, 256, QFWD_M)
+CALIB_DYN_NK = ((1024, 1024), (256, 1024), (4096, 1024), (1024, 4096))
+CALIB_WO = GEMM_SHAPES[0]
+FLASH_KERNELS = (flash_fwd, flash_dq, flash_dkv)
+
+
+def flash_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in FLASH_KERNELS}
+
+
+def zero_flash_counts():
+    for fn in FLASH_KERNELS:
+        fn.launches = 0
+
+
+def check_multi_head(rng, label, b, hq, hkv, s, d, mask, interleaved=False):
+    """(a) ``MultiHeadAttention.forward``, ``__call__`` with
+    ``torch.autograd.grad``, and ``backward`` → their launches; raises
+    unless each launches exactly its flash kernels, equals the direct call
+    bit for bit, and the forward's O is within the flash gate of its plain
+    version."""
+    q, k, v, do, _ = flash_inputs(rng, b, hq, hkv, s, s, d, torch.bfloat16)
+    mha = MultiHeadAttention(AttentionDescriptor(
+        head_dim=d, num_q_heads=hq, num_kv_heads=hkv, mask=mask,
+        interleaved_kv=interleaved))
+    kw = dict(mask=mask, interleaved_kv=interleaved)
+    launches, same = {}, {}
+    zero_flash_counts()
+    o, lse = mha.forward(q, k, v)
+    torch.cuda.synchronize()
+    launches["forward"] = flash_counts()
+    o2, l2 = flash_attention_forward(q, k, v, **kw)
+    same["forward"] = torch.equal(o, o2) and torch.equal(lse, l2)
+    rr = row_ranges_tensor(mask, s, s, None, DEV)
+    err = rel_err(o, flash_attention_forward_plain(
+        q, k, v, rr, scale=d ** -0.5, interleaved_kv=interleaved)[0])
+
+    def grads(fn):
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves), leaves, do)
+
+    zero_flash_counts()
+    got = grads(mha)
+    torch.cuda.synchronize()
+    launches["call_grad"] = flash_counts()
+    want = grads(lambda *t: flash_attention(*t, **kw))
+    same["call_grad"] = all(torch.equal(a, w) for a, w in zip(got, want))
+    zero_flash_counts()
+    got = mha.backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    launches["backward"] = flash_counts()
+    want = fbwd.flash_attention_backward(q, k, v, o, lse, do, **kw)[:3]
+    same["backward"] = all(torch.equal(a, w) for a, w in zip(got, want))
+    expect = {"forward": (1, 0, 0), "call_grad": (1, 1, 1),
+              "backward": (0, 1, 1)}
+    log(f"MultiHeadAttention {label} (B={b} Hq={hq} Hkv={hkv} S={s} D={d}):"
+        f" launches {json.dumps(launches)}, equal to the direct calls "
+        f"{json.dumps(same)}, O vs plain {err:.2e}")
+    if any(tuple(launches[c].values()) != e for c, e in expect.items()):
+        raise AssertionError(f"MultiHeadAttention {label} launched "
+                             f"{launches}, not {expect}")
+    if not all(same.values()):
+        raise AssertionError(f"MultiHeadAttention {label} differs from the "
+                             f"direct calls: {same}")
+    if not err <= FLASH_TOL[torch.bfloat16]:
+        raise AssertionError(f"MultiHeadAttention {label}: O {err}")
+    return launches
+
+
+def static_row_max(q, k, mask, rr, mode, scale, interleaved=False):
+    """The base-2 subtrahends ``flash_attention_forward`` hands the kernel:
+    "estimate"'s, or a caller's bound, the true row max + 5 (natural
+    units), times log2(e)."""
+    hq, hkv = q.shape[1], k.shape[1]
+    heads = [(h % hkv) if interleaved else h // (hq // hkv)
+             for h in range(hq)]
+    if mode == "estimate":
+        sparse = mask.kind == masking.MaskKind.SPARSE_RANGES
+        return estimate_row_max_scaled(
+            (q.float() * (scale * LOG2E)).to(q.dtype), k, mask,
+            row_ranges=rr if sparse else None,
+            kv_head_of=lambda h: heads[h], seq_q=q.shape[2],
+            seq_kv=k.shape[2]).contiguous()
+    kx = k.float()[:, heads]
+    s = scale * (q.float() @ kx.transpose(-1, -2))
+    return ((s.amax(-1) + 5.0) * LOG2E).contiguous()
+
+
+def check_static_max(rng, label, b, hq, hkv, s, d, dtype, mask, mode,
+                     ranges=None):
+    """(b) the static-max kernel against its plain version on the same
+    subtrahends → {o, l: (rel err, max abs err), gap: O's rel gap to the
+    running-max kernel}; raises past the flash gates."""
+    q, k, v, _, _ = flash_inputs(rng, b, hq, hkv, s, s, d, dtype)
+    rr = row_ranges_tensor(mask, s, s, ranges, DEV)
+    scale = d ** -0.5
+    mx = static_row_max(q, k, mask, rr, mode, scale)
+    o, lse = flash_fwd(q, k, v, rr, scale=scale, row_max=mx)
+    o_run, _ = flash_fwd(q, k, v, rr, scale=scale)
+    torch.cuda.synchronize()
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, scale=scale,
+                                                 row_max=mx)
+    errs = {"o": (rel_err(o, o_ref), max_abs(o, o_ref)),
+            "l": (rel_err(lse, l_ref), max_abs(lse, l_ref)),
+            "gap_running_max": rel_err(o, o_run)}
+    log(f"static-max {label} {str(dtype)[6:]} D={d} {mode}: o "
+        f"{errs['o'][0]:.2e} l {errs['l'][0]:.2e}; O's gap to the "
+        f"running-max kernel {errs['gap_running_max']:.2e}")
+    if not (errs["o"][0] <= FLASH_TOL[dtype]
+            and errs["l"][0] <= LSE_TOL[dtype]):
+        raise AssertionError(f"static-max {label} {dtype} D={d} {mode} "
+                             f"disagrees: {errs}")
+    return errs
+
+
+def check_static_max_all(rng):
+    """(b) at the path's shape (bf16, causal), the public entry point's
+    launch there, then the widths of STATIC_SMALL over FULL, CAUSAL, a
+    window and sparse ranges, each with "estimate" and a caller's bound →
+    (errors by case, launches of the entry point)."""
+    b, hq, hkv, s, d = MHA_SHAPE
+    errs = {}
+    for mode in ("estimate", "caller"):
+        errs[f"path {mode}"] = check_static_max(
+            rng, "path", b, hq, hkv, s, d, torch.bfloat16, masking.CAUSAL,
+            mode)
+    q, k, v, _, _ = flash_inputs(rng, b, hq, hkv, s, s, d, torch.bfloat16)
+    rr = row_ranges_tensor(masking.CAUSAL, s, s, None, DEV)
+    mx = static_row_max(q, k, masking.CAUSAL, rr, "estimate", d ** -0.5)
+    zero_flash_counts()
+    o, lse = flash_attention_forward(q, k, v, mask=masking.CAUSAL,
+                                     row_max="estimate")
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    o2, l2 = flash_fwd(q, k, v, rr, scale=d ** -0.5, row_max=mx)
+    log(f"flash_attention_forward(row_max='estimate') at the path's shape: "
+        f"launches {json.dumps(launches)}")
+    if launches != {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}:
+        raise AssertionError(f"the static-max entry point launched "
+                             f"{launches}")
+    if not (torch.equal(o, o2) and torch.equal(lse, l2)):
+        raise AssertionError("the static-max entry point differs from the "
+                             "kernel on its subtrahends")
+    seg = masking.build_segment_ranges(np.repeat(np.arange(6), 50))
+    seg[77] = (10, 10)  # an empty row
+    masks = (("full", masking.FULL, None), ("causal", masking.CAUSAL, None),
+             ("window", masking.sliding_window(96), None),
+             ("segments", masking.MaskSpec(masking.MaskKind.SPARSE_RANGES),
+              seg))
+    for dtype, d in STATIC_SMALL:
+        for name, mask, ranges in masks:
+            for mode in ("estimate", "caller"):
+                errs[f"{str(dtype)[6:]} d{d} {name} {mode}"] = \
+                    check_static_max(rng, name, 2, 8, 2, 300, d, dtype,
+                                     mask, mode, ranges)
+    return errs, launches["flash_fwd"]
+
+
+def calibrate_gemms(rng):
+    """(c) ``AttentionTuner.calibrate_gemm`` into the run's store: the
+    chosen plan against the cold start with both device times, read back
+    by ``recommend_gemm``, and the GEMM launched under it held to its
+    plain version (the dynamic one bit for bit) → {GEMM: record}."""
+    tuner = AttentionTuner.shared()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = device_generator(rng)
+    out = {}
+    cases = [("dynamic", m, n, k) for m in CALIB_DYN_MS
+             for n, k in CALIB_DYN_NK]
+    cases.append(("weight_only", *CALIB_WO))
+    for mode, m, n, k in cases:
+        cold = tuner.recommend_gemm(m, n, k, mode=mode)
+        t0 = time.perf_counter()
+        plan = tuner.calibrate_gemm(m, n, k, mode=mode)
+        seconds = time.perf_counter() - t0
+        if tuner.recommend_gemm(m, n, k, mode=mode) != plan:
+            raise AssertionError(f"{mode} {m}x{n}x{k}: recommend_gemm does "
+                                 f"not give {plan} back")
+        a = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
+        w = quantize(torch.randn((n, k), generator=g, device=DEV),
+                     QuantConfig(bits=8, granularity=QuantGranularity.ROW))
+        tile, cold_tile = (tile_of(p, k, mode) for p in (plan, cold))
+        if mode == "dynamic":
+            planner, wrapper = dyn_tile, dyn_gemm
+            qa, sa, rs = quantize_rows(a)
+            sb, zb = weight_scales(w)
+            args, kw = (qa, w.data, sa, rs, sb, zb), dict(bits=8)
+            plain = dyn_gemm_plain
+        else:
+            planner, wrapper = wo_tile, wo_folded_gemm
+            folded, args, kw = wo_arguments(a, w)
+            if not folded:
+                raise AssertionError("a ROW SYMMETRIC weight is not folded")
+            plain = wo_folded_gemm_plain
+        if planner(m, n, k, sms, 8) != tile:
+            raise AssertionError(f"{mode} {m}x{n}x{k}: the planner does not "
+                                 f"take the stored plan {plan}")
+        wrapper.launches = 0
+        got = wrapper(*args, **kw)  # under the stored plan
+        torch.cuda.synchronize()
+        ref = plain(*args, **kw)
+        err = rel_err(got, ref)
+        ok = (torch.equal(got, ref) if mode == "dynamic"
+              else err <= WO_TOL) and wrapper.launches == 1
+        rec = {"cold_plan": list(cold), "plan": list(plan),
+               "cold_tile": list(cold_tile), "tile": list(tile),
+               "calibrate_s": seconds,
+               "cold_device_ms": device_ms(
+                   lambda: wrapper(*args, **kw, tile=cold_tile), 20),
+               "plan_device_ms": device_ms(
+                   lambda: wrapper(*args, **kw, tile=tile), 20),
+               "vs_plain": ("bit for bit" if mode == "dynamic" and ok
+                            else err)}
+        log(f"calibrate_gemm {mode} M={m} N={n} K={k}: " + json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"{mode} {m}x{n}x{k} under the stored plan "
+                                 f"{plan} disagrees with its plain version "
+                                 f"({err}) or launched {wrapper.launches}")
+        out[f"{mode} m{m} n{n} k{k}"] = rec
+    return out
+
+
+def run_benchmark():
+    """(d) ``QuantizedAttention().benchmark()`` at its defaults; raises
+    unless every rate is positive and each error within its quantized
+    gate."""
+    res = QuantizedAttention().benchmark()
+    log("QuantizedAttention().benchmark(): " + json.dumps(res))
+    if not (all(np.isfinite(v) and v > 0 for v in res.values())
+            and res["int8_rel_err"] <= TOLERANCES["int8_rel"]
+            and res["int4_rel_err"] <= TOLERANCES["int4_rel"]):
+        raise AssertionError(f"the facade's benchmark: {res}")
+    return res
+
+
+def time_static_max(rng):
+    """(e) the static-max kernel, the running-max kernel and SDPA at the
+    path's shape: events and device time, beside the static-max plain
+    version and the bound (the running-max kernel in ``--parent`` turns)."""
+    b, hq, hkv, s, d = MHA_SHAPE
+    q, k, v, _, _ = flash_inputs(rng, b, hq, hkv, s, s, d, torch.bfloat16)
+    rr = row_ranges_tensor(masking.CAUSAL, s, s, None, DEV)
+    kw = dict(scale=d ** -0.5)
+    mx = static_row_max(q, k, masking.CAUSAL, rr, "estimate", d ** -0.5)
+    static = lambda: flash_fwd(q, k, v, rr, **kw, row_max=mx)  # noqa: E731
+    running = lambda: flash_fwd(q, k, v, rr, **kw)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    estimate = lambda: static_row_max(  # noqa: E731
+        q, k, masking.CAUSAL, rr, "estimate", d ** -0.5)
+    t = {"plain_ms": time_ms(lambda: flash_attention_forward_plain(
+        q, k, v, rr, **kw, row_max=mx), 3, warmup=1)}
+    for turn in ("", "_2"):
+        t[f"ms{turn}"] = time_ms(static, 20)
+        t[f"device_ms{turn}"] = device_ms(static, 20)
+        t[f"running_max_ms{turn}"] = time_ms(running, 20)
+        t[f"running_max_device_ms{turn}"] = device_ms(running, 20)
+        t[f"library_ms{turn}"] = time_ms(library, 20)
+        t[f"library_device_ms{turn}"] = device_ms(library, 20)
+    t["estimate_ms"] = time_ms(estimate, 10)
+    t["estimate_device_ms"] = device_ms(estimate, 10)
+    pairs = b * hq * s * (s + 1) // 2
+    t["bound_ms"], t["bound_by"] = bound_of(
+        4 * d * pairs, 2 * (b * hq * s * d + 2 * b * hkv * s * d) + 8 * s
+        + 4 * (b * hq * s * d + 2 * b * hq * s))
+    t["body"] = fwd_body(q.dtype, d)
+    parent_turns(f"flash_fwd running max B={b} S={s} D={d} (phase 14)", t,
+                 running, 20, device=True)
+    log(f"static-max times at B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
+        "bf16: " + json.dumps(t))
+    return t
+
+
+def run_dispatch_layer(seed):
+    """Phase 14 (a)-(e), inputs from an eighth generator (seed + 7) →
+    (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 7)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    b, hq, hkv, s, d = MHA_SHAPE
+    out["multi_head"] = {"path": check_multi_head(
+        rng, "path causal", b, hq, hkv, s, d, masking.CAUSAL)}
+    for label, hq_, hkv_, inter, mask in MHA_SMALL:
+        out["multi_head"][label] = check_multi_head(
+            rng, label, 2, hq_, hkv_, 300, 64, mask, inter)
+    phase["dispatch_multi_head"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["static_errors"], out["static_launches"] = check_static_max_all(
+            rng)
+    phase["dispatch_static_max"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["calibration"] = calibrate_gemms(rng)
+    phase["dispatch_calibration"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["benchmark"] = run_benchmark()
+    phase["dispatch_benchmark"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["times"] = time_static_max(rng)
+    phase["dispatch_times"] = time.perf_counter() - t
+    return out, phase
+
 # --------------------------------------------------------------------------
 
 
@@ -3512,6 +3892,10 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # A calibration store of this run's own: no plan stored on the machine
+    # changes a launch in any phase, and phase 14 (c) writes here.
+    os.environ["MFA_CACHE_DIR"] = tempfile.mkdtemp(prefix="mfa-tuning-")
+    atexit.register(shutil.rmtree, os.environ["MFA_CACHE_DIR"], True)
     rng = np.random.default_rng(args.seed)
     phase_s = {}
 
@@ -3591,6 +3975,8 @@ def main() -> int:
     phase_s.update(mla_phase)
     gemm, gemm_phase = run_gemm_engine(args.seed)
     phase_s.update(gemm_phase)
+    disp, disp_phase = run_dispatch_layer(args.seed)
+    phase_s.update(disp_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -3960,6 +4346,41 @@ def main() -> int:
             **({"device_kernel_scalar_route": COMP_SMALL_SCALAR}
                if name == "comp_small_gemm" else {}),
         })
+    dt, serr = disp["times"], disp["static_errors"]
+    path_errs = [e for c, e in serr.items() if c.startswith("path")]
+    record["kernels"].append({
+        "name": "flash_fwd_static_max", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": f"{FLASH_TPU}:546",
+        "launches": disp["static_launches"],
+        "max_abs_err": max(e["o"][1] for e in path_errs),
+        "rel_err": max(e["o"][0] for e in path_errs),
+        "rel_err_l": max(e["l"][0] for e in path_errs),
+        "rel_err_small_shapes_worst": max(
+            max(e["o"][0], e["l"][0]) for c, e in serr.items()
+            if not c.startswith("path")),
+        "gap_to_running_max_worst": max(e["gap_running_max"]
+                                        for e in serr.values()),
+        "shape": "B=4 Hq=16 Hkv=4 S=2048 D=64 causal bf16, row_max "
+                 "'estimate' (flash_attention_forward's static-max mode)",
+        **{key: dt[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "library_device_ms", "running_max_ms",
+            "running_max_device_ms", "estimate_ms", "estimate_device_ms",
+            "ms_2", "device_ms_2", "running_max_device_ms_2",
+            "library_device_ms_2")},
+        "library": "sdpa forward",
+        **({"parent_turns_running_max_ms": dt["parent_turns_ms"],
+            "parent_turns_running_max_device_ms":
+                dt["parent_turns_device_ms"]}
+           if "parent_turns_ms" in dt else {}),
+        "body": dt["body"],
+    })
+    mha = disp["multi_head"]
+    for entry in record["kernels"]:
+        if entry["name"] in ("flash_fwd", "flash_dq", "flash_dkv"):
+            entry["launches_multi_head"] = {
+                call: mha["path"][call][entry["name"]]
+                for call in ("forward", "call_grad", "backward")}
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
     record["gemm_engine"] = {
@@ -3987,6 +4408,11 @@ def main() -> int:
         "logits_rel_l2_random_init_not_gated": {
             k: v[0] for k, v in init_qfwd.items()},
         "facade_rel_l2": {k: v[0] for k, v in qattn["facade"].items()},
+    }
+    record["dispatch_layer"] = {
+        "multi_head_launches": mha,
+        "calibration": disp["calibration"],
+        "quantized_attention_benchmark": disp["benchmark"],
     }
     record["train"] = {"tokens_per_s": train_tps,
                        "grad_rel_l2_worst": grad_worst,

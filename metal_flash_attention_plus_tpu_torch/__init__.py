@@ -41,6 +41,11 @@ Entry points take ``device=None``, meaning the CUDA card, and raise
 without one unless given ``device="cpu"``.
 """
 
+from metal_flash_attention_plus_tpu_torch.attention.descriptor import (
+    AttentionDescriptor,
+    BroadcastMode,
+    MultiHeadShape,
+)
 from metal_flash_attention_plus_tpu_torch.attention.masking import (
     CAUSAL,
     FULL,
@@ -157,7 +162,9 @@ from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
 )
 
 __all__ = [
+    "AttentionDescriptor",
     "BlockSizes",
+    "BroadcastMode",
     "CAUSAL",
     "FULL",
     "GEMMDescriptor",
@@ -165,6 +172,7 @@ __all__ = [
     "MLAConfig",
     "MaskKind",
     "MaskSpec",
+    "MultiHeadShape",
     "PagedKVCache",
     "QuantConfig",
     "QuantGranularity",

@@ -10,11 +10,14 @@ The twin of the JAX package's ``attention/quantized.py``:
   per-tensor scales take ``quant.tensor.quantize``).
 - :meth:`QuantizedAttention.__call__`: raw Q/K/V in, quantize then attend;
   :meth:`~QuantizedAttention.forward_quantized`: pre-quantized K/V;
-  :meth:`~QuantizedAttention.forward_with_lse`: also L.
+  :meth:`~QuantizedAttention.forward_with_lse`: also L;
+  :meth:`~QuantizedAttention.benchmark`: the bf16 / int8 / int4 sweep.
 
-Q is never quantized here.  The JAX facade picks its block sizes with its
-tuner; the CUDA kernels choose their own tiles, so ``block_sizes`` is kept
-for parity only.  The built-in benchmark sweep is not ported yet.
+Q is not quantized by default (``quantize_q=True`` through ``**kw``).
+Block sizes come from the :class:`AttentionTuner` as in the JAX facade
+(kind "fwd_q"), unless given: the CUDA kernels choose their own tiles, but
+an int8 P rounds over ``block_kv``-key spans, so the facade resolves the
+table the JAX facade resolves.
 """
 
 from __future__ import annotations
@@ -27,7 +30,11 @@ import torch
 
 from metal_flash_attention_plus_tpu_torch.attention.masking import (
     FULL,
+    MaskKind,
     MaskSpec,
+)
+from metal_flash_attention_plus_tpu_torch.attention.tuning import (
+    AttentionTuner,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     BlockSizes,
@@ -132,8 +139,12 @@ class QuantizedAttention:
     interleaved_kv: bool = False
     block_sizes: Optional[BlockSizes] = None
 
-    def _blocks(self) -> BlockSizes:
-        return self.block_sizes or BlockSizes()
+    def _blocks(self, seq_len: int, head_dim: int, bits: int) -> BlockSizes:
+        if self.block_sizes is not None:
+            return self.block_sizes
+        return AttentionTuner.shared().recommend(
+            "fwd_q", head_dim, seq_len, bits=bits,
+            causal=self.mask.kind != MaskKind.NONE)
 
     def quantize_kv(self, k: torch.Tensor, v: torch.Tensor
                     ) -> Tuple[QuantizedTensor, QuantizedTensor]:
@@ -158,12 +169,72 @@ class QuantizedAttention:
                           **kw) -> torch.Tensor:
         return quantized_flash_attention(
             q, k, v, bias, mask=self.mask, scale=self.scale,
-            block_sizes=self._blocks(), interleaved_kv=self.interleaved_kv,
+            block_sizes=self._blocks(q.shape[2], q.shape[3], k.config.bits),
+            interleaved_kv=self.interleaved_kv,
             hadamard_block=self.config.hadamard_block(q.shape[3]), **kw)
 
     def forward_with_lse(self, q, k, v, bias=None, **kw):
         kq, vq = self.quantize_kv(k, v)
         return quantized_flash_attention_forward(
             q, kq, vq, bias=bias, mask=self.mask, scale=self.scale,
-            block_sizes=self._blocks(), interleaved_kv=self.interleaved_kv,
+            block_sizes=self._blocks(q.shape[2], q.shape[3],
+                                     kq.config.bits),
+            interleaved_kv=self.interleaved_kv,
             hadamard_block=self.config.hadamard_block(q.shape[3]), **kw)
+
+    def benchmark(self, *, batch: int = 1, num_heads: int = 8,
+                  seq_len: int = 4096, head_dim: int = 64, iters: int = 30,
+                  device=None) -> dict:
+        """The bf16 / int8 / int4 sweep: TFLOP/s of the bf16 flash forward
+        and of this facade at 8 and 4 bits (K/V quantized once, outside
+        the timing), and each quantized O's relative L2 error against the
+        bf16 one: {bf16_tflops, int8_tflops, int8_rel_err, int4_tflops,
+        int4_rel_err}.  Inputs from a seeded generator on ``device`` (the
+        card by default); times by ``utils.profiling.measure``, which
+        includes the host's launches."""
+        from metal_flash_attention_plus_tpu_torch._device import (
+            resolve_device,
+        )
+        from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+            flash_attention_forward,
+        )
+        from metal_flash_attention_plus_tpu_torch.utils.profiling import (
+            measure,
+            tflops,
+        )
+        from metal_flash_attention_plus_tpu_torch.utils.roofline import (
+            attention_flops,
+        )
+
+        dev = resolve_device(device)
+        g = torch.Generator(device=dev).manual_seed(0)
+        shape = (batch, num_heads, seq_len, head_dim)
+        q = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(shape, generator=g, device=dev)
+                for _ in range(2))
+        flops = attention_flops(seq_len, seq_len, head_dim,
+                                num_heads=num_heads, batch=batch) / (
+            2 if self.mask.kind == MaskKind.CAUSAL else 1)
+        kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+        def fb(q):
+            return flash_attention_forward(q, kb, vb, mask=self.mask,
+                                           scale=self.scale)[0]
+
+        o_ref = fb(q)
+        results = {"bf16_tflops": tflops(flops, measure(fb, q, iters=iters))}
+        for bits in (8, 4):
+            qa = dataclasses.replace(self, config=dataclasses.replace(
+                self.config, key_bits=bits, value_bits=bits))
+            kq, vq = qa.quantize_kv(k, v)
+
+            def f(q, qa=qa, kq=kq, vq=vq):
+                return qa.forward_quantized(q, kq, vq)
+
+            o = f(q)
+            results[f"int{bits}_tflops"] = tflops(flops,
+                                                  measure(f, q, iters=iters))
+            results[f"int{bits}_rel_err"] = float(
+                torch.linalg.vector_norm((o - o_ref).float())
+                / torch.linalg.vector_norm(o_ref.float()))
+        return results

@@ -26,6 +26,11 @@
 //     online softmax in fp32; bias*log2(e) added, then masked scores set to
 //     mask_value; P rounded to T before P.V; l sums the unrounded p;
 //     O = acc / l, L = m*ln2 + log(l); an empty row gives O = 0, L = -inf;
+//   - the forward's static-max mode (STATIC_MAX; the TPU kernel's
+//     static_max, reached through flash_attention_forward(row_max=...)):
+//     the caller gives each row's subtrahend M (base 2, fp32 [B, Hq, Sq]);
+//     p = 2^(s - M) with no running max and no rescale, l += sum(p),
+//     acc += P.V, L = M*ln2 + log(l) where l > 0, else -inf with O = 0;
 //   - backward: q pre-scaled by scale (natural base) and rounded to T;
 //     L = -inf read as 0; P = exp(S + bias - L), 0 where masked;
 //     dP = dO.V^T; dS = P*(dP - D); dQ = scale * round_T(dS).K;
@@ -122,14 +127,17 @@ constexpr size_t fwd_smem_floats() {
 // operations (4*D per live query-key pair), not bytes; this scalar-FMA
 // version runs at a fraction of it.  One CTA per 64 query rows loops over
 // the live key tiles with m, l and the accumulator in registers.
-template <typename T, int D>
+// STATIC_MAX: m is the caller's row_max, loaded once, and each tile only
+// adds to l and the accumulator (no row max, no rescale).
+template <typename T, int D, bool STATIC_MAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int32_t* __restrict__ ranges,
                  const float* __restrict__ bias, long long bias_sb,
                  long long bias_sh, float* __restrict__ o,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
-                 int interleaved, float qscale, float mask_value) {
+                 int interleaved, float qscale, float mask_value,
+                 const float* __restrict__ row_max) {
   constexpr int DV = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;          // [D][LD]  Q_s^T
@@ -160,8 +168,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[4], l[4], acc[4][DV];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    row_range(ranges, r0 + ty * 4 + i, Sq, Skv, rs[i], re[i]);
-    m[i] = -INFINITY;
+    const int r = r0 + ty * 4 + i;
+    row_range(ranges, r, Sq, Skv, rs[i], re[i]);
+    m[i] = !STATIC_MAX ? -INFINITY : r < Sq ? row_max[bh * Sq + r] : 0.f;
     l[i] = 0.f;
 #pragma unroll
     for (int e = 0; e < DV; ++e) acc[i][e] = 0.f;
@@ -188,11 +197,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mx = fmaxf(mx, s[i][j]);
       }
       // The 16 threads of a row are the 16 lanes sharing ty in one warp.
+      float m_next = m[i], alpha = 1.f;
+      if constexpr (!STATIC_MAX) {
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_next = fmaxf(m[i], mx);
-      const float alpha = (m[i] == -INFINITY) ? 0.f : exp2f(m[i] - m_next);
+        for (int off = 8; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        m_next = fmaxf(m[i], mx);
+        alpha = (m[i] == -INFINITY) ? 0.f : exp2f(m[i] - m_next);
+      }
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -204,10 +216,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_next;
+      if constexpr (STATIC_MAX) {
+        l[i] += sum;
+      } else {
+        l[i] = alpha * l[i] + sum;
+        m[i] = m_next;
 #pragma unroll
-      for (int e = 0; e < DV; ++e) acc[i][e] *= alpha;
+        for (int e = 0; e < DV; ++e) acc[i][e] *= alpha;
+      }
     }
     store_t(pt, ty, tx, s);
     __syncthreads();  // V^T and P^T staged
@@ -291,7 +307,10 @@ struct FwdTcSmem {
 
 // Replaces ops/flash_attention.py::_fwd_kernel for bf16 up to D = 256.
 // Bound: tensor-core operations (4*D per live query-key pair).
-template <int D>
+// STATIC_MAX: each fragment row's m is the caller's row_max, loaded once;
+// a tile skips step 4's running max, alpha and the rescale of l and O (and
+// the warp vote that skips it), so only l += sum(p) and O += P.V remain.
+template <int D, bool STATIC_MAX>
 __global__ void __launch_bounds__(FWD_TC_THREADS)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -301,7 +320,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     long long bias_sh, float* __restrict__ o,
                     float* __restrict__ lse, int Hq, int Hkv, int Sq,
                     int Skv, int interleaved, float qscale,
-                    float mask_value) {
+                    float mask_value, const float* __restrict__ row_max) {
   using L = FwdTcSmem<D>;
   constexpr int NT = FWD_TC_THREADS;
   constexpr int NB = D / 8;  // 8-lane blocks of O
@@ -346,7 +365,9 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     row[i] = r0 + warp * 16 + g + 8 * i;
     row_range(ranges, row[i], Sq, Skv, rs[i], re[i]);
-    m[i] = -INFINITY;
+    m[i] = !STATIC_MAX    ? -INFINITY
+           : row[i] < Sq ? row_max[bh * Sq + row[i]]
+                         : 0.f;
     l[i] = 0.f;
   }
 #pragma unroll
@@ -402,10 +423,13 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
     float mx[2] = {-INFINITY, -INFINITY};
     if (t0 >= live_lo && t0 + BN <= live_hi) {
+      if constexpr (!STATIC_MAX) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          for (int e = 0; e < 4; ++e)
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -420,13 +444,16 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
           }
         }
     }
-    float alpha[2], m_next[2], sum[2] = {0.f, 0.f};
+    float alpha[2] = {1.f, 1.f}, m_next[2] = {m[0], m[1]};
+    float sum[2] = {0.f, 0.f};
+    if constexpr (!STATIC_MAX) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      m_next[i] = fmaxf(m[i], mx[i]);
-      alpha[i] = (m[i] == -INFINITY) ? 0.f : exp2f(m[i] - m_next[i]);
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        m_next[i] = fmaxf(m[i], mx[i]);
+        alpha[i] = (m[i] == -INFINITY) ? 0.f : exp2f(m[i] - m_next[i]);
+      }
     }
     // P = 2^(s - m) (mma.cuh's ex2_approx); l sums it unrounded, P.V takes it
     // rounded to bf16.  A row whose max is still -inf (every score -inf)
@@ -448,13 +475,15 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       l[i] = alpha[i] * l[i] + sum[i];
       m[i] = m_next[i];
     }
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+    if constexpr (!STATIC_MAX) {
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        acc[nb][0] *= alpha[0];
-        acc[nb][1] *= alpha[0];
-        acc[nb][2] *= alpha[1];
-        acc[nb][3] *= alpha[1];
+        for (int nb = 0; nb < NB; ++nb) {
+          acc[nb][0] *= alpha[0];
+          acc[nb][1] *= alpha[0];
+          acc[nb][2] *= alpha[1];
+          acc[nb][3] *= alpha[1];
+        }
       }
     }
 
@@ -560,30 +589,48 @@ struct Shape {
 };
 
 // The forward of T at head dim D: flash_fwd_tc_kernel where fwd_tc says
-// so, else flash_fwd_kernel.
-template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v,
-               const void* ranges, const void* bias, long long sb,
-               long long sh, void* o, void* lse, Shape sp, float qscale,
-               float mask_value, cudaStream_t stream) {
+// so, else flash_fwd_kernel; their STATIC_MAX instances where row_max is
+// given.
+template <typename T, int D, bool STATIC_MAX>
+int launch_fwd_mode(const void* q, const void* k, const void* v,
+                    const void* ranges, const void* bias, long long sb,
+                    long long sh, void* o, void* lse, Shape sp, float qscale,
+                    float mask_value, const void* row_max,
+                    cudaStream_t stream) {
   const dim3 grid((sp.Sq + BM - 1) / BM, sp.Hq, sp.B);
   const auto* rr = static_cast<const int32_t*>(ranges);
   const auto* bp = static_cast<const float*>(bias);
   auto* op = static_cast<float*>(o);
   auto* lp = static_cast<float*>(lse);
+  const auto* mp = static_cast<const float*>(row_max);
   if constexpr (fwd_tc<T, D>())
     return launch_with_smem(
-        flash_fwd_tc_kernel<D>, grid, FWD_TC_THREADS, FwdTcSmem<D>::BYTES,
-        stream, static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), rr, bp, sb, sh, op, lp, sp.Hq, sp.Hkv,
-        sp.Sq, sp.Skv, sp.interleaved, qscale, mask_value);
+        flash_fwd_tc_kernel<D, STATIC_MAX>, grid, FWD_TC_THREADS,
+        FwdTcSmem<D>::BYTES, stream, static_cast<const T*>(q),
+        static_cast<const T*>(k), static_cast<const T*>(v), rr, bp, sb, sh,
+        op, lp, sp.Hq, sp.Hkv, sp.Sq, sp.Skv, sp.interleaved, qscale,
+        mask_value, mp);
   else
     return launch_with_smem(
-        flash_fwd_kernel<T, D>, grid, THREADS,
+        flash_fwd_kernel<T, D, STATIC_MAX>, grid, THREADS,
         fwd_smem_floats<D>() * sizeof(float), stream,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), rr, bp, sb, sh, op, lp, sp.Hq, sp.Hkv,
-        sp.Sq, sp.Skv, sp.interleaved, qscale, mask_value);
+        sp.Sq, sp.Skv, sp.interleaved, qscale, mask_value, mp);
+}
+
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v,
+               const void* ranges, const void* bias, long long sb,
+               long long sh, void* o, void* lse, Shape sp, float qscale,
+               float mask_value, const void* row_max, cudaStream_t stream) {
+  if (row_max)
+    return launch_fwd_mode<T, D, true>(q, k, v, ranges, bias, sb, sh, o, lse,
+                                       sp, qscale, mask_value, row_max,
+                                       stream);
+  return launch_fwd_mode<T, D, false>(q, k, v, ranges, bias, sb, sh, o, lse,
+                                      sp, qscale, mask_value, nullptr,
+                                      stream);
 }
 
 // dQ (out0 = dQ, out1 = dbias or null) or dK/dV (out0 = dK, out1 = dV).
@@ -665,17 +712,22 @@ int launch_dkv(const void* q, const void* k, const void* v,
 // or a group that does not divide Hq.
 extern "C" {
 
+// row_max: null for the running-max forward; else the static-max mode's
+// fp32 [B, Hq, Sq] subtrahends (base 2), which takes no bias.
 int mfa_flash_fwd(const void* q, const void* k, const void* v,
                   const void* ranges, const void* bias, long long bias_sb,
                   long long bias_sh, void* o, void* lse, int dtype, int B,
                   int Hq, int Hkv, int Sq, int Skv, int D, int interleaved,
-                  float qscale, float mask_value, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+                  float qscale, float mask_value, const void* row_max,
+                  void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || (row_max && bias))
+    return (int)cudaErrorInvalidValue;
   const Shape sp{B, Hq, Hkv, Sq, Skv, interleaved};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MFA_DISPATCH(launch_fwd, q, k, v, ranges, bias, bias_sb, bias_sh, o, lse,
-               sp, qscale, mask_value, s);
+               sp, qscale, mask_value, row_max, s);
 }
+
 
 int mfa_flash_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* di,
@@ -726,6 +778,15 @@ int mfa_flash_tc_bodies(int dtype, int D) {
 #undef MFA_BODIES_ALL
 #undef MFA_BODIES
   return -1;
+}
+
+// Which forward kernel the static-max mode (mfa_flash_fwd with row_max)
+// runs for dtype at the built head dim D: 1 flash_fwd_tc_kernel, 0
+// flash_fwd_kernel, -1 none (ops/flash_attention.py::fwd_body answers the
+// same for both modes).
+int mfa_flash_static_max_body(int dtype, int D) {
+  const int bodies = mfa_flash_tc_bodies(dtype, D);
+  return bodies < 0 ? -1 : (bodies & 1);
 }
 
 }  // extern "C"

@@ -3,9 +3,12 @@
 The port of the JAX package's ``ops/flash_attention.py``.  Same public
 contract: BHSD tensors, O in fp32 by default, L the natural-log row
 logsumexp, the whole mask zoo through per-row ``[start, end)`` ranges, an
-additive bias, grouped or interleaved GQA.  The TPU kernel
-``_fwd_kernel`` becomes ``csrc/flash_attention.cu::flash_fwd_kernel``
-behind :func:`flash_fwd`; the TPU-only schedules (packed, flat, wavefront,
+additive bias, grouped or interleaved GQA, and the static-max softmax
+(``row_max``: a per-row subtrahend in place of the running max, from
+:func:`estimate_row_max_scaled` or the caller).  The TPU kernel
+``_fwd_kernel`` becomes ``csrc/flash_attention.cu::flash_fwd_tc_kernel``
+and ``::flash_fwd_kernel``, each in both modes, behind :func:`flash_fwd`;
+the TPU-only schedules (packed, flat, wavefront,
 lean, two-level, the ones-fused rowsum, lane-replicated statistics, the
 Mosaic guard) have no counterpart: on Hopper one ``[Sq, 2]`` int32 table
 of row ranges, from which each CTA derives its live key span, covers
@@ -49,6 +52,10 @@ from metal_flash_attention_plus_tpu_torch.reference.attention import (
 
 LOG2E = float(np.log2(np.e))
 LN2 = float(np.log(2.0))
+# row_max="estimate": the subtrahend is at least the Cauchy-Schwarz bound C
+# less this many base-2 units, which keeps exp2 inside fp32's range both
+# ways (overflow needs a score 64 above a true upper bound).
+ROW_MAX_SLACK = 64.0
 # The widths the flash kernels are built for.  Any other head dim that is a
 # multiple of 16 up to 288 runs at the next one up with its Q/K/V/dO lanes
 # zero-padded: zero lanes add nothing to S or O and take no gradient.
@@ -359,7 +366,65 @@ def stream_of(t: torch.Tensor) -> int:
 _PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
 _FWD_ARGS = ([_PTR] * 5 + [_I64, _I64] + [_PTR, _PTR] + [_I32] * 8
-             + [_F32, _F32, _PTR])
+             + [_F32, _F32, _PTR, _PTR])
+
+
+def estimate_row_max_scaled(
+    q_scaled: torch.Tensor,
+    k: torch.Tensor,
+    mask: MaskSpec,
+    *,
+    row_ranges: Optional[torch.Tensor] = None,
+    kv_head_of,
+    seq_q: int,
+    seq_kv: int,
+    num_samples: int = 128,
+) -> torch.Tensor:
+    """Each row's softmax subtrahend M for the static-max mode (base 2).
+
+    Softmax is invariant to a per-row shift, and fp32 carries relative
+    precision at every exponent, so the running max only keeps exp2 in
+    range.  M = max(m_est, C − ROW_MAX_SLACK): m_est is the row's max over
+    ``num_samples`` strided sample columns (column 0 among them), where the
+    mask keeps them; C is the Cauchy–Schwarz bound |q_r|·max_c |k_c|, a
+    true upper bound, so exp2 never overflows.  The masks read as the JAX
+    package reads them: ``row_ranges`` (int32 [Sq, 2]) where given (the
+    sparse kinds), else the causal or window rule, else every column.
+
+    ``q_scaled``: Q already scaled by ``scale·log2e`` and rounded back to
+    its dtype, as the kernel reads it; ``k`` float.  Returns fp32
+    [B, Hq, Sq].
+    """
+    b, hq, sq, d = q_scaled.shape
+    skv = k.shape[2]
+    qf = q_scaled.float()
+    kf = k.float()
+    head_map = torch.tensor([kv_head_of(h) for h in range(hq)],
+                            device=k.device)
+    knorm_max = torch.sqrt((kf * kf).sum(-1)).amax(-1)  # [B, Hkv]
+    qnorm = torch.sqrt((qf * qf).sum(-1))  # [B, Hq, Sq]
+    cbound = qnorm * knorm_max[:, head_map][:, :, None]
+    cols = np.unique(np.linspace(0, max(skv - 1, 0), num_samples).astype(
+        np.int64))
+    colv = torch.from_numpy(cols).to(k.device)
+    ks = kf[:, :, colv][:, head_map]  # [B, Hq, nc, D]: sampled, then heads
+    s_smp = qf @ ks.transpose(-1, -2)
+    rows = torch.arange(sq, device=k.device)[:, None]
+    keep = None
+    if row_ranges is not None:
+        keep = ((colv[None, :] >= row_ranges[:sq, :1].long())
+                & (colv[None, :] < row_ranges[:sq, 1:].long()))
+    elif mask.kind == MaskKind.CAUSAL:
+        keep = colv[None, :] <= rows + (seq_kv - seq_q)
+    elif mask.kind == MaskKind.SLIDING_WINDOW:
+        half = max(1, mask.window_size) // 2
+        hi = rows + half
+        if mask.causal:
+            hi = torch.minimum(hi, rows + (seq_kv - seq_q))
+        keep = (colv[None, :] >= rows - half) & (colv[None, :] < hi)
+    if keep is not None:
+        s_smp.masked_fill_(~keep, -float("inf"))
+    return torch.maximum(s_smp.amax(-1), cbound - ROW_MAX_SLACK)
 
 
 def flash_attention_forward_plain(
@@ -372,10 +437,13 @@ def flash_attention_forward_plain(
     scale: float,
     interleaved_kv: bool = False,
     mask_value: float = DEFAULT_MASK_VALUE,
+    row_max: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`flash_fwd`, rounding where the
     kernel does: q·(scale·log2e) rounded to q's dtype, base-2 softmax in
-    fp32, P rounded to V's dtype before P·V."""
+    fp32, P rounded to V's dtype before P·V.  With ``row_max`` (fp32
+    [B, Hq, Sq], base 2) the static-max mode: p = 2^(s − M) without a
+    running max, L = M·ln2 + ln(l) where l > 0, else -inf with O = 0."""
     hq, skv = q.shape[1], k.shape[2]
     qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
     kx = _expand_kv_heads(k, hq, interleaved_kv).float()
@@ -385,13 +453,16 @@ def flash_attention_forward_plain(
         s = s + bias.float() * LOG2E
     keep, live = range_mask(row_ranges, skv)
     s = torch.where(keep, s, torch.full_like(s, mask_value))
-    m = s.amax(dim=-1, keepdim=True)
+    m = (s.amax(dim=-1, keepdim=True) if row_max is None
+         else row_max.float()[..., None])
     p = torch.exp2(s - m)
     lsum = p.sum(dim=-1, keepdim=True)
-    o = (p.to(vx.dtype).float() @ vx.float()) / lsum
-    lse = (m * LN2 + torch.log(lsum))[..., 0]
+    live = live & (lsum > 0)  # a static M above every score empties a row
+    safe = torch.where(lsum > 0, lsum, torch.ones_like(lsum))
+    o = (p.to(vx.dtype).float() @ vx.float()) / safe
+    lse = (m * LN2 + torch.log(safe))[..., 0]
     o = torch.where(live, o, torch.zeros_like(o))
-    lse = torch.where(live[:, 0], lse, torch.full_like(lse, -float("inf")))
+    lse = torch.where(live[..., 0], lse, torch.full_like(lse, -float("inf")))
     return o, lse
 
 
@@ -405,20 +476,27 @@ def flash_fwd(
     scale: float,
     interleaved_kv: bool = False,
     mask_value: float = DEFAULT_MASK_VALUE,
+    row_max: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The flash forward kernel: (o fp32 [B, Hq, Sq, D], l fp32 [B, Hq, Sq]).
 
     ``row_ranges`` is the int32 [Sq, 2] table of :func:`row_ranges_tensor`;
-    ``bias`` is fp32 [1 or B, 1 or Hq, Sq, Skv].  CPU tensors take
-    :func:`flash_attention_forward_plain`; CUDA tensors launch the kernel
-    :func:`fwd_body` names (``flash_fwd_tc_kernel`` or ``flash_fwd_kernel``)
-    at the head dim's :func:`flash_width`, or raise.
+    ``bias`` is fp32 [1 or B, 1 or Hq, Sq, Skv]; ``row_max``, for the
+    static-max mode, fp32 [B, Hq, Sq] subtrahends in base 2 (no bias).  CPU
+    tensors take :func:`flash_attention_forward_plain`; CUDA tensors launch
+    the kernel :func:`fwd_body` names (``flash_fwd_tc_kernel`` or
+    ``flash_fwd_kernel``, in the static-max mode where ``row_max`` is
+    given) at the head dim's :func:`flash_width`, or raise.
     """
+    if row_max is not None and bias is not None:
+        raise ValueError("row_max is incompatible with bias")
     if q.device.type == "cpu":
         return flash_attention_forward_plain(
             q, k, v, row_ranges, bias=bias, scale=scale,
-            interleaved_kv=interleaved_kv, mask_value=mask_value)
-    check_kernel_inputs("flash_fwd", q, k, v, row_ranges, bias)
+            interleaved_kv=interleaved_kv, mask_value=mask_value,
+            row_max=row_max)
+    check_kernel_inputs("flash_fwd", q, k, v, row_ranges, bias,
+                        stats=() if row_max is None else (row_max,))
     b, hq, sq, d_in = q.shape
     d = flash_width(d_in)
     q, k, v = pad_lanes(d, q, k, v)
@@ -430,7 +508,8 @@ def flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), row_ranges.data_ptr(),
         bptr, bsb, bsh, o.data_ptr(), lse.data_ptr(), DTYPE_CODES[q.dtype],
         b, hq, hkv, sq, skv, d, int(interleaved_kv), scale * LOG2E,
-        mask_value, stream_of(q),
+        mask_value, None if row_max is None else row_max.data_ptr(),
+        stream_of(q),
     )
     _build.check_launch(rc, "flash_fwd")
     flash_fwd.launches += 1
@@ -481,20 +560,44 @@ def flash_attention_forward(
         (``mask_ranges`` numpy, or a torch tensor for SPARSE_RANGES).
       block_sizes: accepted for parity with the JAX package; unused.
       out_dtype: O's dtype (fp32 by default).
-      row_max: the JAX package's static-max softmax; not ported yet.
+      row_max: the static-max softmax.  ``"estimate"``: each row's
+        subtrahend from :func:`estimate_row_max_scaled` (one thin sampled
+        product); or an fp32 [B, Hq, Sq] tensor of per-row score bounds in
+        natural logit units (scale·q·k).  The result matches the
+        running-max forward to roundoff while the true row max stays
+        within ~±60 base-2 units of the subtrahend (which "estimate"'s
+        Cauchy–Schwarz floor guarantees).  Not with ``bias``.
 
     Returns (o [B, Hq, Sq, D] out_dtype, l [B, Hq, Sq] fp32 natural LSE).
     """
     del block_sizes  # the Hopper kernels choose their own tiles
-    if row_max is not None:
-        raise NotImplementedError(
-            "row_max (static-max softmax) is not ported yet")
-    sq, skv = q.shape[2], k.shape[2]
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = _default_scale(d, scale)
     rr = row_ranges_tensor(mask, sq, skv, mask_ranges, q.device)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    mx = None
+    if row_max is not None:
+        if bias is not None:
+            raise ValueError("row_max is incompatible with bias")
+        if isinstance(row_max, str):
+            if row_max != "estimate":
+                raise ValueError(f"row_max: {row_max!r}")
+            group = hq // hkv
+            mx = estimate_row_max_scaled(
+                (q.float() * (scale * LOG2E)).to(q.dtype), k, mask,
+                row_ranges=(rr if mask.kind in (MaskKind.SPARSE_RANGES,
+                                                MaskKind.BLOCK_SPARSE)
+                            else None),
+                kv_head_of=((lambda h: h % hkv) if interleaved_kv
+                            else (lambda h: h // group)),
+                seq_q=sq, seq_kv=skv)
+        else:
+            mx = row_max.to(device=q.device, dtype=torch.float32) * LOG2E
+        mx = mx.contiguous()
     o, lse = flash_fwd(
-        q.contiguous(), k.contiguous(), v.contiguous(), rr,
-        bias=kernel_bias(bias), scale=_default_scale(q.shape[-1], scale),
-        interleaved_kv=interleaved_kv, mask_value=mask_value,
+        q, k, v, rr, bias=kernel_bias(bias), scale=scale,
+        interleaved_kv=interleaved_kv, mask_value=mask_value, row_max=mx,
     )
     return o.to(out_dtype), lse
 

@@ -263,7 +263,21 @@ def _s8_tile(m: int, n: int, units: int, slots: int,
     return bm, max(1, min(slots * sms // tiles, 8, units // 2))
 
 
-def dyn_tile(m: int, n: int, kdim: int, sms: int) -> Tuple[int, int]:
+def dyn_tile(m: int, n: int, kdim: int, sms: int,
+             bits: int = 8) -> Tuple[int, int]:
+    """(tile rows, K splits) of ``dyn_tc_kernel`` for [M, N] over K of a
+    ``bits`` weight: the plan ``AttentionTuner.calibrate_gemm`` stored for
+    this GEMM (``attention.tuning.stored_gemm_plan``, one in-memory
+    lookup), else :func:`dyn_shape_tile`'s."""
+    from metal_flash_attention_plus_tpu_torch.attention.tuning import (
+        stored_gemm_plan,
+    )
+
+    stored = stored_gemm_plan(m, n, kdim, bits, "dynamic")
+    return stored if stored is not None else dyn_shape_tile(m, n, kdim, sms)
+
+
+def dyn_shape_tile(m: int, n: int, kdim: int, sms: int) -> Tuple[int, int]:
     """(tile rows, K splits) of ``dyn_tc_kernel`` for [M, N] over K on a
     card of ``sms`` SMs (:func:`_s8_tile` over K's steps of 128, splits up
     to one CTA for each SM, which ``utils/profiling.py --dyn-tiles`` found
@@ -277,14 +291,17 @@ def dyn_tile(m: int, n: int, kdim: int, sms: int) -> Tuple[int, int]:
 
 
 def dyn_gemm(qa, qb, sa, rs, sb, zb, *, bits: int,
-             c: Optional[torch.Tensor] = None) -> torch.Tensor:
+             c: Optional[torch.Tensor] = None,
+             tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The integer GEMM with its epilogue → fp32 [M, N].
 
     qa int8 [M, K]; qb int8 [N, K] (bits 8) or group-planar uint8
     [N, K/2] (bits 4, K % 256 == 0); s_a, Σqa fp32 [M]; s_b, z_b fp32 [N];
     c fp32 [M, N] or None.  CPU tensors take :func:`dyn_gemm_plain`; CUDA
     tensors launch ``dyn_tc_kernel`` (s8 mma.sync; the tile and K splits of
-    :func:`dyn_tile`, the splits summed inside the launch) or raise.
+    ``tile`` or else :func:`dyn_tile`, the splits summed inside the launch)
+    or raise.  Every plan gives the same bits: the splits' int32 partials
+    add exactly.
     """
     if qa.device.type == "cpu":
         return dyn_gemm_plain(qa, qb, sa, rs, sb, zb, bits=bits, c=c)
@@ -296,7 +313,7 @@ def dyn_gemm(qa, qb, sa, rs, sb, zb, *, bits: int,
         (sa, f32, (m,)), (rs, f32, (m,)), (sb, f32, (n,)), (zb, f32, (n,)),
         (c, f32, (m, n))], aligned=(qa, qb))
     out = torch.empty((m, n), dtype=torch.float32, device=qa.device)
-    bm, splits = dyn_tile(m, n, kdim, _sm_count(qa.device))
+    bm, splits = tile or dyn_tile(m, n, kdim, _sm_count(qa.device), bits)
     rc = _build.kernel_function("mfa_dyn_gemm", _DYN_ARGS)(
         qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), rs.data_ptr(),
         sb.data_ptr(), zb.data_ptr(), None if c is None else c.data_ptr(),
@@ -382,7 +399,21 @@ def _wo_out_type(name: str, out_dtype: torch.dtype) -> int:
     return WO_OUT_TYPES[out_dtype]
 
 
-def wo_tile(m: int, n: int, kdim: int, sms: int) -> Tuple[int, int]:
+def wo_tile(m: int, n: int, kdim: int, sms: int,
+            bits: int = 8) -> Tuple[int, int]:
+    """(rows of ``wo_tc_kernel``'s BM × 128 tile, K splits) for [M, N] over
+    K of a ``bits`` weight: the plan ``AttentionTuner.calibrate_gemm``
+    stored for this GEMM (``attention.tuning.stored_gemm_plan``, one
+    in-memory lookup), else :func:`wo_shape_tile`'s."""
+    from metal_flash_attention_plus_tpu_torch.attention.tuning import (
+        stored_gemm_plan,
+    )
+
+    stored = stored_gemm_plan(m, n, kdim, bits, "weight_only")
+    return stored if stored is not None else wo_shape_tile(m, n, kdim, sms)
+
+
+def wo_shape_tile(m: int, n: int, kdim: int, sms: int) -> Tuple[int, int]:
     """(rows of ``wo_tc_kernel``'s BM × 128 tile, K splits) for [M, N]
     over K on a card of ``sms`` SMs: 128-row tiles where they give every SM
     a CTA (MLA's decompression: 256 tiles in one wave of two CTAs an SM
@@ -404,12 +435,15 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _wo_launch(name, a, m, n, kdim, otype, fn_args, argtypes):
+def _wo_launch(name, a, m, n, kdim, bits, otype, tile, fn_args, argtypes):
     """Launch ``mfa_<name>`` on ``fn_args`` (its arguments before the out
-    type), with the out type, the tile, K splits and workspace of
-    :func:`wo_tile` (64 and 1 for an fp32 A), on the current stream."""
-    bm, splits = (wo_tile(m, n, kdim, _sm_count(a.device))
-                  if a.dtype == torch.bfloat16 else (64, 1))
+    type), with the out type, the tile, K splits and workspace of ``tile``
+    or else :func:`wo_tile` (64 and 1 for an fp32 A), on the current
+    stream."""
+    if a.dtype != torch.bfloat16:
+        bm, splits = 64, 1
+    else:
+        bm, splits = tile or wo_tile(m, n, kdim, _sm_count(a.device), bits)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
           if splits > 1 else None)
     rc = _build.kernel_function(f"mfa_{name}", argtypes)(
@@ -442,7 +476,8 @@ def wo_gemm_body(a_dtype: torch.dtype) -> str:
 
 def wo_folded_gemm(a, w, scale, *, bits: int,
                    c: Optional[torch.Tensor] = None,
-                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   out_dtype: torch.dtype = torch.float32,
+                   tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The folded weight-only kernel → [M, N] in ``out_dtype``:
     ``(A·Wᵀ)·s[n] (+ C)``, rounded once.
 
@@ -452,8 +487,8 @@ def wo_folded_gemm(a, w, scale, *, bits: int,
     tensors take :func:`wo_folded_gemm_plain`; CUDA tensors launch the
     folded instances of ``wo_tc_kernel`` (bf16 mma.sync over the integer
     weights as bf16, each 32-product tensor-core sum added in fp32, the
-    column's scale at the store; tile and K splits of :func:`wo_tile`;
-    :func:`wo_gemm_body`) or raise.
+    column's scale at the store; tile and K splits of ``tile`` or else
+    :func:`wo_tile`; :func:`wo_gemm_body`) or raise.
     """
     if a.device.type == "cpu":
         return wo_folded_gemm_plain(a, w, scale, bits=bits, c=c,
@@ -466,7 +501,7 @@ def wo_folded_gemm(a, w, scale, *, bits: int,
         (a, (torch.bfloat16,), (m, kdim)), _payload_spec(w, bits, n, kdim),
         (scale, f32, (n,)), (c, f32, (m, n))])
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    _wo_launch("wo_folded_gemm", a, m, n, kdim, otype, (
+    _wo_launch("wo_folded_gemm", a, m, n, kdim, bits, otype, tile, (
         a.data_ptr(), w.data_ptr(), scale.data_ptr(),
         None if c is None else c.data_ptr(), out.data_ptr(), m, n, kdim,
         bits), _WO_FOLDED_ARGS)
@@ -500,7 +535,8 @@ def wo_gemm_plain(a, w, scale, zp, *, bits: int, scales: int,
 
 def wo_gemm(a, w, scale, zp, *, bits: int, scales: int,
             c: Optional[torch.Tensor] = None,
-            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+            out_dtype: torch.dtype = torch.float32,
+            tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The dequant-on-load weight-only kernel → [M, N] in ``out_dtype``:
     ``A·round_cd((q − zp)·s)ᵀ (+ C)``, rounded once.
 
@@ -508,8 +544,9 @@ def wo_gemm(a, w, scale, zp, *, bits: int, scales: int,
     :func:`wo_folded_gemm`; ``scales`` 0 (TENSOR: scale, zp fp32 [1]),
     1 (ROW: [N]) or 2 (BLOCK, per element: [K]); c fp32 [M, N] or None;
     ``out_dtype`` one of :data:`WO_OUT_TYPES`.  CPU tensors take
-    :func:`wo_gemm_plain`; CUDA tensors launch ``wo_tc_kernel`` (bf16 A)
-    or ``wo_kernel`` (fp32 A; :func:`wo_gemm_body`) or raise.
+    :func:`wo_gemm_plain`; CUDA tensors launch ``wo_tc_kernel`` (bf16 A; the
+    tile and K splits of ``tile`` or else :func:`wo_tile`) or
+    ``wo_kernel`` (fp32 A; :func:`wo_gemm_body`) or raise.
     """
     if a.device.type == "cpu":
         return wo_gemm_plain(a, w, scale, zp, bits=bits, scales=scales, c=c,
@@ -526,7 +563,7 @@ def wo_gemm(a, w, scale, zp, *, bits: int, scales: int,
         _payload_spec(w, bits, n, kdim), (scale, f32, (cells,)),
         (zp, f32, (cells,)), (c, f32, (m, n))])
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    _wo_launch("wo_gemm", a, m, n, kdim, otype, (
+    _wo_launch("wo_gemm", a, m, n, kdim, bits, otype, tile, (
         a.data_ptr(), w.data_ptr(), scale.data_ptr(), zp.data_ptr(),
         None if c is None else c.data_ptr(), out.data_ptr(), m, n, kdim,
         bits, scales, int(a.dtype == torch.bfloat16)), _WO_ARGS)

@@ -1,12 +1,17 @@
 """ctypes binding to the host runtime (``cpp/mfa_runtime.cc``).
 
-The native library owns the serving-side host logic the engine needs: the
-paged KV allocator (which physical page belongs to which sequence) and the
-continuous-batching scheduler (admission under batch-slot and page budgets,
-prefill-before-decode ordering, completion, preemption).  The port compiles
-the repository's source into its own build directory
-(:mod:`metal_flash_attention_plus_tpu_torch._build`) and binds the part of
-its C interface that serving uses.
+The native library owns host logic: the block-size resolver and its
+flat-file calibration cache (the JAX package's TPU tables, which the
+quantized numerics read: :func:`resolve_blocks`, :func:`resolve_gemm_blocks`,
+:func:`device_vmem_budget`, :class:`CalibCache`), the paged KV allocator
+(which physical page belongs to which sequence) and the continuous-batching
+scheduler (admission under batch-slot and page budgets, prefill-before-
+decode ordering, completion, preemption).  The port compiles the
+repository's source into its own build directory
+(:mod:`metal_flash_attention_plus_tpu_torch._build`) and binds its C
+interface.  Where the library does not build, the resolvers fall back to
+the Python tables of :mod:`attention.tuning`, as the JAX package's do;
+serving needs the library.
 """
 
 from __future__ import annotations
@@ -14,9 +19,29 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import subprocess
-from typing import List
+from typing import List, Optional, Tuple
 
 from metal_flash_attention_plus_tpu_torch import _build
+
+
+class _MfaBlockConfig(ctypes.Structure):
+    _fields_ = [
+        ("block_q", ctypes.c_int32),
+        ("block_kv", ctypes.c_int32),
+        ("block_kv_major", ctypes.c_int32),
+        ("block_q_dkv", ctypes.c_int32),
+        ("block_kv_dkv", ctypes.c_int32),
+        ("block_q_dq", ctypes.c_int32),
+        ("block_kv_dq", ctypes.c_int32),
+    ]
+
+
+class _MfaGemmBlockConfig(ctypes.Structure):
+    _fields_ = [
+        ("block_m", ctypes.c_int32),
+        ("block_n", ctypes.c_int32),
+        ("block_k", ctypes.c_int32),
+    ]
 
 
 class _MfaRequest(ctypes.Structure):
@@ -39,6 +64,31 @@ class _MfaScheduledItem(ctypes.Structure):
 
 _SIGNATURES = {
     # name: (restype, argtypes)
+    "mfa_resolve_blocks": (
+        ctypes.c_int,
+        [ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+         ctypes.c_int64, ctypes.POINTER(_MfaBlockConfig)],
+    ),
+    "mfa_device_vmem_budget": (ctypes.c_int64, [ctypes.c_char_p]),
+    "mfa_resolve_gemm_blocks": (
+        ctypes.c_int,
+        [ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+         ctypes.POINTER(_MfaGemmBlockConfig)],
+    ),
+    "mfa_calib_open": (ctypes.c_void_p, [ctypes.c_char_p]),
+    "mfa_calib_get": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(_MfaBlockConfig),
+         ctypes.POINTER(ctypes.c_double)],
+    ),
+    "mfa_calib_put": (
+        None,
+        [ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(_MfaBlockConfig),
+         ctypes.c_double],
+    ),
+    "mfa_calib_save": (ctypes.c_int, [ctypes.c_void_p]),
+    "mfa_calib_size": (ctypes.c_int, [ctypes.c_void_p]),
+    "mfa_calib_close": (None, [ctypes.c_void_p]),
     "mfa_pool_create": (ctypes.c_void_p, [ctypes.c_int32, ctypes.c_int32]),
     "mfa_pool_destroy": (None, [ctypes.c_void_p]),
     "mfa_pool_free_pages": (ctypes.c_int32, [ctypes.c_void_p]),
@@ -86,13 +136,151 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
+def _load_or_none() -> Optional[ctypes.CDLL]:
+    """The host runtime, or None where it does not build or load."""
+    try:
+        return _load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return None
+
+
 def native_available() -> bool:
     """Whether the host runtime builds and loads here."""
-    try:
-        _load()
-    except (RuntimeError, OSError, subprocess.SubprocessError):
-        return False
-    return True
+    return _load_or_none() is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockConfig:
+    """The resolver's block sizes (the fields of ``MfaBlockConfig``)."""
+
+    block_q: int
+    block_kv: int
+    block_kv_major: int
+    block_q_dkv: int
+    block_kv_dkv: int
+    block_q_dq: int
+    block_kv_dq: int
+
+    @staticmethod
+    def _from_c(c: _MfaBlockConfig) -> "BlockConfig":
+        return BlockConfig(
+            c.block_q, c.block_kv, c.block_kv_major, c.block_q_dkv,
+            c.block_kv_dkv, c.block_q_dq, c.block_kv_dq,
+        )
+
+    def _to_c(self) -> _MfaBlockConfig:
+        return _MfaBlockConfig(*dataclasses.astuple(self))
+
+    def to_block_sizes(self):
+        from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+            BlockSizes,
+        )
+
+        return BlockSizes(**dataclasses.asdict(self))
+
+
+KIND_FWD, KIND_FWD_Q, KIND_BWD = 0, 1, 2
+
+
+def device_vmem_budget(device_kind: str) -> int:
+    """The resolver's budget in bytes for a device generation
+    (``mfa_device_vmem_budget``; a conservative one for kinds it does not
+    know, every CUDA card among them).  Without the library: the same
+    mapping from :mod:`attention.tuning`'s table."""
+    lib = _load_or_none()
+    if lib is not None:
+        return int(lib.mfa_device_vmem_budget(device_kind.encode()))
+    from metal_flash_attention_plus_tpu_torch.attention.tuning import (
+        _GEN_VMEM_MIB,
+        normalize_device_kind,
+    )
+
+    mib = _GEN_VMEM_MIB.get(normalize_device_kind(device_kind))
+    return ((mib - 2) << 20) if mib else (7 << 20)
+
+
+def resolve_blocks(
+    head_dim: int, bits: int = 16, kind: int = KIND_FWD,
+    vmem_budget_bytes: int = 0, causal: bool = True,
+    device_kind: Optional[str] = None,
+) -> BlockConfig:
+    """Block sizes for a descriptor (``mfa_resolve_blocks``): the cold-start
+    table shrunk to the budget, which ``device_kind`` keys when
+    ``vmem_budget_bytes`` is not given.  Without the library:
+    :func:`attention.tuning.default_block_sizes`."""
+    if not vmem_budget_bytes and device_kind is not None:
+        vmem_budget_bytes = device_vmem_budget(device_kind)
+    lib = _load_or_none()
+    if lib is None:
+        from metal_flash_attention_plus_tpu_torch.attention.tuning import (
+            default_block_sizes,
+        )
+
+        bs = default_block_sizes(head_dim, bits, causal, device_kind)
+        return BlockConfig(*(getattr(bs, f.name)
+                             for f in dataclasses.fields(BlockConfig)))
+    out = _MfaBlockConfig()
+    rc = lib.mfa_resolve_blocks(head_dim, bits, kind, int(causal),
+                                vmem_budget_bytes, ctypes.byref(out))
+    if rc != 0:
+        raise ValueError(f"mfa_resolve_blocks failed for head_dim={head_dim}")
+    return BlockConfig._from_c(out)
+
+
+GEMM_DYNAMIC, GEMM_WEIGHT_ONLY = 0, 1
+
+
+def resolve_gemm_blocks(
+    m: int, bits: int = 8, mode: int = GEMM_DYNAMIC,
+    vmem_budget_bytes: int = 0,
+) -> Tuple[int, int, int]:
+    """The quantized GEMM's TPU blocks (``mfa_resolve_gemm_blocks``);
+    without the library, :func:`attention.tuning.default_gemm_blocks`."""
+    lib = _load_or_none()
+    if lib is None:
+        from metal_flash_attention_plus_tpu_torch.attention.tuning import (
+            default_gemm_blocks,
+        )
+
+        return default_gemm_blocks(m, bits)
+    out = _MfaGemmBlockConfig()
+    rc = lib.mfa_resolve_gemm_blocks(m, bits, mode, vmem_budget_bytes,
+                                     ctypes.byref(out))
+    if rc != 0:
+        raise ValueError(f"mfa_resolve_gemm_blocks failed for m={m}")
+    return (out.block_m, out.block_n, out.block_k)
+
+
+class CalibCache:
+    """The native flat-file calibration cache (one line a key)."""
+
+    def __init__(self, path: str):
+        self._lib = _load()
+        self._h = self._lib.mfa_calib_open(path.encode())
+
+    def get(self, key: str) -> Optional[Tuple[BlockConfig, float]]:
+        cfg = _MfaBlockConfig()
+        tf = ctypes.c_double()
+        if self._lib.mfa_calib_get(self._h, key.encode(), ctypes.byref(cfg),
+                                   ctypes.byref(tf)):
+            return BlockConfig._from_c(cfg), tf.value
+        return None
+
+    def put(self, key: str, cfg: BlockConfig, tflops: float):
+        c = cfg._to_c()
+        self._lib.mfa_calib_put(self._h, key.encode(), ctypes.byref(c),
+                                tflops)
+
+    def save(self) -> bool:
+        return self._lib.mfa_calib_save(self._h) == 0
+
+    def __len__(self) -> int:
+        return self._lib.mfa_calib_size(self._h)
+
+    def close(self):
+        if self._h:
+            self._lib.mfa_calib_close(self._h)
+            self._h = None
 
 
 class PagePool:

@@ -106,6 +106,14 @@ the allocator's new memory filled with NaN).  Ends with a digest of the
 parameters after a third run of STEPS steps, so that two processes can be
 compared.
 
+The module also holds the JAX package's timing helpers, which the tuner
+and ``QuantizedAttention.benchmark`` call: :func:`measure` (the least of
+fenced trains: CUDA events on the card, the host clock on the CPU),
+:func:`measure_chained` (dependent calls back to back), :func:`tflops`,
+:func:`measure_held` (CUDA events around a train that a spin kernel holds
+back until the host has enqueued it) and :func:`measure_device` (the
+profiler's kernel time a call, else :func:`measure_held`'s).
+
 Prints JSON lines: the phase times and counts, the device's busy time
 (sum of kernel times) and idle share of the profiled wall time, and the
 kernels ranked by device time.  The profiler itself slows the host, so
@@ -294,6 +302,119 @@ def kernel_table(prof, top: int = 15):
     total = sum(v[0] for v in by_name.values())
     launches = sum(v[1] for v in by_name.values())
     return total, launches, [(k[:90], v[0], v[1]) for k, v in ranked[:top]]
+
+
+def _leaf(out) -> torch.Tensor:
+    """The first tensor of a call's result (a tensor, or a tuple of them)."""
+    while isinstance(out, (tuple, list)):
+        out = out[0]
+    return out
+
+
+def _run_train(f, args, iters: int) -> float:
+    """Seconds for ``iters`` calls of ``f(*args)``, fenced: CUDA events and
+    a synchronize where the arguments lie on the card, the host clock on
+    the CPU (whose calls return when done)."""
+    on_card = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+    if not on_card:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            f(*args)
+        return time.perf_counter() - t0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        f(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def measure(f, *args, iters: int = 100, warmup: int = 5,
+            trains: int = 5) -> float:
+    """Seconds a call of ``f(*args)``: the least of ``trains`` fenced trains
+    of ``iters`` calls, after ``warmup`` calls (the JAX package's
+    ``measure``: interference only adds time, so the least train is the
+    steadiest).  On the card a train's time includes the host's launches
+    where they are the longer."""
+    _run_train(f, args, max(1, warmup))
+    best = min(_run_train(f, args, iters) / iters for _ in range(trains))
+    return max(best, 1e-9)
+
+
+def measure_chained(f, *args, chain: int = 8, iters: int = 4,
+                    warmup: int = 1, trains: int = 3,
+                    eps: float = 1e-30) -> float:
+    """Seconds a call when ``chain`` calls run back to back, each one
+    depending on the last: before each call one element of the first
+    argument (a private copy) moves by ``eps`` times an element of the
+    previous output, which leaves its value as it was.  The JAX package
+    chains calls inside one jit this way; here the chain is
+    :func:`measure`'s train of ``chain`` dependent calls."""
+    x = args[0].clone()
+    flat = x.view(-1)[:1]
+
+    def chained(*a):
+        out = None
+        for _ in range(chain):
+            out = f(*a)
+            flat.add_(_leaf(out).reshape(-1)[:1].to(x.dtype) * eps)
+        return out
+
+    best = measure(chained, x, *args[1:], iters=iters, warmup=warmup,
+                   trains=trains)
+    return max(best / chain, 1e-9)
+
+
+def measure_held(f, *args, iters: int = 20, warmup: int = 3,
+                 spin_cycles: int = 10_000_000, tries: int = 4) -> float:
+    """Seconds of device time a call of ``f(*args)`` on the card, without
+    the profiler: a spin kernel holds the stream while the host enqueues
+    ``iters`` calls between two CUDA events, so the card runs them back to
+    back and the events' gap holds no host time.  Where the spin ended
+    before the host had enqueued the train (the first event was reached
+    early), the spin is made four times longer and the train run again;
+    raises after ``tries`` such runs (``f`` waits for the card)."""
+    for _ in range(warmup):
+        f(*args)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(tries):
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(iters):
+            f(*args)
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return max(start.elapsed_time(end) / 1e3 / iters, 1e-9)
+        spin_cycles *= 4
+    raise RuntimeError(f"the host did not enqueue {iters} calls within "
+                       f"a spin of {spin_cycles // 4} cycles")
+
+
+def measure_device(f, *args, iters: int = 20, warmup: int = 3) -> float:
+    """Seconds of device time a call of ``f(*args)`` on the card: the
+    profiler's kernel time over ``iters`` calls (the host's launches
+    excluded).  The profiler at times records no kernel in a session; then
+    the time is :func:`measure_held`'s (which also counts the card's short
+    gaps between the kernels of a call)."""
+    for _ in range(warmup):
+        f(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            f(*args)
+        torch.cuda.synchronize()
+    busy_us = kernel_table(prof)[0]
+    if not busy_us:
+        return measure_held(f, *args, iters=iters, warmup=0)
+    return busy_us / 1e6 / iters
+
+
+def tflops(flop_count: float, seconds: float) -> float:
+    return flop_count / seconds / 1e12
 
 
 def print_profile(prof, wall_s: float, calls: int, what: str) -> int:
@@ -618,17 +739,13 @@ def profile_wo_tiles(seed: int, iters: int = 20) -> int:
                     for _ in range(3):
                         run()
                     ms = cuda_ms(run, iters)
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(iters):
-                            run()
-                        torch.cuda.synchronize()
+                    dev_ms = measure_device(run, iters=iters, warmup=0) * 1e3
                 finally:
                     quantized_gemm.wo_tile = chosen
                 print(json.dumps({
                     "device": torch.cuda.get_device_name(0), "arm": arm,
                     "m": m, "n": n, "k": k, "tile_rows": plan[0],
-                    "k_splits": plan[1], "ms": ms,
-                    "device_ms": kernel_table(prof)[0] / 1e3 / iters,
+                    "k_splits": plan[1], "ms": ms, "device_ms": dev_ms,
                     "chosen": plan == chosen(m, n, k, sms)}))
     return 0
 
@@ -653,17 +770,13 @@ def _time_plans(label, run, shape, planner, fallback, plans, iters,
             for _ in range(3):
                 run()
             ms = cuda_ms(run, iters)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    run()
-                torch.cuda.synchronize()
+            dev_ms = measure_device(run, iters=iters, warmup=0) * 1e3
         finally:
             setattr(quantized_gemm, planner, fallback)
         print(json.dumps({
             "device": torch.cuda.get_device_name(0), "kernel": label,
             "m": m, "n": n, "k": k, **extra, "tile_rows": plan[0],
-            "k_splits": plan[1], "ms": ms,
-            "device_ms": kernel_table(prof)[0] / 1e3 / iters,
+            "k_splits": plan[1], "ms": ms, "device_ms": dev_ms,
             "chosen": plan == fallback(m, n, k, *extra.values(), sms)}))
 
 
@@ -804,10 +917,7 @@ def profile_rtq_clusters(seed: int, iters: int = 50) -> int:
                 for _ in range(3):
                     run()
                 ms = cuda_ms(run, iters)
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(iters):
-                        run()
-                    torch.cuda.synchronize()
+                dev_ms = measure_device(run, iters=iters, warmup=0) * 1e3
             finally:
                 runtime_quantization.block_cluster = planner
             print(json.dumps({
@@ -816,8 +926,7 @@ def profile_rtq_clusters(seed: int, iters: int = 50) -> int:
                 "bs": bs, "cluster": cluster,
                 "ctas": act.shape[1] // bs * cluster,
                 "max_active_clusters": active(cluster),
-                "bit_identical": same, "ms": ms,
-                "device_ms": kernel_table(prof)[0] / 1e3 / iters,
+                "bit_identical": same, "ms": ms, "device_ms": dev_ms,
                 "chosen": cluster == chosen}))
     return 0
 

@@ -258,15 +258,19 @@ def test_lse_output_has_no_gradient_and_out_dtype():
 
 
 def test_unported_options_raise():
-    """``row_max`` is not ported; ``fullint=True`` over float K/V takes the
-    exact kernels (the full-integer backward needs quantized K/V), giving
-    ``fullint=False``'s gradients bit for bit, as in the JAX package; and
-    quantized K/V run, matching the JAX package's backward over them."""
+    """``row_max`` raises only where the JAX package does (another string
+    than "estimate"; with a bias), and "estimate" gives the running max's
+    O; ``fullint=True`` over float K/V takes the exact kernels (the
+    full-integer backward needs quantized K/V), giving ``fullint=False``'s
+    gradients bit for bit, as in the JAX package; and quantized K/V run,
+    matching the JAX package's backward over them."""
     q, k, v, do, _ = _inputs("causal_gqa", seed=7)
     tq, tk, tv, tdo = _torch(q, k, v, do)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_forward(tq, tk, tv, row_max="estimate")
+    with pytest.raises(ValueError):
+        tfa.flash_attention_forward(tq, tk, tv, row_max="exact")
     o, lse = tfa.flash_attention_forward(tq, tk, tv)
+    o_sm, _ = tfa.flash_attention_forward(tq, tk, tv, row_max="estimate")
+    assert (o_sm - o).abs().max().item() <= 1e-5
     exact = flash_attention_backward(tq, tk, tv, o, lse, tdo)
     for a, b in zip(exact[:3], flash_attention_backward(
             tq, tk, tv, o, lse, tdo, fullint=True)[:3]):

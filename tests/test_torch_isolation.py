@@ -57,7 +57,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "ops.flash_attention_bwd", "entry", "quant.tensor",
                    "ops.quantized_gemm", "models.quantized_inference",
                    "ops.quantized_attention", "ops.runtime_quantization",
-                   "ops.hadamard", "attention.quantized"):
+                   "ops.hadamard", "attention.quantized",
+                   "attention.descriptor", "attention.multi_head",
+                   "attention.tuning", "runtime.native", "utils.profiling"):
         assert f"{PORT}.{module}" in report["modules"], module
     leaked = [m for m in report["loaded"] if _is_jax_or_reference(m)]
     assert leaked == [], leaked

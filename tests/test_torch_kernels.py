@@ -35,23 +35,43 @@ modes of the paged kernels (one-state latent pages, ``v_tail_zero``,
 D = 80 and 288, Hq = 16 over Hkv = 1) and of the flash kernels (D = 80 and
 288) take their kernels' tolerances.  The paged decode splits the KV axis
 across CTAs and merges the splits in a fixed order, so two calls on the
-same inputs are held equal bit for bit.
+same inputs are held equal bit for bit.  The flash forward's static-max
+mode (``row_max``) takes the flash forward's tolerances, the kernel and
+the plain version given the same subtrahends; the dynamic GEMM under a
+stored plan stays bit for bit, and the weight-only GEMM under one takes
+its tolerance.  ``MultiHeadAttention`` launches exactly the flash kernels
+its entry points name and equals the direct calls bit for bit.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from metal_flash_attention_plus_tpu_torch import _build
 from metal_flash_attention_plus_tpu_torch.attention import masking
+from metal_flash_attention_plus_tpu_torch.attention import tuning
+from metal_flash_attention_plus_tpu_torch.attention.descriptor import (
+    AttentionDescriptor,
+)
+from metal_flash_attention_plus_tpu_torch.attention.multi_head import (
+    MultiHeadAttention,
+)
 from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    LOG2E,
     BlockSizes,
+    DTYPE_CODES,
+    estimate_row_max_scaled,
+    flash_attention,
+    flash_attention_forward,
     flash_attention_forward_plain,
     flash_fwd,
+    fwd_body,
     row_ranges_tensor,
 )
 from metal_flash_attention_plus_tpu_torch.ops import flash_attention_bwd as fbwd
@@ -1913,3 +1933,256 @@ def test_qa_and_comp_kernels_reject_what_they_do_not_take(cuda_device):
     buf = torch.zeros(8 * 256 + 8, dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError):  # a payload 8 bytes off 16
         qg.comp_gemm(buf[8:].view(8, 256), *args[1:], **kw)
+
+
+# --------------------------------------------------------------------------
+# The dispatch layer: the static-max forward, stored GEMM plans,
+# MultiHeadAttention
+# --------------------------------------------------------------------------
+
+STATIC_MASKS = {
+    "full": (masking.FULL, None),
+    "causal": (masking.CAUSAL, None),
+    "window": (masking.sliding_window(48), None),
+    "segments": (masking.MaskSpec(masking.MaskKind.SPARSE_RANGES),
+                 "segments"),
+}
+
+
+def _static_row_max(q, k, mask, rr, mode, scale, hq, hkv):
+    """The base-2 subtrahends flash_attention_forward hands the kernel:
+    "estimate"'s, or a caller's bound (the true row max + 5, natural
+    units) times log2(e)."""
+    group = hq // hkv
+    if mode == "estimate":
+        sparse = mask.kind == masking.MaskKind.SPARSE_RANGES
+        return estimate_row_max_scaled(
+            (q.float() * (scale * LOG2E)).to(q.dtype), k, mask,
+            row_ranges=rr if sparse else None,
+            kv_head_of=lambda h: h // group, seq_q=q.shape[2],
+            seq_kv=k.shape[2]).contiguous()
+    kx = k.float().repeat_interleave(group, dim=1)
+    s = scale * (q.float() @ kx.transpose(-1, -2))
+    return ((s.amax(-1) + 5.0) * LOG2E).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["estimate", "caller"])
+@pytest.mark.parametrize("mask_name", sorted(STATIC_MASKS))
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 288])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_static_max_kernel_matches_plain(cuda_device, dtype, d, mask_name,
+                                         mode):
+    mask, ranges = STATIC_MASKS[mask_name]
+    ranges = _segments_with_empty_row() if ranges == "segments" else None
+    (q, k, v), _, _, rr = _flash_case(cuda_device, dtype, 1, 4, 2, 130, 130,
+                                      d, mask, ranges, seed=d)
+    scale = d ** -0.5
+    mx = _static_row_max(q, k, mask, rr, mode, scale, 4, 2)
+    n = flash_fwd.launches
+    o, lse = flash_fwd(q, k, v, rr, scale=scale, row_max=mx)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == n + 1
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, scale=scale,
+                                                 row_max=mx)
+    assert _rel(o, o_ref) <= _tol(dtype)
+    assert _rel(lse, l_ref) <= (TOLERANCES["fp32"] if dtype == torch.float32
+                                else TOLERANCES["lse"])
+    o_run, l_run = flash_fwd(q, k, v, rr, scale=scale)
+    assert _rel(o, o_run) <= _tol(dtype)
+    assert _rel(lse, l_run) <= (TOLERANCES["fp32"] if dtype == torch.float32
+                                else TOLERANCES["lse"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_static_max_entry_point_launches_the_kernel(cuda_device, dtype):
+    (q, k, v), _, _, rr = _flash_case(cuda_device, dtype, 2, 8, 2, 200, 200,
+                                      64, masking.CAUSAL)
+    mx = _static_row_max(q, k, masking.CAUSAL, rr, "estimate", 0.125, 8, 2)
+    n = flash_fwd.launches
+    o, lse = flash_attention_forward(q, k, v, mask=masking.CAUSAL,
+                                     row_max="estimate")
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == n + 1
+    o2, l2 = flash_fwd(q, k, v, rr, scale=0.125, row_max=mx)
+    assert torch.equal(o, o2) and torch.equal(lse, l2)
+    bound = _static_row_max(q, k, masking.CAUSAL, rr, "caller", 0.125, 8,
+                            2) / LOG2E
+    o3, _ = flash_attention_forward(q, k, v, mask=masking.CAUSAL,
+                                    row_max=bound)
+    assert _rel(o3, flash_attention_forward_plain(
+        q, k, v, rr, scale=0.125, row_max=bound * LOG2E)[0]) <= _tol(dtype)
+    with pytest.raises(ValueError, match="bias"):
+        flash_fwd(q, k, v, rr, scale=0.125, row_max=mx,
+                  bias=torch.zeros(1, 1, 200, 200, device=cuda_device))
+    with pytest.raises(ValueError):  # M must be fp32 [B, Hq, Sq]
+        flash_fwd(q, k, v, rr, scale=0.125, row_max=mx[..., :10])
+
+
+@pytest.mark.cuda
+def test_static_max_body_is_the_forward_body(cuda_device):
+    fn = _build.kernel_function("mfa_flash_static_max_body",
+                                [ctypes.c_int] * 2)
+    for dtype, code in DTYPE_CODES.items():
+        for d in (32, 64, 128, 256, 288):
+            assert fn(code, d) == int(fwd_body(dtype, d) == "tensor_core")
+    assert fn(1, 40) == -1
+
+
+@pytest.fixture
+def stored_plans(tmp_path, monkeypatch):
+    """A shared tuner over an empty store in ``tmp_path``."""
+    tuner = tuning.AttentionTuner(
+        store=tuning.CalibrationStore(str(tmp_path)))
+    monkeypatch.setattr(tuning.AttentionTuner, "_instance", tuner)
+    return tuner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,n,k,plan", [
+    (8, 1024, 4096, (16, 128, 1024)), (8, 256, 1024, (16, 128, 128)),
+    (256, 1024, 1024, (64, 128, 256)), (300, 4096, 1024, (128, 128, 1024)),
+])
+def test_dyn_gemm_under_a_stored_plan_is_bit_for_bit(cuda_device,
+                                                     stored_plans, m, n, k,
+                                                     plan, bits):
+    tuner = stored_plans
+    tuner._store_entry(tuner._gemm_key(m, n, k, bits, "dynamic"),
+                       {"gemm_blocks": list(plan), "tflops": 1.0})
+    assert tuner.recommend_gemm(m, n, k, bits) == plan
+    tile = tuning.tile_of(plan, k, "dynamic")
+    assert qg.dyn_tile(m, n, k, 132, bits) == tile
+    cfg = _qcfg(bits=bits, gran="row")
+    w = quantize(torch.randn(n, k, device=cuda_device), cfg)
+    a = torch.randn(m, k, device=cuda_device).to(BF16)
+    qa_, sa, rs = qg.quantize_rows(a)
+    sb, zb = qg.weight_scales(w)
+    launches = qg.dyn_gemm.launches
+    out = qg.dynamic_quantized_matmul(a, w)
+    torch.cuda.synchronize()
+    assert qg.dyn_gemm.launches == launches + 1
+    ref = qg.dyn_gemm_plain(qa_, w.data, sa, rs, sb, zb, bits=bits)
+    assert torch.equal(out, ref)
+    shape_tile = qg.dyn_shape_tile(m, n, k, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    assert torch.equal(qg.dyn_gemm(qa_, w.data, sa, rs, sb, zb, bits=bits,
+                                   tile=shape_tile), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gran", ["row", "block"])
+@pytest.mark.parametrize("m,n,k,plan", [
+    (128, 1024, 2048, (64, 128, 256)), (128, 1024, 2048, (128, 128, 1024)),
+    (4, 384, 8192, (64, 128, 512)),
+])
+def test_weight_only_gemm_under_a_stored_plan_matches_plain(
+        cuda_device, stored_plans, m, n, k, plan, gran):
+    tuner = stored_plans
+    tuner._store_entry(tuner._gemm_key(m, n, k, 8, "weight_only"),
+                       {"gemm_blocks": list(plan), "tflops": 1.0})
+    tile = tuning.tile_of(plan, k, "weight_only")
+    assert qg.wo_tile(m, n, k, 132, 8) == tile
+    cfg = (_qcfg(gran="row") if gran == "row" else
+           _qcfg(gran="block", block_size=256))
+    w = quantize(torch.randn(n, k, device=cuda_device), cfg)
+    a = torch.randn(m, k, device=cuda_device).to(BF16)
+    folded, args, kw = qg.wo_arguments(a, w)
+    gemm, plain = ((qg.wo_folded_gemm, qg.wo_folded_gemm_plain) if folded
+                   else (qg.wo_gemm, qg.wo_gemm_plain))
+    launches = gemm.launches
+    out = qg.quantized_matmul(a, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert gemm.launches == launches + 1
+    ref = plain(*args, **kw)
+    assert _rel(out, ref) <= TOLERANCES["fp32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,interleaved,mask", [
+    (8, 2, False, masking.CAUSAL), (8, 2, True, masking.CAUSAL),
+    (8, 1, False, masking.sliding_window(64)), (4, 4, False, masking.FULL),
+])
+def test_multi_head_attention_launches_and_equals_direct_calls(
+        cuda_device, hq, hkv, interleaved, mask):
+    (q, k, v), do, _, _ = _flash_case(cuda_device, BF16, 2, hq, hkv, 200,
+                                      200, 64, mask)
+    mha = MultiHeadAttention(AttentionDescriptor(
+        head_dim=64, num_q_heads=hq, num_kv_heads=hkv, mask=mask,
+        interleaved_kv=interleaved))
+    kw = dict(mask=mask, interleaved_kv=interleaved)
+
+    def counts():
+        return (flash_fwd.launches, flash_dq.launches, flash_dkv.launches)
+
+    n = counts()
+    o, lse = mha.forward(q, k, v)
+    torch.cuda.synchronize()
+    assert counts() == (n[0] + 1, n[1], n[2])
+    o2, l2 = flash_attention_forward(q, k, v, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, l2)
+
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    n = counts()
+    grads = torch.autograd.grad(mha(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    assert counts() == (n[0] + 1, n[1] + 1, n[2] + 1)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(flash_attention(*leaves, **kw), leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+    n = counts()
+    got = mha.backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert counts() == (n[0], n[1] + 1, n[2] + 1)
+    want = fbwd.flash_attention_backward(q, k, v, o, lse, do, **kw)[:3]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_measure_held_leaves_out_the_host_launches(cuda_device):
+    from metal_flash_attention_plus_tpu_torch.utils import profiling
+
+    x = torch.randn(1024, device=cuda_device)
+    held = profiling.measure_held(torch.add, x, x, iters=50)
+    fenced = profiling.measure(torch.add, x, x, iters=50)
+    assert 0 < held < fenced
+
+
+@pytest.mark.cuda
+def test_measure_held_raises_where_the_call_waits_for_the_card(cuda_device):
+    from metal_flash_attention_plus_tpu_torch.utils import profiling
+
+    x = torch.randn(1024, device=cuda_device)
+    with pytest.raises(RuntimeError, match="did not enqueue"):
+        profiling.measure_held(lambda t: t.sum().item(), x, iters=4,
+                               spin_cycles=1000, tries=2)
+
+
+@pytest.mark.cuda
+def test_measure_device_without_profiled_kernels_uses_held_events(
+        cuda_device, monkeypatch):
+    from metal_flash_attention_plus_tpu_torch.utils import profiling
+
+    a = torch.randn(2048, 2048, device=cuda_device).to(BF16)
+    monkeypatch.setattr(profiling, "kernel_table", lambda prof: (0.0, 0, []))
+    sec = profiling.measure_device(torch.matmul, a, a, iters=10)
+    held = profiling.measure_held(torch.matmul, a, a, iters=10)
+    assert 0 < sec and 0.5 < sec / held < 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,m,n,k", [
+    ("dynamic", 8, 1024, 4096), ("dynamic", 256, 1024, 1024),
+    ("weight_only", 128, 1024, 2048),
+])
+def test_calibrate_gemm_stores_a_swept_plan(cuda_device, stored_plans, mode,
+                                           m, n, k):
+    tuner = stored_plans
+    plan = tuner.calibrate_gemm(m, n, k, mode=mode, iters=5)
+    assert plan in tuning._default_candidates(m, n, k, mode)
+    assert tuner.recommend_gemm(m, n, k, mode=mode) == plan
+    entry = tuner._store.load(tuning.device_kind())[
+        tuner._gemm_key(m, n, k, 8, mode)]
+    assert entry["gemm_blocks"] == list(plan) and entry["tflops"] > 0
