@@ -182,7 +182,49 @@ checkout, then, on the card:
    ``QuantizedAttention().benchmark()`` at its defaults; (e) device and
    event times of the static-max kernel, the running-max kernel and SDPA
    at the path's shape, beside the bound and the static-max plain version
-   (the running-max kernel in ``--parent`` turns).
+   (the running-max kernel in ``--parent`` turns);
+15. MLA training (inputs from a ninth generator, seed + 8): (a) fp32
+   copies of ``MLAConfig()``'s weights at B=1, S=1024: every parameter's
+   gradient of ``mla_loss_fn`` through the flash kernels at D = d_c + d_r
+   = 288 against ``attn_fn=plain_mla_attention`` (no kernel), rel L2 ≤
+   GRAD_REL_L2_TOL; (b) the bf16 model trained with Adam
+   (``make_train_step(..., loss=mla_loss_fn)``) for 8 steps on
+   one seeded batch of 2 x 2049 tokens, the flash counts set to 0 just
+   before and read after every step: exactly 8 forwards, 8 dQ and 8 dK/dV
+   a step, the loss falls, ms a step and tokens/s; (c) the same 8 steps
+   twice more from the initial parameters, equal bit for bit after every
+   step and at the end equal to (b)'s; (d) 3 steps, ``save_checkpoint``
+   (parameters and ``optimizer.state_dict()``; ``force=False`` refuses to
+   overwrite), 2 more, against ``load_checkpoint`` into fresh parameters
+   and a fresh optimizer and the same 2 steps: equal bit for bit;
+16. context parallelism (inputs from a tenth generator, seed + 9): a world
+   of 4 gloo ranks, each a process on cuda:0 (``mp.spawn``; the kernels
+   built before; a FileStore rendezvous; the context group of
+   ``make_mesh(1, 1, 4)``), each holding its share of the global inputs:
+   (a) ``ring_attention`` causal and FULL at B=1, Hq=16, Hkv=4, D=64,
+   S = 4 x 2048, bf16, O and the gradients of sum(O · dO) gathered to rank
+   0 against the single-device ``flash_attention`` on the same global
+   inputs at phase 3's bf16 gates, each rank launching exactly its
+   non-empty steps (rank i: i + 1 causal, 4 FULL, in each direction), a
+   rerun equal bit for bit; (b) ``ring_attention_zigzag`` against (a)'s
+   causal reference, 9 launches a direction on every rank, the pre/post
+   shard round trip exact; (c) ``ulysses_attention``, one launch a
+   direction; (d) the MLA latent ring (W_uk absorbed per rank, the
+   head-shared latent through the ring) at H=16, dh=64, d_c=256, S = 4 x
+   2048 against the single-device ``mla_absorbed_attention``; (e) fp32 at
+   Hq=4, Hkv=2, S = 4 x 256, D=64 (ring causal, FULL and interleaved,
+   zigzag, Ulysses) at the fp32 flash gate.  The ranks time-share one
+   card, so the phase reports gates, launches and wall seconds, no speed;
+17. long context and the utilities (inputs from an eleventh generator,
+   seed + 10): (a) ``mla_absorbed_attention`` at B=1, H=8, S=32768, dh=64,
+   d_c=256 over an int8 ROW latent with a causal window of 4096 (the
+   construction of tests/test_long_context.py:112): one quantized-forward
+   launch, a finite output; the kernel against its plain version at
+   S=8192 with the same mask; (b) ``save_quantized`` then
+   ``load_quantized`` of CUDA tensors (int8 ROW, int4 BLOCK 64 with sums):
+   loaded onto the card by default, equal bit for bit; (c) ``dump_lowered``
+   of ``flash_attention_forward`` on card inputs: the file holds the
+   traced graph and the SASS of ``flash_fwd_tc_kernel``.
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -217,6 +259,7 @@ import atexit
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import os
 import re
@@ -231,6 +274,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 from metal_flash_attention_plus_tpu_torch import _build
@@ -257,10 +302,15 @@ from metal_flash_attention_plus_tpu_torch.models.cached import (
     init_cache,
     prefill_chunk,
 )
+from metal_flash_attention_plus_tpu_torch.models.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
 from metal_flash_attention_plus_tpu_torch.models.mla_transformer import (
     MLAConfig,
     init_mla_params,
     mla_forward,
+    mla_loss_fn,
     plain_mla_attention,
 )
 from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
@@ -361,6 +411,15 @@ from metal_flash_attention_plus_tpu_torch.ops import (
 from metal_flash_attention_plus_tpu_torch.ops import (
     runtime_quantization as rtq,
 )
+from metal_flash_attention_plus_tpu_torch.parallel import (
+    AXES,
+    make_mesh,
+    ring_attention,
+    ring_attention_zigzag,
+    ulysses_attention,
+    zigzag_postshard,
+    zigzag_preshard,
+)
 from metal_flash_attention_plus_tpu_torch.quant import capabilities
 from metal_flash_attention_plus_tpu_torch.quant.compensation import (
     dequantized_gemm_reference,
@@ -370,6 +429,10 @@ from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantGranularity,
     QuantStrategy,
     int8_blockwise,
+)
+from metal_flash_attention_plus_tpu_torch.quant.serialization import (
+    load_quantized,
+    save_quantized,
 )
 from metal_flash_attention_plus_tpu_torch.quant.tensor import (
     QuantizedTensor,
@@ -394,6 +457,7 @@ from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
     paged_prefill_attention_plain,
     prefill_body,
 )
+from metal_flash_attention_plus_tpu_torch.utils.debug import dump_lowered
 from metal_flash_attention_plus_tpu_torch.utils.roofline import H100_SXM
 from metal_flash_attention_plus_tpu_torch.utils.profiling import (
     GEMM_SHAPES,
@@ -3877,6 +3941,558 @@ def run_dispatch_layer(seed):
     return out, phase
 
 # --------------------------------------------------------------------------
+# Phase 15: MLA training
+# --------------------------------------------------------------------------
+
+# MLAConfig()'s train step: 2 sequences of 2048 tokens (2 x 2049 with the
+# targets), 8 Adam steps; each step runs one flash forward, dQ and dK/dV
+# per layer at D = d_c + d_r = 288 (16 query heads over the latent).
+MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, MLA_TRAIN_STEPS = 2, 2048, 8
+# The checkpoint check: save after this many steps, then run this many more
+# from the saved state and from the restored one.
+MLA_CKPT_STEPS = (3, 2)
+
+
+def mla_train_tokens(cfg, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (MLA_TRAIN_BATCH, MLA_TRAIN_SEQ + 1))).to(DEV)
+
+
+def mla_adam(cfg, params):
+    """Adam at lr 3e-3 over ``params`` and its step of ``mla_loss_fn``."""
+    optimizer = torch.optim.Adam(trainable_parameters(params), lr=3e-3)
+    return optimizer, make_train_step(cfg, optimizer, loss=mla_loss_fn)
+
+
+def check_mla_train_grads(cfg, params, rng):
+    """(a) fp32 copies of the MLA weights at B=1, S=1024: every
+    parameter's gradient of ``mla_loss_fn`` through the flash kernels
+    (D = 288, fp32) against the same call with ``attn_fn=
+    plain_mla_attention`` (no kernel); raises past GRAD_REL_L2_TOL."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = fp32_copy(params)
+    leaves = trainable_parameters(params32)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, 1025))).to(DEV)
+    grads, losses = {}, {}
+    for name, attn in (("kernels", None), ("plain", plain_mla_attention)):
+        for t in leaves:
+            t.grad = None
+        loss = mla_loss_fn(params32, tokens, cfg32, attn_fn=attn)
+        loss.backward()
+        grads[name] = [t.grad.detach().clone() for t in leaves]
+        losses[name] = loss.item()
+    worst = max(rel_l2(g, p) for g, p in zip(grads["kernels"],
+                                             grads["plain"]))
+    log(f"MLA fp32 grads (B=1, S=1024): loss kernels {losses['kernels']:.6f}"
+        f" plain {losses['plain']:.6f}; worst parameter rel L2 {worst:.3e} "
+        f"(tol {GRAD_REL_L2_TOL})")
+    if not worst <= GRAD_REL_L2_TOL:
+        raise AssertionError(f"MLA fp32 gradients disagree: {worst}")
+    return worst
+
+
+def run_mla_train(cfg, params, tokens):
+    """(b) 8 Adam steps of ``mla_loss_fn`` on the bf16 model, the flash
+    kernels' counts set to 0 just before and read after every step →
+    (launches per step, ms a step and tokens/s over steps 2-8, losses)."""
+    optimizer, step = mla_adam(cfg, params)
+    per_step, losses = [], []
+    zero_flash_counts()
+    t_first, t0 = 0.0, time.perf_counter()
+    for i in range(MLA_TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        before = flash_counts()
+        params, _, loss = step(params, optimizer.state, tokens)
+        torch.cuda.synchronize()
+        per_step.append({k: v - before[k] for k, v in flash_counts().items()})
+        losses.append(loss.item())
+    wall = time.perf_counter() - t0
+    ms = wall / (MLA_TRAIN_STEPS - 1) * 1e3
+    tps = (MLA_TRAIN_STEPS - 1) * MLA_TRAIN_BATCH * MLA_TRAIN_SEQ / wall
+    log("MLA train losses: " + json.dumps(losses))
+    log(f"MLA train: first step {t_first:.3f} s; steps 2-{MLA_TRAIN_STEPS} "
+        f"{wall:.3f} s, {ms:.1f} ms/step, {tps:.0f} tokens/s; launches per "
+        f"step {json.dumps(per_step[0])}")
+    want = {"flash_fwd": cfg.num_layers, "flash_dq": cfg.num_layers,
+            "flash_dkv": cfg.num_layers}
+    if any(s != want for s in per_step):
+        raise AssertionError(f"MLA train steps launched {per_step}, "
+                             f"expected {want} each")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MLA training did not lower the loss: "
+                             f"{losses}")
+    return per_step[0], ms, tps, losses
+
+
+def check_mla_train_determinism(cfg, init, tokens, trained):
+    """(c) The same 8 steps twice more from the initial parameters: equal
+    bit for bit after every step, the final parameters equal (b)'s."""
+    rows, final = train_twice(cfg, init, tokens, MLA_TRAIN_STEPS,
+                              loss=mla_loss_fn)
+    digests = (params_digest(final), params_digest(trained))
+    differ = [r for r in rows if r["params_differ"] or r["grads_differ"]
+              or r["losses"][0] != r["losses"][1]]
+    log(f"MLA train determinism: two runs of {MLA_TRAIN_STEPS} steps equal "
+        f"bit for bit after every step: {not differ}; final parameters "
+        f"equal (b)'s: {digests[0] == digests[1]} (sha256 "
+        f"{digests[0][:16]})")
+    if differ or digests[0] != digests[1]:
+        raise AssertionError(f"MLA training is not deterministic: "
+                             f"{differ[:2]} {digests}")
+    return {"steps": MLA_TRAIN_STEPS, "bitwise_equal": True,
+            "params_sha256": digests[0]}
+
+
+def check_mla_checkpoint(cfg, init, tokens):
+    """(d) 3 steps, ``save_checkpoint`` (parameters and
+    ``optimizer.state_dict()``), 2 more; then ``load_checkpoint`` into
+    fresh parameters and a fresh optimizer and the same 2 steps: the two
+    sets of parameters equal bit for bit."""
+    params = clone_params(init)
+    optimizer, step = mla_adam(cfg, params)
+    with tempfile.TemporaryDirectory(prefix="mfa-ckpt-") as tmp:
+        path = os.path.join(tmp, "mla.pt")
+        for _ in range(MLA_CKPT_STEPS[0]):
+            params, _, _ = step(params, optimizer.state, tokens)
+        save_checkpoint(path, dict(params=params,
+                                   opt=optimizer.state_dict()))
+        mib = os.path.getsize(path) / 2**20
+        try:
+            save_checkpoint(path, {}, force=False)
+            refused = False
+        except FileExistsError:
+            refused = True
+        for _ in range(MLA_CKPT_STEPS[1]):
+            params, _, _ = step(params, optimizer.state, tokens)
+        fresh = clone_params(init)
+        fresh_opt, _ = mla_adam(cfg, fresh)
+        state = load_checkpoint(path, template=dict(
+            params=fresh, opt=fresh_opt.state_dict()), device="cpu")
+    resumed = state["params"]
+    optimizer2, step2 = mla_adam(cfg, resumed)
+    optimizer2.load_state_dict(state["opt"])
+    for _ in range(MLA_CKPT_STEPS[1]):
+        resumed, _, _ = step2(resumed, optimizer2.state, tokens)
+    torch.cuda.synchronize()
+    same = params_digest(resumed) == params_digest(params)
+    log(f"MLA checkpoint: {MLA_CKPT_STEPS[0]} steps, save ({mib:.1f} MiB), "
+        f"{MLA_CKPT_STEPS[1]} more, against a resume from the file: equal "
+        f"bit for bit {same}; force=False refused to overwrite {refused}")
+    if not (same and refused):
+        raise AssertionError(f"MLA checkpoint resume: equal {same}, "
+                             f"refused {refused}")
+    return {"bitwise_equal": True, "file_mib": mib}
+
+
+def run_mla_training(seed):
+    """Phase 15 (a)-(d), inputs from a ninth generator (seed + 8) →
+    (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 8)
+    cfg = MLAConfig()
+    params = init_mla_params(cfg, torch.Generator().manual_seed(seed + 8),
+                             device=DEV)
+    tokens = mla_train_tokens(cfg, seed + 8)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    out["grad_rel_l2_worst"] = check_mla_train_grads(cfg, params, rng)
+    phase["mla_train_grads"] = time.perf_counter() - t
+    t = time.perf_counter()
+    init = clone_params(params)
+    (out["launches_per_step"], out["ms_per_step"], out["tokens_per_s"],
+     out["losses"]) = run_mla_train(cfg, params, tokens)
+    phase["mla_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["determinism"] = check_mla_train_determinism(cfg, init, tokens,
+                                                     params)
+    phase["mla_train_determinism"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["checkpoint"] = check_mla_checkpoint(cfg, init, tokens)
+    phase["mla_checkpoint"] = time.perf_counter() - t
+    return out, phase
+
+
+# --------------------------------------------------------------------------
+# Phase 16: context parallelism
+# --------------------------------------------------------------------------
+
+# A world of 4 ranks, each a process on the one card (cuda:0) under gloo
+# (NCCL takes one rank per GPU); the ring's and Ulysses' collectives go
+# through host memory there (parallel/comm.py).
+CP_WORLD = 4
+# (a)-(c): the flagship's attention over 4 x 2048 tokens (each rank holds
+# the train step's 2048): B, Hq, Hkv, S, D, bf16.
+CP_SHAPE = (1, 16, 4, CP_WORLD * TRAIN_SEQ, 64)
+# (d): MLAConfig()'s latent attention without the rope slice: B, H, S,
+# dh, d_c (the construction of tests/test_long_context.py:69).
+CP_MLA = (1, 16, CP_WORLD * 2048, 64, 256)
+# (e): fp32 at tests/test_parallel.py's shape, 256 rows a rank.
+CP_SMALL = (1, 4, 2, CP_WORLD * 256, 64)
+
+
+def cp_inputs(seed, b, hq, hkv, s, d, dtype):
+    """Global Q, K, V, dO from a numpy generator: every rank draws the
+    same numbers."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        DEV, dtype) for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                  (b, hkv, s, d), (b, hq, s, d))]
+
+
+def cp_mla_inputs(seed):
+    """(d)'s global inputs: bf16 queries [B, H, S, dh] and latent
+    [B, S, d_c], fp32 W_uk [H, dh, d_c] and W_uv [H, d_c, dh]."""
+    b, h, s, dh, dc = CP_MLA
+    g = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(g.standard_normal(shape, np.float32)).to(DEV)
+
+    q, latent = draw(b, h, s, dh).bfloat16(), draw(b, s, dc).bfloat16()
+    w_uk, w_uv = draw(h, dh, dc), draw(h, dc, dh)
+    return q, latent, w_uk * dc ** -0.5, w_uv * dc ** -0.5
+
+
+def cp_run(fn, q, k, v, do=None):
+    """``fn(q, k, v)`` and, with ``do``, its gradients → (o, grads, flash
+    launches of the forward, of the backward, seconds)."""
+    leaves = [x.detach().requires_grad_(do is not None) for x in (q, k, v)]
+    t0 = time.perf_counter()
+    zero_flash_counts()
+    o = fn(*leaves)
+    torch.cuda.synchronize()
+    fwd = flash_counts()
+    zero_flash_counts()
+    grads = () if do is None else torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    return o.detach(), grads, fwd, flash_counts(), time.perf_counter() - t0
+
+
+def cp_expect(kind, rank, world):
+    """The flash launches a rank makes in each direction: the ring's
+    non-empty steps (i + 1 causal, N full), the zigzag's 2N + 1 live
+    sub-chunk pairs, Ulysses' one call."""
+    return {"causal": rank + 1, "full": world, "zigzag": 2 * world + 1,
+            "ulysses": 1}[kind]
+
+
+def cp_case(rank, world, group, kind, q, k, v, do, interleaved=False):
+    """One case on this rank's share of the global tensors → its local
+    outputs on the host, launches and seconds; raises unless each
+    direction launched exactly its steps."""
+    c = q.shape[2] // world
+    sl = slice(rank * c, (rank + 1) * c)
+    if kind == "zigzag":
+        q, k, v, do = (zigzag_preshard(x, world) for x in (q, k, v, do))
+        fn = lambda a, b_, c_: ring_attention_zigzag(  # noqa: E731
+            a, b_, c_, group, interleaved_kv=interleaved)
+    elif kind == "ulysses":
+        fn = lambda a, b_, c_: ulysses_attention(  # noqa: E731
+            a, b_, c_, group, mask=masking.CAUSAL)
+    else:
+        fn = lambda a, b_, c_: ring_attention(  # noqa: E731
+            a, b_, c_, group, kind == "causal", interleaved_kv=interleaved)
+    o, grads, fwd, bwd, sec = cp_run(fn, *(x[:, :, sl] for x in (q, k, v,
+                                                                 do)))
+    n = cp_expect(kind, rank, world)
+    want = ({"flash_fwd": n, "flash_dq": 0, "flash_dkv": 0},
+            {"flash_fwd": 0, "flash_dq": n, "flash_dkv": n})
+    if (fwd, bwd) != want:
+        raise AssertionError(f"rank {rank} {kind}: launched {fwd} / {bwd}, "
+                             f"expected {want}")
+    return {"o": o, "grads": grads, "launches": [n, n, n], "seconds": sec}
+
+
+def cp_rank_cases(rank, world, group, seed):
+    """Every case of phase 16 on this rank → {case: local record}."""
+    out = {}
+    q, k, v, do = cp_inputs(seed, *CP_SHAPE, torch.bfloat16)
+    for kind in ("causal", "full"):
+        first = cp_case(rank, world, group, kind, q, k, v, do)
+        again = cp_case(rank, world, group, kind, q, k, v, do)
+        first["rerun_bitwise_equal"] = all(
+            torch.equal(a, b) for a, b in zip(
+                (first["o"], *first["grads"]), (again["o"], *again["grads"])))
+        if not first["rerun_bitwise_equal"]:
+            raise AssertionError(f"rank {rank} ring {kind}: a rerun differs")
+        out[f"ring_{kind}"] = first
+    out["zigzag"] = cp_case(rank, world, group, "zigzag", q, k, v, do)
+    out["ulysses"] = cp_case(rank, world, group, "ulysses", q, k, v, do)
+    mq, latent, w_uk, w_uv = cp_mla_inputs(seed + 1)
+    dh, c = mq.shape[-1], mq.shape[2] // world
+    sl = slice(rank * c, (rank + 1) * c)
+
+    def mla_ring(q_):
+        q_lat = torch.einsum("bhsd,hdc->bhsc", q_.float(), w_uk).to(q_.dtype)
+        kv = latent[:, sl][:, None]
+        o_lat = ring_attention(q_lat, kv, kv, group, True, dh ** -0.5)
+        return torch.einsum("bhsc,hcd->bhsd", o_lat.float(), w_uv).to(
+            q_.dtype)
+
+    o, _, fwd, _, sec = cp_run(lambda q_, *_: mla_ring(q_), mq[:, :, sl],
+                               latent, latent)
+    if fwd != {"flash_fwd": rank + 1, "flash_dq": 0, "flash_dkv": 0}:
+        raise AssertionError(f"rank {rank} MLA ring launched {fwd}")
+    out["mla_ring"] = {"o": o, "grads": (), "launches": [rank + 1, 0, 0],
+                       "seconds": sec}
+    q, k, v, do = cp_inputs(seed + 2, *CP_SMALL, torch.float32)
+    for kind, inter in (("causal", False), ("full", False), ("causal", True),
+                        ("zigzag", False), ("ulysses", False)):
+        name = f"fp32_{kind}" + ("_interleaved" if inter else "")
+        out[name] = cp_case(rank, world, group, kind, q, k, v, do, inter)
+    return {name: {**rec, "o": rec["o"].float().cpu(),
+                   "grads": [x.float().cpu() for x in rec["grads"]]}
+            for name, rec in out.items()}
+
+
+def cp_reference(kind, q, k, v, do, interleaved=False):
+    """The single-device ``flash_attention`` on the global tensors → (o,
+    dq, dk, dv) on the host."""
+    mask = masking.FULL if kind == "full" else masking.CAUSAL
+    o, grads, _, _, _ = cp_run(lambda a, b_, c_: flash_attention(
+        a, b_, c_, mask=mask, interleaved_kv=interleaved), q, k, v, do)
+    return [x.float().cpu() for x in (o, *grads)]
+
+
+def cp_gates(world, tmp, seed):
+    """Rank 0, after every rank saved its outputs: each case gathered
+    along the sequence against the single-device kernels on the same
+    global inputs → {case: record}; raises past a gate."""
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+             for r in range(world)]
+    q, k, v, do = cp_inputs(seed, *CP_SHAPE, torch.bfloat16)
+    qs, ks, vs, dos = cp_inputs(seed + 2, *CP_SMALL, torch.float32)
+    round_trip = all(torch.equal(zigzag_postshard(zigzag_preshard(
+        x, world), world), x) for x in (q, k, v, do))
+    refs = {"causal": cp_reference("causal", q, k, v, do),
+            "full": cp_reference("full", q, k, v, do)}
+    small = {(kind, inter): cp_reference(kind, qs, ks, vs, dos, inter)
+             for kind, inter in (("causal", False), ("full", False),
+                                 ("causal", True))}
+    mq, latent, w_uk, w_uv = cp_mla_inputs(seed + 1)
+    mla_ref = mla_absorbed_attention(mq, latent.float(), w_uk, w_uv,
+                                     mask=masking.CAUSAL).float().cpu()
+    cases = {  # case: (reference, tolerance, zigzag layout)
+        "ring_causal": (refs["causal"], FLASH_TOL[torch.bfloat16], False),
+        "ring_full": (refs["full"], FLASH_TOL[torch.bfloat16], False),
+        "zigzag": (refs["causal"], FLASH_TOL[torch.bfloat16], True),
+        "ulysses": (refs["causal"], FLASH_TOL[torch.bfloat16], False),
+        "mla_ring": ([mla_ref], FLASH_TOL[torch.bfloat16], False),
+        "fp32_causal": (small["causal", False], FLASH_TOL[torch.float32],
+                        False),
+        "fp32_full": (small["full", False], FLASH_TOL[torch.float32], False),
+        "fp32_causal_interleaved": (small["causal", True],
+                                    FLASH_TOL[torch.float32], False),
+        "fp32_zigzag": (small["causal", False], FLASH_TOL[torch.float32],
+                        True),
+        "fp32_ulysses": (small["causal", False], FLASH_TOL[torch.float32],
+                         False),
+    }
+    out, bad = {}, []
+    for name, (ref, tol, zz) in cases.items():
+        recs = [rk[name] for rk in ranks]
+        got = [torch.cat([r[key] for r in recs], dim=2) for key in ("o",)]
+        got += [torch.cat([r["grads"][i] for r in recs], dim=2)
+                for i in range(len(recs[0]["grads"]))]
+        if zz:
+            got = [zigzag_postshard(x, world) for x in got]
+        errs = dict(zip(("o", "dq", "dk", "dv"),
+                        (rel_err(a, w) for a, w in zip(got, ref))))
+        out[name] = {
+            "errors": errs, "tol": tol,
+            "launches_per_rank": [r["launches"] for r in recs],
+            "wall_s_per_rank_time_shared": [r["seconds"] for r in recs],
+            **({"rerun_bitwise_equal": all(r["rerun_bitwise_equal"]
+                                           for r in recs)}
+               if "rerun_bitwise_equal" in recs[0] else {})}
+        log(f"context parallel {name}: errors vs the single-device kernels "
+            f"{json.dumps(errs)} (tol {tol}); launches per rank (forward, "
+            f"dQ, dK/dV) {json.dumps(out[name]['launches_per_rank'])}; wall "
+            "s per rank (the ranks time-share one card: not a speed) "
+            + json.dumps([round(x, 3) for x in
+                          out[name]["wall_s_per_rank_time_shared"]]))
+        if not all(e <= tol for e in errs.values()):
+            bad.append((name, errs))
+    out["zigzag_round_trip_exact"] = round_trip
+    if bad or not round_trip:
+        raise AssertionError(f"context parallelism disagrees: {bad}; "
+                             f"zigzag round trip {round_trip}")
+    return out
+
+
+def cp_rank(rank, world, tmp, seed):
+    """One rank of phase 16's world (a process of ``mp.spawn``): gloo over
+    a FileStore in ``tmp``, the mesh's context group, every case; rank 0
+    then gates the gathered results into ``tmp/result.json``."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "store"), world_size=world, rank=rank)
+    try:
+        group = make_mesh(1, 1, world).get_group(AXES.context)
+        out = cp_rank_cases(rank, world, group, seed)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        res = cp_gates(world, tmp, seed)
+        with open(os.path.join(tmp, "result.json"), "w") as f:
+            json.dump(res, f)
+
+
+def run_context_parallel(seed):
+    """Phase 16, inputs from a tenth generator (seed + 9): the world of
+    CP_WORLD ranks on the card; a rank's exception fails the phase (``mp.
+    spawn`` raises it) → (record, phase seconds)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mfa-cp-") as tmp:
+        mp.spawn(cp_rank, args=(CP_WORLD, tmp, seed + 9), nprocs=CP_WORLD,
+                 join=True)
+        with open(os.path.join(tmp, "result.json")) as f:
+            out = json.load(f)
+    wall = time.perf_counter() - t
+    log(f"context parallelism: {CP_WORLD} gloo ranks on cuda:0, every gate "
+        f"passed; phase wall {wall:.1f} s (process start-up included; the "
+        "ranks time-share one card)")
+    return out, {"context_parallel": wall}
+
+
+# --------------------------------------------------------------------------
+# Phase 17: long context and the utilities
+# --------------------------------------------------------------------------
+
+# tests/test_long_context.py:112 (a TPU-only test there): B, H, S, dh, d_c,
+# an int8 ROW CENTERED latent and a causal window of 4096.
+LONG_SHAPE = (1, 8, 32768, 64, 256)
+LONG_WINDOW = 4096
+# The plain version's dense scores at S = 32768 would take 34 GB a
+# temporary; it is held to the kernel at this length, same mask.
+LONG_PLAIN_S = 8192
+
+
+def run_long_context(rng):
+    """(a) ``mla_absorbed_attention`` over the quantized latent with the
+    window at S = 32768: one quantized-forward launch and a finite output;
+    then the kernel against its plain version at S = LONG_PLAIN_S on the
+    arguments the path builds."""
+    b, h, s, dh, dc = LONG_SHAPE
+    g = device_generator(rng)
+    q = torch.randn((b, h, s, dh), generator=g, device=DEV).to(
+        torch.bfloat16)
+    latent = torch.randn((b, s, dc), generator=g, device=DEV)
+    w_uk = torch.randn((h, dh, dc), generator=g, device=DEV) * dc ** -0.5
+    w_uv = torch.randn((h, dc, dh), generator=g, device=DEV) * dc ** -0.5
+    row8 = QuantConfig(granularity=QuantGranularity.ROW,
+                       strategy=QuantStrategy.CENTERED)
+    mask = masking.sliding_window(LONG_WINDOW, causal=True)
+    c = quantize(latent[:, None], row8)
+    qattn_fwd.launches = 0
+    t0 = time.perf_counter()
+    o = mla_absorbed_attention(q, c, w_uk, w_uv, mask=mask)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = qattn_fwd.launches
+    finite = bool(torch.isfinite(o.float()).all())
+    n = LONG_PLAIN_S
+    cs = quantize(latent[:, None, :n], row8)
+    q_lat = torch.einsum("bhsd,hdc->bhsc", q[:, :, :n].float(),
+                         w_uk).to(q.dtype)
+    args, kw = qattn_arguments(q_lat, cs, cs, mask=mask, scale=dh ** -0.5)
+    tile = main_path_tile(kw, n)
+    got = qattn_fwd(*args, **kw, kv_tile=tile)
+    torch.cuda.synchronize()
+    errs = check_pair(f"qattn_fwd {kw['mode'].k_scales} K, causal window "
+                      f"{LONG_WINDOW}, Hq={h} over Hkv=1, D={dc}, S={n}",
+                      got, qattn_fwd_plain(*args, **kw,
+                                           kv_tile=tile or KV_TILE))
+    log(f"long context (B={b} H={h} S={s} d_c={dc}, int8 ROW latent, window "
+        f"{LONG_WINDOW}): qattn_fwd launches {launches}, output "
+        f"{tuple(o.shape)} finite {finite}, {seconds:.3f} s (first call)")
+    if launches != 1 or not finite or o.shape != (b, h, s, dh):
+        raise AssertionError(f"long context: launches {launches}, finite "
+                             f"{finite}, shape {tuple(o.shape)}")
+    return {"launches": launches, "finite": finite, "seconds": seconds,
+            "kernel_vs_plain_s8192": errs}
+
+
+def check_serialization_on_card(rng):
+    """(b) ``save_quantized`` then ``load_quantized`` of CUDA tensors
+    (int8 ROW; int4 BLOCK 64 with sums): loaded onto the card by default,
+    every field equal bit for bit."""
+    g = device_generator(rng)
+    x = torch.randn((64, 512), generator=g, device=DEV)
+    out = {}
+    for name, cfg in (("int8_row", QuantConfig(
+            granularity=QuantGranularity.ROW)), ("int4_block64_sums",
+            QuantConfig(bits=4, granularity=QuantGranularity.BLOCK,
+                        block_size=64, compute_sums=True))):
+        t = quantize(x.to(torch.bfloat16), cfg)
+        buf = io.BytesIO()
+        save_quantized(t, buf)
+        buf.seek(0)
+        back = load_quantized(buf)
+        fields = ("data", "scale", "zero_point", "sums")
+        same = all(torch.equal(getattr(back, f), getattr(t, f))
+                   if getattr(t, f) is not None else getattr(back, f) is None
+                   for f in fields) and (back.config, back.shape,
+                                         back.orig_dtype) == (
+            t.config, t.shape, t.orig_dtype)
+        on_card = all(getattr(back, f).is_cuda for f in fields
+                      if getattr(back, f) is not None)
+        out[name] = {"bitwise_equal": same, "on_card": on_card,
+                     "bytes": buf.getbuffer().nbytes}
+        if not (same and on_card):
+            raise AssertionError(f"serialization {name}: {out[name]}")
+    log("save_quantized / load_quantized on the card: " + json.dumps(out))
+    return out
+
+
+def check_dump_lowered(rng):
+    """(c) ``dump_lowered`` of ``flash_attention_forward`` on card inputs
+    (the train step's attention shape): the file names
+    ``flash_fwd_tc_kernel`` and holds its SASS."""
+    b, hq, hkv, s, d = MHA_SHAPE
+    q, k, v, _, _ = flash_inputs(rng, b, hq, hkv, s, s, d, torch.bfloat16)
+    with tempfile.TemporaryDirectory(prefix="mfa-dump-") as tmp:
+        path = dump_lowered(lambda q_, k_, v_: flash_attention_forward(
+            q_, k_, v_, mask=masking.CAUSAL), q, k, v, name="flash_fwd",
+            path=tmp)
+        text = Path(path).read_text()
+    heads = re.findall(r"^# Function : (\S*flash_fwd_tc_kernel\S*)$", text,
+                       re.M)
+    sass = len(re.findall(r"/\*[0-9a-f]{4,}\*/", text))
+    out = {"functions": heads, "sass_lines": sass, "bytes": len(text),
+           "graph": "aten" in text}
+    log(f"dump_lowered(flash_attention_forward) on the card: {len(text)} "
+        f"bytes, {len(heads)} flash_fwd_tc_kernel functions, {sass} SASS "
+        "lines")
+    if not (heads and sass > 100 and out["graph"]):
+        raise AssertionError(f"dump_lowered: {out}; the file's header: "
+                             + "".join(re.findall(r"^# .*\n", text, re.M)))
+    return out
+
+
+def run_long_context_and_utilities(seed):
+    """Phase 17 (a)-(c), inputs from an eleventh generator (seed + 10) →
+    (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 10)
+    out, phase = {}, {}
+    for key, fn in (("long_context", run_long_context),
+                    ("serialization", check_serialization_on_card),
+                    ("dump_lowered", check_dump_lowered)):
+        t = time.perf_counter()
+        with torch.inference_mode(key == "long_context"):
+            out[key] = fn(rng)
+        phase[key] = time.perf_counter() - t
+    return out, phase
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3977,6 +4593,13 @@ def main() -> int:
     phase_s.update(gemm_phase)
     disp, disp_phase = run_dispatch_layer(args.seed)
     phase_s.update(disp_phase)
+    mla_train, mla_train_phase = run_mla_training(args.seed)
+    phase_s.update(mla_train_phase)
+    torch.cuda.empty_cache()  # the ranks of phase 16 share the card
+    cp, cp_phase = run_context_parallel(args.seed)
+    phase_s.update(cp_phase)
+    util, util_phase = run_long_context_and_utilities(args.seed)
+    phase_s.update(util_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -4381,6 +5004,19 @@ def main() -> int:
             entry["launches_multi_head"] = {
                 call: mha["path"][call][entry["name"]]
                 for call in ("forward", "call_grad", "backward")}
+    cp_cases = [c for c, v in cp.items() if isinstance(v, dict)]
+    for i, name in enumerate(("flash_fwd", "flash_dq", "flash_dkv")):
+        entry = next(e for e in record["kernels"] if e["name"] == name)
+        per_step = mla_train["launches_per_step"][name]
+        entry.update({
+            "launches_mla_train_step_d288": per_step,
+            "launches_mla_train_d288": per_step * MLA_TRAIN_STEPS,
+            "launches_context_parallel_per_rank": {
+                c: [r[i] for r in cp[c]["launches_per_rank"]]
+                for c in cp_cases},
+        })
+    next(e for e in record["kernels"] if e["name"] == "qattn_fwd")[
+        "launches_long_context"] = util["long_context"]["launches"]
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
     record["gemm_engine"] = {
@@ -4414,6 +5050,14 @@ def main() -> int:
         "calibration": disp["calibration"],
         "quantized_attention_benchmark": disp["benchmark"],
     }
+    record["mla_train"] = {
+        key: mla_train[key] for key in (
+            "ms_per_step", "tokens_per_s", "launches_per_step", "losses",
+            "grad_rel_l2_worst", "determinism", "checkpoint")}
+    record["context_parallel"] = {
+        "world": CP_WORLD, "transport": "gloo through host memory, every "
+        "rank on cuda:0", **cp}
+    record["utilities"] = util
     record["train"] = {"tokens_per_s": train_tps,
                        "grad_rel_l2_worst": grad_worst,
                        "determinism": train_det}

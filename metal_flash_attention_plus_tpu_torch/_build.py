@@ -18,11 +18,14 @@ temporary directory and ``os.replace``s the library into place, so
 parallel test workers that build at once never load a half-written one.
 
 :func:`kernel_function` declares a kernel entry point's ctypes signature
-and :func:`check_launch` turns a nonzero return code into an error.
+and :func:`check_launch` turns a nonzero return code into an error;
+:func:`recording` collects the entry points that a call asks for
+(``utils/debug.py::dump_lowered`` names the kernels behind them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,7 +35,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, Iterator, List, Sequence, Set
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 REPO_ROOT = PACKAGE_DIR.parent
@@ -52,6 +55,9 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # build was reused), and each of its commands ("<library> <source>", "<library>
 # link") — chip_smoke.py prints them.
 build_seconds: Dict[str, float] = {}
+# The open recorders of :func:`recording`: each collects the names
+# :func:`kernel_function` is asked for while it is open.
+_recorders: List[Set[str]] = []
 
 
 def _nvcc() -> str:
@@ -173,10 +179,24 @@ def kernel_function(name: str, argtypes: Sequence) -> Callable[..., int]:
     """The kernels library's C entry point ``name``: returns a
     ``cudaError_t`` as int; pointers and the stream are ``c_void_p``."""
     fn = getattr(load_library("kernels"), name)
+    for names in _recorders:
+        names.add(name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = list(argtypes)
     return fn
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Set[str]]:
+    """Collect the entry points :func:`kernel_function` hands out inside
+    the ``with`` block (every launch asks for its entry point)."""
+    names: Set[str] = set()
+    _recorders.append(names)
+    try:
+        yield names
+    finally:
+        _recorders.remove(names)
 
 
 def check_launch(rc: int, name: str):

@@ -284,7 +284,8 @@ def trainable_parameters(params: Params) -> List[torch.Tensor]:
     return leaves
 
 
-def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer):
+def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer,
+                    loss: Callable = loss_fn):
     """Single-device train step: ``step(params, opt_state, tokens) →
     (params, opt_state, loss)``, the counterpart of the JAX package's
     jitted step over an optax optimizer.
@@ -293,16 +294,19 @@ def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer):
     :func:`trainable_parameters` of ``params``; ``opt_state`` is its
     ``state``.  Both are updated IN PLACE (the JAX step returns new
     pytrees) and returned so call sites read alike.  ``loss`` is the
-    detached loss before the update.
+    detached loss before the update.  The step differentiates
+    ``loss(params, tokens, cfg)``: :func:`loss_fn` by default, or another
+    loss of the same form (``mla_loss_fn`` with an ``MLAConfig``, which
+    neither package gives a step of its own).
     """
 
     def step(params: Params, opt_state, tokens: torch.Tensor):
         if opt_state is not optimizer.state:
             raise ValueError("opt_state must be optimizer.state")
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, cfg)
-        loss.backward()
+        value = loss(params, tokens, cfg)
+        value.backward()
         optimizer.step()
-        return params, optimizer.state, loss.detach()
+        return params, optimizer.state, value.detach()
 
     return step

@@ -7,6 +7,8 @@ card.
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --mla \
         [--quantized 8]
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --train
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling --mla \
+        --train
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --quantized-attention packed
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
@@ -36,7 +38,9 @@ one, as in ``chip_smoke.py`` phase 12 (g).
 ``--train``: the train step of ``chip_smoke.py``'s training phase (the
 bf16 flagship, Adam at lr 3e-3, one seeded batch of 4 × 2049 tokens): two
 steps to warm up, then the wall time of 3 unprofiled steps, then 3 steps
-under the profiler.
+under the profiler.  ``--mla --train``: the same for ``MLAConfig()``'s
+``mla_loss_fn`` (``make_train_step(..., loss=mla_loss_fn)``) on the
+batch's first 2 × 2049 tokens, as ``chip_smoke.py`` phase 15 trains it.
 
 ``--quantized-attention packed`` / ``unpacked``: ``quantized_forward(...,
 quantize_kv=True)`` of W8A8 weights on 2 × 2048 seeded tokens, as in
@@ -142,6 +146,7 @@ from metal_flash_attention_plus_tpu_torch import _build
 from metal_flash_attention_plus_tpu_torch.models.mla_transformer import (
     MLAConfig,
     init_mla_params,
+    mla_loss_fn,
 )
 from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
     quantize_mla_weights,
@@ -151,6 +156,7 @@ from metal_flash_attention_plus_tpu_torch.models.quantized_inference import (
 from metal_flash_attention_plus_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
+    loss_fn,
     make_train_step,
     trainable_parameters,
 )
@@ -494,30 +500,31 @@ def _differ(a: torch.Tensor, b: torch.Tensor) -> bool:
     return not torch.equal(_bits(a), _bits(b))
 
 
-def train_twice(cfg, params, tokens, steps: int, lr: float = 3e-3):
+def train_twice(cfg, params, tokens, steps: int, lr: float = 3e-3,
+                loss=loss_fn):
     """Train two copies of ``params`` (left as they are) from one state,
-    one after the other, with ``make_train_step`` and Adam at ``lr`` on
-    ``tokens`` for ``steps`` steps, and compare the copies bit for bit
-    after every step.  → (per step: both losses, and the names of the
-    parameters and of the gradients that differ, empty when the step is
-    deterministic; the second copy's final parameters).  Holds the first
-    copy's parameters and gradients of every step."""
+    one after the other, with ``make_train_step`` over ``loss`` and Adam
+    at ``lr`` on ``tokens`` for ``steps`` steps, and compare the copies
+    bit for bit after every step.  → (per step: both losses, and the
+    names of the parameters and of the gradients that differ, empty when
+    the step is deterministic; the second copy's final parameters).
+    Holds the first copy's parameters and gradients of every step."""
     first, out = [], []
     for run in range(2):
         p = clone_params(params)
         named = named_parameters(p)
         optimizer = torch.optim.Adam([t for _, t in named], lr=lr)
-        step = make_train_step(cfg, optimizer)
+        step = make_train_step(cfg, optimizer, loss=loss)
         for i in range(steps):
-            p, _, loss = step(p, optimizer.state, tokens)
+            p, _, value = step(p, optimizer.state, tokens)
             snap = [(t.detach().clone(), t.grad.detach().clone())
                     for _, t in named]
             if run == 0:
-                first.append((loss.item(), snap))
+                first.append((value.item(), snap))
                 continue
-            loss0, snap0 = first[i]
+            value0, snap0 = first[i]
             out.append({
-                "step": i + 1, "losses": [loss0, loss.item()],
+                "step": i + 1, "losses": [value0, value.item()],
                 "params_differ": [n for (n, _), (a, _), (b, _) in zip(
                     named, snap0, snap) if _differ(a, b)],
                 "grads_differ": [n for (n, _), (_, a), (_, b) in zip(
@@ -583,28 +590,31 @@ def profile_determinism(cfg, params, seed: int, steps: int) -> int:
     return 0
 
 
-def profile_train(cfg, params, seed: int, steps: int = 3) -> int:
-    tokens = train_tokens(cfg, seed, "cuda")
+def profile_train(cfg, params, seed: int, steps: int = 3, loss=loss_fn,
+                  batch: int = 4) -> int:
+    """``make_train_step`` over ``loss`` (``mla_loss_fn`` for MLA) on the
+    first ``batch`` rows of the train phase's tokens."""
+    tokens = train_tokens(cfg, seed, "cuda")[:batch]
     optimizer = torch.optim.Adam(trainable_parameters(params), lr=3e-3)
-    step = make_train_step(cfg, optimizer)
+    step = make_train_step(cfg, optimizer, loss=loss)
 
     def run(n):
         nonlocal params
         t0 = time.perf_counter()
         for _ in range(n):
-            params, _, loss = step(params, optimizer.state, tokens)
+            params, _, value = step(params, optimizer.state, tokens)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, loss.item()
+        return time.perf_counter() - t0, value.item()
 
     run(2)  # warm-up: kernel build, cuBLAS plans, optimizer state
-    wall_s, loss = run(steps)
+    wall_s, final = run(steps)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_wall_s, _ = run(steps)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "steps": steps,
-        "tokens_per_step": 4 * 2048, "step_s": wall_s / steps,
-        "tokens_per_s": steps * 4 * 2048 / wall_s, "loss": loss,
+        "tokens_per_step": batch * 2048, "step_s": wall_s / steps,
+        "tokens_per_s": steps * batch * 2048 / wall_s, "loss": final,
         "profiled_step_s": prof_wall_s / steps,
     }))
     return print_profile(prof, prof_wall_s, steps, "step")
@@ -935,7 +945,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train", action="store_true",
-                    help="profile the train step instead of the engine")
+                    help="profile the train step instead of the engine "
+                    "(with --mla: MLAConfig()'s mla_loss_fn)")
     ap.add_argument("--quantized", type=int, choices=(8, 4),
                     help="serve W8A8 weights over an int8 pool (8) or W4A8 "
                     "weights over an int4 pool (4)")
@@ -984,6 +995,9 @@ def main() -> int:
             ap.error("MLA latent pools are float or int8")
         cfg = MLAConfig()
         params = init_mla_params(cfg, torch.Generator().manual_seed(args.seed))
+        if args.train:
+            return profile_train(cfg, params, args.seed,
+                                 loss=mla_loss_fn, batch=2)
         return profile_serving(cfg, params, args.seed, args.quantized,
                                mla=True)
     cfg = TransformerConfig()

@@ -59,7 +59,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "ops.quantized_attention", "ops.runtime_quantization",
                    "ops.hadamard", "attention.quantized",
                    "attention.descriptor", "attention.multi_head",
-                   "attention.tuning", "runtime.native", "utils.profiling"):
+                   "attention.tuning", "runtime.native", "utils.profiling",
+                   "parallel.mesh", "parallel.ring", "parallel.ulysses",
+                   "parallel.comm", "quant.serialization",
+                   "models.checkpoint", "utils.debug", "utils.testing"):
         assert f"{PORT}.{module}" in report["modules"], module
     leaked = [m for m in report["loaded"] if _is_jax_or_reference(m)]
     assert leaked == [], leaked

@@ -427,6 +427,38 @@ def test_flagship_training_is_deterministic(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_strided_views_match_contiguous(cuda_device, dtype):
+    """Permuted and sliced Q/K views through ``flash_attention`` on the
+    card: each direction launches its kernel once, and O and the gradients
+    equal the contiguous call's bit for bit (the CPU mirror is
+    tests/test_torch_parity_extras.py)."""
+    from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(1, 4, 128, 64, generator=g).to(
+        cuda_device, dtype) for _ in range(4))
+    q_view = q.permute(2, 0, 1, 3).contiguous().permute(1, 2, 0, 3)
+    k_view = torch.cat([k, torch.ones_like(k[:, :, :32])], dim=2)[:, :, :128]
+    assert not q_view.is_contiguous() and not k_view.is_contiguous()
+
+    def run(q_, k_, v_):
+        leaves = [t.detach().requires_grad_(True) for t in (q_, k_, v_)]
+        n = (flash_fwd.launches, flash_dq.launches, flash_dkv.launches)
+        o = flash_attention(*leaves, mask=masking.CAUSAL)
+        out = (o, *torch.autograd.grad(o, leaves, do))
+        torch.cuda.synchronize()
+        assert (flash_fwd.launches, flash_dq.launches,
+                flash_dkv.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+        return out
+
+    for a, b in zip(run(q, k, v), run(q_view, k_view, v)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     (q, k, v), do, _, rr = _flash_case(cuda_device, torch.float32, 1, 2, 1,
                                        64, 64, 64, masking.CAUSAL)
