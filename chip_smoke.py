@@ -224,7 +224,36 @@ checkout, then, on the card:
    ``load_quantized`` of CUDA tensors (int8 ROW, int4 BLOCK 64 with sums):
    loaded onto the card by default, equal bit for bit; (c) ``dump_lowered``
    of ``flash_attention_forward`` on card inputs: the file holds the
-   traced graph and the SASS of ``flash_fwd_tc_kernel``.
+   traced graph and the SASS of ``flash_fwd_tc_kernel``;
+18. the 3D-parallel train step, expert and pipeline parallelism (inputs
+   from a twelfth generator, seed + 11): a world of 4 gloo ranks on
+   cuda:0 as phase 16's (``mp.spawn``, a FileStore, the kernels built
+   before), the flagship on ``make_mesh(1, 2, 2)`` with ring attention
+   (``parallel/spmd.py``): (a) fp32 at B=1, S=1024, the loss and every
+   gradient of ``make_spmd_loss_and_grad`` gathered to rank 0 against the
+   single-device ``loss_fn`` on the card (rel L2 ≤ GRAD_REL_L2_TOL), the
+   replicas' gradients equal bit for bit; (b) the bf16 flagship, 3
+   ``make_spmd_train_step`` steps with AdamW on phase 7's 4 x 2049
+   tokens, against the single-device ``make_train_step`` with the same
+   AdamW from the same parameters: step 0's loss within 2e-2 of its
+   loss, every step's within SPMD_TRAIN_LOSS_TOL, the parameters' update
+   over the 3 steps (the final shards gathered) within SPMD_UPDATE_TOL
+   rel L2 of its, the losses the same on every rank, finite and falling,
+   the flash counts set to 0 just
+   before each step and read after it (exactly 8 forwards, 8 dQ and 8
+   dK/dV a step at context position 0, 16 at 1), the 3 steps rerun from
+   the same shards equal bit for bit (else, reported, equal losses across
+   the model ranks), the wall seconds a step (not a speed: the ranks
+   time-share the card); (c) fp32 at the CPU tests' configuration on
+   meshes (2, 1, 2) ring, (1, 2, 2) Ulysses and (2, 2, 1) local, and
+   ``spmd_forward``, against the single device at 1e-4; (d) ``moe_ffn``
+   (d_model 1024, d_ff 4096, 8 experts over the 4 ranks, top-2, 1024
+   tokens a rank, fp32, no token dropped) against
+   ``moe_ffn_dense_reference`` on the card, output and router / wd
+   gradients at 1e-4 of max abs, and ``pipeline_apply`` (4 stages of
+   tanh(x @ w) at d = 1024, 8 microbatches of 16 rows, with and without
+   remat) against the sequential stages at 1e-5; (e)
+   ``dryrun_multichip(4)`` prints its three ``OK`` lines.
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -259,6 +288,7 @@ import atexit
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -411,14 +441,32 @@ from metal_flash_attention_plus_tpu_torch.ops import (
 from metal_flash_attention_plus_tpu_torch.ops import (
     runtime_quantization as rtq,
 )
+from metal_flash_attention_plus_tpu_torch.entry import dryrun_multichip
 from metal_flash_attention_plus_tpu_torch.parallel import (
     AXES,
+    broadcast_from_last_stage,
+    init_moe_params,
     make_mesh,
+    moe_ffn,
+    pipeline_apply,
     ring_attention,
     ring_attention_zigzag,
     ulysses_attention,
     zigzag_postshard,
     zigzag_preshard,
+)
+from metal_flash_attention_plus_tpu_torch.parallel.comm import all_reduce
+from metal_flash_attention_plus_tpu_torch.parallel.moe import (
+    moe_ffn_dense_reference,
+)
+from metal_flash_attention_plus_tpu_torch.parallel.spmd import (
+    ShardingConfig,
+    make_spmd_loss_and_grad,
+    make_spmd_train_step,
+    mesh_rank,
+    shard_params,
+    spmd_forward,
+    unshard_params,
 )
 from metal_flash_attention_plus_tpu_torch.quant import capabilities
 from metal_flash_attention_plus_tpu_torch.quant.compensation import (
@@ -468,6 +516,7 @@ from metal_flash_attention_plus_tpu_torch.utils.profiling import (
     gemm_arm,
     measure_held,
     clone_params,
+    named_parameters,
     params_digest,
     smoke_requests,
     train_tokens,
@@ -4493,6 +4542,537 @@ def run_long_context_and_utilities(seed):
 
 
 # --------------------------------------------------------------------------
+# Phase 18: the 3D-parallel train step, expert and pipeline parallelism
+# --------------------------------------------------------------------------
+
+# A world of 4 gloo ranks on cuda:0, as phase 16's.  The flagship runs on
+# the mesh (data, model, context) = (1, 2, 2) with ring attention: a rank
+# holds half the heads, the MLP's width and the vocabulary, and half the
+# sequence.  Every input comes from a twelfth generator (seed + 11).
+SPMD = types.SimpleNamespace(
+    world=4,
+    mesh=(1, 2, 2),
+    # (a) fp32 gradients at phase 15's B=1, S=1024.
+    grad_cfg=dataclasses.replace(TransformerConfig(), dtype=torch.float32),
+    grad_tokens=(1, 1025),
+    # (b) the bf16 train step at phase 7's 4 x 2049 tokens, AdamW.
+    train_cfg=TransformerConfig(),
+    train_tokens=(TRAIN_BATCH, TRAIN_SEQ + 1),
+    train_steps=3,
+    # (c) the CPU tests' configuration (tests/test_torch_spmd.py), fp32.
+    small_cfg=TransformerConfig(
+        vocab_size=512, d_model=128, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=64, d_ff=256, max_seq=256,
+        dtype=torch.float32),
+    small_tokens=(2, 257),
+    small_meshes={"ring_2x1x2": ((2, 1, 2), "ring"),
+                  "ulysses_1x2x2": ((1, 2, 2), "ulysses"),
+                  "local_2x2x1": ((2, 2, 1), "local")},
+    # (d) MoE: d_model, d_ff, experts (2 a rank), top-k, tokens a rank;
+    # capacity_factor = experts / top-k, so no expert can overflow.
+    moe=(1024, 4096, 8, 2, 1024),
+    # (d) pipeline: d, microbatches, rows a microbatch (4 tanh stages).
+    pipe=(1024, 8, 16),
+    dev=DEV,
+)
+SPMD_LOSS_TOL = 2e-2  # (b): step 0's loss vs the single-device bf16 loss
+# (b) against the single-device bf16 step: every step's loss (rel) and the
+# update of all the parameters over the 3 steps (rel L2).  On an H100 80GB
+# HBM3 at 700 W the sharded step reads 5.7e-4 and 9.8e-2, and the same step
+# with its gradients left unsynced over the context axis 6.4e-2 and 0.82.
+SPMD_TRAIN_LOSS_TOL = 3e-3
+SPMD_UPDATE_TOL = 0.3
+SPMD_SMALL_TOL = 1e-4  # (c): rel L2 of the loss, gradients and logits
+MOE_TOL = 1e-4  # (d): max abs over the reference's max abs
+PIPE_TOL = 1e-5
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def flat_tree(tree) -> dict:
+    """A parameter (or gradient) tree as {"embed": t, "layers.0.ln1": t,
+    ...} in ``named_parameters``' order."""
+    out = {"embed": tree["embed"]}
+    for i, layer in enumerate(tree["layers"]):
+        out.update({f"layers.{i}.{k}": v for k, v in sorted(layer.items())})
+    out.update(ln_f=tree["ln_f"], unembed=tree["unembed"])
+    return out
+
+
+def sha256_of(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def spmd_tokens(cfg, shape, seed, dev):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape)).to(dev)
+
+
+def spmd_normal(seed, shape, dev, scale=1.0):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy((g.standard_normal(shape) * scale).astype(
+        np.float32)).to(dev)
+
+
+def cpu_tree(tree) -> dict:
+    """A parameter (or gradient) tree's tensors copied to the host."""
+    return {"embed": tree["embed"].detach().cpu(),
+            "layers": [{k: v.detach().cpu() for k, v in layer.items()}
+                       for layer in tree["layers"]],
+            "ln_f": tree["ln_f"].detach().cpu(),
+            "unembed": tree["unembed"].detach().cpu()}
+
+
+def spmd_expect(cfg, mesh, dev) -> dict:
+    """The flash launches a rank makes in each direction of one step: a
+    ring step a layer for every earlier context chunk and the diagonal (8
+    at context position 0, 16 at 1); none on the CPU (the plain
+    versions)."""
+    n = cfg.num_layers * (mesh.get_local_rank(AXES.context) + 1)
+    n = n if dev.type == "cuda" else 0
+    return {"flash_fwd": n, "flash_dq": n, "flash_dkv": n}
+
+
+def spmd_grads_rank(mesh, spec, seed):
+    """(a) on this rank: the loss and its gradient shards (the full ones
+    on the context-0 ranks, digests on all), launches, seconds."""
+    cfg, dev = spec.grad_cfg, spec.dev
+    sc = ShardingConfig(attn_mode="ring")
+    local = shard_params(init_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev), mesh, cfg, sc)
+    tokens = spmd_tokens(cfg, spec.grad_tokens, seed, dev)
+    fn = make_spmd_loss_and_grad(cfg, mesh, sc)
+    sync(dev)
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    loss, grads = fn(local, tokens[:, :-1], tokens[:, 1:])
+    sync(dev)
+    sec, launches = time.perf_counter() - t0, flash_counts()
+    want = spmd_expect(cfg, mesh, dev)
+    if launches != want:
+        raise AssertionError(f"SPMD fp32 gradient launched {launches}, "
+                             f"expected {want}")
+    grads = cpu_tree(grads)
+    rec = {"loss": loss.item(), "launches": launches, "seconds": sec,
+           "sha256": {k: sha256_of(v) for k, v in flat_tree(grads).items()}}
+    if mesh.get_local_rank(AXES.context) == 0:
+        rec["grads"] = grads
+    return rec
+
+
+def spmd_train_rank(mesh, spec, seed):
+    """(b) on this rank: the bf16 flagship's sharded train step, twice
+    from the same parameters; raises unless every step launched exactly
+    its ring steps.  The flash launches read after each step of the first
+    run are returned, and the final shards from the (data 0, context 0)
+    ranks."""
+    cfg, dev = spec.train_cfg, spec.dev
+    sc = ShardingConfig(attn_mode="ring")
+    init = shard_params(init_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev), mesh, cfg, sc)
+    tokens = spmd_tokens(cfg, spec.train_tokens, seed, dev)
+    want = spmd_expect(cfg, mesh, dev)
+
+    def run():
+        params = clone_params(init)
+        optimizer = torch.optim.AdamW(trainable_parameters(params), lr=3e-3,
+                                      weight_decay=1e-4)
+        step = make_spmd_train_step(cfg, mesh, optimizer, sc)
+        losses, walls, counts = [], [], []
+        for i in range(spec.train_steps):
+            sync(dev)
+            zero_flash_counts()
+            t0 = time.perf_counter()
+            params, _, loss = step(params, optimizer.state, tokens)
+            losses.append(loss.item())
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+            counts.append(flash_counts())
+            if counts[-1] != want:
+                raise AssertionError(f"SPMD train step {i + 1} launched "
+                                     f"{counts[-1]}, expected {want}")
+        return losses, walls, counts, params
+
+    (losses, walls, counts, final), (losses2, walls2, _, final2) = (run(),
+                                                                    run())
+    digest, digest2 = params_digest(final), params_digest(final2)
+    rec = {"losses": losses, "rerun_losses": losses2,
+           "wall_s_per_step": walls, "rerun_wall_s_per_step": walls2,
+           "launches_per_step": counts, "params_sha256": digest,
+           "rerun_bitwise_equal": losses == losses2 and digest == digest2}
+    if (mesh.get_local_rank(AXES.data), mesh.get_local_rank(AXES.context)
+            ) == (0, 0):
+        rec["final"] = cpu_tree(final)
+    return rec
+
+
+def spmd_small_rank(spec, seed):
+    """(c) on this rank: each small mesh's loss and gradient shards, and
+    ``spmd_forward``'s global logits on the ring mesh."""
+    cfg, dev = spec.small_cfg, spec.dev
+    full = init_params(cfg, torch.Generator().manual_seed(seed), device=dev)
+    tokens = spmd_tokens(cfg, spec.small_tokens, seed, dev)
+    out = {}
+    for case, (shape, mode) in spec.small_meshes.items():
+        mesh = make_mesh(*shape, device_type=dev.type)
+        sc = ShardingConfig(attn_mode=mode)
+        local = shard_params(full, mesh, cfg, sc)
+        loss, grads = make_spmd_loss_and_grad(cfg, mesh, sc)(
+            local, tokens[:, :-1], tokens[:, 1:])
+        out[case] = {"loss": loss.item(), "grads": cpu_tree(grads)}
+        if mode == "ring":
+            out[case]["logits"] = spmd_forward(local, tokens[:, :-1], cfg,
+                                               mesh, sc).cpu()
+    return out
+
+
+def moe_inputs(spec, seed, world):
+    d, f, e, _, t = spec.moe
+    full = init_moe_params(torch.Generator().manual_seed(seed), d, f, e,
+                           device=spec.dev)
+    return full, spmd_normal(seed, (world * t, d), spec.dev)
+
+
+def pipe_inputs(spec, seed, world):
+    d, n_micro, rows = spec.pipe
+    return (spmd_normal(seed, (world, d, d), spec.dev, d ** -0.5),
+            spmd_normal(seed + 1, (n_micro, rows, d), spec.dev))
+
+
+def pipe_stage(w, x):
+    return torch.tanh(x @ w)
+
+
+def moe_pipe_rank(rank, world, spec, seed):
+    """(d) on this rank: the MoE layer over its tokens and its experts
+    (output, the router's gradient summed over the ranks, wd's), and the
+    pipeline's output and stage gradient without and with remat."""
+    _, _, e, k, t = spec.moe
+    full, x = moe_inputs(spec, seed, world)
+    el = e // world
+    local = {n: (v if n == "router" else v[rank * el:(rank + 1) * el])
+             .clone().requires_grad_(True) for n, v in full.items()}
+    y = moe_ffn(local, x[rank * t:(rank + 1) * t], top_k=k,
+                capacity_factor=e / k)
+    g_router, g_wd = torch.autograd.grad((y * y).sum(),
+                                         [local["router"], local["wd"]])
+    out = {"moe": {"out": y.detach().cpu(),
+                   "router_grad": all_reduce(g_router).cpu(),
+                   "wd_grad": g_wd.cpu()}}
+    ws, xs = pipe_inputs(spec, seed, world)
+    for remat in (False, True):
+        w = ws[rank].clone().requires_grad_(True)
+        o = broadcast_from_last_stage(pipeline_apply(pipe_stage, w, xs,
+                                                     remat=remat))
+        (g,) = torch.autograd.grad((o * o).sum(), [w])
+        out[f"pipe_remat_{remat}"] = {"out": o.detach().cpu(),
+                                      "grad": g.cpu()}
+    return out
+
+
+def spmd_gate_grads(ranks, spec, seed):
+    """(a) on rank 0: the replicas' digests equal, the loss the same on
+    every rank, the gathered gradients against the single-device
+    ``loss_fn`` on the card."""
+    cfg, dev, shape = spec.grad_cfg, spec.dev, spec.mesh
+    recs = [r["grads"] for r in ranks]
+    shards = {m: recs[mesh_rank((0, m, 0), shape)]["grads"]
+              for m in range(shape[1])}
+    replicas_equal = all(
+        recs[mesh_rank((d, m, c), shape)]["sha256"]
+        == recs[mesh_rank((0, m, 0), shape)]["sha256"]
+        for d in range(shape[0]) for m in range(shape[1])
+        for c in range(shape[2]))
+    got = flat_tree(unshard_params(shards, cfg))
+    del shards
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device=dev)
+    named = named_parameters(params)
+    loss = loss_fn(params, spmd_tokens(cfg, spec.grad_tokens, seed, dev),
+                   cfg)
+    loss.backward()
+    errs = {n: rel_l2(got[n].to(dev), t.grad) for n, t in named}
+    losses = {r["loss"] for r in recs}
+    loss_err = abs(recs[0]["loss"] - loss.item()) / abs(loss.item())
+    worst = max(errs.values())
+    log(f"SPMD (a) fp32 flagship gradients on mesh {shape} ring, B=1 "
+        f"S={spec.grad_tokens[1] - 1}: loss {recs[0]['loss']:.6f} vs the "
+        f"single device {loss.item():.6f} (rel {loss_err:.3e}); worst "
+        f"parameter rel L2 {worst:.3e} ({max(errs, key=errs.get)}; tol "
+        f"{GRAD_REL_L2_TOL}); replicas equal bit for bit {replicas_equal}; "
+        f"launches per rank {json.dumps([r['launches'] for r in recs])}")
+    if not (worst <= GRAD_REL_L2_TOL and loss_err <= GRAD_REL_L2_TOL
+            and len(losses) == 1 and replicas_equal):
+        raise AssertionError(f"SPMD fp32 gradients: worst {worst}, loss "
+                             f"{loss_err}, losses {losses}, replicas "
+                             f"{replicas_equal}")
+    return {"grad_rel_l2_worst": worst, "loss_rel_err": loss_err,
+            "replicas_bitwise_equal": True,
+            "launches_per_rank": [r["launches"] for r in recs],
+            "seconds_per_rank": [r["seconds"] for r in recs]}
+
+
+def spmd_gate_train(ranks, spec, seed):
+    """(b) on rank 0: the sharded run against the single-device bf16
+    ``make_train_step`` with the same AdamW from the same parameters:
+    each step's loss, and each parameter's update over the run (the
+    final shards gathered, less the initial parameters); step 0's loss
+    within ``SPMD_LOSS_TOL``, the losses finite and falling and the same
+    on every rank; a rerun equal bit for bit (else, reported, equal
+    losses across the model ranks)."""
+    cfg, dev, shape = spec.train_cfg, spec.dev, spec.mesh
+    recs = [r["train"] for r in ranks]
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device=dev)
+    init = clone_params(params)
+    optimizer = torch.optim.AdamW(trainable_parameters(params), lr=3e-3,
+                                  weight_decay=1e-4)
+    step = make_train_step(cfg, optimizer)
+    tokens = spmd_tokens(cfg, spec.train_tokens, seed, dev)
+    ref = []
+    for _ in range(spec.train_steps):
+        params, _, loss = step(params, optimizer.state, tokens)
+        ref.append(loss.item())
+    got = flat_tree(unshard_params(
+        {m: recs[mesh_rank((0, m, 0), shape)]["final"]
+         for m in range(shape[1])}, cfg))
+    init = flat_tree(init)
+    sq = {}  # name: (|sharded update - single update|^2, |single update|^2)
+    for n, t in named_parameters(params):
+        want = t.detach().float() - init[n].float()
+        diff = got[n].to(dev).float() - init[n].float() - want
+        sq[n] = (diff.square().sum().item(), want.square().sum().item())
+    del got, init, params, optimizer
+    updates = {n: (a / b) ** 0.5 for n, (a, b) in sq.items()}
+    update_all = (sum(a for a, _ in sq.values())
+                  / sum(b for _, b in sq.values())) ** 0.5
+    losses = recs[0]["losses"]
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    update_worst = max(updates.values())
+    same = all(r["losses"] == losses for r in recs)
+    bitwise = all(r["rerun_bitwise_equal"] for r in recs)
+    model_equal = all(
+        recs[mesh_rank((d, m, c), shape)]["rerun_losses"]
+        == recs[mesh_rank((d, 0, c), shape)]["rerun_losses"]
+        for d in range(shape[0]) for m in range(shape[1])
+        for c in range(shape[2]))
+    rerun_gate = bitwise or model_equal
+    walls = [r["wall_s_per_step"] for r in recs]
+    launches = [[list(c.values()) for c in r["launches_per_step"]]
+                for r in recs]
+    log(f"SPMD (b) bf16 flagship train step on mesh {shape} ring, "
+        f"{spec.train_tokens[0]} x {spec.train_tokens[1]} tokens, AdamW: "
+        f"losses {json.dumps(losses)}, the single device's "
+        f"{json.dumps(ref)}: rel {json.dumps(loss_errs)} (step 0 tol "
+        f"{SPMD_LOSS_TOL}, every step {SPMD_TRAIN_LOSS_TOL}); the update "
+        f"over the run, rel L2 over every parameter {update_all:.3e} (tol "
+        f"{SPMD_UPDATE_TOL}), worst parameter {update_worst:.3e} "
+        f"({max(updates, key=updates.get)}; not gated: a bf16 norm weight "
+        f"near 1 takes Adam's small steps in rounding jumps); the "
+        f"same on every rank {same}; rerun equal bit for bit {bitwise}"
+        + ("" if bitwise else f" (NOT: gated on equal losses across the "
+           f"model ranks instead, {model_equal})")
+        + "; flash launches read after each step per rank (forward, dQ, "
+        "dK/dV) " + json.dumps(launches)
+        + "; wall s per step per rank (4 ranks time-share one card: not a "
+        "speed) " + json.dumps([[round(x, 3) for x in w] for w in walls]))
+    if not (loss_errs[0] <= SPMD_LOSS_TOL
+            and max(loss_errs) <= SPMD_TRAIN_LOSS_TOL
+            and update_all <= SPMD_UPDATE_TOL and same and rerun_gate
+            and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"SPMD train step: losses {losses}, ref {ref}, "
+                             f"update {update_all}, same {same}, "
+                             f"rerun {bitwise}/{model_equal}")
+    return {"losses": losses, "single_device_losses": ref,
+            "loss_rel_errs": loss_errs, "update_rel_l2": update_all,
+            "update_rel_l2_per_parameter": updates,
+            "rerun_bitwise_equal": bitwise,
+            "rerun_gate": "bitwise" if bitwise else "model_ranks_equal",
+            "launches_per_step_per_rank": [r["launches_per_step"]
+                                           for r in recs],
+            "wall_s_per_step_per_rank_time_shared": walls,
+            "params_sha256_per_rank": [r["params_sha256"] for r in recs]}
+
+
+def spmd_gate_small(ranks, spec, seed):
+    """(c) on rank 0: each small mesh's loss, gathered gradients (the
+    replicas equal bit for bit) and the ring mesh's logits against the
+    single device on the card."""
+    cfg, dev = spec.small_cfg, spec.dev
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device=dev)
+    named = named_parameters(params)
+    tokens = spmd_tokens(cfg, spec.small_tokens, seed, dev)
+    loss = loss_fn(params, tokens, cfg)
+    loss.backward()
+    with torch.no_grad():
+        logits = forward(params, tokens[:, :-1], cfg)
+    out, bad = {}, []
+    for case, (shape, _) in spec.small_meshes.items():
+        recs = [r["small"][case] for r in ranks]
+        flats = [flat_tree(r["grads"]) for r in recs]
+        replicas = all(
+            torch.equal(flats[mesh_rank((d, m, c), shape)][n],
+                        flats[mesh_rank((0, m, 0), shape)][n])
+            for d in range(shape[0]) for m in range(shape[1])
+            for c in range(shape[2]) for n, _ in named)
+        got = flat_tree(unshard_params(
+            {m: recs[mesh_rank((0, m, 0), shape)]["grads"]
+             for m in range(shape[1])}, cfg))
+        errs = {"loss": abs(recs[0]["loss"] - loss.item()) / loss.item(),
+                "grads_worst": max(rel_l2(got[n].to(dev), t.grad)
+                                   for n, t in named)}
+        if "logits" in recs[0]:
+            errs["logits"] = max(rel_l2(r["logits"].to(dev), logits)
+                                 for r in recs)
+        same = len({r["loss"] for r in recs}) == 1
+        out[case] = {"rel_errors": errs, "replicas_bitwise_equal": replicas}
+        log(f"SPMD (c) small fp32 {case}: rel errors vs the single device "
+            f"{json.dumps(errs)} (tol {SPMD_SMALL_TOL}); replicas equal "
+            f"{replicas}; one loss on every rank {same}")
+        if not (max(errs.values()) <= SPMD_SMALL_TOL and replicas and same):
+            bad.append(case)
+    if bad:
+        raise AssertionError(f"SPMD small meshes disagree: {bad}")
+    return out
+
+
+def spmd_gate_moe_pipe(ranks, spec, seed):
+    """(d) on rank 0: the MoE outputs and gradients against
+    ``moe_ffn_dense_reference`` per rank's tokens (its summed loss
+    differentiated), the pipeline against the sequential stages."""
+    world = len(ranks)
+    _, _, e, k, t = spec.moe
+    full, x = moe_inputs(spec, seed, world)
+    ref = {n: v.clone().requires_grad_(True) for n, v in full.items()}
+    ys = [moe_ffn_dense_reference(ref, x[r * t:(r + 1) * t], top_k=k)
+          for r in range(world)]
+    g_router, g_wd = torch.autograd.grad(sum((y * y).sum() for y in ys),
+                                         [ref["router"], ref["wd"]])
+    el = e // world
+    moe = {"out": max(rel_err(ranks[r]["moe"]["out"], ys[r].detach().cpu())
+                      for r in range(world)),
+           "router_grad": max(rel_err(rk["moe"]["router_grad"],
+                                      g_router.cpu()) for rk in ranks),
+           "wd_grad": max(rel_err(ranks[r]["moe"]["wd_grad"],
+                                  g_wd[r * el:(r + 1) * el].cpu())
+                          for r in range(world))}
+    ws, xs = pipe_inputs(spec, seed, world)
+    ws = ws.clone().requires_grad_(True)
+    outs = []
+    for xm in xs:  # the stages one after another, a microbatch at a time
+        for w in ws:
+            xm = pipe_stage(w, xm)
+        outs.append(xm)
+    seq = torch.stack(outs)
+    (g_ws,) = torch.autograd.grad((seq * seq).sum(), [ws])
+    pipe = {f"{key}_{part}": max(
+        rel_err(rk[key][part], (seq if part == "out" else g_ws[r]).detach()
+                .cpu()) for r, rk in enumerate(ranks))
+        for key in ("pipe_remat_False", "pipe_remat_True")
+        for part in ("out", "grad")}
+    log(f"SPMD (d) MoE, {e} experts over {world} ranks, top-{k}, {t} tokens "
+        f"a rank, d_model {spec.moe[0]}, d_ff {spec.moe[1]}: max abs over "
+        f"the dense reference's {json.dumps(moe)} (tol {MOE_TOL}); "
+        f"pipeline, {world} stages of tanh(x @ w), d {spec.pipe[0]}, "
+        f"{spec.pipe[1]} x {spec.pipe[2]} rows: vs the sequential stages "
+        f"{json.dumps(pipe)} (tol {PIPE_TOL})")
+    if not (max(moe.values()) <= MOE_TOL and max(pipe.values()) <= PIPE_TOL):
+        raise AssertionError(f"MoE {moe} / pipeline {pipe} disagree")
+    return {"moe_rel_err": moe, "pipeline_rel_err": pipe}
+
+
+def spmd_rank(rank, world, tmp, seed, spec):
+    """One rank of phase 18's world (a process of ``mp.spawn``): gloo over
+    a FileStore in ``tmp``, parts (a)-(d); rank 0 then gates the gathered
+    results into ``tmp/result.json``."""
+    if spec.dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "store"), world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(*spec.mesh, device_type=spec.dev.type)
+        out, seconds = {}, {}
+        for key, fn in (
+                ("grads", lambda: spmd_grads_rank(mesh, spec, seed)),
+                ("train", lambda: spmd_train_rank(mesh, spec, seed)),
+                ("small", lambda: spmd_small_rank(spec, seed)),
+                ("moe_pipe", lambda: moe_pipe_rank(rank, world, spec,
+                                                   seed))):
+            t = time.perf_counter()
+            out[key] = fn()
+            seconds[key] = time.perf_counter() - t
+        out.update(out.pop("moe_pipe"))
+        out["seconds"] = seconds
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=True) for r in range(world)]
+        res = {"part_seconds_per_rank": [r["seconds"] for r in ranks]}
+        for key, gate in (("grads", spmd_gate_grads),
+                          ("train", spmd_gate_train),
+                          ("small", spmd_gate_small),
+                          ("moe_pipeline", spmd_gate_moe_pipe)):
+            t = time.perf_counter()
+            res[key] = gate(ranks, spec, seed)
+            res["part_seconds_per_rank"][0][f"gate_{key}"] = (
+                time.perf_counter() - t)
+        with open(os.path.join(tmp, "result.json"), "w") as f:
+            json.dump(res, f)
+
+
+def run_dryrun(n):
+    """(e): ``dryrun_multichip(n)`` on the card → its three lines; raises
+    unless they are the JAX dry run's."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(n)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(line)
+    want = ("dryrun_multichip OK: mesh(", f"dryrun EP OK: {n} ",
+            f"dryrun PP OK: {n} ")
+    if len(lines) != 3 or not all(a.startswith(b)
+                                  for a, b in zip(lines, want)):
+        raise AssertionError(f"dryrun_multichip printed {lines}")
+    return lines
+
+
+def run_spmd(seed, spec=SPMD):
+    """Phase 18, inputs from a twelfth generator (seed + 11): (a)-(d) in
+    the world of ``spec.world`` ranks, then (e) the dry run; a rank's
+    exception fails the phase (``mp.spawn`` raises it) → (record, phase
+    seconds)."""
+    phase = {}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mfa-spmd-") as tmp:
+        mp.spawn(spmd_rank, args=(spec.world, tmp, seed + 11, spec),
+                 nprocs=spec.world, join=True)
+        with open(os.path.join(tmp, "result.json")) as f:
+            out = json.load(f)
+    phase["spmd_world"] = time.perf_counter() - t
+    log("SPMD part seconds per rank (the ranks time-share one card): "
+        + json.dumps([{k: round(v, 2) for k, v in r.items()}
+                      for r in out["part_seconds_per_rank"]]))
+    t = time.perf_counter()
+    out["dryrun_lines"] = run_dryrun(spec.world)
+    phase["spmd_dryrun"] = time.perf_counter() - t
+    log(f"3D-parallel train step, EP and PP: {spec.world} gloo ranks on "
+        f"cuda:0, every gate passed; world {phase['spmd_world']:.1f} s, dry "
+        f"run {phase['spmd_dryrun']:.1f} s (process start-up included)")
+    return out, phase
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4600,6 +5180,9 @@ def main() -> int:
     phase_s.update(cp_phase)
     util, util_phase = run_long_context_and_utilities(args.seed)
     phase_s.update(util_phase)
+    torch.cuda.empty_cache()  # the ranks of phase 18 share the card
+    spmd, spmd_phase = run_spmd(args.seed)
+    phase_s.update(spmd_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -5014,6 +5597,9 @@ def main() -> int:
             "launches_context_parallel_per_rank": {
                 c: [r[i] for r in cp[c]["launches_per_rank"]]
                 for c in cp_cases},
+            "launches_spmd_train_step_per_rank": [
+                [c[name] for c in r]
+                for r in spmd["train"]["launches_per_step_per_rank"]],
         })
     next(e for e in record["kernels"] if e["name"] == "qattn_fwd")[
         "launches_long_context"] = util["long_context"]["launches"]
@@ -5058,6 +5644,11 @@ def main() -> int:
         "world": CP_WORLD, "transport": "gloo through host memory, every "
         "rank on cuda:0", **cp}
     record["utilities"] = util
+    record["spmd"] = {
+        "world": SPMD.world, "mesh_data_model_context": SPMD.mesh,
+        "transport": "gloo through host memory, every rank on cuda:0",
+        **{k: spmd[k] for k in ("grads", "train", "small", "moe_pipeline",
+                                "dryrun_lines", "part_seconds_per_rank")}}
     record["train"] = {"tokens_per_s": train_tps,
                        "grad_rel_l2_worst": grad_worst,
                        "determinism": train_det}

@@ -10,7 +10,8 @@ and one more all-to-all brings O back to sequence shards.
 The all-to-all is the JAX ``all_to_all(split_axis, concat_axis,
 tiled=True)``: head chunk j goes to rank j, and the sequence chunks that
 arrive are concatenated in rank order.  Its gradient is the inverse
-all-to-all (:class:`_SeqToHeads`, :class:`_HeadsToSeq`).
+all-to-all: :func:`parallel.comm.all_to_all` is differentiable, and the
+reshapes around it carry their own gradients.
 """
 
 from __future__ import annotations
@@ -50,28 +51,6 @@ def _to_seq(x: torch.Tensor, group) -> torch.Tensor:
     parts = x.reshape(b, h_loc, n, s // n, d).permute(2, 0, 1, 3, 4)
     out = all_to_all(parts, group)  # [N (head chunk), B, H/N, S/N, D]
     return out.transpose(0, 1).reshape(b, n * h_loc, s // n, d)
-
-
-class _SeqToHeads(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _to_heads(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _to_seq(g, ctx.group), None
-
-
-class _HeadsToSeq(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _to_seq(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _to_heads(g, ctx.group), None
 
 
 def ulysses_attention(
@@ -121,7 +100,7 @@ def ulysses_attention(
         k = k.repeat_interleave(n // hkv, dim=1)
         v = v.repeat_interleave(n // hkv, dim=1)
     o_h = flash_attention(
-        _SeqToHeads.apply(q, group), _SeqToHeads.apply(k, group),
-        _SeqToHeads.apply(v, group), bias, mask_ranges, mask=mask,
-        scale=scale, block_sizes=block_sizes, interleaved_kv=interleaved_kv)
-    return _HeadsToSeq.apply(o_h, group)
+        _to_heads(q, group), _to_heads(k, group), _to_heads(v, group), bias,
+        mask_ranges, mask=mask, scale=scale, block_sizes=block_sizes,
+        interleaved_kv=interleaved_kv)
+    return _to_seq(o_h, group)
