@@ -115,7 +115,9 @@ checkout, then, on the card:
    seed + 4): (a) both paged kernels at MLA's geometry (Hq=16 over Hkv=1,
    D=288, one-state latent pages, v_tail_zero=32) with bf16 and int8
    pools against their plain versions; (b) the flash forward, dQ and
-   dK/dV kernels at D=80 and 288; (c) the quantized forward's int8 P over
+   dK/dV kernels at D=80 and 288 (the bf16 dQ and dK/dV at 288 on their
+   tensor-core wide bodies, also called twice at B=2, S=2048 and equal bit
+   for bit); (c) the quantized forward's int8 P over
    the TPU's block_kv spans (NORTH_STAR_BLOCKS' and 128) at the
    north-star shape against ``qattn_fwd_plain(kv_tile=block_kv)``; (d)
    both weight-only GEMM kernels against their plain versions at the
@@ -138,8 +140,11 @@ checkout, then, on the card:
    float and W8A8 + int8 latent, the launch counts set to 0 just before
    and read after; (h) times of the paged kernels at MLA's geometry (the
    decode's split kernel and merge together; the prefill on the tensor
-   cores over the 256 kept lanes), the flash kernels at D=288 and both
-   GEMM kernels beside their bounds, plain versions and library calls;
+   cores over the 256 kept lanes), the flash kernels at D=288 (the body
+   each runs, the device ms of each launch; with ``--parent`` in turns)
+   and ``flash_dkv_merge_kernel`` alone on the MLA train shape's
+   workspace (bit for bit with its plain version), and both GEMM kernels
+   beside their bounds, plain versions and library calls;
 13. the GEMM engine (inputs from a sixth generator, seed + 5): (a) the
    quantized-A kernels (folded int8 / int4 ROW and int8 TENSOR; dequant
    ROW ASYMMETRIC, BLOCK 128 and an fp32 B) and the compensated ones
@@ -191,12 +196,15 @@ checkout, then, on the card:
    (``make_train_step(..., loss=mla_loss_fn)``) for 8 steps on
    one seeded batch of 2 x 2049 tokens, the flash counts set to 0 just
    before and read after every step: exactly 8 forwards, 8 dQ and 8 dK/dV
-   a step, the loss falls, ms a step and tokens/s; (c) the same 8 steps
-   twice more from the initial parameters, equal bit for bit after every
-   step and at the end equal to (b)'s; (d) 3 steps, ``save_checkpoint``
-   (parameters and ``optimizer.state_dict()``; ``force=False`` refuses to
-   overwrite), 2 more, against ``load_checkpoint`` into fresh parameters
-   and a fresh optimizer and the same 2 steps: equal bit for bit;
+   a step (and 8 merges of the split dK/dV where ``dkv_splits`` splits),
+   the loss falls, ms a step and tokens/s; with ``--parent`` the step
+   timed on the parent's kernels and this checkout's in turns; (c) the
+   same 8 steps twice more from the initial parameters, equal bit for bit
+   after every step and at the end equal to (b)'s; (d) 3 steps,
+   ``save_checkpoint`` (parameters and ``optimizer.state_dict()``;
+   ``force=False`` refuses to overwrite), 2 more, against
+   ``load_checkpoint`` into fresh parameters and a fresh optimizer and the
+   same 2 steps: equal bit for bit;
 16. context parallelism (inputs from a tenth generator, seed + 9): a world
    of 4 gloo ranks, each a process on cuda:0 (``mp.spawn``; the kernels
    built before; a FileStore rendezvous; the context group of
@@ -615,6 +623,21 @@ DEVICE_KERNELS = {
     "qa_folded_gemm": "qa_tc_kernel", "qa_gemm": "qa_tc_kernel",
     "comp_gemm": "comp_tc_kernel", "comp_small_gemm": "comp_tc_kernel",
     "flash_fwd_static_max": "flash_fwd_tc_kernel",
+    "flash_dkv_merge": "flash_dkv_merge_kernel",
+}
+# The flash backward kernels at MLA's D = 288 (bf16) and what the record
+# says of them.
+WIDE_KERNELS = {"flash_dq": "flash_dq_wide_kernel",
+                "flash_dkv": "flash_dkv_wide_kernel"}
+WIDE_REDESIGNED = {
+    "flash_dq": "bf16 mma.sync with tiles cut for D = 288: Q and dO "
+                "resident, 32-key K / V tiles double-buffered by cp.async, "
+                "8 warps (16 keys x 144 lanes a warp)",
+    "flash_dkv": "bf16 mma.sync with tiles cut for D = 288: K and V "
+                 "resident, 48-row Q / dO steps double-buffered by "
+                 "cp.async, 12 warps (16 queries / 96 lanes a warp), the GQA "
+                 "group dealt over dkv_splits CTAs a key tile and summed in "
+                 "split order by flash_dkv_merge_kernel",
 }
 # comp_small_gemm's kernel for the blocks comp_small_body routes to the
 # scalar tile (not a multiple of 16; 13 (a)'s BLOCK 8 mode).
@@ -663,8 +686,11 @@ PARENT = {"lib": None, "turns": []}
 # workspace.  The block quantizer from before the cluster (no
 # ``mfa_rtq_row_group``) lacks the cluster size.  The flash forward from
 # before the static-max mode (no ``mfa_flash_static_max_body``) lacks the
-# row_max pointer: it runs the running max only.
+# row_max pointer: it runs the running max only.  The flash dK/dV from
+# before its wide body (no ``mfa_flash_dkv_merge``) lacks the splits and
+# the workspace: it takes one CTA a key tile.
 LEGACY_ARGS = {"mfa_flash_fwd": ("mfa_flash_static_max_body", 19),
+               "mfa_flash_dkv": ("mfa_flash_dkv_merge", 21),
                "mfa_wo_folded_gemm": ("mfa_wo_tc_body", 9),
                "mfa_wo_gemm": ("mfa_wo_tc_body", 12),
                "mfa_dyn_gemm": ("mfa_comp_small_body", 12),
@@ -680,8 +706,10 @@ def kernels_of(lib):
     lacks.  A library whose weight-only kernels write fp32 only:
     ``quantized_matmul`` stores fp32 and casts meanwhile, as it did over
     those kernels.  A library without the small-block tensor-core tile:
-    ``comp_small_gemm`` takes the scalar tile, its only kernel."""
-    own = (_build.kernel_function, qgemm.WO_OUT_TYPES, qgemm.comp_small_body)
+    ``comp_small_gemm`` takes the scalar tile, its only kernel.  A library
+    without the split dK/dV: ``flash_dkv`` plans one split (no merge)."""
+    own = (_build.kernel_function, qgemm.WO_OUT_TYPES, qgemm.comp_small_body,
+           fbwd.dkv_splits)
 
     def function(name, argtypes):
         fn = getattr(lib, name)
@@ -704,11 +732,13 @@ def kernels_of(lib):
         qgemm.WO_OUT_TYPES = {torch.float32: own[1][torch.float32]}
     if not hasattr(lib, "mfa_comp_small_body"):
         qgemm.comp_small_body = lambda bs: "scalar"
+    if not hasattr(lib, "mfa_flash_dkv_merge"):
+        fbwd.dkv_splits = lambda *shape: 1
     try:
         yield
     finally:
         (_build.kernel_function, qgemm.WO_OUT_TYPES,
-         qgemm.comp_small_body) = own
+         qgemm.comp_small_body, fbwd.dkv_splits) = own
 
 
 def parent_turns(label, t, kernel, iters, device=False, parent_kernel=None,
@@ -1496,7 +1526,11 @@ def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
         t["body"] = {"flash_fwd": fwd_body, "flash_dq": dq_body,
                      "flash_dkv": dkv_body}[name](q.dtype, d)
         log(f"{name} at D={d} runs the {t['body']} body")
-        parent_turns(f"{name} B={b} S={s} D={d}", t, kernel, 10)
+        if d > 256:  # MLA's width: the device ms of each launch
+            t["device_ms_by_kernel"] = device_ms_by_label(kernel, 10)
+            t["device_ms"] = sum(t["device_ms_by_kernel"].values())
+        parent_turns(f"{name} B={b} S={s} D={d}", t, kernel, 10,
+                     by_kernel=d > 256)
         times[name] = t
         log(f"{name} times at B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
             "bf16: " + json.dumps(t))
@@ -2924,6 +2958,69 @@ def check_mla_flash(rng):
     return errs
 
 
+def check_wide_same_bits(rng):
+    """(b) The bf16 dQ and dK/dV at D=288 (the wide bodies; the dK/dV's
+    group split over CTAs and merged in split order) called twice on the
+    same inputs at mla_forward's B=2, S=2048: equal bit for bit; raises
+    otherwise.  → {"dq": True, "dkv": True, "dkv_splits": n}."""
+    q, k, v, do, _ = flash_inputs(rng, DEC_B, MLA_HQ, 1, DEC_S, DEC_S, MLA_D,
+                                  torch.bfloat16)
+    rr = row_ranges_tensor(masking.CAUSAL, DEC_S, DEC_S, None, DEV)
+    kw = dict(scale=MLA_D ** -0.5)
+    o, lse = flash_fwd(q, k, v, rr, **kw)
+    args = (q, k, v, do, lse, (do.float() * o).sum(-1), rr)
+    dq = [flash_dq(*args, **kw)[0] for _ in range(2)]
+    dkv = [flash_dkv(*args, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = {"dq": torch.equal(*dq),
+            "dkv": all(torch.equal(a, b) for a, b in zip(*dkv))}
+    splits = fbwd.dkv_splits(torch.bfloat16, MLA_D, DEC_B, MLA_HQ, 1, DEC_S,
+                             sm_count())
+    log(f"MLA D=288 bf16 dQ and dK/dV ({splits} splits), two calls bit for "
+        f"bit equal: " + json.dumps(same))
+    if not all(same.values()):
+        raise AssertionError(f"the wide backward bodies are not "
+                             f"deterministic: {same}")
+    return {**same, "dkv_splits": splits}
+
+
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def time_dkv_merge(rng):
+    """(h) ``merge_dkv_splits`` (flash_dkv_merge_kernel) on the workspace
+    of the dK/dV at the MLA train shape, held to its plain version bit for
+    bit, beside its byte bound and ``torch.sum`` over the splits."""
+    splits = fbwd.dkv_splits(torch.bfloat16, MLA_D, DEC_B, MLA_HQ, 1, DEC_S,
+                             sm_count())
+    shape = (DEC_B, 1, DEC_S, MLA_D)
+    ws = torch.from_numpy(rng.standard_normal(
+        (splits, 2) + shape, np.float32)).to(DEV)
+    dk, dv = torch.empty(shape, device=DEV), torch.empty(shape, device=DEV)
+    fbwd.merge_dkv_splits(ws, dk, dv)
+    want_k, want_v = fbwd.merge_dkv_splits_plain(ws)
+    torch.cuda.synchronize()
+    err = max((dk - want_k).abs().max().item(),
+              (dv - want_v).abs().max().item())
+    if err != 0.0:
+        raise AssertionError(f"flash_dkv_merge_kernel differs from its plain "
+                             f"version: {err}")
+    kernel = lambda: fbwd.merge_dkv_splits(ws, dk, dv)  # noqa: E731
+    t = {"plain_ms": time_ms(lambda: fbwd.merge_dkv_splits_plain(ws), 20),
+         "ms": time_ms(kernel, 100),
+         "library_ms": time_ms(lambda: torch.sum(ws, 0), 100)}
+    t["plain_ms_2"] = time_ms(lambda: fbwd.merge_dkv_splits_plain(ws), 20)
+    t["ms_2"] = time_ms(kernel, 100)
+    t["device_ms"] = device_ms(kernel, 100)
+    t["bound_ms"], t["bound_by"] = bound_of(
+        0, ws.numel() * 4 + 2 * dk.numel() * 4)
+    t.update(max_abs_err=err, splits=splits,
+             shape=f"ws [{splits}, 2, {DEC_B}, 1, {DEC_S}, {MLA_D}] fp32")
+    log("flash_dkv_merge times at the MLA train shape: " + json.dumps(t))
+    return t
+
+
 def check_int8_p_spans(rng):
     """(c) The quantized forward in the north-star's int8-Q / int8-P mode
     against ``qattn_fwd_plain(kv_tile=block_kv)`` at the north-star shape,
@@ -3251,6 +3348,7 @@ def run_mla(seed, dec_lens):
     with torch.inference_mode():
         out["paged_errors"] = check_mla_paged(rng)
         out["flash_errors"] = check_mla_flash(rng)
+        out["flash_same_bits"] = check_wide_same_bits(rng)
         out["int8_p_errors"] = check_int8_p_spans(rng)
         out["wo_errors"] = check_wo_gemm(rng)
         out["decompression"] = run_decompression(rng)
@@ -3289,6 +3387,8 @@ def run_mla(seed, dec_lens):
         out["paged_times"] = time_mla_paged(rng, dec_lens)
         out["wo_times"] = time_wo_gemm(rng)
     out["flash_times"] = time_flash(rng, DEC_B, MLA_HQ, 1, DEC_S, MLA_D)
+    with torch.inference_mode():
+        out["merge_times"] = time_dkv_merge(rng)
     phase["mla_times"] = time.perf_counter() - t
     return out, phase
 
@@ -3695,7 +3795,7 @@ def flash_counts() -> dict:
 
 
 def zero_flash_counts():
-    for fn in FLASH_KERNELS:
+    for fn in FLASH_KERNELS + (fbwd.merge_dkv_splits,):
         fn.launches = 0
 
 
@@ -4055,9 +4155,12 @@ def run_mla_train(cfg, params, tokens):
             t_first = time.perf_counter() - t0
             t0 = time.perf_counter()
         before = flash_counts()
+        merges = fbwd.merge_dkv_splits.launches
         params, _, loss = step(params, optimizer.state, tokens)
         torch.cuda.synchronize()
         per_step.append({k: v - before[k] for k, v in flash_counts().items()})
+        per_step[-1]["flash_dkv_merge"] = (fbwd.merge_dkv_splits.launches
+                                           - merges)
         losses.append(loss.item())
     wall = time.perf_counter() - t0
     ms = wall / (MLA_TRAIN_STEPS - 1) * 1e3
@@ -4066,8 +4169,12 @@ def run_mla_train(cfg, params, tokens):
     log(f"MLA train: first step {t_first:.3f} s; steps 2-{MLA_TRAIN_STEPS} "
         f"{wall:.3f} s, {ms:.1f} ms/step, {tps:.0f} tokens/s; launches per "
         f"step {json.dumps(per_step[0])}")
+    splits = fbwd.dkv_splits(cfg.dtype, cfg.latent_dim + cfg.rope_dim,
+                             MLA_TRAIN_BATCH, cfg.num_heads, 1,
+                             MLA_TRAIN_SEQ, sm_count())
     want = {"flash_fwd": cfg.num_layers, "flash_dq": cfg.num_layers,
-            "flash_dkv": cfg.num_layers}
+            "flash_dkv": cfg.num_layers,
+            "flash_dkv_merge": cfg.num_layers if splits > 1 else 0}
     if any(s != want for s in per_step):
         raise AssertionError(f"MLA train steps launched {per_step}, "
                              f"expected {want} each")
@@ -4075,6 +4182,31 @@ def run_mla_train(cfg, params, tokens):
         raise AssertionError(f"MLA training did not lower the loss: "
                              f"{losses}")
     return per_step[0], ms, tps, losses
+
+
+def time_mla_step_turns(cfg, params, tokens):
+    """(b) With ``--parent``: the MLA train step (Adam, on a copy of
+    ``params``) timed on the parent's kernels and on this checkout's in
+    turns (parent, change, change, parent), 3 steps a turn after one more
+    → {"ms": turns, "tokens_per_s": turns}; None without ``--parent``."""
+    if PARENT["lib"] is None:
+        return None
+    state = {"params": clone_params(params)}
+    optimizer, step = mla_adam(cfg, state["params"])
+
+    def one():
+        state["params"], _, _ = step(state["params"], optimizer.state,
+                                     tokens)
+
+    t = {}
+    parent_turns("MLA train step (phase 15)", t, one, 3)
+    turns = t["parent_turns_ms"]
+    tps = {k: [MLA_TRAIN_BATCH * MLA_TRAIN_SEQ / (ms / 1e3) for ms in v]
+           for k, v in turns.items()}
+    log("MLA train step parent / change turns, tokens/s: " + json.dumps(tps))
+    del state, optimizer
+    torch.cuda.empty_cache()
+    return {"ms": turns, "tokens_per_s": tps}
 
 
 def check_mla_train_determinism(cfg, init, tokens, trained):
@@ -4154,6 +4286,7 @@ def run_mla_training(seed):
     (out["launches_per_step"], out["ms_per_step"], out["tokens_per_s"],
      out["losses"]) = run_mla_train(cfg, params, tokens)
     phase["mla_train"] = time.perf_counter() - t
+    out["step_turns"] = time_mla_step_turns(cfg, params, tokens)
     t = time.perf_counter()
     out["determinism"] = check_mla_train_determinism(cfg, init, tokens,
                                                      params)
@@ -5330,10 +5463,35 @@ def main() -> int:
                 if label.startswith(f"d{d}") for k in keys)
                for d in (80, 288)},
             **{f"{key}_mla_d288": mt[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "ms", "ms_2", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "device_ms_by_kernel",
+                "parent_turns_ms", "parent_turns_device_ms",
+                "parent_turns_device_ms_by_kernel") if key in mt},
             **({"body": t["body"], "body_mla_d288": mt["body"],
                 "redesigned": REDESIGNED} if "body" in t else {}),
+            **({"device_kernel_mla_d288": WIDE_KERNELS[name],
+                "redesigned_mla_d288": WIDE_REDESIGNED[name],
+                "bitwise_equal_two_calls_mla_d288": mla["flash_same_bits"][
+                    name.split("_")[1]]} if name in WIDE_KERNELS else {}),
         })
+    mt = mla["merge_times"]
+    record["kernels"].append({
+        "name": "flash_dkv_merge", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": f"{FLASH_BWD_TPU}:954",
+        "replaces_note": "the second launch of _dkv_kernel's port at D = 288: "
+                         "the split GQA group's partials summed in split "
+                         "order (the TPU's sequential grid summed the "
+                         "group in one kernel)",
+        "launches": mla_train["launches_per_step"]["flash_dkv_merge"]
+        * MLA_TRAIN_STEPS,
+        "launches_mla_train_step_d288": mla_train["launches_per_step"][
+            "flash_dkv_merge"],
+        "max_abs_err": mt["max_abs_err"],
+        **{k: mt[k] for k in ("ms", "ms_2", "plain_ms", "plain_ms_2",
+                              "bound_ms", "bound_by", "library_ms",
+                              "device_ms", "splits", "shape")},
+        "library": "torch.sum over the splits",
+    })
     next(e for e in record["kernels"] if e["name"] == "flash_fwd")[
         "launches_mla_decompression"] = sum(
             d["launches"]["flash_fwd"] for d in mla["decompression"].values())
@@ -5591,6 +5749,9 @@ def main() -> int:
     for i, name in enumerate(("flash_fwd", "flash_dq", "flash_dkv")):
         entry = next(e for e in record["kernels"] if e["name"] == name)
         per_step = mla_train["launches_per_step"][name]
+        if mla_train["step_turns"] is not None:
+            entry["parent_turns_mla_train_step_ms"] = mla_train[
+                "step_turns"]["ms"]
         entry.update({
             "launches_mla_train_step_d288": per_step,
             "launches_mla_train_d288": per_step * MLA_TRAIN_STEPS,
@@ -5639,7 +5800,7 @@ def main() -> int:
     record["mla_train"] = {
         key: mla_train[key] for key in (
             "ms_per_step", "tokens_per_s", "launches_per_step", "losses",
-            "grad_rel_l2_worst", "determinism", "checkpoint")}
+            "grad_rel_l2_worst", "determinism", "checkpoint", "step_turns")}
     record["context_parallel"] = {
         "world": CP_WORLD, "transport": "gloo through host memory, every "
         "rank on cuda:0", **cp}

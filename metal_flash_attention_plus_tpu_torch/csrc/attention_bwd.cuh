@@ -12,13 +12,16 @@
 // dbias = dS; dQ = round_T(dS (x ksr)).K x (dqsc or scale);
 // dV = round_T(P)^T.dO; dK = round_T(dS)^T.Q_s.
 //
-// Two bodies each: dq_body and dkv_body, scalar fp32 FMAs over the
-// transposed fp32 tiles (every fp32 instance, and bf16 at D = 288), and
-// dq_tc_body and dkv_tc_body, bf16 mma.sync over bf16 tiles (the bf16
-// instances up to D = 256: dq_tc / dkv_tc say which;
-// ops/flash_attention_bwd.py::dq_body / dkv_body give the same answer).
-// fp32 stays off the tensor cores: TF32 keeps ~3 digits and the fp32
-// instances are held to 2e-5.
+// Three bodies each: dq_body and dkv_body, scalar fp32 FMAs over the
+// transposed fp32 tiles (every fp32 instance); dq_tc_body and dkv_tc_body,
+// bf16 mma.sync over bf16 tiles (the bf16 instances up to D = 256); and
+// dq_wide_body and dkv_wide_body, bf16 mma.sync with tiles cut for MLA's
+// D = 288 (the flash kernels' bf16 instances at 288; dkv_wide_body splits
+// the GQA group over CTAs into an fp32 workspace that
+// flash_dkv_merge_kernel sums in split order).  dq_tc / dkv_tc / bwd_wide
+// say which; ops/flash_attention_bwd.py::dq_body / dkv_body give the same
+// answer.  fp32 stays off the tensor cores: TF32 keeps ~3 digits and the
+// fp32 instances are held to 2e-5.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -399,10 +402,21 @@ __host__ __device__ constexpr int dkv_tc_min_blocks() {
   return D <= 64 ? 3 : 1;
 }
 
-// Whether the dK/dV of T at head dim D runs dkv_tc_body (else dkv_body).
+// Whether the dK/dV of T at head dim D runs on the tensor cores: every
+// bf16 width, on dkv_tc_body up to D = 256 and on dkv_wide_body above
+// (bwd_wide; MLA's 288).  Else dkv_body.  The quantized backward
+// (csrc/quantized_attention_bwd.cu) is built up to D = 256 only, so it
+// never reaches the wide bodies.
 template <typename T, int D>
 __host__ __device__ constexpr bool dkv_tc() {
-  return std::is_same<T, __nv_bfloat16>::value && D <= 256;
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
+// Whether a tensor-core dQ or dK/dV at head dim D takes the wide bodies
+// (dq_wide_body, dkv_wide_body), whose tiles are cut for D = 288.
+template <int D>
+__host__ __device__ constexpr bool bwd_wide() {
+  return D > 256;
 }
 
 // Byte offsets of dkv_tc_body's shared memory (~218 KB at D = 256).
@@ -422,14 +436,14 @@ struct DkvTcSmem {
   static constexpr size_t BYTES = PS + (NS > 1 ? 2 * BN * P_LD : 0);
 };
 
-// cp.async rows [row0, row0 + 64) of a bf16 [rows, D] matrix into dst
+// cp.async rows [row0, row0 + ROWS) of a bf16 [rows, D] matrix into dst
 // (ROW bytes apart), NT threads; rows from `limit` are zeros.
-template <int D, int ROW, int NT>
+template <int D, int ROW, int NT, int ROWS = 64>
 __device__ __forceinline__ void stage_rows_async(const __nv_bfloat16* src,
                                                  int row0, int limit,
                                                  uint8_t* dst) {
   constexpr int CPR = 2 * D / 16;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < 64 * CPR; i += NT) {
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     const int r = i / CPR;
     const int c = i % CPR;
     const bool ok = row0 + r < limit;
@@ -494,11 +508,12 @@ __device__ __forceinline__ void c_to_a_bf16(const float (&c)[NB][4], int kc,
 }
 
 // Q rows in place: x -> round_bf16(x * scale), as stage_t<T, D, true> rounds
-// them (bf16_bits gives cvt.rn's bits on the FP32 pipe); NT threads.
-template <int D, int ROW, int NT>
+// them (bf16_bits gives cvt.rn's bits on the FP32 pipe); NT threads, ROWS
+// rows.
+template <int D, int ROW, int NT, int ROWS = 64>
 __device__ __forceinline__ void scale_rows_bf16(uint8_t* tile, float scale) {
   constexpr int CPR = 2 * D / 16;
-  for (int i = threadIdx.x; i < 64 * CPR; i += NT) {
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     uint4* p = reinterpret_cast<uint4*>(tile + (i / CPR) * ROW +
                                         (i % CPR) * 16);
     uint4 u = *p;
@@ -510,6 +525,71 @@ __device__ __forceinline__ void scale_rows_bf16(uint8_t* tile, float scale) {
       w[e] = __byte_perm(bf16_bits(lo), bf16_bits(hi), 0x7632);
     }
     *p = u;
+  }
+}
+
+// L, D and the key ranges of query rows [r0, r0 + ROWS) into st by
+// cp.async: st[0, ROWS) L, st[ROWS, 2 ROWS) D, st[2 ROWS, 4 ROWS) the
+// [start, end) pairs; zeros from row_hi.  NT threads.
+template <int ROWS, int NT>
+__device__ __forceinline__ void stage_row_stats_async(const BwdArgs& a,
+                                                      size_t bh, int r0,
+                                                      int row_hi,
+                                                      float* st) {
+  for (int i = threadIdx.x; i < 4 * ROWS; i += NT) {
+    const int r = r0 + (i < 2 * ROWS ? i % ROWS : (i - 2 * ROWS) / 2);
+    const bool ok = r < row_hi;
+    const float* src =
+        i < ROWS ? a.lse + bh * a.Sq + r
+        : i < 2 * ROWS ? a.di + bh * a.Sq + r
+                       : reinterpret_cast<const float*>(a.ranges) + 2 * r +
+                             (i & 1);
+    cp_async4(st + i, ok ? src : a.lse, ok ? 4 : 0);
+  }
+}
+
+// P^T and dS^T in place on a warp's S^T and dP^T fragments, in dkv_body's
+// order: element (key key0 + g + 8i, query column qc0 + 8j + 2tq + c, row
+// r0 + that column) at [j][2i + c]; st holds the ROWS rows' statistics
+// (stage_row_stats_async).  P^T = exp(S^T + bias - L), 0 where masked, as
+// exp2 of S log2(e) - L log2(e) (the argument rounded once more: ~1e-6 of
+// P, far below its bf16 rounding), live where key - start < end - start;
+// dS^T = P^T (dP^T - D).
+template <int NQB, int ROWS>
+__device__ __forceinline__ void dkv_probs(float (&s)[NQB][4],
+                                          float (&dp)[NQB][4],
+                                          const float* st, int qc0, int key0,
+                                          int r0, int row_hi,
+                                          const float* bh_bias, int Skv) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NQB; ++j) {
+    const int qc = qc0 + 8 * j + 2 * tq;
+    const float2 lv = *reinterpret_cast<const float2*>(st + qc);
+    const float2 dv2 = *reinterpret_cast<const float2*>(st + ROWS + qc);
+    const int4 rg = *reinterpret_cast<const int4*>(st + 2 * ROWS + 2 * qc);
+    const float l2[2] = {lv.x == -INFINITY ? 0.f : lv.x * LOG2E,
+                         lv.y == -INFINITY ? 0.f : lv.y * LOG2E};
+    const float dq[2] = {dv2.x, dv2.y};
+    const int rs[2] = {rg.x, rg.z};
+    const unsigned span[2] = {(unsigned)max(min(rg.y, Skv) - rg.x, 0),
+                              (unsigned)max(min(rg.w, Skv) - rg.z, 0)};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + g + 8 * i;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int row = r0 + qc + c;
+        float x = s[j][2 * i + c];
+        if (bh_bias && row < row_hi && key < Skv)
+          x += bh_bias[(size_t)row * Skv + key];
+        const bool live = (unsigned)(key - rs[c]) < span[c];
+        const float p = live ? exp2f(fmaf(x, LOG2E, -l2[c])) : 0.f;
+        s[j][2 * i + c] = p;
+        dp[j][2 * i + c] = p * (dp[j][2 * i + c] - dq[c]);
+      }
+    }
   }
 }
 
@@ -569,18 +649,9 @@ __device__ __forceinline__ void dkv_tc_body(const BwdArgs& a, const KV& kv) {
     stage_rows_async<D, L::ROW, NT>(
         static_cast<const __nv_bfloat16*>(a.dout) + bh * Sq * D, r0, row_hi,
         smem_tc + L::DO + buf * L::TILE);
-    // L, D and the key ranges of rows [r0, r0 + 64): zeros from row_hi.
-    float* st = reinterpret_cast<float*>(smem_tc + L::ST + buf * L::STATS);
-    for (int i = threadIdx.x; i < 4 * BM; i += NT) {
-      const int r = r0 + (i < 2 * BM ? i % BM : (i - 2 * BM) / 2);
-      const bool ok = r < row_hi;
-      const float* src =
-          i < BM ? a.lse + bh * Sq + r
-          : i < 2 * BM ? a.di + bh * Sq + r
-                       : reinterpret_cast<const float*>(a.ranges) + 2 * r +
-                             (i & 1);
-      cp_async4(st + i, ok ? src : a.lse, ok ? 4 : 0);
-    }
+    stage_row_stats_async<BM, NT>(
+        a, bh, r0, row_hi,
+        reinterpret_cast<float*>(smem_tc + L::ST + buf * L::STATS));
   };
   if (steps > 0) prefetch(0, 0);
   cp_async_commit();
@@ -621,39 +692,8 @@ __device__ __forceinline__ void dkv_tc_body(const BwdArgs& a, const KV& kv) {
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     mma_nt<D / 16, NQB, L::ROW, L::ROW>(sk, 16 * kw, sq, part * QW, s);
     mma_nt<D / 16, NQB, L::ROW, L::ROW>(sv, 16 * kw, sdo, part * QW, dp);
-
-    // P^T and dS^T: element (key 16 kw + g + 8i, query column qc + c) at
-    // [j][2i + c], in dkv_body's order; exp(S - L) as exp2 of
-    // S log2(e) - L log2(e) (the argument rounded once more: ~1e-6 of P,
-    // far below its bf16 rounding), live where key - start < end - start.
-#pragma unroll
-    for (int j = 0; j < NQB; ++j) {
-      const int qc = part * QW + 8 * j + 2 * tq;
-      const float2 lv = *reinterpret_cast<const float2*>(st + qc);
-      const float2 dv2 = *reinterpret_cast<const float2*>(st + BM + qc);
-      const int4 rg = *reinterpret_cast<const int4*>(st + 2 * BM + 2 * qc);
-      const float l2[2] = {lv.x == -INFINITY ? 0.f : lv.x * LOG2E,
-                           lv.y == -INFINITY ? 0.f : lv.y * LOG2E};
-      const float dq[2] = {dv2.x, dv2.y};
-      const int rs[2] = {rg.x, rg.z};
-      const unsigned span[2] = {(unsigned)max(min(rg.y, Skv) - rg.x, 0),
-                                (unsigned)max(min(rg.w, Skv) - rg.z, 0)};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int key = c0 + 16 * kw + g + 8 * i;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int row = r0 + qc + c;
-          float x = s[j][2 * i + c];
-          if (bh_bias && row < row_hi && key < Skv)
-            x += bh_bias[(size_t)row * Skv + key];
-          const bool live = (unsigned)(key - rs[c]) < span[c];
-          const float p = live ? exp2f(fmaf(x, LOG2E, -l2[c])) : 0.f;
-          s[j][2 * i + c] = p;
-          dp[j][2 * i + c] = p * (dp[j][2 * i + c] - dq[c]);
-        }
-      }
-    }
+    dkv_probs<NQB, BM>(s, dp, st, part * QW, c0 + 16 * kw, r0, row_hi,
+                       bh_bias, Skv);
 
     // dV += round_bf16(P^T).dO, dK += round_bf16(dS^T).Q_s, 16 queries a
     // step: the A fragments from the warp's own C fragments (NS = 1) or
@@ -754,7 +794,8 @@ __host__ __device__ constexpr int dq_tc_min_blocks() {
   return D <= 64 ? 3 : (D <= 128 ? 2 : 1);
 }
 
-// Whether the dQ of T at head dim D runs dq_tc_body (else dq_body);
+// Whether the dQ of T at head dim D runs on the tensor cores (dq_tc_body,
+// or dq_wide_body where bwd_wide; else dq_body);
 // ops/flash_attention_bwd.py::dq_body gives the same answer.
 template <typename T, int D>
 __host__ __device__ constexpr bool dq_tc() {
@@ -781,6 +822,43 @@ struct DqTcSmem {
   static constexpr int DS = SC + 2 * 2 * BN * 4;
   static constexpr size_t BYTES = DS + (NS > 1 ? BM * S_LD : 0);
 };
+
+// The statistics of a thread's two query rows row0 and row0 + 8 in the
+// dQ bodies' fragments: L log2(e) (0 for L = -inf), D, the key range as
+// start and length, and the keys [live_lo, live_hi) live in every row of
+// the warp.
+struct DqRows {
+  float l2[2], dd[2];
+  int rs[2];
+  unsigned span[2];
+  int live_lo, live_hi;
+};
+
+__device__ __forceinline__ DqRows dq_rows(const BwdArgs& a, size_t bh,
+                                          int row0) {
+  DqRows w;
+  w.live_lo = 0;
+  w.live_hi = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    int st, en;
+    row_range(a.ranges, row, a.Sq, a.Skv, st, en);
+    w.rs[i] = st;
+    w.span[i] = (unsigned)max(en - st, 0);
+    w.live_lo = max(w.live_lo, st);
+    w.live_hi = min(w.live_hi, en);
+    const float lv = row < a.Sq ? a.lse[bh * a.Sq + row] : 0.f;
+    w.l2[i] = lv == -INFINITY ? 0.f : lv * LOG2E;
+    w.dd[i] = row < a.Sq ? a.di[bh * a.Sq + row] : 0.f;
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    w.live_lo = max(w.live_lo, __shfl_xor_sync(0xffffffffu, w.live_lo, off));
+    w.live_hi = min(w.live_hi, __shfl_xor_sync(0xffffffffu, w.live_hi, off));
+  }
+  return w;
+}
 
 // The tensor-core dQ (see above).  KV: tc_load / tc_convert as for
 // dkv_tc_body, and RAW (whether tc_load fills the scratch and tc_convert
@@ -851,30 +929,7 @@ __device__ __forceinline__ void dq_tc_body(const BwdArgs& a, const KV& kv) {
   __syncthreads();  // Q's and dO's rows landed
   if (SCALE_Q) scale_rows_bf16<D, L::ROW, NT>(sq, a.scale);
 
-  // This thread's rows: r0 + 16 rw + g + 8i.
-  float l2[2], dd[2];
-  int rs[2];
-  unsigned span[2];
-  int live_lo = 0, live_hi = INT_MAX;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + 16 * rw + g + 8 * i;
-    int st, en;
-    row_range(a.ranges, row, Sq, Skv, st, en);
-    rs[i] = st;
-    span[i] = (unsigned)max(en - st, 0);
-    live_lo = max(live_lo, st);
-    live_hi = min(live_hi, en);
-    const float lv = row < Sq ? a.lse[bh * Sq + row] : 0.f;
-    l2[i] = lv == -INFINITY ? 0.f : lv * LOG2E;
-    dd[i] = row < Sq ? a.di[bh * Sq + row] : 0.f;
-  }
-  // Keys [live_lo, live_hi) are live in every row of this warp.
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    live_lo = max(live_lo, __shfl_xor_sync(0xffffffffu, live_lo, off));
-    live_hi = min(live_hi, __shfl_xor_sync(0xffffffffu, live_hi, off));
-  }
+  const DqRows w = dq_rows(a, bh, r0 + 16 * rw + g);
 
   float acc[NDB][4];
 #pragma unroll
@@ -928,7 +983,7 @@ __device__ __forceinline__ void dq_tc_body(const BwdArgs& a, const KV& kv) {
 
     // P, dS (dbias) in dq_body's order; s[j][e] becomes dS (x ksr), the
     // value dS.K rounds.
-    const bool whole = t0 + kc0 >= live_lo && t0 + kc0 + KW <= live_hi;
+    const bool whole = t0 + kc0 >= w.live_lo && t0 + kc0 + KW <= w.live_hi;
 #pragma unroll
     for (int j = 0; j < NKB; ++j)
 #pragma unroll
@@ -939,9 +994,9 @@ __device__ __forceinline__ void dq_tc_body(const BwdArgs& a, const KV& kv) {
         float x = s[j][e];
         if (bh_bias && row < Sq && key < Skv)
           x += bh_bias[(size_t)row * Skv + key];
-        float p = ex2_approx(fmaf(x, LOG2E, -l2[i]));
-        if (!whole) p = (unsigned)(key - rs[i]) < span[i] ? p : 0.f;
-        const float ds = p * (dp[j][e] - dd[i]);
+        float p = ex2_approx(fmaf(x, LOG2E, -w.l2[i]));
+        if (!whole) p = (unsigned)(key - w.rs[i]) < w.span[i] ? p : 0.f;
+        const float ds = p * (dp[j][e] - w.dd[i]);
         if (a.out1 && row < Sq && key < Skv)
           a.out1[(bh * Sq + row) * Skv + key] = ds;
         s[j][e] = ksr ? ds * sks[kc0 + 8 * j + 2 * tq + (e & 1)] : ds;
@@ -988,6 +1043,386 @@ __device__ __forceinline__ void dq_tc_body(const BwdArgs& a, const KV& kv) {
       *reinterpret_cast<float2*>(out + 8 * j) =
           make_float2(acc[j][2 * i] * m0, acc[j][2 * i + 1] * m1);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide bodies: the bf16 dK/dV and dQ at MLA's D = 288
+//
+// Replace ops/flash_attention_bwd.py::_dkv_kernel and ::_dq_kernel for the
+// flash kernels' bf16 instances above D = 256 (flash_dkv_wide_kernel,
+// flash_dq_wide_kernel).  The function is dkv_tc_body's and dq_tc_body's
+// (the same roundings, P as exp2 of S log2(e) - L log2(e)), over float K/V
+// only: no per-token scales, no store multipliers.  Bound: tensor-core
+// operations (8 D a live pair for dK/dV, 6 D for dQ), as below D = 256.
+//
+// Why the D <= 256 layouts do not stretch to 288: a bf16 row is 592 bytes
+// with its 16-byte pad (ROW), a 64-row tile 37,888.  dkv_tc_body holds K
+// and V plus two buffers each of 64 Q and dO rows: six tiles, 227 KB before
+// its statistics and P^T / dS^T tiles.  dq_tc_body holds Q and dO plus two
+// buffers each of 64 K and V rows: the same six tiles.  Its D / 64 warp
+// split is 4.5 at 288.  And the dK / dV accumulators of a 64-key tile are
+// 2 x 64 x 288 fp32, 144 a thread at 8 warps, too many beside S and dP.
+//
+// dkv_wide_body: one CTA per (64 keys, b, kv head, split) and 12 warps.
+//   - Shared memory (205,312 bytes at 288): K and V resident (75,776); Q
+//     and dO in steps of 48 query rows, two buffers each (113,664); the
+//     steps' L, D and key ranges, two buffers (1,536); the P^T and dS^T
+//     tiles, bf16 [64 keys][48 queries] (14,336).  A step is 48 rows, not
+//     64, so that both buffers fit.
+//   - Warps: 4 key slices of 16 x 3 parts.  For S^T = K.Q_s^T and dP^T =
+//     V.dO^T a part is 16 of the step's 48 query columns; for dV +=
+//     round(P^T).dO and dK += round(dS^T).Q_s it is 96 of D's 288 lanes (a
+//     multiple of 16, as ldmatrix.trans wants).  The two splits are by 3
+//     both, so each warp does the same work in each product.  Registers:
+//     dK and dV 2 x 16 x 96 fp32 a warp, 96 a thread, S and dP 16.
+//   - The grid: 64-key tiles x kv heads gave 64 CTAs at MLA's training
+//     shape (B=2, one latent head, S=2048) on 132 SMs, each walking 16 q
+//     heads in series.  So the GQA group is dealt into `splits` runs of
+//     whole q heads (ops/flash_attention_bwd.py::dkv_splits plans them from
+//     shapes), one CTA a run; with splits > 1 each CTA writes its partial
+//     fp32 dK and dV into the wrapper's workspace [splits, 2, B, Hkv, Skv,
+//     D], and flash_dkv_merge_kernel sums the splits in split order.  No
+//     floating-point atomics: two calls give the same bits.
+// dq_wide_body: dq_tc_body's grid (one CTA per 64 query rows, b, q head;
+// the row tiles last first) with 8 warps.
+//   - Shared memory (156,672 bytes): Q and dO resident (75,776); K and V
+//     in tiles of 32 keys, two buffers each (75,776); the dS tile, bf16
+//     [64 queries][32 keys] (5,120).
+//   - Warps: 4 row slices of 16 x 2 parts: 16 of the tile's 32 keys for S
+//     and dP, 144 of D's lanes for dQ += round(dS).K.  Registers: the dQ
+//     accumulator 72 a thread, S and dP 16.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DkvWideSmem {
+  static constexpr int NS = 3;                // query and lane parts
+  static constexpr int QS = 48;               // query rows a step
+  static constexpr int ROW = 2 * D + 16;      // a bf16 row [.., D]
+  static constexpr int KTILE = BN * ROW;      // 64 keys
+  static constexpr int QTILE = QS * ROW;      // 48 query rows
+  static constexpr int P_LD = 2 * QS + 16;    // a P^T / dS^T row [key][48]
+  static constexpr int STATS = 4 * QS * 4;    // L [48], D [48], ranges [48][2]
+  static constexpr int K = 0;
+  static constexpr int V = KTILE;
+  static constexpr int Q = 2 * KTILE;         // two buffers
+  static constexpr int DO = Q + 2 * QTILE;    // two buffers
+  static constexpr int ST = DO + 2 * QTILE;   // two buffers
+  static constexpr int PS = ST + 2 * STATS;
+  static constexpr int DS = PS + BN * P_LD;
+  static constexpr size_t BYTES = DS + BN * P_LD;
+  static_assert(D % (16 * NS) == 0 && QS % (16 * NS) == 0,
+                "a part's lanes and query columns are whole 16-wide steps");
+};
+
+constexpr int DKV_WIDE_THREADS = 384;  // 4 key slices x 3 parts
+
+// dK/dV for one (64 keys, b, kv head) over the q heads of split `sp` of
+// the GQA group (see above).  out0 / out1 get dK / dV where splits is 1,
+// else ws[sp][0] / ws[sp][1].
+template <int D>
+__device__ __forceinline__ void dkv_wide_body(const BwdArgs& a,
+                                              const __nv_bfloat16* k,
+                                              const __nv_bfloat16* v,
+                                              int splits, float* ws) {
+  using L = DkvWideSmem<D>;
+  constexpr int NT = DKV_WIDE_THREADS;
+  constexpr int QS = L::QS;
+  constexpr int QW = QS / L::NS;  // query columns of a warp's S^T, dP^T
+  constexpr int NQB = QW / 8;
+  constexpr int DW = D / L::NS;   // dK / dV lanes a warp accumulates
+  constexpr int NDB = DW / 8;
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  __shared__ int s_rmin, s_rmax;
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int c0 = blockIdx.x * BN;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z / splits;
+  const int sp = blockIdx.z % splits;
+  const int group = a.Hq / a.Hkv;
+  const int per = (group + splits - 1) / splits;
+  const int g_lo = min(sp * per, group);
+  const int g_hi = min(g_lo + per, group);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kw = warp & 3;     // keys c0 + 16 kw + [0, 16)
+  const int part = warp >> 2;  // query columns part * QW, lanes part * DW
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bkv = (size_t)b * a.Hkv + hk;
+  uint8_t* sk = smem_tc + L::K;
+  uint8_t* sv = smem_tc + L::V;
+
+  stage_rows_async<D, L::ROW, NT>(k + bkv * Skv * D, c0, Skv, sk);
+  stage_rows_async<D, L::ROW, NT>(v + bkv * Skv * D, c0, Skv, sv);
+  cp_async_commit();
+  query_span(a.ranges, Sq, Skv, c0, min(c0 + BN, Skv), &s_rmin, &s_rmax);
+  const int row_lo = s_rmin;
+  const int row_hi = s_rmax + 1;
+  const int tiles = row_hi > row_lo ? (row_hi - row_lo + QS - 1) / QS : 0;
+  const int steps = (g_hi - g_lo) * tiles;
+  auto head_of = [&](int it) {
+    const int gi = g_lo + it / tiles;
+    return a.interleaved ? gi * a.Hkv + hk : hk * group + gi;
+  };
+  auto prefetch = [&](int it, int buf) {
+    const size_t bh = (size_t)b * a.Hq + head_of(it);
+    const int r0 = row_lo + (it % tiles) * QS;
+    stage_rows_async<D, L::ROW, NT, QS>(
+        static_cast<const __nv_bfloat16*>(a.q) + bh * Sq * D, r0, row_hi,
+        smem_tc + L::Q + buf * L::QTILE);
+    stage_rows_async<D, L::ROW, NT, QS>(
+        static_cast<const __nv_bfloat16*>(a.dout) + bh * Sq * D, r0, row_hi,
+        smem_tc + L::DO + buf * L::QTILE);
+    stage_row_stats_async<QS, NT>(
+        a, bh, r0, row_hi,
+        reinterpret_cast<float*>(smem_tc + L::ST + buf * L::STATS));
+  };
+  if (steps > 0) prefetch(0, 0);
+  cp_async_commit();
+
+  float dk[NDB][4], dv[NDB][4];
+#pragma unroll
+  for (int j = 0; j < NDB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // step it (and K, V) staged; step it - 1 done
+    if (it + 1 < steps) prefetch(it + 1, buf ^ 1);
+    cp_async_commit();
+    uint8_t* sq = smem_tc + L::Q + buf * L::QTILE;
+    const uint8_t* sdo = smem_tc + L::DO + buf * L::QTILE;
+    const float* st =
+        reinterpret_cast<const float*>(smem_tc + L::ST + buf * L::STATS);
+    scale_rows_bf16<D, L::ROW, NT, QS>(sq, a.scale);
+    __syncthreads();  // Q_s ready
+
+    const int h = head_of(it);
+    const int r0 = row_lo + (it % tiles) * QS;
+    const float* bh_bias =
+        a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+    float s[NQB][4], dp[NQB][4];
+#pragma unroll
+    for (int j = 0; j < NQB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_nt<D / 16, NQB, L::ROW, L::ROW>(sk, 16 * kw, sq, part * QW, s);
+    mma_nt<D / 16, NQB, L::ROW, L::ROW>(sv, 16 * kw, sdo, part * QW, dp);
+    dkv_probs<NQB, QS>(s, dp, st, part * QW, c0 + 16 * kw, r0, row_hi,
+                       bh_bias, Skv);
+
+    // The CTA's P^T and dS^T tiles in bf16, then dV += P^T.dO and dK +=
+    // dS^T.Q_s, 16 queries a k step.
+    uint8_t* ps = smem_tc + L::PS;
+    uint8_t* dss = smem_tc + L::DS;
+#pragma unroll
+    for (int j = 0; j < NQB; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int off = (16 * kw + g + 8 * i) * L::P_LD +
+                        (part * QW + 8 * j + 2 * tq) * 2;
+        *reinterpret_cast<uint32_t*>(ps + off) =
+            pack_bf16(s[j][2 * i], s[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dss + off) =
+            pack_bf16(dp[j][2 * i], dp[j][2 * i + 1]);
+      }
+    __syncthreads();  // the CTA's P^T and dS^T tiles
+    const int a_off =
+        (16 * kw + ldsm_a_row(lane)) * L::P_LD + ldsm_a_byte(lane);
+#pragma unroll
+    for (int kc = 0; kc < QS / 16; ++kc) {
+      uint32_t pa[4], dsa[4];
+      ldsm_x4(pa, ps + a_off + kc * 32);
+      ldsm_x4(dsa, dss + a_off + kc * 32);
+      mma_rn<NDB, L::ROW>(pa, sdo, 16 * kc, part * DW, dv);
+      mma_rn<NDB, L::ROW>(dsa, sq, 16 * kc, part * DW, dk);
+    }
+  }
+  cp_async_wait<0>();
+
+  const size_t n = (size_t)gridDim.z / splits * a.Hkv * Skv * D;
+  float* out_k = splits > 1 ? ws + (2 * (size_t)sp) * n : a.out0;
+  float* out_v = splits > 1 ? ws + (2 * (size_t)sp + 1) * n : a.out1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = c0 + 16 * kw + g + 8 * i;
+    if (key >= Skv) continue;
+    float* dkr = out_k + (bkv * Skv + key) * D + part * DW + 2 * tq;
+    float* dvr = out_v + (bkv * Skv + key) * D + part * DW + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NDB; ++j) {
+      *reinterpret_cast<float2*>(dkr + 8 * j) =
+          make_float2(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<float2*>(dvr + 8 * j) =
+          make_float2(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+struct DqWideSmem {
+  static constexpr int NS = 2;               // key and lane parts
+  static constexpr int KS = 32;              // keys a tile
+  static constexpr int ROW = 2 * D + 16;     // a bf16 row [.., D]
+  static constexpr int QTILE = BM * ROW;     // 64 query rows
+  static constexpr int KTILE = KS * ROW;     // 32 keys
+  static constexpr int S_LD = 2 * KS + 16;   // a dS row [query][32 keys]
+  static constexpr int Q = 0;
+  static constexpr int DO = QTILE;
+  static constexpr int K = 2 * QTILE;        // two buffers
+  static constexpr int V = K + 2 * KTILE;    // two buffers
+  static constexpr int DS = V + 2 * KTILE;
+  static constexpr size_t BYTES = DS + BM * S_LD;
+  static_assert(D % (16 * NS) == 0 && KS % (16 * NS) == 0,
+                "a part's lanes and keys are whole 16-wide steps");
+};
+
+constexpr int DQ_WIDE_THREADS = 256;  // 4 row slices x 2 parts
+
+// dQ (and dbias) for one (64 query rows, b, q head), Q scaled by a.scale
+// and rounded to bf16 here, dQ stored times a.scale (see above).
+template <int D>
+__device__ __forceinline__ void dq_wide_body(const BwdArgs& a,
+                                             const __nv_bfloat16* k,
+                                             const __nv_bfloat16* v) {
+  using L = DqWideSmem<D>;
+  constexpr int NT = DQ_WIDE_THREADS;
+  constexpr int KS = L::KS;
+  constexpr int KW = KS / L::NS;  // key columns of a warp's S, dP
+  constexpr int NKB = KW / 8;
+  constexpr int DW = D / L::NS;   // dQ lanes a warp accumulates
+  constexpr int NDB = DW / 8;
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  __shared__ int s_lo, s_hi;
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rw = warp & 3;     // query rows r0 + 16 rw + [0, 16)
+  const int part = warp >> 2;  // key columns part * KW, dQ lanes part * DW
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bh = (size_t)b * a.Hq + h;
+  const size_t bk = (size_t)b * a.Hkv + hk;
+  const float* bh_bias =
+      a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  const __nv_bfloat16* kh = k + bk * Skv * D;
+  const __nv_bfloat16* vh = v + bk * Skv * D;
+  uint8_t* sq = smem_tc + L::Q;
+  const uint8_t* sdo = smem_tc + L::DO;
+
+  stage_rows_async<D, L::ROW, NT>(
+      static_cast<const __nv_bfloat16*>(a.q) + bh * Sq * D, r0, Sq, sq);
+  stage_rows_async<D, L::ROW, NT>(
+      static_cast<const __nv_bfloat16*>(a.dout) + bh * Sq * D, r0, Sq,
+      smem_tc + L::DO);
+  cp_async_commit();
+  key_span(a.ranges, r0, Sq, Skv, &s_lo, &s_hi);
+  const int c_hi = s_hi;
+  const int c0 = (s_lo / KS) * KS;
+  const int tiles = c0 < c_hi ? (c_hi - c0 + KS - 1) / KS : 0;
+  // Tile it's K and V rows into buffer `buf`: zeros from c_hi.
+  auto load = [&](int it, int buf) {
+    const int t0 = c0 + it * KS;
+    stage_rows_async<D, L::ROW, NT, KS>(kh, t0, c_hi,
+                                        smem_tc + L::K + buf * L::KTILE);
+    stage_rows_async<D, L::ROW, NT, KS>(vh, t0, c_hi,
+                                        smem_tc + L::V + buf * L::KTILE);
+  };
+  if (tiles > 0) load(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // Q's and dO's rows landed
+  scale_rows_bf16<D, L::ROW, NT>(sq, a.scale);
+
+  const DqRows w = dq_rows(a, bh, r0 + 16 * rw + g);
+
+  float acc[NDB][4];
+#pragma unroll
+  for (int j = 0; j < NDB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1;
+    const int t0 = c0 + it * KS;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it staged, Q scaled; tile it - 1 done
+    if (it + 1 < tiles) load(it + 1, buf ^ 1);
+    cp_async_commit();
+    const uint8_t* sk = smem_tc + L::K + buf * L::KTILE;
+    const uint8_t* sv = smem_tc + L::V + buf * L::KTILE;
+
+    // S and dP for rows 16 rw + [0, 16) and keys kc0 + [0, KW): element
+    // (row g + 8i, key kc0 + 8j + 2tq + c) at [j][2i + c].
+    const int kc0 = part * KW;
+    float s[NKB][4], dp[NKB][4];
+#pragma unroll
+    for (int j = 0; j < NKB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_nt<D / 16, NKB, L::ROW, L::ROW>(sq, 16 * rw, sk, kc0, s);
+    mma_nt<D / 16, NKB, L::ROW, L::ROW>(sdo, 16 * rw, sv, kc0, dp);
+
+    // P, dS (dbias) as dq_tc_body makes them; s[j][e] becomes dS.
+    const bool whole = t0 + kc0 >= w.live_lo && t0 + kc0 + KW <= w.live_hi;
+#pragma unroll
+    for (int j = 0; j < NKB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int row = r0 + 16 * rw + g + 8 * i;
+        const int key = t0 + kc0 + 8 * j + 2 * tq + (e & 1);
+        float x = s[j][e];
+        if (bh_bias && row < Sq && key < Skv)
+          x += bh_bias[(size_t)row * Skv + key];
+        float p = ex2_approx(fmaf(x, LOG2E, -w.l2[i]));
+        if (!whole) p = (unsigned)(key - w.rs[i]) < w.span[i] ? p : 0.f;
+        const float ds = p * (dp[j][e] - w.dd[i]);
+        if (a.out1 && row < Sq && key < Skv)
+          a.out1[(bh * Sq + row) * Skv + key] = ds;
+        s[j][e] = ds;
+      }
+
+    // The CTA's dS tile in bf16, then dQ += dS.K, 16 keys a k step.
+    uint8_t* sds = smem_tc + L::DS;
+#pragma unroll
+    for (int j = 0; j < NKB; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<uint32_t*>(
+            sds + (16 * rw + g + 8 * i) * L::S_LD +
+            (kc0 + 8 * j + 2 * tq) * 2) =
+            pack_bf16(s[j][2 * i], s[j][2 * i + 1]);
+    __syncthreads();  // the CTA's dS tile
+    const int a_off =
+        (16 * rw + ldsm_a_row(lane)) * L::S_LD + ldsm_a_byte(lane);
+#pragma unroll
+    for (int kc = 0; kc < KS / 16; ++kc) {
+      uint32_t af[4];
+      ldsm_x4(af, sds + a_off + kc * 32);
+      mma_rn<NDB, L::ROW>(af, sk, 16 * kc, part * DW, acc);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 16 * rw + g + 8 * i;
+    if (row >= Sq) continue;
+    float* out = a.out0 + (bh * Sq + row) * D + part * DW + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NDB; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * i] * a.scale, acc[j][2 * i + 1] * a.scale);
   }
 }
 

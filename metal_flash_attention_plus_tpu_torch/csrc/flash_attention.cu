@@ -5,9 +5,11 @@
 //   - ops/flash_attention.py::_fwd_kernel         -> flash_fwd_tc_kernel
 //     (bf16 up to D = 256), flash_fwd_kernel (fp32, and bf16 at D = 288)
 //   - ops/flash_attention_bwd.py::_dq_kernel      -> flash_dq_tc_kernel
-//     (bf16 up to D = 256), flash_dq_kernel (fp32, and bf16 at D = 288)
+//     (bf16 up to D = 256), flash_dq_wide_kernel (bf16 at D = 288),
+//     flash_dq_kernel (fp32)
 //   - ops/flash_attention_bwd.py::_dkv_kernel     -> flash_dkv_tc_kernel
-//     (bf16 up to D = 256), flash_dkv_kernel (fp32, and bf16 at D = 288)
+//     (bf16 up to D = 256), flash_dkv_wide_kernel then
+//     flash_dkv_merge_kernel (bf16 at D = 288), flash_dkv_kernel (fp32)
 //
 // Layouts: q/dO [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] of T (float or bf16),
 // contiguous; L and D (= rowsum(dO*O)) fp32 [B, Hq, Sq]; O, dQ fp32
@@ -45,12 +47,15 @@
 //   forward, dQ and dK/dV up to D = 256 run on the tensor cores (bf16
 //   mma.sync into fp32, operands staged by cp.async): flash_fwd_tc_kernel
 //   below, flash_dq_tc_kernel (attention_bwd.cuh::dq_tc_body) and
-//   flash_dkv_tc_kernel (attention_bwd.cuh::dkv_tc_body).  fp32 stays on
+//   flash_dkv_tc_kernel (attention_bwd.cuh::dkv_tc_body); so do the bf16
+//   dQ and dK/dV at MLA's D = 288, on bodies whose tiles are cut for that
+//   width (flash_dq_wide_kernel, flash_dkv_wide_kernel:
+//   attention_bwd.cuh::dq_wide_body, ::dkv_wide_body; the dK/dV's GQA group
+//   split over CTAs and summed by flash_dkv_merge_kernel).  fp32 stays on
 //   scalar fp32 FMAs (67 TFLOP/s peak): TF32 keeps ~3 digits and the fp32
-//   instances are held to 2e-5.  So does bf16 at MLA's D = 288, where the
-//   forward's accumulator (144 fp32 registers a thread beside S) would
-//   spill and the dQ's and dK/dV's double-buffered tiles overflow shared
-//   memory.  The scalar kernels use 256 threads on a 64 x 64 tile, 4 x 4
+//   instances are held to 2e-5.  So does the bf16 forward at D = 288,
+//   where its accumulator (144 fp32 registers a thread beside S) would
+//   spill.  The scalar kernels use 256 threads on a 64 x 64 tile, 4 x 4
 //   scores per thread; operands are staged in shared memory as fp32,
 //   transposed ([D][64 + 4]) so a thread's four rows and four columns are
 //   16-byte vectors and the products read two vectors per 16 FMAs.
@@ -64,10 +69,11 @@
 //     its comment).
 //   - dQ: one CTA per (64 query rows, b, q head); Q_s^T and dO^T stay in
 //     shared memory; per KV tile V^T then K^T are staged in one buffer, and
-//     K^T serves both S = Q_s.K^T and dQ += dS.K.  The bf16 instances up to
-//     D = 256 keep that grid on the tensor cores (flash_dq_tc_kernel:
+//     K^T serves both S = Q_s.K^T and dQ += dS.K.  The bf16 instances keep
+//     that grid on the tensor cores (flash_dq_tc_kernel:
 //     attention_bwd.cuh::dq_tc_body, Q and dO resident as bf16 rows, K and
-//     V double-buffered by cp.async).
+//     V double-buffered by cp.async; at D = 288 flash_dq_wide_kernel, the
+//     same in 32-key tiles).
 //   - dK/dV: one CTA per (64 keys, b, kv head) owns its tile's dK and dV,
 //     looping over the GQA group's q heads x the live query rows (the span
 //     of rows whose range meets the tile), so the group reduction needs no
@@ -77,7 +83,11 @@
 //     (dQ likewise restages Q_s^T and dO^T per key tile there).  The bf16
 //     instances up to D = 256 run the same grid and walk on the tensor
 //     cores instead (flash_dkv_tc_kernel: attention_bwd.cuh::dkv_tc_body,
-//     bf16 mma.sync over bf16 tiles, K and V resident at every width).
+//     bf16 mma.sync over bf16 tiles, K and V resident at every width).  At
+//     D = 288 flash_dkv_wide_kernel (attention_bwd.cuh::dkv_wide_body)
+//     walks 48-row query steps and deals the GQA group over `splits` CTAs
+//     a key tile, whose fp32 partials flash_dkv_merge_kernel sums in split
+//     order (ops/flash_attention_bwd.py::dkv_splits plans the split).
 //   Head dims: the kernels are built for D = 32, 64, 128, 256 and 288
 //   (MLAConfig's latent width d_c + d_r); the wrappers run any other
 //   multiple of 16 up to 288 at the next of these, its Q/K/V/dO lanes
@@ -89,6 +99,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "attention_bwd.cuh"
@@ -547,8 +558,8 @@ struct FloatKV {
 };
 
 // Replaces ops/flash_attention_bwd.py::_dq_kernel.  Bound: operations
-// (6*D per live pair: S, dP, dQ).  The fp32 instances and bf16 at D = 288;
-// the other bf16 ones take flash_dq_tc_kernel (mfa::dq_tc).
+// (6*D per live pair: S, dP, dQ).  The fp32 instances; bf16 takes
+// flash_dq_tc_kernel or flash_dq_wide_kernel (mfa::dq_tc, mfa::bwd_wide).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const BwdArgs a, const FloatKV<T, D> kv) {
@@ -563,9 +574,18 @@ flash_dq_tc_kernel(const BwdArgs a, const FloatKV<__nv_bfloat16, D> kv) {
   mfa::dq_tc_body<D, true>(a, kv);
 }
 
+// The same on the tensor cores at D = 288 (attention_bwd.cuh::dq_wide_body:
+// 32-key tiles, 8 warps, one CTA an SM).
+template <int D>
+__global__ void __launch_bounds__(mfa::DQ_WIDE_THREADS, 1)
+flash_dq_wide_kernel(const BwdArgs a, const FloatKV<__nv_bfloat16, D> kv) {
+  mfa::dq_wide_body<D>(a, kv.k, kv.v);
+}
+
 // Replaces ops/flash_attention_bwd.py::_dkv_kernel.  Bound: operations
-// (8*D per live pair: S, dP, dV, dK).  The fp32 instances and bf16 at
-// D = 288; the other bf16 ones take flash_dkv_tc_kernel (mfa::dkv_tc).
+// (8*D per live pair: S, dP, dV, dK).  The fp32 instances; bf16 takes
+// flash_dkv_tc_kernel or flash_dkv_wide_kernel (mfa::dkv_tc,
+// mfa::bwd_wide).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const BwdArgs a, const FloatKV<T, D> kv) {
@@ -578,6 +598,42 @@ __global__ void __launch_bounds__(mfa::dkv_tc_threads<D>(),
                            mfa::dkv_tc_min_blocks<D>())
 flash_dkv_tc_kernel(const BwdArgs a, const FloatKV<__nv_bfloat16, D> kv) {
   mfa::dkv_tc_body<D>(a, kv);
+}
+
+// The same on the tensor cores at D = 288 (attention_bwd.cuh::
+// dkv_wide_body: 48-row query steps, 12 warps, one CTA an SM), the GQA
+// group dealt over gridDim.z / B = splits CTAs a key tile; with splits > 1
+// each writes its partial dK and dV into ws [splits, 2, B, Hkv, Skv, D].
+template <int D>
+__global__ void __launch_bounds__(mfa::DKV_WIDE_THREADS, 1)
+flash_dkv_wide_kernel(const BwdArgs a, const FloatKV<__nv_bfloat16, D> kv,
+                      int splits, float* __restrict__ ws) {
+  mfa::dkv_wide_body<D>(a, kv.k, kv.v, splits, ws);
+}
+
+// The second launch of a split dK/dV: dk[i] = ws[0][0][i] + ws[1][0][i] +
+// ... and dv from ws[.][1], the splits summed in order from split 0 (the
+// plain version, ops/flash_attention_bwd.py::merge_dkv_splits_plain,
+// sums in the same order: bit for bit).  n4 = B * Hkv * Skv * D / 4.
+// Bound: bytes (the workspace read once, dK and dV written once).
+__global__ void __launch_bounds__(256)
+flash_dkv_merge_kernel(const float4* __restrict__ ws,
+                       float4* __restrict__ dk, float4* __restrict__ dv,
+                       int splits, long long n4) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < 2 * n4; i += (long long)gridDim.x * blockDim.x) {
+    const long long which = i / n4;  // 0: dK, 1: dV
+    const long long e = i - which * n4;
+    float4 acc = ws[which * n4 + e];
+    for (int sp = 1; sp < splits; ++sp) {
+      const float4 x = ws[(2 * (long long)sp + which) * n4 + e];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    (which ? dv : dk)[e] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -633,12 +689,15 @@ int launch_fwd(const void* q, const void* k, const void* v,
                                       stream);
 }
 
-// dQ (out0 = dQ, out1 = dbias or null) or dK/dV (out0 = dK, out1 = dV).
+// dQ (out0 = dQ, out1 = dbias or null) or dK/dV (out0 = dK, out1 = dV;
+// on the wide body its group split over `splits` CTAs a key tile, into
+// the workspace ws where splits > 1; every other body takes splits = 1).
 template <typename T, int D, bool DQ>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* di, const void* ranges,
                const void* bias, long long sb, long long sh, void* out0,
-               void* out1, Shape sp, float scale, cudaStream_t stream) {
+               void* out1, Shape sp, float scale, int splits, void* ws,
+               cudaStream_t stream) {
   const BwdArgs a{q, dout, static_cast<const float*>(lse),
                   static_cast<const float*>(di),
                   static_cast<const int32_t*>(ranges),
@@ -650,7 +709,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                          sp.Skv};
   const dim3 grid(DQ ? (sp.Sq + BM - 1) / BM : (sp.Skv + BN - 1) / BN,
                   DQ ? sp.Hq : sp.Hkv, sp.B);
-  if constexpr (DQ && mfa::dq_tc<T, D>())
+  constexpr bool TC = DQ ? mfa::dq_tc<T, D>() : mfa::dkv_tc<T, D>();
+  constexpr bool WIDE = TC && mfa::bwd_wide<D>();
+  if (splits < 1 || (splits > 1 && (!WIDE || DQ || !ws)) ||
+      splits > sp.Hq / sp.Hkv)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (DQ && WIDE)
+    return launch_with_smem(flash_dq_wide_kernel<D>, grid,
+                            mfa::DQ_WIDE_THREADS, mfa::DqWideSmem<D>::BYTES,
+                            stream, a, kv);
+  else if constexpr (DQ && TC)
     return launch_with_smem(flash_dq_tc_kernel<D>, grid,
                             mfa::dq_tc_threads<D>(),
                             mfa::DqTcSmem<D, false>::BYTES, stream, a, kv);
@@ -658,7 +726,12 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
     return launch_with_smem(flash_dq_kernel<T, D>, grid, THREADS,
                             mfa::dq_smem_floats<D>() * sizeof(float), stream,
                             a, kv);
-  else if constexpr (mfa::dkv_tc<T, D>())
+  else if constexpr (WIDE)
+    return launch_with_smem(
+        flash_dkv_wide_kernel<D>, dim3(grid.x, grid.y, grid.z * splits),
+        mfa::DKV_WIDE_THREADS, mfa::DkvWideSmem<D>::BYTES, stream, a, kv,
+        splits, static_cast<float*>(ws));
+  else if constexpr (TC)
     return launch_with_smem(flash_dkv_tc_kernel<D>, grid,
                             mfa::dkv_tc_threads<D>(), mfa::DkvTcSmem<D>::BYTES,
                             stream, a, kv);
@@ -674,7 +747,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* bias, long long sb, long long sh, void* dq,
               void* dbias, Shape sp, float scale, cudaStream_t stream) {
   return launch_bwd<T, D, true>(q, k, v, dout, lse, di, ranges, bias, sb, sh,
-                                dq, dbias, sp, scale, stream);
+                                dq, dbias, sp, scale, 1, nullptr, stream);
 }
 
 template <typename T, int D>
@@ -682,9 +755,9 @@ int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* di,
                const void* ranges, const void* bias, long long sb,
                long long sh, void* dk, void* dv, Shape sp, float scale,
-               cudaStream_t stream) {
+               int splits, void* ws, cudaStream_t stream) {
   return launch_bwd<T, D, false>(q, k, v, dout, lse, di, ranges, bias, sb,
-                                 sh, dk, dv, sp, scale, stream);
+                                 sh, dk, dv, sp, scale, splits, ws, stream);
 }
 
 // Returns LAUNCH<T, D>(args...) for the runtime dtype (0 = float32,
@@ -742,23 +815,43 @@ int mfa_flash_dq(const void* q, const void* k, const void* v,
                bias_sh, dq, dbias, sp, scale, s);
 }
 
+// splits: the CTAs that share a key tile's GQA group (bf16 at D = 288
+// only, ops/flash_attention_bwd.py::dkv_splits; 1 elsewhere); with
+// splits > 1 the partials go to ws, fp32 [splits, 2, B, Hkv, Skv, D], and
+// mfa_flash_dkv_merge sums them into dk and dv.
 int mfa_flash_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* di,
                   const void* ranges, const void* bias, long long bias_sb,
                   long long bias_sh, void* dk, void* dv, int dtype, int B,
                   int Hq, int Hkv, int Sq, int Skv, int D, int interleaved,
-                  float scale, void* stream) {
+                  float scale, int splits, void* ws, void* stream) {
   if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   const Shape sp{B, Hq, Hkv, Sq, Skv, interleaved};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MFA_DISPATCH(launch_dkv, q, k, v, dout, lse, di, ranges, bias, bias_sb,
-               bias_sh, dk, dv, sp, scale, s);
+               bias_sh, dk, dv, sp, scale, splits, ws, s);
+}
+
+// dk, dv (fp32, n elements each, n a multiple of 4) = the sums over the
+// splits of ws [splits, 2, n], in split order (flash_dkv_merge_kernel).
+int mfa_flash_dkv_merge(const void* ws, void* dk, void* dv, int splits,
+                        long long n, void* stream) {
+  if (splits < 1 || n <= 0 || n % 4) return (int)cudaErrorInvalidValue;
+  const long long n4 = n / 4;
+  // Grid-stride: at most 8 blocks for each of an H100's 132 SMs.
+  const int blocks = (int)std::min<long long>((2 * n4 + 255) / 256, 132 * 8);
+  flash_dkv_merge_kernel<<<blocks, 256, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(ws), static_cast<float4*>(dk),
+      static_cast<float4*>(dv), splits, n4);
+  return (int)cudaGetLastError();
 }
 
 // Which of the forward (bit 0), dQ (bit 1) and dK/dV (bit 2) kernels of
 // dtype at the built head dim D run on the tensor cores (fwd_tc, dq_tc,
-// dkv_tc; the quantized launchers route by dq_tc and dkv_tc too); -1 for
-// a dtype or head dim without kernels.
+// dkv_tc: at D = 288 the dQ and dK/dV on the wide bodies; the quantized
+// launchers route by dq_tc and dkv_tc too, up to D = 256); -1 for a dtype
+// or head dim without kernels.
 int mfa_flash_tc_bodies(int dtype, int D) {
 #define MFA_BODIES(T, DD)                                          \
   if (D == DD)                                                     \

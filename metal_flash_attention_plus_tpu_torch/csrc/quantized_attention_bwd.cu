@@ -1330,9 +1330,12 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
 // Launchers
 // ---------------------------------------------------------------------------
 
+// Built up to D = 256 (qattn_width): dq_tc / dkv_tc route bf16 to
+// dq_tc_body / dkv_tc_body, never to the flash kernels' wide bodies.
 template <typename T, int D>
 int launch_qflash(bool dq, const BwdArgs& a, const QuantKV<D>& kv, int B,
                   cudaStream_t stream) {
+  static_assert(!mfa::bwd_wide<D>(), "the quantized backward stops at 256");
   const dim3 dq_grid((a.Sq + BM - 1) / BM, a.Hq, B);
   if constexpr (mfa::dq_tc<T, D>()) {
     if (dq)

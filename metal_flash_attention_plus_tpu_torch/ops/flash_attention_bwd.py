@@ -6,16 +6,19 @@ disjoint outputs, so no atomics:
 - :func:`flash_dq` → ``csrc/flash_attention.cu::flash_dq_kernel`` (TPU
   ``_dq_kernel``): per query tile, recomputes P = exp(S − L) from the
   saved logsumexp, dP = dO·Vᵀ, dS = P ⊙ (dP − D), dQ += dS·K; optionally
-  writes dbias = dS.  Its bf16 instances up to D = 256, and those of
-  :func:`qflash_dq`, run the tensor-core body (``flash_dq_tc_kernel``,
-  ``qflash_dq_tc_kernel``: bf16 mma.sync); fp32 and bf16 at D = 288 the
-  scalar one (:func:`dq_body`).
+  writes dbias = dS.  Its bf16 instances, and those of :func:`qflash_dq`,
+  run on the tensor cores (bf16 mma.sync: ``flash_dq_tc_kernel`` and
+  ``qflash_dq_tc_kernel`` up to D = 256, ``flash_dq_wide_kernel`` at
+  MLA's 288); fp32 the scalar body (:func:`dq_body`).
 - :func:`flash_dkv` → ``flash_dkv_kernel`` (TPU ``_dkv_kernel``): per key
   tile, walks the GQA group's q heads × the live query rows, dV += Pᵀ·dO,
   dK += dSᵀ·Q_s; the group reduction happens inside the kernel.  Its bf16
-  instances up to D = 256, and those of :func:`qflash_dkv`, run the
-  tensor-core body (bf16 mma.sync); fp32 and bf16 at D = 288 the scalar
-  one (:func:`dkv_body`).
+  instances, and those of :func:`qflash_dkv`, run on the tensor cores
+  (``flash_dkv_tc_kernel``, ``qflash_dkv_tc_kernel`` up to D = 256;
+  ``flash_dkv_wide_kernel`` at 288, which deals the GQA group over
+  :func:`dkv_splits` CTAs a key tile into an fp32 workspace that
+  :func:`merge_dkv_splits` sums in split order); fp32 the scalar body
+  (:func:`dkv_body`).
 - Quantized K/V (:class:`QuantizedTensor`), exact: :func:`qflash_dq` and
   :func:`qflash_dkv` → ``csrc/quantized_attention_bwd.cu`` (the TPU
   kernels' quantized modes), the same two bodies with K/V staged from their
@@ -93,6 +96,9 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     pad_scales,
     qattn_width,
 )
+from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
+    _sm_count,
+)
 from metal_flash_attention_plus_tpu_torch.quant.params import (
     QuantGranularity,
     QuantStrategy,
@@ -108,6 +114,10 @@ _PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # q, k, v, dO, L, D, ranges, bias | bias strides | two outputs | ints | scale
 _BWD_ARGS = ([_PTR] * 8 + [_I64, _I64] + [_PTR, _PTR] + [_I32] * 8
              + [_F32, _PTR])
+# The same | splits, workspace | stream
+_DKV_ARGS = _BWD_ARGS[:-1] + [_I32, _PTR, _PTR]
+# workspace, dK, dV | splits | elements of dK | stream
+_MERGE_ARGS = [_PTR] * 3 + [_I32, _I64, _PTR]
 # dq | q, dO, K (payload, scale, zp), V (same), ksr, vsr, dqsc, L, D,
 # ranges, bias | bias strides | two outputs | ints | scale
 _QFLASH_ARGS = ([_I32] + [_PTR] * 15 + [_I64, _I64] + [_PTR, _PTR]
@@ -200,40 +210,69 @@ def flash_attention_dkv_plain(
 def dkv_body(dtype: torch.dtype, d: int) -> str:
     """Which body of ``csrc/attention_bwd.cuh`` the dK/dV kernels
     (:func:`flash_dkv`, :func:`qflash_dkv`) run for a Q of ``dtype`` at head
-    dim ``d``: "tensor_core" (``dkv_tc_body``: bf16 mma.sync) for bf16 at a
-    kernel width up to 256, "fp32_fma" (``dkv_body``: scalar fp32 FMAs) for
-    fp32, whose 2e-5 gate TF32 would break, and for bf16 at MLA's width 288,
-    whose double-buffered tiles would take 242 KB of the 227 KB of shared
-    memory a CTA may have.  The C launchers route the same way
-    (``mfa::dkv_tc``)."""
-    if dtype == torch.bfloat16 and flash_width(d) <= 256:
-        return "tensor_core"
-    return "fp32_fma"
+    dim ``d``: "tensor_core" (bf16 mma.sync) for bf16 at every kernel
+    width: ``dkv_tc_body`` up to 256, ``dkv_wide_body`` at MLA's width 288
+    (272 runs at 288; the quantized kernels stop at 256); "fp32_fma"
+    (``dkv_body``: scalar fp32 FMAs) for fp32, whose 2e-5 gate TF32 would
+    break.  The C launchers route the same way (``mfa::dkv_tc``,
+    ``mfa::bwd_wide``)."""
+    flash_width(d)  # raises past the widest kernel
+    return "tensor_core" if dtype == torch.bfloat16 else "fp32_fma"
 
 
 def dq_body(dtype: torch.dtype, d: int) -> str:
     """Which body of ``csrc/attention_bwd.cuh`` the dQ kernels
     (:func:`flash_dq`, :func:`qflash_dq`) run for a Q of ``dtype`` at head
-    dim ``d``: "tensor_core" (``dq_tc_body``: bf16 mma.sync) for bf16 at a
-    kernel width up to 256, "fp32_fma" (``dq_body``: scalar fp32 FMAs) for
-    fp32 and for bf16 at MLA's width 288, where Q, dO and the
-    double-buffered K / V tiles would overflow shared memory; the same
+    dim ``d``: "tensor_core" for bf16 (``dq_tc_body`` up to 256,
+    ``dq_wide_body`` at 288), "fp32_fma" (``dq_body``) for fp32; the same
     answer as :func:`dkv_body`.  The C launchers route the same way
-    (``mfa::dq_tc``)."""
+    (``mfa::dq_tc``, ``mfa::bwd_wide``)."""
     return dkv_body(dtype, d)
 
 
+# The dK/dV's wide body (bf16 at width 288) runs one CTA an SM (205 KB of
+# shared memory); dkv_splits deals the GQA group over CTAs until the grid
+# holds this many CTAs an SM.  At MLA's training shape
+# ``utils/profiling.py --dkv-splits`` measured 3.75, 1.90, 1.49, 1.28 and
+# 1.20 ms for 1, 2, 4, 8 and 16 splits (64 key tiles; 16 is 8 CTAs an SM).
+_DKV_CTAS_PER_SM = 8
+
+
+def dkv_splits(dtype: torch.dtype, d: int, batch: int, q_heads: int,
+               kv_heads: int, kv_len: int, sms: int) -> int:
+    """How many CTAs share each (64-key tile, batch row, KV head) of the
+    dK/dV, from shapes alone: 1 except on the wide body (bf16 at kernel
+    width 288, ``dkv_wide_body``), whose CTA walks its q heads in series.
+    There the GQA group of ``q_heads / kv_heads`` heads is dealt into runs
+    of whole heads, one CTA a run: the split doubles while it stays within
+    the group and the grid within ``_DKV_CTAS_PER_SM`` CTAs for each of
+    ``sms`` SMs; the runs are then made equal (``ceil(group / per)`` of
+    ``per`` heads).  MLA's training shape (batch 2, 16 q heads over one latent
+    head, 2048 keys: 64 tiles) takes 16 splits of one head on 132 SMs."""
+    if dkv_body(dtype, d) != "tensor_core" or flash_width(d) <= 256:
+        return 1
+    group = q_heads // kv_heads
+    ctas = -(-kv_len // 64) * kv_heads * batch
+    splits = 1
+    while (splits * 2 <= group
+           and ctas * splits * 2 <= _DKV_CTAS_PER_SM * sms):
+        splits *= 2
+    per = -(-group // splits)
+    return -(-group // per)
+
+
 def _launch(name, fn_name, q, k, v, do, lse, di, row_ranges, bias, out0,
-            out1, scale, interleaved_kv):
+            out1, scale, interleaved_kv, split=()):
+    """``split``: (splits, workspace) for ``mfa_flash_dkv``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     bptr, bsb, bsh = bias_args(bias)
-    rc = _build.kernel_function(fn_name, _BWD_ARGS)(
+    rc = _build.kernel_function(fn_name, _DKV_ARGS if split else _BWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), row_ranges.data_ptr(), bptr, bsb, bsh,
         out0.data_ptr(), None if out1 is None else out1.data_ptr(),
         DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d, int(interleaved_kv),
-        scale, stream_of(q),
+        scale, *split, stream_of(q),
     )
     _build.check_launch(rc, name)
 
@@ -291,26 +330,74 @@ def flash_dkv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel: (dk, dv) fp32 [B, Hkv, Skv, D], summed over each
     KV head's group of q heads.  Inputs as for :func:`flash_dq`; the kernel
-    runs at the head dim's ``flash_width``."""
+    runs at the head dim's ``flash_width``.  Where :func:`dkv_splits` deals
+    the group over several CTAs a key tile, they write fp32 partials into a
+    workspace this call allocates, [splits, 2, B, Hkv, Skv, D], and
+    :func:`merge_dkv_splits` sums them in split order."""
     if q.device.type == "cpu":
         return flash_attention_dkv_plain(
             q, k, v, do, lse, di, row_ranges, bias=bias, scale=scale,
             interleaved_kv=interleaved_kv)
     check_kernel_inputs("flash_dkv", q, k, v, row_ranges, bias,
                         q_like=(do,), stats=(lse, di))
-    d = q.shape[-1]
+    b, hq, _, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     q, k, v, do = pad_lanes(flash_width(d), q, k, v, do)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    splits = dkv_splits(q.dtype, d, b, hq, hkv, skv, _sm_count(q.device))
+    ws = (torch.empty((splits, 2) + tuple(k.shape), dtype=torch.float32,
+                      device=k.device) if splits > 1 else None)
     _launch("flash_dkv", "mfa_flash_dkv", q, k, v, do, lse, di, row_ranges,
-            bias, dk, dv, scale, interleaved_kv)
+            bias, dk, dv, scale, interleaved_kv,
+            split=(splits, None if ws is None else ws.data_ptr()))
     flash_dkv.launches += 1
+    if ws is not None:
+        merge_dkv_splits(ws, dk, dv)
     if dk.shape[-1] != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 
 flash_dkv.launches = 0
+
+
+def merge_dkv_splits_plain(ws: torch.Tensor) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Plain PyTorch version of :func:`merge_dkv_splits`: (dk, dv) =
+    ws[0, i] + ws[1, i] + ... in split order."""
+    acc = ws[0].clone()
+    for part in ws[1:]:
+        acc += part
+    return acc[0], acc[1]
+
+
+def merge_dkv_splits(ws: torch.Tensor, dk: torch.Tensor,
+                     dv: torch.Tensor) -> None:
+    """dk, dv (fp32, contiguous) = the split dK/dV's partials ``ws`` fp32
+    [splits, 2, *dk.shape] summed in split order, in place
+    (``csrc/flash_attention.cu::flash_dkv_merge_kernel``; the plain
+    version's order, so the two agree bit for bit)."""
+    if ws.device.type == "cpu":
+        mk, mv = merge_dkv_splits_plain(ws)
+        dk.copy_(mk)
+        dv.copy_(mv)
+        return
+    if (ws.dtype != torch.float32 or not ws.is_contiguous()
+            or ws.shape[1:] != (2,) + tuple(dk.shape)
+            or dv.shape != dk.shape
+            or any(t.dtype != torch.float32 or not t.is_contiguous()
+                   or t.device != ws.device for t in (dk, dv))):
+        raise ValueError("merge_dkv_splits: ws fp32 [splits, 2, *dk.shape] "
+                         "and contiguous fp32 dk, dv on its device expected")
+    rc = _build.kernel_function("mfa_flash_dkv_merge", _MERGE_ARGS)(
+        ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.shape[0],
+        dk.numel(), stream_of(dk))
+    _build.check_launch(rc, "flash_dkv_merge")
+    merge_dkv_splits.launches += 1
+
+
+merge_dkv_splits.launches = 0
 
 
 # ---------------------------------------------------------------------------

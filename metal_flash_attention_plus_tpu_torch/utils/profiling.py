@@ -19,6 +19,8 @@ card.
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --decode-splits
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
+        --dkv-splits
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --determinism [STEPS]
 
 Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
@@ -91,6 +93,14 @@ which the output marks: the time by CUDA events over 50 calls after 3 to
 warm up, and the device time of the split kernel and of the merge over 50
 more under the profiler.
 
+``--dkv-splits``: the flash dK/dV (bf16, causal) at MLA's training shape
+(B = 2, Hq = 16 over Hkv = 1, S = 2048, D = 288: the wide body) over split
+counts of the GQA group (:data:`DKV_SPLIT_PLANS`), each forced in place of
+``ops.flash_attention_bwd.dkv_splits``' choice, which the output marks:
+the time by CUDA events over 20 calls after 3 to warm up, and the device
+time of the split kernel and of the merge over 20 more under the
+profiler.
+
 ``--rtq-clusters``: the runtime block quantizer on a [4096, 1024] bf16
 activation, CENTERED with Σq, at bs 64 and 128, over cluster sizes
 (:data:`RTQ_CLUSTER_PLANS`), each forced in place of
@@ -160,8 +170,12 @@ from metal_flash_attention_plus_tpu_torch.models.transformer import (
     make_train_step,
     trainable_parameters,
 )
+from metal_flash_attention_plus_tpu_torch.attention.masking import CAUSAL
+from metal_flash_attention_plus_tpu_torch.ops import flash_attention_bwd
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     BlockSizes,
+    flash_fwd,
+    row_ranges_tensor,
 )
 from metal_flash_attention_plus_tpu_torch.ops.gemm import matmul
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
@@ -902,6 +916,52 @@ def profile_decode_splits(seed: int, iters: int = 50) -> int:
     return 0
 
 
+# Split counts --dkv-splits forces on the dK/dV's wide body.
+DKV_SPLIT_PLANS = (1, 2, 4, 8, 16)
+
+
+def profile_dkv_splits(seed: int, iters: int = 20) -> int:
+    b, hq, hkv, s, d = 2, 16, 1, 2048, 288
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((b, hq, s, d), generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    rr = row_ranges_tensor(CAUSAL, s, s, None, "cuda")
+    scale = d ** -0.5
+    o, lse = flash_fwd(q, k, v, rr, scale=scale)
+    di = (do.float() * o).sum(-1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planner = flash_attention_bwd.dkv_splits
+    chosen = planner(q.dtype, d, b, hq, hkv, s, sms)
+    for splits in sorted({chosen, *DKV_SPLIT_PLANS}):
+        flash_attention_bwd.dkv_splits = lambda *_, n=splits: n
+        try:
+            def run():
+                flash_attention_bwd.flash_dkv(q, k, v, do, lse, di, rr,
+                                              scale=scale)
+            for _ in range(3):
+                run()
+            ms = cuda_ms(run, iters)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    run()
+                torch.cuda.synchronize()
+        finally:
+            flash_attention_bwd.dkv_splits = planner
+        by_kernel = {("merge" if "merge" in name else "split"):
+                     us / 1e3 / iters
+                     for name, us, _ in kernel_table(prof)[2]
+                     if "flash_dkv" in name}
+        print(json.dumps({
+            "device": torch.cuda.get_device_name(0), "kernel": "flash_dkv",
+            "shape": [b, hq, hkv, s, d], "splits": splits, "ms": ms,
+            "device_ms": sum(by_kernel.values()), **{
+                f"device_ms_{k}": v for k, v in by_kernel.items()},
+            "chosen": splits == chosen}))
+    return 0
+
+
 # Cluster sizes --rtq-clusters times beside block_cluster's choice.
 RTQ_CLUSTER_PLANS = (4, 8, 16)
 
@@ -967,6 +1027,9 @@ def main() -> int:
                     "small-block compensated GEMMs) over tile plans")
     ap.add_argument("--decode-splits", action="store_true",
                     help="time the paged decode over split counts")
+    ap.add_argument("--dkv-splits", action="store_true",
+                    help="time the flash dK/dV at MLA's training shape over "
+                    "split counts of its GQA group")
     ap.add_argument("--rtq-clusters", action="store_true",
                     help="time the runtime block quantizer over cluster "
                     "sizes")
@@ -986,6 +1049,8 @@ def main() -> int:
         return profile_dyn_tiles(args.seed)
     if args.decode_splits:
         return profile_decode_splits(args.seed)
+    if args.dkv_splits:
+        return profile_dkv_splits(args.seed)
     if args.rtq_clusters:
         return profile_rtq_clusters(args.seed)
     if args.quantized_backward:

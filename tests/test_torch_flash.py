@@ -107,10 +107,15 @@ CASES = {
     # MLA's latent attention: one KV head, D = d_c + d_r = 64 + 16.
     "mla_latent_d80": (1, 4, 1, 96, 96, 80, (tm.CAUSAL, jm.CAUSAL, None),
                        False, None),
+    # MLAConfig()'s latent width d_c + d_r = 256 + 32: the width of the
+    # tensor-core dQ and dK/dV wide bodies, held on the card to these plain
+    # versions.
+    "mla_latent_d288": (1, 4, 1, 96, 96, 288, (tm.CAUSAL, jm.CAUSAL, None),
+                        False, None),
 }
 BWD_CASES = ["causal_gqa", "causal_interleaved", "window_causal_rect",
              "segments_empty_row", "bias_causal_bcast", "ragged_rect_bias",
-             "mla_latent_d80"]
+             "mla_latent_d80", "mla_latent_d288"]
 
 
 def _inputs(name, seed=0):
@@ -329,12 +334,12 @@ def test_kernel_widths_and_zero_padded_lanes():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288])
 def test_dkv_body_follows_dtype_and_kernel_width(dtype, d):
-    """The flash dK/dV kernel runs the tensor-core body for bf16 at a
-    kernel width up to 256 and the fp32-FMA body for fp32 and for MLA's
-    width 288 (272 runs at 288), as the C launcher routes."""
-    tensor_core = dtype == torch.bfloat16 and d <= 256
+    """The flash dK/dV kernel runs a tensor-core body for bf16 at every
+    kernel width (up to 256 ``dkv_tc_body``, at MLA's 288 the wide body;
+    272 runs at 288) and the fp32-FMA body for fp32, as the C launcher
+    routes."""
     assert fbwd.dkv_body(dtype, d) == (
-        "tensor_core" if tensor_core else "fp32_fma")
+        "tensor_core" if dtype == torch.bfloat16 else "fp32_fma")
     assert (tfa.flash_width(d) <= 256) == (d <= 256)
 
 
@@ -344,21 +349,78 @@ def test_fwd_body_follows_dtype_and_kernel_width(dtype, d):
     """The flash forward launches the tensor-core kernel for bf16 at a
     kernel width up to 256 (48 runs at 64, 80 at 128) and the fp32-FMA
     kernel for fp32 and for MLA's width 288 (272 runs at 288), as the C
-    launcher routes; it picks the same body as the dK/dV kernels."""
+    launcher routes.  It picks the same body as the dK/dV kernels up to
+    256; at 288 the bf16 dK/dV runs on the tensor cores and the forward
+    does not."""
     tensor_core = dtype == torch.bfloat16 and d <= 256
     assert tfa.fwd_body(dtype, d) == (
         "tensor_core" if tensor_core else "fp32_fma")
-    assert tfa.fwd_body(dtype, d) == fbwd.dkv_body(dtype, d)
+    if d <= 256:
+        assert tfa.fwd_body(dtype, d) == fbwd.dkv_body(dtype, d)
+    else:
+        assert fbwd.dkv_body(dtype, d) == (
+            "tensor_core" if dtype == torch.bfloat16 else "fp32_fma")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288])
 def test_dq_body_follows_dtype_and_kernel_width(dtype, d):
-    """The flash and quantized dQ kernels run the tensor-core body for bf16
-    at a kernel width up to 256 and the fp32-FMA body for fp32 and for
-    MLA's width 288 (272 runs at 288), as the C launchers route: the same
+    """The flash and quantized dQ kernels run a tensor-core body for bf16
+    at every kernel width (the wide body at MLA's 288; 272 runs at 288)
+    and the fp32-FMA body for fp32, as the C launchers route: the same
     answer as the dK/dV kernels'."""
-    tensor_core = dtype == torch.bfloat16 and d <= 256
     assert fbwd.dq_body(dtype, d) == (
-        "tensor_core" if tensor_core else "fp32_fma")
+        "tensor_core" if dtype == torch.bfloat16 else "fp32_fma")
     assert fbwd.dq_body(dtype, d) == fbwd.dkv_body(dtype, d)
+
+
+# (dtype, d, batch, q heads, kv heads, kv length, SMs) -> splits
+DKV_SPLIT_PLANS = [
+    # MLA's training shape on an H100: 64 key tiles, 16 runs of one head.
+    ((torch.bfloat16, 288, 2, 16, 1, 2048, 132), 16),
+    ((torch.bfloat16, 272, 2, 16, 1, 2048, 132), 16),
+    # Twice the batch: 128 tiles, 8 runs of 2 heads fill 8 CTAs an SM.
+    ((torch.bfloat16, 288, 4, 16, 1, 2048, 132), 8),
+    # The CPU case above: 2 tiles, the whole group of 4 split.
+    ((torch.bfloat16, 288, 1, 4, 1, 96, 132), 4),
+    # A group of 3 over 2 splits: runs of 2 heads, so 2 runs (2 + 1).
+    ((torch.bfloat16, 288, 1, 3, 1, 64, 132), 2),
+    # Enough tiles to fill the card: no split.
+    ((torch.bfloat16, 288, 8, 16, 4, 4096, 132), 1),
+    # Fewer SMs, fewer splits.
+    ((torch.bfloat16, 288, 2, 16, 1, 2048, 66), 8),
+    ((torch.bfloat16, 288, 2, 16, 1, 2048, 33), 4),
+    # MHA: a group of one never splits.
+    ((torch.bfloat16, 288, 1, 4, 4, 96, 132), 1),
+    # Off the wide body: fp32 at 288, bf16 up to 256.
+    ((torch.float32, 288, 2, 16, 1, 2048, 132), 1),
+    ((torch.bfloat16, 256, 2, 16, 1, 2048, 132), 1),
+    ((torch.bfloat16, 64, 1, 16, 1, 128, 132), 1),
+]
+
+
+@pytest.mark.parametrize("args,want", DKV_SPLIT_PLANS)
+def test_dkv_splits_plans_from_shapes(args, want):
+    """The dK/dV's wide body deals each key tile's GQA group over
+    ``dkv_splits`` CTAs: doubling while within the group and 8 CTAs an SM,
+    then runs of equal whole heads; 1 off the wide body."""
+    splits = fbwd.dkv_splits(*args)
+    assert splits == want
+    group = args[3] // args[4]
+    per = -(-group // splits)
+    assert (splits - 1) * per < group <= splits * per  # no empty run
+
+
+def test_merge_dkv_splits_sums_in_split_order():
+    """The plain merge of the split dK/dV partials (the CPU side of
+    ``flash_dkv_merge_kernel``) sums ws[0] + ws[1] + ... left to right, in
+    place into dk, dv, bit for bit as a sequential fp32 sum."""
+    rng = np.random.default_rng(3)
+    ws = torch.from_numpy(
+        rng.standard_normal((5, 2, 1, 2, 7, 288)).astype(np.float32) * 1e3)
+    dk, dv = torch.empty(1, 2, 7, 288), torch.empty(1, 2, 7, 288)
+    fbwd.merge_dkv_splits(ws, dk, dv)
+    want = ws[0].clone()
+    for i in range(1, 5):
+        want = want + ws[i]
+    assert torch.equal(dk, want[0]) and torch.equal(dv, want[1])

@@ -35,12 +35,16 @@ modes of the paged kernels (one-state latent pages, ``v_tail_zero``,
 D = 80 and 288, Hq = 16 over Hkv = 1) and of the flash kernels (D = 80 and
 288) take their kernels' tolerances.  The paged decode splits the KV axis
 across CTAs and merges the splits in a fixed order, so two calls on the
-same inputs are held equal bit for bit.  The flash forward's static-max
-mode (``row_max``) takes the flash forward's tolerances, the kernel and
-the plain version given the same subtrahends; the dynamic GEMM under a
-stored plan stays bit for bit, and the weight-only GEMM under one takes
-its tolerance.  ``MultiHeadAttention`` launches exactly the flash kernels
-its entry points name and equals the direct calls bit for bit.
+same inputs are held equal bit for bit; so are the bf16 dQ and dK/dV at
+D = 288 (the wide bodies; the dK/dV's GQA group split over CTAs and
+merged in split order, the merge kernel bit for bit with its plain
+version), which take the flash kernels' bf16 tolerance.  The flash
+forward's static-max mode (``row_max``) takes the flash forward's
+tolerances, the kernel and the plain version given the same subtrahends;
+the dynamic GEMM under a stored plan stays bit for bit, and the
+weight-only GEMM under one takes its tolerance.  ``MultiHeadAttention``
+launches exactly the flash kernels its entry points name and equals the
+direct calls bit for bit.
 """
 
 import ctypes
@@ -375,12 +379,124 @@ def test_flash_dq_tensor_core_body_matches_plain(cuda_device, name, d):
         assert _rel(dbias, dbias_ref) <= BF16_TOL, name
 
 
+# The tensor-core dQ and dK/dV at MLA's width 288 (the wide bodies: the
+# dK/dV in 48-row query steps with the GQA group split over CTAs and merged,
+# the dQ in 32-key tiles), where their tiling is at risk: MLA's 16 q heads
+# over one latent head (16 splits of one head; 8 of two at B=4, S=2048), 4
+# over 2 interleaved (2 splits), a group of 3 (runs of 2 and 1), a causal
+# mask over a ragged S = 300, a sliding window, sparse rows with an empty
+# row, bias with dbias over an odd Skv, Sq < Skv and Sq > Skv (causal rows
+# with no live key), and D = 272 (run at 288).
+# name: (b, hq, hkv, sq, skv, d, mask, ranges, bias shape, interleaved)
+WIDE_CASES = {
+    "mla_causal_s300": (2, 16, 1, 300, 300, 288, masking.CAUSAL, None, None,
+                        False),
+    "gqa_interleaved_s300": (1, 4, 2, 300, 300, 288, masking.CAUSAL, None,
+                             None, True),
+    "mla_window": (1, 16, 1, 300, 300, 288, masking.sliding_window(
+        100, causal=True), None, None, False),
+    "segments_empty_row": (
+        1, 4, 2, 130, 130, 288, masking.MaskSpec(
+            masking.MaskKind.SPARSE_RANGES), _segments_with_empty_row(), None,
+        True),
+    "mla_segments_empty_row": (
+        1, 16, 1, 130, 130, 288, masking.MaskSpec(
+            masking.MaskKind.SPARSE_RANGES), _segments_with_empty_row(), None,
+        False),
+    "bias_dbias": (2, 4, 2, 100, 131, 288, masking.CAUSAL, None,
+                   (2, 1, 100, 131), False),
+    "mla_bias_dbias": (1, 16, 1, 100, 131, 288, masking.CAUSAL, None,
+                       (1, 16, 100, 131), False),
+    "mla_sq_lt_skv": (1, 16, 1, 150, 300, 288, masking.CAUSAL, None, None,
+                      False),
+    "gqa_sq_gt_skv": (1, 4, 2, 300, 150, 288, masking.CAUSAL, None, None,
+                      True),
+    "mla_d272": (1, 16, 1, 300, 300, 272, masking.CAUSAL, None, None, False),
+    "group3_uneven_runs": (1, 3, 1, 300, 300, 288, masking.CAUSAL, None, None,
+                           False),
+    "mla_b4_s2048_runs_of_2": (4, 16, 1, 2048, 2048, 288, masking.CAUSAL,
+                               None, None, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_flash_wide_bodies_match_plain(cuda_device, name):
+    """The bf16 dQ (and dbias) and dK/dV at D = 288 on the tensor-core wide
+    bodies against their plain versions, max abs over the plain's max abs
+    at the bf16 gate; one dQ and one dK/dV launch a call, plus one merge
+    where the dK/dV splits; two calls equal bit for bit."""
+    b, hq, hkv, sq, skv, d, mask, ranges, bias_shape, inter = WIDE_CASES[
+        name]
+    (q, k, v), do, bias, rr = _flash_case(
+        cuda_device, torch.bfloat16, b, hq, hkv, sq, skv, d, mask, ranges,
+        bias_shape, seed=len(name))
+    assert fbwd.dq_body(q.dtype, d) == fbwd.dkv_body(q.dtype, d) == (
+        "tensor_core")
+    splits = fbwd.dkv_splits(q.dtype, d, b, hq, hkv, skv,
+                             torch.cuda.get_device_properties(
+                                 cuda_device).multi_processor_count)
+    want_dbias = bias is not None
+    kw = dict(bias=bias, scale=d ** -0.5, interleaved_kv=inter)
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, **kw)
+    di = (do.float() * o_ref).sum(-1)
+    runs = []
+    for _ in range(2):
+        n = (flash_dq.launches, flash_dkv.launches,
+             fbwd.merge_dkv_splits.launches)
+        dq, dbias = flash_dq(q, k, v, do, l_ref, di, rr,
+                             want_dbias=want_dbias, **kw)
+        dk, dv = flash_dkv(q, k, v, do, l_ref, di, rr, **kw)
+        torch.cuda.synchronize()
+        assert (flash_dq.launches - n[0], flash_dkv.launches - n[1],
+                fbwd.merge_dkv_splits.launches - n[2]) == (
+                    1, 1, int(splits > 1)), name
+        runs.append((dq, dbias, dk, dv))
+    dq_ref, dbias_ref = flash_attention_dq_plain(
+        q, k, v, do, l_ref, di, rr, want_dbias=want_dbias, **kw)
+    dk_ref, dv_ref = flash_attention_dkv_plain(q, k, v, do, l_ref, di, rr,
+                                               **kw)
+    dq, dbias, dk, dv = runs[0]
+    for got, want, what in ((dq, dq_ref, "dq"), (dk, dk_ref, "dk"),
+                            (dv, dv_ref, "dv"), (dbias, dbias_ref, "dbias")):
+        if want is None:
+            assert got is None
+            continue
+        assert got.dtype == torch.float32 and got.shape == want.shape, what
+        assert torch.isfinite(got).all(), what
+        assert _rel(got, want) <= BF16_TOL, (name, what)
+    for first, second in zip(*runs):
+        assert (first is None and second is None) or torch.equal(
+            first, second), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits,shape", [(8, (2, 1, 2048, 288)),
+                                          (3, (1, 2, 131, 288)),
+                                          (1, (1, 1, 64, 288))])
+def test_dkv_merge_kernel_matches_plain_bit_for_bit(cuda_device, splits,
+                                                    shape):
+    """``flash_dkv_merge_kernel`` sums the splits in the plain version's
+    order: equal bit for bit, one launch a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(splits)
+    ws = torch.randn((splits, 2) + shape, generator=g, device=cuda_device)
+    dk = torch.empty(shape, device=cuda_device)
+    dv = torch.empty_like(dk)
+    n = fbwd.merge_dkv_splits.launches
+    fbwd.merge_dkv_splits(ws, dk, dv)
+    torch.cuda.synchronize()
+    assert fbwd.merge_dkv_splits.launches == n + 1
+    want_k, want_v = fbwd.merge_dkv_splits_plain(ws)
+    assert torch.equal(dk, want_k) and torch.equal(dv, want_v)
+
+
 @pytest.mark.cuda
 def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
     """The C launchers' routing (mfa::fwd_tc, dq_tc, dkv_tc, as the
     library reports it) agrees with fwd_body / dq_body / dkv_body at every
-    built width: bf16 up to 256 on the tensor cores, fp32 and D = 288 on
-    the scalar bodies."""
+    built width: the bf16 forward up to 256 on the tensor cores, the bf16
+    dQ and dK/dV at every width (288 on the wide bodies), fp32 and the
+    bf16 forward at D = 288 on the scalar bodies."""
     import ctypes
 
     from metal_flash_attention_plus_tpu_torch import _build
@@ -397,7 +513,8 @@ def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
             want = [f(dtype, d) == "tensor_core" for f in (
                 fwd_body, fbwd.dq_body, fbwd.dkv_body)]
             assert [bool(bits >> i & 1) for i in range(3)] == want, (dtype, d)
-            assert want == [dtype == torch.bfloat16 and d <= 256] * 3
+            bf16 = dtype == torch.bfloat16
+            assert want == [bf16 and d <= 256, bf16, bf16]
     assert bodies(DTYPE_CODES[torch.bfloat16], 48) == -1
 
 
