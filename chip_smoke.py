@@ -115,11 +115,14 @@ checkout, then, on the card:
    seed + 4): (a) both paged kernels at MLA's geometry (Hq=16 over Hkv=1,
    D=288, one-state latent pages, v_tail_zero=32) with bf16 and int8
    pools against their plain versions; (b) the flash forward, dQ and
-   dK/dV kernels at D=80 and 288 (the bf16 dQ and dK/dV at 288 on their
-   tensor-core wide bodies, also called twice at B=2, S=2048 and equal bit
-   for bit); (c) the quantized forward's int8 P over
-   the TPU's block_kv spans (NORTH_STAR_BLOCKS' and 128) at the
-   north-star shape against ``qattn_fwd_plain(kv_tile=block_kv)``; (d)
+   dK/dV kernels at D=80 and 288 (the bf16 forward at 288 on
+   ``flash_fwd_wide_kernel``, also in its static-max mode at B=2, S=2048
+   with "estimate" and a caller's bound; the bf16 dQ and dK/dV at 288 on
+   their tensor-core wide bodies; the forward in both modes, the dQ and
+   the dK/dV each called twice at B=2, S=2048 and equal bit for bit);
+   (c) the quantized forward's int8 P over the TPU's block_kv spans
+   (NORTH_STAR_BLOCKS' and 128) at the north-star shape against
+   ``qattn_fwd_plain(kv_tile=block_kv)``; (d)
    both weight-only GEMM kernels against their plain versions at the
    decompression shape (M=4096, N=1024, K=256): folded int8 / int4 ROW and
    int8 TENSOR, dequant-on-load BLOCK 128, ASYMMETRIC ROW and an fp32 A,
@@ -174,13 +177,14 @@ checkout, then, on the card:
    ``flash_attention`` / ``flash_attention_backward`` call; (b) the flash
    forward's static-max mode (``row_max``) against its plain version on
    the same subtrahends, bf16 at the path's shape and at D=128, 256 and
-   288 (the scalar kernel), fp32 at D=64, over FULL, CAUSAL, a window and
-   sparse ranges, with "estimate" and a caller's bound (the true row max
-   + 5), at the flash gates, O's gap to the running-max kernel logged;
-   ``flash_attention_forward(row_max="estimate")`` at the path's shape
-   with its one launch; (c) ``AttentionTuner.calibrate_gemm`` into the
-   run's store: the dynamic GEMM at the flagship projections' (N, K) for
-   M = 8, 256 and 4096, the weight-only GEMM at gemm_bench's (128, 8192,
+   288 (``flash_fwd_wide_kernel``), fp32 at D=64, over FULL, CAUSAL, a
+   window and sparse ranges, with "estimate" and a caller's bound (the
+   true row max + 5), at the flash gates, O's gap to the running-max
+   kernel logged; ``flash_attention_forward(row_max="estimate")`` at the
+   path's shape with its one launch; (c)
+   ``AttentionTuner.calibrate_gemm`` into the run's store: the dynamic
+   GEMM at the flagship projections' (N, K) for M = 8, 256 and 4096, the
+   weight-only GEMM at gemm_bench's (128, 8192,
    8192), the chosen plan against the cold start with both device times,
    ``recommend_gemm`` giving it back, and the GEMM launched under it held
    to its plain version (the dynamic one bit for bit); (d)
@@ -197,8 +201,10 @@ checkout, then, on the card:
    one seeded batch of 2 x 2049 tokens, the flash counts set to 0 just
    before and read after every step: exactly 8 forwards, 8 dQ and 8 dK/dV
    a step (and 8 merges of the split dK/dV where ``dkv_splits`` splits),
-   the loss falls, ms a step and tokens/s; with ``--parent`` the step
-   timed on the parent's kernels and this checkout's in turns; (c) the
+   the loss falls, ms a step and tokens/s, the host's span of each step's
+   call; 3 more steps under the profiler: the device's busy time a step
+   and its idle share; with ``--parent`` the step timed on the parent's
+   kernels and this checkout's in turns; (c) the
    same 8 steps twice more from the initial parameters, equal bit for bit
    after every step and at the end equal to (b)'s; (d) 3 steps,
    ``save_checkpoint`` (parameters and ``optimizer.state_dict()``;
@@ -625,11 +631,17 @@ DEVICE_KERNELS = {
     "flash_fwd_static_max": "flash_fwd_tc_kernel",
     "flash_dkv_merge": "flash_dkv_merge_kernel",
 }
-# The flash backward kernels at MLA's D = 288 (bf16) and what the record
-# says of them.
-WIDE_KERNELS = {"flash_dq": "flash_dq_wide_kernel",
+# The flash kernels at MLA's D = 288 (bf16) and what the record says of
+# them.
+WIDE_KERNELS = {"flash_fwd": "flash_fwd_wide_kernel",
+                "flash_dq": "flash_dq_wide_kernel",
                 "flash_dkv": "flash_dkv_wide_kernel"}
 WIDE_REDESIGNED = {
+    "flash_fwd": "bf16 mma.sync with tiles cut for D = 288: "
+                 "flash_fwd_tc_kernel's body (4 warps x 16 query rows, O's "
+                 "288 lanes in registers) over 32-key K / V tiles "
+                 "double-buffered by cp.async, 113,664 bytes of shared "
+                 "memory, two CTAs an SM",
     "flash_dq": "bf16 mma.sync with tiles cut for D = 288: Q and dO "
                 "resident, 32-key K / V tiles double-buffered by cp.async, "
                 "8 warps (16 keys x 144 lanes a warp)",
@@ -2958,29 +2970,48 @@ def check_mla_flash(rng):
     return errs
 
 
+def check_mla_static_max(rng):
+    """(b) The bf16 forward at D=288 in its static-max mode
+    (``flash_fwd_wide_kernel``'s STATIC_MAX instance) at mla_forward's B=2,
+    S=2048, causal, with "estimate"'s subtrahends and a caller's bound,
+    against its plain version on the same subtrahends → {mode: {o, l: (rel
+    err, max abs err), gap_running_max}}; raises past the flash gates."""
+    return {mode: check_static_max(
+        rng, "MLA latent (B=2 S=2048)", DEC_B, MLA_HQ, 1, DEC_S, MLA_D,
+        torch.bfloat16, masking.CAUSAL, mode)
+        for mode in ("estimate", "caller")}
+
+
 def check_wide_same_bits(rng):
-    """(b) The bf16 dQ and dK/dV at D=288 (the wide bodies; the dK/dV's
-    group split over CTAs and merged in split order) called twice on the
-    same inputs at mla_forward's B=2, S=2048: equal bit for bit; raises
-    otherwise.  → {"dq": True, "dkv": True, "dkv_splits": n}."""
+    """(b) The bf16 forward (both modes), dQ and dK/dV at D=288
+    (``flash_fwd_wide_kernel`` and the wide bodies; the dK/dV's group split
+    over CTAs and merged in split order) called twice on the same inputs at
+    mla_forward's B=2, S=2048: equal bit for bit; raises otherwise.  →
+    {"fwd": True, "fwd_row_max": True, "dq": True, "dkv": True,
+    "dkv_splits": n}."""
     q, k, v, do, _ = flash_inputs(rng, DEC_B, MLA_HQ, 1, DEC_S, DEC_S, MLA_D,
                                   torch.bfloat16)
     rr = row_ranges_tensor(masking.CAUSAL, DEC_S, DEC_S, None, DEV)
     kw = dict(scale=MLA_D ** -0.5)
-    o, lse = flash_fwd(q, k, v, rr, **kw)
+    fwd = [flash_fwd(q, k, v, rr, **kw) for _ in range(2)]
+    mx = static_row_max(q, k, masking.CAUSAL, rr, "estimate", MLA_D ** -0.5)
+    fwd_rm = [flash_fwd(q, k, v, rr, **kw, row_max=mx) for _ in range(2)]
+    o, lse = fwd[0]
     args = (q, k, v, do, lse, (do.float() * o).sum(-1), rr)
     dq = [flash_dq(*args, **kw)[0] for _ in range(2)]
     dkv = [flash_dkv(*args, **kw) for _ in range(2)]
     torch.cuda.synchronize()
-    same = {"dq": torch.equal(*dq),
+    same = {"fwd": all(torch.equal(a, b) for a, b in zip(*fwd)),
+            "fwd_row_max": all(torch.equal(a, b) for a, b in zip(*fwd_rm)),
+            "dq": torch.equal(*dq),
             "dkv": all(torch.equal(a, b) for a, b in zip(*dkv))}
     splits = fbwd.dkv_splits(torch.bfloat16, MLA_D, DEC_B, MLA_HQ, 1, DEC_S,
                              sm_count())
-    log(f"MLA D=288 bf16 dQ and dK/dV ({splits} splits), two calls bit for "
-        f"bit equal: " + json.dumps(same))
+    log(f"MLA D=288 bf16 forward, dQ and dK/dV ({splits} splits), two calls "
+        f"bit for bit equal: " + json.dumps(same))
     if not all(same.values()):
-        raise AssertionError(f"the wide backward bodies are not "
-                             f"deterministic: {same}")
+        raise AssertionError(f"the D=288 kernels are not deterministic: "
+                             f"{same}")
     return {**same, "dkv_splits": splits}
 
 
@@ -3348,6 +3379,7 @@ def run_mla(seed, dec_lens):
     with torch.inference_mode():
         out["paged_errors"] = check_mla_paged(rng)
         out["flash_errors"] = check_mla_flash(rng)
+        out["flash_static_max_errors"] = check_mla_static_max(rng)
         out["flash_same_bits"] = check_wide_same_bits(rng)
         out["int8_p_errors"] = check_int8_p_spans(rng)
         out["wo_errors"] = check_wo_gemm(rng)
@@ -3778,7 +3810,7 @@ MHA_SMALL = (
     ("gqa window", 8, 2, False, masking.sliding_window(96)),
 )
 # (b)'s widths past the path's at B=2, Hq=8, Hkv=2, S=300: bf16 at D =
-# 128, 256 and 288 (the scalar kernel), fp32 at D = 64.
+# 128, 256 and 288 (flash_fwd_wide_kernel), fp32 at D = 64.
 STATIC_SMALL = ((torch.bfloat16, 128), (torch.bfloat16, 256),
                 (torch.bfloat16, 288), (torch.float32, 64))
 # (c): the dynamic GEMM at the flagship projections' distinct (N, K) for
@@ -4144,9 +4176,11 @@ def check_mla_train_grads(cfg, params, rng):
 def run_mla_train(cfg, params, tokens):
     """(b) 8 Adam steps of ``mla_loss_fn`` on the bf16 model, the flash
     kernels' counts set to 0 just before and read after every step →
-    (launches per step, ms a step and tokens/s over steps 2-8, losses)."""
+    (launches per step, ms a step and tokens/s over steps 2-8, losses, the
+    host's span of each of steps 2-8 in ms: from the call of ``step`` until
+    it returns with its launches enqueued, before the synchronize)."""
     optimizer, step = mla_adam(cfg, params)
-    per_step, losses = [], []
+    per_step, losses, host_ms = [], [], []
     zero_flash_counts()
     t_first, t0 = 0.0, time.perf_counter()
     for i in range(MLA_TRAIN_STEPS):
@@ -4156,7 +4190,10 @@ def run_mla_train(cfg, params, tokens):
             t0 = time.perf_counter()
         before = flash_counts()
         merges = fbwd.merge_dkv_splits.launches
+        t_step = time.perf_counter()
         params, _, loss = step(params, optimizer.state, tokens)
+        if i:
+            host_ms.append((time.perf_counter() - t_step) * 1e3)
         torch.cuda.synchronize()
         per_step.append({k: v - before[k] for k, v in flash_counts().items()})
         per_step[-1]["flash_dkv_merge"] = (fbwd.merge_dkv_splits.launches
@@ -4167,8 +4204,9 @@ def run_mla_train(cfg, params, tokens):
     tps = (MLA_TRAIN_STEPS - 1) * MLA_TRAIN_BATCH * MLA_TRAIN_SEQ / wall
     log("MLA train losses: " + json.dumps(losses))
     log(f"MLA train: first step {t_first:.3f} s; steps 2-{MLA_TRAIN_STEPS} "
-        f"{wall:.3f} s, {ms:.1f} ms/step, {tps:.0f} tokens/s; launches per "
-        f"step {json.dumps(per_step[0])}")
+        f"{wall:.3f} s, {ms:.1f} ms/step, {tps:.0f} tokens/s; the host's "
+        f"span of each step (ms) {json.dumps(host_ms)}; launches per step "
+        f"{json.dumps(per_step[0])}")
     splits = fbwd.dkv_splits(cfg.dtype, cfg.latent_dim + cfg.rope_dim,
                              MLA_TRAIN_BATCH, cfg.num_heads, 1,
                              MLA_TRAIN_SEQ, sm_count())
@@ -4181,7 +4219,46 @@ def run_mla_train(cfg, params, tokens):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"MLA training did not lower the loss: "
                              f"{losses}")
-    return per_step[0], ms, tps, losses
+    return per_step[0], ms, tps, losses, host_ms
+
+
+def profile_mla_steps(cfg, params, tokens, steps=3):
+    """(b) Where (b)'s step time goes, in this process: on a copy of
+    ``params``, after one step to warm up, ``steps`` steps under the
+    profiler, each fenced by a synchronize as (b)'s are → {"wall_ms": the
+    profiled wall time a step, "host_ms": the host's span of each step's
+    call, "device_busy_ms": the device's busy time a step (its kernels'
+    and copies' time summed; not the host's annotated regions, which span
+    kernels), "device_idle_share": 1 - busy / wall}; busy
+    and idle None where the profiler recorded no device time."""
+    state = {"params": clone_params(params)}
+    optimizer, step = mla_adam(cfg, state["params"])
+
+    def run():
+        t0 = time.perf_counter()
+        state["params"], _, _ = step(state["params"], optimizer.state,
+                                     tokens)
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return host
+
+    run()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        host_ms = [run() for _ in range(steps)]
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  ) / 1e3 / steps or None
+    out = {"steps": steps, "wall_ms": wall_ms, "host_ms": host_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": busy_ms and 1.0 - busy_ms / wall_ms}
+    log("MLA train step profile (this process): " + json.dumps(out))
+    del state, optimizer
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_mla_step_turns(cfg, params, tokens):
@@ -4284,7 +4361,9 @@ def run_mla_training(seed):
     t = time.perf_counter()
     init = clone_params(params)
     (out["launches_per_step"], out["ms_per_step"], out["tokens_per_s"],
-     out["losses"]) = run_mla_train(cfg, params, tokens)
+     out["losses"], out["host_ms_per_step"]) = run_mla_train(cfg, params,
+                                                             tokens)
+    out["step_profile"] = profile_mla_steps(cfg, params, tokens)
     phase["mla_train"] = time.perf_counter() - t
     out["step_turns"] = time_mla_step_turns(cfg, params, tokens)
     t = time.perf_counter()
@@ -5473,6 +5552,12 @@ def main() -> int:
                 "redesigned_mla_d288": WIDE_REDESIGNED[name],
                 "bitwise_equal_two_calls_mla_d288": mla["flash_same_bits"][
                     name.split("_")[1]]} if name in WIDE_KERNELS else {}),
+            **({"rel_err_mla_d288_row_max": {
+                mode: max(e["o"][0], e["l"][0]) for mode, e in mla[
+                    "flash_static_max_errors"].items()},
+                "bitwise_equal_two_calls_mla_d288_row_max": mla[
+                    "flash_same_bits"]["fwd_row_max"]}
+               if name == "flash_fwd" else {}),
         })
     mt = mla["merge_times"]
     record["kernels"].append({
@@ -5800,7 +5885,8 @@ def main() -> int:
     record["mla_train"] = {
         key: mla_train[key] for key in (
             "ms_per_step", "tokens_per_s", "launches_per_step", "losses",
-            "grad_rel_l2_worst", "determinism", "checkpoint", "step_turns")}
+            "host_ms_per_step", "step_profile", "grad_rel_l2_worst",
+            "determinism", "checkpoint", "step_turns")}
     record["context_parallel"] = {
         "world": CP_WORLD, "transport": "gloo through host memory, every "
         "rank on cuda:0", **cp}

@@ -3,7 +3,8 @@
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
 //   - ops/flash_attention.py::_fwd_kernel         -> flash_fwd_tc_kernel
-//     (bf16 up to D = 256), flash_fwd_kernel (fp32, and bf16 at D = 288)
+//     (bf16 up to D = 256), flash_fwd_wide_kernel (bf16 at D = 288),
+//     flash_fwd_kernel (fp32)
 //   - ops/flash_attention_bwd.py::_dq_kernel      -> flash_dq_tc_kernel
 //     (bf16 up to D = 256), flash_dq_wide_kernel (bf16 at D = 288),
 //     flash_dq_kernel (fp32)
@@ -48,17 +49,17 @@
 //   mma.sync into fp32, operands staged by cp.async): flash_fwd_tc_kernel
 //   below, flash_dq_tc_kernel (attention_bwd.cuh::dq_tc_body) and
 //   flash_dkv_tc_kernel (attention_bwd.cuh::dkv_tc_body); so do the bf16
-//   dQ and dK/dV at MLA's D = 288, on bodies whose tiles are cut for that
-//   width (flash_dq_wide_kernel, flash_dkv_wide_kernel:
-//   attention_bwd.cuh::dq_wide_body, ::dkv_wide_body; the dK/dV's GQA group
-//   split over CTAs and summed by flash_dkv_merge_kernel).  fp32 stays on
-//   scalar fp32 FMAs (67 TFLOP/s peak): TF32 keeps ~3 digits and the fp32
-//   instances are held to 2e-5.  So does the bf16 forward at D = 288,
-//   where its accumulator (144 fp32 registers a thread beside S) would
-//   spill.  The scalar kernels use 256 threads on a 64 x 64 tile, 4 x 4
-//   scores per thread; operands are staged in shared memory as fp32,
-//   transposed ([D][64 + 4]) so a thread's four rows and four columns are
-//   16-byte vectors and the products read two vectors per 16 FMAs.
+//   forward, dQ and dK/dV at MLA's D = 288, with tiles cut for that width
+//   (flash_fwd_wide_kernel: the forward's body in 32-key tiles, two CTAs
+//   an SM; flash_dq_wide_kernel, flash_dkv_wide_kernel:
+//   attention_bwd.cuh::dq_wide_body, ::dkv_wide_body; the dK/dV's GQA
+//   group split over CTAs and summed by flash_dkv_merge_kernel).  fp32
+//   stays on scalar fp32 FMAs (67 TFLOP/s peak): TF32 keeps ~3 digits and
+//   the fp32 instances are held to 2e-5.  The scalar kernels use 256
+//   threads on a 64 x 64 tile, 4 x 4 scores per thread; operands are
+//   staged in shared memory as fp32, transposed ([D][64 + 4]) so a
+//   thread's four rows and four columns are 16-byte vectors and the
+//   products read two vectors per 16 FMAs.
 //   - forward: one CTA per (64 query rows, b, q head).  The TPU's sequential
 //     grid carried m, l and the accumulator from KV block to KV block; here
 //     one CTA loops over its KV tiles and keeps them in registers.  The CTA
@@ -111,7 +112,6 @@ namespace {
 using mfa::BM;
 using mfa::BN;
 using mfa::BwdArgs;
-using mfa::Elem;
 using mfa::LD;
 using mfa::LN2;
 using mfa::LOG2E;
@@ -133,17 +133,19 @@ constexpr size_t fwd_smem_floats() {
 // Forward
 // ---------------------------------------------------------------------------
 
-// Replaces ops/flash_attention.py::_fwd_kernel for fp32, and for bf16 at
-// D = 288 (flash_fwd_tc_kernel takes bf16 up to D = 256).  Bound:
-// operations (4*D per live query-key pair), not bytes; this scalar-FMA
-// version runs at a fraction of it.  One CTA per 64 query rows loops over
-// the live key tiles with m, l and the accumulator in registers.
-// STATIC_MAX: m is the caller's row_max, loaded once, and each tile only
-// adds to l and the accumulator (no row max, no rescale).
-template <typename T, int D, bool STATIC_MAX>
+// Replaces ops/flash_attention.py::_fwd_kernel for fp32 (every bf16
+// instance runs on the tensor cores: flash_fwd_tc_kernel,
+// flash_fwd_wide_kernel).  Bound: operations (4*D per live query-key
+// pair), not bytes; this scalar-FMA version runs at a fraction of it.  One
+// CTA per 64 query rows loops over the live key tiles with m, l and the
+// accumulator in registers.  STATIC_MAX: m is the caller's row_max, loaded
+// once, and each tile only adds to l and the accumulator (no row max, no
+// rescale).
+template <int D, bool STATIC_MAX>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int32_t* __restrict__ ranges,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const int32_t* __restrict__ ranges,
                  const float* __restrict__ bias, long long bias_sb,
                  long long bias_sh, float* __restrict__ o,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
@@ -165,12 +167,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid % 16;
   const int ty = tid / 16;
   const size_t bh = (size_t)b * Hq + h;
-  const T* kh = k + ((size_t)b * Hkv + hk) * Skv * D;
-  const T* vh = v + ((size_t)b * Hkv + hk) * Skv * D;
+  const float* kh = k + ((size_t)b * Hkv + hk) * Skv * D;
+  const float* vh = v + ((size_t)b * Hkv + hk) * Skv * D;
   const float* bh_bias =
       bias ? bias + b * bias_sb + h * bias_sh : nullptr;
 
-  stage_t<T, D, true>(q + bh * Sq * D, r0, Sq, qt, qscale);
+  stage_t<float, D, true>(q + bh * Sq * D, r0, Sq, qt, qscale);
   key_span(ranges, r0, Sq, Skv, &s_lo, &s_hi);  // syncs: Q^T staged too
   const int c_lo = s_lo;
   const int c_hi = s_hi;
@@ -188,12 +190,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int t0 = c_lo; t0 < c_hi; t0 += BN) {
-    stage_t<T, D, false>(kh, t0, c_hi, kvt, 0.f);
+    stage_t<float, D, false>(kh, t0, c_hi, kvt, 0.f);
     __syncthreads();
     float s[4][4];
     tile_product<D>(qt, ty, kvt, tx, s);
     __syncthreads();  // every thread is done with K^T
-    stage_t<T, D, false>(vh, t0, c_hi, kvt, 0.f);
+    stage_t<float, D, false>(vh, t0, c_hi, kvt, 0.f);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -222,7 +224,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p =
             (s[i][j] == -INFINITY) ? 0.f : exp2f(s[i][j] - m_next);
         sum += p;
-        s[i][j] = Elem<T>::round(p);
+        s[i][j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -256,7 +258,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The forward on the tensor cores: the bf16 instances up to D = 256.
+// The forward on the tensor cores: every bf16 instance.
 //
 // FlashAttention-2's forward on mma.sync.  One CTA per (64 query rows, b,
 // q head), as flash_fwd_kernel, with 4 warps of 16 query rows each: no
@@ -265,15 +267,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // fragment row.
 //   1. Q's rows arrive once by cp.async and are scaled in shared memory,
 //      x -> round_bf16(x * qscale), bit for bit as stage_t<T, D, true>.
-//   2. The CTA walks its live key span [c_lo, c_hi) in 64-key tiles
-//      aligned to multiples of 64 from key 0 (flash_fwd_kernel's start at
-//      c_lo); cp.async brings the next tile's K and V rows into the other
-//      of two buffers while this one runs.  The plain version is one pass
-//      over each row's final max, so only P's bf16 rounding against the
-//      running max differs with the tile boundaries, which the bf16 gate
-//      already covers.
+//   2. The CTA walks its live key span [c_lo, c_hi) in tiles of KS keys
+//      (FwdTcSmem: 64, 32 at D = 288) aligned to multiples of KS from key
+//      0 (flash_fwd_kernel's start at c_lo); cp.async brings the next
+//      tile's K and V rows into the other of two buffers while this one
+//      runs.  The plain version is one pass over each row's final max, so
+//      only P's bf16 rounding against the running max differs with the
+//      tile boundaries, which the bf16 gate already covers.
 //   3. S = Q_s.K^T by bf16 m16n8k16 into fp32 (mma_nt; Q by ldmatrix from
-//      shared memory each tile, which keeps D = 256 in registers).
+//      shared memory each tile, which keeps D = 288 in registers).
 //   4. The scalar kernel's element-wise steps in its order on the
 //      fragments: bias * log2(e) (a float2 a fragment pair where aligned),
 //      masked scores set to mask_value, the running max, exp2, l summing
@@ -294,47 +296,81 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // first (under a causal mask the last walk the most keys).  Shared memory
 // is Q plus two buffers each of K and V: 5 x 64 rows, 165 KB at D = 256
 // (one CTA an SM), 85 KB at D = 128, 45 KB at D = 64.
+//
+// flash_fwd_wide_kernel: the same body at MLA's D = 288 (fwd_wide), its
+// tiles cut for that width.  The function is the one above, at the same
+// rounding points, for any K and V (no zero tail of V and no lanes shared
+// by K and V are assumed).
+//   - Registers.  4 warps x 16 rows hold O's 16 x 288 fp32 in 144
+//     registers a thread.  64-key tiles would add S's 32 and the products'
+//     fragments (flash_fwd_tc_kernel at D = 256, 128 + 32, already takes
+//     245 / 253); 32-key tiles hold S at 16: -Xptxas -v on sm_90a reports
+//     243 registers (251 with STATIC_MAX), no spill, no stack frame.
+//   - Shared memory.  Q (64 rows, 37,888 bytes) and two buffers each of 32
+//     K and 32 V rows (75,776): 113,664 bytes, so two CTAs share an SM's
+//     228 KB (8 warps; __launch_bounds__ asks for 2), where the 64-key
+//     layout (189,440) left one CTA of 4 warps.
+//   - Not taken: O's lanes split over 8 warps (dq_wide_body's way), each
+//     pair of warps splitting a tile's keys.  Its row max and row sum would
+//     cross warps through shared memory and P would go there as a bf16
+//     tile: two more barriers a tile, for about the same ldmatrix traffic
+//     per key (reckoned: Q's 18 fragments a warp a tile, K's, V's and P's;
+//     not measured).
+//   - The grid stays one CTA per (64 query rows, b, q head): 1,024 CTAs at
+//     MLA's training shape (B=2, Hq=16, S=2048), ~4 waves of 264.
 // ---------------------------------------------------------------------------
 
-// Whether the forward of T at head dim D runs flash_fwd_tc_kernel (else
-// flash_fwd_kernel); ops/flash_attention.py::fwd_body answers the same.
+// Whether the forward of T at head dim D runs on the tensor cores (every
+// bf16 width: flash_fwd_tc_kernel, or flash_fwd_wide_kernel where
+// fwd_wide), else flash_fwd_kernel; ops/flash_attention.py::fwd_body
+// answers the same.
 template <typename T, int D>
 constexpr bool fwd_tc() {
-  return std::is_same<T, __nv_bfloat16>::value && D <= 256;
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
+// Whether a tensor-core forward at head dim D takes flash_fwd_wide_kernel
+// (MLA's 288), whose tiles are cut for that width.
+template <int D>
+constexpr bool fwd_wide() {
+  return D > 256;
 }
 
 constexpr int FWD_TC_THREADS = 128;  // 4 warps x 16 query rows
 
-// Byte offsets of flash_fwd_tc_kernel's shared memory.
+// Byte offsets of the tensor-core forward's shared memory.
 template <int D>
 struct FwdTcSmem {
+  static constexpr int KS = fwd_wide<D>() ? 32 : BN;  // keys a tile
   static constexpr int ROW = 2 * D + 16;  // a bf16 row [.., D]
-  static constexpr int TILE = BN * ROW;   // 64 rows
+  static constexpr int QTILE = BM * ROW;  // 64 query rows
+  static constexpr int KTILE = KS * ROW;  // KS keys
   static constexpr int Q = 0;
-  static constexpr int K = TILE;      // two buffers
-  static constexpr int V = 3 * TILE;  // two buffers
-  static constexpr size_t BYTES = 5 * (size_t)TILE;
+  static constexpr int K = QTILE;            // two buffers
+  static constexpr int V = K + 2 * KTILE;    // two buffers
+  static constexpr size_t BYTES = V + 2 * (size_t)KTILE;
+  static_assert(KS % 16 == 0 && D % 16 == 0,
+                "S's keys and O's lanes are whole 16-wide steps");
 };
 
-// Replaces ops/flash_attention.py::_fwd_kernel for bf16 up to D = 256.
-// Bound: tensor-core operations (4*D per live query-key pair).
-// STATIC_MAX: each fragment row's m is the caller's row_max, loaded once;
-// a tile skips step 4's running max, alpha and the rescale of l and O (and
-// the warp vote that skips it), so only l += sum(p) and O += P.V remain.
+// The tensor-core forward's body (the kernels below wrap it).  Bound:
+// tensor-core operations (4*D per live query-key pair).  STATIC_MAX: each
+// fragment row's m is the caller's row_max, loaded once; a tile skips step
+// 4's running max, alpha and the rescale of l and O (and the warp vote
+// that skips it), so only l += sum(p) and O += P.V remain.
 template <int D, bool STATIC_MAX>
-__global__ void __launch_bounds__(FWD_TC_THREADS)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const int32_t* __restrict__ ranges,
-                    const float* __restrict__ bias, long long bias_sb,
-                    long long bias_sh, float* __restrict__ o,
-                    float* __restrict__ lse, int Hq, int Hkv, int Sq,
-                    int Skv, int interleaved, float qscale,
-                    float mask_value, const float* __restrict__ row_max) {
+__device__ __forceinline__ void fwd_tc_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ ranges,
+    const float* __restrict__ bias, long long bias_sb, long long bias_sh,
+    float* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv, int Sq,
+    int Skv, int interleaved, float qscale, float mask_value,
+    const float* __restrict__ row_max) {
   using L = FwdTcSmem<D>;
   constexpr int NT = FWD_TC_THREADS;
-  constexpr int NB = D / 8;  // 8-lane blocks of O
+  constexpr int KS = L::KS;
+  constexpr int NKB = KS / 8;  // 8-key blocks of S
+  constexpr int NB = D / 8;    // 8-lane blocks of O
   extern __shared__ __align__(16) uint8_t smem_fwd[];
   __shared__ int s_lo, s_hi;
 
@@ -358,12 +394,12 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   key_span(ranges, r0, Sq, Skv, &s_lo, &s_hi);
   const int c_hi = s_hi;
   auto prefetch = [&](int t0, int buf) {
-    mfa::stage_rows_async<D, L::ROW, NT>(kh, t0, c_hi,
-                                         smem_fwd + L::K + buf * L::TILE);
-    mfa::stage_rows_async<D, L::ROW, NT>(vh, t0, c_hi,
-                                         smem_fwd + L::V + buf * L::TILE);
+    mfa::stage_rows_async<D, L::ROW, NT, KS>(
+        kh, t0, c_hi, smem_fwd + L::K + buf * L::KTILE);
+    mfa::stage_rows_async<D, L::ROW, NT, KS>(
+        vh, t0, c_hi, smem_fwd + L::V + buf * L::KTILE);
   };
-  int t0 = (s_lo / BN) * BN;
+  int t0 = (s_lo / KS) * KS;
   if (t0 < c_hi) prefetch(t0, 0);
   mfa::cp_async_commit();
   mfa::cp_async_wait<1>();
@@ -394,27 +430,27 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     live_hi = min(live_hi, __shfl_xor_sync(0xffffffffu, live_hi, off));
   }
 
-  for (int buf = 0; t0 < c_hi; t0 += BN, buf ^= 1) {
+  for (int buf = 0; t0 < c_hi; t0 += KS, buf ^= 1) {
     mfa::cp_async_wait<0>();
     __syncthreads();  // this tile staged, Q scaled; the last tile's readers
                       // done with the other buffer
-    if (t0 + BN < c_hi) prefetch(t0 + BN, buf ^ 1);
+    if (t0 + KS < c_hi) prefetch(t0 + KS, buf ^ 1);
     mfa::cp_async_commit();
-    const uint8_t* sk = smem_fwd + L::K + buf * L::TILE;
-    const uint8_t* sv = smem_fwd + L::V + buf * L::TILE;
+    const uint8_t* sk = smem_fwd + L::K + buf * L::KTILE;
+    const uint8_t* sv = smem_fwd + L::V + buf * L::KTILE;
 
-    // S = Q_s.K^T for this warp's 16 rows and the tile's 64 keys: element
+    // S = Q_s.K^T for this warp's 16 rows and the tile's KS keys: element
     // (row[i], key t0 + 8j + 2tq + c) at s[j][2i + c].
-    float s[8][4];
+    float s[NKB][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NKB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    mfa::mma_nt<D / 16, 8, L::ROW, L::ROW>(sq, warp * 16, sk, 0, s);
+    mfa::mma_nt<D / 16, NKB, L::ROW, L::ROW>(sq, warp * 16, sk, 0, s);
 
     if (bh_bias) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NKB; ++j) {
         const int col = t0 + 8 * j + 2 * tq;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -433,17 +469,17 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     float mx[2] = {-INFINITY, -INFINITY};
-    if (t0 >= live_lo && t0 + BN <= live_hi) {
+    if (t0 >= live_lo && t0 + KS <= live_hi) {
       if constexpr (!STATIC_MAX) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NKB; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NKB; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int col = t0 + 8 * j + 2 * tq + c;
@@ -472,7 +508,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const float mref[2] = {m_next[0] == -INFINITY ? 0.f : m_next[0],
                            m_next[1] == -INFINITY ? 0.f : m_next[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NKB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = mfa::ex2_approx(s[j][e] - mref[e >> 1]);
@@ -501,7 +537,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // O += P.V, 16 keys a step, P's A fragment from the S fragments,
     // rounded to bf16 two at a time (cvt.rn.bf16x2).
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KS / 16; ++kk) {
       const int j = 2 * kk;
       const uint32_t pa[4] = {mfa::pack_bf16(s[j][0], s[j][1]),
                               mfa::pack_bf16(s[j][2], s[j][3]),
@@ -525,6 +561,47 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if (tq == 0)
       lse[bh * Sq + row[i]] = live ? m[i] * LN2 + logf(l[i]) : -INFINITY;
   }
+}
+
+// Replaces ops/flash_attention.py::_fwd_kernel for bf16 up to D = 256.
+// Two kernels wrap fwd_tc_body only because __launch_bounds__ takes its
+// CTAs an SM as an explicit minimum, and no one value serves every width:
+// a minimum of one raises the D <= 128 instances' registers over the ones
+// ptxas picks with none (D = 64: 146 against 127, D = 128: 178 against
+// 166), and minima at those occupancies spill (D = 64 at four: 128
+// registers and a 16-byte spill); -Xptxas -v on sm_90a.
+template <int D, bool STATIC_MAX>
+__global__ void __launch_bounds__(FWD_TC_THREADS)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const int32_t* __restrict__ ranges,
+                    const float* __restrict__ bias, long long bias_sb,
+                    long long bias_sh, float* __restrict__ o,
+                    float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                    int Skv, int interleaved, float qscale,
+                    float mask_value, const float* __restrict__ row_max) {
+  fwd_tc_body<D, STATIC_MAX>(q, k, v, ranges, bias, bias_sb, bias_sh, o,
+                             lse, Hq, Hkv, Sq, Skv, interleaved, qscale,
+                             mask_value, row_max);
+}
+
+// Replaces ops/flash_attention.py::_fwd_kernel for bf16 at D = 288
+// (fwd_wide): 32-key tiles, two CTAs an SM.
+template <int D, bool STATIC_MAX>
+__global__ void __launch_bounds__(FWD_TC_THREADS, 2)
+flash_fwd_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const int32_t* __restrict__ ranges,
+                      const float* __restrict__ bias, long long bias_sb,
+                      long long bias_sh, float* __restrict__ o,
+                      float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                      int Skv, int interleaved, float qscale,
+                      float mask_value, const float* __restrict__ row_max) {
+  fwd_tc_body<D, STATIC_MAX>(q, k, v, ranges, bias, bias_sb, bias_sh, o,
+                             lse, Hq, Hkv, Sq, Skv, interleaved, qscale,
+                             mask_value, row_max);
 }
 
 // ---------------------------------------------------------------------------
@@ -645,8 +722,8 @@ struct Shape {
 };
 
 // The forward of T at head dim D: flash_fwd_tc_kernel where fwd_tc says
-// so, else flash_fwd_kernel; their STATIC_MAX instances where row_max is
-// given.
+// so (flash_fwd_wide_kernel where fwd_wide too), else flash_fwd_kernel;
+// their STATIC_MAX instances where row_max is given.
 template <typename T, int D, bool STATIC_MAX>
 int launch_fwd_mode(const void* q, const void* k, const void* v,
                     const void* ranges, const void* bias, long long sb,
@@ -659,20 +736,22 @@ int launch_fwd_mode(const void* q, const void* k, const void* v,
   auto* op = static_cast<float*>(o);
   auto* lp = static_cast<float*>(lse);
   const auto* mp = static_cast<const float*>(row_max);
-  if constexpr (fwd_tc<T, D>())
-    return launch_with_smem(
-        flash_fwd_tc_kernel<D, STATIC_MAX>, grid, FWD_TC_THREADS,
-        FwdTcSmem<D>::BYTES, stream, static_cast<const T*>(q),
-        static_cast<const T*>(k), static_cast<const T*>(v), rr, bp, sb, sh,
-        op, lp, sp.Hq, sp.Hkv, sp.Sq, sp.Skv, sp.interleaved, qscale,
-        mask_value, mp);
-  else
-    return launch_with_smem(
-        flash_fwd_kernel<T, D, STATIC_MAX>, grid, THREADS,
-        fwd_smem_floats<D>() * sizeof(float), stream,
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), rr, bp, sb, sh, op, lp, sp.Hq, sp.Hkv,
-        sp.Sq, sp.Skv, sp.interleaved, qscale, mask_value, mp);
+  const auto launch = [&](auto kern, int threads, size_t smem) {
+    return launch_with_smem(kern, grid, threads, smem, stream,
+                            static_cast<const T*>(q), static_cast<const T*>(k),
+                            static_cast<const T*>(v), rr, bp, sb, sh, op, lp,
+                            sp.Hq, sp.Hkv, sp.Sq, sp.Skv, sp.interleaved,
+                            qscale, mask_value, mp);
+  };
+  if constexpr (fwd_tc<T, D>() && fwd_wide<D>())
+    return launch(flash_fwd_wide_kernel<D, STATIC_MAX>, FWD_TC_THREADS,
+                  FwdTcSmem<D>::BYTES);
+  else if constexpr (fwd_tc<T, D>())
+    return launch(flash_fwd_tc_kernel<D, STATIC_MAX>, FWD_TC_THREADS,
+                  FwdTcSmem<D>::BYTES);
+  else  // T = float
+    return launch(flash_fwd_kernel<D, STATIC_MAX>, THREADS,
+                  fwd_smem_floats<D>() * sizeof(float));
 }
 
 template <typename T, int D>
@@ -849,9 +928,9 @@ int mfa_flash_dkv_merge(const void* ws, void* dk, void* dv, int splits,
 
 // Which of the forward (bit 0), dQ (bit 1) and dK/dV (bit 2) kernels of
 // dtype at the built head dim D run on the tensor cores (fwd_tc, dq_tc,
-// dkv_tc: at D = 288 the dQ and dK/dV on the wide bodies; the quantized
-// launchers route by dq_tc and dkv_tc too, up to D = 256); -1 for a dtype
-// or head dim without kernels.
+// dkv_tc: at D = 288 the forward on flash_fwd_wide_kernel, the dQ and
+// dK/dV on the wide bodies; the quantized launchers route by dq_tc and
+// dkv_tc too, up to D = 256); -1 for a dtype or head dim without kernels.
 int mfa_flash_tc_bodies(int dtype, int D) {
 #define MFA_BODIES(T, DD)                                          \
   if (D == DD)                                                     \
@@ -874,7 +953,8 @@ int mfa_flash_tc_bodies(int dtype, int D) {
 }
 
 // Which forward kernel the static-max mode (mfa_flash_fwd with row_max)
-// runs for dtype at the built head dim D: 1 flash_fwd_tc_kernel, 0
+// runs for dtype at the built head dim D: 1 the tensor cores
+// (flash_fwd_tc_kernel, or flash_fwd_wide_kernel at D = 288), 0
 // flash_fwd_kernel, -1 none (ops/flash_attention.py::fwd_body answers the
 // same for both modes).
 int mfa_flash_static_max_body(int dtype, int D) {

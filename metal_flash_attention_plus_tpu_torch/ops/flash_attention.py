@@ -6,8 +6,9 @@ logsumexp, the whole mask zoo through per-row ``[start, end)`` ranges, an
 additive bias, grouped or interleaved GQA, and the static-max softmax
 (``row_max``: a per-row subtrahend in place of the running max, from
 :func:`estimate_row_max_scaled` or the caller).  The TPU kernel
-``_fwd_kernel`` becomes ``csrc/flash_attention.cu::flash_fwd_tc_kernel``
-and ``::flash_fwd_kernel``, each in both modes, behind :func:`flash_fwd`;
+``_fwd_kernel`` becomes ``csrc/flash_attention.cu::flash_fwd_tc_kernel``,
+``::flash_fwd_wide_kernel`` and ``::flash_fwd_kernel``, each in both
+modes, behind :func:`flash_fwd`;
 the TPU-only schedules (packed, flat, wavefront,
 lean, two-level, the ones-fused rowsum, lane-replicated statistics, the
 Mosaic guard) have no counterpart: on Hopper one ``[Sq, 2]`` int32 table
@@ -68,10 +69,11 @@ class BlockSizes:
     """Sequence-tile sizes, kept so that a ``TransformerConfig`` carries
     across from the JAX package with the same fields and checks.
 
-    The Hopper kernels pick their own tiles (64 query rows × 64 keys) and
-    read none of these; they tune the TPU's Pallas grids in the JAX
-    package.  ``block_*_major`` is a multiple of its inner tile (0 → equal
-    to it); every other field is a multiple of 128.
+    The Hopper kernels pick their own tiles (64 query rows × 64 keys;
+    fewer keys at D = 288) and read none of these; they tune the TPU's
+    Pallas grids in the JAX package.  ``block_*_major`` is a multiple of
+    its inner tile (0 → equal to it); every other field is a multiple of
+    128.
     """
 
     block_q: int = 512
@@ -277,15 +279,16 @@ def flash_width(d: int) -> int:
 
 def fwd_body(dtype: torch.dtype, d: int) -> str:
     """Which forward kernel :func:`flash_fwd` launches for a Q of ``dtype``
-    at head dim ``d``: "tensor_core" (``flash_fwd_tc_kernel``: bf16
-    mma.sync) for bf16 at a kernel width up to 256, "fp32_fma"
-    (``flash_fwd_kernel``: scalar fp32 FMAs) for fp32, whose 2e-5 gate TF32
-    would break, and for bf16 at MLA's width 288, whose fp32 accumulator
-    (144 registers a thread beside S) would spill.  The C launcher routes
-    the same way (``fwd_tc`` in ``csrc/flash_attention.cu``)."""
-    if dtype == torch.bfloat16 and flash_width(d) <= 256:
-        return "tensor_core"
-    return "fp32_fma"
+    at head dim ``d``: "tensor_core" (bf16 mma.sync) for bf16 at every
+    kernel width, ``flash_fwd_tc_kernel`` up to 256 and
+    ``flash_fwd_wide_kernel`` (32-key tiles, two CTAs an SM) at MLA's
+    width 288; "fp32_fma" (``flash_fwd_kernel``: scalar fp32 FMAs) for
+    fp32, whose 2e-5 gate TF32 would break.  The same answer as
+    :func:`~.flash_attention_bwd.dq_body` and ``dkv_body``; the C launcher
+    routes the same way (``fwd_tc``, ``fwd_wide`` in
+    ``csrc/flash_attention.cu``)."""
+    flash_width(d)  # raises past the widest kernel
+    return "tensor_core" if dtype == torch.bfloat16 else "fp32_fma"
 
 
 def pad_lanes(width: int, *tensors: torch.Tensor):
@@ -484,9 +487,10 @@ def flash_fwd(
     ``bias`` is fp32 [1 or B, 1 or Hq, Sq, Skv]; ``row_max``, for the
     static-max mode, fp32 [B, Hq, Sq] subtrahends in base 2 (no bias).  CPU
     tensors take :func:`flash_attention_forward_plain`; CUDA tensors launch
-    the kernel :func:`fwd_body` names (``flash_fwd_tc_kernel`` or
-    ``flash_fwd_kernel``, in the static-max mode where ``row_max`` is
-    given) at the head dim's :func:`flash_width`, or raise.
+    the kernel :func:`fwd_body` names (``flash_fwd_tc_kernel``,
+    ``flash_fwd_wide_kernel`` or ``flash_fwd_kernel``, in the static-max
+    mode where ``row_max`` is given) at the head dim's
+    :func:`flash_width`, or raise.
     """
     if row_max is not None and bias is not None:
         raise ValueError("row_max is incompatible with bias")

@@ -31,7 +31,8 @@ from metal_flash_attention_plus_tpu_torch import _build
 # The kernels each C entry point of the kernel library may launch
 # (tests/test_torch_checkpoint_debug.py holds the table to csrc/).
 ENTRY_KERNELS: Dict[str, Tuple[str, ...]] = {
-    "mfa_flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_kernel"),
+    "mfa_flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_wide_kernel",
+                      "flash_fwd_kernel"),
     "mfa_flash_dq": ("flash_dq_tc_kernel", "flash_dq_wide_kernel",
                      "flash_dq_kernel"),
     "mfa_flash_dkv": ("flash_dkv_tc_kernel", "flash_dkv_wide_kernel",

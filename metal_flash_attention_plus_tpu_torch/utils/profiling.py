@@ -312,10 +312,14 @@ def serve_once(cfg, params, seed: int, quantized_cache=False,
 
 
 def kernel_table(prof, top: int = 15):
-    """(total device µs, kernel launches, [(name, µs, count)] ranked)."""
+    """(total device µs, kernel launches, [(name, µs, count)] ranked).
+    A region that the host annotates (``Optimizer.step#Adam.step``) also
+    shows on the device's timeline, over kernels that are counted on their
+    own, so it is left out."""
     by_name = defaultdict(lambda: [0.0, 0])
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
+        if (evt.device_type == DeviceType.CUDA and evt.self_device_time_total
+                and not getattr(evt, "is_user_annotation", False)):
             by_name[evt.key][0] += evt.self_device_time_total
             by_name[evt.key][1] += evt.count
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])

@@ -346,20 +346,16 @@ def test_dkv_body_follows_dtype_and_kernel_width(dtype, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288])
 def test_fwd_body_follows_dtype_and_kernel_width(dtype, d):
-    """The flash forward launches the tensor-core kernel for bf16 at a
-    kernel width up to 256 (48 runs at 64, 80 at 128) and the fp32-FMA
-    kernel for fp32 and for MLA's width 288 (272 runs at 288), as the C
-    launcher routes.  It picks the same body as the dK/dV kernels up to
-    256; at 288 the bf16 dK/dV runs on the tensor cores and the forward
-    does not."""
-    tensor_core = dtype == torch.bfloat16 and d <= 256
+    """The flash forward launches a tensor-core kernel for bf16 at every
+    kernel width (48 runs at 64, 80 at 128; up to 256
+    ``flash_fwd_tc_kernel``, at MLA's 288 ``flash_fwd_wide_kernel``, 272
+    running at 288) and the fp32-FMA kernel for fp32, as the C launcher
+    routes.  It picks the same body as the dQ and dK/dV kernels at
+    every width."""
     assert tfa.fwd_body(dtype, d) == (
-        "tensor_core" if tensor_core else "fp32_fma")
-    if d <= 256:
-        assert tfa.fwd_body(dtype, d) == fbwd.dkv_body(dtype, d)
-    else:
-        assert fbwd.dkv_body(dtype, d) == (
-            "tensor_core" if dtype == torch.bfloat16 else "fp32_fma")
+        "tensor_core" if dtype == torch.bfloat16 else "fp32_fma")
+    assert tfa.fwd_body(dtype, d) == fbwd.dkv_body(dtype, d)
+    assert tfa.fwd_body(dtype, d) == fbwd.dq_body(dtype, d)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

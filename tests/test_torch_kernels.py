@@ -35,10 +35,11 @@ modes of the paged kernels (one-state latent pages, ``v_tail_zero``,
 D = 80 and 288, Hq = 16 over Hkv = 1) and of the flash kernels (D = 80 and
 288) take their kernels' tolerances.  The paged decode splits the KV axis
 across CTAs and merges the splits in a fixed order, so two calls on the
-same inputs are held equal bit for bit; so are the bf16 dQ and dK/dV at
-D = 288 (the wide bodies; the dK/dV's GQA group split over CTAs and
-merged in split order, the merge kernel bit for bit with its plain
-version), which take the flash kernels' bf16 tolerance.  The flash
+same inputs are held equal bit for bit; so are the bf16 forward, dQ and
+dK/dV at D = 288 (``flash_fwd_wide_kernel`` in both of its modes and the
+wide bodies; the dK/dV's GQA group split over CTAs and merged in split
+order, the merge kernel bit for bit with its plain version), which take
+the flash kernels' bf16 tolerances.  The flash
 forward's static-max mode (``row_max``) takes the flash forward's
 tolerances, the kernel and the plain version given the same subtrahends;
 the dynamic GEMM under a stored plan stays bit for bit, and the
@@ -471,6 +472,45 @@ def test_flash_wide_bodies_match_plain(cuda_device, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["running_max", "row_max"])
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_flash_wide_forward_matches_plain(cuda_device, name, mode):
+    """The bf16 forward at D = 288 (272 runs at 288) on the tensor cores
+    (``flash_fwd_wide_kernel``) against its plain version over the wide
+    bodies' cases, with the running max and with a caller's ``row_max``
+    (the true row max + 5; that mode takes no bias, so the bias cases run
+    there without theirs): O's max abs over the plain's at the bf16 gate,
+    L at the lse gate, -inf exactly where the plain has it; one launch a
+    call; two calls equal bit for bit."""
+    b, hq, hkv, sq, skv, d, mask, ranges, bias_shape, inter = WIDE_CASES[
+        name]
+    static = mode == "row_max"
+    (q, k, v), _, bias, rr = _flash_case(
+        cuda_device, torch.bfloat16, b, hq, hkv, sq, skv, d, mask, ranges,
+        None if static else bias_shape, seed=len(name))
+    assert fwd_body(q.dtype, d) == "tensor_core"
+    scale = d ** -0.5
+    kw = dict(bias=bias, scale=scale, interleaved_kv=inter)
+    if static:
+        kw["row_max"] = _static_row_max(q, k, mask, rr, "caller", scale, hq,
+                                        hkv, interleaved=inter)
+    runs = []
+    for _ in range(2):
+        n = flash_fwd.launches
+        runs.append(flash_fwd(q, k, v, rr, **kw))
+        torch.cuda.synchronize()
+        assert flash_fwd.launches == n + 1, name
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, **kw)
+    o, lse = runs[0]
+    assert o.dtype == torch.float32 and o.shape == o_ref.shape == q.shape
+    assert lse.shape == l_ref.shape == q.shape[:3]
+    assert torch.isfinite(o).all(), name
+    assert _rel(o, o_ref) <= BF16_TOL, name
+    assert _rel(lse, l_ref) <= TOLERANCES["lse"], name
+    assert all(torch.equal(x, y) for x, y in zip(*runs)), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("splits,shape", [(8, (2, 1, 2048, 288)),
                                           (3, (1, 2, 131, 288)),
                                           (1, (1, 1, 64, 288))])
@@ -492,11 +532,11 @@ def test_dkv_merge_kernel_matches_plain_bit_for_bit(cuda_device, splits,
 
 @pytest.mark.cuda
 def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
-    """The C launchers' routing (mfa::fwd_tc, dq_tc, dkv_tc, as the
+    """The C launchers' routing (fwd_tc, mfa::dq_tc, dkv_tc, as the
     library reports it) agrees with fwd_body / dq_body / dkv_body at every
-    built width: the bf16 forward up to 256 on the tensor cores, the bf16
-    dQ and dK/dV at every width (288 on the wide bodies), fp32 and the
-    bf16 forward at D = 288 on the scalar bodies."""
+    built width: the bf16 forward, dQ and dK/dV at every width on the
+    tensor cores (288 on flash_fwd_wide_kernel and the wide bodies), fp32
+    on the scalar bodies."""
     import ctypes
 
     from metal_flash_attention_plus_tpu_torch import _build
@@ -514,7 +554,7 @@ def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
                 fwd_body, fbwd.dq_body, fbwd.dkv_body)]
             assert [bool(bits >> i & 1) for i in range(3)] == want, (dtype, d)
             bf16 = dtype == torch.bfloat16
-            assert want == [bf16 and d <= 256, bf16, bf16]
+            assert want == [bf16, bf16, bf16]
     assert bodies(DTYPE_CODES[torch.bfloat16], 48) == -1
 
 
@@ -2098,19 +2138,22 @@ STATIC_MASKS = {
 }
 
 
-def _static_row_max(q, k, mask, rr, mode, scale, hq, hkv):
+def _static_row_max(q, k, mask, rr, mode, scale, hq, hkv,
+                    interleaved=False):
     """The base-2 subtrahends flash_attention_forward hands the kernel:
     "estimate"'s, or a caller's bound (the true row max + 5, natural
-    units) times log2(e)."""
+    units) times log2(e); q head h reads kv head h // (hq // hkv), or
+    h % hkv where ``interleaved``."""
     group = hq // hkv
+    heads = [h % hkv if interleaved else h // group for h in range(hq)]
     if mode == "estimate":
         sparse = mask.kind == masking.MaskKind.SPARSE_RANGES
         return estimate_row_max_scaled(
             (q.float() * (scale * LOG2E)).to(q.dtype), k, mask,
             row_ranges=rr if sparse else None,
-            kv_head_of=lambda h: h // group, seq_q=q.shape[2],
+            kv_head_of=lambda h: heads[h], seq_q=q.shape[2],
             seq_kv=k.shape[2]).contiguous()
-    kx = k.float().repeat_interleave(group, dim=1)
+    kx = k.float()[:, heads]
     s = scale * (q.float() @ kx.transpose(-1, -2))
     return ((s.amax(-1) + 5.0) * LOG2E).contiguous()
 
@@ -2176,6 +2219,8 @@ def test_static_max_body_is_the_forward_body(cuda_device):
     for dtype, code in DTYPE_CODES.items():
         for d in (32, 64, 128, 256, 288):
             assert fn(code, d) == int(fwd_body(dtype, d) == "tensor_core")
+    assert fn(DTYPE_CODES[torch.bfloat16], 288) == 1  # flash_fwd_wide_kernel
+    assert fn(DTYPE_CODES[torch.float32], 288) == 0
     assert fn(1, 40) == -1
 
 

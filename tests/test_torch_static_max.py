@@ -58,6 +58,9 @@ CASES = {
         1, 2, 1, 150, 150, 16,
         (tm.MaskSpec(tm.MaskKind.SPARSE_RANGES),
          jm.MaskSpec(jm.MaskKind.SPARSE_RANGES), _segments(150)), False),
+    # MLA's latent attention: 16 query heads over one KV head at D = 288.
+    "mla_d288": (1, 16, 1, 128, 128, 288, (tm.CAUSAL, jm.CAUSAL, None),
+                 False),
 }
 
 
