@@ -267,7 +267,40 @@ checkout, then, on the card:
    gradients at 1e-4 of max abs, and ``pipeline_apply`` (4 stages of
    tanh(x @ w) at d = 1024, 8 microbatches of 16 rows, with and without
    remat) against the sequential stages at 1e-5; (e)
-   ``dryrun_multichip(4)`` prints its three ``OK`` lines.
+   ``dryrun_multichip(4)`` prints its three ``OK`` lines;
+19. the quantized attention at MLA's width (inputs from a thirteenth
+   generator, seed + 12): (a) every kernel the quantized attention runs at
+   D = 288 (and at 272, zero-padded to 288) against its plain version,
+   Hq=8 over Hkv=1, S=300, each called twice and equal bit for bit: the
+   forward (``qattn_fwd_wide_kernel``) over int8 and int4 (two packing
+   groups a row) ROW CENTERED, folded ROW / CHANNEL / TENSOR, BLOCK_2D,
+   an int8 Q with int8 P over block_kv spans of 128 and 256 and with a
+   ROW V, bias, a causal window and an fp32 Q (the scalar body); the
+   exact dQ and dK/dV (``qflash_dq_wide_kernel``,
+   ``qflash_dkv_wide_kernel`` and the merge of its group split; fp32 on
+   the scalar bodies) in those modes with dbias; the full-integer pair at
+   levels 1 and 2 (ROW K / CHANNEL V, TENSOR K / V; 16-wide level-2 spans
+   on the ``__dp4a`` pair); (b) ``MLAConfig()``'s layer 0 (bf16 weights
+   from the seed) on B=2 x 2048 tokens: the absorbed query [q·W_uk |
+   q_rope] [2, 16, 2048, 288] over the joint latent [C | K_rope] (int8 ROW
+   SYMMETRIC) and [C | 0] as V, forward and backward through
+   ``quantized_flash_attention`` (causal; again with ``quantize_q``;
+   ``bwd_fullint`` with no mask over a CHANNEL V, the full-integer
+   backward's precondition) and ``QuantizedAttention`` (int8 ROW
+   CENTERED, causal), the launch counts set to 0 just before each call and
+   read after (one forward, one dQ, one dK/dV and its merge, or the
+   full-integer pair; the facade's two row quantizers), dq against the
+   fp32 dense VJP on the dequantized K/V (the full-integer one against
+   the exact call on the same operands) at rel L2 ≤ 0.05, each launched
+   kernel against its plain version on the call's own inputs, and the
+   profiler's kernel names of the exact and full-integer calls (each
+   family at 288); (c) phase 17's 32K construction over the joint
+   latent (int8 ROW CENTERED, B=1, H=8, S=32768, a causal window of
+   4096): one forward launch and a finite output, then the kernel against
+   its plain version at S=8192; (d) the new kernels alone at (b)'s shape,
+   events and device ms beside their bounds, plain versions and SDPA over
+   the dequantized bf16 K/V (the forward also with an int8 Q, the
+   full-integer pair at level 2 too).
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -354,6 +387,8 @@ from metal_flash_attention_plus_tpu_torch.models.mla_transformer import (
     MLAConfig,
     init_mla_params,
     mla_forward,
+    mla_layer_kv,
+    mla_layer_q,
     mla_loss_fn,
     plain_mla_attention,
 )
@@ -370,6 +405,7 @@ from metal_flash_attention_plus_tpu_torch.models.transformer import (
     loss_fn,
     make_train_step,
     plain_attention,
+    rms_norm,
     trainable_parameters,
 )
 from metal_flash_attention_plus_tpu_torch.ops import (
@@ -630,6 +666,11 @@ DEVICE_KERNELS = {
     "comp_gemm": "comp_tc_kernel", "comp_small_gemm": "comp_tc_kernel",
     "flash_fwd_static_max": "flash_fwd_tc_kernel",
     "flash_dkv_merge": "flash_dkv_merge_kernel",
+    "qattn_fwd_wide": "qattn_fwd_wide_kernel",
+    "qflash_dq_wide": "qflash_dq_wide_kernel",
+    "qflash_dkv_wide": "qflash_dkv_wide_kernel",
+    "fullint_dq_d288": "fullint_dq_tc_kernel",
+    "fullint_dkv_d288": "fullint_dkv_tc_kernel",
 }
 # The flash kernels at MLA's D = 288 (bf16) and what the record says of
 # them.
@@ -700,8 +741,11 @@ PARENT = {"lib": None, "turns": []}
 # before the static-max mode (no ``mfa_flash_static_max_body``) lacks the
 # row_max pointer: it runs the running max only.  The flash dK/dV from
 # before its wide body (no ``mfa_flash_dkv_merge``) lacks the splits and
-# the workspace: it takes one CTA a key tile.
+# the workspace: it takes one CTA a key tile.  The exact quantized
+# backward from before its wide kernels (no ``mfa_qattn_body``) lacks the
+# splits and the workspace: it stops at D = 256, where no call splits.
 LEGACY_ARGS = {"mfa_flash_fwd": ("mfa_flash_static_max_body", 19),
+               "mfa_qflash_bwd": ("mfa_qattn_body", 35),
                "mfa_flash_dkv": ("mfa_flash_dkv_merge", 21),
                "mfa_wo_folded_gemm": ("mfa_wo_tc_body", 9),
                "mfa_wo_gemm": ("mfa_wo_tc_body", 12),
@@ -1947,15 +1991,14 @@ def attn_inputs(rng, b, hq, hkv, sq, skv, d, dtype=torch.bfloat16):
                                (b, hkv, skv, d)))
 
 
-def check_pair(label, kernel, plain):
+def check_pair(label, kernel, plain, dtype=torch.bfloat16):
     """A kernel's (O, L) against its plain version's → (rel err of O, rel
-    err of L, max abs err of O); raises past the flash kernels' bf16
-    gates."""
+    err of L, max abs err of O); raises past the flash kernels' gates for
+    ``dtype`` (bf16 where P is rounded)."""
     (o, lse), (o_ref, l_ref) = kernel, plain
     errs = (rel_err(o, o_ref), rel_err(lse, l_ref), max_abs(o, o_ref))
     log(f"{label}: o {errs[0]:.2e} l {errs[1]:.2e} (max abs {errs[2]:.2e})")
-    if not (errs[0] <= FLASH_TOL[torch.bfloat16]
-            and errs[1] <= LSE_TOL[torch.bfloat16]):
+    if not (errs[0] <= FLASH_TOL[dtype] and errs[1] <= LSE_TOL[dtype]):
         raise AssertionError(f"{label} disagrees with its plain version: "
                              f"{errs}")
     return errs
@@ -1968,19 +2011,41 @@ def main_path_tile(kw, skv, block_sizes=BlockSizes()):
     return int8_p_tile(block_sizes, skv) if kw["mode"].p_int8 else None
 
 
+def same_bits(label, first, second):
+    """Raises unless two calls' outputs (a tensor or a tuple, None skipped)
+    are equal bit for bit."""
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)
+               if a is not None):
+        raise AssertionError(f"{label}: two calls differ")
+
+
 def check_qattn(rng, label, b, hq, hkv, sq, skv, d, kcfg, vcfg,
-                mask=masking.CAUSAL, bias_shape=None, **opts):
-    q, k, v = attn_inputs(rng, b, hq, hkv, sq, skv, d)
+                mask=masking.CAUSAL, bias_shape=None, dtype=torch.bfloat16,
+                block_kv=None, repeat=False, **opts):
+    """The quantized forward against its plain version over the main
+    path's key spans (the TPU's ``block_kv`` where P is int8), at the fp32
+    gate for an fp32 Q whose P is not int8; ``repeat``: called twice, the
+    same bits required → check_pair's errors."""
+    q, k, v = attn_inputs(rng, b, hq, hkv, sq, skv, d, dtype)
     if bias_shape is not None:
         opts["bias"] = torch.randn(bias_shape, device=DEV,
                                    generator=device_generator(rng))
     args, kw = qattn_arguments(q, quantize(k.float(), kcfg),
                                quantize(v.float(), vcfg), mask=mask, **opts)
-    tile = main_path_tile(kw, skv)
+    tile = main_path_tile(kw, skv, BlockSizes(block_kv=block_kv)
+                          if block_kv else BlockSizes())
     out = qattn_fwd(*args, **kw, kv_tile=tile)
+    if repeat:
+        same_bits(f"qattn_fwd {label}", out,
+                  qattn_fwd(*args, **kw, kv_tile=tile))
     torch.cuda.synchronize()
-    return check_pair(f"qattn_fwd {label}", out,
-                      qattn_fwd_plain(*args, **kw, kv_tile=tile or KV_TILE))
+    exact = dtype == torch.float32 and not kw["mode"].p_int8
+    return check_pair(f"qattn_fwd {label} "
+                      f"({qattn_body(args[0].dtype, kw['mode'], d=d)})", out,
+                      qattn_fwd_plain(*args, **kw, kv_tile=tile or KV_TILE),
+                      torch.float32 if exact else torch.bfloat16)
 
 
 def check_qattn_all(rng):
@@ -2421,23 +2486,27 @@ def bwd_inputs(q, kq, vq, g, mask=masking.FULL, **opts):
     return do, lse, (do.float() * o).sum(-1)
 
 
-def check_bwd_pair(label, got, want, names):
+def check_bwd_pair(label, got, want, names, dtype=torch.bfloat16):
     """Kernel outputs against the plain versions' → {name: (rel err, max
-    abs err)}; raises past the flash kernels' bf16 gate on the rel err."""
+    abs err)}; raises past the flash kernels' gate for ``dtype`` on the
+    rel err."""
     errs = {n: (rel_err(g, w), max_abs(g, w))
             for n, g, w in zip(names, got, want) if w is not None}
     log(f"{label}: " + " ".join(f"{n} {e[0]:.2e}" for n, e in errs.items()))
-    if not all(e[0] <= FLASH_TOL[torch.bfloat16] for e in errs.values()):
+    if not all(e[0] <= FLASH_TOL[dtype] for e in errs.values()):
         raise AssertionError(f"{label} disagrees with its plain version: "
                              f"{errs}")
     return errs
 
 
 def check_qflash(rng, label, b, hq, hkv, sq, skv, d, kcfg, vcfg,
-                 mask=masking.CAUSAL, bias_shape=None, **opts):
+                 mask=masking.CAUSAL, bias_shape=None, dtype=torch.bfloat16,
+                 repeat=False, **opts):
     """K1/K2 (the exact quantized dQ, dK/dV) against their plain versions
-    in the mode the JAX package's selection gives these configurations."""
-    q, k, v = attn_inputs(rng, b, hq, hkv, sq, skv, d)
+    in the mode the JAX package's selection gives these configurations, at
+    the gate of Q's ``dtype``; ``repeat``: called twice, the same bits
+    required."""
+    q, k, v = attn_inputs(rng, b, hq, hkv, sq, skv, d, dtype)
     kq, vq = quantize(k.float(), kcfg), quantize(v.float(), vcfg)
     g = device_generator(rng)
     bias = (None if bias_shape is None
@@ -2447,41 +2516,56 @@ def check_qflash(rng, label, b, hq, hkv, sq, skv, d, kcfg, vcfg,
     (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.qflash_arguments(
         q, kq, vq, do, lse, di, rr, bias, scale=d ** -0.5,
         want_dbias=bias is not None, **opts)
-    got = (*fbwd.qflash_dq(*dq_a, **dq_kw), *fbwd.qflash_dkv(*dkv_a,
-                                                              **dkv_kw))
+
+    def call():
+        return (*fbwd.qflash_dq(*dq_a, **dq_kw),
+                *fbwd.qflash_dkv(*dkv_a, **dkv_kw))
+
+    got = call()
+    if repeat:
+        same_bits(f"qflash {label}", got, call())
     torch.cuda.synchronize()
     want = (*fbwd.qflash_dq_plain(*dq_a, **dq_kw),
             *fbwd.qflash_dkv_plain(*dkv_a, **dkv_kw))
     return check_bwd_pair(f"qflash {label} ({dq_kw['mode'].k}/"
-                          f"{dkv_kw['mode'].k} K)", got, want,
-                          ("dq", "dbias", "dk", "dv"))
+                          f"{dkv_kw['mode'].k} K, {dq_body(dtype, d)})", got,
+                          want, ("dq", "dbias", "dk", "dv"), dtype)
 
 
-def check_fullint(rng, label, b, h, s, d, kcfg, vcfg, level2):
+def check_fullint(rng, label, b, hq, hkv, s, d, kcfg, vcfg, level2,
+                  block_sizes=NS_BLOCKS, repeat=False):
     """K3/K4 (the full-integer dQ, dK/dV) against their plain versions;
-    level 2 quantizes over bench.py's tiles (512 keys, 1024 queries)."""
-    q, k, v = attn_inputs(rng, b, h, h, s, s, d)
+    level 2 quantizes over ``block_sizes``' spans (bench.py's: 512 keys,
+    1024 queries); ``repeat``: called twice, the same bits required."""
+    q, k, v = attn_inputs(rng, b, hq, hkv, s, s, d)
     kq, vq = quantize(k.float(), kcfg), quantize(v.float(), vcfg)
     do, lse, di = bwd_inputs(q, kq, vq, device_generator(rng),
                              quantize_q=True)
     (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.fullint_arguments(
-        q, kq, vq, None, lse, do, scale=d ** -0.5, block_sizes=NS_BLOCKS,
+        q, kq, vq, None, lse, do, scale=d ** -0.5, block_sizes=block_sizes,
         di=di, int8_grads=level2)
-    got = (fbwd.fullint_dq(*dq_a, **dq_kw), *fbwd.fullint_dkv(*dkv_a,
-                                                               **dkv_kw))
+
+    def call():
+        return (fbwd.fullint_dq(*dq_a, **dq_kw),
+                *fbwd.fullint_dkv(*dkv_a, **dkv_kw))
+
+    name = (f"fullint {label} level {2 if level2 else 1} (widths "
+            f"{dq_kw['width']}/{dkv_kw['width']}, "
+            f"{fullint_body(d, dq_kw['width'])})")
+    got = call()
+    if repeat:
+        same_bits(name, got, call())
     torch.cuda.synchronize()
     want = (fbwd.fullint_dq_plain(*dq_a, **dq_kw),
             *fbwd.fullint_dkv_plain(*dkv_a, **dkv_kw))
-    return check_bwd_pair(
-        f"fullint {label} level {2 if level2 else 1} (widths "
-        f"{dq_kw['width']}/{dkv_kw['width']})", got, want, ("dq", "dk", "dv"))
+    return check_bwd_pair(name, got, want, ("dq", "dk", "dv"))
 
 
 def check_bwd_kernels_all(rng):
     """(a) K3/K4 at the north-star shape (levels 1 and 2, ROW and TENSOR K),
     K1/K2 at the flagship's attention shapes in five modes, then small
     shapes.  → {label: errors}."""
-    ns = (NS_B, NS_H, NS_S, NS_D)
+    ns = (NS_B, NS_H, NS_H, NS_S, NS_D)
     row8, row8c, row4c = qcfg(), qcfg(strategy="centered"), qcfg(
         bits=4, strategy="centered")
     ten8, ch8 = qcfg(gran="tensor"), qcfg(gran="channel")
@@ -2524,11 +2608,11 @@ def check_bwd_kernels_all(rng):
         errs[label] = check_qflash(rng, label, *small, d, kcfg, vcfg, **opts)
     for d in (80, 96):
         errs[f"fullint_d{d}_l1"] = check_fullint(
-            rng, f"ROW K / CHANNEL V D={d}", 2, 4, 512, d, row8, ch8, False)
+            rng, f"ROW K / CHANNEL V D={d}", 2, 4, 4, 512, d, row8, ch8, False)
     # S=200 resolves to 8-wide level-2 spans: the scalar kernels' widths.
     errs["fullint_w8_l2"] = check_fullint(
-        rng, "ROW K / CHANNEL V S=200 (scalar widths)", 1, 4, 200, 64, row8,
-        ch8, True)
+        rng, "ROW K / CHANNEL V S=200 (scalar widths)", 1, 4, 4, 200, 64,
+        row8, ch8, True)
     errs["ragged"] = check_qflash(rng, "ragged Sq=125 < Skv=1000", 1, 4, 4,
                                   125, 1000, 64, row8c, row8c)
     return errs
@@ -5287,6 +5371,551 @@ def run_spmd(seed, spec=SPMD):
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# Phase 19: the quantized attention at MLA's width
+# --------------------------------------------------------------------------
+
+# MLA's absorbed width: the joint [C | K_rope] latent, d_c + d_r = 256 + 32
+# lanes (272 runs zero-padded at 288).
+MLA_QD = MLA_D
+# The record entries of the kernels this phase adds, and the device kernel
+# each launches at MLA's shape (the full-integer pair's D = 288 instances
+# of fullint_dq_tc_kernel / fullint_dkv_tc_kernel).
+WIDE_QKERNELS = {
+    "qattn_fwd_wide": ("qattn_fwd", "qattn_fwd_wide_kernel",
+                       f"{QATTN_TPU}:87", QATTN_SOURCE),
+    "qflash_dq_wide": ("qflash_dq", "qflash_dq_wide_kernel",
+                       f"{FLASH_BWD_TPU}:77", QBWD_SOURCE),
+    "qflash_dkv_wide": ("qflash_dkv", "qflash_dkv_wide_kernel",
+                        f"{FLASH_BWD_TPU}:954", QBWD_SOURCE),
+    "fullint_dq_d288": ("fullint_dq", "fullint_dq_tc_kernel",
+                        f"{FLASH_BWD_TPU}:511", QBWD_SOURCE),
+    "fullint_dkv_d288": ("fullint_dkv", "fullint_dkv_tc_kernel",
+                         f"{FLASH_BWD_TPU}:584", QBWD_SOURCE),
+}
+WIDE_QREDESIGNED = {
+    "qattn_fwd_wide": "qattn_fwd_tc_kernel's body at D = 288 in 32-key "
+                      "steps (S at 16 registers beside O's 144), payload "
+                      "bytes double-buffered by cp.async and dequantized in "
+                      "shared memory, 113,664 bytes (bf16 Q), two CTAs an "
+                      "SM; an int8 P walks the TPU's block_kv spans twice",
+    "qflash_dq_wide": "dq_wide_body over the payload: 32-key tiles of "
+                      "payload rows double-buffered by cp.async, dequantized "
+                      "into one bf16 tile each, the folded column scales "
+                      "and store multipliers, 8 warps",
+    "qflash_dkv_wide": "dkv_wide_body over the payload: K and V dequantized "
+                       "once into resident bf16 tiles, 48-row Q / dO steps, "
+                       "12 warps, the GQA group dealt over dkv_splits CTAs "
+                       "and summed in split order by flash_dkv_merge_kernel",
+    "fullint_dq_d288": "fullint_dq_tc_kernel at D = 288: two warp groups "
+                       "(144 lanes a warp), S and dP summed from 0 in int32 "
+                       "(|S| may pass 2^22)",
+    "fullint_dkv_d288": "fullint_dkv_tc_kernel at D = 288: two warp groups, "
+                        "level 1 in 32-query steps (146,688 B; 64-query "
+                        "steps would take 252,416, past the 232,448 a CTA "
+                        "may have), level 2 in "
+                        "64-query steps; one CTA a 64-key tile walks the "
+                        "whole GQA group",
+}
+# The full-integer backward's precondition (the JAX package's): SYMMETRIC
+# CHANNEL or TENSOR V; the joint latent's V is quantized CHANNEL for it.
+WIDE_PATH_CALLS = ("exact", "quantize_q", "fullint", "facade")
+
+
+def check_wide_kernels_all(rng):
+    """(a) Every wide kernel against its plain version at D = 288 and 272
+    (Hq=8 over Hkv=1, S=300, as MLA's group), two calls bit for bit: the
+    forward in int8 / int4 dequant, folded ROW / CHANNEL / TENSOR,
+    BLOCK_2D, an int8 Q with int8 P over block_kv spans of 128 and 256,
+    bias, a sliding window and an fp32 Q; the exact dQ and dK/dV in those
+    modes with dbias; the full-integer pair at levels 1 and 2.  →
+    {label: errors} (a check whose two calls differ raises)."""
+    row8, row8c, row4c = qcfg(), qcfg(strategy="centered"), qcfg(
+        bits=4, strategy="centered")
+    ten8, ch8, ch4 = qcfg(gran="tensor"), qcfg(gran="channel"), qcfg(
+        bits=4, gran="channel")
+    b2d = qcfg(gran="block_2d", strategy="centered", block_rows=4,
+               block_size=16)
+    window = masking.sliding_window(96, causal=True)
+    shape = (2, 8, 1, 300, 300)
+    errs = {}
+    for d in (MLA_QD, 272):
+        for label, kcfg, vcfg, opts in (
+                ("int8 ROW CENTERED", row8c, row8c, {}),
+                ("int4 ROW CENTERED", row4c, row4c, {}),
+                ("folded ROW", row8, row8, {}),
+                ("folded CHANNEL int4 K", ch4, ch8, {}),
+                ("folded TENSOR", ten8, ten8, {}),
+                ("BLOCK_2D 16", b2d, b2d, {}),
+                ("int8 Q / int8 P, 128-key spans", row8, ch8,
+                 dict(quantize_q=True, block_kv=128)),
+                ("int8 Q / int8 P, 256-key spans", row8, ch8,
+                 dict(quantize_q=True, block_kv=256)),
+                ("int8 Q, ROW V", row8, row8, dict(quantize_q=True)),
+                ("bias", row8c, row8c, dict(bias_shape=(1, 8, 300, 300))),
+                ("window-causal", row8c, row4c, dict(mask=window)),
+                ("fp32 Q", row8c, row4c, dict(dtype=torch.float32))):
+            errs[f"fwd d{d} {label}"] = check_qattn(
+                rng, f"D={d} {label}", *shape, d, kcfg, vcfg, repeat=True,
+                **opts)
+        for label, kcfg, vcfg, opts in (
+                ("int8 ROW CENTERED", row8c, row8c, {}),
+                ("int4 ROW CENTERED", row4c, row4c, {}),
+                ("folded ROW", row8, row8, {}),
+                ("folded CHANNEL int4", ch4, ch4, {}),
+                ("folded TENSOR", ten8, ten8, {}),
+                ("BLOCK_2D 16", b2d, b2d, {}),
+                ("bias-dbias", row8c, row8c,
+                 dict(bias_shape=(1, 8, 300, 300))),
+                ("window-causal", row8c, row4c, dict(mask=window)),
+                ("fp32", row8c, row4c, dict(dtype=torch.float32))):
+            errs[f"qflash d{d} {label}"] = check_qflash(
+                rng, f"D={d} {label}", *shape, d, kcfg, vcfg, repeat=True,
+                **opts)
+        spans = BlockSizes(block_kv_dq=128, block_q_dkv=128)
+        for label, kcfg, vcfg in (("ROW K / CHANNEL V", row8, ch8),
+                                  ("TENSOR K / TENSOR V", ten8, ten8)):
+            for level2 in (False, True):
+                errs[f"fullint d{d} {label} l{2 if level2 else 1}"] = (
+                    check_fullint(rng, f"D={d} {label}", 1, 8, 1, 512, d,
+                                  kcfg, vcfg, level2, spans, repeat=True))
+    # Level-2 spans below one k step (S=144: 16 wide): the __dp4a pair.
+    errs[f"fullint d{MLA_QD} w16 l2"] = check_fullint(
+        rng, f"D={MLA_QD} ROW K / CHANNEL V, S=144", 1, 8, 1, 144, MLA_QD,
+        row8, ch8, True, BlockSizes(block_kv_dq=512, block_q_dkv=512),
+        repeat=True)
+    log(f"phase 19 (a): {len(errs)} checks, each bit for bit on a repeat")
+    return errs
+
+
+def mla_joint_operands(seed):
+    """MLAConfig()'s layer 0 (bf16 weights from the seed, as phase 15 draws
+    them) on one seeded batch of B=2 x S=2048 tokens: the absorbed query
+    [q·W_uk | q_rope] [2, 16, 2048, 288] bf16, the joint latent
+    [C | K_rope] and [C | 0], fp32 [2, 1, 2048, 288]."""
+    cfg = MLAConfig()
+    params = init_mla_params(cfg, torch.Generator().manual_seed(seed),
+                             device=DEV)
+    layer = params["layers"][0]
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (DEC_B, DEC_S))).to(DEV)
+    pos = torch.arange(DEC_S, device=DEV)
+    hn = rms_norm(F.embedding(tokens, params["embed"]), layer["ln1"])
+    q, q_rope = mla_layer_q(layer, hn, pos, cfg)
+    c_kv, k_rope = mla_layer_kv(layer, hn, pos, cfg)
+    q_lat = torch.cat([torch.einsum("bhsd,hdc->bhsc", q.float(),
+                                    layer["w_uk"].float()).to(q.dtype),
+                       q_rope.to(q.dtype)], dim=-1).contiguous()
+    c, kr = c_kv.float()[:, None], k_rope.float()[:, None]
+    k = torch.cat([c, kr], dim=-1).contiguous()
+    v = torch.cat([c, torch.zeros_like(kr)], dim=-1).contiguous()
+    del params
+    return q_lat, k, v
+
+
+def wide_path_call(kind, k, v, kq, vq, vq_ch):
+    """(the call as a function of (q, K scale, V scale), its mask, its K/V
+    as the kernels see them, whether it quantizes Q, whether its backward
+    is full-integer).  The scales go into the K/V by
+    ``dataclasses.replace``, so autograd returns K's and V's gradients
+    (their scales' cotangents) beside dq."""
+    if kind == "facade":
+        attn = QuantizedAttention(
+            QuantizedAttentionConfig(key_bits=8, value_bits=8),
+            mask=masking.CAUSAL, scale=MLA_SCALE)
+        kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+        def facade(q, ks, vs):  # the facade's __call__, scales as leaves
+            fkq, fvq = attn.quantize_kv(kb, vb)
+            return attn.forward_quantized(
+                q, dataclasses.replace(fkq, scale=ks),
+                dataclasses.replace(fvq, scale=vs))
+
+        return (facade, masking.CAUSAL, attn.quantize_kv(kb, vb), False,
+                False)
+    fullint, quantize_q = kind == "fullint", kind == "quantize_q"
+    cvq = vq_ch if fullint else vq
+    mask = masking.FULL if fullint else masking.CAUSAL
+    return (quantized_call(kq, cvq, mask, quantize_q, fullint), mask,
+            (kq, cvq), quantize_q, fullint)
+
+
+def quantized_call(kq, vq, mask, quantize_q, fullint):
+    """``quantized_flash_attention`` over (kq, vq) as a function of (q, K
+    scale, V scale)."""
+    def call(q, ks, vs):
+        return tqa.quantized_flash_attention(
+            q, dataclasses.replace(kq, scale=ks),
+            dataclasses.replace(vq, scale=vs), mask=mask, scale=MLA_SCALE,
+            quantize_q=quantize_q, bwd_fullint=fullint)
+
+    return call
+
+
+def wide_call_grads(fn, q, kq, vq, do):
+    """O and autograd's (dq, dK scale, dV scale) of one call ``fn``."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (q, kq.scale, vq.scale)]
+    with torch.enable_grad():
+        o = fn(*leaves)
+        grads = torch.autograd.grad((o.float() * do.float()).sum(), leaves)
+    return o.detach(), grads
+
+
+def wide_kv_grads(q, kq, vq, do, mask, quantize_q, fullint):
+    """dK, dV (with respect to the dequantized K/V) of
+    ``flash_attention_backward``, the backward the path's autograd
+    Function runs, on the residuals of the call's forward."""
+    o, lse = quantized_flash_attention_forward(
+        q, kq, vq, mask=mask, scale=MLA_SCALE, quantize_q=quantize_q)
+    return fbwd.flash_attention_backward(q, kq, vq, o, lse, do, mask=mask,
+                                         scale=MLA_SCALE,
+                                         fullint=fullint)[1:3]
+
+
+def wide_call_kernels(label, q, kq, vq, do, mask, quantize_q, fullint,
+                      o_path):
+    """The call's O against the plain forward on its own inputs, and the
+    kernels the call launched, rebuilt on those inputs and held to their
+    plain versions → ({name: errors}, the kernels' arguments)."""
+    s = q.shape[2]
+    f_args, f_kw = qattn_arguments(q, kq, vq, mask=mask, scale=MLA_SCALE,
+                                   quantize_q=quantize_q)
+    f_kw["kv_tile"] = main_path_tile(f_kw, s)
+    o, lse = qattn_fwd(*f_args, **f_kw)
+    torch.cuda.synchronize()
+    body = qattn_body(f_args[0].dtype, f_kw["mode"], d=MLA_QD)
+    o_plain, lse_plain = qattn_fwd_plain(
+        *f_args, **{**f_kw, "kv_tile": f_kw["kv_tile"] or KV_TILE})
+    errs = {"qattn_fwd": check_pair(f"{label}: qattn_fwd ({body})", (o, lse),
+                                    (o_plain, lse_plain))}
+    errs["call_o"] = (rel_err(o_path, o_plain), max_abs(o_path, o_plain))
+    log(f"{label}: the call's O vs the plain forward {errs['call_o'][0]:.2e}"
+        f" (max abs {errs['call_o'][1]:.2e})")
+    if not errs["call_o"][0] <= FLASH_TOL[torch.bfloat16]:
+        raise AssertionError(f"{label}: the call's O disagrees with the "
+                             f"plain forward: {errs['call_o']}")
+    del o_plain, lse_plain
+    di = (do.float() * o).sum(-1)
+    if fullint:
+        (a1, k1), (a2, k2) = fbwd.fullint_arguments(
+            q, kq, vq, None, lse, do, scale=MLA_SCALE, di=di)
+        names = ("fullint_dq", "fullint_dkv")
+    else:
+        rr = row_ranges_tensor(mask, s, s, None, DEV)
+        (a1, k1), (a2, k2) = fbwd.qflash_arguments(
+            q, kq, vq, do.to(q.dtype), lse, di, rr, scale=MLA_SCALE)
+        names = ("qflash_dq", "qflash_dkv")
+    args = {"qattn_fwd": (f_args, f_kw), names[0]: (a1, k1),
+            names[1]: (a2, k2)}
+    for name, outs in zip(names, (("dq",) if fullint else ("dq", "dbias"),
+                                  ("dk", "dv"))):
+        a, kw = args[name]
+        got = getattr(fbwd, name)(*a, **kw)
+        torch.cuda.synchronize()
+        want = getattr(fbwd, f"{name}_plain")(*a, **kw)
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        errs[name] = check_bwd_pair(f"{label}: {name}", got, want, outs)
+        del got, want
+    return errs, args
+
+
+WIDE_COUNTED = (qattn_fwd, fbwd.qflash_dq, fbwd.qflash_dkv, fbwd.fullint_dq,
+                fbwd.fullint_dkv, fbwd.merge_dkv_splits, rtq.rtq_rows)
+
+
+def run_wide_path(seed):
+    """(b) The four calls over MLAConfig()'s joint latent, forward and
+    backward, the counts set to 0 just before each and read after; dq and
+    K's and V's scale cotangents from autograd, and dK, dV from the
+    backward on the call's residuals, against the dense fp32 VJP on the
+    dequantized K/V (the full-integer ones against the exact call on the
+    same operands); the call's O and each launched kernel against its
+    plain version on the call's inputs; the kernels' device names under
+    the profiler.  → record."""
+    q_lat, k, v = mla_joint_operands(seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 18)
+    do = torch.randn(q_lat.shape, generator=g, device=DEV).to(q_lat.dtype)
+    row = QuantConfig(granularity=QuantGranularity.ROW)
+    kq, vq = quantize(k, row), quantize(v, row)
+    vq_ch = quantize(v, QuantConfig(granularity=QuantGranularity.CHANNEL))
+    out = {"launches": {}, "grads_rel_l2": {}, "kernels": {}, "seconds": {},
+           "shape": "q_lat [2, 16, 2048, 288] bf16, [C | K_rope] int8 ROW "
+                    "SYMMETRIC [2, 1, 2048, 288], [C | 0] int8 ROW (CHANNEL "
+                    "for the full-integer call), MLAConfig() layer 0, seed "
+                    f"{seed}"}
+    names = ("dq", "dk_scale", "dv_scale", "dk", "dv")
+    for kind in WIDE_PATH_CALLS:
+        fn, mask, (ckq, cvq), quantize_q, fullint = wide_path_call(
+            kind, k, v, kq, vq, vq_ch)
+        for f in WIDE_COUNTED:
+            f.launches = 0
+        t0 = time.perf_counter()
+        o, grads = wide_call_grads(fn, q_lat, ckq, cvq, do)
+        torch.cuda.synchronize()
+        out["seconds"][kind] = time.perf_counter() - t0
+        counts = {f.__name__: f.launches for f in WIDE_COUNTED if f.launches}
+        out["launches"][kind] = counts
+        want_counts = {"qattn_fwd": 1,
+                       **({"fullint_dq": 1, "fullint_dkv": 1} if fullint else
+                          {"qflash_dq": 1, "qflash_dkv": 1,
+                           "merge_dkv_splits": 1}),
+                       **({"rtq_rows": 2} if kind == "facade" else {})}
+        log(f"MLA joint latent, {kind}: launches {json.dumps(counts)}, "
+            f"{out['seconds'][kind]:.3f} s (first call)")
+        if counts != want_counts or not (torch.isfinite(o.float()).all()
+                                         and o.shape == q_lat.shape):
+            raise AssertionError(f"wide path {kind}: launches {counts}, "
+                                 f"expected {want_counts}")
+        with torch.no_grad():
+            got = (*grads, *wide_kv_grads(q_lat, ckq, cvq, do, mask,
+                                          quantize_q, fullint))
+            if fullint:  # the exact call on the same operands
+                exact = quantized_call(ckq, cvq, mask, False, False)
+                want = (*wide_call_grads(exact, q_lat, ckq, cvq, do)[1],
+                        *wide_kv_grads(q_lat, ckq, cvq, do, mask, False,
+                                       False))
+            else:
+                dq, dk, dv = reference_attention_vjp(
+                    q_lat, dequantize(ckq), dequantize(cvq), do, mask=mask,
+                    scale=MLA_SCALE)
+                want = (dq, tqa._scale_zp_cotangents(dk, ckq)[0],
+                        tqa._scale_zp_cotangents(dv, cvq)[0], dk, dv)
+            out["grads_rel_l2"][kind] = gate_grads(
+                f"MLA joint latent, {kind}: dq, K's and V's scale "
+                "cotangents (autograd) and dK, dV (the backward on the "
+                "call's residuals) vs "
+                + ("the exact call on the same operands" if fullint else
+                   "the fp32 dense VJP on the dequantized K/V"),
+                got, want, names)
+            del got, want
+            errs, _ = wide_call_kernels(f"MLA joint latent, {kind}",
+                                        q_lat.detach(), ckq, cvq, do, mask,
+                                        quantize_q, fullint, o)
+        out["kernels"][kind] = errs
+        del o, grads
+    # The device kernels, by name, of the exact and the full-integer calls;
+    # a trace that recorded no kernel (PERF.md §7) is taken again.
+    steps = []
+    for kind in ("exact", "fullint"):
+        fn, _, kv, *_ = wide_path_call(kind, k, v, kq, vq, vq_ch)
+
+        def step(fn=fn, kv=kv):
+            wide_call_grads(fn, q_lat, *kv, do)
+
+        steps.append(step)
+    for _ in range(3):
+        seen = [n for step in steps for n in device_ms_by_kernel(step, 2)]
+        # Each family by name, at D = 288 (the merge has no head dim).
+        families = {fam: [n for n in seen if fam in n and (
+                        "288" in n or fam == "flash_dkv_merge_kernel")]
+                    for fam in ("qattn_fwd_wide_kernel",
+                                "qflash_dq_wide_kernel",
+                                "qflash_dkv_wide_kernel",
+                                "flash_dkv_merge_kernel",
+                                "fullint_dq_tc_kernel",
+                                "fullint_dkv_tc_kernel")}
+        if all(families.values()):
+            break
+    log("MLA joint latent, device kernels by the profiler: "
+        + json.dumps({f: [kernel_label(n) + (" <288>" if "288" in n else "")
+                          for n in ns] for f, ns in families.items()}))
+    if not all(families.values()):
+        raise AssertionError(f"wide path: kernels missing from the trace: "
+                             f"{families}; traced: "
+                             f"{sorted({kernel_label(n) for n in seen})}")
+    out["device_kernels"] = {f: ns[0][:160] for f, ns in families.items()}
+    return out, (q_lat, kq, vq, vq_ch, do)
+
+
+def run_wide_long_context(rng):
+    """(c) Phase 17's 32K construction over the joint 288-wide latent:
+    ``quantized_flash_attention_forward`` at B=1, H=8, S=32768 over
+    [C | K_rope] and [C | 0] quantized int8 ROW CENTERED, a causal window
+    of 4096: one launch, a finite output; then the kernel against its plain
+    version at S = LONG_PLAIN_S on the arguments the path builds."""
+    b, h, s, _, dc = LONG_SHAPE
+    dr = MLA_QD - dc
+    g = device_generator(rng)
+    q = torch.randn((b, h, s, MLA_QD), generator=g, device=DEV).to(
+        torch.bfloat16)
+    c = torch.randn((b, 1, s, dc), generator=g, device=DEV)
+    kr = torch.randn((b, 1, s, dr), generator=g, device=DEV)
+    k = torch.cat([c, kr], dim=-1)
+    v = torch.cat([c, torch.zeros_like(kr)], dim=-1)
+    del c, kr
+    row8c = QuantConfig(granularity=QuantGranularity.ROW,
+                        strategy=QuantStrategy.CENTERED)
+    mask = masking.sliding_window(LONG_WINDOW, causal=True)
+    kq, vq = quantize(k, row8c), quantize(v, row8c)
+    qattn_fwd.launches = 0
+    t0 = time.perf_counter()
+    o, _ = quantized_flash_attention_forward(q, kq, vq, mask=mask,
+                                             scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = qattn_fwd.launches
+    finite = bool(torch.isfinite(o).all())
+    n = LONG_PLAIN_S
+    ks, vs = quantize(k[:, :, :n], row8c), quantize(v[:, :, :n], row8c)
+    args, kw = qattn_arguments(q[:, :, :n], ks, vs, mask=mask,
+                               scale=MLA_SCALE)
+    tile = main_path_tile(kw, n)
+    got = qattn_fwd(*args, **kw, kv_tile=tile)
+    torch.cuda.synchronize()
+    errs = check_pair(f"qattn_fwd {kw['mode'].k_scales} K, causal window "
+                      f"{LONG_WINDOW}, Hq={h} over Hkv=1, D={MLA_QD} "
+                      f"(joint latent), S={n}", got,
+                      qattn_fwd_plain(*args, **kw, kv_tile=tile or KV_TILE))
+    log(f"long context at D={MLA_QD} (B={b} H={h} S={s}, int8 ROW CENTERED "
+        f"[C | K_rope], window {LONG_WINDOW}): qattn_fwd launches "
+        f"{launches}, output {tuple(o.shape)} finite {finite}, "
+        f"{seconds:.3f} s (first call)")
+    if launches != 1 or not finite or o.shape != (b, h, s, MLA_QD):
+        raise AssertionError(f"long context D={MLA_QD}: launches {launches},"
+                             f" finite {finite}, shape {tuple(o.shape)}")
+    return {"launches": launches, "finite": finite, "seconds": seconds,
+            "kernel_vs_plain_s8192": errs}
+
+
+def time_wide_kernels(path_inputs):
+    """(d) The new kernels alone at (b)'s shape, each on the arguments its
+    call built: events and the profiler's device ms (by kernel), the bound,
+    the plain version's ms, and SDPA's forward / backward over the
+    dequantized bf16 K/V as the library yardstick.  The forward and the
+    exact pair in the exact call's mode (folded ROW K / ROW V, causal), the
+    forward also with an int8 Q; the full-integer pair at levels 1 and 2
+    (FULL, ROW K / CHANNEL V)."""
+    q, kq, vq, vq_ch, do = path_inputs
+    b, h, s, d = q.shape
+    hkv = kq.shape[1]
+    causal, full = b * h * s * (s + 1) // 2, b * h * s * s
+    n_q, n_kv, rows = b * h * s * d, b * hkv * s * d, b * h * s
+    kd, vd, vd_ch = (dequantized_bf16(t) for t in (kq, vq, vq_ch))
+
+    def sdpa_bwd(vd_, causal_):
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, kd, vd_))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=causal_, enable_gqa=True,
+                scale=MLA_SCALE)
+        return lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                           retain_graph=True)
+
+    def timed(name, kernel, plain, library, bound):
+        t = {"plain_ms": time_ms(plain, 1, warmup=1),
+             "ms": time_ms(kernel, 5, warmup=1)}
+        t["ms_2"] = time_ms(kernel, 5, warmup=0)
+        t["library_ms"] = time_ms(library, 3, warmup=1)
+        # The profiler at times records no kernel of a call (§7 of
+        # PERF.md); a second trace then takes its place.
+        by = device_ms_by_kernel(kernel, 5) or device_ms_by_kernel(kernel, 5)
+        t["library_device_ms"] = sum(device_ms_by_kernel(library, 3).values())
+        t["device_ms"] = sum(by.values())
+        t["device_ms_by_kernel"] = {kernel_label(k): v for k, v in by.items()}
+        t["bound_ms"], t["bound_by"] = bound
+        log(f"{name} times (D={d}): " + json.dumps(t))
+        return t
+
+    times = {}
+    for tag, qq in (("", False), ("_int8_q", True)):
+        a, kw = qattn_arguments(q, kq, vq, mask=masking.CAUSAL,
+                                scale=MLA_SCALE, quantize_q=qq)
+        kw["kv_tile"] = main_path_tile(kw, s)
+        ops = (2 * d, 2 * d) if qq else (0, 4 * d)
+        t = timed(f"qattn_fwd_wide folded ROW{tag}",
+                  lambda: qattn_fwd(*a, **kw),
+                  lambda: qattn_fwd_plain(*a, **{**kw, "kv_tile": kw[
+                      "kv_tile"] or KV_TILE}),
+                  lambda: F.scaled_dot_product_attention(
+                      q, kd, vd, is_causal=True, enable_gqa=True,
+                      scale=MLA_SCALE),
+                  attn_bound(causal, *ops, (1 if qq else 2) * n_q
+                             + 2 * n_kv + 8 * b * hkv * s + 4 * n_q
+                             + 4 * rows))
+        t["body"] = qattn_body(a[0].dtype, kw["mode"], d=d)
+        times[f"qattn_fwd_wide{tag}"] = t
+    o, lse = quantized_flash_attention_forward(q, kq, vq, mask=masking.CAUSAL,
+                                               scale=MLA_SCALE)
+    di = (do.float() * o).sum(-1)
+    rr = row_ranges_tensor(masking.CAUSAL, s, s, None, DEV)
+    (e_dq, e_dq_kw), (e_dkv, e_dkv_kw) = fbwd.qflash_arguments(
+        q, kq, vq, do, lse, di, rr, scale=MLA_SCALE)
+    lib = sdpa_bwd(vd, True)
+    stats = 4 * rows
+    times["qflash_dq_wide"] = timed(
+        "qflash_dq_wide folded ROW",
+        lambda: fbwd.qflash_dq(*e_dq, **e_dq_kw),
+        lambda: fbwd.qflash_dq_plain(*e_dq, **e_dq_kw), lib,
+        attn_bound(causal, 0, 6 * d, 4 * n_q + 2 * n_kv + 8 * b * hkv * s
+                   + 2 * stats + 4 * b * hkv * d + 4 * n_q))
+    times["qflash_dkv_wide"] = timed(
+        "qflash_dkv_wide per-token dequant, its merge included",
+        lambda: fbwd.qflash_dkv(*e_dkv, **e_dkv_kw),
+        lambda: fbwd.qflash_dkv_plain(*e_dkv, **e_dkv_kw), lib,
+        attn_bound(causal, 0, 8 * d, 4 * n_q + 2 * n_kv + 16 * b * hkv * s
+                   + 2 * stats + 8 * n_kv))
+    for name in ("qflash_dq_wide", "qflash_dkv_wide"):
+        times[name]["body"] = dq_body(q.dtype, d)
+    times["qflash_dkv_wide"]["splits"] = fbwd.dkv_splits(
+        q.dtype, d, b, h, hkv, s, sm_count())
+    del lib, e_dq, e_dkv
+    o, lse = quantized_flash_attention_forward(q, kq, vq_ch, scale=MLA_SCALE)
+    di = (do.float() * o).sum(-1)
+    lib = sdpa_bwd(vd_ch, False)
+    int8_in = 2 * n_q + 2 * n_kv
+    for level2 in (False, True):
+        (f_dq, f_dq_kw), (f_dkv, f_dkv_kw) = fbwd.fullint_arguments(
+            q, kq, vq_ch, None, lse, do, scale=MLA_SCALE, di=di,
+            int8_grads=level2)
+        tag = "_level2" if level2 else ""
+        ops_dq = (6 * d, 0) if level2 else (4 * d, 2 * d)
+        ops_dkv = (8 * d, 0) if level2 else (4 * d, 4 * d)
+        for name, fn, plain, a, kw, ops, nbytes in (
+                ("fullint_dq_d288", fbwd.fullint_dq, fbwd.fullint_dq_plain,
+                 f_dq, f_dq_kw, ops_dq,
+                 int8_in + 4 * stats + 4 * b * hkv * s + 4 * n_q),
+                ("fullint_dkv_d288", fbwd.fullint_dkv,
+                 fbwd.fullint_dkv_plain, f_dkv, f_dkv_kw, ops_dkv,
+                 int8_in + n_q + 5 * stats + 4 * b * hkv * s + 8 * n_kv)):
+            t = timed(f"{name} level {2 if level2 else 1} (width "
+                      f"{kw['width']})", lambda: fn(*a, **kw),
+                      lambda: plain(*a, **kw), lib,
+                      attn_bound(full, *ops, nbytes))
+            t["body"] = fullint_body(d, kw["width"])
+            t["width"] = kw["width"]
+            if level2:
+                times[name].update({f"{k}_level2": v for k, v in t.items()})
+            else:
+                times[name] = t
+    return times
+
+
+def run_wide_quantized(seed):
+    """Phase 19 (a)-(d), inputs from a thirteenth generator (seed + 12) →
+    (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 12)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["errors"] = check_wide_kernels_all(rng)
+    phase["wide_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["path"], path_inputs = run_wide_path(seed)
+    phase["wide_path"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["long_context"] = run_wide_long_context(rng)
+    phase["wide_long_context"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with torch.no_grad():
+        out["times"] = time_wide_kernels(path_inputs)
+    phase["wide_times"] = time.perf_counter() - t
+    return out, phase
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5395,6 +6024,9 @@ def main() -> int:
     torch.cuda.empty_cache()  # the ranks of phase 18 share the card
     spmd, spmd_phase = run_spmd(args.seed)
     phase_s.update(spmd_phase)
+    torch.cuda.empty_cache()
+    wide, wide_phase = run_wide_quantized(args.seed)
+    phase_s.update(wide_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -5849,6 +6481,59 @@ def main() -> int:
         })
     next(e for e in record["kernels"] if e["name"] == "qattn_fwd")[
         "launches_long_context"] = util["long_context"]["launches"]
+    wt, wp = wide["times"], wide["path"]
+    prefix = {"qattn_fwd": "fwd ", "qflash_dq": "qflash ",
+              "qflash_dkv": "qflash ", "fullint_dq": "fullint ",
+              "fullint_dkv": "fullint "}
+    for name, (family, _, replaces, source) in WIDE_QKERNELS.items():
+        outs = (("o",) if family == "qattn_fwd" else
+                ("dq", "dbias") if family.endswith("_dq") else ("dk", "dv"))
+        # (a)'s checks of this kernel (its bf16 instances: fp32 takes the
+        # scalar bodies) and (b)'s on the calls' own inputs.
+        checks = [e for key, e in wide["errors"].items()
+                  if key.startswith(prefix[family]) and "fp32" not in key]
+        if family == "qattn_fwd":
+            errs_a = [(e[0], e[2]) for e in checks]
+            errs_b = [(e[family][0], e[family][2])
+                      for e in wp["kernels"].values()]
+        else:
+            errs_a = [e[o] for e in checks for o in outs if o in e]
+            errs_b = [e[family][o] for e in wp["kernels"].values()
+                      if family in e for o in outs if o in e[family]]
+        t = wt[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(c.get(family, 0)
+                            for c in wp["launches"].values()),
+            "launches_per_call": {k: c.get(family, 0)
+                                  for k, c in wp["launches"].items()},
+            "max_abs_err": max(e[1] for e in errs_a + errs_b),
+            "rel_err": max(e[0] for e in errs_a + errs_b),
+            "rel_err_mla_path": max(e[0] for e in errs_b),
+            **{k: t[k] for k in ("ms", "ms_2", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "device_ms",
+                                 "device_ms_by_kernel", "body")},
+            "library": ("sdpa forward over the dequantized bf16 K/V"
+                        if family == "qattn_fwd" else "sdpa backward over "
+                        "the dequantized bf16 K/V (dq, dk, dv together)"),
+            **{k: v for k, v in t.items() if k.endswith(("_level2", "splits"))
+               or k == "width"},
+            **({f"{k}_int8_q": v
+                for k, v in wt["qattn_fwd_wide_int8_q"].items()
+                if k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "body")}
+               if family == "qattn_fwd" else {}),
+            "shape": "B=2 Hq=16 Hkv=1 S=2048 D=288 (MLAConfig() layer 0's "
+                     "joint latent), "
+                     + ("causal, folded ROW K / ROW V"
+                        if family.startswith(("qattn", "qflash")) else
+                        "FULL, ROW K / CHANNEL V, level 1"),
+            "bitwise_equal_two_calls": True,  # (a) raises otherwise
+            "device_kernel_name_in_trace": wp["device_kernels"][
+                WIDE_QKERNELS[name][1]],
+            "redesigned": WIDE_QREDESIGNED[name],
+        })
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
     record["gemm_engine"] = {
@@ -5891,6 +6576,14 @@ def main() -> int:
         "world": CP_WORLD, "transport": "gloo through host memory, every "
         "rank on cuda:0", **cp}
     record["utilities"] = util
+    record["wide_quantized"] = {
+        "checks": len(wide["errors"]),
+        "bitwise_equal_two_calls": True,  # (a) raises otherwise
+        **{k: wp[k] for k in ("launches", "grads_rel_l2", "seconds",
+                              "device_kernels", "shape")},
+        "call_o_vs_plain": {k: e["call_o"] for k, e in wp["kernels"].items()},
+        "long_context": wide["long_context"],
+    }
     record["spmd"] = {
         "world": SPMD.world, "mesh_data_model_context": SPMD.mesh,
         "transport": "gloo through host memory, every rank on cuda:0",

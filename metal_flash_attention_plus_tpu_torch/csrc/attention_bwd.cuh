@@ -16,9 +16,9 @@
 // transposed fp32 tiles (every fp32 instance); dq_tc_body and dkv_tc_body,
 // bf16 mma.sync over bf16 tiles (the bf16 instances up to D = 256); and
 // dq_wide_body and dkv_wide_body, bf16 mma.sync with tiles cut for MLA's
-// D = 288 (the flash kernels' bf16 instances at 288; dkv_wide_body splits
-// the GQA group over CTAs into an fp32 workspace that
-// flash_dkv_merge_kernel sums in split order).  dq_tc / dkv_tc / bwd_wide
+// D = 288 (the flash and the exact quantized kernels' bf16 instances at
+// 288; dkv_wide_body splits the GQA group over CTAs into an fp32 workspace
+// that flash_dkv_merge_kernel sums in split order).  dq_tc / dkv_tc / bwd_wide
 // say which; ops/flash_attention_bwd.py::dq_body / dkv_body give the same
 // answer.  fp32 stays off the tensor cores: TF32 keeps ~3 digits and the
 // fp32 instances are held to 2e-5.
@@ -404,9 +404,8 @@ __host__ __device__ constexpr int dkv_tc_min_blocks() {
 
 // Whether the dK/dV of T at head dim D runs on the tensor cores: every
 // bf16 width, on dkv_tc_body up to D = 256 and on dkv_wide_body above
-// (bwd_wide; MLA's 288).  Else dkv_body.  The quantized backward
-// (csrc/quantized_attention_bwd.cu) is built up to D = 256 only, so it
-// never reaches the wide bodies.
+// (bwd_wide; MLA's 288), for float and quantized K/V alike.  Else
+// dkv_body.
 template <typename T, int D>
 __host__ __device__ constexpr bool dkv_tc() {
   return std::is_same<T, __nv_bfloat16>::value;
@@ -1050,11 +1049,16 @@ __device__ __forceinline__ void dq_tc_body(const BwdArgs& a, const KV& kv) {
 // The wide bodies: the bf16 dK/dV and dQ at MLA's D = 288
 //
 // Replace ops/flash_attention_bwd.py::_dkv_kernel and ::_dq_kernel for the
-// flash kernels' bf16 instances above D = 256 (flash_dkv_wide_kernel,
-// flash_dq_wide_kernel).  The function is dkv_tc_body's and dq_tc_body's
-// (the same roundings, P as exp2 of S log2(e) - L log2(e)), over float K/V
-// only: no per-token scales, no store multipliers.  Bound: tensor-core
-// operations (8 D a live pair for dK/dV, 6 D for dQ), as below D = 256.
+// bf16 instances above D = 256 (flash_dkv_wide_kernel,
+// flash_dq_wide_kernel over float K/V; qflash_dkv_wide_kernel,
+// qflash_dq_wide_kernel over int8 / int4 payloads).  The function is
+// dkv_tc_body's and dq_tc_body's (the same roundings, P as exp2 of
+// S log2(e) - L log2(e)) over the same KV policies: a payload (KV::RAW)
+// arrives as its bytes by cp.async and is dequantized into the bf16 tile
+// in shared memory, and the quantized dQ takes its folded scales (ksr,
+// vsr on S, dS and dP's columns, dqsc at the store; Q arrives pre-scaled).
+// Bound: tensor-core operations (8 D a live pair for dK/dV, 6 D for dQ),
+// as below D = 256.
 //
 // Why the D <= 256 layouts do not stretch to 288: a bf16 row is 592 bytes
 // with its 16-byte pad (ROW), a 64-row tile 37,888.  dkv_tc_body holds K
@@ -1069,7 +1073,9 @@ __device__ __forceinline__ void dq_tc_body(const BwdArgs& a, const KV& kv) {
 //     and dO in steps of 48 query rows, two buffers each (113,664); the
 //     steps' L, D and key ranges, two buffers (1,536); the P^T and dS^T
 //     tiles, bf16 [64 keys][48 queries] (14,336).  A step is 48 rows, not
-//     64, so that both buffers fit.
+//     64, so that both buffers fit.  K's and V's payload rows (64 x 288
+//     bytes each) land in the second Q and dO buffers before the walk
+//     starts, and are dequantized from there, as in dkv_tc_body.
 //   - Warps: 4 key slices of 16 x 3 parts.  For S^T = K.Q_s^T and dP^T =
 //     V.dO^T a part is 16 of the step's 48 query columns; for dV +=
 //     round(P^T).dO and dK += round(dS^T).Q_s it is 96 of D's 288 lanes (a
@@ -1086,9 +1092,12 @@ __device__ __forceinline__ void dq_tc_body(const BwdArgs& a, const KV& kv) {
 //     floating-point atomics: two calls give the same bits.
 // dq_wide_body: dq_tc_body's grid (one CTA per 64 query rows, b, q head;
 // the row tiles last first) with 8 warps.
-//   - Shared memory (156,672 bytes): Q and dO resident (75,776); K and V
-//     in tiles of 32 keys, two buffers each (75,776); the dS tile, bf16
-//     [64 queries][32 keys] (5,120).
+//   - Shared memory (156,672 bytes over float K/V): Q and dO resident
+//     (75,776); K and V in tiles of 32 keys, two buffers each (75,776);
+//     the dS tile, bf16 [64 queries][32 keys] (5,120).  Over payloads
+//     (156,160 bytes): one bf16 tile each of K and V (37,888), their
+//     payload rows in two buffers each (36,864) and the tile's ksr and
+//     vsr, two buffers (512), as DqTcSmem's RAW layout.
 //   - Warps: 4 row slices of 16 x 2 parts: 16 of the tile's 32 keys for S
 //     and dP, 144 of D's lanes for dQ += round(dS).K.  Registers: the dQ
 //     accumulator 72 a thread, S and dP 16.
@@ -1119,11 +1128,10 @@ constexpr int DKV_WIDE_THREADS = 384;  // 4 key slices x 3 parts
 
 // dK/dV for one (64 keys, b, kv head) over the q heads of split `sp` of
 // the GQA group (see above).  out0 / out1 get dK / dV where splits is 1,
-// else ws[sp][0] / ws[sp][1].
-template <int D>
-__device__ __forceinline__ void dkv_wide_body(const BwdArgs& a,
-                                              const __nv_bfloat16* k,
-                                              const __nv_bfloat16* v,
+// else ws[sp][0] / ws[sp][1].  KV: tc_load / tc_convert / RAW as for
+// dkv_tc_body.
+template <int D, typename KV>
+__device__ __forceinline__ void dkv_wide_body(const BwdArgs& a, const KV& kv,
                                               int splits, float* ws) {
   using L = DkvWideSmem<D>;
   constexpr int NT = DKV_WIDE_THREADS;
@@ -1154,8 +1162,11 @@ __device__ __forceinline__ void dkv_wide_body(const BwdArgs& a,
   uint8_t* sk = smem_tc + L::K;
   uint8_t* sv = smem_tc + L::V;
 
-  stage_rows_async<D, L::ROW, NT>(k + bkv * Skv * D, c0, Skv, sk);
-  stage_rows_async<D, L::ROW, NT>(v + bkv * Skv * D, c0, Skv, sv);
+  // K and V (their payloads into the second Q / dO buffers), then step 0.
+  kv.template tc_load<NT, L::ROW>(false, bkv, c0, Skv, sk,
+                                 smem_tc + L::Q + L::QTILE);
+  kv.template tc_load<NT, L::ROW>(true, bkv, c0, Skv, sv,
+                                 smem_tc + L::DO + L::QTILE);
   cp_async_commit();
   query_span(a.ranges, Sq, Skv, c0, min(c0 + BN, Skv), &s_rmin, &s_rmax);
   const int row_lo = s_rmin;
@@ -1181,6 +1192,15 @@ __device__ __forceinline__ void dkv_wide_body(const BwdArgs& a,
   };
   if (steps > 0) prefetch(0, 0);
   cp_async_commit();
+  if constexpr (KV::RAW) {
+    static_assert(BN * D <= L::QTILE, "a payload tile fits a Q buffer");
+    cp_async_wait<1>();
+    __syncthreads();  // K's and V's payload rows landed
+    kv.template tc_convert<NT, L::ROW>(false, bkv, c0, Skv, sk,
+                                      smem_tc + L::Q + L::QTILE);
+    kv.template tc_convert<NT, L::ROW>(true, bkv, c0, Skv, sv,
+                                      smem_tc + L::DO + L::QTILE);
+  }
 
   float dk[NDB][4], dv[NDB][4];
 #pragma unroll
@@ -1191,7 +1211,8 @@ __device__ __forceinline__ void dkv_wide_body(const BwdArgs& a,
   for (int it = 0; it < steps; ++it) {
     const int buf = it & 1;
     cp_async_wait<0>();
-    __syncthreads();  // step it (and K, V) staged; step it - 1 done
+    __syncthreads();  // step it (and K, V) staged, K and V converted; step
+                      // it - 1 done
     if (it + 1 < steps) prefetch(it + 1, buf ^ 1);
     cp_async_commit();
     uint8_t* sq = smem_tc + L::Q + buf * L::QTILE;
@@ -1263,7 +1284,10 @@ __device__ __forceinline__ void dkv_wide_body(const BwdArgs& a,
   }
 }
 
-template <int D>
+// RAW: K and V arrive as payload rows (D bytes, two buffers each)
+// dequantized into one bf16 tile each, with the tile's ksr and vsr; else
+// as bf16 rows into two tiles each.
+template <int D, bool RAW>
 struct DqWideSmem {
   static constexpr int NS = 2;               // key and lane parts
   static constexpr int KS = 32;              // keys a tile
@@ -1271,11 +1295,15 @@ struct DqWideSmem {
   static constexpr int QTILE = BM * ROW;     // 64 query rows
   static constexpr int KTILE = KS * ROW;     // 32 keys
   static constexpr int S_LD = 2 * KS + 16;   // a dS row [query][32 keys]
+  static constexpr int KV_BUFS = RAW ? 1 : 2;
   static constexpr int Q = 0;
   static constexpr int DO = QTILE;
-  static constexpr int K = 2 * QTILE;        // two buffers
-  static constexpr int V = K + 2 * KTILE;    // two buffers
-  static constexpr int DS = V + 2 * KTILE;
+  static constexpr int K = 2 * QTILE;
+  static constexpr int V = K + KV_BUFS * KTILE;
+  static constexpr int RAW_K = V + KV_BUFS * KTILE;  // two buffers
+  static constexpr int RAW_V = RAW_K + (RAW ? 2 * KS * D : 0);
+  static constexpr int SC = RAW_V + (RAW ? 2 * KS * D : 0);  // ksr|vsr, x2
+  static constexpr int DS = SC + (RAW ? 2 * 2 * KS * 4 : 0);
   static constexpr size_t BYTES = DS + BM * S_LD;
   static_assert(D % (16 * NS) == 0 && KS % (16 * NS) == 0,
                 "a part's lanes and keys are whole 16-wide steps");
@@ -1283,13 +1311,13 @@ struct DqWideSmem {
 
 constexpr int DQ_WIDE_THREADS = 256;  // 4 row slices x 2 parts
 
-// dQ (and dbias) for one (64 query rows, b, q head), Q scaled by a.scale
-// and rounded to bf16 here, dQ stored times a.scale (see above).
-template <int D>
-__device__ __forceinline__ void dq_wide_body(const BwdArgs& a,
-                                             const __nv_bfloat16* k,
-                                             const __nv_bfloat16* v) {
-  using L = DqWideSmem<D>;
+// dQ (and dbias) for one (64 query rows, b, q head), dQ stored times
+// a.scale, or a.dqsc over payloads (see above).  SCALE_Q: Q is scaled by
+// a.scale and rounded to bf16 here (else the caller passed it
+// pre-scaled).  KV: tc_load / tc_convert / RAW as for dq_tc_body.
+template <int D, bool SCALE_Q, typename KV>
+__device__ __forceinline__ void dq_wide_body(const BwdArgs& a, const KV& kv) {
+  using L = DqWideSmem<D, KV::RAW>;
   constexpr int NT = DQ_WIDE_THREADS;
   constexpr int KS = L::KS;
   constexpr int KW = KS / L::NS;  // key columns of a warp's S, dP
@@ -1314,8 +1342,9 @@ __device__ __forceinline__ void dq_wide_body(const BwdArgs& a,
   const size_t bk = (size_t)b * a.Hkv + hk;
   const float* bh_bias =
       a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
-  const __nv_bfloat16* kh = k + bk * Skv * D;
-  const __nv_bfloat16* vh = v + bk * Skv * D;
+  // The folded scales exist only over payloads.
+  const float* ksr = KV::RAW && a.ksr ? a.ksr + bk * Skv : nullptr;
+  const float* vsr = KV::RAW && a.vsr ? a.vsr + bk * Skv : nullptr;
   uint8_t* sq = smem_tc + L::Q;
   const uint8_t* sdo = smem_tc + L::DO;
 
@@ -1329,19 +1358,32 @@ __device__ __forceinline__ void dq_wide_body(const BwdArgs& a,
   const int c_hi = s_hi;
   const int c0 = (s_lo / KS) * KS;
   const int tiles = c0 < c_hi ? (c_hi - c0 + KS - 1) / KS : 0;
-  // Tile it's K and V rows into buffer `buf`: zeros from c_hi.
+  // Tile it's K and V rows (and ksr, vsr) into buffer `buf`: zeros from
+  // c_hi.
   auto load = [&](int it, int buf) {
     const int t0 = c0 + it * KS;
-    stage_rows_async<D, L::ROW, NT, KS>(kh, t0, c_hi,
-                                        smem_tc + L::K + buf * L::KTILE);
-    stage_rows_async<D, L::ROW, NT, KS>(vh, t0, c_hi,
-                                        smem_tc + L::V + buf * L::KTILE);
+    const int kb = KV::RAW ? 0 : buf;
+    kv.template tc_load<NT, L::ROW, KS>(false, bk, t0, c_hi,
+                                       smem_tc + L::K + kb * L::KTILE,
+                                       smem_tc + L::RAW_K + buf * KS * D);
+    kv.template tc_load<NT, L::ROW, KS>(true, bk, t0, c_hi,
+                                       smem_tc + L::V + kb * L::KTILE,
+                                       smem_tc + L::RAW_V + buf * KS * D);
+    if constexpr (KV::RAW) {
+      float* sc = reinterpret_cast<float*>(smem_tc + L::SC) + buf * 2 * KS;
+      const int i = threadIdx.x;
+      const float* src = i < KS ? ksr : vsr;
+      if (i < 2 * KS && src) {
+        const bool ok = t0 + i % KS < c_hi;
+        cp_async4(sc + i, ok ? src + t0 + i % KS : src, ok ? 4 : 0);
+      }
+    }
   };
   if (tiles > 0) load(0, 0);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();  // Q's and dO's rows landed
-  scale_rows_bf16<D, L::ROW, NT>(sq, a.scale);
+  if (SCALE_Q) scale_rows_bf16<D, L::ROW, NT>(sq, a.scale);
 
   const DqRows w = dq_rows(a, bh, r0 + 16 * rw + g);
 
@@ -1358,8 +1400,20 @@ __device__ __forceinline__ void dq_wide_body(const BwdArgs& a,
     __syncthreads();  // tile it staged, Q scaled; tile it - 1 done
     if (it + 1 < tiles) load(it + 1, buf ^ 1);
     cp_async_commit();
-    const uint8_t* sk = smem_tc + L::K + buf * L::KTILE;
-    const uint8_t* sv = smem_tc + L::V + buf * L::KTILE;
+    const int kb = KV::RAW ? 0 : buf;
+    uint8_t* sk = smem_tc + L::K + kb * L::KTILE;
+    uint8_t* sv = smem_tc + L::V + kb * L::KTILE;
+    const float* sks =
+        reinterpret_cast<const float*>(smem_tc + L::SC) + buf * 2 * KS;
+    if constexpr (KV::RAW) {
+      kv.template tc_convert<NT, L::ROW, KS>(false, bk, t0, c_hi, sk,
+                                            smem_tc + L::RAW_K +
+                                                buf * KS * D);
+      kv.template tc_convert<NT, L::ROW, KS>(true, bk, t0, c_hi, sv,
+                                            smem_tc + L::RAW_V +
+                                                buf * KS * D);
+      __syncthreads();  // K and V dequantized
+    }
 
     // S and dP for rows 16 rw + [0, 16) and keys kc0 + [0, KW): element
     // (row g + 8i, key kc0 + 8j + 2tq + c) at [j][2i + c].
@@ -1371,8 +1425,23 @@ __device__ __forceinline__ void dq_wide_body(const BwdArgs& a,
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     mma_nt<D / 16, NKB, L::ROW, L::ROW>(sq, 16 * rw, sk, kc0, s);
     mma_nt<D / 16, NKB, L::ROW, L::ROW>(sdo, 16 * rw, sv, kc0, dp);
+    if (ksr) {
+#pragma unroll
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] *= sks[kc0 + 8 * j + 2 * tq + (e & 1)];
+    }
+    if (vsr) {
+#pragma unroll
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] *= sks[KS + kc0 + 8 * j + 2 * tq + (e & 1)];
+    }
 
-    // P, dS (dbias) as dq_tc_body makes them; s[j][e] becomes dS.
+    // P, dS (dbias) as dq_tc_body makes them; s[j][e] becomes dS (x ksr),
+    // the value dS.K rounds.
     const bool whole = t0 + kc0 >= w.live_lo && t0 + kc0 + KW <= w.live_hi;
 #pragma unroll
     for (int j = 0; j < NKB; ++j)
@@ -1389,7 +1458,7 @@ __device__ __forceinline__ void dq_wide_body(const BwdArgs& a,
         const float ds = p * (dp[j][e] - w.dd[i]);
         if (a.out1 && row < Sq && key < Skv)
           a.out1[(bh * Sq + row) * Skv + key] = ds;
-        s[j][e] = ds;
+        s[j][e] = ksr ? ds * sks[kc0 + 8 * j + 2 * tq + (e & 1)] : ds;
       }
 
     // The CTA's dS tile in bf16, then dQ += dS.K, 16 keys a k step.
@@ -1420,9 +1489,14 @@ __device__ __forceinline__ void dq_wide_body(const BwdArgs& a,
     if (row >= Sq) continue;
     float* out = a.out0 + (bh * Sq + row) * D + part * DW + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < NDB; ++j)
+    for (int j = 0; j < NDB; ++j) {
+      const int d = part * DW + 8 * j + 2 * tq;
+      const bool by_lane = KV::RAW && a.dqsc;
+      const float m0 = by_lane ? a.dqsc[bk * D + d] : a.scale;
+      const float m1 = by_lane ? a.dqsc[bk * D + d + 1] : a.scale;
       *reinterpret_cast<float2*>(out + 8 * j) =
-          make_float2(acc[j][2 * i] * a.scale, acc[j][2 * i + 1] * a.scale);
+          make_float2(acc[j][2 * i] * m0, acc[j][2 * i + 1] * m1);
+    }
   }
 }
 

@@ -619,15 +619,16 @@ struct FloatKV {
     stage_t<T, D, false>((is_v ? v : k) + head * Skv * D, t0, limit, dst,
                          0.f);
   }
-  // dkv_tc_body's staging (T = bf16): the rows as they are, by cp.async.
-  template <int NT, int ROW>
+  // The tensor-core bodies' staging (T = bf16): ROWS rows as they are, by
+  // cp.async.
+  template <int NT, int ROW, int ROWS = 64>
   __device__ __forceinline__ void tc_load(bool is_v, size_t head, int t0,
                                           int limit, uint8_t* dst,
                                           uint8_t*) const {
-    mfa::stage_rows_async<D, ROW, NT>((is_v ? v : k) + head * Skv * D, t0,
-                                      limit, dst);
+    mfa::stage_rows_async<D, ROW, NT, ROWS>((is_v ? v : k) + head * Skv * D,
+                                            t0, limit, dst);
   }
-  template <int NT, int ROW>
+  template <int NT, int ROW, int ROWS = 64>
   __device__ __forceinline__ void tc_convert(bool, size_t, int, int,
                                              uint8_t*,
                                              const uint8_t*) const {}
@@ -656,7 +657,7 @@ flash_dq_tc_kernel(const BwdArgs a, const FloatKV<__nv_bfloat16, D> kv) {
 template <int D>
 __global__ void __launch_bounds__(mfa::DQ_WIDE_THREADS, 1)
 flash_dq_wide_kernel(const BwdArgs a, const FloatKV<__nv_bfloat16, D> kv) {
-  mfa::dq_wide_body<D>(a, kv.k, kv.v);
+  mfa::dq_wide_body<D, true>(a, kv);
 }
 
 // Replaces ops/flash_attention_bwd.py::_dkv_kernel.  Bound: operations
@@ -685,7 +686,7 @@ template <int D>
 __global__ void __launch_bounds__(mfa::DKV_WIDE_THREADS, 1)
 flash_dkv_wide_kernel(const BwdArgs a, const FloatKV<__nv_bfloat16, D> kv,
                       int splits, float* __restrict__ ws) {
-  mfa::dkv_wide_body<D>(a, kv.k, kv.v, splits, ws);
+  mfa::dkv_wide_body<D>(a, kv, splits, ws);
 }
 
 // The second launch of a split dK/dV: dk[i] = ws[0][0][i] + ws[1][0][i] +
@@ -795,7 +796,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
     return (int)cudaErrorInvalidValue;
   if constexpr (DQ && WIDE)
     return launch_with_smem(flash_dq_wide_kernel<D>, grid,
-                            mfa::DQ_WIDE_THREADS, mfa::DqWideSmem<D>::BYTES,
+                            mfa::DQ_WIDE_THREADS,
+                            mfa::DqWideSmem<D, false>::BYTES,
                             stream, a, kv);
   else if constexpr (DQ && TC)
     return launch_with_smem(flash_dq_tc_kernel<D>, grid,
@@ -929,8 +931,8 @@ int mfa_flash_dkv_merge(const void* ws, void* dk, void* dv, int splits,
 // Which of the forward (bit 0), dQ (bit 1) and dK/dV (bit 2) kernels of
 // dtype at the built head dim D run on the tensor cores (fwd_tc, dq_tc,
 // dkv_tc: at D = 288 the forward on flash_fwd_wide_kernel, the dQ and
-// dK/dV on the wide bodies; the quantized launchers route by dq_tc and
-// dkv_tc too, up to D = 256); -1 for a dtype or head dim without kernels.
+// dK/dV on the wide bodies; the quantized launchers route by dq_tc,
+// dkv_tc and bwd_wide too); -1 for a dtype or head dim without kernels.
 int mfa_flash_tc_bodies(int dtype, int D) {
 #define MFA_BODIES(T, DD)                                          \
   if (D == DD)                                                     \

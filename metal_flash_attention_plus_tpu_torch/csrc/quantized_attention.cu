@@ -4,7 +4,8 @@
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
 //   - ops/quantized_attention.py::_qfwd_kernel   -> qattn_fwd_tc_kernel (a
-//     bf16 or int8 Q), qattn_fwd_kernel (an fp32 Q)
+//     bf16 or int8 Q up to D = 256), qattn_fwd_wide_kernel (a bf16 or int8
+//     Q at MLA's D = 288), qattn_fwd_kernel (an fp32 Q)
 //   - ops/quantized_attention.py::_hpack_kernel  -> qattn_fwd_tc_kernel<bf16,
 //     64> (a bf16 Q), qattn_fwd_kernel<float, 64> (an fp32 Q), launched by
 //     mfa_hpack_fwd through the packed strides
@@ -15,8 +16,14 @@
 // covers the natural layout and the packed [B, Hq/2, Sq, 128] one (head 2p
 // in lanes [0, 64) of pair p, head 2p + 1 in [64, 128)).  O is fp32 in Q's
 // layout; L fp32 [B, Hq, Sq].  K and V payloads are int8 [B, Hkv, Skv, D] or
-// group-planar int4 uint8 [B, Hkv, Skv, D/2] (D <= 256: byte j holds value j
-// in its low nibble and value j + D/2 in its high one, each stored + 8).
+// group-planar int4 uint8 [B, Hkv, Skv, D/2]: groups of 256 values (the last
+// one shorter), within a group of width w byte j holding value j in its low
+// nibble and value j + w/2 in its high one, each stored + 8 (D <= 256: byte
+// j holds values j and j + D/2; D = 288: bytes [0, 128) values j and
+// j + 128, bytes [128, 144) values 256 + j and 272 + j; quantized_tiles.cuh
+// reads both).  Head dims: built for 32, 64, 128, 256 and 288; the other
+// multiples of 16 up to 288 run zero-padded at the next
+// (ops/quantized_attention.py::qattn_width).
 // GQA as in the flash kernels; every mask is the [Sq, 2] row-range table.
 //
 // Scale modes (what the TPU kernel's flags select):
@@ -389,9 +396,38 @@ __global__ void __launch_bounds__(THREADS) qattn_fwd_kernel(const Args a) {
 // CTAs walk the row tiles last first (under a causal mask the last walk
 // the most keys).  At D=256 the accumulator is 128 fp32 registers a
 // thread: two CTAs an SM.
+//
+// qattn_fwd_wide_kernel: the same body at MLA's D = 288 (qattn_wide), its
+// tiles cut as flash_attention.cu cuts flash_fwd_wide_kernel's.
+//   - Registers.  O's 16 x 288 fp32 a warp are 144 registers a thread;
+//     steps of KS = 32 keys hold S at 16 (64 keys: 32, beside the mode's
+//     scales, spans and the products' fragments).  An int8 Q's S takes 9
+//     s8 k steps of 32; its int32 sums start from 0 (|S| may pass 2^22).
+//   - Spans.  A 32-key step walks the TPU's block_kv spans of an int8 P
+//     (P_INT8, kv_span >= 64) in two passes, as the 64-key body walks
+//     spans wider than its tile, so the integers of P round against the
+//     same row max; the other modes (kv_span = 64) walk single 32-key
+//     steps, where P's bf16 rounding against the running max is the only
+//     difference the tiles make (within the bf16 gate, as in the flash
+//     forward).  The int8 P by int8 V product is one s8 k step a 32-key
+//     step.
+//   - Shared memory.  A bf16 Q: Q (64 rows, 37,888 bytes), two buffers of
+//     the step's K and V payload rows (36,864, unpadded: the conversion
+//     reads them a word a lane), the per-token vectors (1,024), one bf16
+//     tile each of K and V (37,888): 113,664 bytes, so two CTAs share an
+//     SM's 228 KB (8 warps; __launch_bounds__ asks for 2).  An int8 Q: at
+//     most 88,064.
 // ---------------------------------------------------------------------------
 
 constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
+
+// Whether a tensor-core forward at head dim D takes qattn_fwd_wide_kernel
+// (MLA's 288), whose steps are cut to 32 keys.
+template <int D>
+__host__ __device__ constexpr bool qattn_wide() {
+  return D > 256;
+}
+
 // The per-token vectors a step stages beside its payload rows: K's scale
 // (TOKEN, COLUMN) and zero point (TOKEN), V's scale (TOKEN, P) and zero
 // point (TOKEN).
@@ -400,21 +436,26 @@ enum TokVec { TK_SCALE = 0, TK_ZP = 1, TV_SCALE = 2, TV_ZP = 3, TOK_VECS = 4 };
 // Byte offsets of the tensor-core body's shared memory.
 template <typename QT, int D>
 struct TcSmem {
+  static constexpr bool QINT = std::is_same<QT, int8_t>::value;
+  static constexpr int KS = qattn_wide<D>() ? 32 : BN;  // keys a step
   static constexpr int QB = sizeof(QT);
   static constexpr int Q_LD = D * QB + 16;  // a Q row (int8 or bf16)
-  static constexpr int RAW_LD = D + 16;     // a raw payload row
+  // A raw payload row: padded by 16 bytes (ldmatrix reads it for an int8 Q
+  // over int8 K) except for a bf16 Q at D = 288, where those bytes would
+  // keep a second CTA off the SM.
+  static constexpr int RAW_LD = qattn_wide<D>() && !QINT ? D : D + 16;
   static constexpr int K_LD = D * QB + 16;  // a K operand row
   static constexpr int VB_LD = 2 * D + 16;  // a bf16 V row [key][d]
-  static constexpr int VT_LD = BN + 16;     // an int8 V^T row [d][key]
-  // tok: two buffers of the tile's per-token vectors, TOK_VECS x BN fp32.
+  static constexpr int VT_LD = KS + 16;     // an int8 V^T row [d][key]
+  // tok: two buffers of the step's per-token vectors, TOK_VECS x KS fp32.
   int kraw, vraw, kop, vop, total;
   static constexpr int TOK = BM * Q_LD;
   __host__ __device__ TcSmem(bool k_direct, bool pv_s8) {
-    kraw = TOK + 2 * TOK_VECS * BN * 4;
-    vraw = kraw + 2 * BN * RAW_LD;
-    kop = vraw + 2 * BN * RAW_LD;
-    vop = kop + (k_direct ? 0 : BN * K_LD);
-    total = vop + (pv_s8 ? D * VT_LD : BN * VB_LD);
+    kraw = TOK + 2 * TOK_VECS * KS * 4;
+    vraw = kraw + 2 * KS * RAW_LD;
+    kop = vraw + 2 * KS * RAW_LD;
+    vop = kop + (k_direct ? 0 : KS * K_LD);
+    total = vop + (pv_s8 ? D * VT_LD : KS * VB_LD);
   }
 };
 
@@ -425,28 +466,29 @@ __host__ __device__ inline bool tc_pv_s8(int flags, int v_scales) {
 }
 
 // The walk over one CTA's live keys [c_lo, c_hi): spans of `span` keys
-// aligned to multiples of it, each in 64-key tiles, with a first pass
-// (pass 0, K only: the span's row max) when span > 64.
+// aligned to multiples of it, each in KS-key tiles, with a first pass
+// (pass 0, K only: the span's row max) when span > KS.
+template <int KS>
 struct Walk {
   int span, c_hi, lo_tile, sp0, t_beg, t_end, pass, t0;
   __device__ void start_span() {
     t_beg = max(sp0, lo_tile);
     t_end = min(sp0 + span, c_hi);
-    pass = span > BN ? 0 : 1;
+    pass = span > KS ? 0 : 1;
     t0 = t_beg;
   }
   __device__ Walk(int span_, int c_lo, int c_hi_)
-      : span(span_), c_hi(c_hi_), lo_tile((c_lo / BN) * BN),
+      : span(span_), c_hi(c_hi_), lo_tile((c_lo / KS) * KS),
         sp0((c_lo / span_) * span_) {
     if (live()) start_span();
   }
   __device__ bool live() const { return sp0 < c_hi; }
   // The first tile of a span's first pass: the span's max starts anew.
   __device__ bool fresh() const {
-    return t0 == t_beg && pass == (span > BN ? 0 : 1);
+    return t0 == t_beg && pass == (span > KS ? 0 : 1);
   }
   __device__ void advance() {
-    t0 += BN;
+    t0 += KS;
     if (t0 < t_end) return;
     if (pass == 0) {
       pass = 1;
@@ -458,15 +500,16 @@ struct Walk {
   }
 };
 
-// cp.async the per-token vectors of keys [t0, t0 + 64) of kv head `head`
-// that the mode reads into tok[v * BN + r]; zeros from `limit`.
+// cp.async the per-token vectors of keys [t0, t0 + KS) of kv head `head`
+// that the mode reads into tok[v * KS + r]; zeros from `limit`.
+template <int KS>
 __device__ __forceinline__ void stage_tok(const Args& a, size_t head, int t0,
                                           int limit, float* tok) {
 #pragma unroll
-  for (int it = 0; it < TOK_VECS * BN / TC_THREADS; ++it) {
+  for (int it = 0; it < TOK_VECS * KS / TC_THREADS; ++it) {
     const int i = it * TC_THREADS + threadIdx.x;
-    const int v = i / BN;
-    const int r = i % BN;
+    const int v = i / KS;
+    const int r = i % KS;
     const bool need =
         v == TK_SCALE ? a.k_scales == K_TOKEN || a.k_scales == K_COLUMN
         : v == TK_ZP  ? a.k_scales == K_TOKEN
@@ -518,10 +561,10 @@ __device__ __forceinline__ uint2 dequant_bf16(const KVOperand& op,
                                 0x7632));
 }
 
-// Raw payload rows -> bf16 rows [key][d] (dst_ld bytes apart):
+// Raw payload rows (KS keys) -> bf16 rows [key][d] (dst_ld bytes apart):
 // dequant_bf16's values, zeros from `limit`; ts, tz the staged per-token
 // scale and zero point.
-template <int D, int RAW_LD>
+template <int D, int RAW_LD, int KS>
 __device__ __forceinline__ void convert_bf16(const KVOperand& op,
                                              const uint8_t* raw, size_t head,
                                              int Skv, int br, int bs, int t0,
@@ -529,8 +572,9 @@ __device__ __forceinline__ void convert_bf16(const KVOperand& op,
                                              const float* tz, uint8_t* dst,
                                              int dst_ld) {
   constexpr int W = D / 4;
+  static_assert(KS * W % TC_THREADS == 0, "whole items a thread");
 #pragma unroll 2
-  for (int it = 0; it < BN * W / TC_THREADS; ++it) {
+  for (int it = 0; it < KS * W / TC_THREADS; ++it) {
     const int i = it * TC_THREADS + threadIdx.x;
     const int r = i / W;
     const int w = i % W;
@@ -543,14 +587,15 @@ __device__ __forceinline__ void convert_bf16(const KVOperand& op,
   }
 }
 
-// Raw payload rows -> int8 rows [key][d] (int4 unpacked), zeros from
-// `limit`.
-template <int D, int RAW_LD, int DST_LD>
+// Raw payload rows (KS keys) -> int8 rows [key][d] (int4 unpacked), zeros
+// from `limit`.
+template <int D, int RAW_LD, int DST_LD, int KS>
 __device__ __forceinline__ void convert_s8(const uint8_t* raw, int bits,
                                            int t0, int limit, uint8_t* dst) {
   constexpr int W = D / 4;
+  static_assert(KS * W % TC_THREADS == 0, "whole items a thread");
 #pragma unroll 2
-  for (int it = 0; it < BN * W / TC_THREADS; ++it) {
+  for (int it = 0; it < KS * W / TC_THREADS; ++it) {
     const int i = it * TC_THREADS + threadIdx.x;
     const int r = i / W;
     const int w = i % W;
@@ -559,17 +604,21 @@ __device__ __forceinline__ void convert_s8(const uint8_t* raw, int bits,
   }
 }
 
-// Raw payload rows -> int8 V^T [d][key position] (VT_LD bytes a row), keys
-// permuted within each 16-key group as the s8 P operand holds them.
-template <int D, int RAW_LD, int VT_LD>
+// Raw payload rows (KS keys) -> int8 V^T [d][key position] (VT_LD bytes a
+// row), keys permuted within each 16-key group as the s8 P operand holds
+// them.
+template <int D, int RAW_LD, int VT_LD, int KS>
 __device__ __forceinline__ void convert_vt(const uint8_t* raw, int bits,
                                            int t0, int limit, uint8_t* dst) {
   constexpr int W = D / 4;
+  constexpr int QUADS = KS / 4;  // 4-position groups a row
+  constexpr int N = QUADS * W;   // items
 #pragma unroll 2
-  for (int it = 0; it < 16 * W / TC_THREADS; ++it) {
+  for (int it = 0; it < (N + TC_THREADS - 1) / TC_THREADS; ++it) {
     const int i = it * TC_THREADS + threadIdx.x;
-    const int quad = i % 16;  // positions [4 quad, 4 quad + 4)
-    const int w = i / 16;     // (neighbouring threads store to one row)
+    if (N % TC_THREADS && i >= N) break;
+    const int quad = i % QUADS;  // positions [4 quad, 4 quad + 4)
+    const int w = i / QUADS;     // (neighbouring threads store to one row)
     const int k0 = 16 * (quad >> 2) + 2 * (quad & 3);
     const int keys[4] = {k0, k0 + 1, k0 + 8, k0 + 9};
     unsigned x[4], y[4];
@@ -586,15 +635,15 @@ __device__ __forceinline__ void convert_vt(const uint8_t* raw, int bits,
   }
 }
 
-// Replaces ops/quantized_attention.py::_qfwd_kernel for a bf16 or int8 Q
-// with ROUND_BF16, and _hpack_kernel for a bf16 packed Q (D = 64).  Bound:
-// operations (4*D per live pair, int8 or bf16).
+// The tensor-core body (the kernels below wrap it).  Bound: operations
+// (4*D per live pair, int8 or bf16).
 template <typename QT, int D>
-__global__ void __launch_bounds__(TC_THREADS)
-    qattn_fwd_tc_kernel(const Args a) {
+__device__ __forceinline__ void qattn_tc_body(const Args& a) {
   constexpr bool QINT = std::is_same<QT, int8_t>::value;
   using L = TcSmem<QT, D>;
-  constexpr int NB = D / 8;  // 8-column blocks of O
+  constexpr int KS = L::KS;    // keys a step
+  constexpr int NKB = KS / 8;  // 8-key blocks of S
+  constexpr int NB = D / 8;    // 8-column blocks of O
   extern __shared__ __align__(16) uint8_t sm[];
   __shared__ int s_lo, s_hi;
 
@@ -662,52 +711,56 @@ __global__ void __launch_bounds__(TC_THREADS)
 
   const KVOperand kop_d{a.kq, a.ks, a.kz, a.bits_k, a.k_scales};
   const KVOperand vop_d{a.vq, a.vs, a.vz, a.bits_v, a.v_scales};
-  auto prefetch = [&](const Walk& w, int buf) {
-    stage_tok(a, bk, w.t0, c_hi, tok + buf * TOK_VECS * BN);
-    mfa::stage_raw<D, L::RAW_LD, TC_THREADS>(a.kq, a.bits_k, bk, a.Skv,
-                                             w.t0, c_hi,
-                                             kraw + buf * BN * L::RAW_LD);
+  auto prefetch = [&](const Walk<KS>& w, int buf) {
+    stage_tok<KS>(a, bk, w.t0, c_hi, tok + buf * TOK_VECS * KS);
+    mfa::stage_raw<D, L::RAW_LD, TC_THREADS, KS>(
+        a.kq, a.bits_k, bk, a.Skv, w.t0, c_hi, kraw + buf * KS * L::RAW_LD);
     if (w.pass == 1)
-      mfa::stage_raw<D, L::RAW_LD, TC_THREADS>(a.vq, a.bits_v, bk, a.Skv,
-                                               w.t0, c_hi,
-                                               vraw + buf * BN * L::RAW_LD);
+      mfa::stage_raw<D, L::RAW_LD, TC_THREADS, KS>(
+          a.vq, a.bits_v, bk, a.Skv, w.t0, c_hi,
+          vraw + buf * KS * L::RAW_LD);
   };
 
-  Walk w(a.kv_span, s_lo, c_hi);
+  // Spans of kv_span keys; a narrower step than BN walks BN-key spans
+  // (every mode but the int8 P's) in single steps.
+  const int span = KS < BN && a.kv_span == BN && !p_int8 ? KS : a.kv_span;
+  Walk<KS> w(span, s_lo, c_hi);
   int buf = 0;
   if (w.live()) prefetch(w, 0);
   mfa::cp_async_commit();  // Q and the first step
   while (w.live()) {
-    const Walk cur = w;
+    const Walk<KS> cur = w;
     w.advance();
     mfa::cp_async_wait<0>();
     __syncthreads();  // this step staged; the last one's readers done
-    const uint8_t* kr = kraw + buf * BN * L::RAW_LD;
-    const uint8_t* vr = vraw + buf * BN * L::RAW_LD;
-    const float* tk = tok + buf * TOK_VECS * BN;
+    const uint8_t* kr = kraw + buf * KS * L::RAW_LD;
+    const uint8_t* vr = vraw + buf * KS * L::RAW_LD;
+    const float* tk = tok + buf * TOK_VECS * KS;
     buf ^= 1;
     if (w.live()) prefetch(w, buf);
     mfa::cp_async_commit();
     if constexpr (QINT) {
       if (!k_direct)
-        convert_s8<D, L::RAW_LD, L::K_LD>(kr, a.bits_k, cur.t0, c_hi, kop);
+        convert_s8<D, L::RAW_LD, L::K_LD, KS>(kr, a.bits_k, cur.t0, c_hi,
+                                              kop);
     } else {
-      convert_bf16<D, L::RAW_LD>(kop_d, kr, bk, a.Skv, a.br, a.bs, cur.t0,
-                                 c_hi, tk + TK_SCALE * BN, tk + TK_ZP * BN,
-                                 kop, L::K_LD);
+      convert_bf16<D, L::RAW_LD, KS>(kop_d, kr, bk, a.Skv, a.br, a.bs,
+                                     cur.t0, c_hi, tk + TK_SCALE * KS,
+                                     tk + TK_ZP * KS, kop, L::K_LD);
     }
     if (cur.pass == 1) {
       if (pv_s8)
-        convert_vt<D, L::RAW_LD, L::VT_LD>(vr, a.bits_v, cur.t0, c_hi, vop);
+        convert_vt<D, L::RAW_LD, L::VT_LD, KS>(vr, a.bits_v, cur.t0, c_hi,
+                                               vop);
       else
-        convert_bf16<D, L::RAW_LD>(vop_d, vr, bk, a.Skv, a.br, a.bs, cur.t0,
-                                   c_hi, tk + TV_SCALE * BN, tk + TV_ZP * BN,
-                                   vop, L::VB_LD);
+        convert_bf16<D, L::RAW_LD, KS>(vop_d, vr, bk, a.Skv, a.br, a.bs,
+                                       cur.t0, c_hi, tk + TV_SCALE * KS,
+                                       tk + TV_ZP * KS, vop, L::VB_LD);
     }
     if (!k_direct || cur.pass == 1) __syncthreads();  // operand tiles ready
 
-    // S = Q.K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[8][4];
+    // S = Q.K^T for this warp's 16 rows and the step's KS keys.
+    float s[NKB][4];
     {
       const uint8_t* kt = k_direct ? kr : kop;
       const int k_ld = k_direct ? L::RAW_LD : L::K_LD;
@@ -718,9 +771,9 @@ __global__ void __launch_bounds__(TC_THREADS)
       if constexpr (QINT) {
         // |S| < 2^22 for D <= 128: summed from mma.cuh's I32_BIAS.
         constexpr int S0 = D <= 128 ? mfa::I32_BIAS : 0;
-        int si[8][4];
+        int si[NKB][4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NKB; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) si[j][e] = S0;
 #pragma unroll
@@ -728,7 +781,7 @@ __global__ void __launch_bounds__(TC_THREADS)
           uint32_t af[4];
           mfa::ldsm_x4(af, qp + kc * 32);
 #pragma unroll
-          for (int j2 = 0; j2 < 4; ++j2) {
+          for (int j2 = 0; j2 < NKB / 2; ++j2) {
             uint32_t bf[4];
             mfa::ldsm_x4(bf, kp + j2 * 16 * k_ld + kc * 32);
             mfa::mma_s8(si[2 * j2], af, bf[0], bf[1], si[2 * j2]);
@@ -736,14 +789,14 @@ __global__ void __launch_bounds__(TC_THREADS)
           }
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NKB; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             s[j][e] = (S0 ? mfa::biased_f32(si[j][e]) : (float)si[j][e]) *
                       qsr[e >> 1];
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NKB; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
@@ -751,7 +804,7 @@ __global__ void __launch_bounds__(TC_THREADS)
           uint32_t af[4];
           mfa::ldsm_x4(af, qp + kc * 32);
 #pragma unroll
-          for (int j2 = 0; j2 < 4; ++j2) {
+          for (int j2 = 0; j2 < NKB / 2; ++j2) {
             uint32_t bf[4];
             mfa::ldsm_x4(bf, kp + j2 * 16 * k_ld + kc * 32);
             mfa::mma_bf16(s[2 * j2], af, bf[0], bf[1], s[2 * j2]);
@@ -766,11 +819,11 @@ __global__ void __launch_bounds__(TC_THREADS)
     if (cur.fresh()) smax[0] = smax[1] = -INFINITY;
     if (a.k_scales == K_COLUMN) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NKB; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int col = cur.t0 + 8 * j + 2 * tq + c;
-          const float cs = tk[TK_SCALE * BN + 8 * j + 2 * tq + c];
+          const float cs = tk[TK_SCALE * KS + 8 * j + 2 * tq + c];
           if (col < a.Skv) {
             s[j][c] *= cs;
             s[j][2 + c] *= cs;
@@ -779,7 +832,7 @@ __global__ void __launch_bounds__(TC_THREADS)
     }
     if (bh_bias) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NKB; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int col = cur.t0 + 8 * j + 2 * tq + c;
@@ -792,7 +845,7 @@ __global__ void __launch_bounds__(TC_THREADS)
     }
     float mx[2] = {smax[0], smax[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NKB; ++j)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = cur.t0 + 8 * j + 2 * tq + c;
@@ -822,7 +875,7 @@ __global__ void __launch_bounds__(TC_THREADS)
                            m_next[1] == -INFINITY ? 0.f : m_next[1]};
     if (p_int8) {  // (float)(int)(raw + 0.5f), raw < 2^23
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NKB; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float x = s[j][e];
@@ -834,12 +887,12 @@ __global__ void __launch_bounds__(TC_THREADS)
     } else {
       const bool v_p = a.v_scales == V_P;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NKB; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int col = cur.t0 + 8 * j + 2 * tq + c;
           const float vsc = v_p && col < a.Skv
-                                ? tk[TV_SCALE * BN + 8 * j + 2 * tq + c]
+                                ? tk[TV_SCALE * KS + 8 * j + 2 * tq + c]
                                 : 1.f;
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
@@ -871,9 +924,10 @@ __global__ void __launch_bounds__(TC_THREADS)
 
     // O += P.V, P from the S fragments.
     if (pv_s8) {
-      uint32_t pa[2][4];
+      constexpr int KK = KS / 32;  // s8 k steps a step
+      uint32_t pa[KK][4];
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
+      for (int kk = 0; kk < KK; ++kk) {
         const int j = 4 * kk;
         // P is an integer in [0, 127]: the low byte of P + 2^23's bits.
         constexpr float B23 = 8388608.0f;
@@ -892,16 +946,19 @@ __global__ void __launch_bounds__(TC_THREADS)
           vop + mfa::ldsm_b_row(lane) * L::VT_LD + mfa::ldsm_b_byte(lane);
 #pragma unroll
       for (int n2 = 0; n2 < NB / 2; ++n2) {
-        uint32_t b0[4], b1[4];
-        mfa::ldsm_x4(b0, vt + n2 * 16 * L::VT_LD);
-        mfa::ldsm_x4(b1, vt + n2 * 16 * L::VT_LD + 32);
+        uint32_t b[KK][4];
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk)
+          mfa::ldsm_x4(b[kk], vt + n2 * 16 * L::VT_LD + 32 * kk);
         // |P.V| <= 64 * 127 * 128 < 2^22: summed from I32_BIAS, as above.
         constexpr int M0 = mfa::I32_BIAS;
         int c0[4] = {M0, M0, M0, M0}, c1[4] = {M0, M0, M0, M0};
-        mfa::mma_s8(c0, pa[0], b0[0], b0[1], c0);
-        mfa::mma_s8(c0, pa[1], b1[0], b1[1], c0);
-        mfa::mma_s8(c1, pa[0], b0[2], b0[3], c1);
-        mfa::mma_s8(c1, pa[1], b1[2], b1[3], c1);
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk)
+          mfa::mma_s8(c0, pa[kk], b[kk][0], b[kk][1], c0);
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk)
+          mfa::mma_s8(c1, pa[kk], b[kk][2], b[kk][3], c1);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           acc[2 * n2][e] += mfa::biased_f32(c0[e]);
@@ -912,7 +969,7 @@ __global__ void __launch_bounds__(TC_THREADS)
       const uint8_t* vb = vop + mfa::ldsm_t_k(lane) * L::VB_LD +
                           mfa::ldsm_t_n(lane) * 2;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < KS / 16; ++kk) {
         const int j = 2 * kk;
         // P is exact in bf16: rounded to it, or an integer up to 127.
         const uint32_t pa[4] = {
@@ -955,6 +1012,23 @@ __global__ void __launch_bounds__(TC_THREADS)
   }
 }
 
+// Replaces ops/quantized_attention.py::_qfwd_kernel for a bf16 or int8 Q
+// with ROUND_BF16 up to D = 256, and _hpack_kernel for a bf16 packed Q
+// (D = 64).
+template <typename QT, int D>
+__global__ void __launch_bounds__(TC_THREADS)
+    qattn_fwd_tc_kernel(const Args a) {
+  qattn_tc_body<QT, D>(a);
+}
+
+// Replaces ops/quantized_attention.py::_qfwd_kernel for a bf16 or int8 Q
+// with ROUND_BF16 at D = 288 (qattn_wide): 32-key steps, two CTAs an SM.
+template <typename QT, int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+    qattn_fwd_wide_kernel(const Args a) {
+  qattn_tc_body<QT, D>(a);
+}
+
 template <typename K>
 int launch(K kern, const Args& a, int B, int threads, size_t smem,
            cudaStream_t stream) {
@@ -965,8 +1039,9 @@ int launch(K kern, const Args& a, int B, int threads, size_t smem,
 }
 
 // The body a call takes (ops/quantized_attention.py::qattn_body gives the
-// same answer): the tensor-core one for a bf16 or int8 Q with ROUND_BF16,
-// the scalar one for an fp32 Q and for an int8 Q without it (an fp32 Q
+// same answer): the tensor-core one for a bf16 or int8 Q with ROUND_BF16
+// (qattn_fwd_tc_kernel up to D = 256, qattn_fwd_wide_kernel at 288), the
+// scalar one for an fp32 Q and for an int8 Q without it (an fp32 Q
 // quantized to int8 keeps fp32 products); a bf16 Q always rounds to bf16.
 // The head-pair call (mfa_hpack_fwd, always ROUND_BF16) routes the same
 // way: bf16 to the tensor cores, fp32 to the scalar body.
@@ -977,8 +1052,12 @@ int launch_qattn(const Args& a, int B, cudaStream_t stream) {
       const TcSmem<QT, D> lay(
           std::is_same<QT, int8_t>::value && a.bits_k == 8,
           tc_pv_s8(a.flags, a.v_scales));
-      return launch(qattn_fwd_tc_kernel<QT, D>, a, B, TC_THREADS, lay.total,
-                    stream);
+      if constexpr (qattn_wide<D>())
+        return launch(qattn_fwd_wide_kernel<QT, D>, a, B, TC_THREADS,
+                      lay.total, stream);
+      else
+        return launch(qattn_fwd_tc_kernel<QT, D>, a, B, TC_THREADS,
+                      lay.total, stream);
     }
   }
   if constexpr (std::is_same<QT, __nv_bfloat16>::value) {
@@ -995,6 +1074,7 @@ int launch_qattn_d(const Args& a, int B, int D, cudaStream_t stream) {
   if (D == 64) return launch_qattn<QT, 64>(a, B, stream);
   if (D == 128) return launch_qattn<QT, 128>(a, B, stream);
   if (D == 256) return launch_qattn<QT, 256>(a, B, stream);
+  if (D == 288) return launch_qattn<QT, 288>(a, B, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1058,6 +1138,17 @@ int mfa_hpack_fwd(const void* q, const void* kq, const void* vq,
   if (qtype == 0) return launch_qattn<float, 64>(a, B, s);
   if (qtype == 1) return launch_qattn<__nv_bfloat16, 64>(a, B, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The kernel mfa_qattn_fwd launches for qtype at head dim D with `flags`:
+// 2 qattn_fwd_wide_kernel, 1 qattn_fwd_tc_kernel, 0 qattn_fwd_kernel, -1
+// none (ops/quantized_attention.py::qattn_body gives the same answer).
+int mfa_qattn_body(int qtype, int D, int flags) {
+  if ((D != 32 && D != 64 && D != 128 && D != 256 && D != 288) ||
+      qtype < 0 || qtype > 2 || (qtype == 1 && !(flags & ROUND_BF16)))
+    return -1;
+  if (qtype == 0 || !(flags & ROUND_BF16)) return 0;
+  return D > 256 ? 2 : 1;
 }
 
 }  // extern "C"

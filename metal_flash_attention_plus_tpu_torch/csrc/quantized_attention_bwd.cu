@@ -3,10 +3,18 @@
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu,
 // ops/flash_attention_bwd.py):
-//   - _dq_kernel, quantized modes   -> qflash_dq_kernel
-//   - _dkv_kernel, quantized modes  -> qflash_dkv_kernel
-//   - _dq_fullint_kernel            -> fullint_dq_kernel
-//   - _dkv_fullint_kernel           -> fullint_dkv_kernel
+//   - _dq_kernel, quantized modes   -> qflash_dq_tc_kernel (bf16 up to
+//     D = 256), qflash_dq_wide_kernel (bf16 at D = 288), qflash_dq_kernel
+//     (fp32)
+//   - _dkv_kernel, quantized modes  -> qflash_dkv_tc_kernel (bf16 up to
+//     D = 256), qflash_dkv_wide_kernel then flash_attention.cu's
+//     flash_dkv_merge_kernel (bf16 at D = 288), qflash_dkv_kernel (fp32)
+//   - _dq_fullint_kernel            -> fullint_dq_tc_kernel, fullint_dq_kernel
+//   - _dkv_fullint_kernel           -> fullint_dkv_tc_kernel,
+//                                      fullint_dkv_kernel
+// Head dims: the kernels are built for D = 32, 64, 128, 256 and MLA's 288
+// (ops/quantized_attention.py::qattn_width runs the other multiples of 16
+// up to 288 zero-padded at the next).
 //
 // The exact pair runs the flash backward's bodies (attention_bwd.cuh) with
 // K/V staged from their payloads (quantized_tiles.cuh):
@@ -19,14 +27,18 @@
 //     per-channel vector [B, Hkv, D] (scale x the folded K scales).
 //     bf16 runs on the tensor cores (qflash_dq_tc_kernel: dq_tc_body, the
 //     payload rows double-buffered by cp.async and dequantized in shared
-//     memory a tile at a time), fp32 on the scalar body;
+//     memory a tile at a time; at D = 288 qflash_dq_wide_kernel:
+//     dq_wide_body, 32-key tiles), fp32 on the scalar body;
 //   - dK/dV: gradients with respect to the DEQUANTIZED K/V: each K/V tile is
 //     dequantized (per token, per BLOCK_2D block or per channel) and rounded
 //     to T as it is staged, then used with the unfolded Q (scaled by `scale`
 //     and rounded here) and dO; the group reduction happens in the kernel.
 //     bf16 runs on the tensor cores (qflash_dkv_tc_kernel: dkv_tc_body, the
-//     payload rows copied by cp.async and dequantized in shared memory),
-//     fp32 on the scalar body.
+//     payload rows copied by cp.async and dequantized in shared memory; at
+//     D = 288 qflash_dkv_wide_kernel: dkv_wide_body, 48-row query steps,
+//     the GQA group split over `splits` CTAs a key tile into an fp32
+//     workspace that flash_dkv_merge_kernel sums in split order), fp32 on
+//     the scalar body.
 //
 // The full-integer pair takes per-token int8 Q (Q*scale quantized, scales
 // qsc [B, Hq, Sq], times a TENSOR K scale) and int8 dO twice: dO itself
@@ -55,7 +67,8 @@
 //   does two int8 products and one bf16 (level 2: three int8; bound ~0.28
 //   ms), its dK/dV two of each (~0.42 ms): operations bound them.  They run
 //   on the tensor cores (fullint_dq_tc_kernel, fullint_dkv_tc_kernel; the
-//   grids and walks of attention_bwd.cuh's dq_tc_body and dkv_tc_body):
+//   grids and walks of attention_bwd.cuh's dq_tc_body and dkv_tc_body,
+//   cut at MLA's D = 288 as fi_split, fi_dkv_rows and fi_biased say):
 //   the int8 rows are copied by cp.async as they are (16-byte rows padded
 //   by 16, so ldmatrix's eight row addresses fall in distinct banks), S and
 //   dP (S^T, dP^T) run as s8 m16n8k32 mma.sync into int32 (summed from
@@ -121,27 +134,30 @@ struct QuantKV {
                                         int limit, float* dst) const {
     stage_kv<D>(is_v ? v : k, head, Skv, br, bs, rb, t0, limit, dst);
   }
-  // dkv_tc_body's staging (bf16): the payload rows by cp.async into `raw`,
-  // then dequantized and rounded to bf16 rows there, as stage_kv rounds.
-  template <int NT, int ROW>
+  // The tensor-core bodies' staging (bf16): ROWS payload rows by cp.async
+  // into `raw` (D bytes apart), then dequantized and rounded to bf16 rows
+  // in dst, as stage_kv rounds.
+  template <int NT, int ROW, int ROWS = 64>
   __device__ __forceinline__ void tc_load(bool is_v, size_t head, int t0,
                                           int limit, uint8_t*,
                                           uint8_t* raw) const {
     const KVOperand& op = is_v ? v : k;
-    mfa::stage_raw<D, D, NT>(op.pay, op.bits, head, Skv, t0, limit, raw);
+    mfa::stage_raw<D, D, NT, ROWS>(op.pay, op.bits, head, Skv, t0, limit,
+                                   raw);
   }
-  template <int NT, int ROW>
+  template <int NT, int ROW, int ROWS = 64>
   __device__ __forceinline__ void tc_convert(bool is_v, size_t head, int t0,
                                              int limit, uint8_t* dst,
                                              const uint8_t* raw) const {
-    mfa::dequant_rows_bf16<D, D, NT>(is_v ? v : k, raw, head, Skv, br, bs,
-                                     t0, limit, dst, ROW);
+    mfa::dequant_rows_bf16<D, D, NT, ROWS>(is_v ? v : k, raw, head, Skv, br,
+                                           bs, t0, limit, dst, ROW);
   }
   static constexpr bool RAW = true;  // tc_load fills `raw`, tc_convert dst
 };
 
 // Replaces _dq_kernel's quantized modes.  Bound: operations (6*D per live
-// pair).  The fp32 instances; bf16 takes qflash_dq_tc_kernel.
+// pair).  The fp32 instances; bf16 takes qflash_dq_tc_kernel or
+// qflash_dq_wide_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 qflash_dq_kernel(const BwdArgs a, const QuantKV<D> kv) {
@@ -157,8 +173,17 @@ qflash_dq_tc_kernel(const BwdArgs a, const QuantKV<D> kv) {
   mfa::dq_tc_body<D, false>(a, kv);
 }
 
+// The same at D = 288 (attention_bwd.cuh::dq_wide_body: 32-key tiles, 8
+// warps, one CTA an SM), bf16.
+template <int D>
+__global__ void __launch_bounds__(mfa::DQ_WIDE_THREADS, 1)
+qflash_dq_wide_kernel(const BwdArgs a, const QuantKV<D> kv) {
+  mfa::dq_wide_body<D, false>(a, kv);
+}
+
 // Replaces _dkv_kernel's quantized modes.  Bound: operations (8*D per live
-// pair).  The fp32 instances; bf16 takes qflash_dkv_tc_kernel.
+// pair).  The fp32 instances; bf16 takes qflash_dkv_tc_kernel or
+// qflash_dkv_wide_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 qflash_dkv_kernel(const BwdArgs a, const QuantKV<D> kv) {
@@ -171,6 +196,17 @@ __global__ void __launch_bounds__(mfa::dkv_tc_threads<D>(),
                            mfa::dkv_tc_min_blocks<D>())
 qflash_dkv_tc_kernel(const BwdArgs a, const QuantKV<D> kv) {
   mfa::dkv_tc_body<D>(a, kv);
+}
+
+// The same at D = 288 (attention_bwd.cuh::dkv_wide_body: 48-row query
+// steps, 12 warps, one CTA an SM), bf16; the GQA group dealt over
+// gridDim.z / B = splits CTAs a key tile, each writing its partial dK and
+// dV into ws [splits, 2, B, Hkv, Skv, D] where splits > 1.
+template <int D>
+__global__ void __launch_bounds__(mfa::DKV_WIDE_THREADS, 1)
+qflash_dkv_wide_kernel(const BwdArgs a, const QuantKV<D> kv, int splits,
+                       float* __restrict__ ws) {
+  mfa::dkv_wide_body<D>(a, kv, splits, ws);
 }
 
 // ---------------------------------------------------------------------------
@@ -542,10 +578,37 @@ __host__ __device__ constexpr bool fullint_tc(int width) {
 // Warp groups: dkv_tc_split's at level 1 (1, 1, 2, 4 at D = 32, 64, 128,
 // 256); at level 2, where the dQ's int32 span sums double its accumulators,
 // 2 up to D = 128 and 4 at D = 256, so the quantized dS (P', dS') always
-// pass through shared memory.
+// pass through shared memory.  At MLA's D = 288 two at both levels: a
+// warp's lanes (D / NS) must be whole 16-lane steps and its key or query
+// columns (64 / NS) whole 8-column blocks, and of the splits that give
+// both (1 and 2; 4 would leave 72 lanes) 2 keeps S's and dP's fragments
+// (and, at level 2, dQ's int32 sums beside its fp32 ones) within 255
+// registers a thread.  Its lane accumulators are 144 fp32 a thread in the
+// dK/dV (dK and dV, 144 lanes each), where D = 256 keeps 64.
 template <int D, bool L2>
 __host__ __device__ constexpr int fi_split() {
-  return L2 ? (D <= 128 ? 2 : 4) : mfa::dkv_tc_split<D>();
+  return D > 256 ? 2 : L2 ? (D <= 128 ? 2 : 4) : mfa::dkv_tc_split<D>();
+}
+
+// Query rows a dK/dV step stages: 64, or 32 at level 1 at D = 288, where
+// two buffers each of 64 Q, dOv and dO rows beside K, V and the bf16
+// operand tiles would take 252 KB of the 227 a CTA may have.
+template <int D, bool L2>
+__host__ __device__ constexpr int fi_dkv_rows() {
+  return D > 256 && !L2 ? 32 : 64;
+}
+
+// Whether S's and dP's int32 sums start from I32_BIAS (read back with
+// biased_f32, on the FP32 pipe): |S| <= 127 * 128 * D < 2^22 needs D <=
+// 256; at 288 they start from 0 and convert with I2F.
+template <int D>
+__host__ __device__ constexpr bool fi_biased() {
+  return D <= 256;
+}
+
+template <bool BIASED>
+__device__ __forceinline__ float fi_sum_f32(int x) {
+  return BIASED ? mfa::biased_f32(x) : (float)x;
 }
 
 // CTAs an SM a kernel is compiled for (its __launch_bounds__): three 4-warp
@@ -568,7 +631,7 @@ struct FiRows {
 };
 
 // Byte offsets of fullint_dq_tc_kernel's shared memory (147,968 bytes at
-// D = 256, level 1).
+// D = 256, level 1; 164,352 at D = 288, 146,432 at level 2).
 template <int D, bool L2>
 struct FiDqSmem : FiRows<D> {
   using R = FiRows<D>;
@@ -587,45 +650,50 @@ struct FiDqSmem : FiRows<D> {
 };
 
 // Byte offsets of fullint_dkv_tc_kernel's shared memory (227,840 bytes at
-// D = 256, level 1, of the 232,448 a CTA may have).
+// D = 256, level 1, of the 232,448 a CTA may have; 146,688 at D = 288 in
+// 32-row query steps, 216,576 at level 2).
 template <int D, bool L2>
 struct FiDkvSmem : FiRows<D> {
   using R = FiRows<D>;
   static constexpr int NS = fi_split<D, L2>();
+  static constexpr int QT = fi_dkv_rows<D, L2>();  // query rows a step
+  static constexpr int TQ = QT * R::RI;            // QT int8 rows
+  static constexpr int PQ = 2 * QT + 16;  // a bf16 row of QT positions
   static constexpr int K = 0;
   static constexpr int V = R::TI;
-  static constexpr int Q = 2 * R::TI;    // two buffers
-  static constexpr int DOV = 4 * R::TI;  // two buffers
-  static constexpr int DOR = 6 * R::TI;  // two buffers
-  // qsc, L, D, dorsc, dovsc of the step's 64 queries, two buffers.
-  static constexpr int ST = 8 * R::TI;
+  static constexpr int Q = 2 * R::TI;      // two buffers
+  static constexpr int DOV = Q + 2 * TQ;   // two buffers
+  static constexpr int DOR = DOV + 2 * TQ; // two buffers
+  // qsc, L, D, dorsc, dovsc of the step's QT queries, two buffers.
+  static constexpr int ST = DOR + 2 * TQ;
   // Q and dO as the dK / dV products' operands: bf16 rows [query][d]
   // (level 1) or int8 [d][query position] (level 2).
-  static constexpr int OP_BYTES = L2 ? D * R::PT : BM * R::RB;
-  static constexpr int OP = ST + 2 * 5 * BM * 4;
+  static constexpr int OP_BYTES = L2 ? D * R::PT : QT * R::RB;
+  static constexpr int OP = ST + 2 * 5 * QT * 4;
   static constexpr int AM = OP + 2 * OP_BYTES;  // [NS][64 keys][2][P, dS]
   static constexpr int PS = AM + (L2 ? NS * BN * 4 * 4 : 0);
   static constexpr size_t BYTES =
-      PS + (NS > 1 ? 2 * BN * (L2 ? R::PT : R::PB) : 0);
+      PS + (NS > 1 ? 2 * BN * (L2 ? R::PT : PQ) : 0);
+  static_assert(!L2 || QT == BM, "level 2 walks 64-query tiles");
 };
 
-// cp.async of int8 rows [t0, t0 + 64) of matrix `head` of a [.., n, D]
+// cp.async of int8 rows [t0, t0 + ROWS) of matrix `head` of a [.., n, D]
 // tensor into dst (D + 16 bytes apart; quantized_tiles.cuh's stage_raw),
 // NT threads; rows from n are zeros.
-template <int D, int NT>
+template <int D, int NT, int ROWS = 64>
 __device__ __forceinline__ void fi_stage_rows(const int8_t* x, size_t head,
                                               int n, int t0, uint8_t* dst) {
-  mfa::stage_raw<D, D + 16, NT>(reinterpret_cast<const uint8_t*>(x), 8, head,
-                                n, t0, n, dst);
+  mfa::stage_raw<D, D + 16, NT, ROWS>(reinterpret_cast<const uint8_t*>(x), 8,
+                                      head, n, t0, n, dst);
 }
 
-// 64 int8 rows (D + 16 bytes apart) as bf16 rows (2 D + 16 bytes apart),
+// ROWS int8 rows (D + 16 bytes apart) as bf16 rows (2 D + 16 bytes apart),
 // 16 values an item, on the FP32 pipe (mma.cuh::s8_f32; exact).
-template <int D, int NT>
+template <int D, int NT, int ROWS = 64>
 __device__ __forceinline__ void fi_rows_bf16(const uint8_t* src,
                                              uint8_t* dst) {
   constexpr int CPR = D / 16;
-  for (int i = threadIdx.x; i < 64 * CPR; i += NT) {
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     const int r = i / CPR;
     const int c = i % CPR;
     const uint4 u =
@@ -690,10 +758,11 @@ __device__ __forceinline__ void mma_s8_rows(const uint32_t (&af)[4],
   }
 }
 
-// acc[j] += A[ar0, ar0 + 16) . B[br0 + 8j, br0 + 8j + 8)^T over 32 * KC
+// acc[j] = A[ar0, ar0 + 16) . B[br0 + 8j, br0 + 8j + 8)^T over 32 * KC
 // bytes of k, A and B int8 tiles whose rows hold k, summed from I32_BIAS
-// (mma.cuh: read back with biased_f32).
-template <int KC, int NB, int LDA, int LDB>
+// (mma.cuh: read back with biased_f32) where BIASED, else from 0
+// (fi_sum_f32 reads either).
+template <int KC, int NB, int LDA, int LDB, bool BIASED = true>
 __device__ __forceinline__ void mma_s8_nt(const uint8_t* A, int ar0,
                                           const uint8_t* B, int br0,
                                           int (&acc)[NB][4]) {
@@ -701,7 +770,7 @@ __device__ __forceinline__ void mma_s8_nt(const uint8_t* A, int ar0,
 #pragma unroll
   for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = mfa::I32_BIAS;
+    for (int e = 0; e < 4; ++e) acc[j][e] = BIASED ? mfa::I32_BIAS : 0;
   const uint8_t* ap =
       A + (ar0 + mfa::ldsm_a_row(lane)) * LDA + mfa::ldsm_a_byte(lane);
 #pragma unroll
@@ -801,18 +870,19 @@ __device__ __forceinline__ float quad_max(float x) {
 // two (32, 96, ...).  A chunk of several tiles takes two passes (its spans'
 // row maxima, then the products), a chunk of one tile one.  Span sp of a
 // chunk holds its positions [sp * width, (sp + 1) * width).
+// Level 1 may walk tiles of T < 64 rows (the dK/dV at D = 288).
 struct FiWalk {
-  int tiles, passes, chunks;
-  __device__ FiWalk(int width, int n) {
-    const int chunk = width == 0 ? max((n + BN - 1) / BN * BN, BN)
+  int T, tiles, passes, chunks;
+  __device__ FiWalk(int width, int n, int t = BN) : T(t) {
+    const int chunk = width == 0 ? max((n + T - 1) / T * T, T)
                                  : (width % BN ? 2 * width : width);
-    tiles = chunk / BN;
+    tiles = chunk / T;
     passes = tiles > 1 && width ? 2 : 1;
     chunks = (n + chunk - 1) / chunk;
   }
   __device__ int steps() const { return chunks * passes * tiles; }
   __device__ int t0(int it) const {
-    return (it / (passes * tiles) * tiles + it % tiles) * BN;
+    return (it / (passes * tiles) * tiles + it % tiles) * T;
   }
   __device__ int pass(int it) const { return it / tiles % passes; }
   __device__ int tile(int it) const { return it % tiles; }
@@ -831,6 +901,7 @@ fullint_dq_tc_kernel(const FullintArgs a) {
   constexpr int NKB = KW / 8;
   constexpr int DW = D / NS;  // dQ lanes a warp accumulates
   constexpr int NDB = DW / 8;
+  constexpr bool BIASED = fi_biased<D>();
   static_assert(!L2 || NS > 1, "level 2 stages dS in shared memory");
   extern __shared__ __align__(16) uint8_t sm[];
 
@@ -919,9 +990,10 @@ fullint_dq_tc_kernel(const FullintArgs a) {
     float ds[NKB][4];
     {
       int si[NKB][4], dpi[NKB][4];
-      mma_s8_nt<D / 32, NKB, L::RI, L::RI>(sm + L::Q, 16 * rw, sk, kc0, si);
-      mma_s8_nt<D / 32, NKB, L::RI, L::RI>(sm + L::DOV, 16 * rw, sv, kc0,
-                                           dpi);
+      mma_s8_nt<D / 32, NKB, L::RI, L::RI, BIASED>(sm + L::Q, 16 * rw, sk,
+                                                   kc0, si);
+      mma_s8_nt<D / 32, NKB, L::RI, L::RI, BIASED>(sm + L::DOV, 16 * rw, sv,
+                                                   kc0, dpi);
       const float* kst = reinterpret_cast<const float*>(sm + L::KS) +
                          buf * BN;
 #pragma unroll
@@ -931,12 +1003,12 @@ fullint_dq_tc_kernel(const FullintArgs a) {
           const int i = e >> 1;
           const int kc = kc0 + 8 * j + 2 * tq + (e & 1);
           const float ksv = ks ? kst[kc] : 1.f;
-          const float s = mfa::biased_f32(si[j][e]) * qs[i] * ksv;
+          const float s = fi_sum_f32<BIASED>(si[j][e]) * qs[i] * ksv;
           const float p = t0 + kc < Skv
                               ? mfa::ex2_approx(fmaf(s, LOG2E, -l2[i]))
                               : 0.f;
           ds[j][e] =
-              p * (mfa::biased_f32(dpi[j][e]) * dvs[i] - dd[i]) * ksv;
+              p * (fi_sum_f32<BIASED>(dpi[j][e]) * dvs[i] - dd[i]) * ksv;
         }
     }
 
@@ -1041,10 +1113,12 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
   using L = FiDkvSmem<D, L2>;
   constexpr int NS = L::NS;
   constexpr int NT = 128 * NS;
-  constexpr int QW = BM / NS;  // query columns of a warp's S^T, dP^T
+  constexpr int QT = L::QT;    // query rows a step
+  constexpr int QW = QT / NS;  // query columns of a warp's S^T, dP^T
   constexpr int NQB = QW / 8;
   constexpr int DW = D / NS;  // dK / dV lanes a warp accumulates
   constexpr int NDB = DW / 8;
+  constexpr bool BIASED = fi_biased<D>();
   static_assert(!L2 || NS > 1, "level 2 stages P' and dS' in shared memory");
   extern __shared__ __align__(16) uint8_t sm[];
 
@@ -1065,7 +1139,7 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
   fi_stage_rows<D, NT>(a.kq, bkv, Skv, c0, sm + L::K);
   fi_stage_rows<D, NT>(a.vq, bkv, Skv, c0, sm + L::V);
   mfa::cp_async_commit();
-  const FiWalk wk(L2 ? a.width : 0, Sq);
+  const FiWalk wk(L2 ? a.width : 0, Sq, QT);
   const int per = wk.steps();  // steps a q head
   const int steps = group * per;
   auto head_of = [&](int it) {
@@ -1077,14 +1151,15 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
   auto prefetch = [&](int it, int buf) {
     const size_t bh = (size_t)b * a.Hq + head_of(it);
     const int r0 = wk.t0(it % per);
-    fi_stage_rows<D, NT>(a.qq, bh, Sq, r0, sm + L::Q + buf * L::TI);
-    fi_stage_rows<D, NT>(a.dov, bh, Sq, r0, sm + L::DOV + buf * L::TI);
+    fi_stage_rows<D, NT, QT>(a.qq, bh, Sq, r0, sm + L::Q + buf * L::TQ);
+    fi_stage_rows<D, NT, QT>(a.dov, bh, Sq, r0, sm + L::DOV + buf * L::TQ);
     if (wk.pass(it % per) == wk.passes - 1)
-      fi_stage_rows<D, NT>(a.dor, bh, Sq, r0, sm + L::DOR + buf * L::TI);
-    float* st = reinterpret_cast<float*>(sm + L::ST) + buf * 5 * BM;
-    for (int i = threadIdx.x; i < 5 * BM; i += NT) {
-      const int v = i / BM;
-      const int r = r0 + i % BM;
+      fi_stage_rows<D, NT, QT>(a.dor, bh, Sq, r0,
+                               sm + L::DOR + buf * L::TQ);
+    float* st = reinterpret_cast<float*>(sm + L::ST) + buf * 5 * QT;
+    for (int i = threadIdx.x; i < 5 * QT; i += NT) {
+      const int v = i / QT;
+      const int r = r0 + i % QT;
       const bool ok = r < Sq;
       const float* src = v == 0   ? a.qsc
                          : v == 1 ? a.lse
@@ -1123,8 +1198,8 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
     const int pass = wk.pass(sit);
     const int tile = wk.tile(sit);
     const bool last = pass == wk.passes - 1;
-    const uint8_t* sq = sm + L::Q + buf * L::TI;
-    const uint8_t* sdor = sm + L::DOR + buf * L::TI;
+    const uint8_t* sq = sm + L::Q + buf * L::TQ;
+    const uint8_t* sdor = sm + L::DOR + buf * L::TQ;
     uint8_t* opq = sm + L::OP;
     uint8_t* opdo = sm + L::OP + L::OP_BYTES;
     if (last) {
@@ -1132,8 +1207,8 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
         fi_rows_t<D, NT>(sq, opq);
         fi_rows_t<D, NT>(sdor, opdo);
       } else {
-        fi_rows_bf16<D, NT>(sq, opq);
-        fi_rows_bf16<D, NT>(sdor, opdo);
+        fi_rows_bf16<D, NT, QT>(sq, opq);
+        fi_rows_bf16<D, NT, QT>(sdor, opdo);
       }
     }
 
@@ -1142,22 +1217,22 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
     float pd[NQB][4], dsv[NQB][4];
     {
       int sti[NQB][4], dpti[NQB][4];
-      mma_s8_nt<D / 32, NQB, L::RI, L::RI>(sm + L::K, 16 * kw, sq, qc0, sti);
-      mma_s8_nt<D / 32, NQB, L::RI, L::RI>(sm + L::V, 16 * kw,
-                                           sm + L::DOV + buf * L::TI, qc0,
-                                           dpti);
+      mma_s8_nt<D / 32, NQB, L::RI, L::RI, BIASED>(sm + L::K, 16 * kw, sq,
+                                                   qc0, sti);
+      mma_s8_nt<D / 32, NQB, L::RI, L::RI, BIASED>(
+          sm + L::V, 16 * kw, sm + L::DOV + buf * L::TQ, qc0, dpti);
       const float* st =
-          reinterpret_cast<const float*>(sm + L::ST) + buf * 5 * BM;
+          reinterpret_cast<const float*>(sm + L::ST) + buf * 5 * QT;
 #pragma unroll
       for (int j = 0; j < NQB; ++j) {
         const int qc = qc0 + 8 * j + 2 * tq;
         const float2 qs = *reinterpret_cast<const float2*>(st + qc);
-        const float2 lv = *reinterpret_cast<const float2*>(st + BM + qc);
-        const float2 di = *reinterpret_cast<const float2*>(st + 2 * BM + qc);
+        const float2 lv = *reinterpret_cast<const float2*>(st + QT + qc);
+        const float2 di = *reinterpret_cast<const float2*>(st + 2 * QT + qc);
         const float2 dors =
-            *reinterpret_cast<const float2*>(st + 3 * BM + qc);
+            *reinterpret_cast<const float2*>(st + 3 * QT + qc);
         const float2 dovs =
-            *reinterpret_cast<const float2*>(st + 4 * BM + qc);
+            *reinterpret_cast<const float2*>(st + 4 * QT + qc);
         const float q2[2] = {qs.x, qs.y};
         const float l2[2] = {lv.x * LOG2E, lv.y * LOG2E};
         const float d2[2] = {di.x, di.y};
@@ -1168,31 +1243,32 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int e = 2 * i + c;
-            const float x = mfa::biased_f32(sti[j][e]) * q2[c] * ksr[i];
+            const float x = fi_sum_f32<BIASED>(sti[j][e]) * q2[c] * ksr[i];
             const float pt = r0 + qc + c < Sq
                                  ? mfa::ex2_approx(fmaf(x, LOG2E, -l2[c]))
                                  : 0.f;
-            dsv[j][e] =
-                pt * (mfa::biased_f32(dpti[j][e]) * v2[c] - d2[c]) * q2[c];
+            dsv[j][e] = pt *
+                        (fi_sum_f32<BIASED>(dpti[j][e]) * v2[c] - d2[c]) *
+                        q2[c];
             pd[j][e] = pt * r2[c];
           }
       }
     }
 
     uint8_t* ps = sm + L::PS;
-    uint8_t* dss = ps + BN * (L2 ? L::PT : L::PB);
+    uint8_t* dss = ps + BN * (L2 ? L::PT : L::PQ);
     if constexpr (!L2) {
       // dV += round_bf16(P').dO, dK += round_bf16(dS').Q, 16 queries a k
       // step.
       if constexpr (NS > 1) {
-        fi_store_bf16<NQB, L::PB>(pd, 16 * kw, qc0, ps);
-        fi_store_bf16<NQB, L::PB>(dsv, 16 * kw, qc0, dss);
+        fi_store_bf16<NQB, L::PQ>(pd, 16 * kw, qc0, ps);
+        fi_store_bf16<NQB, L::PQ>(dsv, 16 * kw, qc0, dss);
       }
       __syncthreads();  // Q's and dO's bf16 rows (and P', dS' tiles)
       const int a_off =
-          (16 * kw + mfa::ldsm_a_row(lane)) * L::PB + mfa::ldsm_a_byte(lane);
+          (16 * kw + mfa::ldsm_a_row(lane)) * L::PQ + mfa::ldsm_a_byte(lane);
 #pragma unroll
-      for (int kc = 0; kc < BM / 16; ++kc) {
+      for (int kc = 0; kc < QT / 16; ++kc) {
         uint32_t pa[4], dsa[4];
         if constexpr (NS == 1) {
           mfa::c_to_a_bf16(pd, kc, pa);
@@ -1330,32 +1406,46 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
 // Launchers
 // ---------------------------------------------------------------------------
 
-// Built up to D = 256 (qattn_width): dq_tc / dkv_tc route bf16 to
-// dq_tc_body / dkv_tc_body, never to the flash kernels' wide bodies.
+// As the flash kernels route (dq_tc / dkv_tc, and bwd_wide at D = 288):
+// bf16 to dq_tc_body / dkv_tc_body up to D = 256 and to the wide bodies at
+// 288, fp32 to the scalar bodies.  splits > 1 (the wide dK/dV only) deals
+// the GQA group over that many CTAs a key tile, their partials into ws.
 template <typename T, int D>
 int launch_qflash(bool dq, const BwdArgs& a, const QuantKV<D>& kv, int B,
-                  cudaStream_t stream) {
-  static_assert(!mfa::bwd_wide<D>(), "the quantized backward stops at 256");
+                  int splits, float* ws, cudaStream_t stream) {
+  constexpr bool TC = mfa::dq_tc<T, D>();  // = dkv_tc
+  constexpr bool WIDE = TC && mfa::bwd_wide<D>();
+  if (splits < 1 || (splits > 1 && (!WIDE || dq || !ws)) ||
+      splits > a.Hq / a.Hkv)
+    return (int)cudaErrorInvalidValue;
   const dim3 dq_grid((a.Sq + BM - 1) / BM, a.Hq, B);
-  if constexpr (mfa::dq_tc<T, D>()) {
+  const dim3 grid((a.Skv + BN - 1) / BN, a.Hkv, B);
+  if constexpr (WIDE) {
+    if (dq)
+      return launch_with_smem(qflash_dq_wide_kernel<D>, dq_grid,
+                              mfa::DQ_WIDE_THREADS,
+                              mfa::DqWideSmem<D, true>::BYTES, stream, a, kv);
+    return launch_with_smem(qflash_dkv_wide_kernel<D>,
+                            dim3(grid.x, grid.y, grid.z * splits),
+                            mfa::DKV_WIDE_THREADS, mfa::DkvWideSmem<D>::BYTES,
+                            stream, a, kv, splits, ws);
+  } else if constexpr (TC) {
     if (dq)
       return launch_with_smem(qflash_dq_tc_kernel<D>, dq_grid,
                               mfa::dq_tc_threads<D>(),
                               mfa::DqTcSmem<D, true>::BYTES, stream, a, kv);
-  } else if (dq) {
-    return launch_with_smem(qflash_dq_kernel<T, D>, dq_grid, THREADS,
-                            mfa::dq_smem_floats<D>() * sizeof(float), stream,
-                            a, kv);
-  }
-  const dim3 grid((a.Skv + BN - 1) / BN, a.Hkv, B);
-  if constexpr (mfa::dkv_tc<T, D>())
     return launch_with_smem(qflash_dkv_tc_kernel<D>, grid,
                             mfa::dkv_tc_threads<D>(), mfa::DkvTcSmem<D>::BYTES,
                             stream, a, kv);
-  else
+  } else {
+    if (dq)
+      return launch_with_smem(qflash_dq_kernel<T, D>, dq_grid, THREADS,
+                              mfa::dq_smem_floats<D>() * sizeof(float),
+                              stream, a, kv);
     return launch_with_smem(qflash_dkv_kernel<T, D>, grid, THREADS,
                             mfa::dkv_smem_floats<D>() * sizeof(float), stream,
                             a, kv);
+  }
 }
 
 template <int D, bool L2>
@@ -1393,12 +1483,17 @@ bool valid_bits(int bits) { return bits == 8 || bits == 4; }
 
 // Plain C interface (loaded with ctypes).  Returns the launch's
 // cudaError_t; cudaErrorInvalidValue for an unsupported dtype (0 float32,
-// 1 bfloat16), head dim (32, 64, 128, 256), bit width or head grouping.
+// 1 bfloat16), head dim (32, 64, 128, 256, 288), bit width or head
+// grouping.
 extern "C" {
 
 // The exact dQ (dq = 1: out0 = dQ, out1 = dbias or null; q pre-scaled) or
 // dK/dV (dq = 0: out0 = dK, out1 = dV; q scaled by `scale` here).  k_mode /
-// v_mode: 0 integers, 1 per token, 2 BLOCK_2D, 5 per channel.
+// v_mode: 0 integers, 1 per token, 2 BLOCK_2D, 5 per channel.  splits:
+// the CTAs that share a key tile's GQA group (bf16 dK/dV at D = 288 only,
+// ops/flash_attention_bwd.py::dkv_splits; 1 elsewhere); with splits > 1
+// the partials go to ws, fp32 [splits, 2, B, Hkv, Skv, D], and
+// mfa_flash_dkv_merge sums them into out0 and out1.
 int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
                    const void* ks, const void* kz, const void* vq,
                    const void* vs, const void* vz, const void* ksr,
@@ -1408,7 +1503,7 @@ int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
                    void* out1, int dtype, int B, int Hq, int Hkv, int Sq,
                    int Skv, int D, int interleaved, int bits_k, int bits_v,
                    int k_mode, int v_mode, int br, int bs, float scale,
-                   void* stream) {
+                   int splits, void* ws, void* stream) {
   if (Hkv <= 0 || Hq % Hkv || !valid_bits(bits_k) || !valid_bits(bits_v))
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, dout, static_cast<const float*>(lse),
@@ -1427,18 +1522,22 @@ int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
                     static_cast<const float*>(vs),
                     static_cast<const float*>(vz), bits_v, v_mode};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_QFLASH(T, DD) \
-  return launch_qflash<T, DD>(dq, a, QuantKV<DD>{k, v, Skv, br, bs, dtype == 1}, B, s)
+  float* w = static_cast<float*>(ws);
+#define MFA_QFLASH(T, DD)                                               \
+  return launch_qflash<T, DD>(                                          \
+      dq, a, QuantKV<DD>{k, v, Skv, br, bs, dtype == 1}, B, splits, w, s)
   if (dtype == 0) {
     if (D == 32) MFA_QFLASH(float, 32);
     if (D == 64) MFA_QFLASH(float, 64);
     if (D == 128) MFA_QFLASH(float, 128);
     if (D == 256) MFA_QFLASH(float, 256);
+    if (D == 288) MFA_QFLASH(float, 288);
   } else if (dtype == 1) {
     if (D == 32) MFA_QFLASH(__nv_bfloat16, 32);
     if (D == 64) MFA_QFLASH(__nv_bfloat16, 64);
     if (D == 128) MFA_QFLASH(__nv_bfloat16, 128);
     if (D == 256) MFA_QFLASH(__nv_bfloat16, 256);
+    if (D == 288) MFA_QFLASH(__nv_bfloat16, 288);
   }
 #undef MFA_QFLASH
   return (int)cudaErrorInvalidValue;
@@ -1467,6 +1566,7 @@ int mfa_fullint_bwd(int dq, const void* qq, const void* qsc, const void* kq,
   if (D == 64) return launch_fullint<64>(dq, a, B, s);
   if (D == 128) return launch_fullint<128>(dq, a, B, s);
   if (D == 256) return launch_fullint<256>(dq, a, B, s);
+  if (D == 288) return launch_fullint<288>(dq, a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1474,7 +1574,8 @@ int mfa_fullint_bwd(int dq, const void* qq, const void* qsc, const void* kq,
 // `width` (0: level 1): 1 the tensor-core pair, 0 the scalar pair, -1 none
 // (ops/flash_attention_bwd.py::fullint_body gives the same answer).
 int mfa_fullint_tc_body(int D, int width) {
-  if ((D != 32 && D != 64 && D != 128 && D != 256) || width < 0) return -1;
+  if ((D != 32 && D != 64 && D != 128 && D != 256 && D != 288) || width < 0)
+    return -1;
   return fullint_tc(width) ? 1 : 0;
 }
 

@@ -3,8 +3,13 @@
 // csrc/quantized_attention_bwd.cu), so both read payloads one way.
 //
 // K and V payloads are int8 [B, Hkv, Skv, D] or group-planar int4 uint8
-// [B, Hkv, Skv, D/2] (D <= 256: byte j holds value j in its low nibble and
-// value j + D/2 in its high one, each stored + 8).  They are read four
+// [B, Hkv, Skv, D/2]: the values pack in groups of 256 (the last group
+// shorter where D is not a multiple of 256), group g's bytes starting at
+// byte 128 g, and within a group of width w byte j holds value j in its
+// low nibble and value j + w/2 in its high one, each stored + 8 (D <= 256:
+// one group, byte j holds values j and j + D/2; MLA's D = 288: bytes
+// [0, 128) values j and j + 128, bytes [128, 144) values 256 + j and
+// 272 + j).  They are read four
 // values to a 32-bit word and either widened to fp32 (or dequantized) while
 // they are staged into the transposed [D][LD] tiles of attention_tiles.cuh,
 // or kept as words [D/4][LD] for __dp4a products; the tensor-core bodies
@@ -43,17 +48,23 @@ __device__ __forceinline__ float round_bf16(float x) {
   return Elem<__nv_bfloat16>::round(x);
 }
 
+constexpr int INT4_GROUP = 256;  // values per group-planar int4 group
+
 // Values [4w, 4w + 4) of one payload row of D values as an int32 word of
-// four int8: int8 rows as they are; int4 rows from the four bytes whose
-// low (values < D/2) or high nibbles hold them, minus 8 per byte.
+// four int8: int8 rows as they are; int4 rows from the four bytes of the
+// value's packing group whose low (the group's first half) or high nibbles
+// hold them, minus 8 per byte.  A word never straddles a group or its
+// halves: both are multiples of 8 values.
 template <int D>
 __device__ __forceinline__ int load_word(const uint8_t* row, int w, int bits) {
   const int e = 4 * w;
   if (bits == 8) return *reinterpret_cast<const int*>(row + e);
-  constexpr int H = D / 2;
-  const unsigned u =
-      *reinterpret_cast<const unsigned*>(row + (e < H ? e : e - H));
-  const unsigned nib = e < H ? (u & 0x0F0F0F0Fu) : ((u >> 4) & 0x0F0F0F0Fu);
+  const int base = D > INT4_GROUP ? e / INT4_GROUP * INT4_GROUP : 0;
+  const int h = min(INT4_GROUP, D - base) / 2;  // the group's half width
+  const int o = e - base;
+  const unsigned u = *reinterpret_cast<const unsigned*>(
+      row + base / 2 + (o < h ? o : o - h));
+  const unsigned nib = o < h ? (u & 0x0F0F0F0Fu) : ((u >> 4) & 0x0F0F0F0Fu);
   return (int)__vsub4(nib, 0x08080808u);
 }
 
@@ -129,26 +140,41 @@ __device__ __forceinline__ void stage_kv(const KVOperand& op, size_t head,
   }
 }
 
-// cp.async payload rows [t0, t0 + 64) of kv head `head` into dst (rows
-// RAW_LD bytes apart), NT threads; rows from `limit` are zeros.
-template <int D, int RAW_LD, int NT>
-__device__ __forceinline__ void stage_raw(const uint8_t* pay, int bits,
-                                          size_t head, int Skv, int t0,
-                                          int limit, uint8_t* dst) {
-  const int row_bytes = bits == 8 ? D : D / 2;
-  const int cpr = row_bytes / 16;  // chunks a row: a power of 2, <= 16
-  const int c = threadIdx.x % cpr;
-  const uint8_t* src = pay + head * Skv * row_bytes + c * 16;
-  dst += c * 16;
-  for (int r = threadIdx.x / cpr; r < 64; r += NT / cpr) {
+// cp.async of ROWS rows of CPR 16-byte chunks (16 CPR bytes a row) from
+// src into dst (rows RAW_LD bytes apart), rows from `limit` - t0 zeros; NT
+// threads, one chunk a thread at a time.  The loop stays rolled: unrolled
+// at its constant trip counts it took qattn_fwd_tc_kernel<bf16, 128> from
+// 167 registers to 251 and left the D = 288 forward spilling 32 / 44
+// bytes (bf16 / int8 Q), none rolled (-Xptxas -v on sm_90a).
+template <int CPR, int RAW_LD, int NT, int ROWS>
+__device__ __forceinline__ void stage_chunks(const uint8_t* src, int t0,
+                                             int limit, uint8_t* dst) {
+#pragma unroll 1
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR;
+    const int c = i % CPR;
     const bool ok = t0 + r < limit;
-    cp_async16(dst + r * RAW_LD, src + (size_t)(ok ? t0 + r : 0) * row_bytes,
+    cp_async16(dst + r * RAW_LD + c * 16,
+               src + (size_t)(ok ? t0 + r : 0) * (16 * CPR) + c * 16,
                ok ? 16 : 0);
   }
 }
 
-// Raw payload rows (stage_raw's, RAW_LD bytes apart) of keys [t0, t0 + 64)
-// -> bf16 rows [key][D] of dst (dst_ld bytes apart): kv_values' values
+// cp.async payload rows [t0, t0 + ROWS) of kv head `head` into dst (rows
+// RAW_LD bytes apart), NT threads; rows from `limit` are zeros.
+template <int D, int RAW_LD, int NT, int ROWS = 64>
+__device__ __forceinline__ void stage_raw(const uint8_t* pay, int bits,
+                                          size_t head, int Skv, int t0,
+                                          int limit, uint8_t* dst) {
+  const uint8_t* src = pay + head * Skv * (bits == 8 ? D : D / 2);
+  if (bits == 8)
+    stage_chunks<D / 16, RAW_LD, NT, ROWS>(src, t0, limit, dst);
+  else
+    stage_chunks<D / 32, RAW_LD, NT, ROWS>(src, t0, limit, dst);
+}
+
+// Raw payload rows (stage_raw's, RAW_LD bytes apart) of keys [t0, t0 +
+// ROWS) -> bf16 rows [key][D] of dst (dst_ld bytes apart): kv_values' values
 // rounded to bf16, zeros from `limit`; NT threads, 16 values of one row a
 // thread at a time (a per-token scale and zero point read once for them).
 // The bytes become floats on the FP32 pipe (mma.cuh's s8_f32) and a
@@ -156,7 +182,7 @@ __device__ __forceinline__ void stage_raw(const uint8_t* pay, int bits,
 // bf16, by none), so the conversion unit sees one instruction per two
 // values at most: the tensor-core dQ runs this for every key tile of every
 // CTA.
-template <int D, int RAW_LD, int NT>
+template <int D, int RAW_LD, int NT, int ROWS = 64>
 __device__ __forceinline__ void dequant_rows_bf16(const KVOperand& op,
                                                   const uint8_t* raw,
                                                   size_t head, int Skv,
@@ -164,7 +190,7 @@ __device__ __forceinline__ void dequant_rows_bf16(const KVOperand& op,
                                                   int limit, uint8_t* dst,
                                                   int dst_ld) {
   constexpr int C = D / 16;  // 16-value chunks a row
-  for (int i = threadIdx.x; i < 64 * C; i += NT) {
+  for (int i = threadIdx.x; i < ROWS * C; i += NT) {
     const int r = i / C;
     const int c = i % C;
     const int t = t0 + r;

@@ -8,17 +8,18 @@ disjoint outputs, so no atomics:
   saved logsumexp, dP = dO·Vᵀ, dS = P ⊙ (dP − D), dQ += dS·K; optionally
   writes dbias = dS.  Its bf16 instances, and those of :func:`qflash_dq`,
   run on the tensor cores (bf16 mma.sync: ``flash_dq_tc_kernel`` and
-  ``qflash_dq_tc_kernel`` up to D = 256, ``flash_dq_wide_kernel`` at
-  MLA's 288); fp32 the scalar body (:func:`dq_body`).
+  ``qflash_dq_tc_kernel`` up to D = 256, ``flash_dq_wide_kernel`` and
+  ``qflash_dq_wide_kernel`` at MLA's 288); fp32 the scalar body
+  (:func:`dq_body`).
 - :func:`flash_dkv` → ``flash_dkv_kernel`` (TPU ``_dkv_kernel``): per key
   tile, walks the GQA group's q heads × the live query rows, dV += Pᵀ·dO,
   dK += dSᵀ·Q_s; the group reduction happens inside the kernel.  Its bf16
   instances, and those of :func:`qflash_dkv`, run on the tensor cores
   (``flash_dkv_tc_kernel``, ``qflash_dkv_tc_kernel`` up to D = 256;
-  ``flash_dkv_wide_kernel`` at 288, which deals the GQA group over
-  :func:`dkv_splits` CTAs a key tile into an fp32 workspace that
-  :func:`merge_dkv_splits` sums in split order); fp32 the scalar body
-  (:func:`dkv_body`).
+  ``flash_dkv_wide_kernel``, ``qflash_dkv_wide_kernel`` at 288, which deal
+  the GQA group over :func:`dkv_splits` CTAs a key tile into an fp32
+  workspace that :func:`merge_dkv_splits` sums in split order); fp32 the
+  scalar body (:func:`dkv_body`).
 - Quantized K/V (:class:`QuantizedTensor`), exact: :func:`qflash_dq` and
   :func:`qflash_dkv` → ``csrc/quantized_attention_bwd.cu`` (the TPU
   kernels' quantized modes), the same two bodies with K/V staged from their
@@ -121,7 +122,7 @@ _MERGE_ARGS = [_PTR] * 3 + [_I32, _I64, _PTR]
 # dq | q, dO, K (payload, scale, zp), V (same), ksr, vsr, dqsc, L, D,
 # ranges, bias | bias strides | two outputs | ints | scale
 _QFLASH_ARGS = ([_I32] + [_PTR] * 15 + [_I64, _I64] + [_PTR, _PTR]
-                + [_I32] * 14 + [_F32, _PTR])
+                + [_I32] * 14 + [_F32, _I32, _PTR, _PTR])
 # dq | Q, its scales, K, its ROW scales, V, dO (and scales), dOv (and
 # scales), L, D | two outputs | ints | store multiplier
 _FULLINT_ARGS = [_I32] + [_PTR] * 13 + [_I32] * 8 + [_F32, _PTR]
@@ -212,9 +213,9 @@ def dkv_body(dtype: torch.dtype, d: int) -> str:
     (:func:`flash_dkv`, :func:`qflash_dkv`) run for a Q of ``dtype`` at head
     dim ``d``: "tensor_core" (bf16 mma.sync) for bf16 at every kernel
     width: ``dkv_tc_body`` up to 256, ``dkv_wide_body`` at MLA's width 288
-    (272 runs at 288; the quantized kernels stop at 256); "fp32_fma"
-    (``dkv_body``: scalar fp32 FMAs) for fp32, whose 2e-5 gate TF32 would
-    break.  The C launchers route the same way (``mfa::dkv_tc``,
+    (272 runs at 288; the flash and the quantized kernels alike);
+    "fp32_fma" (``dkv_body``: scalar fp32 FMAs) for fp32, whose 2e-5 gate
+    TF32 would break.  The C launchers route the same way (``mfa::dkv_tc``,
     ``mfa::bwd_wide``)."""
     flash_width(d)  # raises past the widest kernel
     return "tensor_core" if dtype == torch.bfloat16 else "fp32_fma"
@@ -530,7 +531,7 @@ def pad_qflash_kv(d: int, kq, vq, k_params, v_params, mode: KVMode):
 
 def _launch_qflash(name, dq, q, do, kq, vq, k_params, v_params, ksr, vsr,
                    dqsc, lse, di, row_ranges, bias, out0, out1, mode, scale,
-                   interleaved_kv):
+                   interleaved_kv, splits=1, ws=None):
     b, hq, sq, d = q.shape
     hkv, skv = kq.shape[1], kq.shape[2]
     bptr, bsb, bsh = bias_args(bias)
@@ -542,7 +543,7 @@ def _launch_qflash(name, dq, q, do, kq, vq, k_params, v_params, ksr, vsr,
         bptr, bsb, bsh, out0.data_ptr(), _ptr(out1), DTYPE_CODES[q.dtype], b,
         hq, hkv, sq, skv, d, int(interleaved_kv), mode.bits_k, mode.bits_v,
         DEQUANT[mode.k], DEQUANT[mode.v], mode.block[0], mode.block[1], scale,
-        stream_of(q),
+        splits, _ptr(ws), stream_of(q),
     )
     _build.check_launch(rc, name)
 
@@ -577,7 +578,8 @@ def qflash_dq(
     [B, Hkv, Skv] on S's and dS's / dP's columns; ``dqsc``: the store
     multipliers fp32 [B, Hkv, D].  CPU tensors take
     :func:`qflash_dq_plain`; CUDA tensors launch ``qflash_dq_tc_kernel``
-    (bf16) or ``qflash_dq_kernel`` (fp32; :func:`dq_body`) or raise."""
+    (bf16 up to kernel width 256), ``qflash_dq_wide_kernel`` (bf16 at 288)
+    or ``qflash_dq_kernel`` (fp32; :func:`dq_body`) or raise."""
     kw = dict(mode=mode, dqsc=dqsc, ksr=ksr, vsr=vsr, bias=bias,
               interleaved_kv=interleaved_kv)
     if q.device.type == "cpu":
@@ -626,7 +628,11 @@ def qflash_dkv(
     head's group.  ``q`` unscaled (the kernel scales and rounds it);
     payloads and parameters as for :func:`qflash_dq`, with "channel" scales
     fp32 [B, Hkv, D].  CPU tensors take :func:`qflash_dkv_plain`; CUDA
-    tensors launch ``qflash_dkv_kernel`` or raise."""
+    tensors launch ``qflash_dkv_tc_kernel`` (bf16 up to kernel width 256),
+    ``qflash_dkv_wide_kernel`` (bf16 at 288: where :func:`dkv_splits` deals
+    the group over several CTAs a key tile, into a workspace that
+    :func:`merge_dkv_splits` sums in split order) or ``qflash_dkv_kernel``
+    (fp32; :func:`dkv_body`), or raise."""
     kw = dict(mode=mode, scale=scale, bias=bias,
               interleaved_kv=interleaved_kv)
     if q.device.type == "cpu":
@@ -634,7 +640,7 @@ def qflash_dkv(
                                 row_ranges, **kw)
     check_qflash_inputs("qflash_dkv", q, do, kq, vq, k_params, v_params, lse,
                         di, row_ranges, bias, mode)
-    d = q.shape[3]
+    b, hq, _, d = q.shape
     w = qattn_width(d)
     kq, vq, k_params, v_params = pad_qflash_kv(d, kq, vq, k_params,
                                                v_params, mode)
@@ -642,10 +648,16 @@ def qflash_dkv(
     shape = (*kq.shape[:3], w)
     dk = torch.empty(shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(shape, dtype=torch.float32, device=q.device)
+    splits = dkv_splits(q.dtype, d, b, hq, shape[1], shape[2],
+                        _sm_count(q.device))
+    ws = (torch.empty((splits, 2) + shape, dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
     _launch_qflash("qflash_dkv", False, q, do, kq, vq, k_params, v_params,
                    None, None, None, lse, di, row_ranges, bias, dk, dv, mode,
-                   scale, interleaved_kv)
+                   scale, interleaved_kv, splits, ws)
     qflash_dkv.launches += 1
+    if ws is not None:
+        merge_dkv_splits(ws, dk, dv)
     if w != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
@@ -836,8 +848,10 @@ def fullint_body(d: int, width: int) -> str:
     one scale; "dp4a" (``fullint_dq_kernel``, ``fullint_dkv_kernel``:
     __dp4a and scalar fp32 FMAs) at the other widths, which
     :func:`fullint_widths` gives sequences that no power of two from 32
-    divides (below 32, or 8 or 16 times an odd number: 48 at 336).  The C
-    launcher routes the same way (``mfa_fullint_tc_body``)."""
+    divides (below 32, or 8 or 16 times an odd number: 48 at 336).  Both
+    pairs are built at every :func:`qattn_width`, MLA's 288 among them
+    (272 runs at 288); a head dim past 288 raises.  The C launcher routes
+    the same way (``mfa_fullint_tc_body``)."""
     qattn_width(d)
     if width < 0:
         raise ValueError(f"level-2 width {width} has no kernel")

@@ -21,9 +21,10 @@ with the scales:
   TENSOR / CHANNEL V scales multiply O at the store, ROW V scales P.
 
 The TPU kernel ``_qfwd_kernel`` becomes ``csrc/quantized_attention.cu::
-qattn_fwd_tc_kernel`` (tensor cores; a bf16 or int8 Q) and
-``qattn_fwd_kernel`` (fp32 FMAs; an fp32 Q) behind :func:`qattn_fwd`
-(:func:`qattn_body` says which); ``_hpack_kernel`` (the d=64
+qattn_fwd_tc_kernel`` (tensor cores; a bf16 or int8 Q up to kernel width
+256), ``qattn_fwd_wide_kernel`` (the same at MLA's width 288, in 32-key
+steps) and ``qattn_fwd_kernel`` (fp32 FMAs; an fp32 Q) behind
+:func:`qattn_fwd` (:func:`qattn_body` says which); ``_hpack_kernel`` (the d=64
 head-pair layout) becomes the same two kernels at d=64, launched through
 the packed strides behind :func:`hpack_fwd`.
 On CUDA tensors each launches its kernel or raises; their plain PyTorch
@@ -108,9 +109,10 @@ LOG2_127 = float(np.log2(127.0))
 LN_127 = float(np.log(127.0))
 KV_TILE = 64  # the kernels' query rows and keys per tile (BM, BN)
 # The head dims the quantized kernels (forward, exact and full-integer
-# backward) are built for; other multiples of 16 up to 256 run zero-padded
-# to the next (:func:`qattn_width`).
-HEAD_DIMS = (32, 64, 128, 256)
+# backward) are built for, MLA's 288 (a 256 latent + 32 RoPE lanes)
+# among them; other multiples of 16 up to 288 run zero-padded to the next
+# (:func:`qattn_width`: 272 at 288).  Wider heads have no kernel.
+HEAD_DIMS = (32, 64, 128, 256, 288)
 
 
 def _round_up(a: int, b: int) -> int:
@@ -206,21 +208,26 @@ class QAttnMode:
 
 
 def qattn_body(q_dtype: torch.dtype, mode: QAttnMode,
-               packed: bool = False) -> str:
+               packed: bool = False, d: Optional[int] = None) -> str:
     """Which body of ``csrc/quantized_attention.cu`` a launch runs:
-    "tensor_core" (``qattn_fwd_tc_kernel``: mma.sync over int8 or bf16
-    products) for a bf16 or int8 Q whose products round to bf16
-    (``mode.round_bf16``, as every bf16 Q's do), "fp32_fma" (the scalar
-    body) for an fp32 Q, also one quantized to int8.  The head-pair call
-    (``packed``: :func:`hpack_fwd`, whose mode always rounds to bf16) runs
-    the same two bodies through the packed strides: "tensor_core" for a
-    bf16 packed Q, "fp32_fma" for an fp32 one.  fp32 stays off the tensor
-    cores: TF32 keeps ~3 digits and the fp32 modes are held to 2e-5.  The
-    C interface routes the same way."""
+    "tensor_core" (mma.sync over int8 or bf16 products) for a bf16 or int8
+    Q whose products round to bf16 (``mode.round_bf16``, as every bf16 Q's
+    do), "fp32_fma" (the scalar body, ``qattn_fwd_kernel``) for an fp32 Q,
+    also one quantized to int8.  With the head dim ``d`` the tensor-core
+    answer names its kernel: "tensor_core" (``qattn_fwd_tc_kernel``) up to
+    kernel width 256, "tensor_core_wide" (``qattn_fwd_wide_kernel``, 32-key
+    steps) at MLA's 288, where 272 runs too; ``d`` past 288 raises.  The
+    head-pair call (``packed``: :func:`hpack_fwd`, whose mode always rounds
+    to bf16, d = 64) runs the same two bodies through the packed strides:
+    "tensor_core" for a bf16 packed Q, "fp32_fma" for an fp32 one.  fp32
+    stays off the tensor cores: TF32 keeps ~3 digits and the fp32 modes are
+    held to 2e-5.  The C interface routes the same way
+    (``mfa_qattn_body``)."""
+    wide = d is not None and qattn_width(d) > 256
     if packed:
         return "tensor_core" if q_dtype == torch.bfloat16 else "fp32_fma"
     if q_dtype in (torch.bfloat16, torch.int8) and mode.round_bf16:
-        return "tensor_core"
+        return "tensor_core_wide" if wide else "tensor_core"
     return "fp32_fma"
 
 
@@ -462,9 +469,11 @@ def qattn_fwd(
     per channel [B, Hkv, D] (V "store"), None where unused.  ``kv_tile``:
     the key span (a multiple of 64, above 64 for an int8 Q only) whose
     running row max P rounds against, the TPU's ``block_kv``
-    (:func:`int8_p_tile`); None: the kernel's ``KV_TILE``-key tiles.  CPU
+    (:func:`int8_p_tile`); None: the kernel's ``KV_TILE``-key tiles (at
+    width 288 the wide kernel's 32-key steps, whose running max moves only
+    P's bf16 rounding; an int8 P still rounds over 64-key spans).  CPU
     tensors take :func:`qattn_fwd_plain` over the same spans; CUDA tensors
-    launch ``qattn_fwd_kernel`` or raise.
+    launch the kernel :func:`qattn_body` names or raise.
 
     A head dim outside ``HEAD_DIMS`` runs at :func:`qattn_width`
     (:func:`pad_qattn_arguments`): the padded lanes meet Q's zero lanes in

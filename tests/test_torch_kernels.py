@@ -39,7 +39,9 @@ same inputs are held equal bit for bit; so are the bf16 forward, dQ and
 dK/dV at D = 288 (``flash_fwd_wide_kernel`` in both of its modes and the
 wide bodies; the dK/dV's GQA group split over CTAs and merged in split
 order, the merge kernel bit for bit with its plain version), which take
-the flash kernels' bf16 tolerances.  The flash
+the flash kernels' bf16 tolerances, and the quantized kernels at MLA's
+width (the wide forward, the exact dQ and dK/dV and the full-integer pair
+at 272 / 288), which take the quantized ones'.  The flash
 forward's static-max mode (``row_max``) takes the flash forward's
 tolerances, the kernel and the plain version given the same subtrahends;
 the dynamic GEMM under a stored plan stays bit for bit, and the
@@ -914,6 +916,42 @@ QATTN_CASES = {
     # summing it unrounded.
     "tc_head_pair_mode": (1, 4, 2, 130, 130, 64, CH8, CH8, BF16,
                           masking.CAUSAL, dict(head_pair_mode=True)),
+    # MLA's width 288 (qattn_fwd_wide_kernel for a bf16 or int8 Q, the
+    # scalar body for fp32; 272 runs at 288): int8 and int4 (two packing
+    # groups a row), ROW / TENSOR / CHANNEL / BLOCK_2D, int8 Q with bf16 and
+    # int8 P, bias, causal and sliding-window masks, interleaved GQA.
+    "wide_dequant_row8c_d288": (1, 4, 1, 200, 200, 288, ROW8C, ROW8C, BF16,
+                                masking.CAUSAL, {}),
+    "wide_dequant_row4c_d288": (1, 4, 2, 130, 130, 288, ROW4C, ROW4C, BF16,
+                                masking.CAUSAL, {}),
+    "wide_dequant_k8_v4_f32_d288": (1, 2, 1, 100, 130, 288, ROW8C, ROW4C,
+                                    F32, masking.CAUSAL, {}),
+    "wide_block2d_d288": (1, 4, 2, 128, 160, 288, B2D, B2D, BF16,
+                          masking.CAUSAL, {}),
+    "wide_block2d16_d272": (1, 4, 2, 128, 128, 272, B2D16, B2D16, BF16,
+                            masking.CAUSAL, {}),
+    "wide_quantize_q_row_d288": (1, 4, 1, 150, 150, 288, ROW8, ROW8, BF16,
+                                 masking.CAUSAL, QQ),
+    "wide_quantize_q_int4_k_d272": (1, 4, 2, 130, 130, 272, ROW4, ROW8,
+                                    BF16, masking.CAUSAL, QQ),
+    "wide_int8_pv_channel_d288": (1, 4, 1, 300, 300, 288, ROW8, CH8, BF16,
+                                  masking.CAUSAL, QQ),
+    "wide_int8_pv_int4_v_d288": (1, 2, 1, 200, 200, 288, ROW8, CH4, BF16,
+                                 masking.FULL, QQ),
+    "wide_int8_pv_tensor_f32_d288": (1, 2, 1, 96, 96, 288, TEN8, TEN8, F32,
+                                     masking.FULL, QQ),
+    "wide_folded_row_window_d288": (1, 4, 1, 300, 300, 288, ROW8, ROW8,
+                                    BF16,
+                                    masking.sliding_window(96, causal=True),
+                                    {}),
+    "wide_folded_tensor_bias_d272": (1, 4, 2, 130, 130, 272, TEN8, CH8, BF16,
+                                     masking.CAUSAL,
+                                     dict(bias=(1, 4, 130, 130))),
+    "wide_folded_channel_interleaved_d288": (1, 8, 2, 128, 128, 288, CH8,
+                                             TEN8, BF16, masking.CAUSAL,
+                                             dict(interleaved_kv=True)),
+    "wide_short_kv_d288": (1, 4, 2, 100, 40, 288, ROW8C, ROW4C, BF16,
+                           masking.FULL, {}),
 }
 
 
@@ -1131,6 +1169,31 @@ QBWD_CASES = {
                             masking.CAUSAL, {}),
     "dq_tc_short_kv_empty_rows": (1, 4, 2, 100, 40, 64, ROW8C, ROW4C, BF16,
                                   masking.CAUSAL, {}),
+    # MLA's width 288 (qflash_dq_wide_kernel, qflash_dkv_wide_kernel and
+    # the merge of its group split for bf16; the scalar bodies for fp32;
+    # 272 runs at 288): per-token int8 / int4, folded ROW (column scales),
+    # CHANNEL int4 (store multipliers), BLOCK_2D, bias with dbias, windows,
+    # interleaved GQA and a group of 8 split over CTAs.
+    "wide_dequant_row8c_d288": (1, 4, 1, 200, 200, 288, ROW8C, ROW8C, BF16,
+                                masking.CAUSAL, {}),
+    "wide_dequant_row4c_d288": (1, 4, 2, 130, 130, 288, ROW4C, ROW4C, BF16,
+                                masking.CAUSAL, {}),
+    "wide_folded_row_gqa8_d288": (1, 8, 1, 160, 160, 288, ROW8, ROW8, BF16,
+                                  masking.CAUSAL, {}),
+    "wide_folded_channel4_d288": (1, 4, 2, 130, 130, 288, CH4, CH4, BF16,
+                                  masking.CAUSAL, {}),
+    "wide_block2d_d288": (1, 4, 2, 128, 160, 288, B2D, B2D, BF16,
+                          masking.CAUSAL, {}),
+    "wide_bias_dbias_d272": (1, 4, 2, 100, 130, 272, ROW8C, ROW8C, BF16,
+                             masking.CAUSAL, dict(bias=(1, 4, 100, 130))),
+    "wide_window_interleaved_d288": (1, 8, 2, 300, 300, 288, ROW8C, ROW4C,
+                                     BF16,
+                                     masking.sliding_window(96, causal=True),
+                                     dict(interleaved_kv=True)),
+    "wide_f32_d288": (1, 2, 1, 96, 130, 288, ROW8C, ROW4C, F32,
+                      masking.CAUSAL, {}),
+    "wide_tensor_f32_full_d272": (1, 2, 1, 96, 96, 272, TEN8, TEN8, F32,
+                                  masking.FULL, {}),
 }
 
 
@@ -1206,6 +1269,17 @@ FULLINT_CASES = {
     "w1_l2": (1, 4, 2, 129, 128, TEN8, CH8, 512, False),
     "gqa8_interleaved_l1": (1, 16, 2, 256, 128, ROW8, CH8, None, True),
     "sq_ne_skv": (1, 4, 2, (192, 320), 128, ROW8, CH8, 128, False),
+    # MLA's width 288 (two warp groups; the level-1 dK/dV in 32-query
+    # steps; S's int32 sums from 0), both levels, 272 at 288; a level-2
+    # width below one k step on the scalar pair.
+    "d288_l1": (1, 4, 2, 256, 288, ROW8, CH8, None, False),
+    "d288_l2_w128": (1, 4, 2, 256, 288, ROW8, CH8, 128, False),
+    "d288_l2_w96": (1, 4, 2, 288, 288, ROW8, TEN8, 512, False),
+    "d272_l2_w256": (1, 2, 1, 256, 272, TEN8, TEN8, 512, False),
+    "d288_gqa8_interleaved_l1": (1, 16, 2, 192, 288, ROW8, TEN8, None,
+                                 True),
+    "d288_l1_sq_ne_skv": (1, 4, 2, (100, 200), 288, ROW8, CH8, None, False),
+    "d288_w16_l2": (1, 4, 2, 144, 288, ROW8, CH8, 512, False),
 }
 
 
@@ -1258,12 +1332,108 @@ def test_fullint_kernels_route_as_the_python_bodies_say(cuda_device):
 
     body = _build.kernel_function("mfa_fullint_tc_body",
                                   [ctypes.c_int, ctypes.c_int])
-    for d in (32, 64, 128, 256):
+    for d in (32, 64, 128, 256, 288):
         for width in range(4097):
             want = fbwd.fullint_body(d, width) == "tensor_core"
             assert body(d, width) == int(want), (d, width)
             assert want == (width % 32 == 0)
     assert body(48, 0) == -1 and body(64, -1) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_kv", [128, 256])
+@pytest.mark.parametrize("d", [272, 288])
+def test_qattn_wide_int8_p_over_block_kv_spans(cuda_device, d, block_kv):
+    """The wide forward's int8 P (an int8 Q, SYMMETRIC CHANNEL V) over the
+    TPU's block_kv spans of 128 and 256 keys, each walked in 32-key steps
+    twice (the span's row max, then P): held to the plain version over the
+    same spans, and through the public forward's ``block_sizes``."""
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 300, 520, d, ROW8, CH8,
+                              BF16, seed=d)
+    args, kw = qa.qattn_arguments(q, kq, vq, mask=masking.CAUSAL,
+                                  quantize_q=True)
+    assert kw["mode"].p_int8
+    assert qa.qattn_body(args[0].dtype, kw["mode"], d=d) == "tensor_core_wide"
+    o, lse = qa.qattn_fwd(*args, **kw, kv_tile=block_kv)
+    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw, kv_tile=block_kv)
+    assert _rel(o, o_ref) <= BF16_TOL
+    assert _rel(lse, l_ref) <= TOLERANCES["lse"]
+    fwd, _ = qa.quantized_flash_attention_forward(
+        q, kq, vq, mask=masking.CAUSAL, quantize_q=True,
+        block_sizes=BlockSizes(block_kv=block_kv))
+    assert torch.equal(fwd, o)
+
+
+def _wide_calls(device, d):
+    """Each wide quantized kernel's launch at head dim ``d``, as a list of
+    (name, thunk returning its outputs): the forward (bf16 dequant, int8 P),
+    the exact dQ and dK/dV (a group of 8 split over CTAs and merged), and
+    the full-integer pair at levels 1 and 2."""
+    calls = []
+    for name, kcfg, vcfg, opts in (("fwd_dequant", ROW4C, ROW8C, {}),
+                                   ("fwd_int8_p", ROW8, CH8, QQ)):
+        q, kq, vq = _qattn_inputs(device, 1, 4, 1, 200, 200, d, kcfg, vcfg,
+                                  BF16)
+        args, kw = qa.qattn_arguments(q, kq, vq, mask=masking.CAUSAL, **opts)
+        tile = 128 if kw["mode"].p_int8 else None
+        calls.append((name, lambda a=args, k=kw, t=tile: qa.qattn_fwd(
+            *a, **k, kv_tile=t)))
+    q, kq, vq = _qattn_inputs(device, 1, 8, 1, 160, 160, d, ROW8, ROW4C, BF16)
+    do, lse, di = _bwd_inputs(device, q, kq, vq, masking.CAUSAL, 3)
+    rr = row_ranges_tensor(masking.CAUSAL, 160, 160, None, device)
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.qflash_arguments(
+        q, kq, vq, do, lse, di, rr, scale=d ** -0.5)
+    assert fbwd.dkv_splits(BF16, d, 1, 8, 1, 160,
+                           fbwd._sm_count(device)) > 1
+    calls += [("qflash_dq", lambda: fbwd.qflash_dq(*dq_a, **dq_kw)[0]),
+              ("qflash_dkv", lambda: fbwd.qflash_dkv(*dkv_a, **dkv_kw))]
+    q, kq, vq = _qattn_inputs(device, 1, 4, 2, 256, 256, d, ROW8, CH8, BF16)
+    do, lse, di = _bwd_inputs(device, q, kq, vq, masking.FULL, 4)
+    for level2 in (False, True):
+        (fa, fkw), (ka, kkw) = fbwd.fullint_arguments(
+            q, kq, vq, None, lse, do, scale=d ** -0.5, di=di,
+            block_sizes=BlockSizes(block_kv_dq=128, block_q_dkv=128),
+            int8_grads=level2)
+        tag = "l2" if level2 else "l1"
+        calls += [(f"fullint_dq_{tag}",
+                   lambda a=fa, k=fkw: fbwd.fullint_dq(*a, **k)),
+                  (f"fullint_dkv_{tag}",
+                   lambda a=ka, k=kkw: fbwd.fullint_dkv(*a, **k))]
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [272, 288])
+def test_wide_quantized_kernels_repeat_bit_for_bit(cuda_device, d):
+    """Two calls of each wide quantized kernel on the same inputs give the
+    same bits: no floating-point atomics, the dK/dV's group split merged in
+    split order."""
+    for name, call in _wide_calls(cuda_device, d):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for x, y in zip(first if isinstance(first, tuple) else (first,),
+                        second if isinstance(second, tuple) else (second,)):
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_qattn_kernels_route_as_qattn_body_says(cuda_device):
+    """The C interface's choice of forward kernel (as the library reports
+    it) agrees with ``qattn_body`` at every built width: the wide kernel at
+    288 for a bf16 or int8 Q rounding to bf16, the 64-key one below, the
+    scalar body for fp32 and for an int8 Q without the rounding."""
+    body = _build.kernel_function("mfa_qattn_body", [ctypes.c_int] * 3)
+    names = {"fp32_fma": 0, "tensor_core": 1, "tensor_core_wide": 2}
+    for d in qa.HEAD_DIMS:
+        for dtype, code in qa.Q_TYPES.items():
+            for rb in (False, True):
+                if dtype == BF16 and not rb:
+                    assert body(code, d, 0) == -1
+                    continue
+                mode = qa.QAttnMode("token", "token", round_bf16=rb)
+                want = names[qa.qattn_body(dtype, mode, d=d)]
+                assert body(code, d, int(rb)) == want, (d, dtype, rb)
+    assert body(1, 304, 1) == -1 and body(1, 272, 1) == -1
 
 
 @pytest.mark.cuda

@@ -116,6 +116,18 @@ CASES = {
     "quantize_q_d96_bf16": (1, 4, 2, 128, 128, 96, ROW8, ROW8, "bf16",
                             "causal", dict(quantize_q=True)),
     "row4_d96": (1, 4, 2, 128, 128, 96, ROW4C, ROW4C, "f32", "causal", {}),
+    # MLA's width 288 (a 256 latent + 32 RoPE lanes: an int4 row packs as
+    # two groups) and 272, which the card runs zero-padded at 288.
+    "row8_d288": (1, 2, 1, 128, 128, 288, ROW8C, ROW8C, "f32", "causal", {}),
+    "row4_d288": (1, 2, 1, 128, 128, 288, ROW4C, ROW4C, "f32", "causal", {}),
+    "block2d_d288": (1, 2, 1, 128, 128, 288, B2D, B2D, "f32", "causal", {}),
+    "int8_pv_channel_d288": (1, 2, 1, 128, 128, 288, ROW8, CH8, "f32",
+                             "causal", dict(quantize_q=True)),
+    "folded_row_d288_bf16": (1, 2, 1, 128, 128, 288, ROW8, ROW8, "bf16",
+                             "full", {}),
+    "row4_d272": (1, 2, 1, 128, 128, 272, ROW4C, ROW4C, "f32", "causal", {}),
+    "quantize_q_d272_bf16": (1, 2, 1, 128, 128, 272, ROW8, ROW8, "bf16",
+                             "causal", dict(quantize_q=True)),
 }
 
 
@@ -196,6 +208,11 @@ PADDED = {  # name: (head dim, K config, V config, Q dtype, options)
     "block2d_d80": (80, B2D16, B2D16, "f32", {}),
     "block2d48_d96": (96, B2D48, B2D48, "f32", {}),
     "folded_channel_d48_bf16": (48, CH8, TEN8, "bf16", {}),
+    # 272 at MLA's 288: the int4 row repacked as two groups (128 + 16
+    # bytes), BLOCK_2D 16-wide cells.
+    "int4_token_d272": (272, ROW4C, ROW4C, "f32", {}),
+    "block2d16_d272": (272, B2D16, B2D16, "f32", {}),
+    "int8_pv_channel_d272": (272, ROW8, CH8, "f32", dict(quantize_q=True)),
 }
 
 
@@ -239,10 +256,33 @@ def test_kernel_width_padding_of_untiled_blocks_and_widths():
     assert torch.equal(ps[..., 1], torch.ones(1, 1, 4))
     assert torch.equal(pz[..., 1], torch.zeros(1, 1, 4))
     assert torch.equal(ps[..., :1], s) and ps.shape[-1] == 2
-    with pytest.raises(ValueError):  # no kernel width for 272
-        tqa.qattn_width(272)
+    # 272 runs at MLA's 288; past 288 there is no kernel width.
+    assert tqa.qattn_width(272) == tqa.qattn_width(288) == 288
+    for d in (304, 320, 576):
+        with pytest.raises(ValueError):
+            tqa.qattn_width(d)
     assert [tqa.qattn_width(d) for d in (16, 48, 64, 80, 96, 144, 256)] == [
         32, 64, 64, 128, 128, 256, 256]
+
+
+@pytest.mark.parametrize("d", [64, 256, 272, 288])
+@pytest.mark.parametrize("qdtype", ["f32", "bf16", "int8"])
+def test_qattn_body_names_the_wide_kernel_at_288(qdtype, d):
+    """A bf16 or int8 Q rounding to bf16 takes the 64-key tensor-core
+    kernel up to kernel width 256 and the wide one (32-key steps) at 288,
+    where 272 runs too; an fp32 Q takes the scalar body at every width;
+    without the head dim the answer names the body alone; past 288 there
+    is no kernel."""
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}[qdtype]
+    mode = tqa.QAttnMode("token", "token",
+                         round_bf16=dtype != torch.float32)
+    want = ("fp32_fma" if dtype == torch.float32 else
+            "tensor_core_wide" if d > 256 else "tensor_core")
+    assert tqa.qattn_body(dtype, mode, d=d) == want
+    assert tqa.qattn_body(dtype, mode) == want.removesuffix("_wide")
+    with pytest.raises(ValueError):
+        tqa.qattn_body(dtype, mode, d=304)
 
 
 @pytest.mark.parametrize("qdtype", ["f32", "bf16"])

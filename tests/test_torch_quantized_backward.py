@@ -161,6 +161,15 @@ EXACT = {
                        {}),
     "folded_row_d96_bf16": (1, 4, 2, 128, 128, 96, ROW8, ROW8, "bf16",
                             "causal", {}),
+    # MLA's width 288 (an int4 row packs as two groups) and 272, which the
+    # card runs zero-padded at 288.
+    "token_int4_d288": (1, 2, 1, 128, 128, 288, ROW4C, ROW4C, "f32",
+                        "causal", {}),
+    "folded_row_d288_bf16": (1, 4, 1, 128, 128, 288, ROW8, ROW8, "bf16",
+                             "causal", {}),
+    "block2d_d288": (1, 2, 1, 128, 128, 288, B2D, B2D, "f32", "causal", {}),
+    "folded_channel_int4_d272_bf16": (1, 2, 1, 128, 128, 272, CH4, CH4,
+                                      "bf16", "causal", {}),
 }
 
 
@@ -284,13 +293,13 @@ def test_fullint_backward_matches_jax(name, monkeypatch):
         assert 0 < (g - e).norm() / e.norm() < 0.05
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256, 272, 288])
 def test_fullint_body_follows_the_level_2_width(d):
     """The full-integer pair runs on the tensor cores at level 1 and at
     widths of whole s8 k steps (multiples of 32), on the scalar kernels at
     the widths ``fullint_widths`` gives other sequences (S=200: 8, S=336:
-    48, S=129: 1), and has no kernel for a negative width or a head dim
-    past 256."""
+    48, S=129: 1), at every head dim up to MLA's 288 (272 runs at 288),
+    and has no kernel for a negative width or a head dim past 288."""
     bs = tbwd.BlockSizes()
     for s, want in ((4096, "tensor_core"), (256, "tensor_core"),
                     (160, "tensor_core"), (288, "tensor_core"),
@@ -303,7 +312,48 @@ def test_fullint_body_follows_the_level_2_width(d):
     with pytest.raises(ValueError):
         tbwd.fullint_body(d, -1)
     with pytest.raises(ValueError):
-        tbwd.fullint_body(272, 0)
+        tbwd.fullint_body(304, 0)
+
+
+@pytest.mark.parametrize("d,level", [(288, None), (288, "2"), (272, None)])
+def test_fullint_backward_at_mla_widths_matches_jax(d, level, monkeypatch):
+    """Levels 1 and 2 at MLA's width 288 and level 1 at 272 (B=1, Hq=2,
+    Hkv=1, S=128, bf16, FULL, ROW K / CHANNEL V; level 2 over 128-wide
+    tiles)."""
+    if level:
+        monkeypatch.setenv("MFA_BWD_FULLINT_LEVEL", level)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(
+        d + len(level or ""), 1, 2, 1, 128, 128, d, ROW8, CH8, "bf16")
+    tbs = tbwd.BlockSizes(**dataclasses.asdict(JBS128))
+    (jo, jl), (to, tl) = _forward(tq, tk, tv)
+    with jax.default_matmul_precision("highest"):
+        want = jbwd.flash_attention_backward(jq, jk, jv, jo, jl, jdo,
+                                             fullint=True, block_sizes=JBS128)
+    got = tbwd.flash_attention_backward(tq, tk, tv, to, tl, tdo,
+                                        fullint=True, block_sizes=tbs)
+    for g, w in zip(got[:3], want[:3]):
+        assert _err(g, w) <= BF16_TOL
+
+
+@pytest.mark.parametrize("d", [272, 288])
+def test_wide_widths_route_to_the_wide_bodies(d):
+    """At 272 and 288 the quantized kernels run at width 288: the exact dQ
+    and dK/dV of a bf16 Q on the tensor cores (the wide bodies), of an fp32
+    Q on the scalar ones, the full-integer pair at both levels, and the
+    dK/dV's GQA group split over CTAs at MLA's shape (16 q heads over one
+    latent head, 2048 keys, 132 SMs); a head dim past 288 has none."""
+    assert tqa.qattn_width(d) == 288
+    for body in (tbwd.dq_body, tbwd.dkv_body):
+        assert body(torch.bfloat16, d) == "tensor_core"
+        assert body(torch.float32, d) == "fp32_fma"
+    assert tbwd.fullint_body(d, 0) == tbwd.fullint_body(d, 128) == (
+        "tensor_core")
+    assert tbwd.fullint_body(d, 16) == "dp4a"
+    assert tbwd.dkv_splits(torch.bfloat16, d, 2, 16, 1, 2048, 132) == 16
+    assert tbwd.dkv_splits(torch.float32, d, 2, 16, 1, 2048, 132) == 1
+    for fn in (tqa.qattn_width, lambda w: tbwd.fullint_body(w, 0)):
+        with pytest.raises(ValueError):
+            fn(304)
 
 
 @pytest.mark.parametrize("d", [80, 96])
@@ -335,6 +385,14 @@ PADDED = {  # name: (head dim, K, V, Q dtype)
                       _cfg(gran="block_2d", strategy="centered",
                            block_rows=8, block_size=48), "f32"),
     "folded_channel_d48_bf16": (48, CH8, CH4, "bf16"),
+    # 272 at MLA's 288: the int4 row repacked as two groups, BLOCK_2D
+    # 16-wide cells, folded ROW (column scales) in bf16.
+    "token_int4_d272": (272, ROW4C, ROW4C, "f32"),
+    "block2d16_d272": (272, _cfg(gran="block_2d", strategy="centered",
+                                 block_rows=8, block_size=16),
+                       _cfg(gran="block_2d", strategy="centered",
+                            block_rows=8, block_size=16), "f32"),
+    "folded_row_d272_bf16": (272, ROW8, ROW8, "bf16"),
 }
 
 
