@@ -300,7 +300,27 @@ checkout, then, on the card:
    its plain version at S=8192; (d) the new kernels alone at (b)'s shape,
    events and device ms beside their bounds, plain versions and SDPA over
    the dequantized bf16 K/V (the forward also with an int8 Q, the
-   full-integer pair at level 2 too).
+   full-integer pair at level 2 too);
+20. MLA serving at DeepSeek's absorbed width 576 (inputs from a
+   fourteenth generator, seed + 13): (a) both paged kernels at Hq=16 over
+   the one latent head, D=576 with one-state pages and v_tail_zero=64, at
+   D=320 (run at 576) and with two-state pages at 576 (the prefill's
+   scalar route), bf16 and int8 pools (bf16 q, max abs ≤ 2e-2) and fp32
+   (≤ 2e-5): the decode at phase 2's lengths over the engine's capacity,
+   the 256-row prefill chunk at three offsets, each call twice, equal bit
+   for bit; the dyn GEMM at DeepSeek-V2-Lite's projection shapes bit for
+   bit; (b) ``V2_LITE`` (DeepSeek-V2-Lite's widths, 27 layers, random
+   weights drawn on the card from the seed) logits through
+   ``mla_prefill_chunk`` and ``mla_decode_step`` against the fp32
+   ``mla_forward`` with the dense attention (no kernel): float latent
+   pool ≤ 0.05 rel L2, ``quantize_mla_weights`` over an int8 latent ≤
+   0.25; (c) ``ServingEngine(..., executor=mla_executor())`` serving the
+   8 requests, float and W8A8 + int8 latent, the launch counts set to 0
+   just before and read after, and no plain version called on a CUDA
+   tensor; (d) both paged kernels' times at 576 beside their bounds,
+   plain versions and SDPA over the gathered bf16 K/V (the backend torch
+   took named), and each engine's device time by kernel over every fifth
+   engine step.
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -558,6 +578,7 @@ from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
 from metal_flash_attention_plus_tpu_torch.utils.debug import dump_lowered
 from metal_flash_attention_plus_tpu_torch.utils.roofline import H100_SXM
 from metal_flash_attention_plus_tpu_torch.utils.profiling import (
+    DEEPSEEK_V2_LITE,
     GEMM_SHAPES,
     NORTH_STAR_BLOCKS,
     NORTH_STAR_SHAPE,
@@ -2974,11 +2995,11 @@ WO_CASES = (
 )
 
 
-def mla_pool(rng, quantized, num_pages, pt):
-    """A latent pool [1, NP+1, PT, 288] (one state per token): bf16
+def mla_pool(rng, quantized, num_pages, pt, d=MLA_D):
+    """A latent pool [1, NP+1, PT, d] (one state per token): bf16
     states, or int8 ones with one scale per token for K and V."""
     g = device_generator(rng)
-    shape = (1, num_pages + 1, pt, MLA_D)
+    shape = (1, num_pages + 1, pt, d)
     if not quantized:
         pool = torch.randn(shape, generator=g, device=DEV)
         return pool.to(torch.bfloat16), {}
@@ -3366,27 +3387,42 @@ def time_wo_gemm(rng):
     return times
 
 
-def mla_dense_kv(pool, row, n, pt):
+def mla_dense_kv(pool, row, n, pt, vtz=MLA_VTZ):
     """One sequence's first n latent states as K [1, n, D] and V (the rope
-    tail zeroed), bf16."""
+    tail of vtz lanes zeroed), bf16."""
     t = torch.arange(n, device=DEV)
     k = pool[:, row.long()[t // pt], t % pt]
     v = k.clone()
-    v[..., MLA_D - MLA_VTZ:] = 0
+    v[..., k.shape[-1] - vtz:] = 0
     return k, v
 
 
-def time_mla_paged(rng, lengths):
-    """Both paged kernels at MLA's geometry with a bf16 latent pool: decode
-    at the engine's decode lengths, a 256-token prefill chunk at offset
-    512; beside their bounds (one state per live token read once; QK over
-    288 lanes, PV over 256), plain versions and SDPA over the dense K/V."""
+def sdpa_backend(*args, **kw) -> str:
+    """The SDPA backend torch picks for these arguments on the card
+    (``torch._fused_sdp_choice``, as ``F.scaled_dot_product_attention``
+    asks it)."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(*args, **kw)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"not determined ({type(e).__name__}: {e})"
+
+
+def time_mla_paged(rng, lengths, hq=MLA_HQ, d=MLA_D, vtz=MLA_VTZ,
+                   scale=MLA_SCALE, label="MLA D=288", turns=True):
+    """Both paged kernels at a latent geometry (MLAConfig()'s by default)
+    with a bf16 latent pool: decode at the engine's decode lengths, a
+    256-token prefill chunk at offset 512; beside their bounds (one state
+    per live token read once; QK over d lanes, PV over d - vtz), plain
+    versions and SDPA over the dense K/V (the backend torch took named);
+    ``turns``: timed on the parent's kernels too, with ``--parent``."""
     pt, num_pages, max_pages, chunk, offset = 256, 256, 16, 256, 512
-    hq, d, dv = MLA_HQ, MLA_D, MLA_D - MLA_VTZ
+    dv = d - vtz
     lengths = np.asarray(lengths, np.int32)
     b = len(lengths)
-    pool, _ = mla_pool(rng, False, num_pages, pt)
-    kw = dict(page_tokens=pt, v_tail_zero=MLA_VTZ, scale=MLA_SCALE)
+    pool, _ = mla_pool(rng, False, num_pages, pt, d)
+    kw = dict(page_tokens=pt, v_tail_zero=vtz, scale=scale)
     table = page_tables(rng, lengths, pt, num_pages, max_pages)
     q = torch.from_numpy(rng.standard_normal((b, hq, d), np.float32)).to(
         DEV, torch.bfloat16)
@@ -3395,7 +3431,8 @@ def time_mla_paged(rng, lengths):
     k = torch.zeros(b, 1, s_max, d, device=DEV, dtype=torch.bfloat16)
     v = torch.zeros_like(k)
     for i, n in enumerate(lengths):
-        k[i, :, :n], v[i, :, :n] = mla_dense_kv(pool, table[i], int(n), pt)
+        k[i, :, :n], v[i, :, :n] = mla_dense_kv(pool, table[i], int(n), pt,
+                                                vtz)
     mask = (torch.arange(s_max, device=DEV)[None, :]
             < ln[:, None].long()).view(b, 1, 1, s_max)
     q4 = q.view(b, hq, 1, d)
@@ -3404,28 +3441,34 @@ def time_mla_paged(rng, lengths):
         "ms": time_ms(lambda: paged_decode_attention(q, pool, table, ln,
                                                      **kw), 50),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k, v, attn_mask=mask, enable_gqa=True, scale=MLA_SCALE), 50)}
+            q4, k, v, attn_mask=mask, enable_gqa=True, scale=scale), 50)}
     dec["ms_2"] = time_ms(lambda: paged_decode_attention(q, pool, table, ln,
                                                          **kw), 50)
     dec["device_ms"] = device_ms(
         lambda: paged_decode_attention(q, pool, table, ln, **kw), 50)
     dec["library_device_ms"] = device_ms(
         lambda: F.scaled_dot_product_attention(
-            q4, k, v, attn_mask=mask, enable_gqa=True, scale=MLA_SCALE), 50)
-    parent_turns("paged_decode MLA D=288", dec,
-                 lambda: paged_decode_attention(q, pool, table, ln, **kw), 50,
-                 device=True)
+            q4, k, v, attn_mask=mask, enable_gqa=True, scale=scale), 50)
+    dec["library_backend"] = sdpa_backend(q4, k, v, mask, enable_gqa=True,
+                                          scale=scale)
+    dec["library_kernels"] = sorted(device_ms_by_label(
+        lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask, enable_gqa=True, scale=scale), 5))
+    if turns:
+        parent_turns(f"paged_decode {label}", dec,
+                     lambda: paged_decode_attention(q, pool, table, ln,
+                                                    **kw), 50, device=True)
     live = int(lengths.sum())
     dec["bound_ms"], dec["bound_by"] = bound_of(
         2 * hq * live * (d + dv),
         live * d * 2 + 2 * b * hq * d * 2 + table.numel() * 4 + b * 4)
-    log(f"paged_decode MLA bf16 times at lengths {lengths.tolist()}: "
+    log(f"paged_decode {label} bf16 times at lengths {lengths.tolist()}: "
         + json.dumps(dec))
     row = page_tables(rng, [offset + chunk], pt, num_pages, max_pages)[0]
     q = torch.from_numpy(rng.standard_normal((hq, chunk, d), np.float32)).to(
         DEV, torch.bfloat16)
     n = offset + chunk
-    k, v = mla_dense_kv(pool, row, n, pt)
+    k, v = mla_dense_kv(pool, row, n, pt, vtz)
     mask = (torch.arange(n, device=DEV)[None, :]
             <= offset + torch.arange(chunk, device=DEV)[:, None])
     pf = {"plain_ms": time_ms(lambda: paged_prefill_attention_plain(
@@ -3434,7 +3477,7 @@ def time_mla_paged(rng, lengths):
                                                       **kw), 20),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], attn_mask=mask, enable_gqa=True,
-            scale=MLA_SCALE), 20)}
+            scale=scale), 20)}
     pf["ms_2"] = time_ms(lambda: paged_prefill_attention(q, pool, row, offset,
                                                          **kw), 20)
     pf["device_ms"] = device_ms(
@@ -3442,15 +3485,23 @@ def time_mla_paged(rng, lengths):
     pf["library_device_ms"] = device_ms(
         lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], attn_mask=mask, enable_gqa=True,
-            scale=MLA_SCALE), 20)
-    parent_turns(f"paged_prefill MLA D=288 offset {offset}", pf,
-                 lambda: paged_prefill_attention(q, pool, row, offset, **kw),
-                 20, device=True)
+            scale=scale), 20)
+    pf["library_backend"] = sdpa_backend(q[None], k[None], v[None], mask,
+                                         enable_gqa=True, scale=scale)
+    pf["library_kernels"] = sorted(device_ms_by_label(
+        lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=mask, enable_gqa=True,
+            scale=scale), 5))
+    if turns:
+        parent_turns(f"paged_prefill {label} offset {offset}", pf,
+                     lambda: paged_prefill_attention(q, pool, row, offset,
+                                                     **kw), 20, device=True)
     visible = chunk * offset + chunk * (chunk + 1) // 2
     pf["bound_ms"], pf["bound_by"] = bound_of(
         2 * hq * visible * (d + dv),
         n * d * 2 + 2 * hq * chunk * d * 2 + row.numel() * 4)
-    log(f"paged_prefill MLA bf16 times at offset {offset}: " + json.dumps(pf))
+    log(f"paged_prefill {label} bf16 times at offset {offset}: "
+        + json.dumps(pf))
     return {"decode": dec, "prefill": pf}
 
 
@@ -5916,6 +5967,250 @@ def run_wide_quantized(seed):
     return out, phase
 
 
+# --------------------------------------------------------------------------
+# Phase 20: MLA serving at DeepSeek's absorbed width 576
+# --------------------------------------------------------------------------
+
+# DeepSeek-V2-Lite at full width, from
+# https://huggingface.co/deepseek-ai/DeepSeek-V2-Lite/blob/main/config.json:
+# no q_lora_rank, so MLAConfig's fields express its attention exactly: 16
+# heads of qk_nope_head_dim = v_head_dim = 128, kv_lora_rank 512 and
+# qk_rope_head_dim 64 (the paged kernels' head dim: 512 + 64 = 576),
+# hidden 2048, vocab 102400, 27 layers, rope_theta 10000.  Left out: the
+# 26 MoE layers are dense SwiGLU at the dense first layer's
+# intermediate_size 10944 (MLAConfig has no experts), and YaRN RoPE
+# scaling (MLAConfig has none); max_seq 4096, the engine's capacity.
+# utils/profiling.py's --mla --v2-lite serves the same configuration
+# (DEEPSEEK_V2_LITE, held equal to this one).
+V2_LITE = MLAConfig(vocab_size=102400, d_model=2048, num_layers=27,
+                    num_heads=16, head_dim=128, latent_dim=512, rope_dim=64,
+                    d_ff=10944, rope_theta=10000.0, max_seq=4096)
+DS_HQ, DS_D, DS_VTZ = V2_LITE.num_heads, V2_LITE.cache_width, V2_LITE.rope_dim
+DS_SCALE = (V2_LITE.head_dim + V2_LITE.rope_dim) ** -0.5
+# (label, head dim, page states, v_tail_zero) of (a): DeepSeek's one-state
+# latent pages, a run-time width inside the 576 instances, and two-state
+# pages at 576 (the prefill's scalar route).
+DS_GEOMS = (("d576", DS_D, 1, DS_VTZ), ("d320", 320, 1, DS_VTZ),
+            ("d576_two_state", DS_D, 2, DS_VTZ))
+# V2-Lite's projections through the dynamic GEMM, (N, K): wq and wo, wqr,
+# wdkv, wkr, wg and wu, wd, the unembedding.
+V2_LITE_GEMMS = {"wq": (2048, 2048), "wqr": (1024, 2048),
+                 "wdkv": (512, 2048), "wkr": (64, 2048), "wo": (2048, 2048),
+                 "wg": (10944, 2048), "wd": (2048, 10944),
+                 "unembed": (102400, 2048)}
+
+
+def check_deepseek_paged(rng):
+    """(a) Both paged kernels at DeepSeek's geometry (Hq=16 over the one
+    latent head, scale (128 + 64)^-0.5) for each of DS_GEOMS, with bf16
+    and int8 pools (bf16 q, max abs ≤ KERNEL_TOL) and an fp32 pool and q
+    (≤ TOLERANCES["fp32"]): the decode at phase 2's lengths over the
+    engine's capacity (16 pages of 256), the prefill's 256-row chunk at
+    offsets 0, 300 and 512; each called twice, equal bit for bit, V's zeroed
+    tail zero in the output.  → ({label: max abs err}, {label: body})."""
+    gen = device_generator(rng)
+    pt, num_pages, max_pages, chunk = 256, 256, 16, 256
+    lengths = np.asarray([1, pt, pt + 1, 1800, 3 * pt + 17, 37, 1024, 4000],
+                         np.int32)
+    ln = torch.from_numpy(lengths).to(DEV)
+    errs, bodies = {}, {}
+    for geom, d, states, vtz in DS_GEOMS:
+        for kind in ("bf16", "int8", "f32"):
+            dtype = torch.float32 if kind == "f32" else torch.bfloat16
+            pool, kw = paged_pool_f32(gen, "int8" if kind == "int8" else "f32",
+                                      1, num_pages, pt, d, states)
+            if kind == "bf16":
+                pool = pool.to(torch.bfloat16)
+            kw.update(page_tokens=pt, v_tail_zero=vtz, scale=DS_SCALE)
+            table = page_tables(rng, lengths, pt, num_pages, max_pages)
+            q = torch.randn((len(lengths), DS_HQ, d), generator=gen,
+                            device=DEV).to(dtype)
+            calls = [("decode", paged_decode_attention,
+                      paged_decode_attention_plain, (q, pool, table, ln))]
+            for offset in (0, 300, 512):
+                row = page_tables(rng, [offset + chunk], pt, num_pages,
+                                  max_pages)[0]
+                qp = torch.randn((DS_HQ, chunk, d), generator=gen,
+                                 device=DEV).to(dtype)
+                calls.append((f"prefill_{offset}", paged_prefill_attention,
+                              paged_prefill_attention_plain,
+                              (qp, pool, row, offset)))
+            tol = TOLERANCES["fp32"] if kind == "f32" else KERNEL_TOL
+            for name, fn, plain, args in calls:
+                label = f"{name} {geom} {kind}"
+                first = fn(*args, **kw)
+                second = fn(*args, **kw)
+                torch.cuda.synchronize()
+                errs[label] = max_abs(first, plain(*args, **kw))
+                tail = first[..., d - vtz:].float().abs().max().item()
+                same = torch.equal(first, second)
+                if not (errs[label] <= tol and tail == 0.0 and same):
+                    raise AssertionError(
+                        f"paged {label}: max abs {errs[label]} (tol {tol}), "
+                        f"rope-tail max {tail}, two calls equal: {same}")
+            bodies[f"{geom} {kind}"] = {
+                "decode": decode_body(dtype),
+                "prefill": prefill_body(dtype, d, states, vtz)}
+    log(f"paged kernels at DeepSeek's geometry, {len(errs)} checks, each "
+        "called twice and equal bit for bit, max abs err (tol "
+        f"{KERNEL_TOL} bf16 / int8 pools, {TOLERANCES['fp32']} fp32): "
+        + json.dumps(errs))
+    log("their bodies: " + json.dumps(bodies))
+    return errs, bodies
+
+
+def check_deepseek_dyn_gemm(rng):
+    """(a) The dynamic GEMM at V2-Lite's projection shapes, M = 1 (the
+    prefill's last row), 8 (a decode batch) and 256 (a prefill chunk),
+    int8 ROW weights (quantize_mla_weights' WEIGHT_CFG), bit for bit with
+    its plain version.  → the number of shapes checked."""
+    cases = [(m, n, k) for m in (1, 8, 256)
+             for n, k in sorted(set(V2_LITE_GEMMS.values()))]
+    for m, n, k in cases:
+        args, kw = gemm_operands(rng, m, n, k, WEIGHT_CFG)
+        out = dyn_gemm(*args, **kw)
+        torch.cuda.synchronize()
+        ref = dyn_gemm_plain(*args, **kw)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"dyn_gemm M={m} N={n} K={k} differs from "
+                                 f"its plain version: max abs "
+                                 f"{max_abs(out, ref)}")
+    log(f"dyn_gemm at V2-Lite's shapes: {len(cases)} cases bit-identical to "
+        "the plain version")
+    return len(cases)
+
+
+@contextlib.contextmanager
+def plain_calls_on_card():
+    """Counts, while open, the calls of the paged kernels' and the dynamic
+    GEMM's plain versions that get a CUDA tensor: the wrappers reach them
+    through their modules' globals, so patching those sees every call."""
+    from metal_flash_attention_plus_tpu_torch.ops import quantized_gemm
+    from metal_flash_attention_plus_tpu_torch.serving import paged_attention
+
+    counts = {}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (paged_attention, "paged_decode_attention_plain"),
+        (paged_attention, "paged_prefill_attention_plain"),
+        (quantized_gemm, "dyn_gemm_plain"))]
+    for mod, name, fn in saved:
+        def counted(*args, _fn=fn, _name=name, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*args, **kw)
+        setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def engine_device_time(cfg, params, seed, quantized_cache, every=5):
+    """The 8 requests served once more, every ``every``-th engine step
+    under the profiler (the whole run's ~10^5 kernels would take the
+    profiler minutes to read): the sampled steps' device busy ms, its idle
+    share of their wall time (each step ends in a fence or a read-back)
+    and the device ms by kernel (``kernel_label``), the 12 largest."""
+    engine = ServingEngine(params, cfg, quantized_cache=quantized_cache,
+                           executor=mla_executor(), device=DEV)
+    for req in smoke_requests(cfg, seed):
+        engine.submit(req)
+    torch.cuda.synchronize()
+    by, walls = {}, []
+
+    def collect(prof):
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total):
+                key = kernel_label(e.key)
+                by[key] = by.get(key, 0.0) + e.self_device_time_total / 1e3
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=every - 1, warmup=0,
+                                             active=1),
+            on_trace_ready=collect) as prof:
+        step, more = 0, True
+        while more:
+            t0 = time.perf_counter()
+            more = engine.step()
+            torch.cuda.synchronize()
+            if step % every == every - 1:
+                walls.append(time.perf_counter() - t0)
+            prof.step()
+            step += 1
+    busy = sum(by.values())
+    return {"steps": step, "sampled_steps": len(walls),
+            "sampled_wall_s": sum(walls), "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / 1e3 / sum(walls),
+            "device_ms_by_kernel": dict(sorted(
+                by.items(), key=lambda kv: -kv[1])[:12])}
+
+
+def run_deepseek(seed, dec_lens):
+    """Phase 20 (a)-(d), inputs from a fourteenth generator (seed + 13),
+    V2_LITE's weights from ``seed`` on the card → (record, phase
+    seconds)."""
+    if V2_LITE != DEEPSEEK_V2_LITE:
+        raise AssertionError("utils/profiling.py's DEEPSEEK_V2_LITE differs "
+                             "from V2_LITE")
+    rng = np.random.default_rng(seed + 13)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["paged_errors"], out["paged_bodies"] = check_deepseek_paged(rng)
+        out["dyn_gemm_cases"] = check_deepseek_dyn_gemm(rng)
+    phase["deepseek_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cfg = V2_LITE
+    params = init_mla_params(cfg, torch.Generator(device=DEV).manual_seed(
+        seed), device=DEV)
+    qparams = quantize_mla_weights(params)
+    phase["deepseek_init"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["logits_rel_l2"] = {}
+    mla = dict(executor=mla_executor(), oracle=MLA_ORACLE)
+    with torch.inference_mode():
+        out["logits_rel_l2"]["float"] = check_logits(
+            cfg, params, rng, label="V2-Lite float latent", **mla)
+        out["logits_rel_l2"]["w8a8+int8"] = check_logits(
+            cfg, qparams, rng, params32=dequantized_fp32(qparams),
+            quantized=8, tol=QUANT_LOGITS_TOL[8],
+            label="V2-Lite w8a8+int8 latent", **mla)
+    torch.cuda.empty_cache()
+    phase["deepseek_logits"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["engines"] = {}
+    for label, p, pool in (("float", params, False),
+                           ("w8a8+int8", qparams, 8)):
+        with plain_calls_on_card() as plain:
+            launches, stats, _, rates = run_engine(
+                cfg, p, seed, quantized_cache=pool,
+                label=f"V2-Lite engine {label}", executor=mla_executor(),
+                layer_gemms=8)
+        if plain:
+            raise AssertionError(f"V2-Lite engine {label}: plain versions "
+                                 f"ran on the card: {plain}")
+        device = engine_device_time(cfg, p, seed, pool)
+        log(f"V2-Lite engine {label} device time: " + json.dumps(device))
+        out["engines"][label] = {"launches": launches, "rates": rates,
+                                 "model_calls": stats["prefill_calls"]
+                                 + stats["decode_calls"],
+                                 "plain_calls_on_card": 0,
+                                 "device_time": device}
+    del params, qparams
+    torch.cuda.empty_cache()
+    phase["deepseek_engines"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["paged_times"] = time_mla_paged(
+            rng, dec_lens, hq=DS_HQ, d=DS_D, vtz=DS_VTZ, scale=DS_SCALE,
+            label="DeepSeek D=576", turns=False)
+    phase["deepseek_times"] = time.perf_counter() - t
+    return out, phase
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6027,6 +6322,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide, wide_phase = run_wide_quantized(args.seed)
     phase_s.update(wide_phase)
+    torch.cuda.empty_cache()
+    deepseek, deepseek_phase = run_deepseek(args.seed, dec_lens)
+    phase_s.update(deepseek_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -6035,6 +6333,8 @@ def main() -> int:
         {"float": float_rates, **{k: v["rates"] for k, v in engines.items()}}))
     log("MLA engine rates, float / W8A8+int8 latent: " + json.dumps(
         {k: v["rates"] for k, v in mla["engines"].items()}))
+    log("V2-Lite engine rates, float / W8A8+int8 latent: " + json.dumps(
+        {k: v["rates"] for k, v in deepseek["engines"].items()}))
 
     record = {"kernels": [
         {"name": "paged_decode", "route": "cuda", "source": SOURCE,
@@ -6150,6 +6450,40 @@ def main() -> int:
                          else prefill_body(torch.bfloat16, MLA_D, 1,
                                            MLA_VTZ)),
         })
+    # The paged kernels at DeepSeek's absorbed width 576, from phase 20.
+    for entry, kind in zip(record["kernels"], ("decode", "prefill")):
+        dt = deepseek["paged_times"][kind]
+        errs_k = {n: e for n, e in deepseek["paged_errors"].items()
+                  if n.startswith(kind)}
+        entry.update({
+            **{f"launches_deepseek_{k}": e["launches"][f"paged_{kind}"]
+               for k, e in deepseek["engines"].items()},
+            "max_abs_err_deepseek": max(
+                e for n, e in errs_k.items() if not n.endswith("f32")),
+            "max_abs_err_deepseek_fp32": max(
+                e for n, e in errs_k.items() if n.endswith("f32")),
+            **{f"{key}_deepseek": dt[key] for key in (
+                "ms", "ms_2", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms",
+                "library_backend", "library_kernels") if key in dt},
+            "library_deepseek": "sdpa over the gathered bf16 K/V "
+                                "(enable_gqa; the backend torch took in "
+                                "library_backend_deepseek)",
+            "body_deepseek": (decode_body(torch.bfloat16) if kind == "decode"
+                              else prefill_body(torch.bfloat16, DS_D, 1,
+                                                DS_VTZ)),
+            "device_kernel_deepseek": ("paged_decode_tc_kernel"
+                                       if kind == "decode"
+                                       else "paged_prefill_wide_kernel"),
+            "bitwise_equal_two_calls_deepseek": True,  # (a) raises otherwise
+            "shape_deepseek": "Hq=16 over the latent, D=576, one-state pages, "
+                              "v_tail_zero=64 (DeepSeek-V2-Lite)",
+        })
+    next(e for e in record["kernels"] if e["name"] == "dyn_gemm").update({
+        "launches_deepseek_w8a8": deepseek["engines"]["w8a8+int8"][
+            "launches"]["dyn_gemm"],
+        "bitwise_equal_shapes_deepseek": deepseek["dyn_gemm_cases"],
+    })
     mla_flash = mla["flash_errors"]
     for name, t in flash_t.items():
         bf16 = flash_train_errs[torch.bfloat16]
@@ -6572,6 +6906,17 @@ def main() -> int:
             "ms_per_step", "tokens_per_s", "launches_per_step", "losses",
             "host_ms_per_step", "step_profile", "grad_rel_l2_worst",
             "determinism", "checkpoint", "step_turns")}
+    record["deepseek_v2_lite"] = {
+        "config": dataclasses.asdict(V2_LITE) | {"dtype": str(V2_LITE.dtype)},
+        "reduced": ["26 MoE layers as dense SwiGLU at d_ff 10944",
+                    "no YaRN RoPE scaling", "random weights from the seed"],
+        "logits_rel_l2": deepseek["logits_rel_l2"],
+        "paged_checks": len(deepseek["paged_errors"]),
+        "paged_bodies": deepseek["paged_bodies"],
+        "rates": {k: v["rates"] for k, v in deepseek["engines"].items()},
+        "device_time": {k: v["device_time"]
+                        for k, v in deepseek["engines"].items()},
+    }
     record["context_parallel"] = {
         "world": CP_WORLD, "transport": "gloo through host memory, every "
         "rank on cuda:0", **cp}

@@ -7,7 +7,8 @@
 //     paged_decode_tc_kernel (bf16) and paged_decode_kernel (fp32), each
 //     followed by paged_decode_merge_kernel where the KV axis is split
 //   - serving/paged_attention.py::_prefill_kernel -> paged_prefill_tc_kernel
-//     (bf16, where prefill_tc says so) and paged_prefill_kernel (the rest)
+//     and, above D = 288, paged_prefill_wide_kernel (bf16, where prefill_tc
+//     says so) and paged_prefill_kernel (the rest)
 //
 // Pool layouts (one layer of serving/kv_cache.py's pool, or of the MLA
 // latent pool of models/cached_mla.py), MODE of the kernels' template:
@@ -28,11 +29,12 @@
 // entry cannot read outside it.  Each token's scale is read by its page id,
 // which serves both TPU decode schedules (per-page scales in the streamed
 // one, scales densified by the wrapper in the wave one).
-// Head dims: any multiple of 16 up to 288.  The tensor-core kernels are
-// built for the widths DP = 32, 64, 128, 256 and 288 (MLA's 256 + 32) and
-// run a head dim D <= DP with their loops cut at D; the scalar kernels take
-// D as a template constant for 32, 64, 128 and 288, and as a run-time
-// value in their DC = 0 instances.
+// Head dims: any multiple of 16 up to 576.  The tensor-core kernels are
+// built for the widths DP = 32, 64, 128, 256, 288 (MLAConfig()'s 256 + 32)
+// and 576 (DeepSeek's absorbed 512 + 64) and run a head dim D <= DP with
+// their loops cut at D; the scalar kernels take D as a template constant
+// for 32, 64, 128 and 288, and as a run-time value in their DC = 0
+// instances (one for D up to 288, one above, with smaller tiles).
 //
 // Numerics, shared with the plain PyTorch versions in
 // serving/paged_attention.py so the two can be held to a tight tolerance:
@@ -47,7 +49,7 @@
 //     with the integer V (float mode: P rounded to T, V in T);
 //   - the P.V sum is fp32 and the output is acc / l in T.
 // The tensor-core kernels round P against the running max of their own
-// 64-token tiles (and, in the decode, of their own split of the KV axis),
+// tiles (and, in the decode, of their own split of the KV axis),
 // where the plain versions take the row's global max: the same effect as
 // the tensor-core forwards' tile boundaries (csrc/flash_attention.cu),
 // covered by the bf16 gate.
@@ -77,23 +79,24 @@
 //   directly and skips the merge.
 //   The whole GQA group (up to 16 query rows; a larger group is sliced into
 //   16-row slices) shares one CTA, so each KV byte is read once per split.
-//   - bf16 (paged_decode_tc_kernel, 4 warps): the tile's 64 token rows are
-//     gathered through their page ids into a cp.async ring of two to four
-//     stages (decode_stages), 16 bytes a thread, one token row at a time
-//     (any page size); int8 and
+//   - bf16 (paged_decode_tc_kernel, 4 warps): the tile's 64 token rows (32
+//     at 576: decode_tile) are gathered through their page ids into a
+//     cp.async ring of two to four stages (decode_stages), 16 bytes a
+//     thread, one token row at a time (any page size); int8 and
 //     int4 payloads land as bytes and are widened into bf16 rows in shared
 //     memory (exact: |x| <= 128).  The group's rows, zero-padded to 16,
 //     are the A operand of bf16 mma.sync m16n8k16 into fp32: S = Q.K^T with
-//     warp w taking tokens [16w, 16w + 16) (ks applied to S, the mask,
-//     the tile's row max and sums exchanged through shared memory), then P
-//     (times vs, rounded to bf16) from shared memory against V read by
-//     ldmatrix.trans for O += P.V, whose 16-lane column blocks are dealt
-//     to the warps (at most 5 a warp at D = 288, so nothing spills).  With
-//     one-state pages one staged tile serves as K and V, and P.V runs over
-//     the ceil((D - vtz) / 16) blocks of kept lanes only (256 for MLA).
+//     warp w taking tokens [16w, 16w + 16) (at 576 warps 0 and 1; ks
+//     applied to S, the mask, the tile's row max and sums exchanged through
+//     shared memory), then P (times vs, rounded to bf16) from shared memory
+//     against V read by ldmatrix.trans for O += P.V, whose 16-lane column
+//     blocks are dealt to the warps (at most 5 a warp at D = 288, 9 at
+//     576: 72 fp32 registers).  With one-state pages one staged tile
+//     serves as K and V, and P.V runs over the ceil((D - vtz) / 16) blocks
+//     of kept lanes only (256 for MLAConfig(), 512 for DeepSeek's 576).
 //   - fp32 (paged_decode_kernel, 8 warps): the same grid, split and ring
-//     (32-token tiles, fp32 rows), products by scalar fp32 FMAs: TF32
-//     would keep ~3 digits against the 2e-5 gate.
+//     (32-token tiles of fp32 rows, 16 above D = 288: sc_tile), products by
+//     scalar fp32 FMAs: TF32 would keep ~3 digits against the 2e-5 gate.
 //
 // Paged chunked prefill: what bounds it on the H100, and the design.
 //   A chunk of C queries of one sequence against its cached prefix plus its
@@ -118,11 +121,17 @@
 //     engine's chunk (C = 256 over 4 KV heads, or 16 heads over MLA's one)
 //     that is 64 CTAs on 132 SMs, each a chain of up to 12 tiles, so the
 //     tiles' latency, not the tensor cores, sets its time.
+//   - bf16 above D = 288 with one-state pages whose kept lanes fit 512
+//     (paged_prefill_wide_kernel): the same frame at 8 warps, O's 512
+//     lanes split over two warp groups and the scores over the two warps
+//     of a row slab, in 32-token tiles (see the kernel).
 //   - fp32, and the other bf16 shapes (paged_prefill_kernel): scalar fp32
 //     FMAs on 256 threads, a 4 x 4 score block a thread; Q, K and P staged
 //     transposed in shared memory as fp32 so each thread's rows and columns
 //     are 16-byte vectors; above D = 128, K^T and V share one buffer (V
-//     staged after the scores), which keeps D = 288 at 171 KB.
+//     staged after the scores), which keeps D = 288 at 171 KB; above 288,
+//     32 query rows a CTA and 32-token tiles (4 x 1 scores a thread: the
+//     same 171 KB at 576: pf_tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -140,7 +149,7 @@ using mfa::Elem;
 constexpr int KV_FLOAT = 0;
 constexpr int KV_INT8 = 1;
 constexpr int KV_INT4 = 2;
-constexpr int MAX_D = 288;  // the largest head dim
+constexpr int MAX_D = 576;  // the largest head dim (DeepSeek's absorbed width)
 
 __device__ __forceinline__ int clamp_page(int page, int num_pages_total) {
   return min(max(page, 0), num_pages_total - 1);
@@ -159,20 +168,29 @@ PoolGeom pool_geom(int PT, int s_sub, int vtz) {
   return PoolGeom{PT, ss * PT, (ss - 1) * PT, vtz, ss};
 }
 
+// The tensor-core kernels' built width for a head dim D.
+int tc_width(int D) {
+  return D <= 32    ? 32
+         : D <= 64  ? 64
+         : D <= 128 ? 128
+         : D <= 256 ? 256
+         : D <= 288 ? 288
+                    : 576;
+}
+
 // Whether a prefill of dtype (0 = float32, 1 = bfloat16) at head dim D
-// over pages of s_sub states with vtz zeroed V lanes runs
-// paged_prefill_tc_kernel (else paged_prefill_kernel): bf16 where D <= 256,
-// or where one-state pages leave D - vtz <= 256 lanes for P.V.  The bf16
-// decode always runs paged_decode_tc_kernel, fp32 paged_decode_kernel.
+// over pages of s_sub states with vtz zeroed V lanes runs on the tensor
+// cores (paged_prefill_tc_kernel, or paged_prefill_wide_kernel above
+// D = 288; else paged_prefill_kernel): bf16 where D <= 256, or where
+// one-state pages leave D - vtz lanes for P.V that the width's fp32 O
+// holds: 256 at 288 (MLAConfig()'s 288 - 32), 512 at 576 (DeepSeek's 576
+// - 64, split over two warp groups).  The bf16 decode always runs
+// paged_decode_tc_kernel, fp32 paged_decode_kernel.
 // serving/paged_attention.py::prefill_body and ::decode_body answer the
 // same.
 bool prefill_tc(int dtype, int D, int s_sub, int vtz) {
-  return dtype == 1 && (D <= 256 || (s_sub == 1 && D - vtz <= 256));
-}
-
-// The tensor-core kernels' built width for a head dim D.
-int tc_width(int D) {
-  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 288;
+  const int pv_lanes = D <= 288 ? 256 : 512;
+  return dtype == 1 && (D <= 256 || (s_sub == 1 && D - vtz <= pv_lanes));
 }
 
 using mfa::launch_with_smem;
@@ -355,7 +373,6 @@ __device__ __forceinline__ void scale_rows(uint8_t* tile, int ld, int rows,
 
 constexpr int TC_THREADS = 128;  // 4 warps
 constexpr int TK = 64;           // KV tokens a tile
-constexpr int PROW = 2 * TK + 16;  // a bf16 row of P [16][64]
 
 // The stages of a tensor-core kernel's cp.async ring at width DP: as many
 // as keep a CTA's shared memory within the card's 227 KB at every pool
@@ -366,23 +383,32 @@ template <int DP>
 __host__ __device__ constexpr int decode_stages() {
   return DP <= 64 ? 4 : DP <= 128 ? 3 : 2;
 }
+// The decode's KV tokens a tile at width DP: 64, or 32 at 576, where two
+// 64-token stages of two-state pages (2 x 149,504 B) or the widened K and V
+// tiles of a quantized pool would not fit; two 32-token stages of one-state
+// pages leave room for two CTAs an SM, as many bytes in flight as one CTA
+// of 64-token stages.
+template <int DP>
+__host__ __device__ constexpr int decode_tile() {
+  return DP > 288 ? 32 : TK;
+}
 template <int DP>
 __host__ __device__ constexpr int prefill_stages() {
   return DP <= 64 ? 4 : DP == 256 ? 2 : 3;
 }
 
 // Byte offsets of a tensor-core kernel's shared memory: an NS-stage ring
-// of staged token rows ([NS][halves][TK][stage_ld]: the bf16 operand rows
+// of staged token rows ([NS][halves][TKT][stage_ld]: the bf16 operand rows
 // of a float pool, else payload bytes), the widened bf16 operand tiles of
-// a quantized pool ([nkv][TK][ROW]), Q ([q_rows][ROW]), the decode's P
-// ([16][PROW]), the scales ([NS][2][TK] fp32) and the decode's row
-// statistics ([2][4][16] fp32).
+// a quantized pool ([nkv][TKT][ROW]), Q ([q_rows][ROW]), the decode's P
+// ([16][2 TKT + 16]), the scales ([NS][2][TKT] fp32) and the decode's row
+// statistics ([2][4][16] fp32); TKT tokens a tile.
 struct TcLayout {
   int halves, nkv, stage_ld;
   int conv, q, p, sc, red, bytes;
 };
 
-template <int DP, int MODE, int NS>
+template <int DP, int MODE, int NS, int TKT = TK>
 __host__ __device__ __forceinline__ TcLayout tc_layout(int ss, int q_rows,
                                                        bool decode) {
   constexpr int ROW = 2 * DP + 16;
@@ -390,11 +416,11 @@ __host__ __device__ __forceinline__ TcLayout tc_layout(int ss, int q_rows,
   L.halves = MODE == KV_INT4 ? 1 : ss;
   L.nkv = MODE == KV_INT4 ? 2 : ss;
   L.stage_ld = MODE == KV_FLOAT ? ROW : DP + 16;
-  L.conv = NS * L.halves * TK * L.stage_ld;
-  L.q = L.conv + (MODE == KV_FLOAT ? 0 : L.nkv * TK * ROW);
+  L.conv = NS * L.halves * TKT * L.stage_ld;
+  L.q = L.conv + (MODE == KV_FLOAT ? 0 : L.nkv * TKT * ROW);
   L.p = L.q + q_rows * ROW;
-  L.sc = L.p + (decode ? 16 * PROW : 0);
-  L.red = L.sc + NS * 2 * TK * (int)sizeof(float);
+  L.sc = L.p + (decode ? 16 * (2 * TKT + 16) : 0);
+  L.red = L.sc + NS * 2 * TKT * (int)sizeof(float);
   L.bytes = L.red + (decode ? 2 * 4 * 16 * (int)sizeof(float) : 0);
   return L;
 }
@@ -470,9 +496,12 @@ paged_decode_tc_kernel(const DecodeArgs a) {
   constexpr int KCM = DP / 16;
   constexpr int NCH = (DP / 16 + 3) / 4;  // 16-lane O blocks a warp, at most
   constexpr int NS = decode_stages<DP>();
+  constexpr int TKD = decode_tile<DP>();  // tokens a tile
+  constexpr int SW = TKD / 16;            // warps with 16 of a tile's tokens
+  constexpr int PRW = 2 * TKD + 16;       // a bf16 row of P [16][TKD]
   extern __shared__ __align__(16) uint8_t smem[];
   const PoolGeom pg = a.pg;
-  const TcLayout L = tc_layout<DP, MODE, NS>(pg.ss, 16, true);
+  const TcLayout L = tc_layout<DP, MODE, NS, TKD>(pg.ss, 16, true);
   const int D = a.D;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -503,14 +532,14 @@ paged_decode_tc_kernel(const DecodeArgs a) {
   uint8_t* sp = smem + L.p;
   float* ssc = reinterpret_cast<float*>(smem + L.sc);
   float* red = reinterpret_cast<float*>(smem + L.red);  // [2][4][16]
-  const int ring_stage = L.halves * TK * L.stage_ld;
+  const int ring_stage = L.halves * TKD * L.stage_ld;
   const size_t head_base = (size_t)h * a.num_pages_total;
   auto stage = [&](int t0, int buf) {
-    stage_tokens<TC_THREADS, TK>(
+    stage_tokens<TC_THREADS, TKD>(
         static_cast<const uint8_t*>(a.kv), a.table + (size_t)b * a.max_pages,
         head_base, a.num_pages_total, pg, L.halves, QUANT ? D : 2 * D, t0,
-        t_end, smem + buf * ring_stage, L.stage_ld, TK * L.stage_ld,
-        QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * TK);
+        t_end, smem + buf * ring_stage, L.stage_ld, TKD * L.stage_ld,
+        QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * TKD);
   };
 
   // The group's q rows, zero rows up to 16, scaled and rounded in place.
@@ -525,7 +554,7 @@ paged_decode_tc_kernel(const DecodeArgs a) {
   }
   mfa::cp_async_commit();
   for (int k = 0; k < NS - 1; ++k) {  // tiles 0 .. NS - 2, a group each
-    if (t_begin + k * TK < t_end) stage(t_begin + k * TK, k);
+    if (t_begin + k * TKD < t_end) stage(t_begin + k * TKD, k);
     mfa::cp_async_commit();
   }
   mfa::cp_async_wait<NS - 1>();
@@ -542,45 +571,52 @@ paged_decode_tc_kernel(const DecodeArgs a) {
     for (int e = 0; e < 4; ++e) acc[k][0][e] = acc[k][1][e] = 0.f;
 
   for (int t0 = t_begin, buf = 0; t0 < t_end;
-       t0 += TK, buf = buf + 1 == NS ? 0 : buf + 1) {
+       t0 += TKD, buf = buf + 1 == NS ? 0 : buf + 1) {
     mfa::cp_async_wait<NS - 2>();
     __syncthreads();  // this tile staged, q scaled; the last tile's
                       // readers done with its stage
-    if (t0 + (NS - 1) * TK < t_end)
-      stage(t0 + (NS - 1) * TK, buf == 0 ? NS - 1 : buf - 1);
+    if (t0 + (NS - 1) * TKD < t_end)
+      stage(t0 + (NS - 1) * TKD, buf == 0 ? NS - 1 : buf - 1);
     mfa::cp_async_commit();
     const uint8_t* sk = smem + buf * ring_stage;
     if constexpr (QUANT) {
-      widen_rows<MODE, true, TC_THREADS, TK>(sk, L.stage_ld, TK * L.stage_ld,
-                                             L.halves, D, smem + L.conv, ROW,
-                                             TK * ROW);
+      widen_rows<MODE, true, TC_THREADS, TKD>(sk, L.stage_ld,
+                                              TKD * L.stage_ld, L.halves, D,
+                                              smem + L.conv, ROW, TKD * ROW);
       __syncthreads();
       sk = smem + L.conv;
     }
-    const uint8_t* sv = L.nkv == 2 ? sk + TK * ROW : sk;
-    const float* ksc = ssc + buf * 2 * TK;
-    const float* vsc = ksc + TK;
+    const uint8_t* sv = L.nkv == 2 ? sk + TKD * ROW : sk;
+    const float* ksc = ssc + buf * 2 * TKD;
+    const float* vsc = ksc + TKD;
 
-    // S for this warp's 16 tokens: element (row g + 8i, token 16 warp + 8j
-    // + 2tq + c) at s[j][2i + c].
+    // S for this warp's 16 tokens (warps from SW have none: their scores
+    // are -inf): element (row g + 8i, token 16 warp + 8j + 2tq + c) at
+    // s[j][2i + c].
     float s[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    mma_qk<KCM, 2, ROW, ROW>(sq, 0, sk, 16 * warp, D / 16, s);
+      for (int e = 0; e < 4; ++e) s[j][e] = -INFINITY;
     float mx[2] = {-INFINITY, -INFINITY};
+    if (warp < SW) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int tl = 16 * warp + 8 * j + 2 * tq + (e & 1);
-        float x = s[j][e];
-        if (QUANT) x *= ksc[tl];
-        x = t0 + tl < t_end ? x : -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      mma_qk<KCM, 2, ROW, ROW>(sq, 0, sk, 16 * warp, D / 16, s);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tl = 16 * warp + 8 * j + 2 * tq + (e & 1);
+          float x = s[j][e];
+          if (QUANT) x *= ksc[tl];
+          x = t0 + tl < t_end ? x : -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
@@ -601,20 +637,22 @@ paged_decode_tc_kernel(const DecodeArgs a) {
     }
     // P = exp(s - m): l sums it before the V scale; P.V takes it times vs,
     // rounded to bf16, from shared memory.
+    if (warp < SW) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int tl = 16 * warp + 8 * j + 2 * tq;
+      for (int j = 0; j < 2; ++j) {
+        const int tl = 16 * warp + 8 * j + 2 * tq;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float p0 = __expf(s[j][2 * i] - mref[i]);
-        float p1 = __expf(s[j][2 * i + 1] - mref[i]);
-        sum[i] += p0 + p1;
-        if (QUANT) {
-          p0 *= vsc[tl];
-          p1 *= vsc[tl + 1];
+        for (int i = 0; i < 2; ++i) {
+          float p0 = __expf(s[j][2 * i] - mref[i]);
+          float p1 = __expf(s[j][2 * i + 1] - mref[i]);
+          sum[i] += p0 + p1;
+          if (QUANT) {
+            p0 *= vsc[tl];
+            p1 *= vsc[tl + 1];
+          }
+          *reinterpret_cast<uint32_t*>(sp + (g + 8 * i) * PRW + 2 * tl) =
+              mfa::pack_bf16(p0, p1);
         }
-        *reinterpret_cast<uint32_t*>(sp + (g + 8 * i) * PROW + 2 * tl) =
-            mfa::pack_bf16(p0, p1);
       }
     }
 #pragma unroll
@@ -641,17 +679,17 @@ paged_decode_tc_kernel(const DecodeArgs a) {
           acc[k][n][3] *= alpha[1];
         }
     }
-    uint32_t pa[4][4];
+    uint32_t pa[SW][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mfa::ldsm_x4(pa[kk], sp + mfa::ldsm_a_row(lane) * PROW + kk * 32 +
+    for (int kk = 0; kk < SW; ++kk)
+      mfa::ldsm_x4(pa[kk], sp + mfa::ldsm_a_row(lane) * PRW + kk * 32 +
                                mfa::ldsm_a_byte(lane));
 #pragma unroll
     for (int k = 0; k < NCH; ++k) {
       const int cb = warp + 4 * k;
       if (cb < nchunks) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < SW; ++kk)
           mma_pv<ROW>(pa[kk], sv, 16 * kk, cb, acc[k][0], acc[k][1]);
       }
     }
@@ -729,26 +767,32 @@ __device__ __forceinline__ float row_dot(const float4* a, const float4* b,
 }
 
 constexpr int SC_THREADS = 256;  // 8 warps
-constexpr int SC_TK = 32;        // KV tokens a tile
-constexpr int SC_MAX_OUT = 18;   // outputs a thread: 16 rows x 288 lanes
 
-// The stages of paged_decode_kernel's ring at head dim DC (0: run time,
-// up to 288), as decode_stages: within 227 KB for two-state fp32 pages.
+// paged_decode_kernel's KV tokens a tile for head dims up to DMAX: 32, or
+// 16 above 288, where two 32-token stages of two-state fp32 pages at 576
+// (2 x 148,480 B) would not fit.
+template <int DMAX>
+__host__ __device__ constexpr int sc_tile() {
+  return DMAX > 288 ? 16 : 32;
+}
+
+// The stages of paged_decode_kernel's ring at head dim DC (0: run time),
+// as decode_stages: within 227 KB for two-state fp32 pages.
 template <int DC>
 __host__ __device__ constexpr int sc_stages() {
   return DC != 0 && DC <= 64 ? 4 : DC == 128 ? 3 : 2;
 }
 
 // Byte offsets of paged_decode_kernel's shared memory: the ring of staged
-// rows ([NS][halves][SC_TK][stage_ld]: fp32 rows of D + 4 floats for a
+// rows ([NS][halves][TKS][stage_ld]: fp32 rows of D + 4 floats for a
 // float pool, else payload bytes), the widened fp32 K and V tiles of a
-// quantized pool, q [gc][D], P [gc][SC_TK], m, l, alpha [gc] and the
-// scales [NS][2][SC_TK].
+// quantized pool, q [gc][D], P [gc][TKS], m, l, alpha [gc] and the
+// scales [NS][2][TKS]; TKS tokens a tile.
 struct ScLayout {
   int halves, nkv, stage_ld, conv, q, p, stats, sc, bytes;
 };
 
-template <int MODE, int NS>
+template <int MODE, int NS, int TKS>
 __host__ __device__ __forceinline__ ScLayout sc_layout(int D, int ss,
                                                        int gc) {
   const int row = (D + 4) * (int)sizeof(float);
@@ -756,28 +800,31 @@ __host__ __device__ __forceinline__ ScLayout sc_layout(int D, int ss,
   L.halves = MODE == KV_INT4 ? 1 : ss;
   L.nkv = MODE == KV_INT4 ? 2 : ss;
   L.stage_ld = MODE == KV_FLOAT ? row : D + 16;
-  L.conv = NS * L.halves * SC_TK * L.stage_ld;
-  L.q = L.conv + (MODE == KV_FLOAT ? 0 : L.nkv * SC_TK * row);
+  L.conv = NS * L.halves * TKS * L.stage_ld;
+  L.q = L.conv + (MODE == KV_FLOAT ? 0 : L.nkv * TKS * row);
   L.p = L.q + gc * D * (int)sizeof(float);
-  L.stats = L.p + gc * SC_TK * (int)sizeof(float);
+  L.stats = L.p + gc * TKS * (int)sizeof(float);
   L.sc = L.stats + ((3 * gc + 3) / 4) * 4 * (int)sizeof(float);
-  L.bytes = L.sc + NS * 2 * SC_TK * (int)sizeof(float);
+  L.bytes = L.sc + NS * 2 * TKS * (int)sizeof(float);
   return L;
 }
 
 // Replaces serving/paged_attention.py::_decode_kernel_streamed and
 // ::_decode_kernel for an fp32 q: paged_decode_tc_kernel's grid, splits and
-// ring over 32-token tiles of fp32 rows, the products by scalar fp32 FMAs.
-template <int DC, int MODE>
+// ring over tiles of fp32 rows (sc_tile), the products by scalar fp32 FMAs.
+// DC: the head dim, or 0 for a run-time one up to DMAX.
+template <int DC, int MODE, int DMAX = (DC != 0 ? DC : 288)>
 __global__ void __launch_bounds__(SC_THREADS)
 paged_decode_kernel(const DecodeArgs a) {
   constexpr bool QUANT = MODE != KV_FLOAT;
   constexpr int NS = sc_stages<DC>();
+  constexpr int TKS = sc_tile<DMAX>();
+  constexpr int MAX_OUT = DMAX / 16;  // outputs a thread: 16 rows x DMAX
   extern __shared__ __align__(16) uint8_t smem[];
   const PoolGeom pg = a.pg;
   const int D = DC ? DC : a.D;
   const int KS = D + 4;  // floats a staged row
-  const ScLayout L = sc_layout<MODE, NS>(D, pg.ss, a.gc);
+  const ScLayout L = sc_layout<MODE, NS, TKS>(D, pg.ss, a.gc);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -802,22 +849,22 @@ paged_decode_kernel(const DecodeArgs a) {
     return;
   }
   float* qs = reinterpret_cast<float*>(smem + L.q);   // [gc][D]
-  float* ps = reinterpret_cast<float*>(smem + L.p);   // [gc][SC_TK]
+  float* ps = reinterpret_cast<float*>(smem + L.p);   // [gc][TKS]
   float* m_s = reinterpret_cast<float*>(smem + L.stats);
   float* l_s = m_s + a.gc;
   float* a_s = l_s + a.gc;
   float* ssc = reinterpret_cast<float*>(smem + L.sc);
-  const int ring_stage = L.halves * SC_TK * L.stage_ld;
+  const int ring_stage = L.halves * TKS * L.stage_ld;
   const size_t head_base = (size_t)h * a.num_pages_total;
   auto stage = [&](int t0, int buf) {
-    stage_tokens<SC_THREADS, SC_TK>(
+    stage_tokens<SC_THREADS, TKS>(
         static_cast<const uint8_t*>(a.kv), a.table + (size_t)b * a.max_pages,
         head_base, a.num_pages_total, pg, L.halves, QUANT ? D : 4 * D, t0,
-        t_end, smem + buf * ring_stage, L.stage_ld, SC_TK * L.stage_ld,
-        QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * SC_TK);
+        t_end, smem + buf * ring_stage, L.stage_ld, TKS * L.stage_ld,
+        QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * TKS);
   };
   for (int k = 0; k < NS - 1; ++k) {  // tiles 0 .. NS - 2, a group each
-    if (t_begin + k * SC_TK < t_end) stage(t_begin + k * SC_TK, k);
+    if (t_begin + k * TKS < t_end) stage(t_begin + k * TKS, k);
     mfa::cp_async_commit();
   }
 
@@ -827,34 +874,34 @@ paged_decode_kernel(const DecodeArgs a) {
     m_s[g] = -INFINITY;
     l_s[g] = 0.f;
   }
-  float acc[SC_MAX_OUT];
+  float acc[MAX_OUT];
 #pragma unroll
-  for (int k = 0; k < SC_MAX_OUT; ++k) acc[k] = 0.f;
+  for (int k = 0; k < MAX_OUT; ++k) acc[k] = 0.f;
   const int n_out = gn * D;
 
   for (int t0 = t_begin, buf = 0; t0 < t_end;
-       t0 += SC_TK, buf = buf + 1 == NS ? 0 : buf + 1) {
+       t0 += TKS, buf = buf + 1 == NS ? 0 : buf + 1) {
     mfa::cp_async_wait<NS - 2>();
     __syncthreads();  // this tile staged; the last tile's readers done
-    if (t0 + (NS - 1) * SC_TK < t_end)
-      stage(t0 + (NS - 1) * SC_TK, buf == 0 ? NS - 1 : buf - 1);
+    if (t0 + (NS - 1) * TKS < t_end)
+      stage(t0 + (NS - 1) * TKS, buf == 0 ? NS - 1 : buf - 1);
     mfa::cp_async_commit();
     const uint8_t* st = smem + buf * ring_stage;
     if constexpr (QUANT) {
-      widen_rows<MODE, false, SC_THREADS, SC_TK>(
-          st, L.stage_ld, SC_TK * L.stage_ld, L.halves, D, smem + L.conv,
-          KS * 4, SC_TK * KS * 4);
+      widen_rows<MODE, false, SC_THREADS, TKS>(
+          st, L.stage_ld, TKS * L.stage_ld, L.halves, D, smem + L.conv,
+          KS * 4, TKS * KS * 4);
       __syncthreads();
       st = smem + L.conv;
     }
     const float* kt = reinterpret_cast<const float*>(st);
-    const float* vt = L.nkv == 2 ? kt + SC_TK * KS : kt;
-    const float* ksc = ssc + buf * 2 * SC_TK;
-    const float* vsc = ksc + SC_TK;
+    const float* vt = L.nkv == 2 ? kt + TKS * KS : kt;
+    const float* ksc = ssc + buf * 2 * TKS;
+    const float* vsc = ksc + TKS;
 
-    for (int i = tid; i < gn * SC_TK; i += SC_THREADS) {
-      const int g = i / SC_TK;
-      const int t = i % SC_TK;
+    for (int i = tid; i < gn * TKS; i += SC_THREADS) {
+      const int g = i / TKS;
+      const int t = i % TKS;
       float s = row_dot<DC>(reinterpret_cast<const float4*>(qs + g * D),
                             reinterpret_cast<const float4*>(kt + t * KS),
                             D / 4);
@@ -864,8 +911,8 @@ paged_decode_kernel(const DecodeArgs a) {
     __syncthreads();
 
     for (int g = warp; g < gn; g += SC_THREADS / 32) {
-      float* pr = ps + g * SC_TK;
-      const float s0 = pr[lane];
+      float* pr = ps + g * TKS;
+      const float s0 = lane < TKS ? pr[lane] : -INFINITY;
       float mx = s0;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -878,7 +925,7 @@ paged_decode_kernel(const DecodeArgs a) {
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      pr[lane] = QUANT ? p0 * vsc[lane] : p0;
+      if (lane < TKS) pr[lane] = QUANT ? p0 * vsc[lane] : p0;
       __syncwarp();
       if (lane == 0) {
         m_s[g] = m_next;
@@ -889,15 +936,15 @@ paged_decode_kernel(const DecodeArgs a) {
     __syncthreads();
 
 #pragma unroll
-    for (int k = 0; k < SC_MAX_OUT; ++k) {
+    for (int k = 0; k < MAX_OUT; ++k) {
       const int o = tid + k * SC_THREADS;
       if (o < n_out) {
         const int g = o / D;
         const int d = o % D;
-        const float* pr = ps + g * SC_TK;
+        const float* pr = ps + g * TKS;
         float pv = 0.f;
 #pragma unroll 8
-        for (int t = 0; t < SC_TK; ++t) pv = fmaf(pr[t], vt[t * KS + d], pv);
+        for (int t = 0; t < TKS; ++t) pv = fmaf(pr[t], vt[t * KS + d], pv);
         acc[k] = acc[k] * a_s[g] + pv;
       }
     }
@@ -908,7 +955,7 @@ paged_decode_kernel(const DecodeArgs a) {
   const int v_keep = D - pg.vtz;
   float* ob = static_cast<float*>(a.out) + qrow0 * D;
 #pragma unroll
-  for (int k = 0; k < SC_MAX_OUT; ++k) {
+  for (int k = 0; k < MAX_OUT; ++k) {
     const int o = tid + k * SC_THREADS;
     if (o >= n_out) continue;
     const int g = o / D;
@@ -1227,6 +1274,304 @@ paged_prefill_tc_kernel(const PrefillArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// Chunked prefill on the tensor cores at DeepSeek's width 576
+// ---------------------------------------------------------------------------
+
+constexpr int PW_DP = 576;        // the built width
+constexpr int PW_THREADS = 256;   // 8 warps: two groups of 4
+constexpr int PW_TK = 32;         // KV tokens a tile
+constexpr int PW_NS = 3;          // stages of the cp.async ring
+constexpr int PW_LANES = 256;     // O lanes a warp group holds
+constexpr int PW_PROW = 2 * PW_TK + 16;  // a bf16 row of P [16][32]
+
+// Byte offsets of paged_prefill_wide_kernel's shared memory (one-state
+// pages): the ring of staged token rows ([PW_NS][PW_TK][stage_ld]), the
+// widened bf16 operand tiles of a quantized pool ([nkv][PW_TK][ROW]), Q
+// ([64][ROW]), each row slab's P ([4][16][PW_PROW]), the scales
+// ([PW_NS][2][PW_TK] fp32) and each row slab's exchanged row statistics
+// ([4][2 warps][max, sum][16] fp32).  At most 213,248 B (int4).
+struct PwLayout {
+  int nkv, stage_ld, conv, q, p, sc, red, bytes;
+};
+
+template <int MODE>
+__host__ __device__ __forceinline__ PwLayout pw_layout() {
+  constexpr int ROW = 2 * PW_DP + 16;
+  PwLayout L;
+  L.nkv = MODE == KV_INT4 ? 2 : 1;
+  L.stage_ld = MODE == KV_FLOAT ? ROW : PW_DP + 16;
+  L.conv = PW_NS * PW_TK * L.stage_ld;
+  L.q = L.conv + (MODE == KV_FLOAT ? 0 : L.nkv * PW_TK * ROW);
+  L.p = L.q + 64 * ROW;
+  L.sc = L.p + 4 * 16 * PW_PROW;
+  L.red = L.sc + PW_NS * 2 * PW_TK * (int)sizeof(float);
+  L.bytes = L.red + 4 * 2 * 2 * 16 * (int)sizeof(float);
+  return L;
+}
+
+// bar.sync on barrier `id` for the `n` threads (whole warps) that use it.
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Replaces serving/paged_attention.py::_prefill_kernel for a bf16 q at
+// head dims above 288 over one-state pages whose kept lanes D - vtz fit
+// 512 (prefill_tc; DeepSeek's 576 - 64).  Bound: tensor-core operations.
+// paged_prefill_tc_kernel's frame (a CTA per 64 rows and KV head, the row
+// tiles last first, tiles no row sees skipped) with O's lanes split, as in
+// DeepSeek's FlashMLA: 16 rows x 512 fp32 lanes of O are 256 registers a
+// thread, past the 255 a thread may have, so 8 warps hold O, warp w rows
+// [16 (w % 4), +16) and lanes [256 (w / 4), +256) (128 registers).  The two
+// warps of a row slab split the scores instead: each computes S over 16 of
+// a 32-token tile's keys and all of D, they exchange row maxima and sums
+// through shared memory (a named barrier a slab), and each writes its half
+// of the slab's P, which both read as the A operand of O += P.V over their
+// own lanes; both keep the same m and l (max, and the two halves' sums in
+// one order).  Tiles of 32 keys in a three-stage ring keep Q, the ring and
+// P within 227 KB at every pool mode.
+template <int MODE>
+__global__ void __launch_bounds__(PW_THREADS, 1)
+paged_prefill_wide_kernel(const PrefillArgs a) {
+  constexpr bool QUANT = MODE != KV_FLOAT;
+  constexpr int ROW = 2 * PW_DP + 16;
+  constexpr int KCM = PW_DP / 16;
+  constexpr int NB = PW_LANES / 8;  // 8-lane O blocks a warp
+  extern __shared__ __align__(16) uint8_t smem[];
+  const PoolGeom pg = a.pg;
+  const PwLayout L = pw_layout<MODE>();
+  const int D = a.D;
+  const int C = a.C;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int slab = warp & 3;   // rows [16 slab, 16 slab + 16) of the tile
+  const int half = warp >> 2;  // keys [16 half, +16) of a KV tile in S,
+                               // lanes [256 half, +256) of O
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int rows = (a.Hq / a.Hkv) * C;
+  // The last row tiles first: they see the most keys.
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * 64;
+  const int h = blockIdx.y;
+  const size_t head_row0 = (size_t)h * rows;
+  uint8_t* sq = smem + L.q;
+  uint8_t* sp = smem + L.p + slab * 16 * PW_PROW;
+  float* ssc = reinterpret_cast<float*>(smem + L.sc);
+  // This slab's [warp half][max, sum][16 rows].
+  float* red = reinterpret_cast<float*>(smem + L.red) + slab * 64;
+  const int ring_stage = PW_TK * L.stage_ld;
+  const size_t head_base = (size_t)h * a.num_pages_total;
+
+  const int r_last = min(r0 + 64, rows) - 1;
+  const int c_max = (r0 / C == r_last / C) ? (r_last % C) : (C - 1);
+  const int kv_end = min(a.offset + c_max + 1, a.max_pages * pg.PT);
+  auto stage = [&](int t0, int buf) {
+    stage_tokens<PW_THREADS, PW_TK>(
+        static_cast<const uint8_t*>(a.kv), a.page_row, head_base,
+        a.num_pages_total, pg, 1, QUANT ? D : 2 * D, t0, kv_end,
+        smem + buf * ring_stage, L.stage_ld, PW_TK * L.stage_ld,
+        QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * PW_TK);
+  };
+
+  const int qc = D / 8;
+  const __nv_bfloat16* qh =
+      static_cast<const __nv_bfloat16*>(a.q) + head_row0 * D;
+  for (int i = tid; i < 64 * qc; i += PW_THREADS) {
+    const int r = i / qc;
+    const int c = i - r * qc;
+    const bool ok = r0 + r < rows;
+    mfa::cp_async16(sq + r * ROW + c * 16,
+                    qh + (size_t)(ok ? r0 + r : 0) * D + c * 8, ok ? 16 : 0);
+  }
+  mfa::cp_async_commit();
+  for (int k = 0; k < PW_NS - 1; ++k) {  // tiles 0 .. NS - 2, a group each
+    if (k * PW_TK < kv_end) stage(k * PW_TK, k);
+    mfa::cp_async_commit();
+  }
+  mfa::cp_async_wait<PW_NS - 1>();
+  __syncthreads();  // Q landed
+  scale_rows<PW_THREADS>(sq, ROW, 64, qc, a.scale);
+
+  // Row i of this thread's fragments: r0 + 16 slab + g + 8i; its last
+  // visible column (padding rows see every column: their O is not stored).
+  int row[2], lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = r0 + 16 * slab + g + 8 * i;
+    lim[i] = row[i] < rows ? a.offset + row[i] % C : kv_end - 1;
+  }
+  // Columns [0, w_lo] are visible in every row of this slab, none past
+  // w_hi in any (the same in both warps of the slab).
+  int w_lo = min(lim[0], lim[1]), w_hi = max(lim[0], lim[1]);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    w_lo = min(w_lo, __shfl_xor_sync(0xffffffffu, w_lo, off));
+    w_hi = max(w_hi, __shfl_xor_sync(0xffffffffu, w_hi, off));
+  }
+  const int v_keep = D - pg.vtz;
+  const int nblk = (v_keep + 15) / 16;  // 16-lane O blocks computed
+  const int npairs = min(max(nblk - 16 * half, 0), PW_LANES / 16);  // mine
+  const int k0 = 16 * half;  // this warp's keys of a tile
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+
+  for (int t0 = 0, buf = 0; t0 < kv_end;
+       t0 += PW_TK, buf = buf + 1 == PW_NS ? 0 : buf + 1) {
+    mfa::cp_async_wait<PW_NS - 2>();
+    __syncthreads();  // this tile staged, Q scaled; the last tile's
+                      // readers done with its stage
+    if (t0 + (PW_NS - 1) * PW_TK < kv_end)
+      stage(t0 + (PW_NS - 1) * PW_TK, buf == 0 ? PW_NS - 1 : buf - 1);
+    mfa::cp_async_commit();
+    const uint8_t* sk = smem + buf * ring_stage;
+    if constexpr (QUANT) {
+      widen_rows<MODE, true, PW_THREADS, PW_TK>(
+          sk, L.stage_ld, PW_TK * L.stage_ld, 1, D, smem + L.conv, ROW,
+          PW_TK * ROW);
+      __syncthreads();
+      sk = smem + L.conv;
+    }
+    if (t0 > w_hi) continue;  // no row of this slab sees the tile
+    const uint8_t* sv = L.nkv == 2 ? sk + PW_TK * ROW : sk;
+    const float* ksc = ssc + buf * 2 * PW_TK;
+    const float* vsc = ksc + PW_TK;
+
+    // S = Q_s.K^T for this slab's 16 rows and this warp's 16 keys: element
+    // (row[i], token t0 + k0 + 8j + 2tq + c) at s[j][2i + c].
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mma_qk<KCM, 2, ROW, ROW>(sq, 16 * slab, sk, k0, D / 16, s);
+    if (QUANT) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 k2 =
+            *reinterpret_cast<const float2*>(ksc + k0 + 8 * j + 2 * tq);
+        s[j][0] *= k2.x;
+        s[j][1] *= k2.y;
+        s[j][2] *= k2.x;
+        s[j][3] *= k2.y;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+    const int c0 = t0 + k0;  // this warp's first key
+    if (c0 + 15 <= w_lo && c0 + 16 <= kv_end) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * tq + (e & 1);
+          float& x = s[j][e];
+          x = (col > lim[e >> 1] || col >= kv_end) ? -INFINITY : x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      if (tq == 0) red[half * 32 + g + 8 * i] = mx[i];
+    }
+    named_barrier(1 + slab, 64);  // both warps' row maxima
+    float alpha[2], mref[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = g + 8 * i;
+      const float m_next = fmaxf(m[i], fmaxf(red[r], red[32 + r]));
+      alpha[i] = m[i] == -INFINITY ? 0.f : __expf(m[i] - m_next);
+      mref[i] = m_next == -INFINITY ? 0.f : m_next;
+      m[i] = m_next;
+    }
+    // P = exp(s - m): l sums it before the V scale; P.V takes it times vs,
+    // rounded to bf16, from the slab's P in shared memory.
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int tl = k0 + 8 * j + 2 * tq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float p0 = __expf(s[j][2 * i] - mref[i]);
+        float p1 = __expf(s[j][2 * i + 1] - mref[i]);
+        sum[i] += p0 + p1;
+        if (QUANT) {
+          p0 *= vsc[tl];
+          p1 *= vsc[tl + 1];
+        }
+        *reinterpret_cast<uint32_t*>(sp + (g + 8 * i) * PW_PROW + 2 * tl) =
+            mfa::pack_bf16(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      if (tq == 0) red[half * 32 + 16 + g + 8 * i] = sum[i];
+    }
+    named_barrier(1 + slab, 64);  // the slab's P and both warps' row sums
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 + g + 8 * i;
+      l[i] = alpha[i] * l[i] + (red[r] + red[32 + r]);
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        acc[nb][0] *= alpha[0];
+        acc[nb][1] *= alpha[0];
+        acc[nb][2] *= alpha[1];
+        acc[nb][3] *= alpha[1];
+      }
+    }
+    // O += P.V over this warp's blocks of kept lanes, 16 tokens a step.
+    uint32_t pa[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      mfa::ldsm_x4(pa[kk], sp + mfa::ldsm_a_row(lane) * PW_PROW + kk * 32 +
+                               mfa::ldsm_a_byte(lane));
+#pragma unroll
+    for (int np = 0; np < NB / 2; ++np)
+      if (np < npairs) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          mma_pv<ROW>(pa[kk], sv, 16 * kk, 16 * half + np, acc[2 * np],
+                      acc[2 * np + 1]);
+      }
+  }
+  mfa::cp_async_wait<0>();
+
+  __nv_bfloat16* oh = static_cast<__nv_bfloat16*>(a.out) + head_row0 * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= rows) continue;
+    const float li = l[i] == 0.f ? 1.f : l[i];
+    __nv_bfloat16* orow = oh + (size_t)row[i] * D;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int d = PW_LANES * half + 8 * nb + 2 * tq;
+      if (nb / 2 < npairs)
+        *reinterpret_cast<uint32_t*>(orow + d) = mfa::pack_bf16(
+            d < v_keep ? acc[nb][2 * i] / li : 0.f,
+            d + 1 < v_keep ? acc[nb][2 * i + 1] / li : 0.f);
+    }
+  }
+  const int zl = D - 16 * nblk;  // lanes past the computed blocks
+  const int tile_rows = min(64, rows - r0);
+  for (int i = tid; i < tile_rows * zl; i += PW_THREADS)
+    oh[(size_t)(r0 + i / zl) * D + 16 * nblk + i % zl] =
+        __float2bfloat16(0.f);
+}
+
+// ---------------------------------------------------------------------------
 // Chunked prefill, scalar
 // ---------------------------------------------------------------------------
 
@@ -1306,27 +1651,36 @@ struct KVLoad<T, KV_INT4> {
   }
 };
 
-constexpr int PF_BM = 64;  // query rows per CTA
-constexpr int PF_BN = 64;  // KV tokens per tile
-constexpr int PF_THREADS = 256;  // 16 x 16: 4 rows x 4 columns each
+constexpr int PF_THREADS = 256;  // TY x TX: 4 rows x BT / TX columns each
 constexpr int PF_PAD = 4;
+
+// paged_prefill_kernel's query rows a CTA and KV tokens a tile for head
+// dims up to DMAX: 64 (16 x 16 threads, a 4 x 4 score block each), or 32
+// above 288 (8 x 32 threads, 4 x 1), where Q^T and K^T at 64 x 576 fp32
+// (2 x 156,672 B) would not fit.
+template <int DMAX>
+__host__ __device__ constexpr int pf_tile() {
+  return DMAX > 288 ? 32 : 64;
+}
 
 // K^T and V share one buffer above D = 128 (see the file comment).
 __host__ __device__ constexpr bool prefill_shares_kv(int dmax) {
   return dmax > 128;
 }
 
-size_t prefill_smem_bytes(int D, bool share) {
-  const int ldm = PF_BM + PF_PAD, ldn = PF_BN + PF_PAD, ldv = D + PF_PAD;
-  const size_t kv = share ? (size_t)max(D * ldn, PF_BN * ldv)
-                          : (size_t)D * ldn + (size_t)PF_BN * ldv;
+size_t prefill_smem_bytes(int D, bool share, int bt) {
+  const int ldm = bt + PF_PAD, ldn = bt + PF_PAD, ldv = D + PF_PAD;
+  const size_t kv = share ? (size_t)max(D * ldn, bt * ldv)
+                          : (size_t)D * ldn + (size_t)bt * ldv;
   return sizeof(float) *
-         ((size_t)D * ldm + kv + (size_t)PF_BN * ldm + 2 * PF_BN);
+         ((size_t)D * ldm + kv + (size_t)bt * ldm + 2 * bt);
 }
 
 // Replaces serving/paged_attention.py::_prefill_kernel for an fp32 q, and
-// for the bf16 shapes prefill_tc leaves here.
-template <typename T, int DC, int MODE>
+// for the bf16 shapes prefill_tc leaves here.  DC: the head dim, or 0 for
+// a run-time one up to DMAX.  Thread (ty, tx) holds rows [4 ty, 4 ty + 4)
+// of the CTA's BT and O lanes tx + TX e.
+template <typename T, int DC, int MODE, int DMAX = (DC != 0 ? DC : 288)>
 __global__ void __launch_bounds__(PF_THREADS)
 paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
                      const float* __restrict__ kscale,
@@ -1338,13 +1692,15 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
   using E = Elem<T>;
   using L = KVLoad<T, MODE>;
   constexpr bool QUANT = MODE != KV_FLOAT;
-  constexpr int DMAX = DC ? DC : MAX_D;
-  constexpr int DVMAX = DMAX / 16;  // output dims per thread, at most
+  constexpr int BT = pf_tile<DMAX>();  // query rows a CTA, KV tokens a tile
+  constexpr int TY = BT / 4;
+  constexpr int TX = PF_THREADS / TY;  // threads of a row: 16 or 32
+  constexpr int CJ = BT / TX;          // score columns a thread: 4 or 1
+  constexpr int DVMAX = (DMAX + TX - 1) / TX;  // output lanes a thread
   constexpr bool SHARE = prefill_shares_kv(DMAX);
-  constexpr int LDM = PF_BM + PF_PAD;
-  constexpr int LDN = PF_BN + PF_PAD;
+  constexpr int LDM = BT + PF_PAD;
+  constexpr int LDN = BT + PF_PAD;
   const int D = DC ? DC : d_rt;
-  const int DV = D / 16;          // output dims per thread
   const int LDV = D + PF_PAD;
   const int VPR = D / L::VEC;     // KV loads per token row
   const int QPR = D / E::VEC;     // q loads per row
@@ -1355,23 +1711,23 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
   extern __shared__ __align__(16) float smem_pf[];
   float* qt = smem_pf;             // [D][LDM]   Q transposed
   float* kt = qt + D * LDM;        // [D][LDN]   K transposed
-  float* vs = SHARE ? kt : kt + D * LDN;  // [BN][LDV]
-  float* pt = SHARE ? kt + max(D * LDN, PF_BN * LDV)
-                    : vs + PF_BN * LDV;   // [BN][LDM]  P transposed
-  float* ksc = pt + PF_BN * LDM;   // [BN] K scales of the tile's tokens
-  float* vsc = ksc + PF_BN;        // [BN] V scales
+  float* vs = SHARE ? kt : kt + D * LDN;  // [BT][LDV]
+  float* pt = SHARE ? kt + max(D * LDN, BT * LDV)
+                    : vs + BT * LDV;      // [BT][LDM]  P transposed
+  float* ksc = pt + BT * LDM;      // [BT] K scales of the tile's tokens
+  float* vsc = ksc + BT;           // [BT] V scales
 
   const int h = blockIdx.y;
   const int G = Hq / Hkv;
   const int rows = G * C;
-  const int r0 = blockIdx.x * PF_BM;
+  const int r0 = blockIdx.x * BT;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
   const size_t head_row0 = (size_t)h * rows;
   const T* qh = q + head_row0 * D;
 
-  for (int i = tid; i < PF_BM * QPR; i += PF_THREADS) {
+  for (int i = tid; i < BT * QPR; i += PF_THREADS) {
     const int r = i / QPR;
     const int c = i % QPR;
     float f[E::VEC];
@@ -1392,7 +1748,7 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
   int lim[4];  // last visible global column of each of this thread's rows
 #pragma unroll
   for (int i = 0; i < 4; ++i) lim[i] = offset + (r0 + ty * 4 + i) % C;
-  const int r_last = min(r0 + PF_BM, rows) - 1;
+  const int r_last = min(r0 + BT, rows) - 1;
   const int c_max = (r0 / C == r_last / C) ? (r_last % C) : (C - 1);
   const int kv_end = min(offset + c_max + 1, max_pages * PT);
 
@@ -1411,7 +1767,7 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
   // pass; V_ONLY: its V rows alone.
   constexpr int KV_ROWS = 0, V_ONLY = 1;
   auto stage = [&](int t0, int what) {
-    for (int i = tid; i < PF_BN * VPR; i += PF_THREADS) {
+    for (int i = tid; i < BT * VPR; i += PF_THREADS) {
       const int t = i / VPR;
       const int c = i % VPR;
       const int pos = t0 + t;
@@ -1438,11 +1794,11 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
     }
   };
 
-  for (int t0 = 0; t0 < kv_end; t0 += PF_BN) {
+  for (int t0 = 0; t0 < kv_end; t0 += BT) {
     __syncthreads();  // Q staged (first tile); last tile's readers done
     stage(t0, KV_ROWS);  // K^T, and V unless it shares K^T's buffer
     if (QUANT) {
-      for (int t = tid; t < PF_BN; t += PF_THREADS) {
+      for (int t = tid; t < BT; t += PF_THREADS) {
         const int pos = t0 + t;
         float a = 0.f, v = 0.f;
         if (pos < kv_end) {
@@ -1459,48 +1815,58 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
     }
     __syncthreads();
 
-    float s[4][4];
+    float s[4][CJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
       const float4 a = *reinterpret_cast<const float4*>(qt + d * LDM + ty * 4);
-      const float4 k4 = *reinterpret_cast<const float4*>(kt + d * LDN + tx * 4);
       const float av[4] = {a.x, a.y, a.z, a.w};
-      const float kv4[4] = {k4.x, k4.y, k4.z, k4.w};
+      float kv4[CJ];
+      if constexpr (CJ == 4) {
+        const float4 k4 =
+            *reinterpret_cast<const float4*>(kt + d * LDN + tx * 4);
+        kv4[0] = k4.x;
+        kv4[1] = k4.y;
+        kv4[2] = k4.z;
+        kv4[3] = k4.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) kv4[j] = kt[d * LDN + tx * CJ + j];
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], kv4[j], s[i][j]);
+        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(av[i], kv4[j], s[i][j]);
     }
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = t0 + tx * 4 + j;
-        if (QUANT) s[i][j] *= ksc[tx * 4 + j];
+      for (int j = 0; j < CJ; ++j) {
+        const int col = t0 + tx * CJ + j;
+        if (QUANT) s[i][j] *= ksc[tx * CJ + j];
         if (col > lim[i] || col >= kv_end) s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
-      // The 16 threads of a row are the 16 lanes sharing ty in one warp.
+      // The TX threads of a row are the TX lanes sharing ty in one warp.
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
+      for (int o = TX / 2; o > 0; o >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_next = fmaxf(m[i], mx);
       const float alpha = (m[i] == -INFINITY) ? 0.f : expf(m[i] - m_next);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const float p = (s[i][j] == -INFINITY) ? 0.f : expf(s[i][j] - m_next);
         sum += p;
-        s[i][j] = E::round(QUANT ? p * vsc[tx * 4 + j] : p);
+        s[i][j] = E::round(QUANT ? p * vsc[tx * CJ + j] : p);
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
+      for (int o = TX / 2; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
       l[i] = alpha * l[i] + sum;
       m[i] = m_next;
@@ -1512,19 +1878,19 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
       stage(t0, V_ONLY);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * LDM + ty * 4) =
+    for (int j = 0; j < CJ; ++j)
+      *reinterpret_cast<float4*>(pt + (tx * CJ + j) * LDM + ty * 4) =
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     __syncthreads();
 
-    for (int c = 0; c < PF_BN; ++c) {
+    for (int c = 0; c < BT; ++c) {
       const float4 p4 = *reinterpret_cast<const float4*>(pt + c * LDM + ty * 4);
       const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float* vr = vs + c * LDV + tx * DV;
+      const float* vr = vs + c * LDV + tx;
 #pragma unroll
       for (int e = 0; e < DVMAX; ++e) {
-        if (e < DV) {
-          const float ve = vr[e];
+        if (e * TX + tx < D) {
+          const float ve = vr[e * TX];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][e] = fmaf(pv[i], ve, acc[i][e]);
         }
@@ -1537,11 +1903,12 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
     const int r = r0 + ty * 4 + i;
     if (r < rows) {
       const float li = (l[i] == 0.f) ? 1.f : l[i];
-      T* orow = out + (head_row0 + r) * D + tx * DV;
+      T* orow = out + (head_row0 + r) * D;
 #pragma unroll
-      for (int e = 0; e < DVMAX; ++e)
-        if (e < DV)
-          E::store(orow + e, tx * DV + e < v_keep ? acc[i][e] / li : 0.f);
+      for (int e = 0; e < DVMAX; ++e) {
+        const int d = e * TX + tx;
+        if (d < D) E::store(orow + d, d < v_keep ? acc[i][e] / li : 0.f);
+      }
     }
   }
 }
@@ -1553,16 +1920,18 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
 template <int DP, int MODE>
 int launch_decode_tc(const DecodeArgs& a, dim3 grid, cudaStream_t stream) {
   const TcLayout L =
-      tc_layout<DP, MODE, decode_stages<DP>()>(a.pg.ss, 16, true);
+      tc_layout<DP, MODE, decode_stages<DP>(), decode_tile<DP>()>(a.pg.ss, 16,
+                                                                  true);
   return launch_with_smem(paged_decode_tc_kernel<DP, MODE>, grid,
                           TC_THREADS, L.bytes, stream, a);
 }
 
-template <int DC, int MODE>
+template <int DC, int MODE, int DMAX = (DC != 0 ? DC : 288)>
 int launch_decode_fma(const DecodeArgs& a, dim3 grid, cudaStream_t stream) {
-  const ScLayout L = sc_layout<MODE, sc_stages<DC>()>(a.D, a.pg.ss, a.gc);
-  return launch_with_smem(paged_decode_kernel<DC, MODE>, grid, SC_THREADS,
-                          L.bytes, stream, a);
+  const ScLayout L = sc_layout<MODE, sc_stages<DC>(), sc_tile<DMAX>()>(
+      a.D, a.pg.ss, a.gc);
+  return launch_with_smem(paged_decode_kernel<DC, MODE, DMAX>, grid,
+                          SC_THREADS, L.bytes, stream, a);
 }
 
 // The decode of a dtype in one pool mode: the split kernel, then (splits
@@ -1578,7 +1947,8 @@ int launch_decode(int dtype, const DecodeArgs& a, int B, int Hkv,
       case 64: rc = launch_decode_tc<64, MODE>(a, grid, stream); break;
       case 128: rc = launch_decode_tc<128, MODE>(a, grid, stream); break;
       case 256: rc = launch_decode_tc<256, MODE>(a, grid, stream); break;
-      default: rc = launch_decode_tc<288, MODE>(a, grid, stream); break;
+      case 288: rc = launch_decode_tc<288, MODE>(a, grid, stream); break;
+      default: rc = launch_decode_tc<576, MODE>(a, grid, stream); break;
     }
   } else if (dtype == 0) {
     switch (a.D) {
@@ -1586,7 +1956,10 @@ int launch_decode(int dtype, const DecodeArgs& a, int B, int Hkv,
       case 64: rc = launch_decode_fma<64, MODE>(a, grid, stream); break;
       case 128: rc = launch_decode_fma<128, MODE>(a, grid, stream); break;
       case 288: rc = launch_decode_fma<288, MODE>(a, grid, stream); break;
-      default: rc = launch_decode_fma<0, MODE>(a, grid, stream); break;
+      default:
+        rc = a.D <= 288 ? launch_decode_fma<0, MODE>(a, grid, stream)
+                        : launch_decode_fma<0, MODE, 576>(a, grid, stream);
+        break;
     }
   }
   if (rc != 0 || a.splits == 1) return rc;
@@ -1613,22 +1986,33 @@ int launch_prefill_tc(const PrefillArgs& a, cudaStream_t stream) {
                           stream, a);
 }
 
-template <typename T, int DC, int MODE>
+template <int MODE>
+int launch_prefill_wide(const PrefillArgs& a, cudaStream_t stream) {
+  const int rows = (a.Hq / a.Hkv) * a.C;
+  return launch_with_smem(paged_prefill_wide_kernel<MODE>,
+                          dim3((rows + 63) / 64, a.Hkv), PW_THREADS,
+                          pw_layout<MODE>().bytes, stream, a);
+}
+
+template <typename T, int DC, int MODE, int DMAX = (DC != 0 ? DC : 288)>
 int launch_prefill_fma(const PrefillArgs& a, cudaStream_t stream) {
+  constexpr int BT = pf_tile<DMAX>();
   const int rows = (a.Hq / a.Hkv) * a.C;
   const size_t smem =
-      prefill_smem_bytes(a.D, prefill_shares_kv(DC ? DC : MAX_D));
+      prefill_smem_bytes(a.D, prefill_shares_kv(DMAX), BT);
   return launch_with_smem(
-      paged_prefill_kernel<T, DC, MODE>,
-      dim3((rows + PF_BM - 1) / PF_BM, a.Hkv), PF_THREADS, smem, stream,
+      paged_prefill_kernel<T, DC, MODE, DMAX>,
+      dim3((rows + BT - 1) / BT, a.Hkv), PF_THREADS, smem, stream,
       static_cast<const T*>(a.q), a.kv, a.kscale, a.vscale, a.page_row,
       static_cast<T*>(a.out), a.Hq, a.Hkv, a.C, a.D, a.num_pages_total, a.pg,
       a.max_pages, a.offset, a.scale);
 }
 
-// The prefill of a dtype in one pool mode: paged_prefill_tc_kernel where
-// prefill_tc says so, else paged_prefill_kernel (bf16 there only at the
-// widths above 256: D = 272 and 288).
+// The prefill of a dtype in one pool mode: the tensor cores where
+// prefill_tc says so (paged_prefill_tc_kernel up to D = 288,
+// paged_prefill_wide_kernel above), else paged_prefill_kernel (bf16 there
+// only at the widths above 256: D = 272 and 288, and above 288 two-state
+// pages or more than 512 kept lanes).
 template <int MODE>
 int launch_prefill(int dtype, const PrefillArgs& a, cudaStream_t stream) {
   if (prefill_tc(dtype, a.D, a.pg.ss, a.pg.vtz)) {
@@ -1637,13 +2021,16 @@ int launch_prefill(int dtype, const PrefillArgs& a, cudaStream_t stream) {
       case 64: return launch_prefill_tc<64, MODE>(a, stream);
       case 128: return launch_prefill_tc<128, MODE>(a, stream);
       case 256: return launch_prefill_tc<256, MODE>(a, stream);
-      default: return launch_prefill_tc<288, MODE>(a, stream);
+      case 288: return launch_prefill_tc<288, MODE>(a, stream);
+      default: return launch_prefill_wide<MODE>(a, stream);
     }
   }
   if (dtype == 1) {
     if (a.D == 288)
       return launch_prefill_fma<__nv_bfloat16, 288, MODE>(a, stream);
-    return launch_prefill_fma<__nv_bfloat16, 0, MODE>(a, stream);
+    if (a.D <= 288)
+      return launch_prefill_fma<__nv_bfloat16, 0, MODE>(a, stream);
+    return launch_prefill_fma<__nv_bfloat16, 0, MODE, 576>(a, stream);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   switch (a.D) {
@@ -1651,7 +2038,9 @@ int launch_prefill(int dtype, const PrefillArgs& a, cudaStream_t stream) {
     case 64: return launch_prefill_fma<float, 64, MODE>(a, stream);
     case 128: return launch_prefill_fma<float, 128, MODE>(a, stream);
     case 288: return launch_prefill_fma<float, 288, MODE>(a, stream);
-    default: return launch_prefill_fma<float, 0, MODE>(a, stream);
+    default:
+      return a.D <= 288 ? launch_prefill_fma<float, 0, MODE>(a, stream)
+                        : launch_prefill_fma<float, 0, MODE, 576>(a, stream);
   }
 }
 
@@ -1675,7 +2064,7 @@ PoolGeom geom_of(int mode, int PT, int s_sub, int vtz) {
 // s_sub: page rows per token (1 or 2; 1 for the int4 byte); vtz: V's
 // zeroed tail lanes.  Returns the launch's cudaError_t;
 // cudaErrorInvalidValue for an unsupported dtype, mode, page layout, head
-// dim (a multiple of 16 up to 288) or split plan.
+// dim (a multiple of 16 up to 576) or split plan.
 extern "C" {
 
 // splits: the KV axis's splits (serving/paged_attention.py::decode_splits),

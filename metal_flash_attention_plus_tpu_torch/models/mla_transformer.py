@@ -78,7 +78,9 @@ def init_mla_params(
 ) -> Params:
     """Scaled-normal init (fp32 normals · fan_in^-0.5, stored in
     ``cfg.dtype``); norm weights are fp32 ones.  The numbers come from
-    ``generator`` (a CPU generator) and differ from ``jax.random``'s; to
+    ``generator``, drawn on its device (a CUDA generator draws a
+    full-width model on the card, in a fraction of the host's time, and
+    other numbers than a CPU one), and differ from ``jax.random``'s; to
     compare with the JAX package, convert its parameters with
     :func:`models.convert.params_from_jax`."""
     dev = resolve_device(device)
@@ -86,7 +88,8 @@ def init_mla_params(
     dc, dr, f, v = cfg.latent_dim, cfg.rope_dim, cfg.d_ff, cfg.vocab_size
 
     def dense(shape, fan_in):
-        w = torch.randn(shape, generator=generator, dtype=torch.float32)
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
         return (w * fan_in ** -0.5).to(device=dev, dtype=cfg.dtype)
 
     def ones():

@@ -25,7 +25,8 @@ S_sub is ``page rows // page_tokens`` (``page_tokens`` defaults to the page
 rows: S_sub = 1).  ``v_tail_zero``: V reads K's rows with its last
 ``v_tail_zero`` lanes set to 0 (the rope tail of an MLA latent state).
 The int4 pool takes neither S_sub = 2 nor ``v_tail_zero``, as in JAX.  The
-kernels take any head dim that is a multiple of 16 up to 288.
+kernels take any head dim that is a multiple of 16 up to 576 (DeepSeek's
+absorbed MLA width, 512 + 64); a CUDA tensor of a wider head dim raises.
 
 Numerics shared by kernels and plain versions: q is pre-scaled and rounded
 back to its dtype, ``(q.f32 · scale).to(q.dtype)``; scores, softmax
@@ -35,16 +36,17 @@ dtype and P is cast to it before P·V.  Quantized pools: the score is
 softmax sum takes P before any V scale; then P is multiplied by the
 token's V scale and cast to q's dtype before P·V over the integer V.  The
 output is in q's dtype.  The bf16 kernels round P against the running max
-of their 64-token tiles (the decode: of its split of the KV axis too),
-the plain versions against the row's max; the bf16 gate covers it.
+of their tiles (the decode: of its split of the KV axis too), the plain
+versions against the row's max; the bf16 gate covers it.
 
 Kernels (:func:`decode_body`, :func:`prefill_body` say which a call takes):
 the bf16 decode runs ``paged_decode_tc_kernel`` (mma.sync) and the fp32
 one ``paged_decode_kernel`` (fp32 FMAs), both with the KV axis split
 across CTAs as :func:`decode_splits` plans and, for more than one split,
 ``paged_decode_merge_kernel`` after them over a workspace the wrapper
-allocates; the bf16 prefill runs ``paged_prefill_tc_kernel`` where
-:func:`prefill_body` says so, the rest ``paged_prefill_kernel``.
+allocates; the bf16 prefill runs ``paged_prefill_tc_kernel`` (above
+D = 288 ``paged_prefill_wide_kernel``) where :func:`prefill_body` says
+so, the rest ``paged_prefill_kernel``.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ from metal_flash_attention_plus_tpu_torch import _build
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 288  # the kernels take multiples of 16 up to this
+_MAX_HEAD_DIM = 576  # the kernels take multiples of 16 up to this
 # Pool modes of the kernels: float, int8 halves, int4 shared byte.
 _MODE_FLOAT, _MODE_INT8, _MODE_INT4 = 0, 1, 2
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -162,7 +164,12 @@ def _check_cuda_inputs(name, q, kv_pages, ints, mode, scales, pt):
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: page tables and lengths must be int32")
-    d = q.shape[-1]
+    check_head_dim(name, q.shape[-1])
+
+
+def check_head_dim(name: str, d: int):
+    """Raise ``ValueError`` unless the kernels take head dim ``d``: a
+    multiple of 16 up to 576."""
     if d % 16 or not 0 < d <= _MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} has no kernel (multiples "
                          f"of 16 up to {_MAX_HEAD_DIM})")
@@ -195,16 +202,20 @@ def prefill_body(dtype: torch.dtype, head_dim: int, page_states: int,
                  v_tail_zero: int) -> str:
     """Which prefill kernel a q of ``dtype`` at ``head_dim`` over pages of
     ``page_states`` states (S_sub) with ``v_tail_zero`` zeroed V lanes
-    launches: "tensor_core" (``paged_prefill_tc_kernel``) for bf16 where
-    ``head_dim`` ≤ 256, or where one-state pages leave ``head_dim −
-    v_tail_zero`` ≤ 256 lanes for P·V (MLA's 288 − 32; the fp32 O
-    accumulator of more lanes would spill); "fp32_fma"
-    (``paged_prefill_kernel``) for fp32 and every other shape.  The C
-    launcher routes the same way (``prefill_tc``; ``mfa_paged_bodies``,
-    bit 1)."""
+    launches: "tensor_core" for bf16 where ``head_dim`` ≤ 256, or where
+    one-state pages leave ``head_dim − v_tail_zero`` lanes for P·V that
+    the width's fp32 O accumulator holds: 256 up to ``head_dim`` 288
+    (``paged_prefill_tc_kernel``; MLAConfig()'s 288 − 32), 512 above
+    (``paged_prefill_wide_kernel``, O split over two warp groups;
+    DeepSeek's 576 − 64); "fp32_fma" (``paged_prefill_kernel``) for fp32
+    and every other shape.  A head dim without a kernel (see
+    :func:`check_head_dim`) raises ``ValueError``.  The C launcher routes
+    the same way (``prefill_tc``; ``mfa_paged_bodies``, bit 1)."""
+    check_head_dim("prefill_body", head_dim)
+    pv_lanes = 256 if head_dim <= 288 else 512
     if dtype == torch.bfloat16 and (
             head_dim <= 256
-            or (page_states == 1 and head_dim - v_tail_zero <= 256)):
+            or (page_states == 1 and head_dim - v_tail_zero <= pv_lanes)):
         return "tensor_core"
     return "fp32_fma"
 

@@ -40,7 +40,9 @@ ENTRY_KERNELS: Dict[str, Tuple[str, ...]] = {
     "mfa_flash_dkv_merge": ("flash_dkv_merge_kernel",),
     "mfa_paged_decode": ("paged_decode_tc_kernel", "paged_decode_kernel",
                          "paged_decode_merge_kernel"),
-    "mfa_paged_prefill": ("paged_prefill_tc_kernel", "paged_prefill_kernel"),
+    "mfa_paged_prefill": ("paged_prefill_tc_kernel",
+                          "paged_prefill_wide_kernel",
+                          "paged_prefill_kernel"),
     "mfa_qattn_fwd": ("qattn_fwd_tc_kernel", "qattn_fwd_wide_kernel",
                       "qattn_fwd_kernel"),
     "mfa_hpack_fwd": ("qattn_fwd_tc_kernel", "qattn_fwd_kernel"),

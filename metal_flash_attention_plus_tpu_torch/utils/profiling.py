@@ -5,7 +5,7 @@ card.
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling [--seed N]
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --quantized 8
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --mla \
-        [--quantized 8]
+        [--v2-lite] [--quantized 8]
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --train
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --mla \
         --train
@@ -35,7 +35,10 @@ pool, as in ``chip_smoke.py``'s quantized engine phase.
 ``--mla``: the same traffic on ``MLAConfig()`` (random weights from the
 seed) through ``mla_executor()``, over a float latent pool or, with
 ``--quantized 8``, W8A8 weights (``quantize_mla_weights``) over an int8
-one, as in ``chip_smoke.py`` phase 12 (g).
+one, as in ``chip_smoke.py`` phase 12 (g).  ``--mla --v2-lite``: the same
+on :data:`DEEPSEEK_V2_LITE` (DeepSeek-V2-Lite's widths: the paged kernels
+at D = 576; random weights drawn on the card from the seed), as in
+``chip_smoke.py`` phase 20 (c).
 
 ``--train``: the train step of ``chip_smoke.py``'s training phase (the
 bf16 flagship, Adam at lr 3e-3, one seeded batch of 4 × 2049 tokens): two
@@ -87,7 +90,8 @@ Timed as ``--wo-tiles`` times its plans.
 phase 8 geometry (the 8 smoke prompts' lengths + 16, 256-token pages, 16
 pages a table) with a float pool at D = 64 and 128, an int8 pool at
 D = 64, and MLA's one-state latent pages (Hq = 16 over Hkv = 1, D = 288,
-``v_tail_zero`` 32), over split counts (:data:`DECODE_SPLIT_PLANS`), each
+``v_tail_zero`` 32; DeepSeek's D = 576, ``v_tail_zero`` 64), over split
+counts (:data:`DECODE_SPLIT_PLANS`), each
 forced in place of ``serving.paged_attention.decode_splits``' choice,
 which the output marks: the time by CUDA events over 50 calls after 3 to
 warm up, and the device time of the split kernel and of the merge over 50
@@ -200,6 +204,19 @@ from metal_flash_attention_plus_tpu_torch.serving.engine import (
     mla_executor,
 )
 from metal_flash_attention_plus_tpu_torch.serving import paged_attention
+
+
+# DeepSeek-V2-Lite at full width, from
+# https://huggingface.co/deepseek-ai/DeepSeek-V2-Lite/blob/main/config.json:
+# no q_lora_rank, so MLAConfig's fields express its attention exactly (16
+# heads of 128, kv_lora_rank 512 + qk_rope_head_dim 64 = the paged
+# kernels' D = 576); its 26 MoE layers as dense SwiGLU at the dense first
+# layer's intermediate_size, no YaRN RoPE scaling (MLAConfig has neither).
+# chip_smoke.py phase 20 serves the same configuration.
+DEEPSEEK_V2_LITE = MLAConfig(
+    vocab_size=102400, d_model=2048, num_layers=27, num_heads=16,
+    head_dim=128, latent_dim=512, rope_dim=64, d_ff=10944,
+    rope_theta=10000.0, max_seq=4096)
 
 
 def smoke_requests(cfg, seed: int):
@@ -846,12 +863,14 @@ def decode_split_inputs(geom: str, lengths, g: torch.Generator):
     ``chip_smoke.py``'s phase 8 geometry: ``flagship64`` / ``flagship128``
     (bf16 pool, Hq = 16 over Hkv = 4), ``int8`` (int8 halves at D = 64),
     ``mla`` (one-state bf16 latent pages, Hq = 16 over Hkv = 1, D = 288,
-    ``v_tail_zero`` 32); pages scattered, the trash page last."""
+    ``v_tail_zero`` 32), ``deepseek`` (the same at D = 576,
+    ``v_tail_zero`` 64); pages scattered, the trash page last."""
     pt, num_pages, max_pages = 256, 256, 16
     hq, hkv, d, states = {"flagship64": (16, 4, 64, 2),
                           "flagship128": (16, 4, 128, 2),
                           "int8": (16, 4, 64, 2),
-                          "mla": (16, 1, 288, 1)}[geom]
+                          "mla": (16, 1, 288, 1),
+                          "deepseek": (16, 1, 576, 1)}[geom]
     shape = (hkv, num_pages + 1, states * pt, d)
     kw = dict(page_tokens=pt)
     if geom == "int8":
@@ -866,6 +885,8 @@ def decode_split_inputs(geom: str, lengths, g: torch.Generator):
             torch.bfloat16)
     if geom == "mla":
         kw.update(v_tail_zero=32, scale=(64 + 32) ** -0.5)
+    elif geom == "deepseek":
+        kw.update(v_tail_zero=64, scale=(128 + 64) ** -0.5)
     perm = torch.randperm(num_pages, generator=g, device="cuda").to(
         torch.int32)
     table = torch.full((len(lengths), max_pages), num_pages,
@@ -887,7 +908,7 @@ def profile_decode_splits(seed: int, iters: int = 50) -> int:
     g = torch.Generator(device="cuda").manual_seed(seed)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     planner = paged_attention.decode_splits
-    for geom in ("flagship64", "flagship128", "int8", "mla"):
+    for geom in ("flagship64", "flagship128", "int8", "mla", "deepseek"):
         q, pool, table, ln, kw = decode_split_inputs(geom, lengths, g)
         hkv = pool.shape[0]
         chosen = planner(len(lengths), hkv, q.shape[1] // hkv,
@@ -1017,6 +1038,9 @@ def main() -> int:
     ap.add_argument("--mla", action="store_true",
                     help="serve MLAConfig() through mla_executor() (with "
                     "--quantized 8: W8A8 weights over an int8 latent pool)")
+    ap.add_argument("--v2-lite", action="store_true",
+                    help="with --mla: serve DeepSeek-V2-Lite's widths "
+                    "(DEEPSEEK_V2_LITE) instead of MLAConfig()")
     ap.add_argument("--quantized-attention", choices=("packed", "unpacked"),
                     help="profile quantized_forward(quantize_kv=True)")
     ap.add_argument("--quantized-backward", choices=("fullint", "exact"),
@@ -1059,11 +1083,19 @@ def main() -> int:
         return profile_rtq_clusters(args.seed)
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
+    if args.v2_lite and (not args.mla or args.train):
+        ap.error("--v2-lite serves with --mla (the flash kernels that "
+                 "training needs stop at D = 288)")
     if args.mla:
         if args.quantized == 4:
             ap.error("MLA latent pools are float or int8")
-        cfg = MLAConfig()
-        params = init_mla_params(cfg, torch.Generator().manual_seed(args.seed))
+        if args.v2_lite:
+            cfg = DEEPSEEK_V2_LITE
+            gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        else:
+            cfg = MLAConfig()
+            gen = torch.Generator().manual_seed(args.seed)
+        params = init_mla_params(cfg, gen, device="cuda")
         if args.train:
             return profile_train(cfg, params, args.seed,
                                  loss=mla_loss_fn, batch=2)

@@ -32,10 +32,13 @@ multiply-add per block).  The quantized attention kernels at head dims
 outside their built widths (80, 96) run zero-padded and take the same
 tolerances.  MLA's
 modes of the paged kernels (one-state latent pages, ``v_tail_zero``,
-D = 80 and 288, Hq = 16 over Hkv = 1) and of the flash kernels (D = 80 and
-288) take their kernels' tolerances.  The paged decode splits the KV axis
+D = 80, 288, DeepSeek's 576 and 320 (run at 576), Hq = 16 over Hkv = 1)
+and of the flash kernels (D = 80 and 288) take their kernels' tolerances;
+so do the paged kernels' scalar instances above 288; past 576 the paged
+wrappers raise.  The paged decode splits the KV axis
 across CTAs and merges the splits in a fixed order, so two calls on the
-same inputs are held equal bit for bit; so are the bf16 forward, dQ and
+same inputs are held equal bit for bit (at 576 the prefill too); so are
+the bf16 forward, dQ and
 dK/dV at D = 288 (``flash_fwd_wide_kernel`` in both of its modes and the
 wide bodies; the dK/dV's GQA group split over CTAs and merged in split
 order, the merge kernel bit for bit with its plain version), which take
@@ -196,6 +199,28 @@ def test_kernel_rejects_unsupported_head_dim(cuda_device):
     lengths = torch.ones(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         paged_decode_attention(q, pool, table, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_reject_head_dims_past_576(cuda_device, dtype):
+    """592 is past DeepSeek's absorbed width: both wrappers raise on a
+    CUDA tensor, launch nothing and do not run the plain version."""
+    d, pt = 592, 16
+    pool = torch.zeros(1, 3, pt, d, device=cuda_device, dtype=dtype)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=cuda_device)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    n = (paged_decode_attention.launches, paged_prefill_attention.launches)
+    with pytest.raises(ValueError, match="has no kernel"):
+        paged_decode_attention(torch.zeros(1, 16, d, device=cuda_device,
+                                           dtype=dtype), pool, table,
+                               lengths, v_tail_zero=64)
+    with pytest.raises(ValueError, match="has no kernel"):
+        paged_prefill_attention(torch.zeros(16, 8, d, device=cuda_device,
+                                            dtype=dtype), pool, table[0], 0,
+                                v_tail_zero=64)
+    assert (paged_decode_attention.launches,
+            paged_prefill_attention.launches) == n
 
 
 # --------------------------------------------------------------------------
@@ -1617,12 +1642,14 @@ def test_runtime_quantize_through_the_kernels(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool_kind", ["bf16", "f32", "int8"])
-@pytest.mark.parametrize("d,vtz", [(288, 32), (80, 16)])
+@pytest.mark.parametrize("d,vtz", [(288, 32), (80, 16), (576, 64),
+                                   (320, 64)])
 @pytest.mark.parametrize("kernel", ["decode", "prefill"])
 def test_latent_paged_kernels_match_plain(cuda_device, kernel, d, vtz,
                                           pool_kind):
     """Hq = 16 over Hkv = 1: the decode splits the group over CTAs at
-    D = 288; D = 80 runs the kernels' run-time head dim."""
+    D = 288 and DeepSeek's 576; D = 80 runs the kernels' run-time head dim,
+    320 the 576 instances' (the prefill on paged_prefill_wide_kernel)."""
     rng = np.random.default_rng(d + vtz)
     hq, pt, num_pages = 16, 64, 12
     dtype = torch.float32 if pool_kind == "f32" else torch.bfloat16
@@ -1700,8 +1727,10 @@ def _page_table(rng, lengths, pt, num_pages, max_pages, device):
 
 # (head dim, page states, v_tail_zero): the flagship's two-state pages at
 # D = 64 and 128, MLA's one-state latent pages at D = 288 with V's rope
-# tail of 32 zeroed (the int4 byte: one state, no tail).
-SPLIT_LAYOUTS = [(64, 2, 0), (128, 2, 0), (288, 1, 32)]
+# tail of 32 zeroed and at DeepSeek's 576 with 64, two-state pages at 576
+# (the int4 byte: one state, no tail).
+SPLIT_LAYOUTS = [(64, 2, 0), (128, 2, 0), (288, 1, 32), (576, 1, 64),
+                 (576, 2, 0)]
 
 
 @pytest.mark.cuda
@@ -1778,10 +1807,11 @@ def test_decode_kernel_is_deterministic(cuda_device, pool_kind, dtype):
 def _prefill_tc_cases():
     cases = []
     for d, states, vtz, hq, hkv in [(64, 2, 0, 16, 4), (128, 2, 0, 8, 2),
-                                    (288, 1, 32, 16, 1)]:
+                                    (288, 1, 32, 16, 1), (576, 1, 64, 16, 1),
+                                    (320, 1, 0, 8, 2)]:
         for kind in ("bf16", "int8", "int4"):
-            if kind == "int4" and d == 288:
-                continue  # the int4 byte leaves 288 lanes: scalar
+            if kind == "int4" and d in (288, 576):
+                continue  # the int4 byte keeps every lane: scalar
             for pt, chunk, offset in [(16, 100, 70), (48, 256, 300),
                                       (256, 256, 512), (256, 64, 0)]:
                 cases.append((d, states, vtz, hq, hkv, kind, pt, chunk,
@@ -1795,9 +1825,10 @@ def _prefill_tc_cases():
 def test_prefill_tensor_core_instances_match_plain(cuda_device, d, states,
                                                    vtz, hq, hkv, kind, pt,
                                                    chunk, offset):
-    """paged_prefill_tc_kernel at D = 64, 128 and MLA's 288 / 32 over
-    float, int8 and int4 pools, chunks that end mid-tile and offsets that
-    split a row tile's visible range."""
+    """paged_prefill_tc_kernel at D = 64, 128 and MLA's 288 / 32,
+    paged_prefill_wide_kernel at DeepSeek's 576 / 64 and at 320 (run at
+    576, two KV heads), over float, int8 and int4 pools, chunks that end
+    mid-tile and offsets that split a row tile's visible range."""
     from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
         prefill_body,
     )
@@ -1840,9 +1871,9 @@ def test_paged_kernels_route_as_the_python_bodies_say(cuda_device):
 
     bodies = _build.kernel_function("mfa_paged_bodies", [ctypes.c_int] * 4)
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (32, 64, 80, 128, 256, 272, 288):
+        for d in (32, 64, 80, 128, 256, 272, 288, 304, 320, 512, 528, 576):
             for states in (1, 2):
-                for vtz in (0, 16, 32):
+                for vtz in (0, 16, 32, 64):
                     if vtz >= d:
                         continue  # no lane of V is kept: no layout
                     bits = bodies(_DTYPE_CODES[dtype], d, states, vtz)
@@ -1851,6 +1882,83 @@ def test_paged_kernels_route_as_the_python_bodies_say(cuda_device):
                         == "tensor_core") << 1
                     assert bits == want, (dtype, d, states, vtz)
     assert bodies(_DTYPE_CODES[torch.bfloat16], 40, 2, 0) == -1
+    assert bodies(_DTYPE_CODES[torch.bfloat16], 592, 1, 64) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,kind,states,vtz,dtype", [
+    (576, "f32", 1, 64, torch.float32),    # MLA's fp32 latent pages
+    (576, "f32", 2, 0, torch.float32),
+    (576, "bf16", 2, 64, torch.bfloat16),  # two-state pages: scalar
+    (576, "bf16", 1, 0, torch.bfloat16),   # 576 kept lanes: scalar
+    (576, "int8", 2, 0, torch.bfloat16),
+    (576, "int8", 1, 64, torch.float32),
+    (576, "int4", 1, 0, torch.bfloat16),
+    (576, "int4", 1, 0, torch.float32),
+    (336, "f32", 1, 64, torch.float32),
+    (336, "bf16", 2, 0, torch.bfloat16),
+    (336, "int8", 2, 64, torch.bfloat16),
+    (336, "int4", 1, 0, torch.float32),
+])
+def test_prefill_scalar_instances_past_288_match_plain(cuda_device, d, kind,
+                                                       states, vtz, dtype):
+    """paged_prefill_kernel above 288 (32-row CTAs, 32-token tiles): fp32,
+    and the bf16 shapes the tensor cores leave; 336 is not a multiple of
+    the tile's 32 lane threads."""
+    from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
+        prefill_body,
+    )
+
+    assert prefill_body(dtype, d, states, vtz) == "fp32_fma"
+    pt, chunk, offset, hq, hkv = 48, 100, 70, 8, 2
+    rng = np.random.default_rng(d + states + vtz)
+    max_pages = -(-(offset + chunk) // pt) + 1
+    pool, kw = _paged_pool(cuda_device, kind, hkv, max_pages + 2, pt, d,
+                           states, seed=d + vtz)
+    kw.update(page_tokens=pt, v_tail_zero=vtz, scale=d ** -0.5)
+    row = _page_table(rng, [offset + chunk], pt, max_pages + 2, max_pages,
+                      cuda_device)[0]
+    q = torch.from_numpy(rng.standard_normal((hq, chunk, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    n = paged_prefill_attention.launches
+    out = paged_prefill_attention(q, pool, row, offset, **kw)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches == n + 1
+    ref = paged_prefill_attention_plain(q, pool, row, offset, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype)
+    if vtz:
+        assert not out[..., d - vtz:].float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool_kind", ["float", "int8"])
+def test_paged_kernels_at_576_are_deterministic(cuda_device, pool_kind,
+                                                dtype):
+    """DeepSeek's geometry (Hq = 16 over the latent, D = 576, one-state
+    pages, 64 zeroed V lanes): two decode calls and two prefill calls on
+    the same inputs give the same bits."""
+    d, vtz, pt, hq = 576, 64, 256, 16
+    lengths = np.asarray([1, 300, 1800, 4000, 77, 2500, 1024, 3999],
+                         np.int32)
+    rng = np.random.default_rng(23)
+    kind = pool_kind if pool_kind != "float" else (
+        "bf16" if dtype == torch.bfloat16 else "f32")
+    pool, kw = _paged_pool(cuda_device, kind, 1, 80, pt, d, 1, seed=5)
+    kw.update(page_tokens=pt, v_tail_zero=vtz, scale=0.06)
+    table = _page_table(rng, lengths, pt, 80, 16, cuda_device)
+    q = torch.from_numpy(rng.standard_normal((8, hq, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    outs = [paged_decode_attention(q, pool, table, ln, **kw)
+            for _ in range(2)]
+    qp = torch.from_numpy(rng.standard_normal((hq, 256, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    pfs = [paged_prefill_attention(qp, pool, table[3], 512, **kw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(pfs[0], pfs[1])
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,9 @@
    batched ``mla_decode_step`` s against the JAX package's, comparing the
    logits at every call and the latent pool at the end: float pool and
    weights, and int8 latent pool with W8A8 weights
-   (``quantize_mla_weights``, byte for byte with the JAX one).
+   (``quantize_mla_weights``, byte for byte with the JAX one); at d_c 64 +
+   d_r 16 and at DeepSeek-V2-Lite's latent widths, 512 + 64 (the paged
+   kernels at D = 576).
 3. The port's engine with ``mla_executor()`` against the port's own
    uncached greedy decode (the JAX package's engine tests are ``slow``).
 
@@ -48,10 +50,19 @@ from metal_flash_attention_plus_tpu_torch.runtime import native_available
 
 DIMS = dict(vocab_size=128, d_model=64, num_layers=2, num_heads=2,
             head_dim=32, latent_dim=64, rope_dim=16, d_ff=128, max_seq=256)
-JCFG = jmt.MLAConfig(**DIMS, dtype=jnp.float32, block_sizes=JBlockSizes(
-    block_q=128, block_kv=128, block_q_dkv=128, block_kv_dkv=128,
-    block_q_dq=128, block_kv_dq=128))
+JBLOCKS = JBlockSizes(block_q=128, block_kv=128, block_q_dkv=128,
+                      block_kv_dkv=128, block_q_dq=128, block_kv_dq=128)
+JCFG = jmt.MLAConfig(**DIMS, dtype=jnp.float32, block_sizes=JBLOCKS)
 TCFG = tmt.MLAConfig(**DIMS, dtype=torch.float32)
+# DeepSeek-V2-Lite's latent widths (kv_lora_rank 512, qk_rope_head_dim 64
+# in huggingface.co/deepseek-ai/DeepSeek-V2-Lite/blob/main/config.json:
+# the paged kernels at D = 576) at the narrow model above.
+DIMS_576 = dict(DIMS, latent_dim=512, rope_dim=64)
+CFGS = {
+    80: (JCFG, TCFG),
+    576: (jmt.MLAConfig(**DIMS_576, dtype=jnp.float32, block_sizes=JBLOCKS),
+          tmt.MLAConfig(**DIMS_576, dtype=torch.float32)),
+}
 LOGIT_TOL = 1e-4
 NP, PT, MP, CHUNK = 16, 8, 6, 16
 
@@ -60,8 +71,8 @@ def _err(a, b):
     return float(np.max(np.abs(np.asarray(a) - b.detach().numpy())))
 
 
-def _params():
-    jparams = jmt.init_mla_params(JCFG, jax.random.PRNGKey(0))
+def _params(jcfg=JCFG):
+    jparams = jmt.init_mla_params(jcfg, jax.random.PRNGKey(0))
     return jparams, params_from_jax(jax.tree.map(np.asarray, jparams),
                                     device="cpu")
 
@@ -128,10 +139,12 @@ def test_quantize_mla_weights_matches_jax_byte_for_byte():
     walk(got, want)
 
 
-@pytest.mark.parametrize("quantized", [False, True],
-                         ids=["float", "w8a8_int8_latent"])
-def test_prefill_chunks_and_decode_steps_match_jax(quantized):
-    jparams, tparams = _params()
+@pytest.mark.parametrize("quantized,width", [
+    (False, 80), (True, 80), (False, 576), (True, 576),
+], ids=["float", "w8a8_int8_latent", "float-d576", "w8a8_int8_latent-d576"])
+def test_prefill_chunks_and_decode_steps_match_jax(quantized, width):
+    jcfg, tcfg = CFGS[width]
+    jparams, tparams = _params(jcfg)
     if quantized:
         jparams = jqi.quantize_mla_weights(jparams)
         tparams = tqi.quantize_mla_weights(tparams)
@@ -142,14 +155,14 @@ def test_prefill_chunks_and_decode_steps_match_jax(quantized):
     rows[1, :3] = [0, 13, 5]
 
     jprefill = jax.jit(lambda p, t, o, li, c, r: jcm.mla_prefill_chunk(
-        p, t, o, li, c, r, JCFG))
+        p, t, o, li, c, r, jcfg))
     jdecode = jax.jit(lambda p, t, ln, pts, c: jcm.mla_decode_step(
-        p, t, ln, pts, c, JCFG))
-    jcache = jcm.init_mla_cache(JCFG, NP, PT, jnp.float32,
+        p, t, ln, pts, c, jcfg))
+    jcache = jcm.init_mla_cache(jcfg, NP, PT, jnp.float32,
                                 quantized=quantized)
-    tcache = tcm.init_mla_cache(TCFG, NP, PT, torch.float32,
+    tcache = tcm.init_mla_cache(tcfg, NP, PT, torch.float32,
                                 quantized=quantized, device="cpu")
-    assert tuple(tcache.kv_pages.shape) == (2, 1, NP + 1, PT, 80)
+    assert tuple(tcache.kv_pages.shape) == (2, 1, NP + 1, PT, width)
 
     with jax.default_matmul_precision("highest"):
         for s, prompt in enumerate(prompts):
@@ -162,7 +175,7 @@ def test_prefill_chunks_and_decode_steps_match_jax(quantized):
                     jnp.int32(len(chunk) - 1), jcache, jnp.asarray(rows[s]))
                 tl, tcache = tcm.mla_prefill_chunk(
                     tparams, torch.from_numpy(padded).long(), start,
-                    len(chunk) - 1, tcache, torch.from_numpy(rows[s]), TCFG)
+                    len(chunk) - 1, tcache, torch.from_numpy(rows[s]), tcfg)
                 assert tl.shape == (128,)
                 assert _err(jl, tl) <= LOGIT_TOL
 
@@ -175,7 +188,7 @@ def test_prefill_chunks_and_decode_steps_match_jax(quantized):
             tl, tcache = tcm.mla_decode_step(
                 tparams, torch.from_numpy(tokens).long(),
                 torch.from_numpy(lengths), torch.from_numpy(rows), tcache,
-                TCFG)
+                tcfg)
             assert tl.shape == (3, 128)
             # Slot 2 is padding: its logits are discarded by the engine.
             assert _err(jl[:2], tl[:2]) <= LOGIT_TOL

@@ -7,10 +7,12 @@ TOLERANCES["fp32"] (max abs error).  The CUDA kernels are held to the
 plain versions in tests/test_torch_kernels.py, on the card.  Besides the
 two-state pool (K and V halves), MLA's latent pool: one state per token
 (S_sub = 1) read as K and, with its rope tail zeroed (``v_tail_zero``), as
-V, at a head dim (80) outside the GQA model's.  The kernels' host-side
-choices are pure functions of shapes, checked here too: the decode's split
-plan (``decode_splits``) and which body each kernel runs (``decode_body``,
-``prefill_body``; the card tests hold the C library to the same answers).
+V, at a head dim (80) outside the GQA model's and at DeepSeek's absorbed
+width (576 = 512 + 64).  The kernels' host-side choices are pure functions
+of shapes, checked here too: the decode's split plan (``decode_splits``),
+which body each kernel runs (``decode_body``, ``prefill_body``; the card
+tests hold the C library to the same answers) and the head dims without a
+kernel (past 576).
 """
 
 import jax
@@ -27,6 +29,7 @@ from metal_flash_attention_plus_tpu_torch.attention.precisions import (
     TOLERANCES,
 )
 from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
+    check_head_dim,
     decode_body,
     decode_splits,
     paged_decode_attention,
@@ -133,13 +136,18 @@ def test_bad_pool_shape_raises():
         )
 
 
-@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("quantized,d,vtz,hq", [
+    (False, 80, 16, 4), (True, 80, 16, 4),
+    (False, 576, 64, 16), (True, 576, 64, 16),
+], ids=["float", "int8", "float-d576", "int8-d576"])
 @pytest.mark.parametrize("kernel", ["decode", "prefill"])
-def test_latent_pages_with_v_tail_zero_match_jax(kernel, quantized):
+def test_latent_pages_with_v_tail_zero_match_jax(kernel, quantized, d, vtz,
+                                                 hq):
     """Hq = 4 over Hkv = 1 at D = 80 = d_c 64 + d_r 16, V's last 16 lanes
-    zeroed; the int8 pool's one scale per token serves K and V."""
-    rng = np.random.default_rng(7 + quantized)
-    d, vtz, hq = 80, 16, 4
+    zeroed, and DeepSeek's geometry: Hq = 16 over the latent at D = 576 =
+    d_c 512 + d_r 64; the int8 pool's one scale per token serves K and
+    V."""
+    rng = np.random.default_rng(7 + quantized + (d != 80) * 2)
     if quantized:
         pool = rng.integers(-128, 128, (1, NP + 1, PT, d)).astype(np.int8)
         scales = rng.uniform(0.5, 2.0, (1, NP + 1, 1, PT)).astype(
@@ -214,9 +222,26 @@ def test_decode_split_plan_counts_group_slices(group):
     (torch.bfloat16, 272, 1, 16, "tensor_core"),
     (torch.float32, 64, 2, 0, "fp32_fma"),
     (torch.float32, 288, 1, 32, "fp32_fma"),
+    (torch.bfloat16, 576, 1, 64, "tensor_core"),   # DeepSeek: 512 kept
+    (torch.bfloat16, 320, 1, 64, "tensor_core"),   # run at 576
+    (torch.bfloat16, 576, 1, 0, "fp32_fma"),       # 576 kept lanes
+    (torch.bfloat16, 576, 2, 64, "fp32_fma"),      # two-state pages
+    (torch.float32, 576, 1, 64, "fp32_fma"),
 ])
 def test_prefill_routing_rule(dtype, d, states, vtz, want):
     assert prefill_body(dtype, d, states, vtz) == want
+
+
+@pytest.mark.parametrize("d", [592, 1024, 40])
+def test_head_dim_without_a_kernel_raises(d):
+    """Past 576 (DeepSeek's absorbed width), or not a multiple of 16, no
+    kernel takes the head dim: the routing raises, as the CUDA wrappers
+    do before they launch."""
+    with pytest.raises(ValueError, match="has no kernel"):
+        check_head_dim("paged_decode", d)
+    with pytest.raises(ValueError, match="has no kernel"):
+        prefill_body(torch.bfloat16, d, 1, 0)
+    check_head_dim("paged_decode", 576)
 
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),
