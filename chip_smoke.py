@@ -320,7 +320,32 @@ checkout, then, on the card:
    tensor; (d) both paged kernels' times at 576 beside their bounds,
    plain versions and SDPA over the gathered bf16 K/V (the backend torch
    took named), and each engine's device time by kernel over every fifth
-   engine step.
+   engine step;
+21. MLA training at DeepSeek's absorbed width 576 (inputs from a
+   fifteenth generator, seed + 14): (a) the flash forward (running max and
+   a caller's ``row_max``), dQ with dbias and dK/dV with its merge at
+   D=576 (``flash_fwd_latent_kernel`` and the latent bodies in bf16 at the
+   flash gates, the fp32 kernels' 32-row tiles at 2e-5) against their
+   plain versions, each called twice and equal bit for bit: Hq=16 over
+   Hkv=1 causal at S=300, GQA 4 / 2 interleaved, a sliding window, bias
+   with dbias, Sq < Skv and Sq > Skv, a row with no live key, D=320 (run
+   at 576) and B=2 x S=2048; (b) ``V2_LITE``'s fp32 gradients (weights
+   drawn on the card from seed + 14) at B=1, S=1024, every parameter's
+   gradient of ``mla_loss_fn`` through the kernels (27 fp32 forward, dQ
+   and dK/dV launches) against ``attn_fn=plain_mla_attention`` within
+   GRAD_REL_L2_TOL; (c) 8 Adam steps of the bf16 ``V2_LITE`` (weights from
+   the seed) on 2 x 2049 tokens through ``make_train_step(...,
+   loss=mla_loss_fn)``, the flash counts set to 0 just before each step
+   and read after (27 / 27 / 27 and the merges), no plain version called
+   on a CUDA tensor, a falling loss, ms a step, tokens/s, the host's span
+   of a step and the peak memory; the same steps again from the same
+   initial parameters, equal bit for bit; 3 profiled steps (device busy
+   time, idle share, device time by kernel); (d) the three kernels alone
+   at the slice's attention shape (B=2, Hq=16, Hkv=1, S=2048, D=576,
+   causal) by events and device ms beside their bounds, plain versions
+   and SDPA (its backend named), and the merge at its workspace.  The
+   parent builds no 576 instance, so ``--parent`` times none of them in
+   turns (phase 12 times the 288 trio in turns).
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -356,6 +381,7 @@ import contextlib
 import ctypes
 import dataclasses
 import hashlib
+import importlib
 import io
 import json
 import os
@@ -435,6 +461,7 @@ from metal_flash_attention_plus_tpu_torch.ops import (
     quantized_attention as tqa,
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
+    DTYPE_CODES,
     LOG2E,
     BlockSizes,
     estimate_row_max_scaled,
@@ -687,6 +714,9 @@ DEVICE_KERNELS = {
     "comp_gemm": "comp_tc_kernel", "comp_small_gemm": "comp_tc_kernel",
     "flash_fwd_static_max": "flash_fwd_tc_kernel",
     "flash_dkv_merge": "flash_dkv_merge_kernel",
+    "flash_fwd_latent": "flash_fwd_latent_kernel",
+    "flash_dq_latent": "flash_dq_latent_kernel",
+    "flash_dkv_latent": "flash_dkv_latent_kernel",
     "qattn_fwd_wide": "qattn_fwd_wide_kernel",
     "qflash_dq_wide": "qflash_dq_wide_kernel",
     "qflash_dkv_wide": "qflash_dkv_wide_kernel",
@@ -1557,7 +1587,9 @@ def bound_of(flops: float, nbytes: float):
 
 def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
     """Forward, dQ and dK/dV at the train step's attention shapes (or the
-    ones given; bf16, causal), beside their plain versions and SDPA."""
+    ones given; bf16, causal), beside their plain versions and SDPA; with
+    ``--parent`` also in turns on the parent's kernels where the parent
+    builds the width (``mfa_flash_tc_bodies``)."""
     q, k, v, do, _ = flash_inputs(rng, b, hq, hkv, s, s, d, torch.bfloat16)
     rr = row_ranges_tensor(masking.CAUSAL, s, s, None, DEV)
     kw = dict(scale=d ** -0.5)
@@ -1604,10 +1636,16 @@ def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
                      "flash_dkv": dkv_body}[name](q.dtype, d)
         log(f"{name} at D={d} runs the {t['body']} body")
         if d > 256:  # MLA's width: the device ms of each launch
-            t["device_ms_by_kernel"] = device_ms_by_label(kernel, 10)
-            t["device_ms"] = sum(t["device_ms_by_kernel"].values())
-        parent_turns(f"{name} B={b} S={s} D={d}", t, kernel, 10,
-                     by_kernel=d > 256)
+            by = t["device_ms_by_kernel"] = device_ms_by_label(kernel, 10)
+            # Where the profiler recorded no launch of the call's own
+            # kernel (the merge aside), the held events' time stands in.
+            t["device_ms"] = (
+                sum(by.values()) if set(by) - {"flash_dkv_merge_kernel"}
+                else measure_held(kernel, iters=10, warmup=0) * 1e3)
+        if PARENT["lib"] is None or PARENT["lib"].mfa_flash_tc_bodies(
+                DTYPE_CODES[q.dtype], d) >= 0:
+            parent_turns(f"{name} B={b} S={s} D={d}", t, kernel, 10,
+                         by_kernel=d > 256)
         times[name] = t
         log(f"{name} times at B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
             "bf16: " + json.dumps(t))
@@ -3124,13 +3162,14 @@ def sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def time_dkv_merge(rng):
+def time_dkv_merge(rng, d=MLA_D):
     """(h) ``merge_dkv_splits`` (flash_dkv_merge_kernel) on the workspace
-    of the dK/dV at the MLA train shape, held to its plain version bit for
-    bit, beside its byte bound and ``torch.sum`` over the splits."""
-    splits = fbwd.dkv_splits(torch.bfloat16, MLA_D, DEC_B, MLA_HQ, 1, DEC_S,
+    of the dK/dV at the MLA train shape (head dim ``d``: 288, or 576 for
+    phase 21), held to its plain version bit for bit, beside its byte
+    bound and ``torch.sum`` over the splits."""
+    splits = fbwd.dkv_splits(torch.bfloat16, d, DEC_B, MLA_HQ, 1, DEC_S,
                              sm_count())
-    shape = (DEC_B, 1, DEC_S, MLA_D)
+    shape = (DEC_B, 1, DEC_S, d)
     ws = torch.from_numpy(rng.standard_normal(
         (splits, 2) + shape, np.float32)).to(DEV)
     dk, dv = torch.empty(shape, device=DEV), torch.empty(shape, device=DEV)
@@ -3152,8 +3191,9 @@ def time_dkv_merge(rng):
     t["bound_ms"], t["bound_by"] = bound_of(
         0, ws.numel() * 4 + 2 * dk.numel() * 4)
     t.update(max_abs_err=err, splits=splits,
-             shape=f"ws [{splits}, 2, {DEC_B}, 1, {DEC_S}, {MLA_D}] fp32")
-    log("flash_dkv_merge times at the MLA train shape: " + json.dumps(t))
+             shape=f"ws [{splits}, 2, {DEC_B}, 1, {DEC_S}, {d}] fp32")
+    log(f"flash_dkv_merge times at the MLA train shape, D={d}: "
+        + json.dumps(t))
     return t
 
 
@@ -4364,8 +4404,9 @@ def profile_mla_steps(cfg, params, tokens, steps=3):
     profiled wall time a step, "host_ms": the host's span of each step's
     call, "device_busy_ms": the device's busy time a step (its kernels'
     and copies' time summed; not the host's annotated regions, which span
-    kernels), "device_idle_share": 1 - busy / wall}; busy
-    and idle None where the profiler recorded no device time."""
+    kernels), "device_idle_share": 1 - busy / wall, "device_ms_by_kernel":
+    a step's device ms by ``kernel_label``, the 12 largest}; busy and idle
+    None where the profiler recorded no device time."""
     state = {"params": clone_params(params)}
     optimizer, step = mla_adam(cfg, state["params"])
 
@@ -4383,13 +4424,18 @@ def profile_mla_steps(cfg, params, tokens, steps=3):
         t0 = time.perf_counter()
         host_ms = [run() for _ in range(steps)]
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)
-                  ) / 1e3 / steps or None
+    by = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            key = kernel_label(e.key)
+            by[key] = by.get(key, 0.0) + e.self_device_time_total / 1e3 / steps
+    busy_ms = sum(by.values()) or None
     out = {"steps": steps, "wall_ms": wall_ms, "host_ms": host_ms,
            "device_busy_ms": busy_ms,
-           "device_idle_share": busy_ms and 1.0 - busy_ms / wall_ms}
+           "device_idle_share": busy_ms and 1.0 - busy_ms / wall_ms,
+           "device_ms_by_kernel": dict(sorted(
+               by.items(), key=lambda kv: -kv[1])[:12])}
     log("MLA train step profile (this process): " + json.dumps(out))
     del state, optimizer
     torch.cuda.empty_cache()
@@ -6082,17 +6128,25 @@ def check_deepseek_dyn_gemm(rng):
 
 @contextlib.contextmanager
 def plain_calls_on_card():
-    """Counts, while open, the calls of the paged kernels' and the dynamic
-    GEMM's plain versions that get a CUDA tensor: the wrappers reach them
-    through their modules' globals, so patching those sees every call."""
+    """Counts, while open, the calls of the paged kernels', the dynamic
+    GEMM's and the flash forward's, dQ's, dK/dV's and merge's plain
+    versions that get a CUDA tensor: the wrappers reach them through their
+    modules' globals, so patching those sees every call."""
     from metal_flash_attention_plus_tpu_torch.ops import quantized_gemm
     from metal_flash_attention_plus_tpu_torch.serving import paged_attention
 
+    # The module, which the package's flash_attention function shadows.
+    flash_module = importlib.import_module(
+        "metal_flash_attention_plus_tpu_torch.ops.flash_attention")
     counts = {}
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (paged_attention, "paged_decode_attention_plain"),
         (paged_attention, "paged_prefill_attention_plain"),
-        (quantized_gemm, "dyn_gemm_plain"))]
+        (quantized_gemm, "dyn_gemm_plain"),
+        (flash_module, "flash_attention_forward_plain"),
+        (fbwd, "flash_attention_dq_plain"),
+        (fbwd, "flash_attention_dkv_plain"),
+        (fbwd, "merge_dkv_splits_plain"))]
     for mod, name, fn in saved:
         def counted(*args, _fn=fn, _name=name, **kw):
             if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
@@ -6211,6 +6265,324 @@ def run_deepseek(seed, dec_lens):
     return out, phase
 
 
+
+# --------------------------------------------------------------------------
+# Phase 21: MLA training at DeepSeek's absorbed width 576
+# --------------------------------------------------------------------------
+
+# V2_LITE's train step on phase 15's batch, 2 x 2049 seeded tokens, Adam at
+# lr 3e-3: each of its 27 layers runs the flash forward, dQ and dK/dV at
+# D = 512 + 64 = 576, 16 query heads over the one latent head.
+DS_TRAIN_BATCH, DS_TRAIN_SEQ, DS_TRAIN_STEPS = 2, 2048, 8
+# The bf16 flash kernels at 576 and what the record says of them.
+LATENT_KERNELS = {"flash_fwd": "flash_fwd_latent_kernel",
+                  "flash_dq": "flash_dq_latent_kernel",
+                  "flash_dkv": "flash_dkv_latent_kernel"}
+LATENT_REDESIGNED = {
+    "flash_fwd": "bf16 mma.sync at D = 576: 8 warps, O's lanes split over "
+                 "two warp groups (16 rows x 288 lanes a warp), the two "
+                 "warps of a row slab splitting each 32-key tile's scores "
+                 "and trading row maxima and sums through shared memory "
+                 "under a named barrier; Q resident, 32-key K / V tiles "
+                 "double-buffered by cp.async, 230,400 bytes of shared "
+                 "memory, one CTA an SM",
+    "flash_dq": "bf16 mma.sync at D = 576: Q and dO resident, 32-key K / V "
+                "tiles single-buffered with their loads staggered (V's "
+                "during S and dQ, K's during dP), 8 warps (16 keys for S "
+                "and dP, 288 lanes of dQ a warp), 229,376 bytes of shared "
+                "memory",
+    "flash_dkv": "bf16 mma.sync at D = 576: 32-key CTAs with K and V "
+                 "resident, 32-row Q / dO steps double-buffered by "
+                 "cp.async, 8 warps (S^T on four and dP^T on four, dP^T "
+                 "handed over through a swizzled fp32 exchange; 16 keys x "
+                 "144 lanes of dK and dV a warp), the GQA group dealt over "
+                 "dkv_splits CTAs a key tile and summed in split order by "
+                 "flash_dkv_merge_kernel",
+}
+
+
+def latent_cases():
+    """(label, B, Hq, Hkv, Sq, Skv, D, options) of (a)."""
+    seg = masking.build_segment_ranges(np.repeat(np.arange(6), 50))
+    seg[77] = (10, 10)  # a row with no live key
+    return [
+        ("mla_causal_s300", 1, DS_HQ, 1, 300, 300, DS_D, {}),
+        ("gqa_interleaved_4_2", 1, 4, 2, 300, 300, DS_D,
+         dict(interleaved=True)),
+        ("mla_window", 1, DS_HQ, 1, 300, 300, DS_D,
+         dict(mask=masking.sliding_window(100, causal=True))),
+        ("mla_bias_dbias", 1, DS_HQ, 1, 100, 131, DS_D,
+         dict(bias_shape=(1, DS_HQ, 100, 131))),
+        ("mla_sq_lt_skv", 1, DS_HQ, 1, 150, 300, DS_D, {}),
+        ("gqa_sq_gt_skv_empty_rows", 1, 4, 2, 300, 150, DS_D,
+         dict(interleaved=True)),
+        ("segments_empty_row", 1, 4, 2, 300, 300, DS_D, dict(
+            mask=masking.MaskSpec(masking.MaskKind.SPARSE_RANGES),
+            ranges=seg)),
+        ("mla_d320", 1, DS_HQ, 1, 300, 300, 320, {}),
+        ("v2_lite_b2_s2048", DS_TRAIN_BATCH, DS_HQ, 1, DS_TRAIN_SEQ,
+         DS_TRAIN_SEQ, DS_D, {}),
+    ]
+
+
+def check_latent(rng, label, b, hq, hkv, sq, skv, d, dtype,
+                 mask=masking.CAUSAL, ranges=None, bias_shape=None,
+                 interleaved=False):
+    """(a) The flash forward (running max, and the static max with a
+    caller's bound where there is no bias), dQ with dbias and dK/dV (and
+    its merge where ``dkv_splits`` splits) at V2-Lite's scale, each called
+    twice: the two calls equal bit for bit, the first held to the plain
+    version → {output: (rel err, max abs err)}; raises past a gate."""
+    q, k, v, do, bias = flash_inputs(rng, b, hq, hkv, sq, skv, d, dtype,
+                                     bias_shape)
+    rr = row_ranges_tensor(mask, sq, skv, ranges, DEV)
+    kw = dict(bias=bias, scale=DS_SCALE, interleaved_kv=interleaved)
+    want_dbias = bias is not None
+    fwd = [flash_fwd(q, k, v, rr, **kw) for _ in range(2)]
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, **kw)
+    pairs = {"o": (fwd[0][0], o_ref), "l": (fwd[0][1], l_ref)}
+    same_bits(f"flash_fwd {label}", fwd[0], fwd[1])
+    if bias is None:
+        mx = static_row_max(q, k, mask, rr, "caller", DS_SCALE, interleaved)
+        rm = [flash_fwd(q, k, v, rr, **kw, row_max=mx) for _ in range(2)]
+        o_sm, l_sm = flash_attention_forward_plain(q, k, v, rr, **kw,
+                                                   row_max=mx)
+        pairs.update(o_row_max=(rm[0][0], o_sm), l_row_max=(rm[0][1], l_sm))
+        same_bits(f"flash_fwd row_max {label}", rm[0], rm[1])
+    di = (do.float() * o_ref).sum(-1)
+    args = (q, k, v, do, l_ref, di, rr)
+    merges = fbwd.merge_dkv_splits.launches
+    dq = [flash_dq(*args, want_dbias=want_dbias, **kw) for _ in range(2)]
+    dkv = [flash_dkv(*args, **kw) for _ in range(2)]
+    merges = fbwd.merge_dkv_splits.launches - merges
+    torch.cuda.synchronize()
+    same_bits(f"flash_dq {label}", dq[0], dq[1])
+    same_bits(f"flash_dkv {label}", dkv[0], dkv[1])
+    splits = fbwd.dkv_splits(dtype, d, b, hq, hkv, skv, sm_count())
+    if merges != (2 if splits > 1 else 0):
+        raise AssertionError(f"flash_dkv {label}: {merges} merges for two "
+                             f"calls at {splits} splits")
+    dq_ref, dbias_ref = flash_attention_dq_plain(
+        *args, want_dbias=want_dbias, **kw)
+    dk_ref, dv_ref = flash_attention_dkv_plain(*args, **kw)
+    pairs.update(dq=(dq[0][0], dq_ref), dk=(dkv[0][0], dk_ref),
+                 dv=(dkv[0][1], dv_ref))
+    if want_dbias:
+        pairs["dbias"] = (dq[0][1], dbias_ref)
+    errs = {}
+    for name, (got, want) in pairs.items():
+        finite = torch.isfinite(want)
+        abs_err = (got.float()[finite] - want.float()[finite]).abs().max()
+        errs[name] = (rel_err(got, want), abs_err.item())
+    log(f"latent flash {label} D={d} {str(dtype)[6:]} ({splits} splits), "
+        "two calls equal bit for bit: " + " ".join(
+            f"{n} {e[0]:.2e}" for n, e in errs.items()))
+    bad = {n: e[0] for n, e in errs.items() if not e[0] <= (
+        LSE_TOL if n.startswith("l") else FLASH_TOL)[dtype]}
+    if bad:
+        raise AssertionError(f"latent flash {label} {dtype} disagrees: {bad}")
+    return errs
+
+
+def check_latent_all(rng):
+    """(a) Every case of ``latent_cases`` in bf16 (the latent kernels) and
+    fp32 (the scalar kernels' 32-row tiles) → {"label dtype": errs}."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, hq, hkv, sq, skv, d, kw in latent_cases():
+            errs[f"{label} {str(dtype)[6:]}"] = check_latent(
+                rng, label, b, hq, hkv, sq, skv, d, dtype, **kw)
+    return errs
+
+
+def check_ds_train_grads(rng, seed):
+    """(b) fp32 V2_LITE weights drawn on the card (seed + 14) at B=1,
+    S=1024: every parameter's gradient of ``mla_loss_fn`` through the flash
+    kernels (fp32 at D = 576: 27 forward, dQ and dK/dV launches, counted)
+    against the same call with ``attn_fn=plain_mla_attention`` (no kernel)
+    → (worst rel L2, launches); raises past GRAD_REL_L2_TOL."""
+    cfg32 = dataclasses.replace(V2_LITE, dtype=torch.float32)
+    params32 = init_mla_params(cfg32, torch.Generator(
+        device=DEV).manual_seed(seed + 14), device=DEV)
+    leaves = trainable_parameters(params32)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg32.vocab_size, (1, 1025))).to(DEV)
+    zero_flash_counts()
+    loss_k = mla_loss_fn(params32, tokens, cfg32)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    kernel_grads = [t.grad for t in leaves]
+    for t in leaves:
+        t.grad = None
+    loss_p = mla_loss_fn(params32, tokens, cfg32,
+                         attn_fn=plain_mla_attention)
+    loss_p.backward()
+    worst = max(rel_l2(g, t.grad) for g, t in zip(kernel_grads, leaves))
+    log(f"V2-Lite fp32 grads (B=1, S=1024, {len(leaves)} parameters): loss "
+        f"kernels {loss_k.item():.6f} plain {loss_p.item():.6f}; worst "
+        f"parameter rel L2 {worst:.3e} (tol {GRAD_REL_L2_TOL}); launches "
+        + json.dumps(launches))
+    want = {name: V2_LITE.num_layers for name in launches}
+    if launches != want:
+        raise AssertionError(f"V2-Lite fp32 grads launched {launches}, "
+                             f"expected {want}")
+    if not worst <= GRAD_REL_L2_TOL:
+        raise AssertionError(f"V2-Lite fp32 gradients disagree: {worst}")
+    del params32, leaves, kernel_grads, loss_k, loss_p
+    torch.cuda.empty_cache()
+    return worst, launches
+
+
+def ds_train_steps(params, tokens):
+    """DS_TRAIN_STEPS Adam steps of ``mla_loss_fn`` on the bf16 V2_LITE
+    ``params`` (in place), the flash kernels' counts (the merge's too) set
+    to 0 just before every step and read after → {"launches": per step,
+    "losses", "grad_sums": each step's fp32 sum of every gradient (a
+    fingerprint of the step's gradients, taken after the step's time),
+    "host_ms": the host's span of steps 2-8, "wall_s": steps 2-8, each
+    from its call to the synchronize after it, "first_s": step 1 so}."""
+    optimizer, step = mla_adam(V2_LITE, params)
+    leaves = trainable_parameters(params)
+    out = {"launches": [], "losses": [], "grad_sums": [], "host_ms": [],
+           "wall_s": 0.0}
+    torch.cuda.synchronize()
+    for i in range(DS_TRAIN_STEPS):
+        zero_flash_counts()
+        t_step = time.perf_counter()
+        params, _, loss = step(params, optimizer.state, tokens)
+        host = time.perf_counter() - t_step
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_step
+        if i:
+            out["host_ms"].append(host * 1e3)
+            out["wall_s"] += wall
+        else:
+            out["first_s"] = wall
+        out["launches"].append(
+            {**flash_counts(),
+             "flash_dkv_merge": fbwd.merge_dkv_splits.launches})
+        out["losses"].append(loss.item())
+        out["grad_sums"].append(torch.stack(
+            [t.grad.sum(dtype=torch.float32) for t in leaves]).cpu())
+    optimizer.zero_grad(set_to_none=True)
+    del optimizer, step
+    return out
+
+
+def run_ds_train(seed, tokens):
+    """(c) 8 Adam steps of bf16 V2_LITE (weights drawn on the card from
+    ``seed``): 27 / 27 / 27 flash launches a step (plus 27 merges where
+    ``dkv_splits`` splits), no plain version on a CUDA tensor, a falling
+    loss, ms a step, tokens/s, the host's span of a step and the peak
+    memory; then the same steps again from the same initial parameters (a
+    host copy), equal bit for bit (every step's loss and gradient sums,
+    the final parameters), and 3 profiled steps → the record."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_mla_params(V2_LITE, torch.Generator(
+        device=DEV).manual_seed(seed), device=DEV)
+    leaves = trainable_parameters(params)
+    init_host = [t.detach().to("cpu", copy=True) for t in leaves]
+    n_params = sum(t.numel() for t in leaves)
+    with plain_calls_on_card() as plain:
+        first = ds_train_steps(params, tokens)
+    if plain:
+        raise AssertionError(f"V2-Lite training: plain versions ran on the "
+                             f"card: {plain}")
+    peak = torch.cuda.max_memory_allocated()
+    steps = DS_TRAIN_STEPS - 1
+    ms = first["wall_s"] / steps * 1e3
+    tps = steps * DS_TRAIN_BATCH * DS_TRAIN_SEQ / first["wall_s"]
+    splits = fbwd.dkv_splits(V2_LITE.dtype, DS_D, DS_TRAIN_BATCH, DS_HQ, 1,
+                             DS_TRAIN_SEQ, sm_count())
+    want = {"flash_fwd": V2_LITE.num_layers, "flash_dq": V2_LITE.num_layers,
+            "flash_dkv": V2_LITE.num_layers,
+            "flash_dkv_merge": V2_LITE.num_layers if splits > 1 else 0}
+    losses = first["losses"]
+    log(f"V2-Lite train ({n_params} parameters, {DS_TRAIN_BATCH} x "
+        f"{DS_TRAIN_SEQ + 1} tokens, D=576, {splits} dK/dV splits): losses "
+        f"{json.dumps(losses)}; first step {first['first_s']:.3f} s; steps "
+        f"2-{DS_TRAIN_STEPS} {ms:.1f} ms/step, {tps:.0f} tokens/s; the "
+        f"host's span of each step (ms) {json.dumps(first['host_ms'])}; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches per step "
+        f"{json.dumps(first['launches'][0])}")
+    if any(n != want for n in first["launches"]):
+        raise AssertionError(f"V2-Lite train steps launched "
+                             f"{first['launches']}, expected {want} each")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"V2-Lite training did not lower the loss: "
+                             f"{losses}")
+    final_host = [t.detach().to("cpu", copy=True) for t in leaves]
+    with torch.no_grad():
+        for t, h in zip(leaves, init_host):
+            t.copy_(h.to(DEV))
+    del init_host
+    second = ds_train_steps(params, tokens)
+    rows = [{"step": i + 1, "loss_equal": a == b,
+             "grad_sums_equal": torch.equal(ga, gb)}
+            for i, (a, b, ga, gb) in enumerate(zip(
+                first["losses"], second["losses"], first["grad_sums"],
+                second["grad_sums"]))]
+    final_equal = all(torch.equal(t.detach(), h.to(DEV))
+                      for t, h in zip(leaves, final_host))
+    del final_host
+    log(f"V2-Lite train determinism: every step's loss and gradient sums "
+        f"equal {all(r['loss_equal'] and r['grad_sums_equal'] for r in rows)}"
+        f"; final parameters equal bit for bit {final_equal}")
+    if not final_equal or not all(r["loss_equal"] and r["grad_sums_equal"]
+                                  for r in rows):
+        raise AssertionError(f"V2-Lite training is not deterministic: {rows}"
+                             f", final parameters equal {final_equal}")
+    profile = profile_mla_steps(V2_LITE, params, tokens)
+    del params, leaves
+    torch.cuda.empty_cache()
+    return {"parameters": n_params, "launches_per_step": first["launches"][0],
+            "dkv_splits": splits, "losses": losses, "ms_per_step": ms,
+            "tokens_per_s": tps, "host_ms_per_step": first["host_ms"],
+            "first_step_s": first["first_s"],
+            "peak_memory_gib": peak / 2**30,
+            "plain_calls_on_card": 0,
+            "determinism": {"steps": DS_TRAIN_STEPS, "bitwise_equal": True},
+            "step_profile": profile}
+
+
+def run_deepseek_training(seed):
+    """Phase 21 (a)-(d), inputs from a fifteenth generator (seed + 14),
+    V2_LITE's bf16 weights from ``seed`` on the card → (record, phase
+    seconds)."""
+    rng = np.random.default_rng(seed + 14)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.no_grad():
+        out["errors"] = check_latent_all(rng)
+    torch.cuda.empty_cache()
+    phase["latent_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["grad_rel_l2_worst"], out["grad_launches"] = check_ds_train_grads(
+        rng, seed)
+    phase["latent_grads"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tokens = torch.from_numpy(np.random.default_rng(seed + 14).integers(
+        0, V2_LITE.vocab_size, (DS_TRAIN_BATCH, DS_TRAIN_SEQ + 1))).to(DEV)
+    out["train"] = run_ds_train(seed, tokens)
+    phase["latent_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["times"] = time_flash(rng, b=DS_TRAIN_BATCH, hq=DS_HQ, hkv=1,
+                              s=DS_TRAIN_SEQ, d=DS_D)
+    with torch.no_grad():
+        q, k, v, _, _ = flash_inputs(rng, DS_TRAIN_BATCH, DS_HQ, 1,
+                                     DS_TRAIN_SEQ, DS_TRAIN_SEQ, DS_D,
+                                     torch.bfloat16)
+        out["library_backend"] = sdpa_backend(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+        log(f"SDPA's backend at D={DS_D}: {out['library_backend']}")
+        del q, k, v
+        out["merge_times"] = time_dkv_merge(rng, d=DS_D)
+    phase["latent_times"] = time.perf_counter() - t
+    return out, phase
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6325,6 +6697,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     deepseek, deepseek_phase = run_deepseek(args.seed, dec_lens)
     phase_s.update(deepseek_phase)
+    torch.cuda.empty_cache()
+    ds_train, ds_train_phase = run_deepseek_training(args.seed)
+    phase_s.update(ds_train_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -6335,6 +6710,8 @@ def main() -> int:
         {k: v["rates"] for k, v in mla["engines"].items()}))
     log("V2-Lite engine rates, float / W8A8+int8 latent: " + json.dumps(
         {k: v["rates"] for k, v in deepseek["engines"].items()}))
+    log("V2-Lite train: " + json.dumps({k: ds_train["train"][k] for k in (
+        "ms_per_step", "tokens_per_s", "peak_memory_gib")}))
 
     record = {"kernels": [
         {"name": "paged_decode", "route": "cuda", "source": SOURCE,
@@ -6542,6 +6919,57 @@ def main() -> int:
                               "bound_ms", "bound_by", "library_ms",
                               "device_ms", "splits", "shape")},
         "library": "torch.sum over the splits",
+    })
+    # The flash kernels at DeepSeek's absorbed width 576, from phase 21: the
+    # bf16 latent kernels (the fp32 instances' errors beside them).
+    ds_errs, ds_step = ds_train["errors"], ds_train["train"][
+        "launches_per_step"]
+    for name, kernel in LATENT_KERNELS.items():
+        outs = (("o", "l", "o_row_max", "l_row_max") if name == "flash_fwd"
+                else ("dq", "dbias") if name == "flash_dq" else ("dk", "dv"))
+        errs_by = {dt: [e[o] for case, e in ds_errs.items()
+                        if case.endswith(dt) for o in outs if o in e]
+                   for dt in ("bfloat16", "float32")}
+        t = ds_train["times"][name]
+        record["kernels"].append({
+            "name": f"{name}_latent", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": replaces[name],
+            "launches": ds_step[name] * DS_TRAIN_STEPS,
+            "launches_v2_lite_train_step": ds_step[name],
+            "launches_v2_lite_fp32_grads": ds_train["grad_launches"][name],
+            "max_abs_err": max(e[1] for e in errs_by["bfloat16"]),
+            "rel_err": max(e[0] for e in errs_by["bfloat16"]),
+            "max_abs_err_fp32": max(e[1] for e in errs_by["float32"]),
+            "rel_err_fp32": max(e[0] for e in errs_by["float32"]),
+            **{key: t[key] for key in (
+                "ms", "ms_2", "plain_ms", "plain_ms_2", "bound_ms",
+                "bound_by", "library_ms", "device_ms", "device_ms_by_kernel",
+                "body")},
+            "device_ms_v2_lite_train_step": ds_train["train"][
+                "step_profile"]["device_ms_by_kernel"].get(kernel, 0.0)
+            / ds_step[name],
+            "library": ("sdpa forward" if name == "flash_fwd" else
+                        "sdpa backward (dq, dk, dv together)"),
+            "library_backend": ds_train["library_backend"],
+            "shape": "B=2 Hq=16 Hkv=1 S=2048 D=576 causal bf16 "
+                     "(DeepSeek-V2-Lite's absorbed attention)",
+            "checks": len(ds_errs),
+            "bitwise_equal_two_calls": True,  # (a) raises otherwise
+            "device_kernel_fp32": {"flash_fwd": "flash_fwd_kernel",
+                                   "flash_dq": "flash_dq_kernel",
+                                   "flash_dkv": "flash_dkv_kernel"}[name],
+            "redesigned": LATENT_REDESIGNED[name],
+        })
+    mt576 = ds_train["merge_times"]
+    merge_entry = next(e for e in record["kernels"]
+                       if e["name"] == "flash_dkv_merge")
+    merge_entry.update({
+        "launches_v2_lite_train_step_d576": ds_step["flash_dkv_merge"],
+        "launches_v2_lite_train_d576": ds_step["flash_dkv_merge"]
+        * DS_TRAIN_STEPS,
+        **{f"{k}_d576": mt576[k] for k in (
+            "ms", "ms_2", "plain_ms", "plain_ms_2", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "splits", "shape", "max_abs_err")},
     })
     next(e for e in record["kernels"] if e["name"] == "flash_fwd")[
         "launches_mla_decompression"] = sum(
@@ -6916,6 +7344,14 @@ def main() -> int:
         "rates": {k: v["rates"] for k, v in deepseek["engines"].items()},
         "device_time": {k: v["device_time"]
                         for k, v in deepseek["engines"].items()},
+        "train": {
+            "reduced": ["26 MoE layers as dense SwiGLU at d_ff 10944",
+                        "no YaRN RoPE scaling",
+                        "random weights from the seed",
+                        "8 steps on one seeded batch of 2 x 2049 tokens"],
+            "fp32_grad_rel_l2_worst": ds_train["grad_rel_l2_worst"],
+            "latent_kernel_checks": len(ds_errs),
+            **ds_train["train"]},
     }
     record["context_parallel"] = {
         "world": CP_WORLD, "transport": "gloo through host memory, every "

@@ -12,16 +12,21 @@
 // dbias = dS; dQ = round_T(dS (x ksr)).K x (dqsc or scale);
 // dV = round_T(P)^T.dO; dK = round_T(dS)^T.Q_s.
 //
-// Three bodies each: dq_body and dkv_body, scalar fp32 FMAs over the
-// transposed fp32 tiles (every fp32 instance); dq_tc_body and dkv_tc_body,
-// bf16 mma.sync over bf16 tiles (the bf16 instances up to D = 256); and
-// dq_wide_body and dkv_wide_body, bf16 mma.sync with tiles cut for MLA's
-// D = 288 (the flash and the exact quantized kernels' bf16 instances at
-// 288; dkv_wide_body splits the GQA group over CTAs into an fp32 workspace
-// that flash_dkv_merge_kernel sums in split order).  dq_tc / dkv_tc / bwd_wide
-// say which; ops/flash_attention_bwd.py::dq_body / dkv_body give the same
-// answer.  fp32 stays off the tensor cores: TF32 keeps ~3 digits and the
-// fp32 instances are held to 2e-5.
+// Four bodies each: dq_body and dkv_body, scalar fp32 FMAs over the
+// transposed fp32 tiles (every fp32 instance up to D = 288), and
+// dq_body32 and dkv_body32, the same in 32-row tiles above 288 (the flash
+// kernels' fp32 instances at DeepSeek's absorbed 576: scalar32);
+// dq_tc_body and dkv_tc_body, bf16 mma.sync over bf16 tiles (the bf16
+// instances up to D = 256); dq_wide_body and dkv_wide_body, bf16 mma.sync
+// with tiles cut for MLA's D = 288 (the flash and the exact quantized
+// kernels' bf16 instances at 288; dkv_wide_body splits the GQA group over
+// CTAs into an fp32 workspace that flash_dkv_merge_kernel sums in split
+// order); and dq_latent_body and dkv_latent_body, bf16 mma.sync at 576
+// (the flash kernels' bf16 instances there, over float K/V; the dK/dV's
+// group split and merge as at 288).  dq_tc / dkv_tc / bwd_wide /
+// bwd_latent say which; ops/flash_attention_bwd.py::dq_body / dkv_body
+// give the same answer.  fp32 stays off the tensor cores: TF32 keeps ~3
+// digits and the fp32 instances are held to 2e-5.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -403,9 +408,10 @@ __host__ __device__ constexpr int dkv_tc_min_blocks() {
 }
 
 // Whether the dK/dV of T at head dim D runs on the tensor cores: every
-// bf16 width, on dkv_tc_body up to D = 256 and on dkv_wide_body above
-// (bwd_wide; MLA's 288), for float and quantized K/V alike.  Else
-// dkv_body.
+// bf16 width, on dkv_tc_body up to D = 256, on dkv_wide_body at MLA's 288
+// (bwd_wide; float and quantized K/V alike) and on dkv_latent_body at
+// DeepSeek's 576 (bwd_latent; float K/V).  Else dkv_body (dkv_body32
+// above 288).
 template <typename T, int D>
 __host__ __device__ constexpr bool dkv_tc() {
   return std::is_same<T, __nv_bfloat16>::value;
@@ -415,7 +421,23 @@ __host__ __device__ constexpr bool dkv_tc() {
 // (dq_wide_body, dkv_wide_body), whose tiles are cut for D = 288.
 template <int D>
 __host__ __device__ constexpr bool bwd_wide() {
-  return D > 256;
+  return D > 256 && D <= 288;
+}
+
+// Whether a tensor-core dQ or dK/dV at head dim D takes the latent bodies
+// (dq_latent_body, dkv_latent_body), whose tiles are cut for DeepSeek's
+// absorbed width 576 (float K/V only: the quantized kernels stop at 288).
+template <int D>
+__host__ __device__ constexpr bool bwd_latent() {
+  return D > 288;
+}
+
+// Whether the scalar fp32 bodies at head dim D take 32-row tiles
+// (dq_body32, dkv_body32; flash_attention.cu's fwd_body32): above 288,
+// where two [D][64] fp32 tiles alone pass 227 KB of shared memory.
+template <int D>
+__host__ __device__ constexpr bool scalar32() {
+  return D > 288;
 }
 
 // Byte offsets of dkv_tc_body's shared memory (~218 KB at D = 256).
@@ -1496,6 +1518,714 @@ __device__ __forceinline__ void dq_wide_body(const BwdArgs& a, const KV& kv) {
       const float m1 = by_lane ? a.dqsc[bk * D + d + 1] : a.scale;
       *reinterpret_cast<float2*>(out + 8 * j) =
           make_float2(acc[j][2 * i] * m0, acc[j][2 * i + 1] * m1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The latent bodies: the bf16 dQ and dK/dV at DeepSeek's absorbed D = 576
+//
+// Replace ops/flash_attention_bwd.py::_dq_kernel and ::_dkv_kernel for the
+// bf16 instances above D = 288 (flash_dq_latent_kernel,
+// flash_dkv_latent_kernel, over float K/V).  The function is dq_wide_body's
+// and dkv_wide_body's (the same roundings, P as exp2 of S log2(e) -
+// L log2(e)); nothing assumes V's zero rope tail.  Bound: tensor-core
+// operations (6 D a live pair for dQ, 8 D for dK/dV).
+//
+// Why the 288 layouts do not stretch to 576: a bf16 row is 1,168 bytes with
+// its 16-byte pad, a 64-row tile 74,752.  dq_wide_body holds Q and dO
+// (149,504) plus two buffers each of 32 K and V rows (149,504): ~299 KB.
+// dkv_wide_body holds K and V for 64 keys (149,504) plus two buffers each
+// of 48 Q and dO rows (224,256), and its dK / dV accumulators would be
+// 2 x 64 x 576 fp32, 192 registers a thread at 12 warps.
+//
+// dq_latent_body: dq_wide_body's grid (one CTA per 64 query rows, b, q
+// head, the row tiles last first) and warps (4 row slices of 16 x 2 parts:
+// 16 of a tile's 32 keys for S and dP, 288 of D's lanes for dQ).
+//   - Shared memory (229,376 bytes at 576): Q and dO resident (149,504);
+//     ONE buffer each of 32 K and 32 V rows (74,752); the dS tile, bf16 [64
+//     queries][32 keys] (5,120).  The loads are staggered instead of
+//     double-buffered: dP = dO.V^T runs first, so the next tile's V rows
+//     are in flight while S, dS and dQ += dS.K run, and its K rows while
+//     its dP runs.
+//   - Registers: the dQ accumulator 16 x 288 fp32 a warp, 144 a thread; S
+//     and dP 8 each.
+// dkv_latent_body: one CTA per (32 keys, b, kv head, split) and 8 warps.
+//   - Shared memory (231,936 bytes at 576): K and V resident (74,752); Q and
+//     dO in steps of 32 query rows, two buffers each (149,504); the steps'
+//     L, D and key ranges, two buffers (1,024); the P^T tile, bf16 [32 keys]
+//     [32 queries] (2,560); a 4,096-byte exchange: fp32 dP^T [32][32], then
+//     the bf16 dS^T tile.
+//   - Warps: S^T = K.Q_s^T and dP^T = V.dO^T are 8 blocks of 16 keys x 16
+//     queries, one a warp: warps 0-3 take S^T's, warps 4-7 dP^T's.  These
+//     pass dP^T to their S^T twins through the exchange (fp32, swizzled:
+//     column ^ 4 (key % 8), so a warp's float2 stores fill all banks); the
+//     S^T warps make P^T and dS^T (dkv_probs) and store both in bf16, dS^T
+//     over the exchange once all four have read it (a named barrier).  For
+//     dV += round(P^T).dO and dK += round(dS^T).Q_s a warp takes 16 keys x
+//     144 of D's lanes: dK and dV 144 registers a thread.
+//   - The grid: 32-key tiles x kv heads, the GQA group dealt over `splits`
+//     CTAs a key tile as in dkv_wide_body (ops/flash_attention_bwd.py::
+//     dkv_splits plans it from the 32-key tile), the partials summed by
+//     flash_dkv_merge_kernel in split order.
+// ---------------------------------------------------------------------------
+
+// bar.sync on barrier `id` (1-15; 0 is __syncthreads') for the `n` threads,
+// whole warps, that use it.
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int D>
+struct DqLatentSmem {
+  static constexpr int NS = 2;              // key and lane parts
+  static constexpr int KS = 32;             // keys a tile
+  static constexpr int ROW = 2 * D + 16;    // a bf16 row [.., D]
+  static constexpr int QTILE = BM * ROW;    // 64 query rows
+  static constexpr int KTILE = KS * ROW;    // 32 keys
+  static constexpr int S_LD = 2 * KS + 16;  // a dS row [query][32 keys]
+  static constexpr int Q = 0;
+  static constexpr int DO = QTILE;
+  static constexpr int K = 2 * QTILE;  // one buffer
+  static constexpr int V = K + KTILE;  // one buffer
+  static constexpr int DS = V + KTILE;
+  static constexpr size_t BYTES = DS + BM * S_LD;
+  static_assert(D % (16 * NS) == 0 && KS % (16 * NS) == 0,
+                "a part's lanes and keys are whole 16-wide steps");
+};
+
+constexpr int DQ_LATENT_THREADS = 256;  // 4 row slices x 2 parts
+
+// dQ (and dbias) for one (64 query rows, b, q head), stored times a.scale
+// (see above).  SCALE_Q: Q is scaled by a.scale and rounded to bf16 here.
+// KV: tc_load as for dq_tc_body (bf16 rows only).
+template <int D, bool SCALE_Q, typename KV>
+__device__ __forceinline__ void dq_latent_body(const BwdArgs& a,
+                                               const KV& kv) {
+  static_assert(!KV::RAW, "the latent bodies take float K/V");
+  using L = DqLatentSmem<D>;
+  constexpr int NT = DQ_LATENT_THREADS;
+  constexpr int KS = L::KS;
+  constexpr int KW = KS / L::NS;  // key columns of a warp's S, dP
+  constexpr int NKB = KW / 8;
+  constexpr int DW = D / L::NS;   // dQ lanes a warp accumulates
+  constexpr int NDB = DW / 8;
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  __shared__ int s_lo, s_hi;
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rw = warp & 3;     // query rows r0 + 16 rw + [0, 16)
+  const int part = warp >> 2;  // key columns part * KW, dQ lanes part * DW
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bh = (size_t)b * a.Hq + h;
+  const size_t bk = (size_t)b * a.Hkv + hk;
+  const float* bh_bias =
+      a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  uint8_t* sq = smem_tc + L::Q;
+  const uint8_t* sdo = smem_tc + L::DO;
+  uint8_t* sk = smem_tc + L::K;
+  uint8_t* sv = smem_tc + L::V;
+
+  stage_rows_async<D, L::ROW, NT>(
+      static_cast<const __nv_bfloat16*>(a.q) + bh * Sq * D, r0, Sq, sq);
+  stage_rows_async<D, L::ROW, NT>(
+      static_cast<const __nv_bfloat16*>(a.dout) + bh * Sq * D, r0, Sq,
+      smem_tc + L::DO);
+  cp_async_commit();
+  key_span(a.ranges, r0, Sq, Skv, &s_lo, &s_hi);
+  const int c_hi = s_hi;
+  const int c0 = (s_lo / KS) * KS;
+  const int tiles = c0 < c_hi ? (c_hi - c0 + KS - 1) / KS : 0;
+  // Tile it's V rows (is_v) or K rows into their buffer, zeros from c_hi,
+  // as one commit group (an empty one past the last tile).
+  auto load = [&](bool is_v, int it) {
+    if (it < tiles)
+      kv.template tc_load<NT, L::ROW, KS>(is_v, bk, c0 + it * KS, c_hi,
+                                         is_v ? sv : sk, nullptr);
+    cp_async_commit();
+  };
+  load(true, 0);
+  load(false, 0);
+  cp_async_wait<2>();
+  __syncthreads();  // Q's and dO's rows landed
+  if (SCALE_Q) scale_rows_bf16<D, L::ROW, NT>(sq, a.scale);
+
+  const DqRows w = dq_rows(a, bh, r0 + 16 * rw + g);
+  const int kc0 = part * KW;
+
+  float acc[NDB][4];
+#pragma unroll
+  for (int j = 0; j < NDB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int t0 = c0 + it * KS;
+    cp_async_wait<1>();
+    __syncthreads();  // tile it's V rows landed, Q scaled
+
+    // S and dP for rows 16 rw + [0, 16) and keys kc0 + [0, KW): element
+    // (row g + 8i, key kc0 + 8j + 2tq + c) at [j][2i + c].
+    float s[NKB][4], dp[NKB][4];
+#pragma unroll
+    for (int j = 0; j < NKB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_nt<D / 16, NKB, L::ROW, L::ROW>(sdo, 16 * rw, sv, kc0, dp);
+    cp_async_wait<0>();
+    __syncthreads();  // tile it's K rows landed; every warp done with V
+    load(true, it + 1);
+    mma_nt<D / 16, NKB, L::ROW, L::ROW>(sq, 16 * rw, sk, kc0, s);
+
+    // P, dS (dbias) as dq_wide_body makes them; s[j][e] becomes dS.
+    const bool whole = t0 + kc0 >= w.live_lo && t0 + kc0 + KW <= w.live_hi;
+#pragma unroll
+    for (int j = 0; j < NKB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int row = r0 + 16 * rw + g + 8 * i;
+        const int key = t0 + kc0 + 8 * j + 2 * tq + (e & 1);
+        float x = s[j][e];
+        if (bh_bias && row < Sq && key < Skv)
+          x += bh_bias[(size_t)row * Skv + key];
+        float p = ex2_approx(fmaf(x, LOG2E, -w.l2[i]));
+        if (!whole) p = (unsigned)(key - w.rs[i]) < w.span[i] ? p : 0.f;
+        const float ds = p * (dp[j][e] - w.dd[i]);
+        if (a.out1 && row < Sq && key < Skv)
+          a.out1[(bh * Sq + row) * Skv + key] = ds;
+        s[j][e] = ds;
+      }
+
+    // The CTA's dS tile in bf16, then dQ += dS.K, 16 keys a k step.
+    uint8_t* sds = smem_tc + L::DS;
+#pragma unroll
+    for (int j = 0; j < NKB; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<uint32_t*>(
+            sds + (16 * rw + g + 8 * i) * L::S_LD +
+            (kc0 + 8 * j + 2 * tq) * 2) =
+            pack_bf16(s[j][2 * i], s[j][2 * i + 1]);
+    __syncthreads();  // the CTA's dS tile
+    const int a_off =
+        (16 * rw + ldsm_a_row(lane)) * L::S_LD + ldsm_a_byte(lane);
+#pragma unroll
+    for (int kc = 0; kc < KS / 16; ++kc) {
+      uint32_t af[4];
+      ldsm_x4(af, sds + a_off + kc * 32);
+      mma_rn<NDB, L::ROW>(af, sk, 16 * kc, part * DW, acc);
+    }
+    __syncthreads();  // every warp done with K and the dS tile
+    load(false, it + 1);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 16 * rw + g + 8 * i;
+    if (row >= Sq) continue;
+    float* out = a.out0 + (bh * Sq + row) * D + part * DW + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NDB; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * i] * a.scale, acc[j][2 * i + 1] * a.scale);
+  }
+}
+
+template <int D>
+struct DkvLatentSmem {
+  static constexpr int KT = 32;              // keys a CTA
+  static constexpr int QS = 32;              // query rows a step
+  static constexpr int NS = 4;               // lane parts of dK and dV
+  static constexpr int ROW = 2 * D + 16;     // a bf16 row [.., D]
+  static constexpr int TILE = 32 * ROW;      // 32 rows (KT = QS)
+  static constexpr int P_LD = 2 * QS + 16;   // a P^T / dS^T row [key][32]
+  static constexpr int STATS = 4 * QS * 4;   // L [32], D [32], ranges [32][2]
+  static constexpr int K = 0;
+  static constexpr int V = TILE;
+  static constexpr int Q = 2 * TILE;         // two buffers
+  static constexpr int DO = 4 * TILE;        // two buffers
+  static constexpr int ST = 6 * TILE;        // two buffers
+  static constexpr int PS = ST + 2 * STATS;  // P^T
+  static constexpr int X = PS + KT * P_LD;   // fp32 dP^T [KT][QS], then dS^T
+  static constexpr size_t BYTES = X + KT * QS * 4;
+  static_assert(KT == QS && KT * P_LD <= KT * QS * 4,
+                "one row tile size; dS^T fits the exchange");
+  static_assert(D % (16 * NS) == 0, "a part's lanes are whole 16-wide steps");
+};
+
+constexpr int DKV_LATENT_THREADS = 256;  // 8 warps
+
+// dK/dV for one (32 keys, b, kv head) over the q heads of split `sp` of the
+// GQA group (see above).  out0 / out1 get dK / dV where splits is 1, else
+// ws[sp][0] / ws[sp][1].  KV: tc_load as for dkv_tc_body (bf16 rows only).
+template <int D, typename KV>
+__device__ __forceinline__ void dkv_latent_body(const BwdArgs& a,
+                                                const KV& kv, int splits,
+                                                float* ws) {
+  static_assert(!KV::RAW, "the latent bodies take float K/V");
+  using L = DkvLatentSmem<D>;
+  constexpr int NT = DKV_LATENT_THREADS;
+  constexpr int KT = L::KT;
+  constexpr int QS = L::QS;
+  constexpr int DW = D / L::NS;  // dK / dV lanes a warp accumulates
+  constexpr int NDB = DW / 8;
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  __shared__ int s_rmin, s_rmax;
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int c0 = blockIdx.x * KT;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z / splits;
+  const int sp = blockIdx.z % splits;
+  const int group = a.Hq / a.Hkv;
+  const int per = (group + splits - 1) / splits;
+  const int g_lo = min(sp * per, group);
+  const int g_hi = min(g_lo + per, group);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ks = warp & 1;          // keys c0 + 16 ks + [0, 16)
+  const int qh = (warp >> 1) & 1;   // S^T / dP^T columns 16 qh + [0, 16)
+  const bool dp_warp = warp >= 4;   // dP^T; else S^T, P^T and dS^T
+  const int part = warp >> 1;       // dK / dV lanes part * DW
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bkv = (size_t)b * a.Hkv + hk;
+  uint8_t* sk = smem_tc + L::K;
+  uint8_t* sv = smem_tc + L::V;
+  uint8_t* ps = smem_tc + L::PS;
+  uint8_t* xs = smem_tc + L::X;
+  float* xf = reinterpret_cast<float*>(xs);
+
+  kv.template tc_load<NT, L::ROW, KT>(false, bkv, c0, Skv, sk, nullptr);
+  kv.template tc_load<NT, L::ROW, KT>(true, bkv, c0, Skv, sv, nullptr);
+  cp_async_commit();
+  query_span(a.ranges, Sq, Skv, c0, min(c0 + KT, Skv), &s_rmin, &s_rmax);
+  const int row_lo = s_rmin;
+  const int row_hi = s_rmax + 1;
+  const int tiles = row_hi > row_lo ? (row_hi - row_lo + QS - 1) / QS : 0;
+  const int steps = (g_hi - g_lo) * tiles;
+  auto head_of = [&](int it) {
+    const int gi = g_lo + it / tiles;
+    return a.interleaved ? gi * a.Hkv + hk : hk * group + gi;
+  };
+  auto prefetch = [&](int it, int buf) {
+    const size_t bh = (size_t)b * a.Hq + head_of(it);
+    const int r0 = row_lo + (it % tiles) * QS;
+    stage_rows_async<D, L::ROW, NT, QS>(
+        static_cast<const __nv_bfloat16*>(a.q) + bh * Sq * D, r0, row_hi,
+        smem_tc + L::Q + buf * L::TILE);
+    stage_rows_async<D, L::ROW, NT, QS>(
+        static_cast<const __nv_bfloat16*>(a.dout) + bh * Sq * D, r0, row_hi,
+        smem_tc + L::DO + buf * L::TILE);
+    stage_row_stats_async<QS, NT>(
+        a, bh, r0, row_hi,
+        reinterpret_cast<float*>(smem_tc + L::ST + buf * L::STATS));
+  };
+  if (steps > 0) prefetch(0, 0);
+  cp_async_commit();
+  // An S^T / dP^T element (key 16 ks + g + 8i, query column 16 qh + 8j +
+  // 2tq) and the next column: their float2 in the exchange, the column
+  // swizzled by the key's row in an 8-row group (g).
+  auto slot = [&](int j, int i) {
+    return (16 * ks + g + 8 * i) * QS + ((16 * qh + 8 * j + 2 * tq) ^ (4 * g));
+  };
+
+  float dk[NDB][4], dv[NDB][4];
+#pragma unroll
+  for (int j = 0; j < NDB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // step it (and K, V) staged; step it - 1 done
+    if (it + 1 < steps) prefetch(it + 1, buf ^ 1);
+    cp_async_commit();
+    uint8_t* sq = smem_tc + L::Q + buf * L::TILE;
+    const uint8_t* sdo = smem_tc + L::DO + buf * L::TILE;
+    const float* st =
+        reinterpret_cast<const float*>(smem_tc + L::ST + buf * L::STATS);
+    scale_rows_bf16<D, L::ROW, NT, QS>(sq, a.scale);
+    __syncthreads();  // Q_s ready
+
+    const int h = head_of(it);
+    const int r0 = row_lo + (it % tiles) * QS;
+    const float* bh_bias =
+        a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mma_nt<D / 16, 2, L::ROW, L::ROW>(dp_warp ? sv : sk, 16 * ks,
+                                      dp_warp ? sdo : sq, 16 * qh, s);
+    if (dp_warp) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(xf + slot(j, i)) =
+              make_float2(s[j][2 * i], s[j][2 * i + 1]);
+    }
+    __syncthreads();  // dP^T in the exchange
+    if (!dp_warp) {
+      float dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 x = *reinterpret_cast<const float2*>(xf + slot(j, i));
+          dp[j][2 * i] = x.x;
+          dp[j][2 * i + 1] = x.y;
+        }
+      named_barrier(1, 128);  // the four S^T warps have read the exchange
+      dkv_probs<2, QS>(s, dp, st, 16 * qh, c0 + 16 * ks, r0, row_hi,
+                       bh_bias, Skv);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int off = (16 * ks + g + 8 * i) * L::P_LD +
+                          (16 * qh + 8 * j + 2 * tq) * 2;
+          *reinterpret_cast<uint32_t*>(ps + off) =
+              pack_bf16(s[j][2 * i], s[j][2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(xs + off) =
+              pack_bf16(dp[j][2 * i], dp[j][2 * i + 1]);
+        }
+    }
+    __syncthreads();  // the CTA's P^T and dS^T tiles
+
+    // dV += P^T.dO and dK += dS^T.Q_s, 16 queries a k step.
+    const int a_off =
+        (16 * ks + ldsm_a_row(lane)) * L::P_LD + ldsm_a_byte(lane);
+#pragma unroll
+    for (int kc = 0; kc < QS / 16; ++kc) {
+      uint32_t pa[4], dsa[4];
+      ldsm_x4(pa, ps + a_off + kc * 32);
+      ldsm_x4(dsa, xs + a_off + kc * 32);
+      mma_rn<NDB, L::ROW>(pa, sdo, 16 * kc, part * DW, dv);
+      mma_rn<NDB, L::ROW>(dsa, sq, 16 * kc, part * DW, dk);
+    }
+  }
+  cp_async_wait<0>();
+
+  const size_t n = (size_t)gridDim.z / splits * a.Hkv * Skv * D;
+  float* out_k = splits > 1 ? ws + (2 * (size_t)sp) * n : a.out0;
+  float* out_v = splits > 1 ? ws + (2 * (size_t)sp + 1) * n : a.out1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = c0 + 16 * ks + g + 8 * i;
+    if (key >= Skv) continue;
+    float* dkr = out_k + (bkv * Skv + key) * D + part * DW + 2 * tq;
+    float* dvr = out_v + (bkv * Skv + key) * D + part * DW + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NDB; ++j) {
+      *reinterpret_cast<float2*>(dkr + 8 * j) =
+          make_float2(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<float2*>(dvr + 8 * j) =
+          make_float2(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The scalar bodies above D = 288 (scalar32): the fp32 dQ and dK/dV at
+// DeepSeek's absorbed 576, dq_body's and dkv_body's function and order of
+// operations in 32-row tiles (a 64-row layout holds at least two [D][64 + 4]
+// fp32 tiles, 156,672 bytes each at 576).  The 256 threads are 8 x 32:
+// thread (ty, tx) holds rows 4 ty + [0, 4) of a tile, their scores against
+// column tx, and output lanes tx + 32 e.  An operand read four rows at a
+// time is staged transposed ([D][32 + 4]: one broadcast float4 a step of
+// d); one read a row at a time, or a lane of each row, as rows [32][D + 1]
+// (the odd stride puts the 32 rows' lane d, and a row's 32 consecutive
+// lanes, in 32 banks).  Shared memory: one transposed tile, one row tile
+// and a [32][32 + 4] score tile, 161,408 bytes at 576.  flash_attention.cu's
+// fwd_body32 is the forward's counterpart.
+// ---------------------------------------------------------------------------
+
+constexpr int T32 = 32;        // rows, and keys, a tile
+constexpr int LD32 = T32 + 4;  // a transposed [D][32] tile's row
+
+template <int D>
+__host__ __device__ constexpr int ld_rows32() {
+  return D + 1;
+}
+
+template <int D>
+constexpr size_t smem32_bytes() {
+  return sizeof(float) * ((size_t)D * LD32 + (size_t)T32 * ld_rows32<D>() +
+                          (size_t)T32 * LD32);
+}
+
+// Rows [row0, row0 + 32) of an fp32 [rows, D] matrix, times `scale` where
+// SCALE, zeros from `limit`: transposed into dst[d * LD32 + r] (ROWS false;
+// consecutive threads take consecutive rows, so the stores fill 32 banks)
+// or as rows dst[r * (D + 1) + d] (ROWS true).
+template <int D, bool SCALE, bool ROWS>
+__device__ __forceinline__ void stage32(const float* __restrict__ src,
+                                        int row0, int limit, float* dst,
+                                        float scale) {
+  static_assert(D % 32 == 0, "a thread's lanes are tx + 32 e");
+  constexpr int VPR = D / 4;  // float4 loads a row
+  for (int i = threadIdx.x; i < T32 * VPR; i += THREADS) {
+    const int r = ROWS ? i / VPR : i % T32;
+    const int c = ROWS ? i % VPR : i / T32;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < limit)
+      f = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D +
+                                           4 * c);
+    if (SCALE) {
+      f.x *= scale;
+      f.y *= scale;
+      f.z *= scale;
+      f.w *= scale;
+    }
+    const float fv[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (ROWS)
+        dst[r * ld_rows32<D>() + 4 * c + e] = fv[e];
+      else
+        dst[(4 * c + e) * LD32 + r] = fv[e];
+    }
+  }
+}
+
+// acc[i] = sum_d a[d][4 ay + i] * b[bx][d]: four rows of a transposed tile
+// against one row of a row tile.
+template <int D>
+__device__ __forceinline__ void tile_product32(const float* a, int ay,
+                                               const float* b, int bx,
+                                               float (&acc)[4]) {
+  const float* brow = b + bx * ld_rows32<D>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    const float4 x = *reinterpret_cast<const float4*>(a + d * LD32 + ay * 4);
+    const float y = brow[d];
+    acc[0] = fmaf(x.x, y, acc[0]);
+    acc[1] = fmaf(x.y, y, acc[1]);
+    acc[2] = fmaf(x.z, y, acc[2]);
+    acc[3] = fmaf(x.w, y, acc[3]);
+  }
+}
+
+// acc[i][e] += sum_c p[c * LD32 + 4 py + i] * m[c][tx + 32 e]: a [32][32]
+// score tile stored [c][row] times the lanes of a row tile.
+template <int D>
+__device__ __forceinline__ void accumulate_pm32(const float* p, int py,
+                                                const float* m, int tx,
+                                                float (&acc)[4][D / 32]) {
+#pragma unroll 4
+  for (int c = 0; c < T32; ++c) {
+    const float4 pv = *reinterpret_cast<const float4*>(p + c * LD32 + py * 4);
+    const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+    const float* mrow = m + c * ld_rows32<D>() + tx;
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e) {
+      const float me = mrow[32 * e];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][e] = fmaf(pr[i], me, acc[i][e]);
+    }
+  }
+}
+
+// dq_body over fp32 K/V in 32-row tiles (above): per key tile dO^T and V's
+// rows give dP, then Q_s^T (restaged in dO^T's buffer) and K's rows give S;
+// dS^T goes to the score tile and dQ += dS.K reads K's rows.
+template <int D>
+__device__ __forceinline__ void dq_body32(const BwdArgs& a,
+                                          const float* __restrict__ k,
+                                          const float* __restrict__ v) {
+  constexpr int DE = D / T32;
+  extern __shared__ __align__(16) float smem[];
+  float* at = smem;                       // [D][LD32]  dO^T, then Q_s^T
+  float* kvr = at + D * LD32;             // [32][D + 1]  V rows, then K rows
+  float* dst = kvr + T32 * ld_rows32<D>();  // [32][LD32]  dS^T
+  __shared__ int s_lo, s_hi;
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int r0 = blockIdx.x * T32;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
+  const int tx = threadIdx.x % T32;
+  const int ty = threadIdx.x / T32;
+  const size_t bh = (size_t)b * a.Hq + h;
+  const size_t bk = (size_t)b * a.Hkv + hk;
+  const float* bh_bias =
+      a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  const float* qh = static_cast<const float*>(a.q) + bh * Sq * D;
+  const float* doh = static_cast<const float*>(a.dout) + bh * Sq * D;
+  const float* kh = k + bk * Skv * D;
+  const float* vh = v + bk * Skv * D;
+
+  key_span<T32>(a.ranges, r0, Sq, Skv, &s_lo, &s_hi);
+  const int c_lo = s_lo;
+  const int c_hi = s_hi;
+
+  int rs[4], re[4];
+  float lrow[4], drow[4], acc[4][DE];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    row_range(a.ranges, r, Sq, Skv, rs[i], re[i]);
+    const float lv = r < Sq ? a.lse[bh * Sq + r] : 0.f;
+    lrow[i] = (lv == -INFINITY) ? 0.f : lv;
+    drow[i] = r < Sq ? a.di[bh * Sq + r] : 0.f;
+#pragma unroll
+    for (int e = 0; e < DE; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int t0 = c_lo; t0 < c_hi; t0 += T32) {
+    stage32<D, false, false>(doh, r0, Sq, at, 0.f);
+    stage32<D, false, true>(vh, t0, c_hi, kvr, 0.f);
+    __syncthreads();
+    float dp[4];
+    tile_product32<D>(at, ty, kvr, tx, dp);
+    __syncthreads();  // every thread is done with dO^T and V
+    stage32<D, true, false>(qh, r0, Sq, at, a.scale);
+    stage32<D, false, true>(kh, t0, c_hi, kvr, 0.f);
+    __syncthreads();
+    float s[4];
+    tile_product32<D>(at, ty, kvr, tx, s);
+    const int col = t0 + tx;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + ty * 4 + i;
+      float sv = s[i];
+      if (bh_bias && row < Sq && col < c_hi)
+        sv += bh_bias[(size_t)row * Skv + col];
+      const float p =
+          (col < rs[i] || col >= re[i]) ? 0.f : expf(sv - lrow[i]);
+      const float ds = p * (dp[i] - drow[i]);
+      if (a.out1 && row < Sq && col < Skv)
+        a.out1[(bh * Sq + row) * Skv + col] = ds;
+      s[i] = ds;
+    }
+    *reinterpret_cast<float4*>(dst + tx * LD32 + ty * 4) =
+        make_float4(s[0], s[1], s[2], s[3]);
+    __syncthreads();  // dS^T staged
+    accumulate_pm32<D>(dst, ty, kvr, tx, acc);
+    __syncthreads();  // before the next tile restages
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    if (r >= Sq) continue;
+    float* out = a.out0 + (bh * Sq + r) * D + tx;
+#pragma unroll
+    for (int e = 0; e < DE; ++e) out[32 * e] = acc[i][e] * a.scale;
+  }
+}
+
+// dkv_body over fp32 K/V in 32-key tiles (above): per step of 32 query rows
+// K^T and Q_s's rows give S^T and P^T, V^T and dO's rows dP^T and dS^T; P
+// then dS (query-major, in the score tile) times dO's and then Q_s's rows
+// (restaged) accumulate dV and dK.
+template <int D>
+__device__ __forceinline__ void dkv_body32(const BwdArgs& a,
+                                           const float* __restrict__ k,
+                                           const float* __restrict__ v) {
+  constexpr int DE = D / T32;
+  extern __shared__ __align__(16) float smem[];
+  float* at = smem;                        // [D][LD32]  K^T, then V^T
+  float* br = at + D * LD32;               // [32][D + 1]  Q_s, dO, Q_s rows
+  float* ps = br + T32 * ld_rows32<D>();   // [32][LD32]  P, then dS: [q][key]
+  __shared__ int s_rmin, s_rmax;
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int c0 = blockIdx.x * T32;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = a.Hq / a.Hkv;
+  const int tx = threadIdx.x % T32;  // query column tx
+  const int ty = threadIdx.x / T32;  // keys c0 + 4 ty + i
+  const size_t bkv = (size_t)b * a.Hkv + hk;
+  const float* kh = k + bkv * Skv * D;
+  const float* vh = v + bkv * Skv * D;
+
+  query_span(a.ranges, Sq, Skv, c0, min(c0 + T32, Skv), &s_rmin, &s_rmax);
+  const int row_lo = s_rmin;
+  const int row_hi = s_rmax + 1;
+
+  float dk_acc[4][DE], dv_acc[4][DE];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DE; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  for (int g = 0; g < group; ++g) {
+    const int h = a.interleaved ? g * a.Hkv + hk : hk * group + g;
+    const size_t bh = (size_t)b * a.Hq + h;
+    const float* bh_bias =
+        a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+    const float* qh = static_cast<const float*>(a.q) + bh * Sq * D;
+    const float* doh = static_cast<const float*>(a.dout) + bh * Sq * D;
+    for (int r0 = row_lo; r0 < row_hi; r0 += T32) {
+      stage32<D, false, false>(kh, c0, Skv, at, 0.f);
+      stage32<D, true, true>(qh, r0, row_hi, br, a.scale);
+      const int row = r0 + tx;
+      int rs, re;
+      row_range(a.ranges, row < row_hi ? row : Sq, Sq, Skv, rs, re);
+      const float lv = row < row_hi ? a.lse[bh * Sq + row] : 0.f;
+      const float lcol = (lv == -INFINITY) ? 0.f : lv;
+      const float dcol = row < row_hi ? a.di[bh * Sq + row] : 0.f;
+      __syncthreads();
+      float pt[4];  // [key i] of query tx
+      tile_product32<D>(at, ty, br, tx, pt);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = c0 + ty * 4 + i;
+        float s = pt[i];
+        if (bh_bias && row < row_hi && col < Skv)
+          s += bh_bias[(size_t)row * Skv + col];
+        pt[i] = (col < rs || col >= re) ? 0.f : expf(s - lcol);
+      }
+      __syncthreads();  // every thread is done with K^T and Q_s
+      stage32<D, false, false>(vh, c0, Skv, at, 0.f);
+      stage32<D, false, true>(doh, r0, row_hi, br, 0.f);
+      __syncthreads();
+      float dpt[4];
+      tile_product32<D>(at, ty, br, tx, dpt);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dpt[i] = pt[i] * (dpt[i] - dcol);  // dS^T
+      *reinterpret_cast<float4*>(ps + tx * LD32 + ty * 4) =
+          make_float4(pt[0], pt[1], pt[2], pt[3]);
+      __syncthreads();
+      accumulate_pm32<D>(ps, ty, br, tx, dv_acc);  // dV += P^T.dO
+      __syncthreads();
+      stage32<D, true, true>(qh, r0, row_hi, br, a.scale);
+      *reinterpret_cast<float4*>(ps + tx * LD32 + ty * 4) =
+          make_float4(dpt[0], dpt[1], dpt[2], dpt[3]);
+      __syncthreads();
+      accumulate_pm32<D>(ps, ty, br, tx, dk_acc);  // dK += dS^T.Q_s
+      __syncthreads();  // before the next step restages
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = c0 + ty * 4 + i;
+    if (key >= Skv) continue;
+    float* dkr = a.out0 + (bkv * Skv + key) * D + tx;
+    float* dvr = a.out1 + (bkv * Skv + key) * D + tx;
+#pragma unroll
+    for (int e = 0; e < DE; ++e) {
+      dkr[32 * e] = dk_acc[i][e];
+      dvr[32 * e] = dv_acc[i][e];
     }
   }
 }

@@ -111,8 +111,9 @@ __device__ __forceinline__ void row_range(const int32_t* ranges, int r,
   }
 }
 
-// The live key span [lo, hi) of rows [r0, r0 + 64): min start and max end
-// over the rows whose range is not empty; lo >= hi when none is live.
+// The live key span [lo, hi) of rows [r0, r0 + ROWS): min start and max
+// end over the rows whose range is not empty; lo >= hi when none is live.
+template <int ROWS = BM>
 __device__ __forceinline__ void key_span(const int32_t* ranges, int r0,
                                          int Sq, int Skv, int* s_lo,
                                          int* s_hi) {
@@ -121,7 +122,7 @@ __device__ __forceinline__ void key_span(const int32_t* ranges, int r0,
     *s_hi = 0;
   }
   __syncthreads();
-  if (threadIdx.x < BM) {
+  if (threadIdx.x < ROWS) {
     int st, en;
     row_range(ranges, r0 + threadIdx.x, Sq, Skv, st, en);
     if (en > st) {

@@ -57,10 +57,12 @@ LN2 = float(np.log(2.0))
 # less this many base-2 units, which keeps exp2 inside fp32's range both
 # ways (overflow needs a score 64 above a true upper bound).
 ROW_MAX_SLACK = 64.0
-# The widths the flash kernels are built for.  Any other head dim that is a
-# multiple of 16 up to 288 runs at the next one up with its Q/K/V/dO lanes
-# zero-padded: zero lanes add nothing to S or O and take no gradient.
-FLASH_WIDTHS = (32, 64, 128, 256, 288)
+# The widths the flash kernels are built for: MLAConfig()'s latent 256 + 32
+# and DeepSeek-V2's absorbed 512 + 64 among them.  Any other head dim that is
+# a multiple of 16 up to 576 runs at the next one up (304 to 560 at 576)
+# with its Q/K/V/dO lanes zero-padded: zero lanes add nothing to S or O and
+# take no gradient.
+FLASH_WIDTHS = (32, 64, 128, 256, 288, 576)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,7 +72,7 @@ class BlockSizes:
     across from the JAX package with the same fields and checks.
 
     The Hopper kernels pick their own tiles (64 query rows × 64 keys;
-    fewer keys at D = 288) and read none of these; they tune the TPU's
+    fewer keys at D = 288 and 576) and read none of these; they tune the TPU's
     Pallas grids in the JAX package.  ``block_*_major`` is a multiple of
     its inner tile (0 → equal to it); every other field is a multiple of
     128.
@@ -280,12 +282,14 @@ def flash_width(d: int) -> int:
 def fwd_body(dtype: torch.dtype, d: int) -> str:
     """Which forward kernel :func:`flash_fwd` launches for a Q of ``dtype``
     at head dim ``d``: "tensor_core" (bf16 mma.sync) for bf16 at every
-    kernel width, ``flash_fwd_tc_kernel`` up to 256 and
+    kernel width, ``flash_fwd_tc_kernel`` up to 256,
     ``flash_fwd_wide_kernel`` (32-key tiles, two CTAs an SM) at MLA's
-    width 288; "fp32_fma" (``flash_fwd_kernel``: scalar fp32 FMAs) for
-    fp32, whose 2e-5 gate TF32 would break.  The same answer as
+    width 288 and ``flash_fwd_latent_kernel`` (O's lanes over two warp
+    groups, 32-key tiles) at DeepSeek's absorbed width 576; "fp32_fma"
+    (``flash_fwd_kernel``: scalar fp32 FMAs, 32-row tiles at 576) for fp32,
+    whose 2e-5 gate TF32 would break.  The same answer as
     :func:`~.flash_attention_bwd.dq_body` and ``dkv_body``; the C launcher
-    routes the same way (``fwd_tc``, ``fwd_wide`` in
+    routes the same way (``fwd_tc``, ``fwd_wide``, ``fwd_latent`` in
     ``csrc/flash_attention.cu``)."""
     flash_width(d)  # raises past the widest kernel
     return "tensor_core" if dtype == torch.bfloat16 else "fp32_fma"

@@ -9,17 +9,18 @@ disjoint outputs, so no atomics:
   writes dbias = dS.  Its bf16 instances, and those of :func:`qflash_dq`,
   run on the tensor cores (bf16 mma.sync: ``flash_dq_tc_kernel`` and
   ``qflash_dq_tc_kernel`` up to D = 256, ``flash_dq_wide_kernel`` and
-  ``qflash_dq_wide_kernel`` at MLA's 288); fp32 the scalar body
-  (:func:`dq_body`).
+  ``qflash_dq_wide_kernel`` at MLA's 288, ``flash_dq_latent_kernel`` at
+  DeepSeek's 576); fp32 the scalar body (:func:`dq_body`).
 - :func:`flash_dkv` → ``flash_dkv_kernel`` (TPU ``_dkv_kernel``): per key
   tile, walks the GQA group's q heads × the live query rows, dV += Pᵀ·dO,
   dK += dSᵀ·Q_s; the group reduction happens inside the kernel.  Its bf16
   instances, and those of :func:`qflash_dkv`, run on the tensor cores
   (``flash_dkv_tc_kernel``, ``qflash_dkv_tc_kernel`` up to D = 256;
-  ``flash_dkv_wide_kernel``, ``qflash_dkv_wide_kernel`` at 288, which deal
-  the GQA group over :func:`dkv_splits` CTAs a key tile into an fp32
-  workspace that :func:`merge_dkv_splits` sums in split order); fp32 the
-  scalar body (:func:`dkv_body`).
+  ``flash_dkv_wide_kernel``, ``qflash_dkv_wide_kernel`` at 288 and
+  ``flash_dkv_latent_kernel`` at 576, which deal the GQA group over
+  :func:`dkv_splits` CTAs a key tile into an fp32 workspace that
+  :func:`merge_dkv_splits` sums in split order); fp32 the scalar body
+  (:func:`dkv_body`).
 - Quantized K/V (:class:`QuantizedTensor`), exact: :func:`qflash_dq` and
   :func:`qflash_dkv` → ``csrc/quantized_attention_bwd.cu`` (the TPU
   kernels' quantized modes), the same two bodies with K/V staged from their
@@ -213,10 +214,12 @@ def dkv_body(dtype: torch.dtype, d: int) -> str:
     (:func:`flash_dkv`, :func:`qflash_dkv`) run for a Q of ``dtype`` at head
     dim ``d``: "tensor_core" (bf16 mma.sync) for bf16 at every kernel
     width: ``dkv_tc_body`` up to 256, ``dkv_wide_body`` at MLA's width 288
-    (272 runs at 288; the flash and the quantized kernels alike);
-    "fp32_fma" (``dkv_body``: scalar fp32 FMAs) for fp32, whose 2e-5 gate
-    TF32 would break.  The C launchers route the same way (``mfa::dkv_tc``,
-    ``mfa::bwd_wide``)."""
+    (272 runs at 288; the flash and the quantized kernels alike),
+    ``dkv_latent_body`` at DeepSeek's absorbed width 576 (304 to 560 run at
+    576; the flash kernels: the quantized ones stop at 288); "fp32_fma"
+    (``dkv_body``: scalar fp32 FMAs, ``dkv_body32`` at 576) for fp32, whose
+    2e-5 gate TF32 would break.  The C launchers route the same way
+    (``mfa::dkv_tc``, ``mfa::bwd_wide``, ``mfa::bwd_latent``)."""
     flash_width(d)  # raises past the widest kernel
     return "tensor_core" if dtype == torch.bfloat16 else "fp32_fma"
 
@@ -225,35 +228,45 @@ def dq_body(dtype: torch.dtype, d: int) -> str:
     """Which body of ``csrc/attention_bwd.cuh`` the dQ kernels
     (:func:`flash_dq`, :func:`qflash_dq`) run for a Q of ``dtype`` at head
     dim ``d``: "tensor_core" for bf16 (``dq_tc_body`` up to 256,
-    ``dq_wide_body`` at 288), "fp32_fma" (``dq_body``) for fp32; the same
-    answer as :func:`dkv_body`.  The C launchers route the same way
-    (``mfa::dq_tc``, ``mfa::bwd_wide``)."""
+    ``dq_wide_body`` at 288, ``dq_latent_body`` at 576), "fp32_fma"
+    (``dq_body``, ``dq_body32`` at 576) for fp32; the same answer as
+    :func:`dkv_body`.  The C launchers route the same way (``mfa::dq_tc``,
+    ``mfa::bwd_wide``, ``mfa::bwd_latent``)."""
     return dkv_body(dtype, d)
 
 
-# The dK/dV's wide body (bf16 at width 288) runs one CTA an SM (205 KB of
-# shared memory); dkv_splits deals the GQA group over CTAs until the grid
-# holds this many CTAs an SM.  At MLA's training shape
-# ``utils/profiling.py --dkv-splits`` measured 3.75, 1.90, 1.49, 1.28 and
-# 1.20 ms for 1, 2, 4, 8 and 16 splits (64 key tiles; 16 is 8 CTAs an SM).
+# The dK/dV's wide and latent bodies (bf16 at widths 288 and 576) run one
+# CTA an SM (205 and 227 KB of shared memory); dkv_splits deals the GQA
+# group over CTAs until the grid holds this many CTAs an SM.  At MLA's
+# training shape ``utils/profiling.py --dkv-splits`` measured 3.75, 1.90,
+# 1.49, 1.28 and 1.20 ms for 1, 2, 4, 8 and 16 splits (64 key tiles; 16 is
+# 8 CTAs an SM).
 _DKV_CTAS_PER_SM = 8
+# Keys a CTA of the split bodies: dkv_wide_body's 64 at 288,
+# dkv_latent_body's 32 at 576.
+_DKV_SPLIT_TILE = {288: 64, 576: 32}
 
 
 def dkv_splits(dtype: torch.dtype, d: int, batch: int, q_heads: int,
                kv_heads: int, kv_len: int, sms: int) -> int:
-    """How many CTAs share each (64-key tile, batch row, KV head) of the
-    dK/dV, from shapes alone: 1 except on the wide body (bf16 at kernel
-    width 288, ``dkv_wide_body``), whose CTA walks its q heads in series.
-    There the GQA group of ``q_heads / kv_heads`` heads is dealt into runs
-    of whole heads, one CTA a run: the split doubles while it stays within
-    the group and the grid within ``_DKV_CTAS_PER_SM`` CTAs for each of
-    ``sms`` SMs; the runs are then made equal (``ceil(group / per)`` of
-    ``per`` heads).  MLA's training shape (batch 2, 16 q heads over one latent
-    head, 2048 keys: 64 tiles) takes 16 splits of one head on 132 SMs."""
-    if dkv_body(dtype, d) != "tensor_core" or flash_width(d) <= 256:
+    """How many CTAs share each (key tile, batch row, KV head) of the
+    dK/dV, from shapes alone: 1 except on the wide and latent bodies (bf16
+    at kernel widths 288 and 576: ``dkv_wide_body``'s 64-key tiles,
+    ``dkv_latent_body``'s 32-key ones), whose CTA walks its q heads in
+    series.  There the GQA group of ``q_heads / kv_heads`` heads is dealt
+    into runs of whole heads, one CTA a run: the split doubles while it
+    stays within the group and the grid within ``_DKV_CTAS_PER_SM`` CTAs
+    for each of ``sms`` SMs; the runs are then made equal
+    (``ceil(group / per)`` of ``per`` heads).  MLA's training shape (batch
+    2, 16 q heads over one latent head, 2048 keys: 64 tiles at 288) takes
+    16 splits of one head on 132 SMs; DeepSeek-V2-Lite's (the same at
+    576: 64 tiles of 32 keys a batch row, 128 CTAs) 8 splits of two
+    heads."""
+    tile = _DKV_SPLIT_TILE.get(flash_width(d))
+    if dkv_body(dtype, d) != "tensor_core" or tile is None:
         return 1
     group = q_heads // kv_heads
-    ctas = -(-kv_len // 64) * kv_heads * batch
+    ctas = -(-kv_len // tile) * kv_heads * batch
     splits = 1
     while (splits * 2 <= group
            and ctas * splits * 2 <= _DKV_CTAS_PER_SM * sms):

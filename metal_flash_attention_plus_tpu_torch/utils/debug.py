@@ -32,11 +32,11 @@ from metal_flash_attention_plus_tpu_torch import _build
 # (tests/test_torch_checkpoint_debug.py holds the table to csrc/).
 ENTRY_KERNELS: Dict[str, Tuple[str, ...]] = {
     "mfa_flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_wide_kernel",
-                      "flash_fwd_kernel"),
+                      "flash_fwd_latent_kernel", "flash_fwd_kernel"),
     "mfa_flash_dq": ("flash_dq_tc_kernel", "flash_dq_wide_kernel",
-                     "flash_dq_kernel"),
+                     "flash_dq_latent_kernel", "flash_dq_kernel"),
     "mfa_flash_dkv": ("flash_dkv_tc_kernel", "flash_dkv_wide_kernel",
-                      "flash_dkv_kernel"),
+                      "flash_dkv_latent_kernel", "flash_dkv_kernel"),
     "mfa_flash_dkv_merge": ("flash_dkv_merge_kernel",),
     "mfa_paged_decode": ("paged_decode_tc_kernel", "paged_decode_kernel",
                          "paged_decode_merge_kernel"),

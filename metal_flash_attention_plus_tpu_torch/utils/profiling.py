@@ -8,7 +8,7 @@ card.
         [--v2-lite] [--quantized 8]
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --train
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling --mla \
-        --train
+        [--v2-lite] --train
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --quantized-attention packed
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
@@ -45,7 +45,9 @@ bf16 flagship, Adam at lr 3e-3, one seeded batch of 4 × 2049 tokens): two
 steps to warm up, then the wall time of 3 unprofiled steps, then 3 steps
 under the profiler.  ``--mla --train``: the same for ``MLAConfig()``'s
 ``mla_loss_fn`` (``make_train_step(..., loss=mla_loss_fn)``) on the
-batch's first 2 × 2049 tokens, as ``chip_smoke.py`` phase 15 trains it.
+batch's first 2 × 2049 tokens, as ``chip_smoke.py`` phase 15 trains it;
+``--mla --v2-lite --train`` for :data:`DEEPSEEK_V2_LITE` (the flash
+kernels at D = 576), as ``chip_smoke.py`` phase 21 (c) trains it.
 
 ``--quantized-attention packed`` / ``unpacked``: ``quantized_forward(...,
 quantize_kv=True)`` of W8A8 weights on 2 × 2048 seeded tokens, as in
@@ -98,8 +100,9 @@ warm up, and the device time of the split kernel and of the merge over 50
 more under the profiler.
 
 ``--dkv-splits``: the flash dK/dV (bf16, causal) at MLA's training shape
-(B = 2, Hq = 16 over Hkv = 1, S = 2048, D = 288: the wide body) over split
-counts of the GQA group (:data:`DKV_SPLIT_PLANS`), each forced in place of
+(B = 2, Hq = 16 over Hkv = 1, S = 2048, D = 288: the wide body; and D =
+576, DeepSeek-V2-Lite's: the latent body) over split counts of the GQA
+group (:data:`DKV_SPLIT_PLANS`), each forced in place of
 ``ops.flash_attention_bwd.dkv_splits``' choice, which the output marks:
 the time by CUDA events over 20 calls after 3 to warm up, and the device
 time of the split kernel and of the merge over 20 more under the
@@ -212,7 +215,7 @@ from metal_flash_attention_plus_tpu_torch.serving import paged_attention
 # heads of 128, kv_lora_rank 512 + qk_rope_head_dim 64 = the paged
 # kernels' D = 576); its 26 MoE layers as dense SwiGLU at the dense first
 # layer's intermediate_size, no YaRN RoPE scaling (MLAConfig has neither).
-# chip_smoke.py phase 20 serves the same configuration.
+# chip_smoke.py phase 20 serves the same configuration, phase 21 trains it.
 DEEPSEEK_V2_LITE = MLAConfig(
     vocab_size=102400, d_model=2048, num_layers=27, num_heads=16,
     head_dim=128, latent_dim=512, rope_dim=64, d_ff=10944,
@@ -941,12 +944,18 @@ def profile_decode_splits(seed: int, iters: int = 50) -> int:
     return 0
 
 
-# Split counts --dkv-splits forces on the dK/dV's wide body.
+# Split counts --dkv-splits forces on the dK/dV's wide and latent bodies.
 DKV_SPLIT_PLANS = (1, 2, 4, 8, 16)
 
 
 def profile_dkv_splits(seed: int, iters: int = 20) -> int:
-    b, hq, hkv, s, d = 2, 16, 1, 2048, 288
+    for d in (288, 576):
+        profile_dkv_splits_at(seed, d, iters)
+    return 0
+
+
+def profile_dkv_splits_at(seed: int, d: int, iters: int) -> None:
+    b, hq, hkv, s = 2, 16, 1, 2048
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, do = (torch.randn((b, hq, s, d), generator=g, device="cuda").to(
         torch.bfloat16) for _ in range(2))
@@ -984,7 +993,6 @@ def profile_dkv_splits(seed: int, iters: int = 20) -> int:
             "device_ms": sum(by_kernel.values()), **{
                 f"device_ms_{k}": v for k, v in by_kernel.items()},
             "chosen": splits == chosen}))
-    return 0
 
 
 # Cluster sizes --rtq-clusters times beside block_cluster's choice.
@@ -1039,8 +1047,9 @@ def main() -> int:
                     help="serve MLAConfig() through mla_executor() (with "
                     "--quantized 8: W8A8 weights over an int8 latent pool)")
     ap.add_argument("--v2-lite", action="store_true",
-                    help="with --mla: serve DeepSeek-V2-Lite's widths "
-                    "(DEEPSEEK_V2_LITE) instead of MLAConfig()")
+                    help="with --mla: serve (or, with --train, train) "
+                    "DeepSeek-V2-Lite's widths (DEEPSEEK_V2_LITE) instead "
+                    "of MLAConfig()")
     ap.add_argument("--quantized-attention", choices=("packed", "unpacked"),
                     help="profile quantized_forward(quantize_kv=True)")
     ap.add_argument("--quantized-backward", choices=("fullint", "exact"),
@@ -1083,9 +1092,8 @@ def main() -> int:
         return profile_rtq_clusters(args.seed)
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
-    if args.v2_lite and (not args.mla or args.train):
-        ap.error("--v2-lite serves with --mla (the flash kernels that "
-                 "training needs stop at D = 288)")
+    if args.v2_lite and not args.mla:
+        ap.error("--v2-lite takes --mla")
     if args.mla:
         if args.quantized == 4:
             ap.error("MLA latent pools are float or int8")

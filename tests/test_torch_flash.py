@@ -112,10 +112,17 @@ CASES = {
     # versions.
     "mla_latent_d288": (1, 4, 1, 96, 96, 288, (tm.CAUSAL, jm.CAUSAL, None),
                         False, None),
+    # DeepSeek-V2's absorbed width kv_lora_rank + qk_rope_head_dim = 512 +
+    # 64: the latent bodies' width, and 320, which the card runs at 576.
+    "mla_latent_d576": (1, 4, 1, 96, 96, 576, (tm.CAUSAL, jm.CAUSAL, None),
+                        False, None),
+    "mla_latent_d320": (1, 4, 1, 96, 96, 320, (tm.CAUSAL, jm.CAUSAL, None),
+                        False, None),
 }
 BWD_CASES = ["causal_gqa", "causal_interleaved", "window_causal_rect",
              "segments_empty_row", "bias_causal_bcast", "ragged_rect_bias",
-             "mla_latent_d80", "mla_latent_d288"]
+             "mla_latent_d80", "mla_latent_d288", "mla_latent_d576",
+             "mla_latent_d320"]
 
 
 def _inputs(name, seed=0):
@@ -304,10 +311,11 @@ def test_kernel_widths_and_zero_padded_lanes():
     """On the card a head dim runs at the next width the kernels are built
     for, its Q/K/V/dO lanes zero-padded: the padded call gives the same O,
     L and gradients in the head dim's lanes, and zeros in the rest."""
-    assert [tfa.flash_width(d) for d in (16, 48, 64, 80, 96, 272, 288)] == [
-        32, 64, 64, 128, 128, 288, 288]
-    for d in (40, 304):
-        with pytest.raises(ValueError):
+    assert [tfa.flash_width(d) for d in (16, 48, 64, 80, 96, 272, 288, 304,
+                                         320, 560, 576)] == [
+        32, 64, 64, 128, 128, 288, 288, 576, 576, 576, 576]
+    for d in (40, 584, 592, 1152):
+        with pytest.raises(ValueError, match="has no flash kernel"):
             tfa.flash_width(d)
     q, k, v, do, _ = _inputs("window_causal_rect", seed=2)
     q, k, v, do = _torch(q, k, v, do)
@@ -332,19 +340,23 @@ def test_kernel_widths_and_zero_padded_lanes():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288,
+                               304, 320, 576])
 def test_dkv_body_follows_dtype_and_kernel_width(dtype, d):
     """The flash dK/dV kernel runs a tensor-core body for bf16 at every
-    kernel width (up to 256 ``dkv_tc_body``, at MLA's 288 the wide body;
-    272 runs at 288) and the fp32-FMA body for fp32, as the C launcher
+    kernel width (up to 256 ``dkv_tc_body``, at MLA's 288 the wide body,
+    272 running at 288; at DeepSeek's 576 the latent body, 304 and 320
+    running at 576) and the fp32-FMA body for fp32, as the C launcher
     routes."""
     assert fbwd.dkv_body(dtype, d) == (
         "tensor_core" if dtype == torch.bfloat16 else "fp32_fma")
     assert (tfa.flash_width(d) <= 256) == (d <= 256)
+    assert (tfa.flash_width(d) == 576) == (d > 288)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288,
+                               304, 320, 576])
 def test_fwd_body_follows_dtype_and_kernel_width(dtype, d):
     """The flash forward launches a tensor-core kernel for bf16 at every
     kernel width (48 runs at 64, 80 at 128; up to 256
@@ -359,7 +371,8 @@ def test_fwd_body_follows_dtype_and_kernel_width(dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 256, 272, 288,
+                               304, 320, 576])
 def test_dq_body_follows_dtype_and_kernel_width(dtype, d):
     """The flash and quantized dQ kernels run a tensor-core body for bf16
     at every kernel width (the wide body at MLA's 288; 272 runs at 288)
@@ -375,6 +388,12 @@ DKV_SPLIT_PLANS = [
     # MLA's training shape on an H100: 64 key tiles, 16 runs of one head.
     ((torch.bfloat16, 288, 2, 16, 1, 2048, 132), 16),
     ((torch.bfloat16, 272, 2, 16, 1, 2048, 132), 16),
+    # DeepSeek-V2-Lite's training shape on an H100 (the latent body's
+    # 32-key tiles: 64 a batch row, 128 CTAs): 8 runs of 2 heads.
+    ((torch.bfloat16, 576, 2, 16, 1, 2048, 132), 8),
+    ((torch.bfloat16, 320, 2, 16, 1, 2048, 132), 8),
+    # The card tests' S = 300 at 576: 10 tiles, the group of 16 split 16.
+    ((torch.bfloat16, 576, 2, 16, 1, 300, 132), 16),
     # Twice the batch: 128 tiles, 8 runs of 2 heads fill 8 CTAs an SM.
     ((torch.bfloat16, 288, 4, 16, 1, 2048, 132), 8),
     # The CPU case above: 2 tiles, the whole group of 4 split.
@@ -388,8 +407,9 @@ DKV_SPLIT_PLANS = [
     ((torch.bfloat16, 288, 2, 16, 1, 2048, 33), 4),
     # MHA: a group of one never splits.
     ((torch.bfloat16, 288, 1, 4, 4, 96, 132), 1),
-    # Off the wide body: fp32 at 288, bf16 up to 256.
+    # Off the wide and latent bodies: fp32 at 288 and 576, bf16 up to 256.
     ((torch.float32, 288, 2, 16, 1, 2048, 132), 1),
+    ((torch.float32, 576, 2, 16, 1, 2048, 132), 1),
     ((torch.bfloat16, 256, 2, 16, 1, 2048, 132), 1),
     ((torch.bfloat16, 64, 1, 16, 1, 128, 132), 1),
 ]

@@ -33,14 +33,15 @@ outside their built widths (80, 96) run zero-padded and take the same
 tolerances.  MLA's
 modes of the paged kernels (one-state latent pages, ``v_tail_zero``,
 D = 80, 288, DeepSeek's 576 and 320 (run at 576), Hq = 16 over Hkv = 1)
-and of the flash kernels (D = 80 and 288) take their kernels' tolerances;
-so do the paged kernels' scalar instances above 288; past 576 the paged
-wrappers raise.  The paged decode splits the KV axis
-across CTAs and merges the splits in a fixed order, so two calls on the
+and of the flash kernels (D = 80, 288, DeepSeek's 576 and 320, run at 576)
+take their kernels' tolerances; so do the paged and flash kernels' scalar
+instances above 288; past 576 the paged and flash wrappers raise.  The
+paged decode splits the KV axis across CTAs and merges the splits in a fixed order, so two calls on the
 same inputs are held equal bit for bit (at 576 the prefill too); so are
 the bf16 forward, dQ and
-dK/dV at D = 288 (``flash_fwd_wide_kernel`` in both of its modes and the
-wide bodies; the dK/dV's GQA group split over CTAs and merged in split
+dK/dV at D = 288 and 576 (``flash_fwd_wide_kernel`` and
+``flash_fwd_latent_kernel`` in both of their modes, the wide and the
+latent bodies; the dK/dV's GQA group split over CTAs and merged in split
 order, the merge kernel bit for bit with its plain version), which take
 the flash kernels' bf16 tolerances, and the quantized kernels at MLA's
 width (the wide forward, the exact dQ and dK/dV and the full-integer pair
@@ -298,6 +299,20 @@ FLASH_CASES = {
                          None),
     "bias_d32": (2, 4, 2, 100, 131, 32, masking.CAUSAL, None,
                  (2, 4, 100, 131)),
+    # DeepSeek's absorbed width 576 (the latent bf16 bodies, the fp32
+    # kernels' 32-row tiles) and 320 run at 576: window rows starting
+    # mid-tile, bias over an odd Skv, sparse rows with an empty row, causal
+    # rows with no live key (Sq > Skv).
+    "window_mid_tile_d576": (1, 4, 2, 300, 300, 576, masking.sliding_window(
+        100, causal=True), None, None),
+    "bias_d576": (2, 4, 2, 100, 131, 576, masking.CAUSAL, None,
+                  (2, 1, 100, 131)),
+    "segments_empty_row_d320": (
+        1, 4, 2, 130, 130, 320, masking.MaskSpec(
+            masking.MaskKind.SPARSE_RANGES), _segments_with_empty_row(),
+        None),
+    "rect_empty_rows_d576": (1, 4, 2, 250, 150, 576, masking.CAUSAL, None,
+                             None),
 }
 
 
@@ -337,10 +352,10 @@ def test_flash_kernels_match_plain(cuda_device, dtype, interleaved, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 48, 64, 80, 128, 256, 288])
+@pytest.mark.parametrize("d", [32, 48, 64, 80, 128, 256, 288, 320, 576])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_every_head_dim(cuda_device, d, dtype):
-    """Each built width, and 48 (run at 64, zero-padded)."""
+    """Each built width, 48 (run at 64, zero-padded) and 320 (at 576)."""
     (q, k, v), do, _, rr = _flash_case(cuda_device, dtype, 1, 4, 1, 150, 150,
                                        d, masking.CAUSAL, seed=d)
     kw = dict(scale=d ** -0.5)
@@ -414,7 +429,11 @@ def test_flash_dq_tensor_core_body_matches_plain(cuda_device, name, d):
 # over 2 interleaved (2 splits), a group of 3 (runs of 2 and 1), a causal
 # mask over a ragged S = 300, a sliding window, sparse rows with an empty
 # row, bias with dbias over an odd Skv, Sq < Skv and Sq > Skv (causal rows
-# with no live key), and D = 272 (run at 288).
+# with no live key), and D = 272 (run at 288).  The same cases at
+# DeepSeek's absorbed width 576 (the latent bodies: the dK/dV in 32-key
+# CTAs and 32-row query steps, the dQ over single-buffered 32-key tiles),
+# D = 320 (run at 576) and V2-Lite's training shape (B=2, S=2048: 8 splits
+# of 2 heads).
 # name: (b, hq, hkv, sq, skv, d, mask, ranges, bias shape, interleaved)
 WIDE_CASES = {
     "mla_causal_s300": (2, 16, 1, 300, 300, 288, masking.CAUSAL, None, None,
@@ -444,16 +463,38 @@ WIDE_CASES = {
                            False),
     "mla_b4_s2048_runs_of_2": (4, 16, 1, 2048, 2048, 288, masking.CAUSAL,
                                None, None, False),
+    "d576_mla_causal_s300": (2, 16, 1, 300, 300, 576, masking.CAUSAL, None,
+                             None, False),
+    "d576_gqa_interleaved_s300": (1, 4, 2, 300, 300, 576, masking.CAUSAL,
+                                  None, None, True),
+    "d576_mla_window": (1, 16, 1, 300, 300, 576, masking.sliding_window(
+        100, causal=True), None, None, False),
+    "d576_segments_empty_row": (
+        1, 4, 2, 130, 130, 576, masking.MaskSpec(
+            masking.MaskKind.SPARSE_RANGES), _segments_with_empty_row(), None,
+        True),
+    "d576_mla_bias_dbias": (1, 16, 1, 100, 131, 576, masking.CAUSAL, None,
+                            (1, 16, 100, 131), False),
+    "d576_mla_sq_lt_skv": (1, 16, 1, 150, 300, 576, masking.CAUSAL, None,
+                           None, False),
+    "d576_gqa_sq_gt_skv": (1, 4, 2, 300, 150, 576, masking.CAUSAL, None,
+                           None, True),
+    "d576_group3_uneven_runs": (1, 3, 1, 300, 300, 576, masking.CAUSAL, None,
+                                None, False),
+    "d320_mla": (1, 16, 1, 300, 300, 320, masking.CAUSAL, None, None, False),
+    "d576_v2_lite_b2_s2048": (2, 16, 1, 2048, 2048, 576, masking.CAUSAL,
+                              None, None, False),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(WIDE_CASES))
 def test_flash_wide_bodies_match_plain(cuda_device, name):
-    """The bf16 dQ (and dbias) and dK/dV at D = 288 on the tensor-core wide
-    bodies against their plain versions, max abs over the plain's max abs
-    at the bf16 gate; one dQ and one dK/dV launch a call, plus one merge
-    where the dK/dV splits; two calls equal bit for bit."""
+    """The bf16 dQ (and dbias) and dK/dV at D = 288 and 576 on the
+    tensor-core wide and latent bodies against their plain versions, max
+    abs over the plain's max abs at the bf16 gate; one dQ and one dK/dV
+    launch a call, plus one merge where the dK/dV splits; two calls equal
+    bit for bit."""
     b, hq, hkv, sq, skv, d, mask, ranges, bias_shape, inter = WIDE_CASES[
         name]
     (q, k, v), do, bias, rr = _flash_case(
@@ -502,13 +543,14 @@ def test_flash_wide_bodies_match_plain(cuda_device, name):
 @pytest.mark.parametrize("mode", ["running_max", "row_max"])
 @pytest.mark.parametrize("name", sorted(WIDE_CASES))
 def test_flash_wide_forward_matches_plain(cuda_device, name, mode):
-    """The bf16 forward at D = 288 (272 runs at 288) on the tensor cores
-    (``flash_fwd_wide_kernel``) against its plain version over the wide
-    bodies' cases, with the running max and with a caller's ``row_max``
-    (the true row max + 5; that mode takes no bias, so the bias cases run
-    there without theirs): O's max abs over the plain's at the bf16 gate,
-    L at the lse gate, -inf exactly where the plain has it; one launch a
-    call; two calls equal bit for bit."""
+    """The bf16 forward at D = 288 (272 runs at 288) and 576 (320 runs at
+    576) on the tensor cores (``flash_fwd_wide_kernel``,
+    ``flash_fwd_latent_kernel``) against its plain version over the wide
+    and latent bodies' cases, with the running max and with a caller's
+    ``row_max`` (the true row max + 5; that mode takes no bias, so the
+    bias cases run there without theirs): O's max abs over the plain's at
+    the bf16 gate, L at the lse gate, -inf exactly where the plain has it;
+    one launch a call; two calls equal bit for bit."""
     b, hq, hkv, sq, skv, d, mask, ranges, bias_shape, inter = WIDE_CASES[
         name]
     static = mode == "row_max"
@@ -562,8 +604,9 @@ def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
     """The C launchers' routing (fwd_tc, mfa::dq_tc, dkv_tc, as the
     library reports it) agrees with fwd_body / dq_body / dkv_body at every
     built width: the bf16 forward, dQ and dK/dV at every width on the
-    tensor cores (288 on flash_fwd_wide_kernel and the wide bodies), fp32
-    on the scalar bodies."""
+    tensor cores (288 on flash_fwd_wide_kernel and the wide bodies, 576 on
+    flash_fwd_latent_kernel and the latent bodies), fp32 on the scalar
+    bodies."""
     import ctypes
 
     from metal_flash_attention_plus_tpu_torch import _build
@@ -575,7 +618,7 @@ def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
     bodies = _build.kernel_function("mfa_flash_tc_bodies",
                                     [ctypes.c_int, ctypes.c_int])
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (32, 64, 128, 256, 288):
+        for d in (32, 64, 128, 256, 288, 576):
             bits = bodies(DTYPE_CODES[dtype], d)
             want = [f(dtype, d) == "tensor_core" for f in (
                 fwd_body, fbwd.dq_body, fbwd.dkv_body)]
@@ -583,6 +626,24 @@ def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
             bf16 = dtype == torch.bfloat16
             assert want == [bf16, bf16, bf16]
     assert bodies(DTYPE_CODES[torch.bfloat16], 48) == -1
+    assert bodies(DTYPE_CODES[torch.bfloat16], 592) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_reject_head_dims_past_576(cuda_device, dtype):
+    """592 is past DeepSeek's absorbed width: the forward, dQ and dK/dV
+    wrappers raise on a CUDA tensor and launch nothing."""
+    (q, k, v), do, _, rr = _flash_case(cuda_device, dtype, 1, 4, 1, 64, 64,
+                                       592, masking.CAUSAL)
+    lse = torch.zeros(1, 4, 64, device=cuda_device)
+    n = (flash_fwd.launches, flash_dq.launches, flash_dkv.launches)
+    for call in (lambda: flash_fwd(q, k, v, rr, scale=0.125),
+                 lambda: flash_dq(q, k, v, do, lse, lse, rr, scale=0.125),
+                 lambda: flash_dkv(q, k, v, do, lse, lse, rr, scale=0.125)):
+        with pytest.raises(ValueError, match="has no flash kernel"):
+            call()
+    assert (flash_fwd.launches, flash_dq.launches, flash_dkv.launches) == n
 
 
 @pytest.mark.cuda

@@ -61,6 +61,9 @@ CASES = {
     # MLA's latent attention: 16 query heads over one KV head at D = 288.
     "mla_d288": (1, 16, 1, 128, 128, 288, (tm.CAUSAL, jm.CAUSAL, None),
                  False),
+    # DeepSeek-V2's absorbed width 512 + 64.
+    "mla_d576": (1, 16, 1, 128, 128, 576, (tm.CAUSAL, jm.CAUSAL, None),
+                 False),
 }
 
 
