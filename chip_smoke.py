@@ -275,7 +275,8 @@ checkout, then, on the card:
    forward (``qattn_fwd_wide_kernel``) over int8 and int4 (two packing
    groups a row) ROW CENTERED, folded ROW / CHANNEL / TENSOR, BLOCK_2D,
    an int8 Q with int8 P over block_kv spans of 128 and 256 and with a
-   ROW V, bias, a causal window and an fp32 Q (the scalar body); the
+   ROW V, bias, a causal window and an fp32 Q (the scalar body; also
+   quantized to int8); the
    exact dQ and dK/dV (``qflash_dq_wide_kernel``,
    ``qflash_dkv_wide_kernel`` and the merge of its group split; fp32 on
    the scalar bodies) in those modes with dbias; the full-integer pair at
@@ -300,7 +301,8 @@ checkout, then, on the card:
    its plain version at S=8192; (d) the new kernels alone at (b)'s shape,
    events and device ms beside their bounds, plain versions and SDPA over
    the dequantized bf16 K/V (the forward also with an int8 Q, the
-   full-integer pair at level 2 too);
+   full-integer pair at level 2 too), with ``--parent`` also on the
+   parent's library, in turns;
 20. MLA serving at DeepSeek's absorbed width 576 (inputs from a
    fourteenth generator, seed + 13): (a) both paged kernels at Hq=16 over
    the one latent head, D=576 with one-state pages and v_tail_zero=64, at
@@ -345,7 +347,33 @@ checkout, then, on the card:
    causal) by events and device ms beside their bounds, plain versions
    and SDPA (its backend named), and the merge at its workspace.  The
    parent builds no 576 instance, so ``--parent`` times none of them in
-   turns (phase 12 times the 288 trio in turns).
+   turns (phase 12 times the 288 trio in turns);
+22. the quantized latent attention at DeepSeek's absorbed width 576
+   (inputs from a sixteenth generator, seed + 21): (a) every quantized
+   kernel at D=576, 512 and 320 (both run at 576), Hq=16 over the one
+   latent head, S=300, in phase 19 (a)'s modes (an fp32 Q quantized to
+   int8 added there too) without the full-integer pair: the forward
+   (``qattn_fwd_latent_kernel`` for a bf16 or int8 Q; the 32-row scalar
+   body for an fp32 Q), the exact dQ and dK/dV (``qflash_dq_latent_kernel``,
+   ``qflash_dkv_latent_kernel`` and the merge; the 32-row scalar bodies for
+   fp32), each twice, bit for bit, at phase 19's gates; (b) a one-layer
+   copy of ``V2_LITE`` (its widths; weights drawn on the card from the
+   seed) on B=2 x 2048 tokens: the absorbed query [2, 16, 2048, 576] over
+   the joint [C | K_rope] int8 ROW SYMMETRIC latent and [C | 0] as V
+   through ``quantized_flash_attention`` (causal; with ``quantize_q``) and
+   ``QuantizedAttention``, and ``mla_absorbed_attention`` over the bare 512
+   latent (int8 ROW, 16 heads of 128), forward and backward, the launch
+   counts set to 0 just before each call and read after (one forward, one
+   dQ, one dK/dV and its merge; the facade's two row quantizers); dq and
+   the scale cotangents against the fp32 dense VJP on the dequantized
+   latent at rel L2 ≤ 0.05, each launched kernel against its plain version
+   on the call's own inputs; ``bwd_fullint=True`` on operands the
+   full-integer backward takes (no mask, SYMMETRIC ROW K, CHANNEL V)
+   raising ``ValueError`` after its forward; the profiler's kernel names;
+   (c) phase 19 (c)'s 32K construction at 576 (d_c = 512); (d) the three
+   kernels alone at (b)'s shape beside their bounds, plain versions and
+   SDPA (MATH at 576).  With ``--parent``, phase 19 (d) times the 288
+   quantized kernels on the parent's library too, in turns.
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -5519,14 +5547,15 @@ WIDE_QREDESIGNED = {
 WIDE_PATH_CALLS = ("exact", "quantize_q", "fullint", "facade")
 
 
-def check_wide_kernels_all(rng):
-    """(a) Every wide kernel against its plain version at D = 288 and 272
-    (Hq=8 over Hkv=1, S=300, as MLA's group), two calls bit for bit: the
-    forward in int8 / int4 dequant, folded ROW / CHANNEL / TENSOR,
-    BLOCK_2D, an int8 Q with int8 P over block_kv spans of 128 and 256,
-    bias, a sliding window and an fp32 Q; the exact dQ and dK/dV in those
-    modes with dbias; the full-integer pair at levels 1 and 2.  →
-    {label: errors} (a check whose two calls differ raises)."""
+def check_quantized_width(rng, d, shape, errs, fullint=True):
+    """Every quantized kernel at head dim ``d`` against its plain version
+    at ``shape`` (B, Hq, Hkv, S, S), two calls bit for bit: the forward in
+    int8 / int4 dequant, folded ROW / CHANNEL / TENSOR, BLOCK_2D, an int8
+    Q with int8 P over block_kv spans of 128 and 256, an int8 Q over ROW
+    V, bias, a sliding window, an fp32 Q and an fp32 Q quantized to int8;
+    the exact dQ and dK/dV in those modes with dbias; with ``fullint`` the
+    full-integer pair at levels 1 and 2.  Into ``errs``, {label: errors}
+    (a check whose two calls differ raises)."""
     row8, row8c, row4c = qcfg(), qcfg(strategy="centered"), qcfg(
         bits=4, strategy="centered")
     ten8, ch8, ch4 = qcfg(gran="tensor"), qcfg(gran="channel"), qcfg(
@@ -5534,64 +5563,78 @@ def check_wide_kernels_all(rng):
     b2d = qcfg(gran="block_2d", strategy="centered", block_rows=4,
                block_size=16)
     window = masking.sliding_window(96, causal=True)
-    shape = (2, 8, 1, 300, 300)
+    bias = (1,) + shape[1:2] + shape[3:]
+    for label, kcfg, vcfg, opts in (
+            ("int8 ROW CENTERED", row8c, row8c, {}),
+            ("int4 ROW CENTERED", row4c, row4c, {}),
+            ("folded ROW", row8, row8, {}),
+            ("folded CHANNEL int4 K", ch4, ch8, {}),
+            ("folded TENSOR", ten8, ten8, {}),
+            ("BLOCK_2D 16", b2d, b2d, {}),
+            ("int8 Q / int8 P, 128-key spans", row8, ch8,
+             dict(quantize_q=True, block_kv=128)),
+            ("int8 Q / int8 P, 256-key spans", row8, ch8,
+             dict(quantize_q=True, block_kv=256)),
+            ("int8 Q, ROW V", row8, row8, dict(quantize_q=True)),
+            ("bias", row8c, row8c, dict(bias_shape=bias)),
+            ("window-causal", row8c, row4c, dict(mask=window)),
+            ("fp32 Q", row8c, row4c, dict(dtype=torch.float32)),
+            ("fp32 Q to int8", row8, row4c,
+             dict(dtype=torch.float32, quantize_q=True))):
+        errs[f"fwd d{d} {label}"] = check_qattn(
+            rng, f"D={d} {label}", *shape, d, kcfg, vcfg, repeat=True,
+            **opts)
+    for label, kcfg, vcfg, opts in (
+            ("int8 ROW CENTERED", row8c, row8c, {}),
+            ("int4 ROW CENTERED", row4c, row4c, {}),
+            ("folded ROW", row8, row8, {}),
+            ("folded CHANNEL int4", ch4, ch4, {}),
+            ("folded TENSOR", ten8, ten8, {}),
+            ("BLOCK_2D 16", b2d, b2d, {}),
+            ("bias-dbias", row8c, row8c, dict(bias_shape=bias)),
+            ("window-causal", row8c, row4c, dict(mask=window)),
+            ("fp32", row8c, row4c, dict(dtype=torch.float32))):
+        errs[f"qflash d{d} {label}"] = check_qflash(
+            rng, f"D={d} {label}", *shape, d, kcfg, vcfg, repeat=True,
+            **opts)
+    if not fullint:
+        return
+    spans = BlockSizes(block_kv_dq=128, block_q_dkv=128)
+    for label, kcfg, vcfg in (("ROW K / CHANNEL V", row8, ch8),
+                              ("TENSOR K / TENSOR V", ten8, ten8)):
+        for level2 in (False, True):
+            errs[f"fullint d{d} {label} l{2 if level2 else 1}"] = (
+                check_fullint(rng, f"D={d} {label}", 1, 8, 1, 512, d,
+                              kcfg, vcfg, level2, spans, repeat=True))
+
+
+def check_wide_kernels_all(rng):
+    """(a) Every wide kernel against its plain version at D = 288 and 272
+    (Hq=8 over Hkv=1, S=300, as MLA's group), two calls bit for bit
+    (check_quantized_width), and the level-2 full-integer pair at spans
+    below one k step.  → {label: errors}."""
     errs = {}
     for d in (MLA_QD, 272):
-        for label, kcfg, vcfg, opts in (
-                ("int8 ROW CENTERED", row8c, row8c, {}),
-                ("int4 ROW CENTERED", row4c, row4c, {}),
-                ("folded ROW", row8, row8, {}),
-                ("folded CHANNEL int4 K", ch4, ch8, {}),
-                ("folded TENSOR", ten8, ten8, {}),
-                ("BLOCK_2D 16", b2d, b2d, {}),
-                ("int8 Q / int8 P, 128-key spans", row8, ch8,
-                 dict(quantize_q=True, block_kv=128)),
-                ("int8 Q / int8 P, 256-key spans", row8, ch8,
-                 dict(quantize_q=True, block_kv=256)),
-                ("int8 Q, ROW V", row8, row8, dict(quantize_q=True)),
-                ("bias", row8c, row8c, dict(bias_shape=(1, 8, 300, 300))),
-                ("window-causal", row8c, row4c, dict(mask=window)),
-                ("fp32 Q", row8c, row4c, dict(dtype=torch.float32))):
-            errs[f"fwd d{d} {label}"] = check_qattn(
-                rng, f"D={d} {label}", *shape, d, kcfg, vcfg, repeat=True,
-                **opts)
-        for label, kcfg, vcfg, opts in (
-                ("int8 ROW CENTERED", row8c, row8c, {}),
-                ("int4 ROW CENTERED", row4c, row4c, {}),
-                ("folded ROW", row8, row8, {}),
-                ("folded CHANNEL int4", ch4, ch4, {}),
-                ("folded TENSOR", ten8, ten8, {}),
-                ("BLOCK_2D 16", b2d, b2d, {}),
-                ("bias-dbias", row8c, row8c,
-                 dict(bias_shape=(1, 8, 300, 300))),
-                ("window-causal", row8c, row4c, dict(mask=window)),
-                ("fp32", row8c, row4c, dict(dtype=torch.float32))):
-            errs[f"qflash d{d} {label}"] = check_qflash(
-                rng, f"D={d} {label}", *shape, d, kcfg, vcfg, repeat=True,
-                **opts)
-        spans = BlockSizes(block_kv_dq=128, block_q_dkv=128)
-        for label, kcfg, vcfg in (("ROW K / CHANNEL V", row8, ch8),
-                                  ("TENSOR K / TENSOR V", ten8, ten8)):
-            for level2 in (False, True):
-                errs[f"fullint d{d} {label} l{2 if level2 else 1}"] = (
-                    check_fullint(rng, f"D={d} {label}", 1, 8, 1, 512, d,
-                                  kcfg, vcfg, level2, spans, repeat=True))
+        check_quantized_width(rng, d, (2, 8, 1, 300, 300), errs)
     # Level-2 spans below one k step (S=144: 16 wide): the __dp4a pair.
     errs[f"fullint d{MLA_QD} w16 l2"] = check_fullint(
         rng, f"D={MLA_QD} ROW K / CHANNEL V, S=144", 1, 8, 1, 144, MLA_QD,
-        row8, ch8, True, BlockSizes(block_kv_dq=512, block_q_dkv=512),
-        repeat=True)
+        qcfg(), qcfg(gran="channel"), True,
+        BlockSizes(block_kv_dq=512, block_q_dkv=512), repeat=True)
     log(f"phase 19 (a): {len(errs)} checks, each bit for bit on a repeat")
     return errs
 
 
-def mla_joint_operands(seed):
-    """MLAConfig()'s layer 0 (bf16 weights from the seed, as phase 15 draws
-    them) on one seeded batch of B=2 x S=2048 tokens: the absorbed query
-    [q·W_uk | q_rope] [2, 16, 2048, 288] bf16, the joint latent
-    [C | K_rope] and [C | 0], fp32 [2, 1, 2048, 288]."""
-    cfg = MLAConfig()
-    params = init_mla_params(cfg, torch.Generator().manual_seed(seed),
+def mla_joint_operands(seed, cfg=None, gen=None, absorbed=False):
+    """``cfg``'s layer 0 (MLAConfig()'s by default; bf16 weights from the
+    seed, as phase 15 draws them, on ``gen`` where given) on one seeded
+    batch of B=2 x S=2048 tokens: the absorbed query [q·W_uk | q_rope]
+    [2, 16, 2048, d_c + d_r] bf16, the joint latent [C | K_rope] and
+    [C | 0], fp32 [2, 1, 2048, d_c + d_r]; with ``absorbed`` also the
+    operands of ``mla_absorbed_attention`` over the bare latent: q (NoPE)
+    [2, 16, 2048, d_h], C [2, 2048, d_c] fp32, W_uk, W_uv."""
+    cfg = cfg or MLAConfig()
+    params = init_mla_params(cfg, gen or torch.Generator().manual_seed(seed),
                              device=DEV)
     layer = params["layers"][0]
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
@@ -5606,11 +5649,12 @@ def mla_joint_operands(seed):
     c, kr = c_kv.float()[:, None], k_rope.float()[:, None]
     k = torch.cat([c, kr], dim=-1).contiguous()
     v = torch.cat([c, torch.zeros_like(kr)], dim=-1).contiguous()
+    bare = (q, c_kv.float(), layer["w_uk"], layer["w_uv"])
     del params
-    return q_lat, k, v
+    return (q_lat, k, v) + ((bare,) if absorbed else ())
 
 
-def wide_path_call(kind, k, v, kq, vq, vq_ch):
+def wide_path_call(kind, k, v, kq, vq, vq_ch, scale=MLA_SCALE):
     """(the call as a function of (q, K scale, V scale), its mask, its K/V
     as the kernels see them, whether it quantizes Q, whether its backward
     is full-integer).  The scales go into the K/V by
@@ -5619,7 +5663,7 @@ def wide_path_call(kind, k, v, kq, vq, vq_ch):
     if kind == "facade":
         attn = QuantizedAttention(
             QuantizedAttentionConfig(key_bits=8, value_bits=8),
-            mask=masking.CAUSAL, scale=MLA_SCALE)
+            mask=masking.CAUSAL, scale=scale)
         kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
 
         def facade(q, ks, vs):  # the facade's __call__, scales as leaves
@@ -5633,17 +5677,17 @@ def wide_path_call(kind, k, v, kq, vq, vq_ch):
     fullint, quantize_q = kind == "fullint", kind == "quantize_q"
     cvq = vq_ch if fullint else vq
     mask = masking.FULL if fullint else masking.CAUSAL
-    return (quantized_call(kq, cvq, mask, quantize_q, fullint), mask,
+    return (quantized_call(kq, cvq, mask, quantize_q, fullint, scale), mask,
             (kq, cvq), quantize_q, fullint)
 
 
-def quantized_call(kq, vq, mask, quantize_q, fullint):
+def quantized_call(kq, vq, mask, quantize_q, fullint, scale=MLA_SCALE):
     """``quantized_flash_attention`` over (kq, vq) as a function of (q, K
     scale, V scale)."""
     def call(q, ks, vs):
         return tqa.quantized_flash_attention(
             q, dataclasses.replace(kq, scale=ks),
-            dataclasses.replace(vq, scale=vs), mask=mask, scale=MLA_SCALE,
+            dataclasses.replace(vq, scale=vs), mask=mask, scale=scale,
             quantize_q=quantize_q, bwd_fullint=fullint)
 
     return call
@@ -5659,29 +5703,29 @@ def wide_call_grads(fn, q, kq, vq, do):
     return o.detach(), grads
 
 
-def wide_kv_grads(q, kq, vq, do, mask, quantize_q, fullint):
+def wide_kv_grads(q, kq, vq, do, mask, quantize_q, fullint,
+                  scale=MLA_SCALE):
     """dK, dV (with respect to the dequantized K/V) of
     ``flash_attention_backward``, the backward the path's autograd
     Function runs, on the residuals of the call's forward."""
     o, lse = quantized_flash_attention_forward(
-        q, kq, vq, mask=mask, scale=MLA_SCALE, quantize_q=quantize_q)
+        q, kq, vq, mask=mask, scale=scale, quantize_q=quantize_q)
     return fbwd.flash_attention_backward(q, kq, vq, o, lse, do, mask=mask,
-                                         scale=MLA_SCALE,
-                                         fullint=fullint)[1:3]
+                                         scale=scale, fullint=fullint)[1:3]
 
 
 def wide_call_kernels(label, q, kq, vq, do, mask, quantize_q, fullint,
-                      o_path):
+                      o_path, scale=MLA_SCALE):
     """The call's O against the plain forward on its own inputs, and the
     kernels the call launched, rebuilt on those inputs and held to their
     plain versions → ({name: errors}, the kernels' arguments)."""
     s = q.shape[2]
-    f_args, f_kw = qattn_arguments(q, kq, vq, mask=mask, scale=MLA_SCALE,
+    f_args, f_kw = qattn_arguments(q, kq, vq, mask=mask, scale=scale,
                                    quantize_q=quantize_q)
     f_kw["kv_tile"] = main_path_tile(f_kw, s)
     o, lse = qattn_fwd(*f_args, **f_kw)
     torch.cuda.synchronize()
-    body = qattn_body(f_args[0].dtype, f_kw["mode"], d=MLA_QD)
+    body = qattn_body(f_args[0].dtype, f_kw["mode"], d=q.shape[-1])
     o_plain, lse_plain = qattn_fwd_plain(
         *f_args, **{**f_kw, "kv_tile": f_kw["kv_tile"] or KV_TILE})
     errs = {"qattn_fwd": check_pair(f"{label}: qattn_fwd ({body})", (o, lse),
@@ -5696,12 +5740,12 @@ def wide_call_kernels(label, q, kq, vq, do, mask, quantize_q, fullint,
     di = (do.float() * o).sum(-1)
     if fullint:
         (a1, k1), (a2, k2) = fbwd.fullint_arguments(
-            q, kq, vq, None, lse, do, scale=MLA_SCALE, di=di)
+            q, kq, vq, None, lse, do, scale=scale, di=di)
         names = ("fullint_dq", "fullint_dkv")
     else:
         rr = row_ranges_tensor(mask, s, s, None, DEV)
         (a1, k1), (a2, k2) = fbwd.qflash_arguments(
-            q, kq, vq, do.to(q.dtype), lse, di, rr, scale=MLA_SCALE)
+            q, kq, vq, do.to(q.dtype), lse, di, rr, scale=scale)
         names = ("qflash_dq", "qflash_dkv")
     args = {"qattn_fwd": (f_args, f_kw), names[0]: (a1, k1),
             names[1]: (a2, k2)}
@@ -5720,6 +5764,69 @@ def wide_call_kernels(label, q, kq, vq, do, mask, quantize_q, fullint,
 
 WIDE_COUNTED = (qattn_fwd, fbwd.qflash_dq, fbwd.qflash_dkv, fbwd.fullint_dq,
                 fbwd.fullint_dkv, fbwd.merge_dkv_splits, rtq.rtq_rows)
+
+
+def check_joint_calls(label, kinds, q_lat, k, v, kq, vq, vq_ch, do, out,
+                      scale=MLA_SCALE):
+    """Each call of ``kinds`` (wide_path_call's) over the joint latent,
+    forward and backward, the counts set to 0 just before and read after
+    (one forward, one dQ, one dK/dV and its merge, or the full-integer
+    pair; the facade's two row quantizers); dq and K's and V's scale
+    cotangents from autograd, and dK, dV from the backward on the call's
+    residuals, against the dense fp32 VJP on the dequantized K/V (the
+    full-integer ones against the exact call on the same operands); the
+    call's O and each launched kernel against its plain version on the
+    call's inputs.  Into ``out``."""
+    names = ("dq", "dk_scale", "dv_scale", "dk", "dv")
+    for kind in kinds:
+        fn, mask, (ckq, cvq), quantize_q, fullint = wide_path_call(
+            kind, k, v, kq, vq, vq_ch, scale)
+        for f in WIDE_COUNTED:
+            f.launches = 0
+        t0 = time.perf_counter()
+        o, grads = wide_call_grads(fn, q_lat, ckq, cvq, do)
+        torch.cuda.synchronize()
+        out["seconds"][kind] = time.perf_counter() - t0
+        counts = {f.__name__: f.launches for f in WIDE_COUNTED if f.launches}
+        out["launches"][kind] = counts
+        want_counts = {"qattn_fwd": 1,
+                       **({"fullint_dq": 1, "fullint_dkv": 1} if fullint else
+                          {"qflash_dq": 1, "qflash_dkv": 1,
+                           "merge_dkv_splits": 1}),
+                       **({"rtq_rows": 2} if kind == "facade" else {})}
+        log(f"{label}, {kind}: launches {json.dumps(counts)}, "
+            f"{out['seconds'][kind]:.3f} s (first call)")
+        if counts != want_counts or not (torch.isfinite(o.float()).all()
+                                         and o.shape == q_lat.shape):
+            raise AssertionError(f"{label} {kind}: launches {counts}, "
+                                 f"expected {want_counts}")
+        with torch.no_grad():
+            got = (*grads, *wide_kv_grads(q_lat, ckq, cvq, do, mask,
+                                          quantize_q, fullint, scale))
+            if fullint:  # the exact call on the same operands
+                exact = quantized_call(ckq, cvq, mask, False, False, scale)
+                want = (*wide_call_grads(exact, q_lat, ckq, cvq, do)[1],
+                        *wide_kv_grads(q_lat, ckq, cvq, do, mask, False,
+                                       False, scale))
+            else:
+                dq, dk, dv = reference_attention_vjp(
+                    q_lat, dequantize(ckq), dequantize(cvq), do, mask=mask,
+                    scale=scale)
+                want = (dq, tqa._scale_zp_cotangents(dk, ckq)[0],
+                        tqa._scale_zp_cotangents(dv, cvq)[0], dk, dv)
+            out["grads_rel_l2"][kind] = gate_grads(
+                f"{label}, {kind}: dq, K's and V's scale cotangents "
+                "(autograd) and dK, dV (the backward on the call's "
+                "residuals) vs "
+                + ("the exact call on the same operands" if fullint else
+                   "the fp32 dense VJP on the dequantized K/V"),
+                got, want, names)
+            del got, want
+            errs, _ = wide_call_kernels(f"{label}, {kind}", q_lat.detach(),
+                                        ckq, cvq, do, mask, quantize_q,
+                                        fullint, o, scale)
+        out["kernels"][kind] = errs
+        del o, grads
 
 
 def run_wide_path(seed):
@@ -5742,56 +5849,8 @@ def run_wide_path(seed):
                     "SYMMETRIC [2, 1, 2048, 288], [C | 0] int8 ROW (CHANNEL "
                     "for the full-integer call), MLAConfig() layer 0, seed "
                     f"{seed}"}
-    names = ("dq", "dk_scale", "dv_scale", "dk", "dv")
-    for kind in WIDE_PATH_CALLS:
-        fn, mask, (ckq, cvq), quantize_q, fullint = wide_path_call(
-            kind, k, v, kq, vq, vq_ch)
-        for f in WIDE_COUNTED:
-            f.launches = 0
-        t0 = time.perf_counter()
-        o, grads = wide_call_grads(fn, q_lat, ckq, cvq, do)
-        torch.cuda.synchronize()
-        out["seconds"][kind] = time.perf_counter() - t0
-        counts = {f.__name__: f.launches for f in WIDE_COUNTED if f.launches}
-        out["launches"][kind] = counts
-        want_counts = {"qattn_fwd": 1,
-                       **({"fullint_dq": 1, "fullint_dkv": 1} if fullint else
-                          {"qflash_dq": 1, "qflash_dkv": 1,
-                           "merge_dkv_splits": 1}),
-                       **({"rtq_rows": 2} if kind == "facade" else {})}
-        log(f"MLA joint latent, {kind}: launches {json.dumps(counts)}, "
-            f"{out['seconds'][kind]:.3f} s (first call)")
-        if counts != want_counts or not (torch.isfinite(o.float()).all()
-                                         and o.shape == q_lat.shape):
-            raise AssertionError(f"wide path {kind}: launches {counts}, "
-                                 f"expected {want_counts}")
-        with torch.no_grad():
-            got = (*grads, *wide_kv_grads(q_lat, ckq, cvq, do, mask,
-                                          quantize_q, fullint))
-            if fullint:  # the exact call on the same operands
-                exact = quantized_call(ckq, cvq, mask, False, False)
-                want = (*wide_call_grads(exact, q_lat, ckq, cvq, do)[1],
-                        *wide_kv_grads(q_lat, ckq, cvq, do, mask, False,
-                                       False))
-            else:
-                dq, dk, dv = reference_attention_vjp(
-                    q_lat, dequantize(ckq), dequantize(cvq), do, mask=mask,
-                    scale=MLA_SCALE)
-                want = (dq, tqa._scale_zp_cotangents(dk, ckq)[0],
-                        tqa._scale_zp_cotangents(dv, cvq)[0], dk, dv)
-            out["grads_rel_l2"][kind] = gate_grads(
-                f"MLA joint latent, {kind}: dq, K's and V's scale "
-                "cotangents (autograd) and dK, dV (the backward on the "
-                "call's residuals) vs "
-                + ("the exact call on the same operands" if fullint else
-                   "the fp32 dense VJP on the dequantized K/V"),
-                got, want, names)
-            del got, want
-            errs, _ = wide_call_kernels(f"MLA joint latent, {kind}",
-                                        q_lat.detach(), ckq, cvq, do, mask,
-                                        quantize_q, fullint, o)
-        out["kernels"][kind] = errs
-        del o, grads
+    check_joint_calls("MLA joint latent", WIDE_PATH_CALLS, q_lat, k, v, kq,
+                      vq, vq_ch, do, out)
     # The device kernels, by name, of the exact and the full-integer calls;
     # a trace that recorded no kernel (PERF.md §7) is taken again.
     steps = []
@@ -5826,16 +5885,18 @@ def run_wide_path(seed):
     return out, (q_lat, kq, vq, vq_ch, do)
 
 
-def run_wide_long_context(rng):
-    """(c) Phase 17's 32K construction over the joint 288-wide latent:
+def run_wide_long_context(rng, width=MLA_QD, dc=LONG_SHAPE[4],
+                          scale=MLA_SCALE):
+    """(c) Phase 17's 32K construction over the joint latent of ``width``
+    lanes (MLA's 288: d_c = 256; phase 22: DeepSeek's 576, d_c = 512):
     ``quantized_flash_attention_forward`` at B=1, H=8, S=32768 over
     [C | K_rope] and [C | 0] quantized int8 ROW CENTERED, a causal window
     of 4096: one launch, a finite output; then the kernel against its plain
     version at S = LONG_PLAIN_S on the arguments the path builds."""
-    b, h, s, _, dc = LONG_SHAPE
-    dr = MLA_QD - dc
+    b, h, s = LONG_SHAPE[:3]
+    dr = width - dc
     g = device_generator(rng)
-    q = torch.randn((b, h, s, MLA_QD), generator=g, device=DEV).to(
+    q = torch.randn((b, h, s, width), generator=g, device=DEV).to(
         torch.bfloat16)
     c = torch.randn((b, 1, s, dc), generator=g, device=DEV)
     kr = torch.randn((b, 1, s, dr), generator=g, device=DEV)
@@ -5849,7 +5910,7 @@ def run_wide_long_context(rng):
     qattn_fwd.launches = 0
     t0 = time.perf_counter()
     o, _ = quantized_flash_attention_forward(q, kq, vq, mask=mask,
-                                             scale=MLA_SCALE)
+                                             scale=scale)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = qattn_fwd.launches
@@ -5857,46 +5918,49 @@ def run_wide_long_context(rng):
     n = LONG_PLAIN_S
     ks, vs = quantize(k[:, :, :n], row8c), quantize(v[:, :, :n], row8c)
     args, kw = qattn_arguments(q[:, :, :n], ks, vs, mask=mask,
-                               scale=MLA_SCALE)
+                               scale=scale)
     tile = main_path_tile(kw, n)
     got = qattn_fwd(*args, **kw, kv_tile=tile)
     torch.cuda.synchronize()
     errs = check_pair(f"qattn_fwd {kw['mode'].k_scales} K, causal window "
-                      f"{LONG_WINDOW}, Hq={h} over Hkv=1, D={MLA_QD} "
+                      f"{LONG_WINDOW}, Hq={h} over Hkv=1, D={width} "
                       f"(joint latent), S={n}", got,
                       qattn_fwd_plain(*args, **kw, kv_tile=tile or KV_TILE))
-    log(f"long context at D={MLA_QD} (B={b} H={h} S={s}, int8 ROW CENTERED "
+    log(f"long context at D={width} (B={b} H={h} S={s}, int8 ROW CENTERED "
         f"[C | K_rope], window {LONG_WINDOW}): qattn_fwd launches "
         f"{launches}, output {tuple(o.shape)} finite {finite}, "
         f"{seconds:.3f} s (first call)")
-    if launches != 1 or not finite or o.shape != (b, h, s, MLA_QD):
-        raise AssertionError(f"long context D={MLA_QD}: launches {launches},"
+    if launches != 1 or not finite or o.shape != (b, h, s, width):
+        raise AssertionError(f"long context D={width}: launches {launches},"
                              f" finite {finite}, shape {tuple(o.shape)}")
     return {"launches": launches, "finite": finite, "seconds": seconds,
             "kernel_vs_plain_s8192": errs}
 
 
-def time_wide_kernels(path_inputs):
+def time_wide_kernels(path_inputs, scale=MLA_SCALE):
     """(d) The new kernels alone at (b)'s shape, each on the arguments its
     call built: events and the profiler's device ms (by kernel), the bound,
     the plain version's ms, and SDPA's forward / backward over the
     dequantized bf16 K/V as the library yardstick.  The forward and the
     exact pair in the exact call's mode (folded ROW K / ROW V, causal), the
-    forward also with an int8 Q; the full-integer pair at levels 1 and 2
-    (FULL, ROW K / CHANNEL V)."""
+    forward also with an int8 Q; at 288 (phase 19) the full-integer pair
+    at levels 1 and 2 (FULL, ROW K / CHANNEL V; ``vq_ch`` None at 576,
+    where the pair has no kernel) and, with ``--parent``, each kernel on
+    the parent's library too, in turns.  Entries "{family}_wide" at 288,
+    "{family}_latent" at 576."""
     q, kq, vq, vq_ch, do = path_inputs
     b, h, s, d = q.shape
+    fam = "wide" if d <= 288 else "latent"
     hkv = kq.shape[1]
     causal, full = b * h * s * (s + 1) // 2, b * h * s * s
     n_q, n_kv, rows = b * h * s * d, b * hkv * s * d, b * h * s
-    kd, vd, vd_ch = (dequantized_bf16(t) for t in (kq, vq, vq_ch))
+    kd, vd = dequantized_bf16(kq), dequantized_bf16(vq)
 
     def sdpa_bwd(vd_, causal_):
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, kd, vd_))
         with torch.enable_grad():
             out = F.scaled_dot_product_attention(
-                qg, kg, vg, is_causal=causal_, enable_gqa=True,
-                scale=MLA_SCALE)
+                qg, kg, vg, is_causal=causal_, enable_gqa=True, scale=scale)
         return lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                            retain_graph=True)
 
@@ -5906,65 +5970,74 @@ def time_wide_kernels(path_inputs):
         t["ms_2"] = time_ms(kernel, 5, warmup=0)
         t["library_ms"] = time_ms(library, 3, warmup=1)
         # The profiler at times records no kernel of a call (§7 of
-        # PERF.md); a second trace then takes its place.
+        # PERF.md); a second trace then takes its place, and where that
+        # records no launch of the call's own kernel either (the merge
+        # aside), the held events' time stands in.
         by = device_ms_by_kernel(kernel, 5) or device_ms_by_kernel(kernel, 5)
         t["library_device_ms"] = sum(device_ms_by_kernel(library, 3).values())
-        t["device_ms"] = sum(by.values())
         t["device_ms_by_kernel"] = {kernel_label(k): v for k, v in by.items()}
+        t["device_ms"] = (
+            sum(by.values())
+            if set(t["device_ms_by_kernel"]) - {"flash_dkv_merge_kernel"}
+            else measure_held(kernel, iters=5, warmup=0) * 1e3)
         t["bound_ms"], t["bound_by"] = bound
+        if fam == "wide":  # the parent's library has these kernels
+            parent_turns(f"{name} (D={d})", t, kernel, 5, device=True)
         log(f"{name} times (D={d}): " + json.dumps(t))
         return t
 
     times = {}
     for tag, qq in (("", False), ("_int8_q", True)):
         a, kw = qattn_arguments(q, kq, vq, mask=masking.CAUSAL,
-                                scale=MLA_SCALE, quantize_q=qq)
+                                scale=scale, quantize_q=qq)
         kw["kv_tile"] = main_path_tile(kw, s)
         ops = (2 * d, 2 * d) if qq else (0, 4 * d)
-        t = timed(f"qattn_fwd_wide folded ROW{tag}",
+        t = timed(f"qattn_fwd_{fam} folded ROW{tag}",
                   lambda: qattn_fwd(*a, **kw),
                   lambda: qattn_fwd_plain(*a, **{**kw, "kv_tile": kw[
                       "kv_tile"] or KV_TILE}),
                   lambda: F.scaled_dot_product_attention(
                       q, kd, vd, is_causal=True, enable_gqa=True,
-                      scale=MLA_SCALE),
+                      scale=scale),
                   attn_bound(causal, *ops, (1 if qq else 2) * n_q
                              + 2 * n_kv + 8 * b * hkv * s + 4 * n_q
                              + 4 * rows))
         t["body"] = qattn_body(a[0].dtype, kw["mode"], d=d)
-        times[f"qattn_fwd_wide{tag}"] = t
+        times[f"qattn_fwd_{fam}{tag}"] = t
     o, lse = quantized_flash_attention_forward(q, kq, vq, mask=masking.CAUSAL,
-                                               scale=MLA_SCALE)
+                                               scale=scale)
     di = (do.float() * o).sum(-1)
     rr = row_ranges_tensor(masking.CAUSAL, s, s, None, DEV)
     (e_dq, e_dq_kw), (e_dkv, e_dkv_kw) = fbwd.qflash_arguments(
-        q, kq, vq, do, lse, di, rr, scale=MLA_SCALE)
+        q, kq, vq, do, lse, di, rr, scale=scale)
     lib = sdpa_bwd(vd, True)
     stats = 4 * rows
-    times["qflash_dq_wide"] = timed(
-        "qflash_dq_wide folded ROW",
+    times[f"qflash_dq_{fam}"] = timed(
+        f"qflash_dq_{fam} folded ROW",
         lambda: fbwd.qflash_dq(*e_dq, **e_dq_kw),
         lambda: fbwd.qflash_dq_plain(*e_dq, **e_dq_kw), lib,
         attn_bound(causal, 0, 6 * d, 4 * n_q + 2 * n_kv + 8 * b * hkv * s
                    + 2 * stats + 4 * b * hkv * d + 4 * n_q))
-    times["qflash_dkv_wide"] = timed(
-        "qflash_dkv_wide per-token dequant, its merge included",
+    times[f"qflash_dkv_{fam}"] = timed(
+        f"qflash_dkv_{fam} per-token dequant, its merge included",
         lambda: fbwd.qflash_dkv(*e_dkv, **e_dkv_kw),
         lambda: fbwd.qflash_dkv_plain(*e_dkv, **e_dkv_kw), lib,
         attn_bound(causal, 0, 8 * d, 4 * n_q + 2 * n_kv + 16 * b * hkv * s
                    + 2 * stats + 8 * n_kv))
-    for name in ("qflash_dq_wide", "qflash_dkv_wide"):
+    for name in (f"qflash_dq_{fam}", f"qflash_dkv_{fam}"):
         times[name]["body"] = dq_body(q.dtype, d)
-    times["qflash_dkv_wide"]["splits"] = fbwd.dkv_splits(
+    times[f"qflash_dkv_{fam}"]["splits"] = fbwd.dkv_splits(
         q.dtype, d, b, h, hkv, s, sm_count())
     del lib, e_dq, e_dkv
-    o, lse = quantized_flash_attention_forward(q, kq, vq_ch, scale=MLA_SCALE)
+    if vq_ch is None:
+        return times
+    o, lse = quantized_flash_attention_forward(q, kq, vq_ch, scale=scale)
     di = (do.float() * o).sum(-1)
-    lib = sdpa_bwd(vd_ch, False)
+    lib = sdpa_bwd(dequantized_bf16(vq_ch), False)
     int8_in = 2 * n_q + 2 * n_kv
     for level2 in (False, True):
         (f_dq, f_dq_kw), (f_dkv, f_dkv_kw) = fbwd.fullint_arguments(
-            q, kq, vq_ch, None, lse, do, scale=MLA_SCALE, di=di,
+            q, kq, vq_ch, None, lse, do, scale=scale, di=di,
             int8_grads=level2)
         tag = "_level2" if level2 else ""
         ops_dq = (6 * d, 0) if level2 else (4 * d, 2 * d)
@@ -6583,6 +6656,203 @@ def run_deepseek_training(seed):
     return out, phase
 
 
+# --------------------------------------------------------------------------
+# Phase 22: the quantized latent attention at DeepSeek's absorbed width 576
+# --------------------------------------------------------------------------
+
+# The quantized kernels at 576 (bf16 / int8 Q; fp32 takes the 32-row
+# scalar bodies), by the record entry whose `*_d576` keys carry them.
+LATENT_QKERNELS = {"qattn_fwd": "qattn_fwd_latent_kernel",
+                   "qflash_dq": "qflash_dq_latent_kernel",
+                   "qflash_dkv": "qflash_dkv_latent_kernel"}
+LATENT_QREDESIGNED = {
+    "qattn_fwd": "flash_fwd_latent_kernel's frame over the payload: 8 "
+                 "warps, O's lanes over two warp groups, the two warps of "
+                 "a slab splitting each 32-key step's scores under a named "
+                 "barrier; payload bytes double-buffered by cp.async and "
+                 "widened in shared memory, 230,400 bytes (bf16 Q); an int8 "
+                 "P walks the TPU's block_kv spans twice, its bytes through "
+                 "the slab's P tile",
+    "qflash_dq": "dq_latent_body over the payload: each 32-key tile's K and "
+                 "V rows read and dequantized in registers as they load "
+                 "(no scratch fits beside Q and dO), the folded column "
+                 "scales and store multipliers, 8 warps",
+    "qflash_dkv": "dkv_latent_body over the payload: a CTA's 32 keys of K "
+                  "and V dequantized once as they load, 32-row Q / dO "
+                  "steps, 8 warps, the GQA group dealt over dkv_splits "
+                  "CTAs and summed in split order by flash_dkv_merge_kernel",
+}
+# (b)'s calls: the three over the joint [C | K_rope] latent, as phase 19
+# (b) makes them, and mla_absorbed_attention over the bare 512 latent.
+LATENT_PATH_CALLS = ("exact", "quantize_q", "facade", "absorbed")
+
+
+def check_latent_quantized_all(rng):
+    """(a) Every quantized kernel at 576, and at 512 and 320 (which run at
+    576), Hq=16 over the one latent head, S=300: phase 19 (a)'s modes
+    (check_quantized_width) without the full-integer pair, each twice, bit
+    for bit.  → {label: errors}."""
+    errs = {}
+    for d in (DS_D, 512, 320):
+        check_quantized_width(rng, d, (2, DS_HQ, 1, 300, 300), errs,
+                              fullint=False)
+    log(f"phase 22 (a): {len(errs)} checks, each bit for bit on a repeat")
+    return errs
+
+
+def dense_absorbed_grads(q, c, w_uk, w_uv, do):
+    """The fp32 dense VJP of ``mla_absorbed_attention`` (causal, DS_SCALE)
+    over the latent C [B, S, d_c]: (dq, dC)."""
+    leaves = [t.detach().float().requires_grad_(True) for t in (q, c)]
+    with torch.enable_grad():
+        q_lat = torch.einsum("bhsd,hdc->bhsc", leaves[0], w_uk.float())
+        s = torch.einsum("bhsc,btc->bhst", q_lat, leaves[1]) * DS_SCALE
+        n = s.shape[-1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=DEV).tril()
+        p = torch.softmax(s.masked_fill(~keep, -float("inf")), dim=-1)
+        o = torch.einsum("bhsc,hcd->bhsd",
+                         torch.einsum("bhst,btc->bhsc", p, leaves[1]),
+                         w_uv.float())
+        return torch.autograd.grad(o, leaves, grad_outputs=do.float())
+
+
+def run_latent_path(seed):
+    """(b) The quantized latent path at V2-Lite's layer 0 widths (a
+    one-layer copy of V2_LITE: depth cut, not width): over the joint
+    [C | K_rope] int8 ROW latent ([C | 0] as V), the exact call, the
+    ``quantize_q`` call and the facade; ``mla_absorbed_attention`` over the
+    bare 512 latent, int8 ROW, 16 heads of 128.  The counts set to 0 just
+    before each call's forward and backward and read after; dq and the
+    scale cotangents against the dense fp32 VJP on the dequantized latent;
+    each launched kernel against its plain version on the call's inputs;
+    the full-integer backward on eligible operands raising.  → record."""
+    cfg = dataclasses.replace(V2_LITE, num_layers=1)
+    q_lat, k, v, (qn, c, w_uk, w_uv) = mla_joint_operands(
+        seed, cfg, torch.Generator(device=DEV).manual_seed(seed),
+        absorbed=True)
+    g = torch.Generator(device=DEV).manual_seed(seed + 21)
+    do = torch.randn(q_lat.shape, generator=g, device=DEV).to(q_lat.dtype)
+    row = QuantConfig(granularity=QuantGranularity.ROW)
+    kq, vq = quantize(k, row), quantize(v, row)
+    out = {"launches": {}, "grads_rel_l2": {}, "kernels": {}, "seconds": {},
+           "shape": "q_lat [2, 16, 2048, 576] bf16, [C | K_rope] int8 ROW "
+                    "SYMMETRIC [2, 1, 2048, 576], [C | 0] int8 ROW; the "
+                    "absorbed call: q [2, 16, 2048, 128] bf16 over C int8 "
+                    "ROW [2, 1, 2048, 512]; V2_LITE layer 0, seed "
+                    f"{seed}"}
+    check_joint_calls("V2-Lite joint latent", LATENT_PATH_CALLS[:3], q_lat,
+                      k, v, kq, vq, None, do, out, DS_SCALE)
+    # The absorbed call over the bare latent (run at 576: 512 + 64 zeros).
+    cq = quantize(c[:, None], row)
+    do_n = torch.randn(qn.shape, generator=g, device=DEV).to(qn.dtype)
+
+    def absorbed(x, cs):
+        return mla_absorbed_attention(
+            x, dataclasses.replace(cq, scale=cs), w_uk, w_uv,
+            mask=masking.CAUSAL, scale=DS_SCALE)
+
+    for f in WIDE_COUNTED:
+        f.launches = 0
+    leaves = [t.detach().clone().requires_grad_(True) for t in (qn, cq.scale)]
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        o = absorbed(*leaves)
+        grads = torch.autograd.grad((o.float() * do_n.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    out["seconds"]["absorbed"] = time.perf_counter() - t0
+    counts = {f.__name__: f.launches for f in WIDE_COUNTED if f.launches}
+    out["launches"]["absorbed"] = counts
+    want_counts = {"qattn_fwd": 1, "qflash_dq": 1, "qflash_dkv": 1,
+                   "merge_dkv_splits": 1}
+    log(f"V2-Lite absorbed over the int8 512 latent: launches "
+        f"{json.dumps(counts)}, {out['seconds']['absorbed']:.3f} s")
+    if counts != want_counts or not (torch.isfinite(o.float()).all()
+                                     and o.shape == qn.shape):
+        raise AssertionError(f"latent path absorbed: launches {counts}, "
+                             f"expected {want_counts}")
+    with torch.no_grad():
+        dq, dcl = dense_absorbed_grads(qn, dequantize(cq)[:, 0], w_uk, w_uv,
+                                       do_n)
+        out["grads_rel_l2"]["absorbed"] = gate_grads(
+            "V2-Lite absorbed over the int8 512 latent: dq and the latent's "
+            "scale cotangent vs the fp32 dense VJP on the dequantized "
+            "latent", grads,
+            (dq, tqa._scale_zp_cotangents(dcl[:, None], cq)[0]),
+            ("dq", "c_scale"))
+        del dq, dcl, o, grads
+    # The full-integer backward at 576: eligible operands (SYMMETRIC ROW
+    # K, CHANNEL V, no mask, a bf16 Q) raise instead of running the exact
+    # kernels.
+    vq_ch = quantize(v, QuantConfig(granularity=QuantGranularity.CHANNEL))
+    if not fbwd.fullint_backward_supported(q_lat, kq, vq_ch, masking.FULL,
+                                           None, None):
+        raise AssertionError("the full-integer backward's preconditions "
+                             "do not hold for the 576 check")
+    fi = quantized_call(kq, vq_ch, masking.FULL, False, True, DS_SCALE)
+    for f in WIDE_COUNTED:
+        f.launches = 0
+    try:
+        wide_call_grads(fi, q_lat, kq, vq_ch, do)
+    except ValueError as exc:
+        out["fullint_raises"] = str(exc)
+    else:
+        raise AssertionError("bwd_fullint=True at 576 did not raise")
+    counts = {f.__name__: f.launches for f in WIDE_COUNTED if f.launches}
+    log(f"V2-Lite joint latent, bwd_fullint=True: ValueError "
+        f"({out['fullint_raises']}); launches {json.dumps(counts)}")
+    if counts != {"qattn_fwd": 1}:
+        raise AssertionError(f"bwd_fullint at 576 launched {counts}")
+    # The device kernels, by name, of the exact call's forward and
+    # backward; a trace that recorded no kernel (PERF.md §7) is taken
+    # again.
+    fn, _, kv, *_ = wide_path_call("exact", k, v, kq, vq, None,
+                                   scale=DS_SCALE)
+    for _ in range(3):
+        seen = list(device_ms_by_kernel(
+            lambda: wide_call_grads(fn, q_lat, *kv, do), 2))
+        families = {fam: [n for n in seen if fam in n and (
+                        "576" in n or fam == "flash_dkv_merge_kernel")]
+                    for fam in (*LATENT_QKERNELS.values(),
+                                "flash_dkv_merge_kernel")}
+        if all(families.values()):
+            break
+    log("V2-Lite joint latent, device kernels by the profiler: "
+        + json.dumps({f: [kernel_label(n) for n in ns]
+                      for f, ns in families.items()}))
+    if not all(families.values()):
+        raise AssertionError(f"latent path: kernels missing from the "
+                             f"trace: {families}; traced: "
+                             f"{sorted({kernel_label(n) for n in seen})}")
+    out["device_kernels"] = {f: ns[0][:160] for f, ns in families.items()}
+    return out, (q_lat, kq, vq, None, do)
+
+
+def run_latent_quantized(seed):
+    """Phase 22 (a)-(d), inputs from a sixteenth generator (seed + 21) →
+    (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 21)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["errors"] = check_latent_quantized_all(rng)
+    phase["latent_q_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["path"], path_inputs = run_latent_path(seed)
+    phase["latent_q_path"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["long_context"] = run_wide_long_context(
+            rng, DS_D, V2_LITE.latent_dim, DS_SCALE)
+    phase["latent_q_long_context"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with torch.no_grad():
+        out["times"] = time_wide_kernels(path_inputs, DS_SCALE)
+    phase["latent_q_times"] = time.perf_counter() - t
+    return out, phase
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6700,6 +6970,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     ds_train, ds_train_phase = run_deepseek_training(args.seed)
     phase_s.update(ds_train_phase)
+    torch.cuda.empty_cache()
+    latent_q, latent_q_phase = run_latent_quantized(args.seed)
+    phase_s.update(latent_q_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -7296,6 +7569,49 @@ def main() -> int:
                 WIDE_QKERNELS[name][1]],
             "redesigned": WIDE_QREDESIGNED[name],
         })
+    # Phase 22's kernels at 576, as `*_d576` keys of the kernel's entry.
+    lt, lp = latent_q["times"], latent_q["path"]
+    for family, kernel in LATENT_QKERNELS.items():
+        outs = (("o",) if family == "qattn_fwd" else
+                ("dq", "dbias") if family.endswith("_dq") else ("dk", "dv"))
+        checks = [e for key, e in latent_q["errors"].items()
+                  if key.startswith(prefix[family]) and "fp32" not in key]
+        if family == "qattn_fwd":
+            errs_a = [(e[0], e[2]) for e in checks]
+            errs_b = [(e[family][0], e[family][2])
+                      for e in lp["kernels"].values()]
+        else:
+            errs_a = [e[o] for e in checks for o in outs if o in e]
+            errs_b = [e[family][o] for e in lp["kernels"].values()
+                      for o in outs if o in e[family]]
+        t = lt[f"{family}_latent"]
+        next(e for e in record["kernels"] if e["name"] == family).update({
+            "launches_d576": sum(c.get(family, 0)
+                                 for c in lp["launches"].values()),
+            "launches_per_call_d576": {k: c.get(family, 0)
+                                       for k, c in lp["launches"].items()},
+            "max_abs_err_d576": max(e[1] for e in errs_a + errs_b),
+            "rel_err_d576": max(e[0] for e in errs_a + errs_b),
+            "rel_err_v2_lite_path_d576": max(e[0] for e in errs_b),
+            **{f"{k}_d576": t[k] for k in (
+                "ms", "ms_2", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "device_ms_by_kernel", "body")},
+            **({"splits_d576": t["splits"]} if "splits" in t else {}),
+            **({f"{k}_int8_q_d576": v
+                for k, v in lt["qattn_fwd_latent_int8_q"].items()
+                if k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "body")}
+               if family == "qattn_fwd" else {}),
+            "library_d576": ("sdpa forward" if family == "qattn_fwd" else
+                             "sdpa backward (dq, dk, dv together)")
+                            + " over the dequantized bf16 K/V (MATH at 576)",
+            "shape_d576": "B=2 Hq=16 Hkv=1 S=2048 D=576 (V2_LITE layer 0's "
+                          "joint latent), causal, folded ROW K / ROW V",
+            "bitwise_equal_two_calls_d576": True,  # (a) raises otherwise
+            "device_kernel_d576": kernel,
+            "device_kernel_name_in_trace_d576": lp["device_kernels"][kernel],
+            "redesigned_d576": LATENT_QREDESIGNED[family],
+        })
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
     record["gemm_engine"] = {
@@ -7357,6 +7673,14 @@ def main() -> int:
         "world": CP_WORLD, "transport": "gloo through host memory, every "
         "rank on cuda:0", **cp}
     record["utilities"] = util
+    record["latent_quantized"] = {
+        "checks": len(latent_q["errors"]),
+        "bitwise_equal_two_calls": True,  # (a) raises otherwise
+        **{k: lp[k] for k in ("launches", "grads_rel_l2", "seconds",
+                              "device_kernels", "shape", "fullint_raises")},
+        "call_o_vs_plain": {k: e["call_o"] for k, e in lp["kernels"].items()},
+        "long_context": latent_q["long_context"],
+    }
     record["wide_quantized"] = {
         "checks": len(wide["errors"]),
         "bitwise_equal_two_calls": True,  # (a) raises otherwise

@@ -15,15 +15,16 @@
 // Four bodies each: dq_body and dkv_body, scalar fp32 FMAs over the
 // transposed fp32 tiles (every fp32 instance up to D = 288), and
 // dq_body32 and dkv_body32, the same in 32-row tiles above 288 (the flash
-// kernels' fp32 instances at DeepSeek's absorbed 576: scalar32);
+// and the exact quantized kernels' fp32 instances at DeepSeek's absorbed
+// 576: scalar32);
 // dq_tc_body and dkv_tc_body, bf16 mma.sync over bf16 tiles (the bf16
 // instances up to D = 256); dq_wide_body and dkv_wide_body, bf16 mma.sync
 // with tiles cut for MLA's D = 288 (the flash and the exact quantized
 // kernels' bf16 instances at 288; dkv_wide_body splits the GQA group over
 // CTAs into an fp32 workspace that flash_dkv_merge_kernel sums in split
 // order); and dq_latent_body and dkv_latent_body, bf16 mma.sync at 576
-// (the flash kernels' bf16 instances there, over float K/V; the dK/dV's
-// group split and merge as at 288).  dq_tc / dkv_tc / bwd_wide /
+// (the flash and the exact quantized kernels' bf16 instances there; the
+// dK/dV's group split and merge as at 288).  dq_tc / dkv_tc / bwd_wide /
 // bwd_latent say which; ops/flash_attention_bwd.py::dq_body / dkv_body
 // give the same answer.  fp32 stays off the tensor cores: TF32 keeps ~3
 // digits and the fp32 instances are held to 2e-5.
@@ -426,17 +427,9 @@ __host__ __device__ constexpr bool bwd_wide() {
 
 // Whether a tensor-core dQ or dK/dV at head dim D takes the latent bodies
 // (dq_latent_body, dkv_latent_body), whose tiles are cut for DeepSeek's
-// absorbed width 576 (float K/V only: the quantized kernels stop at 288).
+// absorbed width 576 (float and quantized K/V alike).
 template <int D>
 __host__ __device__ constexpr bool bwd_latent() {
-  return D > 288;
-}
-
-// Whether the scalar fp32 bodies at head dim D take 32-row tiles
-// (dq_body32, dkv_body32; flash_attention.cu's fwd_body32): above 288,
-// where two [D][64] fp32 tiles alone pass 227 KB of shared memory.
-template <int D>
-__host__ __device__ constexpr bool scalar32() {
   return D > 288;
 }
 
@@ -1527,10 +1520,24 @@ __device__ __forceinline__ void dq_wide_body(const BwdArgs& a, const KV& kv) {
 //
 // Replace ops/flash_attention_bwd.py::_dq_kernel and ::_dkv_kernel for the
 // bf16 instances above D = 288 (flash_dq_latent_kernel,
-// flash_dkv_latent_kernel, over float K/V).  The function is dq_wide_body's
-// and dkv_wide_body's (the same roundings, P as exp2 of S log2(e) -
-// L log2(e)); nothing assumes V's zero rope tail.  Bound: tensor-core
-// operations (6 D a live pair for dQ, 8 D for dK/dV).
+// flash_dkv_latent_kernel over float K/V; qflash_dq_latent_kernel,
+// qflash_dkv_latent_kernel over int8 / int4 payloads).  The function is
+// dq_wide_body's and dkv_wide_body's (the same roundings, P as exp2 of
+// S log2(e) - L log2(e), and over payloads the folded ksr, vsr and dqsc);
+// nothing assumes V's zero rope tail.  Bound: tensor-core operations (6 D
+// a live pair for dQ, 8 D for dK/dV).
+//
+// Payloads (KV::RAW).  The wide bodies copy a tile's payload rows into
+// scratch by cp.async and dequantize them there; at 576 no scratch fits
+// (dq_latent_body leaves 3 KB of the 227: a raw buffer of 32 K and 32 V
+// rows is 36 KB).  So a payload tile is converted on load (KV::tc_fill):
+// each thread reads its 16-value chunks of the tile's rows from device
+// memory (two chunks' loads in flight at a time), dequantizes them in
+// registers as dequant_rows_bf16 does (bit for bit) and stores the bf16
+// rows into the one K or V buffer.  The loads are not asynchronous: in
+// dq_latent_body a tile's fill waits on device memory (L2: the CTAs of a
+// latent head read the same rows) where the float tile's cp.async runs
+// under the products; dkv_latent_body fills K and V once, before its walk.
 //
 // Why the 288 layouts do not stretch to 576: a bf16 row is 1,168 bytes with
 // its 16-byte pad, a 64-row tile 74,752.  dq_wide_body holds Q and dO
@@ -1570,12 +1577,6 @@ __device__ __forceinline__ void dq_wide_body(const BwdArgs& a, const KV& kv) {
 //     flash_dkv_merge_kernel in split order.
 // ---------------------------------------------------------------------------
 
-// bar.sync on barrier `id` (1-15; 0 is __syncthreads') for the `n` threads,
-// whole warps, that use it.
-__device__ __forceinline__ void named_barrier(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
 template <int D>
 struct DqLatentSmem {
   static constexpr int NS = 2;              // key and lane parts
@@ -1596,13 +1597,13 @@ struct DqLatentSmem {
 
 constexpr int DQ_LATENT_THREADS = 256;  // 4 row slices x 2 parts
 
-// dQ (and dbias) for one (64 query rows, b, q head), stored times a.scale
-// (see above).  SCALE_Q: Q is scaled by a.scale and rounded to bf16 here.
-// KV: tc_load as for dq_tc_body (bf16 rows only).
+// dQ (and dbias) for one (64 query rows, b, q head), stored times a.scale,
+// or a.dqsc over payloads (see above).  SCALE_Q: Q is scaled by a.scale and
+// rounded to bf16 here (else the caller passed it pre-scaled).  KV: tc_load
+// as for dq_tc_body (bf16 rows), or tc_fill (payloads: KV::RAW).
 template <int D, bool SCALE_Q, typename KV>
 __device__ __forceinline__ void dq_latent_body(const BwdArgs& a,
                                                const KV& kv) {
-  static_assert(!KV::RAW, "the latent bodies take float K/V");
   using L = DqLatentSmem<D>;
   constexpr int NT = DQ_LATENT_THREADS;
   constexpr int KS = L::KS;
@@ -1628,6 +1629,9 @@ __device__ __forceinline__ void dq_latent_body(const BwdArgs& a,
   const size_t bk = (size_t)b * a.Hkv + hk;
   const float* bh_bias =
       a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  // The folded scales exist only over payloads.
+  const float* ksr = KV::RAW && a.ksr ? a.ksr + bk * Skv : nullptr;
+  const float* vsr = KV::RAW && a.vsr ? a.vsr + bk * Skv : nullptr;
   uint8_t* sq = smem_tc + L::Q;
   const uint8_t* sdo = smem_tc + L::DO;
   uint8_t* sk = smem_tc + L::K;
@@ -1644,12 +1648,23 @@ __device__ __forceinline__ void dq_latent_body(const BwdArgs& a,
   const int c0 = (s_lo / KS) * KS;
   const int tiles = c0 < c_hi ? (c_hi - c0 + KS - 1) / KS : 0;
   // Tile it's V rows (is_v) or K rows into their buffer, zeros from c_hi,
-  // as one commit group (an empty one past the last tile).
+  // as one commit group (an empty one past the last tile, or after a
+  // payload's fill, which is done when it returns).
   auto load = [&](bool is_v, int it) {
-    if (it < tiles)
-      kv.template tc_load<NT, L::ROW, KS>(is_v, bk, c0 + it * KS, c_hi,
-                                         is_v ? sv : sk, nullptr);
+    if (it < tiles) {
+      if constexpr (KV::RAW)
+        kv.template tc_fill<NT, L::ROW, KS>(is_v, bk, c0 + it * KS, c_hi,
+                                           is_v ? sv : sk);
+      else
+        kv.template tc_load<NT, L::ROW, KS>(is_v, bk, c0 + it * KS, c_hi,
+                                           is_v ? sv : sk, nullptr);
+    }
     cp_async_commit();
+  };
+  // A folded per-token scale of key `key` (0 from c_hi, as the wide body's
+  // staged copy).
+  auto col_scale = [&](const float* sc, int key) {
+    return key < c_hi ? sc[key] : 0.f;
   };
   load(true, 0);
   load(false, 0);
@@ -1683,8 +1698,23 @@ __device__ __forceinline__ void dq_latent_body(const BwdArgs& a,
     __syncthreads();  // tile it's K rows landed; every warp done with V
     load(true, it + 1);
     mma_nt<D / 16, NKB, L::ROW, L::ROW>(sq, 16 * rw, sk, kc0, s);
+    if (ksr) {
+#pragma unroll
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] *= col_scale(ksr, t0 + kc0 + 8 * j + 2 * tq + (e & 1));
+    }
+    if (vsr) {
+#pragma unroll
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] *= col_scale(vsr, t0 + kc0 + 8 * j + 2 * tq + (e & 1));
+    }
 
-    // P, dS (dbias) as dq_wide_body makes them; s[j][e] becomes dS.
+    // P, dS (dbias) as dq_wide_body makes them; s[j][e] becomes dS (x ksr),
+    // the value dS.K rounds.
     const bool whole = t0 + kc0 >= w.live_lo && t0 + kc0 + KW <= w.live_hi;
 #pragma unroll
     for (int j = 0; j < NKB; ++j)
@@ -1701,7 +1731,7 @@ __device__ __forceinline__ void dq_latent_body(const BwdArgs& a,
         const float ds = p * (dp[j][e] - w.dd[i]);
         if (a.out1 && row < Sq && key < Skv)
           a.out1[(bh * Sq + row) * Skv + key] = ds;
-        s[j][e] = ds;
+        s[j][e] = ksr ? ds * col_scale(ksr, key) : ds;
       }
 
     // The CTA's dS tile in bf16, then dQ += dS.K, 16 keys a k step.
@@ -1734,9 +1764,14 @@ __device__ __forceinline__ void dq_latent_body(const BwdArgs& a,
     if (row >= Sq) continue;
     float* out = a.out0 + (bh * Sq + row) * D + part * DW + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < NDB; ++j)
+    for (int j = 0; j < NDB; ++j) {
+      const int d = part * DW + 8 * j + 2 * tq;
+      const bool by_lane = KV::RAW && a.dqsc;
+      const float m0 = by_lane ? a.dqsc[bk * D + d] : a.scale;
+      const float m1 = by_lane ? a.dqsc[bk * D + d + 1] : a.scale;
       *reinterpret_cast<float2*>(out + 8 * j) =
-          make_float2(acc[j][2 * i] * a.scale, acc[j][2 * i + 1] * a.scale);
+          make_float2(acc[j][2 * i] * m0, acc[j][2 * i + 1] * m1);
+    }
   }
 }
 
@@ -1766,12 +1801,12 @@ constexpr int DKV_LATENT_THREADS = 256;  // 8 warps
 
 // dK/dV for one (32 keys, b, kv head) over the q heads of split `sp` of the
 // GQA group (see above).  out0 / out1 get dK / dV where splits is 1, else
-// ws[sp][0] / ws[sp][1].  KV: tc_load as for dkv_tc_body (bf16 rows only).
+// ws[sp][0] / ws[sp][1].  KV: tc_load as for dkv_tc_body (bf16 rows), or
+// tc_fill (payloads: KV::RAW).
 template <int D, typename KV>
 __device__ __forceinline__ void dkv_latent_body(const BwdArgs& a,
                                                 const KV& kv, int splits,
                                                 float* ws) {
-  static_assert(!KV::RAW, "the latent bodies take float K/V");
   using L = DkvLatentSmem<D>;
   constexpr int NT = DKV_LATENT_THREADS;
   constexpr int KT = L::KT;
@@ -1805,8 +1840,13 @@ __device__ __forceinline__ void dkv_latent_body(const BwdArgs& a,
   uint8_t* xs = smem_tc + L::X;
   float* xf = reinterpret_cast<float*>(xs);
 
-  kv.template tc_load<NT, L::ROW, KT>(false, bkv, c0, Skv, sk, nullptr);
-  kv.template tc_load<NT, L::ROW, KT>(true, bkv, c0, Skv, sv, nullptr);
+  if constexpr (KV::RAW) {  // dequantized once, before the walk
+    kv.template tc_fill<NT, L::ROW, KT>(false, bkv, c0, Skv, sk);
+    kv.template tc_fill<NT, L::ROW, KT>(true, bkv, c0, Skv, sv);
+  } else {
+    kv.template tc_load<NT, L::ROW, KT>(false, bkv, c0, Skv, sk, nullptr);
+    kv.template tc_load<NT, L::ROW, KT>(true, bkv, c0, Skv, sv, nullptr);
+  }
   cp_async_commit();
   query_span(a.ranges, Sq, Skv, c0, min(c0 + KT, Skv), &s_rmin, &s_rmax);
   const int row_lo = s_rmin;
@@ -1949,105 +1989,19 @@ __device__ __forceinline__ void dkv_latent_body(const BwdArgs& a,
 // d); one read a row at a time, or a lane of each row, as rows [32][D + 1]
 // (the odd stride puts the 32 rows' lane d, and a row's 32 consecutive
 // lanes, in 32 banks).  Shared memory: one transposed tile, one row tile
-// and a [32][32 + 4] score tile, 161,408 bytes at 576.  flash_attention.cu's
-// fwd_body32 is the forward's counterpart.
+// and a [32][32 + 4] score tile, 161,408 bytes at 576
+// (attention_tiles.cuh's 32-row helpers).  flash_attention.cu's fwd_body32
+// and quantized_attention.cu's qattn_body32 are the forwards' counterparts.
 // ---------------------------------------------------------------------------
-
-constexpr int T32 = 32;        // rows, and keys, a tile
-constexpr int LD32 = T32 + 4;  // a transposed [D][32] tile's row
-
-template <int D>
-__host__ __device__ constexpr int ld_rows32() {
-  return D + 1;
-}
-
-template <int D>
-constexpr size_t smem32_bytes() {
-  return sizeof(float) * ((size_t)D * LD32 + (size_t)T32 * ld_rows32<D>() +
-                          (size_t)T32 * LD32);
-}
-
-// Rows [row0, row0 + 32) of an fp32 [rows, D] matrix, times `scale` where
-// SCALE, zeros from `limit`: transposed into dst[d * LD32 + r] (ROWS false;
-// consecutive threads take consecutive rows, so the stores fill 32 banks)
-// or as rows dst[r * (D + 1) + d] (ROWS true).
-template <int D, bool SCALE, bool ROWS>
-__device__ __forceinline__ void stage32(const float* __restrict__ src,
-                                        int row0, int limit, float* dst,
-                                        float scale) {
-  static_assert(D % 32 == 0, "a thread's lanes are tx + 32 e");
-  constexpr int VPR = D / 4;  // float4 loads a row
-  for (int i = threadIdx.x; i < T32 * VPR; i += THREADS) {
-    const int r = ROWS ? i / VPR : i % T32;
-    const int c = ROWS ? i % VPR : i / T32;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < limit)
-      f = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D +
-                                           4 * c);
-    if (SCALE) {
-      f.x *= scale;
-      f.y *= scale;
-      f.z *= scale;
-      f.w *= scale;
-    }
-    const float fv[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (ROWS)
-        dst[r * ld_rows32<D>() + 4 * c + e] = fv[e];
-      else
-        dst[(4 * c + e) * LD32 + r] = fv[e];
-    }
-  }
-}
-
-// acc[i] = sum_d a[d][4 ay + i] * b[bx][d]: four rows of a transposed tile
-// against one row of a row tile.
-template <int D>
-__device__ __forceinline__ void tile_product32(const float* a, int ay,
-                                               const float* b, int bx,
-                                               float (&acc)[4]) {
-  const float* brow = b + bx * ld_rows32<D>();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(a + d * LD32 + ay * 4);
-    const float y = brow[d];
-    acc[0] = fmaf(x.x, y, acc[0]);
-    acc[1] = fmaf(x.y, y, acc[1]);
-    acc[2] = fmaf(x.z, y, acc[2]);
-    acc[3] = fmaf(x.w, y, acc[3]);
-  }
-}
-
-// acc[i][e] += sum_c p[c * LD32 + 4 py + i] * m[c][tx + 32 e]: a [32][32]
-// score tile stored [c][row] times the lanes of a row tile.
-template <int D>
-__device__ __forceinline__ void accumulate_pm32(const float* p, int py,
-                                                const float* m, int tx,
-                                                float (&acc)[4][D / 32]) {
-#pragma unroll 4
-  for (int c = 0; c < T32; ++c) {
-    const float4 pv = *reinterpret_cast<const float4*>(p + c * LD32 + py * 4);
-    const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-    const float* mrow = m + c * ld_rows32<D>() + tx;
-#pragma unroll
-    for (int e = 0; e < D / 32; ++e) {
-      const float me = mrow[32 * e];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][e] = fmaf(pr[i], me, acc[i][e]);
-    }
-  }
-}
 
 // dq_body over fp32 K/V in 32-row tiles (above): per key tile dO^T and V's
 // rows give dP, then Q_s^T (restaged in dO^T's buffer) and K's rows give S;
-// dS^T goes to the score tile and dQ += dS.K reads K's rows.
-template <int D>
-__device__ __forceinline__ void dq_body32(const BwdArgs& a,
-                                          const float* __restrict__ k,
-                                          const float* __restrict__ v) {
+// dS^T goes to the score tile and dQ += dS.K reads K's rows.  KV gives
+// stage32<ROWS>(is_v, kv head, t0, limit, dst): 32 fp32 rows in the layout
+// of attention_tiles.cuh's stage32 (float K/V as they are, or payloads
+// dequantized); the folded scales ksr, vsr and dqsc as in dq_body.
+template <int D, typename KV>
+__device__ __forceinline__ void dq_body32(const BwdArgs& a, const KV& kv) {
   constexpr int DE = D / T32;
   extern __shared__ __align__(16) float smem[];
   float* at = smem;                       // [D][LD32]  dO^T, then Q_s^T
@@ -2066,10 +2020,10 @@ __device__ __forceinline__ void dq_body32(const BwdArgs& a,
   const size_t bk = (size_t)b * a.Hkv + hk;
   const float* bh_bias =
       a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  const float* ksr = a.ksr ? a.ksr + bk * Skv : nullptr;
+  const float* vsr = a.vsr ? a.vsr + bk * Skv : nullptr;
   const float* qh = static_cast<const float*>(a.q) + bh * Sq * D;
   const float* doh = static_cast<const float*>(a.dout) + bh * Sq * D;
-  const float* kh = k + bk * Skv * D;
-  const float* vh = v + bk * Skv * D;
 
   key_span<T32>(a.ranges, r0, Sq, Skv, &s_lo, &s_hi);
   const int c_lo = s_lo;
@@ -2090,29 +2044,31 @@ __device__ __forceinline__ void dq_body32(const BwdArgs& a,
 
   for (int t0 = c_lo; t0 < c_hi; t0 += T32) {
     stage32<D, false, false>(doh, r0, Sq, at, 0.f);
-    stage32<D, false, true>(vh, t0, c_hi, kvr, 0.f);
+    kv.template stage32<true>(true, bk, t0, c_hi, kvr);
     __syncthreads();
     float dp[4];
     tile_product32<D>(at, ty, kvr, tx, dp);
     __syncthreads();  // every thread is done with dO^T and V
     stage32<D, true, false>(qh, r0, Sq, at, a.scale);
-    stage32<D, false, true>(kh, t0, c_hi, kvr, 0.f);
+    kv.template stage32<true>(false, bk, t0, c_hi, kvr);
     __syncthreads();
     float s[4];
     tile_product32<D>(at, ty, kvr, tx, s);
     const int col = t0 + tx;
+    const bool in = col < c_hi;
+    const float ks = (ksr && in) ? ksr[col] : 1.f;
+    const float vs = (vsr && in) ? vsr[col] : 1.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = r0 + ty * 4 + i;
-      float sv = s[i];
-      if (bh_bias && row < Sq && col < c_hi)
-        sv += bh_bias[(size_t)row * Skv + col];
+      float sv = ksr ? s[i] * ks : s[i];
+      if (bh_bias && row < Sq && in) sv += bh_bias[(size_t)row * Skv + col];
       const float p =
           (col < rs[i] || col >= re[i]) ? 0.f : expf(sv - lrow[i]);
-      const float ds = p * (dp[i] - drow[i]);
+      const float ds = p * ((vsr ? dp[i] * vs : dp[i]) - drow[i]);
       if (a.out1 && row < Sq && col < Skv)
         a.out1[(bh * Sq + row) * Skv + col] = ds;
-      s[i] = ds;
+      s[i] = ksr ? ds * ks : ds;
     }
     *reinterpret_cast<float4*>(dst + tx * LD32 + ty * 4) =
         make_float4(s[0], s[1], s[2], s[3]);
@@ -2127,18 +2083,18 @@ __device__ __forceinline__ void dq_body32(const BwdArgs& a,
     if (r >= Sq) continue;
     float* out = a.out0 + (bh * Sq + r) * D + tx;
 #pragma unroll
-    for (int e = 0; e < DE; ++e) out[32 * e] = acc[i][e] * a.scale;
+    for (int e = 0; e < DE; ++e)
+      out[32 * e] =
+          acc[i][e] * (a.dqsc ? a.dqsc[bk * D + tx + 32 * e] : a.scale);
   }
 }
 
 // dkv_body over fp32 K/V in 32-key tiles (above): per step of 32 query rows
 // K^T and Q_s's rows give S^T and P^T, V^T and dO's rows dP^T and dS^T; P
 // then dS (query-major, in the score tile) times dO's and then Q_s's rows
-// (restaged) accumulate dV and dK.
-template <int D>
-__device__ __forceinline__ void dkv_body32(const BwdArgs& a,
-                                           const float* __restrict__ k,
-                                           const float* __restrict__ v) {
+// (restaged) accumulate dV and dK.  KV: stage32 as for dq_body32.
+template <int D, typename KV>
+__device__ __forceinline__ void dkv_body32(const BwdArgs& a, const KV& kv) {
   constexpr int DE = D / T32;
   extern __shared__ __align__(16) float smem[];
   float* at = smem;                        // [D][LD32]  K^T, then V^T
@@ -2154,8 +2110,6 @@ __device__ __forceinline__ void dkv_body32(const BwdArgs& a,
   const int tx = threadIdx.x % T32;  // query column tx
   const int ty = threadIdx.x / T32;  // keys c0 + 4 ty + i
   const size_t bkv = (size_t)b * a.Hkv + hk;
-  const float* kh = k + bkv * Skv * D;
-  const float* vh = v + bkv * Skv * D;
 
   query_span(a.ranges, Sq, Skv, c0, min(c0 + T32, Skv), &s_rmin, &s_rmax);
   const int row_lo = s_rmin;
@@ -2175,7 +2129,7 @@ __device__ __forceinline__ void dkv_body32(const BwdArgs& a,
     const float* qh = static_cast<const float*>(a.q) + bh * Sq * D;
     const float* doh = static_cast<const float*>(a.dout) + bh * Sq * D;
     for (int r0 = row_lo; r0 < row_hi; r0 += T32) {
-      stage32<D, false, false>(kh, c0, Skv, at, 0.f);
+      kv.template stage32<false>(false, bkv, c0, Skv, at);
       stage32<D, true, true>(qh, r0, row_hi, br, a.scale);
       const int row = r0 + tx;
       int rs, re;
@@ -2195,7 +2149,7 @@ __device__ __forceinline__ void dkv_body32(const BwdArgs& a,
         pt[i] = (col < rs || col >= re) ? 0.f : expf(s - lcol);
       }
       __syncthreads();  // every thread is done with K^T and Q_s
-      stage32<D, false, false>(vh, c0, Skv, at, 0.f);
+      kv.template stage32<false>(true, bkv, c0, Skv, at);
       stage32<D, false, true>(doh, r0, row_hi, br, 0.f);
       __syncthreads();
       float dpt[4];

@@ -1,10 +1,10 @@
-// The 64 x 64 tile machinery shared by the flash and the quantized attention
-// kernels (csrc/flash_attention.cu, csrc/quantized_attention.cu,
-// csrc/quantized_attention_bwd.cu): 256 threads per CTA, 16 x 16, each
-// thread 4 rows x 4 columns of a tile; operands staged in shared memory as
-// fp32, transposed ([D][64 + 4]), so a thread's four rows and four columns
-// are 16-byte vectors; every mask is an int32 [Sq, 2] table of per-row
-// [start, end) key ranges.
+// The 64 x 64 (and, above D = 288, 32 x 32) tile machinery shared by the
+// flash and the quantized attention kernels (csrc/flash_attention.cu,
+// csrc/quantized_attention.cu, csrc/quantized_attention_bwd.cu): 256
+// threads per CTA, 16 x 16, each thread 4 rows x 4 columns of a tile;
+// operands staged in shared memory as fp32, transposed ([D][64 + 4]), so a
+// thread's four rows and four columns are 16-byte vectors; every mask is
+// an int32 [Sq, 2] table of per-row [start, end) key ranges.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -99,6 +99,105 @@ __device__ __forceinline__ void store_t(float* dst, int ty, int tx,
   for (int j = 0; j < 4; ++j)
     *reinterpret_cast<float4*>(dst + (tx * 4 + j) * LD + ty * 4) =
         make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+}
+
+// The 32-row layouts of the scalar bodies above D = 288 (attention_bwd.cuh's
+// dq_body32 / dkv_body32, flash_attention.cu's fwd_body32,
+// quantized_attention.cu's qattn_body32): the 256 threads are 8 x 32,
+// thread (ty, tx) rows 4 ty + [0, 4) of a tile, column tx, lanes tx + 32 e.
+// scalar32: whether a scalar body at head dim D takes them, above 288,
+// where two [D][64] fp32 tiles alone pass 227 KB of shared memory.
+template <int D>
+__host__ __device__ constexpr bool scalar32() {
+  return D > 288;
+}
+
+constexpr int T32 = 32;        // rows, and keys, a tile
+constexpr int LD32 = T32 + 4;  // a transposed [D][32] tile's row
+
+template <int D>
+__host__ __device__ constexpr int ld_rows32() {
+  return D + 1;
+}
+
+template <int D>
+constexpr size_t smem32_bytes() {
+  return sizeof(float) * ((size_t)D * LD32 + (size_t)T32 * ld_rows32<D>() +
+                          (size_t)T32 * LD32);
+}
+
+// Rows [row0, row0 + 32) of an fp32 [rows, D] matrix, times `scale` where
+// SCALE, zeros from `limit`: transposed into dst[d * LD32 + r] (ROWS false;
+// consecutive threads take consecutive rows, so the stores fill 32 banks)
+// or as rows dst[r * (D + 1) + d] (ROWS true).
+template <int D, bool SCALE, bool ROWS>
+__device__ __forceinline__ void stage32(const float* __restrict__ src,
+                                        int row0, int limit, float* dst,
+                                        float scale) {
+  static_assert(D % 32 == 0, "a thread's lanes are tx + 32 e");
+  constexpr int VPR = D / 4;  // float4 loads a row
+  for (int i = threadIdx.x; i < T32 * VPR; i += THREADS) {
+    const int r = ROWS ? i / VPR : i % T32;
+    const int c = ROWS ? i % VPR : i / T32;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < limit)
+      f = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D +
+                                           4 * c);
+    if (SCALE) {
+      f.x *= scale;
+      f.y *= scale;
+      f.z *= scale;
+      f.w *= scale;
+    }
+    const float fv[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (ROWS)
+        dst[r * ld_rows32<D>() + 4 * c + e] = fv[e];
+      else
+        dst[(4 * c + e) * LD32 + r] = fv[e];
+    }
+  }
+}
+
+// acc[i] = sum_d a[d][4 ay + i] * b[bx][d]: four rows of a transposed tile
+// against one row of a row tile.
+template <int D>
+__device__ __forceinline__ void tile_product32(const float* a, int ay,
+                                               const float* b, int bx,
+                                               float (&acc)[4]) {
+  const float* brow = b + bx * ld_rows32<D>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    const float4 x = *reinterpret_cast<const float4*>(a + d * LD32 + ay * 4);
+    const float y = brow[d];
+    acc[0] = fmaf(x.x, y, acc[0]);
+    acc[1] = fmaf(x.y, y, acc[1]);
+    acc[2] = fmaf(x.z, y, acc[2]);
+    acc[3] = fmaf(x.w, y, acc[3]);
+  }
+}
+
+// acc[i][e] += sum_c p[c * LD32 + 4 py + i] * m[c][tx + 32 e]: a [32][32]
+// score tile stored [c][row] times the lanes of a row tile.
+template <int D>
+__device__ __forceinline__ void accumulate_pm32(const float* p, int py,
+                                                const float* m, int tx,
+                                                float (&acc)[4][D / 32]) {
+#pragma unroll 4
+  for (int c = 0; c < T32; ++c) {
+    const float4 pv = *reinterpret_cast<const float4*>(p + c * LD32 + py * 4);
+    const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+    const float* mrow = m + c * ld_rows32<D>() + tx;
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e) {
+      const float me = mrow[32 * e];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][e] = fmaf(pr[i], me, acc[i][e]);
+    }
+  }
 }
 
 __device__ __forceinline__ void row_range(const int32_t* ranges, int r,

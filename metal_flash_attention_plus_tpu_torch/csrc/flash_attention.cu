@@ -1059,6 +1059,14 @@ struct FloatKV {
                                              uint8_t*,
                                              const uint8_t*) const {}
   static constexpr bool RAW = false;  // tc_load fills the bf16 tile
+  // The 32-row scalar bodies' staging (T = float; attention_tiles.cuh's
+  // stage32): 32 rows as rows (ROWS) or transposed.
+  template <bool ROWS>
+  __device__ __forceinline__ void stage32(bool is_v, size_t head, int t0,
+                                          int limit, float* dst) const {
+    mfa::stage32<D, false, ROWS>((is_v ? v : k) + head * Skv * D, t0, limit,
+                                 dst, 0.f);
+  }
 };
 
 // Replaces ops/flash_attention_bwd.py::_dq_kernel.  Bound: operations
@@ -1071,7 +1079,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const BwdArgs a, const FloatKV<T, D> kv) {
   if constexpr (mfa::scalar32<D>()) {
     static_assert(std::is_same<T, float>::value, "fp32 only above 288");
-    mfa::dq_body32<D>(a, kv.k, kv.v);
+    mfa::dq_body32<D>(a, kv);
   } else {
     mfa::dq_body<T, D, true>(a, kv);
   }
@@ -1112,7 +1120,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const BwdArgs a, const FloatKV<T, D> kv) {
   if constexpr (mfa::scalar32<D>()) {
     static_assert(std::is_same<T, float>::value, "fp32 only above 288");
-    mfa::dkv_body32<D>(a, kv.k, kv.v);
+    mfa::dkv_body32<D>(a, kv);
   } else {
     mfa::dkv_body<T, D>(a, kv);
   }

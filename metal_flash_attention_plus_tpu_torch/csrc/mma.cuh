@@ -198,6 +198,12 @@ __device__ __forceinline__ void transpose_bytes(const unsigned (&x)[4],
   y[3] = __byte_perm(hi01, hi23, 0x7632);
 }
 
+// bar.sync on barrier `id` (1-15; 0 is __syncthreads') for the `n` threads,
+// whole warps, that use it.
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
 // 2^x on the special-function unit (ex2.approx.ftz: results below 2^-126
 // flushed to 0, 2^-inf = 0).  exp2f adds instructions for the subnormal
 // range, which neither a bf16-rounded P nor the row sum l sees; in the

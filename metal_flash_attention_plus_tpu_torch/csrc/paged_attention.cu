@@ -1309,11 +1309,6 @@ __host__ __device__ __forceinline__ PwLayout pw_layout() {
   return L;
 }
 
-// bar.sync on barrier `id` for the `n` threads (whole warps) that use it.
-__device__ __forceinline__ void named_barrier(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
 // Replaces serving/paged_attention.py::_prefill_kernel for a bf16 q at
 // head dims above 288 over one-state pages whose kept lanes D - vtz fit
 // 512 (prefill_tc; DeepSeek's 576 - 64).  Bound: tensor-core operations.
@@ -1483,7 +1478,7 @@ paged_prefill_wide_kernel(const PrefillArgs a) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       if (tq == 0) red[half * 32 + g + 8 * i] = mx[i];
     }
-    named_barrier(1 + slab, 64);  // both warps' row maxima
+    mfa::named_barrier(1 + slab, 64);  // both warps' row maxima
     float alpha[2], mref[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1517,7 +1512,7 @@ paged_prefill_wide_kernel(const PrefillArgs a) {
       sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
       if (tq == 0) red[half * 32 + 16 + g + 8 * i] = sum[i];
     }
-    named_barrier(1 + slab, 64);  // the slab's P and both warps' row sums
+    mfa::named_barrier(1 + slab, 64);  // the slab's P, both row sums
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = 16 + g + 8 * i;

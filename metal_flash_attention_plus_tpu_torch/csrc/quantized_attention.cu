@@ -5,7 +5,9 @@
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu):
 //   - ops/quantized_attention.py::_qfwd_kernel   -> qattn_fwd_tc_kernel (a
 //     bf16 or int8 Q up to D = 256), qattn_fwd_wide_kernel (a bf16 or int8
-//     Q at MLA's D = 288), qattn_fwd_kernel (an fp32 Q)
+//     Q at MLA's D = 288), qattn_fwd_latent_kernel (a bf16 or int8 Q at
+//     DeepSeek's absorbed D = 576), qattn_fwd_kernel (an fp32 Q; in 32-row
+//     tiles at 576)
 //   - ops/quantized_attention.py::_hpack_kernel  -> qattn_fwd_tc_kernel<bf16,
 //     64> (a bf16 Q), qattn_fwd_kernel<float, 64> (an fp32 Q), launched by
 //     mfa_hpack_fwd through the packed strides
@@ -20,10 +22,10 @@
 // one shorter), within a group of width w byte j holding value j in its low
 // nibble and value j + w/2 in its high one, each stored + 8 (D <= 256: byte
 // j holds values j and j + D/2; D = 288: bytes [0, 128) values j and
-// j + 128, bytes [128, 144) values 256 + j and 272 + j; quantized_tiles.cuh
-// reads both).  Head dims: built for 32, 64, 128, 256 and 288; the other
-// multiples of 16 up to 288 run zero-padded at the next
-// (ops/quantized_attention.py::qattn_width).
+// j + 128, bytes [128, 144) values 256 + j and 272 + j; D = 576: three
+// groups; quantized_tiles.cuh reads them all).  Head dims: built for 32,
+// 64, 128, 256, 288 and 576; the other multiples of 16 up to 576 run
+// zero-padded at the next (ops/quantized_attention.py::qattn_width).
 // GQA as in the flash kernels; every mask is the [Sq, 2] row-range table.
 //
 // Scale modes (what the TPU kernel's flags select):
@@ -349,11 +351,220 @@ __device__ __forceinline__ void qattn_body(const Args& a) {
   }
 }
 
-// Replaces ops/quantized_attention.py::_qfwd_kernel for an fp32 Q, and
-// _hpack_kernel for an fp32 packed Q.
+// qattn_body above D = 288 (an fp32 Q, or an int8 Q without ROUND_BF16,
+// at DeepSeek's 576), in 32-row tiles (the layout and thread map of
+// attention_tiles.cuh's 32-row helpers; flash_attention.cu's fwd_body32):
+// two [D][64 + 4] fp32 tiles alone pass 227 KB there.  Q^T (fp32) or Q's
+// words transposed; each 32-key tile's K rows (fp32 values, or words for
+// an int8 Q's __dp4a scores) then V rows (fp32 values) in one row tile;
+// P^T in the score tile.  Thread (ty, tx) holds rows 4 ty + [0, 4), their
+// scores against key tx (the row max and sum reduce over the warp) and
+// O's lanes tx + 32 e.  The function, its order of operations and the
+// spans are qattn_body's, in 32-key tiles (an int8 P's spans in two
+// passes, as the tensor-core bodies' 32-key steps walk them).  Shared
+// memory 161,408 bytes at 576 (mfa::smem32_bytes).  Bound: operations.
+template <typename QT, int D>
+__device__ __forceinline__ void qattn_body32(const Args& a) {
+  constexpr bool QINT = std::is_same<QT, int8_t>::value;
+  constexpr int DE = D / mfa::T32;
+  constexpr int W = D / 4;
+  constexpr int T32 = mfa::T32;
+  constexpr int LD32 = mfa::LD32;
+  constexpr int KW_LD = W + 1;  // a row of K words (an int8 Q)
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;                               // [D][LD32] Q^T, or words
+  float* kvr = qt + D * LD32;                     // [32][D + 1] K, then V
+  float* pt = kvr + T32 * mfa::ld_rows32<D>();    // [32][LD32] P^T
+  int* qw = reinterpret_cast<int*>(qt);           // [W][LD32] Q words
+  int* kw = reinterpret_cast<int*>(kvr);          // [32][W + 1] K words
+  __shared__ int s_lo, s_hi;
+
+  const int r0 = blockIdx.x * T32;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
+  const int tx = threadIdx.x % T32;
+  const int ty = threadIdx.x / T32;
+  const size_t bh = (size_t)b * a.Hq + h;
+  const size_t bk = (size_t)b * a.Hkv + hk;
+  const long long qoff =
+      b * a.q_sb + (h >> 1) * a.q_spair + (h & 1) * a.q_shalf;
+  const float* bh_bias =
+      a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  const bool rb = a.flags & ROUND_BF16;
+  const bool l_rounded = a.flags & L_ROUNDED;
+  const bool p_int8 = a.flags & P_INT8;
+  const KVOperand kop_d{a.kq, a.ks, a.kz, a.bits_k, a.k_scales};
+  const KVOperand vop_d{a.vq, a.vs, a.vz, a.bits_v, a.v_scales};
+
+  if constexpr (QINT) {  // consecutive threads on consecutive rows
+    const int8_t* qh = static_cast<const int8_t*>(a.q) + qoff;
+    for (int i = threadIdx.x; i < T32 * W; i += THREADS) {
+      const int r = i % T32;
+      const int w = i / T32;
+      qw[w * LD32 + r] =
+          r0 + r < a.Sq
+              ? *reinterpret_cast<const int*>(qh + (r0 + r) * a.q_sr + 4 * w)
+              : 0;
+    }
+  } else {  // the natural layout: rows D apart
+    mfa::stage32<D, false, false>(static_cast<const float*>(a.q) + qoff, r0,
+                                  a.Sq, qt, 0.f);
+  }
+  key_span<T32>(a.ranges, r0, a.Sq, a.Skv, &s_lo, &s_hi);  // syncs
+  const int c_lo = s_lo;
+  const int c_hi = s_hi;
+
+  int rs[4], re[4];
+  float m[4], l[4], qsr[4], smax[4], acc[4][DE];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    row_range(a.ranges, r, a.Sq, a.Skv, rs[i], re[i]);
+    qsr[i] = (QINT && r < a.Sq) ? a.qs[bh * a.Sq + r] : 1.f;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    smax[i] = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < DE; ++e) acc[i][e] = 0.f;
+  }
+
+  // One 32-key tile t0: the masked, scaled scores; pass 0 only folds them
+  // into each row's span max (this thread's column), pass 1 rounds P
+  // against the running max and accumulates P.V.
+  auto tile = [&](int t0, int pass) {
+    float s[4];
+    if constexpr (QINT) {
+      const size_t rbytes = a.bits_k == 8 ? D : D / 2;
+      for (int i = threadIdx.x; i < T32 * W; i += THREADS) {
+        const int r = i / W;
+        const int w = i % W;
+        kw[r * KW_LD + w] =
+            t0 + r < c_hi
+                ? load_word<D>(a.kq + (bk * a.Skv + t0 + r) * rbytes, w,
+                               a.bits_k)
+                : 0;
+      }
+      __syncthreads();
+      int si[4] = {0, 0, 0, 0};
+      const int* krow = kw + tx * KW_LD;
+#pragma unroll 4
+      for (int w = 0; w < W; ++w) {
+        const int4 x = *reinterpret_cast<const int4*>(qw + w * LD32 + ty * 4);
+        const int y = krow[w];
+        si[0] = __dp4a(x.x, y, si[0]);
+        si[1] = __dp4a(x.y, y, si[1]);
+        si[2] = __dp4a(x.z, y, si[2]);
+        si[3] = __dp4a(x.w, y, si[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] = (float)si[i] * qsr[i];
+    } else {
+      mfa::stage_kv32<D, true>(kop_d, bk, a.Skv, a.br, a.bs, rb, t0, c_hi,
+                               kvr);
+      __syncthreads();
+      mfa::tile_product32<D>(qt, ty, kvr, tx, s);
+    }
+    __syncthreads();  // every thread is done with K
+    if (pass == 1)
+      mfa::stage_kv32<D, true>(vop_d, bk, a.Skv, a.br, a.bs, rb, t0, c_hi,
+                               kvr);
+
+    const int col = t0 + tx;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + ty * 4 + i;
+      if (a.k_scales == K_COLUMN && col < a.Skv)
+        s[i] *= a.ks[bk * a.Skv + col];
+      if (bh_bias && row < a.Sq && col < c_hi)
+        s[i] += bh_bias[(size_t)row * a.Skv + col] * LOG2E;
+      if (col < rs[i] || col >= re[i]) s[i] = a.mask_value;
+      float mx = fmaxf(smax[i], s[i]);
+      if (pass == 0) {
+        smax[i] = mx;
+        continue;
+      }
+      // A row's 32 scores are the 32 lanes of one warp.
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_next = fmaxf(m[i], mx);
+      const float alpha = (m[i] == -INFINITY) ? 0.f : exp2f(m[i] - m_next);
+      float raw, p;
+      if (s[i] == -INFINITY) {
+        raw = p = 0.f;
+      } else if (p_int8) {
+        raw = exp2f(s[i] + (LOG2_127 - m_next));
+        p = (float)(int)(raw + 0.5f);
+      } else {
+        raw = p = exp2f(s[i] - m_next);
+        if (a.v_scales == V_P && col < a.Skv) p *= a.vs[bk * a.Skv + col];
+        if (rb) p = round_bf16(p);
+      }
+      float sum = l_rounded ? p : raw;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = alpha * l[i] + sum;
+      m[i] = m_next;
+#pragma unroll
+      for (int e = 0; e < DE; ++e) acc[i][e] *= alpha;
+      s[i] = p;
+    }
+    if (pass == 0) return;
+    *reinterpret_cast<float4*>(pt + tx * LD32 + ty * 4) =
+        make_float4(s[0], s[1], s[2], s[3]);
+    __syncthreads();  // V and P^T staged
+    mfa::accumulate_pm32<D>(pt, ty, kvr, tx, acc);
+    __syncthreads();  // before the next tile overwrites them
+  };
+
+  if constexpr (QINT) {
+    // Spans of kv_span keys aligned to multiples of it; with a span wider
+    // than a tile (an int8 P's) a first pass over the span's tiles takes
+    // each row's max before the second computes P against it.
+    const int span = a.kv_span == BN && !p_int8 ? T32 : a.kv_span;
+    for (int sp0 = (c_lo / span) * span; sp0 < c_hi; sp0 += span) {
+      const int t_beg = max(sp0, (c_lo / T32) * T32);
+      const int t_end = min(sp0 + span, c_hi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) smax[i] = -INFINITY;
+      for (int pass = span > T32 ? 0 : 1; pass < 2; ++pass)
+        for (int t0 = t_beg; t0 < t_end; t0 += T32) tile(t0, pass);
+    }
+  } else {
+    for (int t0 = (c_lo / T32) * T32; t0 < c_hi; t0 += T32) tile(t0, 1);
+  }
+
+  const float l_off = p_int8 ? LN_127 : 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    if (r >= a.Sq) continue;
+    const bool live = re[i] > rs[i] && l[i] > 0.f;
+    float* orow = a.o + qoff + r * a.q_sr;
+#pragma unroll
+    for (int e = 0; e < DE; ++e) {
+      const int d = tx + 32 * e;
+      float out = live ? acc[i][e] / l[i] : 0.f;
+      if (a.v_scales == V_STORE) out *= a.vs[bk * D + d];
+      orow[d] = out;
+    }
+    if (tx == 0)
+      a.lse[bh * a.Sq + r] =
+          live ? m[i] * LN2 + logf(l[i]) - l_off : -INFINITY;
+  }
+}
+
+// Replaces ops/quantized_attention.py::_qfwd_kernel for an fp32 Q (and an
+// int8 Q without ROUND_BF16): qattn_body up to D = 288, qattn_body32 above
+// (mfa::scalar32); and _hpack_kernel for an fp32 packed Q.
 template <typename QT, int D>
 __global__ void __launch_bounds__(THREADS) qattn_fwd_kernel(const Args a) {
-  qattn_body<QT, D>(a);
+  if constexpr (mfa::scalar32<D>())
+    qattn_body32<QT, D>(a);
+  else
+    qattn_body<QT, D>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -425,7 +636,7 @@ constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
 // (MLA's 288), whose steps are cut to 32 keys.
 template <int D>
 __host__ __device__ constexpr bool qattn_wide() {
-  return D > 256;
+  return D > 256 && D <= 288;
 }
 
 // The per-token vectors a step stages beside its payload rows: K's scale
@@ -501,13 +712,15 @@ struct Walk {
 };
 
 // cp.async the per-token vectors of keys [t0, t0 + KS) of kv head `head`
-// that the mode reads into tok[v * KS + r]; zeros from `limit`.
-template <int KS>
+// that the mode reads into tok[v * KS + r]; zeros from `limit`; NT threads.
+template <int KS, int NT = TC_THREADS>
 __device__ __forceinline__ void stage_tok(const Args& a, size_t head, int t0,
                                           int limit, float* tok) {
+  constexpr int N = TOK_VECS * KS;
 #pragma unroll
-  for (int it = 0; it < TOK_VECS * KS / TC_THREADS; ++it) {
-    const int i = it * TC_THREADS + threadIdx.x;
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if (N % NT && i >= N) break;
     const int v = i / KS;
     const int r = i % KS;
     const bool need =
@@ -563,8 +776,8 @@ __device__ __forceinline__ uint2 dequant_bf16(const KVOperand& op,
 
 // Raw payload rows (KS keys) -> bf16 rows [key][d] (dst_ld bytes apart):
 // dequant_bf16's values, zeros from `limit`; ts, tz the staged per-token
-// scale and zero point.
-template <int D, int RAW_LD, int KS>
+// scale and zero point; NT threads.
+template <int D, int RAW_LD, int KS, int NT = TC_THREADS>
 __device__ __forceinline__ void convert_bf16(const KVOperand& op,
                                              const uint8_t* raw, size_t head,
                                              int Skv, int br, int bs, int t0,
@@ -572,10 +785,10 @@ __device__ __forceinline__ void convert_bf16(const KVOperand& op,
                                              const float* tz, uint8_t* dst,
                                              int dst_ld) {
   constexpr int W = D / 4;
-  static_assert(KS * W % TC_THREADS == 0, "whole items a thread");
+  static_assert(KS * W % NT == 0, "whole items a thread");
 #pragma unroll 2
-  for (int it = 0; it < KS * W / TC_THREADS; ++it) {
-    const int i = it * TC_THREADS + threadIdx.x;
+  for (int it = 0; it < KS * W / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
     const int r = i / W;
     const int w = i % W;
     *reinterpret_cast<uint2*>(dst + r * dst_ld + 8 * w) =
@@ -588,15 +801,15 @@ __device__ __forceinline__ void convert_bf16(const KVOperand& op,
 }
 
 // Raw payload rows (KS keys) -> int8 rows [key][d] (int4 unpacked), zeros
-// from `limit`.
-template <int D, int RAW_LD, int DST_LD, int KS>
+// from `limit`; NT threads.
+template <int D, int RAW_LD, int DST_LD, int KS, int NT = TC_THREADS>
 __device__ __forceinline__ void convert_s8(const uint8_t* raw, int bits,
                                            int t0, int limit, uint8_t* dst) {
   constexpr int W = D / 4;
-  static_assert(KS * W % TC_THREADS == 0, "whole items a thread");
+  static_assert(KS * W % NT == 0, "whole items a thread");
 #pragma unroll 2
-  for (int it = 0; it < KS * W / TC_THREADS; ++it) {
-    const int i = it * TC_THREADS + threadIdx.x;
+  for (int it = 0; it < KS * W / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
     const int r = i / W;
     const int w = i % W;
     *reinterpret_cast<int*>(dst + r * DST_LD + 4 * w) =
@@ -606,17 +819,17 @@ __device__ __forceinline__ void convert_s8(const uint8_t* raw, int bits,
 
 // Raw payload rows (KS keys) -> int8 V^T [d][key position] (VT_LD bytes a
 // row), keys permuted within each 16-key group as the s8 P operand holds
-// them.
-template <int D, int RAW_LD, int VT_LD, int KS>
+// them; NT threads.
+template <int D, int RAW_LD, int VT_LD, int KS, int NT = TC_THREADS>
 __device__ __forceinline__ void convert_vt(const uint8_t* raw, int bits,
                                            int t0, int limit, uint8_t* dst) {
   constexpr int W = D / 4;
   constexpr int QUADS = KS / 4;  // 4-position groups a row
   constexpr int N = QUADS * W;   // items
 #pragma unroll 2
-  for (int it = 0; it < (N + TC_THREADS - 1) / TC_THREADS; ++it) {
-    const int i = it * TC_THREADS + threadIdx.x;
-    if (N % TC_THREADS && i >= N) break;
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if (N % NT && i >= N) break;
     const int quad = i % QUADS;  // positions [4 quad, 4 quad + 4)
     const int w = i / QUADS;     // (neighbouring threads store to one row)
     const int k0 = 16 * (quad >> 2) + 2 * (quad & 3);
@@ -1029,39 +1242,488 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   qattn_tc_body<QT, D>(a);
 }
 
+// ---------------------------------------------------------------------------
+// qattn_fwd_latent_kernel: the tensor-core body at DeepSeek's absorbed
+// D = 576 (qattn_latent), the same function at the same rounding points as
+// qattn_tc_body in every mode (int8 / int4 payloads; TOKEN, COLUMN,
+// BLOCK2D, P and STORE scales; an int8 Q and the int8 P over block_kv
+// spans with their first pass; bias, masks, GQA), for any K and V (no zero
+// tail of V is assumed).
+//   - Why qattn_fwd_wide_kernel's body does not stretch: 4 warps x 16 rows
+//     hold O's 16 x 576 fp32 in 288 registers a thread, past the 255 a
+//     thread may have.  So the body takes flash_fwd_latent_kernel's frame:
+//     8 warps; warp w holds rows r0 + 16 (w % 4) + [0, 16) of O and lanes
+//     288 (w / 4) + [0, 288) (144 registers a thread).  The two warps of a
+//     row slab split each 32-key step's scores: each computes S over its
+//     16 keys and all 576 lanes, they trade row maxima and row sums through
+//     shared memory under a named barrier (one a slab), and each writes its
+//     half of the slab's P tile, which both read as the A operand of
+//     O += P.V over their own lanes: bf16 P [16][32 keys], or for the int8
+//     P over integer V int8 P [16][32 positions], each warp's 16 keys one
+//     16-key group in convert_vt's permuted order (the word a lane of the
+//     288 body packs from its S fragments), against V^T in that order.
+//   - Steps and spans as in qattn_fwd_wide_kernel (32 keys; an int8 P's
+//     spans in two passes, pass 0 folding each warp's half of the span's
+//     row max, which pass 1 exchanges with the first step's).
+//   - Shared memory (bf16 Q, 230,400 bytes): Q (64 rows, 74,752), the
+//     per-token vectors (1,024), two buffers of the step's K and V payload
+//     rows (73,728), one bf16 tile each of K and V (74,752), the slabs' P
+//     tiles (5,120) and exchanged row statistics (1,024): one CTA an SM.
+//     An int8 Q at most 177,152.
+//   - The grid stays one CTA per (64 query rows, b, q head): 1,024 CTAs at
+//     DeepSeek-V2-Lite's training shape (B=2, Hq=16, S=2048).
+// ---------------------------------------------------------------------------
+
+constexpr int LATENT_THREADS = 256;  // 4 row slabs x 2 lane halves
+
+// Whether a tensor-core forward at head dim D takes qattn_fwd_latent_kernel
+// (DeepSeek's 576), whose O lanes are split over two warp groups.
+template <int D>
+__host__ __device__ constexpr bool qattn_latent() {
+  return D > 288;
+}
+
+// Byte offsets of qattn_fwd_latent_kernel's shared memory.
+template <typename QT, int D>
+struct LatentSmem {
+  static constexpr bool QINT = std::is_same<QT, int8_t>::value;
+  static constexpr int KS = 32;             // keys a step
+  static constexpr int HALF = D / 2;        // O lanes a warp holds
+  static constexpr int QB = sizeof(QT);
+  static constexpr int Q_LD = D * QB + 16;  // a Q row (int8 or bf16)
+  // A raw payload row: padded by 16 bytes where ldmatrix reads it (an int8
+  // Q over int8 K), else not (a bf16 Q's 230,400 bytes have no room).
+  static constexpr int RAW_LD = QINT ? D + 16 : D;
+  static constexpr int K_LD = D * QB + 16;  // a K operand row
+  static constexpr int VB_LD = 2 * D + 16;  // a bf16 V row [key][d]
+  static constexpr int VT_LD = KS + 16;     // an int8 V^T row [d][key]
+  static constexpr int P_LD = 2 * KS + 16;  // a P row (bf16, or int8)
+  static constexpr int TOK = BM * Q_LD;
+  int kraw, vraw, kop, vop, p, red, total;
+  __host__ __device__ LatentSmem(bool k_direct, bool pv_s8) {
+    kraw = TOK + 2 * TOK_VECS * KS * 4;
+    vraw = kraw + 2 * KS * RAW_LD;
+    kop = vraw + 2 * KS * RAW_LD;
+    vop = kop + (k_direct ? 0 : KS * K_LD);
+    p = vop + (pv_s8 ? D * VT_LD : KS * VB_LD);  // [4 slabs][16][P_LD]
+    red = p + 4 * 16 * P_LD;  // [4 slabs][2 warps][max, sum][16] fp32
+    total = red + 4 * 2 * 2 * 16 * 4;
+  }
+  static_assert(HALF % 16 == 0, "a warp's lanes are whole 16-wide steps");
+};
+
+// Replaces ops/quantized_attention.py::_qfwd_kernel for a bf16 or int8 Q
+// with ROUND_BF16 above D = 288 (qattn_latent; see above).  Bound:
+// operations (4*D per live pair, int8 or bf16).
+template <typename QT, int D>
+__global__ void __launch_bounds__(LATENT_THREADS, 1)
+    qattn_fwd_latent_kernel(const Args a) {
+  constexpr bool QINT = std::is_same<QT, int8_t>::value;
+  using L = LatentSmem<QT, D>;
+  constexpr int NT = LATENT_THREADS;
+  constexpr int KS = L::KS;
+  constexpr int NB = L::HALF / 8;  // 8-lane blocks of O a warp holds
+  extern __shared__ __align__(16) uint8_t sm[];
+  __shared__ int s_lo, s_hi;
+
+  const bool p_int8 = a.flags & P_INT8;
+  const bool l_rounded = a.flags & L_ROUNDED;
+  const bool pv_s8 = tc_pv_s8(a.flags, a.v_scales);
+  const bool k_direct = QINT && a.bits_k == 8;
+  const L lay(k_direct, pv_s8);
+  uint8_t* qsm = sm;
+  float* tok = reinterpret_cast<float*>(sm + L::TOK);
+  uint8_t* kraw = sm + lay.kraw;
+  uint8_t* vraw = sm + lay.vraw;
+  uint8_t* kop = sm + lay.kop;
+  uint8_t* vop = sm + lay.vop;
+
+  // The last row tiles first: under a causal mask they walk the most keys.
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int slab = warp & 3;   // rows r0 + 16 slab + [0, 16)
+  const int half = warp >> 2;  // keys 16 half + [0, 16) of a step in S,
+                               // lanes HALF half + [0, HALF) of O
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int k0 = 16 * half;
+  const size_t bh = (size_t)b * a.Hq + h;
+  const size_t bk = (size_t)b * a.Hkv + hk;
+  const long long qoff =
+      b * a.q_sb + (h >> 1) * a.q_spair + (h & 1) * a.q_shalf;
+  const float* bh_bias =
+      a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  uint8_t* sp = sm + lay.p + slab * 16 * L::P_LD;
+  // This slab's [warp half][max, sum][16 rows].
+  float* red = reinterpret_cast<float*>(sm + lay.red) + slab * 64;
+
+  {  // Q rows [r0, r0 + 64), zeros from Sq
+    constexpr int CPR = D * L::QB / 16;
+    const uint8_t* qg = static_cast<const uint8_t*>(a.q);
+    for (int i = threadIdx.x; i < BM * CPR; i += NT) {
+      const int r = i / CPR;
+      const int c = i % CPR;
+      const bool ok = r0 + r < a.Sq;
+      mfa::cp_async16(
+          qsm + r * L::Q_LD + c * 16,
+          qg + (size_t)(qoff + (long long)(ok ? r0 + r : 0) * a.q_sr) * L::QB +
+              c * 16,
+          ok ? 16 : 0);
+    }
+  }
+  key_span(a.ranges, r0, a.Sq, a.Skv, &s_lo, &s_hi);
+  const int c_hi = s_hi;
+
+  int row[2], rs[2], re[2];
+  float m[2], l[2], qsr[2], smax[2], acc[NB][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = r0 + slab * 16 + g + 8 * i;
+    row_range(a.ranges, row[i], a.Sq, a.Skv, rs[i], re[i]);
+    qsr[i] = (QINT && row[i] < a.Sq) ? a.qs[bh * a.Sq + row[i]] : 1.f;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    smax[i] = -INFINITY;
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+
+  const KVOperand kop_d{a.kq, a.ks, a.kz, a.bits_k, a.k_scales};
+  const KVOperand vop_d{a.vq, a.vs, a.vz, a.bits_v, a.v_scales};
+  auto prefetch = [&](const Walk<KS>& w, int buf) {
+    stage_tok<KS, NT>(a, bk, w.t0, c_hi, tok + buf * TOK_VECS * KS);
+    mfa::stage_raw<D, L::RAW_LD, NT, KS>(a.kq, a.bits_k, bk, a.Skv, w.t0,
+                                         c_hi, kraw + buf * KS * L::RAW_LD);
+    if (w.pass == 1)
+      mfa::stage_raw<D, L::RAW_LD, NT, KS>(a.vq, a.bits_v, bk, a.Skv, w.t0,
+                                           c_hi,
+                                           vraw + buf * KS * L::RAW_LD);
+  };
+
+  // Spans of kv_span keys; every mode but the int8 P's walks single steps.
+  const int span = a.kv_span == BN && !p_int8 ? KS : a.kv_span;
+  Walk<KS> w(span, s_lo, c_hi);
+  int buf = 0;
+  if (w.live()) prefetch(w, 0);
+  mfa::cp_async_commit();  // Q and the first step
+  while (w.live()) {
+    const Walk<KS> cur = w;
+    w.advance();
+    mfa::cp_async_wait<0>();
+    __syncthreads();  // this step staged; the last one's readers done
+    const uint8_t* kr = kraw + buf * KS * L::RAW_LD;
+    const uint8_t* vr = vraw + buf * KS * L::RAW_LD;
+    const float* tk = tok + buf * TOK_VECS * KS;
+    buf ^= 1;
+    if (w.live()) prefetch(w, buf);
+    mfa::cp_async_commit();
+    if constexpr (QINT) {
+      if (!k_direct)
+        convert_s8<D, L::RAW_LD, L::K_LD, KS, NT>(kr, a.bits_k, cur.t0, c_hi,
+                                                  kop);
+    } else {
+      convert_bf16<D, L::RAW_LD, KS, NT>(kop_d, kr, bk, a.Skv, a.br, a.bs,
+                                         cur.t0, c_hi, tk + TK_SCALE * KS,
+                                         tk + TK_ZP * KS, kop, L::K_LD);
+    }
+    if (cur.pass == 1) {
+      if (pv_s8)
+        convert_vt<D, L::RAW_LD, L::VT_LD, KS, NT>(vr, a.bits_v, cur.t0,
+                                                   c_hi, vop);
+      else
+        convert_bf16<D, L::RAW_LD, KS, NT>(vop_d, vr, bk, a.Skv, a.br, a.bs,
+                                           cur.t0, c_hi, tk + TV_SCALE * KS,
+                                           tk + TV_ZP * KS, vop, L::VB_LD);
+    }
+    if (!k_direct || cur.pass == 1) __syncthreads();  // operand tiles ready
+
+    // S = Q.K^T for this slab's 16 rows and this warp's 16 keys: element
+    // (row[i], key cur.t0 + k0 + 8j + 2tq + c) at s[j][2i + c].
+    float s[2][4];
+    {
+      const uint8_t* kt = k_direct ? kr : kop;
+      const int k_ld = k_direct ? L::RAW_LD : L::K_LD;
+      const uint8_t* qp = qsm +
+                          (slab * 16 + mfa::ldsm_a_row(lane)) * L::Q_LD +
+                          mfa::ldsm_a_byte(lane);
+      const uint8_t* kp =
+          kt + (k0 + mfa::ldsm_b_row(lane)) * k_ld + mfa::ldsm_b_byte(lane);
+      if constexpr (QINT) {
+        int si[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};  // |S| may pass 2^22
+#pragma unroll 6
+        for (int kc = 0; kc < D / 32; ++kc) {
+          uint32_t af[4], bf[4];
+          mfa::ldsm_x4(af, qp + kc * 32);
+          mfa::ldsm_x4(bf, kp + kc * 32);
+          mfa::mma_s8(si[0], af, bf[0], bf[1], si[0]);
+          mfa::mma_s8(si[1], af, bf[2], bf[3], si[1]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = (float)si[j][e] * qsr[e >> 1];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 6
+        for (int kc = 0; kc < D / 16; ++kc) {
+          uint32_t af[4], bf[4];
+          mfa::ldsm_x4(af, qp + kc * 32);
+          mfa::ldsm_x4(bf, kp + kc * 32);
+          mfa::mma_bf16(s[0], af, bf[0], bf[1], s[0]);
+          mfa::mma_bf16(s[1], af, bf[2], bf[3], s[1]);
+        }
+      }
+    }
+
+    // The scalar body's element-wise steps, in its order.
+    if (cur.fresh()) smax[0] = smax[1] = -INFINITY;
+    if (a.k_scales == K_COLUMN) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kk = k0 + 8 * j + 2 * tq + c;
+          const float cs = tk[TK_SCALE * KS + kk];
+          if (cur.t0 + kk < a.Skv) {
+            s[j][c] *= cs;
+            s[j][2 + c] *= cs;
+          }
+        }
+    }
+    if (bh_bias) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = cur.t0 + k0 + 8 * j + 2 * tq + c;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (row[i] < a.Sq && col < c_hi)
+              s[j][2 * i + c] +=
+                  bh_bias[(size_t)row[i] * a.Skv + col] * LOG2E;
+        }
+    }
+    float mx[2] = {smax[0], smax[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = cur.t0 + k0 + 8 * j + 2 * tq + c;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float& x = s[j][2 * i + c];
+          x = (col < rs[i] || col >= re[i]) ? a.mask_value : x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+    if (cur.pass == 0) {  // this warp's half of the span's row max
+      smax[0] = mx[0];
+      smax[1] = mx[1];
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      if (tq == 0) red[half * 32 + g + 8 * i] = mx[i];
+    }
+    mfa::named_barrier(1 + slab, 64);  // both warps' row maxima
+    float alpha[2], m_next[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = g + 8 * i;
+      m_next[i] = fmaxf(m[i], fmaxf(red[r], red[32 + r]));
+      alpha[i] = (m[i] == -INFINITY) ? 0.f : exp2f(m[i] - m_next[i]);
+    }
+    // P = 2^(s - m) (mma.cuh's ex2_approx).  A row whose max is still
+    // -inf (every score -inf) subtracts 0 instead, so its P is 0, not NaN.
+    const float mref[2] = {m_next[0] == -INFINITY ? 0.f : m_next[0],
+                           m_next[1] == -INFINITY ? 0.f : m_next[1]};
+    if (p_int8) {  // (float)(int)(raw + 0.5f), raw < 2^23
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float raw =
+              mfa::ex2_approx(s[j][e] + (LOG2_127 - mref[e >> 1]));
+          const float p = __fadd_rz(raw + 0.5f, 8388608.0f) - 8388608.0f;
+          sum[e >> 1] += l_rounded ? p : raw;
+          s[j][e] = p;
+        }
+    } else {
+      const bool v_p = a.v_scales == V_P;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kk = k0 + 8 * j + 2 * tq + c;
+          const float vsc = v_p && cur.t0 + kk < a.Skv
+                                ? tk[TV_SCALE * KS + kk]
+                                : 1.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float raw = mfa::ex2_approx(s[j][2 * i + c] - mref[i]);
+            const float p = __uint_as_float(mfa::bf16_bits(raw * vsc));
+            sum[i] += l_rounded ? p : raw;
+            s[j][2 * i + c] = p;
+          }
+        }
+    }
+    // This warp's half of the slab's P tile: P is exact in bf16 (rounded
+    // to it, or an integer up to 127); the int8 P as the bytes of
+    // P + 2^23, one word a row in convert_vt's key order.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (pv_s8) {
+        constexpr float B23 = 8388608.0f;
+        *reinterpret_cast<uint32_t*>(sp + (g + 8 * i) * L::P_LD + k0 +
+                                     4 * tq) =
+            mfa::low_bytes(s[0][2 * i] + B23, s[0][2 * i + 1] + B23,
+                           s[1][2 * i] + B23, s[1][2 * i + 1] + B23);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<uint32_t*>(sp + (g + 8 * i) * L::P_LD +
+                                       2 * (k0 + 8 * j + 2 * tq)) =
+              mfa::pack_bf16_exact(s[j][2 * i], s[j][2 * i + 1]);
+      }
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      if (tq == 0) red[half * 32 + 16 + g + 8 * i] = sum[i];
+    }
+    mfa::named_barrier(1 + slab, 64);  // the slab's P and both row sums
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 + g + 8 * i;
+      l[i] = alpha[i] * l[i] + (red[r] + red[32 + r]);
+      m[i] = m_next[i];
+    }
+    // alpha is 1 after a span's first step (its max came from pass 0).
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        acc[nb][0] *= alpha[0];
+        acc[nb][1] *= alpha[0];
+        acc[nb][2] *= alpha[1];
+        acc[nb][3] *= alpha[1];
+      }
+    }
+
+    // O += P.V over this warp's lanes, P from the slab's tile.
+    const uint8_t* pa_p =
+        sp + mfa::ldsm_a_row(lane) * L::P_LD + mfa::ldsm_a_byte(lane);
+    if (pv_s8) {
+      uint32_t pa[4];
+      mfa::ldsm_x4(pa, pa_p);  // one s8 k step: the step's 32 positions
+      const uint8_t* vt = vop +
+                          (half * L::HALF + mfa::ldsm_b_row(lane)) * L::VT_LD +
+                          mfa::ldsm_b_byte(lane);
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {
+        uint32_t bb[4];
+        mfa::ldsm_x4(bb, vt + n2 * 16 * L::VT_LD);
+        // |P.V| <= 32 * 127 * 128 < 2^22: summed from I32_BIAS.
+        constexpr int M0 = mfa::I32_BIAS;
+        int c0[4] = {M0, M0, M0, M0}, c1[4] = {M0, M0, M0, M0};
+        mfa::mma_s8(c0, pa, bb[0], bb[1], c0);
+        mfa::mma_s8(c1, pa, bb[2], bb[3], c1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * n2][e] += mfa::biased_f32(c0[e]);
+          acc[2 * n2 + 1][e] += mfa::biased_f32(c1[e]);
+        }
+      }
+    } else {
+      const uint8_t* vb = vop + mfa::ldsm_t_k(lane) * L::VB_LD +
+                          (half * L::HALF + mfa::ldsm_t_n(lane)) * 2;
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {
+        uint32_t pa[4];
+        mfa::ldsm_x4(pa, pa_p + kk * 32);
+#pragma unroll
+        for (int n2 = 0; n2 < NB / 2; ++n2) {
+          uint32_t bf[4];
+          mfa::ldsm_x4_t(bf, vb + kk * 16 * L::VB_LD + n2 * 32);
+          mfa::mma_bf16(acc[2 * n2], pa, bf[0], bf[1], acc[2 * n2]);
+          mfa::mma_bf16(acc[2 * n2 + 1], pa, bf[2], bf[3], acc[2 * n2 + 1]);
+        }
+      }
+    }
+  }
+  mfa::cp_async_wait<0>();
+
+  const float l_off = p_int8 ? LN_127 : 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= a.Sq) continue;
+    const bool live = re[i] > rs[i] && l[i] > 0.f;
+    float* orow = a.o + qoff + (long long)row[i] * a.q_sr;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int d = half * L::HALF + 8 * nb + 2 * tq;
+      float o0 = live ? acc[nb][2 * i] / l[i] : 0.f;
+      float o1 = live ? acc[nb][2 * i + 1] / l[i] : 0.f;
+      if (a.v_scales == V_STORE) {
+        o0 *= a.vs[bk * D + d];
+        o1 *= a.vs[bk * D + d + 1];
+      }
+      *reinterpret_cast<float2*>(orow + d) = make_float2(o0, o1);
+    }
+    if (half == 0 && tq == 0)
+      a.lse[bh * a.Sq + row[i]] =
+          live ? m[i] * LN2 + logf(l[i]) - l_off : -INFINITY;
+  }
+}
+
 template <typename K>
 int launch(K kern, const Args& a, int B, int threads, size_t smem,
-           cudaStream_t stream) {
+           cudaStream_t stream, int rows = BM) {
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((a.Sq + BM - 1) / BM, a.Hq, B), threads, smem, stream>>>(a);
+  kern<<<dim3((a.Sq + rows - 1) / rows, a.Hq, B), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The body a call takes (ops/quantized_attention.py::qattn_body gives the
 // same answer): the tensor-core one for a bf16 or int8 Q with ROUND_BF16
-// (qattn_fwd_tc_kernel up to D = 256, qattn_fwd_wide_kernel at 288), the
-// scalar one for an fp32 Q and for an int8 Q without it (an fp32 Q
-// quantized to int8 keeps fp32 products); a bf16 Q always rounds to bf16.
+// (qattn_fwd_tc_kernel up to D = 256, qattn_fwd_wide_kernel at 288,
+// qattn_fwd_latent_kernel at 576), the scalar one for an fp32 Q and for an
+// int8 Q without it (an fp32 Q quantized to int8 keeps fp32 products; in
+// 32-row CTAs at 576); a bf16 Q always rounds to bf16.
 // The head-pair call (mfa_hpack_fwd, always ROUND_BF16) routes the same
 // way: bf16 to the tensor cores, fp32 to the scalar body.
 template <typename QT, int D>
 int launch_qattn(const Args& a, int B, cudaStream_t stream) {
   if constexpr (!std::is_same<QT, float>::value) {
     if (a.flags & ROUND_BF16) {
-      const TcSmem<QT, D> lay(
-          std::is_same<QT, int8_t>::value && a.bits_k == 8,
-          tc_pv_s8(a.flags, a.v_scales));
-      if constexpr (qattn_wide<D>())
+      const bool k_direct = std::is_same<QT, int8_t>::value && a.bits_k == 8;
+      const bool pv_s8 = tc_pv_s8(a.flags, a.v_scales);
+      if constexpr (qattn_latent<D>())
+        return launch(qattn_fwd_latent_kernel<QT, D>, a, B, LATENT_THREADS,
+                      LatentSmem<QT, D>(k_direct, pv_s8).total, stream);
+      else if constexpr (qattn_wide<D>())
         return launch(qattn_fwd_wide_kernel<QT, D>, a, B, TC_THREADS,
-                      lay.total, stream);
+                      TcSmem<QT, D>(k_direct, pv_s8).total, stream);
       else
         return launch(qattn_fwd_tc_kernel<QT, D>, a, B, TC_THREADS,
-                      lay.total, stream);
+                      TcSmem<QT, D>(k_direct, pv_s8).total, stream);
     }
   }
   if constexpr (std::is_same<QT, __nv_bfloat16>::value) {
     return (int)cudaErrorInvalidValue;
+  } else if constexpr (mfa::scalar32<D>()) {
+    return launch(qattn_fwd_kernel<QT, D>, a, B, THREADS,
+                  mfa::smem32_bytes<D>(), stream, mfa::T32);
   } else {
     return launch(qattn_fwd_kernel<QT, D>, a, B, THREADS,
                   smem_floats<D>() * sizeof(float), stream);
@@ -1075,6 +1737,7 @@ int launch_qattn_d(const Args& a, int B, int D, cudaStream_t stream) {
   if (D == 128) return launch_qattn<QT, 128>(a, B, stream);
   if (D == 256) return launch_qattn<QT, 256>(a, B, stream);
   if (D == 288) return launch_qattn<QT, 288>(a, B, stream);
+  if (D == 576) return launch_qattn<QT, 576>(a, B, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1141,14 +1804,15 @@ int mfa_hpack_fwd(const void* q, const void* kq, const void* vq,
 }
 
 // The kernel mfa_qattn_fwd launches for qtype at head dim D with `flags`:
-// 2 qattn_fwd_wide_kernel, 1 qattn_fwd_tc_kernel, 0 qattn_fwd_kernel, -1
-// none (ops/quantized_attention.py::qattn_body gives the same answer).
+// 3 qattn_fwd_latent_kernel, 2 qattn_fwd_wide_kernel, 1
+// qattn_fwd_tc_kernel, 0 qattn_fwd_kernel, -1 none
+// (ops/quantized_attention.py::qattn_body gives the same answer).
 int mfa_qattn_body(int qtype, int D, int flags) {
-  if ((D != 32 && D != 64 && D != 128 && D != 256 && D != 288) ||
+  if ((D != 32 && D != 64 && D != 128 && D != 256 && D != 288 && D != 576) ||
       qtype < 0 || qtype > 2 || (qtype == 1 && !(flags & ROUND_BF16)))
     return -1;
   if (qtype == 0 || !(flags & ROUND_BF16)) return 0;
-  return D > 256 ? 2 : 1;
+  return D > 288 ? 3 : D > 256 ? 2 : 1;
 }
 
 }  // extern "C"

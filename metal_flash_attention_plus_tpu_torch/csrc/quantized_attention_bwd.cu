@@ -4,17 +4,19 @@
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu,
 // ops/flash_attention_bwd.py):
 //   - _dq_kernel, quantized modes   -> qflash_dq_tc_kernel (bf16 up to
-//     D = 256), qflash_dq_wide_kernel (bf16 at D = 288), qflash_dq_kernel
-//     (fp32)
+//     D = 256), qflash_dq_wide_kernel (bf16 at D = 288),
+//     qflash_dq_latent_kernel (bf16 at D = 576), qflash_dq_kernel (fp32)
 //   - _dkv_kernel, quantized modes  -> qflash_dkv_tc_kernel (bf16 up to
-//     D = 256), qflash_dkv_wide_kernel then flash_attention.cu's
-//     flash_dkv_merge_kernel (bf16 at D = 288), qflash_dkv_kernel (fp32)
+//     D = 256), qflash_dkv_wide_kernel (bf16 at D = 288) or
+//     qflash_dkv_latent_kernel (bf16 at D = 576) then flash_attention.cu's
+//     flash_dkv_merge_kernel, qflash_dkv_kernel (fp32)
 //   - _dq_fullint_kernel            -> fullint_dq_tc_kernel, fullint_dq_kernel
 //   - _dkv_fullint_kernel           -> fullint_dkv_tc_kernel,
 //                                      fullint_dkv_kernel
-// Head dims: the kernels are built for D = 32, 64, 128, 256 and MLA's 288
-// (ops/quantized_attention.py::qattn_width runs the other multiples of 16
-// up to 288 zero-padded at the next).
+// Head dims: the exact pair is built for D = 32, 64, 128, 256, MLA's 288 and
+// DeepSeek's absorbed 576 (ops/quantized_attention.py::qattn_width runs the
+// other multiples of 16 up to 576 zero-padded at the next); the
+// full-integer pair up to 288 (ops/flash_attention_bwd.py::fullint_width).
 //
 // The exact pair runs the flash backward's bodies (attention_bwd.cuh) with
 // K/V staged from their payloads (quantized_tiles.cuh):
@@ -28,17 +30,21 @@
 //     bf16 runs on the tensor cores (qflash_dq_tc_kernel: dq_tc_body, the
 //     payload rows double-buffered by cp.async and dequantized in shared
 //     memory a tile at a time; at D = 288 qflash_dq_wide_kernel:
-//     dq_wide_body, 32-key tiles), fp32 on the scalar body;
+//     dq_wide_body, 32-key tiles; at D = 576 qflash_dq_latent_kernel:
+//     dq_latent_body, each tile's payload dequantized as it loads), fp32 on
+//     the scalar body (dq_body32 in 32-row tiles at 576);
 //   - dK/dV: gradients with respect to the DEQUANTIZED K/V: each K/V tile is
 //     dequantized (per token, per BLOCK_2D block or per channel) and rounded
 //     to T as it is staged, then used with the unfolded Q (scaled by `scale`
 //     and rounded here) and dO; the group reduction happens in the kernel.
 //     bf16 runs on the tensor cores (qflash_dkv_tc_kernel: dkv_tc_body, the
 //     payload rows copied by cp.async and dequantized in shared memory; at
-//     D = 288 qflash_dkv_wide_kernel: dkv_wide_body, 48-row query steps,
-//     the GQA group split over `splits` CTAs a key tile into an fp32
-//     workspace that flash_dkv_merge_kernel sums in split order), fp32 on
-//     the scalar body.
+//     D = 288 qflash_dkv_wide_kernel: dkv_wide_body, 48-row query steps;
+//     at D = 576 qflash_dkv_latent_kernel: dkv_latent_body, a CTA's 32 keys
+//     dequantized once as they load; at both the GQA group split over
+//     `splits` CTAs a key tile into an fp32 workspace that
+//     flash_dkv_merge_kernel sums in split order), fp32 on the scalar body
+//     (dkv_body32 in 32-key tiles at 576).
 //
 // The full-integer pair takes per-token int8 Q (Q*scale quantized, scales
 // qsc [B, Hq, Sq], times a TENSOR K scale) and int8 dO twice: dO itself
@@ -153,15 +159,37 @@ struct QuantKV {
                                            bs, t0, limit, dst, ROW);
   }
   static constexpr bool RAW = true;  // tc_load fills `raw`, tc_convert dst
+  // The latent bodies' staging (bf16, at 576, where no scratch fits): ROWS
+  // payload rows read from device memory and dequantized as they load
+  // into bf16 rows in dst, as tc_convert makes them.
+  template <int NT, int ROW, int ROWS>
+  __device__ __forceinline__ void tc_fill(bool is_v, size_t head, int t0,
+                                          int limit, uint8_t* dst) const {
+    mfa::dequant_fill_bf16<D, NT, ROWS>(is_v ? v : k, head, Skv, br, bs, t0,
+                                        limit, dst, ROW);
+  }
+  // The 32-row scalar bodies' staging (fp32, above 288).
+  template <bool ROWS>
+  __device__ __forceinline__ void stage32(bool is_v, size_t head, int t0,
+                                          int limit, float* dst) const {
+    mfa::stage_kv32<D, ROWS>(is_v ? v : k, head, Skv, br, bs, rb, t0, limit,
+                             dst);
+  }
 };
 
 // Replaces _dq_kernel's quantized modes.  Bound: operations (6*D per live
-// pair).  The fp32 instances; bf16 takes qflash_dq_tc_kernel or
-// qflash_dq_wide_kernel.
+// pair).  The fp32 instances (in 32-row tiles above D = 288:
+// mfa::scalar32); bf16 takes qflash_dq_tc_kernel, qflash_dq_wide_kernel or
+// qflash_dq_latent_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 qflash_dq_kernel(const BwdArgs a, const QuantKV<D> kv) {
-  mfa::dq_body<T, D, false>(a, kv);
+  if constexpr (mfa::scalar32<D>()) {
+    static_assert(std::is_same<T, float>::value, "fp32 only above 288");
+    mfa::dq_body32<D>(a, kv);
+  } else {
+    mfa::dq_body<T, D, false>(a, kv);
+  }
 }
 
 // The same on the tensor cores (attention_bwd.cuh::dq_tc_body), bf16: the
@@ -181,13 +209,28 @@ qflash_dq_wide_kernel(const BwdArgs a, const QuantKV<D> kv) {
   mfa::dq_wide_body<D, false>(a, kv);
 }
 
+// The same at D = 576 (attention_bwd.cuh::dq_latent_body: 32-key tiles, 8
+// warps, one CTA an SM, each tile's K and V payload rows dequantized as
+// they load), bf16.
+template <int D>
+__global__ void __launch_bounds__(mfa::DQ_LATENT_THREADS, 1)
+qflash_dq_latent_kernel(const BwdArgs a, const QuantKV<D> kv) {
+  mfa::dq_latent_body<D, false>(a, kv);
+}
+
 // Replaces _dkv_kernel's quantized modes.  Bound: operations (8*D per live
-// pair).  The fp32 instances; bf16 takes qflash_dkv_tc_kernel or
-// qflash_dkv_wide_kernel.
+// pair).  The fp32 instances (in 32-key tiles above D = 288:
+// mfa::scalar32); bf16 takes qflash_dkv_tc_kernel, qflash_dkv_wide_kernel
+// or qflash_dkv_latent_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 qflash_dkv_kernel(const BwdArgs a, const QuantKV<D> kv) {
-  mfa::dkv_body<T, D>(a, kv);
+  if constexpr (mfa::scalar32<D>()) {
+    static_assert(std::is_same<T, float>::value, "fp32 only above 288");
+    mfa::dkv_body32<D>(a, kv);
+  } else {
+    mfa::dkv_body<T, D>(a, kv);
+  }
 }
 
 // The same on the tensor cores (attention_bwd.cuh::dkv_tc_body), bf16.
@@ -207,6 +250,16 @@ __global__ void __launch_bounds__(mfa::DKV_WIDE_THREADS, 1)
 qflash_dkv_wide_kernel(const BwdArgs a, const QuantKV<D> kv, int splits,
                        float* __restrict__ ws) {
   mfa::dkv_wide_body<D>(a, kv, splits, ws);
+}
+
+// The same at D = 576 (attention_bwd.cuh::dkv_latent_body: 32-key CTAs,
+// 32-row query steps, 8 warps, one CTA an SM, K and V dequantized once as
+// they load), bf16; the GQA group split as qflash_dkv_wide_kernel's.
+template <int D>
+__global__ void __launch_bounds__(mfa::DKV_LATENT_THREADS, 1)
+qflash_dkv_latent_kernel(const BwdArgs a, const QuantKV<D> kv, int splits,
+                         float* __restrict__ ws) {
+  mfa::dkv_latent_body<D>(a, kv, splits, ws);
 }
 
 // ---------------------------------------------------------------------------
@@ -1406,21 +1459,39 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
 // Launchers
 // ---------------------------------------------------------------------------
 
-// As the flash kernels route (dq_tc / dkv_tc, and bwd_wide at D = 288):
-// bf16 to dq_tc_body / dkv_tc_body up to D = 256 and to the wide bodies at
-// 288, fp32 to the scalar bodies.  splits > 1 (the wide dK/dV only) deals
-// the GQA group over that many CTAs a key tile, their partials into ws.
+// As the flash kernels route (dq_tc / dkv_tc, bwd_wide at D = 288 and
+// bwd_latent at 576): bf16 to dq_tc_body / dkv_tc_body up to D = 256, to
+// the wide bodies at 288 and to the latent bodies at 576, fp32 to the
+// scalar bodies (32-row tiles at 576: scalar32).  splits > 1 (the wide and
+// latent dK/dV only) deals the GQA group over that many CTAs a key tile,
+// their partials into ws.
 template <typename T, int D>
 int launch_qflash(bool dq, const BwdArgs& a, const QuantKV<D>& kv, int B,
                   int splits, float* ws, cudaStream_t stream) {
   constexpr bool TC = mfa::dq_tc<T, D>();  // = dkv_tc
   constexpr bool WIDE = TC && mfa::bwd_wide<D>();
-  if (splits < 1 || (splits > 1 && (!WIDE || dq || !ws)) ||
+  constexpr bool LATENT = TC && mfa::bwd_latent<D>();
+  constexpr bool SCALAR32 = !TC && mfa::scalar32<D>();
+  if (splits < 1 || (splits > 1 && (!(WIDE || LATENT) || dq || !ws)) ||
       splits > a.Hq / a.Hkv)
     return (int)cudaErrorInvalidValue;
-  const dim3 dq_grid((a.Sq + BM - 1) / BM, a.Hq, B);
-  const dim3 grid((a.Skv + BN - 1) / BN, a.Hkv, B);
-  if constexpr (WIDE) {
+  // Query rows (dQ) or keys (dK/dV) a CTA: 32 on the latent dK/dV and the
+  // 32-row scalar bodies, else 64 (BM = BN).
+  constexpr int DQ_ROWS = SCALAR32 ? mfa::T32 : BM;
+  constexpr int KEYS = SCALAR32 || LATENT ? mfa::T32 : BN;
+  const dim3 dq_grid((a.Sq + DQ_ROWS - 1) / DQ_ROWS, a.Hq, B);
+  const dim3 grid((a.Skv + KEYS - 1) / KEYS, a.Hkv, B);
+  if constexpr (LATENT) {
+    if (dq)
+      return launch_with_smem(qflash_dq_latent_kernel<D>, dq_grid,
+                              mfa::DQ_LATENT_THREADS,
+                              mfa::DqLatentSmem<D>::BYTES, stream, a, kv);
+    return launch_with_smem(qflash_dkv_latent_kernel<D>,
+                            dim3(grid.x, grid.y, grid.z * splits),
+                            mfa::DKV_LATENT_THREADS,
+                            mfa::DkvLatentSmem<D>::BYTES, stream, a, kv,
+                            splits, ws);
+  } else if constexpr (WIDE) {
     if (dq)
       return launch_with_smem(qflash_dq_wide_kernel<D>, dq_grid,
                               mfa::DQ_WIDE_THREADS,
@@ -1440,11 +1511,15 @@ int launch_qflash(bool dq, const BwdArgs& a, const QuantKV<D>& kv, int B,
   } else {
     if (dq)
       return launch_with_smem(qflash_dq_kernel<T, D>, dq_grid, THREADS,
-                              mfa::dq_smem_floats<D>() * sizeof(float),
+                              SCALAR32 ? mfa::smem32_bytes<D>()
+                                       : mfa::dq_smem_floats<D>() *
+                                             sizeof(float),
                               stream, a, kv);
     return launch_with_smem(qflash_dkv_kernel<T, D>, grid, THREADS,
-                            mfa::dkv_smem_floats<D>() * sizeof(float), stream,
-                            a, kv);
+                            SCALAR32 ? mfa::smem32_bytes<D>()
+                                     : mfa::dkv_smem_floats<D>() *
+                                           sizeof(float),
+                            stream, a, kv);
   }
 }
 
@@ -1483,15 +1558,16 @@ bool valid_bits(int bits) { return bits == 8 || bits == 4; }
 
 // Plain C interface (loaded with ctypes).  Returns the launch's
 // cudaError_t; cudaErrorInvalidValue for an unsupported dtype (0 float32,
-// 1 bfloat16), head dim (32, 64, 128, 256, 288), bit width or head
-// grouping.
+// 1 bfloat16), head dim (32, 64, 128, 256, 288, and 576 for the exact
+// pair), bit width or head grouping.
 extern "C" {
 
 // The exact dQ (dq = 1: out0 = dQ, out1 = dbias or null; q pre-scaled) or
 // dK/dV (dq = 0: out0 = dK, out1 = dV; q scaled by `scale` here).  k_mode /
 // v_mode: 0 integers, 1 per token, 2 BLOCK_2D, 5 per channel.  splits:
-// the CTAs that share a key tile's GQA group (bf16 dK/dV at D = 288 only,
-// ops/flash_attention_bwd.py::dkv_splits; 1 elsewhere); with splits > 1
+// the CTAs that share a key tile's GQA group (bf16 dK/dV at D = 288 and
+// 576 only, ops/flash_attention_bwd.py::dkv_splits; 1 elsewhere); with
+// splits > 1
 // the partials go to ws, fp32 [splits, 2, B, Hkv, Skv, D], and
 // mfa_flash_dkv_merge sums them into out0 and out1.
 int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
@@ -1532,19 +1608,21 @@ int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
     if (D == 128) MFA_QFLASH(float, 128);
     if (D == 256) MFA_QFLASH(float, 256);
     if (D == 288) MFA_QFLASH(float, 288);
+    if (D == 576) MFA_QFLASH(float, 576);
   } else if (dtype == 1) {
     if (D == 32) MFA_QFLASH(__nv_bfloat16, 32);
     if (D == 64) MFA_QFLASH(__nv_bfloat16, 64);
     if (D == 128) MFA_QFLASH(__nv_bfloat16, 128);
     if (D == 256) MFA_QFLASH(__nv_bfloat16, 256);
     if (D == 288) MFA_QFLASH(__nv_bfloat16, 288);
+    if (D == 576) MFA_QFLASH(__nv_bfloat16, 576);
   }
 #undef MFA_QFLASH
   return (int)cudaErrorInvalidValue;
 }
 
 // The full-integer dQ (dq = 1: out0 = dQ) or dK/dV (dq = 0: out0 = dK,
-// out1 = dV).
+// out1 = dV); up to D = 288 (no 576 instances: a call there fails).
 int mfa_fullint_bwd(int dq, const void* qq, const void* qsc, const void* kq,
                     const void* ks, const void* vq, const void* dor,
                     const void* dorsc, const void* dov, const void* dovsc,

@@ -9,12 +9,15 @@
 // low nibble and value j + w/2 in its high one, each stored + 8 (D <= 256:
 // one group, byte j holds values j and j + D/2; MLA's D = 288: bytes
 // [0, 128) values j and j + 128, bytes [128, 144) values 256 + j and
-// 272 + j).  They are read four
-// values to a 32-bit word and either widened to fp32 (or dequantized) while
-// they are staged into the transposed [D][LD] tiles of attention_tiles.cuh,
-// or kept as words [D/4][LD] for __dp4a products; the tensor-core bodies
+// 272 + j; DeepSeek's 576: three groups, bytes [0, 128), [128, 256) and
+// [256, 288), the last holding values 512 + j and 544 + j).  They are read
+// four values to a 32-bit word and either widened to fp32 (or dequantized)
+// while they are staged into the transposed [D][LD] tiles of
+// attention_tiles.cuh, or kept as words [D/4][LD] for __dp4a products; the tensor-core bodies
 // copy the payload rows with cp.async (stage_raw) and widen them in shared
-// memory (to bf16 rows: dequant_rows_bf16).
+// memory (to bf16 rows: dequant_rows_bf16), or, at 576, widen them as they
+// load (dequant_fill_bf16); the 32-row scalar bodies stage fp32 rows
+// (stage_kv32).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -222,6 +225,128 @@ __device__ __forceinline__ void dequant_rows_bf16(const KVOperand& op,
     uint4* d = reinterpret_cast<uint4*>(dst + r * dst_ld + 32 * c);
     d[0] = make_uint4(out[0], out[1], out[2], out[3]);
     d[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  }
+}
+
+// Values [16c, 16c + 16) of one payload row in device memory as four int8
+// words (load_word's), by one 16-byte load: int8 rows as they are; int4
+// rows from the 16 bytes of the packing group whose low or high nibbles
+// hold them (16 values never straddle a group's halves at the built
+// widths: each half is a multiple of 16 values, 32 at the tail of 576).
+template <int D>
+__device__ __forceinline__ void load_chunk(const uint8_t* row, int c,
+                                           int bits, int (&wd)[4]) {
+  const int e = 16 * c;
+  int off = e;
+  bool high = false;
+  if (bits == 4) {
+    const int base = D > INT4_GROUP ? e / INT4_GROUP * INT4_GROUP : 0;
+    const int h = min(INT4_GROUP, D - base) / 2;
+    const int o = e - base;
+    high = o >= h;
+    off = base / 2 + (high ? o - h : o);
+  }
+  const uint4 u = *reinterpret_cast<const uint4*>(row + off);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    wd[q] = bits == 8 ? (int)w[q]
+                      : (int)__vsub4((high ? w[q] >> 4 : w[q]) & 0x0F0F0F0Fu,
+                                     0x08080808u);
+}
+
+// Payload rows [t0, t0 + ROWS) of kv head `head`, read from device memory,
+// -> bf16 rows [key][D] of dst (dst_ld bytes apart), as dequant_rows_bf16
+// makes them from staged rows (bit for bit: the same conversion, repeated
+// here so that the staged kernels' code stays as it was), zeros from
+// `limit`; NT threads.  A thread starts the loads of G chunks before it
+// converts the first of them: G = 2 keeps the 16 words in flight within
+// the registers the latent dQ has left beside its accumulator.
+template <int D, int NT, int ROWS>
+__device__ __forceinline__ void dequant_fill_bf16(const KVOperand& op,
+                                                  size_t head, int Skv,
+                                                  int br, int bs, int t0,
+                                                  int limit, uint8_t* dst,
+                                                  int dst_ld) {
+  constexpr int C = D / 16;
+  constexpr int N = ROWS * C;
+  constexpr int G = 2;
+  const int row_bytes = op.bits == 8 ? D : D / 2;
+  const uint8_t* pay = op.pay + head * Skv * (size_t)row_bytes;
+#pragma unroll 1
+  for (int i0 = threadIdx.x; i0 < N; i0 += G * NT) {
+    int wd[G][4];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int i = i0 + k * NT;
+      const int t = t0 + i / C;
+      if (i < N && t < limit)
+        load_chunk<D>(pay + (size_t)t * row_bytes, i % C, op.bits, wd[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int i = i0 + k * NT;
+      if (i >= N) break;
+      const int r = i / C;
+      const int c = i % C;
+      const int t = t0 + r;
+      uint32_t out[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+      if (t < limit) {
+        const bool token = op.mode == DQ_TOKEN;
+        const float s = token ? op.sc[head * Skv + t] : 0.f;
+        const float z = token ? op.zp[head * Skv + t] : 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t x = (uint32_t)wd[k][q] ^ 0x80808080u;
+          float f[4] = {s8_f32<0>(x), s8_f32<1>(x), s8_f32<2>(x),
+                        s8_f32<3>(x)};
+          if (token) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) f[e] = __fmul_rn(f[e] - z, s);
+          } else {
+            dequant_values<D>(op, head, Skv, br, bs, t, 4 * c + q, f);
+          }
+          const bool exact = op.mode == DQ_NONE;
+          out[2 * q] =
+              exact ? pack_bf16_exact(f[0], f[1]) : pack_bf16(f[0], f[1]);
+          out[2 * q + 1] =
+              exact ? pack_bf16_exact(f[2], f[3]) : pack_bf16(f[2], f[3]);
+        }
+      }
+      uint4* d = reinterpret_cast<uint4*>(dst + r * dst_ld + 32 * c);
+      d[0] = make_uint4(out[0], out[1], out[2], out[3]);
+      d[1] = make_uint4(out[4], out[5], out[6], out[7]);
+    }
+  }
+}
+
+// Payload rows [t0, t0 + 32) of kv head `head` (zeros from `limit`) as
+// fp32 kv_values' values in a 32-row layout of attention_tiles.cuh: rows
+// dst[r * ld_rows32<D>() + d] (ROWS) or transposed dst[d * LD32 + r]
+// (consecutive threads on consecutive rows).
+template <int D, bool ROWS>
+__device__ __forceinline__ void stage_kv32(const KVOperand& op, size_t head,
+                                           int Skv, int br, int bs, bool rb,
+                                           int t0, int limit, float* dst) {
+  constexpr int W = D / 4;
+  const size_t row_bytes = op.bits == 8 ? D : D / 2;
+  for (int i = threadIdx.x; i < T32 * W; i += THREADS) {
+    const int r = ROWS ? i / W : i % T32;
+    const int w = ROWS ? i % W : i / T32;
+    const int t = t0 + r;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (t < limit)
+      kv_values<D>(op, head, Skv, br, bs, rb, t, w,
+                   load_word<D>(op.pay + (head * Skv + t) * row_bytes, w,
+                                op.bits),
+                   f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (ROWS)
+        dst[r * ld_rows32<D>() + 4 * w + e] = f[e];
+      else
+        dst[(4 * w + e) * LD32 + r] = f[e];
+    }
   }
 }
 

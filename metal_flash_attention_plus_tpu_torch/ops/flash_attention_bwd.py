@@ -9,15 +9,17 @@ disjoint outputs, so no atomics:
   writes dbias = dS.  Its bf16 instances, and those of :func:`qflash_dq`,
   run on the tensor cores (bf16 mma.sync: ``flash_dq_tc_kernel`` and
   ``qflash_dq_tc_kernel`` up to D = 256, ``flash_dq_wide_kernel`` and
-  ``qflash_dq_wide_kernel`` at MLA's 288, ``flash_dq_latent_kernel`` at
-  DeepSeek's 576); fp32 the scalar body (:func:`dq_body`).
+  ``qflash_dq_wide_kernel`` at MLA's 288, ``flash_dq_latent_kernel`` and
+  ``qflash_dq_latent_kernel`` at DeepSeek's 576); fp32 the scalar body
+  (:func:`dq_body`).
 - :func:`flash_dkv` → ``flash_dkv_kernel`` (TPU ``_dkv_kernel``): per key
   tile, walks the GQA group's q heads × the live query rows, dV += Pᵀ·dO,
   dK += dSᵀ·Q_s; the group reduction happens inside the kernel.  Its bf16
   instances, and those of :func:`qflash_dkv`, run on the tensor cores
   (``flash_dkv_tc_kernel``, ``qflash_dkv_tc_kernel`` up to D = 256;
   ``flash_dkv_wide_kernel``, ``qflash_dkv_wide_kernel`` at 288 and
-  ``flash_dkv_latent_kernel`` at 576, which deal the GQA group over
+  ``flash_dkv_latent_kernel``, ``qflash_dkv_latent_kernel`` at 576, which
+  deal the GQA group over
   :func:`dkv_splits` CTAs a key tile into an fp32 workspace that
   :func:`merge_dkv_splits` sums in split order); fp32 the scalar body
   (:func:`dkv_body`).
@@ -40,7 +42,8 @@ disjoint outputs, so no atomics:
   run on the tensor cores (``fullint_dq_tc_kernel``,
   ``fullint_dkv_tc_kernel``: s8 mma.sync, bf16 or s8 for the output
   products) except at level-2 widths that are not multiples of 32
-  (:func:`fullint_body`).
+  (:func:`fullint_body`), at head dims up to 288 (:func:`fullint_width`;
+  past it they raise, where the exact kernels run to 576).
 
 D = rowsum(dO ⊙ O) is computed once in plain torch, in fp32 from the fp32
 O residual, and shared by both kernels (callers may pass it as ``di``).
@@ -96,6 +99,8 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     check_placement,
     pad_payload,
     pad_scales,
+    FULLINT_HEAD_DIMS,
+    HEAD_DIMS,
     qattn_width,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
@@ -216,7 +221,7 @@ def dkv_body(dtype: torch.dtype, d: int) -> str:
     width: ``dkv_tc_body`` up to 256, ``dkv_wide_body`` at MLA's width 288
     (272 runs at 288; the flash and the quantized kernels alike),
     ``dkv_latent_body`` at DeepSeek's absorbed width 576 (304 to 560 run at
-    576; the flash kernels: the quantized ones stop at 288); "fp32_fma"
+    576; the flash and the quantized kernels alike); "fp32_fma"
     (``dkv_body``: scalar fp32 FMAs, ``dkv_body32`` at 576) for fp32, whose
     2e-5 gate TF32 would break.  The C launchers route the same way
     (``mfa::dkv_tc``, ``mfa::bwd_wide``, ``mfa::bwd_latent``)."""
@@ -591,8 +596,9 @@ def qflash_dq(
     [B, Hkv, Skv] on S's and dS's / dP's columns; ``dqsc``: the store
     multipliers fp32 [B, Hkv, D].  CPU tensors take
     :func:`qflash_dq_plain`; CUDA tensors launch ``qflash_dq_tc_kernel``
-    (bf16 up to kernel width 256), ``qflash_dq_wide_kernel`` (bf16 at 288)
-    or ``qflash_dq_kernel`` (fp32; :func:`dq_body`) or raise."""
+    (bf16 up to kernel width 256), ``qflash_dq_wide_kernel`` (bf16 at 288),
+    ``qflash_dq_latent_kernel`` (bf16 at 576) or ``qflash_dq_kernel`` (fp32;
+    :func:`dq_body`, 32-row tiles at 576) or raise."""
     kw = dict(mode=mode, dqsc=dqsc, ksr=ksr, vsr=vsr, bias=bias,
               interleaved_kv=interleaved_kv)
     if q.device.type == "cpu":
@@ -642,10 +648,11 @@ def qflash_dkv(
     payloads and parameters as for :func:`qflash_dq`, with "channel" scales
     fp32 [B, Hkv, D].  CPU tensors take :func:`qflash_dkv_plain`; CUDA
     tensors launch ``qflash_dkv_tc_kernel`` (bf16 up to kernel width 256),
-    ``qflash_dkv_wide_kernel`` (bf16 at 288: where :func:`dkv_splits` deals
-    the group over several CTAs a key tile, into a workspace that
-    :func:`merge_dkv_splits` sums in split order) or ``qflash_dkv_kernel``
-    (fp32; :func:`dkv_body`), or raise."""
+    ``qflash_dkv_wide_kernel`` (bf16 at 288) or ``qflash_dkv_latent_kernel``
+    (bf16 at 576: at both, where :func:`dkv_splits` deals the group over
+    several CTAs a key tile, into a workspace that :func:`merge_dkv_splits`
+    sums in split order) or ``qflash_dkv_kernel`` (fp32; :func:`dkv_body`,
+    32-key tiles at 576), or raise."""
     kw = dict(mode=mode, scale=scale, bias=bias,
               interleaved_kv=interleaved_kv)
     if q.device.type == "cpu":
@@ -851,6 +858,19 @@ def fullint_dkv_plain(qq, qsc, kq, ks, vq, dor, dorsc, dov, dovsc, lse, di,
 FULLINT_K_STEP = 32  # keys or queries of one s8 m16n8k32 k step
 
 
+def fullint_width(d: int) -> int:
+    """The kernel width the full-integer pair runs head dim ``d`` at: as
+    :func:`qattn_width` up to MLA's 288 (272 runs at 288).  Past 288 it
+    raises: the pair has no 576 instances, and a call there does not fall
+    back to the exact kernels, whose numerics differ."""
+    if d > FULLINT_HEAD_DIMS[-1]:
+        raise ValueError(
+            f"head dim {d}: the full-integer backward kernels stop at "
+            f"{FULLINT_HEAD_DIMS[-1]} (the exact ones run to {HEAD_DIMS[-1]}; "
+            "pass bwd_fullint=False)")
+    return qattn_width(d, FULLINT_HEAD_DIMS)
+
+
 def fullint_body(d: int, width: int) -> str:
     """Which kernels :func:`fullint_dq` and :func:`fullint_dkv` launch at
     head dim ``d`` and level-2 width ``width`` (0: level 1): "tensor_core"
@@ -862,10 +882,10 @@ def fullint_body(d: int, width: int) -> str:
     __dp4a and scalar fp32 FMAs) at the other widths, which
     :func:`fullint_widths` gives sequences that no power of two from 32
     divides (below 32, or 8 or 16 times an odd number: 48 at 336).  Both
-    pairs are built at every :func:`qattn_width`, MLA's 288 among them
+    pairs are built at every :func:`fullint_width`, MLA's 288 among them
     (272 runs at 288); a head dim past 288 raises.  The C launcher routes
     the same way (``mfa_fullint_tc_body``)."""
-    qattn_width(d)
+    fullint_width(d)
     if width < 0:
         raise ValueError(f"level-2 width {width} has no kernel")
     return "tensor_core" if width % FULLINT_K_STEP == 0 else "dp4a"
@@ -882,7 +902,7 @@ def _check_fullint(name, qq, qsc, kq, ks, vq, dos, lse, di, width):
                          "expected")
     b, hq, sq, d = qq.shape
     hkv, skv = kq.shape[1], kq.shape[2]
-    qattn_width(d)
+    fullint_width(d)
     if kq.shape[0] != b or hq % hkv or width < 0:
         raise ValueError(f"{name}: shapes {tuple(qq.shape)} / "
                          f"{tuple(kq.shape)}, width {width} have no kernel")
@@ -949,7 +969,7 @@ def fullint_dq(
     _check_fullint("fullint_dq", qq, qsc, kq, ks, vq, [(dov, dovsc)], lse,
                    di, width)
     d = qq.shape[3]
-    qq, kq, vq, dov = pad_lanes(qattn_width(d), qq, kq, vq, dov)
+    qq, kq, vq, dov = pad_lanes(fullint_width(d), qq, kq, vq, dov)
     dq = torch.empty(qq.shape, dtype=torch.float32, device=qq.device)
     _launch_fullint("fullint_dq", True, qq, qsc, kq, ks, vq, None, None, dov,
                     dovsc, lse, di, dq, None, width, store, interleaved_kv)
@@ -989,7 +1009,8 @@ def fullint_dkv(
     _check_fullint("fullint_dkv", qq, qsc, kq, ks, vq,
                    [(dor, dorsc), (dov, dovsc)], lse, di, width)
     d = qq.shape[3]
-    qq, kq, vq, dor, dov = pad_lanes(qattn_width(d), qq, kq, vq, dor, dov)
+    qq, kq, vq, dor, dov = pad_lanes(fullint_width(d), qq, kq, vq, dor,
+                                     dov)
     dk = torch.empty(kq.shape, dtype=torch.float32, device=kq.device)
     dv = torch.empty(kq.shape, dtype=torch.float32, device=kq.device)
     _launch_fullint("fullint_dkv", False, qq, qsc, kq, ks, vq, dor, dorsc,

@@ -23,7 +23,9 @@ with the scales:
 The TPU kernel ``_qfwd_kernel`` becomes ``csrc/quantized_attention.cu::
 qattn_fwd_tc_kernel`` (tensor cores; a bf16 or int8 Q up to kernel width
 256), ``qattn_fwd_wide_kernel`` (the same at MLA's width 288, in 32-key
-steps) and ``qattn_fwd_kernel`` (fp32 FMAs; an fp32 Q) behind
+steps), ``qattn_fwd_latent_kernel`` (the same at DeepSeek's absorbed width
+576: 8 warps, O's lanes over two warp groups) and ``qattn_fwd_kernel``
+(fp32 FMAs; an fp32 Q, in 32-row tiles at 576) behind
 :func:`qattn_fwd` (:func:`qattn_body` says which); ``_hpack_kernel`` (the d=64
 head-pair layout) becomes the same two kernels at d=64, launched through
 the packed strides behind :func:`hpack_fwd`.
@@ -108,25 +110,29 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
 LOG2_127 = float(np.log2(127.0))
 LN_127 = float(np.log(127.0))
 KV_TILE = 64  # the kernels' query rows and keys per tile (BM, BN)
-# The head dims the quantized kernels (forward, exact and full-integer
-# backward) are built for, MLA's 288 (a 256 latent + 32 RoPE lanes)
-# among them; other multiples of 16 up to 288 run zero-padded to the next
-# (:func:`qattn_width`: 272 at 288).  Wider heads have no kernel.
-HEAD_DIMS = (32, 64, 128, 256, 288)
+# The head dims the quantized forward and exact backward are built for,
+# MLA's 288 (a 256 latent + 32 RoPE lanes) and DeepSeek's absorbed 576 (a
+# 512 latent + 64 RoPE lanes) among them; other multiples of 16 up to 576
+# run zero-padded to the next (:func:`qattn_width`: 272 at 288, 304 to 560
+# at 576).  Wider heads have no kernel.  The full-integer backward stops
+# at 288 (``FULLINT_HEAD_DIMS``).
+HEAD_DIMS = (32, 64, 128, 256, 288, 576)
+FULLINT_HEAD_DIMS = HEAD_DIMS[:-1]
 
 
 def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
-def qattn_width(d: int) -> int:
-    """The kernel width a head dim ``d`` runs at (see ``HEAD_DIMS``)."""
+def qattn_width(d: int, widths: Tuple[int, ...] = HEAD_DIMS) -> int:
+    """The kernel width a head dim ``d`` runs at (see ``HEAD_DIMS``; the
+    full-integer pair passes ``FULLINT_HEAD_DIMS``)."""
     if d % 16 == 0:
-        for w in HEAD_DIMS:
+        for w in widths:
             if d <= w:
                 return w
     raise ValueError(f"head dim {d} has no quantized kernel (multiples of "
-                     f"16 up to {HEAD_DIMS[-1]})")
+                     f"16 up to {widths[-1]})")
 
 
 def pad_payload(t: torch.Tensor, bits: int, d: int,
@@ -216,18 +222,22 @@ def qattn_body(q_dtype: torch.dtype, mode: QAttnMode,
     also one quantized to int8.  With the head dim ``d`` the tensor-core
     answer names its kernel: "tensor_core" (``qattn_fwd_tc_kernel``) up to
     kernel width 256, "tensor_core_wide" (``qattn_fwd_wide_kernel``, 32-key
-    steps) at MLA's 288, where 272 runs too; ``d`` past 288 raises.  The
+    steps) at MLA's 288, where 272 runs too, "tensor_core_latent"
+    (``qattn_fwd_latent_kernel``: 8 warps, O's lanes over two warp groups)
+    at DeepSeek's absorbed 576, where 304 to 560 run too; ``d`` past 576
+    raises.  An fp32 Q at 576 takes the scalar body in 32-row tiles.  The
     head-pair call (``packed``: :func:`hpack_fwd`, whose mode always rounds
     to bf16, d = 64) runs the same two bodies through the packed strides:
     "tensor_core" for a bf16 packed Q, "fp32_fma" for an fp32 one.  fp32
     stays off the tensor cores: TF32 keeps ~3 digits and the fp32 modes are
     held to 2e-5.  The C interface routes the same way
     (``mfa_qattn_body``)."""
-    wide = d is not None and qattn_width(d) > 256
+    w = 0 if d is None else qattn_width(d)
     if packed:
         return "tensor_core" if q_dtype == torch.bfloat16 else "fp32_fma"
     if q_dtype in (torch.bfloat16, torch.int8) and mode.round_bf16:
-        return "tensor_core_wide" if wide else "tensor_core"
+        return ("tensor_core_latent" if w > 288 else
+                "tensor_core_wide" if w > 256 else "tensor_core")
     return "fp32_fma"
 
 
@@ -470,8 +480,8 @@ def qattn_fwd(
     the key span (a multiple of 64, above 64 for an int8 Q only) whose
     running row max P rounds against, the TPU's ``block_kv``
     (:func:`int8_p_tile`); None: the kernel's ``KV_TILE``-key tiles (at
-    width 288 the wide kernel's 32-key steps, whose running max moves only
-    P's bf16 rounding; an int8 P still rounds over 64-key spans).  CPU
+    widths 288 and 576 32-key steps, whose running max moves only P's bf16
+    rounding; an int8 P still rounds over 64-key spans).  CPU
     tensors take :func:`qattn_fwd_plain` over the same spans; CUDA tensors
     launch the kernel :func:`qattn_body` names or raise.
 

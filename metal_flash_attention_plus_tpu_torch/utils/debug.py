@@ -44,11 +44,12 @@ ENTRY_KERNELS: Dict[str, Tuple[str, ...]] = {
                           "paged_prefill_wide_kernel",
                           "paged_prefill_kernel"),
     "mfa_qattn_fwd": ("qattn_fwd_tc_kernel", "qattn_fwd_wide_kernel",
-                      "qattn_fwd_kernel"),
+                      "qattn_fwd_latent_kernel", "qattn_fwd_kernel"),
     "mfa_hpack_fwd": ("qattn_fwd_tc_kernel", "qattn_fwd_kernel"),
     "mfa_qflash_bwd": ("qflash_dq_tc_kernel", "qflash_dq_wide_kernel",
-                       "qflash_dq_kernel", "qflash_dkv_tc_kernel",
-                       "qflash_dkv_wide_kernel", "qflash_dkv_kernel"),
+                       "qflash_dq_latent_kernel", "qflash_dq_kernel",
+                       "qflash_dkv_tc_kernel", "qflash_dkv_wide_kernel",
+                       "qflash_dkv_latent_kernel", "qflash_dkv_kernel"),
     "mfa_fullint_bwd": ("fullint_dq_tc_kernel", "fullint_dq_kernel",
                         "fullint_dkv_tc_kernel", "fullint_dkv_kernel"),
     "mfa_dyn_gemm": ("dyn_tc_kernel",),

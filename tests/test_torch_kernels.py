@@ -45,7 +45,10 @@ latent bodies; the dK/dV's GQA group split over CTAs and merged in split
 order, the merge kernel bit for bit with its plain version), which take
 the flash kernels' bf16 tolerances, and the quantized kernels at MLA's
 width (the wide forward, the exact dQ and dK/dV and the full-integer pair
-at 272 / 288), which take the quantized ones'.  The flash
+at 272 / 288) and at DeepSeek's (the latent forward, the exact dQ and
+dK/dV and their fp32 instances at 320 / 512 / 576), which take the
+quantized ones'; past 576 the quantized wrappers raise, and the
+full-integer pair past 288.  The flash
 forward's static-max mode (``row_max``) takes the flash forward's
 tolerances, the kernel and the plain version given the same subtrahends;
 the dynamic GEMM under a stored plan stays bit for bit, and the
@@ -1038,6 +1041,44 @@ QATTN_CASES = {
                                              dict(interleaved_kv=True)),
     "wide_short_kv_d288": (1, 4, 2, 100, 40, 288, ROW8C, ROW4C, BF16,
                            masking.FULL, {}),
+    # DeepSeek's absorbed width 576 (qattn_fwd_latent_kernel for a bf16 or
+    # int8 Q, the scalar body in 32-row tiles for an fp32 Q and for an fp32
+    # Q quantized to int8; 320 and 512 run at 576): int8 and int4 (three
+    # packing groups a row), ROW / TENSOR / CHANNEL / BLOCK_2D, int8 Q with
+    # bf16 and int8 P, bias, causal and sliding-window masks, interleaved
+    # GQA, Hq = 16 over one latent head.
+    "latent_dequant_row8c_d576": (1, 16, 1, 300, 300, 576, ROW8C, ROW8C,
+                                  BF16, masking.CAUSAL, {}),
+    "latent_dequant_row4c_d576": (1, 4, 2, 130, 130, 576, ROW4C, ROW4C,
+                                  BF16, masking.CAUSAL, {}),
+    "latent_dequant_k8_v4_f32_d576": (1, 2, 1, 100, 130, 576, ROW8C, ROW4C,
+                                      F32, masking.CAUSAL, {}),
+    "latent_block2d_d576": (1, 4, 2, 128, 160, 576, B2D, B2D, BF16,
+                            masking.CAUSAL, {}),
+    "latent_quantize_q_row_d512": (1, 16, 1, 150, 150, 512, ROW8, ROW8,
+                                   BF16, masking.CAUSAL, QQ),
+    "latent_quantize_q_int4_k_d320": (1, 4, 2, 130, 130, 320, ROW4, ROW8,
+                                      BF16, masking.CAUSAL, QQ),
+    "latent_quantize_q_f32_d576": (1, 2, 1, 100, 100, 576, ROW8, ROW4, F32,
+                                   masking.CAUSAL, QQ),
+    "latent_int8_pv_channel_d576": (1, 16, 1, 300, 300, 576, ROW8, CH8,
+                                    BF16, masking.CAUSAL, QQ),
+    "latent_int8_pv_int4_v_d512": (1, 2, 1, 200, 200, 512, ROW8, CH4, BF16,
+                                   masking.FULL, QQ),
+    "latent_int8_pv_tensor_f32_d576": (1, 2, 1, 96, 96, 576, TEN8, TEN8,
+                                       F32, masking.FULL, QQ),
+    "latent_folded_row_window_d576": (1, 4, 1, 300, 300, 576, ROW8, ROW8,
+                                      BF16,
+                                      masking.sliding_window(96, causal=True),
+                                      {}),
+    "latent_folded_tensor_bias_d320": (1, 4, 2, 130, 130, 320, TEN8, CH8,
+                                       BF16, masking.CAUSAL,
+                                       dict(bias=(1, 4, 130, 130))),
+    "latent_folded_channel_interleaved_d576": (1, 8, 2, 128, 128, 576, CH8,
+                                               TEN8, BF16, masking.CAUSAL,
+                                               dict(interleaved_kv=True)),
+    "latent_short_kv_d576": (1, 4, 2, 100, 40, 576, ROW8C, ROW4C, BF16,
+                             masking.FULL, {}),
 }
 
 
@@ -1280,6 +1321,31 @@ QBWD_CASES = {
                       masking.CAUSAL, {}),
     "wide_tensor_f32_full_d272": (1, 2, 1, 96, 96, 272, TEN8, TEN8, F32,
                                   masking.FULL, {}),
+    # DeepSeek's absorbed width 576 (qflash_dq_latent_kernel,
+    # qflash_dkv_latent_kernel and the merge of its group split for bf16;
+    # the scalar bodies in 32-row tiles for fp32; 320 and 512 run at 576):
+    # the same modes over 16 q heads of one latent head.
+    "latent_dequant_row8c_d576": (1, 16, 1, 200, 200, 576, ROW8C, ROW8C,
+                                  BF16, masking.CAUSAL, {}),
+    "latent_dequant_row4c_d512": (1, 4, 2, 130, 130, 512, ROW4C, ROW4C,
+                                  BF16, masking.CAUSAL, {}),
+    "latent_folded_row_gqa16_d576": (1, 16, 1, 160, 160, 576, ROW8, ROW8,
+                                     BF16, masking.CAUSAL, {}),
+    "latent_folded_channel4_d576": (1, 4, 2, 130, 130, 576, CH4, CH4, BF16,
+                                    masking.CAUSAL, {}),
+    "latent_block2d_d576": (1, 4, 2, 128, 160, 576, B2D, B2D, BF16,
+                            masking.CAUSAL, {}),
+    "latent_bias_dbias_d320": (1, 4, 2, 100, 130, 320, ROW8C, ROW8C, BF16,
+                               masking.CAUSAL, dict(bias=(1, 4, 100, 130))),
+    "latent_window_interleaved_d576": (1, 8, 2, 300, 300, 576, ROW8C,
+                                       ROW4C, BF16,
+                                       masking.sliding_window(96,
+                                                              causal=True),
+                                       dict(interleaved_kv=True)),
+    "latent_f32_d576": (1, 2, 1, 96, 130, 576, ROW8C, ROW4C, F32,
+                        masking.CAUSAL, {}),
+    "latent_tensor_f32_full_d320": (1, 2, 1, 96, 96, 320, TEN8, TEN8, F32,
+                                    masking.FULL, {}),
 }
 
 
@@ -1424,6 +1490,7 @@ def test_fullint_kernels_route_as_the_python_bodies_say(cuda_device):
             assert body(d, width) == int(want), (d, width)
             assert want == (width % 32 == 0)
     assert body(48, 0) == -1 and body(64, -1) == -1
+    assert body(576, 0) == -1
 
 
 @pytest.mark.cuda
@@ -1503,13 +1570,115 @@ def test_wide_quantized_kernels_repeat_bit_for_bit(cuda_device, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block_kv", [128, 256])
+@pytest.mark.parametrize("d", [320, 576])
+def test_qattn_latent_int8_p_over_block_kv_spans(cuda_device, d, block_kv):
+    """The latent forward's int8 P (an int8 Q, SYMMETRIC CHANNEL V) over
+    the TPU's block_kv spans of 128 and 256 keys, each walked in 32-key
+    steps twice (both warps' halves of the span's row max, then P): held
+    to the plain version over the same spans, and through the public
+    forward's ``block_sizes``."""
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 16, 1, 300, 520, d, ROW8, CH8,
+                              BF16, seed=d)
+    args, kw = qa.qattn_arguments(q, kq, vq, mask=masking.CAUSAL,
+                                  quantize_q=True)
+    assert kw["mode"].p_int8
+    assert qa.qattn_body(args[0].dtype, kw["mode"],
+                         d=d) == "tensor_core_latent"
+    o, lse = qa.qattn_fwd(*args, **kw, kv_tile=block_kv)
+    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw, kv_tile=block_kv)
+    assert _rel(o, o_ref) <= BF16_TOL
+    assert _rel(lse, l_ref) <= TOLERANCES["lse"]
+    fwd, _ = qa.quantized_flash_attention_forward(
+        q, kq, vq, mask=masking.CAUSAL, quantize_q=True,
+        block_sizes=BlockSizes(block_kv=block_kv))
+    assert torch.equal(fwd, o)
+
+
+def _latent_calls(device, d):
+    """Each quantized kernel's launch at head dim ``d`` above 288, as a
+    list of (name, thunk returning its outputs): the forward (bf16 and int4
+    dequant, int8 P, an fp32 Q), the exact dQ and dK/dV of a bf16 Q (16 q
+    heads over one latent head: the group split over CTAs and merged) and
+    of an fp32 Q."""
+    calls = []
+    for name, kcfg, vcfg, dtype, opts in (
+            ("fwd_dequant", ROW4C, ROW8C, BF16, {}),
+            ("fwd_int8_p", ROW8, CH8, BF16, QQ),
+            ("fwd_f32", ROW8C, ROW4C, F32, {})):
+        q, kq, vq = _qattn_inputs(device, 1, 16, 1, 300, 300, d, kcfg, vcfg,
+                                  dtype)
+        args, kw = qa.qattn_arguments(q, kq, vq, mask=masking.CAUSAL, **opts)
+        tile = 128 if kw["mode"].p_int8 else None
+        calls.append((name, lambda a=args, k=kw, t=tile: qa.qattn_fwd(
+            *a, **k, kv_tile=t)))
+    for tag, dtype, kcfg in (("", BF16, ROW8), ("_f32", F32, ROW8C)):
+        q, kq, vq = _qattn_inputs(device, 1, 16, 1, 300, 300, d, kcfg, ROW4C,
+                                  dtype)
+        do, lse, di = _bwd_inputs(device, q, kq, vq, masking.CAUSAL, 3)
+        rr = row_ranges_tensor(masking.CAUSAL, 300, 300, None, device)
+        (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.qflash_arguments(
+            q, kq, vq, do, lse, di, rr, scale=d ** -0.5)
+        calls += [(f"qflash_dq{tag}",
+                   lambda a=dq_a, k=dq_kw: fbwd.qflash_dq(*a, **k)[0]),
+                  (f"qflash_dkv{tag}",
+                   lambda a=dkv_a, k=dkv_kw: fbwd.qflash_dkv(*a, **k))]
+    assert fbwd.dkv_splits(BF16, d, 1, 16, 1, 300,
+                           fbwd._sm_count(device)) > 1
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [320, 512, 576])
+def test_latent_quantized_kernels_repeat_bit_for_bit(cuda_device, d):
+    """Two calls of each quantized kernel above 288 on the same inputs give
+    the same bits: no floating-point atomics, the dK/dV's group split
+    merged in split order."""
+    for name, call in _latent_calls(cuda_device, d):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for x, y in zip(first if isinstance(first, tuple) else (first,),
+                        second if isinstance(second, tuple) else (second,)):
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_quantized_kernels_past_576_and_fullint_past_288_raise(cuda_device):
+    """At 592 the quantized forward and exact backward raise on a CUDA
+    tensor; the full-integer pair raises past 288 (at 576, on operands it
+    would take at 288) and names its limit; nothing launches."""
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 64, 64, 592, ROW8C,
+                              ROW8C, BF16)
+    n = qa.qattn_fwd.launches
+    with pytest.raises(ValueError, match="has no quantized kernel"):
+        qa.quantized_flash_attention_forward(q, kq, vq)
+    assert qa.qattn_fwd.launches == n
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 64, 64, 576, ROW8, CH8,
+                              BF16)
+    assert fbwd.fullint_backward_supported(q, kq, vq, masking.FULL, None,
+                                           None)
+    o, lse = qa.quantized_flash_attention_forward(q, kq, vq)
+    (fa, fkw), (ka, kkw) = fbwd.fullint_arguments(q, kq, vq, o, lse,
+                                                  torch.ones_like(q),
+                                                  scale=576 ** -0.5)
+    n = (fbwd.fullint_dq.launches, fbwd.fullint_dkv.launches)
+    for call in (lambda: fbwd.fullint_dq(*fa, **fkw),
+                 lambda: fbwd.fullint_dkv(*ka, **kkw)):
+        with pytest.raises(ValueError, match="stop at 288"):
+            call()
+    assert (fbwd.fullint_dq.launches, fbwd.fullint_dkv.launches) == n
+
+
+@pytest.mark.cuda
 def test_qattn_kernels_route_as_qattn_body_says(cuda_device):
     """The C interface's choice of forward kernel (as the library reports
-    it) agrees with ``qattn_body`` at every built width: the wide kernel at
-    288 for a bf16 or int8 Q rounding to bf16, the 64-key one below, the
-    scalar body for fp32 and for an int8 Q without the rounding."""
+    it) agrees with ``qattn_body`` at every built width: the latent kernel
+    at 576 and the wide one at 288 for a bf16 or int8 Q rounding to bf16,
+    the 64-key one below, the scalar body for fp32 and for an int8 Q
+    without the rounding."""
     body = _build.kernel_function("mfa_qattn_body", [ctypes.c_int] * 3)
-    names = {"fp32_fma": 0, "tensor_core": 1, "tensor_core_wide": 2}
+    names = {"fp32_fma": 0, "tensor_core": 1, "tensor_core_wide": 2,
+             "tensor_core_latent": 3}
     for d in qa.HEAD_DIMS:
         for dtype, code in qa.Q_TYPES.items():
             for rb in (False, True):
@@ -1520,6 +1689,7 @@ def test_qattn_kernels_route_as_qattn_body_says(cuda_device):
                 want = names[qa.qattn_body(dtype, mode, d=d)]
                 assert body(code, d, int(rb)) == want, (d, dtype, rb)
     assert body(1, 304, 1) == -1 and body(1, 272, 1) == -1
+    assert body(1, 592, 1) == -1
 
 
 @pytest.mark.cuda

@@ -47,12 +47,12 @@ def _rel(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def _setup(seed):
+def _setup(seed, h=H, dh=DH, dc=DC, skv=SKV):
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, H, SQ, DH)).astype(np.float32)
-    latent = rng.standard_normal((B, SKV, DC)).astype(np.float32)
-    w_uk = (rng.standard_normal((H, DH, DC)) * DC ** -0.5).astype(np.float32)
-    w_uv = (rng.standard_normal((H, DC, DH)) * DC ** -0.5).astype(np.float32)
+    q = rng.standard_normal((B, h, SQ, dh)).astype(np.float32)
+    latent = rng.standard_normal((B, skv, dc)).astype(np.float32)
+    w_uk = (rng.standard_normal((h, dh, dc)) * dc ** -0.5).astype(np.float32)
+    w_uv = (rng.standard_normal((h, dc, dh)) * dc ** -0.5).astype(np.float32)
     return q, latent, w_uk, w_uv
 
 
@@ -95,8 +95,21 @@ def test_absorbed_with_decoupled_rope_matches_jax():
         tmla.mla_absorbed_attention(*tx[:4], q_rope=tx[4])
 
 
-def test_absorbed_quantized_latent_matches_jax():
-    q, latent, w_uk, w_uv = _setup(5)
+# (q heads, head dim, latent width, keys): the module's widths, and
+# DeepSeek-V2-Lite's (d_c = 512, 128-wide heads; two of its 16 heads), whose
+# 512 latent the card runs at the quantized kernels' width 576.
+LATENT_WIDTHS = {"h4_d64_c256": (H, DH, DC, SKV),
+                 "v2_lite_h2_d128_c512": (2, 128, 512, 128)}
+
+
+@pytest.mark.parametrize("widths", sorted(LATENT_WIDTHS))
+def test_absorbed_quantized_latent_matches_jax(widths):
+    """The absorbed path over an int8 ROW latent (the quantized forward
+    over the latent width, one head shared by every q head) against the
+    JAX package's, its output and its gradient in q (``jax.grad``, 1e-4 of
+    the JAX value's max abs: fp32 in another order)."""
+    h, dh, dc, skv = LATENT_WIDTHS[widths]
+    q, latent, w_uk, w_uv = _setup(5, h, dh, dc, skv)
     tcfg = tparams.QuantConfig(granularity=tparams.QuantGranularity.ROW,
                                strategy=tparams.QuantStrategy.CENTERED)
     tc = ttensor.quantize(torch.from_numpy(latent)[:, None], tcfg)
@@ -118,7 +131,16 @@ def test_absorbed_quantized_latent_matches_jax():
         < TOLERANCES["int8_rel"] / 5  # the int8 gate of tests/test_mla.py
     with pytest.raises(NotImplementedError):  # rope with a quantized latent
         tmla.mla_absorbed_attention(tq, tc, tuk, tuv, q_rope=tq[..., :DR],
-                                    k_rope=torch.zeros(B, SKV, DR))
+                                    k_rope=torch.zeros(B, skv, DR))
+    g = np.random.default_rng(6).standard_normal(want.shape).astype(
+        np.float32)
+    with jax.default_matmul_precision("highest"):
+        jdq = jax.grad(lambda x: jnp.sum(jmla.mla_absorbed_attention(
+            x, jc, juk, juv, mask=jm.CAUSAL) * g))(jq)
+    tq = tq.clone().requires_grad_(True)
+    (tmla.mla_absorbed_attention(tq, tc, tuk, tuv, mask=tm.CAUSAL)
+     * torch.from_numpy(g)).sum().backward()
+    assert _rel(tq.grad, jdq) <= 1e-4
 
 
 def test_decompress_float_matches_jax():

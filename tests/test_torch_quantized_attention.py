@@ -128,6 +128,27 @@ CASES = {
     "row4_d272": (1, 2, 1, 128, 128, 272, ROW4C, ROW4C, "f32", "causal", {}),
     "quantize_q_d272_bf16": (1, 2, 1, 128, 128, 272, ROW8, ROW8, "bf16",
                              "causal", dict(quantize_q=True)),
+    # DeepSeek's absorbed width 576 (a 512 latent + 64 RoPE lanes: an int4
+    # row packs as three groups, 128 + 128 + 32 bytes) and the 512 latent,
+    # which the card runs zero-padded at 576.
+    "row8_d576": (1, 2, 1, 128, 128, 576, ROW8C, ROW8C, "f32", "causal", {}),
+    "row4_d576": (1, 2, 1, 128, 128, 576, ROW4C, ROW4C, "f32", "causal", {}),
+    "block2d_d576": (1, 2, 1, 128, 128, 576, B2D, B2D, "f32", "causal", {}),
+    "int8_pv_channel_d576": (1, 2, 1, 128, 128, 576, ROW8, CH8, "f32",
+                             "causal", dict(quantize_q=True)),
+    "folded_row_d576_bf16": (1, 2, 1, 128, 128, 576, ROW8, ROW8, "bf16",
+                             "full", {}),
+    "quantize_q_d576_bf16": (1, 2, 1, 128, 128, 576, ROW8, ROW8, "bf16",
+                             "causal", dict(quantize_q=True)),
+    "row8_d512": (1, 2, 1, 128, 128, 512, ROW8C, ROW8C, "f32", "causal", {}),
+    "row4_d512": (1, 2, 1, 128, 128, 512, ROW4C, ROW4C, "f32", "causal", {}),
+    "block2d_d512": (1, 2, 1, 128, 128, 512, B2D, B2D, "f32", "causal", {}),
+    "int8_pv_channel_d512": (1, 2, 1, 128, 128, 512, ROW8, CH8, "f32",
+                             "causal", dict(quantize_q=True)),
+    "folded_row_d512_bf16": (1, 2, 1, 128, 128, 512, ROW8, ROW8, "bf16",
+                             "full", {}),
+    "quantize_q_d512_bf16": (1, 2, 1, 128, 128, 512, ROW8, ROW8, "bf16",
+                             "causal", dict(quantize_q=True)),
 }
 
 
@@ -213,6 +234,13 @@ PADDED = {  # name: (head dim, K config, V config, Q dtype, options)
     "int4_token_d272": (272, ROW4C, ROW4C, "f32", {}),
     "block2d16_d272": (272, B2D16, B2D16, "f32", {}),
     "int8_pv_channel_d272": (272, ROW8, CH8, "f32", dict(quantize_q=True)),
+    # 512 and 320 at DeepSeek's 576: the int4 row repacked from two groups
+    # (or one plus a tail) as three, BLOCK_2D 16-wide cells, the int8 P.
+    "int4_token_d512": (512, ROW4C, ROW4C, "f32", {}),
+    "int4_token_d320": (320, ROW4C, ROW4C, "f32", {}),
+    "block2d16_d320": (320, B2D16, B2D16, "f32", {}),
+    "int8_pv_channel_d512": (512, ROW8, CH8, "f32", dict(quantize_q=True)),
+    "folded_row_d512_bf16": (512, ROW8, ROW8, "bf16", {}),
 }
 
 
@@ -256,33 +284,64 @@ def test_kernel_width_padding_of_untiled_blocks_and_widths():
     assert torch.equal(ps[..., 1], torch.ones(1, 1, 4))
     assert torch.equal(pz[..., 1], torch.zeros(1, 1, 4))
     assert torch.equal(ps[..., :1], s) and ps.shape[-1] == 2
-    # 272 runs at MLA's 288; past 288 there is no kernel width.
+    # 272 runs at MLA's 288, 304 to 560 at DeepSeek's 576; past 576 there
+    # is no kernel width.
     assert tqa.qattn_width(272) == tqa.qattn_width(288) == 288
-    for d in (304, 320, 576):
+    for d in (304, 320, 512, 560, 576):
+        assert tqa.qattn_width(d) == 576
+    for d in (592, 1024):
         with pytest.raises(ValueError):
             tqa.qattn_width(d)
     assert [tqa.qattn_width(d) for d in (16, 48, 64, 80, 96, 144, 256)] == [
         32, 64, 64, 128, 128, 256, 256]
 
 
-@pytest.mark.parametrize("d", [64, 256, 272, 288])
+@pytest.mark.parametrize("d", [64, 256, 272, 288, 320, 512, 576])
 @pytest.mark.parametrize("qdtype", ["f32", "bf16", "int8"])
 def test_qattn_body_names_the_wide_kernel_at_288(qdtype, d):
     """A bf16 or int8 Q rounding to bf16 takes the 64-key tensor-core
-    kernel up to kernel width 256 and the wide one (32-key steps) at 288,
-    where 272 runs too; an fp32 Q takes the scalar body at every width;
-    without the head dim the answer names the body alone; past 288 there
-    is no kernel."""
+    kernel up to kernel width 256, the wide one (32-key steps) at 288,
+    where 272 runs too, and the latent one (O's lanes over two warp groups)
+    at 576, where 320 and 512 run too; an fp32 Q takes the scalar body at
+    every width; without the head dim the answer names the body alone;
+    past 576 there is no kernel."""
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
              "int8": torch.int8}[qdtype]
     mode = tqa.QAttnMode("token", "token",
                          round_bf16=dtype != torch.float32)
     want = ("fp32_fma" if dtype == torch.float32 else
+            "tensor_core_latent" if d > 288 else
             "tensor_core_wide" if d > 256 else "tensor_core")
     assert tqa.qattn_body(dtype, mode, d=d) == want
-    assert tqa.qattn_body(dtype, mode) == want.removesuffix("_wide")
+    assert tqa.qattn_body(dtype, mode) == (
+        "fp32_fma" if want == "fp32_fma" else "tensor_core")
     with pytest.raises(ValueError):
-        tqa.qattn_body(dtype, mode, d=304)
+        tqa.qattn_body(dtype, mode, d=592)
+
+
+@pytest.mark.parametrize("quantize_q", [False, True])
+def test_latent_width_keeps_the_true_head_dims_l_rounded(quantize_q):
+    """l sums the rounded P where the TPU kernel's ones-lane rowsum did:
+    at a head dim that is not a multiple of 128.  576 and 320 are not, 512
+    is; a 512 latent runs at 576 on the card and keeps 512's rule, chosen
+    from the true head dim before the padding (bf16 Q; per-token K and V
+    dequantized, or an int8 Q over SYMMETRIC ROW K and V)."""
+    cfg = ROW8 if quantize_q else ROW8C
+    for d, want in ((576, True), (320, True), (512, False), (288, True),
+                    (256, False)):
+        _, (tq, tk, tv) = _inputs(np.random.default_rng(d), 1, 2, 1, 32, 32,
+                                  d, cfg, cfg, "bf16")
+        args, kw = tqa.qattn_arguments(tq, tk, tv, mask=tmask.CAUSAL,
+                                       quantize_q=quantize_q)
+        assert kw["mode"].l_rounded == want, d
+        assert tqa.qattn_width(d) in (256, 288, 576)
+        pq, pkq, pvq, pkp, pvp = tqa.pad_qattn_arguments(
+            args[0], args[2], args[3], args[4], args[5], kw["mode"])
+        o, lse = tqa.qattn_fwd_plain(*args, **kw)
+        po, pl = tqa.qattn_fwd_plain(pq, args[1], pkq, pvq, pkp, pvp,
+                                     args[6], **kw)
+        assert (po[..., :d] - o).abs().max() <= BF16_TOL * o.abs().max()
+        assert (pl - lse).abs().max() <= BF16_TOL
 
 
 @pytest.mark.parametrize("qdtype", ["f32", "bf16"])

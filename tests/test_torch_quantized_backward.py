@@ -170,6 +170,30 @@ EXACT = {
     "block2d_d288": (1, 2, 1, 128, 128, 288, B2D, B2D, "f32", "causal", {}),
     "folded_channel_int4_d272_bf16": (1, 2, 1, 128, 128, 272, CH4, CH4,
                                       "bf16", "causal", {}),
+    # DeepSeek's absorbed width 576 (an int4 row packs as three groups) and
+    # the 512 latent, which the card runs zero-padded at 576.
+    "token_int8_d576": (1, 2, 1, 128, 128, 576, ROW8C, ROW8C, "f32",
+                        "causal", {}),
+    "token_int4_d576": (1, 2, 1, 128, 128, 576, ROW4C, ROW4C, "f32",
+                        "causal", {}),
+    "block2d_d576": (1, 2, 1, 128, 128, 576, B2D, B2D, "f32", "causal", {}),
+    "folded_channel_k_d576_bf16": (1, 2, 1, 128, 128, 576, CH8, TEN8,
+                                   "bf16", "causal", {}),
+    "folded_row_d576_bf16": (1, 2, 1, 128, 128, 576, ROW8, ROW8, "bf16",
+                             "causal", {}),
+    "token_int8_d576_bf16": (1, 2, 1, 128, 128, 576, ROW8C, ROW8C, "bf16",
+                             "causal", {}),
+    "token_int8_d512": (1, 2, 1, 128, 128, 512, ROW8C, ROW8C, "f32",
+                        "causal", {}),
+    "token_int4_d512": (1, 2, 1, 128, 128, 512, ROW4C, ROW4C, "f32",
+                        "causal", {}),
+    "block2d_d512": (1, 2, 1, 128, 128, 512, B2D, B2D, "f32", "causal", {}),
+    "folded_channel_k_d512_bf16": (1, 2, 1, 128, 128, 512, CH8, TEN8,
+                                   "bf16", "causal", {}),
+    "folded_row_d512_bf16": (1, 2, 1, 128, 128, 512, ROW8, ROW8, "bf16",
+                             "causal", {}),
+    "token_int8_d512_bf16": (1, 2, 1, 128, 128, 512, ROW8C, ROW8C, "bf16",
+                             "causal", {}),
 }
 
 
@@ -335,25 +359,39 @@ def test_fullint_backward_at_mla_widths_matches_jax(d, level, monkeypatch):
         assert _err(g, w) <= BF16_TOL
 
 
-@pytest.mark.parametrize("d", [272, 288])
+@pytest.mark.parametrize("d", [272, 288, 512, 576])
 def test_wide_widths_route_to_the_wide_bodies(d):
-    """At 272 and 288 the quantized kernels run at width 288: the exact dQ
-    and dK/dV of a bf16 Q on the tensor cores (the wide bodies), of an fp32
-    Q on the scalar ones, the full-integer pair at both levels, and the
-    dK/dV's GQA group split over CTAs at MLA's shape (16 q heads over one
-    latent head, 2048 keys, 132 SMs); a head dim past 288 has none."""
-    assert tqa.qattn_width(d) == 288
+    """At 272 and 288 the quantized kernels run at width 288, at 512 and
+    576 at width 576: the exact dQ and dK/dV of a bf16 Q on the tensor
+    cores (the wide bodies, the latent ones at 576), of an fp32 Q on the
+    scalar ones, and the dK/dV's GQA group split over CTAs at the training
+    shape (16 q heads over one latent head, 2048 keys, 132 SMs: 16 splits
+    of the 64-key tiles at 288, 8 of the 32-key ones at 576); the
+    full-integer pair at both levels up to 288, and past it none (it does
+    not fall back to the exact kernels); past 576 no kernel at all."""
+    w = 288 if d <= 288 else 576
+    assert tqa.qattn_width(d) == w
     for body in (tbwd.dq_body, tbwd.dkv_body):
         assert body(torch.bfloat16, d) == "tensor_core"
         assert body(torch.float32, d) == "fp32_fma"
-    assert tbwd.fullint_body(d, 0) == tbwd.fullint_body(d, 128) == (
-        "tensor_core")
-    assert tbwd.fullint_body(d, 16) == "dp4a"
-    assert tbwd.dkv_splits(torch.bfloat16, d, 2, 16, 1, 2048, 132) == 16
+    if w == 288:
+        assert tbwd.fullint_body(d, 0) == tbwd.fullint_body(d, 128) == (
+            "tensor_core")
+        assert tbwd.fullint_body(d, 16) == "dp4a"
+        assert tbwd.fullint_width(d) == 288
+    else:
+        for width in (0, 128):
+            with pytest.raises(ValueError, match="stop at 288"):
+                tbwd.fullint_body(d, width)
+        with pytest.raises(ValueError, match="stop at 288"):
+            tbwd.fullint_width(d)
+    assert tbwd.dkv_splits(torch.bfloat16, d, 2, 16, 1, 2048, 132) == (
+        16 if w == 288 else 8)
     assert tbwd.dkv_splits(torch.float32, d, 2, 16, 1, 2048, 132) == 1
-    for fn in (tqa.qattn_width, lambda w: tbwd.fullint_body(w, 0)):
-        with pytest.raises(ValueError):
-            fn(304)
+    with pytest.raises(ValueError):
+        tbwd.fullint_body(304, 0)
+    with pytest.raises(ValueError):
+        tqa.qattn_width(592)
 
 
 @pytest.mark.parametrize("d", [80, 96])
@@ -393,6 +431,14 @@ PADDED = {  # name: (head dim, K, V, Q dtype)
                        _cfg(gran="block_2d", strategy="centered",
                             block_rows=8, block_size=16), "f32"),
     "folded_row_d272_bf16": (272, ROW8, ROW8, "bf16"),
+    # 512 and 320 at DeepSeek's 576: the int4 row repacked as three groups,
+    # BLOCK_2D 16-wide cells, folded ROW in bf16.
+    "token_int4_d512": (512, ROW4C, ROW4C, "f32"),
+    "block2d16_d320": (320, _cfg(gran="block_2d", strategy="centered",
+                                 block_rows=8, block_size=16),
+                       _cfg(gran="block_2d", strategy="centered",
+                            block_rows=8, block_size=16), "f32"),
+    "folded_row_d512_bf16": (512, ROW8, ROW8, "bf16"),
 }
 
 
