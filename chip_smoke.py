@@ -367,13 +367,37 @@ checkout, then, on the card:
    dQ, one dK/dV and its merge; the facade's two row quantizers); dq and
    the scale cotangents against the fp32 dense VJP on the dequantized
    latent at rel L2 ≤ 0.05, each launched kernel against its plain version
-   on the call's own inputs; ``bwd_fullint=True`` on operands the
-   full-integer backward takes (no mask, SYMMETRIC ROW K, CHANNEL V)
-   raising ``ValueError`` after its forward; the profiler's kernel names;
-   (c) phase 19 (c)'s 32K construction at 576 (d_c = 512); (d) the three
-   kernels alone at (b)'s shape beside their bounds, plain versions and
-   SDPA (MATH at 576).  With ``--parent``, phase 19 (d) times the 288
-   quantized kernels on the parent's library too, in turns.
+   on the call's own inputs; the profiler's kernel names; (c) phase 19
+   (c)'s 32K construction at 576 (d_c = 512); (d) the three kernels alone
+   at (b)'s shape beside their bounds, plain versions and SDPA (MATH at
+   576).  With ``--parent``, phase 19 (d) times the 288 quantized kernels
+   on the parent's library too, in turns;
+23. every head dim from 1 to 576, and the full-integer backward at 576
+   (inputs from a seventeenth generator, seed + 22): (a) at D = 8, 20,
+   24, 33, 40 and 72 (run at the kernels' widths 32, 64 and 128; the
+   paged kernels over the pool's own rows), each kernel twice, bit for
+   bit, against its plain version: the flash forward (both modes), dQ and
+   dK/dV in bf16 and fp32; the quantized forward over int8 ROW, int4 ROW
+   (even D) and with an int8 Q, the exact dQ and dK/dV over int8 and
+   int4 ROW; the paged decode and prefill over two-state fp32, bf16, int8
+   and int4 pools and one-state latent pages with a zeroed V tail (the
+   pool unchanged by the calls); the full-integer pair at levels 1 and 2
+   at 40 and 72, and at 576 below one k step (the 32-row ``__dp4a``
+   pair); (b) ``MultiHeadAttention`` forward and backward at Stable
+   Diffusion 1.5's first UNet level (B=2, 8 heads of 40, S=4096) and
+   DiT-XL/2 at 512 px (B=2, 16 heads of 72, S=1024), FULL: one forward,
+   dQ and dK/dV launch a call, bf16 O and gradients at the flash gate of
+   the plain versions, the fp32 gradients within 1e-3 rel L2 of the dense
+   fp32 VJP, the flash kernels' and (over int8 ROW K/V) the quantized
+   kernels' times beside their bounds, plain versions and SDPA on the
+   same inputs; (c) ``quantized_flash_attention(..., bwd_fullint=True)``
+   over phase 22's V2-Lite joint latent (B=2, Hq=16 over one head,
+   S=2048, D=576, FULL, ROW K / CHANNEL V) at levels 1 and 2: one
+   forward, one dQ, one dK/dV and one merge a call, dq and the scale
+   cotangents within 0.05 rel L2 of the dense fp32 VJP, a second call bit
+   for bit, each kernel against its plain version, the profiler's kernel
+   names, the pair's times beside its bound, plain version and SDPA's
+   MATH backward; then the paged kernels' times at 40 and 72.
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -497,6 +521,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     flash_attention_forward,
     flash_attention_forward_plain,
     flash_fwd,
+    flash_width,
     fwd_body,
     row_ranges_tensor,
 )
@@ -750,6 +775,8 @@ DEVICE_KERNELS = {
     "qflash_dkv_wide": "qflash_dkv_wide_kernel",
     "fullint_dq_d288": "fullint_dq_tc_kernel",
     "fullint_dkv_d288": "fullint_dkv_tc_kernel",
+    "fullint_dq_d576": "fullint_dq_tc_kernel",
+    "fullint_dkv_d576": "fullint_dkv_tc_kernel",
 }
 # The flash kernels at MLA's D = 288 (bf16) and what the record says of
 # them.
@@ -918,9 +945,9 @@ def log_parent_summary():
     times and the change's mean over the parent's."""
     for label, t in PARENT["turns"]:
         p, c = t["parent"], t["change"]
+        ratio = f"{sum(c) / sum(p):.4f}" if sum(p) else "n/a"
         log(f"turns {label}: parent {p[0]:.5g} / {p[1]:.5g} ms, change "
-            f"{c[0]:.5g} / {c[1]:.5g} ms, change/parent "
-            f"{sum(c) / sum(p):.4f}")
+            f"{c[0]:.5g} / {c[1]:.5g} ms, change/parent {ratio}")
 
 
 # --------------------------------------------------------------------------
@@ -1495,11 +1522,19 @@ def device_ms_by_kernel(fn, iters: int) -> dict:
 
 def device_ms(fn, iters: int) -> float:
     """The device time of ``fn``'s kernels per call, ms
-    (:func:`device_ms_by_kernel` summed).  Where the profiler recorded no
+    (:func:`device_ms_by_kernel` summed).  Where three traces recorded no
     kernel of ``fn`` at all, :func:`measure_held`'s time (events around a
-    train that a spin kernel holds back until it is enqueued)."""
-    ms = sum(device_ms_by_kernel(fn, iters).values())
-    return ms or measure_held(fn, iters=iters, warmup=0) * 1e3
+    train that a spin kernel holds back until it is enqueued), and where
+    ``fn`` waits for the card, so that no train can be held, the events'
+    time around ``iters`` calls (host time included)."""
+    for _ in range(3):
+        ms = sum(device_ms_by_kernel(fn, iters).values())
+        if ms:
+            return ms
+    try:
+        return measure_held(fn, iters=iters, warmup=0) * 1e3
+    except RuntimeError:  # fn synchronizes with the card
+        return time_ms(fn, iters, warmup=0)
 
 
 def kernel_label(key: str) -> str:
@@ -1553,7 +1588,8 @@ def time_decode(rng, lengths, d=64):
     times["library_device_ms"] = device_ms(library, 100)
     if d == 64:
         times["device_ms_by_kernel"] = device_ms_by_kernel(kernel, 100)
-    parent_turns(f"paged_decode D={d}", times, kernel, 100, device=True)
+    if d % 16 == 0:  # the parent's kernels took multiples of 16 only
+        parent_turns(f"paged_decode D={d}", times, kernel, 100, device=True)
     live = int(lengths.sum())
     nbytes = (live * hkv * 2 * d * 2  # live K and V, bf16
               + 2 * b * hq * d * 2  # q in, out
@@ -1568,8 +1604,8 @@ def time_decode(rng, lengths, d=64):
     return times, bound[by], by
 
 
-def time_prefill(rng, offset):
-    hq, hkv, d, pt, chunk, num_pages, max_pages = 16, 4, 64, 256, 256, 64, 16
+def time_prefill(rng, offset, d=64):
+    hq, hkv, pt, chunk, num_pages, max_pages = 16, 4, 256, 256, 64, 16
     pool, table = paged_inputs(rng, [offset + chunk], hkv, d, pt, num_pages,
                                max_pages)
     row = table[0].contiguous()
@@ -1592,8 +1628,10 @@ def time_prefill(rng, offset):
     times["ms_2"] = time_ms(kernel, 50)
     times["device_ms"] = device_ms(kernel, 50)
     times["library_device_ms"] = device_ms(library, 50)
-    parent_turns(f"paged_prefill offset {offset}", times, kernel, 50,
-                 device=True)
+    if d % 16 == 0:  # the parent's kernels took multiples of 16 only
+        parent_turns(f"paged_prefill offset {offset}"
+                     + ("" if d == 64 else f" D={d}"), times, kernel, 50,
+                     device=True)
     # What this chunk needs: row c sees offset + c + 1 columns.
     visible = chunk * offset + chunk * (chunk + 1) // 2
     flops = 4 * hq * d * visible
@@ -1601,7 +1639,7 @@ def time_prefill(rng, offset):
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / BF16_FLOPS * 1e3}
     by = max(bound, key=bound.get)
-    log(f"prefill times at offset {offset}: " + json.dumps(times)
+    log(f"prefill D={d} times at offset {offset}: " + json.dumps(times)
         + f" bound {bound[by]:.5f} ms by {by}")
     return times, bound[by], by
 
@@ -5937,7 +5975,19 @@ def run_wide_long_context(rng, width=MLA_QD, dc=LONG_SHAPE[4],
             "kernel_vs_plain_s8192": errs}
 
 
-def time_wide_kernels(path_inputs, scale=MLA_SCALE):
+def sdpa_backward(q, k, v, do, causal, scale):
+    """SDPA's backward over (q, k, v) as one call (dq, dk and dv together;
+    the backend torch takes: MATH at 576)."""
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=causal, enable_gqa=True, scale=scale)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                       retain_graph=True)
+
+
+def time_wide_kernels(path_inputs, scale=MLA_SCALE, fullint_only=False,
+                      fam=None):
     """(d) The new kernels alone at (b)'s shape, each on the arguments its
     call built: events and the profiler's device ms (by kernel), the bound,
     the plain version's ms, and SDPA's forward / backward over the
@@ -5945,24 +5995,17 @@ def time_wide_kernels(path_inputs, scale=MLA_SCALE):
     exact pair in the exact call's mode (folded ROW K / ROW V, causal), the
     forward also with an int8 Q; at 288 (phase 19) the full-integer pair
     at levels 1 and 2 (FULL, ROW K / CHANNEL V; ``vq_ch`` None at 576,
-    where the pair has no kernel) and, with ``--parent``, each kernel on
-    the parent's library too, in turns.  Entries "{family}_wide" at 288,
-    "{family}_latent" at 576."""
+    where phase 22 leaves it to phase 23) and, with ``--parent``, each
+    kernel on the parent's library too, in turns; ``fullint_only``: the
+    full-integer pair alone (phase 23 at 576).  Entries "{family}_wide" at
+    288, "{family}_latent" at 576 (``fam`` names others),
+    "fullint_{dq,dkv}_d{D}"."""
     q, kq, vq, vq_ch, do = path_inputs
     b, h, s, d = q.shape
-    fam = "wide" if d <= 288 else "latent"
+    fam = fam or ("wide" if d <= 288 else "latent")
     hkv = kq.shape[1]
-    causal, full = b * h * s * (s + 1) // 2, b * h * s * s
+    full = b * h * s * s
     n_q, n_kv, rows = b * h * s * d, b * hkv * s * d, b * h * s
-    kd, vd = dequantized_bf16(kq), dequantized_bf16(vq)
-
-    def sdpa_bwd(vd_, causal_):
-        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, kd, vd_))
-        with torch.enable_grad():
-            out = F.scaled_dot_product_attention(
-                qg, kg, vg, is_causal=causal_, enable_gqa=True, scale=scale)
-        return lambda: torch.autograd.grad(out, (qg, kg, vg), do,
-                                           retain_graph=True)
 
     def timed(name, kernel, plain, library, bound):
         t = {"plain_ms": time_ms(plain, 1, warmup=1),
@@ -5985,6 +6028,56 @@ def time_wide_kernels(path_inputs, scale=MLA_SCALE):
             parent_turns(f"{name} (D={d})", t, kernel, 5, device=True)
         log(f"{name} times (D={d}): " + json.dumps(t))
         return t
+
+    times = {}
+    stats = 4 * rows
+    if not fullint_only:
+        times.update(time_wide_exact(q, kq, vq, do, scale, fam, timed))
+    if vq_ch is None:
+        return times
+    o, lse = quantized_flash_attention_forward(q, kq, vq_ch, scale=scale)
+    di = (do.float() * o).sum(-1)
+    lib = sdpa_backward(q, dequantized_bf16(kq), dequantized_bf16(vq_ch), do,
+                        False, scale)
+    int8_in = 2 * n_q + 2 * n_kv
+    for level2 in (False, True):
+        (f_dq, f_dq_kw), (f_dkv, f_dkv_kw) = fbwd.fullint_arguments(
+            q, kq, vq_ch, None, lse, do, scale=scale, di=di,
+            int8_grads=level2)
+        tag = "_level2" if level2 else ""
+        ops_dq = (6 * d, 0) if level2 else (4 * d, 2 * d)
+        ops_dkv = (8 * d, 0) if level2 else (4 * d, 4 * d)
+        for name, fn, plain, a, kw, ops, nbytes in (
+                (f"fullint_dq_d{d}", fbwd.fullint_dq, fbwd.fullint_dq_plain,
+                 f_dq, f_dq_kw, ops_dq,
+                 int8_in + 4 * stats + 4 * b * hkv * s + 4 * n_q),
+                (f"fullint_dkv_d{d}", fbwd.fullint_dkv,
+                 fbwd.fullint_dkv_plain, f_dkv, f_dkv_kw, ops_dkv,
+                 int8_in + n_q + 5 * stats + 4 * b * hkv * s + 8 * n_kv)):
+            t = timed(f"{name} level {2 if level2 else 1} (width "
+                      f"{kw['width']})", lambda: fn(*a, **kw),
+                      lambda: plain(*a, **kw), lib,
+                      attn_bound(full, *ops, nbytes))
+            t["body"] = fullint_body(d, kw["width"])
+            t["width"] = kw["width"]
+            if level2:
+                times[name].update({f"{k}_level2": v for k, v in t.items()})
+            else:
+                times[name] = t
+        if d > 288:
+            times[f"fullint_dkv_d{d}"]["splits"] = fbwd.fullint_dkv_splits(
+                d, b, h, hkv, s, sm_count())
+    return times
+
+
+def time_wide_exact(q, kq, vq, do, scale, fam, timed):
+    """time_wide_kernels' forward (bf16 and int8 Q) and exact pair, folded
+    ROW K / ROW V, causal → {name: times}."""
+    b, h, s, d = q.shape
+    hkv = kq.shape[1]
+    causal = b * h * s * (s + 1) // 2
+    n_q, n_kv, rows = b * h * s * d, b * hkv * s * d, b * h * s
+    kd, vd = dequantized_bf16(kq), dequantized_bf16(vq)
 
     times = {}
     for tag, qq in (("", False), ("_int8_q", True)):
@@ -6010,7 +6103,7 @@ def time_wide_kernels(path_inputs, scale=MLA_SCALE):
     rr = row_ranges_tensor(masking.CAUSAL, s, s, None, DEV)
     (e_dq, e_dq_kw), (e_dkv, e_dkv_kw) = fbwd.qflash_arguments(
         q, kq, vq, do, lse, di, rr, scale=scale)
-    lib = sdpa_bwd(vd, True)
+    lib = sdpa_backward(q, kd, vd, do, True, scale)
     stats = 4 * rows
     times[f"qflash_dq_{fam}"] = timed(
         f"qflash_dq_{fam} folded ROW",
@@ -6028,37 +6121,6 @@ def time_wide_kernels(path_inputs, scale=MLA_SCALE):
         times[name]["body"] = dq_body(q.dtype, d)
     times[f"qflash_dkv_{fam}"]["splits"] = fbwd.dkv_splits(
         q.dtype, d, b, h, hkv, s, sm_count())
-    del lib, e_dq, e_dkv
-    if vq_ch is None:
-        return times
-    o, lse = quantized_flash_attention_forward(q, kq, vq_ch, scale=scale)
-    di = (do.float() * o).sum(-1)
-    lib = sdpa_bwd(dequantized_bf16(vq_ch), False)
-    int8_in = 2 * n_q + 2 * n_kv
-    for level2 in (False, True):
-        (f_dq, f_dq_kw), (f_dkv, f_dkv_kw) = fbwd.fullint_arguments(
-            q, kq, vq_ch, None, lse, do, scale=scale, di=di,
-            int8_grads=level2)
-        tag = "_level2" if level2 else ""
-        ops_dq = (6 * d, 0) if level2 else (4 * d, 2 * d)
-        ops_dkv = (8 * d, 0) if level2 else (4 * d, 4 * d)
-        for name, fn, plain, a, kw, ops, nbytes in (
-                ("fullint_dq_d288", fbwd.fullint_dq, fbwd.fullint_dq_plain,
-                 f_dq, f_dq_kw, ops_dq,
-                 int8_in + 4 * stats + 4 * b * hkv * s + 4 * n_q),
-                ("fullint_dkv_d288", fbwd.fullint_dkv,
-                 fbwd.fullint_dkv_plain, f_dkv, f_dkv_kw, ops_dkv,
-                 int8_in + n_q + 5 * stats + 4 * b * hkv * s + 8 * n_kv)):
-            t = timed(f"{name} level {2 if level2 else 1} (width "
-                      f"{kw['width']})", lambda: fn(*a, **kw),
-                      lambda: plain(*a, **kw), lib,
-                      attn_bound(full, *ops, nbytes))
-            t["body"] = fullint_body(d, kw["width"])
-            t["width"] = kw["width"]
-            if level2:
-                times[name].update({f"{k}_level2": v for k, v in t.items()})
-            else:
-                times[name] = t
     return times
 
 
@@ -6400,23 +6462,24 @@ def latent_cases():
 
 def check_latent(rng, label, b, hq, hkv, sq, skv, d, dtype,
                  mask=masking.CAUSAL, ranges=None, bias_shape=None,
-                 interleaved=False):
+                 interleaved=False, scale=DS_SCALE):
     """(a) The flash forward (running max, and the static max with a
     caller's bound where there is no bias), dQ with dbias and dK/dV (and
-    its merge where ``dkv_splits`` splits) at V2-Lite's scale, each called
-    twice: the two calls equal bit for bit, the first held to the plain
-    version → {output: (rel err, max abs err)}; raises past a gate."""
+    its merge where ``dkv_splits`` splits) at ``scale`` (V2-Lite's by
+    default), each called twice: the two calls equal bit for bit, the
+    first held to the plain version → {output: (rel err, max abs err)};
+    raises past a gate."""
     q, k, v, do, bias = flash_inputs(rng, b, hq, hkv, sq, skv, d, dtype,
                                      bias_shape)
     rr = row_ranges_tensor(mask, sq, skv, ranges, DEV)
-    kw = dict(bias=bias, scale=DS_SCALE, interleaved_kv=interleaved)
+    kw = dict(bias=bias, scale=scale, interleaved_kv=interleaved)
     want_dbias = bias is not None
     fwd = [flash_fwd(q, k, v, rr, **kw) for _ in range(2)]
     o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, **kw)
     pairs = {"o": (fwd[0][0], o_ref), "l": (fwd[0][1], l_ref)}
     same_bits(f"flash_fwd {label}", fwd[0], fwd[1])
     if bias is None:
-        mx = static_row_max(q, k, mask, rr, "caller", DS_SCALE, interleaved)
+        mx = static_row_max(q, k, mask, rr, "caller", scale, interleaved)
         rm = [flash_fwd(q, k, v, rr, **kw, row_max=mx) for _ in range(2)]
         o_sm, l_sm = flash_attention_forward_plain(q, k, v, rr, **kw,
                                                    row_max=mx)
@@ -6724,8 +6787,8 @@ def run_latent_path(seed):
     bare 512 latent, int8 ROW, 16 heads of 128.  The counts set to 0 just
     before each call's forward and backward and read after; dq and the
     scale cotangents against the dense fp32 VJP on the dequantized latent;
-    each launched kernel against its plain version on the call's inputs;
-    the full-integer backward on eligible operands raising.  → record."""
+    each launched kernel against its plain version on the call's inputs.
+    → record."""
     cfg = dataclasses.replace(V2_LITE, num_layers=1)
     q_lat, k, v, (qn, c, w_uk, w_uv) = mla_joint_operands(
         seed, cfg, torch.Generator(device=DEV).manual_seed(seed),
@@ -6780,28 +6843,7 @@ def run_latent_path(seed):
             (dq, tqa._scale_zp_cotangents(dcl[:, None], cq)[0]),
             ("dq", "c_scale"))
         del dq, dcl, o, grads
-    # The full-integer backward at 576: eligible operands (SYMMETRIC ROW
-    # K, CHANNEL V, no mask, a bf16 Q) raise instead of running the exact
-    # kernels.
-    vq_ch = quantize(v, QuantConfig(granularity=QuantGranularity.CHANNEL))
-    if not fbwd.fullint_backward_supported(q_lat, kq, vq_ch, masking.FULL,
-                                           None, None):
-        raise AssertionError("the full-integer backward's preconditions "
-                             "do not hold for the 576 check")
-    fi = quantized_call(kq, vq_ch, masking.FULL, False, True, DS_SCALE)
-    for f in WIDE_COUNTED:
-        f.launches = 0
-    try:
-        wide_call_grads(fi, q_lat, kq, vq_ch, do)
-    except ValueError as exc:
-        out["fullint_raises"] = str(exc)
-    else:
-        raise AssertionError("bwd_fullint=True at 576 did not raise")
-    counts = {f.__name__: f.launches for f in WIDE_COUNTED if f.launches}
-    log(f"V2-Lite joint latent, bwd_fullint=True: ValueError "
-        f"({out['fullint_raises']}); launches {json.dumps(counts)}")
-    if counts != {"qattn_fwd": 1}:
-        raise AssertionError(f"bwd_fullint at 576 launched {counts}")
+    # (The full-integer backward at 576 is phase 23 (c).)
     # The device kernels, by name, of the exact call's forward and
     # backward; a trace that recorded no kernel (PERF.md §7) is taken
     # again.
@@ -6850,6 +6892,408 @@ def run_latent_quantized(seed):
     with torch.no_grad():
         out["times"] = time_wide_kernels(path_inputs, DS_SCALE)
     phase["latent_q_times"] = time.perf_counter() - t
+    return out, phase
+
+
+# --------------------------------------------------------------------------
+# Phase 23: every head dim from 1 to 576, the full-integer backward at 576
+# --------------------------------------------------------------------------
+
+# (a)'s head dims off the multiples of 16: 8 and 20 run at the kernels'
+# width 32, 24, 33 and 40 at 64, 72 at 128 (the paged kernels compute the
+# next multiple of 16 over the pool's own rows).
+OFF_GRID_DIMS = (8, 20, 24, 33, 40, 72)
+# (b): public models whose heads are off the multiples of 16, at full
+# width, self-attention (label, B, heads, S, D).  Stable Diffusion 1.5's
+# UNet (runwayml/stable-diffusion-v1-5, unet/config.json:
+# block_out_channels 320 / 640 / 1280 over attention_head_dim 8) at its
+# first level: 320 / 8 = 40 lanes over the 64 x 64 latent of a 512 px
+# image; DiT-XL/2 (facebookresearch/DiT, models.py: hidden 1152, 16
+# heads) at 512 px: 72 lanes over (512 / 8 / 2)^2 = 1024 patches.
+PUBLIC_WIDTHS = (("sd15_unet_level1", 2, 8, 4096, 40),
+                 ("dit_xl2_512px", 2, 16, 1024, 72))
+# (c)'s kernels: the full-integer pair's 576 instances (levels 1 and 2)
+# and, below one s8 k step, its 32-row __dp4a pair.
+FULLINT_576 = {"fullint_dq": ("fullint_dq_tc_kernel", "fullint_dq32_kernel",
+                              f"{FLASH_BWD_TPU}:511"),
+               "fullint_dkv": ("fullint_dkv_tc_kernel",
+                               "fullint_dkv32_kernel",
+                               f"{FLASH_BWD_TPU}:584")}
+FULLINT_576_REDESIGNED = {
+    "fullint_dq": "fullint_dq_tc_kernel at D = 576 in the latent bodies' "
+                  "frame: 32 query rows a CTA, 8 warps as 2 row warps x 4 "
+                  "warp groups (144 dQ lanes a warp; 72 fp32 sums and, at "
+                  "level 2, 72 int32 span sums a thread), 32-key steps of "
+                  "K and V double-buffered by cp.async, 153,856 B",
+    "fullint_dkv": "fullint_dkv_tc_kernel at D = 576: 32 keys a CTA, 8 "
+                   "warps as 2 key warps x 4 warp groups (144 dK and 144 "
+                   "dV lanes a warp), 32-query steps (one dO buffer at "
+                   "level 1: 213,760 B), the GQA group dealt over "
+                   "fullint_dkv_splits CTAs and summed in split order by "
+                   "flash_dkv_merge_kernel",
+}
+
+
+def check_paged_width(rng, d):
+    """(a) Both paged kernels at head dim ``d`` over two-state fp32, bf16,
+    int8 and int4 pools (Hq=8 over Hkv=2) and one-state latent pages with
+    a zeroed V tail (bf16 and int8, Hq=16 over one head), each called
+    twice: equal bit for bit, held to the plain version (max abs ≤
+    KERNEL_TOL, TOLERANCES["fp32"] for fp32), V's zeroed tail zero, the
+    pool unchanged.  → {label: max abs err}."""
+    gen = device_generator(rng)
+    pt, num_pages, max_pages, chunk, offset = 16, 40, 8, 48, 37
+    lengths = np.asarray([1, pt, pt + 1, 3 * pt + 5, 7 * pt], np.int32)
+    ln = torch.from_numpy(lengths).to(DEV)
+    vtz = max(1, d // 8)
+    errs = {}
+    for kind, states, hq, hkv, tail in (
+            ("f32", 2, 8, 2, 0), ("bf16", 2, 8, 2, 0), ("int8", 2, 8, 2, 0),
+            ("int4", 1, 8, 2, 0), ("bf16", 1, 16, 1, vtz),
+            ("int8", 1, 16, 1, vtz)):
+        dtype = torch.float32 if kind == "f32" else torch.bfloat16
+        pool, kw = paged_pool_f32(gen, "f32" if kind == "bf16" else kind,
+                                  hkv, num_pages, pt, d, states)
+        pool = pool.to(torch.bfloat16) if kind == "bf16" else pool
+        kw.update(page_tokens=pt, v_tail_zero=tail)
+        table = page_tables(rng, lengths, pt, num_pages, max_pages)
+        row = page_tables(rng, [offset + chunk], pt, num_pages,
+                          max_pages)[0]
+        q = torch.randn((len(lengths), hq, d), generator=gen,
+                        device=DEV).to(dtype)
+        qp = torch.randn((hq, chunk, d), generator=gen, device=DEV).to(dtype)
+        before = pool.clone()
+        tol = TOLERANCES["fp32"] if kind == "f32" else KERNEL_TOL
+        for name, fn, plain, args in (
+                ("decode", paged_decode_attention,
+                 paged_decode_attention_plain, (q, pool, table, ln)),
+                ("prefill", paged_prefill_attention,
+                 paged_prefill_attention_plain, (qp, pool, row, offset))):
+            label = f"{name} D={d} {kind} {states}-state vtz {tail}"
+            first, second = fn(*args, **kw), fn(*args, **kw)
+            torch.cuda.synchronize()
+            errs[label] = max_abs(first, plain(*args, **kw))
+            zero_tail = not tail or not first[..., d - tail:].any()
+            same = torch.equal(first, second)
+            if not (errs[label] <= tol and zero_tail and same
+                    and first.shape == args[0].shape):
+                raise AssertionError(
+                    f"paged {label}: max abs {errs[label]} (tol {tol}), "
+                    f"zero tail {zero_tail}, two calls equal {same}")
+        if not torch.equal(pool, before):
+            raise AssertionError(f"paged D={d} {kind}: a call wrote the pool")
+    return errs
+
+
+def check_off_grid_all(rng):
+    """(a) At each of OFF_GRID_DIMS, every kernel against its plain version,
+    each called twice and equal bit for bit: the flash forward, dQ and
+    dK/dV in bf16 and fp32 (Hq=4 over Hkv=2, S=150, causal); the quantized
+    forward and exact backward over int8 ROW, int4 ROW (even head dims)
+    and, the forward, an int8 Q (S=150, causal); the paged kernels
+    (check_paged_width); the full-integer pair at levels 1 and 2 at 40 and
+    72 (Hq=8 over one head, S=256, 128-wide level-2 spans), and at 576
+    below one k step (S=144: the 32-row __dp4a pair).  → {label: errors}."""
+    row8, row4, ch8 = qcfg(), qcfg(bits=4), qcfg(gran="channel")
+    errs = {}
+    for d in OFF_GRID_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            errs[f"flash d{d} {str(dtype)[6:]}"] = check_latent(
+                rng, "off-grid", 1, 4, 2, 150, 150, d, dtype,
+                scale=d ** -0.5)
+        modes = [("int8 ROW", row8, {})] + (
+            [("int4 ROW", row4, {})] if d % 2 == 0 else [])
+        for label, cfg, opts in modes + [("int8 Q", row8,
+                                          dict(quantize_q=True))]:
+            errs[f"qattn d{d} {label}"] = check_qattn(
+                rng, f"D={d} {label}", 1, 4, 2, 150, 150, d, cfg, cfg,
+                repeat=True, **opts)
+        for label, cfg, opts in modes:
+            errs[f"qflash d{d} {label}"] = check_qflash(
+                rng, f"D={d} {label}", 1, 4, 2, 150, 150, d, cfg, cfg,
+                repeat=True)
+        errs.update({f"paged {k}": v
+                     for k, v in check_paged_width(rng, d).items()})
+    spans = BlockSizes(block_kv_dq=128, block_q_dkv=128)
+    for d in (40, 72):
+        for level2 in (False, True):
+            errs[f"fullint d{d} l{2 if level2 else 1}"] = check_fullint(
+                rng, f"D={d} ROW K / CHANNEL V", 1, 8, 1, 256, d, row8, ch8,
+                level2, spans, repeat=True)
+    errs[f"fullint d{DS_D} w16 l2"] = check_fullint(
+        rng, f"D={DS_D} ROW K / CHANNEL V, S=144", 1, DS_HQ, 1, 144, DS_D,
+        row8, ch8, True, BlockSizes(block_kv_dq=512, block_q_dkv=512),
+        repeat=True)
+    log(f"phase 23 (a): {len(errs)} checks, each bit for bit on a repeat")
+    return errs
+
+
+def time_public_width(q, k, v, do):
+    """(b)'s kernels alone on the call's inputs (FULL, bf16): events and the
+    profiler's device ms, the plain version's ms, the bound and SDPA's
+    forward / backward on the same bf16 inputs → {name: times}."""
+    b, h, s, d = q.shape
+    rr = row_ranges_tensor(masking.FULL, s, s, None, DEV)
+    kw = dict(scale=d ** -0.5)
+    o, lse = flash_fwd(q, k, v, rr, **kw)
+    di = (do.float() * o).sum(-1)
+    args = (q, k, v, do, lse, di, rr)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+    library = {"fwd": lambda: F.scaled_dot_product_attention(q, k, v),
+               "bwd": lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                  retain_graph=True)}
+    pairs, elems, rows = b * h * s * s, b * h * s * d, b * h * s
+    read_bwd = 2 * 4 * elems + 2 * 4 * rows
+    work = {"flash_fwd": (4 * d * pairs, 2 * 3 * elems + 4 * elems + 4 * rows),
+            "flash_dq": (6 * d * pairs, read_bwd + 4 * elems),
+            "flash_dkv": (8 * d * pairs, read_bwd + 4 * 2 * elems)}
+    fns = {"flash_fwd": (lambda: flash_fwd(q, k, v, rr, **kw),
+                         lambda: flash_attention_forward_plain(q, k, v, rr,
+                                                               **kw)),
+           "flash_dq": (lambda: flash_dq(*args, **kw),
+                        lambda: flash_attention_dq_plain(*args, **kw)),
+           "flash_dkv": (lambda: flash_dkv(*args, **kw),
+                         lambda: flash_attention_dkv_plain(*args, **kw))}
+    times = {}
+    for name, (kernel, plain) in fns.items():
+        lib = library["fwd" if name == "flash_fwd" else "bwd"]
+        t = {"plain_ms": time_ms(plain, 1, warmup=1),
+             "ms": time_ms(kernel, 10, warmup=2),
+             "library_ms": time_ms(lib, 10, warmup=2)}
+        t["ms_2"] = time_ms(kernel, 10, warmup=0)
+        by = device_ms_by_label(kernel, 10) or device_ms_by_label(kernel, 10)
+        t["device_ms_by_kernel"] = by
+        t["device_ms"] = (sum(by.values()) if by else
+                          measure_held(kernel, iters=10, warmup=0) * 1e3)
+        t["library_device_ms"] = device_ms(lib, 10)
+        t["bound_ms"], t["bound_by"] = bound_of(*work[name])
+        t["width"] = flash_width(d)
+        t["body"] = {"flash_fwd": fwd_body, "flash_dq": dq_body,
+                     "flash_dkv": dkv_body}[name](q.dtype, d)
+        times[name] = t
+    return times
+
+
+def run_public_widths(rng):
+    """(b) ``MultiHeadAttention`` forward and backward at PUBLIC_WIDTHS'
+    shapes in bf16: one forward, one dQ and one dK/dV launch a call, O and
+    the gradients held to the plain versions at the bf16 gate; the same
+    call in fp32 against the dense fp32 VJP (rel L2 ≤ GRAD_REL_L2_TOL);
+    the kernels' times (time_public_width).  → {label: record}."""
+    out = {}
+    for label, b, h, s, d in PUBLIC_WIDTHS:
+        q, k, v, do, _ = flash_inputs(rng, b, h, h, s, s, d, torch.bfloat16)
+        mha = MultiHeadAttention(AttentionDescriptor(
+            head_dim=d, num_q_heads=h, num_kv_heads=h, mask=masking.FULL))
+        rec = {"shape": f"B={b} H={h} S={s} D={d} FULL self-attention",
+               "width": flash_width(d)}
+        grads = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            leaves = [x.detach().to(dtype).requires_grad_(True)
+                      for x in (q, k, v)]
+            zero_flash_counts()
+            with torch.enable_grad():
+                o = mha(*leaves)
+                grads[dtype] = torch.autograd.grad(o, leaves, do.to(dtype))
+            torch.cuda.synchronize()
+            counts = flash_counts()
+            rec[f"launches_{str(dtype)[6:]}"] = counts
+            if tuple(counts.values()) != (1, 1, 1):
+                raise AssertionError(f"{label} {dtype}: launches {counts}")
+            if dtype == torch.bfloat16:
+                rr = row_ranges_tensor(masking.FULL, s, s, None, DEV)
+                kw = dict(scale=d ** -0.5)
+                o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr,
+                                                             **kw)
+                di = (do.float() * o_ref).sum(-1)
+                pargs = (q, k, v, do, l_ref, di, rr)
+                want = (o_ref, flash_attention_dq_plain(*pargs, **kw)[0],
+                        *flash_attention_dkv_plain(*pargs, **kw))
+                errs = {n: rel_err(g, w) for n, g, w in zip(
+                    ("o", "dq", "dk", "dv"), (o, *grads[dtype]), want)}
+                rec["rel_err_bf16_vs_plain"] = errs
+                del want, o_ref, pargs
+                if not all(e <= FLASH_TOL[torch.bfloat16]
+                           for e in errs.values()):
+                    raise AssertionError(f"{label} bf16 vs plain: {errs}")
+            else:
+                ref = [torch.cat(p) for p in zip(*(
+                    reference_attention_vjp(
+                        q[i:i + 1].float(), k[i:i + 1].float(),
+                        v[i:i + 1].float(), do[i:i + 1].float(),
+                        mask=masking.FULL)
+                    for i in range(b)))]
+                errs = {n: rel_l2(g, w) for n, g, w in zip(
+                    ("dq", "dk", "dv"), grads[dtype], ref)}
+                rec["grad_rel_l2_fp32_vs_dense"] = errs
+                del ref
+                if not all(e <= GRAD_REL_L2_TOL for e in errs.values()):
+                    raise AssertionError(f"{label} fp32 grads: {errs}")
+            del o, leaves
+        del grads
+        row = QuantConfig(granularity=QuantGranularity.ROW)
+        with torch.no_grad():
+            rec["times"] = time_public_width(q, k, v, do)
+            # The quantized forward and exact pair at the same shape over
+            # int8 ROW K / V (folded, causal), as phases 19 and 22 time
+            # them.
+            rec["quantized_times"] = time_wide_kernels(
+                (q, quantize(k.float(), row), quantize(v.float(), row), None,
+                 do), d ** -0.5, fam=f"d{d}")
+        log(f"phase 23 (b) {label}: " + json.dumps(rec))
+        out[label] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_fullint_576(seed):
+    """(c) ``quantized_flash_attention(..., bwd_fullint=True)`` over
+    V2_LITE layer 0's joint [C | K_rope] latent (B=2, Hq=16 over one
+    latent head, S=2048, D=576, FULL; bf16 Q; int8 SYMMETRIC ROW K and
+    CHANNEL V), at levels 1 and 2 (MFA_BWD_FULLINT_LEVEL=2): the counts set
+    to 0 just before each call and read after (one forward, one dQ, one
+    dK/dV and one merge); dq and the scale cotangents against the dense
+    fp32 VJP on the dequantized K/V (rel L2 ≤ QBWD_TOL); a second call
+    equal bit for bit; each kernel against its plain version on the call's
+    inputs; the kernels' device names under the profiler; their times
+    (time_wide_kernels' full-integer part).  → record."""
+    cfg = dataclasses.replace(V2_LITE, num_layers=1)
+    q_lat, k, v = mla_joint_operands(
+        seed, cfg, torch.Generator(device=DEV).manual_seed(seed))
+    g = torch.Generator(device=DEV).manual_seed(seed + 23)
+    do = torch.randn(q_lat.shape, generator=g, device=DEV).to(q_lat.dtype)
+    kq = quantize(k, QuantConfig(granularity=QuantGranularity.ROW))
+    vq = quantize(v, QuantConfig(granularity=QuantGranularity.CHANNEL))
+    if not fbwd.fullint_backward_supported(q_lat, kq, vq, masking.FULL,
+                                           None, None):
+        raise AssertionError("the full-integer backward's preconditions do "
+                             "not hold for the 576 call")
+    out = {"launches": {}, "grads_rel_l2": {}, "kernels": {}, "seconds": {},
+           "splits": fbwd.fullint_dkv_splits(DS_D, 2, DS_HQ, 1, DEC_S,
+                                             sm_count()),
+           "shape": "q_lat [2, 16, 2048, 576] bf16, [C | K_rope] int8 ROW "
+                    "SYMMETRIC [2, 1, 2048, 576], [C | 0] int8 CHANNEL "
+                    f"SYMMETRIC, FULL; V2_LITE layer 0, seed {seed}"}
+    with torch.no_grad():
+        dq, dk, dv = (torch.cat(p) for p in zip(*(
+            reference_attention_vjp(
+                q_lat[i:i + 1].float(), dequantize(kq)[i:i + 1],
+                dequantize(vq)[i:i + 1], do[i:i + 1].float(),
+                mask=masking.FULL, scale=DS_SCALE)
+            for i in range(q_lat.shape[0]))))
+        want = (dq, tqa._scale_zp_cotangents(dk, kq)[0],
+                tqa._scale_zp_cotangents(dv, vq)[0])
+        del dk, dv
+    fi = quantized_call(kq, vq, masking.FULL, False, True, DS_SCALE)
+    level_env = os.environ.get("MFA_BWD_FULLINT_LEVEL")
+    try:
+        for level in (1, 2):
+            os.environ["MFA_BWD_FULLINT_LEVEL"] = str(level)
+            tag = f"level{level}"
+            for f in WIDE_COUNTED:
+                f.launches = 0
+            t0 = time.perf_counter()
+            o, grads = wide_call_grads(fi, q_lat, kq, vq, do)
+            torch.cuda.synchronize()
+            out["seconds"][tag] = time.perf_counter() - t0
+            counts = {f.__name__: f.launches for f in WIDE_COUNTED
+                      if f.launches}
+            out["launches"][tag] = counts
+            want_counts = {"qattn_fwd": 1, "fullint_dq": 1, "fullint_dkv": 1,
+                           "merge_dkv_splits": 1}
+            log(f"V2-Lite joint latent, bwd_fullint=True level {level}: "
+                f"launches {json.dumps(counts)}, {out['seconds'][tag]:.3f} "
+                "s (first call)")
+            if counts != want_counts or not torch.isfinite(o.float()).all():
+                raise AssertionError(f"fullint 576 level {level}: launches "
+                                     f"{counts}, expected {want_counts}")
+            again = wide_call_grads(fi, q_lat, kq, vq, do)[1]
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"fullint 576 level {level}: a second "
+                                     "call differs")
+            out["grads_rel_l2"][tag] = gate_grads(
+                f"V2-Lite joint latent, bwd_fullint=True level {level}: dq, "
+                "K's and V's scale cotangents vs the fp32 dense VJP on the "
+                "dequantized K/V", grads, want,
+                ("dq", "dk_scale", "dv_scale"))
+            del o, grads, again
+            # Each kernel the call launched, on the call's inputs, against
+            # its plain version.
+            fo, flse = quantized_flash_attention_forward(
+                q_lat, kq, vq, scale=DS_SCALE)
+            (a1, k1), (a2, k2) = fbwd.fullint_arguments(
+                q_lat, kq, vq, fo, flse, do, scale=DS_SCALE,
+                int8_grads=level == 2)
+            errs = {}
+            for name, a, kw, outs in (("fullint_dq", a1, k1, ("dq",)),
+                                      ("fullint_dkv", a2, k2, ("dk", "dv"))):
+                got = getattr(fbwd, name)(*a, **kw)
+                torch.cuda.synchronize()
+                want_k = getattr(fbwd, f"{name}_plain")(*a, **kw)
+                if torch.is_tensor(got):
+                    got, want_k = (got,), (want_k,)
+                errs[name] = check_bwd_pair(
+                    f"fullint 576 level {level}: {name} (width "
+                    f"{kw['width']}, {fullint_body(DS_D, kw['width'])})",
+                    got, want_k, outs)
+                del got, want_k
+            out["kernels"][tag] = errs
+            del fo, flse, a1, a2
+    finally:
+        if level_env is None:
+            os.environ.pop("MFA_BWD_FULLINT_LEVEL", None)
+        else:
+            os.environ["MFA_BWD_FULLINT_LEVEL"] = level_env
+    del want
+    torch.cuda.empty_cache()
+    for _ in range(3):
+        seen = list(device_ms_by_kernel(
+            lambda: wide_call_grads(fi, q_lat, kq, vq, do), 2))
+        families = {fam: [n for n in seen if fam in n and (
+                        "576" in n or fam == "flash_dkv_merge_kernel")]
+                    for fam in ("fullint_dq_tc_kernel",
+                                "fullint_dkv_tc_kernel",
+                                "flash_dkv_merge_kernel")}
+        if all(families.values()):
+            break
+    # The launch counts above show the kernels ran; a trace the profiler
+    # left empty (PERF.md §7) is logged, not failed.
+    log("fullint 576, device kernels by the profiler: " + json.dumps(
+        {f: [kernel_label(n) for n in ns] for f, ns in families.items()}))
+    out["device_kernels"] = {f: ns[0][:160] if ns else "not traced"
+                             for f, ns in families.items()}
+    with torch.no_grad():
+        out["times"] = time_wide_kernels((q_lat, kq, None, vq, do), DS_SCALE,
+                                         fullint_only=True)
+    return out
+
+
+def run_width_faults(seed, dec_lens):
+    """Phase 23 (a)-(c), inputs from a seventeenth generator (seed + 22),
+    and the paged kernels' times at 40 and 72 (phase 1's decode lengths,
+    the prefill's 256-row chunk at offset 512) → (record, phase
+    seconds)."""
+    rng = np.random.default_rng(seed + 22)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["errors"] = check_off_grid_all(rng)
+    phase["width_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["public"] = run_public_widths(rng)
+    phase["width_public"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["fullint"] = run_fullint_576(seed)
+    phase["width_fullint_576"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out["paged_times"] = {
+            f"d{d}": {"decode": time_decode(rng, dec_lens, d=d),
+                      "prefill": time_prefill(rng, 512, d=d)}
+            for d in (40, 72)}
+    phase["width_paged_times"] = time.perf_counter() - t
     return out, phase
 
 
@@ -6973,6 +7417,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     latent_q, latent_q_phase = run_latent_quantized(args.seed)
     phase_s.update(latent_q_phase)
+    torch.cuda.empty_cache()
+    widths, widths_phase = run_width_faults(args.seed, dec_lens)
+    phase_s.update(widths_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -7612,6 +8059,68 @@ def main() -> int:
             "device_kernel_name_in_trace_d576": lp["device_kernels"][kernel],
             "redesigned_d576": LATENT_QREDESIGNED[family],
         })
+    # Phase 23: the full-integer pair at 576, entries of their own; the
+    # flash, quantized and paged kernels at 40 and 72 as `*_<shape>` keys.
+    wf, werrs = widths["fullint"], widths["errors"]
+    for family, (kernel, scalar, replaces) in FULLINT_576.items():
+        t = wf["times"][f"{family}_d{DS_D}"]
+        outs = ("dq",) if family == "fullint_dq" else ("dk", "dv")
+        errs_ab = ([e[o] for key, e in werrs.items()
+                    if key.startswith(f"fullint d{DS_D}") for o in outs]
+                   + [e[family][o] for e in wf["kernels"].values()
+                      for o in outs])
+        record["kernels"].append({
+            "name": f"{family}_d{DS_D}", "route": "cuda",
+            "source": QBWD_SOURCE, "replaces": replaces,
+            "launches": sum(c.get(family, 0)
+                            for c in wf["launches"].values()),
+            "launches_per_call": {k: c.get(family, 0)
+                                  for k, c in wf["launches"].items()},
+            "max_abs_err": max(e[1] for e in errs_ab),
+            "rel_err": max(e[0] for e in errs_ab),
+            **{k: t[k] for k in ("ms", "ms_2", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "device_ms",
+                                 "device_ms_by_kernel", "body", "width")},
+            **{k: v for k, v in t.items()
+               if k.endswith("_level2") or k == "splits"},
+            "library": "sdpa backward over the dequantized bf16 K/V (dq, "
+                       "dk, dv together; MATH at 576)",
+            "shape": wf["shape"] + " (levels 1 and 2)",
+            "grads_rel_l2_vs_dense": wf["grads_rel_l2"],
+            "bitwise_equal_two_calls": True,  # (c) raises otherwise
+            "device_kernel_name_in_trace": wf["device_kernels"][kernel],
+            "device_kernel_below_one_k_step": scalar,
+            "redesigned": FULLINT_576_REDESIGNED[family],
+        })
+    for label, key in (("sd15_unet_level1", "sd15"), ("dit_xl2_512px", "dit")):
+        pub = widths["public"][label]
+        for name, t in pub["times"].items():
+            next(e for e in record["kernels"] if e["name"] == name).update({
+                **{f"{k}_{key}": t[k] for k in (
+                    "ms", "ms_2", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "device_ms", "library_device_ms", "width",
+                    "body")},
+                f"launches_{key}": pub["launches_bfloat16"][name],
+                f"shape_{key}": pub["shape"],
+                f"rel_err_{key}": pub["rel_err_bf16_vs_plain"],
+                f"grad_rel_l2_fp32_{key}": pub["grad_rel_l2_fp32_vs_dense"],
+                f"library_{key}": "sdpa on the same bf16 inputs"})
+        d = int(pub["shape"].split("D=")[1].split()[0])
+        for family in ("qattn_fwd", "qflash_dq", "qflash_dkv"):
+            t = pub["quantized_times"][f"{family}_d{d}"]
+            next(e for e in record["kernels"] if e["name"] == family).update(
+                {f"{k}_{key}": t[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "device_ms", "body") if k in t})
+    for entry, kind in zip(record["kernels"], ("decode", "prefill")):
+        for dk, pt_ in widths["paged_times"].items():
+            t, bound, by = pt_[kind]
+            entry.update({f"{k}_{dk}": t[k] for k in (
+                "ms", "plain_ms", "library_ms", "device_ms",
+                "library_device_ms") if k in t})
+            entry.update({f"bound_ms_{dk}": bound, f"bound_by_{dk}": by})
+        entry["max_abs_err_off_grid"] = max(
+            e for k, e in werrs.items() if k.startswith(f"paged {kind}"))
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
     record["gemm_engine"] = {
@@ -7677,9 +8186,20 @@ def main() -> int:
         "checks": len(latent_q["errors"]),
         "bitwise_equal_two_calls": True,  # (a) raises otherwise
         **{k: lp[k] for k in ("launches", "grads_rel_l2", "seconds",
-                              "device_kernels", "shape", "fullint_raises")},
+                              "device_kernels", "shape")},
         "call_o_vs_plain": {k: e["call_o"] for k, e in lp["kernels"].items()},
         "long_context": latent_q["long_context"],
+    }
+    record["width_faults"] = {
+        "checks": len(werrs), "off_grid_dims": list(OFF_GRID_DIMS),
+        "bitwise_equal_two_calls": True,  # (a) raises otherwise
+        "public": {k: {f: v[f] for f in ("shape", "width",
+                                         "launches_bfloat16",
+                                         "rel_err_bf16_vs_plain",
+                                         "grad_rel_l2_fp32_vs_dense")}
+                   for k, v in widths["public"].items()},
+        "fullint_576": {k: wf[k] for k in ("launches", "grads_rel_l2",
+                                           "seconds", "splits", "shape")},
     }
     record["wide_quantized"] = {
         "checks": len(wide["errors"]),

@@ -1,8 +1,8 @@
 // Warp-level tensor-core and asynchronous-copy helpers for Hopper (sm_90a),
 // as inline PTX: mma.sync (bf16 m16n8k16 into fp32, s8 m16n8k32 into
 // int32, s8 m16n8k16 into int32), ldmatrix (plain and transposed) and
-// 16-byte cp.async with commit
-// and wait groups.  Used by the tensor-core bodies of
+// 16-, 8- and 4-byte cp.async with commit and wait groups.  Used by the
+// tensor-core bodies of
 // csrc/flash_attention.cu, csrc/attention_bwd.cuh,
 // csrc/quantized_attention.cu and csrc/quantized_gemm.cu.
 //
@@ -41,6 +41,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 8 bytes global -> shared (both 8-byte aligned); zeros when src_bytes is 0.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 // 4 bytes global -> shared (both 4-byte aligned); zeros when src_bytes is 0.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
@@ -70,7 +79,17 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
       : "memory");
 }
 
-// The same, each matrix transposed (b16 elements).
+// Two 8 x 8 b16 matrices; lanes 0-15 give the row addresses of matrix
+// l / 8, row l % 8 (the other lanes' addresses are not read).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// The same as ldsm_x4, each matrix transposed (b16 elements).
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "

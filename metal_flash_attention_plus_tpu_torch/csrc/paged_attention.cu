@@ -29,12 +29,21 @@
 // entry cannot read outside it.  Each token's scale is read by its page id,
 // which serves both TPU decode schedules (per-page scales in the streamed
 // one, scales densified by the wrapper in the wave one).
-// Head dims: any multiple of 16 up to 576.  The tensor-core kernels are
-// built for the widths DP = 32, 64, 128, 256, 288 (MLAConfig()'s 256 + 32)
-// and 576 (DeepSeek's absorbed 512 + 64) and run a head dim D <= DP with
-// their loops cut at D; the scalar kernels take D as a template constant
-// for 32, 64, 128 and 288, and as a run-time value in their DC = 0
-// instances (one for D up to 288, one above, with smaller tiles).
+// Head dims: any from 1 to 576.  The kernels compute D = the head dim
+// rounded up to 16 lanes: q, O and the decode's workspace are rows of D
+// (the wrapper zero-pads q and cuts O back), while the pool keeps its rows
+// of the true head dim dp (PoolGeom::dp): the staging reads them as they
+// lie, in 16-byte copies where a row is whole 16-byte chunks, else in 8-,
+// 4-byte copies or element loads as its bytes allow, and zero-fills the
+// bytes of lanes [dp, D) of the staged K and V: q's lanes there are zero
+// too, so the last k step of S adds exact zeros (an int4 byte of 0 reads
+// K = -8, V = 0), and O's lanes past dp are 0.
+// The tensor-core kernels are built for the widths DP = 32, 64, 128, 256,
+// 288 (MLAConfig()'s 256 + 32) and 576 (DeepSeek's absorbed 512 + 64) and
+// run a D <= DP with their loops cut at D; the scalar kernels take D as a
+// template constant for 32, 64, 128 and 288, and as a run-time value in
+// their DC = 0 instances (one for D up to 288, one above, with smaller
+// tiles).
 //
 // Numerics, shared with the plain PyTorch versions in
 // serving/paged_attention.py so the two can be held to a tight tolerance:
@@ -138,6 +147,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_tiles.cuh"
 #include "common.cuh"
 #include "mma.cuh"
@@ -157,15 +168,17 @@ __device__ __forceinline__ int clamp_page(int page, int num_pages_total) {
 
 // Where a token's rows lie in the pool: page rows (S_SUB * PT, or PT for
 // the int4 byte), V's row offset within the page (0 when K is V), V's
-// zeroed tail lanes and the page's states (S_SUB; 1 for the int4 byte).
+// zeroed tail lanes, the page's states (S_SUB; 1 for the int4 byte) and
+// the head dim dp, the elements of a pool row (the kernels' D, dp rounded
+// up to 16 lanes, is the width they compute).
 struct PoolGeom {
-  int PT, rows, v_row, vtz, ss;
+  int PT, rows, v_row, vtz, ss, dp;
 };
 
 template <int MODE>
-PoolGeom pool_geom(int PT, int s_sub, int vtz) {
+PoolGeom pool_geom(int PT, int s_sub, int vtz, int dp) {
   const int ss = MODE == KV_INT4 ? 1 : s_sub;
-  return PoolGeom{PT, ss * PT, (ss - 1) * PT, vtz, ss};
+  return PoolGeom{PT, ss * PT, (ss - 1) * PT, vtz, ss, dp};
 }
 
 // The tensor-core kernels' built width for a head dim D.
@@ -199,22 +212,79 @@ using mfa::launch_with_smem;
 // Staging: token rows through their page ids, payloads widened
 // ---------------------------------------------------------------------------
 
+// stage_tokens' copies where a pool row is not whole 16-byte chunks (dp <
+// D): as stage_tokens' own loop (warp lanes on consecutive copies of its
+// tokens' rows, `halves` a token, half_stride bytes apart in dst; a copy's
+// token by a multiply-high, its pool row by shuffle from the lane that
+// worked it out: my_row, my_ok), each pool row of row_bytes landing in a
+// dst row of dst_bytes, zeros past row_bytes and for tokens not ok.  A copy
+// is the largest power of two up to 16 that divides row_bytes: cp.async of
+// 16, 8 or 4, or a plain load of 2 or 1 (a row of an odd bf16 or byte
+// count).
+template <int TPW>
+__device__ __forceinline__ void copy_padded_rows(
+    const uint8_t* __restrict__ kv, int v_row, int halves, int row_bytes,
+    int dst_bytes, size_t my_row, bool my_ok, int tw, uint8_t* dst,
+    int dst_ld, int half_stride) {
+  const int lane = threadIdx.x & 31;
+  const int ch = min(row_bytes & -row_bytes, 16);  // bytes a copy
+  const int cpr = dst_bytes / ch;  // copies a staged row
+  const int per_tok = halves * cpr;
+  const int total = TPW * per_tok;
+  const uint32_t magic = 0xFFFFFFFFu / (uint32_t)per_tok + 1u;
+  const uint32_t row_lo = (uint32_t)my_row;
+  const uint32_t row_hi = (uint32_t)(my_row >> 32);
+  for (int base = 0; base < total; base += 32) {
+    const int i = base + lane;
+    const int j = min((int)__umulhi((uint32_t)i, magic), TPW - 1);
+    const size_t row =
+        (size_t)__shfl_sync(0xffffffffu, row_lo, j) |
+        (size_t)__shfl_sync(0xffffffffu, row_hi, j) << 32;
+    const bool ok = __shfl_sync(0xffffffffu, my_ok ? 1 : 0, j) != 0;
+    if (i < total) {
+      const int rem = i - j * per_tok;
+      const int hf = rem >= cpr ? 1 : 0;
+      const int c = rem - hf * cpr;
+      const bool in = ok && c * ch < row_bytes;  // lanes from dp: zeros
+      const uint8_t* src =
+          kv + (row + hf * v_row) * (size_t)row_bytes + (in ? c * ch : 0);
+      uint8_t* to = dst + hf * half_stride + (tw + j) * dst_ld + c * ch;
+      if (ch == 16) {
+        mfa::cp_async16(to, src, in ? 16 : 0);
+      } else if (ch == 8) {
+        mfa::cp_async8(to, src, in ? 8 : 0);
+      } else if (ch == 4) {
+        mfa::cp_async4(to, src, in ? 4 : 0);
+      } else if (ch == 2) {
+        *reinterpret_cast<uint16_t*>(to) =
+            in ? *reinterpret_cast<const uint16_t*>(src) : (uint16_t)0;
+      } else {
+        *to = in ? *src : (uint8_t)0;
+      }
+    }
+  }
+}
+
 // cp.async the rows of tokens [t0, t0 + NTOK) of one KV head into dst:
-// each token's `halves` rows of row_bytes (1: its K row, which is V too,
-// or its int4 byte; 2: K's row, then V's half_stride bytes on), dst_ld
-// bytes apart; tokens from `lim` are zeros.  NT threads; warp w stages
-// tokens [w * TPW, (w + 1) * TPW): lane j < TPW reads token j's page id
-// once (clamped into the pool) and works out its pool row, which the
-// warp's 16-byte copies take by shuffle, consecutive lanes on consecutive
-// chunks of a row (a copy's token by a multiply-high: the index is below
-// 2^16, so the rounded-up reciprocal divides exactly).  With kscale, the
-// tokens' K and V scales (zeros from `lim`) go to sc[0, NTOK) and
+// each token's `halves` rows (1: its K row, which is V too, or its int4
+// byte; 2: K's row, then V's half_stride bytes on) of pg.dp elements of
+// esz bytes, widened with zero bytes to D elements, dst_ld bytes apart;
+// tokens from `lim` are zeros.  NT threads; warp w stages tokens [w * TPW,
+// (w + 1) * TPW): lane j < TPW reads token j's page id once (clamped into
+// the pool) and works out its pool row, which the warp's 16-byte copies
+// take by shuffle, consecutive lanes on consecutive chunks of a row (a
+// copy's token by a multiply-high: the index is below 2^16, so the
+// rounded-up reciprocal divides exactly), where WHOLE (dp = D); else
+// copy_padded_rows.  The tensor-core kernels take WHOLE as a template
+// argument, so their tile loops hold one kind of copy: both in one loop
+// slowed the int8 prefill at D = 64 by 20-24% on the card.  With kscale,
+// the tokens' K and V scales (zeros from `lim`) go to sc[0, NTOK) and
 // sc[NTOK, 2 NTOK).
-template <int NT, int NTOK>
+template <int NT, int NTOK, bool WHOLE>
 __device__ __forceinline__ void stage_tokens(
     const uint8_t* __restrict__ kv, const int32_t* __restrict__ table_row,
     size_t head_base, int num_pages_total, const PoolGeom& pg, int halves,
-    int row_bytes, int t0, int lim, uint8_t* dst, int dst_ld,
+    int esz, int D, int t0, int lim, uint8_t* dst, int dst_ld,
     int half_stride, const float* kscale, const float* vscale, float* sc) {
   constexpr int TPW = NTOK / (NT / 32);
   static_assert(TPW >= 1 && TPW <= 32, "a warp stages 1 to 32 tokens");
@@ -222,7 +292,7 @@ __device__ __forceinline__ void stage_tokens(
   const int tw = (threadIdx.x >> 5) * TPW;
   const int my_pos = t0 + tw + lane;
   const bool my_ok = lane < TPW && my_pos < lim;
-  size_t my_row = 0;  // the token's K row in the pool (rows of row_bytes)
+  size_t my_row = 0;  // the token's K row in the pool
   if (my_ok) {
     const int page = clamp_page(table_row[my_pos / pg.PT], num_pages_total);
     const int off = my_pos % pg.PT;
@@ -236,6 +306,12 @@ __device__ __forceinline__ void stage_tokens(
     mfa::cp_async4(sc + tw + lane, kscale, 0);
     mfa::cp_async4(sc + NTOK + tw + lane, vscale, 0);
   }
+  if constexpr (!WHOLE) {
+    copy_padded_rows<TPW>(kv, pg.v_row, halves, pg.dp * esz, D * esz,
+                          my_row, my_ok, tw, dst, dst_ld, half_stride);
+    return;
+  }
+  const int row_bytes = D * esz;
   const int cpr = row_bytes >> 4;  // 16-byte chunks a row
   const int per_tok = halves * cpr;
   const int total = TPW * per_tok;
@@ -488,7 +564,8 @@ struct DecodeArgs {
 
 // Replaces serving/paged_attention.py::_decode_kernel_streamed and
 // ::_decode_kernel for a bf16 q.  Bound: the live KV bytes (see above).
-template <int DP, int MODE>
+// WHOLE: pool rows of whole 16-byte chunks (stage_tokens).
+template <int DP, int MODE, bool WHOLE>
 __global__ void __launch_bounds__(TC_THREADS)
 paged_decode_tc_kernel(const DecodeArgs a) {
   constexpr bool QUANT = MODE != KV_FLOAT;
@@ -535,9 +612,9 @@ paged_decode_tc_kernel(const DecodeArgs a) {
   const int ring_stage = L.halves * TKD * L.stage_ld;
   const size_t head_base = (size_t)h * a.num_pages_total;
   auto stage = [&](int t0, int buf) {
-    stage_tokens<TC_THREADS, TKD>(
+    stage_tokens<TC_THREADS, TKD, WHOLE>(
         static_cast<const uint8_t*>(a.kv), a.table + (size_t)b * a.max_pages,
-        head_base, a.num_pages_total, pg, L.halves, QUANT ? D : 2 * D, t0,
+        head_base, a.num_pages_total, pg, L.halves, QUANT ? 1 : 2, D, t0,
         t_end, smem + buf * ring_stage, L.stage_ld, TKD * L.stage_ld,
         QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * TKD);
   };
@@ -561,7 +638,7 @@ paged_decode_tc_kernel(const DecodeArgs a) {
   __syncthreads();  // q landed
   scale_rows<TC_THREADS>(sq, ROW, 16, qc, a.scale);
 
-  const int v_keep = D - pg.vtz;
+  const int v_keep = (WHOLE ? D : pg.dp) - pg.vtz;
   const int nchunks = (v_keep + 15) / 16;  // 16-lane O blocks computed
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[NCH][2][4];
@@ -857,11 +934,18 @@ paged_decode_kernel(const DecodeArgs a) {
   const int ring_stage = L.halves * TKS * L.stage_ld;
   const size_t head_base = (size_t)h * a.num_pages_total;
   auto stage = [&](int t0, int buf) {
-    stage_tokens<SC_THREADS, TKS>(
-        static_cast<const uint8_t*>(a.kv), a.table + (size_t)b * a.max_pages,
-        head_base, a.num_pages_total, pg, L.halves, QUANT ? D : 4 * D, t0,
-        t_end, smem + buf * ring_stage, L.stage_ld, TKS * L.stage_ld,
-        QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * TKS);
+    auto copy = [&](auto whole) {
+      stage_tokens<SC_THREADS, TKS, decltype(whole)::value>(
+          static_cast<const uint8_t*>(a.kv),
+          a.table + (size_t)b * a.max_pages, head_base, a.num_pages_total,
+          pg, L.halves, QUANT ? 1 : 4, D, t0, t_end,
+          smem + buf * ring_stage, L.stage_ld, TKS * L.stage_ld,
+          QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * TKS);
+    };
+    if (pg.dp == D)
+      copy(std::true_type());
+    else
+      copy(std::false_type());
   };
   for (int k = 0; k < NS - 1; ++k) {  // tiles 0 .. NS - 2, a group each
     if (t_begin + k * TKS < t_end) stage(t_begin + k * TKS, k);
@@ -952,7 +1036,7 @@ paged_decode_kernel(const DecodeArgs a) {
   mfa::cp_async_wait<0>();
   __syncthreads();  // m_s, l_s final
 
-  const int v_keep = D - pg.vtz;
+  const int v_keep = pg.dp - pg.vtz;
   float* ob = static_cast<float*>(a.out) + qrow0 * D;
 #pragma unroll
   for (int k = 0; k < MAX_OUT; ++k) {
@@ -1055,8 +1139,8 @@ struct PrefillArgs {
 
 // Replaces serving/paged_attention.py::_prefill_kernel for a bf16 q where
 // prefill_tc says so.  Bound: tensor-core operations (4*D per visible
-// query-key pair).
-template <int DP, int MODE>
+// query-key pair).  WHOLE: pool rows of whole 16-byte chunks.
+template <int DP, int MODE, bool WHOLE>
 __global__ void __launch_bounds__(TC_THREADS)
 paged_prefill_tc_kernel(const PrefillArgs a) {
   constexpr bool QUANT = MODE != KV_FLOAT;
@@ -1089,9 +1173,9 @@ paged_prefill_tc_kernel(const PrefillArgs a) {
   const int c_max = (r0 / C == r_last / C) ? (r_last % C) : (C - 1);
   const int kv_end = min(a.offset + c_max + 1, a.max_pages * pg.PT);
   auto stage = [&](int t0, int buf) {
-    stage_tokens<TC_THREADS, TK>(
+    stage_tokens<TC_THREADS, TK, WHOLE>(
         static_cast<const uint8_t*>(a.kv), a.page_row, head_base,
-        a.num_pages_total, pg, L.halves, QUANT ? D : 2 * D, t0, kv_end,
+        a.num_pages_total, pg, L.halves, QUANT ? 1 : 2, D, t0, kv_end,
         smem + buf * ring_stage, L.stage_ld, TK * L.stage_ld,
         QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * TK);
   };
@@ -1131,7 +1215,7 @@ paged_prefill_tc_kernel(const PrefillArgs a) {
     w_lo = min(w_lo, __shfl_xor_sync(0xffffffffu, w_lo, off));
     w_hi = max(w_hi, __shfl_xor_sync(0xffffffffu, w_hi, off));
   }
-  const int v_keep = D - pg.vtz;
+  const int v_keep = (WHOLE ? D : pg.dp) - pg.vtz;
   const int npairs = (v_keep + 15) / 16;  // 16-lane O blocks computed
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[NB][4];
@@ -1323,8 +1407,9 @@ __host__ __device__ __forceinline__ PwLayout pw_layout() {
 // of the slab's P, which both read as the A operand of O += P.V over their
 // own lanes; both keep the same m and l (max, and the two halves' sums in
 // one order).  Tiles of 32 keys in a three-stage ring keep Q, the ring and
-// P within 227 KB at every pool mode.
-template <int MODE>
+// P within 227 KB at every pool mode.  WHOLE: pool rows of whole 16-byte
+// chunks.
+template <int MODE, bool WHOLE>
 __global__ void __launch_bounds__(PW_THREADS, 1)
 paged_prefill_wide_kernel(const PrefillArgs a) {
   constexpr bool QUANT = MODE != KV_FLOAT;
@@ -1361,9 +1446,9 @@ paged_prefill_wide_kernel(const PrefillArgs a) {
   const int c_max = (r0 / C == r_last / C) ? (r_last % C) : (C - 1);
   const int kv_end = min(a.offset + c_max + 1, a.max_pages * pg.PT);
   auto stage = [&](int t0, int buf) {
-    stage_tokens<PW_THREADS, PW_TK>(
+    stage_tokens<PW_THREADS, PW_TK, WHOLE>(
         static_cast<const uint8_t*>(a.kv), a.page_row, head_base,
-        a.num_pages_total, pg, 1, QUANT ? D : 2 * D, t0, kv_end,
+        a.num_pages_total, pg, 1, QUANT ? 1 : 2, D, t0, kv_end,
         smem + buf * ring_stage, L.stage_ld, PW_TK * L.stage_ld,
         QUANT ? a.kscale : nullptr, a.vscale, ssc + buf * 2 * PW_TK);
   };
@@ -1403,7 +1488,7 @@ paged_prefill_wide_kernel(const PrefillArgs a) {
     w_lo = min(w_lo, __shfl_xor_sync(0xffffffffu, w_lo, off));
     w_hi = max(w_hi, __shfl_xor_sync(0xffffffffu, w_hi, off));
   }
-  const int v_keep = D - pg.vtz;
+  const int v_keep = (WHOLE ? D : pg.dp) - pg.vtz;
   const int nblk = (v_keep + 15) / 16;  // 16-lane O blocks computed
   const int npairs = min(max(nblk - 16 * half, 0), PW_LANES / 16);  // mine
   const int k0 = 16 * half;  // this warp's keys of a tile
@@ -1582,6 +1667,7 @@ template <typename T>
 struct KVLoad<T, KV_FLOAT> {
   using S = T;
   static constexpr int VEC = Elem<T>::VEC;
+  static __device__ __forceinline__ S zero() { return S(); }
   static __device__ __forceinline__ void load(const S* p, bool, float* f) {
     Elem<T>::unpack(*reinterpret_cast<const uint4*>(p), f);
   }
@@ -1601,6 +1687,7 @@ template <typename T>
 struct KVLoad<T, KV_INT8> {
   using S = int8_t;
   static constexpr int VEC = 16;
+  static __device__ __forceinline__ S zero() { return 0; }
   static __device__ __forceinline__ void load(const S* p, bool, float* f) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
     const int8_t* b = reinterpret_cast<const int8_t*>(&u);
@@ -1623,6 +1710,8 @@ template <typename T>
 struct KVLoad<T, KV_INT4> {
   using S = int8_t;
   static constexpr int VEC = 16;
+  // The byte of K = 0 and V = 0.
+  static __device__ __forceinline__ S zero() { return 0x08; }
   static __device__ __forceinline__ void load(const S* p, bool is_v,
                                               float* f) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -1699,7 +1788,7 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
   const int LDV = D + PF_PAD;
   const int VPR = D / L::VEC;     // KV loads per token row
   const int QPR = D / E::VEC;     // q loads per row
-  const int v_keep = D - pg.vtz;  // output lanes V does not zero
+  const int v_keep = pg.dp - pg.vtz;  // output lanes V does not zero
   const int PT = pg.PT;
   const typename L::S* kv = static_cast<const typename L::S*>(kv_);
 
@@ -1756,7 +1845,8 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
     for (int e = 0; e < DVMAX; ++e) acc[i][e] = 0.f;
   }
   const size_t head_base = (size_t)h * num_pages_total;
-  const size_t v_off = (size_t)pg.v_row * D;
+  const size_t v_off = (size_t)pg.v_row * pg.dp;
+  const bool whole = pg.dp == D;  // pool rows of whole 16-byte loads
 
   // Stage tile t0's K rows (as K^T) and, with KV_ROWS, its V rows in one
   // pass; V_ONLY: its V rows alone.
@@ -1771,14 +1861,28 @@ paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ kv_,
       for (int e = 0; e < L::VEC; ++e) kf[e] = vf[e] = 0.f;
       if (pos < kv_end) {
         const int page = clamp_page(page_row[pos / PT], num_pages_total);
-        const typename L::S* p =
-            kv + ((head_base + page) * pg.rows + pos % PT) * D + c * L::VEC;
-        if (what == V_ONLY)
-          L::load(p + v_off, true, vf);
-        else if (SHARE)
-          L::load(p, false, kf);
-        else
-          L::load2(p, v_off, kf, vf);
+        const typename L::S* p = kv +
+                                 ((head_base + page) * pg.rows + pos % PT) *
+                                     (size_t)pg.dp +
+                                 c * L::VEC;
+        if (whole) {
+          if (what == V_ONLY)
+            L::load(p + v_off, true, vf);
+          else if (SHARE)
+            L::load(p, false, kf);
+          else
+            L::load2(p, v_off, kf, vf);
+        } else {  // rows of dp elements: lanes from dp read as zeros
+          __align__(16) typename L::S kb[L::VEC], vb[L::VEC];
+#pragma unroll
+          for (int e = 0; e < L::VEC; ++e) {
+            const bool in = c * L::VEC + e < pg.dp;
+            kb[e] = in ? p[e] : L::zero();
+            vb[e] = in && v_off ? p[v_off + e] : kb[e];
+          }
+          if (what != V_ONLY) L::load(kb, false, kf);
+          if (what == V_ONLY || !SHARE) L::load(vb, true, vf);
+        }
       }
 #pragma unroll
       for (int e = 0; e < L::VEC; ++e) {
@@ -1917,7 +2021,10 @@ int launch_decode_tc(const DecodeArgs& a, dim3 grid, cudaStream_t stream) {
   const TcLayout L =
       tc_layout<DP, MODE, decode_stages<DP>(), decode_tile<DP>()>(a.pg.ss, 16,
                                                                   true);
-  return launch_with_smem(paged_decode_tc_kernel<DP, MODE>, grid,
+  if (a.pg.dp == a.D)
+    return launch_with_smem(paged_decode_tc_kernel<DP, MODE, true>, grid,
+                            TC_THREADS, L.bytes, stream, a);
+  return launch_with_smem(paged_decode_tc_kernel<DP, MODE, false>, grid,
                           TC_THREADS, L.bytes, stream, a);
 }
 
@@ -1960,7 +2067,7 @@ int launch_decode(int dtype, const DecodeArgs& a, int B, int Hkv,
   if (rc != 0 || a.splits == 1) return rc;
   const dim3 mgrid(B * a.Hq);
   const size_t msmem = 2 * sizeof(float) * a.splits;
-  const int v_keep = a.D - a.pg.vtz;
+  const int v_keep = a.pg.dp - a.pg.vtz;
   if (dtype == 1)
     return launch_with_smem(paged_decode_merge_kernel<__nv_bfloat16>, mgrid,
                             MERGE_THREADS, msmem, stream, a.ws,
@@ -1976,17 +2083,23 @@ int launch_prefill_tc(const PrefillArgs& a, cudaStream_t stream) {
   const int rows = (a.Hq / a.Hkv) * a.C;
   const TcLayout L =
       tc_layout<DP, MODE, prefill_stages<DP>()>(a.pg.ss, 64, false);
-  return launch_with_smem(paged_prefill_tc_kernel<DP, MODE>,
-                          dim3((rows + 63) / 64, a.Hkv), TC_THREADS, L.bytes,
-                          stream, a);
+  const dim3 grid((rows + 63) / 64, a.Hkv);
+  if (a.pg.dp == a.D)
+    return launch_with_smem(paged_prefill_tc_kernel<DP, MODE, true>, grid,
+                            TC_THREADS, L.bytes, stream, a);
+  return launch_with_smem(paged_prefill_tc_kernel<DP, MODE, false>, grid,
+                          TC_THREADS, L.bytes, stream, a);
 }
 
 template <int MODE>
 int launch_prefill_wide(const PrefillArgs& a, cudaStream_t stream) {
   const int rows = (a.Hq / a.Hkv) * a.C;
-  return launch_with_smem(paged_prefill_wide_kernel<MODE>,
-                          dim3((rows + 63) / 64, a.Hkv), PW_THREADS,
-                          pw_layout<MODE>().bytes, stream, a);
+  const dim3 grid((rows + 63) / 64, a.Hkv);
+  if (a.pg.dp == a.D)
+    return launch_with_smem(paged_prefill_wide_kernel<MODE, true>, grid,
+                            PW_THREADS, pw_layout<MODE>().bytes, stream, a);
+  return launch_with_smem(paged_prefill_wide_kernel<MODE, false>, grid,
+                          PW_THREADS, pw_layout<MODE>().bytes, stream, a);
 }
 
 template <typename T, int DC, int MODE, int DMAX = (DC != 0 ? DC : 288)>
@@ -2010,7 +2123,7 @@ int launch_prefill_fma(const PrefillArgs& a, cudaStream_t stream) {
 // pages or more than 512 kept lanes).
 template <int MODE>
 int launch_prefill(int dtype, const PrefillArgs& a, cudaStream_t stream) {
-  if (prefill_tc(dtype, a.D, a.pg.ss, a.pg.vtz)) {
+  if (prefill_tc(dtype, a.pg.dp, a.pg.ss, a.pg.vtz)) {
     switch (tc_width(a.D)) {
       case 32: return launch_prefill_tc<32, MODE>(a, stream);
       case 64: return launch_prefill_tc<64, MODE>(a, stream);
@@ -2040,16 +2153,19 @@ int launch_prefill(int dtype, const PrefillArgs& a, cudaStream_t stream) {
 }
 
 bool valid_layout(int mode, int D, int s_sub, int vtz) {
-  if (D <= 0 || D % 16 || D > MAX_D || vtz < 0 || vtz >= D) return false;
+  if (D <= 0 || D > MAX_D || vtz < 0 || vtz >= D) return false;
   if (mode == KV_INT4) return s_sub == 1 && vtz == 0;
   return s_sub == 1 || s_sub == 2;
 }
 
-PoolGeom geom_of(int mode, int PT, int s_sub, int vtz) {
-  if (mode == KV_INT8) return pool_geom<KV_INT8>(PT, s_sub, vtz);
-  if (mode == KV_INT4) return pool_geom<KV_INT4>(PT, s_sub, vtz);
-  return pool_geom<KV_FLOAT>(PT, s_sub, vtz);
+PoolGeom geom_of(int mode, int PT, int s_sub, int vtz, int dp) {
+  if (mode == KV_INT8) return pool_geom<KV_INT8>(PT, s_sub, vtz, dp);
+  if (mode == KV_INT4) return pool_geom<KV_INT4>(PT, s_sub, vtz, dp);
+  return pool_geom<KV_FLOAT>(PT, s_sub, vtz, dp);
 }
+
+// The lanes the kernels compute at head dim D: D rounded up to 16.
+int lane_width(int D) { return (D + 15) / 16 * 16; }
 
 }  // namespace
 
@@ -2057,14 +2173,16 @@ PoolGeom geom_of(int mode, int PT, int s_sub, int vtz) {
 // pool's): 0 = float32, 1 = bfloat16.  mode: 0 float pool, 1 int8 halves,
 // 2 int4 shared byte; ks and vs are ignored (may be null) in mode 0.
 // s_sub: page rows per token (1 or 2; 1 for the int4 byte); vtz: V's
-// zeroed tail lanes.  Returns the launch's cudaError_t;
-// cudaErrorInvalidValue for an unsupported dtype, mode, page layout, head
-// dim (a multiple of 16 up to 576) or split plan.
+// zeroed tail lanes.  D: the head dim (1 to 576), the elements of a pool
+// row; q and out are rows of D rounded up to 16 lanes (q zero past D).
+// Returns the launch's cudaError_t; cudaErrorInvalidValue for an
+// unsupported dtype, mode, page layout, head dim or split plan.
 extern "C" {
 
 // splits: the KV axis's splits (serving/paged_attention.py::decode_splits),
 // each ceil(ceil(max_pages * PT / 64) / splits) * 64 tokens; ws: an fp32
-// workspace [B, Hq, splits, D + 2] when splits > 1 (else unused).
+// workspace [B, Hq, splits, Dl + 2] when splits > 1 (else unused), Dl the
+// head dim rounded up to 16.
 int mfa_paged_decode(const void* q, const void* kv, const void* ks,
                      const void* vs, const void* table, const void* lengths,
                      void* out, int dtype, int mode, int B, int Hq, int Hkv,
@@ -2091,12 +2209,12 @@ int mfa_paged_decode(const void* q, const void* kv, const void* ks,
   a.G = G;
   a.gslices = gslices;
   a.gc = (G + gslices - 1) / gslices;
-  a.D = D;
+  a.D = lane_width(D);
   a.num_pages_total = num_pages_total;
   a.max_pages = max_pages;
   a.splits = splits;
   a.per = (tiles + splits - 1) / splits * TK;
-  a.pg = geom_of(mode, PT, s_sub, vtz);
+  a.pg = geom_of(mode, PT, s_sub, vtz, D);
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == KV_FLOAT) return launch_decode<KV_FLOAT>(dtype, a, B, Hkv, s);
@@ -2123,11 +2241,11 @@ int mfa_paged_prefill(const void* q, const void* kv, const void* ks,
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.C = C;
-  a.D = D;
+  a.D = lane_width(D);
   a.num_pages_total = num_pages_total;
   a.max_pages = max_pages;
   a.offset = offset;
-  a.pg = geom_of(mode, PT, s_sub, vtz);
+  a.pg = geom_of(mode, PT, s_sub, vtz, D);
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == KV_FLOAT) return launch_prefill<KV_FLOAT>(dtype, a, s);

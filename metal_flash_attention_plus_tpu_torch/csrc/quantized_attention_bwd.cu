@@ -11,12 +11,14 @@
 //     qflash_dkv_latent_kernel (bf16 at D = 576) then flash_attention.cu's
 //     flash_dkv_merge_kernel, qflash_dkv_kernel (fp32)
 //   - _dq_fullint_kernel            -> fullint_dq_tc_kernel, fullint_dq_kernel
-//   - _dkv_fullint_kernel           -> fullint_dkv_tc_kernel,
+//                                      (fullint_dq32_kernel at D = 576)
+//   - _dkv_fullint_kernel           -> fullint_dkv_tc_kernel (then
+//                                      flash_dkv_merge_kernel at D = 576),
 //                                      fullint_dkv_kernel
-// Head dims: the exact pair is built for D = 32, 64, 128, 256, MLA's 288 and
-// DeepSeek's absorbed 576 (ops/quantized_attention.py::qattn_width runs the
-// other multiples of 16 up to 576 zero-padded at the next); the
-// full-integer pair up to 288 (ops/flash_attention_bwd.py::fullint_width).
+//                                      (fullint_dkv32_kernel at D = 576)
+// Head dims: both pairs are built for D = 32, 64, 128, 256, MLA's 288 and
+// DeepSeek's absorbed 576 (ops/quantized_attention.py::qattn_width runs
+// every other head dim from 1 to 576 zero-padded at the next).
 //
 // The exact pair runs the flash backward's bodies (attention_bwd.cuh) with
 // K/V staged from their payloads (quantized_tiles.cuh):
@@ -74,7 +76,11 @@
 //   ms), its dK/dV two of each (~0.42 ms): operations bound them.  They run
 //   on the tensor cores (fullint_dq_tc_kernel, fullint_dkv_tc_kernel; the
 //   grids and walks of attention_bwd.cuh's dq_tc_body and dkv_tc_body,
-//   cut at MLA's D = 288 as fi_split, fi_dkv_rows and fi_biased say):
+//   cut at MLA's D = 288 as fi_split, fi_dkv_rows and fi_biased say, and
+//   at DeepSeek's 576 in the latent bodies' frame: 32-row CTAs of 8 warps,
+//   the lanes split over four warp groups, 32-key (32-query) steps, and
+//   the dK/dV's GQA group dealt over CTAs and merged in split order, as
+//   fi_tile and fullint_dkv_splits say):
 //   the int8 rows are copied by cp.async as they are (16-byte rows padded
 //   by 16, so ldmatrix's eight row addresses fall in distinct banks), S and
 //   dP (S^T, dP^T) run as s8 m16n8k32 mma.sync into int32 (summed from
@@ -599,19 +605,342 @@ fullint_dkv_kernel(const FullintArgs a) {
   }
 }
 
+// The scalar pair at DeepSeek's D = 576 (scalar32), in the 32-row layout of
+// attention_tiles.cuh: 256 threads as 8 x 32, thread (ty, tx) rows (keys)
+// 4 ty + [0, 4) of a tile, score column tx and output lanes tx + 32 e, so
+// a thread holds 72 fp32 dQ lanes (144 dK and dV lanes) where the 64-row
+// layout would hold 144 (288).  Word tiles are transposed ([D/4][32 + 4]:
+// a thread's four rows one int4 a step of d); the operand of the output
+// product is fp32 rows [32][D + 1].  The order of operations is the 64-row
+// kernels'.
+
+// int8 rows [r0, r0 + 32) (zeros from `limit`), rows D bytes apart, as
+// transposed words dst[w * LD32 + r] (consecutive threads on consecutive
+// rows, so the stores fill 32 banks).
+template <int D>
+__device__ __forceinline__ void stage_words32(const int8_t* base, int r0,
+                                              int limit, int* dst) {
+  constexpr int W = D / 4;
+  for (int i = threadIdx.x; i < mfa::T32 * W; i += THREADS) {
+    const int r = i % mfa::T32;
+    const int w = i / mfa::T32;
+    dst[w * mfa::LD32 + r] =
+        r0 + r < limit ? *reinterpret_cast<const int*>(
+                             base + (size_t)(r0 + r) * D + 4 * w)
+                       : 0;
+  }
+}
+
+// int8 rows [r0, r0 + 32) (zeros from `limit`) as fp32 rows dst[r * (D + 1)
+// + d].
+template <int D>
+__device__ __forceinline__ void stage_i8_rows32(const int8_t* base, int r0,
+                                                int limit, float* dst) {
+  constexpr int W = D / 4;
+  for (int i = threadIdx.x; i < mfa::T32 * W; i += THREADS) {
+    const int r = i / W;
+    const int w = i % W;
+    const int word =
+        r0 + r < limit
+            ? *reinterpret_cast<const int*>(base + (size_t)(r0 + r) * D + 4 * w)
+            : 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dst[r * mfa::ld_rows32<D>() + 4 * w + e] = byte_of(word, e);
+  }
+}
+
+// acc[i] = sum_w dp4a(a[w][4 ay + i], b[w][bx]) over transposed word tiles.
+template <int D>
+__device__ __forceinline__ void tile_product_i8_32(const int* a, int ay,
+                                                   const int* b, int bx,
+                                                   int (&acc)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = 0;
+#pragma unroll 4
+  for (int w = 0; w < D / 4; ++w) {
+    const int4 x = *reinterpret_cast<const int4*>(a + w * mfa::LD32 + ay * 4);
+    const int y = b[w * mfa::LD32 + bx];
+    acc[0] = __dp4a(x.x, y, acc[0]);
+    acc[1] = __dp4a(x.y, y, acc[1]);
+    acc[2] = __dp4a(x.z, y, acc[2]);
+    acc[3] = __dp4a(x.w, y, acc[3]);
+  }
+}
+
+// Max over the 32 lanes of a warp (the columns of one ty's rows).
+__device__ __forceinline__ float row_max32(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+template <int D>
+constexpr size_t fullint_dq_smem32() {
+  // Q, dOv and K|V words; K rows fp32; dS'^T
+  return (3 * (size_t)(D / 4) * mfa::LD32 +
+          (size_t)mfa::T32 * mfa::ld_rows32<D>() +
+          (size_t)mfa::T32 * mfa::LD32) *
+         4;
+}
+
+template <int D>
+constexpr size_t fullint_dkv_smem32() {
+  // K, V, Q and dOv words; dO then Q rows fp32; P' then dS' (q-major)
+  return (4 * (size_t)(D / 4) * mfa::LD32 +
+          (size_t)mfa::T32 * mfa::ld_rows32<D>() +
+          (size_t)mfa::T32 * mfa::LD32) *
+         4;
+}
+
+// fullint_dq_kernel's function at D = 576 (it replaces _dq_fullint_kernel
+// there at level-2 widths that are not whole s8 k steps; bound: operations,
+// 3 int8 products of 2*D per pair): one CTA per (32 query rows, b, q head)
+// keeps its Q and dOv words resident and walks the keys in 32-key tiles,
+// each span of `width` twice (its rows' |dS| maxima, then dQ += dS'.K).
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+fullint_dq32_kernel(const FullintArgs a) {
+  constexpr int DE = D / mfa::T32;
+  constexpr int W4 = D / 4;
+  constexpr int T = mfa::T32;
+  extern __shared__ __align__(16) float smem[];
+  int* qw = reinterpret_cast<int*>(smem);  // [D/4][LD32] Q words
+  int* dow = qw + W4 * mfa::LD32;          // [D/4][LD32] dOv words
+  int* kvw = dow + W4 * mfa::LD32;         // [D/4][LD32] V, then K words
+  float* kf = reinterpret_cast<float*>(kvw + W4 * mfa::LD32);  // K rows
+  float* dst = kf + T * mfa::ld_rows32<D>();  // [32][LD32] dS'^T
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int r0 = blockIdx.x * T;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = a.Hq / a.Hkv;
+  const int hk = a.interleaved ? h % a.Hkv : h / group;
+  const int tx = threadIdx.x % T;  // key column tx
+  const int ty = threadIdx.x / T;  // query rows 4 ty + i
+  const size_t bh = (size_t)b * a.Hq + h;
+  const size_t bk = (size_t)b * a.Hkv + hk;
+  const int8_t* kh = a.kq + bk * Skv * D;
+  const int8_t* vh = a.vq + bk * Skv * D;
+  const float* ks = a.ks ? a.ks + bk * Skv : nullptr;
+
+  stage_words32<D>(a.qq + bh * Sq * D, r0, Sq, qw);
+  stage_words32<D>(a.dov + bh * Sq * D, r0, Sq, dow);
+
+  float qs[4], lrow[4], drow[4], dvs[4], acc[4][DE];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    const bool live = r < Sq;
+    qs[i] = live ? a.qsc[bh * Sq + r] : 0.f;
+    lrow[i] = live ? a.lse[bh * Sq + r] : 0.f;
+    drow[i] = live ? a.di[bh * Sq + r] : 0.f;
+    dvs[i] = live ? a.dovsc[bh * Sq + r] : 0.f;
+#pragma unroll
+    for (int e = 0; e < DE; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int c0 = 0; c0 < Skv; c0 += a.width) {
+    const int c_end = min(c0 + a.width, Skv);
+    float amax[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int t0 = c0; t0 < c_end; t0 += T) {
+        __syncthreads();  // the previous tile's readers are done
+        stage_words32<D>(vh, t0, c_end, kvw);
+        __syncthreads();
+        int dpi[4];
+        tile_product_i8_32<D>(dow, ty, kvw, tx, dpi);
+        __syncthreads();  // every thread is done with the V words
+        stage_words32<D>(kh, t0, c_end, kvw);
+        if (pass == 1) stage_i8_rows32<D>(kh, t0, c_end, kf);
+        __syncthreads();
+        int si[4];
+        tile_product_i8_32<D>(qw, ty, kvw, tx, si);
+        const int col = t0 + tx;
+        const bool in = col < c_end;
+        const float k_s = (ks && in) ? ks[col] : 1.f;
+        float ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float sv = (float)si[i] * qs[i];
+          if (ks) sv *= k_s;
+          const float p = in ? expf(sv - lrow[i]) : 0.f;
+          float d = p * ((float)dpi[i] * dvs[i] - drow[i]);
+          if (ks) d *= k_s;
+          ds[i] = d;
+        }
+        if (pass == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            amax[i] = fmaxf(amax[i], row_max32(fabsf(ds[i])));
+          continue;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ds[i] = rowquant(ds[i], amax[i], true);
+        *reinterpret_cast<float4*>(dst + tx * mfa::LD32 + ty * 4) =
+            make_float4(ds[0], ds[1], ds[2], ds[3]);
+        __syncthreads();  // dS'^T and K's rows staged
+        mfa::accumulate_pm32<D>(dst, ty, kf, tx, acc);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    if (r >= Sq) continue;
+    float* out = a.out0 + (bh * Sq + r) * D + tx;
+#pragma unroll
+    for (int e = 0; e < DE; ++e) out[32 * e] = acc[i][e] * a.store;
+  }
+}
+
+// fullint_dkv_kernel's function at D = 576 (it replaces _dkv_fullint_kernel
+// there at those widths; bound: operations, 4 int8 products of 2*D per
+// pair): one CTA per (32 keys, b, kv head, split)
+// keeps its K and V words resident, owns its dK and dV and walks its run
+// of the group's q heads (fullint_dkv_tc_kernel's splits, partials into
+// ws) x every query row in 32-row steps.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+fullint_dkv32_kernel(const FullintArgs a, int splits, float* ws) {
+  constexpr int DE = D / mfa::T32;
+  constexpr int W4 = D / 4;
+  constexpr int T = mfa::T32;
+  extern __shared__ __align__(16) float smem[];
+  int* kw = reinterpret_cast<int*>(smem);  // [D/4][LD32] K words
+  int* vw = kw + W4 * mfa::LD32;           // [D/4][LD32] V words
+  int* qw = vw + W4 * mfa::LD32;           // [D/4][LD32] Q words
+  int* dvw = qw + W4 * mfa::LD32;          // [D/4][LD32] dOv words
+  float* mf = reinterpret_cast<float*>(dvw + W4 * mfa::LD32);  // dO|Q rows
+  float* ps = mf + T * mfa::ld_rows32<D>();  // [32][LD32] P', dS' (q-major)
+
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int c0 = blockIdx.x * T;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  const int group = a.Hq / a.Hkv;
+  const int tx = threadIdx.x % T;  // query column tx
+  const int ty = threadIdx.x / T;  // key rows 4 ty + i
+  const size_t bkv = (size_t)b * a.Hkv + hk;
+  const int per_split = (group + splits - 1) / splits;
+  const int g_lo = split * per_split;
+  const int g_hi = min(group, g_lo + per_split);
+
+  stage_words32<D>(a.kq + bkv * Skv * D, c0, Skv, kw);
+  stage_words32<D>(a.vq + bkv * Skv * D, c0, Skv, vw);
+  float ksr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = c0 + ty * 4 + i;
+    ksr[i] = (a.ks && key < Skv) ? a.ks[bkv * Skv + key] : 1.f;
+  }
+
+  float dk_acc[4][DE], dv_acc[4][DE];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DE; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  for (int g = g_lo; g < g_hi; ++g) {
+    const int h = a.interleaved ? g * a.Hkv + hk : hk * group + g;
+    const size_t bh = (size_t)b * a.Hq + h;
+    const int8_t* qh = a.qq + bh * Sq * D;
+    for (int q0 = 0; q0 < Sq; q0 += a.width) {
+      const int q_end = min(q0 + a.width, Sq);
+      float am_p[4] = {0.f, 0.f, 0.f, 0.f};
+      float am_s[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int r0 = q0; r0 < q_end; r0 += T) {
+          __syncthreads();  // the previous tile's readers are done
+          stage_words32<D>(qh, r0, q_end, qw);
+          stage_words32<D>(a.dov + bh * Sq * D, r0, q_end, dvw);
+          if (pass == 1) stage_i8_rows32<D>(a.dor + bh * Sq * D, r0, q_end, mf);
+          const int r = r0 + tx;
+          const bool in = r < q_end;
+          const size_t o = bh * Sq + (in ? r : 0);
+          const float qs = a.qsc[o], lcol = a.lse[o], dcol = a.di[o];
+          const float dors = a.dorsc[o], dovs = a.dovsc[o];
+          __syncthreads();
+          float pd[4], dsv[4];  // [key i] of query tx
+          {
+            int sti[4], dpti[4];
+            tile_product_i8_32<D>(kw, ty, qw, tx, sti);
+            tile_product_i8_32<D>(vw, ty, dvw, tx, dpti);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float st = (float)sti[i] * qs;
+              if (a.ks) st *= ksr[i];
+              const float pt = in ? expf(st - lcol) : 0.f;  // P^T
+              dsv[i] = pt * ((float)dpti[i] * dovs - dcol) * qs;
+              pd[i] = pt * dors;
+            }
+          }
+          if (pass == 0) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              am_p[i] = fmaxf(am_p[i], row_max32(pd[i]));
+              am_s[i] = fmaxf(am_s[i], row_max32(fabsf(dsv[i])));
+            }
+            continue;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            pd[i] = rowquant(pd[i], am_p[i], false);
+            dsv[i] = rowquant(dsv[i], am_s[i], true);
+          }
+          // P', q-major: ps[q * LD32 + key], the layout accumulate_pm32
+          // reads.
+          *reinterpret_cast<float4*>(ps + tx * mfa::LD32 + ty * 4) =
+              make_float4(pd[0], pd[1], pd[2], pd[3]);
+          __syncthreads();
+          mfa::accumulate_pm32<D>(ps, ty, mf, tx, dv_acc);  // dV += P'.dO
+          __syncthreads();
+          stage_i8_rows32<D>(qh, r0, q_end, mf);
+          *reinterpret_cast<float4*>(ps + tx * mfa::LD32 + ty * 4) =
+              make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
+          __syncthreads();
+          mfa::accumulate_pm32<D>(ps, ty, mf, tx, dk_acc);  // dK += dS'.Q
+        }
+      }
+    }
+  }
+
+  const size_t n = (size_t)gridDim.z / splits * a.Hkv * Skv * D;
+  float* out_k = splits > 1 ? ws + (2 * (size_t)split) * n : a.out0;
+  float* out_v = splits > 1 ? ws + (2 * (size_t)split + 1) * n : a.out1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = c0 + ty * 4 + i;
+    if (key >= Skv) continue;
+    float* dkr = out_k + (bkv * Skv + key) * D + tx;
+    float* dvr = out_v + (bkv * Skv + key) * D + tx;
+#pragma unroll
+    for (int e = 0; e < DE; ++e) {
+      dkr[32 * e] = dk_acc[i][e] * a.store;
+      dvr[32 * e] = dv_acc[i][e];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The full-integer pair on the tensor cores (level 1; level-2 widths of
 // whole s8 k steps)
 //
-// fullint_dq_tc_kernel: one CTA per (64 query rows, b, q head), 4 * NS
-// warps of 16 rows (NS = fi_split: the warp groups split S's and dP's key
-// columns and dQ's lanes, as in dq_tc_body); Q and dOv resident as int8
-// rows, each key tile's K and V rows (and ROW K scales) double-buffered by
-// cp.async.  fullint_dkv_tc_kernel: one CTA per (64 keys, b, kv head), 4 * NS
-// warps of 16 keys (the groups split S^T's and dP^T's query columns and
-// dK's and dV's lanes, as in dkv_tc_body); K and V resident, each step's Q,
-// dOv and dO rows and their per-row vectors double-buffered, walking the
-// group's q heads x every query tile (the path has no mask).  With NS = 1
+// fullint_dq_tc_kernel: one CTA per (64 query rows, b, q head; 32 at
+// D = 576: fi_tile), 4 * NS warps of 16 rows (2 * NS at 576; NS =
+// fi_split: the warp groups split S's and dP's key columns and dQ's lanes,
+// as in dq_tc_body); Q and dOv resident as int8 rows, each key tile's K
+// and V rows (and ROW K scales) double-buffered by cp.async.
+// fullint_dkv_tc_kernel: one CTA per (64 keys, b, kv head; 32 at 576, and
+// a split of the GQA group there), 4 * NS warps of 16 keys (2 * NS at 576;
+// the groups split S^T's and dP^T's query columns and dK's and dV's lanes,
+// as in dkv_tc_body); K and V resident, each step's Q, dOv and dO rows and
+// their per-row vectors double-buffered, walking its q heads x every query
+// tile (the path has no mask).  With NS = 1
 // (level 1 up to D = 64) a warp's C fragments of dS (P^T, dS^T) are the
 // output product's A operand as they are; with NS > 1 they pass through
 // shared memory.
@@ -638,17 +967,39 @@ __host__ __device__ constexpr bool fullint_tc(int width) {
 // (and, at level 2, dQ's int32 sums beside its fp32 ones) within 255
 // registers a thread.  Its lane accumulators are 144 fp32 a thread in the
 // dK/dV (dK and dV, 144 lanes each), where D = 256 keeps 64.
+// At DeepSeek's D = 576 four at both levels over 32-row tiles (fi_tile):
+// 144 lanes a warp, 72 fp32 accumulators in the dQ (and 72 int32 span
+// sums at level 2), 144 in the dK/dV, and one 8-column block of S and dP
+// (S^T, dP^T) a warp.
 template <int D, bool L2>
 __host__ __device__ constexpr int fi_split() {
-  return D > 256 ? 2 : L2 ? (D <= 128 ? 2 : 4) : mfa::dkv_tc_split<D>();
+  return D > 288   ? 4
+         : D > 256 ? 2
+         : L2      ? (D <= 128 ? 2 : 4)
+                   : mfa::dkv_tc_split<D>();
+}
+
+// A CTA's query rows (dQ) or keys (dK/dV), and the keys a dQ step stages:
+// 64, or 32 at D = 576, where 64 int8 rows of Q, dOv and two buffers of K
+// and V alone take 227 KB: a CTA holds two warps of 16 rows (keys) in each
+// of its fi_split warp groups.
+template <int D>
+__host__ __device__ constexpr int fi_tile() {
+  return D > 288 ? 32 : 64;
+}
+
+template <int D, bool L2>
+__host__ __device__ constexpr int fi_threads() {
+  return 32 * (fi_tile<D>() / 16) * fi_split<D, L2>();
 }
 
 // Query rows a dK/dV step stages: 64, or 32 at level 1 at D = 288, where
 // two buffers each of 64 Q, dOv and dO rows beside K, V and the bf16
-// operand tiles would take 252 KB of the 227 a CTA may have.
+// operand tiles would take 252 KB of the 227 a CTA may have, and 32 at
+// D = 576 (fi_tile).
 template <int D, bool L2>
 __host__ __device__ constexpr int fi_dkv_rows() {
-  return D > 256 && !L2 ? 32 : 64;
+  return D > 288 || (D > 256 && !L2) ? 32 : 64;
 }
 
 // Whether S's and dP's int32 sums start from I32_BIAS (read back with
@@ -676,58 +1027,68 @@ __host__ __device__ constexpr int fi_min_blocks() {
 // Row sizes (bytes) of the shared tiles.
 template <int D>
 struct FiRows {
-  static constexpr int RI = D + 16;       // an int8 row [.., D]
-  static constexpr int TI = BN * RI;      // 64 int8 rows
-  static constexpr int RB = 2 * D + 16;   // a bf16 row [.., D]
-  static constexpr int PT = BN + 16;      // an int8 row of 64 positions
-  static constexpr int PB = 2 * BN + 16;  // a bf16 row of 64
+  static constexpr int RI = D + 16;      // an int8 row [.., D]
+  static constexpr int RB = 2 * D + 16;  // a bf16 row [.., D]
 };
 
 // Byte offsets of fullint_dq_tc_kernel's shared memory (147,968 bytes at
-// D = 256, level 1; 164,352 at D = 288, 146,432 at level 2).
+// D = 256, level 1; 164,352 at D = 288, 146,432 at level 2; 153,856 at
+// D = 576, 144,128 at level 2): ROWS query rows, KT keys a step.
 template <int D, bool L2>
 struct FiDqSmem : FiRows<D> {
   using R = FiRows<D>;
   static constexpr int NS = fi_split<D, L2>();
+  static constexpr int ROWS = fi_tile<D>();
+  static constexpr int KT = fi_tile<D>();
+  static constexpr int TQ = ROWS * R::RI;  // ROWS int8 rows
+  static constexpr int TI = KT * R::RI;    // KT int8 rows
+  static constexpr int PT = KT + 16;       // an int8 row of KT positions
+  static constexpr int PB = 2 * KT + 16;   // a bf16 row of KT
   static constexpr int Q = 0;
-  static constexpr int DOV = R::TI;
-  static constexpr int K = 2 * R::TI;  // two buffers
-  static constexpr int V = 4 * R::TI;  // two buffers
+  static constexpr int DOV = TQ;
+  static constexpr int K = 2 * TQ;      // two buffers
+  static constexpr int V = K + 2 * TI;  // two buffers
   // K as the dQ product's operand: bf16 rows [key][d] (level 1) or int8
   // [d][key position] (level 2).
-  static constexpr int KOP = 6 * R::TI;
-  static constexpr int KS = KOP + (L2 ? D * R::PT : BN * R::RB);  // x2
-  static constexpr int AM = KS + 2 * BN * 4;  // [NS][64 rows][2 spans]
-  static constexpr int DS = AM + (L2 ? NS * BM * 2 * 4 : 0);
-  static constexpr size_t BYTES = DS + (NS > 1 ? BM * (L2 ? R::PT : R::PB) : 0);
+  static constexpr int KOP = V + 2 * TI;
+  static constexpr int KS = KOP + (L2 ? D * PT : KT * R::RB);  // x2
+  static constexpr int AM = KS + 2 * KT * 4;  // [NS][ROWS][2 spans]
+  static constexpr int DS = AM + (L2 ? NS * ROWS * 2 * 4 : 0);
+  static constexpr size_t BYTES = DS + (NS > 1 ? ROWS * (L2 ? PT : PB) : 0);
 };
 
 // Byte offsets of fullint_dkv_tc_kernel's shared memory (227,840 bytes at
 // D = 256, level 1, of the 232,448 a CTA may have; 146,688 at D = 288 in
-// 32-row query steps, 216,576 at level 2).
+// 32-row query steps, 216,576 at level 2; 213,760 at D = 576, 213,248 at
+// level 2): KEYS keys, QT query rows a step.  DOR1 (level 1 at 576): one
+// buffer of dO rows, which the kernel fills for the next step once this
+// step's are converted (two would pass the 227 KB by 256 bytes).
 template <int D, bool L2>
 struct FiDkvSmem : FiRows<D> {
   using R = FiRows<D>;
   static constexpr int NS = fi_split<D, L2>();
+  static constexpr int KEYS = fi_tile<D>();
   static constexpr int QT = fi_dkv_rows<D, L2>();  // query rows a step
-  static constexpr int TQ = QT * R::RI;            // QT int8 rows
-  static constexpr int PQ = 2 * QT + 16;  // a bf16 row of QT positions
+  static constexpr bool DOR1 = !L2 && D > 288;
+  static constexpr int TK = KEYS * R::RI;  // KEYS int8 rows
+  static constexpr int TQ = QT * R::RI;    // QT int8 rows
+  static constexpr int PT = QT + 16;       // an int8 row of QT positions
+  static constexpr int PQ = 2 * QT + 16;   // a bf16 row of QT positions
   static constexpr int K = 0;
-  static constexpr int V = R::TI;
-  static constexpr int Q = 2 * R::TI;      // two buffers
-  static constexpr int DOV = Q + 2 * TQ;   // two buffers
-  static constexpr int DOR = DOV + 2 * TQ; // two buffers
+  static constexpr int V = TK;
+  static constexpr int Q = 2 * TK;          // two buffers
+  static constexpr int DOV = Q + 2 * TQ;    // two buffers
+  static constexpr int DOR = DOV + 2 * TQ;  // two buffers (one: DOR1)
   // qsc, L, D, dorsc, dovsc of the step's QT queries, two buffers.
-  static constexpr int ST = DOR + 2 * TQ;
+  static constexpr int ST = DOR + (DOR1 ? 1 : 2) * TQ;
   // Q and dO as the dK / dV products' operands: bf16 rows [query][d]
   // (level 1) or int8 [d][query position] (level 2).
-  static constexpr int OP_BYTES = L2 ? D * R::PT : QT * R::RB;
+  static constexpr int OP_BYTES = L2 ? D * PT : QT * R::RB;
   static constexpr int OP = ST + 2 * 5 * QT * 4;
-  static constexpr int AM = OP + 2 * OP_BYTES;  // [NS][64 keys][2][P, dS]
-  static constexpr int PS = AM + (L2 ? NS * BN * 4 * 4 : 0);
+  static constexpr int AM = OP + 2 * OP_BYTES;  // [NS][KEYS][2][P, dS]
+  static constexpr int PS = AM + (L2 ? NS * KEYS * 4 * 4 : 0);
   static constexpr size_t BYTES =
-      PS + (NS > 1 ? 2 * BN * (L2 ? R::PT : PQ) : 0);
-  static_assert(!L2 || QT == BM, "level 2 walks 64-query tiles");
+      PS + (NS > 1 ? 2 * KEYS * (L2 ? PT : PQ) : 0);
 };
 
 // cp.async of int8 rows [t0, t0 + ROWS) of matrix `head` of a [.., n, D]
@@ -767,16 +1128,17 @@ __device__ __forceinline__ void fi_rows_bf16(const uint8_t* src,
   }
 }
 
-// 64 int8 rows (D + 16 bytes apart) transposed into int8 [d][position]
-// rows (BN + 16 bytes apart), the rows permuted within each 16 as an s8 A
-// operand built from C fragments holds them: position 16 b + 4 t + 2 h + c
-// holds row 16 b + 8 h + 2 t + c.
-template <int D, int NT>
+// ROWS int8 rows (D + 16 bytes apart) transposed into int8 [d][position]
+// rows (ROWS + 16 bytes apart), the rows permuted within each 16 as an s8
+// A operand built from C fragments holds them: position 16 b + 4 t + 2 h +
+// c holds row 16 b + 8 h + 2 t + c.
+template <int D, int NT, int ROWS = 64>
 __device__ __forceinline__ void fi_rows_t(const uint8_t* src, uint8_t* dst) {
   constexpr int W = D / 4;
-  for (int i = threadIdx.x; i < 16 * W; i += NT) {
-    const int quad = i % 16;  // positions [4 quad, 4 quad + 4)
-    const int w = i / 16;
+  constexpr int QUADS = ROWS / 4;
+  for (int i = threadIdx.x; i < QUADS * W; i += NT) {
+    const int quad = i % QUADS;  // positions [4 quad, 4 quad + 4)
+    const int w = i / QUADS;
     const int k0 = 16 * (quad >> 2) + 2 * (quad & 3);
     const int rows[4] = {k0, k0 + 1, k0 + 8, k0 + 9};
     unsigned x[4], y[4];
@@ -787,14 +1149,14 @@ __device__ __forceinline__ void fi_rows_t(const uint8_t* src, uint8_t* dst) {
     mfa::transpose_bytes(x, y);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      *reinterpret_cast<unsigned*>(dst + (4 * w + e) * (BN + 16) +
+      *reinterpret_cast<unsigned*>(dst + (4 * w + e) * (ROWS + 16) +
                                    4 * quad) = y[e];
   }
 }
 
 // acc[j] += A . B[br0 + 8j, br0 + 8j + 8)^T for one s8 A fragment (16 rows
 // x 32 bytes of k): B an int8 tile whose rows hold k (B_LD bytes a row),
-// its 32-byte k chunk at kbyte, read by ldmatrix; NB even.
+// its 32-byte k chunk at kbyte, read by ldmatrix; NB even, or 1.
 template <int NB, int B_LD>
 __device__ __forceinline__ void mma_s8_rows(const uint32_t (&af)[4],
                                             const uint8_t* B, int br0,
@@ -802,6 +1164,12 @@ __device__ __forceinline__ void mma_s8_rows(const uint32_t (&af)[4],
   const int lane = threadIdx.x & 31;
   const uint8_t* bp = B + (br0 + mfa::ldsm_b_row(lane)) * B_LD +
                       mfa::ldsm_b_byte(lane) + kbyte;
+  if constexpr (NB == 1) {  // lanes 0-15: the block's two 16-byte halves
+    uint32_t bf[2];
+    mfa::ldsm_x2(bf, bp);
+    mfa::mma_s8(acc[0], af, bf[0], bf[1], acc[0]);
+    return;
+  }
 #pragma unroll
   for (int j2 = 0; j2 < NB / 2; ++j2) {
     uint32_t bf[4];
@@ -916,14 +1284,14 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// The order in which a kernel visits the 64-wide tiles of the sequence it
+// The order in which a kernel visits the T-wide tiles (64, or 32: the
+// dK/dV at level 1 at D = 288, both kernels at 576) of the sequence it
 // walks (keys for dQ, a q head's queries for dK/dV), n long: level 1
 // (width 0) one pass over every tile; level 2 spans of `width` (a multiple
 // of 32), grouped in chunks of whole tiles: the span (a multiple of 64) or
 // two (32, 96, ...).  A chunk of several tiles takes two passes (its spans'
 // row maxima, then the products), a chunk of one tile one.  Span sp of a
 // chunk holds its positions [sp * width, (sp + 1) * width).
-// Level 1 may walk tiles of T < 64 rows (the dK/dV at D = 288).
 struct FiWalk {
   int T, tiles, passes, chunks;
   __device__ FiWalk(int width, int n, int t = BN) : T(t) {
@@ -944,13 +1312,16 @@ struct FiWalk {
 // Replaces _dq_fullint_kernel.  Bound: operations (2 int8 and 1 bf16
 // product of 2*D per pair; level 2: 3 int8).
 template <int D, bool L2>
-__global__ void __launch_bounds__(128 * fi_split<D, L2>(),
+__global__ void __launch_bounds__(fi_threads<D, L2>(),
                                   fi_min_blocks<D, L2, true>())
 fullint_dq_tc_kernel(const FullintArgs a) {
   using L = FiDqSmem<D, L2>;
   constexpr int NS = L::NS;
-  constexpr int NT = 128 * NS;
-  constexpr int KW = BN / NS;  // key columns of a warp's S, dP
+  constexpr int ROWS = L::ROWS;  // query rows a CTA
+  constexpr int KT = L::KT;      // keys a step
+  constexpr int RWS = ROWS / 16;  // warps of 16 rows a group
+  constexpr int NT = fi_threads<D, L2>();
+  constexpr int KW = KT / NS;  // key columns of a warp's S, dP
   constexpr int NKB = KW / 8;
   constexpr int DW = D / NS;  // dQ lanes a warp accumulates
   constexpr int NDB = DW / 8;
@@ -959,14 +1330,14 @@ fullint_dq_tc_kernel(const FullintArgs a) {
   extern __shared__ __align__(16) uint8_t sm[];
 
   const int Sq = a.Sq, Skv = a.Skv;
-  const int r0 = blockIdx.x * BM;
+  const int r0 = blockIdx.x * ROWS;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int rw = warp & 3;     // query rows r0 + 16 rw + [0, 16)
-  const int part = warp >> 2;  // key columns kc0 + [0, KW), dQ lanes
+  const int rw = warp % RWS;     // query rows r0 + 16 rw + [0, 16)
+  const int part = warp / RWS;  // key columns kc0 + [0, KW), dQ lanes
   const int kc0 = part * KW;
   const int g = lane >> 2;
   const int tq = lane & 3;
@@ -974,20 +1345,20 @@ fullint_dq_tc_kernel(const FullintArgs a) {
   const size_t bk = (size_t)b * a.Hkv + hk;
   const float* ks = a.ks ? a.ks + bk * Skv : nullptr;
 
-  fi_stage_rows<D, NT>(a.qq, bh, Sq, r0, sm + L::Q);
-  fi_stage_rows<D, NT>(a.dov, bh, Sq, r0, sm + L::DOV);
+  fi_stage_rows<D, NT, ROWS>(a.qq, bh, Sq, r0, sm + L::Q);
+  fi_stage_rows<D, NT, ROWS>(a.dov, bh, Sq, r0, sm + L::DOV);
   mfa::cp_async_commit();
-  const FiWalk wk(L2 ? a.width : 0, Skv);
+  const FiWalk wk(L2 ? a.width : 0, Skv, KT);
   const int steps = wk.steps();
   // Step it's K and V rows (and ROW K scales) into buffer buf.
   auto load = [&](int it, int buf) {
     const int t0 = wk.t0(it);
-    fi_stage_rows<D, NT>(a.kq, bk, Skv, t0, sm + L::K + buf * L::TI);
-    fi_stage_rows<D, NT>(a.vq, bk, Skv, t0, sm + L::V + buf * L::TI);
-    if (ks && threadIdx.x < BN) {
+    fi_stage_rows<D, NT, KT>(a.kq, bk, Skv, t0, sm + L::K + buf * L::TI);
+    fi_stage_rows<D, NT, KT>(a.vq, bk, Skv, t0, sm + L::V + buf * L::TI);
+    if (ks && threadIdx.x < KT) {
       const int i = threadIdx.x;
       const bool ok = t0 + i < Skv;
-      mfa::cp_async4(reinterpret_cast<float*>(sm + L::KS) + buf * BN + i,
+      mfa::cp_async4(reinterpret_cast<float*>(sm + L::KS) + buf * KT + i,
                      ks + (ok ? t0 + i : 0), ok ? 4 : 0);
     }
   };
@@ -1033,9 +1404,9 @@ fullint_dq_tc_kernel(const FullintArgs a) {
     const uint8_t* sv = sm + L::V + buf * L::TI;
     if (last) {
       if constexpr (L2)
-        fi_rows_t<D, NT>(sk, sm + L::KOP);
+        fi_rows_t<D, NT, KT>(sk, sm + L::KOP);
       else
-        fi_rows_bf16<D, NT>(sk, sm + L::KOP);
+        fi_rows_bf16<D, NT, KT>(sk, sm + L::KOP);
     }
 
     // S and dP for rows 16 rw + [0, 16), keys kc0 + [0, KW): element (row
@@ -1048,7 +1419,7 @@ fullint_dq_tc_kernel(const FullintArgs a) {
       mma_s8_nt<D / 32, NKB, L::RI, L::RI, BIASED>(sm + L::DOV, 16 * rw, sv,
                                                    kc0, dpi);
       const float* kst = reinterpret_cast<const float*>(sm + L::KS) +
-                         buf * BN;
+                         buf * KT;
 #pragma unroll
       for (int j = 0; j < NKB; ++j)
 #pragma unroll
@@ -1073,7 +1444,7 @@ fullint_dq_tc_kernel(const FullintArgs a) {
       const int a_off =
           (16 * rw + mfa::ldsm_a_row(lane)) * L::PB + mfa::ldsm_a_byte(lane);
 #pragma unroll
-      for (int kc = 0; kc < BN / 16; ++kc) {
+      for (int kc = 0; kc < KT / 16; ++kc) {
         uint32_t af[4];
         if constexpr (NS == 1)
           mfa::c_to_a_bf16(ds, kc, af);
@@ -1086,7 +1457,7 @@ fullint_dq_tc_kernel(const FullintArgs a) {
         if (tile == 0) run[0][0] = run[0][1] = run[1][0] = run[1][1] = 0.f;
 #pragma unroll
         for (int j = 0; j < NKB; ++j) {
-          const bool sp = tile * BN + kc0 + 8 * j >= a.width;
+          const bool sp = tile * KT + kc0 + 8 * j >= a.width;
 #pragma unroll
           for (int i = 0; i < 2; ++i)
             max_at(run[i], sp,
@@ -1101,7 +1472,8 @@ fullint_dq_tc_kernel(const FullintArgs a) {
 #pragma unroll
           for (int sp = 0; sp < 2; ++sp) {
             const float m = quad_max(run[i][sp]);
-            if (tq == 0) amx[(part * BM + 16 * rw + g + 8 * i) * 2 + sp] = m;
+            if (tq == 0)
+              amx[(part * ROWS + 16 * rw + g + 8 * i) * 2 + sp] = m;
           }
         __syncthreads();
 #pragma unroll
@@ -1111,31 +1483,33 @@ fullint_dq_tc_kernel(const FullintArgs a) {
             float am = 0.f;
 #pragma unroll
             for (int p = 0; p < NS; ++p)
-              am = fmaxf(am, amx[(p * BM + 16 * rw + g + 8 * i) * 2 + sp]);
+              am = fmaxf(am,
+                         amx[(p * ROWS + 16 * rw + g + 8 * i) * 2 + sp]);
             inv[i][sp] = 127.f / fmaxf(am, 1e-30f);
             sc[i][sp] = am * (1.f / 127.f);
           }
       }
 #pragma unroll
       for (int j = 0; j < NKB; ++j) {
-        const bool sp = tile * BN + kc0 + 8 * j >= a.width;
+        const bool sp = tile * KT + kc0 + 8 * j >= a.width;
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           ds[j][e] = fi_quant(ds[j][e], pick(inv[e >> 1], sp));
       }
       // dQ += dS_int.K_int, 32 keys a k step (K^T in permuted positions).
+      constexpr int KK = KT / 32;  // k steps a tile
       fi_store_s8<NKB, L::PT>(ds, 16 * rw, kc0, sds);
       __syncthreads();  // K^T and the CTA's dS tile
-      uint32_t af[2][4];
+      uint32_t af[KK][4];
       const uint8_t* ap = sds + (16 * rw + mfa::ldsm_a_row(lane)) * L::PT +
                           mfa::ldsm_a_byte(lane);
-      mfa::ldsm_x4(af[0], ap);
-      mfa::ldsm_x4(af[1], ap + 32);
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
+      for (int kk = 0; kk < KK; ++kk) mfa::ldsm_x4(af[kk], ap + 32 * kk);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
         mma_s8_rows<NDB, L::PT>(af[kk], sm + L::KOP, part * DW, 32 * kk,
                                 iacc);
-        const int pos = (2 * tile + kk) * 32;  // the k step's, in the chunk
+        const int pos = (KK * tile + kk) * 32;  // the k step's, in the chunk
         if ((pos + 32) % a.width == 0) {  // its span ends here
           const bool sp = pos >= a.width;
           fi_flush(acc, iacc, {pick(sc[0], sp), pick(sc[1], sp)});
@@ -1158,14 +1532,20 @@ fullint_dq_tc_kernel(const FullintArgs a) {
 }
 
 // Replaces _dkv_fullint_kernel.  Bound: operations (2 int8 and 2 bf16
-// products of 2*D per pair; level 2: 4 int8).
+// products of 2*D per pair; level 2: 4 int8).  splits > 1 (at D = 576,
+// ops/flash_attention_bwd.py::fullint_dkv_splits): the GQA group dealt
+// over that many CTAs a key tile (runs of whole q heads), each writing its
+// partial dK (times `store`) and dV into ws [splits, 2, B, Hkv, Skv, D],
+// which flash_attention.cu's flash_dkv_merge_kernel sums in split order.
 template <int D, bool L2>
-__global__ void __launch_bounds__(128 * fi_split<D, L2>(),
+__global__ void __launch_bounds__(fi_threads<D, L2>(),
                                   fi_min_blocks<D, L2, false>())
-fullint_dkv_tc_kernel(const FullintArgs a) {
+fullint_dkv_tc_kernel(const FullintArgs a, int splits, float* ws) {
   using L = FiDkvSmem<D, L2>;
   constexpr int NS = L::NS;
-  constexpr int NT = 128 * NS;
+  constexpr int KEYS = L::KEYS;   // keys a CTA
+  constexpr int KWS = KEYS / 16;  // warps of 16 keys a group
+  constexpr int NT = fi_threads<D, L2>();
   constexpr int QT = L::QT;    // query rows a step
   constexpr int QW = QT / NS;  // query columns of a warp's S^T, dP^T
   constexpr int NQB = QW / 8;
@@ -1176,39 +1556,53 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
   extern __shared__ __align__(16) uint8_t sm[];
 
   const int Sq = a.Sq, Skv = a.Skv;
-  const int c0 = blockIdx.x * BN;
+  const int c0 = blockIdx.x * KEYS;
   const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  // The GQA group split exists at D = 576 only (fullint_dkv_splits): the
+  // narrower instances keep their single-CTA walk.
+  const int nsplit = D > 288 ? splits : 1;
+  const int b = blockIdx.z / nsplit;
+  const int split = blockIdx.z % nsplit;
   const int group = a.Hq / a.Hkv;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int kw = warp & 3;     // keys c0 + 16 kw + [0, 16)
-  const int part = warp >> 2;  // query columns qc0 + [0, QW), dK/dV lanes
+  const int kw = warp % KWS;     // keys c0 + 16 kw + [0, 16)
+  const int part = warp / KWS;  // query columns qc0 + [0, QW), dK/dV lanes
   const int qc0 = part * QW;
   const int g = lane >> 2;
   const int tq = lane & 3;
   const size_t bkv = (size_t)b * a.Hkv + hk;
+  // This CTA's run of the group's q heads: [g_lo, g_lo + n_heads).
+  const int per_split = (group + nsplit - 1) / nsplit;
+  const int g_lo = split * per_split;
+  const int n_heads = max(min(group - g_lo, per_split), 0);
 
-  fi_stage_rows<D, NT>(a.kq, bkv, Skv, c0, sm + L::K);
-  fi_stage_rows<D, NT>(a.vq, bkv, Skv, c0, sm + L::V);
+  fi_stage_rows<D, NT, KEYS>(a.kq, bkv, Skv, c0, sm + L::K);
+  fi_stage_rows<D, NT, KEYS>(a.vq, bkv, Skv, c0, sm + L::V);
   mfa::cp_async_commit();
   const FiWalk wk(L2 ? a.width : 0, Sq, QT);
   const int per = wk.steps();  // steps a q head
-  const int steps = group * per;
+  const int steps = n_heads * per;
   auto head_of = [&](int it) {
-    const int gi = it / per;
+    const int gi = g_lo + it / per;
     return a.interleaved ? gi * a.Hkv + hk : hk * group + gi;
   };
-  // Step it's Q, dOv (and, in its last pass, dO) rows and their vectors
-  // into buffer buf: zeros from Sq.
+  // Step it's dO rows into buffer buf (the one buffer with DOR1).
+  auto stage_dor = [&](int it, int buf) {
+    const size_t bh = (size_t)b * a.Hq + head_of(it);
+    fi_stage_rows<D, NT, QT>(a.dor, bh, Sq, wk.t0(it % per),
+                             sm + L::DOR + (L::DOR1 ? 0 : buf * L::TQ));
+  };
+  // Step it's Q, dOv (and, in its last pass, dO: with DOR1 only for step
+  // 0, the later steps' once the step before has converted its own) rows
+  // and their vectors into buffer buf: zeros from Sq.
   auto prefetch = [&](int it, int buf) {
     const size_t bh = (size_t)b * a.Hq + head_of(it);
     const int r0 = wk.t0(it % per);
     fi_stage_rows<D, NT, QT>(a.qq, bh, Sq, r0, sm + L::Q + buf * L::TQ);
     fi_stage_rows<D, NT, QT>(a.dov, bh, Sq, r0, sm + L::DOV + buf * L::TQ);
-    if (wk.pass(it % per) == wk.passes - 1)
-      fi_stage_rows<D, NT, QT>(a.dor, bh, Sq, r0,
-                               sm + L::DOR + buf * L::TQ);
+    if (wk.pass(it % per) == wk.passes - 1 && (!L::DOR1 || it == 0))
+      stage_dor(it, buf);
     float* st = reinterpret_cast<float*>(sm + L::ST) + buf * 5 * QT;
     for (int i = threadIdx.x; i < 5 * QT; i += NT) {
       const int v = i / QT;
@@ -1252,13 +1646,13 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
     const int tile = wk.tile(sit);
     const bool last = pass == wk.passes - 1;
     const uint8_t* sq = sm + L::Q + buf * L::TQ;
-    const uint8_t* sdor = sm + L::DOR + buf * L::TQ;
+    const uint8_t* sdor = sm + L::DOR + (L::DOR1 ? 0 : buf * L::TQ);
     uint8_t* opq = sm + L::OP;
     uint8_t* opdo = sm + L::OP + L::OP_BYTES;
     if (last) {
       if constexpr (L2) {
-        fi_rows_t<D, NT>(sq, opq);
-        fi_rows_t<D, NT>(sdor, opdo);
+        fi_rows_t<D, NT, QT>(sq, opq);
+        fi_rows_t<D, NT, QT>(sdor, opdo);
       } else {
         fi_rows_bf16<D, NT, QT>(sq, opq);
         fi_rows_bf16<D, NT, QT>(sdor, opdo);
@@ -1309,7 +1703,7 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
     }
 
     uint8_t* ps = sm + L::PS;
-    uint8_t* dss = ps + BN * (L2 ? L::PT : L::PQ);
+    uint8_t* dss = ps + KEYS * (L2 ? L::PT : L::PQ);
     if constexpr (!L2) {
       // dV += round_bf16(P').dO, dK += round_bf16(dS').Q, 16 queries a k
       // step.
@@ -1318,6 +1712,10 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
         fi_store_bf16<NQB, L::PQ>(dsv, 16 * kw, qc0, dss);
       }
       __syncthreads();  // Q's and dO's bf16 rows (and P', dS' tiles)
+      if (L::DOR1 && it + 1 < steps) {  // this step's dO rows converted
+        stage_dor(it + 1, 0);
+        mfa::cp_async_commit();
+      }
       const int a_off =
           (16 * kw + mfa::ldsm_a_row(lane)) * L::PQ + mfa::ldsm_a_byte(lane);
 #pragma unroll
@@ -1340,7 +1738,7 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
           for (int k = 0; k < 8; ++k) (&run[0][0][0])[k] = 0.f;
 #pragma unroll
         for (int j = 0; j < NQB; ++j) {
-          const bool sp = tile * BM + qc0 + 8 * j >= a.width;
+          const bool sp = tile * QT + qc0 + 8 * j >= a.width;
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             max_at(run[0][i], sp, fmaxf(pd[j][2 * i], pd[j][2 * i + 1]));
@@ -1360,7 +1758,8 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
             for (int sp = 0; sp < 2; ++sp) {
               const float m = quad_max(run[k][i][sp]);
               if (tq == 0)
-                amx[((part * BN + 16 * kw + g + 8 * i) * 2 + sp) * 2 + k] = m;
+                amx[((part * KEYS + 16 * kw + g + 8 * i) * 2 + sp) * 2 + k] =
+                    m;
             }
         __syncthreads();
 #pragma unroll
@@ -1373,14 +1772,15 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
 #pragma unroll
               for (int p = 0; p < NS; ++p)
                 am = fmaxf(
-                    am, amx[((p * BN + 16 * kw + g + 8 * i) * 2 + sp) * 2 + k]);
+                    am,
+                    amx[((p * KEYS + 16 * kw + g + 8 * i) * 2 + sp) * 2 + k]);
               inv[k][i][sp] = 127.f / fmaxf(am, 1e-30f);
               sc[k][i][sp] = am * (1.f / 127.f);
             }
       }
 #pragma unroll
       for (int j = 0; j < NQB; ++j) {
-        const bool sp = tile * BM + qc0 + 8 * j >= a.width;
+        const bool sp = tile * QT + qc0 + 8 * j >= a.width;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           pd[j][e] = fi_quant(pd[j][e], pick(inv[0][e >> 1], sp));
@@ -1389,24 +1789,29 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
       }
       // dV += P_int.dO_int, dK += dS_int.Q_int, 32 queries a k step (dO^T,
       // Q^T in permuted positions).
+      constexpr int KK = QT / 32;  // k steps a tile
       fi_store_s8<NQB, L::PT>(pd, 16 * kw, qc0, ps);
       fi_store_s8<NQB, L::PT>(dsv, 16 * kw, qc0, dss);
       __syncthreads();  // Q^T, dO^T and the P', dS' tiles
-      uint32_t pa[2][4], dsa[2][4];
+      uint32_t pa[KK][4], dsa[KK][4];
       const int a_off = (16 * kw + mfa::ldsm_a_row(lane)) * L::PT +
                         mfa::ldsm_a_byte(lane);
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
+      for (int kk = 0; kk < KK; ++kk) {
         mfa::ldsm_x4(pa[kk], ps + a_off + 32 * kk);
         mfa::ldsm_x4(dsa[kk], dss + a_off + 32 * kk);
       }
       // The tile's integer products (|x| <= 64 * 127 * 127 < 2^22, summed
       // from I32_BIAS) scaled into the fp32 accumulators, or each k step's
-      // where a span ends between them.
-      const int pos = 64 * tile;  // the tile's, in the chunk
-      const bool split = (pos + 32) % a.width == 0;
-      const bool sp0 = pos >= a.width;
-      const bool sp1 = pos + 32 >= a.width;
+      // where a span ends between them: k step kk's sums are scaled after
+      // it where flush[kk], by span span[kk]'s scales.
+      bool flush[KK], span[KK];
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        const int kp = QT * tile + 32 * kk;  // the k step's, in the chunk
+        flush[kk] = kk == KK - 1 || (kp + 32) % a.width == 0;
+        span[kk] = kp >= a.width;
+      }
 #pragma unroll
       for (int n2 = 0; n2 < NDB / 2; ++n2) {
         int cv[2][4], ck[2][4];
@@ -1426,25 +1831,27 @@ fullint_dkv_tc_kernel(const FullintArgs a) {
         for (int e = 0; e < 4; ++e)
           cv[0][e] = cv[1][e] = ck[0][e] = ck[1][e] = mfa::I32_BIAS;
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
+        for (int kk = 0; kk < KK; ++kk) {
           mma_s8_rows<2, L::PT>(pa[kk], opdo, part * DW + 16 * n2, 32 * kk,
                                 cv);
           mma_s8_rows<2, L::PT>(dsa[kk], opq, part * DW + 16 * n2, 32 * kk,
                                 ck);
-          if (kk == 0 && split) scale_into(sp0);
+          if (flush[kk]) scale_into(span[kk]);
         }
-        scale_into(sp1);
       }
     }
   }
   mfa::cp_async_wait<0>();
 
+  const size_t n = (size_t)gridDim.z / nsplit * a.Hkv * Skv * D;
+  float* out_k = nsplit > 1 ? ws + (2 * (size_t)split) * n : a.out0;
+  float* out_v = nsplit > 1 ? ws + (2 * (size_t)split + 1) * n : a.out1;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = c0 + 16 * kw + g + 8 * i;
     if (key >= Skv) continue;
-    float* dkr = a.out0 + (bkv * Skv + key) * D + part * DW + 2 * tq;
-    float* dvr = a.out1 + (bkv * Skv + key) * D + part * DW + 2 * tq;
+    float* dkr = out_k + (bkv * Skv + key) * D + part * DW + 2 * tq;
+    float* dvr = out_v + (bkv * Skv + key) * D + part * DW + 2 * tq;
 #pragma unroll
     for (int j = 0; j < NDB; ++j) {
       *reinterpret_cast<float2*>(dkr + 8 * j) =
@@ -1524,32 +1931,48 @@ int launch_qflash(bool dq, const BwdArgs& a, const QuantKV<D>& kv, int B,
 }
 
 template <int D, bool L2>
-int launch_fullint_tc(bool dq, const FullintArgs& a, int B,
-                      cudaStream_t stream) {
-  constexpr int NT = 128 * fi_split<D, L2>();
+int launch_fullint_tc(bool dq, const FullintArgs& a, int B, int splits,
+                      float* ws, cudaStream_t stream) {
+  constexpr int NT = fi_threads<D, L2>();
+  constexpr int T = fi_tile<D>();
   if (dq)
     return launch_with_smem(fullint_dq_tc_kernel<D, L2>,
-                            dim3((a.Sq + BM - 1) / BM, a.Hq, B), NT,
+                            dim3((a.Sq + T - 1) / T, a.Hq, B), NT,
                             FiDqSmem<D, L2>::BYTES, stream, a);
   return launch_with_smem(fullint_dkv_tc_kernel<D, L2>,
-                          dim3((a.Skv + BN - 1) / BN, a.Hkv, B), NT,
-                          FiDkvSmem<D, L2>::BYTES, stream, a);
+                          dim3((a.Skv + T - 1) / T, a.Hkv, B * splits), NT,
+                          FiDkvSmem<D, L2>::BYTES, stream, a, splits, ws);
 }
 
 // Level 1 and level-2 widths from one k step on the tensor cores, the
-// narrower widths on the scalar kernels.
+// narrower widths on the scalar kernels (in 32-row tiles at D = 576).
+// splits > 1: the dK/dV at D = 576 only.
 template <int D>
-int launch_fullint(bool dq, const FullintArgs& a, int B,
-                   cudaStream_t stream) {
-  if (a.width == 0) return launch_fullint_tc<D, false>(dq, a, B, stream);
-  if (fullint_tc(a.width)) return launch_fullint_tc<D, true>(dq, a, B, stream);
-  if (dq)
-    return launch_with_smem(fullint_dq_kernel<D>,
-                            dim3((a.Sq + BM - 1) / BM, a.Hq, B), THREADS,
-                            fullint_dq_smem_bytes<D>(), stream, a);
-  return launch_with_smem(fullint_dkv_kernel<D>,
-                          dim3((a.Skv + BN - 1) / BN, a.Hkv, B), THREADS,
-                          fullint_dkv_smem_bytes<D>(), stream, a);
+int launch_fullint(bool dq, const FullintArgs& a, int B, int splits,
+                   float* ws, cudaStream_t stream) {
+  if (a.width == 0)
+    return launch_fullint_tc<D, false>(dq, a, B, splits, ws, stream);
+  if (fullint_tc(a.width))
+    return launch_fullint_tc<D, true>(dq, a, B, splits, ws, stream);
+  if constexpr (mfa::scalar32<D>()) {
+    constexpr int T = mfa::T32;
+    if (dq)
+      return launch_with_smem(fullint_dq32_kernel<D>,
+                              dim3((a.Sq + T - 1) / T, a.Hq, B), THREADS,
+                              fullint_dq_smem32<D>(), stream, a);
+    return launch_with_smem(fullint_dkv32_kernel<D>,
+                            dim3((a.Skv + T - 1) / T, a.Hkv, B * splits),
+                            THREADS, fullint_dkv_smem32<D>(), stream, a,
+                            splits, ws);
+  } else {
+    if (dq)
+      return launch_with_smem(fullint_dq_kernel<D>,
+                              dim3((a.Sq + BM - 1) / BM, a.Hq, B), THREADS,
+                              fullint_dq_smem_bytes<D>(), stream, a);
+    return launch_with_smem(fullint_dkv_kernel<D>,
+                            dim3((a.Skv + BN - 1) / BN, a.Hkv, B), THREADS,
+                            fullint_dkv_smem_bytes<D>(), stream, a);
+  }
 }
 
 bool valid_bits(int bits) { return bits == 8 || bits == 4; }
@@ -1558,8 +1981,8 @@ bool valid_bits(int bits) { return bits == 8 || bits == 4; }
 
 // Plain C interface (loaded with ctypes).  Returns the launch's
 // cudaError_t; cudaErrorInvalidValue for an unsupported dtype (0 float32,
-// 1 bfloat16), head dim (32, 64, 128, 256, 288, and 576 for the exact
-// pair), bit width or head grouping.
+// 1 bfloat16), head dim (32, 64, 128, 256, 288, 576), bit width or head
+// grouping.
 extern "C" {
 
 // The exact dQ (dq = 1: out0 = dQ, out1 = dbias or null; q pre-scaled) or
@@ -1622,14 +2045,22 @@ int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
 }
 
 // The full-integer dQ (dq = 1: out0 = dQ) or dK/dV (dq = 0: out0 = dK,
-// out1 = dV); up to D = 288 (no 576 instances: a call there fails).
+// out1 = dV) at D = 32, 64, 128, 256, 288 and 576.  splits: the CTAs that
+// share a key tile's GQA group (the dK/dV at D = 576 only,
+// ops/flash_attention_bwd.py::fullint_dkv_splits; 1 elsewhere); with
+// splits > 1 the partials (dK times `store`) go to ws, fp32 [splits, 2, B,
+// Hkv, Skv, D], and mfa_flash_dkv_merge sums them into out0 and out1.
 int mfa_fullint_bwd(int dq, const void* qq, const void* qsc, const void* kq,
                     const void* ks, const void* vq, const void* dor,
                     const void* dorsc, const void* dov, const void* dovsc,
                     const void* lse, const void* di, void* out0, void* out1,
                     int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                    int interleaved, int width, float store, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || width < 0) return (int)cudaErrorInvalidValue;
+                    int interleaved, int width, float store, int splits,
+                    void* ws, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || width < 0 || splits < 1 ||
+      splits > Hq / Hkv ||
+      (splits > 1 && (dq || ws == nullptr || D != 576)))
+    return (int)cudaErrorInvalidValue;
   const FullintArgs a{
       static_cast<const int8_t*>(qq),   static_cast<const float*>(qsc),
       static_cast<const int8_t*>(kq),   static_cast<const float*>(ks),
@@ -1640,20 +2071,22 @@ int mfa_fullint_bwd(int dq, const void* qq, const void* qsc, const void* kq,
       static_cast<float*>(out1),        Hq, Hkv, Sq, Skv, interleaved,
       width,                            store};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_fullint<32>(dq, a, B, s);
-  if (D == 64) return launch_fullint<64>(dq, a, B, s);
-  if (D == 128) return launch_fullint<128>(dq, a, B, s);
-  if (D == 256) return launch_fullint<256>(dq, a, B, s);
-  if (D == 288) return launch_fullint<288>(dq, a, B, s);
+  float* w = static_cast<float*>(ws);
+  if (D == 32) return launch_fullint<32>(dq, a, B, splits, w, s);
+  if (D == 64) return launch_fullint<64>(dq, a, B, splits, w, s);
+  if (D == 128) return launch_fullint<128>(dq, a, B, splits, w, s);
+  if (D == 256) return launch_fullint<256>(dq, a, B, splits, w, s);
+  if (D == 288) return launch_fullint<288>(dq, a, B, splits, w, s);
+  if (D == 576) return launch_fullint<576>(dq, a, B, splits, w, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The kernels mfa_fullint_bwd launches at head dim D and level-2 width
-// `width` (0: level 1): 1 the tensor-core pair, 0 the scalar pair, -1 none
+// The kernels mfa_fullint_bwd launches for a head dim D (1 to 576, run at
+// its kernel width) and level-2 width `width` (0: level 1): 1 the
+// tensor-core pair, 0 the scalar pair, -1 none
 // (ops/flash_attention_bwd.py::fullint_body gives the same answer).
 int mfa_fullint_tc_body(int D, int width) {
-  if ((D != 32 && D != 64 && D != 128 && D != 256 && D != 288) || width < 0)
-    return -1;
+  if (D < 1 || D > 576 || width < 0) return -1;
   return fullint_tc(width) ? 1 : 0;
 }
 

@@ -58,10 +58,10 @@ LN2 = float(np.log(2.0))
 # ways (overflow needs a score 64 above a true upper bound).
 ROW_MAX_SLACK = 64.0
 # The widths the flash kernels are built for: MLAConfig()'s latent 256 + 32
-# and DeepSeek-V2's absorbed 512 + 64 among them.  Any other head dim that is
-# a multiple of 16 up to 576 runs at the next one up (304 to 560 at 576)
-# with its Q/K/V/dO lanes zero-padded: zero lanes add nothing to S or O and
-# take no gradient.
+# and DeepSeek-V2's absorbed 512 + 64 among them.  Any other head dim from
+# 1 to 576 runs at the next one up (40 at 64, 72 at 128, 304 to 560 at
+# 576) with its Q/K/V/dO lanes zero-padded: zero lanes add nothing to S or
+# O and take no gradient; the softmax scale stays the true head dim's.
 FLASH_WIDTHS = (32, 64, 128, 256, 288, 576)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -271,12 +271,12 @@ def range_mask(row_ranges: torch.Tensor, seq_kv: int):
 
 def flash_width(d: int) -> int:
     """The kernel width a head dim ``d`` runs at (see ``FLASH_WIDTHS``)."""
-    if d % 16 == 0:
+    if d >= 1:
         for w in FLASH_WIDTHS:
             if d <= w:
                 return w
-    raise ValueError(f"head dim {d} has no flash kernel (multiples of 16 up "
-                     f"to {FLASH_WIDTHS[-1]})")
+    raise ValueError(f"head dim {d} has no flash kernel (1 to "
+                     f"{FLASH_WIDTHS[-1]})")
 
 
 def fwd_body(dtype: torch.dtype, d: int) -> str:

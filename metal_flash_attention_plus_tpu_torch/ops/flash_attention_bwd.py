@@ -42,8 +42,8 @@ disjoint outputs, so no atomics:
   run on the tensor cores (``fullint_dq_tc_kernel``,
   ``fullint_dkv_tc_kernel``: s8 mma.sync, bf16 or s8 for the output
   products) except at level-2 widths that are not multiples of 32
-  (:func:`fullint_body`), at head dims up to 288 (:func:`fullint_width`;
-  past it they raise, where the exact kernels run to 576).
+  (:func:`fullint_body`), at every head dim from 1 to 576, zero-padded to
+  :func:`~.quantized_attention.qattn_width` as the exact kernels are.
 
 D = rowsum(dO ⊙ O) is computed once in plain torch, in fp32 from the fp32
 O residual, and shared by both kernels (callers may pass it as ``di``).
@@ -99,8 +99,6 @@ from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     check_placement,
     pad_payload,
     pad_scales,
-    FULLINT_HEAD_DIMS,
-    HEAD_DIMS,
     qattn_width,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
@@ -131,7 +129,8 @@ _QFLASH_ARGS = ([_I32] + [_PTR] * 15 + [_I64, _I64] + [_PTR, _PTR]
                 + [_I32] * 14 + [_F32, _I32, _PTR, _PTR])
 # dq | Q, its scales, K, its ROW scales, V, dO (and scales), dOv (and
 # scales), L, D | two outputs | ints | store multiplier
-_FULLINT_ARGS = [_I32] + [_PTR] * 13 + [_I32] * 8 + [_F32, _PTR]
+_FULLINT_ARGS = [_I32] + [_PTR] * 13 + [_I32] * 8 + [_F32, _I32, _PTR,
+                                                     _PTR]
 # How the exact quantized kernels stage a K or V payload
 # (csrc/quantized_tiles.cuh::Dequant).
 DEQUANT = {"int": 0, "token": 1, "block2d": 2, "channel": 5}
@@ -858,19 +857,6 @@ def fullint_dkv_plain(qq, qsc, kq, ks, vq, dor, dorsc, dov, dovsc, lse, di,
 FULLINT_K_STEP = 32  # keys or queries of one s8 m16n8k32 k step
 
 
-def fullint_width(d: int) -> int:
-    """The kernel width the full-integer pair runs head dim ``d`` at: as
-    :func:`qattn_width` up to MLA's 288 (272 runs at 288).  Past 288 it
-    raises: the pair has no 576 instances, and a call there does not fall
-    back to the exact kernels, whose numerics differ."""
-    if d > FULLINT_HEAD_DIMS[-1]:
-        raise ValueError(
-            f"head dim {d}: the full-integer backward kernels stop at "
-            f"{FULLINT_HEAD_DIMS[-1]} (the exact ones run to {HEAD_DIMS[-1]}; "
-            "pass bwd_fullint=False)")
-    return qattn_width(d, FULLINT_HEAD_DIMS)
-
-
 def fullint_body(d: int, width: int) -> str:
     """Which kernels :func:`fullint_dq` and :func:`fullint_dkv` launch at
     head dim ``d`` and level-2 width ``width`` (0: level 1): "tensor_core"
@@ -882,10 +868,12 @@ def fullint_body(d: int, width: int) -> str:
     __dp4a and scalar fp32 FMAs) at the other widths, which
     :func:`fullint_widths` gives sequences that no power of two from 32
     divides (below 32, or 8 or 16 times an odd number: 48 at 336).  Both
-    pairs are built at every :func:`fullint_width`, MLA's 288 among them
-    (272 runs at 288); a head dim past 288 raises.  The C launcher routes
-    the same way (``mfa_fullint_tc_body``)."""
-    fullint_width(d)
+    pairs are built at every ``HEAD_DIMS`` width, MLA's 288 and DeepSeek's
+    absorbed 576 among them (at 576 in 32-row tiles), and run the other
+    head dims up to 576 zero-padded at :func:`qattn_width`; a head dim
+    past 576 raises.  The C launcher routes the same way
+    (``mfa_fullint_tc_body``)."""
+    qattn_width(d)
     if width < 0:
         raise ValueError(f"level-2 width {width} has no kernel")
     return "tensor_core" if width % FULLINT_K_STEP == 0 else "dp4a"
@@ -902,7 +890,7 @@ def _check_fullint(name, qq, qsc, kq, ks, vq, dos, lse, di, width):
                          "expected")
     b, hq, sq, d = qq.shape
     hkv, skv = kq.shape[1], kq.shape[2]
-    fullint_width(d)
+    qattn_width(d)
     if kq.shape[0] != b or hq % hkv or width < 0:
         raise ValueError(f"{name}: shapes {tuple(qq.shape)} / "
                          f"{tuple(kq.shape)}, width {width} have no kernel")
@@ -925,7 +913,8 @@ def _check_fullint(name, qq, qsc, kq, ks, vq, dos, lse, di, width):
 
 
 def _launch_fullint(name, dq, qq, qsc, kq, ks, vq, dor, dorsc, dov, dovsc,
-                    lse, di, out0, out1, width, store, interleaved_kv):
+                    lse, di, out0, out1, width, store, interleaved_kv,
+                    splits=1, ws=None):
     b, hq, sq, d = qq.shape
     hkv, skv = kq.shape[1], kq.shape[2]
     rc = _build.kernel_function("mfa_fullint_bwd", _FULLINT_ARGS)(
@@ -933,9 +922,23 @@ def _launch_fullint(name, dq, qq, qsc, kq, ks, vq, dor, dorsc, dov, dovsc,
         vq.data_ptr(), _ptr(dor), _ptr(dorsc), dov.data_ptr(),
         dovsc.data_ptr(), lse.data_ptr(), di.data_ptr(), out0.data_ptr(),
         _ptr(out1), b, hq, hkv, sq, skv, d, int(interleaved_kv), width,
-        store, stream_of(qq),
+        store, splits, _ptr(ws), stream_of(qq),
     )
     _build.check_launch(rc, name)
+
+
+def fullint_dkv_splits(d: int, batch: int, q_heads: int, kv_heads: int,
+                       kv_len: int, sms: int) -> int:
+    """How many CTAs share each (key tile, batch row, KV head) of the
+    full-integer dK/dV: at kernel width 576, whose 32-key CTAs walk their
+    q heads in series, :func:`dkv_splits`' plan for the latent bodies'
+    32-key tiles (DeepSeek-V2-Lite's training shape, batch 2, 16 q heads
+    over one latent head, 2048 keys: 8 splits of two heads); 1 at the
+    other widths."""
+    if qattn_width(d) != 576:
+        return 1
+    return dkv_splits(torch.bfloat16, d, batch, q_heads, kv_heads, kv_len,
+                      sms)
 
 
 def fullint_dq(
@@ -969,7 +972,7 @@ def fullint_dq(
     _check_fullint("fullint_dq", qq, qsc, kq, ks, vq, [(dov, dovsc)], lse,
                    di, width)
     d = qq.shape[3]
-    qq, kq, vq, dov = pad_lanes(fullint_width(d), qq, kq, vq, dov)
+    qq, kq, vq, dov = pad_lanes(qattn_width(d), qq, kq, vq, dov)
     dq = torch.empty(qq.shape, dtype=torch.float32, device=qq.device)
     _launch_fullint("fullint_dq", True, qq, qsc, kq, ks, vq, None, None, dov,
                     dovsc, lse, di, dq, None, width, store, interleaved_kv)
@@ -1001,21 +1004,32 @@ def fullint_dkv(
     summed over each KV head's group; ``dor`` / ``dorsc``: dO itself,
     per-token int8 and scales; ``store``: dK's multiplier; the rest as for
     :func:`fullint_dq`.  CPU tensors take :func:`fullint_dkv_plain`; CUDA
-    tensors launch the kernel :func:`fullint_body` names or raise."""
+    tensors launch the kernel :func:`fullint_body` names or raise.  Where
+    :func:`fullint_dkv_splits` deals the group over several CTAs a key
+    tile (width 576), they write fp32 partials (dK times ``store``) into a
+    workspace this call allocates, [splits, 2, B, Hkv, Skv, D], and
+    :func:`merge_dkv_splits` sums them in split order."""
     kw = dict(store=store, width=width, interleaved_kv=interleaved_kv)
     if qq.device.type == "cpu":
         return fullint_dkv_plain(qq, qsc, kq, ks, vq, dor, dorsc, dov, dovsc,
                                  lse, di, **kw)
     _check_fullint("fullint_dkv", qq, qsc, kq, ks, vq,
                    [(dor, dorsc), (dov, dovsc)], lse, di, width)
-    d = qq.shape[3]
-    qq, kq, vq, dor, dov = pad_lanes(fullint_width(d), qq, kq, vq, dor,
+    b, hq, _, d = qq.shape
+    hkv, skv = kq.shape[1], kq.shape[2]
+    qq, kq, vq, dor, dov = pad_lanes(qattn_width(d), qq, kq, vq, dor,
                                      dov)
     dk = torch.empty(kq.shape, dtype=torch.float32, device=kq.device)
     dv = torch.empty(kq.shape, dtype=torch.float32, device=kq.device)
+    splits = fullint_dkv_splits(d, b, hq, hkv, skv, _sm_count(qq.device))
+    ws = (torch.empty((splits, 2) + tuple(kq.shape), dtype=torch.float32,
+                      device=kq.device) if splits > 1 else None)
     _launch_fullint("fullint_dkv", False, qq, qsc, kq, ks, vq, dor, dorsc,
-                    dov, dovsc, lse, di, dk, dv, width, store, interleaved_kv)
+                    dov, dovsc, lse, di, dk, dv, width, store, interleaved_kv,
+                    splits, ws)
     fullint_dkv.launches += 1
+    if ws is not None:
+        merge_dkv_splits(ws, dk, dv)
     if dk.shape[3] != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv

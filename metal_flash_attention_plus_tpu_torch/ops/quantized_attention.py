@@ -110,29 +110,27 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
 LOG2_127 = float(np.log2(127.0))
 LN_127 = float(np.log(127.0))
 KV_TILE = 64  # the kernels' query rows and keys per tile (BM, BN)
-# The head dims the quantized forward and exact backward are built for,
+# The head dims the quantized forward and both backwards are built for,
 # MLA's 288 (a 256 latent + 32 RoPE lanes) and DeepSeek's absorbed 576 (a
-# 512 latent + 64 RoPE lanes) among them; other multiples of 16 up to 576
-# run zero-padded to the next (:func:`qattn_width`: 272 at 288, 304 to 560
-# at 576).  Wider heads have no kernel.  The full-integer backward stops
-# at 288 (``FULLINT_HEAD_DIMS``).
+# 512 latent + 64 RoPE lanes) among them; every other head dim from 1 to
+# 576 runs zero-padded to the next (:func:`qattn_width`: 40 at 64, 72 at
+# 128, 272 at 288, 304 to 560 at 576; an int4 payload needs an even one).
+# Wider heads have no kernel.
 HEAD_DIMS = (32, 64, 128, 256, 288, 576)
-FULLINT_HEAD_DIMS = HEAD_DIMS[:-1]
 
 
 def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
-def qattn_width(d: int, widths: Tuple[int, ...] = HEAD_DIMS) -> int:
-    """The kernel width a head dim ``d`` runs at (see ``HEAD_DIMS``; the
-    full-integer pair passes ``FULLINT_HEAD_DIMS``)."""
-    if d % 16 == 0:
-        for w in widths:
+def qattn_width(d: int) -> int:
+    """The kernel width a head dim ``d`` runs at (see ``HEAD_DIMS``)."""
+    if d >= 1:
+        for w in HEAD_DIMS:
             if d <= w:
                 return w
-    raise ValueError(f"head dim {d} has no quantized kernel (multiples of "
-                     f"16 up to {widths[-1]})")
+    raise ValueError(f"head dim {d} has no quantized kernel (1 to "
+                     f"{HEAD_DIMS[-1]})")
 
 
 def pad_payload(t: torch.Tensor, bits: int, d: int,
@@ -348,6 +346,9 @@ def qattn_fwd_plain(
 
 
 def _check_payload(name, t, bits, b, hkv, skv, d):
+    if bits == 4 and d % 2:
+        raise ValueError(f"{name}: an int4 payload needs an even head dim, "
+                         f"got {d}")
     want = (torch.int8, (b, hkv, skv, d)) if bits == 8 else (
         torch.uint8, (b, hkv, skv, d // 2))
     if (t.dtype, tuple(t.shape)) != want:

@@ -25,8 +25,12 @@ S_sub is ``page rows // page_tokens`` (``page_tokens`` defaults to the page
 rows: S_sub = 1).  ``v_tail_zero``: V reads K's rows with its last
 ``v_tail_zero`` lanes set to 0 (the rope tail of an MLA latent state).
 The int4 pool takes neither S_sub = 2 nor ``v_tail_zero``, as in JAX.  The
-kernels take any head dim that is a multiple of 16 up to 576 (DeepSeek's
-absorbed MLA width, 512 + 64); a CUDA tensor of a wider head dim raises.
+kernels take any head dim from 1 to 576 (DeepSeek's absorbed MLA width,
+512 + 64); a CUDA tensor of a wider head dim raises.  The pool keeps its
+layout and bytes at every head dim: the kernels read its rows as they lie
+(whose bytes need not be whole 16-byte chunks) and zero the staged lanes
+up to the next multiple of 16; the wrappers zero-pad q to that width and
+cut O back (the scale stays the true head dim's).
 
 Numerics shared by kernels and plain versions: q is pre-scaled and rounded
 back to its dtype, ``(q.f32 · scale).to(q.dtype)``; scores, softmax
@@ -61,7 +65,7 @@ from metal_flash_attention_plus_tpu_torch import _build
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 576  # the kernels take multiples of 16 up to this
+_MAX_HEAD_DIM = 576  # the kernels take head dims from 1 up to this
 # Pool modes of the kernels: float, int8 halves, int4 shared byte.
 _MODE_FLOAT, _MODE_INT8, _MODE_INT4 = 0, 1, 2
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -168,11 +172,17 @@ def _check_cuda_inputs(name, q, kv_pages, ints, mode, scales, pt):
 
 
 def check_head_dim(name: str, d: int):
-    """Raise ``ValueError`` unless the kernels take head dim ``d``: a
-    multiple of 16 up to 576."""
-    if d % 16 or not 0 < d <= _MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} has no kernel (multiples "
-                         f"of 16 up to {_MAX_HEAD_DIM})")
+    """Raise ``ValueError`` unless the kernels take head dim ``d``: 1 to
+    576."""
+    if not 0 < d <= _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} has no kernel (1 to "
+                         f"{_MAX_HEAD_DIM})")
+
+
+def _lane_width(d: int) -> int:
+    """The lanes a kernel computes for head dim ``d``: the next multiple
+    of 16 (q's and O's rows on the card)."""
+    return -(-d // 16) * 16
 
 
 def _default_scale(d: int, scale: Optional[float]) -> float:
@@ -336,15 +346,17 @@ def paged_decode_attention(
     if page_table.shape[0] != b or lengths.shape != (b,):
         raise ValueError("paged_decode: page_table [B, MP] / lengths [B] "
                          "do not match q's batch")
-    out = torch.empty_like(q)
+    dl = _lane_width(d)
+    qk = torch.nn.functional.pad(q, (0, dl - d)) if dl != d else q
+    out = torch.empty_like(qk)
     scale_ptrs = [t.data_ptr() for t in scales] or [None, None]
     max_pages = page_table.shape[1]
     splits = decode_splits(b, hkv, hq // hkv, max_pages * pt,
                            _sm_count(q.device.index or 0))
-    ws = (torch.empty((b, hq, splits, d + 2), dtype=torch.float32,
+    ws = (torch.empty((b, hq, splits, dl + 2), dtype=torch.float32,
                       device=q.device) if splits > 1 else None)
     rc = _build.kernel_function("mfa_paged_decode", _DECODE_ARGS)(
-        q.data_ptr(), kv_pages.data_ptr(), *scale_ptrs,
+        qk.data_ptr(), kv_pages.data_ptr(), *scale_ptrs,
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[q.dtype], mode, b, hq, hkv, d, num_pages_total, pt,
         s_sub, v_tail_zero, max_pages, _default_scale(d, scale), splits,
@@ -353,7 +365,7 @@ def paged_decode_attention(
     )
     _build.check_launch(rc, "paged_decode")
     paged_decode_attention.launches += 1
-    return out
+    return out if dl == d else out[..., :d].contiguous()
 
 
 paged_decode_attention.launches = 0
@@ -455,10 +467,12 @@ def paged_prefill_attention(
     offset = int(offset)
     if offset < 0:
         raise ValueError(f"paged_prefill: offset {offset} < 0")
-    out = torch.empty_like(q)
+    dl = _lane_width(d)
+    qk = torch.nn.functional.pad(q, (0, dl - d)) if dl != d else q
+    out = torch.empty_like(qk)
     scale_ptrs = [t.data_ptr() for t in scales] or [None, None]
     rc = _build.kernel_function("mfa_paged_prefill", _PREFILL_ARGS)(
-        q.data_ptr(), kv_pages.data_ptr(), *scale_ptrs,
+        qk.data_ptr(), kv_pages.data_ptr(), *scale_ptrs,
         page_row.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], mode, hq,
         hkv, chunk, d, num_pages_total, pt, s_sub, v_tail_zero,
         page_row.shape[0], offset, _default_scale(d, scale),
@@ -466,7 +480,7 @@ def paged_prefill_attention(
     )
     _build.check_launch(rc, "paged_prefill")
     paged_prefill_attention.launches += 1
-    return out
+    return out if dl == d else out[..., :d].contiguous()
 
 
 paged_prefill_attention.launches = 0

@@ -51,7 +51,8 @@ ENTRY_KERNELS: Dict[str, Tuple[str, ...]] = {
                        "qflash_dkv_tc_kernel", "qflash_dkv_wide_kernel",
                        "qflash_dkv_latent_kernel", "qflash_dkv_kernel"),
     "mfa_fullint_bwd": ("fullint_dq_tc_kernel", "fullint_dq_kernel",
-                        "fullint_dkv_tc_kernel", "fullint_dkv_kernel"),
+                        "fullint_dq32_kernel", "fullint_dkv_tc_kernel",
+                        "fullint_dkv_kernel", "fullint_dkv32_kernel"),
     "mfa_dyn_gemm": ("dyn_tc_kernel",),
     "mfa_wo_folded_gemm": ("wo_tc_kernel", "wo_kernel", "wo_reduce_kernel"),
     "mfa_wo_gemm": ("wo_tc_kernel", "wo_kernel", "wo_reduce_kernel"),

@@ -314,7 +314,10 @@ def test_kernel_widths_and_zero_padded_lanes():
     assert [tfa.flash_width(d) for d in (16, 48, 64, 80, 96, 272, 288, 304,
                                          320, 560, 576)] == [
         32, 64, 64, 128, 128, 288, 288, 576, 576, 576, 576]
-    for d in (40, 584, 592, 1152):
+    # Head dims off the multiples of 16 run at the next width too.
+    assert [tfa.flash_width(d) for d in (1, 8, 20, 33, 40, 72, 300, 575)] == [
+        32, 32, 32, 64, 64, 128, 576, 576]
+    for d in (0, 584, 592, 1152):
         with pytest.raises(ValueError, match="has no flash kernel"):
             tfa.flash_width(d)
     q, k, v, do, _ = _inputs("window_causal_rect", seed=2)

@@ -140,7 +140,10 @@ def _inputs(rng, hkv, num_pages, pt, d, lengths, max_pages):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "hq,hkv,d,pt",
-    [(4, 2, 32, 16), (16, 4, 64, 256), (8, 2, 128, 64), (2, 2, 64, 48)],
+    [(4, 2, 32, 16), (16, 4, 64, 256), (8, 2, 128, 64), (2, 2, 64, 48),
+     # Head dims off the multiples of 16: rows of 8, 4 or 2 bytes' copies.
+     (4, 2, 8, 16), (4, 2, 20, 16), (8, 2, 24, 64), (4, 2, 33, 16),
+     (8, 1, 40, 64), (16, 1, 72, 256), (4, 2, 300, 16)],
 )
 def test_decode_kernel_matches_plain(cuda_device, dtype, hq, hkv, d, pt):
     rng = np.random.default_rng(0)
@@ -174,6 +177,13 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, hq, hkv, d, pt):
         (16, 4, 64, 256, 256, 300),
         (8, 2, 128, 64, 48, 70),
         (2, 2, 64, 48, 40, 100),  # group 1, pages not a multiple of 64
+        # Head dims off the multiples of 16.
+        (4, 2, 8, 16, 8, 21),
+        (4, 2, 20, 16, 8, 16),
+        (8, 2, 24, 64, 48, 70),
+        (4, 2, 33, 16, 8, 21),
+        (8, 1, 40, 256, 256, 300),
+        (16, 1, 72, 256, 256, 512),
     ],
 )
 def test_prefill_kernel_matches_plain(cuda_device, dtype, hq, hkv, d, pt,
@@ -197,12 +207,23 @@ def test_prefill_kernel_matches_plain(cuda_device, dtype, hq, hkv, d, pt,
 
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_head_dim(cuda_device):
-    q = torch.zeros(1, 2, 40, device=cuda_device)  # not a multiple of 16
-    pool = torch.zeros(1, 2, 32, 40, device=cuda_device)
+    """40 (not a multiple of 16) runs: one launch, the plain version's
+    output, the pool untouched; a head dim of 0 has no kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(40)
+    q = torch.randn(1, 2, 40, device=cuda_device, generator=g)
+    pool = torch.randn(1, 2, 32, 40, device=cuda_device, generator=g)
     table = torch.zeros(1, 1, dtype=torch.int32, device=cuda_device)
-    lengths = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    lengths = torch.full((1,), 16, dtype=torch.int32, device=cuda_device)
+    before = pool.clone()
+    n = paged_decode_attention.launches
+    out = paged_decode_attention(q, pool, table, lengths)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == n + 1
+    ref = paged_decode_attention_plain(q, pool, table, lengths)
+    assert out.shape == (1, 2, 40) and torch.equal(pool, before)
+    assert (out - ref).abs().max().item() <= _tol(torch.float32)
     with pytest.raises(ValueError):
-        paged_decode_attention(q, pool, table, lengths)
+        paged_decode_attention(q[..., :0], pool[..., :0], table, lengths)
 
 
 @pytest.mark.cuda
@@ -355,10 +376,13 @@ def test_flash_kernels_match_plain(cuda_device, dtype, interleaved, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 48, 64, 80, 128, 256, 288, 320, 576])
+@pytest.mark.parametrize("d", [32, 48, 64, 80, 128, 256, 288, 320, 576,
+                               8, 20, 24, 33, 40, 72, 300])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_every_head_dim(cuda_device, d, dtype):
-    """Each built width, 48 (run at 64, zero-padded) and 320 (at 576)."""
+    """Each built width, 48 (run at 64, zero-padded) and 320 (at 576); the
+    head dims off the multiples of 16 (8 and 20 at 32, 33 and 40 at 64, 72
+    at 128, 300 at 576)."""
     (q, k, v), do, _, rr = _flash_case(cuda_device, dtype, 1, 4, 1, 150, 150,
                                        d, masking.CAUSAL, seed=d)
     kw = dict(scale=d ** -0.5)
@@ -740,7 +764,10 @@ def _quantized_pool(rng, bits, hkv, num_pages, pt, d, device):
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d,pt", [(4, 2, 32, 16), (16, 4, 64, 256),
-                                         (8, 2, 128, 64)])
+                                         (8, 2, 128, 64),
+                                         # off the multiples of 16
+                                         (4, 2, 8, 16), (4, 2, 20, 16),
+                                         (8, 1, 40, 64), (16, 1, 72, 256)])
 def test_decode_kernel_quantized_modes_match_plain(cuda_device, bits, dtype,
                                                    hq, hkv, d, pt):
     rng = np.random.default_rng(bits)
@@ -956,6 +983,14 @@ QATTN_CASES = {
     # Head dims outside HEAD_DIMS, zero-padded to the next built width.
     "quantize_q_d80": (1, 4, 2, 128, 128, 80, ROW8, ROW8, BF16,
                        masking.CAUSAL, QQ),
+    "folded_row_d40": (1, 8, 1, 150, 150, 40, ROW8, ROW8, BF16,
+                       masking.CAUSAL, {}),
+    "dequant_row4c_d72": (1, 4, 2, 130, 130, 72, ROW4C, ROW4C, BF16,
+                          masking.CAUSAL, {}),
+    "quantize_q_d33": (1, 4, 2, 128, 128, 33, ROW8, ROW8, BF16,
+                       masking.CAUSAL, QQ),
+    "dequant_row8c_d20_f32": (1, 4, 2, 100, 100, 20, ROW8C, ROW8C, F32,
+                              masking.CAUSAL, {}),
     "int8_pv_channel_d96": (1, 4, 2, 160, 160, 96, ROW8, CH8, BF16,
                             masking.CAUSAL, QQ),
     "dequant_row4c_d96_f32": (1, 4, 2, 130, 130, 96, ROW4C, ROW4C, F32,
@@ -1248,6 +1283,12 @@ QBWD_CASES = {
     # Head dims outside HEAD_DIMS, zero-padded to the next built width.
     "d80_dequant_row8c_f32": (1, 4, 2, 128, 128, 80, ROW8C, ROW8C, F32,
                               masking.CAUSAL, {}),
+    "d40_folded_row": (1, 8, 1, 150, 150, 40, ROW8, ROW8, BF16,
+                       masking.CAUSAL, {}),
+    "d72_dequant_row4c": (1, 4, 2, 130, 130, 72, ROW4C, ROW4C, BF16,
+                          masking.CAUSAL, {}),
+    "d33_dequant_row8c_f32": (1, 4, 2, 100, 100, 33, ROW8C, ROW8C, F32,
+                              masking.CAUSAL, {}),
     "d96_dequant_row4c": (1, 4, 2, 130, 130, 96, ROW4C, ROW4C, BF16,
                           masking.CAUSAL, {}),
     "d96_folded_channel": (1, 4, 2, 128, 128, 96, CH8, CH4, BF16,
@@ -1432,6 +1473,24 @@ FULLINT_CASES = {
                                  True),
     "d288_l1_sq_ne_skv": (1, 4, 2, (100, 200), 288, ROW8, CH8, None, False),
     "d288_w16_l2": (1, 4, 2, 144, 288, ROW8, CH8, 512, False),
+    # Head dims off the multiples of 16, at 64 and 128.
+    "d40_l1": (1, 8, 1, 192, 40, ROW8, CH8, None, False),
+    "d40_l2_w64": (1, 8, 1, 192, 40, ROW8, CH8, 512, False),
+    "d72_l1": (1, 4, 2, 256, 72, TEN8, TEN8, None, False),
+    "d72_l2_w128": (1, 4, 2, 256, 72, ROW8, CH8, 128, False),
+    # DeepSeek's absorbed 576 (32-row tiles, four warp groups), both
+    # levels; the level-2 spans of one 32-key step, of two tiles and below
+    # one k step (the 32-row __dp4a pair); 16 q heads over one latent head
+    # (the dK/dV's group split and merge); 560 at 576.
+    "d576_l1": (1, 4, 1, 256, 576, ROW8, CH8, None, False),
+    "d576_l2_w128": (1, 4, 1, 256, 576, ROW8, CH8, 128, False),
+    "d576_l2_w32": (1, 4, 2, 160, 576, ROW8, TEN8, 512, False),
+    "d576_w16_l2": (1, 4, 1, 144, 576, ROW8, CH8, 512, False),
+    "d576_gqa16_l1": (2, 16, 1, 256, 576, ROW8, CH8, None, False),
+    "d576_gqa16_l2_w128": (2, 16, 1, 256, 576, ROW8, CH8, 128, False),
+    "d576_gqa16_w8_l2": (1, 16, 1, 200, 576, TEN8, CH8, 512, True),
+    "d576_l1_sq_ne_skv": (1, 4, 2, (100, 200), 576, ROW8, CH8, None, False),
+    "d560_l1": (1, 4, 1, 128, 560, ROW8, CH8, None, False),
 }
 
 
@@ -1484,13 +1543,13 @@ def test_fullint_kernels_route_as_the_python_bodies_say(cuda_device):
 
     body = _build.kernel_function("mfa_fullint_tc_body",
                                   [ctypes.c_int, ctypes.c_int])
-    for d in (32, 64, 128, 256, 288):
+    for d in (32, 64, 128, 256, 288, 576, 8, 40, 72, 300):
         for width in range(4097):
             want = fbwd.fullint_body(d, width) == "tensor_core"
             assert body(d, width) == int(want), (d, width)
             assert want == (width % 32 == 0)
-    assert body(48, 0) == -1 and body(64, -1) == -1
-    assert body(576, 0) == -1
+    assert body(0, 0) == -1 and body(64, -1) == -1
+    assert body(592, 0) == -1
 
 
 @pytest.mark.cuda
@@ -1645,8 +1704,9 @@ def test_latent_quantized_kernels_repeat_bit_for_bit(cuda_device, d):
 @pytest.mark.cuda
 def test_quantized_kernels_past_576_and_fullint_past_288_raise(cuda_device):
     """At 592 the quantized forward and exact backward raise on a CUDA
-    tensor; the full-integer pair raises past 288 (at 576, on operands it
-    would take at 288) and names its limit; nothing launches."""
+    tensor and launch nothing; the full-integer pair runs at 576 (where it
+    raised before its 576 instances): one dQ, one dK/dV launch, the plain
+    versions' results."""
     q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 64, 64, 592, ROW8C,
                               ROW8C, BF16)
     n = qa.qattn_fwd.launches
@@ -1662,11 +1722,15 @@ def test_quantized_kernels_past_576_and_fullint_past_288_raise(cuda_device):
                                                   torch.ones_like(q),
                                                   scale=576 ** -0.5)
     n = (fbwd.fullint_dq.launches, fbwd.fullint_dkv.launches)
-    for call in (lambda: fbwd.fullint_dq(*fa, **fkw),
-                 lambda: fbwd.fullint_dkv(*ka, **kkw)):
-        with pytest.raises(ValueError, match="stop at 288"):
-            call()
-    assert (fbwd.fullint_dq.launches, fbwd.fullint_dkv.launches) == n
+    dq = fbwd.fullint_dq(*fa, **fkw)
+    dk, dv = fbwd.fullint_dkv(*ka, **kkw)
+    torch.cuda.synchronize()
+    assert (fbwd.fullint_dq.launches, fbwd.fullint_dkv.launches) == (
+        n[0] + 1, n[1] + 1)
+    dk_ref, dv_ref = fbwd.fullint_dkv_plain(*ka, **kkw)
+    for got, want in ((dq, fbwd.fullint_dq_plain(*fa, **fkw)), (dk, dk_ref),
+                      (dv, dv_ref)):
+        assert _rel(got, want) <= BF16_TOL
 
 
 @pytest.mark.cuda
@@ -1874,7 +1938,7 @@ def test_runtime_quantize_through_the_kernels(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool_kind", ["bf16", "f32", "int8"])
 @pytest.mark.parametrize("d,vtz", [(288, 32), (80, 16), (576, 64),
-                                   (320, 64)])
+                                   (320, 64), (24, 8), (72, 8), (33, 1)])
 @pytest.mark.parametrize("kernel", ["decode", "prefill"])
 def test_latent_paged_kernels_match_plain(cuda_device, kernel, d, vtz,
                                           pool_kind):
@@ -2102,7 +2166,8 @@ def test_paged_kernels_route_as_the_python_bodies_say(cuda_device):
 
     bodies = _build.kernel_function("mfa_paged_bodies", [ctypes.c_int] * 4)
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (32, 64, 80, 128, 256, 272, 288, 304, 320, 512, 528, 576):
+        for d in (32, 64, 80, 128, 256, 272, 288, 304, 320, 512, 528, 576,
+                  8, 20, 33, 40, 72, 300, 520):
             for states in (1, 2):
                 for vtz in (0, 16, 32, 64):
                     if vtz >= d:
@@ -2112,7 +2177,7 @@ def test_paged_kernels_route_as_the_python_bodies_say(cuda_device):
                         prefill_body(dtype, d, states, vtz)
                         == "tensor_core") << 1
                     assert bits == want, (dtype, d, states, vtz)
-    assert bodies(_DTYPE_CODES[torch.bfloat16], 40, 2, 0) == -1
+    assert bodies(_DTYPE_CODES[torch.bfloat16], 0, 2, 0) == -1
     assert bodies(_DTYPE_CODES[torch.bfloat16], 592, 1, 64) == -1
 
 

@@ -234,14 +234,22 @@ def test_prefill_routing_rule(dtype, d, states, vtz, want):
 
 @pytest.mark.parametrize("d", [592, 1024, 40])
 def test_head_dim_without_a_kernel_raises(d):
-    """Past 576 (DeepSeek's absorbed width), or not a multiple of 16, no
-    kernel takes the head dim: the routing raises, as the CUDA wrappers
-    do before they launch."""
-    with pytest.raises(ValueError, match="has no kernel"):
+    """Past 576 (DeepSeek's absorbed width), or below 1, no kernel takes
+    the head dim: the routing raises, as the CUDA wrappers do before they
+    launch.  Every head dim from 1 to 576 has one: 40 (Stable Diffusion
+    1.5's first UNet level) takes the tensor-core prefill in bf16."""
+    if d > 576:
+        with pytest.raises(ValueError, match="has no kernel"):
+            check_head_dim("paged_decode", d)
+        with pytest.raises(ValueError, match="has no kernel"):
+            prefill_body(torch.bfloat16, d, 1, 0)
+    else:
         check_head_dim("paged_decode", d)
+        assert prefill_body(torch.bfloat16, d, 1, 0) == "tensor_core"
     with pytest.raises(ValueError, match="has no kernel"):
-        prefill_body(torch.bfloat16, d, 1, 0)
-    check_head_dim("paged_decode", 576)
+        check_head_dim("paged_decode", 0)
+    for ok in (1, 8, 33, 72, 575, 576):
+        check_head_dim("paged_decode", ok)
 
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),

@@ -294,6 +294,11 @@ def test_kernel_width_padding_of_untiled_blocks_and_widths():
             tqa.qattn_width(d)
     assert [tqa.qattn_width(d) for d in (16, 48, 64, 80, 96, 144, 256)] == [
         32, 64, 64, 128, 128, 256, 256]
+    # Head dims off the multiples of 16 run at the next width too.
+    assert [tqa.qattn_width(d) for d in (1, 8, 20, 33, 40, 72, 300)] == [
+        32, 32, 32, 64, 64, 128, 576]
+    with pytest.raises(ValueError):
+        tqa.qattn_width(0)
 
 
 @pytest.mark.parametrize("d", [64, 256, 272, 288, 320, 512, 576])

@@ -322,8 +322,8 @@ def test_fullint_body_follows_the_level_2_width(d):
     """The full-integer pair runs on the tensor cores at level 1 and at
     widths of whole s8 k steps (multiples of 32), on the scalar kernels at
     the widths ``fullint_widths`` gives other sequences (S=200: 8, S=336:
-    48, S=129: 1), at every head dim up to MLA's 288 (272 runs at 288),
-    and has no kernel for a negative width or a head dim past 288."""
+    48, S=129: 1), at every head dim up to DeepSeek's 576 (272 runs at
+    288), and has no kernel for a negative width or a head dim past 576."""
     bs = tbwd.BlockSizes()
     for s, want in ((4096, "tensor_core"), (256, "tensor_core"),
                     (160, "tensor_core"), (288, "tensor_core"),
@@ -336,7 +336,8 @@ def test_fullint_body_follows_the_level_2_width(d):
     with pytest.raises(ValueError):
         tbwd.fullint_body(d, -1)
     with pytest.raises(ValueError):
-        tbwd.fullint_body(304, 0)
+        tbwd.fullint_body(592, 0)
+    assert tbwd.fullint_body(304, 0) == "tensor_core"
 
 
 @pytest.mark.parametrize("d,level", [(288, None), (288, "2"), (272, None)])
@@ -367,29 +368,23 @@ def test_wide_widths_route_to_the_wide_bodies(d):
     scalar ones, and the dK/dV's GQA group split over CTAs at the training
     shape (16 q heads over one latent head, 2048 keys, 132 SMs: 16 splits
     of the 64-key tiles at 288, 8 of the 32-key ones at 576); the
-    full-integer pair at both levels up to 288, and past it none (it does
-    not fall back to the exact kernels); past 576 no kernel at all."""
+    full-integer pair at both levels at the same widths (its dK/dV's group
+    split at 576 only: 8 splits there); past 576 no kernel at all."""
     w = 288 if d <= 288 else 576
     assert tqa.qattn_width(d) == w
     for body in (tbwd.dq_body, tbwd.dkv_body):
         assert body(torch.bfloat16, d) == "tensor_core"
         assert body(torch.float32, d) == "fp32_fma"
-    if w == 288:
-        assert tbwd.fullint_body(d, 0) == tbwd.fullint_body(d, 128) == (
-            "tensor_core")
-        assert tbwd.fullint_body(d, 16) == "dp4a"
-        assert tbwd.fullint_width(d) == 288
-    else:
-        for width in (0, 128):
-            with pytest.raises(ValueError, match="stop at 288"):
-                tbwd.fullint_body(d, width)
-        with pytest.raises(ValueError, match="stop at 288"):
-            tbwd.fullint_width(d)
+    assert tbwd.fullint_body(d, 0) == tbwd.fullint_body(d, 128) == (
+        "tensor_core")
+    assert tbwd.fullint_body(d, 16) == "dp4a"
+    assert tbwd.fullint_dkv_splits(d, 2, 16, 1, 2048, 132) == (
+        1 if w == 288 else 8)
     assert tbwd.dkv_splits(torch.bfloat16, d, 2, 16, 1, 2048, 132) == (
         16 if w == 288 else 8)
     assert tbwd.dkv_splits(torch.float32, d, 2, 16, 1, 2048, 132) == 1
     with pytest.raises(ValueError):
-        tbwd.fullint_body(304, 0)
+        tbwd.fullint_body(592, 0)
     with pytest.raises(ValueError):
         tqa.qattn_width(592)
 
