@@ -397,7 +397,31 @@ checkout, then, on the card:
    cotangents within 0.05 rel L2 of the dense fp32 VJP, a second call bit
    for bit, each kernel against its plain version, the profiler's kernel
    names, the pair's times beside its bound, plain version and SDPA's
-   MATH backward; then the paged kernels' times at 40 and 72.
+   MATH backward; then the paged kernels' times at 40 and 72;
+24. the flash trio and the paged pair above 576, on the split-D kernels
+   (``csrc/split_d_attention.cu``: O's lanes split over CTAs, 256 a CTA;
+   inputs from an eighteenth generator, seed + 23): (a) at D = 580 (run
+   at 592), 608, 640, 1024 and 1152, and once at 2048, the forward (both
+   modes), dQ with dbias and dK/dV (its merge) in bf16 and fp32 under a
+   causal group of 16 over one head, an interleaved causal window of 4
+   over 2, and at 640 a bias and sparse rows, at 1024 a full mask, each
+   twice, bit for bit, at the flash gates of the plain versions; the
+   paged decode and prefill at each width (and 1088) over fp32, bf16,
+   int8 and int4 pools and latent pages (64 zeroed V lanes at 640 and
+   1088); one ``flash_attention`` forward and backward (one forward, dQ,
+   dK/dV and merge) and one decode (its split kernel and merge) counted;
+   (b) the trio at B=2, Hq=16 over one head, S=2048, causal, bf16 at
+   D = 640 and 1024, the paged pair over latent pages at the engine's
+   decode lengths and the 256-row chunk at offset 512, and the forward at
+   Perceiver IO's image cross-attention (B=1, one head, 512 latents over
+   50,176 inputs, D=1024), each beside its bound, plain version and SDPA
+   (its backend named); (c) a ``TransformerConfig`` with 8 query heads of
+   640 over 2 KV heads at the flagship's other widths, depth cut to 2
+   layers: the cached logits within 5e-2 rel L2 of the fp32 forward,
+   phase 5's 8 requests served on the split-D paged kernels (counted),
+   the fp32 gradients within 1e-3 of plain attention's, 4 train steps
+   (one forward, dQ and dK/dV a layer a step, counted) and a rerun of them
+   equal bit for bit.
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -1114,7 +1138,7 @@ def check_paged_fp32(seed):
         errs[f"prefill {geom} {kind}"] = max_abs(
             out, paged_prefill_attention_plain(qp, pool, row, offset, **kw))
     log("paged kernels, fp32 q, max abs err (tol "
-        f"{tol}; bodies {decode_body(torch.float32)} / "
+        f"{tol}; bodies {decode_body(torch.float32, 64)} / "
         f"{prefill_body(torch.float32, 64, 2, 0)}): " + json.dumps(errs))
     bad = {k: v for k, v in errs.items() if not v <= tol}
     if bad:
@@ -6230,7 +6254,7 @@ def check_deepseek_paged(rng):
                         f"paged {label}: max abs {errs[label]} (tol {tol}), "
                         f"rope-tail max {tail}, two calls equal: {same}")
             bodies[f"{geom} {kind}"] = {
-                "decode": decode_body(dtype),
+                "decode": decode_body(dtype, d),
                 "prefill": prefill_body(dtype, d, states, vtz)}
     log(f"paged kernels at DeepSeek's geometry, {len(errs)} checks, each "
         "called twice and equal bit for bit, max abs err (tol "
@@ -6934,18 +6958,18 @@ FULLINT_576_REDESIGNED = {
 }
 
 
-def check_paged_width(rng, d):
+def check_paged_width(rng, d, vtz=None):
     """(a) Both paged kernels at head dim ``d`` over two-state fp32, bf16,
     int8 and int4 pools (Hq=8 over Hkv=2) and one-state latent pages with
-    a zeroed V tail (bf16 and int8, Hq=16 over one head), each called
-    twice: equal bit for bit, held to the plain version (max abs ≤
-    KERNEL_TOL, TOLERANCES["fp32"] for fp32), V's zeroed tail zero, the
-    pool unchanged.  → {label: max abs err}."""
+    a zeroed V tail of ``vtz`` lanes (default d / 8; bf16 and int8, Hq=16
+    over one head), each called twice: equal bit for bit, held to the
+    plain version (max abs ≤ KERNEL_TOL, TOLERANCES["fp32"] for fp32), V's
+    zeroed tail zero, the pool unchanged.  → {label: max abs err}."""
     gen = device_generator(rng)
     pt, num_pages, max_pages, chunk, offset = 16, 40, 8, 48, 37
     lengths = np.asarray([1, pt, pt + 1, 3 * pt + 5, 7 * pt], np.int32)
     ln = torch.from_numpy(lengths).to(DEV)
-    vtz = max(1, d // 8)
+    vtz = vtz or max(1, d // 8)
     errs = {}
     for kind, states, hq, hkv, tail in (
             ("f32", 2, 8, 2, 0), ("bf16", 2, 8, 2, 0), ("int8", 2, 8, 2, 0),
@@ -7297,6 +7321,318 @@ def run_width_faults(seed, dec_lens):
     return out, phase
 
 
+# --------------------------------------------------------------------------
+# Phase 24: the flash trio and the paged pair above 576 (split-D kernels)
+# --------------------------------------------------------------------------
+
+SPLIT_D_SOURCE = ("metal_flash_attention_plus_tpu_torch/csrc/"
+                  "split_d_attention.cu")
+# (a)'s widths: 580 (run at 592, zero-padded), 608, 640, 1024 and 1152;
+# (b)'s: 640 and 1024.
+SPLIT_D_DIMS = (580, 608, 640, 1024, 1152)
+SPLIT_D_TIMED = (640, 1024)
+SPLIT_D_KERNELS = {"flash_fwd": "split_d_fwd_kernel",
+                   "flash_dq": "split_d_dq_kernel",
+                   "flash_dkv": "split_d_dkv_kernel",
+                   "paged_decode": "split_d_decode_kernel",
+                   "paged_prefill": "split_d_prefill_kernel"}
+SPLIT_D_REPLACES = {"flash_fwd": f"{FLASH_TPU}:546",
+                    "flash_dq": f"{FLASH_BWD_TPU}:77",
+                    "flash_dkv": f"{FLASH_BWD_TPU}:954",
+                    "paged_decode": f"{TPU_FILE}:209",
+                    "paged_prefill": f"{TPU_FILE}:306"}
+SPLIT_D_DESIGN = (
+    "O's (dQ's, dK's and dV's) lanes split over CTAs, 256 a CTA; the "
+    "scores summed over the whole head dim in 32-lane chunks through two "
+    "shared-memory buffers; P applied to the CTA's slice, staged 128 lanes "
+    "at a time; scalar fp32 FMAs for bf16 and fp32 alike; the scores "
+    "recomputed once a slice")
+# Perceiver IO's image cross-attention (deepmind/vision-perceiver-*,
+# Hugging Face PerceiverConfig: 512 latents of d_latents 1024 over one
+# cross-attention head, attending to 224 x 224 inputs): B, H, Sq, Skv, D.
+PERCEIVER = (1, 1, 512, 224 * 224, 1024)
+# (c)'s model: the flagship's widths with 8 query heads of 640 over 2 KV
+# heads; depth cut to 2 layers.
+SPLIT_D_CFG = TransformerConfig(num_layers=2, num_heads=8, num_kv_heads=2,
+                                head_dim=640)
+SPLIT_D_TRAIN_STEPS = 4
+
+
+def split_d_cases():
+    """(label, B, Hq, Hkv, Sq, Skv, D, options) of (a): at every width a
+    group of 16 over one head (causal) and 4 over 2 interleaved under a
+    causal window (row ranges starting mid-tile); at 640 a bias with dbias
+    over an odd Skv and sparse rows with an empty one; at 1024 a full mask
+    over Skv > Sq; one small case at 2048.  The forward's static-max mode
+    runs in every case without a bias (check_latent)."""
+    seg = masking.build_segment_ranges(np.repeat(np.arange(4), 50))
+    seg[77] = (10, 10)
+    cases = []
+    for d in SPLIT_D_DIMS:
+        cases += [
+            (f"gqa16_causal_d{d}", 1, 16, 1, 200, 200, d, {}),
+            (f"gqa4_2_window_interleaved_d{d}", 1, 4, 2, 200, 200, d, dict(
+                mask=masking.sliding_window(64, causal=True),
+                interleaved=True))]
+    return cases + [
+        ("bias_dbias_d640", 1, 4, 2, 100, 131, 640,
+         dict(bias_shape=(1, 4, 100, 131))),
+        ("segments_empty_row_d640", 1, 4, 2, 200, 200, 640, dict(
+            mask=masking.MaskSpec(masking.MaskKind.SPARSE_RANGES),
+            ranges=seg)),
+        ("full_rect_d1024", 1, 4, 2, 96, 160, 1024, dict(mask=masking.FULL)),
+        ("small_d2048", 1, 2, 1, 64, 64, 2048, {}),
+    ]
+
+
+def check_split_d_launches(rng):
+    """(a) The counts of one call of each new path at D = 640, set to 0
+    just before it and read after: ``flash_attention``'s and
+    ``MultiHeadAttention``'s forward and backward (16 q heads over one,
+    causal, bf16: one forward, one dQ, one dK/dV and one merge each, the
+    two equal bit for bit) and one decode (bf16 latent pages: the
+    wrapper's one launch, which the profiler shows as split_d_decode_kernel
+    then paged_decode_merge_kernel) → {path: counts}."""
+    q, k, v, do, _ = flash_inputs(rng, 1, 16, 1, 256, 256, 640,
+                                  torch.bfloat16)
+    counted = (*FLASH_KERNELS, fbwd.merge_dkv_splits)
+    mha = MultiHeadAttention(AttentionDescriptor(
+        head_dim=640, num_q_heads=16, num_kv_heads=1, mask=masking.CAUSAL))
+    runs = {}
+    for name, call in (
+            ("flash_attention",
+             lambda *x: flash_attention(*x, mask=masking.CAUSAL)),
+            ("MultiHeadAttention", mha)):
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        for f in counted:
+            f.launches = 0
+        with torch.enable_grad():
+            o = call(*leaves)
+            grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        counts = {f.__name__: f.launches for f in counted}
+        if counts != {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+                      "merge_dkv_splits": 1}:
+            raise AssertionError(f"split-D {name} launches {counts}")
+        runs[name] = (counts, (o, *grads))
+    flash = runs["flash_attention"][0]
+    same_bits("split-D MultiHeadAttention vs flash_attention",
+              runs["flash_attention"][1], runs["MultiHeadAttention"][1])
+    del runs
+    pt, num_pages, max_pages = 64, 40, 16
+    lengths = [300, 1000, 77, 513]
+    pool, _ = mla_pool(rng, False, num_pages, pt, 640)
+    table = page_tables(rng, lengths, pt, num_pages, max_pages)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    qd = torch.randn((4, 16, 640), generator=device_generator(rng),
+                     device=DEV).to(torch.bfloat16)
+    kw = dict(page_tokens=pt, v_tail_zero=64)
+
+    def decode():
+        return paged_decode_attention(qd, pool, table, ln, **kw)
+
+    paged_decode_attention.launches = 0
+    decode()
+    torch.cuda.synchronize()
+    dec = {"paged_decode": paged_decode_attention.launches}
+    if dec != {"paged_decode": 1}:
+        raise AssertionError(f"split-D decode launches {dec}")
+    names = set()
+    for _ in range(3):
+        names = set(device_ms_by_label(decode, 1))
+        if names:
+            break
+    # An empty trace (PERF.md §7) is logged, not failed: the counts above
+    # show the call ran.
+    dec["device_kernels"] = sorted(names) or "not traced"
+    if names and not {SPLIT_D_KERNELS["paged_decode"], PAGED_MERGE} <= names:
+        raise AssertionError(f"split-D decode ran {sorted(names)}")
+    log("phase 24 (a) launches: " + json.dumps({"flash_attention": flash,
+                                                 "decode": dec}) +
+        "; MultiHeadAttention the same counts, its O and gradients bit for "
+        "bit flash_attention's")
+    return {"flash_attention": flash, "multi_head_attention": flash,
+            "decode": dec}
+
+
+def check_split_d_all(rng):
+    """(a) Every case of ``split_d_cases`` in bf16 and fp32 through
+    ``check_latent`` (each kernel called twice, equal bit for bit, held to
+    its plain version at the flash gates), and the paged pair at each
+    width (``check_paged_width``: fp32, bf16, int8 and int4 pools, latent
+    pages; latent pages with 64 zeroed V lanes at 640 and 1088, two-state
+    pages at 608) → {label: errors}."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, hq, hkv, sq, skv, d, kw in split_d_cases():
+            errs[f"flash {label} {str(dtype)[6:]}"] = check_latent(
+                rng, label, b, hq, hkv, sq, skv, d, dtype, scale=d ** -0.5,
+                **kw)
+    for d in SPLIT_D_DIMS + (1088,):
+        errs.update({f"paged {k}": v for k, v in check_paged_width(
+            rng, d, vtz=64 if d in (640, 1088) else None).items()})
+    log(f"phase 24 (a): {len(errs)} checks, each bit for bit on a repeat")
+    return errs
+
+
+def time_perceiver(rng):
+    """(b) The forward at Perceiver IO's image cross-attention (PERCEIVER,
+    FULL, bf16): events, the profiler's device ms, the plain version, SDPA
+    (its backend named) and the bound → times."""
+    b, h, sq, skv, d = PERCEIVER
+    gen = device_generator(rng)
+    q = torch.randn((b, h, sq, d), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, h, skv, d), generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(2))
+    rr = row_ranges_tensor(masking.FULL, sq, skv, None, DEV)
+    kw = dict(scale=d ** -0.5)
+    kernel = lambda: flash_fwd(q, k, v, rr, **kw)  # noqa: E731
+    t = {"plain_ms": time_ms(lambda: flash_attention_forward_plain(
+        q, k, v, rr, **kw), 3, warmup=1),
+        "ms": time_ms(kernel, 5, warmup=1),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v), 10)}
+    t["ms_2"] = time_ms(kernel, 5, warmup=0)
+    t["device_ms_by_kernel"] = device_ms_by_label(kernel, 3)
+    t["device_ms"] = (sum(t["device_ms_by_kernel"].values())
+                      or measure_held(kernel, iters=3, warmup=0) * 1e3)
+    t["library_backend"] = sdpa_backend(q, k, v)
+    pairs = b * h * sq * skv
+    t["bound_ms"], t["bound_by"] = bound_of(
+        4 * d * pairs, 2 * d * (b * h * (sq + 2 * skv)) + 4 * b * h * sq
+        * (d + 1))
+    t["shape"] = (f"B={b} H={h} Sq={sq} Skv={skv} D={d} FULL bf16 "
+                  "(Perceiver IO image cross-attention)")
+    log("phase 24 (b) Perceiver IO forward: " + json.dumps(t))
+    return t
+
+
+def run_split_d_path(seed, rng):
+    """(c) SPLIT_D_CFG (head dim 640, 8 q heads over 2, 2 layers, random
+    weights from ``seed``): the cached logits against the fp32 forward
+    (rel L2 ≤ LOGITS_REL_L2_TOL), phase 5's 8 requests served (counts set
+    to 0 just before, read after: every prefill and decode call of each
+    layer on the split-D paged kernels), the fp32 gradients through the
+    kernels against plain attention (≤ GRAD_REL_L2_TOL), SPLIT_D_TRAIN_STEPS
+    bf16 train steps (one forward, dQ and dK/dV a layer a step, the loss
+    lower) and a rerun of them equal bit for bit → record."""
+    cfg = SPLIT_D_CFG
+    d = cfg.head_dim
+    bodies = {"flash": fwd_body(cfg.dtype, d),
+              "decode": decode_body(cfg.dtype, d),
+              "prefill": prefill_body(cfg.dtype, d, 2, 0)}
+    if set(bodies.values()) != {"split_d"}:
+        raise AssertionError(f"head dim {d} routes {bodies}")
+    params = init_params(cfg, torch.Generator().manual_seed(seed + 24),
+                         device=DEV)
+    out = {"config": dataclasses.asdict(cfg) | {
+        "dtype": str(cfg.dtype), "block_sizes": None},
+        "reduced": [f"depth cut to {cfg.num_layers} layers",
+                    "random weights from the seed"], "bodies": bodies}
+    with torch.inference_mode():
+        out["logits_rel_l2"] = check_logits(cfg, params, rng,
+                                            label="split-D serving")
+    t0 = time.perf_counter()
+    launches, stats, _, rates = run_engine(cfg, params, seed,
+                                           label="split-D engine")
+    out.update(serve_launches=launches, serve_rates=rates,
+               serve_s=time.perf_counter() - t0,
+               serve_calls={k: stats[k] for k in ("prefill_calls",
+                                                  "decode_calls")})
+    out["grad_rel_l2_worst"] = check_train_grads(cfg, params, rng)
+    init = clone_params(params)
+    tokens = train_tokens(cfg, seed, DEV)
+    optimizer = torch.optim.Adam(trainable_parameters(params), lr=3e-3)
+    step = make_train_step(cfg, optimizer)
+    counted = (*FLASH_KERNELS, fbwd.merge_dkv_splits)
+    for f in counted:
+        f.launches = 0
+    losses, t0 = [], time.perf_counter()
+    for _ in range(SPLIT_D_TRAIN_STEPS):
+        params, _, loss = step(params, optimizer.state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["train_launches"] = {f.__name__: f.launches for f in counted}
+    out["train_losses"] = [x.item() for x in losses]
+    want = cfg.num_layers * SPLIT_D_TRAIN_STEPS
+    if (any(out["train_launches"][f.__name__] != want
+            for f in FLASH_KERNELS)
+            or not all(np.isfinite(out["train_losses"]))
+            or not out["train_losses"][-1] < out["train_losses"][0]):
+        raise AssertionError(f"split-D training: launches "
+                             f"{out['train_launches']}, losses "
+                             f"{out['train_losses']}")
+    rows, final = train_twice(cfg, init, tokens, SPLIT_D_TRAIN_STEPS)
+    same = not any(r["params_differ"] or r["grads_differ"]
+                   or r["losses"][0] != r["losses"][1] for r in rows)
+    out["rerun_bitwise_equal"] = same and (params_digest(final)
+                                           == params_digest(params))
+    if not out["rerun_bitwise_equal"]:
+        raise AssertionError("split-D training is not deterministic")
+    log("phase 24 (c) head dim 640 path: " + json.dumps(
+        {k: out[k] for k in ("logits_rel_l2", "serve_launches",
+                             "serve_rates", "grad_rel_l2_worst",
+                             "train_launches", "train_losses", "train_s",
+                             "rerun_bitwise_equal")}))
+    return out
+
+
+def split_d_errors(errors, name):
+    """(label, max abs err) of phase 24 (a)'s checks of one kernel."""
+    kind = name.split("_")[1]
+    if name.startswith("paged"):
+        return [(k, e) for k, e in errors.items()
+                if k.startswith(f"paged {kind}")]
+    outs = {"fwd": ("o", "l", "o_row_max", "l_row_max"),
+            "dq": ("dq", "dbias"), "dkv": ("dk", "dv")}[kind]
+    return [(k, e[1]) for k, errs in errors.items() if k.startswith("flash")
+            for o, e in errs.items() if o in outs]
+
+
+def run_split_d(seed, dec_lens):
+    """Phase 24 (a)-(c), inputs from an eighteenth generator (seed + 23)
+    → (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 23)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.no_grad():
+        out["errors"] = check_split_d_all(rng)
+    out["launches"] = check_split_d_launches(rng)
+    torch.cuda.empty_cache()
+    phase["split_d_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["times"] = {}
+    for d in SPLIT_D_TIMED:
+        out["times"][f"d{d}"] = time_flash(rng, b=DS_TRAIN_BATCH, hq=DS_HQ,
+                                           hkv=1, s=DS_TRAIN_SEQ, d=d)
+        with torch.no_grad():
+            q, k, v, _, _ = flash_inputs(rng, DS_TRAIN_BATCH, DS_HQ, 1,
+                                         DS_TRAIN_SEQ, DS_TRAIN_SEQ, d,
+                                         torch.bfloat16)
+            out["times"][f"d{d}"]["library_backend"] = sdpa_backend(
+                q, k, v, is_causal=True, enable_gqa=True)
+            del q, k, v
+        out["times"][f"d{d}"]["splits"] = fbwd.dkv_splits(
+            torch.bfloat16, d, DS_TRAIN_BATCH, DS_HQ, 1, DS_TRAIN_SEQ,
+            sm_count())
+        with torch.inference_mode():
+            out["times"][f"d{d}"].update(time_mla_paged(
+                rng, dec_lens, hq=DS_HQ, d=d, vtz=64, scale=d ** -0.5,
+                label=f"split-D D={d}", turns=False))
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        out["perceiver"] = time_perceiver(rng)
+    torch.cuda.empty_cache()
+    phase["split_d_times"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["path"] = run_split_d_path(seed, rng)
+    torch.cuda.empty_cache()
+    phase["split_d_path"] = time.perf_counter() - t
+    return out, phase
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7420,6 +7756,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     widths, widths_phase = run_width_faults(args.seed, dec_lens)
     phase_s.update(widths_phase)
+    torch.cuda.empty_cache()
+    split_d, split_d_phase = run_split_d(args.seed, dec_lens)
+    phase_s.update(split_d_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -7453,7 +7792,7 @@ def main() -> int:
          "device_kernel_merge": PAGED_MERGE,
          "device_kernel_fp32": "paged_decode_kernel",
          "bitwise_equal_two_calls": paged_same,
-         "body": decode_body(torch.bfloat16),
+         "body": decode_body(torch.bfloat16, 64),
          "redesigned": PAGED_REDESIGNED["paged_decode"],
          **{f"parent_turns_{kind}{tag}": t[f"parent_turns_{kind}"]
             for tag, t in (("", dec_t), ("_d128", d128_t))
@@ -7543,7 +7882,8 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "device_ms", "library_device_ms", "parent_turns_ms",
                 "parent_turns_device_ms") if key in mt},
-            "body_mla": (decode_body(torch.bfloat16) if kind == "decode"
+            "body_mla": (decode_body(torch.bfloat16, MLA_D)
+                         if kind == "decode"
                          else prefill_body(torch.bfloat16, MLA_D, 1,
                                            MLA_VTZ)),
         })
@@ -7566,7 +7906,8 @@ def main() -> int:
             "library_deepseek": "sdpa over the gathered bf16 K/V "
                                 "(enable_gqa; the backend torch took in "
                                 "library_backend_deepseek)",
-            "body_deepseek": (decode_body(torch.bfloat16) if kind == "decode"
+            "body_deepseek": (decode_body(torch.bfloat16, DS_D)
+                              if kind == "decode"
                               else prefill_body(torch.bfloat16, DS_D, 1,
                                                 DS_VTZ)),
             "device_kernel_deepseek": ("paged_decode_tc_kernel"
@@ -8121,6 +8462,53 @@ def main() -> int:
             entry.update({f"bound_ms_{dk}": bound, f"bound_by_{dk}": by})
         entry["max_abs_err_off_grid"] = max(
             e for k, e in werrs.items() if k.startswith(f"paged {kind}"))
+    # The split-D kernels above 576, from phase 24: times at D = 1024 (640
+    # beside them), launches from (c)'s path.
+    sd_path = split_d["path"]
+    for name, kernel in SPLIT_D_KERNELS.items():
+        paged = name.startswith("paged")
+        kind = name.split("_")[1]
+        errs_k = split_d_errors(split_d["errors"], name)
+        times = {d: split_d["times"][d][kind if paged else name]
+                 for d in ("d640", "d1024")}
+        entry = {
+            "name": f"{name}_split_d", "route": "cuda",
+            "source": SPLIT_D_SOURCE, "replaces": SPLIT_D_REPLACES[name],
+            "launches": (sd_path["serve_launches"][name] if paged
+                         else sd_path["train_launches"][name]),
+            "max_abs_err": max(e for _, e in errs_k),
+            "max_abs_err_fp32": max(e for label, e in errs_k
+                                    if "f32" in label or "float32" in label),
+            **{key: times["d1024"][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{f"{key}_d640": times["d640"][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms")},
+            "device_ms": times["d1024"].get("device_ms"),
+            "library": ("sdpa over the gathered bf16 K/V" if paged else
+                        "sdpa forward" if name == "flash_fwd" else
+                        "sdpa backward (dq, dk, dv together)"),
+            "library_backend": times["d1024"].get(
+                "library_backend",
+                split_d["times"]["d1024"]["library_backend"]),
+            "shape": ("Hq=16 over one head, latent pages, v_tail_zero=64, "
+                      "D=1024" if paged else "B=2 Hq=16 Hkv=1 S=2048 "
+                      "causal bf16, D=1024"),
+            "checks": len(errs_k), "bitwise_equal_two_calls": True,
+            "body": "split_d", "design": SPLIT_D_DESIGN,
+            "launches_on": ("phase 24 (c): 8 requests served at head dim "
+                            "640" if paged else "phase 24 (c): 4 train "
+                            "steps at head dim 640"),
+        }
+        if name == "flash_fwd":
+            entry.update({f"{k}_perceiver": split_d["perceiver"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "library_backend", "shape")})
+        if name == "flash_dkv":
+            entry["splits"] = split_d["times"]["d1024"]["splits"]
+            entry["splits_d640"] = split_d["times"]["d640"]["splits"]
+        DEVICE_KERNELS[entry["name"]] = kernel
+        record["kernels"].append(entry)
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
     record["gemm_engine"] = {
@@ -8200,6 +8588,16 @@ def main() -> int:
                    for k, v in widths["public"].items()},
         "fullint_576": {k: wf[k] for k in ("launches", "grads_rel_l2",
                                            "seconds", "splits", "shape")},
+    }
+    record["split_d"] = {
+        "checks": len(split_d["errors"]),
+        "bitwise_equal_two_calls": True,  # (a) raises otherwise
+        "launches": split_d["launches"],
+        "path": {k: sd_path[k] for k in (
+            "config", "reduced", "bodies", "logits_rel_l2", "serve_launches",
+            "serve_rates", "serve_calls", "grad_rel_l2_worst",
+            "train_launches", "train_losses", "train_s",
+            "rerun_bitwise_equal")},
     }
     record["wide_quantized"] = {
         "checks": len(wide["errors"]),

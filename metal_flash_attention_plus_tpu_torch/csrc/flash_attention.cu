@@ -12,6 +12,10 @@
 //     (bf16 up to D = 256), flash_dkv_wide_kernel then
 //     flash_dkv_merge_kernel (bf16 at D = 288), flash_dkv_latent_kernel
 //     then flash_dkv_merge_kernel (bf16 at D = 576), flash_dkv_kernel (fp32)
+//   and above D = 576, in both dtypes, the split-D kernels of
+//   csrc/split_d_attention.cu (split_d_fwd_kernel, split_d_dq_kernel,
+//   split_d_dkv_kernel then flash_dkv_merge_kernel), which the entry points
+//   below hand such a head dim to.
 //
 // Layouts: q/dO [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] of T (float or bf16),
 // contiguous; L and D (= rowsum(dO*O)) fp32 [B, Hq, Sq]; O, dQ fp32
@@ -101,6 +105,10 @@
 //   kv_lora_rank + qk_rope_head_dim, 512 + 64); the wrappers run any other
 //   multiple of 16 up to 576 at the next of these (304 to 560 at 576), its
 //   Q/K/V/dO lanes zero-padded, which adds nothing to S, O or any gradient.
+//   Above 576 the entry points below hand every multiple of 16 (the
+//   wrappers zero-pad to one) to the split-D kernels of
+//   csrc/split_d_attention.cu (split_d.cuh), which take the head dim at
+//   run time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,6 +122,7 @@
 #include "attention_bwd.cuh"
 #include "attention_tiles.cuh"
 #include "common.cuh"
+#include "split_d.cuh"
 
 namespace {
 
@@ -1353,11 +1362,31 @@ int launch_dkv(const void* q, const void* k, const void* v,
   }                                                                \
   return (int)cudaErrorInvalidValue
 
+// The split-D kernels' arguments (D > 576).
+mfa_sd::FlashArgs split_d_args(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* di, const void* ranges,
+                               const void* bias, long long sb, long long sh,
+                               const void* row_max, void* out0, void* out1,
+                               int B, int Hq, int Hkv, int Sq, int Skv,
+                               int D, int interleaved, float scale,
+                               float mask_value) {
+  return mfa_sd::FlashArgs{q, k, v, dout, static_cast<const float*>(lse),
+                           static_cast<const float*>(di),
+                           static_cast<const int32_t*>(ranges),
+                           static_cast<const float*>(bias), sb, sh,
+                           static_cast<const float*>(row_max),
+                           static_cast<float*>(out0),
+                           static_cast<float*>(out1), B, Hq, Hkv, Sq, Skv, D,
+                           interleaved, scale, mask_value};
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Returns the launch's
 // cudaError_t; cudaErrorInvalidValue for an unsupported dtype or head dim,
-// or a group that does not divide Hq.
+// or a group that does not divide Hq.  D: a built width, or above 576 any
+// multiple of 16 (the split-D kernels).
 extern "C" {
 
 // row_max: null for the running-max forward; else the static-max mode's
@@ -1372,6 +1401,12 @@ int mfa_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Shape sp{B, Hq, Hkv, Sq, Skv, interleaved};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 576)
+    return mfa_sd::launch_fwd(
+        dtype, split_d_args(q, k, v, nullptr, nullptr, nullptr, ranges, bias,
+                            bias_sb, bias_sh, row_max, o, lse, B, Hq, Hkv,
+                            Sq, Skv, D, interleaved, qscale, mask_value),
+        s);
   MFA_DISPATCH(launch_fwd, q, k, v, ranges, bias, bias_sb, bias_sh, o, lse,
                sp, qscale, mask_value, row_max, s);
 }
@@ -1386,12 +1421,19 @@ int mfa_flash_dq(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   const Shape sp{B, Hq, Hkv, Sq, Skv, interleaved};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 576)
+    return mfa_sd::launch_dq(
+        dtype, split_d_args(q, k, v, dout, lse, di, ranges, bias, bias_sb,
+                            bias_sh, nullptr, dq, dbias, B, Hq, Hkv, Sq, Skv,
+                            D, interleaved, scale, 0.f),
+        s);
   MFA_DISPATCH(launch_dq, q, k, v, dout, lse, di, ranges, bias, bias_sb,
                bias_sh, dq, dbias, sp, scale, s);
 }
 
 // splits: the CTAs that share a key tile's GQA group (bf16 at D = 288 and
-// 576 only, ops/flash_attention_bwd.py::dkv_splits; 1 elsewhere); with
+// 576, and both dtypes above 576, ops/flash_attention_bwd.py::dkv_splits;
+// 1 elsewhere); with
 // splits > 1 the partials go to ws, fp32 [splits, 2, B, Hkv, Skv, D], and
 // mfa_flash_dkv_merge sums them into dk and dv.
 int mfa_flash_dkv(const void* q, const void* k, const void* v,
@@ -1403,6 +1445,12 @@ int mfa_flash_dkv(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   const Shape sp{B, Hq, Hkv, Sq, Skv, interleaved};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 576)
+    return mfa_sd::launch_dkv(
+        dtype, split_d_args(q, k, v, dout, lse, di, ranges, bias, bias_sb,
+                            bias_sh, nullptr, dk, dv, B, Hq, Hkv, Sq, Skv, D,
+                            interleaved, scale, 0.f),
+        splits, static_cast<float*>(ws), s);
   MFA_DISPATCH(launch_dkv, q, k, v, dout, lse, di, ranges, bias, bias_sb,
                bias_sh, dk, dv, sp, scale, splits, ws, s);
 }
@@ -1427,8 +1475,11 @@ int mfa_flash_dkv_merge(const void* ws, void* dk, void* dv, int splits,
 // dkv_tc: at D = 288 the forward on flash_fwd_wide_kernel, the dQ and
 // dK/dV on the wide bodies, at 576 on flash_fwd_latent_kernel and the
 // latent bodies; the quantized launchers route by dq_tc, dkv_tc and
-// bwd_wide too); -1 for a dtype or head dim without kernels.
+// bwd_wide too); above 576, for every multiple of 16, bits 3, 4 and 5
+// instead: the forward, dQ and dK/dV on the split-D kernels
+// (mfa_sd::takes); -1 for a dtype or head dim without kernels.
 int mfa_flash_tc_bodies(int dtype, int D) {
+  if ((dtype == 0 || dtype == 1) && mfa_sd::takes(D)) return 8 | 16 | 32;
 #define MFA_BODIES(T, DD)                                          \
   if (D == DD)                                                     \
     return (int)fwd_tc<T, DD>() | (int)mfa::dq_tc<T, DD>() << 1 |  \
@@ -1454,11 +1505,11 @@ int mfa_flash_tc_bodies(int dtype, int D) {
 // runs for dtype at the built head dim D: 1 the tensor cores
 // (flash_fwd_tc_kernel, flash_fwd_wide_kernel at D = 288 or
 // flash_fwd_latent_kernel at 576), 0
-// flash_fwd_kernel, -1 none (ops/flash_attention.py::fwd_body answers the
-// same for both modes).
+// flash_fwd_kernel, 2 split_d_fwd_kernel (above 576), -1 none
+// (ops/flash_attention.py::fwd_body answers the same for both modes).
 int mfa_flash_static_max_body(int dtype, int D) {
   const int bodies = mfa_flash_tc_bodies(dtype, D);
-  return bodies < 0 ? -1 : (bodies & 1);
+  return bodies < 0 ? -1 : (bodies & 8) ? 2 : (bodies & 1);
 }
 
 }  // extern "C"

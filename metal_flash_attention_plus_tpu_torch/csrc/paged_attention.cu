@@ -9,6 +9,10 @@
 //   - serving/paged_attention.py::_prefill_kernel -> paged_prefill_tc_kernel
 //     and, above D = 288, paged_prefill_wide_kernel (bf16, where prefill_tc
 //     says so) and paged_prefill_kernel (the rest)
+// Above D = 576 both go to the split-D kernels of
+// csrc/split_d_attention.cu (split_d_decode_kernel, then
+// paged_decode_merge_kernel here; split_d_prefill_kernel), which split O's
+// lanes over CTAs and take the head dim at run time.
 //
 // Pool layouts (one layer of serving/kv_cache.py's pool, or of the MLA
 // latent pool of models/cached_mla.py), MODE of the kernels' template:
@@ -29,7 +33,8 @@
 // entry cannot read outside it.  Each token's scale is read by its page id,
 // which serves both TPU decode schedules (per-page scales in the streamed
 // one, scales densified by the wrapper in the wave one).
-// Head dims: any from 1 to 576.  The kernels compute D = the head dim
+// Head dims: any from 1 (the kernels of this file up to 576, the split-D
+// kernels above).  The kernels compute D = the head dim
 // rounded up to 16 lanes: q, O and the decode's workspace are rows of D
 // (the wrapper zero-pads q and cuts O back), while the pool keeps its rows
 // of the true head dim dp (PoolGeom::dp): the staging reads them as they
@@ -152,6 +157,7 @@
 #include "attention_tiles.cuh"
 #include "common.cuh"
 #include "mma.cuh"
+#include "split_d.cuh"
 
 namespace {
 
@@ -160,7 +166,9 @@ using mfa::Elem;
 constexpr int KV_FLOAT = 0;
 constexpr int KV_INT8 = 1;
 constexpr int KV_INT4 = 2;
-constexpr int MAX_D = 576;  // the largest head dim (DeepSeek's absorbed width)
+// The widest head dim of this file's kernels (DeepSeek's absorbed width);
+// wider ones go to the split-D kernels.
+constexpr int MAX_D = 576;
 
 __device__ __forceinline__ int clamp_page(int page, int num_pages_total) {
   return min(max(page, 0), num_pages_total - 1);
@@ -203,7 +211,36 @@ int tc_width(int D) {
 // same.
 bool prefill_tc(int dtype, int D, int s_sub, int vtz) {
   const int pv_lanes = D <= 288 ? 256 : 512;
-  return dtype == 1 && (D <= 256 || (s_sub == 1 && D - vtz <= pv_lanes));
+  return dtype == 1 && D <= MAX_D &&
+         (D <= 256 || (s_sub == 1 && D - vtz <= pv_lanes));
+}
+
+// The split-D kernels' arguments (csrc/split_d.cuh) of a call.
+mfa_sd::PagedArgs split_d_paged(const void* q, const void* kv,
+                                const float* ks, const float* vs,
+                                const int32_t* table, void* out, int Hq,
+                                int Hkv, int D, int num_pages_total,
+                                int max_pages, const PoolGeom& pg,
+                                float scale) {
+  mfa_sd::PagedArgs p{};
+  p.q = q;
+  p.kv = kv;
+  p.kscale = ks;
+  p.vscale = vs;
+  p.table = table;
+  p.out = out;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.D = D;
+  p.dp = pg.dp;
+  p.PT = pg.PT;
+  p.rows = pg.rows;
+  p.v_row = pg.v_row;
+  p.vtz = pg.vtz;
+  p.num_pages_total = num_pages_total;
+  p.max_pages = max_pages;
+  p.scale = scale;
+  return p;
 }
 
 using mfa::launch_with_smem;
@@ -2043,7 +2080,20 @@ int launch_decode(int dtype, const DecodeArgs& a, int B, int Hkv,
                   cudaStream_t stream) {
   const dim3 grid(Hkv * a.gslices, B, a.splits);
   int rc = (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
+  if (a.D > MAX_D) {
+    mfa_sd::PagedArgs p =
+        split_d_paged(a.q, a.kv, a.kscale, a.vscale, a.table, a.out, a.Hq,
+                      Hkv, a.D, a.num_pages_total, a.max_pages, a.pg,
+                      a.scale);
+    p.lengths = a.lengths;
+    p.ws = a.ws;
+    p.G = a.G;
+    p.gc = a.gc;
+    p.gslices = a.gslices;
+    p.splits = a.splits;
+    p.per = a.per;
+    rc = mfa_sd::launch_paged_decode(dtype, MODE, p, B, stream);
+  } else if (dtype == 1) {
     switch (tc_width(a.D)) {
       case 32: rc = launch_decode_tc<32, MODE>(a, grid, stream); break;
       case 64: rc = launch_decode_tc<64, MODE>(a, grid, stream); break;
@@ -2123,6 +2173,15 @@ int launch_prefill_fma(const PrefillArgs& a, cudaStream_t stream) {
 // pages or more than 512 kept lanes).
 template <int MODE>
 int launch_prefill(int dtype, const PrefillArgs& a, cudaStream_t stream) {
+  if (a.D > MAX_D) {
+    mfa_sd::PagedArgs p =
+        split_d_paged(a.q, a.kv, a.kscale, a.vscale, a.page_row, a.out, a.Hq,
+                      a.Hkv, a.D, a.num_pages_total, a.max_pages, a.pg,
+                      a.scale);
+    p.C = a.C;
+    p.offset = a.offset;
+    return mfa_sd::launch_paged_prefill(dtype, MODE, p, stream);
+  }
   if (prefill_tc(dtype, a.pg.dp, a.pg.ss, a.pg.vtz)) {
     switch (tc_width(a.D)) {
       case 32: return launch_prefill_tc<32, MODE>(a, stream);
@@ -2153,7 +2212,7 @@ int launch_prefill(int dtype, const PrefillArgs& a, cudaStream_t stream) {
 }
 
 bool valid_layout(int mode, int D, int s_sub, int vtz) {
-  if (D <= 0 || D > MAX_D || vtz < 0 || vtz >= D) return false;
+  if (D <= 0 || vtz < 0 || vtz >= D) return false;
   if (mode == KV_INT4) return s_sub == 1 && vtz == 0;
   return s_sub == 1 || s_sub == 2;
 }
@@ -2173,8 +2232,9 @@ int lane_width(int D) { return (D + 15) / 16 * 16; }
 // pool's): 0 = float32, 1 = bfloat16.  mode: 0 float pool, 1 int8 halves,
 // 2 int4 shared byte; ks and vs are ignored (may be null) in mode 0.
 // s_sub: page rows per token (1 or 2; 1 for the int4 byte); vtz: V's
-// zeroed tail lanes.  D: the head dim (1 to 576), the elements of a pool
-// row; q and out are rows of D rounded up to 16 lanes (q zero past D).
+// zeroed tail lanes.  D: the head dim (any from 1; the split-D kernels
+// above 576), the elements of a pool row; q and out are rows of D rounded
+// up to 16 lanes (q zero past D).
 // Returns the launch's cudaError_t; cudaErrorInvalidValue for an
 // unsupported dtype, mode, page layout, head dim or split plan.
 extern "C" {
@@ -2255,12 +2315,14 @@ int mfa_paged_prefill(const void* q, const void* kv, const void* ks,
 }
 
 // Which paged kernels a call of dtype at head dim D over pages of s_sub
-// states with vtz zeroed V lanes runs on the tensor cores: bit 0 the decode
-// (paged_decode_tc_kernel), bit 1 the prefill (prefill_tc); -1 for a
-// dtype or layout without kernels.
+// states with vtz zeroed V lanes runs: up to D = 576 bit 0 the decode
+// (paged_decode_tc_kernel), bit 1 the prefill (prefill_tc) on the tensor
+// cores; above 576 bits 2 and 3 instead, the decode and the prefill on
+// the split-D kernels; -1 for a dtype or layout without kernels.
 int mfa_paged_bodies(int dtype, int D, int s_sub, int vtz) {
   if ((dtype != 0 && dtype != 1) || !valid_layout(KV_FLOAT, D, s_sub, vtz))
     return -1;
+  if (D > MAX_D) return 4 | 8;
   return (dtype == 1 ? 1 : 0) | (prefill_tc(dtype, D, s_sub, vtz) ? 2 : 0);
 }
 

@@ -8,7 +8,8 @@ additive bias, grouped or interleaved GQA, and the static-max softmax
 :func:`estimate_row_max_scaled` or the caller).  The TPU kernel
 ``_fwd_kernel`` becomes ``csrc/flash_attention.cu::flash_fwd_tc_kernel``,
 ``::flash_fwd_wide_kernel`` and ``::flash_fwd_kernel``, each in both
-modes, behind :func:`flash_fwd`;
+modes, and above D = 576 ``csrc/split_d_attention.cu::split_d_fwd_kernel``
+(O's lanes split over CTAs), behind :func:`flash_fwd`;
 the TPU-only schedules (packed, flat, wavefront,
 lean, two-level, the ones-fused rowsum, lane-replicated statistics, the
 Mosaic guard) have no counterpart: on Hopper one ``[Sq, 2]`` int32 table
@@ -62,7 +63,11 @@ ROW_MAX_SLACK = 64.0
 # 1 to 576 runs at the next one up (40 at 64, 72 at 128, 304 to 560 at
 # 576) with its Q/K/V/dO lanes zero-padded: zero lanes add nothing to S or
 # O and take no gradient; the softmax scale stays the true head dim's.
+# Above 576 the split-D kernels (csrc/split_d_attention.cu) take the head
+# dim at run time, zero-padded to the next multiple of 16, each CTA owning
+# SPLIT_D_SLICE lanes of the output (mfa_split_d_slice answers the same).
 FLASH_WIDTHS = (32, 64, 128, 256, 288, 576)
+SPLIT_D_SLICE = 256
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -270,13 +275,23 @@ def range_mask(row_ranges: torch.Tensor, seq_kv: int):
 
 
 def flash_width(d: int) -> int:
-    """The kernel width a head dim ``d`` runs at (see ``FLASH_WIDTHS``)."""
-    if d >= 1:
-        for w in FLASH_WIDTHS:
-            if d <= w:
-                return w
-    raise ValueError(f"head dim {d} has no flash kernel (1 to "
-                     f"{FLASH_WIDTHS[-1]})")
+    """The kernel width a head dim ``d`` runs at: the next of
+    ``FLASH_WIDTHS`` up to 576, above it the next multiple of 16 (the
+    split-D kernels).  Raises below 1."""
+    if d < 1:
+        raise ValueError(f"head dim {d} has no flash kernel (1 or more)")
+    for w in FLASH_WIDTHS:
+        if d <= w:
+            return w
+    return -(-d // 16) * 16
+
+
+def split_d_slices(d: int) -> int:
+    """The CTAs that share each row tile's output lanes at head dim ``d``:
+    ``ceil(width / SPLIT_D_SLICE)`` on the split-D kernels (above 576), 1
+    on every other.  Each of them recomputes the tile's scores."""
+    w = flash_width(d)
+    return -(-w // SPLIT_D_SLICE) if w > FLASH_WIDTHS[-1] else 1
 
 
 def fwd_body(dtype: torch.dtype, d: int) -> str:
@@ -287,11 +302,14 @@ def fwd_body(dtype: torch.dtype, d: int) -> str:
     width 288 and ``flash_fwd_latent_kernel`` (O's lanes over two warp
     groups, 32-key tiles) at DeepSeek's absorbed width 576; "fp32_fma"
     (``flash_fwd_kernel``: scalar fp32 FMAs, 32-row tiles at 576) for fp32,
-    whose 2e-5 gate TF32 would break.  The same answer as
+    whose 2e-5 gate TF32 would break; "split_d" above 576 in both dtypes
+    (``split_d_fwd_kernel``: O's lanes over :func:`split_d_slices` CTAs,
+    scalar fp32 FMAs).  The same answer as
     :func:`~.flash_attention_bwd.dq_body` and ``dkv_body``; the C launcher
     routes the same way (``fwd_tc``, ``fwd_wide``, ``fwd_latent`` in
-    ``csrc/flash_attention.cu``)."""
-    flash_width(d)  # raises past the widest kernel
+    ``csrc/flash_attention.cu``, ``mfa_sd::takes``)."""
+    if flash_width(d) > FLASH_WIDTHS[-1]:  # raises below 1
+        return "split_d"
     return "tensor_core" if dtype == torch.bfloat16 else "fp32_fma"
 
 
@@ -492,9 +510,9 @@ def flash_fwd(
     static-max mode, fp32 [B, Hq, Sq] subtrahends in base 2 (no bias).  CPU
     tensors take :func:`flash_attention_forward_plain`; CUDA tensors launch
     the kernel :func:`fwd_body` names (``flash_fwd_tc_kernel``,
-    ``flash_fwd_wide_kernel`` or ``flash_fwd_kernel``, in the static-max
-    mode where ``row_max`` is given) at the head dim's
-    :func:`flash_width`, or raise.
+    ``flash_fwd_wide_kernel``, ``flash_fwd_kernel`` or, above 576,
+    ``split_d_fwd_kernel``, in the static-max mode where ``row_max`` is
+    given) at the head dim's :func:`flash_width`, or raise.
     """
     if row_max is not None and bias is not None:
         raise ValueError("row_max is incompatible with bias")

@@ -11,7 +11,8 @@ disjoint outputs, so no atomics:
   ``qflash_dq_tc_kernel`` up to D = 256, ``flash_dq_wide_kernel`` and
   ``qflash_dq_wide_kernel`` at MLA's 288, ``flash_dq_latent_kernel`` and
   ``qflash_dq_latent_kernel`` at DeepSeek's 576); fp32 the scalar body
-  (:func:`dq_body`).
+  (:func:`dq_body`); above 576 both dtypes ``split_d_dq_kernel``
+  (``csrc/split_d_attention.cu``: dQ's lanes split over CTAs).
 - :func:`flash_dkv` → ``flash_dkv_kernel`` (TPU ``_dkv_kernel``): per key
   tile, walks the GQA group's q heads × the live query rows, dV += Pᵀ·dO,
   dK += dSᵀ·Q_s; the group reduction happens inside the kernel.  Its bf16
@@ -22,7 +23,9 @@ disjoint outputs, so no atomics:
   deal the GQA group over
   :func:`dkv_splits` CTAs a key tile into an fp32 workspace that
   :func:`merge_dkv_splits` sums in split order); fp32 the scalar body
-  (:func:`dkv_body`).
+  (:func:`dkv_body`); above 576 both dtypes ``split_d_dkv_kernel`` (dK's
+  and dV's lanes split over CTAs, the group dealt over
+  :func:`dkv_splits` CTAs and merged as at 288 and 576).
 - Quantized K/V (:class:`QuantizedTensor`), exact: :func:`qflash_dq` and
   :func:`qflash_dkv` → ``csrc/quantized_attention_bwd.cu`` (the TPU
   kernels' quantized modes), the same two bodies with K/V staged from their
@@ -81,10 +84,12 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     build_block_bounds,
     check_kernel_inputs,
     flash_width,
+    fwd_body,
     kernel_bias,
     pad_lanes,
     range_mask,
     row_ranges_tensor,
+    split_d_slices,
     stream_of,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
@@ -222,10 +227,11 @@ def dkv_body(dtype: torch.dtype, d: int) -> str:
     ``dkv_latent_body`` at DeepSeek's absorbed width 576 (304 to 560 run at
     576; the flash and the quantized kernels alike); "fp32_fma"
     (``dkv_body``: scalar fp32 FMAs, ``dkv_body32`` at 576) for fp32, whose
-    2e-5 gate TF32 would break.  The C launchers route the same way
-    (``mfa::dkv_tc``, ``mfa::bwd_wide``, ``mfa::bwd_latent``)."""
-    flash_width(d)  # raises past the widest kernel
-    return "tensor_core" if dtype == torch.bfloat16 else "fp32_fma"
+    2e-5 gate TF32 would break; "split_d" above 576 in both dtypes (the
+    flash kernels only: ``split_d_dkv_kernel``; the quantized wrappers
+    raise there).  The C launchers route the same way (``mfa::dkv_tc``,
+    ``mfa::bwd_wide``, ``mfa::bwd_latent``, ``mfa_sd::takes``)."""
+    return fwd_body(dtype, d)
 
 
 def dq_body(dtype: torch.dtype, d: int) -> str:
@@ -233,8 +239,8 @@ def dq_body(dtype: torch.dtype, d: int) -> str:
     (:func:`flash_dq`, :func:`qflash_dq`) run for a Q of ``dtype`` at head
     dim ``d``: "tensor_core" for bf16 (``dq_tc_body`` up to 256,
     ``dq_wide_body`` at 288, ``dq_latent_body`` at 576), "fp32_fma"
-    (``dq_body``, ``dq_body32`` at 576) for fp32; the same answer as
-    :func:`dkv_body`.  The C launchers route the same way (``mfa::dq_tc``,
+    (``dq_body``, ``dq_body32`` at 576) for fp32, "split_d" above 576
+    (``split_d_dq_kernel``); the same answer as :func:`dkv_body`.  The C launchers route the same way (``mfa::dq_tc``,
     ``mfa::bwd_wide``, ``mfa::bwd_latent``)."""
     return dkv_body(dtype, d)
 
@@ -247,8 +253,8 @@ def dq_body(dtype: torch.dtype, d: int) -> str:
 # 8 CTAs an SM).
 _DKV_CTAS_PER_SM = 8
 # Keys a CTA of the split bodies: dkv_wide_body's 64 at 288,
-# dkv_latent_body's 32 at 576.
-_DKV_SPLIT_TILE = {288: 64, 576: 32}
+# dkv_latent_body's 32 at 576, split_d_dkv_kernel's 64 above 576.
+_DKV_SPLIT_TILE = {288: 64, 576: 32, "split_d": 64}
 
 
 def dkv_splits(dtype: torch.dtype, d: int, batch: int, q_heads: int,
@@ -265,12 +271,16 @@ def dkv_splits(dtype: torch.dtype, d: int, batch: int, q_heads: int,
     2, 16 q heads over one latent head, 2048 keys: 64 tiles at 288) takes
     16 splits of one head on 132 SMs; DeepSeek-V2-Lite's (the same at
     576: 64 tiles of 32 keys a batch row, 128 CTAs) 8 splits of two
-    heads."""
-    tile = _DKV_SPLIT_TILE.get(flash_width(d))
-    if dkv_body(dtype, d) != "tensor_core" or tile is None:
+    heads.  Above 576 (``split_d_dkv_kernel``, both dtypes: 64-key tiles)
+    the grid's CTAs count its lane slices too (:func:`split_d_slices`), so
+    the trio's timing shape (batch 2, 16 q heads over one, 2048 keys) takes
+    4 splits of 4 heads at D = 640 and 1024: 768 and 1,024 CTAs."""
+    body = dkv_body(dtype, d)
+    tile = _DKV_SPLIT_TILE.get(body if body == "split_d" else flash_width(d))
+    if body == "fp32_fma" or tile is None:
         return 1
     group = q_heads // kv_heads
-    ctas = -(-kv_len // tile) * kv_heads * batch
+    ctas = -(-kv_len // tile) * kv_heads * batch * split_d_slices(d)
     splits = 1
     while (splits * 2 <= group
            and ctas * splits * 2 <= _DKV_CTAS_PER_SM * sms):

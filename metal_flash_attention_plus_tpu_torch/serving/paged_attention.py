@@ -25,8 +25,11 @@ S_sub is ``page rows // page_tokens`` (``page_tokens`` defaults to the page
 rows: S_sub = 1).  ``v_tail_zero``: V reads K's rows with its last
 ``v_tail_zero`` lanes set to 0 (the rope tail of an MLA latent state).
 The int4 pool takes neither S_sub = 2 nor ``v_tail_zero``, as in JAX.  The
-kernels take any head dim from 1 to 576 (DeepSeek's absorbed MLA width,
-512 + 64); a CUDA tensor of a wider head dim raises.  The pool keeps its
+kernels take any head dim from 1: up to 576 (DeepSeek's absorbed MLA
+width, 512 + 64) the fixed-width kernels, above it the split-D kernels
+(``csrc/split_d_attention.cu``), whose CTAs each own 256 lanes of O
+(``ops.flash_attention.SPLIT_D_SLICE``) and recompute the scores over the
+whole head dim.  The pool keeps its
 layout and bytes at every head dim: the kernels read its rows as they lie
 (whose bytes need not be whole 16-byte chunks) and zero the staged lanes
 up to the next multiple of 16; the wrappers zero-pad q to that width and
@@ -50,7 +53,10 @@ across CTAs as :func:`decode_splits` plans and, for more than one split,
 ``paged_decode_merge_kernel`` after them over a workspace the wrapper
 allocates; the bf16 prefill runs ``paged_prefill_tc_kernel`` (above
 D = 288 ``paged_prefill_wide_kernel``) where :func:`prefill_body` says
-so, the rest ``paged_prefill_kernel``.
+so, the rest ``paged_prefill_kernel``.  Above D = 576 both dtypes run
+``split_d_decode_kernel`` (the KV axis split as :func:`decode_splits`
+plans and the lanes split too; the same merge) and
+``split_d_prefill_kernel``: the "split_d" route.
 """
 
 from __future__ import annotations
@@ -65,7 +71,7 @@ from metal_flash_attention_plus_tpu_torch import _build
 from metal_flash_attention_plus_tpu_torch.serving.kv_cache import unpack_kv4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 576  # the kernels take head dims from 1 up to this
+_MAX_FIXED_DIM = 576  # the fixed-width kernels' widest; split-D above
 # Pool modes of the kernels: float, int8 halves, int4 shared byte.
 _MODE_FLOAT, _MODE_INT8, _MODE_INT4 = 0, 1, 2
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -172,11 +178,11 @@ def _check_cuda_inputs(name, q, kv_pages, ints, mode, scales, pt):
 
 
 def check_head_dim(name: str, d: int):
-    """Raise ``ValueError`` unless the kernels take head dim ``d``: 1 to
-    576."""
-    if not 0 < d <= _MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} has no kernel (1 to "
-                         f"{_MAX_HEAD_DIM})")
+    """Raise ``ValueError`` unless the kernels take head dim ``d``: any
+    from 1 (the split-D kernels above 576)."""
+    if d < 1:
+        raise ValueError(f"{name}: head dim {d} has no kernel (1 or more)")
+
 
 
 def _lane_width(d: int) -> int:
@@ -199,12 +205,18 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def decode_body(dtype: torch.dtype) -> str:
-    """Which decode kernel a q of ``dtype`` launches: "tensor_core"
-    (``paged_decode_tc_kernel``: bf16 mma.sync) for bf16, "fp32_fma"
-    (``paged_decode_kernel``: scalar fp32 FMAs, which the 2e-5 gate needs;
-    TF32 would break it) for fp32.  The C library answers the same
-    (``mfa_paged_bodies``, bit 0)."""
+def decode_body(dtype: torch.dtype, head_dim: int) -> str:
+    """Which decode kernel a q of ``dtype`` at ``head_dim`` launches:
+    "tensor_core" (``paged_decode_tc_kernel``: bf16 mma.sync) for bf16,
+    "fp32_fma" (``paged_decode_kernel``: scalar fp32 FMAs, which the 2e-5
+    gate needs; TF32 would break it) for fp32, both up to 576; "split_d"
+    (``split_d_decode_kernel``: the lanes split over CTAs, as
+    ``ops.flash_attention.split_d_slices`` counts them) above 576 in both
+    dtypes.  A head dim without a kernel raises ``ValueError``.  The C
+    library answers the same (``mfa_paged_bodies``, bits 0 and 2)."""
+    check_head_dim("decode_body", head_dim)
+    if head_dim > _MAX_FIXED_DIM:
+        return "split_d"
     return "tensor_core" if dtype == torch.bfloat16 else "fp32_fma"
 
 
@@ -218,10 +230,13 @@ def prefill_body(dtype: torch.dtype, head_dim: int, page_states: int,
     (``paged_prefill_tc_kernel``; MLAConfig()'s 288 − 32), 512 above
     (``paged_prefill_wide_kernel``, O split over two warp groups;
     DeepSeek's 576 − 64); "fp32_fma" (``paged_prefill_kernel``) for fp32
-    and every other shape.  A head dim without a kernel (see
+    and every other shape up to 576; "split_d" (``split_d_prefill_kernel``)
+    above 576 in both dtypes.  A head dim without a kernel (see
     :func:`check_head_dim`) raises ``ValueError``.  The C launcher routes
-    the same way (``prefill_tc``; ``mfa_paged_bodies``, bit 1)."""
+    the same way (``prefill_tc``; ``mfa_paged_bodies``, bits 1 and 3)."""
     check_head_dim("prefill_body", head_dim)
+    if head_dim > _MAX_FIXED_DIM:
+        return "split_d"
     pv_lanes = 256 if head_dim <= 288 else 512
     if dtype == torch.bfloat16 and (
             head_dim <= 256

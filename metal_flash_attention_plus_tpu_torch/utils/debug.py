@@ -32,17 +32,21 @@ from metal_flash_attention_plus_tpu_torch import _build
 # (tests/test_torch_checkpoint_debug.py holds the table to csrc/).
 ENTRY_KERNELS: Dict[str, Tuple[str, ...]] = {
     "mfa_flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_wide_kernel",
-                      "flash_fwd_latent_kernel", "flash_fwd_kernel"),
+                      "flash_fwd_latent_kernel", "flash_fwd_kernel",
+                      "split_d_fwd_kernel"),
     "mfa_flash_dq": ("flash_dq_tc_kernel", "flash_dq_wide_kernel",
-                     "flash_dq_latent_kernel", "flash_dq_kernel"),
+                     "flash_dq_latent_kernel", "flash_dq_kernel",
+                     "split_d_dq_kernel"),
     "mfa_flash_dkv": ("flash_dkv_tc_kernel", "flash_dkv_wide_kernel",
-                      "flash_dkv_latent_kernel", "flash_dkv_kernel"),
+                      "flash_dkv_latent_kernel", "flash_dkv_kernel",
+                      "split_d_dkv_kernel"),
     "mfa_flash_dkv_merge": ("flash_dkv_merge_kernel",),
     "mfa_paged_decode": ("paged_decode_tc_kernel", "paged_decode_kernel",
+                         "split_d_decode_kernel",
                          "paged_decode_merge_kernel"),
     "mfa_paged_prefill": ("paged_prefill_tc_kernel",
                           "paged_prefill_wide_kernel",
-                          "paged_prefill_kernel"),
+                          "paged_prefill_kernel", "split_d_prefill_kernel"),
     "mfa_qattn_fwd": ("qattn_fwd_tc_kernel", "qattn_fwd_wide_kernel",
                       "qattn_fwd_latent_kernel", "qattn_fwd_kernel"),
     "mfa_hpack_fwd": ("qattn_fwd_tc_kernel", "qattn_fwd_kernel"),

@@ -309,15 +309,21 @@ def test_unported_options_raise():
 
 def test_kernel_widths_and_zero_padded_lanes():
     """On the card a head dim runs at the next width the kernels are built
-    for, its Q/K/V/dO lanes zero-padded: the padded call gives the same O,
-    L and gradients in the head dim's lanes, and zeros in the rest."""
+    for (above 576 the next multiple of 16, on the split-D kernels), its
+    Q/K/V/dO lanes zero-padded: the padded call gives the same O, L and
+    gradients in the head dim's lanes, and zeros in the rest."""
     assert [tfa.flash_width(d) for d in (16, 48, 64, 80, 96, 272, 288, 304,
                                          320, 560, 576)] == [
         32, 64, 64, 128, 128, 288, 288, 576, 576, 576, 576]
     # Head dims off the multiples of 16 run at the next width too.
     assert [tfa.flash_width(d) for d in (1, 8, 20, 33, 40, 72, 300, 575)] == [
         32, 32, 32, 64, 64, 128, 576, 576]
-    for d in (0, 584, 592, 1152):
+    # Above 576 the split-D kernels take every multiple of 16.
+    assert [tfa.flash_width(d) for d in (577, 584, 592, 600, 1152, 2047)] == [
+        592, 592, 592, 608, 1152, 2048]
+    assert [tfa.split_d_slices(d) for d in (576, 584, 1024, 1152, 2048)] == [
+        1, 3, 4, 5, 8]
+    for d in (0, -16):
         with pytest.raises(ValueError, match="has no flash kernel"):
             tfa.flash_width(d)
     q, k, v, do, _ = _inputs("window_causal_rect", seed=2)

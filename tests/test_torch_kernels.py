@@ -35,7 +35,9 @@ modes of the paged kernels (one-state latent pages, ``v_tail_zero``,
 D = 80, 288, DeepSeek's 576 and 320 (run at 576), Hq = 16 over Hkv = 1)
 and of the flash kernels (D = 80, 288, DeepSeek's 576 and 320, run at 576)
 take their kernels' tolerances; so do the paged and flash kernels' scalar
-instances above 288; past 576 the paged and flash wrappers raise.  The
+instances above 288; above 576 the paged and flash wrappers run the
+split-D kernels (O's lanes split over CTAs, 580 to 2048 here), which take
+the same tolerances and repeat bit for bit.  The
 paged decode splits the KV axis across CTAs and merges the splits in a fixed order, so two calls on the
 same inputs are held equal bit for bit (at 576 the prefill too); so are
 the bf16 forward, dQ and
@@ -78,6 +80,7 @@ from metal_flash_attention_plus_tpu_torch.attention.precisions import (
 )
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     LOG2E,
+    SPLIT_D_SLICE,
     BlockSizes,
     DTYPE_CODES,
     estimate_row_max_scaled,
@@ -229,23 +232,36 @@ def test_kernel_rejects_unsupported_head_dim(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_reject_head_dims_past_576(cuda_device, dtype):
-    """592 is past DeepSeek's absorbed width: both wrappers raise on a
-    CUDA tensor, launch nothing and do not run the plain version."""
-    d, pt = 592, 16
-    pool = torch.zeros(1, 3, pt, d, device=cuda_device, dtype=dtype)
-    table = torch.zeros(1, 2, dtype=torch.int32, device=cuda_device)
-    lengths = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    """592 is past DeepSeek's absorbed width: both wrappers no longer raise
+    there but launch the split-D kernels, once each, with the plain
+    versions' results and V's zeroed tail zero in O."""
+    from metal_flash_attention_plus_tpu_torch.serving.paged_attention import (
+        decode_body,
+        prefill_body,
+    )
+
+    d, pt, vtz = 592, 16, 64
+    assert decode_body(dtype, d) == prefill_body(dtype, d, 1, vtz) == (
+        "split_d")
+    g = torch.Generator(device=cuda_device).manual_seed(592)
+    pool = torch.randn(1, 3, pt, d, generator=g, device=cuda_device).to(dtype)
+    table = torch.tensor([[1, 0]], dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor([20], dtype=torch.int32, device=cuda_device)
+    q = torch.randn(1, 16, d, generator=g, device=cuda_device).to(dtype)
+    qp = torch.randn(16, 8, d, generator=g, device=cuda_device).to(dtype)
+    kw = dict(v_tail_zero=vtz)
     n = (paged_decode_attention.launches, paged_prefill_attention.launches)
-    with pytest.raises(ValueError, match="has no kernel"):
-        paged_decode_attention(torch.zeros(1, 16, d, device=cuda_device,
-                                           dtype=dtype), pool, table,
-                               lengths, v_tail_zero=64)
-    with pytest.raises(ValueError, match="has no kernel"):
-        paged_prefill_attention(torch.zeros(16, 8, d, device=cuda_device,
-                                            dtype=dtype), pool, table[0], 0,
-                                v_tail_zero=64)
+    out = paged_decode_attention(q, pool, table, lengths, **kw)
+    pf = paged_prefill_attention(qp, pool, table[0], 12, **kw)
+    torch.cuda.synchronize()
     assert (paged_decode_attention.launches,
-            paged_prefill_attention.launches) == n
+            paged_prefill_attention.launches) == (n[0] + 1, n[1] + 1)
+    for got, want in (
+            (out, paged_decode_attention_plain(q, pool, table, lengths, **kw)),
+            (pf, paged_prefill_attention_plain(qp, pool, table[0], 12, **kw))):
+        assert got.shape == want.shape
+        assert (got.float() - want.float()).abs().max().item() <= _tol(dtype)
+        assert not got[..., d - vtz:].float().abs().max().item()
 
 
 # --------------------------------------------------------------------------
@@ -337,6 +353,21 @@ FLASH_CASES = {
         None),
     "rect_empty_rows_d576": (1, 4, 2, 250, 150, 576, masking.CAUSAL, None,
                              None),
+    # Above 576 the split-D kernels (O's lanes over CTAs, the scores over
+    # the whole head dim in 32-lane chunks): window rows starting mid-tile,
+    # bias over an odd Skv, sparse rows with an empty row, causal rows with
+    # no live key, a group of 16 over one head off the multiples of 16.
+    "window_mid_tile_d640": (1, 4, 2, 300, 300, 640, masking.sliding_window(
+        100, causal=True), None, None),
+    "bias_d608": (2, 4, 2, 100, 131, 608, masking.CAUSAL, None,
+                  (2, 1, 100, 131)),
+    "segments_empty_row_d1152": (
+        1, 4, 2, 130, 130, 1152, masking.MaskSpec(
+            masking.MaskKind.SPARSE_RANGES), _segments_with_empty_row(),
+        None),
+    "rect_empty_rows_d1024": (1, 4, 2, 250, 150, 1024, masking.CAUSAL, None,
+                              None),
+    "gqa16_d580": (1, 16, 1, 130, 130, 580, masking.CAUSAL, None, None),
 }
 
 
@@ -377,12 +408,13 @@ def test_flash_kernels_match_plain(cuda_device, dtype, interleaved, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 48, 64, 80, 128, 256, 288, 320, 576,
-                               8, 20, 24, 33, 40, 72, 300])
+                               8, 20, 24, 33, 40, 72, 300,
+                               580, 608, 640, 1024, 1152, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_every_head_dim(cuda_device, d, dtype):
     """Each built width, 48 (run at 64, zero-padded) and 320 (at 576); the
     head dims off the multiples of 16 (8 and 20 at 32, 33 and 40 at 64, 72
-    at 128, 300 at 576)."""
+    at 128, 300 at 576); above 576 the split-D kernels (580 run at 592)."""
     (q, k, v), do, _, rr = _flash_case(cuda_device, dtype, 1, 4, 1, 150, 150,
                                        d, masking.CAUSAL, seed=d)
     kw = dict(scale=d ** -0.5)
@@ -633,7 +665,8 @@ def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
     built width: the bf16 forward, dQ and dK/dV at every width on the
     tensor cores (288 on flash_fwd_wide_kernel and the wide bodies, 576 on
     flash_fwd_latent_kernel and the latent bodies), fp32 on the scalar
-    bodies."""
+    bodies; above 576 every multiple of 16 on the split-D kernels (bits 3,
+    4 and 5) in both dtypes."""
     import ctypes
 
     from metal_flash_attention_plus_tpu_torch import _build
@@ -652,25 +685,41 @@ def test_backward_kernels_route_as_the_python_bodies_say(cuda_device):
             assert [bool(bits >> i & 1) for i in range(3)] == want, (dtype, d)
             bf16 = dtype == torch.bfloat16
             assert want == [bf16, bf16, bf16]
+        for d in (592, 640, 1024, 2048):
+            want = [f(dtype, d) == "split_d" for f in (
+                fwd_body, fbwd.dq_body, fbwd.dkv_body)]
+            assert want == [True] * 3
+            assert bodies(DTYPE_CODES[dtype], d) == 8 | 16 | 32, (dtype, d)
     assert bodies(DTYPE_CODES[torch.bfloat16], 48) == -1
-    assert bodies(DTYPE_CODES[torch.bfloat16], 592) == -1
+    assert bodies(DTYPE_CODES[torch.bfloat16], 600) == -1  # not padded
+    split = _build.kernel_function("mfa_split_d_slice", [])
+    assert split() == SPLIT_D_SLICE
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_reject_head_dims_past_576(cuda_device, dtype):
     """592 is past DeepSeek's absorbed width: the forward, dQ and dK/dV
-    wrappers raise on a CUDA tensor and launch nothing."""
+    wrappers no longer raise there but launch the split-D kernels, once
+    each, with the plain versions' results."""
     (q, k, v), do, _, rr = _flash_case(cuda_device, dtype, 1, 4, 1, 64, 64,
                                        592, masking.CAUSAL)
-    lse = torch.zeros(1, 4, 64, device=cuda_device)
+    assert fwd_body(dtype, 592) == "split_d"
+    kw = dict(scale=592 ** -0.5)
     n = (flash_fwd.launches, flash_dq.launches, flash_dkv.launches)
-    for call in (lambda: flash_fwd(q, k, v, rr, scale=0.125),
-                 lambda: flash_dq(q, k, v, do, lse, lse, rr, scale=0.125),
-                 lambda: flash_dkv(q, k, v, do, lse, lse, rr, scale=0.125)):
-        with pytest.raises(ValueError, match="has no flash kernel"):
-            call()
-    assert (flash_fwd.launches, flash_dq.launches, flash_dkv.launches) == n
+    o, lse = flash_fwd(q, k, v, rr, **kw)
+    o_ref, l_ref = flash_attention_forward_plain(q, k, v, rr, **kw)
+    di = (do.float() * o_ref).sum(-1)
+    dq, _ = flash_dq(q, k, v, do, l_ref, di, rr, **kw)
+    dk, dv = flash_dkv(q, k, v, do, l_ref, di, rr, **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_dq.launches, flash_dkv.launches) == (
+        n[0] + 1, n[1] + 1, n[2] + 1)
+    dq_ref, _ = flash_attention_dq_plain(q, k, v, do, l_ref, di, rr, **kw)
+    dk_ref, dv_ref = flash_attention_dkv_plain(q, k, v, do, l_ref, di, rr,
+                                               **kw)
+    for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.shape == want.shape and _rel(got, want) <= _tol(dtype)
 
 
 @pytest.mark.cuda
@@ -1704,15 +1753,26 @@ def test_latent_quantized_kernels_repeat_bit_for_bit(cuda_device, d):
 @pytest.mark.cuda
 def test_quantized_kernels_past_576_and_fullint_past_288_raise(cuda_device):
     """At 592 the quantized forward and exact backward raise on a CUDA
-    tensor and launch nothing; the full-integer pair runs at 576 (where it
-    raised before its 576 instances): one dQ, one dK/dV launch, the plain
-    versions' results."""
+    tensor and launch nothing, and so does the full-integer backward: none
+    reaches the float split-D kernels that take 592 for float K/V; the
+    full-integer pair runs at 576 (where it raised before its 576
+    instances): one dQ, one dK/dV launch, the plain versions' results."""
     q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 64, 64, 592, ROW8C,
                               ROW8C, BF16)
     n = qa.qattn_fwd.launches
     with pytest.raises(ValueError, match="has no quantized kernel"):
         qa.quantized_flash_attention_forward(q, kq, vq)
     assert qa.qattn_fwd.launches == n
+    o = torch.zeros(q.shape, device=cuda_device)
+    lse = torch.zeros(q.shape[:3], device=cuda_device)
+    counted = (fbwd.qflash_dq, fbwd.qflash_dkv, fbwd.fullint_dq,
+               fbwd.fullint_dkv, flash_dq, flash_dkv)
+    n = [f.launches for f in counted]
+    for fullint in (False, True):
+        with pytest.raises(ValueError, match="has no .*kernel"):
+            fbwd.flash_attention_backward(q, kq, vq, o, lse,
+                                          torch.ones_like(q), fullint=fullint)
+    assert [f.launches for f in counted] == n
     q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 64, 64, 576, ROW8, CH8,
                               BF16)
     assert fbwd.fullint_backward_supported(q, kq, vq, masking.FULL, None,
@@ -1938,13 +1998,16 @@ def test_runtime_quantize_through_the_kernels(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool_kind", ["bf16", "f32", "int8"])
 @pytest.mark.parametrize("d,vtz", [(288, 32), (80, 16), (576, 64),
-                                   (320, 64), (24, 8), (72, 8), (33, 1)])
+                                   (320, 64), (24, 8), (72, 8), (33, 1),
+                                   (640, 64), (1088, 64), (1030, 6)])
 @pytest.mark.parametrize("kernel", ["decode", "prefill"])
 def test_latent_paged_kernels_match_plain(cuda_device, kernel, d, vtz,
                                           pool_kind):
     """Hq = 16 over Hkv = 1: the decode splits the group over CTAs at
     D = 288 and DeepSeek's 576; D = 80 runs the kernels' run-time head dim,
-    320 the 576 instances' (the prefill on paged_prefill_wide_kernel)."""
+    320 the 576 instances' (the prefill on paged_prefill_wide_kernel);
+    640, 1088 and 1030 (pool rows off the 4-lane vectors) the split-D
+    kernels."""
     rng = np.random.default_rng(d + vtz)
     hq, pt, num_pages = 16, 64, 12
     dtype = torch.float32 if pool_kind == "f32" else torch.bfloat16
@@ -2025,7 +2088,7 @@ def _page_table(rng, lengths, pt, num_pages, max_pages, device):
 # tail of 32 zeroed and at DeepSeek's 576 with 64, two-state pages at 576
 # (the int4 byte: one state, no tail).
 SPLIT_LAYOUTS = [(64, 2, 0), (128, 2, 0), (288, 1, 32), (576, 1, 64),
-                 (576, 2, 0)]
+                 (576, 2, 0), (608, 2, 0), (1024, 1, 64)]
 
 
 @pytest.mark.cuda
@@ -2153,7 +2216,8 @@ def test_prefill_tensor_core_instances_match_plain(cuda_device, d, states,
 @pytest.mark.cuda
 def test_paged_kernels_route_as_the_python_bodies_say(cuda_device):
     """The C library's routing (mfa_paged_bodies: bit 0 the decode, bit 1
-    the prefill on the tensor cores) agrees with decode_body and
+    the prefill on the tensor cores; above 576 bit 2 the decode, bit 3 the
+    prefill on the split-D kernels) agrees with decode_body and
     prefill_body."""
     import ctypes
 
@@ -2167,18 +2231,20 @@ def test_paged_kernels_route_as_the_python_bodies_say(cuda_device):
     bodies = _build.kernel_function("mfa_paged_bodies", [ctypes.c_int] * 4)
     for dtype in (torch.float32, torch.bfloat16):
         for d in (32, 64, 80, 128, 256, 272, 288, 304, 320, 512, 528, 576,
-                  8, 20, 33, 40, 72, 300, 520):
+                  8, 20, 33, 40, 72, 300, 520, 577, 592, 640, 1024, 1088):
             for states in (1, 2):
                 for vtz in (0, 16, 32, 64):
                     if vtz >= d:
                         continue  # no lane of V is kept: no layout
                     bits = bodies(_DTYPE_CODES[dtype], d, states, vtz)
-                    want = (decode_body(dtype) == "tensor_core") | (
-                        prefill_body(dtype, d, states, vtz)
-                        == "tensor_core") << 1
+                    dec = decode_body(dtype, d)
+                    pre = prefill_body(dtype, d, states, vtz)
+                    want = ((dec == "tensor_core") | (pre == "tensor_core") << 1
+                            | (dec == "split_d") << 2
+                            | (pre == "split_d") << 3)
                     assert bits == want, (dtype, d, states, vtz)
     assert bodies(_DTYPE_CODES[torch.bfloat16], 0, 2, 0) == -1
-    assert bodies(_DTYPE_CODES[torch.bfloat16], 592, 1, 64) == -1
+    assert bodies(_DTYPE_CODES[torch.bfloat16], 592, 1, 64) == 4 | 8
 
 
 @pytest.mark.cuda
@@ -2255,6 +2321,62 @@ def test_paged_kernels_at_576_are_deterministic(cuda_device, pool_kind,
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
     assert torch.equal(pfs[0], pfs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [640, 1088])
+def test_split_d_kernels_repeat_bit_for_bit(cuda_device, d, dtype):
+    """Above 576, each split-D kernel called twice on the same inputs gives
+    the same bits: the flash forward, dQ (with dbias) and dK/dV over 16 q
+    heads on one (the dK/dV's group split over CTAs and merged), causal,
+    and the paged decode (its KV axis split) and prefill over one-state
+    latent pages with 64 zeroed V lanes; each against its plain version."""
+    (q, k, v), do, bias, rr = _flash_case(cuda_device, dtype, 2, 16, 1, 256,
+                                          256, d, masking.CAUSAL,
+                                          bias_shape=(2, 1, 256, 256), seed=d)
+    assert fbwd.dkv_splits(dtype, d, 2, 16, 1, 256, 132) > 1
+    kw = dict(scale=d ** -0.5)
+    calls = {
+        "fwd": lambda: flash_fwd(q, k, v, rr, **kw),
+        "dq": lambda: flash_dq(q, k, v, do, lse, di, rr, bias=bias,
+                               want_dbias=True, **kw),
+        "dkv": lambda: flash_dkv(q, k, v, do, lse, di, rr, **kw)}
+    o, lse = calls["fwd"]()
+    di = (do.float() * o).sum(-1)
+    for name, call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y), name
+    dq, dbias = calls["dq"]()
+    dq_ref, dbias_ref = flash_attention_dq_plain(
+        q, k, v, do, lse, di, rr, bias=bias, want_dbias=True, **kw)
+    assert _rel(dq, dq_ref) <= _tol(dtype)
+    assert _rel(dbias, dbias_ref) <= _tol(dtype)
+    vtz, pt, hq = 64, 64, 16
+    lengths = np.asarray([1, 300, 1800, 77], np.int32)
+    rng = np.random.default_rng(d)
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    pool, pkw = _paged_pool(cuda_device, kind, 1, 40, pt, d, 1, seed=d)
+    pkw.update(page_tokens=pt, v_tail_zero=vtz, scale=d ** -0.5)
+    table = _page_table(rng, lengths, pt, 40, 32, cuda_device)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    qd = torch.from_numpy(rng.standard_normal((4, hq, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    qp = torch.from_numpy(rng.standard_normal((hq, 256, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    for fn, plain, args in (
+            (paged_decode_attention, paged_decode_attention_plain,
+             (qd, pool, table, ln)),
+            (paged_prefill_attention, paged_prefill_attention_plain,
+             (qp, pool, table[2], 512))):
+        first, second = fn(*args, **pkw), fn(*args, **pkw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        ref = plain(*args, **pkw)
+        assert (first.float() - ref.float()).abs().max().item() <= _tol(
+            dtype)
 
 
 # --------------------------------------------------------------------------
@@ -2735,7 +2857,7 @@ def _static_row_max(q, k, mask, rr, mode, scale, hq, hkv,
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["estimate", "caller"])
 @pytest.mark.parametrize("mask_name", sorted(STATIC_MASKS))
-@pytest.mark.parametrize("d", [32, 64, 128, 256, 288])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 288, 640])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_static_max_kernel_matches_plain(cuda_device, dtype, d, mask_name,
                                          mode):
@@ -2791,10 +2913,12 @@ def test_static_max_body_is_the_forward_body(cuda_device):
     fn = _build.kernel_function("mfa_flash_static_max_body",
                                 [ctypes.c_int] * 2)
     for dtype, code in DTYPE_CODES.items():
-        for d in (32, 64, 128, 256, 288):
-            assert fn(code, d) == int(fwd_body(dtype, d) == "tensor_core")
+        for d in (32, 64, 128, 256, 288, 640, 1024):
+            assert fn(code, d) == {"tensor_core": 1, "split_d": 2}.get(
+                fwd_body(dtype, d), 0)
     assert fn(DTYPE_CODES[torch.bfloat16], 288) == 1  # flash_fwd_wide_kernel
     assert fn(DTYPE_CODES[torch.float32], 288) == 0
+    assert fn(DTYPE_CODES[torch.float32], 640) == 2  # split_d_fwd_kernel
     assert fn(1, 40) == -1
 
 

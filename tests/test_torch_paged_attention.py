@@ -234,25 +234,32 @@ def test_prefill_routing_rule(dtype, d, states, vtz, want):
 
 @pytest.mark.parametrize("d", [592, 1024, 40])
 def test_head_dim_without_a_kernel_raises(d):
-    """Past 576 (DeepSeek's absorbed width), or below 1, no kernel takes
-    the head dim: the routing raises, as the CUDA wrappers do before they
-    launch.  Every head dim from 1 to 576 has one: 40 (Stable Diffusion
-    1.5's first UNet level) takes the tensor-core prefill in bf16."""
+    """Below 1 no kernel takes the head dim: the routing raises, as the
+    CUDA wrappers do before they launch.  Every head dim from 1 has one:
+    40 (Stable Diffusion 1.5's first UNet level) takes the tensor-core
+    prefill in bf16; past 576 (DeepSeek's absorbed width) both kernels
+    take the split-D route in both dtypes."""
+    check_head_dim("paged_decode", d)
     if d > 576:
-        with pytest.raises(ValueError, match="has no kernel"):
-            check_head_dim("paged_decode", d)
-        with pytest.raises(ValueError, match="has no kernel"):
-            prefill_body(torch.bfloat16, d, 1, 0)
+        for dtype in (torch.bfloat16, torch.float32):
+            assert prefill_body(dtype, d, 1, 0) == "split_d"
+            assert prefill_body(dtype, d, 2, 0) == "split_d"
+            assert decode_body(dtype, d) == "split_d"
     else:
-        check_head_dim("paged_decode", d)
         assert prefill_body(torch.bfloat16, d, 1, 0) == "tensor_core"
-    with pytest.raises(ValueError, match="has no kernel"):
-        check_head_dim("paged_decode", 0)
-    for ok in (1, 8, 33, 72, 575, 576):
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="has no kernel"):
+            check_head_dim("paged_decode", bad)
+        with pytest.raises(ValueError, match="has no kernel"):
+            prefill_body(torch.bfloat16, bad, 1, 0)
+        with pytest.raises(ValueError, match="has no kernel"):
+            decode_body(torch.bfloat16, bad)
+    for ok in (1, 8, 33, 72, 575, 576, 577, 4096):
         check_head_dim("paged_decode", ok)
 
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),
                                         (torch.float32, "fp32_fma")])
 def test_decode_routing_rule(dtype, want):
-    assert decode_body(dtype) == want
+    for d in (1, 64, 288, 576):
+        assert decode_body(dtype, d) == want
