@@ -421,7 +421,30 @@ checkout, then, on the card:
    phase 5's 8 requests served on the split-D paged kernels (counted),
    the fp32 gradients within 1e-3 of plain attention's, 4 train steps
    (one forward, dQ and dK/dV a layer a step, counted) and a rerun of them
-   equal bit for bit.
+   equal bit for bit;
+25. the quantized attention above 576, on the split-D kernels
+   (``csrc/split_d_quantized.cu``, ``csrc/split_d_quantized_bwd.cu``;
+   inputs from a nineteenth generator, seed + 24): (a) at D = 580 (run at
+   592), 608, 640, 1024 and 1152 every quantized kernel against its plain
+   version under 16 causal q heads over one (phase 19 (a)'s modes: the
+   forward over int8 / int4 ROW, folded ROW / CHANNEL / TENSOR, BLOCK_2D,
+   an int8 Q with bf16 and int8 P over 128- and 256-key spans, bias, a
+   window, fp32 Q; the exact dQ with dbias and dK/dV; the full-integer
+   pair at levels 1 and 2), BLOCK_2D blocks that straddle the 256-lane
+   slices at 608, 640 and 1152, sparse rows with an empty one at 640, a
+   level-2 span below one k step at 640 and one forward at 2048, each
+   twice, bit for bit; (b) the five kernels at B=2, Hq=16 over one head,
+   S=2048, int8 ROW K/V (causal; the full-integer pair FULL over CHANNEL
+   V) at D = 640 and 1024 and the ``QuantizedAttention`` forward at
+   Perceiver IO's cross-attention shape, each beside its bound, plain
+   version, SDPA over the dequantized bf16 K/V and phase 24's float
+   split-D time; (c) phase 24's head dim 640 model:
+   ``quantized_forward(quantize_weights(params), tokens, cfg,
+   quantize_kv=True)`` within 0.25 rel L2 of the fp32 forward with one
+   split-D quantized forward a layer (counted), then one
+   ``quantized_flash_attention`` forward and backward at its layer shape
+   with ``bwd_fullint`` off and on (counted), gradients within 0.05 rel
+   L2.
 
 Phase 10 and 11 hold the quantized forward to its plain version over the
 key spans the main path gives it: the TPU's ``block_kv`` where P is int8.
@@ -5609,15 +5632,17 @@ WIDE_QREDESIGNED = {
 WIDE_PATH_CALLS = ("exact", "quantize_q", "fullint", "facade")
 
 
-def check_quantized_width(rng, d, shape, errs, fullint=True):
+def check_quantized_width(rng, d, shape, errs, fullint=True, block2d=True):
     """Every quantized kernel at head dim ``d`` against its plain version
     at ``shape`` (B, Hq, Hkv, S, S), two calls bit for bit: the forward in
     int8 / int4 dequant, folded ROW / CHANNEL / TENSOR, BLOCK_2D, an int8
     Q with int8 P over block_kv spans of 128 and 256, an int8 Q over ROW
     V, bias, a sliding window, an fp32 Q and an fp32 Q quantized to int8;
     the exact dQ and dK/dV in those modes with dbias; with ``fullint`` the
-    full-integer pair at levels 1 and 2.  Into ``errs``, {label: errors}
-    (a check whose two calls differ raises)."""
+    full-integer pair at levels 1 and 2; ``block2d`` False leaves out the
+    BLOCK_2D modes (16-lane blocks, which a head dim off the multiples of
+    16 does not hold).  Into ``errs``, {label: errors} (a check whose two
+    calls differ raises)."""
     row8, row8c, row4c = qcfg(), qcfg(strategy="centered"), qcfg(
         bits=4, strategy="centered")
     ten8, ch8, ch4 = qcfg(gran="tensor"), qcfg(gran="channel"), qcfg(
@@ -5632,7 +5657,7 @@ def check_quantized_width(rng, d, shape, errs, fullint=True):
             ("folded ROW", row8, row8, {}),
             ("folded CHANNEL int4 K", ch4, ch8, {}),
             ("folded TENSOR", ten8, ten8, {}),
-            ("BLOCK_2D 16", b2d, b2d, {}),
+            *((("BLOCK_2D 16", b2d, b2d, {}),) if block2d else ()),
             ("int8 Q / int8 P, 128-key spans", row8, ch8,
              dict(quantize_q=True, block_kv=128)),
             ("int8 Q / int8 P, 256-key spans", row8, ch8,
@@ -5652,7 +5677,7 @@ def check_quantized_width(rng, d, shape, errs, fullint=True):
             ("folded ROW", row8, row8, {}),
             ("folded CHANNEL int4", ch4, ch4, {}),
             ("folded TENSOR", ten8, ten8, {}),
-            ("BLOCK_2D 16", b2d, b2d, {}),
+            *((("BLOCK_2D 16", b2d, b2d, {}),) if block2d else ()),
             ("bias-dbias", row8c, row8c, dict(bias_shape=bias)),
             ("window-causal", row8c, row4c, dict(mask=window)),
             ("fp32", row8c, row4c, dict(dtype=torch.float32))):
@@ -5829,7 +5854,7 @@ WIDE_COUNTED = (qattn_fwd, fbwd.qflash_dq, fbwd.qflash_dkv, fbwd.fullint_dq,
 
 
 def check_joint_calls(label, kinds, q_lat, k, v, kq, vq, vq_ch, do, out,
-                      scale=MLA_SCALE):
+                      splits, scale=MLA_SCALE):
     """Each call of ``kinds`` (wide_path_call's) over the joint latent,
     forward and backward, the counts set to 0 just before and read after
     (one forward, one dQ, one dK/dV and its merge, or the full-integer
@@ -5838,7 +5863,11 @@ def check_joint_calls(label, kinds, q_lat, k, v, kq, vq, vq_ch, do, out,
     residuals, against the dense fp32 VJP on the dequantized K/V (the
     full-integer ones against the exact call on the same operands); the
     call's O and each launched kernel against its plain version on the
-    call's inputs.  Into ``out``."""
+    call's inputs.  ``splits``: the split counts the exact and the
+    full-integer dK/dV must take at this shape on an H100's 132 SMs,
+    stated by the caller; the planners (``dkv_splits``,
+    ``fullint_dkv_splits``) are held to them, and the merge is counted
+    where the count is above 1.  Into ``out``."""
     names = ("dq", "dk_scale", "dv_scale", "dk", "dv")
     for kind in kinds:
         fn, mask, (ckq, cvq), quantize_q, fullint = wide_path_call(
@@ -5851,10 +5880,20 @@ def check_joint_calls(label, kinds, q_lat, k, v, kq, vq, vq_ch, do, out,
         out["seconds"][kind] = time.perf_counter() - t0
         counts = {f.__name__: f.launches for f in WIDE_COUNTED if f.launches}
         out["launches"][kind] = counts
+        b, hq, s, d = q_lat.shape
+        hkv = ckq.shape[1]
+        planned = (fbwd.fullint_dkv_splits(d, b, hq, hkv, s, sm_count())
+                   if fullint else fbwd.dkv_splits(q_lat.dtype, d, b, hq,
+                                                   hkv, s, sm_count()))
+        want_splits = splits[1 if fullint else 0]
+        if planned != want_splits:
+            raise AssertionError(f"{label} {kind}: the dK/dV plan takes "
+                                 f"{planned} splits, expected {want_splits}")
         want_counts = {"qattn_fwd": 1,
                        **({"fullint_dq": 1, "fullint_dkv": 1} if fullint else
-                          {"qflash_dq": 1, "qflash_dkv": 1,
-                           "merge_dkv_splits": 1}),
+                          {"qflash_dq": 1, "qflash_dkv": 1}),
+                       **({"merge_dkv_splits": 1} if want_splits > 1
+                          else {}),
                        **({"rtq_rows": 2} if kind == "facade" else {})}
         log(f"{label}, {kind}: launches {json.dumps(counts)}, "
             f"{out['seconds'][kind]:.3f} s (first call)")
@@ -5912,7 +5951,7 @@ def run_wide_path(seed):
                     "for the full-integer call), MLAConfig() layer 0, seed "
                     f"{seed}"}
     check_joint_calls("MLA joint latent", WIDE_PATH_CALLS, q_lat, k, v, kq,
-                      vq, vq_ch, do, out)
+                      vq, vq_ch, do, out, splits=(16, 1))
     # The device kernels, by name, of the exact and the full-integer calls;
     # a trace that recorded no kernel (PERF.md §7) is taken again.
     steps = []
@@ -6828,7 +6867,8 @@ def run_latent_path(seed):
                     "ROW [2, 1, 2048, 512]; V2_LITE layer 0, seed "
                     f"{seed}"}
     check_joint_calls("V2-Lite joint latent", LATENT_PATH_CALLS[:3], q_lat,
-                      k, v, kq, vq, None, do, out, DS_SCALE)
+                      k, v, kq, vq, None, do, out, splits=(8, 8),
+                      scale=DS_SCALE)
     # The absorbed call over the bare latent (run at 576: 512 + 64 zeros).
     cq = quantize(c[:, None], row)
     do_n = torch.randn(qn.shape, generator=g, device=DEV).to(qn.dtype)
@@ -7633,6 +7673,288 @@ def run_split_d(seed, dec_lens):
     return out, phase
 
 
+# --------------------------------------------------------------------------
+# Phase 25: the quantized attention above 576 (split-D kernels)
+# --------------------------------------------------------------------------
+
+QSPLIT_SOURCES = {
+    "qattn_fwd": "metal_flash_attention_plus_tpu_torch/csrc/"
+                 "split_d_quantized.cu",
+    **{f: "metal_flash_attention_plus_tpu_torch/csrc/split_d_quantized_bwd.cu"
+       for f in ("qflash_dq", "qflash_dkv", "fullint_dq", "fullint_dkv")}}
+QSPLIT_KERNELS = {"qattn_fwd": "split_d_qattn_kernel",
+                  "qflash_dq": "split_d_qdq_kernel",
+                  "qflash_dkv": "split_d_qdkv_kernel",
+                  "fullint_dq": "split_d_fullint_dq_kernel",
+                  "fullint_dkv": "split_d_fullint_dkv_kernel"}
+QSPLIT_REPLACES = {"qattn_fwd": f"{QATTN_TPU}:87",
+                   "qflash_dq": f"{FLASH_BWD_TPU}:77",
+                   "qflash_dkv": f"{FLASH_BWD_TPU}:954",
+                   "fullint_dq": f"{FLASH_BWD_TPU}:511",
+                   "fullint_dkv": f"{FLASH_BWD_TPU}:584"}
+QSPLIT_DESIGN = (
+    "phase 24's split-D frame over the payload (256 output lanes a CTA, the "
+    "scores over the whole head dim in 32-lane chunks, recomputed once a "
+    "slice): int8 / int4 rows read as they lie and dequantized (or kept as "
+    "integers) a chunk at a time, bf16 mma.sync for a bf16 Q, s8 mma.sync "
+    "m16n8k32 for an int8 Q and the full-integer S and dP, P.V (dQ, dK, dV) "
+    "over the CTA's slice on bf16 mma.sync, fp32 FMAs where the mode does "
+    "not round to bf16 and at the full-integer level 2")
+# (a)'s widths (580 runs at 592) and shape (B, Hq, Hkv, S, S): 16 causal
+# q heads over one; (b)'s widths.
+QSPLIT_DIMS = (580, 608, 640, 1024, 1152)
+QSPLIT_SHAPE = (1, DS_HQ, 1, 200, 200)
+QSPLIT_TIMED = (640, 1024)
+# BLOCK_2D blocks whose cells straddle the 256-lane slices.
+QSPLIT_STRADDLE = {608: 152, 640: 80, 1152: 48}
+
+
+def check_quantized_split_d_all(rng):
+    """(a) Every quantized kernel at each of QSPLIT_DIMS against its plain
+    version (``check_quantized_width``; BLOCK_2D where 16-lane blocks tile
+    the head dim: not at 580), BLOCK_2D blocks straddling the
+    slices (forward and exact pair), sparse rows with an empty one (the
+    forward), a level-2 span below one k step (S=144: 16 wide) and one
+    forward at 2048, each twice, bit for bit → {label: errors}."""
+    errs = {}
+    row8c = qcfg(strategy="centered")
+    for d in QSPLIT_DIMS:
+        check_quantized_width(rng, d, QSPLIT_SHAPE, errs,
+                              block2d=d % 16 == 0)
+        if d in QSPLIT_STRADDLE:
+            bs = QSPLIT_STRADDLE[d]
+            b2d = qcfg(gran="block_2d", strategy="centered", block_rows=4,
+                       block_size=bs)
+            label = f"BLOCK_2D {bs} straddling the slices"
+            errs[f"fwd d{d} {label}"] = check_qattn(
+                rng, f"D={d} {label}", *QSPLIT_SHAPE, d, b2d, b2d,
+                repeat=True)
+            errs[f"qflash d{d} {label}"] = check_qflash(
+                rng, f"D={d} {label}", *QSPLIT_SHAPE, d, b2d, b2d,
+                repeat=True)
+    seg = masking.build_segment_ranges(np.repeat(np.arange(4), 50))
+    seg[77] = (10, 10)
+    errs["fwd d640 sparse rows"] = check_qattn(
+        rng, "D=640 sparse rows, an empty one", *QSPLIT_SHAPE, 640, row8c,
+        row8c, mask=masking.MaskSpec(masking.MaskKind.SPARSE_RANGES),
+        mask_ranges=seg, repeat=True)
+    errs["fwd d2048 int8 ROW CENTERED"] = check_qattn(
+        rng, "D=2048 int8 ROW CENTERED", 1, 2, 1, 64, 64, 2048, row8c, row8c,
+        repeat=True)
+    errs["fullint d640 w16 l2"] = check_fullint(
+        rng, "D=640 ROW K / CHANNEL V, S=144", 1, 8, 1, 144, 640, qcfg(),
+        qcfg(gran="channel"), True,
+        BlockSizes(block_kv_dq=512, block_q_dkv=512), repeat=True)
+    log(f"phase 25 (a): {len(errs)} checks, each bit for bit on a repeat")
+    return errs
+
+
+def time_quantized_perceiver(rng, split_d_perceiver):
+    """(b) ``QuantizedAttention``'s forward (int8 ROW CENTERED K/V
+    quantized at run time, FULL) at Perceiver IO's cross-attention
+    (PERCEIVER), bf16: the whole call (events; the counts set to 0 just
+    before one call and read after), the quantized forward alone on its
+    K/V (events and device ms) beside its bound, its plain version (held
+    to it at the flash gates), SDPA over the dequantized bf16 K/V and
+    phase 24's float split-D forward on float K/V of the same shape."""
+    b, h, sq, skv, d = PERCEIVER
+    gen = device_generator(rng)
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device=DEV).to(
+        torch.bfloat16) for n in (sq, skv, skv))
+    facade = QuantizedAttention()
+    rtq.rtq_rows.launches = qattn_fwd.launches = 0
+    o_call = facade(q, k, v)
+    torch.cuda.synchronize()
+    counts = {"runtime_quantize_row": rtq.rtq_rows.launches,
+              "qattn_fwd": qattn_fwd.launches}
+    if counts != {"runtime_quantize_row": 2, "qattn_fwd": 1}:
+        raise AssertionError(f"Perceiver facade launches {counts}")
+    kq, vq = facade.quantize_kv(k, v)
+    a, kw = qattn_arguments(q, kq, vq)
+    kernel = lambda: qattn_fwd(*a, **kw)  # noqa: E731
+    plain = lambda: qattn_fwd_plain(*a, **kw, kv_tile=KV_TILE)  # noqa: E731
+    errs = check_pair("Perceiver facade forward (split_d)", kernel(), plain())
+    if not torch.equal(o_call, kernel()[0].to(o_call.dtype)):
+        raise AssertionError("Perceiver facade: the call's O is not its "
+                             "kernel's")
+    kd, vd = dequantized_bf16(kq), dequantized_bf16(vq)
+    t = {"facade_ms": time_ms(lambda: facade(q, k, v), 5, warmup=1),
+         "ms": time_ms(kernel, 5, warmup=1),
+         "plain_ms": time_ms(plain, 2, warmup=1),
+         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+             q, kd, vd), 10)}
+    t["ms_2"] = time_ms(kernel, 5, warmup=0)
+    t["device_ms_by_kernel"] = device_ms_by_label(kernel, 3)
+    t["device_ms"] = (sum(t["device_ms_by_kernel"].values())
+                      or measure_held(kernel, iters=3, warmup=0) * 1e3)
+    t["facade_device_ms_by_kernel"] = device_ms_by_label(
+        lambda: facade(q, k, v), 3)
+    t["library_backend"] = sdpa_backend(q, kd, vd)
+    pairs, n_q, n_kv = b * h * sq * skv, b * h * sq * d, b * h * skv * d
+    t["bound_ms"], t["bound_by"] = attn_bound(
+        pairs, 0, 4 * d, 2 * n_q + 2 * n_kv + 16 * b * h * skv + 4 * n_q
+        + 4 * b * h * sq)
+    t["float_split_d_ms"] = split_d_perceiver["ms"]
+    t["float_split_d_device_ms"] = split_d_perceiver["device_ms"]
+    t["launches"] = counts
+    t["rel_err"], t["max_abs_err"] = errs[0], errs[2]
+    t["body"] = qattn_body(a[0].dtype, kw["mode"], d=d)
+    t["shape"] = (f"B={b} H={h} Sq={sq} Skv={skv} D={d} FULL bf16, int8 "
+                  "ROW CENTERED K/V (Perceiver IO image cross-attention)")
+    log("phase 25 (b) Perceiver IO facade forward: " + json.dumps(t))
+    return t
+
+
+def time_quantized_split_d(rng, split_d_times):
+    """(b) The five kernels at D = 640 and 1024 on phase 24 (b)'s trio
+    shape (B=2, Hq=16 over one head, S=2048; int8 ROW K/V, causal; the
+    full-integer pair FULL over CHANNEL V, levels 1 and 2):
+    ``time_wide_kernels``' events, device ms, bound, plain and SDPA, and
+    phase 24's float split-D kernel at the same shape beside each."""
+    out = {}
+    for d in QSPLIT_TIMED:
+        gen = device_generator(rng)
+        b, hq, s = DS_TRAIN_BATCH, DS_HQ, DS_TRAIN_SEQ
+        q, do = (torch.randn((b, hq, s, d), generator=gen, device=DEV).to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((b, 1, s, d), generator=gen, device=DEV)
+                for _ in range(2))
+        kq, vq, vq_ch = (quantize(k, qcfg()), quantize(v, qcfg()),
+                         quantize(v, qcfg(gran="channel")))
+        del k, v
+        times = time_wide_kernels((q, kq, vq, vq_ch, do), scale=d ** -0.5,
+                                  fam="split_d")
+        flash = split_d_times[f"d{d}"]
+        for name, fl in (("qattn_fwd_split_d", "flash_fwd"),
+                         ("qattn_fwd_split_d_int8_q", "flash_fwd"),
+                         ("qflash_dq_split_d", "flash_dq"),
+                         ("qflash_dkv_split_d", "flash_dkv"),
+                         (f"fullint_dq_d{d}", "flash_dq"),
+                         (f"fullint_dkv_d{d}", "flash_dkv")):
+            times[name]["float_split_d_ms"] = flash[fl]["ms"]
+            times[name]["float_split_d_device_ms"] = flash[fl].get(
+                "device_ms")
+            if times[name]["body"] != "split_d":
+                raise AssertionError(f"{name} at D={d} runs "
+                                     f"{times[name]['body']}")
+        # The exact pair's traces name the quantized kernels, not the float
+        # ones whose body they share.
+        for family in ("qflash_dq", "qflash_dkv"):
+            seen = set(times[f"{family}_split_d"]["device_ms_by_kernel"])
+            if seen and QSPLIT_KERNELS[family] not in seen:
+                raise AssertionError(f"{family} at D={d}: traced "
+                                     f"{sorted(seen)}")
+        out[f"d{d}"] = times
+        del q, do, kq, vq, vq_ch
+        torch.cuda.empty_cache()
+    return out
+
+
+QSPLIT_COUNTED = (qattn_fwd, fbwd.qflash_dq, fbwd.qflash_dkv, fbwd.fullint_dq,
+                  fbwd.fullint_dkv, fbwd.merge_dkv_splits)
+
+
+def run_quantized_split_d_path(seed, rng):
+    """(c) SPLIT_D_CFG (phase 24's head dim 640 model, its weights from
+    the same seed): ``quantized_forward(..., quantize_kv=True)`` over W8A8
+    weights against the fp32 forward on the dequantized weights (rel L2 ≤
+    QFWD_LOGITS_TOL; the counts set to 0 just before and read after: one
+    quantized forward a layer, on the split-D kernel), then
+    ``quantized_flash_attention`` forward and backward at its layer shape
+    (B=2, 8 q heads over 2, 2048 tokens, int8 ROW K/V) with ``bwd_fullint``
+    off (causal) and on (FULL, CHANNEL V), through ``check_joint_calls``
+    (counted; gradients ≤ 0.05 rel L2) → record."""
+    cfg = SPLIT_D_CFG
+    d = cfg.head_dim
+    params = init_params(cfg, torch.Generator().manual_seed(seed + 24),
+                         device=DEV)
+    out = {}
+    with torch.inference_mode():
+        qparams = quantize_weights(params, W8_CFG)
+        for f in QSPLIT_COUNTED:
+            f.launches = 0
+        err, launches = run_quantized_attention_forward(
+            cfg, qparams, seed, False, QFWD_LOGITS_TOL,
+            "split-D quantized_forward(quantize_kv=True)")
+        out["model_launches"] = {f.__name__: f.launches
+                                 for f in QSPLIT_COUNTED if f.launches}
+        names = set(device_ms_by_label(lambda: quantized_forward(
+            qparams, torch.zeros(QFWD_TOKENS, dtype=torch.long, device=DEV),
+            cfg, quantize_kv=True, packed_d64=False), 1))
+        del qparams
+    del params
+    body = qattn_body(torch.int8, QAttnMode("column", "token"), d=d)
+    qattn_names = {n for n in names if "qattn" in n or "hpack" in n}
+    if body != "split_d" or (names and qattn_names != {
+            QSPLIT_KERNELS["qattn_fwd"]}):
+        raise AssertionError(f"head dim {d} quantized forward: {body}, "
+                             f"traced {sorted(names)}")
+    out.update(logits_rel_l2=err, launches=launches, body=body,
+               device_kernels=sorted(qattn_names) or "not traced")
+    gen = device_generator(rng)
+    b, hq, hkv, s = 2, cfg.num_heads, cfg.num_kv_heads, QFWD_TOKENS[1]
+    q, do = (torch.randn((b, hq, s, d), generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=DEV)
+            for _ in range(2))
+    kq, vq, vq_ch = (quantize(k, qcfg()), quantize(v, qcfg()),
+                     quantize(v, qcfg(gran="channel")))
+    calls = {"seconds": {}, "launches": {}, "grads_rel_l2": {},
+             "kernels": {}}
+    check_joint_calls(f"split-D D={d} layer shape", ("exact", "fullint"), q,
+                      k, v, kq, vq, vq_ch, do, calls, splits=(2, 2),
+                      scale=d ** -0.5)
+    out.update(calls)
+    out["shape"] = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16, int8 ROW "
+                    "K/V (causal); bwd_fullint: FULL over CHANNEL V")
+    log("phase 25 (c) head dim 640 quantized path: " + json.dumps(
+        {k_: out[k_] for k_ in ("logits_rel_l2", "launches",
+                                "model_launches", "device_kernels",
+                                "grads_rel_l2", "shape")}))
+    return out
+
+
+def run_quantized_split_d(seed, split_d):
+    """Phase 25 (a)-(c), inputs from a nineteenth generator (seed + 24);
+    ``split_d``: phase 24's record (its float times beside (b)'s) →
+    (record, phase seconds)."""
+    rng = np.random.default_rng(seed + 24)
+    out, phase = {}, {}
+    t = time.perf_counter()
+    with torch.no_grad():
+        out["errors"] = check_quantized_split_d_all(rng)
+    torch.cuda.empty_cache()
+    phase["qsplit_d_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.no_grad():
+        out["times"] = time_quantized_split_d(rng, split_d["times"])
+        out["perceiver"] = time_quantized_perceiver(rng,
+                                                    split_d["perceiver"])
+    torch.cuda.empty_cache()
+    phase["qsplit_d_times"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["path"] = run_quantized_split_d_path(seed, rng)
+    torch.cuda.empty_cache()
+    phase["qsplit_d_path"] = time.perf_counter() - t
+    return out, phase
+
+
+def qsplit_errors(errors, path_kernels, family):
+    """[(rel err, max abs err)] of one family's checks in phase 25 (a) and
+    (c)."""
+    if family == "qattn_fwd":
+        picked = [(e[0], e[2]) for k, e in errors.items()
+                  if k.startswith("fwd ")]
+        return picked + [(e["qattn_fwd"][0], e["qattn_fwd"][2])
+                         for e in path_kernels.values()]
+    prefix = "qflash " if family.startswith("qflash") else "fullint "
+    outs = ("dq", "dbias") if family.endswith("_dq") else ("dk", "dv")
+    return ([e[o] for k, e in errors.items() if k.startswith(prefix)
+             for o in outs if o in e]
+            + [e[family][o] for e in path_kernels.values() if family in e
+               for o in outs if o in e[family]])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7759,6 +8081,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     split_d, split_d_phase = run_split_d(args.seed, dec_lens)
     phase_s.update(split_d_phase)
+    torch.cuda.empty_cache()
+    qsplit, qsplit_phase = run_quantized_split_d(args.seed, split_d)
+    phase_s.update(qsplit_phase)
     log_parent_summary()
     log("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
@@ -8509,6 +8834,66 @@ def main() -> int:
             entry["splits_d640"] = split_d["times"]["d640"]["splits"]
         DEVICE_KERNELS[entry["name"]] = kernel
         record["kernels"].append(entry)
+    # The quantized kernels above 576, from phase 25: times at D = 1024
+    # (640 beside them), launches from (c)'s path.
+    qp = qsplit["path"]
+    for family, kernel in QSPLIT_KERNELS.items():
+        errs_k = qsplit_errors(qsplit["errors"], qp["kernels"], family)
+        times = {d: qsplit["times"][f"d{d}"][
+            f"{family}_d{d}" if family.startswith("fullint")
+            else f"{family}_split_d"] for d in QSPLIT_TIMED}
+        t, t640 = times[1024], times[640]
+        per_call = {"model": qp["model_launches"].get(family, 0),
+                    **{k: c.get(family, 0)
+                       for k, c in qp["launches"].items()}}
+        entry = {
+            "name": f"{family}_split_d", "route": "cuda",
+            "source": QSPLIT_SOURCES[family],
+            "replaces": QSPLIT_REPLACES[family],
+            "launches": sum(per_call.values()),
+            "launches_per_call": per_call,
+            "max_abs_err": max(e[1] for e in errs_k),
+            "rel_err": max(e[0] for e in errs_k),
+            **{k: t[k] for k in ("ms", "ms_2", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "device_ms",
+                                 "device_ms_by_kernel", "body",
+                                 "float_split_d_ms",
+                                 "float_split_d_device_ms")},
+            **{f"{k}_d640": t640[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "float_split_d_ms", "float_split_d_device_ms")},
+            **{k: v for k, v in t.items()
+               if k.endswith("_level2") or k in ("splits", "width")},
+            **{f"{k}_d640": v for k, v in t640.items()
+               if k.endswith("_level2") or k == "splits"},
+            "library": ("sdpa forward" if family == "qattn_fwd" else
+                        "sdpa backward (dq, dk, dv together)")
+                       + " over the dequantized bf16 K/V",
+            "shape": ("B=2 Hq=16 Hkv=1 S=2048 bf16, int8 ROW K/V, "
+                      + ("FULL over CHANNEL V, levels 1 and 2"
+                         if family.startswith("fullint") else "causal")
+                      + ", D=1024"),
+            "checks": len(errs_k), "bitwise_equal_two_calls": True,
+            "design": QSPLIT_DESIGN,
+            "launches_on": "phase 25 (c): the head dim 640 model's "
+                           "quantized_forward(quantize_kv=True) and one "
+                           "quantized_flash_attention fwd+bwd at its layer "
+                           "shape with bwd_fullint off and on",
+        }
+        if family == "qattn_fwd":
+            qt = qsplit["times"]["d1024"]["qattn_fwd_split_d_int8_q"]
+            entry.update({f"{k}_int8_q": qt[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "body")})
+            entry.update({f"{k}_perceiver": qsplit["perceiver"][k]
+                          for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "device_ms", "facade_ms",
+                                    "float_split_d_ms", "library_backend",
+                                    "shape")})
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']}: no launch on the path")
+        DEVICE_KERNELS[entry["name"]] = kernel
+        record["kernels"].append(entry)
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
     record["gemm_engine"] = {
@@ -8598,6 +8983,14 @@ def main() -> int:
             "serve_rates", "serve_calls", "grad_rel_l2_worst",
             "train_launches", "train_losses", "train_s",
             "rerun_bitwise_equal")},
+    }
+    record["quantized_split_d"] = {
+        "checks": len(qsplit["errors"]),
+        "bitwise_equal_two_calls": True,  # (a) raises otherwise
+        "path": {k: qp[k] for k in (
+            "logits_rel_l2", "launches", "model_launches", "body",
+            "device_kernels", "grads_rel_l2", "seconds", "shape")},
+        "perceiver_launches": qsplit["perceiver"]["launches"],
     }
     record["wide_quantized"] = {
         "checks": len(wide["errors"]),

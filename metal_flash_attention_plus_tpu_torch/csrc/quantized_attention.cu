@@ -25,7 +25,9 @@
 // j + 128, bytes [128, 144) values 256 + j and 272 + j; D = 576: three
 // groups; quantized_tiles.cuh reads them all).  Head dims: built for 32,
 // 64, 128, 256, 288 and 576; the other multiples of 16 up to 576 run
-// zero-padded at the next (ops/quantized_attention.py::qattn_width).
+// zero-padded at the next (ops/quantized_attention.py::qattn_width); above
+// 576 every multiple of 16 runs csrc/split_d_quantized.cu's
+// split_d_qattn_kernel, which mfa_qattn_fwd launches.
 // GQA as in the flash kernels; every mask is the [Sq, 2] row-range table.
 //
 // Scale modes (what the TPU kernel's flags select):
@@ -94,6 +96,7 @@
 #include "common.cuh"
 #include "mma.cuh"
 #include "quantized_tiles.cuh"
+#include "split_d.cuh"
 
 namespace {
 
@@ -1748,7 +1751,8 @@ bool valid_bits(int bits) { return bits == 8 || bits == 4; }
 // Plain C interface (loaded with ctypes).  Returns the launch's
 // cudaError_t; cudaErrorInvalidValue for an unsupported type, head dim,
 // bit width or head grouping, or a bf16 Q without ROUND_BF16.  qtype: 0
-// float32, 1 bfloat16, 2 int8.
+// float32, 1 bfloat16, 2 int8.  D: a built width, or above 576 any
+// multiple of 16 (csrc/split_d_quantized.cu).
 extern "C" {
 
 int mfa_qattn_fwd(const void* q, const void* qs, const void* kq,
@@ -1762,6 +1766,24 @@ int mfa_qattn_fwd(const void* q, const void* qs, const void* kq,
   if (Hkv <= 0 || Hq % Hkv || !valid_bits(bits_k) || !valid_bits(bits_v) ||
       kv_span <= 0 || kv_span % BN || (qtype != 2 && kv_span != BN))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 576)
+    return mfa_sd::launch_qattn(
+        qtype,
+        mfa_sd::QAttnArgs{q, static_cast<const float*>(qs),
+                          static_cast<const uint8_t*>(kq),
+                          static_cast<const float*>(ks),
+                          static_cast<const float*>(kz),
+                          static_cast<const uint8_t*>(vq),
+                          static_cast<const float*>(vs),
+                          static_cast<const float*>(vz),
+                          static_cast<const int32_t*>(ranges),
+                          static_cast<const float*>(bias), bias_sb, bias_sh,
+                          static_cast<float*>(o), static_cast<float*>(lse), B,
+                          Hq, Hkv, Sq, Skv, D, interleaved, bits_k, bits_v,
+                          k_scales, v_scales, flags, br, bs, kv_span,
+                          mask_value},
+        s);
   const long long plane = (long long)Sq * D;
   const Args a{q, static_cast<const float*>(qs),
                static_cast<const uint8_t*>(kq), static_cast<const float*>(ks),
@@ -1773,7 +1795,6 @@ int mfa_qattn_fwd(const void* q, const void* qs, const void* kq,
                Hq * plane, 2 * plane, plane, D,
                Hq, Hkv, Sq, Skv, interleaved, bits_k, bits_v, k_scales,
                v_scales, flags, br, bs, kv_span, mask_value};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qtype == 0) return launch_qattn_d<float>(a, B, D, s);
   if (qtype == 1) return launch_qattn_d<__nv_bfloat16>(a, B, D, s);
   if (qtype == 2) return launch_qattn_d<int8_t>(a, B, D, s);
@@ -1804,12 +1825,15 @@ int mfa_hpack_fwd(const void* q, const void* kq, const void* vq,
 }
 
 // The kernel mfa_qattn_fwd launches for qtype at head dim D with `flags`:
-// 3 qattn_fwd_latent_kernel, 2 qattn_fwd_wide_kernel, 1
-// qattn_fwd_tc_kernel, 0 qattn_fwd_kernel, -1 none
-// (ops/quantized_attention.py::qattn_body gives the same answer).
+// 4 split_d_qattn_kernel (above 576, every multiple of 16), 3
+// qattn_fwd_latent_kernel, 2 qattn_fwd_wide_kernel, 1 qattn_fwd_tc_kernel,
+// 0 qattn_fwd_kernel, -1 none (ops/quantized_attention.py::qattn_body
+// gives the same answer).
 int mfa_qattn_body(int qtype, int D, int flags) {
-  if ((D != 32 && D != 64 && D != 128 && D != 256 && D != 288 && D != 576) ||
-      qtype < 0 || qtype > 2 || (qtype == 1 && !(flags & ROUND_BF16)))
+  if (qtype < 0 || qtype > 2 || (qtype == 1 && !(flags & ROUND_BF16)))
+    return -1;
+  if (mfa_sd::takes(D)) return 4;
+  if (D != 32 && D != 64 && D != 128 && D != 256 && D != 288 && D != 576)
     return -1;
   if (qtype == 0 || !(flags & ROUND_BF16)) return 0;
   return D > 288 ? 3 : D > 256 ? 2 : 1;

@@ -18,7 +18,11 @@
 //                                      (fullint_dkv32_kernel at D = 576)
 // Head dims: both pairs are built for D = 32, 64, 128, 256, MLA's 288 and
 // DeepSeek's absorbed 576 (ops/quantized_attention.py::qattn_width runs
-// every other head dim from 1 to 576 zero-padded at the next).
+// every other head dim from 1 to 576 zero-padded at the next); above 576
+// every multiple of 16 runs csrc/split_d_quantized_bwd.cu's kernels
+// (split_d_qdq_kernel and split_d_qdkv_kernel over the payloads,
+// split_d_fullint_dq_kernel, split_d_fullint_dkv_kernel), which
+// mfa_qflash_bwd and mfa_fullint_bwd launch.
 //
 // The exact pair runs the flash backward's bodies (attention_bwd.cuh) with
 // K/V staged from their payloads (quantized_tiles.cuh):
@@ -113,6 +117,7 @@
 #include "attention_tiles.cuh"
 #include "common.cuh"
 #include "quantized_tiles.cuh"
+#include "split_d.cuh"
 
 namespace {
 
@@ -126,6 +131,8 @@ using mfa::THREADS;
 using mfa::accumulate_pm;
 using mfa::byte_of;
 using mfa::launch_with_smem;
+using mfa::row_max16;
+using mfa::rowquant;
 using mfa::stage_kv;
 using mfa::stage_words;
 using mfa::store_t;
@@ -311,24 +318,6 @@ __device__ __forceinline__ void stage_i8(const int8_t* base, int r0,
   }
 }
 
-// Max over the 16 lanes that share a row (the lanes of one ty in a warp).
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// One value of a level-2 product: x quantized over its row's maximum `am`
-// (signed: +-0.5 then truncation; else x >= 0, +0.5 then truncation) and
-// scaled back by am/127.
-__device__ __forceinline__ float rowquant(float x, float am, bool is_signed) {
-  const float inv = 127.f / fmaxf(am, 1e-30f);
-  const float xs = x * inv;
-  const float q = (float)(int)(xs + (is_signed ? (xs >= 0.f ? 0.5f : -0.5f)
-                                               : 0.5f));
-  return q * (am * (1.f / 127.f));
-}
 
 template <int D>
 constexpr size_t fullint_dq_smem_bytes() {
@@ -1981,18 +1970,17 @@ bool valid_bits(int bits) { return bits == 8 || bits == 4; }
 
 // Plain C interface (loaded with ctypes).  Returns the launch's
 // cudaError_t; cudaErrorInvalidValue for an unsupported dtype (0 float32,
-// 1 bfloat16), head dim (32, 64, 128, 256, 288, 576), bit width or head
-// grouping.
+// 1 bfloat16), head dim (32, 64, 128, 256, 288, 576, or above 576 a
+// multiple of 16), bit width or head grouping.
 extern "C" {
 
 // The exact dQ (dq = 1: out0 = dQ, out1 = dbias or null; q pre-scaled) or
 // dK/dV (dq = 0: out0 = dK, out1 = dV; q scaled by `scale` here).  k_mode /
 // v_mode: 0 integers, 1 per token, 2 BLOCK_2D, 5 per channel.  splits:
 // the CTAs that share a key tile's GQA group (bf16 dK/dV at D = 288 and
-// 576 only, ops/flash_attention_bwd.py::dkv_splits; 1 elsewhere); with
-// splits > 1
-// the partials go to ws, fp32 [splits, 2, B, Hkv, Skv, D], and
-// mfa_flash_dkv_merge sums them into out0 and out1.
+// 576, both dtypes above 576, ops/flash_attention_bwd.py::dkv_splits; 1
+// elsewhere); with splits > 1 the partials go to ws, fp32 [splits, 2, B,
+// Hkv, Skv, D], and mfa_flash_dkv_merge sums them into out0 and out1.
 int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
                    const void* ks, const void* kz, const void* vq,
                    const void* vs, const void* vz, const void* ksr,
@@ -2005,6 +1993,25 @@ int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
                    int splits, void* ws, void* stream) {
   if (Hkv <= 0 || Hq % Hkv || !valid_bits(bits_k) || !valid_bits(bits_v))
     return (int)cudaErrorInvalidValue;
+  if (D > 576) {
+    const mfa_sd::FlashArgs fa{
+        q, kq, vq, dout, static_cast<const float*>(lse),
+        static_cast<const float*>(di), static_cast<const int32_t*>(ranges),
+        static_cast<const float*>(bias), bias_sb, bias_sh, nullptr,
+        static_cast<float*>(out0), static_cast<float*>(out1), B, Hq, Hkv, Sq,
+        Skv, D, interleaved, scale, 0.f};
+    const mfa_sd::QuantKV qkv{
+        static_cast<const float*>(ks),   static_cast<const float*>(kz),
+        static_cast<const float*>(vs),   static_cast<const float*>(vz),
+        static_cast<const float*>(ksr),  static_cast<const float*>(vsr),
+        static_cast<const float*>(dqsc), bits_k, bits_v, k_mode, v_mode, br,
+        bs};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dq) return splits == 1 ? mfa_sd::launch_qdq(dtype, fa, qkv, st)
+                               : (int)cudaErrorInvalidValue;
+    return mfa_sd::launch_qdkv(dtype, fa, qkv, splits,
+                               static_cast<float*>(ws), st);
+  }
   const BwdArgs a{q, dout, static_cast<const float*>(lse),
                   static_cast<const float*>(di),
                   static_cast<const int32_t*>(ranges),
@@ -2046,7 +2053,7 @@ int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
 
 // The full-integer dQ (dq = 1: out0 = dQ) or dK/dV (dq = 0: out0 = dK,
 // out1 = dV) at D = 32, 64, 128, 256, 288 and 576.  splits: the CTAs that
-// share a key tile's GQA group (the dK/dV at D = 576 only,
+// share a key tile's GQA group (the dK/dV at D = 576 and above,
 // ops/flash_attention_bwd.py::fullint_dkv_splits; 1 elsewhere); with
 // splits > 1 the partials (dK times `store`) go to ws, fp32 [splits, 2, B,
 // Hkv, Skv, D], and mfa_flash_dkv_merge sums them into out0 and out1.
@@ -2059,8 +2066,24 @@ int mfa_fullint_bwd(int dq, const void* qq, const void* qsc, const void* kq,
                     void* ws, void* stream) {
   if (Hkv <= 0 || Hq % Hkv || width < 0 || splits < 1 ||
       splits > Hq / Hkv ||
-      (splits > 1 && (dq || ws == nullptr || D != 576)))
+      (splits > 1 && (dq || ws == nullptr || D < 576)))
     return (int)cudaErrorInvalidValue;
+  if (D > 576)
+    return mfa_sd::launch_fullint(
+        dq,
+        mfa_sd::FullintArgs{
+            static_cast<const int8_t*>(qq),   static_cast<const float*>(qsc),
+            static_cast<const int8_t*>(kq),   static_cast<const float*>(ks),
+            static_cast<const int8_t*>(vq),   static_cast<const int8_t*>(dor),
+            static_cast<const float*>(dorsc), static_cast<const int8_t*>(dov),
+            static_cast<const float*>(dovsc), static_cast<const float*>(lse),
+            static_cast<const float*>(di),    static_cast<float*>(out0),
+            static_cast<float*>(out1),        B,
+            Hq,                               Hkv,
+            Sq,                               Skv,
+            D,                                interleaved,
+            width,                            store},
+        splits, static_cast<float*>(ws), static_cast<cudaStream_t>(stream));
   const FullintArgs a{
       static_cast<const int8_t*>(qq),   static_cast<const float*>(qsc),
       static_cast<const int8_t*>(kq),   static_cast<const float*>(ks),
@@ -2082,11 +2105,13 @@ int mfa_fullint_bwd(int dq, const void* qq, const void* qsc, const void* kq,
 }
 
 // The kernels mfa_fullint_bwd launches for a head dim D (1 to 576, run at
-// its kernel width) and level-2 width `width` (0: level 1): 1 the
+// its kernel width; above 576 the multiples of 16) and level-2 width
+// `width` (0: level 1): 2 the split-D pair (above 576, both levels), 1 the
 // tensor-core pair, 0 the scalar pair, -1 none
 // (ops/flash_attention_bwd.py::fullint_body gives the same answer).
 int mfa_fullint_tc_body(int D, int width) {
-  if (D < 1 || D > 576 || width < 0) return -1;
+  if (width < 0 || D < 1 || (D > 576 && !mfa_sd::takes(D))) return -1;
+  if (D > 576) return 2;
   return fullint_tc(width) ? 1 : 0;
 }
 

@@ -53,14 +53,14 @@ __device__ __forceinline__ float round_bf16(float x) {
 
 constexpr int INT4_GROUP = 256;  // values per group-planar int4 group
 
-// Values [4w, 4w + 4) of one payload row of D values as an int32 word of
-// four int8: int8 rows as they are; int4 rows from the four bytes of the
-// value's packing group whose low (the group's first half) or high nibbles
-// hold them, minus 8 per byte.  A word never straddles a group or its
-// halves: both are multiples of 8 values.
-template <int D>
-__device__ __forceinline__ int load_word(const uint8_t* row, int w, int bits) {
-  const int e = 4 * w;
+// Values [e, e + 4) (e a multiple of 4) of one payload row of D values as
+// an int32 word of four int8: int8 rows as they are; int4 rows from the
+// four bytes of the value's packing group whose low (the group's first
+// half) or high nibbles hold them, minus 8 per byte.  A word never
+// straddles a group or its halves: both are multiples of 8 values.  D is
+// a run-time value here (the split-D kernels) and a constant in load_word.
+__device__ __forceinline__ int load_word_at(const uint8_t* row, int e,
+                                            int bits, int D) {
   if (bits == 8) return *reinterpret_cast<const int*>(row + e);
   const int base = D > INT4_GROUP ? e / INT4_GROUP * INT4_GROUP : 0;
   const int h = min(INT4_GROUP, D - base) / 2;  // the group's half width
@@ -71,17 +71,24 @@ __device__ __forceinline__ int load_word(const uint8_t* row, int w, int bits) {
   return (int)__vsub4(nib, 0x08080808u);
 }
 
+// Values [4w, 4w + 4) of one payload row of D values (load_word_at).
+template <int D>
+__device__ __forceinline__ int load_word(const uint8_t* row, int w, int bits) {
+  return load_word_at(row, 4 * w, bits, D);
+}
+
 __device__ __forceinline__ float byte_of(int word, int e) {
   return (float)(signed char)((word >> (8 * e)) & 0xFF);
 }
 
-// The integers f of values [4w, 4w + 4) of payload row t of kv head
-// `head`, dequantized in place in op.mode (unrounded; DQ_NONE keeps them).
-template <int D>
-__device__ __forceinline__ void dequant_values(const KVOperand& op,
-                                               size_t head, int Skv, int br,
-                                               int bs, int t, int w,
-                                               float (&f)[4]) {
+// The integers f of values [l, l + 4) of payload row t of kv head `head`
+// (D values a row, a run-time value here: the split-D kernels; a constant
+// in dequant_values), dequantized in place in op.mode (unrounded; DQ_NONE
+// keeps them).  A BLOCK_2D cell is the lane over bs of the whole row.
+__device__ __forceinline__ void dequant_values_at(const KVOperand& op,
+                                                  size_t head, int Skv, int D,
+                                                  int br, int bs, int t,
+                                                  int l, float (&f)[4]) {
   if (op.mode == DQ_TOKEN) {
     const float s = op.sc[head * Skv + t];
     const float z = op.zp[head * Skv + t];
@@ -92,15 +99,24 @@ __device__ __forceinline__ void dequant_values(const KVOperand& op,
         (head * (Skv / br) + t / br) * (size_t)((D + bs - 1) / bs);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const size_t c = cell + (4 * w + e) / bs;
+      const size_t c = cell + (l + e) / bs;
       const float s = op.sc[c];
       f[e] = __fmul_rn(f[e], s) - __fmul_rn(op.zp[c], s);
     }
   } else if (op.mode == DQ_CHANNEL) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      f[e] = __fmul_rn(f[e], op.sc[head * D + 4 * w + e]);
+      f[e] = __fmul_rn(f[e], op.sc[head * D + l + e]);
   }
+}
+
+// The same for values [4w, 4w + 4) of a row of D values.
+template <int D>
+__device__ __forceinline__ void dequant_values(const KVOperand& op,
+                                               size_t head, int Skv, int br,
+                                               int bs, int t, int w,
+                                               float (&f)[4]) {
+  dequant_values_at(op, head, Skv, D, br, bs, t, 4 * w, f);
 }
 
 // The values [4w, 4w + 4) of payload row t of kv head `head`, read as the
@@ -382,6 +398,27 @@ __device__ __forceinline__ void stage_words(const int8_t* base, long long sr,
             ? *reinterpret_cast<const int*>(base + (r0 + r) * sr + 4 * w)
             : 0;
   }
+}
+
+// Max over the 16 lanes that share a row (the lanes of one ty in a warp,
+// in the 64-row tiles' 16 x 16 thread layout).
+__device__ __forceinline__ float row_max16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// One value of the full-integer backward's level-2 product: x quantized
+// over its row's maximum `am` (signed: +-0.5 then truncation; else x >= 0,
+// +0.5 then truncation) and scaled back by am / 127, as
+// ops/flash_attention_bwd.py::_rowquant_signed and _rowquant_pos round.
+__device__ __forceinline__ float rowquant(float x, float am, bool is_signed) {
+  const float inv = 127.f / fmaxf(am, 1e-30f);
+  const float xs = x * inv;
+  const float q = (float)(int)(xs + (is_signed ? (xs >= 0.f ? 0.5f : -0.5f)
+                                               : 0.5f));
+  return q * (am * (1.f / 127.f));
 }
 
 // acc[i][j] = sum_w dp4a(a[w][ay*4 + i], b[w][bx*4 + j]) over word tiles.

@@ -1,7 +1,10 @@
-// The split-D kernels' host interface (csrc/split_d_attention.cu): the
-// flash forward, dQ and dK/dV and the paged decode and prefill at every
+// The split-D kernels' host interface: the flash forward, dQ and dK/dV and
+// the paged decode and prefill (csrc/split_d_attention.cu), the quantized
+// forward (csrc/split_d_quantized.cu), and the exact quantized dQ and
+// dK/dV and the full-integer pair (csrc/split_d_quantized_bwd.cu), at every
 // head dim above DeepSeek's absorbed width 576, where the fixed-width
-// kernels of csrc/flash_attention.cu and csrc/paged_attention.cu end.
+// kernels of csrc/flash_attention.cu, csrc/paged_attention.cu,
+// csrc/quantized_attention.cu and csrc/quantized_attention_bwd.cu end.
 // Those files' routers call these launchers for such a head dim.
 //
 // The frame (see split_d_attention.cu): each CTA owns one SLICE-lane slice
@@ -84,5 +87,87 @@ int launch_paged_decode(int dtype, int mode, const PagedArgs& a, int B,
                         cudaStream_t stream);
 int launch_paged_prefill(int dtype, int mode, const PagedArgs& a,
                          cudaStream_t stream);
+
+// The quantized forward's arguments (csrc/quantized_attention.cu's Args in
+// the natural layout): q [B, Hq, Sq, D] fp32 / bf16 (pre-scaled) or int8
+// with qs fp32 [B, Hq, Sq]; the K / V payloads int8 [B, Hkv, Skv, D] or
+// group-planar int4 [.., D/2] with their scales and zero points in the
+// modes' shapes; o fp32 [B, Hq, Sq, D], lse fp32 [B, Hq, Sq].  k_scales,
+// v_scales, flags: that file's KScales, VScales and Flags; kv_span: the keys
+// a span of an int8 P's running max (64 for the other modes).
+struct QAttnArgs {
+  const void* q;
+  const float* qs;
+  const uint8_t* kq;
+  const float* ks;
+  const float* kz;
+  const uint8_t* vq;
+  const float* vs;
+  const float* vz;
+  const int32_t* ranges;
+  const float* bias;
+  long long bias_sb, bias_sh;
+  float* o;
+  float* lse;
+  int B, Hq, Hkv, Sq, Skv, D, interleaved;
+  int bits_k, bits_v, k_scales, v_scales, flags, br, bs, kv_span;
+  float mask_value;
+};
+
+// qtype 0 = float32, 1 = bfloat16, 2 = int8 (a bf16 Q needs ROUND_BF16).
+int launch_qattn(int qtype, const QAttnArgs& a, cudaStream_t stream);
+
+// A quantized K / V pair for the exact dQ and dK/dV (FlashArgs::k and v
+// then point at the payloads): each operand's bit width, its
+// csrc/quantized_tiles.cuh Dequant mode and its scales and zero points in
+// that mode's shapes; the dQ's folds: per-token K / V scales [B, Hkv, Skv]
+// on S's and dS's / dP's columns and the store multipliers [B, Hkv, D]
+// (null where unused).
+struct QuantKV {
+  const float* ks;
+  const float* kz;
+  const float* vs;
+  const float* vz;
+  const float* ksr;
+  const float* vsr;
+  const float* dqsc;
+  int bits_k, bits_v, k_mode, v_mode, br, bs;
+};
+
+// dtype 0 = float32, 1 = bfloat16; q pre-scaled for the dQ (a.scale 1),
+// scaled by a.scale for the dK/dV, as the fixed-width launchers take it.
+int launch_qdq(int dtype, const FlashArgs& a, const QuantKV& kv,
+               cudaStream_t stream);
+int launch_qdkv(int dtype, const FlashArgs& a, const QuantKV& kv, int splits,
+                float* ws, cudaStream_t stream);
+
+// The full-integer pair's arguments (csrc/quantized_attention_bwd.cu's
+// FullintArgs, with B and D): per-token int8 Q, dO (dor) and dO times the
+// V scales (dov) with their fp32 scales, int8 K and V, ROW K scales or
+// null, L (-inf read as 0) and D; out0 = dQ or dK, out1 = dV; width:
+// level 2's row-quantization width, 0 level 1; store: dQ's or dK's
+// multiplier.
+struct FullintArgs {
+  const int8_t* qq;
+  const float* qsc;
+  const int8_t* kq;
+  const float* ks;
+  const int8_t* vq;
+  const int8_t* dor;
+  const float* dorsc;
+  const int8_t* dov;
+  const float* dovsc;
+  const float* lse;
+  const float* di;
+  float* out0;
+  float* out1;
+  int B, Hq, Hkv, Sq, Skv, D, interleaved, width;
+  float store;
+};
+
+// dq: the dQ (splits 1) or the dK/dV (with splits > 1 the partials, dK
+// times `store`, go to ws, fp32 [splits, 2, B, Hkv, Skv, D]).
+int launch_fullint(bool dq, const FullintArgs& a, int splits, float* ws,
+                   cudaStream_t stream);
 
 }  // namespace mfa_sd

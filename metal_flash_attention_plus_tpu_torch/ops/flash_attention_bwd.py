@@ -29,8 +29,10 @@ disjoint outputs, so no atomics:
 - Quantized K/V (:class:`QuantizedTensor`), exact: :func:`qflash_dq` and
   :func:`qflash_dkv` → ``csrc/quantized_attention_bwd.cu`` (the TPU
   kernels' quantized modes), the same two bodies with K/V staged from their
-  payloads.  dK/dV are gradients with respect to the DEQUANTIZED K/V.  The
-  mode selection is the JAX package's: BLOCK_2D dequantizes in both
+  payloads; above 576 ``split_d_qdq_kernel`` and ``split_d_qdkv_kernel``
+  (``csrc/split_d_quantized_bwd.cu``: the split-D dQ and dK/dV bodies
+  over the payloads).  dK/dV are gradients with respect to the DEQUANTIZED
+  K/V.  The mode selection is the JAX package's: BLOCK_2D dequantizes in both
   kernels; the folded mode (a non-fp32 Q, SYMMETRIC TENSOR / CHANNEL / ROW
   K and V) runs dQ over the integers with TENSOR / CHANNEL K scales folded
   into Q and the dQ store vector, V's into dO, ROW scales as column
@@ -46,7 +48,10 @@ disjoint outputs, so no atomics:
   ``fullint_dkv_tc_kernel``: s8 mma.sync, bf16 or s8 for the output
   products) except at level-2 widths that are not multiples of 32
   (:func:`fullint_body`), at every head dim from 1 to 576, zero-padded to
-  :func:`~.quantized_attention.qattn_width` as the exact kernels are.
+  :func:`~.quantized_attention.qattn_width` as the exact kernels are; above
+  576 at both levels ``split_d_fullint_dq_kernel`` and
+  ``split_d_fullint_dkv_kernel`` (``csrc/split_d_quantized_bwd.cu``: the
+  lanes split over CTAs, S and dP on s8 ``mma.sync``).
 
 D = rowsum(dO ⊙ O) is computed once in plain torch, in fp32 from the fp32
 O residual, and shared by both kernels (callers may pass it as ``di``).
@@ -94,6 +99,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     _FOLDED,
+    HEAD_DIMS,
     _channel_scales,
     _check_payload,
     _kv_head_map,
@@ -227,9 +233,10 @@ def dkv_body(dtype: torch.dtype, d: int) -> str:
     ``dkv_latent_body`` at DeepSeek's absorbed width 576 (304 to 560 run at
     576; the flash and the quantized kernels alike); "fp32_fma"
     (``dkv_body``: scalar fp32 FMAs, ``dkv_body32`` at 576) for fp32, whose
-    2e-5 gate TF32 would break; "split_d" above 576 in both dtypes (the
-    flash kernels only: ``split_d_dkv_kernel``; the quantized wrappers
-    raise there).  The C launchers route the same way (``mfa::dkv_tc``,
+    2e-5 gate TF32 would break; "split_d" above 576 in both dtypes
+    (``split_d_dkv_kernel`` over float K/V, ``split_d_qdkv_kernel`` over
+    the quantized payloads: one body).
+    The C launchers route the same way (``mfa::dkv_tc``,
     ``mfa::bwd_wide``, ``mfa::bwd_latent``, ``mfa_sd::takes``)."""
     return fwd_body(dtype, d)
 
@@ -240,8 +247,9 @@ def dq_body(dtype: torch.dtype, d: int) -> str:
     dim ``d``: "tensor_core" for bf16 (``dq_tc_body`` up to 256,
     ``dq_wide_body`` at 288, ``dq_latent_body`` at 576), "fp32_fma"
     (``dq_body``, ``dq_body32`` at 576) for fp32, "split_d" above 576
-    (``split_d_dq_kernel``); the same answer as :func:`dkv_body`.  The C launchers route the same way (``mfa::dq_tc``,
-    ``mfa::bwd_wide``, ``mfa::bwd_latent``)."""
+    (``split_d_dq_kernel``, ``split_d_qdq_kernel``); the same answer as
+    :func:`dkv_body`.  The C launchers route the same way
+    (``mfa::dq_tc``, ``mfa::bwd_wide``, ``mfa::bwd_latent``)."""
     return dkv_body(dtype, d)
 
 
@@ -606,8 +614,9 @@ def qflash_dq(
     multipliers fp32 [B, Hkv, D].  CPU tensors take
     :func:`qflash_dq_plain`; CUDA tensors launch ``qflash_dq_tc_kernel``
     (bf16 up to kernel width 256), ``qflash_dq_wide_kernel`` (bf16 at 288),
-    ``qflash_dq_latent_kernel`` (bf16 at 576) or ``qflash_dq_kernel`` (fp32;
-    :func:`dq_body`, 32-row tiles at 576) or raise."""
+    ``qflash_dq_latent_kernel`` (bf16 at 576), ``qflash_dq_kernel`` (fp32;
+    :func:`dq_body`, 32-row tiles at 576) or above 576 ``split_d_qdq_kernel``
+    (both dtypes), or raise."""
     kw = dict(mode=mode, dqsc=dqsc, ksr=ksr, vsr=vsr, bias=bias,
               interleaved_kv=interleaved_kv)
     if q.device.type == "cpu":
@@ -660,8 +669,9 @@ def qflash_dkv(
     ``qflash_dkv_wide_kernel`` (bf16 at 288) or ``qflash_dkv_latent_kernel``
     (bf16 at 576: at both, where :func:`dkv_splits` deals the group over
     several CTAs a key tile, into a workspace that :func:`merge_dkv_splits`
-    sums in split order) or ``qflash_dkv_kernel`` (fp32; :func:`dkv_body`,
-    32-key tiles at 576), or raise."""
+    sums in split order), ``qflash_dkv_kernel`` (fp32; :func:`dkv_body`,
+    32-key tiles at 576) or above 576 ``split_d_qdkv_kernel`` (both dtypes,
+    the group split as at 576), or raise."""
     kw = dict(mode=mode, scale=scale, bias=bias,
               interleaved_kv=interleaved_kv)
     if q.device.type == "cpu":
@@ -880,12 +890,17 @@ def fullint_body(d: int, width: int) -> str:
     divides (below 32, or 8 or 16 times an odd number: 48 at 336).  Both
     pairs are built at every ``HEAD_DIMS`` width, MLA's 288 and DeepSeek's
     absorbed 576 among them (at 576 in 32-row tiles), and run the other
-    head dims up to 576 zero-padded at :func:`qattn_width`; a head dim
-    past 576 raises.  The C launcher routes the same way
+    head dims up to 576 zero-padded at :func:`qattn_width`; past 576
+    "split_d" at both levels and every width (``split_d_fullint_dq_kernel``,
+    ``split_d_fullint_dkv_kernel``: s8 ``mma.sync`` for S and dP, bf16
+    ``mma.sync`` at level 1 and fp32 FMAs over the row-quantized values
+    at level 2).  The C launcher routes the same way
     (``mfa_fullint_tc_body``)."""
-    qattn_width(d)
+    w = qattn_width(d)
     if width < 0:
         raise ValueError(f"level-2 width {width} has no kernel")
+    if w > HEAD_DIMS[-1]:
+        return "split_d"
     return "tensor_core" if width % FULLINT_K_STEP == 0 else "dp4a"
 
 
@@ -943,9 +958,10 @@ def fullint_dkv_splits(d: int, batch: int, q_heads: int, kv_heads: int,
     full-integer dK/dV: at kernel width 576, whose 32-key CTAs walk their
     q heads in series, :func:`dkv_splits`' plan for the latent bodies'
     32-key tiles (DeepSeek-V2-Lite's training shape, batch 2, 16 q heads
-    over one latent head, 2048 keys: 8 splits of two heads); 1 at the
-    other widths."""
-    if qattn_width(d) != 576:
+    over one latent head, 2048 keys: 8 splits of two heads); above 576 its
+    plan for the split-D kernels' 64-key tiles, the lane slices counted as
+    CTAs (4 splits at 640 and 1024 on that shape); 1 at the other widths."""
+    if qattn_width(d) < 576:
         return 1
     return dkv_splits(torch.bfloat16, d, batch, q_heads, kv_heads, kv_len,
                       sms)
@@ -1016,7 +1032,8 @@ def fullint_dkv(
     :func:`fullint_dq`.  CPU tensors take :func:`fullint_dkv_plain`; CUDA
     tensors launch the kernel :func:`fullint_body` names or raise.  Where
     :func:`fullint_dkv_splits` deals the group over several CTAs a key
-    tile (width 576), they write fp32 partials (dK times ``store``) into a
+    tile (width 576 and above), they write fp32 partials (dK times
+    ``store``) into a
     workspace this call allocates, [splits, 2, B, Hkv, Skv, D], and
     :func:`merge_dkv_splits` sums them in split order."""
     kw = dict(store=store, width=width, interleaved_kv=interleaved_kv)

@@ -24,8 +24,10 @@ The TPU kernel ``_qfwd_kernel`` becomes ``csrc/quantized_attention.cu::
 qattn_fwd_tc_kernel`` (tensor cores; a bf16 or int8 Q up to kernel width
 256), ``qattn_fwd_wide_kernel`` (the same at MLA's width 288, in 32-key
 steps), ``qattn_fwd_latent_kernel`` (the same at DeepSeek's absorbed width
-576: 8 warps, O's lanes over two warp groups) and ``qattn_fwd_kernel``
-(fp32 FMAs; an fp32 Q, in 32-row tiles at 576) behind
+576: 8 warps, O's lanes over two warp groups), ``qattn_fwd_kernel``
+(fp32 FMAs; an fp32 Q, in 32-row tiles at 576) and above 576, every Q and
+mode, ``csrc/split_d_quantized.cu::split_d_qattn_kernel`` (O's lanes over
+CTAs, 256 a CTA, the scores over the whole head dim) behind
 :func:`qattn_fwd` (:func:`qattn_body` says which); ``_hpack_kernel`` (the d=64
 head-pair layout) becomes the same two kernels at d=64, launched through
 the packed strides behind :func:`hpack_fwd`.
@@ -115,7 +117,8 @@ KV_TILE = 64  # the kernels' query rows and keys per tile (BM, BN)
 # 512 latent + 64 RoPE lanes) among them; every other head dim from 1 to
 # 576 runs zero-padded to the next (:func:`qattn_width`: 40 at 64, 72 at
 # 128, 272 at 288, 304 to 560 at 576; an int4 payload needs an even one).
-# Wider heads have no kernel.
+# Wider heads run on the split-D kernels, zero-padded to the next multiple
+# of 16.
 HEAD_DIMS = (32, 64, 128, 256, 288, 576)
 
 
@@ -124,13 +127,15 @@ def _round_up(a: int, b: int) -> int:
 
 
 def qattn_width(d: int) -> int:
-    """The kernel width a head dim ``d`` runs at (see ``HEAD_DIMS``)."""
-    if d >= 1:
-        for w in HEAD_DIMS:
-            if d <= w:
-                return w
-    raise ValueError(f"head dim {d} has no quantized kernel (1 to "
-                     f"{HEAD_DIMS[-1]})")
+    """The kernel width a head dim ``d`` runs at: the next of
+    ``HEAD_DIMS`` up to 576, above it the next multiple of 16 (the split-D
+    kernels, as ``flash_width``).  Raises below 1."""
+    if d < 1:
+        raise ValueError(f"head dim {d} has no quantized kernel (1 or more)")
+    for w in HEAD_DIMS:
+        if d <= w:
+            return w
+    return _round_up(d, 16)
 
 
 def pad_payload(t: torch.Tensor, bits: int, d: int,
@@ -222,8 +227,11 @@ def qattn_body(q_dtype: torch.dtype, mode: QAttnMode,
     kernel width 256, "tensor_core_wide" (``qattn_fwd_wide_kernel``, 32-key
     steps) at MLA's 288, where 272 runs too, "tensor_core_latent"
     (``qattn_fwd_latent_kernel``: 8 warps, O's lanes over two warp groups)
-    at DeepSeek's absorbed 576, where 304 to 560 run too; ``d`` past 576
-    raises.  An fp32 Q at 576 takes the scalar body in 32-row tiles.  The
+    at DeepSeek's absorbed 576, where 304 to 560 run too; past 576 every
+    Q and mode takes "split_d" (``split_d_qattn_kernel``: s8 or bf16
+    ``mma.sync`` scores for an int8 or bf16 Q, scalar ones for fp32; P.V
+    on bf16 ``mma.sync`` where the mode rounds to bf16).  An fp32 Q at 576
+    takes the scalar body in 32-row tiles.  The
     head-pair call (``packed``: :func:`hpack_fwd`, whose mode always rounds
     to bf16, d = 64) runs the same two bodies through the packed strides:
     "tensor_core" for a bf16 packed Q, "fp32_fma" for an fp32 one.  fp32
@@ -231,6 +239,8 @@ def qattn_body(q_dtype: torch.dtype, mode: QAttnMode,
     held to 2e-5.  The C interface routes the same way
     (``mfa_qattn_body``)."""
     w = 0 if d is None else qattn_width(d)
+    if w > HEAD_DIMS[-1]:
+        return "split_d"
     if packed:
         return "tensor_core" if q_dtype == torch.bfloat16 else "fp32_fma"
     if q_dtype in (torch.bfloat16, torch.int8) and mode.round_bf16:
@@ -482,9 +492,9 @@ def qattn_fwd(
     running row max P rounds against, the TPU's ``block_kv``
     (:func:`int8_p_tile`); None: the kernel's ``KV_TILE``-key tiles (at
     widths 288 and 576 32-key steps, whose running max moves only P's bf16
-    rounding; an int8 P still rounds over 64-key spans).  CPU
-    tensors take :func:`qattn_fwd_plain` over the same spans; CUDA tensors
-    launch the kernel :func:`qattn_body` names or raise.
+    rounding; an int8 P still rounds over 64-key spans; above 576 64-key
+    tiles).  CPU tensors take :func:`qattn_fwd_plain` over the same spans;
+    CUDA tensors launch the kernel :func:`qattn_body` names or raise.
 
     A head dim outside ``HEAD_DIMS`` runs at :func:`qattn_width`
     (:func:`pad_qattn_arguments`): the padded lanes meet Q's zero lanes in

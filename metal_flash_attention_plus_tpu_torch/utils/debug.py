@@ -48,15 +48,19 @@ ENTRY_KERNELS: Dict[str, Tuple[str, ...]] = {
                           "paged_prefill_wide_kernel",
                           "paged_prefill_kernel", "split_d_prefill_kernel"),
     "mfa_qattn_fwd": ("qattn_fwd_tc_kernel", "qattn_fwd_wide_kernel",
-                      "qattn_fwd_latent_kernel", "qattn_fwd_kernel"),
+                      "qattn_fwd_latent_kernel", "qattn_fwd_kernel",
+                      "split_d_qattn_kernel"),
     "mfa_hpack_fwd": ("qattn_fwd_tc_kernel", "qattn_fwd_kernel"),
     "mfa_qflash_bwd": ("qflash_dq_tc_kernel", "qflash_dq_wide_kernel",
                        "qflash_dq_latent_kernel", "qflash_dq_kernel",
                        "qflash_dkv_tc_kernel", "qflash_dkv_wide_kernel",
-                       "qflash_dkv_latent_kernel", "qflash_dkv_kernel"),
+                       "qflash_dkv_latent_kernel", "qflash_dkv_kernel",
+                       "split_d_qdq_kernel", "split_d_qdkv_kernel"),
     "mfa_fullint_bwd": ("fullint_dq_tc_kernel", "fullint_dq_kernel",
                         "fullint_dq32_kernel", "fullint_dkv_tc_kernel",
-                        "fullint_dkv_kernel", "fullint_dkv32_kernel"),
+                        "fullint_dkv_kernel", "fullint_dkv32_kernel",
+                        "split_d_fullint_dq_kernel",
+                        "split_d_fullint_dkv_kernel"),
     "mfa_dyn_gemm": ("dyn_tc_kernel",),
     "mfa_wo_folded_gemm": ("wo_tc_kernel", "wo_kernel", "wo_reduce_kernel"),
     "mfa_wo_gemm": ("wo_tc_kernel", "wo_kernel", "wo_reduce_kernel"),

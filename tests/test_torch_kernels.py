@@ -49,8 +49,9 @@ the flash kernels' bf16 tolerances, and the quantized kernels at MLA's
 width (the wide forward, the exact dQ and dK/dV and the full-integer pair
 at 272 / 288) and at DeepSeek's (the latent forward, the exact dQ and
 dK/dV and their fp32 instances at 320 / 512 / 576), which take the
-quantized ones'; past 576 the quantized wrappers raise, and the
-full-integer pair past 288.  The flash
+quantized ones'; past 576 the quantized forward, the exact dQ and dK/dV
+and the full-integer pair run the split-D kernels (O's, dQ's, dK's and
+dV's lanes split over CTAs), which take the same tolerances.  The flash
 forward's static-max mode (``row_max``) takes the flash forward's
 tolerances, the kernel and the plain version given the same subtrahends;
 the dynamic GEMM under a stored plan stays bit for bit, and the
@@ -61,6 +62,7 @@ direct calls bit for bit.
 
 import ctypes
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -785,9 +787,9 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
                                        64, 64, 64, masking.CAUSAL)
     with pytest.raises(TypeError):
         flash_fwd(q.half(), k.half(), v.half(), rr, scale=0.125)
-    with pytest.raises(ValueError):  # head dim 40 has no kernel
-        flash_fwd(q[..., :40].contiguous(), k[..., :40].contiguous(),
-                  v[..., :40].contiguous(), rr, scale=0.125)
+    with pytest.raises(ValueError):  # head dim 0 has no kernel
+        flash_fwd(q[..., :0].contiguous(), k[..., :0].contiguous(),
+                  v[..., :0].contiguous(), rr, scale=0.125)
     with pytest.raises(ValueError):  # not contiguous
         flash_fwd(q.transpose(1, 2), k, v, rr, scale=0.125)
     lse = torch.zeros(1, 2, 64, device=cuda_device)
@@ -984,6 +986,9 @@ B2D16 = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
 # 48-wide blocks tile D=96 but not its kernel width 128.
 B2D48 = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
               block_size=48)
+# 80-wide blocks: cells straddling the 256-lane slices of D = 640.
+B2D80 = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
+              block_size=80)
 TEN4 = _qcfg(bits=4, gran="tensor")
 ROW4A, ROW8A = (_qcfg(bits=b, strategy="asymmetric") for b in (4, 8))
 B2D4 = _qcfg(bits=4, gran="block_2d", strategy="centered", block_rows=8,
@@ -1163,6 +1168,45 @@ QATTN_CASES = {
                                                dict(interleaved_kv=True)),
     "latent_short_kv_d576": (1, 4, 2, 100, 40, 576, ROW8C, ROW4C, BF16,
                              masking.FULL, {}),
+    # Above 576 (split_d_qattn_kernel: O's lanes over CTAs, 256 a CTA; 580
+    # runs at 592): int8 and int4 (a 256-value packing group a slice, the
+    # last group split at its own midpoint), folded ROW / TENSOR / CHANNEL,
+    # BLOCK_2D blocks of 80 lanes straddling the slices, an int8 Q with bf16
+    # and int8 P (two 512-key spans), fp32 Q (also quantized to int8),
+    # bias, windows, interleaved GQA, Hq = 16 over one head.
+    "split_d_dequant_row8c_gqa16_d640": (1, 16, 1, 200, 200, 640, ROW8C,
+                                         ROW8C, BF16, masking.CAUSAL, {}),
+    "split_d_dequant_row4c_d592": (1, 4, 2, 130, 130, 592, ROW4C, ROW4C,
+                                   BF16, masking.CAUSAL, {}),
+    "split_d_dequant_row4c_d580": (1, 4, 1, 100, 100, 580, ROW4C, ROW4C,
+                                   BF16, masking.CAUSAL, {}),
+    "split_d_folded_row_d1024": (1, 4, 1, 150, 150, 1024, ROW8, ROW8, BF16,
+                                 masking.CAUSAL, {}),
+    "split_d_folded_tensor_bias_d592": (1, 4, 2, 130, 130, 592, TEN8, CH8,
+                                        BF16, masking.CAUSAL,
+                                        dict(bias=(1, 4, 130, 130))),
+    "split_d_folded_channel4_interleaved_d640": (
+        1, 8, 2, 128, 128, 640, CH4, TEN8, BF16, masking.CAUSAL,
+        dict(interleaved_kv=True)),
+    "split_d_block2d80_d640": (1, 4, 2, 128, 160, 640, B2D80, B2D80, BF16,
+                               masking.CAUSAL, {}),
+    "split_d_quantize_q_row_d640": (1, 16, 1, 150, 150, 640, ROW8, ROW8,
+                                    BF16, masking.CAUSAL, QQ),
+    "split_d_quantize_q_int4_k_d592": (1, 4, 2, 130, 130, 592, ROW4, ROW8,
+                                       BF16, masking.CAUSAL, QQ),
+    "split_d_int8_pv_two_spans_d1024": (1, 4, 1, 128, 700, 1024, ROW8, CH8,
+                                        BF16, masking.FULL, QQ),
+    "split_d_int8_pv_tensor_f32_d640": (1, 2, 1, 96, 96, 640, TEN8, TEN8,
+                                        F32, masking.FULL, QQ),
+    "split_d_dequant_k8_v4_f32_d592": (1, 2, 1, 100, 130, 592, ROW8C, ROW4C,
+                                       F32, masking.CAUSAL, {}),
+    "split_d_quantize_q_f32_d640": (1, 2, 1, 100, 100, 640, ROW8, ROW4, F32,
+                                    masking.CAUSAL, QQ),
+    "split_d_folded_row_window_d1024": (1, 4, 1, 300, 300, 1024, ROW8, ROW8,
+                                        BF16,
+                                        masking.sliding_window(96,
+                                                               causal=True),
+                                        {}),
 }
 
 
@@ -1436,6 +1480,30 @@ QBWD_CASES = {
                         masking.CAUSAL, {}),
     "latent_tensor_f32_full_d320": (1, 2, 1, 96, 96, 320, TEN8, TEN8, F32,
                                     masking.FULL, {}),
+    # Above 576 (split_d_qdq_kernel and split_d_qdkv_kernel over the
+    # payloads, the dK/dV's group split and merge; 580 runs at 592): the
+    # same modes, BLOCK_2D cells straddling the slices.
+    "split_d_dequant_row8c_gqa16_d640": (1, 16, 1, 200, 200, 640, ROW8C,
+                                         ROW8C, BF16, masking.CAUSAL, {}),
+    "split_d_dequant_row4c_d592": (1, 4, 2, 130, 130, 592, ROW4C, ROW4C,
+                                   BF16, masking.CAUSAL, {}),
+    "split_d_folded_row_gqa16_d1024": (1, 16, 1, 160, 160, 1024, ROW8, ROW8,
+                                       BF16, masking.CAUSAL, {}),
+    "split_d_folded_channel4_d640": (1, 4, 2, 130, 130, 640, CH4, CH4, BF16,
+                                     masking.CAUSAL, {}),
+    "split_d_block2d80_d640": (1, 4, 2, 128, 160, 640, B2D80, B2D80, BF16,
+                               masking.CAUSAL, {}),
+    "split_d_bias_dbias_d580": (1, 4, 2, 100, 130, 580, ROW8C, ROW8C, BF16,
+                                masking.CAUSAL, dict(bias=(1, 4, 100, 130))),
+    "split_d_window_interleaved_d1024": (1, 8, 2, 300, 300, 1024, ROW8C,
+                                         ROW4C, BF16,
+                                         masking.sliding_window(
+                                             96, causal=True),
+                                         dict(interleaved_kv=True)),
+    "split_d_f32_d640": (1, 2, 1, 96, 130, 640, ROW8C, ROW4C, F32,
+                         masking.CAUSAL, {}),
+    "split_d_tensor_f32_full_d1024": (1, 2, 1, 96, 96, 1024, TEN8, TEN8,
+                                      F32, masking.FULL, {}),
 }
 
 
@@ -1467,7 +1535,8 @@ def test_qflash_kernels_match_plain(cuda_device, name):
         q, kq, vq, do, lse, di, rr, bias, scale=d ** -0.5,
         want_dbias=bias is not None, **opts)
     assert fbwd.dq_body(dtype, d) == (
-        "tensor_core" if dtype == BF16 else "fp32_fma")
+        "split_d" if d > 576 else "tensor_core" if dtype == BF16
+        else "fp32_fma")
     n = (fbwd.qflash_dq.launches, fbwd.qflash_dkv.launches)
     dq, dbias = fbwd.qflash_dq(*dq_a, **dq_kw)
     dk, dv = fbwd.qflash_dkv(*dkv_a, **dkv_kw)
@@ -1540,6 +1609,23 @@ FULLINT_CASES = {
     "d576_gqa16_w8_l2": (1, 16, 1, 200, 576, TEN8, CH8, 512, True),
     "d576_l1_sq_ne_skv": (1, 4, 2, (100, 200), 576, ROW8, CH8, None, False),
     "d560_l1": (1, 4, 1, 128, 560, ROW8, CH8, None, False),
+    # Above 576 (split_d_fullint_dq_kernel, split_d_fullint_dkv_kernel:
+    # 256 lanes a CTA), both levels; level-2 spans of two tiles, of one
+    # 32-wide piece of a tile, across tiles (96) and below one k step (16);
+    # 16 q heads over one (the dK/dV's group split and merge); 580 at 592.
+    "split_d_d592_l1": (1, 4, 2, 256, 592, ROW8, CH8, None, False),
+    "split_d_d640_l2_w128": (1, 4, 1, 256, 640, ROW8, CH8, 128, False),
+    "split_d_d1024_l1": (1, 4, 1, 192, 1024, TEN8, TEN8, None, False),
+    "split_d_d1024_l2_w32": (1, 4, 2, 160, 1024, ROW8, TEN8, 512, False),
+    "split_d_d640_l2_w96": (1, 4, 2, 288, 640, ROW8, TEN8, 512, False),
+    "split_d_d640_w16_l2": (1, 4, 1, 144, 640, ROW8, CH8, 512, False),
+    "split_d_d640_gqa16_l1": (2, 16, 1, 256, 640, ROW8, CH8, None, False),
+    "split_d_d640_gqa16_l2_w128": (2, 16, 1, 256, 640, ROW8, CH8, 128,
+                                   False),
+    "split_d_d592_gqa8_interleaved_l1": (1, 16, 2, 192, 592, ROW8, TEN8,
+                                         None, True),
+    "split_d_d580_l1_sq_ne_skv": (1, 4, 2, (100, 200), 580, ROW8, CH8, None,
+                                  False),
 }
 
 
@@ -1597,8 +1683,14 @@ def test_fullint_kernels_route_as_the_python_bodies_say(cuda_device):
             want = fbwd.fullint_body(d, width) == "tensor_core"
             assert body(d, width) == int(want), (d, width)
             assert want == (width % 32 == 0)
+    # Above 576 the split-D pair at both levels and every width (the C
+    # interface takes the padded width, a multiple of 16).
+    for d in (592, 640, 1024, 2048):
+        for width in (0, 1, 16, 96, 128, 512):
+            assert fbwd.fullint_body(d, width) == "split_d"
+            assert body(d, width) == 2, (d, width)
     assert body(0, 0) == -1 and body(64, -1) == -1
-    assert body(592, 0) == -1
+    assert body(600, 0) == -1 and body(640, -1) == -1
 
 
 @pytest.mark.cuda
@@ -1751,28 +1843,61 @@ def test_latent_quantized_kernels_repeat_bit_for_bit(cuda_device, d):
 
 
 @pytest.mark.cuda
-def test_quantized_kernels_past_576_and_fullint_past_288_raise(cuda_device):
-    """At 592 the quantized forward and exact backward raise on a CUDA
-    tensor and launch nothing, and so does the full-integer backward: none
-    reaches the float split-D kernels that take 592 for float K/V; the
-    full-integer pair runs at 576 (where it raised before its 576
+def test_quantized_kernels_past_576_launch_split_d_and_fullint_at_576(
+        cuda_device):
+    """At 640 the public quantized forward and backward (exact, and
+    full-integer at both levels) launch the split-D kernels and no
+    fixed-width one: the C routing names them for the padded width (the
+    routers send every D above 576 to the split-D launchers), each
+    wrapper counts one launch a call; each result is the CPU's (the plain
+    versions) and repeats bit for bit.  (No profiler here: a trace in
+    this file's run left the later GEMM tests' traces empty.)  The
+    full-integer pair runs at 576 too (where it raised before its 576
     instances): one dQ, one dK/dV launch, the plain versions' results."""
-    q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 64, 64, 592, ROW8C,
-                              ROW8C, BF16)
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 96, 96, 640, ROW8, CH8,
+                              BF16)
+    assert qa.qattn_body(BF16, qa.QAttnMode("none", "store"),
+                         d=640) == "split_d"
+    assert {fbwd.dq_body(BF16, 640), fbwd.dkv_body(BF16, 640),
+            fbwd.fullint_body(640, 0), fbwd.fullint_body(640, 96)} == {
+                "split_d"}
+    qbody = _build.kernel_function("mfa_qattn_body", [ctypes.c_int] * 3)
+    fbody = _build.kernel_function("mfa_fullint_tc_body", [ctypes.c_int] * 2)
+    assert qbody(1, 640, 1) == 4 and fbody(640, 0) == fbody(640, 96) == 2
+    cpu = (q.cpu(), kq.to("cpu"), vq.to("cpu"))
     n = qa.qattn_fwd.launches
-    with pytest.raises(ValueError, match="has no quantized kernel"):
-        qa.quantized_flash_attention_forward(q, kq, vq)
-    assert qa.qattn_fwd.launches == n
-    o = torch.zeros(q.shape, device=cuda_device)
-    lse = torch.zeros(q.shape[:3], device=cuda_device)
+    o, lse = qa.quantized_flash_attention_forward(q, kq, vq)
+    assert qa.qattn_fwd.launches == n + 1
+    o_ref, l_ref = qa.quantized_flash_attention_forward(*cpu)
+    assert _rel(o.cpu(), o_ref) <= BF16_TOL
+    assert _rel(lse.cpu(), l_ref) <= TOLERANCES["lse"]
+    do = torch.randn(q.shape, device=cuda_device).to(BF16)
     counted = (fbwd.qflash_dq, fbwd.qflash_dkv, fbwd.fullint_dq,
-               fbwd.fullint_dkv, flash_dq, flash_dkv)
-    n = [f.launches for f in counted]
-    for fullint in (False, True):
-        with pytest.raises(ValueError, match="has no .*kernel"):
-            fbwd.flash_attention_backward(q, kq, vq, o, lse,
-                                          torch.ones_like(q), fullint=fullint)
-    assert [f.launches for f in counted] == n
+               fbwd.fullint_dkv)
+    for fullint, level in ((False, None), (True, "1"), (True, "2")):
+        kw = dict(fullint=fullint, block_sizes=fbwd.BlockSizes(
+            block_kv_dq=128, block_q_dkv=128))
+        old = os.environ.get("MFA_BWD_FULLINT_LEVEL")
+        if level:
+            os.environ["MFA_BWD_FULLINT_LEVEL"] = level
+        try:
+            n = [f.launches for f in counted]
+            got = fbwd.flash_attention_backward(q, kq, vq, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            grew = [f.launches - c for f, c in zip(counted, n)]
+            assert grew == ([0, 0, 1, 1] if fullint else [1, 1, 0, 0])
+            again = fbwd.flash_attention_backward(q, kq, vq, o, lse, do,
+                                                  **kw)
+            want = fbwd.flash_attention_backward(
+                *cpu, o.cpu(), lse.cpu(), do.cpu(), **kw)
+        finally:
+            if old is None:
+                os.environ.pop("MFA_BWD_FULLINT_LEVEL", None)
+            else:
+                os.environ["MFA_BWD_FULLINT_LEVEL"] = old
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+        for g, w in zip(got[:3], want[:3]):
+            assert _rel(g.cpu(), w) <= BF16_TOL, (fullint, level)
     q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 64, 64, 576, ROW8, CH8,
                               BF16)
     assert fbwd.fullint_backward_supported(q, kq, vq, masking.FULL, None,
@@ -1794,16 +1919,33 @@ def test_quantized_kernels_past_576_and_fullint_past_288_raise(cuda_device):
 
 
 @pytest.mark.cuda
+def test_split_d_qattn_fp32_q_rounding_to_bf16(cuda_device):
+    """An fp32 Q in a mode that rounds to bf16 (``qattn_fwd`` takes it; the
+    public forward gives an fp32 Q the fp32 mode): at 640 the split-D
+    kernel's fp32 instance rounds the dequantized K/V and P to bf16 where
+    the plain version does."""
+    q, kq, vq = _qattn_inputs(cuda_device, 1, 4, 1, 100, 100, 640, ROW8C,
+                              ROW8C, F32)
+    args, kw = qa.qattn_arguments(q, kq, vq, mask=masking.CAUSAL)
+    kw["mode"] = dataclasses.replace(kw["mode"], round_bf16=True)
+    assert qa.qattn_body(F32, kw["mode"], d=640) == "split_d"
+    o, lse = qa.qattn_fwd(*args, **kw)
+    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw, kv_tile=qa.KV_TILE)
+    assert _rel(o, o_ref) <= BF16_TOL
+    assert _rel(lse, l_ref) <= TOLERANCES["lse"]
+
+
+@pytest.mark.cuda
 def test_qattn_kernels_route_as_qattn_body_says(cuda_device):
     """The C interface's choice of forward kernel (as the library reports
     it) agrees with ``qattn_body`` at every built width: the latent kernel
     at 576 and the wide one at 288 for a bf16 or int8 Q rounding to bf16,
     the 64-key one below, the scalar body for fp32 and for an int8 Q
-    without the rounding."""
+    without the rounding; above 576 the split-D kernel for every Q."""
     body = _build.kernel_function("mfa_qattn_body", [ctypes.c_int] * 3)
     names = {"fp32_fma": 0, "tensor_core": 1, "tensor_core_wide": 2,
-             "tensor_core_latent": 3}
-    for d in qa.HEAD_DIMS:
+             "tensor_core_latent": 3, "split_d": 4}
+    for d in qa.HEAD_DIMS + (592, 640, 1024, 2048):
         for dtype, code in qa.Q_TYPES.items():
             for rb in (False, True):
                 if dtype == BF16 and not rb:
@@ -1813,7 +1955,7 @@ def test_qattn_kernels_route_as_qattn_body_says(cuda_device):
                 want = names[qa.qattn_body(dtype, mode, d=d)]
                 assert body(code, d, int(rb)) == want, (d, dtype, rb)
     assert body(1, 304, 1) == -1 and body(1, 272, 1) == -1
-    assert body(1, 592, 1) == -1
+    assert body(1, 600, 1) == -1  # above 576 the multiples of 16
 
 
 @pytest.mark.cuda

@@ -284,14 +284,14 @@ def test_kernel_width_padding_of_untiled_blocks_and_widths():
     assert torch.equal(ps[..., 1], torch.ones(1, 1, 4))
     assert torch.equal(pz[..., 1], torch.zeros(1, 1, 4))
     assert torch.equal(ps[..., :1], s) and ps.shape[-1] == 2
-    # 272 runs at MLA's 288, 304 to 560 at DeepSeek's 576; past 576 there
-    # is no kernel width.
+    # 272 runs at MLA's 288, 304 to 560 at DeepSeek's 576; past 576 the
+    # split-D kernels, at the next multiple of 16.
     assert tqa.qattn_width(272) == tqa.qattn_width(288) == 288
     for d in (304, 320, 512, 560, 576):
         assert tqa.qattn_width(d) == 576
-    for d in (592, 1024):
-        with pytest.raises(ValueError):
-            tqa.qattn_width(d)
+    for d, w in ((577, 592), (580, 592), (592, 592), (1024, 1024),
+                 (1025, 1040)):
+        assert tqa.qattn_width(d) == w
     assert [tqa.qattn_width(d) for d in (16, 48, 64, 80, 96, 144, 256)] == [
         32, 64, 64, 128, 128, 256, 256]
     # Head dims off the multiples of 16 run at the next width too.
@@ -309,7 +309,7 @@ def test_qattn_body_names_the_wide_kernel_at_288(qdtype, d):
     where 272 runs too, and the latent one (O's lanes over two warp groups)
     at 576, where 320 and 512 run too; an fp32 Q takes the scalar body at
     every width; without the head dim the answer names the body alone;
-    past 576 there is no kernel."""
+    past 576 every Q takes the split-D kernel."""
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
              "int8": torch.int8}[qdtype]
     mode = tqa.QAttnMode("token", "token",
@@ -320,8 +320,7 @@ def test_qattn_body_names_the_wide_kernel_at_288(qdtype, d):
     assert tqa.qattn_body(dtype, mode, d=d) == want
     assert tqa.qattn_body(dtype, mode) == (
         "fp32_fma" if want == "fp32_fma" else "tensor_core")
-    with pytest.raises(ValueError):
-        tqa.qattn_body(dtype, mode, d=592)
+    assert tqa.qattn_body(dtype, mode, d=d + 580) == "split_d"
 
 
 @pytest.mark.parametrize("quantize_q", [False, True])

@@ -323,7 +323,8 @@ def test_fullint_body_follows_the_level_2_width(d):
     widths of whole s8 k steps (multiples of 32), on the scalar kernels at
     the widths ``fullint_widths`` gives other sequences (S=200: 8, S=336:
     48, S=129: 1), at every head dim up to DeepSeek's 576 (272 runs at
-    288), and has no kernel for a negative width or a head dim past 576."""
+    288), has no kernel for a negative width, and past 576 runs the
+    split-D pair at every width."""
     bs = tbwd.BlockSizes()
     for s, want in ((4096, "tensor_core"), (256, "tensor_core"),
                     (160, "tensor_core"), (288, "tensor_core"),
@@ -335,8 +336,8 @@ def test_fullint_body_follows_the_level_2_width(d):
     assert tbwd.fullint_body(d, 0) == "tensor_core"
     with pytest.raises(ValueError):
         tbwd.fullint_body(d, -1)
-    with pytest.raises(ValueError):
-        tbwd.fullint_body(592, 0)
+    assert tbwd.fullint_body(d + 580, 0) == tbwd.fullint_body(
+        d + 580, 8) == "split_d"
     assert tbwd.fullint_body(304, 0) == "tensor_core"
 
 
@@ -369,7 +370,7 @@ def test_wide_widths_route_to_the_wide_bodies(d):
     shape (16 q heads over one latent head, 2048 keys, 132 SMs: 16 splits
     of the 64-key tiles at 288, 8 of the 32-key ones at 576); the
     full-integer pair at both levels at the same widths (its dK/dV's group
-    split at 576 only: 8 splits there); past 576 no kernel at all."""
+    split at 576 only: 8 splits there); past 576 the split-D kernels."""
     w = 288 if d <= 288 else 576
     assert tqa.qattn_width(d) == w
     for body in (tbwd.dq_body, tbwd.dkv_body):
@@ -383,10 +384,8 @@ def test_wide_widths_route_to_the_wide_bodies(d):
     assert tbwd.dkv_splits(torch.bfloat16, d, 2, 16, 1, 2048, 132) == (
         16 if w == 288 else 8)
     assert tbwd.dkv_splits(torch.float32, d, 2, 16, 1, 2048, 132) == 1
-    with pytest.raises(ValueError):
-        tbwd.fullint_body(592, 0)
-    with pytest.raises(ValueError):
-        tqa.qattn_width(592)
+    assert tbwd.fullint_body(592, 0) == "split_d"
+    assert tqa.qattn_width(592) == 592
 
 
 @pytest.mark.parametrize("d", [80, 96])

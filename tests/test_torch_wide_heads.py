@@ -8,9 +8,10 @@ entry points take their plain versions at the true head dim; the same
 seeded numpy inputs go through the JAX package (Pallas in interpret mode,
 HIGHEST matmul precision) and the port.  The routing that the card's
 wrappers read (``flash_width``, the ``*_body`` functions, ``dkv_splits``)
-is checked at the new widths, and so is the quantized path's limit: the
-quantized forward, the exact quantized backward and the full-integer pair
-still stop at 576.
+is checked at the new widths, and so is the quantized path's routing
+there: the quantized forward, the exact quantized backward and the
+full-integer pair take the split-D kernels too (their parity against the
+JAX package: tests/test_torch_quantized_past_576.py).
 
 Tolerances (as tests/test_torch_off_grid_widths.py): the flash outputs at
 TOLERANCES["fp32"] (2e-5) in max abs error over the JAX value's max abs,
@@ -266,11 +267,22 @@ def test_split_d_dkv_split_plan(shape, want):
 
 def test_quantized_paths_still_stop_at_576():
     """The quantized forward, the exact quantized backward and the
-    full-integer pair keep their width tables: 592 raises with a message
-    naming the limit, so none of them reaches the float split-D kernels."""
+    full-integer pair keep their width tables up to 576 and past it take
+    the split-D kernels: ``qattn_width`` pads to the next multiple of 16,
+    ``qattn_body`` (every Q), ``dq_body`` / ``dkv_body`` and
+    ``fullint_body`` (every level-2 width) answer "split_d", and the
+    full-integer dK/dV splits its group as the float split-D dK/dV does."""
     assert tqa.HEAD_DIMS[-1] == 576 and tqa.qattn_width(576) == 576
-    for d in (577, 592, 1024):
-        with pytest.raises(ValueError, match=r"no quantized kernel \(1 to 576"):
-            tqa.qattn_width(d)
+    for d, w in ((577, 592), (592, 592), (600, 608), (1024, 1024)):
+        assert tqa.qattn_width(d) == w
+        for qd in (torch.float32, torch.bfloat16, torch.int8):
+            mode = tqa.QAttnMode("token", "token",
+                                 round_bf16=qd != torch.float32)
+            assert tqa.qattn_body(qd, mode, d=d) == "split_d"
+        assert tbwd.fullint_body(d, 0) == tbwd.fullint_body(d, 592) == (
+            "split_d")
+        assert tbwd.dq_body(torch.bfloat16, d) == "split_d"
+        assert tbwd.fullint_dkv_splits(d, 2, 16, 1, 2048, 132) == (
+            tbwd.dkv_splits(torch.bfloat16, d, 2, 16, 1, 2048, 132))
     with pytest.raises(ValueError, match="has no"):
-        tbwd.fullint_body(592, 592)
+        tbwd.fullint_body(592, -1)
