@@ -414,8 +414,11 @@ checkout, then, on the card:
    D = 640 and 1024, the paged pair over latent pages at the engine's
    decode lengths and the 256-row chunk at offset 512, and the forward at
    Perceiver IO's image cross-attention (B=1, one head, 512 latents over
-   50,176 inputs, D=1024), each beside its bound, plain version and SDPA
-   (its backend named); (c) a ``TransformerConfig`` with 8 query heads of
+   50,176 inputs, D=1024: its KV axis split, ``split_d_fwd_splits``, one
+   kernel and one ``split_d_fwd_merge_kernel`` a call, counted, held to
+   the plain version and twice bit for bit, the merge alone against its
+   plain version), each beside its bound, plain version and SDPA (its
+   backend named); (c) a ``TransformerConfig`` with 8 query heads of
    640 over 2 KV heads at the flagship's other widths, depth cut to 2
    layers: the cached logits within 5e-2 rel L2 of the fp32 forward,
    phase 5's 8 requests served on the split-D paged kernels (counted),
@@ -436,9 +439,13 @@ checkout, then, on the card:
    twice, bit for bit; (b) the five kernels at B=2, Hq=16 over one head,
    S=2048, int8 ROW K/V (causal; the full-integer pair FULL over CHANNEL
    V) at D = 640 and 1024 and the ``QuantizedAttention`` forward at
-   Perceiver IO's cross-attention shape, each beside its bound, plain
-   version, SDPA over the dequantized bf16 K/V and phase 24's float
-   split-D time; (c) phase 24's head dim 640 model:
+   Perceiver IO's cross-attention shape (its KV axis split as in 24 (b):
+   two quantizers, one kernel and one merge a call, counted), each beside
+   its bound, plain version, SDPA over the dequantized bf16 K/V and phase
+   24's float split-D time; with ``--parent`` the five kernels in turns on
+   the parent's library too, and the full-integer pair and the exact dQ
+   bit for bit with its outputs (their int32 sums are exact); (c) phase
+   24's head dim 640 model:
    ``quantized_forward(quantize_weights(params), tokens, cfg,
    quantize_kv=True)`` within 0.25 rel L2 of the fp32 forward with one
    split-D quantized forward a layer (counted), then one
@@ -559,6 +566,9 @@ from metal_flash_attention_plus_tpu_torch.ops import (
 from metal_flash_attention_plus_tpu_torch.ops import (
     quantized_attention as tqa,
 )
+# The module (``ops.flash_attention`` names its function too).
+tfa = importlib.import_module(
+    "metal_flash_attention_plus_tpu_torch.ops.flash_attention")
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     DTYPE_CODES,
     LOG2E,
@@ -897,14 +907,19 @@ PARENT = {"lib": None, "turns": []}
 # the workspace: it takes one CTA a key tile.  The exact quantized
 # backward from before its wide kernels (no ``mfa_qattn_body``) lacks the
 # splits and the workspace: it stops at D = 256, where no call splits.
-LEGACY_ARGS = {"mfa_flash_fwd": ("mfa_flash_static_max_body", 19),
-               "mfa_qflash_bwd": ("mfa_qattn_body", 35),
-               "mfa_flash_dkv": ("mfa_flash_dkv_merge", 21),
-               "mfa_wo_folded_gemm": ("mfa_wo_tc_body", 9),
-               "mfa_wo_gemm": ("mfa_wo_tc_body", 12),
-               "mfa_dyn_gemm": ("mfa_comp_small_body", 12),
-               "mfa_paged_decode": ("mfa_paged_bodies", 19),
-               "mfa_rtq_blocks": ("mfa_rtq_row_group", 12)}
+# The flash and quantized forwards from before the split-D forward's KV
+# split (no ``mfa_split_d_fwd_merge``) lack the splits and the workspace:
+# one walk.  Where an entry point lacks several, the first one counts.
+LEGACY_ARGS = {"mfa_flash_fwd": (("mfa_flash_static_max_body", 19),
+                                 ("mfa_split_d_fwd_merge", 20)),
+               "mfa_qattn_fwd": (("mfa_split_d_fwd_merge", 31),),
+               "mfa_qflash_bwd": (("mfa_qattn_body", 35),),
+               "mfa_flash_dkv": (("mfa_flash_dkv_merge", 21),),
+               "mfa_wo_folded_gemm": (("mfa_wo_tc_body", 9),),
+               "mfa_wo_gemm": (("mfa_wo_tc_body", 12),),
+               "mfa_dyn_gemm": (("mfa_comp_small_body", 12),),
+               "mfa_paged_decode": (("mfa_paged_bodies", 19),),
+               "mfa_rtq_blocks": (("mfa_rtq_row_group", 12),)}
 
 
 @contextlib.contextmanager
@@ -916,17 +931,21 @@ def kernels_of(lib):
     ``quantized_matmul`` stores fp32 and casts meanwhile, as it did over
     those kernels.  A library without the small-block tensor-core tile:
     ``comp_small_gemm`` takes the scalar tile, its only kernel.  A library
-    without the split dK/dV: ``flash_dkv`` plans one split (no merge)."""
+    without the split dK/dV: ``flash_dkv`` plans one split (no merge).  A
+    library without the split-D forward's KV split: the forwards plan one
+    run (no merge)."""
     own = (_build.kernel_function, qgemm.WO_OUT_TYPES, qgemm.comp_small_body,
-           fbwd.dkv_splits)
+           fbwd.dkv_splits, tfa.split_d_fwd_splits)
 
     def function(name, argtypes):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        if name not in LEGACY_ARGS or hasattr(lib, LEGACY_ARGS[name][0]):
+        lacks = [i for sym, i in LEGACY_ARGS.get(name, ())
+                 if not hasattr(lib, sym)]
+        if not lacks:
             fn.argtypes = list(argtypes)
             return fn
-        i = LEGACY_ARGS[name][1]
+        i = min(lacks)
         fn.argtypes = list(argtypes[:i]) + list(argtypes[-1:])
 
         def older(*args):
@@ -943,11 +962,15 @@ def kernels_of(lib):
         qgemm.comp_small_body = lambda bs: "scalar"
     if not hasattr(lib, "mfa_flash_dkv_merge"):
         fbwd.dkv_splits = lambda *shape: 1
+    if not hasattr(lib, "mfa_split_d_fwd_merge"):
+        tfa.split_d_fwd_splits = tqa.split_d_fwd_splits = (
+            lambda *shape, one_walk=False: 1)
     try:
         yield
     finally:
         (_build.kernel_function, qgemm.WO_OUT_TYPES,
-         qgemm.comp_small_body, fbwd.dkv_splits) = own
+         qgemm.comp_small_body, fbwd.dkv_splits) = own[:4]
+        tfa.split_d_fwd_splits = tqa.split_d_fwd_splits = own[4]
 
 
 def parent_turns(label, t, kernel, iters, device=False, parent_kernel=None,
@@ -985,6 +1008,20 @@ def parent_turns(label, t, kernel, iters, device=False, parent_kernel=None,
         t["parent_turns_device_ms_by_kernel"] = per
         log(f"{label} parent / change turns, device ms by kernel: "
             + json.dumps(per))
+
+
+def parent_bits(kernel):
+    """With ``--parent``: whether ``kernel()``'s outputs (a tensor or a
+    tuple, None skipped) on the parent's library and on this checkout's
+    are the same bits."""
+    with kernels_of(PARENT["lib"]):
+        theirs = kernel()
+    ours = kernel()
+    torch.cuda.synchronize()
+    theirs = theirs if isinstance(theirs, tuple) else (theirs,)
+    ours = ours if isinstance(ours, tuple) else (ours,)
+    return all(torch.equal(a, b) for a, b in zip(theirs, ours)
+               if a is not None)
 
 
 def log_parent_summary():
@@ -1747,6 +1784,8 @@ def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
         t["bound_ms"], t["bound_by"] = bound_of(*work[name])
         t["body"] = {"flash_fwd": fwd_body, "flash_dq": dq_body,
                      "flash_dkv": dkv_body}[name](q.dtype, d)
+        if name == "flash_fwd":
+            t["splits"] = tfa.split_d_fwd_splits(d, b, hq, s, s, sm_count())
         log(f"{name} at D={d} runs the {t['body']} body")
         if d > 256:  # MLA's width: the device ms of each launch
             by = t["device_ms_by_kernel"] = device_ms_by_label(kernel, 10)
@@ -6087,8 +6126,10 @@ def time_wide_kernels(path_inputs, scale=MLA_SCALE, fullint_only=False,
             if set(t["device_ms_by_kernel"]) - {"flash_dkv_merge_kernel"}
             else measure_held(kernel, iters=5, warmup=0) * 1e3)
         t["bound_ms"], t["bound_by"] = bound
-        if fam == "wide":  # the parent's library has these kernels
+        if fam in ("wide", "split_d"):  # the parent has these kernels
             parent_turns(f"{name} (D={d})", t, kernel, 5, device=True)
+        if fam == "split_d" and PARENT["lib"] is not None:
+            t["parent_bits_equal"] = parent_bits(kernel)
         log(f"{name} times (D={d}): " + json.dumps(t))
         return t
 
@@ -6159,6 +6200,8 @@ def time_wide_exact(q, kq, vq, do, scale, fam, timed):
                              + 2 * n_kv + 8 * b * hkv * s + 4 * n_q
                              + 4 * rows))
         t["body"] = qattn_body(a[0].dtype, kw["mode"], d=d)
+        t["splits"] = tqa.qattn_splits(kw["mode"], kw["kv_tile"] or KV_TILE,
+                                       d, b, h, s, s, sm_count())
         times[f"qattn_fwd_{fam}{tag}"] = t
     o, lse = quantized_flash_attention_forward(q, kq, vq, mask=masking.CAUSAL,
                                                scale=scale)
@@ -7383,10 +7426,11 @@ SPLIT_D_REPLACES = {"flash_fwd": f"{FLASH_TPU}:546",
                     "paged_prefill": f"{TPU_FILE}:306"}
 SPLIT_D_DESIGN = (
     "O's (dQ's, dK's and dV's) lanes split over CTAs, 256 a CTA; the "
-    "scores summed over the whole head dim in 32-lane chunks through two "
-    "shared-memory buffers; P applied to the CTA's slice, staged 128 lanes "
-    "at a time; scalar fp32 FMAs for bf16 and fp32 alike; the scores "
-    "recomputed once a slice")
+    "scores summed over the whole head dim in 32-lane chunks, bf16 on "
+    "mma.sync through a 4-stage cp.async ring, fp32 on scalar FMAs; P "
+    "applied to the CTA's slice, fetched under the scores; the scores "
+    "recomputed once a slice; the forward's KV axis split where the grid "
+    "leaves SMs idle, then split_d_fwd_merge_kernel")
 # Perceiver IO's image cross-attention (deepmind/vision-perceiver-*,
 # Hugging Face PerceiverConfig: 512 latents of d_latents 1024 over one
 # cross-attention head, attending to 224 x 224 inputs): B, H, Sq, Skv, D.
@@ -7515,10 +7559,86 @@ def check_split_d_all(rng):
     return errs
 
 
+# The split-D forward's merge (phase 24 (b) and 25 (b): Perceiver IO's
+# forwards split their KV axis).
+FWD_MERGE_KERNEL = "split_d_fwd_merge_kernel"
+FWD_SPLIT_COUNTED = (flash_fwd, qattn_fwd, tfa.merge_fwd_splits)
+
+
+def split_launches(call):
+    """One ``call`` with the split-D forwards' counts (kernels and merge)
+    set to 0 just before and read after → {name: launches}."""
+    for f in FWD_SPLIT_COUNTED:
+        f.launches = 0
+    out = call()
+    torch.cuda.synchronize()
+    return out, {f.__name__: f.launches for f in FWD_SPLIT_COUNTED
+                 if f.launches}
+
+
+def check_fwd_merge(label, call, kv_heads, vstore=None):
+    """The merge alone on the partials ``call``'s split-D forward leaves
+    (the workspace the wrapper allocates, kept as it allocates it; the
+    forward's ``kv_heads`` and V_STORE multipliers ``vstore``): against
+    ``merge_fwd_splits_plain`` (max abs err over O and the finite L), two
+    calls equal bit for bit, events and device ms beside its plain version
+    and its bound (ws read once, O and L written once; no single PyTorch
+    call computes it) → record."""
+    made = []
+    alloc = tfa.split_d_fwd_workspace
+
+    def keep(shape, splits, device):
+        ws = alloc(shape, splits, device)
+        made.append((ws, tuple(shape)))
+        return ws
+
+    tfa.split_d_fwd_workspace = tqa.split_d_fwd_workspace = keep
+    try:
+        call()
+    finally:
+        tfa.split_d_fwd_workspace = tqa.split_d_fwd_workspace = alloc
+    torch.cuda.synchronize()
+    ws, shape = made[-1]
+    o = torch.empty(shape, dtype=torch.float32, device=DEV)
+    lse = torch.empty(shape[:3], dtype=torch.float32, device=DEV)
+    kernel = lambda: tfa.merge_fwd_splits(  # noqa: E731
+        ws, o, lse, kv_heads=kv_heads, vstore=vstore)
+    plain = lambda: tfa.merge_fwd_splits_plain(  # noqa: E731
+        ws, shape, vstore=vstore)
+    kernel()
+    first = (o.clone(), lse.clone())
+    kernel()
+    torch.cuda.synchronize()
+    same_bits(f"{label} merge", first, (o, lse))
+    o_ref, l_ref = plain()
+    live = torch.isfinite(l_ref)
+    if not torch.equal(torch.isfinite(lse), live):
+        raise AssertionError(f"{label} merge: L's empty rows differ")
+    err = max(max_abs(o, o_ref), max_abs(lse[live], l_ref[live]))
+    if not err <= 2e-5 * max(1.0, o_ref.abs().max().item()):
+        raise AssertionError(f"{label} merge: max abs err {err}")
+    t = {"max_abs_err": err, "splits": ws.shape[1],
+         "ms": time_ms(kernel, 20, warmup=2),
+         "plain_ms": time_ms(plain, 3, warmup=1), "library_ms": None,
+         "library": "none (no single PyTorch call merges the runs)"}
+    t["device_ms"] = sum(device_ms_by_label(kernel, 20).values()) or None
+    nbytes = 4 * (ws.numel() + o.numel() + lse.numel()
+                  + (0 if vstore is None else vstore.numel()))
+    t["bound_ms"], t["bound_by"] = bound_of(
+        2 * ws.shape[0] * ws.shape[1] * (shape[3] + 2), nbytes)
+    log(f"{label} merge ({FWD_MERGE_KERNEL}): " + json.dumps(t))
+    return t
+
+
 def time_perceiver(rng):
     """(b) The forward at Perceiver IO's image cross-attention (PERCEIVER,
-    FULL, bf16): events, the profiler's device ms, the plain version, SDPA
-    (its backend named) and the bound → times."""
+    FULL, bf16; its KV axis split: ``split_d_fwd_splits``): one call's
+    launches (the counts set to 0 just before and read after: one kernel,
+    one merge), O and L against the plain version at the flash gates, two
+    calls equal bit for bit, events, the profiler's device ms, the plain
+    version, SDPA (its backend named), the bound, with ``--parent`` in
+    turns on the parent's library (one walk), and the merge alone
+    (``check_fwd_merge``) → times."""
     b, h, sq, skv, d = PERCEIVER
     gen = device_generator(rng)
     q = torch.randn((b, h, sq, d), generator=gen, device=DEV).to(
@@ -7528,11 +7648,24 @@ def time_perceiver(rng):
     rr = row_ranges_tensor(masking.FULL, sq, skv, None, DEV)
     kw = dict(scale=d ** -0.5)
     kernel = lambda: flash_fwd(q, k, v, rr, **kw)  # noqa: E731
-    t = {"plain_ms": time_ms(lambda: flash_attention_forward_plain(
-        q, k, v, rr, **kw), 3, warmup=1),
-        "ms": time_ms(kernel, 5, warmup=1),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v), 10)}
+    splits = tfa.split_d_fwd_splits(d, b, h, sq, skv, sm_count())
+    out, launches = split_launches(kernel)
+    if splits < 2 or launches != {"flash_fwd": 1, "merge_fwd_splits": 1}:
+        raise AssertionError(f"Perceiver forward: {splits} runs, launches "
+                             f"{launches}")
+    same_bits("Perceiver forward (split_d, its KV axis split)", out,
+              kernel())
+    plain = lambda: flash_attention_forward_plain(  # noqa: E731
+        q, k, v, rr, **kw)
+    errs = check_pair(f"Perceiver forward (split_d, {splits} runs)", out,
+                      plain())
+    del out
+    t = {"plain_ms": time_ms(plain, 3, warmup=1),
+         "ms": time_ms(kernel, 5, warmup=1),
+         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v), 10),
+         "splits": splits, "launches": launches,
+         "rel_err": errs[0], "max_abs_err": errs[2]}
     t["ms_2"] = time_ms(kernel, 5, warmup=0)
     t["device_ms_by_kernel"] = device_ms_by_label(kernel, 3)
     t["device_ms"] = (sum(t["device_ms_by_kernel"].values())
@@ -7544,6 +7677,9 @@ def time_perceiver(rng):
         * (d + 1))
     t["shape"] = (f"B={b} H={h} Sq={sq} Skv={skv} D={d} FULL bf16 "
                   "(Perceiver IO image cross-attention)")
+    parent_turns("flash_fwd Perceiver IO (D=1024)", t, kernel, 5,
+                 device=True)
+    t["merge"] = check_fwd_merge("Perceiver forward", kernel, h)
     log("phase 24 (b) Perceiver IO forward: " + json.dumps(t))
     return t
 
@@ -7696,7 +7832,11 @@ QSPLIT_DESIGN = (
     "phase 24's split-D frame over the payload (256 output lanes a CTA, the "
     "scores over the whole head dim in 32-lane chunks, recomputed once a "
     "slice): int8 / int4 rows read as they lie and dequantized (or kept as "
-    "integers) a chunk at a time, bf16 mma.sync for a bf16 Q, s8 mma.sync "
+    "integers) a chunk at a time, the forward's whole rows (and the "
+    "full-integer pair's int8 rows) landing as raw bytes through a 4-stage "
+    "cp.async ring and widened in shared memory, V's slice raw under the "
+    "scores, the forward's KV axis split where the grid leaves SMs idle "
+    "(then split_d_fwd_merge_kernel), bf16 mma.sync for a bf16 Q, s8 mma.sync "
     "m16n8k32 for an int8 Q and the full-integer S and dP, P.V (dQ, dK, dV) "
     "over the CTA's slice on bf16 mma.sync, fp32 FMAs where the mode does "
     "not round to bf16 and at the full-integer level 2")
@@ -7762,21 +7902,27 @@ def time_quantized_perceiver(rng, split_d_perceiver):
     q, k, v = (torch.randn((b, h, n, d), generator=gen, device=DEV).to(
         torch.bfloat16) for n in (sq, skv, skv))
     facade = QuantizedAttention()
-    rtq.rtq_rows.launches = qattn_fwd.launches = 0
-    o_call = facade(q, k, v)
-    torch.cuda.synchronize()
-    counts = {"runtime_quantize_row": rtq.rtq_rows.launches,
-              "qattn_fwd": qattn_fwd.launches}
-    if counts != {"runtime_quantize_row": 2, "qattn_fwd": 1}:
-        raise AssertionError(f"Perceiver facade launches {counts}")
+    rtq.rtq_rows.launches = 0
+    o_call, counts = split_launches(lambda: facade(q, k, v))
+    counts["runtime_quantize_row"] = rtq.rtq_rows.launches
+    splits = tfa.split_d_fwd_splits(d, b, h, sq, skv, sm_count())
+    if splits < 2 or counts != {"runtime_quantize_row": 2, "qattn_fwd": 1,
+                                "merge_fwd_splits": 1}:
+        raise AssertionError(f"Perceiver facade: {splits} runs, launches "
+                             f"{counts}")
     kq, vq = facade.quantize_kv(k, v)
     a, kw = qattn_arguments(q, kq, vq)
     kernel = lambda: qattn_fwd(*a, **kw)  # noqa: E731
     plain = lambda: qattn_fwd_plain(*a, **kw, kv_tile=KV_TILE)  # noqa: E731
-    errs = check_pair("Perceiver facade forward (split_d)", kernel(), plain())
-    if not torch.equal(o_call, kernel()[0].to(o_call.dtype)):
+    out = kernel()
+    same_bits("Perceiver facade forward (split_d, its KV axis split)", out,
+              kernel())
+    errs = check_pair(f"Perceiver facade forward (split_d, {splits} runs)",
+                      out, plain())
+    if not torch.equal(o_call, out[0].to(o_call.dtype)):
         raise AssertionError("Perceiver facade: the call's O is not its "
                              "kernel's")
+    del out
     kd, vd = dequantized_bf16(kq), dequantized_bf16(vq)
     t = {"facade_ms": time_ms(lambda: facade(q, k, v), 5, warmup=1),
          "ms": time_ms(kernel, 5, warmup=1),
@@ -7797,10 +7943,14 @@ def time_quantized_perceiver(rng, split_d_perceiver):
     t["float_split_d_ms"] = split_d_perceiver["ms"]
     t["float_split_d_device_ms"] = split_d_perceiver["device_ms"]
     t["launches"] = counts
+    t["splits"] = splits
     t["rel_err"], t["max_abs_err"] = errs[0], errs[2]
     t["body"] = qattn_body(a[0].dtype, kw["mode"], d=d)
     t["shape"] = (f"B={b} H={h} Sq={sq} Skv={skv} D={d} FULL bf16, int8 "
                   "ROW CENTERED K/V (Perceiver IO image cross-attention)")
+    parent_turns("qattn_fwd Perceiver IO facade (D=1024)", t, kernel, 5,
+                 device=True)
+    t["merge"] = check_fwd_merge("Perceiver facade forward", kernel, h)
     log("phase 25 (b) Perceiver IO facade forward: " + json.dumps(t))
     return t
 
@@ -7837,6 +7987,16 @@ def time_quantized_split_d(rng, split_d_times):
             if times[name]["body"] != "split_d":
                 raise AssertionError(f"{name} at D={d} runs "
                                      f"{times[name]['body']}")
+        # With --parent, the kernels whose int32 sums are exact (the
+        # full-integer pair, whose S and dP share the s8 scores with the
+        # forward's int8 Q) and the folded exact dQ keep the parent's bits.
+        moved = [f"{name} {k}" for name, t in times.items()
+                 for k, v in t.items()
+                 if k.startswith("parent_bits_equal") and v is False
+                 and name.startswith(("fullint", "qflash_dq"))]
+        if moved:
+            raise AssertionError(f"D={d}: {moved} moved from the parent's "
+                                 "bits")
         # The exact pair's traces name the quantized kernels, not the float
         # ones whose body they share.
         for family in ("qflash_dq", "qflash_dkv"):
@@ -8828,7 +8988,10 @@ def main() -> int:
         if name == "flash_fwd":
             entry.update({f"{k}_perceiver": split_d["perceiver"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "device_ms", "library_backend", "shape")})
+                "device_ms", "library_backend", "shape", "splits",
+                "launches", "max_abs_err")})
+            entry["splits"] = times["d1024"]["splits"]
+            entry["splits_d640"] = times["d640"]["splits"]
         if name == "flash_dkv":
             entry["splits"] = split_d["times"]["d1024"]["splits"]
             entry["splits_d640"] = split_d["times"]["d640"]["splits"]
@@ -8889,11 +9052,39 @@ def main() -> int:
                           for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "device_ms", "facade_ms",
                                     "float_split_d_ms", "library_backend",
-                                    "shape")})
+                                    "shape", "splits", "launches",
+                                    "max_abs_err")})
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']}: no launch on the path")
         DEVICE_KERNELS[entry["name"]] = kernel
         record["kernels"].append(entry)
+    # The split-D forward's merge, from phases 24 (b) and 25 (b): launched
+    # by Perceiver IO's float and facade forwards (one each).
+    fm, qfm = split_d["perceiver"]["merge"], qsplit["perceiver"]["merge"]
+    entry = {
+        "name": "split_d_fwd_merge", "route": "cuda",
+        "source": SPLIT_D_SOURCE, "replaces": SPLIT_D_REPLACES["flash_fwd"],
+        "replaces_note": "the second launch of _fwd_kernel's and "
+                         "_qfwd_kernel's ports above 576 where the KV axis "
+                         "splits: the runs' partials merged in split order "
+                         "(the TPU's sequential grid walked the whole KV "
+                         "axis in one kernel)",
+        "launches": (split_d["perceiver"]["launches"]["merge_fwd_splits"]
+                     + qsplit["perceiver"]["launches"]["merge_fwd_splits"]),
+        "max_abs_err": max(fm["max_abs_err"], qfm["max_abs_err"]),
+        **{k: fm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "library", "device_ms",
+                              "splits")},
+        **{f"{k}_facade": qfm[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "device_ms", "max_abs_err")},
+        "shape": (f"Perceiver IO's 512 rows of D=1024, {fm['splits']} "
+                  "runs (the float forward's; the facade's beside it)"),
+        "bitwise_equal_two_calls": True,
+        "launches_on": "phases 24 (b) and 25 (b): one Perceiver IO float "
+                       "forward and one facade call",
+    }
+    DEVICE_KERNELS[entry["name"]] = FWD_MERGE_KERNEL
+    record["kernels"].append(entry)
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
     record["gemm_engine"] = {

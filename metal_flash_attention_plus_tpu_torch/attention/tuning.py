@@ -38,6 +38,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from metal_flash_attention_plus_tpu_torch._device import (
+    DeviceLike,
+    resolve_device,
+)
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     BlockSizes,
 )
@@ -255,16 +259,24 @@ def stored_gemm_plan(m: int, n: int, k: int, bits: int,
 class AttentionTuner:
     """Process-global recommend / calibrate service over a
     :class:`CalibrationStore` (a lock-guarded cache of the device kind's
-    entries, loaded once)."""
+    entries, loaded once).
+
+    ``device``: where :meth:`calibrate` and :meth:`calibrate_gemm` time
+    their calls, resolved by ``_device.resolve_device`` when they run
+    (None: the card, so that without one they raise; "cpu" only when
+    named).  The store is keyed by that device's kind: "cpu" for the CPU,
+    else the card's name (:func:`device_kind`)."""
 
     _instance: Optional["AttentionTuner"] = None
     _instance_lock = threading.Lock()
 
-    def __init__(self, store: Optional[CalibrationStore] = None):
+    def __init__(self, store: Optional[CalibrationStore] = None,
+                 device: DeviceLike = None):
         self._lock = threading.Lock()
         self._store = store or CalibrationStore()
         self._cache: Dict[str, dict] = {}
         self._loaded_device: Optional[str] = None
+        self._device_arg = device
 
     @classmethod
     def shared(cls) -> "AttentionTuner":
@@ -274,6 +286,9 @@ class AttentionTuner:
             return cls._instance
 
     def _device_kind(self) -> str:
+        if (self._device_arg is not None
+                and torch.device(self._device_arg).type == "cpu"):
+            return "cpu"
         return device_kind()
 
     def _ensure_loaded(self):
@@ -283,7 +298,7 @@ class AttentionTuner:
             self._loaded_device = dk
 
     def _device(self) -> torch.device:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        return resolve_device(self._device_arg)
 
     def recommend(
         self, kind: str, head_dim: int, seq_len: int, bits: int = 16,
@@ -367,8 +382,9 @@ class AttentionTuner:
         ``(tile rows, 128, K per split)``; by default the plans
         ``utils/profiling.py`` sweeps
         (``DYN_TILE_PLANS`` for the rows M takes, ``WO_TILE_PLANS``), each
-        kept where it maps back to itself.  On the CPU the plain version
-        reads no plan, so the cold start is timed once and stored.
+        kept where it maps back to itself.  On the CPU (``device="cpu"``)
+        the plain version reads no plan, so the cold start is timed once
+        and stored.
         """
         from metal_flash_attention_plus_tpu_torch.ops import quantized_gemm
         from metal_flash_attention_plus_tpu_torch.quant.params import (
@@ -438,8 +454,8 @@ class AttentionTuner:
         candidates: Optional[Tuple[Tuple[int, ...], ...]] = None,
         iters: int = 20,
     ) -> BlockSizes:
-        """Time the dispatched call of ``kind`` on the live device and store
-        its blocks; returns them.
+        """Time the dispatched call of ``kind`` on the tuner's device and
+        store its blocks; returns them.
 
         ``kind``: "fwd" (the bf16 flash forward), "fwd_q" (the quantized
         forward over ROW CENTERED K/V of ``bits``) or "bwd" (dQ and dK/dV

@@ -1390,23 +1390,30 @@ mfa_sd::FlashArgs split_d_args(const void* q, const void* k, const void* v,
 extern "C" {
 
 // row_max: null for the running-max forward; else the static-max mode's
-// fp32 [B, Hq, Sq] subtrahends (base 2), which takes no bias.
+// fp32 [B, Hq, Sq] subtrahends (base 2), which takes no bias.  splits: the
+// split-D forward's runs of the KV axis (above 576, ops/flash_attention.py::
+// split_d_fwd_splits; 1 elsewhere); with splits > 1 the kernel leaves its
+// partials in ws, fp32 [B * Hq * Sq, splits, D + 2], and
+// mfa_split_d_fwd_merge makes o and lse.
 int mfa_flash_fwd(const void* q, const void* k, const void* v,
                   const void* ranges, const void* bias, long long bias_sb,
                   long long bias_sh, void* o, void* lse, int dtype, int B,
                   int Hq, int Hkv, int Sq, int Skv, int D, int interleaved,
                   float qscale, float mask_value, const void* row_max,
-                  void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || (row_max && bias))
+                  int splits, void* ws, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || (row_max && bias) || (D <= 576 && splits != 1))
     return (int)cudaErrorInvalidValue;
   const Shape sp{B, Hq, Hkv, Sq, Skv, interleaved};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > 576)
-    return mfa_sd::launch_fwd(
-        dtype, split_d_args(q, k, v, nullptr, nullptr, nullptr, ranges, bias,
-                            bias_sb, bias_sh, row_max, o, lse, B, Hq, Hkv,
-                            Sq, Skv, D, interleaved, qscale, mask_value),
-        s);
+  if (D > 576) {
+    mfa_sd::FlashArgs a = split_d_args(
+        q, k, v, nullptr, nullptr, nullptr, ranges, bias, bias_sb, bias_sh,
+        row_max, o, lse, B, Hq, Hkv, Sq, Skv, D, interleaved, qscale,
+        mask_value);
+    a.splits = splits;
+    a.ws = static_cast<float*>(ws);
+    return mfa_sd::launch_fwd(dtype, a, s);
+  }
   MFA_DISPATCH(launch_fwd, q, k, v, ranges, bias, bias_sb, bias_sh, o, lse,
                sp, qscale, mask_value, row_max, s);
 }

@@ -1755,6 +1755,8 @@ bool valid_bits(int bits) { return bits == 8 || bits == 4; }
 // multiple of 16 (csrc/split_d_quantized.cu).
 extern "C" {
 
+// splits, ws: mfa_flash_fwd's (the split-D forward's runs of the KV axis;
+// 1 with an int8 P or kv_span > 64, and at D <= 576).
 int mfa_qattn_fwd(const void* q, const void* qs, const void* kq,
                   const void* ks, const void* kz, const void* vq,
                   const void* vs, const void* vz, const void* ranges,
@@ -1762,9 +1764,11 @@ int mfa_qattn_fwd(const void* q, const void* qs, const void* kq,
                   void* o, void* lse, int qtype, int B, int Hq, int Hkv,
                   int Sq, int Skv, int D, int interleaved, int bits_k,
                   int bits_v, int k_scales, int v_scales, int flags, int br,
-                  int bs, int kv_span, float mask_value, void* stream) {
+                  int bs, int kv_span, float mask_value, int splits, void* ws,
+                  void* stream) {
   if (Hkv <= 0 || Hq % Hkv || !valid_bits(bits_k) || !valid_bits(bits_v) ||
-      kv_span <= 0 || kv_span % BN || (qtype != 2 && kv_span != BN))
+      kv_span <= 0 || kv_span % BN || (qtype != 2 && kv_span != BN) ||
+      (D <= 576 && splits != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D > 576)
@@ -1782,7 +1786,7 @@ int mfa_qattn_fwd(const void* q, const void* qs, const void* kq,
                           static_cast<float*>(o), static_cast<float*>(lse), B,
                           Hq, Hkv, Sq, Skv, D, interleaved, bits_k, bits_v,
                           k_scales, v_scales, flags, br, bs, kv_span,
-                          mask_value},
+                          mask_value, splits, static_cast<float*>(ws)},
         s);
   const long long plane = (long long)Sq * D;
   const Args a{q, static_cast<const float*>(qs),

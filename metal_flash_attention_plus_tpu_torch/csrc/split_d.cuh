@@ -51,9 +51,28 @@ struct FlashArgs {
   float* out1;
   int B, Hq, Hkv, Sq, Skv, D, interleaved;
   float scale, mask_value;
+  // The forward's split of the KV axis (ops/flash_attention.py::
+  // split_d_fwd_splits, at most MAX_FWD_SPLITS): with splits > 1 each row
+  // tile's live span is dealt into `splits` runs of whole 64-key tiles, one
+  // CTA each, whose partials go to ws (fwd_partial).
+  int splits = 1;
+  float* ws = nullptr;
 };
 
+constexpr int MAX_FWD_SPLITS = 64;
+
+// The forward's partials with splits > 1: ws fp32 [B * Hq * Sq, splits,
+// D + 2], row (b, h, r), split s: m (base 2) and l (0 for a row whose range
+// is empty) at [0] and [1], written by slice 0, then the unnormalised O
+// over the row's lanes (each slice its own 256).
+__host__ __device__ inline size_t fwd_partial(size_t row, int split,
+                                              int splits, int D) {
+  return (row * splits + split) * (size_t)(D + 2);
+}
+
 // dtype 0 = float32, 1 = bfloat16.  Each returns the launch's cudaError_t.
+// With a.splits > 1 the forward writes only ws; mfa_split_d_fwd_merge
+// (csrc/split_d_attention.cu) then makes O and L.
 int launch_fwd(int dtype, const FlashArgs& a, cudaStream_t stream);
 int launch_dq(int dtype, const FlashArgs& a, cudaStream_t stream);
 // splits: the CTAs that share a key tile's GQA group; with splits > 1 the
@@ -112,6 +131,8 @@ struct QAttnArgs {
   int B, Hq, Hkv, Sq, Skv, D, interleaved;
   int bits_k, bits_v, k_scales, v_scales, flags, br, bs, kv_span;
   float mask_value;
+  int splits = 1;  // FlashArgs::splits (1 with an int8 P or kv_span > 64)
+  float* ws = nullptr;
 };
 
 // qtype 0 = float32, 1 = bfloat16, 2 = int8 (a bf16 Q needs ROUND_BF16).

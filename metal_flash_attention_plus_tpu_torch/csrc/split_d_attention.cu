@@ -4,6 +4,9 @@
 //
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu) above D = 576:
 //   - ops/flash_attention.py::_fwd_kernel        -> split_d_fwd_kernel
+//     (then split_d_fwd_merge_kernel where the KV axis splits:
+//     ops/flash_attention.py::split_d_fwd_splits, for few row tiles; the
+//     quantized forward's split merges here too)
 //   - ops/flash_attention_bwd.py::_dq_kernel     -> split_d_dq_kernel
 //   - ops/flash_attention_bwd.py::_dkv_kernel    -> split_d_dkv_kernel
 //     (then csrc/flash_attention.cu::flash_dkv_merge_kernel where the GQA
@@ -128,6 +131,8 @@ template <typename T, int MODE, bool WHOLE = false>
 struct Tokens {
   static constexpr bool ASYNC = WHOLE && MODE == KV_FLOAT &&
                                 std::is_same<T, __nv_bfloat16>::value;
+  static constexpr bool RAW = false;
+  static constexpr bool WIDEN = false;
   static constexpr bool SCALE = false;
   static constexpr float scale = 1.f;
   using S = typename PoolElem<T, MODE>::S;
@@ -464,9 +469,55 @@ split_d_decode_kernel(const PagedArgs a) {
   });
 }
 
+constexpr int MERGE_THREADS = 128;
+
+// The forward's split partials (split_d_frame.cuh::split_d_fwd, ws
+// [rows, splits, D + 2]) -> O and L, one CTA a query row of B * Hq * Sq:
+// M = max m_s, weights w_s = exp2(m_s - M) (0 for a split that walked no
+// key), l = sum w_s l_s, O = (sum w_s O_s) / l (times V_STORE's lane
+// multiplier), L = M ln 2 + ln l; a row with l = 0 (an empty range) O = 0,
+// L = -inf, as the unsplit store.  Every sum runs in split order, with no
+// atomics, so two calls give the same bits.  Bound by ws's bytes.
+__global__ void __launch_bounds__(MERGE_THREADS)
+split_d_fwd_merge_kernel(const float* __restrict__ ws, float* __restrict__ o,
+                         float* __restrict__ lse,
+                         const float* __restrict__ vstore, int Hq, int Hkv,
+                         int Sq, int D, int interleaved, int splits) {
+  __shared__ float w_s[mfa_sd::MAX_FWD_SPLITS];
+  const size_t row = blockIdx.x;
+  const size_t ld = (size_t)D + 2;
+  const float* p = ws + mfa_sd::fwd_partial(row, 0, splits, D);
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, p[s * ld]);
+  if (threadIdx.x < splits) {
+    const float ms = p[threadIdx.x * ld];
+    w_s[threadIdx.x] = ms == -INFINITY ? 0.f : exp2f(ms - mx);
+  }
+  __syncthreads();
+  float l = 0.f;
+  for (int s = 0; s < splits; ++s) l = fmaf(w_s[s], p[s * ld + 1], l);
+  const bool live = l > 0.f;
+  if (threadIdx.x == 0) lse[row] = live ? mx * LN2 + logf(l) : -INFINITY;
+  const float* vs = nullptr;
+  if (vstore) {
+    const int bh = (int)(row / Sq), h = bh % Hq, b = bh / Hq;
+    const int hk = interleaved ? h % Hkv : h / (Hq / Hkv);
+    vs = vstore + ((size_t)b * Hkv + hk) * D;
+  }
+  for (int d = threadIdx.x; d < D; d += MERGE_THREADS) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s)
+      acc = fmaf(w_s[s], p[s * ld + 2 + d], acc);
+    float v = live ? acc / l : 0.f;
+    if (vs) v *= vs[d];
+    o[row * D + d] = v;
+  }
+}
+
 template <typename T>
 int fwd_of(const FlashArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.Sq + 63) / 64, a.Hq * mfa_sd::slices(a.D), a.B);
+  const dim3 grid((a.Sq + 63) / 64, a.Hq * mfa_sd::slices(a.D),
+                  a.B * a.splits);
   if (a.row_max)
     return mfa::launch_with_smem(split_d_fwd_kernel<T, true>, grid, 256,
                                  Smem<64, 1>::BYTES, stream, FlashFwd<T>{a});
@@ -523,7 +574,9 @@ int prefill_mode(int dtype, const PagedArgs& a, cudaStream_t stream) {
 namespace mfa_sd {
 
 int launch_fwd(int dtype, const FlashArgs& a, cudaStream_t stream) {
-  if (!takes(a.D)) return (int)cudaErrorInvalidValue;
+  if (!takes(a.D) || a.splits < 1 || a.splits > MAX_FWD_SPLITS ||
+      (a.splits > 1 && !a.ws))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0) return fwd_of<float>(a, stream);
   if (dtype == 1) return fwd_of<__nv_bfloat16>(a, stream);
   return (int)cudaErrorInvalidValue;
@@ -582,5 +635,36 @@ extern "C" {
 // The lanes a split-D CTA owns (ops/flash_attention.py::SPLIT_D_SLICE
 // answers the same).
 int mfa_split_d_slice() { return SLICE; }
+
+// CTAs an SM the occupancy API gives split_d_fwd_kernel's instance for
+// dtype (0 fp32, 1 bf16) and static_max (0 or 1); -1 for none.
+int mfa_split_d_fwd_ctas_per_sm(int dtype, int static_max) {
+  if (dtype == 0)
+    return static_max ? ctas_per_sm<1>(split_d_fwd_kernel<float, true>)
+                      : ctas_per_sm<1>(split_d_fwd_kernel<float, false>);
+  if (dtype == 1)
+    return static_max
+               ? ctas_per_sm<1>(split_d_fwd_kernel<__nv_bfloat16, true>)
+               : ctas_per_sm<1>(split_d_fwd_kernel<__nv_bfloat16, false>);
+  return -1;
+}
+
+// The split-D forward's merge (split_d_fwd_merge_kernel): ws fp32 [B * Hq *
+// Sq, splits, D + 2] from mfa_flash_fwd / mfa_qattn_fwd with splits > 1 ->
+// o fp32 [B, Hq, Sq, D], lse fp32 [B, Hq, Sq]; vstore: the quantized
+// forward's V_STORE multipliers fp32 [B, Hkv, D], or null.
+int mfa_split_d_fwd_merge(const void* ws, void* o, void* lse,
+                          const void* vstore, int B, int Hq, int Hkv, int Sq,
+                          int D, int interleaved, int splits, void* stream) {
+  if (splits < 2 || splits > mfa_sd::MAX_FWD_SPLITS || Hkv <= 0 ||
+      Hq % Hkv || B <= 0 || Sq <= 0 || D <= 0)
+    return (int)cudaErrorInvalidValue;
+  split_d_fwd_merge_kernel<<<B * Hq * Sq, MERGE_THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ws), static_cast<float*>(o),
+      static_cast<float*>(lse), static_cast<const float*>(vstore), Hq, Hkv,
+      Sq, D, interleaved, splits);
+  return (int)cudaGetLastError();
+}
 
 }  // extern "C"

@@ -92,6 +92,8 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 template <typename T, bool SCALE_>
 struct Rows {
   static constexpr bool ASYNC = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr bool RAW = false;
+  static constexpr bool WIDEN = false;
   static constexpr bool SCALE = SCALE_;
   const T* base;
   int row0, limit, D;
@@ -116,13 +118,21 @@ struct Rows {
 
 // int8 rows [row0, row0 + n) of a [rows, D] matrix (D a multiple of 16),
 // zeros from row `limit` and lane D: word() four lanes as one int32 of four
-// int8 (the s8 scores' operand), operator() the same as fp32.
+// int8 (the s8 scores' operand), operator() the same as fp32.  RAW: copy16
+// copies 16 lanes as they lie by cp.async, which are the s8 operand's bytes.
 struct I8Rows {
   static constexpr bool ASYNC = false;
+  static constexpr bool RAW = true;
+  static constexpr bool WIDEN = false;
   static constexpr bool SCALE = false;
   static constexpr float scale = 1.f;
   const int8_t* base;
   int row0, limit, D;
+  __device__ __forceinline__ void copy16(int r, int l, uint8_t* dst) const {
+    const bool ok = row0 + r < limit && l < D;
+    mfa::cp_async16(dst, base + (ok ? (size_t)(row0 + r) * D + l : 0),
+                    ok ? 16 : 0);
+  }
   __device__ __forceinline__ int word(int r, int l) const {
     if (row0 + r >= limit || l >= D) return 0;
     return *reinterpret_cast<const int*>(base + (size_t)(row0 + r) * D + l);
@@ -147,15 +157,102 @@ struct I8Rows {
 // BLOCK_2D cell is lane / bs of the whole head dim, so a block may
 // straddle two slices.  rb: the dequantized values rounded to bf16 here
 // (an fp32 Q whose mode rounds to bf16, which the fp32 staging would not
-// round).
+// round).  The raw path (RingPayload, whole rows only): copy16 copies the 16
+// bytes that hold lanes [l, l + 16) as they lie, and ints8 / widen_bf16
+// widen eight lanes of them once they have landed into word()'s integers /
+// operator()'s values.
 struct Payload {
   static constexpr bool ASYNC = false;
+  static constexpr bool RAW = false;
+  static constexpr bool WIDEN = false;
   static constexpr bool SCALE = false;
   static constexpr float scale = 1.f;
   mfa::KVOperand op;
   size_t head;
   int Skv, D, br, bs, t0, limit;
   bool rb;
+  // Token row r's first byte.
+  __device__ __forceinline__ const uint8_t* row(int r) const {
+    return op.pay +
+           (head * Skv + t0 + r) * (size_t)(op.bits == 8 ? D : D / 2);
+  }
+  // The byte of a row that holds lane l (a multiple of 4), and for int4
+  // whether its high nibble does (load_word_at's packing).
+  __device__ __forceinline__ int byte_of_lane(int l, bool& high) const {
+    high = false;
+    if (op.bits == 8) return l;
+    const int base =
+        D > mfa::INT4_GROUP ? l / mfa::INT4_GROUP * mfa::INT4_GROUP : 0;
+    const int h = min(mfa::INT4_GROUP, D - base) / 2;
+    high = l - base >= h;
+    return base / 2 + (high ? l - base - h : l - base);
+  }
+  __device__ __forceinline__ void copy16(int r, int l, uint8_t* dst) const {
+    const bool ok = t0 + r < limit && l < D;
+    bool high;
+    mfa::cp_async16(dst, ok ? row(r) + byte_of_lane(l, high) : op.pay,
+                    ok ? 16 : 0);
+  }
+  // The TOKEN mode's scale and zero point of token row r (else unused).
+  struct Tok {
+    float s, z;
+  };
+  __device__ __forceinline__ Tok token(int r) const {
+    const int t = t0 + r;
+    if (op.mode != mfa::DQ_TOKEN || t >= limit) return {1.f, 0.f};
+    return {op.sc[head * Skv + t], op.zp[head * Skv + t]};
+  }
+  // The integers of lanes [l, l + 8) (l a multiple of 8) of token row r as
+  // two words of four int8, from `raw`, the eight bytes that hold them:
+  // int8 as they are, int4 the nibbles minus 8; zeros from `limit` and D.
+  __device__ __forceinline__ uint2 ints8(uint2 raw, int r, int l) const {
+    if (t0 + r >= limit || l >= D) return make_uint2(0u, 0u);
+    if (op.bits == 8) return raw;
+    bool high;
+    byte_of_lane(l, high);
+    const auto nib = [&](unsigned u) {
+      return __vsub4(high ? (u >> 4) & 0x0F0F0F0Fu : u & 0x0F0F0F0Fu,
+                     0x08080808u);
+    };
+    return make_uint2(nib(raw.x), nib(raw.y));
+  }
+  // Lanes [l, l + 8) of token row r as eight bf16, from the raw bytes:
+  // operator()'s values (tk: the row's token()), packed as the synchronous
+  // staging packs them, so the same bits.
+  __device__ __forceinline__ uint4 widen_bf16(uint2 raw, int r, int l,
+                                              Tok tk) const {
+    const int t = t0 + r;
+    if (t >= limit || l >= D) return make_uint4(0u, 0u, 0u, 0u);
+    const uint2 w = ints8(raw, r, l);
+    float f[2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[0][e] = mfa::byte_of((int)w.x, e);
+      f[1][e] = mfa::byte_of((int)w.y, e);
+    }
+    if (op.mode == mfa::DQ_TOKEN) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        f[0][e] = __fmul_rn(f[0][e] - tk.z, tk.s);
+        f[1][e] = __fmul_rn(f[1][e] - tk.z, tk.s);
+      }
+    } else {
+      mfa::dequant_values_at(op, head, Skv, D, br, bs, t, l, f[0]);
+      mfa::dequant_values_at(op, head, Skv, D, br, bs, t, l + 4, f[1]);
+    }
+    if (rb && (op.mode == mfa::DQ_TOKEN || op.mode == mfa::DQ_BLOCK2D ||
+               op.mode == mfa::DQ_CHANNEL)) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        f[0][e] = mfa::round_bf16(f[0][e]);
+        f[1][e] = mfa::round_bf16(f[1][e]);
+      }
+    }
+    return make_uint4(mfa::pack_bf16(f[0][0], f[0][1]),
+                      mfa::pack_bf16(f[0][2], f[0][3]),
+                      mfa::pack_bf16(f[1][0], f[1][1]),
+                      mfa::pack_bf16(f[1][2], f[1][3]));
+  }
   __device__ __forceinline__ int word(int r, int l) const {
     const int t = t0 + r;
     if (t >= limit || l >= D) return 0;
@@ -178,6 +275,15 @@ struct Payload {
     }
     return make_float4(f[0], f[1], f[2], f[3]);
   }
+};
+
+// A Payload of whole 16-byte rows (int8; int4 where D is a multiple of 32),
+// which the quantized forward reads through the raw path: the scores' ring
+// lands each chunk's raw bytes and widens them (WIDEN), and PV::fetch_raw
+// lands V's slice under the scores.
+struct RingPayload : Payload {
+  static constexpr bool RAW = true;
+  static constexpr bool WIDEN = true;
 };
 
 // ---------------------------------------------------------------------------
@@ -248,6 +354,22 @@ __device__ __forceinline__ void mma_chunk_s8(const uint8_t* A, int ar0,
   }
 }
 
+// Chunk [l0, l0 + DC) of `rows` rows of a source that lands as it lies
+// into rows of CRB bytes at dst, by cp.async in 16-byte pieces: copy8's 8
+// bf16 lanes (ASYNC), or copy16's 16 int8 lanes (RAW).  Not committed.
+template <int NTH, typename SRC>
+__device__ __forceinline__ void issue_chunk(const SRC& src, uint8_t* dst,
+                                            int rows, int l0) {
+  constexpr int LP = SRC::RAW ? 16 : 8;  // lanes a piece
+  for (int i = threadIdx.x; i < rows * (DC / LP); i += NTH) {
+    const int r = i / (DC / LP), p = i % (DC / LP);
+    if constexpr (SRC::RAW)
+      src.copy16(r, l0 + LP * p, dst + r * CRB + 16 * p);
+    else
+      src.copy8(r, l0 + LP * p, dst + r * CRB + 16 * p);
+  }
+}
+
 // s[i][j] = sum over lanes [0, nch * DC) of a(4 ty + i, l) * b(tx + 16 j, l):
 // each 32-lane chunk of the RT-row tile and of the TILE-row tile staged in
 // one of two buffers by all RT * 4 threads, then multiplied (one barrier a
@@ -256,16 +378,22 @@ __device__ __forceinline__ void mma_chunk_s8(const uint8_t* A, int ar0,
 // integer that bf16 holds exactly): the chunks are staged as bf16 rows and
 // multiplied by bf16 mma.sync m16n8k16 into fp32, warp w taking rows
 // 16 (w % (RT / 16)) + [0, 16) and keys 32 (w / (RT / 16)) + [0, 32); the
-// sums cross to the thread layout through sbuf.  Two bf16 row sources
-// (the flash kernels) stream through an NS-stage cp.async ring instead,
-// Q's scale applied to the fragments as they are read.  T = float: scalar fp32
+// sums cross to the thread layout through sbuf.  T = float: scalar fp32
 // FMAs, as the 2e-5 gate wants (TF32 would break it).  T = int8_t: two
 // int8 sources (their word()s: an int8 Q, the full-integer operands, an
 // int8 or int4 payload's integers), each chunk one s8 mma.sync m16n8k32 k
-// step, summed exactly in int32 and read as fp32 at the end.  The order of
-// the sums depends on nothing but the lanes, so every slice's CTA gets the
-// same bits.  Ends with a barrier, so the caller may restage either
-// buffer.
+// step, summed exactly in int32 and read as fp32 at the end.  The cp.async
+// ring (NS stages) takes the place of the staging where A lands as it lies
+// (bf16 rows, ASYNC; int8 rows, RAW) and B does too or is a payload of
+// whole rows (WIDEN: its raw bytes land, then widen into the operand as
+// operator() / word() would give it): two bf16 rows (the flash kernels;
+// Q's scale applied to the fragments as they are read), a bf16 Q over a
+// payload, an int8 Q over a payload or int8 rows (the full-integer pair);
+// the other sources (the quantized page pools, the exact backward's
+// payloads, int4 rows that are not whole 16-byte pieces) are staged as
+// above, to the same operand bits.  The order of the sums depends on
+// nothing but the lanes, so every slice's CTA gets the same bits.  Ends
+// with a barrier, so the caller may restage either buffer.
 template <typename T, int RT, typename SA, typename SB>
 __device__ __forceinline__ void scores(int nch, float* bufa, float* bufb,
                                        float* sbuf, const SA& sa,
@@ -289,14 +417,88 @@ __device__ __forceinline__ void scores(int nch, float* bufa, float* bufb,
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
     uint8_t* ra = reinterpret_cast<uint8_t*>(bufa);
     uint8_t* rb = reinterpret_cast<uint8_t*>(bufb);
-    if constexpr (S8) {
-      // int8 rows: a chunk is one s8 k step (32 bytes a row), summed
-      // exactly in int32 over the whole head dim, then read as fp32.
-      int iacc[4][4];
+    int iacc[4][4];  // S8: the exact int32 sums
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) iacc[j][e] = 0;
+      for (int e = 0; e < 4; ++e) iacc[j][e] = 0;
+    // One chunk's products: A's rows at a, B's at b (CRB bytes a row).
+    const auto mma = [&](const uint8_t* a, const uint8_t* b) {
+      if constexpr (S8)
+        mma_chunk_s8(a, 16 * slab, b, 32 * half, iacc);
+      else
+        mma_chunk<SA::SCALE, SB::SCALE>(a, 16 * slab, b, 32 * half, acc,
+                                        sa.scale, sb.scale);
+    };
+    constexpr bool RING = S8 ? SA::RAW && !SA::WIDEN && SB::RAW
+                             : SA::ASYNC && (SB::ASYNC || SB::WIDEN);
+    if constexpr (RING && SB::WIDEN) {
+      // A's rows land as they are; B's (a payload) land as raw bytes, NS
+      // stages of TILE rows of 32 bytes, and are widened into one of two
+      // operand buffers: chunk c + 1 while chunk c is multiplied, so one
+      // barrier a chunk, NS - 2 chunks in flight under the products.
+      static_assert(NTH == TILE * 4, "one widened piece a thread");
+      uint8_t* raw = rb;
+      uint8_t* wb = rb + NS * TILE * 32;
+      const auto issue = [&](int c) {
+        issue_chunk<NTH>(sa, ra + (c % NS) * RT * CRB, RT, c * DC);
+        for (int i = threadIdx.x; i < TILE * 2; i += NTH)
+          sb.copy16(i >> 1, c * DC + 16 * (i & 1),
+                    raw + (c % NS) * TILE * 32 + 16 * i);
+      };
+      const int wr = threadIdx.x >> 2, wq = 8 * (threadIdx.x & 3);
+      const auto tk = sb.token(wr);
+      const auto widen = [&](int c) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            raw + (c % NS) * TILE * 32 + wr * 32 + wq);
+        uint8_t* w = wb + (c & 1) * TILE * CRB + wr * CRB;
+        if constexpr (S8)
+          *reinterpret_cast<uint2*>(w + wq) = sb.ints8(v, wr, c * DC + wq);
+        else
+          *reinterpret_cast<uint4*>(w + 2 * wq) =
+              sb.widen_bf16(v, wr, c * DC + wq, tk);
+      };
+#pragma unroll
+      for (int c = 0; c < NS - 1; ++c) {
+        if (c < nch) issue(c);
+        mfa::cp_async_commit();
+      }
+      mfa::cp_async_wait<NS - 2>();
+      __syncthreads();  // chunk 0 landed
+      widen(0);
+      for (int c = 0; c < nch; ++c) {
+        mfa::cp_async_wait<NS - 3>();
+        // Chunk c + 1 landed and chunk c widened; chunk c - 1's readers
+        // (its A stage, its operand buffer) and chunk c's widening done.
+        __syncthreads();
+        if (c + NS - 1 < nch) issue(c + NS - 1);
+        mfa::cp_async_commit();
+        if (c + 1 < nch) widen(c + 1);
+        mma(ra + (c % NS) * RT * CRB, wb + (c & 1) * TILE * CRB);
+      }
+    } else if constexpr (RING) {
+      // Both sources land as they are (bf16 rows; int8 rows, the s8
+      // operand): an NS-stage cp.async ring, NS - 1 chunks in flight while
+      // one is multiplied; Q_s's scale applied to the fragments.
+      const auto issue = [&](int c) {
+        issue_chunk<NTH>(sa, ra + (c % NS) * RT * CRB, RT, c * DC);
+        issue_chunk<NTH>(sb, rb + (c % NS) * TILE * CRB, TILE, c * DC);
+      };
+#pragma unroll
+      for (int c = 0; c < NS - 1; ++c) {
+        if (c < nch) issue(c);
+        mfa::cp_async_commit();
+      }
+      for (int c = 0; c < nch; ++c) {
+        mfa::cp_async_wait<NS - 2>();
+        __syncthreads();  // chunk c landed; chunk c - 1's readers done
+        if (c + NS - 1 < nch) issue(c + NS - 1);
+        mfa::cp_async_commit();
+        mma(ra + (c % NS) * RT * CRB, rb + (c % NS) * TILE * CRB);
+      }
+    } else if constexpr (S8) {
+      // int8 rows read a word at a time (an int4 payload of unaligned
+      // rows): two buffers, one barrier a chunk.
       for (int c = 0; c < nch; ++c) {
         uint8_t* a = ra + (c & 1) * RT * CRB;
         uint8_t* b = rb + (c & 1) * TILE * CRB;
@@ -311,40 +513,6 @@ __device__ __forceinline__ void scores(int nch, float* bufa, float* bufb,
         }
         __syncthreads();
         mma_chunk_s8(a, 16 * slab, b, 32 * half, iacc);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = (float)iacc[j][e];
-    } else if constexpr (SA::ASYNC && SB::ASYNC) {
-      // Both bf16 rows: an NS-stage cp.async ring, NS - 1 chunks in flight
-      // while one is multiplied; Q_s's scale applied to the fragments.
-      const auto issue = [&](int c) {
-        uint8_t* a = ra + (c % NS) * RT * CRB;
-        uint8_t* b = rb + (c % NS) * TILE * CRB;
-        const int l0 = c * DC;
-        for (int i = threadIdx.x; i < RT * (DC / 8); i += NTH) {
-          const int r = i / (DC / 8), l = (i % (DC / 8)) * 8;
-          sa.copy8(r, l0 + l, a + r * CRB + 2 * l);
-        }
-        for (int i = threadIdx.x; i < TILE * (DC / 8); i += NTH) {
-          const int r = i / (DC / 8), l = (i % (DC / 8)) * 8;
-          sb.copy8(r, l0 + l, b + r * CRB + 2 * l);
-        }
-      };
-#pragma unroll
-      for (int c = 0; c < NS - 1; ++c) {
-        if (c < nch) issue(c);
-        mfa::cp_async_commit();
-      }
-      for (int c = 0; c < nch; ++c) {
-        mfa::cp_async_wait<NS - 2>();
-        __syncthreads();  // chunk c landed; chunk c - 1's readers done
-        if (c + NS - 1 < nch) issue(c + NS - 1);
-        mfa::cp_async_commit();
-        mma_chunk<SA::SCALE, SB::SCALE>(
-            ra + (c % NS) * RT * CRB, 16 * slab, rb + (c % NS) * TILE * CRB,
-            32 * half, acc, sa.scale, sb.scale);
       }
     } else {
       for (int c = 0; c < nch; ++c) {
@@ -366,6 +534,12 @@ __device__ __forceinline__ void scores(int nch, float* bufa, float* bufb,
         __syncthreads();
         mma_chunk<false, false>(a, 16 * slab, b, 32 * half, acc, 1.f, 1.f);
       }
+    }
+    if constexpr (S8) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = (float)iacc[j][e];
     }
     // C fragment (row g, columns 2 t + [0, 2); row g + 8 the same) of
     // block j into sbuf, column-major: 32 distinct banks a store.
@@ -536,6 +710,55 @@ struct PV {
         }
       }
     }
+  }
+
+  // T = bf16, a payload of whole rows (RingPayload: the quantized
+  // forward's V): the raw bytes of the slice [l0, l0 + SLICE) of TILE rows
+  // into raw, a row each SLICE bytes (int8: the slice's bytes; int4: its
+  // packing group's, G / 2 for a group of G lanes), by cp.async committed
+  // as one group; only live rows' bytes.  raw must be free.
+  template <typename SRC>
+  static __device__ __forceinline__ void fetch_raw(const SRC& src, int l0,
+                                                   uint8_t* raw) {
+    const int lanes = min(SLICE, src.D - l0);
+    const int bytes = src.op.bits == 8 ? lanes : lanes / 2;
+    const int first = src.op.bits == 8 ? l0 : l0 / 2;
+    for (int i = threadIdx.x; i < TILE * (SLICE / 16); i += RT * 4) {
+      const int r = i / (SLICE / 16), p = (i % (SLICE / 16)) * 16;
+      if (p < bytes && src.t0 + r < src.limit)
+        mfa::cp_async16(raw + r * SLICE + p, src.row(r) + first + p, 16);
+    }
+    mfa::cp_async_commit();
+  }
+
+  // acc = acc (times alpha where given) + the score tile times the slice
+  // [l0, l0 + SLICE) of src, whose raw bytes fetch_raw() has issued: they
+  // are widened into h as bf16 rows [TILE][SRB] (src's widen_bf16: the
+  // values fetch() would stage), then multiplied.  Ends with a barrier.
+  template <typename SRC>
+  static __device__ __forceinline__ void slice_raw(const float* ptile,
+                                                   const SRC& src, int l0,
+                                                   const uint8_t* raw,
+                                                   float* h,
+                                                   const float* alpha,
+                                                   Acc& a) {
+    mfa::cp_async_wait<0>();
+    __syncthreads();  // the raw slice and the score tile landed
+    uint8_t* hb = reinterpret_cast<uint8_t*>(h);
+    const int g = min(SLICE, src.D - l0), gh = g / 2;
+    for (int i = threadIdx.x; i < TILE * (SLICE / 8); i += RT * 4) {
+      const int r = i / (SLICE / 8), l = (i % (SLICE / 8)) * 8;
+      uint2 v = make_uint2(0u, 0u);
+      if (l < g && src.t0 + r < src.limit)
+        v = *reinterpret_cast<const uint2*>(
+            raw + r * SLICE + (src.op.bits == 8 || l < gh ? l : l - gh));
+      *reinterpret_cast<uint4*>(hb + r * SRB + 2 * l) =
+          src.widen_bf16(v, r, l0 + l, src.token(r));
+    }
+    __syncthreads();
+    if (alpha) scale(a, alpha, 0);
+    mul_tc<false>(ptile, h, 1.f, a);
+    __syncthreads();
   }
 
   // T = float: acc += the score tile times half HH of the slice.
@@ -731,6 +954,7 @@ template <typename T>
 struct FlashFwd {
   static constexpr bool QUANT = false;
   using QT = T;
+  using KV = Rows<T, false>;
   FlashArgs a;
   __device__ __forceinline__ Rows<T, true> q(size_t bh, int r0) const {
     return Rows<T, true>{static_cast<const T*>(a.q) + bh * a.Sq * a.D, r0,
@@ -753,10 +977,13 @@ struct FlashFwd {
 // payloads in the call's modes (Payload: K_TOKEN / V_TOKEN and K_BLOCK2D /
 // V_BLOCK2D dequantize, the others read the integers), the call's flags;
 // the key tiles aligned to multiples of 64 from key 0 (qattn_body's order).
-template <typename QT_>
+// RING: the payloads' rows are whole 16-byte pieces, read through the raw
+// path (RingPayload).
+template <typename QT_, bool RING>
 struct QuantFwd {
   static constexpr bool QUANT = true;
   using QT = QT_;
+  using KV = typename std::conditional<RING, RingPayload, Payload>::type;
   mfa_sd::QAttnArgs a;
   __device__ __forceinline__ auto q(size_t bh, int r0) const {
     if constexpr (std::is_same<QT, int8_t>::value)
@@ -766,14 +993,15 @@ struct QuantFwd {
       return Rows<QT, false>{static_cast<const QT*>(a.q) + bh * a.Sq * a.D,
                              r0, a.Sq, a.D, 0.f};
   }
-  __device__ __forceinline__ Payload kv(bool is_v, size_t bk, int t0,
-                                        int limit) const {
+  __device__ __forceinline__ KV kv(bool is_v, size_t bk, int t0,
+                                   int limit) const {
     const bool rb = a.flags & ROUND_BF16;
-    if (is_v)
-      return Payload{{a.vq, a.vs, a.vz, a.bits_v, a.v_scales}, bk, a.Skv, a.D,
-                     a.br, a.bs, t0, limit, rb};
-    return Payload{{a.kq, a.ks, a.kz, a.bits_k, a.k_scales}, bk, a.Skv, a.D,
-                   a.br, a.bs, t0, limit, rb};
+    const Payload p =
+        is_v ? Payload{{a.vq, a.vs, a.vz, a.bits_v, a.v_scales}, bk, a.Skv,
+                       a.D, a.br, a.bs, t0, limit, rb}
+             : Payload{{a.kq, a.ks, a.kz, a.bits_k, a.k_scales}, bk, a.Skv,
+                       a.D, a.br, a.bs, t0, limit, rb};
+    return KV{p};
   }
   __device__ __forceinline__ int flags() const { return a.flags; }
   __device__ __forceinline__ int first_key(int c_lo) const {
@@ -799,6 +1027,18 @@ struct QuantFwd {
 // its row max, so an int8 P rounds against the TPU's block_kv max in every
 // slice.  STATIC_MAX (the flash forward's static-max mode): m is the
 // caller's row_max and each tile only adds to l and O.
+//
+// The KV split (a.splits > 1: grid z is b x split): the row tile's live
+// span is dealt into a.splits runs of whole 64-key tiles, one CTA each,
+// which write m, l and the unnormalised O of their run to a.ws
+// (mfa_sd::fwd_partial) for split_d_attention.cu::split_d_fwd_merge_kernel;
+// a run may hold no key (m -inf, l 0) or no live key for a row (m the mask
+// value, whose weight the merge takes to 0 beside a live run, as the
+// running max does).  One walk (splits 1) stores O and L itself.  A
+// payload of whole rows (SRC::KV is RingPayload) lands through the raw
+// path: the scores' ring, and V's slice issued raw at the start of the
+// tile into the P region (idle under the scores), widened after them, with
+// the score tile in the A region, which the scores have left.
 template <typename PT, bool STATIC_MAX, typename SRC>
 __device__ __forceinline__ void split_d_fwd(const SRC& src) {
   using QT = typename SRC::QT;
@@ -806,6 +1046,9 @@ __device__ __forceinline__ void split_d_fwd(const SRC& src) {
   using ST = typename std::conditional<QINT, int8_t, PT>::type;
   using L = Smem<64, 1>;
   using P = PV<PT, 64>;
+  constexpr bool RAW_V = P::TC && SRC::KV::RAW;
+  static_assert(!RAW_V || TILE * SLICE <= L::SC * 4 - L::P * 4,
+                "the raw V slice fits the P region");
   const auto& a = src.a;
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_lo, s_hi;
@@ -813,7 +1056,9 @@ __device__ __forceinline__ void split_d_fwd(const SRC& src) {
   const int r0 = (gridDim.x - 1 - blockIdx.x) * 64;
   const int h = blockIdx.y / nsl;
   const int l0 = (blockIdx.y % nsl) * SLICE;
-  const int b = blockIdx.z;
+  const int splits = a.splits;
+  const int b = blockIdx.z / splits;
+  const int sp = blockIdx.z % splits;
   const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int Sq = a.Sq, Skv = a.Skv, D = a.D;
@@ -825,7 +1070,8 @@ __device__ __forceinline__ void split_d_fwd(const SRC& src) {
   const bool rb = flags & ROUND_BF16;
   const bool l_rounded = flags & L_ROUNDED;
   const bool p_int8 = flags & P_INT8;
-  float* pt = smem + L::P;
+  float* pt = smem + (RAW_V ? L::A : L::P);
+  uint8_t* raw_v = reinterpret_cast<uint8_t*>(smem + L::P);
   float* alpha_s = smem + L::E;  // each row's rescale this tile
   float* l_s = alpha_s + 64;     // each row's l (0 for an empty row)
 
@@ -854,7 +1100,12 @@ __device__ __forceinline__ void split_d_fwd(const SRC& src) {
   // against the running max and accumulates P.V over the slice.
   const auto tile = [&](int t0, int pass) {
     const auto vsrc = src.kv(true, bk, t0, c_hi);
-    if (pass == 1) P::fetch(vsrc, l0, smem + L::H);
+    if (pass == 1) {
+      if constexpr (RAW_V)
+        P::fetch_raw(vsrc, l0, raw_v);
+      else
+        P::fetch(vsrc, l0, smem + L::H);
+    }
     float s[4][4];
     scores<ST, 64>(nch, smem + L::A, smem + L::B, smem + L::S, qsrc,
                    src.kv(false, bk, t0, c_hi), ty, tx, s);
@@ -915,25 +1166,54 @@ __device__ __forceinline__ void split_d_fwd(const SRC& src) {
     }
     if (pass == 0) return;
     P::store(pt, ty, tx, s);
-    P::slice(pt, vsrc, l0, D, smem + L::H, STATIC_MAX ? nullptr : alpha_s,
-             ty, tx, acc);
+    float* alpha = STATIC_MAX ? nullptr : alpha_s;
+    if constexpr (RAW_V)
+      P::slice_raw(pt, vsrc, l0, raw_v, smem + L::H, alpha, acc);
+    else
+      P::slice(pt, vsrc, l0, D, smem + L::H, alpha, ty, tx, acc);
   };
 
-  if constexpr (QINT) {
-    // Spans of kv_span keys aligned to multiples of it (only an int8 Q
-    // rounds an int8 P); with kv_span > TILE a first pass over the span's
-    // tiles takes each row's max before the second computes P against it.
-    const int span = a.kv_span;
+  int span = TILE;
+  if constexpr (QINT) span = a.kv_span;
+  if (span > TILE) {
+    // An int8 P over kv_span-key spans aligned to multiples of it (never
+    // split): a first pass over each span's tiles takes each row's max
+    // before the second computes P against it.
     for (int sp0 = (c_lo / span) * span; sp0 < c_hi; sp0 += span) {
       const int t_beg = max(sp0, (c_lo / TILE) * TILE);
       const int t_end = min(sp0 + span, c_hi);
 #pragma unroll
       for (int i = 0; i < 4; ++i) smax[i] = -INFINITY;
-      for (int pass = span > TILE ? 0 : 1; pass < 2; ++pass)
+      for (int pass = 0; pass < 2; ++pass)
         for (int t0 = t_beg; t0 < t_end; t0 += TILE) tile(t0, pass);
     }
   } else {
-    for (int t0 = src.first_key(c_lo); t0 < c_hi; t0 += TILE) tile(t0, 1);
+    // This split's run of the span's tiles (all of them at one split).
+    const int first = src.first_key(c_lo);
+    const int tiles = c_hi > first ? (c_hi - first + TILE - 1) / TILE : 0;
+    const int per = (tiles + splits - 1) / splits;
+    const int t_end = min(first + (sp + 1) * per * TILE, c_hi);
+    for (int t0 = first + sp * per * TILE; t0 < t_end; t0 += TILE)
+      tile(t0, 1);
+  }
+
+  if (splits > 1) {  // the partials; split_d_fwd_merge_kernel does the rest
+    float* part = a.ws + mfa_sd::fwd_partial(bh * Sq + r0, sp, splits, D);
+    const size_t row_ld = (size_t)splits * (D + 2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i;
+      if (r0 + r < Sq && l0 == 0 && tx == 0) {
+        part[r * row_ld] = m[i];
+        part[r * row_ld + 1] = re[i] > rs[i] ? l[i] : 0.f;
+      }
+    }
+    P::each(acc, ty, tx, [&](int r, int d, float v0, float v1) {
+      if (r0 + r < Sq && l0 + d < D)
+        *reinterpret_cast<float2*>(part + r * row_ld + 2 + l0 + d) =
+            make_float2(v0, v1);
+    });
+    return;
   }
 
   const float l_off = p_int8 ? LN_127 : 0.f;
@@ -1199,6 +1479,19 @@ __device__ __forceinline__ void split_d_dkv(const FlashArgs& a, const KV& kv,
   P::each(dv, ty, tx, [&](int r, int d, float v0, float v1) {
     put(out_v, r, d, v0, v1);
   });
+}
+
+// CTAs an SM the occupancy API gives a split-D kernel of 256 threads
+// with Smem<64, NP>'s shared memory (-1 where the API fails).
+template <int NP, typename K>
+int ctas_per_sm(K kern) {
+  int n = 0;
+  if (mfa::set_smem(kern, Smem<64, NP>::BYTES) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, 256,
+                                                    Smem<64, NP>::BYTES) !=
+          cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace

@@ -16,8 +16,27 @@
 // tile), sums the scores over the whole head dim in 32-lane chunks and
 // applies P to its own slice of V.  The payloads are read as they lie
 // (Payload: int8, or group-planar int4 whose 256-value groups are the
-// slices, the last group split at its own midpoint) and staged a chunk at
-// a time, never whole.
+// slices, the last group split at its own midpoint), a chunk at a time,
+// never whole:
+//   - Rows of whole 16-byte pieces (RING: every int8 row, an int4 row
+//     where D is a multiple of 32) land through cp.async: Q (bf16 rows, or
+//     int8 words) and K's raw bytes through the scores' 4-stage ring, K's
+//     widened in shared memory into the operand (dequantized per token or
+//     BLOCK_2D cell and rounded, or the integers) once a chunk has landed,
+//     two chunks in flight under the products; V's slice issued raw at the
+//     start of the tile into the P region, idle under the scores, and
+//     widened into bf16 rows before P.V.  The widening gives the bits the
+//     synchronous staging gives.
+//   - An int4 row of D / 2 bytes that is not whole 16-byte pieces (D % 32
+//     = 16: 592, 624, 656, ...) keeps the synchronous staging: each chunk
+//     loaded, dequantized and stored before it is multiplied, V's slice
+//     before the scores.  So do the scalar fp32 steps: an fp32 Q's scores
+//     and P.V, and the P.V of an int8 Q whose mode keeps P in fp32 (V
+//     staged 128 lanes at a time after the scores).
+//   - The KV split (split_d_fwd_splits: where the row tiles leave SMs
+//     idle, Perceiver IO's 512 latents) deals each row tile's span into
+//     runs, merged by split_d_attention.cu::split_d_fwd_merge_kernel; an
+//     int8 P (P_INT8, or kv_span > 64) keeps one walk.
 //   - S: a bf16 Q by bf16 mma.sync over K dequantized per token or BLOCK_2D
 //     block (a cell is lane / bs of the whole head dim, so a block may
 //     straddle two slices) and rounded to bf16, or over K's integers
@@ -62,17 +81,27 @@ using mfa_sd::QAttnArgs;
 // split_d_frame.cuh::split_d_fwd over QuantFwd).  QT: Q's type (float,
 // bf16, int8); PT: the type P and V round to before P.V (bf16 where the
 // mode rounds to bf16, else float).
-template <typename QT, typename PT>
+template <typename QT, typename PT, bool RING>
 __global__ void __launch_bounds__(256)
-split_d_qattn_kernel(const QuantFwd<QT> src) {
+split_d_qattn_kernel(const QuantFwd<QT, RING> src) {
   split_d_fwd<PT, false>(src);
 }
 
+// RING where every payload row is whole 16-byte pieces (an fp32 Q stages
+// synchronously either way: its scores and P.V are scalar).
 template <typename QT, typename PT>
 int qattn_of(const QAttnArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.Sq + 63) / 64, a.Hq * mfa_sd::slices(a.D), a.B);
-  return mfa::launch_with_smem(split_d_qattn_kernel<QT, PT>, grid, 256,
-                               Smem<64, 1>::BYTES, stream, QuantFwd<QT>{a});
+  const dim3 grid((a.Sq + 63) / 64, a.Hq * mfa_sd::slices(a.D),
+                  a.B * a.splits);
+  const bool whole = a.D % 32 == 0 || (a.bits_k == 8 && a.bits_v == 8);
+  if constexpr (!std::is_same<QT, float>::value)
+    if (whole)
+      return mfa::launch_with_smem(split_d_qattn_kernel<QT, PT, true>, grid,
+                                   256, Smem<64, 1>::BYTES, stream,
+                                   QuantFwd<QT, true>{a});
+  return mfa::launch_with_smem(split_d_qattn_kernel<QT, PT, false>, grid, 256,
+                               Smem<64, 1>::BYTES, stream,
+                               QuantFwd<QT, false>{a});
 }
 
 }  // namespace
@@ -82,7 +111,10 @@ namespace mfa_sd {
 // A bf16 Q always rounds to bf16 (csrc/quantized_attention.cu's routing);
 // an int8 Q rounds P and V to bf16 where the call's mode does.
 int launch_qattn(int qtype, const QAttnArgs& a, cudaStream_t stream) {
-  if (!takes(a.D)) return (int)cudaErrorInvalidValue;
+  if (!takes(a.D) || a.splits < 1 || a.splits > MAX_FWD_SPLITS ||
+      (a.splits > 1 &&
+       (!a.ws || (a.flags & P_INT8) || a.kv_span != TILE)))
+    return (int)cudaErrorInvalidValue;
   const bool rb = a.flags & ROUND_BF16;
   if (qtype == 0) return qattn_of<float, float>(a, stream);
   if (qtype == 1 && rb)
@@ -94,3 +126,32 @@ int launch_qattn(int qtype, const QAttnArgs& a, cudaStream_t stream) {
 }
 
 }  // namespace mfa_sd
+
+extern "C" {
+
+// CTAs an SM the occupancy API gives split_d_qattn_kernel's instance for
+// qtype (0 fp32 Q, 1 bf16, 2 int8 with a bf16 P, 3 int8 with an fp32 P)
+// and ring (1: the raw path of whole rows; an fp32 Q has none); -1 for
+// none (utils/profiling.py --fwd-splits prints them).
+int mfa_split_d_qattn_ctas_per_sm(int qtype, int ring) {
+  if (ring != 0 && ring != 1) return -1;
+  if (qtype == 0)
+    return ring ? -1
+                : ctas_per_sm<1>(split_d_qattn_kernel<float, float, false>);
+  if (qtype == 1)
+    return ring ? ctas_per_sm<1>(
+                      split_d_qattn_kernel<__nv_bfloat16, __nv_bfloat16, true>)
+                : ctas_per_sm<1>(split_d_qattn_kernel<__nv_bfloat16,
+                                                      __nv_bfloat16, false>);
+  if (qtype == 2)
+    return ring ? ctas_per_sm<1>(
+                      split_d_qattn_kernel<int8_t, __nv_bfloat16, true>)
+                : ctas_per_sm<1>(
+                      split_d_qattn_kernel<int8_t, __nv_bfloat16, false>);
+  if (qtype == 3)
+    return ring ? ctas_per_sm<1>(split_d_qattn_kernel<int8_t, float, true>)
+                : ctas_per_sm<1>(split_d_qattn_kernel<int8_t, float, false>);
+  return -1;
+}
+
+}  // extern "C"

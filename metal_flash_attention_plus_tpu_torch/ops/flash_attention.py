@@ -51,6 +51,7 @@ from metal_flash_attention_plus_tpu_torch.attention.masking import (
 from metal_flash_attention_plus_tpu_torch.reference.attention import (
     _expand_kv_heads,
 )
+from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import _sm_count
 
 LOG2E = float(np.log2(np.e))
 LN2 = float(np.log(2.0))
@@ -68,6 +69,15 @@ ROW_MAX_SLACK = 64.0
 # SPLIT_D_SLICE lanes of the output (mfa_split_d_slice answers the same).
 FLASH_WIDTHS = (32, 64, 128, 256, 288, 576)
 SPLIT_D_SLICE = 256
+# The split-D forward's split of the KV axis (split_d_fwd_splits): keys a
+# tile, the fewest tiles a run, the CTAs an SM the plan fills, and the
+# most runs (C's mfa_sd::MAX_FWD_SPLITS).  One CTA runs on an SM at a time
+# (its registers); two a plan keeps runs short where spans differ, and
+# at Perceiver IO 4, 8 and 16 runs timed within 1% (PERF.md §6 PR 29).
+SPLIT_D_KEY_TILE = 64
+SPLIT_D_FWD_MIN_TILES = 16
+SPLIT_D_FWD_CTAS_PER_SM = 2
+SPLIT_D_FWD_MAX_SPLITS = 64
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -294,6 +304,63 @@ def split_d_slices(d: int) -> int:
     return -(-w // SPLIT_D_SLICE) if w > FLASH_WIDTHS[-1] else 1
 
 
+def split_d_fwd_splits(d: int, batch: int, q_heads: int, seq_q: int,
+                       seq_kv: int, sms: int, *,
+                       one_walk: bool = False) -> int:
+    """How many runs the split-D forward deals each row tile's key span
+    into, from shapes alone: 1 unless the grid (row tiles × q heads × batch
+    × :func:`split_d_slices`) leaves some of ``sms`` SMs idle; then as many
+    as fill ``SPLIT_D_FWD_CTAS_PER_SM`` CTAs an SM, each run at least
+    ``SPLIT_D_FWD_MIN_TILES`` tiles of 64 keys (so the merge, which reads
+    every run's partial once, stays small beside the runs), at most
+    ``SPLIT_D_FWD_MAX_SPLITS``.  ``one_walk``: an int8 P, whose integers
+    round against the running max of the whole span history, never splits.
+    1 at or below 576.  Perceiver IO's cross-attention (512 latents of
+    1024, one head, 50,176 keys: 32 CTAs, 784 tiles) takes 8 runs of 98
+    tiles on 132 SMs; the trio (B=2, 16 heads, S=2048: 4,096 CTAs) 1."""
+    if one_walk or split_d_slices(d) == 1:
+        return 1
+    ctas = -(-seq_q // SPLIT_D_KEY_TILE) * q_heads * batch * split_d_slices(d)
+    if ctas >= sms:
+        return 1
+    tiles = -(-seq_kv // SPLIT_D_KEY_TILE)
+    return max(1, min(SPLIT_D_FWD_CTAS_PER_SM * sms // ctas,
+                      tiles // SPLIT_D_FWD_MIN_TILES,
+                      SPLIT_D_FWD_MAX_SPLITS))
+
+
+def split_d_fwd_runs(row_ranges: torch.Tensor, seq_kv: int, splits: int, *,
+                     aligned: bool) -> torch.Tensor:
+    """int64 [Sq, Skv]: the run (0 to splits − 1) of the split-D forward
+    that walks each (row, key), −1 where none does.  Each 64-row tile's
+    live span (the least start and the greatest end of its rows with a
+    live key; the kernels' ``key_span``) is walked in 64-key tiles from its
+    first key (``aligned``: from the multiple of 64 below it, as the
+    quantized forward walks) and dealt into ``splits`` runs of
+    ``ceil(tiles / splits)`` whole tiles."""
+    sq = row_ranges.shape[0]
+    rr = row_ranges.long()
+    start, end = rr[:, 0], rr[:, 1]
+    live = end > start
+    big = torch.iinfo(torch.int64).max
+    tile_of_row = torch.arange(sq, device=rr.device) // SPLIT_D_KEY_TILE
+    n_tiles = -(-sq // SPLIT_D_KEY_TILE)
+    lo = torch.full((n_tiles,), big, device=rr.device).scatter_reduce(
+        0, tile_of_row, torch.where(live, start, big), "amin")
+    hi = torch.zeros(n_tiles, dtype=torch.int64, device=rr.device
+                     ).scatter_reduce(0, tile_of_row,
+                                      torch.where(live, end, 0), "amax")
+    first = lo // SPLIT_D_KEY_TILE * SPLIT_D_KEY_TILE if aligned else lo
+    tiles = torch.where(hi > lo, -(-(hi - first) // SPLIT_D_KEY_TILE), 0)
+    per = -(-tiles // splits)
+    col = torch.arange(seq_kv, device=rr.device)
+    f, h, p = first[tile_of_row, None], hi[tile_of_row, None], per[
+        tile_of_row, None]
+    walked = (col >= f) & (col < h)
+    run = (col - f) // SPLIT_D_KEY_TILE // torch.clamp(p, min=1)
+    return torch.where(walked, run, -1)
+
+
 def fwd_body(dtype: torch.dtype, d: int) -> str:
     """Which forward kernel :func:`flash_fwd` launches for a Q of ``dtype``
     at head dim ``d``: "tensor_core" (bf16 mma.sync) for bf16 at every
@@ -391,7 +458,7 @@ def stream_of(t: torch.Tensor) -> int:
 _PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
 _FWD_ARGS = ([_PTR] * 5 + [_I64, _I64] + [_PTR, _PTR] + [_I32] * 8
-             + [_F32, _F32, _PTR, _PTR])
+             + [_F32, _F32, _PTR, _I32, _PTR, _PTR])
 
 
 def estimate_row_max_scaled(
@@ -463,12 +530,16 @@ def flash_attention_forward_plain(
     interleaved_kv: bool = False,
     mask_value: float = DEFAULT_MASK_VALUE,
     row_max: Optional[torch.Tensor] = None,
+    splits: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`flash_fwd`, rounding where the
     kernel does: q·(scale·log2e) rounded to q's dtype, base-2 softmax in
     fp32, P rounded to V's dtype before P·V.  With ``row_max`` (fp32
     [B, Hq, Sq], base 2) the static-max mode: p = 2^(s − M) without a
-    running max, L = M·ln2 + ln(l) where l > 0, else -inf with O = 0."""
+    running max, L = M·ln2 + ln(l) where l > 0, else -inf with O = 0.
+    ``splits`` > 1: the split-D kernel's split of the KV axis, each run's
+    partial in one pass over its keys (:func:`split_d_fwd_runs`), merged
+    by :func:`merge_fwd_splits_plain`."""
     hq, skv = q.shape[1], k.shape[2]
     qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
     kx = _expand_kv_heads(k, hq, interleaved_kv).float()
@@ -478,6 +549,20 @@ def flash_attention_forward_plain(
         s = s + bias.float() * LOG2E
     keep, live = range_mask(row_ranges, skv)
     s = torch.where(keep, s, torch.full_like(s, mask_value))
+    if splits > 1:
+        run = split_d_fwd_runs(row_ranges, skv, splits, aligned=False)
+        parts = []
+        for sp in range(splits):
+            walked = run == sp
+            s_sp = torch.where(walked, s, -float("inf"))
+            m = (s_sp.amax(dim=-1, keepdim=True) if row_max is None
+                 else row_max.float()[..., None])
+            p = torch.where(walked, torch.exp2(s_sp - m), 0.0)
+            lsum = torch.where(live, p.sum(dim=-1, keepdim=True), 0.0)
+            parts.append(torch.cat([m, lsum, p.to(vx.dtype).float()
+                                    @ vx.float()], dim=-1))
+        ws = torch.stack(parts, dim=-2)  # [B, Hq, Sq, splits, D + 2]
+        return merge_fwd_splits_plain(ws.flatten(0, 2), q.shape)
     m = (s.amax(dim=-1, keepdim=True) if row_max is None
          else row_max.float()[..., None])
     p = torch.exp2(s - m)
@@ -512,7 +597,10 @@ def flash_fwd(
     the kernel :func:`fwd_body` names (``flash_fwd_tc_kernel``,
     ``flash_fwd_wide_kernel``, ``flash_fwd_kernel`` or, above 576,
     ``split_d_fwd_kernel``, in the static-max mode where ``row_max`` is
-    given) at the head dim's :func:`flash_width`, or raise.
+    given) at the head dim's :func:`flash_width`, or raise.  Above 576 the
+    KV axis splits where :func:`split_d_fwd_splits` says: the kernel writes
+    each run's partial to a workspace this call allocates and
+    :func:`merge_fwd_splits` makes O and L.
     """
     if row_max is not None and bias is not None:
         raise ValueError("row_max is incompatible with bias")
@@ -529,20 +617,105 @@ def flash_fwd(
     hkv, skv = k.shape[1], k.shape[2]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    splits = split_d_fwd_splits(d, b, hq, sq, skv, _sm_count(q.device))
+    ws = split_d_fwd_workspace(q.shape, splits, q.device)
     bptr, bsb, bsh = bias_args(bias)
     rc = _build.kernel_function("mfa_flash_fwd", _FWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), row_ranges.data_ptr(),
         bptr, bsb, bsh, o.data_ptr(), lse.data_ptr(), DTYPE_CODES[q.dtype],
         b, hq, hkv, sq, skv, d, int(interleaved_kv), scale * LOG2E,
         mask_value, None if row_max is None else row_max.data_ptr(),
-        stream_of(q),
+        splits, None if ws is None else ws.data_ptr(), stream_of(q),
     )
     _build.check_launch(rc, "flash_fwd")
     flash_fwd.launches += 1
+    if ws is not None:
+        merge_fwd_splits(ws, o, lse, kv_heads=hkv,
+                         interleaved_kv=interleaved_kv)
     return (o if d == d_in else o[..., :d_in].contiguous()), lse
 
 
 flash_fwd.launches = 0
+
+
+_MERGE_FWD_ARGS = [_PTR] * 4 + [_I32] * 7 + [_PTR]
+
+
+def merge_fwd_splits_plain(ws: torch.Tensor, shape, *,
+                           vstore: Optional[torch.Tensor] = None,
+                           interleaved_kv: bool = False):
+    """Plain PyTorch version of :func:`merge_fwd_splits`: ``ws`` fp32
+    [B·Hq·Sq, splits, D + 2] (m in base 2, l, the unnormalised O of each
+    run) → (o fp32 ``shape`` [B, Hq, Sq, D], L fp32 [B, Hq, Sq]), in the
+    kernel's order: M = max m_s, w_s = 2^(m_s − M) (0 for a run of no key),
+    l = Σ w_s·l_s, O = (Σ w_s·O_s) / l (× ``vstore`` fp32 [B, Hkv, D], the
+    quantized forward's V_STORE multipliers), L = M·ln2 + ln l; O = 0,
+    L = −inf where l = 0."""
+    b, hq, sq, d = shape
+    m, lsum, part = ws[..., 0], ws[..., 1], ws[..., 2:]
+    mx = m.amax(dim=-1, keepdim=True)
+    w = torch.where(torch.isinf(m) & (m < 0), 0.0, torch.exp2(m - mx))
+    lt = (w * lsum).sum(dim=-1)
+    live = lt > 0
+    safe = torch.where(live, lt, torch.ones_like(lt))
+    o = (w[..., None] * part).sum(dim=-2) / safe[:, None]
+    o = torch.where(live[:, None], o, torch.zeros_like(o)).view(b, hq, sq, d)
+    if vstore is not None:
+        o = o * _expand_kv_heads(vstore[:, :, None], hq, interleaved_kv)
+    lse = torch.where(live, mx[:, 0] * LN2 + torch.log(safe),
+                      torch.full_like(lt, -float("inf")))
+    return o, lse.view(b, hq, sq)
+
+
+def merge_fwd_splits(ws: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+                     *, kv_heads: int, interleaved_kv: bool = False,
+                     vstore: Optional[torch.Tensor] = None) -> None:
+    """o (fp32 [B, Hq, Sq, D]) and lse (fp32 [B, Hq, Sq]) from the split-D
+    forward's partials ``ws`` fp32 [B·Hq·Sq, splits, D + 2], in place
+    (``csrc/split_d_attention.cu::split_d_fwd_merge_kernel``: the runs in
+    split order, no atomics, so two calls agree bit for bit; ``vstore``:
+    the quantized forward's V_STORE multipliers fp32 [B, Hkv, D]).  CPU
+    tensors take :func:`merge_fwd_splits_plain`."""
+    if ws.device.type == "cpu":
+        mo, ml = merge_fwd_splits_plain(ws, tuple(o.shape), vstore=vstore,
+                                        interleaved_kv=interleaved_kv)
+        o.copy_(mo)
+        lse.copy_(ml)
+        return
+    b, hq, sq, d = o.shape
+    splits = ws.shape[1]
+    if (ws.dtype != torch.float32 or not ws.is_contiguous()
+            or ws.shape != (b * hq * sq, splits, d + 2)
+            or lse.shape != (b, hq, sq)
+            or (vstore is not None and vstore.shape != (b, kv_heads, d))
+            or any(t.dtype != torch.float32 or not t.is_contiguous()
+                   or t.device != ws.device
+                   for t in (o, lse) + (() if vstore is None
+                                        else (vstore,)))):
+        raise ValueError("merge_fwd_splits: ws fp32 [B*Hq*Sq, splits, D + "
+                         "2], contiguous fp32 o, lse (and vstore [B, Hkv, "
+                         "D]) on its device expected")
+    rc = _build.kernel_function("mfa_split_d_fwd_merge", _MERGE_FWD_ARGS)(
+        ws.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        None if vstore is None else vstore.data_ptr(), b, hq, kv_heads, sq,
+        d, int(interleaved_kv), splits, stream_of(o))
+    _build.check_launch(rc, "split_d_fwd_merge")
+    merge_fwd_splits.launches += 1
+
+
+merge_fwd_splits.launches = 0
+
+
+def split_d_fwd_workspace(shape, splits: int,
+                          device) -> Optional[torch.Tensor]:
+    """The split-D forward's partials fp32 [B·Hq·Sq, splits, D + 2] for an
+    O of ``shape`` [B, Hq, Sq, D] (at the kernel width), or None at one
+    split."""
+    if splits == 1:
+        return None
+    b, hq, sq, d = shape
+    return torch.empty((b * hq * sq, splits, d + 2), dtype=torch.float32,
+                       device=device)
 
 
 # ---------------------------------------------------------------------------

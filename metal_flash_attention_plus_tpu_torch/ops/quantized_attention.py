@@ -82,15 +82,19 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     BlockSizes,
     bias_args,
     kernel_bias,
+    merge_fwd_splits,
     pad_lanes,
     range_mask,
     row_ranges_tensor,
+    split_d_fwd_splits,
+    split_d_fwd_workspace,
     stream_of,
 )
 from metal_flash_attention_plus_tpu_torch.ops.hadamard import (
     hadamard_transform,
 )
 from metal_flash_attention_plus_tpu_torch.ops.quantized_gemm import (
+    _sm_count,
     block2d_expanders,
     dequant_block2d_vals,
     dequant_kv_vals,
@@ -185,7 +189,7 @@ _FOLDED = (QuantGranularity.TENSOR, QuantGranularity.CHANNEL,
 _PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
 _QATTN_ARGS = ([_PTR] * 10 + [_I64, _I64, _PTR, _PTR] + [_I32] * 16
-               + [_F32, _PTR])
+               + [_F32, _I32, _PTR, _PTR])
 _HPACK_ARGS = [_PTR] * 7 + [_I32] * 9 + [_F32, _PTR]
 
 
@@ -495,6 +499,10 @@ def qattn_fwd(
     rounding; an int8 P still rounds over 64-key spans; above 576 64-key
     tiles).  CPU tensors take :func:`qattn_fwd_plain` over the same spans;
     CUDA tensors launch the kernel :func:`qattn_body` names or raise.
+    Above 576 the KV axis splits where :func:`qattn_splits` says (never
+    with an int8 P): the kernel writes each run's partial to a
+    workspace this call allocates and :func:`merge_fwd_splits` makes O
+    and L.
 
     A head dim outside ``HEAD_DIMS`` runs at :func:`qattn_width`
     (:func:`pad_qattn_arguments`): the padded lanes meet Q's zero lanes in
@@ -522,6 +530,9 @@ def qattn_fwd(
     hkv, skv = kq.shape[1], kq.shape[2]
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    splits = qattn_splits(mode, span, d, b, hq, sq, skv,
+                          _sm_count(q.device))
+    ws = split_d_fwd_workspace(q.shape, splits, q.device)
     bptr, bsb, bsh = bias_args(bias)
     rc = _build.kernel_function("mfa_qattn_fwd", _QATTN_ARGS)(
         q.data_ptr(), _ptr(q_scales), kq.data_ptr(), _ptr(k_params[0]),
@@ -530,14 +541,30 @@ def qattn_fwd(
         o.data_ptr(), lse.data_ptr(), Q_TYPES[q.dtype], b, hq, hkv, sq, skv,
         d, int(interleaved_kv), mode.bits_k, mode.bits_v,
         K_SCALES[mode.k_scales], V_SCALES[mode.v_scales], mode.flags,
-        mode.block[0], mode.block[1], span, mask_value, stream_of(q),
+        mode.block[0], mode.block[1], span, mask_value, splits, _ptr(ws),
+        stream_of(q),
     )
     _build.check_launch(rc, "qattn_fwd")
     qattn_fwd.launches += 1
+    if ws is not None:
+        merge_fwd_splits(ws, o, lse, kv_heads=hkv,
+                         interleaved_kv=interleaved_kv,
+                         vstore=(v_params[0] if mode.v_scales == "store"
+                                 else None))
     return (o if d == d_in else o[..., :d_in].contiguous()), lse
 
 
 qattn_fwd.launches = 0
+
+
+def qattn_splits(mode: QAttnMode, span: int, d: int, batch: int,
+                 q_heads: int, seq_q: int, seq_kv: int, sms: int) -> int:
+    """The runs :func:`qattn_fwd` splits the KV axis into above 576
+    (``split_d_fwd_splits``): one walk where P is int8 or the key spans
+    are wider than a tile, whose integers round against the running max
+    of the whole span history."""
+    return split_d_fwd_splits(d, batch, q_heads, seq_q, seq_kv, sms,
+                              one_walk=mode.p_int8 or span != KV_TILE)
 
 
 def pad_qattn_arguments(q, kq, vq, k_params, v_params, mode: QAttnMode):

@@ -41,6 +41,7 @@ ENTRY_KERNELS: Dict[str, Tuple[str, ...]] = {
                       "flash_dkv_latent_kernel", "flash_dkv_kernel",
                       "split_d_dkv_kernel"),
     "mfa_flash_dkv_merge": ("flash_dkv_merge_kernel",),
+    "mfa_split_d_fwd_merge": ("split_d_fwd_merge_kernel",),
     "mfa_paged_decode": ("paged_decode_tc_kernel", "paged_decode_kernel",
                          "split_d_decode_kernel",
                          "paged_decode_merge_kernel"),

@@ -21,6 +21,8 @@ card.
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --dkv-splits
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
+        --fwd-splits
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --determinism [STEPS]
 
 Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
@@ -108,6 +110,17 @@ the time by CUDA events over 20 calls after 3 to warm up, and the device
 time of the split kernel and of the merge over 20 more under the
 profiler.
 
+``--fwd-splits``: first the occupancy API's CTAs an SM for every
+instance of the split-D forwards (``split_d_fwd_kernel``,
+``split_d_qattn_kernel``), then both at Perceiver IO's image
+cross-attention (:data:`PERCEIVER_IO`; the bf16 flash forward, and the
+quantized one over int8 ROW CENTERED K/V) over run counts of the KV axis
+(:data:`FWD_SPLIT_PLANS`), each forced in place of
+``ops.flash_attention.split_d_fwd_splits``' choice, which the output
+marks: the time by CUDA events over 5 calls after one to warm up, and
+the device time of the split kernel and of the merge over 5 more under
+the profiler.
+
 ``--rtq-clusters``: the runtime block quantizer on a [4096, 1024] bf16
 activation, CENTERED with Σq, at bs 64 and 128, over cluster sizes
 (:data:`RTQ_CLUSTER_PLANS`), each forced in place of
@@ -177,7 +190,7 @@ from metal_flash_attention_plus_tpu_torch.models.transformer import (
     make_train_step,
     trainable_parameters,
 )
-from metal_flash_attention_plus_tpu_torch.attention.masking import CAUSAL
+from metal_flash_attention_plus_tpu_torch.attention.masking import CAUSAL, FULL
 from metal_flash_attention_plus_tpu_torch.ops import flash_attention_bwd
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     BlockSizes,
@@ -185,6 +198,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     row_ranges_tensor,
 )
 from metal_flash_attention_plus_tpu_torch.ops.gemm import matmul
+from metal_flash_attention_plus_tpu_torch.ops import quantized_attention
 from metal_flash_attention_plus_tpu_torch.ops.quantized_attention import (
     quantized_flash_attention,
 )
@@ -995,6 +1009,75 @@ def profile_dkv_splits_at(seed: int, d: int, iters: int) -> None:
             "chosen": splits == chosen}))
 
 
+# Run counts --fwd-splits times beside split_d_fwd_splits' choice, at
+# Perceiver IO's image cross-attention (B, H, Sq, Skv, D: 512 latents of
+# 1024 over 224 x 224 inputs, one head, FULL).
+FWD_SPLIT_PLANS = (1, 2, 4, 16)
+PERCEIVER_IO = (1, 1, 512, 224 * 224, 1024)
+
+
+def profile_fwd_splits(seed: int, iters: int = 5) -> int:
+    """The split-D forwards at Perceiver IO's shape over run counts of
+    their KV axis (the bf16 flash forward, and the quantized one over int8
+    ROW CENTERED K/V, QuantizedAttention's default): events and the
+    profiler's device ms (kernel and merge), one JSON line a count; first
+    the occupancy API's CTAs an SM for every instance of both kernels."""
+    fa = sys.modules[flash_fwd.__module__]
+    occupancy = {}
+    for dtype, name in ((0, "float"), (1, "bf16")):
+        for static in (0, 1):
+            occupancy[f"split_d_fwd_kernel<{name}, static_max={static}>"] = (
+                _build.kernel_function("mfa_split_d_fwd_ctas_per_sm",
+                                       [ctypes.c_int] * 2)(dtype, static))
+    for qtype, name in ((0, "float Q"), (1, "bf16 Q"),
+                        (2, "int8 Q, bf16 P"), (3, "int8 Q, fp32 P")):
+        for ring in (0, 1):
+            occupancy[f"split_d_qattn_kernel<{name}, ring={ring}>"] = (
+                _build.kernel_function("mfa_split_d_qattn_ctas_per_sm",
+                                       [ctypes.c_int] * 2)(qtype, ring))
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "ctas_per_sm": occupancy}))
+    b, h, sq, skv, d = PERCEIVER_IO
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, h, n, d), generator=g, device="cuda").to(
+        torch.bfloat16) for n in (sq, skv, skv))
+    rr = row_ranges_tensor(FULL, sq, skv, None, "cuda")
+    row8c = QuantConfig(bits=8, granularity=QuantGranularity.ROW,
+                        strategy=QuantStrategy.CENTERED)
+    args, kw = quantized_attention.qattn_arguments(
+        q, quantize(k, row8c), quantize(v, row8c))
+    calls = {"flash_fwd": lambda: flash_fwd(q, k, v, rr, scale=d ** -0.5),
+             "qattn_fwd": lambda: quantized_attention.qattn_fwd(*args, **kw)}
+    planner = fa.split_d_fwd_splits
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = planner(d, b, h, sq, skv, sms)
+    for splits in sorted({chosen, *FWD_SPLIT_PLANS}):
+        fa.split_d_fwd_splits = quantized_attention.split_d_fwd_splits = (
+            lambda *_, n=splits, **__: n)
+        try:
+            for name, run in calls.items():
+                run()
+                ms = cuda_ms(run, iters)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(iters):
+                        run()
+                    torch.cuda.synchronize()
+                by_kernel = {("merge" if "merge" in k else "split"):
+                             us / 1e3 / iters
+                             for k, us, _ in kernel_table(prof)[2]
+                             if "split_d" in k}
+                print(json.dumps({
+                    "device": torch.cuda.get_device_name(0), "kernel": name,
+                    "shape": [b, h, sq, skv, d], "splits": splits, "ms": ms,
+                    "device_ms": sum(by_kernel.values()), **{
+                        f"device_ms_{k}": v for k, v in by_kernel.items()},
+                    "chosen": splits == chosen}))
+        finally:
+            fa.split_d_fwd_splits = quantized_attention.split_d_fwd_splits = (
+                planner)
+    return 0
+
+
 # Cluster sizes --rtq-clusters times beside block_cluster's choice.
 RTQ_CLUSTER_PLANS = (4, 8, 16)
 
@@ -1067,6 +1150,10 @@ def main() -> int:
     ap.add_argument("--dkv-splits", action="store_true",
                     help="time the flash dK/dV at MLA's training shape over "
                     "split counts of its GQA group")
+    ap.add_argument("--fwd-splits", action="store_true",
+                    help="time the split-D forwards at Perceiver IO's shape "
+                    "over run counts of their KV axis, and print each "
+                    "instance's CTAs an SM")
     ap.add_argument("--rtq-clusters", action="store_true",
                     help="time the runtime block quantizer over cluster "
                     "sizes")
@@ -1090,6 +1177,8 @@ def main() -> int:
         return profile_dkv_splits(args.seed)
     if args.rtq_clusters:
         return profile_rtq_clusters(args.seed)
+    if args.fwd_splits:
+        return profile_fwd_splits(args.seed)
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
     if args.v2_lite and not args.mla:

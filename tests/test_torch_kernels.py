@@ -62,6 +62,7 @@ direct calls bit for bit.
 
 import ctypes
 import dataclasses
+import importlib
 import os
 
 import numpy as np
@@ -92,6 +93,7 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     flash_fwd,
     fwd_body,
     row_ranges_tensor,
+    split_d_slices,
 )
 from metal_flash_attention_plus_tpu_torch.ops import flash_attention_bwd as fbwd
 from metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd import (
@@ -2468,19 +2470,30 @@ def test_paged_kernels_at_576_are_deterministic(cuda_device, pool_kind,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [640, 1088])
-def test_split_d_kernels_repeat_bit_for_bit(cuda_device, d, dtype):
+def test_split_d_kernels_repeat_bit_for_bit(cuda_device, forced_splits, d,
+                                            dtype):
     """Above 576, each split-D kernel called twice on the same inputs gives
-    the same bits: the flash forward, dQ (with dbias) and dK/dV over 16 q
-    heads on one (the dK/dV's group split over CTAs and merged), causal,
-    and the paged decode (its KV axis split) and prefill over one-state
-    latent pages with 64 zeroed V lanes; each against its plain version."""
+    the same bits: the flash forward (also with its KV axis split in 3 runs
+    and merged), dQ (with dbias) and dK/dV over 16 q heads on one (the
+    dK/dV's group split over CTAs and merged), causal, and the paged decode
+    (its KV axis split) and prefill over one-state latent pages with 64
+    zeroed V lanes; each against its plain version."""
     (q, k, v), do, bias, rr = _flash_case(cuda_device, dtype, 2, 16, 1, 256,
                                           256, d, masking.CAUSAL,
                                           bias_shape=(2, 1, 256, 256), seed=d)
     assert fbwd.dkv_splits(dtype, d, 2, 16, 1, 256, 132) > 1
     kw = dict(scale=d ** -0.5)
+
+    def fwd_split():
+        forced_splits(3)
+        try:
+            return flash_fwd(q, k, v, rr, **kw)
+        finally:
+            forced_splits(None)
+
     calls = {
         "fwd": lambda: flash_fwd(q, k, v, rr, **kw),
+        "fwd_split": fwd_split,
         "dq": lambda: flash_dq(q, k, v, do, lse, di, rr, bias=bias,
                                want_dbias=True, **kw),
         "dkv": lambda: flash_dkv(q, k, v, do, lse, di, rr, **kw)}
@@ -2519,6 +2532,193 @@ def test_split_d_kernels_repeat_bit_for_bit(cuda_device, d, dtype):
         ref = plain(*args, **pkw)
         assert (first.float() - ref.float()).abs().max().item() <= _tol(
             dtype)
+
+
+# --------------------------------------------------------------------------
+# The split-D forward's KV split (split_d_fwd_splits, then the merge)
+# --------------------------------------------------------------------------
+
+FLASH_FWD_MODULE = importlib.import_module(
+    "metal_flash_attention_plus_tpu_torch.ops.flash_attention")
+
+
+@pytest.fixture
+def forced_splits(monkeypatch):
+    """force(n): the split-D forwards plan n runs of the KV axis (1 where
+    the call keeps one walk); force(None): the planner's own plan."""
+    planner = FLASH_FWD_MODULE.split_d_fwd_splits
+
+    def force(n):
+        def plan(d, *shape, one_walk=False):
+            if n is None:
+                return planner(d, *shape, one_walk=one_walk)
+            return 1 if one_walk or split_d_slices(d) == 1 else n
+        monkeypatch.setattr(FLASH_FWD_MODULE, "split_d_fwd_splits", plan)
+        monkeypatch.setattr(qa, "split_d_fwd_splits", plan)
+    return force
+
+
+def _gap_ranges(sq, skv):
+    """Sparse rows whose tile span has runs with no live key: the first
+    half of each 64-row tile attends to [0, 200), the second to the last
+    200 keys."""
+    r = np.arange(sq) % 64 < 32
+    return np.stack([np.where(r, 0, skv - 200), np.where(r, 200, skv)],
+                    axis=1).astype(np.int32)
+
+
+SPARSE = masking.MaskSpec(masking.MaskKind.SPARSE_RANGES)
+WINDOW_128 = masking.sliding_window(128, causal=True)
+
+SPLIT_FWD_FLASH_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, mask, sparse gap rows, bias shape,
+    # static max, forced runs or None for the plan's): few row tiles over
+    # a long key axis.
+    "full_planned_d1024": (1, 1, 1, 128, 4096, 1024, masking.FULL, False,
+                           None, False, None),
+    "causal_gqa4_d640": (1, 4, 1, 100, 1300, 640, masking.CAUSAL, False,
+                         None, False, 3),
+    "window_d1024": (1, 4, 2, 128, 1500, 1024, WINDOW_128, False, None,
+                     False, 5),
+    "sparse_gap_d640": (1, 2, 2, 128, 1600, 640, SPARSE, True, None, False,
+                        4),
+    "bias_d640": (1, 2, 1, 100, 1100, 640, masking.FULL, False,
+                  (1, 2, 100, 1100), False, 3),
+    "static_max_causal_d1024": (1, 2, 1, 128, 2048, 1024, masking.CAUSAL,
+                                False, None, True, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SPLIT_FWD_FLASH_CASES))
+def test_split_d_flash_forward_split_matches_plain(cuda_device,
+                                                   forced_splits, name,
+                                                   dtype):
+    """split_d_fwd_kernel with its KV axis split, then
+    split_d_fwd_merge_kernel: O and L against the unsplit plain version at
+    the flash gates, two calls equal bit for bit, the launches counted
+    (one kernel and one merge a call), and the same with one run (no
+    merge)."""
+    b, hq, hkv, sq, skv, d, mask, gap, bias_shape, static, n = \
+        SPLIT_FWD_FLASH_CASES[name]
+    (q, k, v), _, bias, rr = _flash_case(
+        cuda_device, dtype, b, hq, hkv, sq, skv, d, mask,
+        ranges=_gap_ranges(sq, skv) if gap else None, bias_shape=bias_shape,
+        seed=d + sq)
+    kw = dict(scale=d ** -0.5, bias=bias)
+    if static:
+        kw["row_max"] = _static_row_max(q, k, mask, rr, "caller",
+                                        kw["scale"], hq, hkv)
+    splits = n or FLASH_FWD_MODULE.split_d_fwd_splits(
+        d, b, hq, sq, skv, torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count)
+    assert splits > 1
+    ref = flash_attention_forward_plain(q, k, v, rr, **kw)
+    forced_splits(n)
+    for runs in (splits, 1):
+        if runs == 1:
+            forced_splits(1)
+        counts = (flash_fwd.launches,
+                  FLASH_FWD_MODULE.merge_fwd_splits.launches)
+        first, second = (flash_fwd(q, k, v, rr, **kw) for _ in range(2))
+        torch.cuda.synchronize()
+        assert (flash_fwd.launches - counts[0],
+                FLASH_FWD_MODULE.merge_fwd_splits.launches - counts[1]) == (
+                    2, 2 if runs > 1 else 0)
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+        assert _rel(first[0], ref[0]) <= _tol(dtype)
+        assert _rel(first[1], ref[1]) <= (
+            TOLERANCES["fp32"] if dtype == torch.float32
+            else TOLERANCES["lse"])
+
+
+SPLIT_FWD_QCASES = {
+    # name: (b, hq, hkv, sq, skv, d, K config, V config, Q dtype, mask,
+    # options, forced runs or None for the plan's): every Q type, int8 and
+    # int4 payloads (whole rows through the raw ring; D = 656's int4 rows
+    # of 328 bytes staged synchronously), TOKEN / BLOCK_2D dequantization,
+    # folded CHANNEL / TENSOR K, V_P (ROW V), V_STORE (CHANNEL / TENSOR
+    # V), an int8 Q with a bf16 P (split) and with an int8 P (one walk),
+    # causal, window, sparse rows with a gap and bias masks.
+    "row8c_full_planned_d1024": (1, 1, 1, 128, 4096, 1024, ROW8C, ROW8C,
+                                 BF16, masking.FULL, {}, None),
+    "row4c_causal_gqa_d640": (1, 2, 1, 128, 2048, 640, ROW4C, ROW4C, BF16,
+                              masking.CAUSAL, {}, None),
+    "row4c_unaligned_d656": (1, 2, 1, 100, 1200, 656, ROW4C, ROW4C, BF16,
+                             masking.FULL, {}, 3),
+    "k8_v4_unaligned_d656": (1, 2, 1, 100, 1200, 656, ROW8C, ROW4C, BF16,
+                             masking.CAUSAL, {}, 3),
+    "block2d80_d640": (1, 2, 2, 64, 1600, 640, B2D80, B2D80, BF16,
+                       masking.CAUSAL, {}, 4),
+    "folded_channel_tensor_bias_d640": (1, 2, 1, 100, 1100, 640, CH8, TEN8,
+                                        BF16, masking.FULL,
+                                        dict(bias=(1, 2, 100, 1100)), 3),
+    "folded_row_vp_window_d1024": (1, 2, 1, 128, 1500, 1024, ROW8, ROW8,
+                                   BF16, WINDOW_128, {}, 5),
+    "folded_tensor_store_sparse_gap_d640": (1, 2, 2, 128, 1600, 640, TEN8,
+                                            CH8, BF16, SPARSE,
+                                            dict(gap=True), 4),
+    "folded_int4_channel_d1024": (1, 2, 1, 64, 1500, 1024, CH4, CH4, BF16,
+                                  masking.CAUSAL, {}, 3),
+    "int8_q_row_d640": (1, 4, 1, 100, 1300, 640, ROW8, ROW8, BF16,
+                        masking.CAUSAL, QQ, 3),
+    "int8_q_int4_k_d1024": (1, 2, 1, 64, 1500, 1024, ROW4, ROW8, BF16,
+                            masking.FULL, QQ, 3),
+    "int8_pv_one_walk_d1024": (1, 2, 1, 128, 1500, 1024, ROW8, CH8, BF16,
+                               masking.FULL, QQ, 3),
+    "f32_q_d640": (1, 2, 1, 64, 1100, 640, ROW8C, ROW4C, F32,
+                   masking.CAUSAL, {}, 3),
+    "f32_q_int8_d640": (1, 2, 1, 64, 1100, 640, ROW8, ROW4, F32,
+                        masking.CAUSAL, QQ, 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPLIT_FWD_QCASES))
+def test_split_d_qattn_split_matches_plain(cuda_device, forced_splits,
+                                           name):
+    """split_d_qattn_kernel on a long key axis over few row tiles, its KV
+    axis split (but with an int8 P) and merged: O and L against the plain
+    version at the gates of test_qattn_kernel_matches_plain, two calls
+    equal bit for bit, the kernel and merge launches counted; then one
+    run against the same plain version."""
+    b, hq, hkv, sq, skv, d, kcfg, vcfg, dtype, mask, opts, n = \
+        SPLIT_FWD_QCASES[name]
+    q, kq, vq = _qattn_inputs(cuda_device, b, hq, hkv, sq, skv, d, kcfg,
+                              vcfg, dtype, seed=d + skv)
+    opts = dict(opts)
+    if opts.pop("gap", False):
+        opts["mask_ranges"] = _gap_ranges(sq, skv)
+    if "bias" in opts:
+        opts["bias"] = torch.randn(opts["bias"], device=cuda_device)
+    args, kw = qa.qattn_arguments(q, kq, vq, mask=mask, **opts)
+    mode = kw["mode"]
+    tile = qa.int8_p_tile(BlockSizes(), skv) if mode.p_int8 else None
+    assert qa.qattn_body(args[0].dtype, mode, d=d) == "split_d"
+    splits = 1 if mode.p_int8 else (n or FLASH_FWD_MODULE.split_d_fwd_splits(
+        d, b, hq, sq, skv, torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count))
+    assert (splits > 1) == (not mode.p_int8)
+    o_ref, l_ref = qa.qattn_fwd_plain(*args, **kw, kv_tile=tile or qa.KV_TILE)
+    tol_o, tol_l = _qattn_tols(dtype, mode.p_int8)
+    forced_splits(n)
+    for runs in (splits, 1):
+        if runs == 1:
+            forced_splits(1)
+        counts = (qa.qattn_fwd.launches,
+                  FLASH_FWD_MODULE.merge_fwd_splits.launches)
+        first, second = (qa.qattn_fwd(*args, **kw, kv_tile=tile)
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        assert (qa.qattn_fwd.launches - counts[0],
+                FLASH_FWD_MODULE.merge_fwd_splits.launches - counts[1]) == (
+                    2, 2 if runs > 1 else 0)
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+        assert _rel(first[0], o_ref) <= tol_o
+        assert _rel(first[1], l_ref) <= tol_l
 
 
 # --------------------------------------------------------------------------

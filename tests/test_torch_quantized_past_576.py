@@ -53,6 +53,8 @@ from metal_flash_attention_plus_tpu_torch.quant import tensor as ttensor
 
 jfa = importlib.import_module(
     "metal_flash_attention_plus_tpu.ops.flash_attention")
+tfa = importlib.import_module(
+    "metal_flash_attention_plus_tpu_torch.ops.flash_attention")
 jbwd = importlib.import_module(
     "metal_flash_attention_plus_tpu.ops.flash_attention_bwd")
 
@@ -151,6 +153,67 @@ def test_quantized_forward_past_576_matches_jax(name):
     assert tqa.qattn_body(args[0].dtype, mode, d=d) == "split_d"
     if mode.v_scales != "p" and not mode.p_int8:
         assert mode.l_rounded == (d % 128 != 0)
+
+
+# (mode, key span, d, batch, q heads, Sq, Skv) -> runs on 132 SMs
+QFWD_SPLIT_PLANS = {
+    # QuantizedAttention's default (int8 ROW CENTERED K/V) at Perceiver
+    # IO's image cross-attention: 32 CTAs, 8 runs of 98 key tiles.
+    "perceiver_facade": (tqa.QAttnMode("token", "token"), 64, 1024, 1, 1,
+                         512, 224 * 224, 8),
+    "perceiver_folded_store": (tqa.QAttnMode("none", "store"), 64, 1024, 1,
+                               1, 512, 224 * 224, 8),
+    "perceiver_int8_q_bf16_p": (tqa.QAttnMode("column", "p"), 64, 1024, 1,
+                                1, 512, 224 * 224, 8),
+    # An int8 P keeps one walk: its integers round against the running max.
+    "perceiver_int8_p": (tqa.QAttnMode("column", "store", p_int8=True), 512,
+                         1024, 1, 1, 512, 224 * 224, 1),
+    "int8_p_64_key_spans": (tqa.QAttnMode("column", "store", p_int8=True),
+                            64, 1024, 1, 1, 512, 224 * 224, 1),
+    # The trio (B=2, 16 q heads, S=2048) fills the card unsplit.
+    "trio_d640": (tqa.QAttnMode("column", "p"), 64, 640, 2, 16, 2048, 2048,
+                  1),
+    "trio_d1024": (tqa.QAttnMode("token", "token"), 64, 1024, 2, 16, 2048,
+                   2048, 1),
+    # 576 runs the fixed-width kernels.
+    "latent_d576": (tqa.QAttnMode("token", "token"), 64, 576, 1, 1, 512,
+                    224 * 224, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(QFWD_SPLIT_PLANS))
+def test_quantized_forward_split_plan(name):
+    """The runs ``qattn_fwd`` splits the KV axis into above 576, from
+    shapes alone (``qattn_splits`` over ``split_d_fwd_splits``)."""
+    *args, want = QFWD_SPLIT_PLANS[name]
+    assert tqa.qattn_splits(*args, 132) == want
+
+
+@pytest.mark.parametrize("runs", [2, 3, 8])
+def test_aligned_runs_deal_each_span_in_whole_tiles(runs):
+    """``split_d_fwd_runs`` as the quantized forward walks (each 64-row
+    tile's span from the multiple of 64 below its first key): every key
+    of a tile's span in exactly one run, the runs consecutive and of whole
+    64-key tiles, ``ceil(tiles / runs)`` each, none outside the span; an
+    empty row's tile keeps the others' span."""
+    sq, skv = 200, 1000
+    ranges = np.stack([np.arange(sq) * 3 + 37, np.arange(sq) * 3 + 300],
+                      axis=1).astype(np.int32)
+    ranges[70] = (5, 5)
+    rr = torch.from_numpy(ranges)
+    run = tfa.split_d_fwd_runs(rr, skv, runs, aligned=True)
+    for t in range(-(-sq // 64)):
+        rows = ranges[t * 64:(t + 1) * 64]
+        live = rows[rows[:, 1] > rows[:, 0]]
+        lo, hi = live[:, 0].min(), live[:, 1].max()
+        first = lo // 64 * 64
+        per = -(-(-(-(hi - first) // 64)) // runs)
+        for r in range(t * 64, min(sq, (t + 1) * 64)):
+            row = run[r].numpy()
+            walked = np.flatnonzero(row >= 0)
+            assert walked.min() == first and walked.max() == hi - 1
+            assert np.array_equal(row[walked],
+                                  (walked - first) // 64 // per)
 
 
 def test_padded_head_dim_changes_nothing_past_576():

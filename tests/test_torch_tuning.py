@@ -108,7 +108,8 @@ def test_recommend_cold_start_is_the_table(tmp_path):
 
 @pytest.mark.parametrize("kind", ["fwd", "fwd_q", "bwd"])
 def test_calibrate_times_the_table_and_persists(tmp_path, kind):
-    tuner = tt.AttentionTuner(store=tt.CalibrationStore(str(tmp_path)))
+    tuner = tt.AttentionTuner(store=tt.CalibrationStore(str(tmp_path)),
+                               device="cpu")
     best = tuner.calibrate(32, 128, kind=kind, bits=8 if kind == "fwd_q"
                            else 16, num_heads=1, batch=1, iters=1,
                            candidates=((128, 128), (256, 256)))
@@ -123,7 +124,8 @@ def test_calibrate_times_the_table_and_persists(tmp_path, kind):
 @pytest.mark.parametrize("mode", ["dynamic", "weight_only"])
 def test_calibrate_gemm_persists_the_plan(tmp_path, mode):
     m, n, k = 16, 256, 512
-    tuner = tt.AttentionTuner(store=tt.CalibrationStore(str(tmp_path)))
+    tuner = tt.AttentionTuner(store=tt.CalibrationStore(str(tmp_path)),
+                               device="cpu")
     cold = tuner.recommend_gemm(m, n, k, mode=mode)
     shape_planner = tq.dyn_shape_tile if mode == "dynamic" \
         else tq.wo_shape_tile
@@ -139,7 +141,8 @@ def test_calibrate_gemm_persists_the_plan(tmp_path, mode):
 
 
 def test_calibrate_all_covers_every_kind(tmp_path):
-    tuner = tt.AttentionTuner(store=tt.CalibrationStore(str(tmp_path)))
+    tuner = tt.AttentionTuner(store=tt.CalibrationStore(str(tmp_path)),
+                               device="cpu")
     entries = tuner.calibrate_all(head_dims=(32,), seq_lens=(64,),
                                   causals=(True,),
                                   gemm_shapes=((16, 256, 256),), iters=1)
@@ -148,6 +151,17 @@ def test_calibrate_all_covers_every_kind(tmp_path):
         "fwd_q:d32:b4:s512:mC", "bwd:d32:b16:s512:mC",
         "gemm:dynamic:n256:k256:b8:m128",
         "gemm:weight_only:n256:k256:b8:m128"])
+
+
+def test_calibration_without_a_card_raises(tmp_path):
+    tuner = tt.AttentionTuner(store=tt.CalibrationStore(str(tmp_path)))
+    assert tuner.recommend("fwd", 32, 128) == tt.default_block_sizes(
+        32, device_kind="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tuner.calibrate(32, 128, num_heads=1, batch=1, iters=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tuner.calibrate_gemm(16, 256, 512, iters=1)
+    assert not list(tmp_path.iterdir())  # nothing stored
 
 
 @pytest.mark.parametrize("mode", ["dynamic", "weight_only"])

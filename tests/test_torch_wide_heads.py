@@ -116,6 +116,100 @@ def test_flash_forward_and_gradients_match_jax(d, with_bias):
     assert not po[..., d:].any()
 
 
+def _gap_ranges(sq, skv, width=40):
+    """Sparse rows: the first half of each 64-row tile attends to the
+    first ``width`` keys, the second half to the last ``width``, so the
+    runs between hold no live key."""
+    first = np.arange(sq) % 64 < 32
+    return np.stack([np.where(first, 0, skv - width),
+                     np.where(first, width, skv)], axis=1).astype(np.int32)
+
+
+# name: (mask, sparse gap rows, bias, runs) at D = 640, Sq = 96 over
+# Skv = 448 (7 key tiles) or 320.
+SPLIT_FWD = {
+    "causal_3_runs": (jm.CAUSAL, tm.CAUSAL, False, False, 3, 448),
+    "window_5_runs": (jm.sliding_window(96, causal=True),
+                      tm.sliding_window(96, causal=True), False, False, 5,
+                      448),
+    "sparse_gap_4_runs": (jm.MaskSpec(jm.MaskKind.SPARSE_RANGES),
+                          tm.MaskSpec(tm.MaskKind.SPARSE_RANGES), True, False,
+                          4, 448),
+    "bias_full_2_runs": (jm.FULL, tm.FULL, False, True, 2, 320),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_FWD))
+def test_split_forward_merge_matches_unsplit_and_jax(name):
+    """The plain version of the split-D forward with its KV axis split
+    (``flash_attention_forward_plain(..., splits=n)``: each 64-row tile's
+    key span dealt into n runs of whole 64-key tiles, a partial each,
+    merged by ``merge_fwd_splits_plain``, the plain version of
+    split_d_fwd_merge_kernel) against the unsplit plain version and the
+    JAX forward (interpret mode), O and L at D = 640 within
+    TOLERANCES["fp32"]; a run with no live key (the sparse gap) weighs
+    nothing, and one with no key (the window's short spans: the later
+    runs) adds nothing."""
+    jmask, tmask, gap, with_bias, runs, skv = SPLIT_FWD[name]
+    d, sq = 640, 96
+    rng = np.random.default_rng(skv + runs)
+    q = rng.standard_normal((1, 2, sq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 1, skv, d)).astype(np.float32)
+            for _ in range(2))
+    bias = (rng.standard_normal((1, 2, sq, skv)).astype(np.float32)
+            if with_bias else None)
+    ranges = _gap_ranges(sq, skv) if gap else None
+    with jax.default_matmul_precision("highest"):
+        jo, jl = jfa.flash_attention_forward(
+            *(jnp.asarray(x) for x in (q, k, v)), mask=jmask,
+            mask_ranges=None if ranges is None else jnp.asarray(ranges),
+            bias=None if bias is None else jnp.asarray(bias),
+            block_sizes=JBS, interpret=True)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tb = None if bias is None else torch.from_numpy(bias)
+    rr = tfa.row_ranges_tensor(tmask, sq, skv, ranges, "cpu")
+    run = tfa.split_d_fwd_runs(rr, skv, runs, aligned=False)
+    assert int(run.max()) >= 1  # at least two runs walk keys
+    kw = dict(bias=tb, scale=d ** -0.5)
+    o1, l1 = tfa.flash_attention_forward_plain(tq, tk, tv, rr, **kw)
+    on, ln = tfa.flash_attention_forward_plain(tq, tk, tv, rr, **kw,
+                                               splits=runs)
+    assert (on - o1).abs().max() <= TOL * o1.abs().max()
+    live = torch.isfinite(l1)
+    assert torch.equal(torch.isfinite(ln), live)
+    assert (ln[live] - l1[live]).abs().max() <= TOL * l1[live].abs().max()
+    assert _rel(on, jo) <= TOL and _rel(ln, jl) <= TOL
+
+
+# (d, batch, q heads, Sq, Skv, SMs, one walk) -> runs
+FWD_SPLIT_PLANS = [
+    # Perceiver IO's image cross-attention: 8 row tiles x 4 lane slices =
+    # 32 CTAs on 132 SMs, 784 key tiles: 8 runs (256 CTAs, two an SM).
+    ((1024, 1, 1, 512, 224 * 224, 132, False), 8),
+    # The trio (B=2, 16 q heads, S=2048): 4,096 / 3,072 CTAs, one walk.
+    ((1024, 2, 16, 2048, 2048, 132, False), 1),
+    ((640, 2, 16, 2048, 2048, 132, False), 1),
+    # An int8 P keeps one walk wherever the grid is.
+    ((1024, 1, 1, 512, 224 * 224, 132, True), 1),
+    # Few CTAs but a short key axis: runs of at least 16 tiles.
+    ((640, 1, 1, 128, 2048, 132, False), 2),
+    ((640, 1, 1, 128, 960, 132, False), 1),
+    # Up to 576 there is no split-D forward.
+    ((576, 1, 1, 512, 224 * 224, 132, False), 1),
+    # At most 64 runs.
+    ((1024, 1, 1, 64, 1 << 20, 132, False), 64),
+]
+
+
+@pytest.mark.parametrize("shape,want", FWD_SPLIT_PLANS)
+def test_split_d_forward_split_plan(shape, want):
+    """split_d_fwd_splits from shapes alone: 1 unless the grid leaves SMs
+    idle, then as many runs as fill two CTAs an SM, each at least 16 key
+    tiles, at most 64; 1 for an int8 P and at or below 576."""
+    *dims, one_walk = shape
+    assert tfa.split_d_fwd_splits(*dims, one_walk=one_walk) == want
+
+
 # ---------------------------------------------------------------------------
 # Paged decode and prefill
 # ---------------------------------------------------------------------------
