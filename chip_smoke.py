@@ -408,8 +408,12 @@ checkout, then, on the card:
    twice, bit for bit, at the flash gates of the plain versions; the
    paged decode and prefill at each width (and 1088) over fp32, bf16,
    int8 and int4 pools and latent pages (64 zeroed V lanes at 640 and
-   1088); one ``flash_attention`` forward and backward (one forward, dQ,
-   dK/dV and merge) and one decode (its split kernel and merge) counted;
+   1088); the dQ with its KV axis split (``split_d_dq_splits``, three
+   cases of few row tiles over long key axes, planned and forced, bf16
+   and fp32: one kernel and one ``split_d_dq_merge_kernel`` a call,
+   counted, twice bit for bit, held to the unsplit plain version); one
+   ``flash_attention`` forward and backward (one forward, dQ, dK/dV and
+   merge) and one decode (its split kernel and merge) counted;
    (b) the trio at B=2, Hq=16 over one head, S=2048, causal, bf16 at
    D = 640 and 1024, the paged pair over latent pages at the engine's
    decode lengths and the 256-row chunk at offset 512, and the forward at
@@ -417,8 +421,12 @@ checkout, then, on the card:
    50,176 inputs, D=1024: its KV axis split, ``split_d_fwd_splits``, one
    kernel and one ``split_d_fwd_merge_kernel`` a call, counted, held to
    the plain version and twice bit for bit, the merge alone against its
-   plain version), each beside its bound, plain version and SDPA (its
-   backend named); (c) a ``TransformerConfig`` with 8 query heads of
+   plain version) and the dQ there (its KV axis split too, one kernel
+   and one ``split_d_dq_merge_kernel`` a call, counted, the merge alone
+   bit for bit with its plain version), each beside its bound, plain
+   version and SDPA (its backend named); with ``--parent`` the trio's
+   outputs bit for bit with the parent's (unsplit); (c) a
+   ``TransformerConfig`` with 8 query heads of
    640 over 2 KV heads at the flagship's other widths, depth cut to 2
    layers: the cached logits within 5e-2 rel L2 of the fp32 forward,
    phase 5's 8 requests served on the split-D paged kernels (counted),
@@ -435,16 +443,22 @@ checkout, then, on the card:
    window, fp32 Q; the exact dQ with dbias and dK/dV; the full-integer
    pair at levels 1 and 2), BLOCK_2D blocks that straddle the 256-lane
    slices at 608, 640 and 1152, sparse rows with an empty one at 640, a
-   level-2 span below one k step at 640 and one forward at 2048, each
-   twice, bit for bit; (b) the five kernels at B=2, Hq=16 over one head,
+   level-2 span below one k step at 640 and one forward at 2048, the
+   exact dQ with its KV axis split (four cases, planned and forced, bf16
+   through the raw ring and fp32 staged, one kernel and one merge a call,
+   counted), each twice, bit for bit; (b) the five kernels at B=2, Hq=16
+   over one head,
    S=2048, int8 ROW K/V (causal; the full-integer pair FULL over CHANNEL
    V) at D = 640 and 1024 and the ``QuantizedAttention`` forward at
    Perceiver IO's cross-attention shape (its KV axis split as in 24 (b):
-   two quantizers, one kernel and one merge a call, counted), each beside
-   its bound, plain version, SDPA over the dequantized bf16 K/V and phase
-   24's float split-D time; with ``--parent`` the five kernels in turns on
-   the parent's library too, and the full-integer pair and the exact dQ
-   bit for bit with its outputs (their int32 sums are exact); (c) phase
+   two quantizers, one kernel and one merge a call, counted) and its
+   backward (one exact dQ over ``split_d_dq_splits`` runs and its merge,
+   one dK/dV, counted against the plan; each kernel alone on the call's
+   arguments, the dQ's merge alone), each beside its bound, plain
+   version, SDPA over the dequantized bf16 K/V and phase 24's float
+   split-D time; with ``--parent`` the kernels in turns on the parent's
+   library too, and the full-integer pair and the exact dQ (unsplit) bit
+   for bit with its outputs; (c) phase
    24's head dim 640 model:
    ``quantized_forward(quantize_weights(params), tokens, cfg,
    quantize_kv=True)`` within 0.25 rel L2 of the fp32 forward with one
@@ -696,6 +710,7 @@ from metal_flash_attention_plus_tpu_torch.quant.tensor import (
     unpack_int4,
 )
 from metal_flash_attention_plus_tpu_torch.reference.attention import (
+    _expand_kv_heads,
     reference_attention,
     reference_attention_vjp,
 )
@@ -909,9 +924,12 @@ PARENT = {"lib": None, "turns": []}
 # splits and the workspace: it stops at D = 256, where no call splits.
 # The flash and quantized forwards from before the split-D forward's KV
 # split (no ``mfa_split_d_fwd_merge``) lack the splits and the workspace:
-# one walk.  Where an entry point lacks several, the first one counts.
+# one walk.  The flash dQ from before the split-D dQ's KV split (no
+# ``mfa_split_d_dq_merge``) lacks them too.  Where an entry point lacks
+# several, the first one counts.
 LEGACY_ARGS = {"mfa_flash_fwd": (("mfa_flash_static_max_body", 19),
                                  ("mfa_split_d_fwd_merge", 20)),
+               "mfa_flash_dq": (("mfa_split_d_dq_merge", 21),),
                "mfa_qattn_fwd": (("mfa_split_d_fwd_merge", 31),),
                "mfa_qflash_bwd": (("mfa_qattn_body", 35),),
                "mfa_flash_dkv": (("mfa_flash_dkv_merge", 21),),
@@ -933,9 +951,9 @@ def kernels_of(lib):
     ``comp_small_gemm`` takes the scalar tile, its only kernel.  A library
     without the split dK/dV: ``flash_dkv`` plans one split (no merge).  A
     library without the split-D forward's KV split: the forwards plan one
-    run (no merge)."""
+    run (no merge); without the split-D dQ's: the dQs do."""
     own = (_build.kernel_function, qgemm.WO_OUT_TYPES, qgemm.comp_small_body,
-           fbwd.dkv_splits, tfa.split_d_fwd_splits)
+           fbwd.dkv_splits, tfa.split_d_fwd_splits, fbwd.split_d_dq_splits)
 
     def function(name, argtypes):
         fn = getattr(lib, name)
@@ -965,12 +983,15 @@ def kernels_of(lib):
     if not hasattr(lib, "mfa_split_d_fwd_merge"):
         tfa.split_d_fwd_splits = tqa.split_d_fwd_splits = (
             lambda *shape, one_walk=False: 1)
+    if not hasattr(lib, "mfa_split_d_dq_merge"):
+        fbwd.split_d_dq_splits = lambda *shape: 1
     try:
         yield
     finally:
         (_build.kernel_function, qgemm.WO_OUT_TYPES,
          qgemm.comp_small_body, fbwd.dkv_splits) = own[:4]
         tfa.split_d_fwd_splits = tqa.split_d_fwd_splits = own[4]
+        fbwd.split_d_dq_splits = own[5]
 
 
 def parent_turns(label, t, kernel, iters, device=False, parent_kernel=None,
@@ -1798,6 +1819,13 @@ def time_flash(rng, b=TRAIN_BATCH, hq=16, hkv=4, s=TRAIN_SEQ, d=64):
                 DTYPE_CODES[q.dtype], d) >= 0:
             parent_turns(f"{name} B={b} S={s} D={d}", t, kernel, 10,
                          by_kernel=d > 256)
+            if d > 576 and PARENT["lib"] is not None:
+                # The split-D trio walks the KV axis unsplit here: the
+                # parent's bits.
+                t["parent_bits_equal"] = parent_bits(kernel)
+                if not t["parent_bits_equal"]:
+                    raise AssertionError(f"{name} at D={d} moved from the "
+                                         "parent's bits")
         times[name] = t
         log(f"{name} times at B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
             "bf16: " + json.dumps(t))
@@ -7429,8 +7457,9 @@ SPLIT_D_DESIGN = (
     "scores summed over the whole head dim in 32-lane chunks, bf16 on "
     "mma.sync through a 4-stage cp.async ring, fp32 on scalar FMAs; P "
     "applied to the CTA's slice, fetched under the scores; the scores "
-    "recomputed once a slice; the forward's KV axis split where the grid "
-    "leaves SMs idle, then split_d_fwd_merge_kernel")
+    "recomputed once a slice; the forward's and the dQ's KV axis split "
+    "where the grid leaves SMs idle, then split_d_fwd_merge_kernel / "
+    "split_d_dq_merge_kernel")
 # Perceiver IO's image cross-attention (deepmind/vision-perceiver-*,
 # Hugging Face PerceiverConfig: 512 latents of d_latents 1024 over one
 # cross-attention head, attending to 224 x 224 inputs): B, H, Sq, Skv, D.
@@ -7559,6 +7588,74 @@ def check_split_d_all(rng):
     return errs
 
 
+# The split-D dQ's KV split (split_d_dq_splits, then the merge): (a)'s
+# cases (label, B, Hq, Hkv, Sq, Skv, D, runs or None for the plan's,
+# options): few row tiles over a long key axis.
+DQ_MERGE_KERNEL = "split_d_dq_merge_kernel"
+SPLIT_DQ_CASES = (
+    ("split_dq_planned_full_d1024", 1, 1, 1, 128, 4096, 1024, None,
+     dict(mask=masking.FULL)),
+    ("split_dq_3_runs_bias_d640", 1, 4, 1, 64, 1300, 640, 3,
+     dict(mask=masking.FULL, bias_shape=(1, 4, 64, 1300))),
+    ("split_dq_5_runs_window_interleaved_d1024", 1, 4, 2, 100, 1500, 1024, 5,
+     dict(mask=masking.sliding_window(128, causal=True), interleaved=True)),
+)
+
+
+@contextlib.contextmanager
+def dq_runs(n):
+    """The split-D dQs plan ``n`` runs of the KV axis (None: the
+    planner's own plan; 1 at or below 576)."""
+    planner = fbwd.split_d_dq_splits
+    if n is not None:
+        fbwd.split_d_dq_splits = lambda d, *shape: (
+            1 if tfa.split_d_slices(d) == 1 else n)
+    try:
+        yield
+    finally:
+        fbwd.split_d_dq_splits = planner
+
+
+def check_split_dq(label, runs, check, dq_call_count):
+    """``check()`` (a kernel check that calls the dQ twice and holds it to
+    the unsplit plain version) with the dQ's KV axis in ``runs`` runs (None:
+    the plan's): the dQ and merge launches counted (the counts set to 0
+    just before, read after: two each) → check's errors."""
+    fbwd.merge_dq_splits.launches = 0
+    with dq_runs(runs):
+        errs = check()
+    torch.cuda.synchronize()
+    merges = fbwd.merge_dq_splits.launches
+    if merges != 2 or dq_call_count() != 2:
+        raise AssertionError(f"{label}: {dq_call_count()} dQ and {merges} "
+                             "merge launches for two calls")
+    return errs
+
+
+def check_split_dq_all(rng):
+    """(a) The float split-D dQ with its KV axis split (SPLIT_DQ_CASES, bf16
+    and fp32) through ``check_latent``: dQ and dbias held to the unsplit
+    plain version at the flash gates, two calls equal bit for bit, one
+    kernel and one merge a call → {label: errors}."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, hq, hkv, sq, skv, d, runs, kw in SPLIT_DQ_CASES:
+            if runs is None:
+                runs_ = fbwd.split_d_dq_splits(d, b, hq, sq, skv, sm_count())
+                if runs_ < 2:
+                    raise AssertionError(f"{label}: the plan gives {runs_} "
+                                         "runs")
+            flash_dq.launches = 0
+            errs[f"flash {label} {str(dtype)[6:]}"] = check_split_dq(
+                label, runs, lambda: check_latent(
+                    rng, label, b, hq, hkv, sq, skv, d, dtype,
+                    scale=d ** -0.5, **kw),
+                lambda: flash_dq.launches)
+    log(f"phase 24 (a): {len(errs)} split dQ checks, each bit for bit on a "
+        "repeat, one merge a call")
+    return errs
+
+
 # The split-D forward's merge (phase 24 (b) and 25 (b): Perceiver IO's
 # forwards split their KV axis).
 FWD_MERGE_KERNEL = "split_d_fwd_merge_kernel"
@@ -7684,6 +7781,127 @@ def time_perceiver(rng):
     return t
 
 
+def perceiver_dq_bound(d, pairs, n_q, n_kv, kv_bytes, rows, hkv_d):
+    """The bound of a dQ at Perceiver IO: S, dP and dS.K (6 D operations a
+    pair, bf16) or its bytes (Q and dO bf16, K and V ``kv_bytes``, L and D,
+    the multipliers, dQ fp32 once), the larger."""
+    return bound_of(6 * d * pairs, 4 * n_q + kv_bytes + 8 * rows + 4 * hkv_d
+                    + 4 * n_q)
+
+
+def check_dq_merge(label, call, kv_heads, dqsc=None, scale=1.0):
+    """The dQ's merge alone on the partials ``call``'s split-D dQ leaves
+    (the workspace the wrapper allocates): against
+    ``merge_dq_splits_plain`` bit for bit, two calls equal, events and
+    device ms beside its plain version and its bound (ws read once, dQ
+    written once; no single PyTorch call computes it) → record."""
+    made = []
+    alloc = fbwd.split_d_dq_workspace
+
+    def keep(shape, splits, device):
+        ws = alloc(shape, splits, device)
+        made.append(ws)
+        return ws
+
+    fbwd.split_d_dq_workspace = keep
+    try:
+        call()
+    finally:
+        fbwd.split_d_dq_workspace = alloc
+    torch.cuda.synchronize()
+    ws = made[-1]
+    b, hq = ws.shape[1], ws.shape[2]
+    dq = torch.empty(ws.shape[1:], dtype=torch.float32, device=DEV)
+    mult = (scale if dqsc is None else _expand_kv_heads(
+        dqsc[:, :, None], hq, False))
+    kernel = lambda: fbwd.merge_dq_splits(  # noqa: E731
+        ws, dq, kv_heads=kv_heads, dqsc=dqsc, scale=scale)
+    plain = lambda: fbwd.merge_dq_splits_plain(ws, mult)  # noqa: E731
+    kernel()
+    first = dq.clone()
+    kernel()
+    torch.cuda.synchronize()
+    same_bits(f"{label} merge", first, dq)
+    ref = plain()
+    err = max_abs(dq, ref)
+    if not torch.equal(dq, ref):
+        raise AssertionError(f"{label} merge: not its plain version's bits "
+                             f"(max abs err {err})")
+    t = {"max_abs_err": err, "splits": ws.shape[0],
+         "ms": time_ms(kernel, 20, warmup=2),
+         "plain_ms": time_ms(plain, 3, warmup=1), "library_ms": None,
+         "library": "none (no single PyTorch call merges the runs and "
+                    "scales them)"}
+    t["device_ms"] = sum(device_ms_by_label(kernel, 20).values()) or None
+    nbytes = 4 * (ws.numel() + dq.numel()
+                  + (0 if dqsc is None else dqsc.numel()))
+    t["bound_ms"], t["bound_by"] = bound_of(ws.numel(), nbytes)
+    log(f"{label} merge ({DQ_MERGE_KERNEL}): " + json.dumps(t))
+    return t
+
+
+def time_perceiver_dq(rng, fwd):
+    """(b) The float dQ at Perceiver IO (PERCEIVER, FULL, bf16; its KV
+    axis split: ``split_d_dq_splits``) on the forward's L: one call's
+    launches (the counts set to 0 just before and read after: one kernel,
+    one merge), dQ against the plain version at the flash gates, two
+    calls equal bit for bit, events, the profiler's device ms, the plain
+    version, SDPA's backward (dq, dk and dv), the bound, with ``--parent``
+    in turns on the parent's library (one walk), and the merge alone
+    (``check_dq_merge``) → times."""
+    b, h, sq, skv, d = PERCEIVER
+    gen = device_generator(rng)
+    q, do = (torch.randn((b, h, sq, d), generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, h, skv, d), generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(2))
+    rr = row_ranges_tensor(masking.FULL, sq, skv, None, DEV)
+    scale = d ** -0.5
+    o, lse = flash_fwd(q, k, v, rr, scale=scale)
+    di = (do.float() * o).sum(-1)
+    del o
+    args = (q, k, v, do, lse, di, rr)
+    kernel = lambda: flash_dq(*args, scale=scale)  # noqa: E731
+    plain = lambda: flash_attention_dq_plain(  # noqa: E731
+        *args, scale=scale)
+    splits = fbwd.split_d_dq_splits(d, b, h, sq, skv, sm_count())
+    flash_dq.launches = fbwd.merge_dq_splits.launches = 0
+    out = kernel()
+    torch.cuda.synchronize()
+    launches = {"flash_dq": flash_dq.launches,
+                "merge_dq_splits": fbwd.merge_dq_splits.launches}
+    if splits < 2 or launches != {"flash_dq": 1, "merge_dq_splits": 1}:
+        raise AssertionError(f"Perceiver dQ: {splits} runs, launches "
+                             f"{launches}")
+    same_bits("Perceiver dQ (split_d, its KV axis split)", out, kernel())
+    errs = check_bwd_pair(f"Perceiver dQ (split_d, {splits} runs)", out,
+                          plain(), ("dq", "dbias"))
+    del out
+    t = {"plain_ms": time_ms(plain, 3, warmup=1),
+         "ms": time_ms(kernel, 5, warmup=1),
+         "library_ms": time_ms(sdpa_backward(q, k, v, do, False, scale), 5,
+                               warmup=1),
+         "splits": splits, "launches": launches,
+         "rel_err": errs["dq"][0], "max_abs_err": errs["dq"][1]}
+    t["ms_2"] = time_ms(kernel, 5, warmup=0)
+    t["device_ms_by_kernel"] = device_ms_by_label(kernel, 3)
+    t["device_ms"] = (sum(t["device_ms_by_kernel"].values())
+                      or measure_held(kernel, iters=3, warmup=0) * 1e3)
+    t["library"] = "sdpa backward (dq, dk, dv together)"
+    t["library_backend"] = sdpa_backend(q, k, v)
+    n_q, n_kv = b * h * sq * d, b * h * skv * d
+    t["bound_ms"], t["bound_by"] = perceiver_dq_bound(
+        d, b * h * sq * skv, n_q, n_kv, 4 * n_kv, b * h * sq, 0)
+    t["shape"] = (f"B={b} H={h} Sq={sq} Skv={skv} D={d} FULL bf16 "
+                  "(Perceiver IO image cross-attention)")
+    t["forward_device_ms"] = fwd["device_ms"]
+    parent_turns("flash_dq Perceiver IO (D=1024)", t, kernel, 5,
+                 device=True)
+    t["merge"] = check_dq_merge("Perceiver dQ", kernel, h, scale=scale)
+    log("phase 24 (b) Perceiver IO dQ: " + json.dumps(t))
+    return t
+
+
 def run_split_d_path(seed, rng):
     """(c) SPLIT_D_CFG (head dim 640, 8 q heads over 2, 2 layers, random
     weights from ``seed``): the cached logits against the fp32 forward
@@ -7775,6 +7993,7 @@ def run_split_d(seed, dec_lens):
     t = time.perf_counter()
     with torch.no_grad():
         out["errors"] = check_split_d_all(rng)
+        out["errors"].update(check_split_dq_all(rng))
     out["launches"] = check_split_d_launches(rng)
     torch.cuda.empty_cache()
     phase["split_d_kernels"] = time.perf_counter() - t
@@ -7800,6 +8019,8 @@ def run_split_d(seed, dec_lens):
         torch.cuda.empty_cache()
     with torch.no_grad():
         out["perceiver"] = time_perceiver(rng)
+        torch.cuda.empty_cache()
+        out["perceiver_dq"] = time_perceiver_dq(rng, out["perceiver"])
     torch.cuda.empty_cache()
     phase["split_d_times"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -7832,11 +8053,15 @@ QSPLIT_DESIGN = (
     "phase 24's split-D frame over the payload (256 output lanes a CTA, the "
     "scores over the whole head dim in 32-lane chunks, recomputed once a "
     "slice): int8 / int4 rows read as they lie and dequantized (or kept as "
-    "integers) a chunk at a time, the forward's whole rows (and the "
-    "full-integer pair's int8 rows) landing as raw bytes through a 4-stage "
-    "cp.async ring and widened in shared memory, V's slice raw under the "
-    "scores, the forward's KV axis split where the grid leaves SMs idle "
-    "(then split_d_fwd_merge_kernel), bf16 mma.sync for a bf16 Q, s8 mma.sync "
+    "integers) a chunk at a time, whole payload rows (and the full-integer "
+    "pair's int8 rows) landing as raw bytes through a 4-stage cp.async ring "
+    "and widened in shared memory (the forward and the exact dQ and dK/dV; "
+    "the dK/dV's S and dP with the payload on the ring's B side, their "
+    "transposes read back, its K rows resident in shared memory where they "
+    "fit), V's (the dQ's K's) slice raw under the scores, "
+    "the forward's and the dQ's KV axis split where the grid leaves SMs "
+    "idle (then split_d_fwd_merge_kernel / split_d_dq_merge_kernel), bf16 "
+    "mma.sync for a bf16 Q, s8 mma.sync "
     "m16n8k32 for an int8 Q and the full-integer S and dP, P.V (dQ, dK, dV) "
     "over the CTA's slice on bf16 mma.sync, fp32 FMAs where the mode does "
     "not round to bf16 and at the full-integer level 2")
@@ -7885,6 +8110,36 @@ def check_quantized_split_d_all(rng):
         rng, "D=640 ROW K / CHANNEL V, S=144", 1, 8, 1, 144, 640, qcfg(),
         qcfg(gran="channel"), True,
         BlockSizes(block_kv_dq=512, block_q_dkv=512), repeat=True)
+    # The exact dQ with its KV axis split (then split_d_dq_merge_kernel),
+    # one kernel and one merge a call: whole payload rows through the raw
+    # ring (bf16), the staged route (fp32), the folds, BLOCK_2D cells
+    # straddling the slices.
+    b2d80 = qcfg(gran="block_2d", strategy="centered", block_rows=4,
+                 block_size=80)
+    row4c = qcfg(bits=4, strategy="centered")
+    for label, shape, kcfg, vcfg, dtype, runs, opts in (
+            ("planned folded ROW", (1, 2, 1, 64, 2048, 1024), qcfg(), qcfg(),
+             torch.bfloat16, None, dict(mask=masking.FULL)),
+            ("3 runs int4 ROW CENTERED bias", (1, 4, 1, 64, 1300, 640),
+             row4c, row4c, torch.bfloat16, 3,
+             dict(mask=masking.FULL, bias_shape=(1, 4, 64, 1300))),
+            ("4 runs BLOCK_2D 80 fp32", (1, 2, 2, 64, 1280, 640), b2d80,
+             b2d80, torch.float32, 4, dict(mask=masking.FULL)),
+            ("5 runs window interleaved", (1, 4, 2, 100, 1500, 1024), row8c,
+             row4c, torch.bfloat16, 5,
+             dict(mask=masking.sliding_window(128, causal=True),
+                  interleaved_kv=True))):
+        b, hq, hkv, sq, skv, d = shape
+        if runs is None and fbwd.split_d_dq_splits(
+                d, b, hq, sq, skv, sm_count()) < 2:
+            raise AssertionError(f"split dQ {label}: the plan gives one run")
+        fbwd.qflash_dq.launches = 0
+        errs[f"qflash d{d} split dQ {label}"] = check_split_dq(
+            f"qflash D={d} split dQ {label}", runs,
+            lambda: check_qflash(rng, f"D={d} split dQ {label}", b, hq, hkv,
+                                 sq, skv, d, kcfg, vcfg, dtype=dtype,
+                                 repeat=True, **opts),
+            lambda: fbwd.qflash_dq.launches)
     log(f"phase 25 (a): {len(errs)} checks, each bit for bit on a repeat")
     return errs
 
@@ -7953,6 +8208,118 @@ def time_quantized_perceiver(rng, split_d_perceiver):
     t["merge"] = check_fwd_merge("Perceiver facade forward", kernel, h)
     log("phase 25 (b) Perceiver IO facade forward: " + json.dumps(t))
     return t
+
+
+def time_quantized_perceiver_bwd(rng, float_dq):
+    """(b) ``QuantizedAttention``'s backward (int8 ROW CENTERED K/V
+    quantized at run time, FULL, bf16) at Perceiver IO's cross-attention
+    (PERCEIVER): one gradient's launches through the facade (the counts
+    set to 0 just before its backward and read after: the exact dQ over
+    ``split_d_dq_splits`` runs and its merge, the dK/dV and its merge
+    where ``dkv_splits`` splits; raises where they differ from the plan),
+    the call's dq against the kernels'; then each kernel alone on the
+    call's arguments: held to its plain version at the flash gates and to
+    a repeat bit for bit, events and device ms (the dQ: runs + merge)
+    beside its bound, its plain version and SDPA's backward over the
+    dequantized bf16 K/V (dq, dk and dv; its backend named), with
+    ``--parent`` in turns (the parent walks the KV axis once), and the dQ's
+    merge alone → {"qflash_dq": times, "qflash_dkv": times}."""
+    b, h, sq, skv, d = PERCEIVER
+    gen = device_generator(rng)
+    q, do = (torch.randn((b, h, sq, d), generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, h, n, d), generator=gen, device=DEV).to(
+        torch.bfloat16) for n in (skv, skv))
+    facade = QuantizedAttention()
+    scale = d ** -0.5
+    runs = fbwd.split_d_dq_splits(d, b, h, sq, skv, sm_count())
+    dkv_runs = fbwd.dkv_splits(q.dtype, d, b, h, h, skv, sm_count())
+    qg = q.detach().requires_grad_(True)
+    with torch.enable_grad():
+        o_call = facade(qg, k, v)
+    counted = (fbwd.qflash_dq, fbwd.merge_dq_splits, fbwd.qflash_dkv,
+               fbwd.merge_dkv_splits)
+    for f in counted:
+        f.launches = 0
+    dq_call, = torch.autograd.grad(o_call, (qg,), do)
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counted}
+    want = {"qflash_dq": 1, "merge_dq_splits": int(runs > 1),
+            "qflash_dkv": 1, "merge_dkv_splits": int(dkv_runs > 1)}
+    if runs < 2 or launches != want:
+        raise AssertionError(f"Perceiver facade backward: {runs} dQ runs, "
+                             f"launches {launches}, the plan's {want}")
+    kq, vq = facade.quantize_kv(k, v)
+    o, lse = quantized_flash_attention_forward(q, kq, vq, scale=scale)
+    di = (do.float() * o).sum(-1)
+    rr = row_ranges_tensor(masking.FULL, sq, skv, None, DEV)
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.qflash_arguments(
+        q, kq, vq, do, lse, di, rr, scale=scale)
+    del o
+    kd, vd = dequantized_bf16(kq), dequantized_bf16(vq)
+    library = sdpa_backward(q, kd, vd, do, False, scale)
+    lib_ms = time_ms(library, 5, warmup=1)
+    n_q, n_kv, rows = b * h * sq * d, b * h * skv * d, b * h * sq
+    pairs = b * h * sq * skv
+    out = {}
+    for name, fn, plain, a, kw in (
+            ("qflash_dq", fbwd.qflash_dq, fbwd.qflash_dq_plain, dq_a, dq_kw),
+            ("qflash_dkv", fbwd.qflash_dkv, fbwd.qflash_dkv_plain, dkv_a,
+             dkv_kw)):
+        kernel = lambda fn=fn, a=a, kw=kw: fn(*a, **kw)  # noqa: E731
+        plain_call = lambda p=plain, a=a, kw=kw: p(*a, **kw)  # noqa: E731
+        got = kernel()
+        same_bits(f"Perceiver facade {name}", got, kernel())
+        names = ("dq", "dbias") if name == "qflash_dq" else ("dk", "dv")
+        errs = check_bwd_pair(f"Perceiver facade {name} (split_d)", got,
+                              plain_call(), names)
+        # The call returns dq in q's dtype: its kernel's, rounded.
+        if name == "qflash_dq" and not torch.equal(
+                got[0].to(dq_call.dtype), dq_call):
+            raise AssertionError("Perceiver facade: the call's dq is not "
+                                 "its kernel's")
+        del got
+        t = {"plain_ms": time_ms(plain_call, 2, warmup=1),
+             "ms": time_ms(kernel, 5, warmup=1), "library_ms": lib_ms,
+             "library": "sdpa backward (dq, dk, dv together) over the "
+                        "dequantized bf16 K/V",
+             "library_backend": sdpa_backend(q, kd, vd),
+             "rel_err": max(e[0] for e in errs.values()),
+             "max_abs_err": max(e[1] for e in errs.values())}
+        t["ms_2"] = time_ms(kernel, 5, warmup=0)
+        t["device_ms_by_kernel"] = device_ms_by_label(kernel, 3)
+        t["device_ms"] = (sum(t["device_ms_by_kernel"].values())
+                          or measure_held(kernel, iters=3, warmup=0) * 1e3)
+        if name == "qflash_dq":
+            t["bound_ms"], t["bound_by"] = perceiver_dq_bound(
+                d, pairs, n_q, n_kv, 2 * n_kv + 16 * b * h * skv, rows,
+                b * h * d)
+            t["splits"] = runs
+            t["launches"] = {k_: launches[k_] for k_ in (
+                "qflash_dq", "merge_dq_splits")}
+        else:
+            t["bound_ms"], t["bound_by"] = bound_of(
+                8 * d * pairs, 4 * n_q + 2 * n_kv + 16 * b * h * skv
+                + 8 * rows + 8 * n_kv)
+            t["splits"] = dkv_runs
+            t["launches"] = {k_: launches[k_] for k_ in (
+                "qflash_dkv", "merge_dkv_splits")}
+        t["body"] = dq_body(q.dtype, d)
+        t["mode"] = kw["mode"].k
+        t["float_split_d_dq_ms"] = float_dq["ms"]
+        t["float_split_d_dq_device_ms"] = float_dq["device_ms"]
+        t["shape"] = (f"B={b} H={h} Sq={sq} Skv={skv} D={d} FULL bf16, "
+                      "int8 ROW CENTERED K/V (Perceiver IO image "
+                      "cross-attention)")
+        parent_turns(f"{name} Perceiver IO facade backward (D=1024)", t,
+                     kernel, 5, device=True)
+        if name == "qflash_dq":
+            t["merge"] = check_dq_merge("Perceiver facade dQ", kernel, h,
+                                        dqsc=kw["dqsc"])
+        log(f"phase 25 (b) Perceiver IO facade backward {name}: "
+            + json.dumps(t))
+        out[name] = t
+    return out
 
 
 def time_quantized_split_d(rng, split_d_times):
@@ -8090,6 +8457,9 @@ def run_quantized_split_d(seed, split_d):
         out["times"] = time_quantized_split_d(rng, split_d["times"])
         out["perceiver"] = time_quantized_perceiver(rng,
                                                     split_d["perceiver"])
+        torch.cuda.empty_cache()
+    out["perceiver_bwd"] = time_quantized_perceiver_bwd(
+        rng, split_d["perceiver_dq"])
     torch.cuda.empty_cache()
     phase["qsplit_d_times"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -8995,6 +9365,12 @@ def main() -> int:
         if name == "flash_dkv":
             entry["splits"] = split_d["times"]["d1024"]["splits"]
             entry["splits_d640"] = split_d["times"]["d640"]["splits"]
+        if name == "flash_dq":
+            entry.update({f"{k}_perceiver": split_d["perceiver_dq"][k]
+                          for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "device_ms",
+                                    "library_backend", "shape", "splits",
+                                    "launches", "max_abs_err")})
         DEVICE_KERNELS[entry["name"]] = kernel
         record["kernels"].append(entry)
     # The quantized kernels above 576, from phase 25: times at D = 1024
@@ -9054,6 +9430,12 @@ def main() -> int:
                                     "float_split_d_ms", "library_backend",
                                     "shape", "splits", "launches",
                                     "max_abs_err")})
+        if family in qsplit["perceiver_bwd"]:
+            entry.update({f"{k}_perceiver": qsplit["perceiver_bwd"][family][k]
+                          for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "device_ms",
+                                    "library_backend", "shape", "splits",
+                                    "launches", "max_abs_err")})
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']}: no launch on the path")
         DEVICE_KERNELS[entry["name"]] = kernel
@@ -9084,6 +9466,36 @@ def main() -> int:
                        "forward and one facade call",
     }
     DEVICE_KERNELS[entry["name"]] = FWD_MERGE_KERNEL
+    record["kernels"].append(entry)
+    # The split-D dQ's merge, from phases 24 (b) and 25 (b): launched by
+    # Perceiver IO's float dQ and the facade's backward (one each).
+    dm = split_d["perceiver_dq"]["merge"]
+    qdm = qsplit["perceiver_bwd"]["qflash_dq"]["merge"]
+    entry = {
+        "name": "split_d_dq_merge", "route": "cuda",
+        "source": SPLIT_D_SOURCE, "replaces": SPLIT_D_REPLACES["flash_dq"],
+        "replaces_note": "the second launch of _dq_kernel's ports above 576 "
+                         "where the KV axis splits: the runs' partial dQ "
+                         "summed in run order and scaled (the TPU's "
+                         "sequential grid walked the whole KV axis in one "
+                         "kernel)",
+        "launches": (split_d["perceiver_dq"]["launches"]["merge_dq_splits"]
+                     + qsplit["perceiver_bwd"]["qflash_dq"]["launches"][
+                         "merge_dq_splits"]),
+        "max_abs_err": max(dm["max_abs_err"], qdm["max_abs_err"]),
+        **{k: dm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "library", "device_ms",
+                              "splits")},
+        **{f"{k}_facade": qdm[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "device_ms", "max_abs_err")},
+        "shape": (f"Perceiver IO's 512 rows of D=1024, {dm['splits']} runs "
+                  "(the float dQ's; the facade's beside it)"),
+        "bitwise_equal_two_calls": True,
+        "bitwise_equal_plain": True,
+        "launches_on": "phases 24 (b) and 25 (b): one Perceiver IO float "
+                       "dQ and one facade backward",
+    }
+    DEVICE_KERNELS[entry["name"]] = DQ_MERGE_KERNEL
     record["kernels"].append(entry)
     for entry in record["kernels"]:
         entry["device_kernel"] = DEVICE_KERNELS[entry["name"]]
@@ -9182,6 +9594,8 @@ def main() -> int:
             "logits_rel_l2", "launches", "model_launches", "body",
             "device_kernels", "grads_rel_l2", "seconds", "shape")},
         "perceiver_launches": qsplit["perceiver"]["launches"],
+        "perceiver_backward_launches": {
+            k: v["launches"] for k, v in qsplit["perceiver_bwd"].items()},
     }
     record["wide_quantized"] = {
         "checks": len(wide["errors"]),

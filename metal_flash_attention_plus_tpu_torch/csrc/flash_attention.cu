@@ -1419,21 +1419,28 @@ int mfa_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 
+// splits: the runs of the KV axis above 576 (ops/flash_attention_bwd.py::
+// split_d_dq_splits; 1 at and below 576); with splits > 1 the unscaled
+// partials go to ws, fp32 [splits, B, Hq, Sq, D], and mfa_split_d_dq_merge
+// makes dq.
 int mfa_flash_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* di,
                  const void* ranges, const void* bias, long long bias_sb,
                  long long bias_sh, void* dq, void* dbias, int dtype, int B,
                  int Hq, int Hkv, int Sq, int Skv, int D, int interleaved,
-                 float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+                 float scale, int splits, void* ws, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || (D <= 576 && splits != 1))
+    return (int)cudaErrorInvalidValue;
   const Shape sp{B, Hq, Hkv, Sq, Skv, interleaved};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > 576)
-    return mfa_sd::launch_dq(
-        dtype, split_d_args(q, k, v, dout, lse, di, ranges, bias, bias_sb,
-                            bias_sh, nullptr, dq, dbias, B, Hq, Hkv, Sq, Skv,
-                            D, interleaved, scale, 0.f),
-        s);
+  if (D > 576) {
+    mfa_sd::FlashArgs a = split_d_args(
+        q, k, v, dout, lse, di, ranges, bias, bias_sb, bias_sh, nullptr, dq,
+        dbias, B, Hq, Hkv, Sq, Skv, D, interleaved, scale, 0.f);
+    a.splits = splits;
+    a.ws = static_cast<float*>(ws);
+    return mfa_sd::launch_dq(dtype, a, s);
+  }
   MFA_DISPATCH(launch_dq, q, k, v, dout, lse, di, ranges, bias, bias_sb,
                bias_sh, dq, dbias, sp, scale, s);
 }

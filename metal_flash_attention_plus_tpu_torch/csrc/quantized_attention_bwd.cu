@@ -1980,7 +1980,10 @@ extern "C" {
 // the CTAs that share a key tile's GQA group (bf16 dK/dV at D = 288 and
 // 576, both dtypes above 576, ops/flash_attention_bwd.py::dkv_splits; 1
 // elsewhere); with splits > 1 the partials go to ws, fp32 [splits, 2, B,
-// Hkv, Skv, D], and mfa_flash_dkv_merge sums them into out0 and out1.
+// Hkv, Skv, D], and mfa_flash_dkv_merge sums them into out0 and out1.  For
+// the dQ above 576, splits: the runs of the KV axis
+// (ops/flash_attention_bwd.py::split_d_dq_splits), whose unscaled partials
+// go to ws, fp32 [splits, B, Hq, Sq, D], for mfa_split_d_dq_merge.
 int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
                    const void* ks, const void* kz, const void* vq,
                    const void* vs, const void* vz, const void* ksr,
@@ -1994,7 +1997,7 @@ int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
   if (Hkv <= 0 || Hq % Hkv || !valid_bits(bits_k) || !valid_bits(bits_v))
     return (int)cudaErrorInvalidValue;
   if (D > 576) {
-    const mfa_sd::FlashArgs fa{
+    mfa_sd::FlashArgs fa{
         q, kq, vq, dout, static_cast<const float*>(lse),
         static_cast<const float*>(di), static_cast<const int32_t*>(ranges),
         static_cast<const float*>(bias), bias_sb, bias_sh, nullptr,
@@ -2007,8 +2010,11 @@ int mfa_qflash_bwd(int dq, const void* q, const void* dout, const void* kq,
         static_cast<const float*>(dqsc), bits_k, bits_v, k_mode, v_mode, br,
         bs};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dq) return splits == 1 ? mfa_sd::launch_qdq(dtype, fa, qkv, st)
-                               : (int)cudaErrorInvalidValue;
+    if (dq) {
+      fa.splits = splits;
+      fa.ws = static_cast<float*>(ws);
+      return mfa_sd::launch_qdq(dtype, fa, qkv, st);
+    }
     return mfa_sd::launch_qdkv(dtype, fa, qkv, splits,
                                static_cast<float*>(ws), st);
   }

@@ -51,10 +51,11 @@ struct FlashArgs {
   float* out1;
   int B, Hq, Hkv, Sq, Skv, D, interleaved;
   float scale, mask_value;
-  // The forward's split of the KV axis (ops/flash_attention.py::
-  // split_d_fwd_splits, at most MAX_FWD_SPLITS): with splits > 1 each row
+  // The forward's and the dQ's split of the KV axis (ops/
+  // flash_attention.py::split_d_fwd_splits, ops/flash_attention_bwd.py::
+  // split_d_dq_splits; at most MAX_FWD_SPLITS): with splits > 1 each row
   // tile's live span is dealt into `splits` runs of whole 64-key tiles, one
-  // CTA each, whose partials go to ws (fwd_partial).
+  // CTA each, whose partials go to ws (fwd_partial, dq_partial).
   int splits = 1;
   float* ws = nullptr;
 };
@@ -70,9 +71,18 @@ __host__ __device__ inline size_t fwd_partial(size_t row, int split,
   return (row * splits + split) * (size_t)(D + 2);
 }
 
+// The dQ's partials with splits > 1: ws fp32 [splits, B * Hq, Sq, D], the
+// unscaled dQ of run `split` over row (b, h) = bh's rows (each slice its
+// own 256 lanes).
+__host__ __device__ inline size_t dq_partial(size_t bh, int split,
+                                             size_t heads, int Sq, int D) {
+  return (split * heads + bh) * (size_t)Sq * D;
+}
+
 // dtype 0 = float32, 1 = bfloat16.  Each returns the launch's cudaError_t.
 // With a.splits > 1 the forward writes only ws; mfa_split_d_fwd_merge
-// (csrc/split_d_attention.cu) then makes O and L.
+// (csrc/split_d_attention.cu) then makes O and L; the dQ likewise, then
+// mfa_split_d_dq_merge makes dQ.
 int launch_fwd(int dtype, const FlashArgs& a, cudaStream_t stream);
 int launch_dq(int dtype, const FlashArgs& a, cudaStream_t stream);
 // splits: the CTAs that share a key tile's GQA group; with splits > 1 the

@@ -8,6 +8,9 @@
 //     ops/flash_attention.py::split_d_fwd_splits, for few row tiles; the
 //     quantized forward's split merges here too)
 //   - ops/flash_attention_bwd.py::_dq_kernel     -> split_d_dq_kernel
+//     (then split_d_dq_merge_kernel where the KV axis splits:
+//     ops/flash_attention_bwd.py::split_d_dq_splits; the exact quantized
+//     dQ's split merges here too)
 //   - ops/flash_attention_bwd.py::_dkv_kernel    -> split_d_dkv_kernel
 //     (then csrc/flash_attention.cu::flash_dkv_merge_kernel where the GQA
 //     group is split); the three are split_d_frame.cuh's bodies over float
@@ -81,6 +84,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "split_d_frame.cuh"
@@ -514,6 +518,41 @@ split_d_fwd_merge_kernel(const float* __restrict__ ws, float* __restrict__ o,
   }
 }
 
+// The dQ's split partials (split_d_frame.cuh::split_d_dq, ws [splits,
+// n] for n = B * Hq * Sq * D, a multiple of 4) -> dQ: dq[i] = (ws[0][i] +
+// ws[1][i] + ...) times the lane's dqsc [B, Hkv, D] (the quantized dQ's
+// store multipliers) or `scale` (the float dQ's), the runs summed in
+// order from run 0 as the unsplit store scales the one walk's sum, with no
+// atomics, so two calls give the same bits.  Bound by ws's bytes.
+__global__ void __launch_bounds__(256)
+split_d_dq_merge_kernel(const float4* __restrict__ ws,
+                        float4* __restrict__ dq,
+                        const float* __restrict__ dqsc, float scale, int Hq,
+                        int Hkv, int Sq, int D, int interleaved, int splits,
+                        long long n4) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n4; i += (long long)gridDim.x * blockDim.x) {
+    float4 acc = ws[i];
+    for (int sp = 1; sp < splits; ++sp) {
+      const float4 x = ws[sp * n4 + i];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    float4 m = make_float4(scale, scale, scale, scale);
+    if (dqsc) {
+      const long long e = 4 * i;
+      const long long bh = e / ((long long)Sq * D);
+      const int h = (int)(bh % Hq), b = (int)(bh / Hq);
+      const int hk = interleaved ? h % Hkv : h / (Hq / Hkv);
+      m = *reinterpret_cast<const float4*>(
+          dqsc + ((size_t)b * Hkv + hk) * D + (int)(e % D));
+    }
+    dq[i] = make_float4(acc.x * m.x, acc.y * m.y, acc.z * m.z, acc.w * m.w);
+  }
+}
+
 template <typename T>
 int fwd_of(const FlashArgs& a, cudaStream_t stream) {
   const dim3 grid((a.Sq + 63) / 64, a.Hq * mfa_sd::slices(a.D),
@@ -583,8 +622,10 @@ int launch_fwd(int dtype, const FlashArgs& a, cudaStream_t stream) {
 }
 
 int launch_dq(int dtype, const FlashArgs& a, cudaStream_t stream) {
-  if (!takes(a.D)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.Sq + 63) / 64, a.Hq * slices(a.D), a.B);
+  if (!takes(a.D) || a.splits < 1 || a.splits > MAX_FWD_SPLITS ||
+      (a.splits > 1 && !a.ws))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((a.Sq + 63) / 64, a.Hq * slices(a.D), a.B * a.splits);
   if (dtype == 0)
     return mfa::launch_with_smem(split_d_dq_kernel<float>, grid, 256,
                                  Smem<64, 1>::BYTES, stream, a);
@@ -647,6 +688,39 @@ int mfa_split_d_fwd_ctas_per_sm(int dtype, int static_max) {
                ? ctas_per_sm<1>(split_d_fwd_kernel<__nv_bfloat16, true>)
                : ctas_per_sm<1>(split_d_fwd_kernel<__nv_bfloat16, false>);
   return -1;
+}
+
+// CTAs an SM the occupancy API gives split_d_dq_kernel (dkv 0) or
+// split_d_dkv_kernel (dkv 1) for dtype (0 fp32, 1 bf16); -1 for none.
+int mfa_split_d_bwd_ctas_per_sm(int dkv, int dtype) {
+  if (dtype == 0)
+    return dkv ? ctas_per_sm<2>(split_d_dkv_kernel<float>)
+               : ctas_per_sm<1>(split_d_dq_kernel<float>);
+  if (dtype == 1)
+    return dkv ? ctas_per_sm<2>(split_d_dkv_kernel<__nv_bfloat16>)
+               : ctas_per_sm<1>(split_d_dq_kernel<__nv_bfloat16>);
+  return -1;
+}
+
+// The split-D dQ's merge (split_d_dq_merge_kernel): ws fp32 [splits, B,
+// Hq, Sq, D] from mfa_flash_dq / mfa_qflash_bwd with splits > 1 -> dq fp32
+// [B, Hq, Sq, D], times dqsc fp32 [B, Hkv, D] (the quantized dQ's store
+// multipliers) where given, else times `scale`.
+int mfa_split_d_dq_merge(const void* ws, void* dq, const void* dqsc,
+                         float scale, int B, int Hq, int Hkv, int Sq, int D,
+                         int interleaved, int splits, void* stream) {
+  if (splits < 2 || splits > mfa_sd::MAX_FWD_SPLITS || Hkv <= 0 ||
+      Hq % Hkv || B <= 0 || Sq <= 0 || D <= 0 || D % 4)
+    return (int)cudaErrorInvalidValue;
+  const long long n4 = (long long)B * Hq * Sq * D / 4;
+  // Grid-stride: at most 8 blocks for each of an H100's 132 SMs.
+  const int blocks = (int)std::min<long long>((n4 + 255) / 256, 132 * 8);
+  split_d_dq_merge_kernel<<<blocks, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(ws), static_cast<float4*>(dq),
+      static_cast<const float*>(dqsc), scale, Hq, Hkv, Sq, D, interleaved,
+      splits, n4);
+  return (int)cudaGetLastError();
 }
 
 // The split-D forward's merge (split_d_fwd_merge_kernel): ws fp32 [B * Hq *

@@ -284,6 +284,35 @@ struct Payload {
 struct RingPayload : Payload {
   static constexpr bool RAW = true;
   static constexpr bool WIDEN = true;
+  static constexpr bool RESIDENT = false;
+};
+
+// A RingPayload whose TILE rows' raw bytes are resident in shared memory
+// (res, `ld` bytes a row, loaded once by the caller): the scores' ring
+// copies nothing for it and widens each chunk from there.  The dK/dV's K,
+// whose 64 keys every q head and row step of the CTA reads again.
+struct ResidentPayload : RingPayload {
+  static constexpr bool RESIDENT = true;
+  const uint8_t* res;
+  int ld;
+  // The eight raw bytes that hold lanes [l, l + 8) of row r.
+  __device__ __forceinline__ uint2 raw8(int r, int l) const {
+    bool high;
+    return *reinterpret_cast<const uint2*>(res + r * ld +
+                                           byte_of_lane(l, high));
+  }
+  // Rows [0, TILE) of the payload into res by cp.async (zeros from
+  // `limit`), committed as one group.
+  template <int NTH>
+  __device__ __forceinline__ void load(uint8_t* dst) const {
+    for (int i = threadIdx.x; i < TILE * (ld / 16); i += NTH) {
+      const int r = i / (ld / 16), p = 16 * (i % (ld / 16));
+      const bool ok = t0 + r < limit;
+      mfa::cp_async16(dst + r * ld + p, ok ? row(r) + p : op.pay,
+                      ok ? 16 : 0);
+    }
+    mfa::cp_async_commit();
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -387,14 +416,19 @@ __device__ __forceinline__ void issue_chunk(const SRC& src, uint8_t* dst,
 // (bf16 rows, ASYNC; int8 rows, RAW) and B does too or is a payload of
 // whole rows (WIDEN: its raw bytes land, then widen into the operand as
 // operator() / word() would give it): two bf16 rows (the flash kernels;
-// Q's scale applied to the fragments as they are read), a bf16 Q over a
-// payload, an int8 Q over a payload or int8 rows (the full-integer pair);
-// the other sources (the quantized page pools, the exact backward's
-// payloads, int4 rows that are not whole 16-byte pieces) are staged as
-// above, to the same operand bits.  The order of the sums depends on
-// nothing but the lanes, so every slice's CTA gets the same bits.  Ends
-// with a barrier, so the caller may restage either buffer.
-template <typename T, int RT, typename SA, typename SB>
+// Q's scale applied to the fragments as they are read), a bf16 Q (or dO)
+// over a payload (the quantized forward, the exact dQ and dK/dV; a
+// ResidentPayload's bytes are in shared memory already and only widen),
+// an int8 Q over a payload or int8 rows (the full-integer pair); the other
+// sources (the quantized page pools, int4 rows that are not whole 16-byte
+// pieces) are staged as above, to the same operand bits.  The order of
+// the sums depends on nothing but the lanes, so every slice's CTA gets
+// the same bits.  Ends with a barrier, so the caller may restage either
+// buffer.  TR (T = bf16,
+// RT = TILE): the transpose is read back, s[i][j] = a(tx + 16 j) .
+// b(4 ty + i): the dK/dV's S^T and dP^T with the payload on the B side,
+// where the ring takes it.
+template <typename T, int RT, bool TR = false, typename SA, typename SB>
 __device__ __forceinline__ void scores(int nch, float* bufa, float* bufb,
                                        float* sbuf, const SA& sa,
                                        const SB& sb, int ty, int tx,
@@ -403,6 +437,7 @@ __device__ __forceinline__ void scores(int nch, float* bufa, float* bufb,
   constexpr int PR = DC / 4;  // four-lane pieces a chunk row
   constexpr bool S8 = std::is_same<T, int8_t>::value;
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value || S8;
+  static_assert(!TR || TC, "the transpose is read back from sbuf");
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -440,17 +475,24 @@ __device__ __forceinline__ void scores(int nch, float* bufa, float* bufb,
       static_assert(NTH == TILE * 4, "one widened piece a thread");
       uint8_t* raw = rb;
       uint8_t* wb = rb + NS * TILE * 32;
+      constexpr bool RES = SB::RESIDENT;
       const auto issue = [&](int c) {
         issue_chunk<NTH>(sa, ra + (c % NS) * RT * CRB, RT, c * DC);
-        for (int i = threadIdx.x; i < TILE * 2; i += NTH)
-          sb.copy16(i >> 1, c * DC + 16 * (i & 1),
-                    raw + (c % NS) * TILE * 32 + 16 * i);
+        if constexpr (!RES)
+          for (int i = threadIdx.x; i < TILE * 2; i += NTH)
+            sb.copy16(i >> 1, c * DC + 16 * (i & 1),
+                      raw + (c % NS) * TILE * 32 + 16 * i);
       };
       const int wr = threadIdx.x >> 2, wq = 8 * (threadIdx.x & 3);
       const auto tk = sb.token(wr);
       const auto widen = [&](int c) {
-        const uint2 v = *reinterpret_cast<const uint2*>(
-            raw + (c % NS) * TILE * 32 + wr * 32 + wq);
+        uint2 v;
+        if constexpr (RES)
+          v = c * DC + wq < sb.D ? sb.raw8(wr, c * DC + wq)
+                                 : make_uint2(0u, 0u);
+        else
+          v = *reinterpret_cast<const uint2*>(
+              raw + (c % NS) * TILE * 32 + wr * 32 + wq);
         uint8_t* w = wb + (c & 1) * TILE * CRB + wr * CRB;
         if constexpr (S8)
           *reinterpret_cast<uint2*>(w + wq) = sb.ints8(v, wr, c * DC + wq);
@@ -553,14 +595,25 @@ __device__ __forceinline__ void scores(int nch, float* bufa, float* bufb,
       sbuf[(col + 1) * (RT + 4) + row + 8] = acc[j][3];
     }
     __syncthreads();
+    if constexpr (TR) {
+      // Column 4 ty + i of the exchange tile from row tx + 16 j: the two
+      // ty of a warp 4 (RT + 4) floats apart, 16 banks, so 32 distinct.
+      static_assert(RT == TILE, "the transpose of a square tile");
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          sbuf + (tx + 16 * j) * (RT + 4) + 4 * ty);
-      s[0][j] = v.x;
-      s[1][j] = v.y;
-      s[2][j] = v.z;
-      s[3][j] = v.w;
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[i][j] = sbuf[(4 * ty + i) * (RT + 4) + tx + 16 * j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            sbuf + (tx + 16 * j) * (RT + 4) + 4 * ty);
+        s[0][j] = v.x;
+        s[1][j] = v.y;
+        s[2][j] = v.z;
+        s[3][j] = v.w;
+      }
     }
     // The next call writes sbuf only after a barrier of its chunk loop,
     // which every thread reaches after these reads.
@@ -918,20 +971,24 @@ struct FloatKV {
 
 // The exact quantized kernels' K and V: the payloads at FlashArgs::k / v,
 // staged as q's modes say (Payload; T's staging rounds them), and the dQ's
-// folds (ksr, vsr, dqsc).
+// folds (ksr, vsr, dqsc).  RING: both payloads are whole 16-byte rows,
+// read through the raw path (RingPayload), as QuantFwd<.., true> reads
+// the forward's.
+template <bool RING>
 struct PayloadKV {
   static constexpr bool QUANT = true;
+  using Src = typename std::conditional<RING, RingPayload, Payload>::type;
   mfa_sd::QuantKV q;
-  __device__ __forceinline__ Payload rows(const FlashArgs& a, bool is_v,
-                                          size_t bk, int t0,
-                                          int limit) const {
-    if (is_v)
-      return Payload{{static_cast<const uint8_t*>(a.v), q.vs, q.vz, q.bits_v,
-                      q.v_mode},
-                     bk, a.Skv, a.D, q.br, q.bs, t0, limit, false};
-    return Payload{{static_cast<const uint8_t*>(a.k), q.ks, q.kz, q.bits_k,
-                    q.k_mode},
-                   bk, a.Skv, a.D, q.br, q.bs, t0, limit, false};
+  __device__ __forceinline__ Src rows(const FlashArgs& a, bool is_v,
+                                      size_t bk, int t0, int limit) const {
+    const Payload p =
+        is_v ? Payload{{static_cast<const uint8_t*>(a.v), q.vs, q.vz,
+                        q.bits_v, q.v_mode},
+                       bk, a.Skv, a.D, q.br, q.bs, t0, limit, false}
+             : Payload{{static_cast<const uint8_t*>(a.k), q.ks, q.kz,
+                        q.bits_k, q.k_mode},
+                       bk, a.Skv, a.D, q.br, q.bs, t0, limit, false};
+    return Src{p};
   }
 };
 
@@ -1260,16 +1317,36 @@ __device__ __forceinline__ void split_d_fwd(const SRC& src) {
 // stored times dqsc (attention_bwd.cuh::dq_body's order of operations).
 // The body of split_d_attention.cu::split_d_dq_kernel and
 // split_d_quantized_bwd.cu::split_d_qdq_kernel.
+//
+// A payload of whole rows (KV's rows are RingPayload) lands through the
+// raw path, as the forward's does: the scores' ring (Q and dO by cp.async,
+// K and V as raw bytes widened a chunk ahead), and K's slice issued raw at
+// the start of the tile into the P region (idle under both scores),
+// widened after them, with the score tile in the A region.
+//
+// The KV split (a.splits > 1: grid z is b x run): the row tile's live
+// span is dealt into a.splits runs of whole 64-key tiles, one CTA each, as
+// split_d_fwd deals it; each writes its unscaled partial dQ to a.ws
+// (mfa_sd::dq_partial) for split_d_attention.cu::split_d_dq_merge_kernel,
+// which sums the runs in order and applies dqsc or the scale.  A run of no
+// key writes zeros.  dbias: slice 0 of each run, its own columns.
 template <typename T, typename KV>
 __device__ __forceinline__ void split_d_dq(const FlashArgs& a, const KV& kv) {
   using L = Smem<64, 1>;
+  using P = PV<T, 64>;
+  using KSrc = decltype(kv.rows(a, false, 0, 0, 0));
+  constexpr bool RAW_K = P::TC && KSrc::RAW;
+  static_assert(!RAW_K || TILE * SLICE <= L::SC * 4 - L::P * 4,
+                "the raw K slice fits the P region");
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_lo, s_hi;
   const int nsl = mfa_sd::slices(a.D);
   const int r0 = (gridDim.x - 1 - blockIdx.x) * 64;
   const int h = blockIdx.y / nsl;
   const int l0 = (blockIdx.y % nsl) * SLICE;
-  const int b = blockIdx.z;
+  const int splits = a.splits;
+  const int b = blockIdx.z / splits;
+  const int sp = blockIdx.z % splits;
   const int hk = a.interleaved ? h % a.Hkv : h / (a.Hq / a.Hkv);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int Sq = a.Sq, Skv = a.Skv, D = a.D;
@@ -1288,8 +1365,8 @@ __device__ __forceinline__ void split_d_dq(const FlashArgs& a, const KV& kv) {
     dqsc = kv.q.dqsc ? kv.q.dqsc + bk * D : nullptr;
   }
   float* dbias = l0 == 0 ? a.out1 : nullptr;
-  using P = PV<T, 64>;
-  float* pt = smem + L::P;
+  float* pt = smem + (RAW_K ? L::A : L::P);
+  uint8_t* raw_k = reinterpret_cast<uint8_t*>(smem + L::P);
 
   mfa::key_span(a.ranges, r0, Sq, Skv, &s_lo, &s_hi);
   const int c_lo = s_lo, c_hi = s_hi;
@@ -1308,10 +1385,17 @@ __device__ __forceinline__ void split_d_dq(const FlashArgs& a, const KV& kv) {
   const int nch = (D + DC - 1) / DC;
   const Rows<T, true> qsrc{qh, r0, Sq, D, a.scale};
   const Rows<T, false> dosrc{doh, r0, Sq, D, 0.f};
+  // This run's tiles of the span (all of them at one run).
+  const int tiles = c_hi > c_lo ? (c_hi - c_lo + TILE - 1) / TILE : 0;
+  const int per = (tiles + splits - 1) / splits;
+  const int t_end = min(c_lo + (sp + 1) * per * TILE, c_hi);
 
-  for (int t0 = c_lo; t0 < c_hi; t0 += TILE) {
+  for (int t0 = c_lo + sp * per * TILE; t0 < t_end; t0 += TILE) {
     const auto ksrc = kv.rows(a, false, bk, t0, c_hi);
-    P::fetch(ksrc, l0, smem + L::H);
+    if constexpr (RAW_K)
+      P::fetch_raw(ksrc, l0, raw_k);
+    else
+      P::fetch(ksrc, l0, smem + L::H);
     float s[4][4], dp[4][4], kcol[4];
     scores<T, 64>(nch, smem + L::A, smem + L::B, smem + L::S, qsrc, ksrc, ty,
                   tx, s);
@@ -1349,9 +1433,21 @@ __device__ __forceinline__ void split_d_dq(const FlashArgs& a, const KV& kv) {
       }
     }
     P::store(pt, ty, tx, s);
-    P::slice(pt, ksrc, l0, D, smem + L::H, nullptr, ty, tx, acc);
+    if constexpr (RAW_K)
+      P::slice_raw(pt, ksrc, l0, raw_k, smem + L::H, nullptr, acc);
+    else
+      P::slice(pt, ksrc, l0, D, smem + L::H, nullptr, ty, tx, acc);
   }
 
+  if (splits > 1) {  // the partial; split_d_dq_merge_kernel scales it
+    float* part = a.ws + mfa_sd::dq_partial(bh, sp, a.B * a.Hq, Sq, D);
+    P::each(acc, ty, tx, [&](int r, int d, float v0, float v1) {
+      if (r0 + r < Sq && l0 + d < D)
+        *reinterpret_cast<float2*>(part + (size_t)(r0 + r) * D + l0 + d) =
+            make_float2(v0, v1);
+    });
+    return;
+  }
   P::each(acc, ty, tx, [&](int r, int d, float v0, float v1) {
     if (r0 + r < Sq && l0 + d < D)
       *reinterpret_cast<float2*>(a.out0 + (bh * Sq + r0 + r) * D + l0 + d) =
@@ -1376,10 +1472,23 @@ __device__ __forceinline__ void split_d_dq(const FlashArgs& a, const KV& kv) {
 // Hkv, Skv, D], which flash_dkv_merge_kernel sums.  The body of
 // split_d_attention.cu::split_d_dkv_kernel and
 // split_d_quantized_bwd.cu::split_d_qdkv_kernel.
-template <typename T, typename KV>
+//
+// A payload of whole rows (KV's rows are RingPayload) would be the A
+// operand of S^T and dP^T, which the ring does not widen; the scores run
+// as S = Q_s.K^T and dP = dO.V^T instead, the payload on the B side of the
+// widening ring (Q_s and dO by cp.async, K and V as raw bytes), and the
+// transpose is read back from the square exchange tile (scores' TR): the
+// same products, summed in the same chunk order.  RES_K (with the ring):
+// the CTA's 64 raw K rows stay resident in shared memory past Smem<64, 2>
+// (kv_resident_bytes), loaded once and widened from there for every q
+// head and row step.
+template <typename T, typename KV, bool RES_K = false>
 __device__ __forceinline__ void split_d_dkv(const FlashArgs& a, const KV& kv,
                                             int splits, float* ws) {
   using L = Smem<64, 2>;
+  using KSrc = decltype(kv.rows(a, false, 0, 0, 0));
+  constexpr bool SWAP = std::is_same<T, __nv_bfloat16>::value && KSrc::WIDEN;
+  static_assert(!RES_K || SWAP, "a resident K rides the ring");
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_rmin, s_rmax;
   const int nsl = mfa_sd::slices(a.D);
@@ -1409,8 +1518,21 @@ __device__ __forceinline__ void split_d_dkv(const FlashArgs& a, const KV& kv,
   P::zero(dk);
   P::zero(dv);
   const int nch = (D + DC - 1) / DC;
-  const auto ksrc = kv.rows(a, false, bk, c0, Skv);
   const auto vsrc = kv.rows(a, true, bk, c0, Skv);
+  const auto ksrc = [&] {
+    if constexpr (RES_K) {
+      const KSrc k = kv.rows(a, false, bk, c0, Skv);
+      const ResidentPayload r{k, reinterpret_cast<const uint8_t*>(
+                                     smem + L::BYTES / 4),
+                              k.op.bits == 8 ? D : D / 2};
+      r.template load<256>(reinterpret_cast<uint8_t*>(smem + L::BYTES / 4));
+      mfa::cp_async_wait<0>();
+      __syncthreads();
+      return r;
+    } else {
+      return kv.rows(a, false, bk, c0, Skv);
+    }
+  }();
 
   for (int g = g_lo; g < g_hi; ++g) {
     const int h = a.interleaved ? g * a.Hkv + hk : hk * group + g;
@@ -1435,8 +1557,12 @@ __device__ __forceinline__ void split_d_dkv(const FlashArgs& a, const KV& kv,
       P::fetch(dosrc, l0, h_do);
       P::fetch(qsrc, l0, h_q);
       float p[4][4], ds[4][4];  // [key i][query j]
-      scores<T, 64>(nch, smem + L::A, smem + L::B, smem + L::S, ksrc,
-                    qsrc, ty, tx, p);
+      if constexpr (SWAP)
+        scores<T, 64, true>(nch, smem + L::A, smem + L::B, smem + L::S,
+                            qsrc, ksrc, ty, tx, p);
+      else
+        scores<T, 64>(nch, smem + L::A, smem + L::B, smem + L::S, ksrc,
+                      qsrc, ty, tx, p);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = c0 + 4 * ty + i;
@@ -1449,8 +1575,12 @@ __device__ __forceinline__ void split_d_dkv(const FlashArgs& a, const KV& kv,
           p[i][j] = (col < rs[j] || col >= re[j]) ? 0.f : expf(sv - lcol[j]);
         }
       }
-      scores<T, 64>(nch, smem + L::A, smem + L::B, smem + L::S, vsrc,
-                    dosrc, ty, tx, ds);
+      if constexpr (SWAP)
+        scores<T, 64, true>(nch, smem + L::A, smem + L::B, smem + L::S,
+                            dosrc, vsrc, ty, tx, ds);
+      else
+        scores<T, 64>(nch, smem + L::A, smem + L::B, smem + L::S, vsrc,
+                      dosrc, ty, tx, ds);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1481,14 +1611,21 @@ __device__ __forceinline__ void split_d_dkv(const FlashArgs& a, const KV& kv,
   });
 }
 
+// Bytes of shared memory the resident K of split_d_dkv<.., RES_K> takes
+// past Smem<64, 2>: its 64 raw rows.
+__host__ __device__ inline size_t kv_resident_bytes(int bits, int D) {
+  return (size_t)TILE * (bits == 8 ? D : D / 2);
+}
+
 // CTAs an SM the occupancy API gives a split-D kernel of 256 threads
-// with Smem<64, NP>'s shared memory (-1 where the API fails).
+// with Smem<64, NP>'s shared memory and `extra` bytes more (-1 where the
+// API fails).
 template <int NP, typename K>
-int ctas_per_sm(K kern) {
+int ctas_per_sm(K kern, size_t extra = 0) {
+  const size_t bytes = Smem<64, NP>::BYTES + extra;
   int n = 0;
-  if (mfa::set_smem(kern, Smem<64, NP>::BYTES) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, 256,
-                                                    Smem<64, NP>::BYTES) !=
+  if (mfa::set_smem(kern, bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, 256, bytes) !=
           cudaSuccess)
     return -1;
   return n;

@@ -5,7 +5,10 @@
 // Replaces (TPU kernels of metal_flash_attention_plus_tpu,
 // ops/flash_attention_bwd.py) above D = 576:
 //   - _dq_kernel, quantized modes  -> split_d_qdq_kernel (the frame's dQ
-//                                     body over PayloadKV)
+//                                     body over PayloadKV; then
+//                                     split_d_attention.cu's
+//                                     split_d_dq_merge_kernel where the
+//                                     KV axis splits)
 //   - _dkv_kernel, quantized modes -> split_d_qdkv_kernel (its dK/dV body)
 //                                     (then flash_attention.cu's
 //                                     flash_dkv_merge_kernel)
@@ -20,7 +23,19 @@
 // as they stage, or the integers for the folded dQ, rounded to T by the
 // staging bit for bit with dequant_rows_bf16), the folded dQ's per-token
 // column scales (ksr on S and dS, vsr on dP) and its store multipliers
-// (dqsc), in attention_bwd.cuh::dq_body's order.
+// (dqsc), in attention_bwd.cuh::dq_body's order.  Whole payload rows (int8;
+// int4 where D is a multiple of 32) under a bf16 Q take the raw path
+// (PayloadKV<true>): their raw bytes land through the scores' cp.async
+// ring and widen a chunk ahead, as the quantized forward's do; the dQ's K
+// slice lands raw under the scores; the dK/dV computes S and dP with the
+// payload on the ring's B side and reads their transposes back, its 64
+// keys' raw K rows resident in shared memory past Smem<64, 2> where they
+// fit (rows of up to 1,104 bytes: int8 to D = 1104, int4 to 2208), which
+// saves each q head and row step their copies (7% of the kernel's time
+// at D = 640 and 1024 on an H100).  The dQ's
+// KV axis splits where few row tiles leave SMs idle
+// (ops/flash_attention_bwd.py::split_d_dq_splits), its runs merged by
+// split_d_attention.cu::split_d_dq_merge_kernel.
 //
 // The full-integer pair (csrc/quantized_attention_bwd.cu's file comment has
 // its numerics; the plain versions are ops/flash_attention_bwd.py's
@@ -60,6 +75,7 @@ namespace {
 using mfa::row_max16;
 using mfa::rowquant;
 using mfa_sd::FullintArgs;
+using mfa_sd::QuantKV;
 
 // int8 rows of head `head` of a [.., n, D] tensor from row r0, zeros from
 // `limit`.
@@ -303,36 +319,68 @@ split_d_fullint_dkv_kernel(const FullintArgs a, int splits, float* ws) {
 }
 
 // Replaces _dq_kernel's quantized modes above D = 576 (the body:
-// split_d_frame.cuh::split_d_dq over PayloadKV).
-template <typename T>
+// split_d_frame.cuh::split_d_dq over PayloadKV; RING: whole payload rows
+// through the raw path, bf16 only).
+template <typename T, bool RING>
 __global__ void __launch_bounds__(256)
-split_d_qdq_kernel(const FlashArgs a, const PayloadKV kv) {
+split_d_qdq_kernel(const FlashArgs a, const PayloadKV<RING> kv) {
   split_d_dq<T>(a, kv);
 }
 
 // Replaces _dkv_kernel's quantized modes above D = 576 (the body:
-// split_d_frame.cuh::split_d_dkv over PayloadKV).
-template <typename T>
+// split_d_frame.cuh::split_d_dkv over PayloadKV; RING as above; RES_K: K's
+// 64 raw rows resident in shared memory past Smem<64, 2>).
+template <typename T, bool RING, bool RES_K = false>
 __global__ void __launch_bounds__(256)
-split_d_qdkv_kernel(const FlashArgs a, const PayloadKV kv, int splits,
+split_d_qdkv_kernel(const FlashArgs a, const PayloadKV<RING> kv, int splits,
                     float* ws) {
-  split_d_dkv<T>(a, kv, splits, ws);
+  split_d_dkv<T, PayloadKV<RING>, RES_K>(a, kv, splits, ws);
+}
+
+// The shared memory a CTA may have (an H100's 232,448 bytes).
+constexpr size_t SMEM_OPTIN = 232448;
+
+// Whether both payloads are whole 16-byte rows (int8; int4 where D is a
+// multiple of 32), which a bf16 Q reads through the raw path: the forward's
+// test (split_d_quantized.cu::qattn_of).
+bool ring_rows(const FlashArgs& a, const QuantKV& q) {
+  return a.D % 32 == 0 || (q.bits_k == 8 && q.bits_v == 8);
 }
 
 template <typename T>
-int qdq_of(const FlashArgs& a, const PayloadKV& kv, cudaStream_t stream) {
-  const dim3 grid((a.Sq + 63) / 64, a.Hq * mfa_sd::slices(a.D), a.B);
-  return mfa::launch_with_smem(split_d_qdq_kernel<T>, grid, 256,
-                               Smem<64, 1>::BYTES, stream, a, kv);
+int qdq_of(const FlashArgs& a, const QuantKV& q, cudaStream_t stream) {
+  const dim3 grid((a.Sq + 63) / 64, a.Hq * mfa_sd::slices(a.D),
+                  a.B * a.splits);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    if (ring_rows(a, q))
+      return mfa::launch_with_smem(split_d_qdq_kernel<T, true>, grid, 256,
+                                   Smem<64, 1>::BYTES, stream, a,
+                                   PayloadKV<true>{q});
+  return mfa::launch_with_smem(split_d_qdq_kernel<T, false>, grid, 256,
+                               Smem<64, 1>::BYTES, stream, a,
+                               PayloadKV<false>{q});
 }
 
 template <typename T>
-int qdkv_of(const FlashArgs& a, const PayloadKV& kv, int splits, float* ws,
+int qdkv_of(const FlashArgs& a, const QuantKV& q, int splits, float* ws,
             cudaStream_t stream) {
   const dim3 grid((a.Skv + 63) / 64, a.Hkv * mfa_sd::slices(a.D),
                   a.B * splits);
-  return mfa::launch_with_smem(split_d_qdkv_kernel<T>, grid, 256,
-                               Smem<64, 2>::BYTES, stream, a, kv, splits, ws);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    if (ring_rows(a, q)) {
+      const size_t res = Smem<64, 2>::BYTES + kv_resident_bytes(q.bits_k,
+                                                                a.D);
+      if (res <= SMEM_OPTIN)
+        return mfa::launch_with_smem(split_d_qdkv_kernel<T, true, true>,
+                                     grid, 256, res, stream, a,
+                                     PayloadKV<true>{q}, splits, ws);
+      return mfa::launch_with_smem(split_d_qdkv_kernel<T, true>, grid, 256,
+                                   Smem<64, 2>::BYTES, stream, a,
+                                   PayloadKV<true>{q}, splits, ws);
+    }
+  return mfa::launch_with_smem(split_d_qdkv_kernel<T, false>, grid, 256,
+                               Smem<64, 2>::BYTES, stream, a,
+                               PayloadKV<false>{q}, splits, ws);
 }
 
 template <bool L2>
@@ -356,9 +404,11 @@ namespace mfa_sd {
 
 int launch_qdq(int dtype, const FlashArgs& a, const QuantKV& kv,
                cudaStream_t stream) {
-  if (!takes(a.D)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return qdq_of<float>(a, PayloadKV{kv}, stream);
-  if (dtype == 1) return qdq_of<__nv_bfloat16>(a, PayloadKV{kv}, stream);
+  if (!takes(a.D) || a.splits < 1 || a.splits > MAX_FWD_SPLITS ||
+      (a.splits > 1 && !a.ws))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return qdq_of<float>(a, kv, stream);
+  if (dtype == 1) return qdq_of<__nv_bfloat16>(a, kv, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -367,10 +417,8 @@ int launch_qdkv(int dtype, const FlashArgs& a, const QuantKV& kv, int splits,
   if (!takes(a.D) || splits < 1 || splits > a.Hq / a.Hkv ||
       (splits > 1 && !ws))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return qdkv_of<float>(a, PayloadKV{kv}, splits, ws, stream);
-  if (dtype == 1)
-    return qdkv_of<__nv_bfloat16>(a, PayloadKV{kv}, splits, ws, stream);
+  if (dtype == 0) return qdkv_of<float>(a, kv, splits, ws, stream);
+  if (dtype == 1) return qdkv_of<__nv_bfloat16>(a, kv, splits, ws, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -384,3 +432,29 @@ int launch_fullint(bool dq, const FullintArgs& a, int splits, float* ws,
 }
 
 }  // namespace mfa_sd
+
+extern "C" {
+
+// CTAs an SM the occupancy API gives split_d_qdq_kernel (dkv 0) or
+// split_d_qdkv_kernel (dkv 1) for dtype (0 fp32, 1 bf16) and ring (0 the
+// staged payloads, 1 the raw path: bf16 only; 2 the dK/dV's raw path with
+// K resident, at head dim D for an int8 K); -1 for none.
+int mfa_split_d_qbwd_ctas_per_sm(int dkv, int dtype, int ring, int D) {
+  if (ring < 0 || ring > 2 || (ring == 2 && !dkv)) return -1;
+  if (dtype == 0)
+    return ring ? -1
+           : dkv ? ctas_per_sm<2>(split_d_qdkv_kernel<float, false>)
+                 : ctas_per_sm<1>(split_d_qdq_kernel<float, false>);
+  if (dtype != 1) return -1;
+  using B16 = __nv_bfloat16;
+  if (ring == 2)
+    return ctas_per_sm<2>(split_d_qdkv_kernel<B16, true, true>,
+                          kv_resident_bytes(8, D));
+  if (dkv)
+    return ring ? ctas_per_sm<2>(split_d_qdkv_kernel<B16, true>)
+                : ctas_per_sm<2>(split_d_qdkv_kernel<B16, false>);
+  return ring ? ctas_per_sm<1>(split_d_qdq_kernel<B16, true>)
+              : ctas_per_sm<1>(split_d_qdq_kernel<B16, false>);
+}
+
+}  // extern "C"

@@ -12,7 +12,9 @@ disjoint outputs, so no atomics:
   ``qflash_dq_wide_kernel`` at MLA's 288, ``flash_dq_latent_kernel`` and
   ``qflash_dq_latent_kernel`` at DeepSeek's 576); fp32 the scalar body
   (:func:`dq_body`); above 576 both dtypes ``split_d_dq_kernel``
-  (``csrc/split_d_attention.cu``: dQ's lanes split over CTAs).
+  (``csrc/split_d_attention.cu``: dQ's lanes split over CTAs; where few
+  row tiles leave SMs idle, :func:`split_d_dq_splits` runs of the KV axis,
+  whose partials :func:`merge_dq_splits` sums).
 - :func:`flash_dkv` → ``flash_dkv_kernel`` (TPU ``_dkv_kernel``): per key
   tile, walks the GQA group's q heads × the live query rows, dV += Pᵀ·dO,
   dK += dSᵀ·Q_s; the group reduction happens inside the kernel.  Its bf16
@@ -31,7 +33,9 @@ disjoint outputs, so no atomics:
   kernels' quantized modes), the same two bodies with K/V staged from their
   payloads; above 576 ``split_d_qdq_kernel`` and ``split_d_qdkv_kernel``
   (``csrc/split_d_quantized_bwd.cu``: the split-D dQ and dK/dV bodies
-  over the payloads).  dK/dV are gradients with respect to the DEQUANTIZED
+  over the payloads, whole payload rows under a bf16 Q through a cp.async
+  ring of their raw bytes; the dQ's KV split as the float dQ's).  dK/dV
+  are gradients with respect to the DEQUANTIZED
   K/V.  The mode selection is the JAX package's: BLOCK_2D dequantizes in both
   kernels; the folded mode (a non-fp32 Q, SYMMETRIC TENSOR / CHANNEL / ROW
   K and V) runs dQ over the integers with TENSOR / CHANNEL K scales folded
@@ -94,6 +98,8 @@ from metal_flash_attention_plus_tpu_torch.ops.flash_attention import (
     pad_lanes,
     range_mask,
     row_ranges_tensor,
+    split_d_fwd_runs,
+    split_d_fwd_splits,
     split_d_slices,
     stream_of,
 )
@@ -130,8 +136,11 @@ _PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # q, k, v, dO, L, D, ranges, bias | bias strides | two outputs | ints | scale
 _BWD_ARGS = ([_PTR] * 8 + [_I64, _I64] + [_PTR, _PTR] + [_I32] * 8
              + [_F32, _PTR])
-# The same | splits, workspace | stream
+# The same | splits, workspace | stream (the dQ and the dK/dV)
 _DKV_ARGS = _BWD_ARGS[:-1] + [_I32, _PTR, _PTR]
+# workspace, dQ, dqsc | scale | B, Hq, Hkv, Sq, D, interleaved, splits |
+# stream
+_MERGE_DQ_ARGS = [_PTR] * 3 + [_F32] + [_I32] * 7 + [_PTR]
 # workspace, dK, dV | splits | elements of dK | stream
 _MERGE_ARGS = [_PTR] * 3 + [_I32, _I64, _PTR]
 # dq | q, dO, K (payload, scale, zp), V (same), ksr, vsr, dqsc, L, D,
@@ -194,14 +203,28 @@ def _probabilities(q, k, v, do, lse, di, row_ranges, bias, scale,
     return qs, kx, dof, p, ds
 
 
+def _dq_runs(dsk, k, row_ranges, splits, mult):
+    """dQ = round_T(dS')·K × ``mult``: in one product, or with ``splits``
+    > 1 the split-D dQ's runs of the KV axis (:func:`split_d_fwd_runs`,
+    unaligned), each run's product over its own keys, merged by
+    :func:`merge_dq_splits_plain`."""
+    if splits == 1:
+        return (dsk @ k) * mult
+    run = split_d_fwd_runs(row_ranges, k.shape[-2], splits, aligned=False)
+    ws = torch.stack([torch.where(run == sp, dsk, 0.0) @ k
+                      for sp in range(splits)])
+    return merge_dq_splits_plain(ws, mult)
+
+
 def flash_attention_dq_plain(
     q, k, v, do, lse, di, row_ranges, *, bias=None, scale,
-    interleaved_kv=False, want_dbias=False,
+    interleaved_kv=False, want_dbias=False, splits=1,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of :func:`flash_dq`."""
+    """Plain PyTorch version of :func:`flash_dq`; ``splits`` > 1: the
+    split-D kernel's runs of the KV axis, merged."""
     _, kx, _, _, ds = _probabilities(q, k, v, do, lse, di, row_ranges, bias,
                                      scale, interleaved_kv)
-    dq = (ds.to(k.dtype).float() @ kx) * scale
+    dq = _dq_runs(ds.to(k.dtype).float(), kx, row_ranges, splits, scale)
     return dq, (ds if want_dbias else None)
 
 
@@ -297,9 +320,84 @@ def dkv_splits(dtype: torch.dtype, d: int, batch: int, q_heads: int,
     return -(-group // per)
 
 
+def split_d_dq_splits(d: int, batch: int, q_heads: int, seq_q: int,
+                      seq_kv: int, sms: int) -> int:
+    """How many runs the split-D dQ (``split_d_dq_kernel``,
+    ``split_d_qdq_kernel``) deals each row tile's key span into, from
+    shapes alone: the forward's plan (:func:`split_d_fwd_splits`: 1 unless
+    the grid leaves SMs idle, then runs of at least 16 key tiles for two
+    CTAs an SM, at most 64; 1 at or below 576), which the dQ walks as the
+    float forward does (:func:`split_d_fwd_runs`, unaligned).  Perceiver
+    IO's cross-attention (512 latents of 1024, one head, 50,176 keys: 32
+    CTAs, 784 tiles) takes 8 runs of 98 tiles on 132 SMs; the trio (B=2,
+    16 heads, S=2048: 4,096 CTAs) 1.  One CTA runs on an SM at a time (its
+    registers): at Perceiver IO ``utils/profiling.py --dq-splits`` timed
+    4, 8 and 16 runs within 2% of each other, float and quantized, and 1
+    and 2 runs 4.0× and 2.0× slower on an H100."""
+    return split_d_fwd_splits(d, batch, q_heads, seq_q, seq_kv, sms)
+
+
+def split_d_dq_workspace(shape, splits: int,
+                         device) -> Optional[torch.Tensor]:
+    """The split-D dQ's partials fp32 [splits, B, Hq, Sq, D] for a dQ of
+    ``shape`` [B, Hq, Sq, D] (at the kernel width), or None at one run."""
+    if splits == 1:
+        return None
+    return torch.empty((splits,) + tuple(shape), dtype=torch.float32,
+                       device=device)
+
+
+def merge_dq_splits_plain(ws: torch.Tensor, mult) -> torch.Tensor:
+    """Plain PyTorch version of :func:`merge_dq_splits`: ``ws`` fp32
+    [splits, B, Hq, Sq, D] summed in run order from run 0, then times
+    ``mult`` (the scale, or the store multipliers broadcast to [B, Hq, 1,
+    D]): the kernel's order, so the two agree bit for bit."""
+    acc = ws[0].clone()
+    for part in ws[1:]:
+        acc += part
+    return acc * mult
+
+
+def merge_dq_splits(ws: torch.Tensor, dq: torch.Tensor, *, kv_heads: int,
+                    interleaved_kv: bool = False,
+                    dqsc: Optional[torch.Tensor] = None,
+                    scale: float = 1.0) -> None:
+    """dq (fp32 [B, Hq, Sq, D]) = the split-D dQ's partials ``ws`` fp32
+    [splits, B, Hq, Sq, D] summed in run order, times ``dqsc`` fp32
+    [B, Hkv, D] (the quantized dQ's store multipliers, by the GQA map of
+    ``kv_heads`` and ``interleaved_kv``) or ``scale``, in place
+    (``csrc/split_d_attention.cu::split_d_dq_merge_kernel``: no atomics, so
+    two calls agree bit for bit).  CPU tensors take
+    :func:`merge_dq_splits_plain`."""
+    b, hq, sq, d = dq.shape
+    if ws.device.type == "cpu":
+        mult = (scale if dqsc is None else _expand_kv_heads(
+            dqsc[:, :, None], hq, interleaved_kv))
+        dq.copy_(merge_dq_splits_plain(ws, mult))
+        return
+    if (ws.dtype != torch.float32 or not ws.is_contiguous()
+            or ws.dim() != 5 or ws.shape[1:] != dq.shape or d % 4
+            or (dqsc is not None and dqsc.shape != (b, kv_heads, d))
+            or any(t.dtype != torch.float32 or not t.is_contiguous()
+                   or t.device != ws.device
+                   for t in (dq,) + (() if dqsc is None else (dqsc,)))):
+        raise ValueError("merge_dq_splits: ws fp32 [splits, *dq.shape], "
+                         "contiguous fp32 dq (and dqsc [B, Hkv, D]) on its "
+                         "device expected")
+    rc = _build.kernel_function("mfa_split_d_dq_merge", _MERGE_DQ_ARGS)(
+        ws.data_ptr(), dq.data_ptr(), _ptr(dqsc), scale, b, hq, kv_heads,
+        sq, d, int(interleaved_kv), ws.shape[0], stream_of(dq))
+    _build.check_launch(rc, "split_d_dq_merge")
+    merge_dq_splits.launches += 1
+
+
+merge_dq_splits.launches = 0
+
+
 def _launch(name, fn_name, q, k, v, do, lse, di, row_ranges, bias, out0,
             out1, scale, interleaved_kv, split=()):
-    """``split``: (splits, workspace) for ``mfa_flash_dkv``."""
+    """``split``: (splits, workspace) for ``mfa_flash_dq`` and
+    ``mfa_flash_dkv``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     bptr, bsb, bsh = bias_args(bias)
@@ -330,7 +428,10 @@ def flash_dq(
     """The dQ kernel: (dq fp32 [B, Hq, Sq, D], dS as dbias fp32
     [B, Hq, Sq, Skv] or None).  ``do`` in q's dtype; ``lse``/``di`` fp32
     [B, Hq, Sq]; ``bias`` fp32 [1 or B, 1 or Hq, Sq, Skv].  The kernel runs
-    at the head dim's ``flash_width``, on the body :func:`dq_body` names."""
+    at the head dim's ``flash_width``, on the body :func:`dq_body` names.
+    Above 576 the KV axis splits where :func:`split_d_dq_splits` says: the
+    kernel writes each run's partial to a workspace this call allocates
+    and :func:`merge_dq_splits` makes dQ."""
     if q.device.type == "cpu":
         return flash_attention_dq_plain(
             q, k, v, do, lse, di, row_ranges, bias=bias, scale=scale,
@@ -339,12 +440,20 @@ def flash_dq(
                         stats=(lse, di))
     b, hq, sq, d = q.shape
     q, k, v, do = pad_lanes(flash_width(d), q, k, v, do)
+    hkv, skv = k.shape[1], k.shape[2]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dbias = (torch.zeros((b, hq, sq, k.shape[2]), dtype=torch.float32,
+    dbias = (torch.zeros((b, hq, sq, skv), dtype=torch.float32,
                          device=q.device) if want_dbias else None)
+    splits = split_d_dq_splits(q.shape[-1], b, hq, sq, skv,
+                               _sm_count(q.device))
+    ws = split_d_dq_workspace(q.shape, splits, q.device)
     _launch("flash_dq", "mfa_flash_dq", q, k, v, do, lse, di, row_ranges,
-            bias, dq, dbias, scale, interleaved_kv)
+            bias, dq, dbias, scale, interleaved_kv,
+            split=(splits, _ptr(ws)))
     flash_dq.launches += 1
+    if ws is not None:
+        merge_dq_splits(ws, dq, kv_heads=hkv, interleaved_kv=interleaved_kv,
+                        scale=scale)
     return (dq if dq.shape[-1] == d else dq[..., :d].contiguous()), dbias
 
 
@@ -466,8 +575,10 @@ def _kv_tiles(kq, vq, k_params, v_params, mode, d, dtype):
 def qflash_dq_plain(
     q, do, kq, vq, k_params, v_params, lse, di, row_ranges, *, mode, dqsc,
     ksr=None, vsr=None, bias=None, interleaved_kv=False, want_dbias=False,
+    splits=1,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of :func:`qflash_dq`."""
+    """Plain PyTorch version of :func:`qflash_dq`; ``splits`` > 1: the
+    split-D kernel's runs of the KV axis, merged."""
     hq, skv, d = q.shape[1], kq.shape[2], q.shape[3]
     kv_of = _kv_head_map(hq, kq.shape[1], interleaved_kv).to(q.device)
     k, v = (t[:, kv_of] for t in _kv_tiles(kq, vq, k_params, v_params, mode,
@@ -487,7 +598,8 @@ def qflash_dq_plain(
         dp = dp * vsr[:, kv_of, None, :]
     ds = p * (dp - di[..., None])
     dsk = ds if ks is None else ds * ks
-    dq = (dsk.to(q.dtype).float() @ k) * dqsc[:, kv_of, None, :]
+    dq = _dq_runs(dsk.to(q.dtype).float(), k, row_ranges, splits,
+                  dqsc[:, kv_of, None, :])
     return dq, (ds if want_dbias else None)
 
 
@@ -616,7 +728,8 @@ def qflash_dq(
     (bf16 up to kernel width 256), ``qflash_dq_wide_kernel`` (bf16 at 288),
     ``qflash_dq_latent_kernel`` (bf16 at 576), ``qflash_dq_kernel`` (fp32;
     :func:`dq_body`, 32-row tiles at 576) or above 576 ``split_d_qdq_kernel``
-    (both dtypes), or raise."""
+    (both dtypes; the KV axis split as :func:`flash_dq` splits it, then
+    :func:`merge_dq_splits` with the store multipliers), or raise."""
     kw = dict(mode=mode, dqsc=dqsc, ksr=ksr, vsr=vsr, bias=bias,
               interleaved_kv=interleaved_kv)
     if q.device.type == "cpu":
@@ -634,10 +747,16 @@ def qflash_dq(
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dbias = (torch.zeros((b, hq, sq, kq.shape[2]), dtype=torch.float32,
                          device=q.device) if want_dbias else None)
+    splits = split_d_dq_splits(w, b, hq, sq, kq.shape[2],
+                               _sm_count(q.device))
+    ws = split_d_dq_workspace(q.shape, splits, q.device)
     _launch_qflash("qflash_dq", True, q, do, kq, vq, k_params, v_params, ksr,
                    vsr, dqsc, lse, di, row_ranges, bias, dq, dbias, mode, 1.0,
-                   interleaved_kv)
+                   interleaved_kv, splits, ws)
     qflash_dq.launches += 1
+    if ws is not None:
+        merge_dq_splits(ws, dq, kv_heads=kq.shape[1],
+                        interleaved_kv=interleaved_kv, dqsc=dqsc)
     return (dq if w == d else dq[..., :d].contiguous()), dbias
 
 

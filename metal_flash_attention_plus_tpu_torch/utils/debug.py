@@ -42,6 +42,7 @@ ENTRY_KERNELS: Dict[str, Tuple[str, ...]] = {
                       "split_d_dkv_kernel"),
     "mfa_flash_dkv_merge": ("flash_dkv_merge_kernel",),
     "mfa_split_d_fwd_merge": ("split_d_fwd_merge_kernel",),
+    "mfa_split_d_dq_merge": ("split_d_dq_merge_kernel",),
     "mfa_paged_decode": ("paged_decode_tc_kernel", "paged_decode_kernel",
                          "split_d_decode_kernel",
                          "paged_decode_merge_kernel"),

@@ -23,6 +23,10 @@ card.
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --fwd-splits
     python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
+        --dq-splits
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
+        --ptxas SOURCE [SOURCE ...]
+    python -m metal_flash_attention_plus_tpu_torch.utils.profiling \
         --determinism [STEPS]
 
 Serving (the default): serves the traffic of ``chip_smoke.py``'s engine
@@ -121,6 +125,23 @@ marks: the time by CUDA events over 5 calls after one to warm up, and
 the device time of the split kernel and of the merge over 5 more under
 the profiler.
 
+``--dq-splits``: first the occupancy API's CTAs an SM for every
+instance of the split-D dQ and dK/dV (``split_d_dq_kernel``,
+``split_d_dkv_kernel``, ``split_d_qdq_kernel``, ``split_d_qdkv_kernel``,
+the quantized pair staged and through the raw ring, the dK/dV also with
+its int8 K resident at D = 1024), then both dQs at
+Perceiver IO's image cross-attention (:data:`PERCEIVER_IO`; the bf16 flash
+dQ, and the exact quantized one over int8 ROW CENTERED K/V) over run
+counts of the KV axis (:data:`DQ_SPLIT_PLANS`), each forced in place of
+``ops.flash_attention_bwd.split_d_dq_splits``' choice, which the output
+marks: timed as ``--fwd-splits`` times the forwards.
+
+``--ptxas SOURCE [SOURCE ...]``: each ``csrc`` source compiled by nvcc
+with the build's flags and ``-Xptxas -v`` (all at once), one JSON line a
+kernel: its name (demangled by ``cu++filt`` where the toolkit has it),
+registers a thread, spill store and load bytes and stack frame bytes.
+Needs nvcc, not a card.
+
 ``--rtq-clusters``: the runtime block quantizer on a [4096, 1024] bf16
 activation, CENTERED with Σq, at bs 64 and 128, over cluster sizes
 (:data:`RTQ_CLUSTER_PLANS`), each forced in place of
@@ -161,7 +182,11 @@ import ctypes
 import dataclasses
 import hashlib
 import json
+import re
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import defaultdict
@@ -1078,6 +1103,130 @@ def profile_fwd_splits(seed: int, iters: int = 5) -> int:
     return 0
 
 
+# Run counts --dq-splits times beside split_d_dq_splits' choice, at
+# PERCEIVER_IO.
+DQ_SPLIT_PLANS = (1, 2, 4, 16)
+
+
+def profile_dq_splits(seed: int, iters: int = 5) -> int:
+    """The split-D dQs at Perceiver IO's shape over run counts of their
+    KV axis (the bf16 flash dQ, and the exact quantized one over int8 ROW
+    CENTERED K/V, QuantizedAttention's default): events and the profiler's
+    device ms (kernel and merge), one JSON line a count; first the
+    occupancy API's CTAs an SM for every instance of the split-D dQ and
+    dK/dV."""
+    bwd = flash_attention_bwd
+    b, h, sq, skv, d = PERCEIVER_IO
+    occupancy = {}
+    for dkv, kind in ((0, "dq"), (1, "dkv")):
+        for dtype, name in ((0, "float"), (1, "bf16")):
+            occupancy[f"split_d_{kind}_kernel<{name}>"] = (
+                _build.kernel_function("mfa_split_d_bwd_ctas_per_sm",
+                                       [ctypes.c_int] * 2)(dkv, dtype))
+            for ring in (0, 1, 2)[:2 + dkv]:
+                occupancy[f"split_d_q{kind}_kernel<{name}, ring={ring}>"] = (
+                    _build.kernel_function("mfa_split_d_qbwd_ctas_per_sm",
+                                           [ctypes.c_int] * 4)(
+                                               dkv, dtype, ring, d))
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "ctas_per_sm": occupancy, "d": d}))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, h, n, d), generator=g, device="cuda").to(
+        torch.bfloat16) for n in (sq, skv, skv))
+    do = torch.randn((b, h, sq, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    rr = row_ranges_tensor(FULL, sq, skv, None, "cuda")
+    scale = d ** -0.5
+    o, lse = flash_fwd(q, k, v, rr, scale=scale)
+    di = (do.float() * o).sum(-1)
+    row8c = QuantConfig(bits=8, granularity=QuantGranularity.ROW,
+                        strategy=QuantStrategy.CENTERED)
+    kq, vq = quantize(k, row8c), quantize(v, row8c)
+    qo, qlse = quantized_attention.quantized_flash_attention_forward(
+        q, kq, vq, scale=scale)
+    (dq_a, dq_kw), _ = bwd.qflash_arguments(
+        q, kq, vq, do, qlse, (do.float() * qo).sum(-1), rr, scale=scale)
+    del o, qo
+    calls = {"flash_dq": lambda: bwd.flash_dq(q, k, v, do, lse, di, rr,
+                                              scale=scale),
+             "qflash_dq": lambda: bwd.qflash_dq(*dq_a, **dq_kw)}
+    planner = bwd.split_d_dq_splits
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = planner(d, b, h, sq, skv, sms)
+    for splits in sorted({chosen, *DQ_SPLIT_PLANS}):
+        bwd.split_d_dq_splits = lambda *_, n=splits: n
+        try:
+            for name, run in calls.items():
+                run()
+                ms = cuda_ms(run, iters)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(iters):
+                        run()
+                    torch.cuda.synchronize()
+                by_kernel = {("merge" if "merge" in k else "split"):
+                             us / 1e3 / iters
+                             for k, us, _ in kernel_table(prof)[2]
+                             if "split_d" in k}
+                print(json.dumps({
+                    "device": torch.cuda.get_device_name(0), "kernel": name,
+                    "shape": [b, h, sq, skv, d], "splits": splits, "ms": ms,
+                    "device_ms": sum(by_kernel.values()), **{
+                        f"device_ms_{k}": v for k, v in by_kernel.items()},
+                    "chosen": splits == chosen}))
+        finally:
+            bwd.split_d_dq_splits = planner
+    return 0
+
+
+def profile_ptxas(sources: List[str]) -> int:
+    """nvcc with the build's flags and ``-Xptxas -v`` over each source,
+    all at once: one JSON line a kernel (registers, spill bytes, stack
+    frame bytes)."""
+    nvcc = _build._nvcc()
+    with tempfile.TemporaryDirectory() as work:
+        procs = [(src, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             f"{work}/{i}.o", src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+            for i, src in enumerate(sources)]
+        outs = [(src, p.communicate()[0], p.returncode) for src, p in procs]
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    cand = "/usr/local/cuda/bin/cu++filt"
+    if filt is None and shutil.which(cand):
+        filt = cand
+    failed = 0
+    for src, text, rc in outs:
+        if rc:
+            print(text, file=sys.stderr)
+            failed += 1
+            continue
+        kernels, name = [], None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                kernels.append({"kernel": name})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and kernels:
+                kernels[-1].update(stack_bytes=int(m.group(1)),
+                                   spill_store_bytes=int(m.group(2)),
+                                   spill_load_bytes=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernels:
+                kernels[-1]["registers"] = int(m.group(1))
+        if filt and kernels:
+            names = subprocess.run(
+                [filt], input="\n".join(k["kernel"] for k in kernels),
+                capture_output=True, text=True, check=True).stdout.split("\n")
+            for k, n in zip(kernels, names):
+                k["kernel"] = n.strip() or k["kernel"]
+        for k in kernels:
+            print(json.dumps({"source": src, **k}))
+    return 1 if failed else 0
+
+
 # Cluster sizes --rtq-clusters times beside block_cluster's choice.
 RTQ_CLUSTER_PLANS = (4, 8, 16)
 
@@ -1154,6 +1303,13 @@ def main() -> int:
                     help="time the split-D forwards at Perceiver IO's shape "
                     "over run counts of their KV axis, and print each "
                     "instance's CTAs an SM")
+    ap.add_argument("--dq-splits", action="store_true",
+                    help="time the split-D dQs at Perceiver IO's shape over "
+                    "run counts of their KV axis, and print each split-D "
+                    "backward instance's CTAs an SM")
+    ap.add_argument("--ptxas", nargs="+", metavar="SOURCE",
+                    help="print each kernel's registers and spills from "
+                    "nvcc -Xptxas -v over these sources (no card needed)")
     ap.add_argument("--rtq-clusters", action="store_true",
                     help="time the runtime block quantizer over cluster "
                     "sizes")
@@ -1162,6 +1318,8 @@ def main() -> int:
                     help="train twice from one state and compare bit for "
                     "bit after each of STEPS steps (default 8)")
     args = ap.parse_args()
+    if args.ptxas:
+        return profile_ptxas(args.ptxas)
     if not torch.cuda.is_available():
         print("profiling: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1179,6 +1337,8 @@ def main() -> int:
         return profile_rtq_clusters(args.seed)
     if args.fwd_splits:
         return profile_fwd_splits(args.seed)
+    if args.dq_splits:
+        return profile_dq_splits(args.seed)
     if args.quantized_backward:
         return profile_quantized_backward(args.seed, args.quantized_backward)
     if args.v2_lite and not args.mla:

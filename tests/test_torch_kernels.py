@@ -991,6 +991,8 @@ B2D48 = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
 # 80-wide blocks: cells straddling the 256-lane slices of D = 640.
 B2D80 = _qcfg(gran="block_2d", strategy="centered", block_rows=8,
               block_size=80)
+B2D80_4 = _qcfg(bits=4, gran="block_2d", strategy="centered", block_rows=8,
+                block_size=80)
 TEN4 = _qcfg(bits=4, gran="tensor")
 ROW4A, ROW8A = (_qcfg(bits=b, strategy="asymmetric") for b in (4, 8))
 B2D4 = _qcfg(bits=4, gran="block_2d", strategy="centered", block_rows=8,
@@ -2719,6 +2721,197 @@ def test_split_d_qattn_split_matches_plain(cuda_device, forced_splits,
             assert torch.equal(x, y)
         assert _rel(first[0], o_ref) <= tol_o
         assert _rel(first[1], l_ref) <= tol_l
+
+
+# --------------------------------------------------------------------------
+# The split-D dQ's KV split (split_d_dq_splits, then the merge) and the
+# exact quantized pair's raw ring
+# --------------------------------------------------------------------------
+
+FLASH_BWD_MODULE = importlib.import_module(
+    "metal_flash_attention_plus_tpu_torch.ops.flash_attention_bwd")
+
+
+@pytest.fixture
+def forced_dq_splits(monkeypatch):
+    """force(n): the split-D dQs plan n runs of the KV axis (1 at or below
+    576); force(None): the planner's own plan."""
+    planner = FLASH_BWD_MODULE.split_d_dq_splits
+
+    def force(n):
+        def plan(d, *shape):
+            if n is None:
+                return planner(d, *shape)
+            return 1 if split_d_slices(d) == 1 else n
+        monkeypatch.setattr(FLASH_BWD_MODULE, "split_d_dq_splits", plan)
+    return force
+
+
+def _dq_plan(device, d, b, hq, sq, skv):
+    return FLASH_BWD_MODULE.split_d_dq_splits(
+        d, b, hq, sq, skv,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+QBWD_RING_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, K config, V config, Q dtype, mask,
+    # options, dQ runs: None for the plan's, else forced): int8 and int4
+    # payloads of whole rows (the raw ring under a bf16 Q; an fp32 Q stays
+    # staged) in TOKEN (CENTERED), BLOCK_2D (80-lane cells straddling the
+    # 256-lane slices), folded CHANNEL (dK/dV per channel) and folded ROW
+    # (ksr / vsr); int4 rows of 296 bytes at 592 (staged); short Sq over a
+    # long key axis, where the dQ's KV axis splits (planned and forced).
+    "token8_d640_bf16": (1, 4, 1, 200, 200, 640, ROW8C, ROW8C, BF16,
+                         masking.CAUSAL, {}, None),
+    "token4_d1024_bf16": (1, 4, 1, 160, 160, 1024, ROW4C, ROW4C, BF16,
+                          masking.CAUSAL, {}, None),
+    "token8_d1024_f32": (1, 2, 1, 96, 130, 1024, ROW8C, ROW8C, F32,
+                         masking.CAUSAL, {}, None),
+    "token4_d640_f32": (1, 2, 1, 96, 130, 640, ROW4C, ROW4C, F32,
+                        masking.CAUSAL, {}, None),
+    "block2d80_int8_d640_bf16": (1, 4, 2, 128, 160, 640, B2D80, B2D80, BF16,
+                                 masking.CAUSAL, {}, None),
+    "block2d80_int4_d640_bf16": (1, 4, 2, 128, 160, 640, B2D80_4, B2D80_4,
+                                 BF16, masking.CAUSAL, {}, None),
+    "block2d80_int8_d640_f32": (1, 2, 1, 96, 160, 640, B2D80, B2D80, F32,
+                                masking.CAUSAL, {}, None),
+    "channel8_folded_d1024_bf16": (1, 4, 1, 160, 160, 1024, CH8, CH8, BF16,
+                                   masking.CAUSAL, {}, None),
+    "channel4_folded_d640_bf16": (1, 4, 2, 130, 130, 640, CH4, CH4, BF16,
+                                  masking.CAUSAL, {}, None),
+    "row8_folded_d1024_bf16": (1, 16, 1, 160, 160, 1024, ROW8, ROW8, BF16,
+                               masking.CAUSAL, {}, None),
+    "row4_folded_window_interleaved_d640_bf16": (
+        1, 8, 2, 300, 300, 640, ROW4, ROW4, BF16,
+        masking.sliding_window(96, causal=True),
+        dict(interleaved_kv=True), None),
+    "int4_staged_d592_bf16": (1, 4, 2, 130, 130, 592, ROW4C, ROW4C, BF16,
+                              masking.CAUSAL, {}, None),
+    "split_row8_folded_d1024_bf16": (1, 2, 1, 64, 2048, 1024, ROW8, ROW8,
+                                     BF16, masking.FULL, {}, None),
+    "split_token4_bias_d640_bf16": (1, 2, 1, 100, 1300, 640, ROW4C, ROW4C,
+                                    BF16, masking.CAUSAL,
+                                    dict(bias=(1, 2, 100, 1300)), 3),
+    "split_block2d80_window_d640_f32": (1, 4, 2, 64, 1280, 640, B2D80,
+                                        B2D80, F32, WINDOW_128, {}, 4),
+    "split_token8_interleaved_d1024_f32": (1, 4, 2, 100, 1500, 1024, ROW8C,
+                                           ROW4C, F32, masking.FULL,
+                                           dict(interleaved_kv=True), 5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(QBWD_RING_CASES))
+def test_split_d_qbwd_matches_plain_twice(cuda_device, forced_dq_splits,
+                                          name):
+    """split_d_qdq_kernel (and its merge where the KV axis splits) and
+    split_d_qdkv_kernel (and the dK/dV merge) against their plain versions
+    at the flash gates, dbias too, each called twice, equal bit for bit;
+    the launches counted; a split dQ also against the unsplit plain dQ."""
+    b, hq, hkv, sq, skv, d, kcfg, vcfg, dtype, mask, opts, n = \
+        QBWD_RING_CASES[name]
+    q, kq, vq = _qattn_inputs(cuda_device, b, hq, hkv, sq, skv, d, kcfg,
+                              vcfg, dtype, seed=d + sq)
+    opts = dict(opts)
+    bias = None
+    if "bias" in opts:
+        bias = torch.randn(opts.pop("bias"), device=cuda_device)
+    do, lse, di = _bwd_inputs(cuda_device, q, kq, vq, mask, 2, bias=bias,
+                              **opts)
+    rr = row_ranges_tensor(mask, sq, skv, None, cuda_device)
+    (dq_a, dq_kw), (dkv_a, dkv_kw) = fbwd.qflash_arguments(
+        q, kq, vq, do, lse, di, rr, bias, scale=d ** -0.5,
+        want_dbias=bias is not None, **opts)
+    assert fbwd.dq_body(dtype, d) == "split_d"
+    forced_dq_splits(n)
+    runs = n or _dq_plan(cuda_device, qa.qattn_width(d), b, hq, sq, skv)
+    assert (runs > 1) == name.startswith("split")
+    counts = (fbwd.qflash_dq.launches, fbwd.merge_dq_splits.launches,
+              fbwd.qflash_dkv.launches)
+    calls = [(*fbwd.qflash_dq(*dq_a, **dq_kw),
+              *fbwd.qflash_dkv(*dkv_a, **dkv_kw)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fbwd.qflash_dq.launches - counts[0],
+            fbwd.merge_dq_splits.launches - counts[1],
+            fbwd.qflash_dkv.launches - counts[2]) == (
+                2, 2 if runs > 1 else 0, 2)
+    for x, y in zip(*calls):
+        assert (x is None) == (y is None)
+        assert x is None or torch.equal(x, y), name
+    dq_ref, dbias_ref = fbwd.qflash_dq_plain(*dq_a, **dq_kw)
+    dk_ref, dv_ref = fbwd.qflash_dkv_plain(*dkv_a, **dkv_kw)
+    dq, dbias, dk, dv = calls[0]
+    tol = _tol(dtype)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref),
+                      (dbias, dbias_ref)):
+        if want is None:
+            assert got is None
+            continue
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel(got, want) <= tol, name
+    if runs > 1:
+        split_ref, _ = fbwd.qflash_dq_plain(*dq_a, **dq_kw, splits=runs)
+        assert _rel(dq, split_ref) <= tol, name
+
+
+SPLIT_DQ_FLASH_CASES = {
+    # name: (b, hq, hkv, sq, skv, d, mask, bias shape, forced runs or None
+    # for the plan's): few row tiles over a long key axis.
+    "full_planned_d1024": (1, 1, 1, 128, 4096, 1024, masking.FULL, None,
+                           None),
+    "causal_gqa4_bias_d640": (1, 4, 1, 100, 1300, 640, masking.CAUSAL,
+                              (1, 4, 100, 1300), 3),
+    "window_interleaved_d1024": (1, 4, 2, 128, 1500, 1024, WINDOW_128, None,
+                                 5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SPLIT_DQ_FLASH_CASES))
+def test_split_d_flash_dq_split_matches_plain(cuda_device, forced_dq_splits,
+                                              name, dtype):
+    """split_d_dq_kernel with its KV axis split, then
+    split_d_dq_merge_kernel: dQ and dbias against the unsplit and the
+    split plain versions at the flash gates, two calls equal bit for bit,
+    one kernel and one merge a call; the merge alone bit for bit with its
+    plain version."""
+    b, hq, hkv, sq, skv, d, mask, bias_shape, n = SPLIT_DQ_FLASH_CASES[name]
+    interleaved = "interleaved" in name
+    (q, k, v), do, bias, rr = _flash_case(
+        cuda_device, dtype, b, hq, hkv, sq, skv, d, mask,
+        bias_shape=bias_shape, seed=d + skv)
+    kw = dict(scale=d ** -0.5, bias=bias, interleaved_kv=interleaved)
+    o, lse = flash_fwd(q, k, v, rr, **kw)
+    di = (do.float() * o).sum(-1)
+    forced_dq_splits(n)
+    runs = n or _dq_plan(cuda_device, d, b, hq, sq, skv)
+    assert runs > 1
+    counts = (flash_dq.launches, fbwd.merge_dq_splits.launches)
+    first, second = (flash_dq(q, k, v, do, lse, di, rr, want_dbias=True,
+                              **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (flash_dq.launches - counts[0],
+            fbwd.merge_dq_splits.launches - counts[1]) == (2, 2)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    for splits in (1, runs):
+        dq_ref, dbias_ref = flash_attention_dq_plain(
+            q, k, v, do, lse, di, rr, want_dbias=True, splits=splits, **kw)
+        assert _rel(first[0], dq_ref) <= _tol(dtype)
+        assert _rel(first[1], dbias_ref) <= _tol(dtype)
+    ws = torch.randn((runs, b, hq, sq, d), device=cuda_device)
+    dqsc = torch.rand((b, hkv, d), device=cuda_device)
+    for scale, sc in ((0.125, None), (1.0, dqsc)):
+        out = torch.empty((b, hq, sq, d), device=cuda_device)
+        fbwd.merge_dq_splits(ws, out, kv_heads=hkv, interleaved_kv=interleaved,
+                             dqsc=sc, scale=scale)
+        ref = torch.empty_like(out).cpu()
+        fbwd.merge_dq_splits(ws.cpu(), ref, kv_heads=hkv,
+                             interleaved_kv=interleaved,
+                             dqsc=None if sc is None else sc.cpu(),
+                             scale=scale)
+        assert torch.equal(out.cpu(), ref)
 
 
 # --------------------------------------------------------------------------

@@ -216,6 +216,123 @@ def test_aligned_runs_deal_each_span_in_whole_tiles(runs):
                                   (walked - first) // 64 // per)
 
 
+# (d, batch, q heads, Sq, Skv, SMs) -> runs of the split-D dQ's KV axis
+DQ_SPLIT_PLANS = [
+    # Perceiver IO's image cross-attention: 8 row tiles x 4 lane slices =
+    # 32 CTAs on 132 SMs, 784 key tiles: 8 runs (256 CTAs).
+    ((1024, 1, 1, 512, 224 * 224, 132), 8),
+    # The trio (B=2, 16 q heads, S=2048): 4,096 / 3,072 CTAs, one walk.
+    ((1024, 2, 16, 2048, 2048, 132), 1),
+    ((640, 2, 16, 2048, 2048, 132), 1),
+    # Few CTAs over a short key axis: runs of at least 16 tiles.
+    ((640, 1, 4, 64, 640, 132), 1),
+    ((1024, 1, 2, 64, 2048, 132), 2),
+    # Up to 576 there is no split-D dQ.
+    ((576, 1, 1, 512, 224 * 224, 132), 1),
+    # At most 64 runs.
+    ((1024, 1, 1, 64, 1 << 20, 132), 64),
+]
+
+
+@pytest.mark.parametrize("shape,want", DQ_SPLIT_PLANS)
+def test_split_d_dq_split_plan(shape, want):
+    """split_d_dq_splits from shapes alone, the float and the quantized
+    split-D dQ alike: 1 unless the grid leaves SMs idle, then as many runs
+    as fill two CTAs an SM, each at least 16 key tiles, at most 64; 1 at
+    or below 576."""
+    assert tbwd.split_d_dq_splits(*shape) == want
+
+
+@pytest.mark.parametrize("runs", [2, 3, 8])
+def test_unaligned_runs_deal_each_span_in_whole_tiles(runs):
+    """``split_d_fwd_runs`` as the split-D dQ (and the float forward) walks
+    (each 64-row tile's span from its first live key): every key of a
+    tile's span in exactly one run, the runs consecutive and of whole
+    64-key tiles, ``ceil(tiles / runs)`` each, none outside the span; an
+    empty row's tile keeps the others' span."""
+    sq, skv = 200, 1000
+    ranges = np.stack([np.arange(sq) * 3 + 37, np.arange(sq) * 3 + 300],
+                      axis=1).astype(np.int32)
+    ranges[70] = (5, 5)
+    run = tfa.split_d_fwd_runs(torch.from_numpy(ranges), skv, runs,
+                               aligned=False)
+    for t in range(-(-sq // 64)):
+        rows = ranges[t * 64:(t + 1) * 64]
+        live = rows[rows[:, 1] > rows[:, 0]]
+        first, hi = live[:, 0].min(), live[:, 1].max()
+        per = -(-(-(-(hi - first) // 64)) // runs)
+        for r in range(t * 64, min(sq, (t + 1) * 64)):
+            row = run[r].numpy()
+            walked = np.flatnonzero(row >= 0)
+            assert walked.min() == first and walked.max() == hi - 1
+            assert np.array_equal(row[walked],
+                                  (walked - first) // 64 // per)
+
+
+# name: (K, V, runs) at D = 640, Hq = 2 over one KV head, Sq = 64 over
+# Skv = 640 (10 key tiles), FULL, an fp32 Q.
+SPLIT_DQ = {
+    "token_int8_k_int4_v_3_runs": (ROW8C, ROW4C, 3),
+    "block2d80_4_runs": (B2D80, B2D80, 4),
+    "float_bias_2_runs": (None, None, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_DQ))
+def test_split_dq_plain_matches_unsplit_and_jax(name):
+    """The plain version of the split-D dQ with its KV axis split
+    (``qflash_dq_plain`` / ``flash_attention_dq_plain(..., splits=n)``:
+    each 64-row tile's key span dealt into n runs of whole 64-key tiles
+    from its first live key, an
+    unscaled partial each, merged by ``merge_dq_splits_plain``, the plain
+    version of split_d_dq_merge_kernel, which applies the store
+    multipliers or the scale) against the unsplit plain version and the JAX
+    package's backward (interpret mode), at D = 640 within
+    TOLERANCES["fp32"]."""
+    kcfg, vcfg, runs = SPLIT_DQ[name]
+    d, sq, skv = 640, 64, 640
+    rng = np.random.default_rng(runs + 7)
+    q, do = (rng.standard_normal((1, 2, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((1, 1, skv, d)).astype(np.float32)
+            for _ in range(2))
+    rr = tfa.row_ranges_tensor(tm.FULL, sq, skv, None, "cpu")
+    run = tfa.split_d_fwd_runs(rr, skv, runs, aligned=False)
+    assert int(run.max()) == runs - 1  # every run walks keys
+    tq, tdo = torch.from_numpy(q), torch.from_numpy(do)
+    if kcfg is None:
+        bias = rng.standard_normal((1, 2, sq, skv)).astype(np.float32)
+        jk, jv, tk, tv = jnp.asarray(k), jnp.asarray(v), *(
+            torch.from_numpy(x) for x in (k, v))
+        to, tl = tfa.flash_attention_forward(tq, tk, tv,
+                                             bias=torch.from_numpy(bias))
+    else:
+        bias = None
+        (jk, tk), (jv, tv) = _quantized(k, kcfg), _quantized(v, vcfg)
+        to, tl = tqa.quantized_flash_attention_forward(tq, tk, tv)
+    jb = None if bias is None else jnp.asarray(bias)
+    with jax.default_matmul_precision("highest"):
+        want = jbwd.flash_attention_backward(
+            jnp.asarray(q), jk, jv, jnp.asarray(to.numpy()),
+            jnp.asarray(tl.numpy()), jnp.asarray(do), bias=jb)
+    di = (tdo * to).sum(-1)
+    scale = d ** -0.5
+    if kcfg is None:
+        tb = torch.from_numpy(bias)
+        dq1, _ = tbwd.flash_attention_dq_plain(tq, tk, tv, tdo, tl, di, rr,
+                                               bias=tb, scale=scale)
+        dqn, _ = tbwd.flash_attention_dq_plain(tq, tk, tv, tdo, tl, di, rr,
+                                               bias=tb, scale=scale,
+                                               splits=runs)
+    else:
+        (dq_a, dq_kw), _ = tbwd.qflash_arguments(tq, tk, tv, tdo, tl, di, rr,
+                                                 scale=scale)
+        dq1, _ = tbwd.qflash_dq_plain(*dq_a, **dq_kw)
+        dqn, _ = tbwd.qflash_dq_plain(*dq_a, **dq_kw, splits=runs)
+    assert (dqn - dq1).abs().max() <= TOL * dq1.abs().max()
+    assert _rel(dqn, want[0]) <= TOL
+
+
 def test_padded_head_dim_changes_nothing_past_576():
     """580 runs at 592 on the card: the plain version over the padded
     arguments (Q zero-padded, int4 payloads repacked at 592) equals it at
