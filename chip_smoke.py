@@ -1045,6 +1045,26 @@ def parent_bits(kernel):
                if a is not None)
 
 
+def parent_errors(kernel, plain):
+    """With ``--parent``: each output's max abs error against ``plain()``,
+    this checkout's (``max_abs_err``) and the parent's
+    (``parent_max_abs_err``), and this checkout's over the plain's max abs
+    (``rel_err``): for a kernel whose bits move by design."""
+    want = plain()
+    want = want if isinstance(want, tuple) else (want,)
+    with kernels_of(PARENT["lib"]):
+        theirs = kernel()
+    ours = kernel()
+    torch.cuda.synchronize()
+    theirs = theirs if isinstance(theirs, tuple) else (theirs,)
+    ours = ours if isinstance(ours, tuple) else (ours,)
+    trip = [(o, p, w) for o, p, w in zip(ours, theirs, want)
+            if w is not None]
+    return {"max_abs_err": [max_abs(o, w) for o, _, w in trip],
+            "parent_max_abs_err": [max_abs(p, w) for _, p, w in trip],
+            "rel_err": [rel_err(o, w) for o, _, w in trip]}
+
+
 def log_parent_summary():
     """One line per timing taken in turns: the parent's and the change's
     times and the change's mean over the parent's."""
@@ -6137,7 +6157,7 @@ def time_wide_kernels(path_inputs, scale=MLA_SCALE, fullint_only=False,
     full = b * h * s * s
     n_q, n_kv, rows = b * h * s * d, b * hkv * s * d, b * h * s
 
-    def timed(name, kernel, plain, library, bound):
+    def timed(name, kernel, plain, library, bound, moved_bits=False):
         t = {"plain_ms": time_ms(plain, 1, warmup=1),
              "ms": time_ms(kernel, 5, warmup=1)}
         t["ms_2"] = time_ms(kernel, 5, warmup=0)
@@ -6158,6 +6178,8 @@ def time_wide_kernels(path_inputs, scale=MLA_SCALE, fullint_only=False,
             parent_turns(f"{name} (D={d})", t, kernel, 5, device=True)
         if fam == "split_d" and PARENT["lib"] is not None:
             t["parent_bits_equal"] = parent_bits(kernel)
+            if moved_bits:
+                t.update(parent_errors(kernel, plain))
         log(f"{name} times (D={d}): " + json.dumps(t))
         return t
 
@@ -6189,7 +6211,7 @@ def time_wide_kernels(path_inputs, scale=MLA_SCALE, fullint_only=False,
             t = timed(f"{name} level {2 if level2 else 1} (width "
                       f"{kw['width']})", lambda: fn(*a, **kw),
                       lambda: plain(*a, **kw), lib,
-                      attn_bound(full, *ops, nbytes))
+                      attn_bound(full, *ops, nbytes), moved_bits=level2)
             t["body"] = fullint_body(d, kw["width"])
             t["width"] = kw["width"]
             if level2:
@@ -8052,19 +8074,24 @@ QSPLIT_REPLACES = {"qattn_fwd": f"{QATTN_TPU}:87",
 QSPLIT_DESIGN = (
     "phase 24's split-D frame over the payload (256 output lanes a CTA, the "
     "scores over the whole head dim in 32-lane chunks, recomputed once a "
-    "slice): int8 / int4 rows read as they lie and dequantized (or kept as "
-    "integers) a chunk at a time, whole payload rows (and the full-integer "
-    "pair's int8 rows) landing as raw bytes through a 4-stage cp.async ring "
-    "and widened in shared memory (the forward and the exact dQ and dK/dV; "
-    "the dK/dV's S and dP with the payload on the ring's B side, their "
-    "transposes read back, its K rows resident in shared memory where they "
-    "fit), V's (the dQ's K's) slice raw under the scores, "
-    "the forward's and the dQ's KV axis split where the grid leaves SMs "
-    "idle (then split_d_fwd_merge_kernel / split_d_dq_merge_kernel), bf16 "
-    "mma.sync for a bf16 Q, s8 mma.sync "
-    "m16n8k32 for an int8 Q and the full-integer S and dP, P.V (dQ, dK, dV) "
-    "over the CTA's slice on bf16 mma.sync, fp32 FMAs where the mode does "
-    "not round to bf16 and at the full-integer level 2")
+    "slice, but for the full-integer pair): int8 / int4 rows read as they "
+    "lie and dequantized (or kept as integers) a chunk at a time, whole "
+    "payload rows (and the full-integer pair's int8 rows) landing as raw "
+    "bytes through a 4-stage cp.async ring and widened in shared memory "
+    "(the forward and the exact dQ and dK/dV; the dK/dV's S and dP with "
+    "the payload on the ring's B side, their transposes read back, its K "
+    "rows resident in shared memory where they fit), V's (the dQ's K's) "
+    "slice raw under the scores, the forward's and the dQ's KV axis split "
+    "where the grid leaves SMs idle (then split_d_fwd_merge_kernel / "
+    "split_d_dq_merge_kernel), bf16 mma.sync for a bf16 Q, s8 mma.sync "
+    "m16n8k32 for an int8 Q and the full-integer S and dP, whose head dim "
+    "a cluster of a head's slices splits (each CTA sums over its share of "
+    "the lanes, the owner of each 16-row slab adds the exact int32 "
+    "partials through distributed shared memory and computes dS there, "
+    "every CTA gathers the owners' rows), P.V (dQ, dK, dV) over the CTA's "
+    "slice on bf16 mma.sync, on s8 mma.sync over the row-quantized codes "
+    "(int32 sums scaled by the rows' max / 127) at the full-integer level "
+    "2, fp32 FMAs where the mode does not round to bf16")
 # (a)'s widths (580 runs at 592) and shape (B, Hq, Hkv, S, S): 16 causal
 # q heads over one; (b)'s widths.
 QSPLIT_DIMS = (580, 608, 640, 1024, 1152)
@@ -8110,6 +8137,20 @@ def check_quantized_split_d_all(rng):
         rng, "D=640 ROW K / CHANNEL V, S=144", 1, 8, 1, 144, 640, qcfg(),
         qcfg(gran="channel"), True,
         BlockSizes(block_kv_dq=512, block_q_dkv=512), repeat=True)
+    # The full-integer pair's clusters: a head dim of nine slices (a
+    # cluster of nine, a non-portable size) and, at D = 1024, S=336, whose
+    # level-2 spans (48 wide) end inside a 32-key k step; both levels.
+    for level2 in (False, True):
+        lv = 2 if level2 else 1
+        errs[f"fullint d2304 l{lv}"] = check_fullint(
+            rng, "D=2304 ROW K / CHANNEL V, S=256", 1, 4, 1, 256, 2304,
+            qcfg(), qcfg(gran="channel"), level2,
+            BlockSizes(block_kv_dq=128, block_q_dkv=128), repeat=True)
+        errs[f"fullint d1024 s336 l{lv}"] = check_fullint(
+            rng, "D=1024 ROW K / CHANNEL V, S=336", 1, 8, 1, 336, 1024,
+            qcfg(), qcfg(gran="channel"), level2,
+            BlockSizes(block_kv_dq=512, block_q_dkv=512), repeat=True)
+    check_fullint_clusters(QSPLIT_DIMS + (2304,))
     # The exact dQ with its KV axis split (then split_d_dq_merge_kernel),
     # one kernel and one merge a call: whole payload rows through the raw
     # ring (bf16), the staged route (fp32), the folds, BLOCK_2D cells
@@ -8142,6 +8183,27 @@ def check_quantized_split_d_all(rng):
             lambda: fbwd.qflash_dq.launches)
     log(f"phase 25 (a): {len(errs)} checks, each bit for bit on a repeat")
     return errs
+
+
+def check_fullint_clusters(dims):
+    """The full-integer pair's cluster sizes at each of ``dims``: the C
+    launcher's (``mfa_split_d_fullint_cluster``, both kernels and levels:
+    what the card takes) against ``split_d_fullint_cluster``'s plan; raises
+    where they differ → {d: (C, slices a CTA)}."""
+    fn = _build.kernel_function("mfa_split_d_fullint_cluster",
+                                [ctypes.c_int] * 3)
+    plans = {}
+    for d in dims:
+        plan = fbwd.split_d_fullint_cluster(d)
+        card = {(dq, l2): fn(flash_width(d), dq, l2) for dq in (1, 0)
+                for l2 in (0, 1)}
+        if set(card.values()) != {plan[0]}:
+            raise AssertionError(f"full-integer cluster at D={d}: the "
+                                 f"launcher's {card}, the plan's {plan}")
+        plans[d] = plan
+    log("phase 25 (a) full-integer clusters (C, slices a CTA), the "
+        "launcher's and the plan's: " + json.dumps(plans))
+    return plans
 
 
 def time_quantized_perceiver(rng, split_d_perceiver):
@@ -8355,22 +8417,45 @@ def time_quantized_split_d(rng, split_d_times):
                 raise AssertionError(f"{name} at D={d} runs "
                                      f"{times[name]['body']}")
         # With --parent, the kernels whose int32 sums are exact (the
-        # full-integer pair, whose S and dP share the s8 scores with the
-        # forward's int8 Q) and the folded exact dQ keep the parent's bits.
+        # full-integer pair, whose S and dP the cluster's partials give
+        # whole) and the folded exact dQ keep the parent's bits; but the
+        # full-integer level 2, whose codes round dP dovsc as the plain
+        # version does and whose output products sum int32 codes and scale
+        # them where the parent summed the scaled codes in fp32: each
+        # output no farther from the plain version than the parent's, and
+        # within the flash gate.
         moved = [f"{name} {k}" for name, t in times.items()
                  for k, v in t.items()
                  if k.startswith("parent_bits_equal") and v is False
-                 and name.startswith(("fullint", "qflash_dq"))]
+                 and name.startswith(("fullint", "qflash_dq"))
+                 and not (name.startswith("fullint")
+                          and k.endswith("_level2"))]
         if moved:
             raise AssertionError(f"D={d}: {moved} moved from the parent's "
                                  "bits")
+        for name in (f"fullint_dq_d{d}", f"fullint_dkv_d{d}"):
+            t = times[name]
+            if "parent_max_abs_err_level2" not in t:
+                continue
+            if any(e > p for e, p in zip(t["max_abs_err_level2"],
+                                         t["parent_max_abs_err_level2"])) \
+                    or max(t["rel_err_level2"]) > FLASH_TOL[torch.bfloat16]:
+                raise AssertionError(
+                    f"{name} level 2: max abs errors "
+                    f"{t['max_abs_err_level2']} against the parent's "
+                    f"{t['parent_max_abs_err_level2']}, rel "
+                    f"{t['rel_err_level2']}")
         # The exact pair's traces name the quantized kernels, not the float
-        # ones whose body they share.
-        for family in ("qflash_dq", "qflash_dkv"):
-            seen = set(times[f"{family}_split_d"]["device_ms_by_kernel"])
-            if seen and QSPLIT_KERNELS[family] not in seen:
-                raise AssertionError(f"{family} at D={d}: traced "
-                                     f"{sorted(seen)}")
+        # ones whose body they share; the full-integer pair's, its own.
+        for family, entry in (("qflash_dq", "qflash_dq_split_d"),
+                              ("qflash_dkv", "qflash_dkv_split_d"),
+                              ("fullint_dq", f"fullint_dq_d{d}"),
+                              ("fullint_dkv", f"fullint_dkv_d{d}")):
+            for tag in ("", "_level2"):
+                by = times[entry].get(f"device_ms_by_kernel{tag}")
+                if by and QSPLIT_KERNELS[family] not in by:
+                    raise AssertionError(f"{family} at D={d}: traced "
+                                         f"{sorted(by)}")
         out[f"d{d}"] = times
         del q, do, kq, vq, vq_ch
         torch.cuda.empty_cache()

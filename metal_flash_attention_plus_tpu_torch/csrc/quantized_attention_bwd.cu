@@ -130,7 +130,13 @@ using mfa::LOG2E;
 using mfa::THREADS;
 using mfa::accumulate_pm;
 using mfa::byte_of;
+using mfa::fi_quant;
+using mfa::fi_rows_t;
+using mfa::fi_store_bf16;
+using mfa::fi_store_s8;
 using mfa::launch_with_smem;
+using mfa::mma_s8_rows;
+using mfa::quad_max;
 using mfa::row_max16;
 using mfa::rowquant;
 using mfa::stage_kv;
@@ -1117,57 +1123,6 @@ __device__ __forceinline__ void fi_rows_bf16(const uint8_t* src,
   }
 }
 
-// ROWS int8 rows (D + 16 bytes apart) transposed into int8 [d][position]
-// rows (ROWS + 16 bytes apart), the rows permuted within each 16 as an s8
-// A operand built from C fragments holds them: position 16 b + 4 t + 2 h +
-// c holds row 16 b + 8 h + 2 t + c.
-template <int D, int NT, int ROWS = 64>
-__device__ __forceinline__ void fi_rows_t(const uint8_t* src, uint8_t* dst) {
-  constexpr int W = D / 4;
-  constexpr int QUADS = ROWS / 4;
-  for (int i = threadIdx.x; i < QUADS * W; i += NT) {
-    const int quad = i % QUADS;  // positions [4 quad, 4 quad + 4)
-    const int w = i / QUADS;
-    const int k0 = 16 * (quad >> 2) + 2 * (quad & 3);
-    const int rows[4] = {k0, k0 + 1, k0 + 8, k0 + 9};
-    unsigned x[4], y[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      x[j] = *reinterpret_cast<const unsigned*>(src + rows[j] * (D + 16) +
-                                                4 * w);
-    mfa::transpose_bytes(x, y);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      *reinterpret_cast<unsigned*>(dst + (4 * w + e) * (ROWS + 16) +
-                                   4 * quad) = y[e];
-  }
-}
-
-// acc[j] += A . B[br0 + 8j, br0 + 8j + 8)^T for one s8 A fragment (16 rows
-// x 32 bytes of k): B an int8 tile whose rows hold k (B_LD bytes a row),
-// its 32-byte k chunk at kbyte, read by ldmatrix; NB even, or 1.
-template <int NB, int B_LD>
-__device__ __forceinline__ void mma_s8_rows(const uint32_t (&af)[4],
-                                            const uint8_t* B, int br0,
-                                            int kbyte, int (&acc)[NB][4]) {
-  const int lane = threadIdx.x & 31;
-  const uint8_t* bp = B + (br0 + mfa::ldsm_b_row(lane)) * B_LD +
-                      mfa::ldsm_b_byte(lane) + kbyte;
-  if constexpr (NB == 1) {  // lanes 0-15: the block's two 16-byte halves
-    uint32_t bf[2];
-    mfa::ldsm_x2(bf, bp);
-    mfa::mma_s8(acc[0], af, bf[0], bf[1], acc[0]);
-    return;
-  }
-#pragma unroll
-  for (int j2 = 0; j2 < NB / 2; ++j2) {
-    uint32_t bf[4];
-    mfa::ldsm_x4(bf, bp + j2 * 16 * B_LD);
-    mfa::mma_s8(acc[2 * j2], af, bf[0], bf[1], acc[2 * j2]);
-    mfa::mma_s8(acc[2 * j2 + 1], af, bf[2], bf[3], acc[2 * j2 + 1]);
-  }
-}
-
 // acc[j] = A[ar0, ar0 + 16) . B[br0 + 8j, br0 + 8j + 8)^T over 32 * KC
 // bytes of k, A and B int8 tiles whose rows hold k, summed from I32_BIAS
 // (mma.cuh: read back with biased_f32) where BIASED, else from 0
@@ -1189,57 +1144,6 @@ __device__ __forceinline__ void mma_s8_nt(const uint8_t* A, int ar0,
     mfa::ldsm_x4(af, ap + kc * 32);
     mma_s8_rows<NB, LDB>(af, B, br0, kc * 32, acc);
   }
-}
-
-// Level 2's quantization of x at inv = 127 / max(am, 1e-30) (am the row's
-// max over its span), as ops/flash_attention_bwd.py::_rowquant_signed and
-// _rowquant_pos round: +-0.5 (+0.5 where x >= 0) then truncation, on the
-// FP32 pipe; returned as 1.5 * 2^23 + q, whose low byte is q's
-// two's-complement byte (mma.cuh::low_bytes).
-__device__ __forceinline__ float fi_quant(float x, float inv) {
-  const float xs = x * inv;
-  const float t =
-      __fadd_rz(fabsf(xs) + 0.5f, 8388608.0f) - 8388608.0f;  // trunc
-  return 12582912.0f + (xs >= 0.f ? t : -t);
-}
-
-// A warp's C fragments of fi_quant's values (its 16 rows x columns c0 +
-// [0, 8 NB)) into a CTA's int8 [row][position] tile (LDT bytes a row), in
-// the permuted positions fi_rows_t gives.
-template <int NB, int LDT>
-__device__ __forceinline__ void fi_store_s8(const float (&c)[NB][4], int r0,
-                                            int c0, uint8_t* tile) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const int kb = c0 + 8 * j;
-    const int pos = 16 * (kb >> 4) + 4 * tq + 2 * ((kb >> 3) & 1);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint16_t*>(tile + (r0 + g + 8 * i) * LDT + pos) =
-          (uint16_t)__byte_perm(__float_as_uint(c[j][2 * i]),
-                                __float_as_uint(c[j][2 * i + 1]), 0x0040);
-  }
-}
-
-// A warp's C fragments rounded to bf16 into a CTA's bf16 [row][column]
-// tile (LDT bytes a row), columns c0 + [0, 8 NB).
-template <int NB, int LDT>
-__device__ __forceinline__ void fi_store_bf16(const float (&c)[NB][4],
-                                              int r0, int c0,
-                                              uint8_t* tile) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NB; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint32_t*>(tile + (r0 + g + 8 * i) * LDT +
-                                   (c0 + 8 * j + 2 * tq) * 2) =
-          mfa::pack_bf16(c[j][2 * i], c[j][2 * i + 1]);
 }
 
 // acc += iacc * sc (sc per row: [e >> 1]), iacc back to 0: a span's integer
@@ -1265,12 +1169,6 @@ __device__ __forceinline__ float pick(const float (&v)[2], bool sp) {
 __device__ __forceinline__ void max_at(float (&v)[2], bool sp, float m) {
   v[0] = sp ? v[0] : fmaxf(v[0], m);
   v[1] = sp ? fmaxf(v[1], m) : v[1];
-}
-
-// The max of a value over the 4 lanes that share a C fragment row.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // The order in which a kernel visits the T-wide tiles (64, or 32: the

@@ -9,7 +9,9 @@
 //
 // The frame (see split_d_attention.cu): each CTA owns one SLICE-lane slice
 // of O (or of dQ, or of dK and dV), computes the scores over the whole
-// head dim in 32-lane chunks, and applies P to its own slice only.
+// head dim in 32-lane chunks, and applies P to its own slice only; the
+// full-integer pair splits the scores' head dim over a cluster of a
+// head's slices instead (fullint_cluster below).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -200,5 +202,18 @@ struct FullintArgs {
 // times `store`, go to ws, fp32 [splits, 2, B, Hkv, Skv, D]).
 int launch_fullint(bool dq, const FullintArgs& a, int splits, float* ws,
                    cudaStream_t stream);
+
+// The full-integer pair's cluster (csrc/split_d_quantized_bwd.cu): the
+// CTAs of a head's lane slices that split the scores' contraction, each
+// summing S and dP over the lanes of slices(D) / C slices, the largest
+// divisor of slices(D) up to `limit` (16: a non-portable cluster above
+// 8; ops/flash_attention_bwd.py::split_d_fullint_cluster plans the same).
+constexpr int MAX_FULLINT_CLUSTER = 16;
+inline int fullint_cluster(int D, int limit = MAX_FULLINT_CLUSTER) {
+  const int n = slices(D);
+  for (int c = n < limit ? n : limit; c > 1; --c)
+    if (n % c == 0) return c;
+  return 1;
+}
 
 }  // namespace mfa_sd

@@ -1011,16 +1011,39 @@ def fullint_body(d: int, width: int) -> str:
     absorbed 576 among them (at 576 in 32-row tiles), and run the other
     head dims up to 576 zero-padded at :func:`qattn_width`; past 576
     "split_d" at both levels and every width (``split_d_fullint_dq_kernel``,
-    ``split_d_fullint_dkv_kernel``: s8 ``mma.sync`` for S and dP, bf16
-    ``mma.sync`` at level 1 and fp32 FMAs over the row-quantized values
-    at level 2).  The C launcher routes the same way
-    (``mfa_fullint_tc_body``)."""
+    ``split_d_fullint_dkv_kernel``: a head's lane slices as clusters of
+    :func:`split_d_fullint_cluster` CTAs that split S's and dP's
+    contraction and add their exact int32 partials through distributed
+    shared memory, S and dP on s8 ``mma.sync``, the output products on
+    bf16 ``mma.sync`` at level 1 and on s8 ``mma.sync`` over the
+    row-quantized codes at level 2, a span's tiles ending at its end).
+    The C launcher routes the same way (``mfa_fullint_tc_body``)."""
     w = qattn_width(d)
     if width < 0:
         raise ValueError(f"level-2 width {width} has no kernel")
     if w > HEAD_DIMS[-1]:
         return "split_d"
     return "tensor_core" if width % FULLINT_K_STEP == 0 else "dp4a"
+
+
+SPLIT_D_FULLINT_MAX_CLUSTER = 16  # C's mfa_sd::MAX_FULLINT_CLUSTER
+
+
+def split_d_fullint_cluster(d: int) -> Tuple[int, int]:
+    """The cluster of the split-D full-integer pair at head dim ``d``:
+    (C, slices a CTA).  A head's :func:`split_d_slices` lane slices run as
+    clusters of C CTAs (C the largest divisor of the slices up to
+    ``SPLIT_D_FULLINT_MAX_CLUSTER``, a non-portable size above 8), rank r
+    of a cluster summing S and dP over the lanes of slices ``[r * per,
+    (r + 1) * per)``, ``per`` = slices / C, before the cluster adds the
+    ranks' int32 partials: 3 clusters of one slice at 640, 4 at 1024, 5 at
+    1152, 9 at 2304; (1, 1) at or below 576.  C's
+    ``mfa_split_d_fullint_cluster`` answers the size the launch takes,
+    this plan where the card holds such a cluster."""
+    n = split_d_slices(d)
+    c = max(k for k in range(1, min(n, SPLIT_D_FULLINT_MAX_CLUSTER) + 1)
+            if n % k == 0)
+    return c, n // c
 
 
 def _check_fullint(name, qq, qsc, kq, ks, vq, dos, lse, di, width):

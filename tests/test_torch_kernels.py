@@ -1630,6 +1630,12 @@ FULLINT_CASES = {
                                          None, True),
     "split_d_d580_l1_sq_ne_skv": (1, 4, 2, (100, 200), 580, ROW8, CH8, None,
                                   False),
+    # A head dim of nine slices (a cluster of nine, split_d_fullint_cluster),
+    # and spans of 48 (S=336) that end inside a 32-key k step, both levels.
+    "split_d_d2304_l1": (1, 4, 1, 256, 2304, ROW8, CH8, None, False),
+    "split_d_d2304_l2_w128": (1, 4, 1, 256, 2304, ROW8, CH8, 128, False),
+    "split_d_d1024_s336_l1": (1, 4, 2, 336, 1024, ROW8, TEN8, None, False),
+    "split_d_d1024_w48_l2": (1, 4, 2, 336, 1024, ROW8, TEN8, 512, False),
 }
 
 
@@ -1695,6 +1701,31 @@ def test_fullint_kernels_route_as_the_python_bodies_say(cuda_device):
             assert body(d, width) == 2, (d, width)
     assert body(0, 0) == -1 and body(64, -1) == -1
     assert body(600, 0) == -1 and body(640, -1) == -1
+
+
+@pytest.mark.cuda
+def test_split_d_fullint_cluster_matches_the_plan(cuda_device):
+    """The C launcher's cluster size for the split-D full-integer pair
+    (``mfa_split_d_fullint_cluster``: both kernels, both levels) at every
+    head dim from 592 to 4608 in 16-lane steps divides the slices and is at
+    most ``split_d_fullint_cluster``'s plan: the plan itself wherever that
+    is a portable size (at most 8), and at 2304 (nine slices)."""
+    import ctypes
+
+    from metal_flash_attention_plus_tpu_torch import _build
+
+    fn = _build.kernel_function("mfa_split_d_fullint_cluster",
+                                [ctypes.c_int] * 3)
+    for d in range(592, 4609, 16):
+        plan, _ = fbwd.split_d_fullint_cluster(d)
+        n = split_d_slices(d)
+        for dq in (0, 1):
+            for l2 in (0, 1):
+                c = fn(d, dq, l2)
+                assert 1 <= c <= plan and n % c == 0, (d, dq, l2, c)
+                if plan <= 8 or d == 2304:
+                    assert c == plan, (d, dq, l2, c)
+    assert fn(576, 1, 0) == -1 and fn(600, 0, 1) == -1
 
 
 @pytest.mark.cuda

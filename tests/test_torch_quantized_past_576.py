@@ -402,6 +402,64 @@ def test_fullint_backward_past_576_matches_jax(level, monkeypatch):
     assert {tbwd.fullint_body(d, w) for w in widths} == {"split_d"}
 
 
+def test_split_d_fullint_cluster_covers_every_slice_once():
+    """The full-integer pair's cluster plan at every head dim from 592 to
+    4608 in 16-lane steps: C divides the slices and is at most 16 (the
+    largest such divisor), and the ranks' runs of slices / C slices cover
+    every slice of the head, and every lane, exactly once; (1, 1) at or
+    below 576."""
+    for d in range(592, 4609, 16):
+        n = tfa.split_d_slices(d)
+        c, per = tbwd.split_d_fullint_cluster(d)
+        assert 1 <= c <= tbwd.SPLIT_D_FULLINT_MAX_CLUSTER and n % c == 0
+        assert per == n // c, d
+        assert c == max(k for k in range(1, 17) if n % k == 0), d
+        slices = [r * per + i for r in range(c) for i in range(per)]
+        assert sorted(slices) == list(range(n)), d
+        lanes = np.concatenate([
+            np.arange(r * per * tfa.SPLIT_D_SLICE,
+                      min((r + 1) * per * tfa.SPLIT_D_SLICE, d))
+            for r in range(c)])
+        assert np.array_equal(np.sort(lanes), np.arange(d)), d
+    for d in (592, 640, 1024, 1152, 2304, 4096):
+        assert tbwd.split_d_fullint_cluster(d)[0] == {
+            592: 3, 640: 3, 1024: 4, 1152: 5, 2304: 9, 4096: 16}[d]
+    assert tbwd.split_d_fullint_cluster(576) == (1, 1)
+
+
+@pytest.mark.parametrize("d", [592, 640, 1024, 1152, 2304, 4608])
+def test_split_d_fullint_partials_sum_to_the_integer_scores(d):
+    """S = Q_int·K_int^T and dP = dOv_int·V_int^T as the cluster sums them:
+    each rank's int32 partial over its lane share of the plan, added in
+    rank order, equal the unsplit int32 products of the JAX package's
+    kernels (``lax.dot_general`` of the int8 operands into int32), exactly,
+    on seeded int8 rows of ±127 (64 query rows, 80 keys)."""
+    rng = np.random.default_rng(d)
+    c, per = tbwd.split_d_fullint_cluster(d)
+    width = per * tfa.SPLIT_D_SLICE
+    for rows, cols in ((64, 80), (64, 64)):
+        a = rng.integers(-127, 128, (rows, d), dtype=np.int8)
+        b = rng.integers(-127, 128, (cols, d), dtype=np.int8)
+        ta, tb = torch.from_numpy(a).int(), torch.from_numpy(b).int()
+        total = torch.zeros((rows, cols), dtype=torch.int32)
+        for r in range(c):
+            lo, hi = r * width, min((r + 1) * width, d)
+            total += ta[:, lo:hi] @ tb[:, lo:hi].T
+        want = jax.lax.dot_general(
+            jnp.asarray(a), jnp.asarray(b), (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.int32)
+        assert np.array_equal(total.numpy(), np.asarray(want)), d
+
+
+def test_fullint_body_is_split_d_past_576_at_every_width():
+    """Every head dim above 576 (in 16-lane steps, and one off the steps)
+    takes the split-D pair at level 1 and at level-2 widths of whole k
+    steps, of half steps and narrower."""
+    for d in list(range(592, 4609, 16)) + [580, 1000]:
+        for width in (0, 1, 16, 48, 64, 96, 512):
+            assert tbwd.fullint_body(d, width) == "split_d", (d, width)
+
+
 DIMS = dict(vocab_size=128, d_model=256, num_layers=2, num_heads=2,
             num_kv_heads=1, head_dim=640, d_ff=512, max_seq=256)
 # Weights and 32 tokens from this seed put no run-time quantized value
